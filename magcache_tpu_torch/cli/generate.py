@@ -1,16 +1,21 @@
-"""Generation CLI, the Wan t2v subset of ``magcache_tpu.cli.generate``.
+"""Generation CLI, the ported subset of ``magcache_tpu.cli.generate``:
+Wan2.1 t2v (``--task t2v-1.3B``) and Open-Sora 1.2 t2v (``--task open-sora``).
 
 Flag names follow the reference adapters (``--task --size --frame_num
 --sample_steps --sample_shift --sample_solver --sample_guide_scale
 --base_seed --use_magcache --magcache_thresh --magcache_K --retention_ratio
---magcache_calibration``), and the output file name encodes the E/K/R
-triple. Runs on a CUDA card by default; ``--device cpu`` runs the plain
-PyTorch ops instead of the kernels (tests use it at ``--tiny`` size).
+--magcache_calibration``; Open-Sora adds ``--resolution --aspect_ratio``),
+and the output file name encodes the E/K/R triple. Unset flags take each
+family's reference defaults, as in the JAX CLI. Runs on a CUDA card by
+default; ``--device cpu`` runs the plain PyTorch ops instead of the kernels
+(tests use it at ``--tiny`` size).
 
 Examples:
   python -m magcache_tpu_torch.cli.generate --task t2v-1.3B --size 832*480 \
       --sample_steps 50 --use_magcache --magcache_thresh 0.12 --magcache_K 2
   python -m magcache_tpu_torch.cli.generate --task t2v-1.3B --magcache_calibration
+  python -m magcache_tpu_torch.cli.generate --task open-sora --resolution 480p \
+      --aspect_ratio 9:16 --frame_num 51 --use_magcache
 Checkpoints are not loaded yet: the DiT has random weights and the text
 encoder is the hash-seeded mock, so the output is latents, not a video.
 """
@@ -25,23 +30,33 @@ import time
 import numpy as np
 import torch
 
-# task families of the JAX CLI; only t2v-1.3B is ported
+# task families of the JAX CLI, and the ported tasks with their presets
 _KNOWN = ("flux", "qwen", "hunyuan", "framepack", "open-sora", "cogvideox",
           "latte", "vchitect", "omnigen2", "t2v", "t2i", "i2v", "flf2v",
           "ti2v", "vace")
-_PORTED = {"t2v-1.3B": "wan2.1-t2v-1.3B"}
+_PORTED = {"t2v-1.3B": "wan2.1-t2v-1.3B", "open-sora": "opensora-v1.2"}
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("magcache_tpu_torch generate")
     p.add_argument("--task", default="t2v-1.3B",
-                   help="t2v-1.3B (the only task ported so far)")
-    p.add_argument("--size", default="832*480", help="W*H pixels")
-    p.add_argument("--frame_num", type=int, default=81)
-    p.add_argument("--sample_steps", type=int, default=50)
-    p.add_argument("--sample_shift", type=float, default=5.0)
+                   help="t2v-1.3B | open-sora (the tasks ported so far)")
+    p.add_argument("--size", default=None,
+                   help="W*H pixels (unset: 832*480 for both families)")
+    p.add_argument("--frame_num", type=int, default=None,
+                   help="frames (unset: 81)")
+    p.add_argument("--sample_steps", type=int, default=None,
+                   help="unset: 50 for Wan, 30 for Open-Sora")
+    p.add_argument("--sample_shift", type=float, default=None,
+                   help="Wan flow shift (unset: 5.0)")
     p.add_argument("--sample_solver", default="unipc", choices=["unipc"])
-    p.add_argument("--sample_guide_scale", type=float, default=5.0)
+    p.add_argument("--sample_guide_scale", type=float, default=None,
+                   help="unset: 5.0 for Wan, 7.0 for Open-Sora")
+    p.add_argument("--resolution", default=None,
+                   help="open-sora bucket resolution (480p, 720p, ...); "
+                        "overrides --size via the training bucket tables")
+    p.add_argument("--aspect_ratio", default=None,
+                   help="open-sora bucket aspect ratio (9:16, 16:9, ...)")
     p.add_argument("--base_seed", type=int, default=0)
     p.add_argument("--prompt", default="Two anthropomorphic cats in comfy "
                    "boxing gear and bright gloves fight intensely on a "
@@ -64,9 +79,57 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _pipeline(args):
+def _wan_pipeline(args, device, ratios):
     from magcache_tpu_torch.pipelines.wan import WanPipeline, WanPipelineConfig
 
+    w, h = _parse_size(args.size)
+    frame_num = args.frame_num or 81
+    if args.tiny:
+        w, h, frame_num = 64, 32, 9
+    cfg = WanPipelineConfig(
+        model=_PORTED[args.task], task="t2v", size=(w, h), frame_num=frame_num,
+        sample_steps=args.sample_steps or 50,
+        sample_shift=5.0 if args.sample_shift is None else args.sample_shift,
+        sample_solver=args.sample_solver,
+        guide_scale=(5.0 if args.sample_guide_scale is None
+                     else args.sample_guide_scale),
+        use_magcache=args.use_magcache, magcache_thresh=args.magcache_thresh,
+        magcache_K=args.magcache_K, retention_ratio=args.retention_ratio,
+        magcache_calibration=args.magcache_calibration,
+        mag_ratios_override=ratios, dtype=args.dtype, tiny=args.tiny)
+    return WanPipeline(cfg, device), cfg.sample_steps, 2
+
+
+def _open_sora_pipeline(args, device, ratios):
+    from magcache_tpu_torch.pipelines.open_sora import (OpenSoraPipeline,
+                                                        OpenSoraPipelineConfig)
+
+    w, h = _parse_size(args.size)
+    frame_num = args.frame_num or 81
+    if args.tiny:
+        w = h = 32
+        frame_num = 8
+    cfg = OpenSoraPipelineConfig(
+        num_frames=frame_num, height=h, width=w, resolution=args.resolution,
+        aspect_ratio=args.aspect_ratio,
+        num_sampling_steps=args.sample_steps or 30,
+        cfg_scale=(7.0 if args.sample_guide_scale is None
+                   else args.sample_guide_scale),
+        caption_len=6 if args.tiny else 300,
+        use_magcache=args.use_magcache, magcache_thresh=args.magcache_thresh,
+        magcache_K=args.magcache_K, retention_ratio=args.retention_ratio,
+        magcache_calibration=args.magcache_calibration, magcache_ratios=ratios,
+        dtype=args.dtype, tiny=args.tiny)
+    return OpenSoraPipeline(cfg, device), cfg.num_sampling_steps, 1
+
+
+def _parse_size(size):
+    w, h = (int(v) for v in (size or "832*480").split("*"))
+    return w, h
+
+
+def _pipeline(args):
+    """``(pipeline, sample steps, cache lanes)`` for ``--task``."""
     if not args.task.startswith(_KNOWN):
         raise SystemExit(
             f"--task {args.task!r} matches no model family; known prefixes: "
@@ -78,29 +141,19 @@ def _pipeline(args):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available "
                          "(pass --device cpu to run the plain ops)")
-    w, h = (int(v) for v in args.size.split("*"))
-    frame_num = args.frame_num
-    if args.tiny:
-        w, h, frame_num = 64, 32, 9
     ratios = None
     if args.mag_ratios_json:
         with open(args.mag_ratios_json) as f:
             ratios = tuple(json.load(f))
-    cfg = WanPipelineConfig(
-        model=_PORTED[args.task], task="t2v", size=(w, h), frame_num=frame_num,
-        sample_steps=args.sample_steps, sample_shift=args.sample_shift,
-        sample_solver=args.sample_solver, guide_scale=args.sample_guide_scale,
-        use_magcache=args.use_magcache, magcache_thresh=args.magcache_thresh,
-        magcache_K=args.magcache_K, retention_ratio=args.retention_ratio,
-        magcache_calibration=args.magcache_calibration,
-        mag_ratios_override=ratios, dtype=args.dtype, tiny=args.tiny)
-    return WanPipeline(cfg, device)
+    if args.task == "open-sora":
+        return _open_sora_pipeline(args, device, ratios)
+    return _wan_pipeline(args, device, ratios)
 
 
 def main(argv=None):
     args = build_parser().parse_args(sys.argv[1:] if argv is None else argv)
     t0 = time.time()
-    pipe = _pipeline(args)
+    pipe, steps, lanes = _pipeline(args)
     out = pipe.generate(args.prompt, seed=args.base_seed)
     dt = time.time() - t0
 
@@ -120,9 +173,11 @@ def main(argv=None):
         lat = out.latents.cpu().numpy()
         np.save(save_file + "_latents.npy", lat)
         print(f"latents {lat.shape} -> {save_file}_latents.npy")
-        print(f"skipped {int(out.skips.sum())} of {2 * args.sample_steps} "
-              "lane-forwards (cond + uncond per step)")
-    print(f"done: {args.sample_steps} steps in {dt:.1f}s (sampling "
+        what = ("lane-forwards (cond + uncond per step)" if lanes == 2 else
+                "forwards (cond + uncond as one joint batch per step)")
+        print(f"skipped {int(out.skips.sum())} of {lanes * steps} {what}; "
+              f"skipped steps {np.flatnonzero(out.skips.any(1)).tolist()}")
+    print(f"done: {steps} steps in {dt:.1f}s (sampling "
           f"{out.timings['total_s']:.1f}s) on {pipe.device} "
           f"mode={'magcache' if args.use_magcache else 'full'}")
 

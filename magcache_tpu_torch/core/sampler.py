@@ -19,6 +19,9 @@ Same design as ``magcache_tpu.core.sampler``, in PyTorch's eager idiom:
   device-to-host copy at the end.
 - UniPC coefficients are computed on the host in f64 and cast to f32 for
   the device update, as the JAX sampler does.
+- ``sample_euler`` is the linear-update loop (RFLOW's Euler step); Open-Sora
+  runs it with a joint CFG batch of 2 rows under one cache lane and an
+  N-branch ``combine_fn``.
 """
 
 from __future__ import annotations
@@ -33,7 +36,8 @@ from magcache_tpu_torch.core.calibration import calibration_stats
 from magcache_tpu_torch.core.magcache import MagCacheConfig, compute_skip_schedule
 from magcache_tpu_torch.schedulers.unipc import UniPCSchedule
 
-__all__ = ["DiTCore", "unipc_executor", "sample_unipc", "calibrate_unipc"]
+__all__ = ["DiTCore", "unipc_executor", "sample_unipc", "calibrate_unipc",
+           "sample_euler"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,13 +127,17 @@ def _cached_trunk(core: DiTCore, hidden, ctx, cache, skip_bits: np.ndarray,
     return hidden + resid, resid
 
 
-def _lane_setup(cache_cfg, num_steps, guidance_scale, lanes, batch):
+def _lane_setup(cache_cfg, num_steps, guidance_scale, lanes, batch,
+                combine_fn=None):
     """Resolve ``(skip_mask, n_lanes, lane_of_row, partial_lanes)``:
     ``n_lanes`` copies of x are stacked per step; the cache may have fewer
-    lanes (one lane over both CFG copies when caching is off)."""
+    lanes (one lane over both CFG copies when caching is off, or Open-Sora's
+    single lane over its joint CFG batch)."""
     skip_mask, cache_lanes = _lane_masks(cache_cfg, num_steps)
     if lanes is not None:
         n_lanes = lanes
+    elif combine_fn is not None:
+        n_lanes = max(cache_lanes, 1)
     elif guidance_scale is not None:
         n_lanes = 2
     else:
@@ -299,3 +307,93 @@ def sample_unipc(
     if return_skips:
         return carry[0], np.stack(skips)
     return carry[0]
+
+
+@torch.inference_mode()
+def sample_euler(
+    core: DiTCore,
+    x_init: torch.Tensor,
+    cond,
+    *,
+    timesteps: np.ndarray,
+    dts: np.ndarray,
+    cache_cfg: Optional[MagCacheConfig] = None,
+    lanes: Optional[int] = None,
+    combine_fn: Optional[Callable] = None,
+    skip_mask_override: Optional[np.ndarray] = None,
+    x_coeffs: Optional[np.ndarray] = None,
+    noise_scales: Optional[np.ndarray] = None,
+    noise_key=None,
+    dynamic_skip=None,
+    dpm_coeffs=None,
+    return_skips: bool = False,
+    post_step: Optional[Callable] = None,
+    calibrate: bool = False,
+    calibrate_lanes: Optional[int] = None,
+):
+    """Euler sampler ``x <- x + dt_i * v`` with MagCache (the plain-t2v subset
+    of ``magcache_tpu.core.sampler.sample_euler``).
+
+    ``cond`` is lane-stacked on axis 0 when CFG is on; ``combine_fn(chunks)
+    -> v`` takes the per-lane slices of the head's output (without it, the
+    output is v). ``dts`` is the per-step multiplier of v (t-deltas / T
+    for RFLOW). ``skip_mask_override`` (``bool[num_steps, lanes]``) replaces
+    the schedule; ``return_skips`` also returns the realized skip bits.
+
+    ``calibrate=True`` runs full compute and returns ``(x, stats f64
+    [num_steps-1, calibrate_lanes, 3])``, each step's residual against the
+    previous step's; ``calibrate_lanes`` (default: the stacked lanes) is the
+    cache's lane count, 1 for a joint CFG batch.
+
+    ``x_coeffs``, ancestral noise, ``dynamic_skip``, ``dpm_coeffs`` and
+    ``post_step`` are not ported yet and raise.
+    """
+    unported = {"x_coeffs": x_coeffs, "noise_scales": noise_scales,
+                "noise_key": noise_key,
+                "dynamic_skip": dynamic_skip, "dpm_coeffs": dpm_coeffs,
+                "post_step": post_step}
+    given = [k for k, v in unported.items() if v is not None]
+    if given:
+        raise NotImplementedError(f"sample_euler: {', '.join(given)} not ported yet")
+    num_steps = len(timesteps)
+    batch = x_init.shape[0]
+    if calibrate and (cache_cfg is not None or skip_mask_override is not None
+                      or return_skips):
+        raise ValueError("calibrate is a full-compute recording mode")
+    skip_mask, n_lanes, lane_of_row, partial_lanes = _lane_setup(
+        cache_cfg, num_steps, None, lanes, batch, combine_fn)
+    if skip_mask_override is not None:
+        skip_mask = np.asarray(skip_mask_override, bool).reshape(skip_mask.shape)
+    ts = np.asarray(timesteps, np.float32)
+    dts = np.asarray(dts, np.float32)
+    cal_lanes = calibrate_lanes or n_lanes
+
+    x = x_init
+    cache = None
+    skips, stats = [], []
+    for i in range(num_steps):
+        x2 = _stack_lanes(x, n_lanes)
+        tvec = torch.full((x2.shape[0],), float(ts[i]), dtype=torch.float32,
+                          device=x2.device)
+        hidden, ctx = core.prepare(x2, tvec, cond)
+        if cache is None:
+            cache = torch.zeros_like(hidden)
+        cache_prev = cache
+        h_out, cache = _cached_trunk(core, hidden, ctx, cache, skip_mask[i],
+                                     lane_of_row, partial_lanes)
+        out = core.head(h_out, ctx)
+        v = out if combine_fn is None else combine_fn(
+            [out[l * batch:(l + 1) * batch] for l in range(n_lanes)])
+        x = x + float(dts[i]) * v.to(x.dtype)
+        if calibrate:
+            rpl = x2.shape[0] // cal_lanes
+            stats.append(torch.stack([
+                calibration_stats(cache[l * rpl:(l + 1) * rpl],
+                                  cache_prev[l * rpl:(l + 1) * rpl])
+                for l in range(cal_lanes)]))
+        skips.append(skip_mask[i])
+    if calibrate:
+        return x, torch.stack(stats[1:]).double().cpu().numpy()
+    if return_skips:
+        return x, np.stack(skips)
+    return x

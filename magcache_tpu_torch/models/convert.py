@@ -1,7 +1,8 @@
 """Parameter conversion into the port's modules.
 
-``wan_params_from_numpy`` turns the JAX package's Wan parameter pytree, with
-its leaves as numpy arrays, into a ``WanModel`` state dict. Two layout rules:
+``wan_params_from_numpy`` and ``stdit3_params_from_numpy`` turn the JAX
+package's Wan and STDiT3 parameter pytrees, with their leaves as numpy
+arrays, into ``WanModel`` and ``STDiT3Model`` state dicts. Two layout rules:
 the JAX block weights are depth-stacked ``[L, ...]`` (one entry per block
 here), and JAX's ``linear`` is ``x @ w`` with ``w: [d_in, d_out]`` while
 ``nn.Linear`` keeps ``[d_out, d_in]``.
@@ -14,6 +15,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from magcache_tpu_torch.models.stdit3 import STDiT3Config
 from magcache_tpu_torch.models.wan import WanConfig
 
 _BLOCK_LINEARS = ("q", "k", "v", "o", "cross_q", "cross_k", "cross_v",
@@ -58,4 +60,47 @@ def wan_params_from_numpy(tree: dict, cfg: WanConfig, device=None,
             put(f"blocks.{i}.{name}", blocks[name][i])
     put("head.modulation", tree["head"]["modulation"])
     put_linear("head.out", tree["head"]["out"])
+    return sd
+
+
+_STDIT3_LINEARS = ("qkv", "proj", "cross_q", "cross_kv", "cross_o", "mlp1", "mlp2")
+_STDIT3_VECTORS = ("scale_shift", "q_norm", "k_norm")
+
+
+def stdit3_params_from_numpy(tree: dict, cfg: STDiT3Config, device=None,
+                             dtype: Optional[torch.dtype] = None
+                             ) -> Dict[str, torch.Tensor]:
+    """State dict for ``STDiT3Model(cfg)`` from a numpy STDiT3 pytree (the
+    layout of ``magcache_tpu.models.stdit3.init_stdit3_params``).
+
+    ``dtype`` is the dtype of the block linears (default
+    ``cfg.torch_dtype``); every other parameter is f32.
+    """
+    dtype = cfg.torch_dtype if dtype is None else dtype
+    sd: Dict[str, torch.Tensor] = {}
+
+    def put(name, arr, dt=torch.float32):
+        sd[name] = torch.from_numpy(np.array(arr, np.float32)).to(
+            device=device, dtype=dt)
+
+    def put_linear(name, p, dt=torch.float32):
+        put(f"{name}.weight", np.asarray(p["w"]).T, dt)
+        put(f"{name}.bias", p["b"], dt)
+
+    put("y_null", tree["y_null"])
+    put_linear("patch_embed", tree["patch_embed"])
+    for grp in ("t_embed", "fps_embed", "y_embed"):
+        for io in ("in", "out"):
+            put_linear(f"{grp}.{io}", tree[grp][io])
+    put_linear("t_block", tree["t_block"])
+    for kind in ("spatial", "temporal"):
+        g = tree[kind]
+        for i in range(cfg.depth):
+            for name in _STDIT3_LINEARS:
+                put_linear(f"{kind}.{i}.{name}",
+                           {"w": g[name]["w"][i], "b": g[name]["b"][i]}, dtype)
+            for name in _STDIT3_VECTORS:
+                put(f"{kind}.{i}.{name}", g[name][i])
+    put("final.scale_shift", tree["final"]["scale_shift"])
+    put_linear("final.out", tree["final"]["out"])
     return sd

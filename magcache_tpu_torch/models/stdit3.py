@@ -1,0 +1,323 @@
+"""STDiT3, the Open-Sora 1.2 spatial-temporal DiT, as PyTorch modules.
+
+Same model as ``magcache_tpu.models.stdit3`` (behavioral source
+``videosys/models/transformers/open_sora_transformer_3d.py``): ``depth``
+paired (spatial, temporal) blocks; each block is AdaLN-modulated
+self-attention (spatial over the S patches of a frame, temporal over the T
+frames at a location, with RoPE), cross-attention to the caption and an MLP,
+gated 6-way by ``scale_shift_table + t6``; a T2I final layer with 2-way
+modulation; a 2-D sincos position embedding with the multi-resolution scale.
+
+The block runs the JAX package's packed-path composition, through the
+kernels (the TPU's 128-lane head padding is not carried over: heads stay 72
+wide):
+
+- spatial: K7 ``lnmod_matmul`` (LayerNorm + modulate + qkv projection) ->
+  K5 ``grouped_attention_fused_qkv`` (one group per frame, qk-norm fused) ->
+  K8 ``matmul_gated_residual`` (out-projection + gate + residual);
+- temporal: K3 ``layer_norm_mod`` -> qkv ``nn.Linear`` on the [S, T] view ->
+  K5 (groups of T, qk-norm and RoPE fused) -> K8 (gate, no residual) ->
+  transpose back and add;
+- cross: K6 ``fused_cross_attention`` with the residual fused;
+- MLP: K7 with the gelu epilogue -> K8 with the residual.
+
+Dtypes: in a bf16 config the block linears are bf16; the embedders, the
+modulation tables, the qk-norm gains and the final layer stay f32, as the
+JAX parameters are. Unported (raise ``NotImplementedError``): PAB,
+masked-frame conditioning (``x_mask``), frames of more than 2048 tokens (the
+TPU routes those to K1 with the fused qk-norm), and ``qk_norm=False`` (the
+grouped kernel's fixed softmax shift is exact only for RMS-normed scores).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from magcache_tpu_torch.core.sampler import DiTCore
+from magcache_tpu_torch.models.common import init_linear_, timestep_embedding
+from magcache_tpu_torch.models.wan import patchify, unpatchify
+from magcache_tpu_torch.ops.attention import (QKNORM_FIXED_MAX,
+                                              fused_cross_attention,
+                                              grouped_attention_fused_qkv)
+from magcache_tpu_torch.ops.fused_prologue import (layer_norm_mod, lnmod_matmul,
+                                                   matmul_gated_residual)
+from magcache_tpu_torch.ops.norms import layer_norm
+from magcache_tpu_torch.ops.rope import grouped_rope_tables
+
+__all__ = ["STDiT3Config", "STDiT3Model", "STDIT3_XL_2", "make_stdit3_core",
+           "pos_embed_2d"]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+MAX_FRAME_TOKENS = 2048
+
+
+@dataclasses.dataclass(frozen=True)
+class STDiT3Config:
+    hidden: int = 1152
+    heads: int = 16
+    depth: int = 28                     # paired spatial + temporal blocks
+    mlp_ratio: int = 4
+    in_channels: int = 4
+    caption_dim: int = 4096
+    patch: Tuple[int, int, int] = (1, 2, 2)
+    freq_dim: int = 256
+    caption_max_len: int = 300
+    qk_norm: bool = True
+    input_sq_size: int = 512            # multi-resolution pos-embed base
+    eps: float = 1e-6
+    dtype: str = "float32"
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden // self.heads
+
+    @property
+    def out_channels(self) -> int:
+        return self.in_channels * 2     # mean + variance; RFLOW takes chunk 0
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return _DTYPES[self.dtype]
+
+    @property
+    def patch_in(self) -> int:
+        pt, ph, pw = self.patch
+        return self.in_channels * pt * ph * pw
+
+    @property
+    def patch_out(self) -> int:
+        pt, ph, pw = self.patch
+        return self.out_channels * pt * ph * pw
+
+    @staticmethod
+    def tiny(**kw) -> "STDiT3Config":
+        d = dict(hidden=64, heads=4, depth=2, caption_dim=24, freq_dim=32,
+                 caption_max_len=4)
+        d.update(kw)
+        return STDiT3Config(**d)
+
+
+# Open-Sora 1.2: STDiT3-XL/2
+STDIT3_XL_2 = STDiT3Config()
+
+
+def pos_embed_2d(dim: int, gh: int, gw: int, scale: float = 1.0,
+                 base_size: Optional[int] = None) -> np.ndarray:
+    """2-D sincos position embedding ``f32[gh*gw, dim]`` over the spatial
+    patch grid, with the multi-resolution coordinates
+    ``arange(g) / scale * base_size / g``."""
+    def emb_1d(pos, d):
+        omega = 1.0 / 10000.0 ** (np.arange(d // 2) / (d / 2))
+        out = pos[:, None] * omega[None]
+        return np.concatenate([np.sin(out), np.cos(out)], axis=1)
+
+    hh = np.arange(gh) / scale
+    ww = np.arange(gw) / scale
+    if base_size is not None:
+        hh = hh * (base_size / gh)
+        ww = ww * (base_size / gw)
+    ys, xs = np.meshgrid(hh, ww, indexing="ij")
+    e = np.concatenate([emb_1d(ys.reshape(-1), dim // 2),
+                        emb_1d(xs.reshape(-1), dim // 2)], axis=1)
+    return e.astype(np.float32)
+
+
+def _param(shape, device, fill: float) -> nn.Parameter:
+    return nn.Parameter(torch.full(shape, fill, dtype=torch.float32, device=device))
+
+
+def _embedder(d_in: int, d: int, device) -> nn.ModuleDict:
+    return nn.ModuleDict({"in": nn.Linear(d_in, d, device=device),
+                          "out": nn.Linear(d, d, device=device)})
+
+
+class STDiT3Block(nn.Module):
+    """One spatial or temporal block; parameter names follow the JAX keys."""
+
+    def __init__(self, cfg: STDiT3Config, device=None):
+        super().__init__()
+        self.cfg = cfg
+        d, dt = cfg.hidden, cfg.torch_dtype
+
+        def lin(d_in, d_out):
+            return nn.Linear(d_in, d_out, device=device, dtype=dt)
+
+        self.scale_shift = _param((6, d), device, 0.0)
+        self.qkv, self.proj = lin(d, 3 * d), lin(d, d)
+        self.cross_q, self.cross_kv, self.cross_o = lin(d, d), lin(d, 2 * d), lin(d, d)
+        self.mlp1, self.mlp2 = lin(d, cfg.mlp_ratio * d), lin(cfg.mlp_ratio * d, d)
+        self.q_norm = _param((cfg.head_dim,), device, 1.0)
+        self.k_norm = _param((cfg.head_dim,), device, 1.0)
+
+    def forward(self, h: torch.Tensor, t6: torch.Tensor, y: torch.Tensor, *,
+                grid: Tuple[int, int, int], temporal: bool,
+                rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                ) -> torch.Tensor:
+        cfg = self.cfg
+        rows, n, d = h.shape
+        t, hh, ww = grid
+        s = hh * ww
+        e = (self.scale_shift[None] + t6).float()          # [rows, 6, d]
+        sh_a, sc_a, g_a, sh_m, sc_m, g_m = e.unbind(1)
+        attn = dict(scale=1.0 / math.sqrt(cfg.head_dim),
+                    qk_gains=(self.q_norm, self.k_norm), true_d=cfg.head_dim,
+                    eps=1e-6, fixed_max=QKNORM_FIXED_MAX)
+        if temporal:
+            xn = layer_norm_mod(h, scale=sc_a, shift=sh_a, eps=cfg.eps)
+            xr = xn.reshape(rows, t, s, d).transpose(1, 2).reshape(rows * s, t, d)
+            qkv = self.qkv(xr)
+            o = grouped_attention_fused_qkv(qkv.reshape(1, rows * s * t, 3 * d),
+                                            cfg.heads, group=t, rope_tables=rope,
+                                            **attn)
+            a = matmul_gated_residual(o.reshape(rows * s, t, d), self.proj.weight,
+                                      self.proj.bias, g_a, None, rows_out=t,
+                                      batch_repeat=s)
+            h = h + a.reshape(rows, s, t, d).transpose(1, 2).reshape(rows, n, d)
+        else:
+            hf = h.reshape(rows * t, s, d)
+            qkv = lnmod_matmul(hf, sc_a, sh_a, self.qkv.weight, self.qkv.bias,
+                               eps=cfg.eps, batch_repeat=t)
+            o = grouped_attention_fused_qkv(qkv, cfg.heads, group=s, **attn)
+            h = matmul_gated_residual(o, self.proj.weight, self.proj.bias, g_a,
+                                      hf, batch_repeat=t).reshape(rows, n, d)
+        kv = self.cross_kv(y)
+        h = fused_cross_attention(
+            h, self.cross_q.weight, self.cross_q.bias, kv[..., :d].contiguous(),
+            kv[..., d:].contiguous(), self.cross_o.weight, self.cross_o.bias,
+            cfg.heads, scale=attn["scale"], true_d=cfg.head_dim, residual=True)
+        y1 = lnmod_matmul(h, sc_m, sh_m, self.mlp1.weight, self.mlp1.bias,
+                          act="gelu", eps=cfg.eps)
+        return matmul_gated_residual(y1, self.mlp2.weight, self.mlp2.bias, g_m, h)
+
+
+class STDiT3Final(nn.Module):
+    def __init__(self, cfg: STDiT3Config, device=None):
+        super().__init__()
+        self.scale_shift = _param((2, cfg.hidden), device, 0.0)
+        self.out = nn.Linear(cfg.hidden, cfg.patch_out, device=device)
+
+
+class STDiT3Model(nn.Module):
+    """STDiT3. Build on ``device``, then ``init(generator)`` for random
+    weights or ``load_state_dict`` (``models/convert.py``)."""
+
+    def __init__(self, cfg: STDiT3Config, device=None):
+        super().__init__()
+        if not cfg.qk_norm:
+            raise NotImplementedError(
+                "STDiT3 without qk-norm is not ported: the grouped kernel's "
+                "fixed softmax shift needs RMS-normed scores")
+        self.cfg = cfg
+        d = cfg.hidden
+        self.y_null = _param((cfg.caption_max_len, cfg.caption_dim), device, 0.0)
+        self.patch_embed = nn.Linear(cfg.patch_in, d, device=device)
+        self.t_embed = _embedder(cfg.freq_dim, d, device)
+        self.fps_embed = _embedder(cfg.freq_dim, d, device)
+        self.t_block = nn.Linear(d, 6 * d, device=device)
+        self.y_embed = _embedder(cfg.caption_dim, d, device)
+        self.spatial = nn.ModuleList(STDiT3Block(cfg, device) for _ in range(cfg.depth))
+        self.temporal = nn.ModuleList(STDiT3Block(cfg, device) for _ in range(cfg.depth))
+        self.final = STDiT3Final(cfg, device)
+
+    def init(self, generator: torch.Generator) -> "STDiT3Model":
+        """Random weights from ``generator`` (on its device), drawn as
+        ``magcache_tpu.models.stdit3.init_stdit3_params`` draws them (the
+        draws themselves differ): LeCun-normal linears with zero bias,
+        modulation tables ``N(0, 1/hidden)``, unit qk-norm gains, and the
+        null caption ``N(0, 1/caption_dim)``."""
+        cfg = self.cfg
+
+        def randn(shape, std):
+            return torch.randn(shape, generator=generator,
+                               device=generator.device) * std
+
+        with torch.no_grad():
+            for m in self.modules():
+                if isinstance(m, nn.Linear):
+                    init_linear_(m, generator)
+            for m in (*self.spatial, *self.temporal, self.final):
+                m.scale_shift.copy_(randn(m.scale_shift.shape, cfg.hidden ** -0.5))
+            self.y_null.copy_(randn(self.y_null.shape, cfg.caption_dim ** -0.5))
+        return self
+
+
+def make_stdit3_core(model: STDiT3Model, grid: Tuple[int, int, int], *,
+                     pab=None, pixel_size: Optional[Tuple[int, int]] = None
+                     ) -> DiTCore:
+    """(prepare, trunk, head) for a static latent patch grid (T, H, W).
+
+    cond = {"y": f[rows, caption_len, caption_dim], "fps": f[rows]}
+    x    = latent video f[rows, T*pt, H*ph, W*pw, C] (rows holds the joint
+           CFG batch); the output has 2*C channels (RFLOW takes the first C).
+
+    ``pixel_size`` (H_px, W_px) switches on the multi-resolution position
+    embedding: scale = sqrt(H_px*W_px) / input_sq_size, base_size =
+    round(sqrt(S)).
+    """
+    cfg = model.cfg
+    t_len, gh, gw = grid
+    s = gh * gw
+    if pab is not None:
+        raise NotImplementedError("PAB is not ported yet")
+    if s > MAX_FRAME_TOKENS:
+        raise NotImplementedError(
+            f"frames of {s} > {MAX_FRAME_TOKENS} tokens are not ported yet "
+            "(the TPU path runs them through K1 with the fused qk-norm)")
+    device = model.patch_embed.weight.device
+    d = cfg.hidden
+    if pixel_size is not None:
+        scale = float(np.sqrt(pixel_size[0] * pixel_size[1]) / cfg.input_sq_size)
+        pos = pos_embed_2d(d, gh, gw, scale=scale, base_size=round(np.sqrt(s)))
+    else:
+        pos = pos_embed_2d(d, gh, gw)
+    pos2d = torch.from_numpy(pos).to(device)
+    rope = tuple(torch.from_numpy(a).to(device)
+                 for a in grouped_rope_tables(t_len, t_len, cfg.head_dim))
+
+    def embed(mlp: nn.ModuleDict, v: torch.Tensor) -> torch.Tensor:
+        return mlp["out"](F.silu(mlp["in"](timestep_embedding(v, cfg.freq_dim))))
+
+    @torch.inference_mode()
+    def prepare(x, t, cond):
+        if "x_mask" in cond:
+            raise NotImplementedError("masked-frame conditioning is not ported yet")
+        dt = cfg.torch_dtype
+        rows = x.shape[0]
+        # bf16 tokens times the f32 patch weight promote to f32 (as in JAX)
+        h = model.patch_embed(patchify(cfg, x.to(dt)).float())
+        h = (h.reshape(rows, t_len, s, d) + pos2d).reshape(rows, t_len * s, d).to(dt)
+        fps = cond.get("fps")
+        if fps is None:
+            fps = torch.full((rows,), 24.0, dtype=torch.float32, device=x.device)
+        te = embed(model.t_embed, t) + embed(model.fps_embed, fps)
+        t6 = model.t_block(F.silu(te)).reshape(rows, 6, d)
+        y = F.gelu(model.y_embed["in"](cond["y"].float()), approximate="tanh")
+        y = model.y_embed["out"](y).to(dt)
+        return h, {"t6": t6, "te": te, "y": y}
+
+    @torch.inference_mode()
+    def trunk(hidden, ctx):
+        h = hidden
+        for sp, tp in zip(model.spatial, model.temporal):
+            h = sp(h, ctx["t6"], ctx["y"], grid=grid, temporal=False)
+            h = tp(h, ctx["t6"], ctx["y"], grid=grid, temporal=True, rope=rope)
+        return h
+
+    @torch.inference_mode()
+    def head(hidden, ctx):
+        fin = model.final
+        mod = fin.scale_shift[None] + ctx["te"][:, None]
+        shift, scale = mod[:, 0:1], mod[:, 1:2]
+        # bf16 LayerNorm output times f32 modulation promotes to f32 in JAX
+        out = layer_norm(hidden, eps=cfg.eps).float() * (1 + scale) + shift
+        out = fin.out(out.to(hidden.dtype).float())
+        return unpatchify(cfg, out, grid)
+
+    return DiTCore(prepare, trunk, head)

@@ -1,12 +1,23 @@
-"""Attention for DiT trunks: kernel K1 beside its plain version, and the
-``attention()`` dispatcher.
+"""Attention for DiT trunks: kernels K1, K5 and K6 beside their plain
+versions, and the ``attention()`` dispatcher.
 
 Layout at the API boundary is ``[batch, seq, heads, head_dim]``, as the
-patch-embedded activations are. ``flash_attention_bshd`` (K1) takes a CUDA
-tensor to the hand-written kernel in ``csrc/flash_attention.cu`` and a CPU
-tensor to ``flash_attention_bshd_plain``; a CUDA tensor the kernel does not
-take (another dtype, a head dim other than 128) raises. The launch count is
-``flash_attention_bshd.launches``.
+patch-embedded activations are. Each kernel wrapper takes a CUDA tensor to
+its hand-written kernel and a CPU tensor to ``<name>_plain``; a CUDA tensor
+the kernel does not take raises. Launch counts are ``<wrapper>.launches``.
+
+- ``flash_attention_bshd`` (K1, ``csrc/flash_attention.cu``): full
+  attention, head dim 128.
+- ``grouped_attention_fused_qkv`` (K5, ``csrc/grouped_attention.cu``):
+  block-diagonal grouped attention read from the fused ``[B, S, 3*H*D]``
+  projection with the per-head RMS qk-norm and optional in-group RoPE fused
+  in; head dim 72 (STDiT3's spatial and temporal attention).
+- ``fused_cross_attention`` (K6, ``csrc/cross_attention.cu``): q-projection,
+  attention over a short context and out-projection (+ residual) in one
+  kernel; head dim 72.
+
+K5 and K6 keep the published 72-wide heads; the TPU package pads them to 128
+lanes, which the port does not carry over.
 
 Wan runs cross-attention over the full zero-padded 512-token context without
 masking; ``kv_len`` masks trailing keys for callers that do mask.
@@ -15,13 +26,16 @@ masking; ``kv_len`` masks trailing keys for callers that do mask.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-from magcache_tpu_torch.ops.build import load_cuda_library
+from magcache_tpu_torch.ops.build import check_bf16, check_launch, load_cuda_library
+from magcache_tpu_torch.ops.rope import apply_rope
 
 __all__ = ["attention", "flash_attention_bshd", "flash_attention_bshd_plain",
+           "grouped_attention_fused_qkv", "grouped_attention_fused_qkv_plain",
+           "fused_cross_attention", "fused_cross_attention_plain",
            "QKNORM_FIXED_MAX"]
 
 _LOG2E = math.log2(math.e)
@@ -33,6 +47,8 @@ _NEG_INF = -1e30
 QKNORM_FIXED_MAX = 16.0
 
 KERNEL_HEAD_DIM = 128
+GROUPED_HEAD_DIM = 72        # K5's and K6's head dim
+CROSS_MAX_WIDTH = 1152       # K6 keeps a [64, H*72] q/o tile in shared memory
 
 
 def _q_scale(scale: float, dtype: torch.dtype) -> torch.Tensor:
@@ -93,13 +109,7 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{KERNEL_HEAD_DIM}, got {d}")
     for name, t, shape in (("q", q, (b, sq, h, d)), ("k", k, (b, skv, h, d)),
                            ("v", v, (b, skv, h, d))):
-        if not (t.is_cuda and t.device == q.device and t.dtype == torch.bfloat16
-                and t.is_contiguous() and tuple(t.shape) == shape
-                and t.data_ptr() % 16 == 0):
-            raise ValueError(
-                f"flash_attention_bshd: {name} must be a contiguous 16-byte "
-                f"aligned bf16 CUDA tensor of shape {shape}, got {t.dtype} "
-                f"{tuple(t.shape)} on {t.device}")
+        check_bf16(f"flash_attention_bshd: {name}", t, shape, q.device)
     if kv_len < 1 or b * h > 65535:
         raise ValueError(f"flash_attention_bshd: kv_len {kv_len} < 1 or "
                          f"B*H {b * h} > 65535")
@@ -111,9 +121,7 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         int(fixed_max is not None),
         float(fixed_max) if fixed_max is not None else 0.0,
         torch.cuda.current_stream(q.device).cuda_stream)
-    if code != 0:
-        raise RuntimeError(f"flash_attention_bshd launch failed: "
-                           f"{lib.mc_error_string(code).decode()} ({code})")
+    check_launch(lib, code, "flash_attention_bshd")
     flash_attention_bshd.launches += 1
     return out
 
@@ -147,3 +155,225 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             kv_len=kv_len)
     return flash_attention_bshd(q, k, v, scale=scale, kv_len=kv_len,
                                 fixed_max=fixed_max)
+
+
+def grouped_attention_fused_qkv_plain(
+        qkv: torch.Tensor, heads: int, *, group: int,
+        qk_gains: Tuple[torch.Tensor, torch.Tensor], fixed_max: float,
+        group_valid: Optional[int] = None, scale: Optional[float] = None,
+        rope_tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+        true_d: Optional[int] = None, eps: float = 1e-6,
+        chunk_elems: int = 1 << 26) -> torch.Tensor:
+    """K5's math in plain PyTorch, over chunks of groups so that no more than
+    ``chunk_elems`` scores exist at once."""
+    b, s_len, three_hd = qkv.shape
+    d = three_hd // (3 * heads)
+    td = d if true_d is None else true_d
+    gvalid = group if group_valid is None else group_valid
+    scale = (1.0 / math.sqrt(td)) if scale is None else scale
+    ng = b * (s_len // group)
+    parts = qkv.reshape(ng, group, 3, heads, d)
+    key_ok = torch.arange(group, device=qkv.device) < gvalid
+    out = torch.empty((ng, group, heads, d), dtype=qkv.dtype, device=qkv.device)
+    step = max(1, chunk_elems // (heads * group * group))
+
+    def norm(t, gain):            # per-head RMS over true_d, x f32 gain
+        t32 = t.float()
+        var = (t32 * t32).sum(-1, keepdim=True) * (1.0 / td)
+        return t32 * torch.rsqrt(var + eps) * gain.float().reshape(-1, d)
+
+    for g0 in range(0, ng, step):
+        q, k, v = parts[g0:g0 + step].unbind(2)            # [n, g, H, D]
+        q, k = norm(q, qk_gains[0]), norm(k, qk_gains[1])
+        if rope_tables is not None:    # f32 in, f32 out: no rounding here
+            q, k = apply_rope(q, *rope_tables), apply_rope(k, *rope_tables)
+        q = (q * (scale * _LOG2E)).to(v.dtype).float()
+        k = k.to(v.dtype).float()
+        s = torch.einsum("nqhd,nkhd->nhqk", q, k)
+        s = torch.where(key_ok, s, torch.full_like(s, _NEG_INF))
+        p = torch.exp2(torch.clamp(s, max=fixed_max + 126.0) - fixed_max)
+        o = torch.einsum("nhqk,nkhd->nqhd", p.to(v.dtype).float(), v.float())
+        out[g0:g0 + step] = (o / p.sum(-1).permute(0, 2, 1)[..., None]).to(qkv.dtype)
+    return out.reshape(b, s_len, heads * d)
+
+
+def grouped_attention_fused_qkv(
+        qkv: torch.Tensor, heads: int, *, group: int,
+        qk_gains: Tuple[torch.Tensor, torch.Tensor], fixed_max: float,
+        group_valid: Optional[int] = None, scale: Optional[float] = None,
+        rope_tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+        true_d: Optional[int] = None, eps: float = 1e-6) -> torch.Tensor:
+    """K5: block-diagonal grouped attention over the fused projection.
+
+    qkv: ``[B, S, 3*H*D]`` (columns q|k|v, head-major inside each); token i
+    attends within its contiguous group ``i // group`` to the keys at
+    in-group positions ``< group_valid``. ``qk_gains=(qg, kg)`` (``[H, D]``
+    or ``[D]`` f32) are the per-head RMS qk-norm's gains (variance over
+    ``true_d``); ``fixed_max`` is the static softmax shift, exact only for
+    such normed scores (the TPU kernel's other modes have no caller here);
+    ``rope_tables=(cos, sin)`` (``[group, D/2]`` f32, see
+    ``ops.rope.grouped_rope_tables``) fuse RoPE over the in-group position.
+    Returns ``[B, S, H*D]``.
+
+    The kernel takes bf16 and D = 72 (STDiT3's heads); anything else on a
+    CUDA tensor raises.
+    """
+    b, s_len, three_hd = qkv.shape
+    if three_hd % (3 * heads) or s_len % group or not 1 <= (
+            group if group_valid is None else group_valid) <= group:
+        raise ValueError(f"grouped_attention_fused_qkv: bad geometry: width "
+                         f"{three_hd}, heads {heads}, S {s_len}, group {group}, "
+                         f"group_valid {group_valid}")
+    if qkv.device.type == "cpu":
+        return grouped_attention_fused_qkv_plain(
+            qkv, heads, group=group, group_valid=group_valid, scale=scale,
+            qk_gains=qk_gains, rope_tables=rope_tables, true_d=true_d, eps=eps,
+            fixed_max=fixed_max)
+    d = three_hd // (3 * heads)
+    gvalid = group if group_valid is None else group_valid
+    if d != GROUPED_HEAD_DIM or true_d not in (None, d):
+        raise ValueError(f"grouped_attention_fused_qkv: the kernel takes head "
+                         f"dim {GROUPED_HEAD_DIM} (true_d None or equal), got "
+                         f"{d} (true_d {true_d})")
+    check_bf16("grouped_attention_fused_qkv: qkv", qkv, (b, s_len, three_hd),
+                qkv.device)
+    n_groups = b * s_len // group
+    if group > 16 and n_groups > 65535 or heads > 65535:
+        raise ValueError(f"grouped_attention_fused_qkv: {n_groups} groups or "
+                         f"{heads} heads exceed the launch grid")
+    gains = []
+    for name, t in zip(("qg", "kg"), qk_gains):
+        if t.device != qkv.device or t.numel() not in (d, heads * d):
+            raise ValueError(f"grouped_attention_fused_qkv: {name} must hold "
+                             f"[{heads}, {d}] or [{d}] on {qkv.device}")
+        gains.append(t.float().reshape(-1, d).expand(heads, d).contiguous())
+    cos = sin = None
+    if rope_tables is not None:
+        cos, sin = (t.float().contiguous() for t in rope_tables)
+        for t in (cos, sin):
+            if t.device != qkv.device or tuple(t.shape) != (group, d // 2):
+                raise ValueError(f"grouped_attention_fused_qkv: rope tables "
+                                 f"must be [{group}, {d // 2}] on {qkv.device}")
+    scale = (1.0 / math.sqrt(d)) if scale is None else scale
+    lib = load_cuda_library()
+    out = torch.empty((b, s_len, heads * d), dtype=qkv.dtype, device=qkv.device)
+    code = lib.mc_grouped_attention_fused_qkv(
+        qkv.data_ptr(), out.data_ptr(), gains[0].data_ptr(), gains[1].data_ptr(),
+        cos.data_ptr() if cos is not None else None,
+        sin.data_ptr() if sin is not None else None, b * s_len, heads, group,
+        gvalid, scale * _LOG2E, float(d), float(eps), float(fixed_max),
+        torch.cuda.current_stream(qkv.device).cuda_stream)
+    check_launch(lib, code, "grouped_attention_fused_qkv")
+    grouped_attention_fused_qkv.launches += 1
+    return out
+
+
+grouped_attention_fused_qkv.launches = 0
+
+
+def fused_cross_attention_plain(
+        x: torch.Tensor, wq: torch.Tensor, bq: Optional[torch.Tensor],
+        k: torch.Tensor, v: torch.Tensor, wo: torch.Tensor,
+        bo: Optional[torch.Tensor], heads: int, *,
+        scale: Optional[float] = None, kv_valid: Optional[int] = None,
+        true_d: Optional[int] = None, residual: bool = False,
+        chunk: int = 4096) -> torch.Tensor:
+    """K6's math in plain PyTorch over query chunks of ``chunk`` rows (GEMMs
+    in f32 from the rounded operands). ``true_d`` only sets the default
+    scale: the normaliser is always the f32 sum of p."""
+    b, n, _ = x.shape
+    hd = wq.shape[0]
+    d = hd // heads
+    L = k.shape[1]
+    scale = (1.0 / math.sqrt(true_d or d)) if scale is None else scale
+    kv_valid = L if kv_valid is None else kv_valid
+    kf = k.float().reshape(b, L, heads, d)
+    vf = v.float().reshape(b, L, heads, d)
+    key_ok = torch.arange(L, device=x.device) < kv_valid
+    wq32, wo32 = wq.float(), wo.float()
+    out = torch.empty((b, n, wo.shape[0]), dtype=x.dtype, device=x.device)
+    for i0 in range(0, n, chunk):
+        xc = x[:, i0:i0 + chunk].float()
+        q = xc @ wq32.T
+        if bq is not None:
+            q = q + bq.float()
+        q = q.to(k.dtype).float().reshape(b, -1, heads, d)
+        s = torch.einsum("bqhd,bkhd->bhqk", q, kf) * (scale * _LOG2E)
+        s = torch.where(key_ok, s, torch.full_like(s, _NEG_INF))
+        p = torch.exp2(s - s.amax(-1, keepdim=True))
+        o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), vf)
+        o = o / p.sum(-1).permute(0, 2, 1)[..., None]
+        acc = o.reshape(b, -1, hd).to(wo.dtype).float() @ wo32.T
+        if bo is not None:
+            acc = acc + bo.float()
+        if residual:
+            acc = acc + xc
+        out[:, i0:i0 + chunk] = acc.to(x.dtype)
+    return out
+
+
+def fused_cross_attention(
+        x: torch.Tensor, wq: torch.Tensor, bq: Optional[torch.Tensor],
+        k: torch.Tensor, v: torch.Tensor, wo: torch.Tensor,
+        bo: Optional[torch.Tensor], heads: int, *,
+        scale: Optional[float] = None, kv_valid: Optional[int] = None,
+        true_d: Optional[int] = None, residual: bool = False) -> torch.Tensor:
+    """K6: ``[x +] attention(x @ wq.T + bq, k, v) @ wo.T + bo`` in one kernel.
+
+    x: ``[B, N, d_model]``; wq: ``[H*D, d_model]`` and wo: ``[d_out, H*D]``
+    (``nn.Linear`` weights); k/v: ``[B, L, H*D]``, the context projections.
+    Keys at or past ``kv_valid`` (default: all) are masked. ``residual``
+    needs ``d_out == d_model``. Returns ``[B, N, d_out]``.
+
+    The kernel takes bf16, D = 72 and H*D <= 1152; anything else on a CUDA
+    tensor raises.
+    """
+    b, n, dm = x.shape
+    hd = wq.shape[0]
+    L = k.shape[1]
+    d_out = wo.shape[0]
+    kv_valid = L if kv_valid is None else kv_valid
+    if hd % heads or not 1 <= kv_valid <= L or (residual and d_out != dm):
+        raise ValueError(f"fused_cross_attention: bad geometry: width {hd}, "
+                         f"heads {heads}, kv_valid {kv_valid} of {L}, d_out "
+                         f"{d_out}, d_model {dm}, residual {residual}")
+    if x.device.type == "cpu":
+        return fused_cross_attention_plain(x, wq, bq, k, v, wo, bo, heads,
+                                           scale=scale, kv_valid=kv_valid,
+                                           true_d=true_d, residual=residual)
+    d = hd // heads
+    if d != GROUPED_HEAD_DIM or hd > CROSS_MAX_WIDTH or true_d not in (None, d):
+        raise ValueError(f"fused_cross_attention: the kernel takes head dim "
+                         f"{GROUPED_HEAD_DIM} and H*D <= {CROSS_MAX_WIDTH}, got "
+                         f"{heads} x {d} (true_d {true_d})")
+    if dm % 8 or d_out % 8 or b > 65535:
+        raise ValueError(f"fused_cross_attention: widths {dm} -> {d_out} must "
+                         f"be multiples of 8, batch {b} <= 65535")
+    dev = x.device
+    check_bf16("fused_cross_attention: x", x, (b, n, dm), dev)
+    check_bf16("fused_cross_attention: wq", wq, (hd, dm), dev)
+    check_bf16("fused_cross_attention: k", k, (b, L, hd), dev)
+    check_bf16("fused_cross_attention: v", v, (b, L, hd), dev)
+    check_bf16("fused_cross_attention: wo", wo, (d_out, hd), dev)
+    bq32 = (bq.float().contiguous() if bq is not None
+            else torch.zeros(hd, dtype=torch.float32, device=dev))
+    bo32 = (bo.float().contiguous() if bo is not None
+            else torch.zeros(d_out, dtype=torch.float32, device=dev))
+    if bq32.shape != (hd,) or bo32.shape != (d_out,) or bq32.device != dev \
+            or bo32.device != dev:
+        raise ValueError(f"fused_cross_attention: biases must be [{hd}] and "
+                         f"[{d_out}] on {dev}")
+    scale = (1.0 / math.sqrt(d)) if scale is None else scale
+    lib = load_cuda_library()
+    out = torch.empty((b, n, d_out), dtype=x.dtype, device=dev)
+    code = lib.mc_fused_cross_attention(
+        x.data_ptr(), wq.data_ptr(), bq32.data_ptr(), k.data_ptr(),
+        v.data_ptr(), wo.data_ptr(), bo32.data_ptr(), out.data_ptr(), b, n, dm,
+        hd, d_out, heads, L, kv_valid, scale * _LOG2E, int(residual),
+        torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(lib, code, "fused_cross_attention")
+    fused_cross_attention.launches += 1
+    return out
+
+
+fused_cross_attention.launches = 0

@@ -1,9 +1,10 @@
 """Builds the package's kernels from the sources in the checkout.
 
-CUDA C++ (``csrc/*.cu``) is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface and loaded with ``ctypes``. The
-library's file name carries a hash of the sources and flags, so an edited
-source rebuilds and an unchanged one is reused. Triton kernels
+CUDA C++ (``csrc/*.cu``, headers ``csrc/*.cuh``) is compiled by ``nvcc``
+for ``sm_90a``, one process per source, all started together, and linked
+into one shared library with a plain C interface, loaded with ``ctypes``.
+The library's file name carries a hash of the sources and flags, so an
+edited source rebuilds and an unchanged one is reused. Triton kernels
 (``csrc/prologue_triton.py``) compile at their first launch; their cache is
 kept beside the library. Everything goes under ``build/torch_kernels/`` at
 the repository root, which ``.gitignore`` lists. Nothing here runs at import.
@@ -20,11 +21,13 @@ import shutil
 import subprocess
 import tempfile
 
+import torch
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC")
 
 
 def _nvcc() -> str:
@@ -35,38 +38,87 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def _compile_and_link(sources, lib_path: str) -> None:
+    """One ``nvcc -c`` per source, all running at once, then one link; the
+    ``-Xptxas -v`` register report of each goes to ``<lib>.log``. Raises with
+    the compiler's output when a step fails."""
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [os.path.join(tmpdir, os.path.basename(s) + ".o") for s in sources]
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-c",
+                                   "-o", o, s], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(sources, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [(s, p.returncode, log) for s, p, log in zip(sources, procs, logs)
+                  if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{s} ({rc}):\n{log}" for s, rc, log in failed))
+        tmp_lib = os.path.join(tmpdir, "lib.so")
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared", "-o", tmp_lib,
+                               *objs], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        with open(lib_path + ".log", "w") as f:
+            f.write("\n".join(logs))
+        os.replace(tmp_lib, lib_path)
+
+
 @functools.lru_cache(maxsize=None)
 def load_cuda_library() -> ctypes.CDLL:
     """Compile (if needed) and load ``libmagcache_kernels``; declares the C
     signatures. Raises with the compiler's output when nvcc fails."""
     sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+    headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in headers + sources:
         with open(src, "rb") as f:
             digest.update(f.read())
     os.makedirs(BUILD_DIR, exist_ok=True)
     lib_path = os.path.join(BUILD_DIR,
                             f"libmagcache_kernels_{digest.hexdigest()[:16]}.so")
     if not os.path.exists(lib_path):
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        with open(lib_path + ".log", "w") as f:   # -Xptxas -v register report
-            f.write(proc.stdout + proc.stderr)
-        os.replace(tmp, lib_path)
+        _compile_and_link(sources, lib_path)
     lib = ctypes.CDLL(lib_path)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.mc_flash_attention_bshd.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci,
                                             cf, ci, cf, vp]
     lib.mc_flash_attention_bshd.restype = ci
+    lib.mc_lnmod_matmul.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
+                                    ci, cf, ci, vp]
+    lib.mc_lnmod_matmul.restype = ci
+    lib.mc_matmul_gated_residual.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci,
+                                             ci, ci, ci, vp]
+    lib.mc_matmul_gated_residual.restype = ci
+    lib.mc_grouped_attention_fused_qkv.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci,
+                                                   ci, ci, cf, cf, cf, cf, vp]
+    lib.mc_grouped_attention_fused_qkv.restype = ci
+    lib.mc_fused_cross_attention.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci,
+                                             ci, ci, ci, ci, ci, ci, ci, cf, ci, vp]
+    lib.mc_fused_cross_attention.restype = ci
     lib.mc_error_string.argtypes = [ci]
     lib.mc_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def check_bf16(name: str, t: torch.Tensor, shape, device) -> None:
+    """Raises unless ``t`` is what a kernel takes: a contiguous, 16-byte
+    aligned bf16 CUDA tensor of ``shape`` on ``device``."""
+    if not (t.is_cuda and t.device == device and t.dtype == torch.bfloat16
+            and t.is_contiguous() and tuple(t.shape) == tuple(shape)
+            and t.data_ptr() % 16 == 0):
+        raise ValueError(
+            f"{name} must be a contiguous 16-byte aligned bf16 CUDA tensor of "
+            f"shape {tuple(shape)} on {device}, got {t.dtype} "
+            f"{tuple(t.shape)} on {t.device}")
+
+
+def check_launch(lib: ctypes.CDLL, code: int, name: str) -> None:
+    """Raises with CUDA's message when a launch returned an error code."""
+    if code != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           f"{lib.mc_error_string(code).decode()} ({code})")
 
 
 def triton_prologue():

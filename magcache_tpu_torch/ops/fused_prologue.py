@@ -1,10 +1,12 @@
-"""Attention-prologue ops: kernels K2 and K3, each beside its plain version.
+"""Fused prologue/epilogue ops: kernels K2, K3, K7 and K8, each beside its
+plain version.
 
 ``rms_norm_rope`` (K2) and ``layer_norm_mod`` (K3) take a CUDA tensor to the
-Triton kernels in ``csrc/prologue_triton.py`` and a CPU tensor to their plain
-PyTorch versions, ``rms_norm_rope_plain`` and ``layer_norm_mod_plain``. A
-CUDA tensor the kernel does not take raises; nothing falls back. Each
-wrapper counts its kernel launches in ``<wrapper>.launches``.
+Triton kernels in ``csrc/prologue_triton.py``; ``lnmod_matmul`` (K7) and
+``matmul_gated_residual`` (K8) take it to the CUDA C++ kernels in
+``csrc/fused_matmul.cu``. A CPU tensor goes to the plain PyTorch version
+(``<name>_plain``). A CUDA tensor the kernel does not take raises; nothing
+falls back. Each wrapper counts its kernel launches in ``<wrapper>.launches``.
 
 Rounding points, as the TPU kernels have them:
 - K2 rounds the normed, gain-multiplied value to the activation dtype before
@@ -12,7 +14,15 @@ Rounding points, as the TPU kernels have them:
   then rotates in f32);
 - K3 ``mod`` rounds ln(x) to the activation dtype before the f32
   ``*(1 + scale) + shift``; ``affine`` applies ``*w + b`` in f32 and rounds
-  once.
+  once;
+- K7 rounds ``(x - mean) * rsqrt(var + eps)`` to the activation dtype, then
+  the f32 ``*(1 + scale) + shift`` to the weight dtype (the GEMM operand);
+  bias and gelu apply in f32 and the output rounds once;
+- K8 rounds ``x @ w + bias`` to the activation dtype before the f32 gate,
+  and the gated value again before the f32 residual add.
+
+K7 and K8 take ``w`` as an ``nn.Linear`` weight, ``[d_out, d_in]`` (the JAX
+functions take its transpose).
 """
 
 from __future__ import annotations
@@ -20,12 +30,15 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
+from magcache_tpu_torch.ops.build import check_bf16, check_launch
 from magcache_tpu_torch.ops.norms import layer_norm, rms_norm
 from magcache_tpu_torch.ops.rope import apply_rope
 
 __all__ = ["rms_norm_rope", "rms_norm_rope_plain", "layer_norm_mod",
-           "layer_norm_mod_plain"]
+           "layer_norm_mod_plain", "lnmod_matmul", "lnmod_matmul_plain",
+           "matmul_gated_residual", "matmul_gated_residual_plain"]
 
 
 def _next_pow2(n: int) -> int:
@@ -148,3 +161,177 @@ def layer_norm_mod(x: torch.Tensor, *, weight: Optional[torch.Tensor] = None,
 
 
 layer_norm_mod.launches = 0
+
+
+# K7 keeps a block's 64 normalised rows in shared memory beside its W stages
+LNMOD_MAX_WIDTH = 1216
+
+
+def _pad_rows(out: torch.Tensor, rows_out: int) -> torch.Tensor:
+    """Zero rows appended on axis 1 up to ``rows_out``."""
+    if rows_out == out.shape[1]:
+        return out
+    pad = out.new_zeros((out.shape[0], rows_out - out.shape[1], out.shape[2]))
+    return torch.cat([out, pad], dim=1)
+
+
+def _per_row(t: torch.Tensor, nb: int, width: int) -> torch.Tensor:
+    """A modulation or gate table as contiguous f32 ``[nb, width]``."""
+    return t.reshape(nb, width).float().contiguous()
+
+
+def _f32_vector(t: Optional[torch.Tensor], n: int, like: torch.Tensor) -> torch.Tensor:
+    if t is None:
+        return torch.zeros(n, dtype=torch.float32, device=like.device)
+    return t.reshape(n).float().contiguous()
+
+
+def lnmod_matmul_plain(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+                       w: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
+                       act: Optional[str] = None, eps: float = 1e-6,
+                       rows_out: Optional[int] = None,
+                       batch_repeat: int = 1) -> torch.Tensor:
+    """K7's math in plain PyTorch (GEMM in f32 from the rounded operands)."""
+    b, s, d_in = x.shape
+    rows_out = s if rows_out is None else rows_out
+    nb = b // batch_repeat
+    x32 = x.float()
+    mean = x32.mean(-1, keepdim=True)
+    cent = x32 - mean
+    var = (cent * cent).mean(-1, keepdim=True)
+    y = (cent * torch.rsqrt(var + eps)).to(x.dtype).float()
+    y = y.reshape(nb, batch_repeat, s, d_in)
+    y = y * (1.0 + scale.reshape(nb, 1, 1, d_in).float()) \
+        + shift.reshape(nb, 1, 1, d_in).float()
+    y = y.reshape(b, s, d_in).to(w.dtype).float()
+    out = y @ w.float().T
+    if bias is not None:
+        out = out + bias.float()
+    if act == "gelu":
+        out = F.gelu(out, approximate="tanh")
+    return _pad_rows(out.to(x.dtype), rows_out)
+
+
+def lnmod_matmul(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+                 w: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
+                 act: Optional[str] = None, eps: float = 1e-6,
+                 rows_out: Optional[int] = None,
+                 batch_repeat: int = 1) -> torch.Tensor:
+    """K7: ``(layer_norm(x) * (1 + scale) + shift) @ w.T [+ bias] [-> gelu]``.
+
+    x: ``[B, S, d_in]``; scale/shift: ``[B / batch_repeat, d_in]`` f32 AdaLN
+    rows (x row b takes modulation row ``b // batch_repeat``); w:
+    ``[d_out, d_in]``; bias ``[d_out]``. Returns ``[B, rows_out, d_out]`` in
+    x's dtype; rows ``S..rows_out-1`` of each batch row are zeros. The
+    kernel takes bf16 and ``d_in <= 1216``.
+    """
+    b, s, d_in = x.shape
+    rows_out = s if rows_out is None else rows_out
+    if act not in (None, "gelu"):
+        raise ValueError(f"lnmod_matmul: act must be None or 'gelu', got {act!r}")
+    if rows_out < s or batch_repeat < 1 or b % batch_repeat:
+        raise ValueError(f"lnmod_matmul: rows_out {rows_out} < S {s}, or batch "
+                         f"{b} not a multiple of batch_repeat {batch_repeat}")
+    if x.device.type == "cpu":
+        return lnmod_matmul_plain(x, scale, shift, w, bias, act=act, eps=eps,
+                                  rows_out=rows_out, batch_repeat=batch_repeat)
+    d_out = w.shape[0]
+    nb = b // batch_repeat
+    check_bf16("lnmod_matmul: x", x, (b, s, d_in), x.device)
+    check_bf16("lnmod_matmul: w", w, (d_out, d_in), x.device)
+    _require(d_in % 8 == 0 and d_out % 8 == 0 and d_in <= LNMOD_MAX_WIDTH,
+             f"lnmod_matmul: widths {d_in} -> {d_out} must be multiples of 8, "
+             f"d_in <= {LNMOD_MAX_WIDTH}")
+    _require(scale.numel() == nb * d_in and shift.numel() == nb * d_in
+             and scale.device == x.device and shift.device == x.device,
+             f"lnmod_matmul: scale/shift must hold [{nb}, {d_in}] on {x.device}")
+    a = (1.0 + _per_row(scale, nb, d_in)).contiguous()   # f32, as the plain form
+    c = _per_row(shift, nb, d_in)
+    bias32 = _f32_vector(bias, d_out, x)
+    from magcache_tpu_torch.ops.build import load_cuda_library
+
+    lib = load_cuda_library()
+    out = torch.empty((b, rows_out, d_out), dtype=x.dtype, device=x.device)
+    code = lib.mc_lnmod_matmul(
+        x.data_ptr(), a.data_ptr(), c.data_ptr(), w.data_ptr(),
+        bias32.data_ptr(), out.data_ptr(), b, s, rows_out, d_in, d_out,
+        batch_repeat, float(eps), int(act == "gelu"),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    check_launch(lib, code, "lnmod_matmul")
+    lnmod_matmul.launches += 1
+    return out
+
+
+lnmod_matmul.launches = 0
+
+
+def matmul_gated_residual_plain(x: torch.Tensor, w: torch.Tensor,
+                                bias: Optional[torch.Tensor], gate: torch.Tensor,
+                                resid: Optional[torch.Tensor] = None, *,
+                                rows_out: Optional[int] = None,
+                                batch_repeat: int = 1) -> torch.Tensor:
+    """K8's math in plain PyTorch (GEMM in f32 from the rounded operands)."""
+    b, s_in, _ = x.shape
+    rows_out = s_in if rows_out is None else rows_out
+    y = x[:, :rows_out] if rows_out < s_in else x
+    out = y.float() @ w.float().T
+    if bias is not None:
+        out = out + bias.float()
+    g = gate.reshape(b // batch_repeat, -1).float()
+    g = g.repeat_interleave(batch_repeat, dim=0) if batch_repeat > 1 else g
+    out = out.to(x.dtype).float() * g[:, None]
+    if resid is not None:
+        out = out.to(x.dtype).float() + resid[:, :out.shape[1]].float()
+    return _pad_rows(out.to(x.dtype), rows_out)
+
+
+def matmul_gated_residual(x: torch.Tensor, w: torch.Tensor,
+                          bias: Optional[torch.Tensor], gate: torch.Tensor,
+                          resid: Optional[torch.Tensor] = None, *,
+                          rows_out: Optional[int] = None,
+                          batch_repeat: int = 1) -> torch.Tensor:
+    """K8: ``[resid +] gate * (x @ w.T + bias)``, the DiT block epilogue.
+
+    x: ``[B, S_in, d_in]``; w: ``[d_out, d_in]``; gate: ``[B / batch_repeat,
+    d_out]`` f32; resid: ``[B, rows_out, d_out]`` or None. Returns
+    ``[B, rows_out, d_out]``: ``rows_out < S_in`` drops trailing rows,
+    ``rows_out > S_in`` appends zero rows.
+    """
+    b, s_in, d_in = x.shape
+    rows_out = s_in if rows_out is None else rows_out
+    if rows_out < 1 or batch_repeat < 1 or b % batch_repeat:
+        raise ValueError(f"matmul_gated_residual: rows_out {rows_out} < 1, or "
+                         f"batch {b} not a multiple of batch_repeat {batch_repeat}")
+    if x.device.type == "cpu":
+        return matmul_gated_residual_plain(x, w, bias, gate, resid,
+                                           rows_out=rows_out,
+                                           batch_repeat=batch_repeat)
+    d_out = w.shape[0]
+    nb = b // batch_repeat
+    check_bf16("matmul_gated_residual: x", x, (b, s_in, d_in), x.device)
+    check_bf16("matmul_gated_residual: w", w, (d_out, d_in), x.device)
+    if resid is not None:
+        check_bf16("matmul_gated_residual: resid", resid, (b, rows_out, d_out),
+                    x.device)
+    _require(d_in % 8 == 0 and d_out % 8 == 0,
+             f"matmul_gated_residual: widths {d_in} -> {d_out} must be "
+             f"multiples of 8")
+    _require(gate.numel() == nb * d_out and gate.device == x.device,
+             f"matmul_gated_residual: gate must hold [{nb}, {d_out}] on {x.device}")
+    g = _per_row(gate, nb, d_out)
+    bias32 = _f32_vector(bias, d_out, x)
+    from magcache_tpu_torch.ops.build import load_cuda_library
+
+    lib = load_cuda_library()
+    out = torch.empty((b, rows_out, d_out), dtype=x.dtype, device=x.device)
+    code = lib.mc_matmul_gated_residual(
+        x.data_ptr(), w.data_ptr(), bias32.data_ptr(), g.data_ptr(),
+        resid.data_ptr() if resid is not None else None, out.data_ptr(), b,
+        s_in, rows_out, d_in, d_out, batch_repeat,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    check_launch(lib, code, "matmul_gated_residual")
+    matmul_gated_residual.launches += 1
+    return out
+
+
+matmul_gated_residual.launches = 0

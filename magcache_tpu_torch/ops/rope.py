@@ -13,7 +13,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-__all__ = ["rope_freqs_1d", "apply_rope"]
+__all__ = ["rope_freqs_1d", "apply_rope", "grouped_rope_tables"]
 
 
 def rope_freqs_1d(positions: np.ndarray, dim: int,
@@ -36,3 +36,16 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     s = sin.float()[:, None, :]
     out = torch.stack([xe * c - xo * s, xe * s + xo * c], dim=-1).flatten(-2)
     return out.to(x.dtype)
+
+
+def grouped_rope_tables(n_pos: int, group: int, dim: int,
+                        theta: float = 10000.0) -> Tuple[np.ndarray, np.ndarray]:
+    """(cos, sin) f32 ``[group, dim/2]`` over in-group positions for the
+    grouped kernel (K5): ``rope_freqs_1d(arange(n_pos))`` with the identity
+    rotation (cos 1, sin 0) on padded positions ``n_pos..group-1``. The
+    unpadded counterpart of ``magcache_tpu.models.packed.grouped_rope_tables``,
+    which also pads lanes to 128 and duplicates each pair's entry."""
+    cos = np.ones((group, dim // 2), np.float32)
+    sin = np.zeros((group, dim // 2), np.float32)
+    cos[:n_pos], sin[:n_pos] = rope_freqs_1d(np.arange(n_pos), dim, theta)
+    return cos, sin

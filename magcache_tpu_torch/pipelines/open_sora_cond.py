@@ -1,0 +1,267 @@
+"""Open-Sora conditioning helpers for plain text-to-video (host-side), the
+subset of ``magcache_tpu.pipelines.open_sora_cond`` that the t2v path runs:
+resolution buckets and frame counts, prompt score appending, the T5 caption
+cleaning, and the prompt JSON/loop plumbing.
+
+Behavioral sources are those of the JAX module
+(``videosys/pipelines/open_sora/pipeline_open_sora.py:298-424, 532-605,
+705-797`` and ``data_process.py:474-530``). The trained bucket tables are
+shared data, read by path from ``magcache_tpu/data/opensora_buckets.json``.
+The mask strategy, references and looped generation are not ported yet.
+"""
+
+from __future__ import annotations
+
+import html
+import json
+import os
+import re
+import urllib.parse as ul
+from functools import lru_cache
+from typing import List, Optional, Sequence, Tuple
+
+from magcache_tpu_torch.data import DATA_DIR
+
+__all__ = ["IMG_FPS", "get_image_size", "get_num_frames", "get_latent_t",
+           "clean_caption", "text_preprocessing", "append_score_to_prompts",
+           "extract_json_from_prompts", "split_prompt", "merge_prompt",
+           "extract_prompts_loop"]
+
+IMG_FPS = 120          # data_process.py:25: single-frame clips condition on this
+
+
+@lru_cache(maxsize=1)
+def _buckets() -> dict:
+    with open(os.path.join(DATA_DIR, "opensora_buckets.json")) as f:
+        return json.load(f)
+
+
+def get_image_size(resolution: str, aspect_ratio: str) -> Tuple[int, int]:
+    """(height, width) from the training bucket tables
+    (``data_process.py:474-479``)."""
+    b = _buckets()
+    ar_key = b["aspect_ratio_map"][aspect_ratio]
+    table = b["buckets"][resolution]
+    if ar_key not in table:
+        raise ValueError(f"Aspect ratio {aspect_ratio} not found for "
+                         f"resolution {resolution}")
+    h, w = table[ar_key]
+    return int(h), int(w)
+
+
+def get_num_frames(num_frames) -> int:
+    """Named frame counts ('2s', '4x', ...) or a plain int
+    (``data_process.py:495-530``)."""
+    m = _buckets()["num_frames_map"]
+    if isinstance(num_frames, str) and num_frames in m:
+        return int(m[num_frames])
+    return int(num_frames)
+
+
+def get_latent_t(num_frames: int, micro: int = 17, down: int = 4) -> int:
+    """Latent frame count of the Open-Sora composite VAE
+    (``autoencoder_kl_open_sora.py:706-717`` OpenSoraVAE_V1_2.get_latent_size):
+    pixels compress per ``micro_frame_size`` chunk with ceil(chunk/4) time
+    downsampling — 51 frames -> 3x5 = 15 latents, NOT 51//4."""
+    full, rem = divmod(int(num_frames), micro)
+    n = full * -(-micro // down)
+    if rem:
+        n += -(-rem // down)
+    return max(1, n)
+
+
+
+# prompt preprocessing
+
+# pipeline_open_sora.py BAD_PUNCT_REGEX (the PixArt T5 cleaning set)
+BAD_PUNCT_REGEX = re.compile(
+    r"[" + "#®•©™&@·º½¾¿¡§~" + r"\)" + r"\(" + r"\]" + r"\[" + r"\}" + r"\{"
+    + r"\|" + "\\" + r"\/" + r"\*" + r"]{1,}")
+
+
+def _basic_clean(text: str) -> str:
+    """ftfy.fix_text + double html unescape (``pipeline_open_sora.py:298-302``).
+    ftfy is optional in this image; when absent the mojibake fixing is skipped
+    (unescaping still runs)."""
+    try:
+        import ftfy
+        text = ftfy.fix_text(text)
+    except ImportError:
+        pass
+    text = html.unescape(html.unescape(text))
+    return text.strip()
+
+
+def _strip_html(caption: str) -> str:
+    """BeautifulSoup(features='html.parser').text with an html.parser-stdlib
+    fallback (both drop tags and keep text content)."""
+    try:
+        from bs4 import BeautifulSoup
+        return BeautifulSoup(caption, features="html.parser").text
+    except ImportError:
+        from html.parser import HTMLParser
+
+        class _Text(HTMLParser):
+            def __init__(self):
+                super().__init__()
+                self.parts: List[str] = []
+
+            def handle_data(self, d):
+                self.parts.append(d)
+
+        p = _Text()
+        p.feed(caption)
+        return "".join(p.parts)
+
+
+def clean_caption(caption: str) -> str:
+    """The exact T5 training-stage caption cleaning
+    (``pipeline_open_sora.py:304-424``): lowercase, strip urls/html/@handles/
+    CJK blocks, normalize dashes+quotes, drop ids/filenames/shipping spam,
+    collapse punctuation and whitespace."""
+    caption = str(caption)
+    caption = ul.unquote_plus(caption)
+    caption = caption.strip().lower()
+    caption = re.sub("<person>", "person", caption)
+    caption = re.sub(
+        r"\b((?:https?:(?:\/{1,3}|[a-zA-Z0-9%])|[a-zA-Z0-9.\-]+[.](?:com|co|ru|net|org|edu|gov|it)[\w/-]*\b\/?(?!@)))",
+        "", caption)
+    caption = re.sub(
+        r"\b((?:www:(?:\/{1,3}|[a-zA-Z0-9%])|[a-zA-Z0-9.\-]+[.](?:com|co|ru|net|org|edu|gov|it)[\w/-]*\b\/?(?!@)))",
+        "", caption)
+    caption = _strip_html(caption)
+    caption = re.sub(r"@[\w\d]+\b", "", caption)
+    for rng in (r"[\u31c0-\u31ef]+", r"[\u31f0-\u31ff]+", r"[\u3200-\u32ff]+",
+                r"[\u3300-\u33ff]+", r"[\u3400-\u4dbf]+", r"[\u4dc0-\u4dff]+",
+                r"[\u4e00-\u9fff]+"):
+        caption = re.sub(rng, "", caption)
+    caption = re.sub(
+        r"[\u002D\u058A\u05BE\u1400\u1806\u2010-\u2015\u2E17\u2E1A\u2E3A\u2E3B\u2E40\u301C\u3030\u30A0\uFE31\uFE32\uFE58\uFE63\uFF0D]+",
+        "-", caption)
+    caption = re.sub(r"[`´«»“”¨]", '"', caption)
+    caption = re.sub(r"[‘’]", "'", caption)
+    caption = re.sub(r"&quot;?", "", caption)
+    caption = re.sub(r"&amp", "", caption)
+    caption = re.sub(r"\d{1,3}\.\d{1,3}\.\d{1,3}\.\d{1,3}", " ", caption)
+    caption = re.sub(r"\d:\d\d\s+$", "", caption)
+    caption = re.sub(r"\\n", " ", caption)
+    caption = re.sub(r"#\d{1,3}\b", "", caption)
+    caption = re.sub(r"#\d{5,}\b", "", caption)
+    caption = re.sub(r"\b\d{6,}\b", "", caption)
+    caption = re.sub(r"[\S]+\.(?:png|jpg|jpeg|bmp|webp|eps|pdf|apk|mp4)", "",
+                     caption)
+    caption = re.sub(r"[\"\']{2,}", r'"', caption)
+    caption = re.sub(r"[\.]{2,}", r" ", caption)
+    caption = re.sub(BAD_PUNCT_REGEX, r" ", caption)
+    caption = re.sub(r"\s+\.\s+", r" ", caption)
+    regex2 = re.compile(r"(?:\-|\_)")
+    if len(re.findall(regex2, caption)) > 3:
+        caption = re.sub(regex2, " ", caption)
+    caption = _basic_clean(caption)
+    caption = re.sub(r"\b[a-zA-Z]{1,3}\d{3,15}\b", "", caption)
+    caption = re.sub(r"\b[a-zA-Z]+\d+[a-zA-Z]+\b", "", caption)
+    caption = re.sub(r"\b\d+[a-zA-Z]+\d+\b", "", caption)
+    caption = re.sub(r"(worldwide\s+)?(free\s+)?shipping", "", caption)
+    caption = re.sub(r"(free\s)?download(\sfree)?", "", caption)
+    caption = re.sub(r"\bclick\b\s(?:for|on)\s\w+", "", caption)
+    caption = re.sub(
+        r"\b(?:png|jpg|jpeg|bmp|webp|eps|pdf|apk|mp4)(\simage[s]?)?", "",
+        caption)
+    caption = re.sub(r"\bpage\s+\d+\b", "", caption)
+    caption = re.sub(r"\b\d*[a-zA-Z]+\d+[a-zA-Z]+\d+[a-zA-Z\d]*\b", r" ",
+                     caption)
+    caption = re.sub(r"\b\d+\.?\d*[xх×]\d+\.?\d*\b", "", caption)
+    caption = re.sub(r"\b\s+\:\s+", r": ", caption)
+    caption = re.sub(r"(\D[,\./])\b", r"\1 ", caption)
+    caption = re.sub(r"\s+", " ", caption)
+    caption.strip()
+    caption = re.sub(r"^[\"\']([\w\W]+)[\"\']$", r"\1", caption)
+    caption = re.sub(r"^[\'\_,\-\:;]", r"", caption)
+    caption = re.sub(r"[\'\_,\-\:\-\+]$", r"", caption)
+    caption = re.sub(r"^\.\S+$", "", caption)
+    return caption.strip()
+
+
+def text_preprocessing(text: str, use_text_preprocessing: bool = True) -> str:
+    """Applied twice, exactly like training (``pipeline_open_sora.py:418-424``)."""
+    if use_text_preprocessing:
+        return clean_caption(clean_caption(text))
+    return text.lower().strip()
+
+
+def append_score_to_prompts(prompts: Sequence[str], aes: Optional[float] = None,
+                            flow: Optional[float] = None,
+                            camera_motion: Optional[str] = None) -> List[str]:
+    """Aesthetic/motion/camera score suffixes (``pipeline_open_sora.py:705-717``)."""
+    out = []
+    for prompt in prompts:
+        p = prompt
+        if aes is not None and "aesthetic score:" not in prompt:
+            p = f"{p} aesthetic score: {aes:.1f}."
+        if flow is not None and "motion score:" not in prompt:
+            p = f"{p} motion score: {flow:.1f}."
+        if camera_motion is not None and "camera motion:" not in prompt:
+            p = f"{p} camera motion: {camera_motion}."
+        out.append(p)
+    return out
+
+
+
+# loop-prompt plumbing
+
+def extract_json_from_prompts(prompts, reference, mask_strategy):
+    """Trailing ``{...}`` JSON carries reference_path / mask_strategy
+    (``pipeline_open_sora.py:719-733``)."""
+    ret = []
+    for i, prompt in enumerate(prompts):
+        parts = re.split(r"(?=[{])", prompt)
+        if len(parts) > 2:
+            raise ValueError(f"Invalid prompt: {prompt}")
+        ret.append(parts[0])
+        if len(parts) > 1:
+            info = json.loads(parts[1])
+            for key in info:
+                if key not in ("reference_path", "mask_strategy"):
+                    raise ValueError(f"Invalid key: {key}")
+                if key == "reference_path":
+                    reference[i] = info[key]
+                else:
+                    mask_strategy[i] = info[key]
+    return ret, reference, mask_strategy
+
+
+def split_prompt(prompt_text: str):
+    """``|0| text |1| text`` per-loop prompts (``pipeline_open_sora.py:769-785``)."""
+    if prompt_text.startswith("|0|"):
+        parts = prompt_text.split("|")[1:]
+        text_list, loop_idx = [], []
+        for i in range(0, len(parts), 2):
+            loop_idx.append(int(parts[i]))
+            text_list.append(parts[i + 1].strip())
+        return text_list, loop_idx
+    return [prompt_text], None
+
+
+def merge_prompt(text_list, loop_idx_list=None) -> str:
+    if loop_idx_list is None:
+        return text_list[0]
+    return "".join(f"|{idx}|{text}"
+                   for idx, text in zip(loop_idx_list, text_list))
+
+
+def extract_prompts_loop(prompts, num_loop: int) -> List[str]:
+    """Resolve each merged prompt to its loop-``num_loop`` segment
+    (``pipeline_open_sora.py:753-766``)."""
+    ret = []
+    for prompt in prompts:
+        if prompt.startswith("|0|"):
+            parts = prompt.split("|")[1:]
+            text_list = []
+            for i in range(0, len(parts), 2):
+                start = int(parts[i])
+                text = parts[i + 1]
+                end = int(parts[i + 2]) if i + 2 < len(parts) else num_loop + 1
+                text_list.extend([text] * (end - start))
+            prompt = text_list[num_loop]
+        ret.append(prompt)
+    return ret

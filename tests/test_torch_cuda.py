@@ -106,3 +106,139 @@ def test_tiny_pipeline_runs_through_the_kernels(dev):
         n * runs for n in per_run]
     assert torch.isfinite(out.latents).all()
     assert np.asarray(out.skips).sum() == 10
+
+
+# ---- STDiT3 kernels K5-K8 at odd shapes (head dim 72) -----------------------
+# Kernel and plain version round at the same points; f32 sums run in another
+# order, which can flip a bf16 rounding of an intermediate (q, the GEMM
+# operand, the pre-gate product) and then moves an output by about one bf16
+# ulp of its magnitude: atol 2e-2 + rtol 2e-2 for outputs of order 1.
+ATOL, RTOL = 2e-2, 2e-2
+
+
+def _close(got, want):
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("b,s,din,dout,rows_out,rep,act", [
+    (30, 1590, 1152, 3456, None, 15, None),   # spatial qkv
+    (2, 333, 1152, 4608, None, 1, "gelu"),    # mlp1, ragged rows
+    (6, 27, 144, 216, 32, 2, None),           # zero-filled pad rows
+    (3, 5, 72, 40, 7, 3, "gelu")])
+def test_k7_matches_plain(dev, b, s, din, dout, rows_out, rep, act):
+    x = _rand(dev, b, s, din, scale=2.0, seed=1)
+    sc = _rand(dev, b // rep, din, dtype=torch.float32, scale=0.1, seed=2)
+    sh = _rand(dev, b // rep, din, dtype=torch.float32, scale=0.1, seed=3)
+    w = _rand(dev, dout, din, scale=din ** -0.5, seed=4)
+    bias = _rand(dev, dout, scale=0.1, seed=5)
+    before = P.lnmod_matmul.launches
+    got = P.lnmod_matmul(x, sc, sh, w, bias, act=act, rows_out=rows_out,
+                         batch_repeat=rep)
+    want = P.lnmod_matmul_plain(x, sc, sh, w, bias, act=act, rows_out=rows_out,
+                                batch_repeat=rep)
+    assert P.lnmod_matmul.launches == before + 1
+    _close(got, want)
+    if rows_out is not None:
+        assert not got[:, s:].any()
+
+
+@pytest.mark.parametrize("b,s,din,dout,rows_out,rep,resid", [
+    (30, 1590, 1152, 1152, None, 15, True),   # spatial proj + residual
+    (3180, 15, 1152, 1152, None, 1590, False),  # temporal proj
+    (2, 333, 4608, 1152, None, 1, True),      # mlp2
+    (4, 40, 144, 216, 33, 2, False),          # drops rows
+    (4, 40, 216, 144, 47, 1, True)])          # zero-fills rows
+def test_k8_matches_plain(dev, b, s, din, dout, rows_out, rep, resid):
+    x = _rand(dev, b, s, din, seed=6)
+    w = _rand(dev, dout, din, scale=din ** -0.5, seed=7)
+    bias = _rand(dev, dout, scale=0.1, seed=8)
+    gate = _rand(dev, b // rep, dout, dtype=torch.float32, scale=0.5, seed=9)
+    ro = s if rows_out is None else rows_out
+    r = _rand(dev, b, ro, dout, seed=10) if resid else None
+    got = P.matmul_gated_residual(x, w, bias, gate, r, rows_out=rows_out,
+                                  batch_repeat=rep)
+    want = P.matmul_gated_residual_plain(x, w, bias, gate, r, rows_out=rows_out,
+                                         batch_repeat=rep)
+    _close(got, want)
+
+
+def _grouped_inputs(dev, b, s, heads, group):
+    from magcache_tpu_torch.ops.rope import grouped_rope_tables
+
+    qkv = _rand(dev, b, s, 3 * heads * 72, scale=1.5, seed=11)
+    gains = (1.0 + _rand(dev, heads, 72, dtype=torch.float32, scale=0.2, seed=12),
+             1.0 + _rand(dev, heads, 72, dtype=torch.float32, scale=0.2, seed=13))
+    cos, sin = grouped_rope_tables(min(group, 15), group, 72)
+    return qkv, gains, (torch.from_numpy(cos).to(dev), torch.from_numpy(sin).to(dev))
+
+
+@pytest.mark.parametrize("b,s,heads,group,gvalid,rope", [
+    (2, 1590, 3, 1590, 1590, False),   # spatial frames, unpadded
+    (1, 3180 * 15, 16, 15, 15, True),  # temporal, the slice's shape
+    (1, 7 * 15, 2, 15, 15, True),      # groups not a multiple of the block
+    (3, 64, 2, 32, 27, False),         # padded groups
+    (1, 200, 2, 100, 71, True),        # a group spanning two query tiles
+    (1, 48, 2, 8, 5, True)])
+def test_k5_matches_plain(dev, b, s, heads, group, gvalid, rope):
+    qkv, gains, tables = _grouped_inputs(dev, b, s, heads, group)
+    kw = dict(group=group, group_valid=gvalid, scale=72 ** -0.5, qk_gains=gains,
+              rope_tables=tables if rope else None, true_d=72, eps=1e-6,
+              fixed_max=A.QKNORM_FIXED_MAX)
+    before = A.grouped_attention_fused_qkv.launches
+    got = A.grouped_attention_fused_qkv(qkv, heads, **kw)
+    want = A.grouped_attention_fused_qkv_plain(qkv, heads, **kw)
+    assert A.grouped_attention_fused_qkv.launches == before + 1
+    _close(got, want)
+
+
+@pytest.mark.parametrize("b,n,heads,dm,L,kv_valid,residual", [
+    (2, 2000, 16, 1152, 300, None, True),    # the slice's cross-attention
+    (1, 333, 16, 1152, 300, 250, False),     # ragged rows, masked keys
+    (2, 70, 2, 144, 36, None, True),         # narrow width
+    (1, 64, 4, 200, 77, 65, False)])         # d_model not a multiple of 32
+def test_k6_matches_plain(dev, b, n, heads, dm, L, kv_valid, residual):
+    hd = heads * 72
+    x = _rand(dev, b, n, dm, seed=14)
+    wq = _rand(dev, hd, dm, scale=dm ** -0.5, seed=15)
+    bq = _rand(dev, hd, scale=0.05, seed=16)
+    k = _rand(dev, b, L, hd, seed=17)
+    v = _rand(dev, b, L, hd, seed=18)
+    wo = _rand(dev, dm, hd, scale=hd ** -0.5, seed=19)
+    bo = _rand(dev, dm, scale=0.05, seed=20)
+    kw = dict(scale=72 ** -0.5, kv_valid=kv_valid, true_d=72, residual=residual)
+    before = A.fused_cross_attention.launches
+    got = A.fused_cross_attention(x, wq, bq, k, v, wo, bo, heads, **kw)
+    want = A.fused_cross_attention_plain(x, wq, bq, k, v, wo, bo, heads, **kw)
+    assert A.fused_cross_attention.launches == before + 1
+    _close(got, want)
+
+
+def test_k5_to_k8_refuse_what_they_do_not_take(dev):
+    qkv, gains, _ = _grouped_inputs(dev, 1, 30, 2, 15)
+    kw = dict(group=15, qk_gains=gains, fixed_max=16.0)
+    with pytest.raises(ValueError, match="head dim"):          # D = 64
+        A.grouped_attention_fused_qkv(_rand(dev, 1, 30, 3 * 2 * 64), 2, **kw)
+    with pytest.raises(ValueError):                            # f32
+        A.grouped_attention_fused_qkv(qkv.float(), 2, **kw)
+    with pytest.raises(ValueError):                            # strided view
+        A.grouped_attention_fused_qkv(
+            _rand(dev, 1, 30, 2 * 3 * 2 * 72)[..., :3 * 2 * 72], 2, **kw)
+    x = _rand(dev, 2, 10, 1152)
+    kv = _rand(dev, 2, 30, 1224)
+    w = _rand(dev, 1224, 1152)
+    with pytest.raises(ValueError, match="H\\*D"):             # 17 x 72 > 1152
+        A.fused_cross_attention(x, w, None, kv, kv, w.T.contiguous(), None, 17)
+    g = torch.zeros(2, 1152, device=dev)
+    with pytest.raises(ValueError):                            # width % 8
+        P.lnmod_matmul(_rand(dev, 2, 10, 1150), g[:, :1150], g[:, :1150],
+                       _rand(dev, 64, 1150))
+    with pytest.raises(ValueError, match="1216"):              # K7's rows fit smem
+        P.lnmod_matmul(_rand(dev, 2, 10, 1536), g[:, :1] + torch.zeros(2, 1536, device=dev),
+                       torch.zeros(2, 1536, device=dev), _rand(dev, 64, 1536))
+    with pytest.raises(ValueError):                            # w is [d_in, d_out]
+        P.matmul_gated_residual(x, _rand(dev, 1152, 64), None, g[:, :64])
+    with pytest.raises(ValueError):                            # f32 weight
+        P.matmul_gated_residual(x, _rand(dev, 64, 1152, dtype=torch.float32),
+                                None, g[:, :64])

@@ -1,12 +1,14 @@
-"""Where a Wan2.1-1.3B forward spends its device time, on one NVIDIA card.
+"""Where one DiT forward spends its device time, on one NVIDIA card.
 
-    python tools/profile_torch_forward.py [--frames 81] [--top 15]
+    python tools/profile_torch_forward.py [--model wan|open-sora] [--frames N] [--top 15]
 
-Builds WAN_1_3B (bf16, random seeded weights) from ``magcache_tpu_torch``,
-runs one warm-up forward (prepare -> trunk -> head, 2 CFG lanes at 832x480)
-and traces a second with ``torch.profiler``. Prints the wall time, the summed
-device time, the device's idle share of the wall time, and the kernels with
-the most device time. Needs a card: exits nonzero without one.
+Builds the model (bf16, random seeded weights) from ``magcache_tpu_torch``:
+WAN_1_3B at 832x480 (default 81 frames, 2 CFG lanes) or STDiT3-XL/2 at 480p
+9:16 (default 51 frames, the joint CFG batch of 2). Runs one warm-up forward
+(prepare -> trunk -> head) and traces a second with ``torch.profiler``.
+Prints the wall time, the summed device time, the device's idle share of the
+wall time, and the kernels with the most device time. Needs a card: exits
+nonzero without one.
 """
 
 from __future__ import annotations
@@ -23,28 +25,45 @@ import torch
 
 def main(argv=None):
     p = argparse.ArgumentParser()
-    p.add_argument("--frames", type=int, default=81)
+    p.add_argument("--model", choices=["wan", "open-sora"], default="wan")
+    p.add_argument("--frames", type=int, default=None,
+                   help="pixel frames (default 81 for Wan, 51 for Open-Sora)")
     p.add_argument("--top", type=int, default=15)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     from magcache_tpu_torch.models.text import MockTextEncoder
-    from magcache_tpu_torch.models.wan import WAN_1_3B, WanModel, make_wan_core
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
     dev = torch.device("cuda", 0)
-    cfg = dataclasses.replace(WAN_1_3B, dtype="bfloat16")
-    model = WanModel(cfg, dev).init(torch.Generator(device=dev).manual_seed(0))
-    lat_f = (args.frames - 1) // 4 + 1
-    grid = (lat_f, 30, 52)
-    core = make_wan_core(model, grid)
+    gen = torch.Generator(device=dev).manual_seed(0)
     g = torch.Generator(device=dev).manual_seed(1)
-    x = torch.randn((2, lat_f, 60, 104, 16), generator=g, device=dev)
     t = torch.full((2,), 900.0, device=dev)
-    cond = {"context": MockTextEncoder(512, 4096, 0.5)(["a cat", ""], device=dev)}
+    if args.model == "wan":
+        from magcache_tpu_torch.models.wan import WAN_1_3B, WanModel, make_wan_core
+
+        model = WanModel(dataclasses.replace(WAN_1_3B, dtype="bfloat16"), dev).init(gen)
+        lat_f = ((args.frames or 81) - 1) // 4 + 1
+        grid = (lat_f, 30, 52)
+        core = make_wan_core(model, grid)
+        x = torch.randn((2, lat_f, 60, 104, 16), generator=g, device=dev)
+        cond = {"context": MockTextEncoder(512, 4096, 0.5)(["a cat", ""], device=dev)}
+    else:
+        from magcache_tpu_torch.models.stdit3 import (STDIT3_XL_2, STDiT3Model,
+                                                      make_stdit3_core)
+        from magcache_tpu_torch.pipelines.open_sora_cond import get_latent_t
+
+        model = STDiT3Model(dataclasses.replace(STDIT3_XL_2, dtype="bfloat16"),
+                            dev).init(gen)
+        lat_t = get_latent_t(args.frames or 51)
+        grid = (lat_t, 30, 53)
+        core = make_stdit3_core(model, grid, pixel_size=(480, 854))
+        x = torch.randn((2, lat_t, 60, 106, 4), generator=g, device=dev)
+        cond = {"y": MockTextEncoder(300, 4096, 0.5)(["a boat", ""], device=dev),
+                "fps": torch.full((2,), 24.0, device=dev)}
 
     def forward():
         hidden, ctx = core.prepare(x, t, cond)
@@ -61,7 +80,7 @@ def main(argv=None):
     events = [e for e in prof.key_averages() if e.device_time_total > 0
               and e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.device_time_total for e in events) / 1e3
-    print(f"{grid[0] * grid[1] * grid[2]} tokens x 2 lanes: wall {wall_ms:.1f} ms, "
+    print(f"{args.model}: {grid[0] * grid[1] * grid[2]} tokens x 2 rows: wall {wall_ms:.1f} ms, "
           f"device busy {busy_ms:.1f} ms, idle share "
           f"{max(0.0, 1 - busy_ms / wall_ms):.3f}")
     for e in sorted(events, key=lambda e: -e.device_time_total)[:args.top]:
