@@ -1,10 +1,12 @@
 """Generation CLI, the ported subset of ``magcache_tpu.cli.generate``:
-Wan2.1 t2v (``--task t2v-1.3B``) and Open-Sora 1.2 t2v (``--task open-sora``).
+Wan2.1 t2v (``--task t2v-1.3B``), Open-Sora 1.2 t2v (``--task open-sora``)
+and FLUX.1 text-to-image (``--task flux-dev`` and ``flux-kontext-dev``).
 
 Flag names follow the reference adapters (``--task --size --frame_num
 --sample_steps --sample_shift --sample_solver --sample_guide_scale
 --base_seed --use_magcache --magcache_thresh --magcache_K --retention_ratio
---magcache_calibration``; Open-Sora adds ``--resolution --aspect_ratio``),
+--magcache_calibration``; Open-Sora adds ``--resolution --aspect_ratio``,
+FLUX ``--txt_len``),
 and the output file name encodes the E/K/R triple. Unset flags take each
 family's reference defaults, as in the JAX CLI. Runs on a CUDA card by
 default; ``--device cpu`` runs the plain PyTorch ops instead of the kernels
@@ -16,8 +18,12 @@ Examples:
   python -m magcache_tpu_torch.cli.generate --task t2v-1.3B --magcache_calibration
   python -m magcache_tpu_torch.cli.generate --task open-sora --resolution 480p \
       --aspect_ratio 9:16 --frame_num 51 --use_magcache
+  python -m magcache_tpu_torch.cli.generate --task flux-dev --size 1024*1024 \
+      --sample_steps 28 --use_magcache
 Checkpoints are not loaded yet: the DiT has random weights and the text
-encoder is the hash-seeded mock, so the output is latents, not a video.
+encoders are the hash-seeded mocks, so the output is latents, not a video or
+an image. ``flux-kontext-dev`` runs its preset and guidance without a
+conditioning image: ``--image`` needs the SD VAE's weights and raises.
 """
 
 from __future__ import annotations
@@ -34,29 +40,38 @@ import torch
 _KNOWN = ("flux", "qwen", "hunyuan", "framepack", "open-sora", "cogvideox",
           "latte", "vchitect", "omnigen2", "t2v", "t2i", "i2v", "flf2v",
           "ti2v", "vace")
-_PORTED = {"t2v-1.3B": "wan2.1-t2v-1.3B", "open-sora": "opensora-v1.2"}
+_PORTED = {"t2v-1.3B": "wan2.1-t2v-1.3B", "open-sora": "opensora-v1.2",
+           "flux-dev": "flux-dev", "flux-kontext-dev": "flux-kontext-dev"}
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("magcache_tpu_torch generate")
     p.add_argument("--task", default="t2v-1.3B",
-                   help="t2v-1.3B | open-sora (the tasks ported so far)")
+                   help="t2v-1.3B | open-sora | flux-dev | flux-kontext-dev "
+                        "(the tasks ported so far)")
     p.add_argument("--size", default=None,
-                   help="W*H pixels (unset: 832*480 for both families)")
+                   help="W*H pixels (unset: 832*480 for Wan and Open-Sora, "
+                        "1024*1024 for FLUX)")
     p.add_argument("--frame_num", type=int, default=None,
                    help="frames (unset: 81)")
     p.add_argument("--sample_steps", type=int, default=None,
-                   help="unset: 50 for Wan, 30 for Open-Sora")
+                   help="unset: 50 for Wan, 30 for Open-Sora, 28 for FLUX")
     p.add_argument("--sample_shift", type=float, default=None,
                    help="Wan flow shift (unset: 5.0)")
     p.add_argument("--sample_solver", default="unipc", choices=["unipc"])
     p.add_argument("--sample_guide_scale", type=float, default=None,
-                   help="unset: 5.0 for Wan, 7.0 for Open-Sora")
+                   help="unset: 5.0 for Wan, 7.0 for Open-Sora; FLUX's "
+                        "embedded guidance 3.5 (2.5 for Kontext)")
     p.add_argument("--resolution", default=None,
                    help="open-sora bucket resolution (480p, 720p, ...); "
                         "overrides --size via the training bucket tables")
     p.add_argument("--aspect_ratio", default=None,
                    help="open-sora bucket aspect ratio (9:16, 16:9, ...)")
+    p.add_argument("--txt_len", type=int, default=None,
+                   help="FLUX text tokens (unset: 512)")
+    p.add_argument("--image", default=None,
+                   help="flux-kontext-dev conditioning image (needs the SD "
+                        "VAE's weights: not ported yet)")
     p.add_argument("--base_seed", type=int, default=0)
     p.add_argument("--prompt", default="Two anthropomorphic cats in comfy "
                    "boxing gear and bright gloves fight intensely on a "
@@ -123,8 +138,31 @@ def _open_sora_pipeline(args, device, ratios):
     return OpenSoraPipeline(cfg, device), cfg.num_sampling_steps, 1
 
 
-def _parse_size(size):
-    w, h = (int(v) for v in (size or "832*480").split("*"))
+def _flux_pipeline(args, device, ratios):
+    from magcache_tpu_torch.pipelines.flux import FluxPipeline, FluxPipelineConfig
+
+    if args.image:
+        raise SystemExit("--image: Kontext's conditioning image is encoded by "
+                         "the SD VAE, which is not ported yet (no weights)")
+    w, h = _parse_size(args.size, "1024*1024")
+    if args.tiny:
+        w = h = 64
+    cfg = FluxPipelineConfig(
+        model=args.task, height=h, width=w,
+        # embedded guidance: flux-dev 3.5, Kontext 2.5
+        guidance=(args.sample_guide_scale if args.sample_guide_scale
+                  is not None else (2.5 if "kontext" in args.task else 3.5)),
+        num_inference_steps=args.sample_steps or 28,
+        txt_len=8 if args.tiny else (args.txt_len or 512),
+        use_magcache=args.use_magcache, magcache_thresh=args.magcache_thresh,
+        magcache_K=args.magcache_K, retention_ratio=args.retention_ratio,
+        magcache_calibration=args.magcache_calibration,
+        mag_ratios_override=ratios, dtype=args.dtype, tiny=args.tiny)
+    return FluxPipeline(cfg, device), cfg.num_inference_steps, 1
+
+
+def _parse_size(size, default: str = "832*480"):
+    w, h = (int(v) for v in (size or default).split("*"))
     return w, h
 
 
@@ -147,6 +185,8 @@ def _pipeline(args):
             ratios = tuple(json.load(f))
     if args.task == "open-sora":
         return _open_sora_pipeline(args, device, ratios)
+    if args.task.startswith("flux"):
+        return _flux_pipeline(args, device, ratios)
     return _wan_pipeline(args, device, ratios)
 
 
@@ -174,6 +214,8 @@ def main(argv=None):
         np.save(save_file + "_latents.npy", lat)
         print(f"latents {lat.shape} -> {save_file}_latents.npy")
         what = ("lane-forwards (cond + uncond per step)" if lanes == 2 else
+                "forwards (one per step, embedded guidance)"
+                if args.task.startswith("flux") else
                 "forwards (cond + uncond as one joint batch per step)")
         print(f"skipped {int(out.skips.sum())} of {lanes * steps} {what}; "
               f"skipped steps {np.flatnonzero(out.skips.any(1)).tolist()}")

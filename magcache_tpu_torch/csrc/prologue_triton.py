@@ -5,9 +5,12 @@ This module imports ``triton`` at the top, so only the launching wrappers in
 
 K2, ``rms_norm_rope_kernel``, replaces the TPU kernel
 ``magcache_tpu/ops/fused_prologue.py:rms_norm_rope`` (Pallas body
-``_kernel``), token scope: RMSNorm over the whole H*D row with f32
-statistics, gain multiply, round to the activation dtype, then the
-interleaved-pair RoPE rotation in f32, written as ``[B, S, H, D]``.
+``_kernel``) in both of its scopes: RMSNorm with f32 statistics over the
+whole H*D row (token scope, Wan) or over each head's D channels (head scope,
+FLUX), gain multiply, round to the activation dtype, then the
+interleaved-pair RoPE rotation in f32, written as ``[B, S, H, D]``. The row
+is read through its batch and token strides, so a q or k column slice of a
+fused projection (FLUX's ``[B, S, 3*H*D (+ mlp)]``) is read in place.
 
 K3, ``layer_norm_mod_kernel``, replaces ``magcache_tpu/ops/fused_prologue.py:
 layer_norm_mod`` (Pallas body ``_ln_mod_kernel``): two-pass f32 LayerNorm,
@@ -15,17 +18,23 @@ then ``mod`` mode rounds ln(x) to the activation dtype and applies
 ``*(1 + scale) + shift`` with the sample's f32 rows, or ``affine`` mode
 applies ``*w + b`` with no intermediate rounding.
 
-What bounds them on the H100: each is one reduction over a 1536-wide row plus
-an elementwise epilogue, about 2 flops per byte, so HBM bandwidth is the
-limit (3.35 TB/s): at Wan-480p one call reads and writes 2 x 2 x 32,760 x
-1536 bf16 values, 0.4 GB, about 0.12 ms at the bandwidth roofline.
+What bounds them on the H100: each is one reduction over a 1536- to
+3072-wide row plus an elementwise epilogue, about 2 flops per byte, so HBM
+bandwidth is the limit (3.35 TB/s): at Wan-480p one call reads and writes
+2 x 2 x 32,760 x 1536 bf16 values, 0.4 GB, about 0.12 ms at the bandwidth
+roofline; a FLUX image-token q slice (4,096 x 3072) is 50 MB, 15 us.
 
 What the design does about that: one program holds a whole row in registers,
 so x is read from device memory once and the output written once; the
 statistics, the rounding and the epilogue happen in registers, and the
 small per-row tables (gain, cos/sin, the sample's modulation row) come from
-L2. K2 reads even and odd channels as two strided loads over the same cache
-lines, which gives each thread both halves of its RoPE pairs.
+L2. K2 loads the row as a contiguous ``[H, D]`` tile (coalesced vector
+loads), splits each head's channels into RoPE pairs in registers
+(``reshape`` to ``[H, D/2, 2]``, ``split``) and interleaves the rotated
+pairs back for one contiguous store; the head scope reduces over axis 1,
+the token scope over both axes. Loading even and odd channels as two
+stride-2 ``[H, D/2]`` tiles instead ran 4-10x slower on the H100: those
+loads were not coalesced.
 """
 
 import triton
@@ -33,29 +42,34 @@ import triton.language as tl
 
 
 @triton.jit
-def rms_norm_rope_kernel(x_ptr, g_ptr, cos_ptr, sin_ptr, o_ptr, S, eps,
-                         HD: tl.constexpr, D: tl.constexpr,
-                         BLOCK_P: tl.constexpr):
+def rms_norm_rope_kernel(x_ptr, g_ptr, cos_ptr, sin_ptr, o_ptr, S, stride_b,
+                         stride_s, g_hstride, eps, H: tl.constexpr,
+                         D: tl.constexpr, BLOCK_H: tl.constexpr,
+                         HEAD_SCOPE: tl.constexpr):
     row = tl.program_id(0).to(tl.int64)         # token row over B*S
     pos = row % S
-    j = tl.arange(0, BLOCK_P)                   # pair index within the row
-    mask = j < HD // 2
-    base = x_ptr + row * HD
-    xe = tl.load(base + 2 * j, mask=mask, other=0.0).to(tl.float32)
-    xo = tl.load(base + 2 * j + 1, mask=mask, other=0.0).to(tl.float32)
-    var = (tl.sum(xe * xe, axis=0) + tl.sum(xo * xo, axis=0)) / HD
+    h = tl.arange(0, BLOCK_H)[:, None]          # head
+    k = tl.arange(0, D)[None, :]                # channel within the head
+    mask = (h < H) & (k < D)
+    base = x_ptr + (row // S) * stride_b + pos * stride_s
+    x = tl.load(base + h * D + k, mask=mask, other=0.0).to(tl.float32)
+    sq = x * x
+    if HEAD_SCOPE:
+        var = tl.sum(sq, axis=1)[:, None] / D   # per-head RMS over D
+    else:
+        var = tl.sum(tl.sum(sq, axis=1), axis=0) / (H * D)
     r = 1.0 / tl.sqrt(var + eps)
-    ge = tl.load(g_ptr + 2 * j, mask=mask, other=0.0)
-    go = tl.load(g_ptr + 2 * j + 1, mask=mask, other=0.0)
+    # gain: [H*D] (g_hstride = D) or one [D] row for every head (0)
+    g = tl.load(g_ptr + h * g_hstride + k, mask=mask, other=0.0)
     # round the normed value to the activation dtype before the f32 rotation
-    ye = (xe * r * ge).to(o_ptr.dtype.element_ty).to(tl.float32)
-    yo = (xo * r * go).to(o_ptr.dtype.element_ty).to(tl.float32)
-    i = j % (D // 2)                            # pair index within the head
-    c = tl.load(cos_ptr + pos * (D // 2) + i, mask=mask, other=0.0)
-    s = tl.load(sin_ptr + pos * (D // 2) + i, mask=mask, other=0.0)
-    out = o_ptr + row * HD
-    tl.store(out + 2 * j, (ye * c - yo * s).to(o_ptr.dtype.element_ty), mask=mask)
-    tl.store(out + 2 * j + 1, (ye * s + yo * c).to(o_ptr.dtype.element_ty), mask=mask)
+    y = (x * r * g).to(o_ptr.dtype.element_ty).to(tl.float32)
+    ye, yo = tl.split(tl.reshape(y, (BLOCK_H, D // 2, 2)))   # RoPE pairs
+    i = tl.arange(0, D // 2)[None, :]
+    c = tl.load(cos_ptr + pos * (D // 2) + i)
+    s = tl.load(sin_ptr + pos * (D // 2) + i)
+    out = tl.interleave(ye * c - yo * s, ye * s + yo * c)
+    tl.store(o_ptr + row * (H * D) + h * D + k, out.to(o_ptr.dtype.element_ty),
+             mask=mask)
 
 
 @triton.jit

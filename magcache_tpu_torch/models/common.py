@@ -11,7 +11,11 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+# a model config's ``dtype`` name -> its torch dtype
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def init_linear_(layer: nn.Linear, generator: torch.Generator) -> None:
@@ -36,3 +40,17 @@ def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0,
                       / half)
     args = scale * t.float()[:, None] * freqs[None]
     return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+
+
+class MLPEmbedder(nn.ModuleDict):
+    """``out(silu(in(x)))`` with f32 ``in``/``out`` linears: the JAX
+    package's ``mlp_embedder`` parameters and ``apply_mlp_embedder``."""
+
+    def __init__(self, d_in: int, d_hidden: int, device=None):
+        f32 = torch.float32
+        super().__init__({
+            "in": nn.Linear(d_in, d_hidden, device=device, dtype=f32),
+            "out": nn.Linear(d_hidden, d_hidden, device=device, dtype=f32)})
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self["out"](F.silu(self["in"](x)))

@@ -1,8 +1,9 @@
 """Parameter conversion into the port's modules.
 
-``wan_params_from_numpy`` and ``stdit3_params_from_numpy`` turn the JAX
-package's Wan and STDiT3 parameter pytrees, with their leaves as numpy
-arrays, into ``WanModel`` and ``STDiT3Model`` state dicts. Two layout rules:
+``wan_params_from_numpy``, ``stdit3_params_from_numpy`` and
+``flux_params_from_numpy`` turn the JAX package's Wan, STDiT3 and FLUX
+parameter pytrees, with their leaves as numpy arrays, into ``WanModel``,
+``STDiT3Model`` and ``FluxModel`` state dicts. Two layout rules:
 the JAX block weights are depth-stacked ``[L, ...]`` (one entry per block
 here), and JAX's ``linear`` is ``x @ w`` with ``w: [d_in, d_out]`` while
 ``nn.Linear`` keeps ``[d_out, d_in]``.
@@ -15,6 +16,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from magcache_tpu_torch.models.flux import FluxConfig
 from magcache_tpu_torch.models.stdit3 import STDiT3Config
 from magcache_tpu_torch.models.wan import WanConfig
 
@@ -103,4 +105,56 @@ def stdit3_params_from_numpy(tree: dict, cfg: STDiT3Config, device=None,
                 put(f"{kind}.{i}.{name}", g[name][i])
     put("final.scale_shift", tree["final"]["scale_shift"])
     put_linear("final.out", tree["final"]["out"])
+    return sd
+
+
+_FLUX_DOUBLE_LINEARS = tuple(f"{s}_{n}" for s in ("img", "txt")
+                             for n in ("mod", "qkv", "proj", "mlp1", "mlp2"))
+
+
+def flux_params_from_numpy(tree: dict, cfg: FluxConfig, device=None,
+                           dtype: Optional[torch.dtype] = None
+                           ) -> Dict[str, torch.Tensor]:
+    """State dict for ``FluxModel(cfg)`` from a numpy FLUX pytree (the
+    layout of ``magcache_tpu.models.flux.init_flux_params``: ``double.*``
+    stacked ``[depth_double, ...]``, ``single.*`` ``[depth_single, ...]``,
+    the q/k gains ``*_qk_scale`` as ``[L, 2, head_dim]``).
+
+    ``dtype`` is the dtype of ``img_in``, ``txt_in`` and the block linears
+    (default ``cfg.torch_dtype``); the embedders, the final layer and the
+    q/k gains are f32.
+    """
+    dtype = cfg.torch_dtype if dtype is None else dtype
+    sd: Dict[str, torch.Tensor] = {}
+
+    def put(name, arr, dt=torch.float32):
+        sd[name] = torch.from_numpy(np.array(arr, np.float32)).to(
+            device=device, dtype=dt)
+
+    def put_linear(name, p, dt=torch.float32):
+        put(f"{name}.weight", np.asarray(p["w"]).T, dt)
+        put(f"{name}.bias", p["b"], dt)
+
+    def stacked(group, name, i):
+        return {"w": group[name]["w"][i], "b": group[name]["b"][i]}
+
+    put_linear("img_in", tree["img_in"], dtype)
+    put_linear("txt_in", tree["txt_in"], dtype)
+    embedders = ("time_in", "vector_in") + (("guidance_in",) if cfg.guidance_embed
+                                            else ())
+    for grp in embedders:
+        for io in ("in", "out"):
+            put_linear(f"{grp}.{io}", tree[grp][io])
+    dbl, sgl = tree["double"], tree["single"]
+    for i in range(cfg.depth_double):
+        for name in _FLUX_DOUBLE_LINEARS:
+            put_linear(f"double_blocks.{i}.{name}", stacked(dbl, name, i), dtype)
+        for name in ("img_qk_scale", "txt_qk_scale"):
+            put(f"double_blocks.{i}.{name}", dbl[name][i])
+    for i in range(cfg.depth_single):
+        for name in ("mod", "lin1", "lin2"):
+            put_linear(f"single_blocks.{i}.{name}", stacked(sgl, name, i), dtype)
+        put(f"single_blocks.{i}.qk_scale", sgl["qk_scale"][i])
+    put_linear("final_mod", tree["final_mod"])
+    put_linear("final_out", tree["final_out"])
     return sd

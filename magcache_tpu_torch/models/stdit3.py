@@ -41,7 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from magcache_tpu_torch.core.sampler import DiTCore
-from magcache_tpu_torch.models.common import init_linear_, timestep_embedding
+from magcache_tpu_torch.models.common import DTYPES, init_linear_, timestep_embedding
 from magcache_tpu_torch.models.wan import patchify, unpatchify
 from magcache_tpu_torch.ops.attention import (QKNORM_FIXED_MAX,
                                               fused_cross_attention,
@@ -54,7 +54,6 @@ from magcache_tpu_torch.ops.rope import grouped_rope_tables
 __all__ = ["STDiT3Config", "STDiT3Model", "STDIT3_XL_2", "make_stdit3_core",
            "pos_embed_2d"]
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 MAX_FRAME_TOKENS = 2048
 
 
@@ -84,7 +83,7 @@ class STDiT3Config:
 
     @property
     def torch_dtype(self) -> torch.dtype:
-        return _DTYPES[self.dtype]
+        return DTYPES[self.dtype]
 
     @property
     def patch_in(self) -> int:

@@ -36,7 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from magcache_tpu_torch.core.sampler import DiTCore
-from magcache_tpu_torch.models.common import init_linear_, timestep_embedding
+from magcache_tpu_torch.models.common import DTYPES, init_linear_, timestep_embedding
 from magcache_tpu_torch.ops.attention import QKNORM_FIXED_MAX, attention
 from magcache_tpu_torch.ops.fused_prologue import layer_norm_mod, rms_norm_rope
 from magcache_tpu_torch.ops.norms import layer_norm, rms_norm
@@ -44,8 +44,6 @@ from magcache_tpu_torch.ops.rope import rope_freqs_1d
 
 __all__ = ["WanConfig", "WanModel", "make_wan_core", "wan_rope_tables",
            "patchify", "unpatchify", "WAN_1_3B"]
-
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,7 +69,7 @@ class WanConfig:
 
     @property
     def torch_dtype(self) -> torch.dtype:
-        return _DTYPES[self.dtype]
+        return DTYPES[self.dtype]
 
     @property
     def patch_in(self) -> int:

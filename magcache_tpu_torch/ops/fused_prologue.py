@@ -6,7 +6,8 @@ Triton kernels in ``csrc/prologue_triton.py``; ``lnmod_matmul`` (K7) and
 ``matmul_gated_residual`` (K8) take it to the CUDA C++ kernels in
 ``csrc/fused_matmul.cu``. A CPU tensor goes to the plain PyTorch version
 (``<name>_plain``). A CUDA tensor the kernel does not take raises; nothing
-falls back. Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+falls back. Each wrapper counts its kernel launches in ``<wrapper>.launches``;
+``rms_norm_rope`` also counts them by norm scope in ``.scope_launches``.
 
 Rounding points, as the TPU kernels have them:
 - K2 rounds the normed, gain-multiplied value to the activation dtype before
@@ -50,38 +51,55 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
+NORM_SCOPES = ("token", "head")
+ROPE_HEAD_DIM = 128          # the head dim K2's kernel takes
+
+
 def rms_norm_rope_plain(x: torch.Tensor, gain: torch.Tensor, cos: torch.Tensor,
-                        sin: torch.Tensor, heads: int, *,
-                        eps: float = 1e-5) -> torch.Tensor:
-    """``rms_norm(x, gain)`` over H*D, split heads, ``apply_rope``:
-    ``[B, S, H*D] -> [B, S, H, D]``."""
+                        sin: torch.Tensor, heads: int, *, eps: float = 1e-5,
+                        norm_scope: str = "token") -> torch.Tensor:
+    """``rms_norm`` over H*D (token scope) or over each head's D channels
+    with a ``[D]`` or ``[H*D]`` gain (head scope), split heads,
+    ``apply_rope``: ``[B, S, H*D] -> [B, S, H, D]``."""
     b, s, hd = x.shape
-    yh = rms_norm(x, gain, eps=eps).reshape(b, s, heads, hd // heads)
+    d = hd // heads
+    if norm_scope == "token":
+        yh = rms_norm(x, gain, eps=eps).reshape(b, s, heads, d)
+    else:
+        g = gain if gain.numel() == d else gain.reshape(heads, d)
+        yh = rms_norm(x.reshape(b, s, heads, d), g, eps=eps)
     return apply_rope(yh, cos, sin)
 
 
 def rms_norm_rope(x: torch.Tensor, gain: torch.Tensor, cos: torch.Tensor,
                   sin: torch.Tensor, heads: int, *, eps: float = 1e-5,
                   norm_scope: str = "token") -> torch.Tensor:
-    """K2: token-scope RMSNorm + interleaved-pair RoPE in one pass.
+    """K2: RMSNorm + interleaved-pair RoPE in one pass, in token scope (over
+    H*D, Wan) or head scope (per head over D, FLUX).
 
-    x: ``[B, S, H*D]`` projection output; gain: f32 ``[H*D]``; cos/sin: f32
-    ``[S, D/2]``. Returns ``[B, S, H, D]`` in x's dtype. Only the token
-    scope (Wan) is ported; the head scope raises.
+    x: ``[B, S, H*D]`` projection output, rows may be strided (a q or k
+    column slice of a fused projection is read in place); gain: f32
+    ``[H*D]``, or ``[D]`` shared by every head in head scope; cos/sin: f32
+    ``[S, D/2]``. Returns a contiguous ``[B, S, H, D]`` in x's dtype. The
+    kernel takes bf16 and head dim 128.
     """
-    if norm_scope != "token":
-        raise NotImplementedError("rms_norm_rope: head scope is not ported yet")
+    _require(norm_scope in NORM_SCOPES, f"rms_norm_rope: norm_scope must be "
+             f"one of {NORM_SCOPES}, got {norm_scope!r}")
     if x.device.type == "cpu":
-        return rms_norm_rope_plain(x, gain, cos, sin, heads, eps=eps)
+        return rms_norm_rope_plain(x, gain, cos, sin, heads, eps=eps,
+                                   norm_scope=norm_scope)
     b, s, hd = x.shape
     d = hd // heads
-    _require(x.is_cuda and x.is_contiguous() and x.dtype == torch.bfloat16,
-             f"rms_norm_rope: x must be a contiguous bf16 CUDA tensor, got "
-             f"{x.dtype} on {x.device}")
-    _require(hd == heads * d and d % 2 == 0, f"rms_norm_rope: bad heads "
-             f"{heads} for width {hd}")
-    for name, t, shape in (("gain", gain, (hd,)), ("cos", cos, (s, d // 2)),
-                           ("sin", sin, (s, d // 2))):
+    _require(x.is_cuda and x.dtype == torch.bfloat16 and x.stride(2) == 1
+             and x.stride(1) >= hd,
+             f"rms_norm_rope: x must be a bf16 CUDA tensor with unit channel "
+             f"stride, got {x.dtype} strides {x.stride()} on {x.device}")
+    _require(hd == heads * d and d == ROPE_HEAD_DIM, f"rms_norm_rope: the "
+             f"kernel takes head dim {ROPE_HEAD_DIM}, got {heads} heads over "
+             f"width {hd}")
+    shared_gain = norm_scope == "head" and gain.numel() == d
+    for name, t, shape in (("gain", gain, (d,) if shared_gain else (hd,)),
+                           ("cos", cos, (s, d // 2)), ("sin", sin, (s, d // 2))):
         _require(t.device == x.device and t.dtype == torch.float32
                  and t.is_contiguous() and tuple(t.shape) == shape,
                  f"rms_norm_rope: {name} must be contiguous f32 {shape} on "
@@ -90,13 +108,17 @@ def rms_norm_rope(x: torch.Tensor, gain: torch.Tensor, cos: torch.Tensor,
 
     out = torch.empty((b, s, heads, d), dtype=x.dtype, device=x.device)
     triton_prologue().rms_norm_rope_kernel[(b * s,)](
-        x, gain, cos, sin, out, s, eps, HD=hd, D=d,
-        BLOCK_P=_next_pow2(hd // 2), num_warps=4)
+        x, gain, cos, sin, out, s, x.stride(0), x.stride(1),
+        0 if shared_gain else d, eps, H=heads, D=d,
+        BLOCK_H=_next_pow2(heads), HEAD_SCOPE=norm_scope == "head",
+        num_warps=4)
     rms_norm_rope.launches += 1
+    rms_norm_rope.scope_launches[norm_scope] += 1
     return out
 
 
 rms_norm_rope.launches = 0
+rms_norm_rope.scope_launches = dict.fromkeys(NORM_SCOPES, 0)   # the same, by scope
 
 
 def layer_norm_mod_plain(x: torch.Tensor, *, weight: Optional[torch.Tensor] = None,

@@ -11,7 +11,8 @@ import torch
 
 @dataclasses.dataclass
 class PipelineOutput:
-    latents: torch.Tensor                # f32 [B, F, H, W, C]; no VAE yet
+    latents: torch.Tensor                # f32 [B, F, H, W, C] (FLUX: packed
+                                         # [B, S, C]); no VAE yet
     calibration: Optional[dict] = None   # calibration-mode artifacts
     timings: Optional[dict] = None
     skips: Optional[np.ndarray] = None   # realized skip bits [steps, lanes]

@@ -1,0 +1,188 @@
+"""FLUX.1 text-to-image and Kontext pipeline, MagCache-enabled.
+
+The checkpoint-free path of ``magcache_tpu.pipelines.flux`` (reference
+``MagCache4FLUX/magcache_flux.py:446-484``): prompt -> mock T5 states and
+mock CLIP pooled vector -> seeded packed latents -> cached Euler denoise (28
+steps, FLUX's resolution-dependent ``mu`` shift on ``linspace(1, 1/n, n)``).
+Guidance is embedded (a guidance-distilled model), so there is no CFG batch
+and MagCache keeps one cache lane. Kontext (``generate(cond_latents=...)``)
+appends the conditioning image's packed latents after the noise tokens,
+with index-1 rope ids; the head drops them.
+
+The DiT has random weights from a seeded ``torch.Generator``; no VAE decode
+(the packed latents are the output). Not ported yet (raise): checkpoints
+(``ckpt_dir``), LoRA (``lora_path``) and multi-device plans (``dp``/``sp``/
+``tp`` > 1).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from magcache_tpu_torch.core.magcache import MagCacheConfig
+from magcache_tpu_torch.core.presets import make_config
+from magcache_tpu_torch.core.sampler import _lane_masks, sample_euler
+from magcache_tpu_torch.models.flux import (FLUX_DEV, FluxConfig, FluxModel,
+                                            make_flux_core)
+from magcache_tpu_torch.models.text import MockPooledEncoder, MockTextEncoder
+from magcache_tpu_torch.pipelines.base import BasePipeline, PipelineOutput, calibration_dict
+from magcache_tpu_torch.schedulers.flow_match import FlowMatchSchedule
+from magcache_tpu_torch.utils.misc import set_seed
+
+FLUX_MODELS = ("flux-dev", "flux-kontext-dev")
+
+
+@dataclasses.dataclass
+class FluxPipelineConfig:
+    model: str = "flux-dev"              # preset key: flux-dev | flux-kontext-dev
+    height: int = 1024
+    width: int = 1024
+    num_inference_steps: int = 28
+    guidance: float = 3.5
+    txt_len: int = 512
+    use_magcache: bool = False
+    magcache_thresh: Optional[float] = None
+    magcache_K: Optional[int] = None
+    retention_ratio: Optional[float] = None
+    magcache_calibration: bool = False
+    # recorded norm_ratio list from a calibration run; replaces the
+    # published table through the same pad and resample path
+    mag_ratios_override: Optional[tuple] = None
+    dtype: str = "bfloat16"
+    dp: int = 1
+    sp: int = 1
+    tp: int = 1
+    ckpt_dir: Optional[str] = None
+    lora_path: Optional[str] = None
+    tiny: bool = False
+
+    def __post_init__(self):
+        if self.model not in FLUX_MODELS:
+            raise ValueError(f"FLUX model {self.model!r}: one of {FLUX_MODELS}")
+        if self.ckpt_dir or self.lora_path:
+            raise NotImplementedError("FLUX checkpoints and LoRA are not "
+                                      "ported yet; the DiT has random weights")
+        if self.dp * self.sp * self.tp > 1:
+            raise NotImplementedError("multi-device FLUX (dp/sp/tp > 1) is "
+                                      "not ported yet")
+
+    def model_config(self) -> FluxConfig:
+        if self.tiny:
+            return FluxConfig.tiny(dtype=self.dtype)
+        return dataclasses.replace(FLUX_DEV, dtype=self.dtype)
+
+    def packed_grid(self) -> Tuple[int, int]:
+        # pixels -> VAE/8 latents -> 2x2 packed tokens
+        return (self.height // 16, self.width // 16)
+
+
+class FluxPipeline(BasePipeline):
+    """FLUX.1-dev / Kontext on ``device``. Without ``model``, the DiT of
+    ``config.model_config()`` gets random weights from a generator seeded
+    with ``init_seed``; a given ``model`` brings its own config."""
+
+    def __init__(self, config: FluxPipelineConfig, device, text_encoder=None,
+                 pooled_encoder=None, model: Optional[FluxModel] = None,
+                 init_seed: int = 0):
+        self.config = config
+        c = config
+        self.device = torch.device(device)
+        self.grid = c.packed_grid()
+        if model is None:
+            model = FluxModel(c.model_config(), self.device).init(
+                set_seed(init_seed, device=self.device))
+        self.model_cfg = model.cfg
+        self.model = model.requires_grad_(False).eval()
+        self.core = make_flux_core(self.model, c.txt_len, *self.grid)
+        self._core_kontext = None    # built on the first conditioned call
+        self.text_encoder = text_encoder or MockTextEncoder(
+            c.txt_len, self.model_cfg.text_dim, scale=0.5)
+        self.pooled_encoder = pooled_encoder or MockPooledEncoder(
+            self.model_cfg.vec_dim)
+        gh, gw = self.grid
+        self.schedule = FlowMatchSchedule.create(
+            c.num_inference_steps, mu=FlowMatchSchedule.flux_mu(gh * gw),
+            linspace_endpoint=True)
+
+    def _cache_cfg(self, thresh=None, K=None, retention=None) -> MagCacheConfig:
+        """The preset's single-lane MagCacheConfig with the config's (or the
+        given) E/K/R and ``mag_ratios_override``."""
+        c = self.config
+        return make_config(
+            c.model, c.num_inference_steps,
+            thresh=c.magcache_thresh if thresh is None else thresh,
+            K=c.magcache_K if K is None else K,
+            retention_ratio=c.retention_ratio if retention is None else retention,
+            ratios=c.mag_ratios_override)
+
+    def skip_mask_for(self, thresh=None, K=None, retention_ratio=None,
+                      use_magcache: bool = True) -> np.ndarray:
+        """Host-precomputed ``bool[steps, 1]`` skip mask for an E/K/R triple
+        (one lane: embedded guidance, no CFG batch), for
+        ``generate(skip_override=...)``; all-False is full compute."""
+        steps = self.config.num_inference_steps
+        if not use_magcache:
+            return np.zeros((steps, 1), bool)
+        return _lane_masks(self._cache_cfg(thresh, K, retention_ratio), steps)[0]
+
+    def _core(self, kontext: bool):
+        if not kontext:
+            return self.core
+        if self._core_kontext is None:
+            self._core_kontext = make_flux_core(
+                self.model, self.config.txt_len, *self.grid, kontext=True)
+        return self._core_kontext
+
+    def _initial_noise(self, seed: int) -> torch.Tensor:
+        """Seeded packed noise ``f32[1, gh*gw, in_channels]`` (a CPU
+        generator, so the draw is the same on every device)."""
+        gh, gw = self.grid
+        return torch.randn((1, gh * gw, self.model_cfg.in_channels),
+                           generator=set_seed(seed),
+                           dtype=torch.float32).to(self.device)
+
+    def generate(self, prompt: str, seed: int = 42,
+                 cond_latents: Optional[torch.Tensor] = None,
+                 skip_override: Optional[np.ndarray] = None) -> PipelineOutput:
+        """One image's packed latents ``f32[1, gh*gw, in_channels]``.
+
+        ``cond_latents`` (``[1, gh*gw, in_channels]``, packed) runs Kontext
+        conditioning; ``skip_override`` (``bool[steps, 1]`` from
+        ``skip_mask_for``) replaces the config's schedule. ``skips`` holds the
+        realized skip bits (none in calibration mode, which fills
+        ``calibration``)."""
+        t0 = time.time()
+        c = self.config
+        calibrate = c.magcache_calibration
+        if calibrate and skip_override is not None:
+            raise ValueError("skip_override is a generation-path surface")
+        cond = {"txt": self.text_encoder([prompt], device=self.device),
+                "vec": self.pooled_encoder([prompt], device=self.device),
+                "guidance": torch.full((1,), c.guidance, dtype=torch.float32,
+                                       device=self.device)}
+        if cond_latents is not None:
+            cond["kontext"] = torch.as_tensor(cond_latents).float().to(self.device)
+        core = self._core(cond_latents is not None)
+        x0 = self._initial_noise(seed)
+        sch = self.schedule
+        common = dict(timesteps=sch.timesteps, dts=np.diff(sch.sigmas))
+        if calibrate:
+            latents, stats = sample_euler(core, x0, cond, calibrate=True, **common)
+            calibration, skips = calibration_dict(stats), None
+        else:
+            cache_cfg = (self._cache_cfg()
+                         if c.use_magcache or skip_override is not None else None)
+            latents, skips = sample_euler(core, x0, cond, cache_cfg=cache_cfg,
+                                          skip_mask_override=skip_override,
+                                          return_skips=True, **common)
+            calibration = None
+        if latents.is_cuda:
+            torch.cuda.synchronize(latents.device)
+        return PipelineOutput(latents=latents, calibration=calibration,
+                              timings={"total_s": time.time() - t0},
+                              skips=skips)

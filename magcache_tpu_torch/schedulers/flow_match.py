@@ -2,8 +2,8 @@
 
 Wan samples UniPC on this sigma grid: ``linspace(sigma_max, sigma_min,
 n+1)[:-1]``, static shift ``shift*s / (1 + (shift-1)*s)`` (or FLUX's dynamic
-``mu`` shift), terminal sigma appended, ``timesteps = sigmas * T``. All of it
-is host numpy, computed once per run.
+``mu`` shift on ``linspace(1, 1/n, n)``), terminal sigma appended,
+``timesteps = sigmas * T``. All of it is host numpy, computed once per run.
 """
 
 from __future__ import annotations
@@ -53,3 +53,10 @@ class FlowMatchSchedule:
         sigmas = np.concatenate([sigmas, [sigma_last]]).astype(np.float32)
         timesteps = (sigmas[:-1] * num_train_timesteps).astype(np.float32)
         return FlowMatchSchedule(sigmas, timesteps, num_train_timesteps)
+
+    @staticmethod
+    def flux_mu(seq_len: int, base_len: int = 256, max_len: int = 4096,
+                base_shift: float = 0.5, max_shift: float = 1.15) -> float:
+        """FLUX's resolution-dependent mu, linear in the image token count."""
+        m = (max_shift - base_shift) / (max_len - base_len)
+        return seq_len * m + (base_shift - base_len * m)

@@ -71,6 +71,74 @@ def test_k2_matches_plain(dev, b, s, heads):
     torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=1.6e-2)
 
 
+@pytest.mark.parametrize("s,heads,row,offset,shared_gain", [
+    (4096, 24, 9216, 0, True),       # FLUX double block, image q slice
+    (4096, 24, 9216, 3072, True),    # ... its k slice
+    (512, 24, 9216, 3072, True),     # text k slice
+    (4608, 24, 21504, 3072, True),   # single block, k slice of lin1
+    (333, 24, 3072, 0, False),       # contiguous rows, [H*D] gain
+    (77, 3, 1000, 128, True)])       # narrow and ragged
+def test_k2_head_scope_matches_plain(dev, s, heads, row, offset, shared_gain):
+    hd = heads * 128
+    fused = _rand(dev, 1, s, row, scale=2.0, seed=7)
+    x = fused[..., offset:offset + hd]
+    gain = 1.0 + _rand(dev, 128 if shared_gain else hd, dtype=torch.float32,
+                       scale=0.1, seed=8)
+    ang = torch.rand(s, 64, device=dev) * 6.28
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    before = (P.rms_norm_rope.launches, dict(P.rms_norm_rope.scope_launches))
+    got = P.rms_norm_rope(x, gain, cos, sin, heads, eps=1e-6, norm_scope="head")
+    want = P.rms_norm_rope_plain(x, gain, cos, sin, heads, eps=1e-6,
+                                 norm_scope="head")
+    torch.cuda.synchronize()
+    assert P.rms_norm_rope.launches == before[0] + 1 and got.is_contiguous()
+    assert P.rms_norm_rope.scope_launches == dict(before[1], head=before[1]["head"] + 1)
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=1.6e-2)
+
+
+def test_k2_refuses_what_it_does_not_take(dev):
+    tab = torch.zeros(10, 32, device=dev)
+    x = _rand(dev, 1, 10, 4 * 64)                           # head dim 64
+    for scope in ("token", "head"):
+        with pytest.raises(ValueError, match="head dim"):
+            P.rms_norm_rope(x, torch.ones(64, device=dev), tab, tab, 4,
+                            norm_scope=scope)
+    tab = torch.zeros(10, 64, device=dev)
+    x = _rand(dev, 1, 10, 2 * 128)
+    with pytest.raises(ValueError):                          # f32 x
+        P.rms_norm_rope(x.float(), torch.ones(128, device=dev), tab, tab, 2,
+                        norm_scope="head")
+    with pytest.raises(ValueError):                          # channel stride 2
+        P.rms_norm_rope(_rand(dev, 1, 10, 512)[..., ::2], torch.ones(128, device=dev),
+                        tab, tab, 2, norm_scope="head")
+    with pytest.raises(ValueError):                          # [D] gain, token scope
+        P.rms_norm_rope(x, torch.ones(128, device=dev), tab, tab, 2)
+
+
+def test_tiny_flux_pipeline_runs_through_the_kernels(dev):
+    from magcache_tpu_torch.models.flux import FluxConfig, FluxModel
+    from magcache_tpu_torch.pipelines.flux import FluxPipeline, FluxPipelineConfig
+
+    cfg = FluxPipelineConfig(height=192, width=128, txt_len=40,
+                             num_inference_steps=28, use_magcache=True)
+    mcfg = FluxConfig.tiny(hidden=256, heads=2, axes_dims=(16, 56, 56),
+                           dtype="bfloat16")
+    model = FluxModel(mcfg, dev).init(torch.Generator(device=dev).manual_seed(0))
+    pipe = FluxPipeline(cfg, dev, model=model)
+    counts = [A.flash_attention_bshd, P.rms_norm_rope, P.layer_norm_mod]
+    before = [f.launches for f in counts]
+    scopes = dict(P.rms_norm_rope.scope_launches)
+    out = pipe.generate("a fox", seed=0)           # 40 + 96 tokens > 128: K1
+    runs = int((~out.skips.all(1)).sum())
+    assert int(out.skips.sum()) == 19 and runs == 9
+    # per trunk run of 2 double + 2 single blocks; K3 also runs in the head
+    assert [f.launches - b for f, b in zip(counts, before)] == [
+        4 * runs, 12 * runs, 10 * runs + 28]
+    assert P.rms_norm_rope.scope_launches == dict(token=scopes["token"],
+                                                  head=scopes["head"] + 12 * runs)
+    assert torch.isfinite(out.latents).all()
+
+
 @pytest.mark.parametrize("mode", ["mod", "affine"])
 @pytest.mark.parametrize("width", [1536, 256, 200])
 def test_k3_matches_plain(dev, mode, width):
@@ -99,11 +167,14 @@ def test_tiny_pipeline_runs_through_the_kernels(dev):
     pipe = WanPipeline(cfg, dev)
     counts = [A.flash_attention_bshd, P.rms_norm_rope, P.layer_norm_mod]
     before = [f.launches for f in counts]
+    scopes = dict(P.rms_norm_rope.scope_launches)
     out = pipe.generate("a cat", seed=0)
     runs = int((~out.skips.all(1)).sum())
     per_run = [2 * 2, 2 * 2, 3 * 2]        # per block x 2 blocks
     assert [f.launches - b for f, b in zip(counts, before)] == [
         n * runs for n in per_run]
+    assert P.rms_norm_rope.scope_launches == dict(token=scopes["token"] + 4 * runs,
+                                                  head=scopes["head"])
     assert torch.isfinite(out.latents).all()
     assert np.asarray(out.skips).sum() == 10
 

@@ -1,10 +1,11 @@
 """Where one DiT forward spends its device time, on one NVIDIA card.
 
-    python tools/profile_torch_forward.py [--model wan|open-sora] [--frames N] [--top 15]
+    python tools/profile_torch_forward.py [--model wan|open-sora|flux] [--frames N] [--top 15]
 
 Builds the model (bf16, random seeded weights) from ``magcache_tpu_torch``:
-WAN_1_3B at 832x480 (default 81 frames, 2 CFG lanes) or STDiT3-XL/2 at 480p
-9:16 (default 51 frames, the joint CFG batch of 2). Runs one warm-up forward
+WAN_1_3B at 832x480 (default 81 frames, 2 CFG lanes), STDiT3-XL/2 at 480p
+9:16 (default 51 frames, the joint CFG batch of 2) or FLUX.1-dev at
+1024x1024 (4,096 image + 512 text tokens, one row). Runs one warm-up forward
 (prepare -> trunk -> head) and traces a second with ``torch.profiler``.
 Prints the wall time, the summed device time, the device's idle share of the
 wall time, and the kernels with the most device time. Needs a card: exits
@@ -25,7 +26,7 @@ import torch
 
 def main(argv=None):
     p = argparse.ArgumentParser()
-    p.add_argument("--model", choices=["wan", "open-sora"], default="wan")
+    p.add_argument("--model", choices=["wan", "open-sora", "flux"], default="wan")
     p.add_argument("--frames", type=int, default=None,
                    help="pixel frames (default 81 for Wan, 51 for Open-Sora)")
     p.add_argument("--top", type=int, default=15)
@@ -41,7 +42,8 @@ def main(argv=None):
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     g = torch.Generator(device=dev).manual_seed(1)
-    t = torch.full((2,), 900.0, device=dev)
+    rows = 1 if args.model == "flux" else 2
+    t = torch.full((rows,), 900.0, device=dev)
     if args.model == "wan":
         from magcache_tpu_torch.models.wan import WAN_1_3B, WanModel, make_wan_core
 
@@ -51,6 +53,17 @@ def main(argv=None):
         core = make_wan_core(model, grid)
         x = torch.randn((2, lat_f, 60, 104, 16), generator=g, device=dev)
         cond = {"context": MockTextEncoder(512, 4096, 0.5)(["a cat", ""], device=dev)}
+    elif args.model == "flux":
+        from magcache_tpu_torch.models.flux import FLUX_DEV, FluxModel, make_flux_core
+        from magcache_tpu_torch.models.text import MockPooledEncoder
+
+        model = FluxModel(dataclasses.replace(FLUX_DEV, dtype="bfloat16"), dev).init(gen)
+        grid = (1, 64, 64)
+        core = make_flux_core(model, 512, 64, 64)
+        x = torch.randn((1, 4096, 64), generator=g, device=dev)
+        cond = {"txt": MockTextEncoder(512, 4096, 0.5)(["a fox"], device=dev),
+                "vec": MockPooledEncoder(768)(["a fox"], device=dev),
+                "guidance": torch.full((1,), 3.5, device=dev)}
     else:
         from magcache_tpu_torch.models.stdit3 import (STDIT3_XL_2, STDiT3Model,
                                                       make_stdit3_core)
@@ -80,7 +93,7 @@ def main(argv=None):
     events = [e for e in prof.key_averages() if e.device_time_total > 0
               and e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.device_time_total for e in events) / 1e3
-    print(f"{args.model}: {grid[0] * grid[1] * grid[2]} tokens x 2 rows: wall {wall_ms:.1f} ms, "
+    print(f"{args.model}: {grid[0] * grid[1] * grid[2]} tokens x {rows} rows: wall {wall_ms:.1f} ms, "
           f"device busy {busy_ms:.1f} ms, idle share "
           f"{max(0.0, 1 - busy_ms / wall_ms):.3f}")
     for e in sorted(events, key=lambda e: -e.device_time_total)[:args.top]:
