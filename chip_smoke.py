@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives ``magcache_tpu_torch`` (never JAX) in fourteen phases and exits
+Drives ``magcache_tpu_torch`` (never JAX) in eighteen phases and exits
 nonzero on the first failure:
 
 1. environment: a CUDA card is required; prints the card's name and power
@@ -46,17 +46,42 @@ FLUX.1-dev and FLUX.1-Kontext-dev (K1, K2 in head scope, K3):
 14. the FLUX slice on the card (bf16) against the CPU (f32) at hidden 256,
    2 heads of 128, 2 + 2 blocks, over Euler steps with skipped ones.
 
+Open-Sora 1.2 at 720p and its mask-strategy conditioning (K1q, K3, K5-K8):
+15. K1q (K1 with the per-head RMS qk-norm fused, head dim 72) against its
+   plain version at one spatial block's 720p 9:16 shape: q/k/v read as
+   column views of one [30, 3600, 3456] bf16 projection, fixed max; then K5
+   and K3 at the temporal block's 720p shapes and K6, K7 and K8 at the
+   720p blocks' shapes;
+16. one full-shape forward at 720p 9:16 x 51 frames (15 frames of 3,600
+   tokens, 2 rows: 108,000 tokens), 28 layers, twice;
+17. requests through ``OpenSoraPipeline.generate`` at 720p 9:16 x 17 frames
+   (5 latent frames; frames cut from 51 so the phase stays short) and 30
+   RFLOW steps: full compute, MagCache opensora-v1.2 (18 of 30 skipped), and
+   one MagCache request with a mask strategy (latent frame 0 pinned to a
+   seeded .npy reference, the last frame at edit ratio 0.5); checks skip
+   bits, launch counts and latents;
+18. the narrow slice on the card (bf16) against the CPU (f32) with frames of
+   2,304 tokens (K1q): one plain request, and one with a pinned reference
+   frame and ``loop=2`` (the masked blocks, the masked sampler, the loop
+   hand-off).
+
 Kernel times are CUDA-event times of a loop of back-to-back launches
 between one event pair, divided by the count (``cuda_ms``); phase 11 times
 the short K2h and K3 calls as one replay of a CUDA graph of 20 calls
 (``cuda_graph_ms``), since their wrappers' host dispatch outlasts them. The
 second-to-last line of stdout is the kernels' JSON record: one entry per
-kernel (K2's token and head scopes apart, each counted by its own launch
-count) with its launches on each path, its worst error over every shape
-compared, and the times of its first shape timed, named in ``timed_at``,
-with their method in ``timing`` (``loop`` or ``graph``). The last line is
-``{"ok": true, "device": {...}}``. Weights are random (seeded); no
-checkpoint is read.
+kernel (K2's token and head scopes apart, and K1 and K1q apart, each counted
+by its own launch count) with its launches on each path, its worst error
+over every shape compared, and the times of its first shape timed, named in
+``timed_at``, with their method in ``timing`` (``loop`` or ``graph``).
+``bound_ms`` is the least time an H100 SXM could take at that shape: the
+larger of the bytes moved (each input read once, each output written once)
+over 3.35 TB/s and the operations over the peak rate of their type (989
+TFLOP/s for the tensor-core products, 67 TFLOP/s for f32 elementwise work),
+with ``bound_by`` naming which. ``library_ms`` is one PyTorch call computing
+the same function at that shape (``library_call`` names it), else null.
+The last line is ``{"ok": true, "device": {...}}``. Weights are random
+(seeded); no checkpoint is read.
 """
 
 from __future__ import annotations
@@ -75,9 +100,9 @@ STEPS = 20            # enough that E012K2R02 elides forwards at 20 steps
 # ``rms_norm_rope`` and head scope ``rms_norm_rope_head`` apart). Wan: 30
 # blocks
 NO_LAUNCHES = dict.fromkeys(
-    ("flash_attention_bshd", "rms_norm_rope", "rms_norm_rope_head", "layer_norm_mod",
-     "grouped_attention_fused_qkv", "fused_cross_attention", "lnmod_matmul",
-     "matmul_gated_residual"), 0)
+    ("flash_attention_bshd", "flash_attention_bshd_qknorm", "rms_norm_rope",
+     "rms_norm_rope_head", "layer_norm_mod", "grouped_attention_fused_qkv",
+     "fused_cross_attention", "lnmod_matmul", "matmul_gated_residual"), 0)
 TRUNK_LAUNCHES = dict(NO_LAUNCHES, flash_attention_bshd=60, rms_norm_rope=60,
                       layer_norm_mod=90)
 # Open-Sora: 28 (spatial, temporal) block pairs per trunk run
@@ -90,7 +115,18 @@ OS_STEPS, OS_FRAMES = 30, 51
 FLUX_TRUNK_LAUNCHES = dict(NO_LAUNCHES, flash_attention_bshd=57,
                            rms_norm_rope_head=152, layer_norm_mod=114)
 FLUX_STEPS, FLUX_TXT, FLUX_GRID = 28, 512, (64, 64)
+# Open-Sora at 720p 9:16: frames of 45 x 80 = 3,600 tokens take K1q in the
+# spatial blocks, K5 stays in the temporal ones; the masked-frame blocks run
+# the unfused composition (no K3, K7 or K8)
+OS720_TRUNK_LAUNCHES = dict(OS_TRUNK_LAUNCHES, grouped_attention_fused_qkv=28,
+                            flash_attention_bshd_qknorm=28)
+OS720_MASKED_LAUNCHES = dict(NO_LAUNCHES, flash_attention_bshd_qknorm=28,
+                             grouped_attention_fused_qkv=28, fused_cross_attention=56)
+OS720_FRAMES, OS720_GRID = 17, (5, 45, 80)
 H100_BF16_TFLOPS = 989.0  # dense bf16 peak of an H100 SXM at 700 W
+H100_F32_TFLOPS = 67.0    # f32 outside the tensor cores
+H100_HBM_TBPS = 3.35      # HBM3 bytes/s
+ELEMENTWISE_OPS = 8       # f32 operations per element of K2/K3 (norm, affine, rope)
 
 
 def log(msg: str) -> None:
@@ -139,6 +175,35 @@ def cuda_graph_ms(fn, reps: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(flops: float, nbytes: float, tflops: float = H100_BF16_TFLOPS):
+    """``(ms, "operations" | "bytes")``: the least time an H100 SXM could
+    take for ``flops`` operations at ``tflops`` and ``nbytes`` of device
+    memory traffic, and which of the two binds."""
+    ops_ms = flops / (tflops * 1e9)
+    bytes_ms = nbytes / (H100_HBM_TBPS * 1e9)
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def elementwise_work(x: torch.Tensor, *small):
+    """Work of K2/K3 over ``x``: ELEMENTWISE_OPS f32 operations per element,
+    x read and an output of its size written, plus the ``small`` tensors
+    (gains, tables, modulations) read once."""
+    return (ELEMENTWISE_OPS * x.numel(), 2 * nbytes(x) + nbytes(*small), H100_F32_TFLOPS)
+
+
+def sdpa_ms(q, k, v, reps: int) -> float:
+    """``F.scaled_dot_product_attention`` on ``[B, S, H, D]`` q/k/v (as
+    ``[B, H, S, D]`` views), the library yardstick of K1 and K1q."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    return cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), reps)
 
 
 def compare(name: str, got: torch.Tensor, want: torch.Tensor, atol: float,
@@ -230,10 +295,13 @@ def phase_kernels(dev, rec):
         ms = cuda_ms(lambda: A.flash_attention_bshd(qq, kk, vv, fixed_max=fm), 5)
         pms = cuda_ms(lambda: A.flash_attention_bshd_plain(qq, kk, vv,
                                                            fixed_max=fm), 2)
+        lms = sdpa_ms(qq, kk, vv, 5)
         flops = 4 * B * H * S * kk.shape[1] * D
         log(f"  K1 [{label}]: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} "
-            f"TFLOP/s), plain {pms:.3f} ms")
-        keep(rec, "flash_attention_bshd", err, ms, pms, "loop", f"2x32760x12x128 {label}")
+            f"TFLOP/s), plain {pms:.3f} ms, SDPA {lms:.3f} ms")
+        keep(rec, "flash_attention_bshd", err, ms, pms, "loop", f"2x32760x12x128 {label}",
+             (flops, 2 * nbytes(qq) + nbytes(kk, vv)),
+             ("F.scaled_dot_product_attention", lms))
     del q, k, v, ck, cv
 
     # K2/K3: a flipped bf16 rounding of the normed value moves an output by
@@ -250,7 +318,8 @@ def phase_kernels(dev, rec):
     pms = cuda_ms(lambda: P.rms_norm_rope_plain(x, gain, cos, sin, H, eps=1e-6))
     gbs = 2 * x.numel() * 2 / ms / 1e6
     log(f"  K2: kernel {ms:.3f} ms ({gbs:.0f} GB/s), plain {pms:.3f} ms")
-    keep(rec, "rms_norm_rope", err, ms, pms, "loop", "2x32760x1536")
+    keep(rec, "rms_norm_rope", err, ms, pms, "loop", "2x32760x1536",
+         elementwise_work(x, gain, cos, sin))
 
     sc = rnd(B, 1, H * D, dtype=torch.float32, scale=0.1)
     sh = rnd(B, 1, H * D, dtype=torch.float32, scale=0.1)
@@ -264,9 +333,16 @@ def phase_kernels(dev, rec):
                       rtol=1.6e-2)
         ms = cuda_ms(lambda: P.layer_norm_mod(x, eps=1e-6, **kw))
         pms = cuda_ms(lambda: P.layer_norm_mod_plain(x, eps=1e-6, **kw))
+        lib = None
+        if label == "affine":      # one library call computes the affine form
+            wb, bb = w.to(x.dtype), bias.to(x.dtype)
+            lib = ("F.layer_norm", cuda_ms(lambda: torch.nn.functional.layer_norm(
+                x, (H * D,), wb, bb, eps=1e-6)))
         log(f"  K3 [{label}]: kernel {ms:.3f} ms "
-            f"({2 * x.numel() * 2 / ms / 1e6:.0f} GB/s), plain {pms:.3f} ms")
-        keep(rec, "layer_norm_mod", err, ms, pms, "loop", f"2x32760x1536 {label}")
+            f"({2 * x.numel() * 2 / ms / 1e6:.0f} GB/s), plain {pms:.3f} ms"
+            + (f", F.layer_norm {lib[1]:.3f} ms" if lib else ""))
+        keep(rec, "layer_norm_mod", err, ms, pms, "loop", f"2x32760x1536 {label}",
+             elementwise_work(x, *kw.values()), lib)
 
 
 def make_model(dev):
@@ -317,21 +393,25 @@ def _wrappers():
 
 def reset_counts():
     """Sets every kernel wrapper's launch counts to 0."""
+    from magcache_tpu_torch.ops import attention as A
     from magcache_tpu_torch.ops import fused_prologue as P
 
     for fn in _wrappers():
         fn.launches = 0
+    A.flash_attention_bshd.qknorm_launches = 0
     P.rms_norm_rope.scope_launches.update(token=0, head=0)
 
 
 def read_counts() -> dict:
-    """Every kernel record's launch count, K2's two scopes each from its own
-    count."""
+    """Every kernel record's launch count: K2's two scopes and K1 and K1q
+    each from its own count."""
+    from magcache_tpu_torch.ops import attention as A
     from magcache_tpu_torch.ops import fused_prologue as P
 
     counts = {fn.__name__: fn.launches for fn in _wrappers()}
     scopes = P.rms_norm_rope.scope_launches
-    counts.update(rms_norm_rope=scopes["token"], rms_norm_rope_head=scopes["head"])
+    counts.update(rms_norm_rope=scopes["token"], rms_norm_rope_head=scopes["head"],
+                  flash_attention_bshd_qknorm=A.flash_attention_bshd.qknorm_launches)
     return counts
 
 
@@ -341,15 +421,22 @@ def count_launches(counts_before: dict) -> dict:
 
 
 def keep(rec: dict, name: str, err: float, ms: float, pms: float, timing: str,
-         shape: str) -> None:
+         shape: str, work: tuple, library: tuple = None) -> None:
     """Keeps a kernel's result for the JSON line: the worst error over every
-    shape compared, and the times of the first shape timed with how they
-    were timed (``loop``: ``cuda_ms``, ``graph``: ``cuda_graph_ms``)."""
+    shape compared, and for the first shape timed its times with how they
+    were timed (``loop``: ``cuda_ms``, ``graph``: ``cuda_graph_ms``), its
+    bound from ``work`` (``bound``'s arguments at that shape) and the time
+    of ``library`` (``(call, ms)``), a PyTorch call computing the same
+    function there. Logs the bound at every shape."""
+    bound_ms, bound_by = bound(*work)
+    log(f"    {name} [{shape}]: bound {bound_ms:.4f} ms by {bound_by}")
     if name in rec:
         rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
-    else:
-        rec[name] = {"max_abs_err": err, "ms": ms, "plain_ms": pms,
-                     "timing": timing, "timed_at": shape}
+        return
+    rec[name] = {"max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": bound_ms,
+                 "bound_by": bound_by, "library_ms": library[1] if library else None,
+                 "library_call": library[0] if library else None,
+                 "timing": timing, "timed_at": shape}
 
 
 def phase_requests(dev, model):
@@ -473,6 +560,81 @@ def phase_card_vs_cpu(dev):
         fail("card and CPU slices disagree, or a kernel did not run as expected")
 
 # ---------------------------------------------------------------- Open-Sora
+def record(rec, name, label, got, want, ms, pms, flops, moved, atol=4e-2, rtol=2e-2):
+    """Compares a kernel's output with its plain version's, logs both times
+    and keeps the result. K7/K8's default tolerance: a flipped bf16 rounding
+    of an intermediate (the GEMM operand, the pre-gate product, the gated
+    value before the residual add) of magnitude < 8 moves an output by up
+    to one ulp there, 2^-5."""
+    err = compare(f"{name} [{label}]", got, want, atol=atol, rtol=rtol)
+    log(f"  {name} [{label}]: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} "
+        f"TFLOP/s, {flops / ms / 1e9 / H100_BF16_TFLOPS:.1%} of "
+        f"{H100_BF16_TFLOPS:.0f}), plain {pms:.3f} ms")
+    keep(rec, name, err, ms, pms, "loop", label, (flops, moved))
+
+
+def check_stdit3_linear_kernels(dev, rec, gen, S, rows=2, T=15, d=1152, H=16, L=300):
+    """K7, K8 and K6 vs their plain versions at the shapes that STDiT3-XL/2
+    gives them for ``rows`` rows of T latent frames of S tokens each."""
+    from magcache_tpu_torch.ops import attention as A
+    from magcache_tpu_torch.ops import fused_prologue as P
+
+    N = T * S
+
+    def rnd(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    # K7: the spatial qkv projection (per-frame view, batch_repeat T) and
+    # mlp1 with the gelu epilogue
+    h = rnd(rows, N, d)
+    sc, sh = rnd(rows, d, dtype=torch.float32, scale=0.1), rnd(rows, d, dtype=torch.float32, scale=0.1)
+    for label, x, w, b, kw in (
+            (f"qkv {rows * T}x{S}x{d} -> {3 * d}, batch_repeat {T}",
+             h.reshape(rows * T, S, d), rnd(3 * d, d, scale=d ** -0.5),
+             rnd(3 * d, scale=0.1), dict(batch_repeat=T)),
+            (f"mlp1 {rows}x{N}x{d} -> {4 * d}, gelu", h, rnd(4 * d, d, scale=d ** -0.5),
+             rnd(4 * d, scale=0.1), dict(act="gelu"))):
+        got = P.lnmod_matmul(x, sc, sh, w, b, **kw)
+        want = P.lnmod_matmul_plain(x, sc, sh, w, b, **kw)
+        record(rec, "lnmod_matmul", label, got, want,
+               cuda_ms(lambda: P.lnmod_matmul(x, sc, sh, w, b, **kw)),
+               cuda_ms(lambda: P.lnmod_matmul_plain(x, sc, sh, w, b, **kw), 2),
+               2 * x.shape[0] * x.shape[1] * d * w.shape[0], nbytes(x, w, b, got))
+        del got, want
+
+    # K8: spatial proj + residual, temporal proj (gate row per S rows, no
+    # residual), mlp2 + residual
+    g = rnd(rows, d, dtype=torch.float32, scale=0.5)
+    for label, x, w, r, kw in (
+            (f"proj spatial {rows * T}x{S}x{d} + resid", rnd(rows * T, S, d),
+             rnd(d, d, scale=d ** -0.5), h.reshape(rows * T, S, d), dict(batch_repeat=T)),
+            (f"proj temporal {rows * S}x{T}x{d}, batch_repeat {S}", rnd(rows * S, T, d),
+             rnd(d, d, scale=d ** -0.5), None, dict(batch_repeat=S, rows_out=T)),
+            (f"mlp2 {rows}x{N}x{4 * d} + resid", rnd(rows, N, 4 * d),
+             rnd(d, 4 * d, scale=(4 * d) ** -0.5), h, {})):
+        b = rnd(d, scale=0.1)
+        got = P.matmul_gated_residual(x, w, b, g, r, **kw)
+        want = P.matmul_gated_residual_plain(x, w, b, g, r, **kw)
+        record(rec, "matmul_gated_residual", label, got, want,
+               cuda_ms(lambda: P.matmul_gated_residual(x, w, b, g, r, **kw)),
+               cuda_ms(lambda: P.matmul_gated_residual_plain(x, w, b, g, r, **kw), 2),
+               2 * x.shape[0] * x.shape[1] * x.shape[2] * d,
+               nbytes(x, w, b, got, *([] if r is None else [r])))
+        del got, want, x
+
+    # K6: cross-attention over the L-token caption, residual fused
+    wq, wo = rnd(d, d, scale=d ** -0.5), rnd(d, d, scale=d ** -0.5)
+    bq, bo = rnd(d, scale=0.05), rnd(d, scale=0.05)
+    k, v = rnd(rows, L, d), rnd(rows, L, d)
+    kw = dict(scale=(d // H) ** -0.5, true_d=d // H, residual=True)
+    got = A.fused_cross_attention(h, wq, bq, k, v, wo, bo, H, **kw)
+    want = A.fused_cross_attention_plain(h, wq, bq, k, v, wo, bo, H, **kw)
+    record(rec, "fused_cross_attention", f"{rows}x{N} x {L} keys, residual", got, want,
+           cuda_ms(lambda: A.fused_cross_attention(h, wq, bq, k, v, wo, bo, H, **kw)),
+           cuda_ms(lambda: A.fused_cross_attention_plain(h, wq, bq, k, v, wo, bo, H, **kw), 2),
+           4 * rows * N * d * d + 4 * rows * N * L * d, nbytes(h, wq, bq, k, v, wo, bo, got))
+
+
 def phase_os_kernels(dev, rec):
     """K3, K5-K8 vs their plain versions at STDiT3-XL/2 480p x 51 shapes."""
     from magcache_tpu_torch.ops import attention as A
@@ -481,59 +643,14 @@ def phase_os_kernels(dev, rec):
 
     log("phase 7: kernels vs plain at STDiT3-XL/2 480p 9:16 x 51 shapes (bf16)")
     gen = torch.Generator(device=dev).manual_seed(4321)
-    rows, T, S, d, H, L = 2, 15, 1590, 1152, 16, 300
+    rows, T, S, d, H = 2, 15, 1590, 1152, 16
     N = T * S
     bf = torch.bfloat16
 
     def rnd(*shape, dtype=bf, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
 
-
-    # K7/K8: a flipped bf16 rounding of an intermediate (the GEMM operand,
-    # the pre-gate product, the gated value before the residual add) of
-    # magnitude < 8 moves an output by up to one ulp there, 2^-5
-    def record(name, label, got, want, ms, pms, flops, atol=4e-2, rtol=2e-2):
-        err = compare(f"{name} [{label}]", got, want, atol=atol, rtol=rtol)
-        log(f"  {name} [{label}]: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} "
-            f"TFLOP/s, {flops / ms / 1e9 / H100_BF16_TFLOPS:.1%} of "
-            f"{H100_BF16_TFLOPS:.0f}), plain {pms:.3f} ms")
-        keep(rec, name, err, ms, pms, "loop", label)
-
-    # K7: the spatial qkv projection (per-frame view, batch_repeat 15) and
-    # mlp1 with the gelu epilogue
-    h = rnd(rows, N, d)
-    sc, sh = rnd(rows, d, dtype=torch.float32, scale=0.1), rnd(rows, d, dtype=torch.float32, scale=0.1)
-    for label, x, w, b, kw in (
-            ("qkv 30x1590x1152 -> 3456, batch_repeat 15", h.reshape(rows * T, S, d),
-             rnd(3 * d, d, scale=d ** -0.5), rnd(3 * d, scale=0.1), dict(batch_repeat=T)),
-            ("mlp1 2x23850x1152 -> 4608, gelu", h, rnd(4 * d, d, scale=d ** -0.5),
-             rnd(4 * d, scale=0.1), dict(act="gelu"))):
-        got = P.lnmod_matmul(x, sc, sh, w, b, **kw)
-        want = P.lnmod_matmul_plain(x, sc, sh, w, b, **kw)
-        record("lnmod_matmul", label, got, want,
-               cuda_ms(lambda: P.lnmod_matmul(x, sc, sh, w, b, **kw)),
-               cuda_ms(lambda: P.lnmod_matmul_plain(x, sc, sh, w, b, **kw), 2),
-               2 * x.shape[0] * x.shape[1] * d * w.shape[0])
-        del got, want
-
-    # K8: spatial proj + residual, temporal proj (gate row per 1,590 rows, no
-    # residual), mlp2 + residual
-    g = rnd(rows, d, dtype=torch.float32, scale=0.5)
-    for label, x, w, r, kw in (
-            ("proj spatial 30x1590x1152 + resid", rnd(rows * T, S, d),
-             rnd(d, d, scale=d ** -0.5), h.reshape(rows * T, S, d), dict(batch_repeat=T)),
-            ("proj temporal 3180x15x1152, batch_repeat 1590", rnd(rows * S, T, d),
-             rnd(d, d, scale=d ** -0.5), None, dict(batch_repeat=S, rows_out=T)),
-            ("mlp2 2x23850x4608 + resid", rnd(rows, N, 4 * d),
-             rnd(d, 4 * d, scale=(4 * d) ** -0.5), h, {})):
-        b = rnd(d, scale=0.1)
-        got = P.matmul_gated_residual(x, w, b, g, r, **kw)
-        want = P.matmul_gated_residual_plain(x, w, b, g, r, **kw)
-        record("matmul_gated_residual", label, got, want,
-               cuda_ms(lambda: P.matmul_gated_residual(x, w, b, g, r, **kw)),
-               cuda_ms(lambda: P.matmul_gated_residual_plain(x, w, b, g, r, **kw), 2),
-               2 * x.shape[0] * x.shape[1] * x.shape[2] * d)
-        del got, want, x
+    check_stdit3_linear_kernels(dev, rec, gen, S)
 
     # K5: spatial (one group per frame) and temporal (groups of 15, RoPE)
     gains = (1.0 + rnd(H, 72, dtype=torch.float32, scale=0.1),
@@ -548,29 +665,15 @@ def phase_os_kernels(dev, rec):
              dict(group=T, rope_tables=tabs), 4 * rows * S * H * T * T * 72)):
         got = A.grouped_attention_fused_qkv(qkv, H, **kw, **attn)
         want = A.grouped_attention_fused_qkv_plain(qkv, H, **kw, **attn)
-        record("grouped_attention_fused_qkv", label, got, want,
+        record(rec, "grouped_attention_fused_qkv", label, got, want,
                cuda_ms(lambda: A.grouped_attention_fused_qkv(qkv, H, **kw, **attn)),
                cuda_ms(lambda: A.grouped_attention_fused_qkv_plain(qkv, H, **kw, **attn), 2),
-               flops, atol=1e-2)
+               flops, nbytes(qkv, got), atol=1e-2)
         del got, want, qkv
 
-    # K6: cross-attention over the 300-token caption, residual fused
-    wq, wo = rnd(d, d, scale=d ** -0.5), rnd(d, d, scale=d ** -0.5)
-    bq, bo = rnd(d, scale=0.05), rnd(d, scale=0.05)
-    k, v = rnd(rows, L, d), rnd(rows, L, d)
-    got = A.fused_cross_attention(h, wq, bq, k, v, wo, bo, H, scale=72 ** -0.5,
-                                  true_d=72, residual=True)
-    want = A.fused_cross_attention_plain(h, wq, bq, k, v, wo, bo, H,
-                                         scale=72 ** -0.5, true_d=72, residual=True)
-    record("fused_cross_attention", "2x23850 x 300 keys, residual", got, want,
-           cuda_ms(lambda: A.fused_cross_attention(h, wq, bq, k, v, wo, bo, H,
-                                                   scale=72 ** -0.5, residual=True)),
-           cuda_ms(lambda: A.fused_cross_attention_plain(h, wq, bq, k, v, wo, bo, H,
-                                                         scale=72 ** -0.5,
-                                                         residual=True), 2),
-           4 * rows * N * d * d + 4 * rows * N * L * d)
-
     # K3 at the temporal block's shape (mod mode)
+    h = rnd(rows, N, d)
+    sc, sh = rnd(rows, d, dtype=torch.float32, scale=0.1), rnd(rows, d, dtype=torch.float32, scale=0.1)
     got = P.layer_norm_mod(h, scale=sc, shift=sh, eps=1e-6)
     want = P.layer_norm_mod_plain(h, scale=sc, shift=sh, eps=1e-6)
     err = compare("layer_norm_mod [temporal mod, 2x23850x1152]", got, want,
@@ -579,7 +682,8 @@ def phase_os_kernels(dev, rec):
     pms = cuda_ms(lambda: P.layer_norm_mod_plain(h, scale=sc, shift=sh, eps=1e-6))
     log(f"  K3 [temporal mod]: kernel {ms:.3f} ms "
         f"({2 * h.numel() * 2 / ms / 1e6:.0f} GB/s), plain {pms:.3f} ms")
-    keep(rec, "layer_norm_mod", err, ms, pms, "loop", "temporal mod 2x23850x1152")
+    keep(rec, "layer_norm_mod", err, ms, pms, "loop", "temporal mod 2x23850x1152",
+         elementwise_work(h, sc, sh))
 
 
 def make_os_model(dev):
@@ -801,7 +905,8 @@ def phase_flux_kernels(dev, rec):
         log(f"  K2h [{label}]: kernel {ms:.4f} ms ({2 * rows * d * 2 / ms / 1e6:.0f} "
             f"GB/s), plain {pms:.4f} ms; {call_ms:.4f} ms per back-to-back "
             f"wrapper call")
-        keep(rec, "rms_norm_rope_head", err, ms, pms, "graph", label)
+        keep(rec, "rms_norm_rope_head", err, ms, pms, "graph", label,
+             elementwise_work(got, gain, *tabs))
         del x, got, want
 
     # K1 over the joint [txt; img] sequence with the static shift
@@ -813,9 +918,12 @@ def phase_flux_kernels(dev, rec):
                   got, want, atol=2e-3, rtol=2e-2)
     ms = cuda_ms(lambda: A.flash_attention_bshd(q, k, v, fixed_max=16.0), 10)
     pms = cuda_ms(lambda: A.flash_attention_bshd_plain(q, k, v, fixed_max=16.0), 2)
+    lms = sdpa_ms(q, k, v, 10)
     log(f"  K1 [joint 4608]: kernel {ms:.3f} ms "
-        f"({4 * H * S * S * D / ms / 1e9:.1f} TFLOP/s), plain {pms:.3f} ms")
-    keep(rec, "flash_attention_bshd", err, ms, pms, "loop", "joint 1x4608x24x128")
+        f"({4 * H * S * S * D / ms / 1e9:.1f} TFLOP/s), plain {pms:.3f} ms, "
+        f"SDPA {lms:.3f} ms")
+    keep(rec, "flash_attention_bshd", err, ms, pms, "loop", "joint 1x4608x24x128",
+         (4 * H * S * S * D, 4 * nbytes(q)), ("F.scaled_dot_product_attention", lms))
     del q, k, v, got, want
 
     # K3 mod at the double block's image stream
@@ -831,7 +939,8 @@ def phase_flux_kernels(dev, rec):
     log(f"  K3 [mod 4096x3072]: kernel {ms:.4f} ms "
         f"({2 * x.numel() * 2 / ms / 1e6:.0f} GB/s), plain {pms:.4f} ms; "
         f"{call_ms:.4f} ms per back-to-back wrapper call")
-    keep(rec, "layer_norm_mod", err, ms, pms, "graph", "mod 1x4096x3072")
+    keep(rec, "layer_norm_mod", err, ms, pms, "graph", "mod 1x4096x3072",
+         elementwise_work(x, sc, sh))
 
 
 def make_flux_model(dev):
@@ -1028,6 +1137,241 @@ def phase_flux_card_vs_cpu(dev):
     if rel > 5e-2 or launched != want_launches:
         fail(f"card and CPU slices disagree, or launches {launched} != {want_launches}")
 
+# ---------------------------------------------------------- Open-Sora 720p
+def phase_os720_kernels(dev, rec):
+    """K1q vs its plain version at one 720p spatial block's shape, then K5
+    and K3 at the 720p temporal block's shapes and K6-K8 at the 720p
+    blocks' shapes (frames of 3,600 tokens: 16 ragged rows per 64-row tile,
+    a gate row every 3,600 rows)."""
+    from magcache_tpu_torch.ops import attention as A
+    from magcache_tpu_torch.ops import fused_prologue as P
+    from magcache_tpu_torch.ops.rope import grouped_rope_tables
+
+    log("phase 15: K1q, K3 and K5-K8 vs plain at STDiT3-XL/2 720p 9:16 x 51 shapes (bf16)")
+    gen = torch.Generator(device=dev).manual_seed(1357)
+    frames, (_, gh, gw), H, D = 2 * 15, OS720_GRID, 16, 72
+    S = gh * gw
+    qkv = torch.randn((frames, S, 3 * H * D), generator=gen, device=dev).to(torch.bfloat16)
+    q, k, v = (part.unflatten(-1, (H, D)) for part in qkv.chunk(3, dim=-1))
+    gains = tuple(1.0 + 0.1 * torch.randn(D, generator=gen, device=dev) for _ in range(2))
+    kw = dict(scale=D ** -0.5, qk_gains=gains, true_d=D, eps=1e-6,
+              fixed_max=A.QKNORM_FIXED_MAX)
+    got = A.flash_attention_bshd(q, k, v, **kw)
+    want = A.flash_attention_bshd_plain(q, k, v, **kw)
+    # as K1: the same rounding points (q normed and scaled in f32, rounded
+    # once; k rounded; p rounded before PV), only f32 summation orders and
+    # rsqrt's last bits differ -> a bf16 ulp or two of the output
+    label = "qk-norm, 30x3600x16x72 views of [30, 3600, 3456]"
+    err = compare(f"K1q flash_attention_bshd [{label}]", got, want, atol=2e-3, rtol=2e-2)
+    dense = A.flash_attention_bshd(q.contiguous(), k.contiguous(), v.contiguous(), **kw)
+    if not torch.equal(dense, got):
+        fail("K1q: strided views and contiguous copies of q/k/v give different outputs")
+    del want, dense
+    ms = cuda_ms(lambda: A.flash_attention_bshd(q, k, v, **kw), 10)
+    pms = cuda_ms(lambda: A.flash_attention_bshd_plain(q, k, v, **kw), 2)
+    lms = sdpa_ms(q, k, v, 10)
+    flops = 4 * frames * H * S * S * D
+    moved = nbytes(q, k, v, got, *gains)
+    log(f"  K1q [720p block]: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+        f"{flops / ms / 1e9 / H100_BF16_TFLOPS:.1%} of {H100_BF16_TFLOPS:.0f}), plain "
+        f"{pms:.3f} ms, SDPA without the norm {lms:.3f} ms")
+    keep(rec, "flash_attention_bshd_qknorm", err, ms, pms, "loop", label, (flops, moved),
+         ("F.scaled_dot_product_attention (same q/k/v, without the qk-norm)", lms))
+    del qkv, q, k, v, got
+
+    # K5 (temporal: 7,200 locations x 2 rows, groups of 15, RoPE) and K3
+    # (temporal mod) at the 720p shapes, tolerances as in phase 7
+    T, d = 15, H * D
+    tabs = tuple(torch.from_numpy(a).to(dev) for a in grouped_rope_tables(T, T, D))
+    tkw = dict(kw, group=T, rope_tables=tabs)
+    qkv = torch.randn((1, 2 * S * T, 3 * d), generator=gen, device=dev).to(torch.bfloat16)
+    label = "temporal 108000, group 15, rope"
+    got = A.grouped_attention_fused_qkv(qkv, H, **tkw)
+    err = compare(f"grouped_attention_fused_qkv [{label}]", got,
+                  A.grouped_attention_fused_qkv_plain(qkv, H, **tkw),
+                  atol=1e-2, rtol=2e-2)
+    ms = cuda_ms(lambda: A.grouped_attention_fused_qkv(qkv, H, **tkw))
+    pms = cuda_ms(lambda: A.grouped_attention_fused_qkv_plain(qkv, H, **tkw), 2)
+    log(f"  K5 [{label}]: kernel {ms:.3f} ms, plain {pms:.3f} ms")
+    keep(rec, "grouped_attention_fused_qkv", err, ms, pms, "loop", label,
+         (4 * 2 * S * H * T * T * D, nbytes(qkv, got)))
+    del qkv, got
+    h = torch.randn((2, T * S, d), generator=gen, device=dev).to(torch.bfloat16)
+    sc, sh = (0.1 * torch.randn((2, d), generator=gen, device=dev) for _ in range(2))
+    got = P.layer_norm_mod(h, scale=sc, shift=sh, eps=1e-6)
+    err = compare("layer_norm_mod [temporal mod, 2x54000x1152]", got,
+                  P.layer_norm_mod_plain(h, scale=sc, shift=sh, eps=1e-6),
+                  atol=3e-2, rtol=1.6e-2)
+    ms = cuda_ms(lambda: P.layer_norm_mod(h, scale=sc, shift=sh, eps=1e-6))
+    pms = cuda_ms(lambda: P.layer_norm_mod_plain(h, scale=sc, shift=sh, eps=1e-6))
+    log(f"  K3 [temporal mod 720p]: kernel {ms:.3f} ms "
+        f"({2 * h.numel() * 2 / ms / 1e6:.0f} GB/s), plain {pms:.3f} ms")
+    keep(rec, "layer_norm_mod", err, ms, pms, "loop", "temporal mod 2x54000x1152",
+         elementwise_work(h, sc, sh))
+    del h, got
+    check_stdit3_linear_kernels(dev, rec, gen, S)
+
+
+def phase_os720_forward(dev, model):
+    from magcache_tpu_torch.models.stdit3 import make_stdit3_core
+    from magcache_tpu_torch.models.text import MockTextEncoder
+
+    log("phase 16: one full-shape forward, STDiT3-XL/2 720p 9:16 x 51, 2 rows")
+    grid = (15,) + OS720_GRID[1:]
+    core = make_stdit3_core(model, grid, pixel_size=(720, 1280))
+    gen = torch.Generator(device=dev).manual_seed(16)
+    x = torch.randn((2, 15, 90, 160, 4), generator=gen, device=dev)
+    t = torch.full((2,), 900.0, device=dev)
+    cond = {"y": MockTextEncoder(300, 4096, scale=0.5)(["a boat", ""], device=dev),
+            "fps": torch.full((2,), 24.0, device=dev)}
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for run in ("first", "second"):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        hidden, c = core.prepare(x, t, cond)
+        out = core.head(core.trunk(hidden, c), c)
+        torch.cuda.synchronize()
+        log(f"  forward ({run} call): {time.time() - t0:.3f} s, "
+            f"{hidden.shape[1]} tokens x {hidden.shape[0]} rows")
+    if tuple(out.shape) != (2, 15, 90, 160, 8) or not bool(torch.isfinite(out).all()):
+        fail(f"forward output {tuple(out.shape)} is not finite or misshapen")
+    per_run = {k: n // 2 for k, n in read_counts().items()}
+    log(f"  output {tuple(out.shape)} finite, std {float(out.float().std()):.4f}; "
+        f"launches per forward {per_run}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    if per_run != OS720_TRUNK_LAUNCHES:
+        fail(f"launches per forward {per_run} != {OS720_TRUNK_LAUNCHES}")
+
+
+def _scratch_dir() -> str:
+    """``build/chip_smoke`` in the checkout (listed in .gitignore)."""
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def phase_os720_requests(dev, model):
+    import os
+
+    from magcache_tpu_torch.pipelines.open_sora import (OpenSoraPipeline,
+                                                        OpenSoraPipelineConfig)
+
+    log(f"phase 17: requests through OpenSoraPipeline.generate, 720p 9:16 x "
+        f"{OS720_FRAMES} frames, {OS_STEPS} RFLOW steps, cfg 7.0")
+    base = dict(resolution="720p", aspect_ratio="9:16", num_frames=OS720_FRAMES,
+                num_sampling_steps=OS_STEPS, cfg_scale=7.0, dtype="bfloat16")
+    full = OpenSoraPipeline(OpenSoraPipelineConfig(**base), dev, model=model)
+    cached = OpenSoraPipeline(OpenSoraPipelineConfig(use_magcache=True, **base),
+                              dev, model=model)
+    shape = (1,) + cached.latent_shape
+    if shape != (1, 5, 90, 160, 4) or cached.grid != OS720_GRID:
+        fail(f"720p x {OS720_FRAMES} latents {shape}, grid {cached.grid}")
+    sched = cached.skip_mask_for()
+    if int(sched.sum()) != 18:
+        fail(f"opensora-v1.2 skips {int(sched.sum())} of 30 steps, expected 18")
+    # latent frame 0 pinned to a seeded reference (edit ratio 0), the last
+    # frame pasted from it at edit ratio 0.5 (re-noised once t <= 500)
+    ref = torch.randn((1,) + shape[2:], generator=torch.Generator().manual_seed(17))
+    ref_path = os.path.join(_scratch_dir(), "ref_720p.npy")
+    np.save(ref_path, ref.numpy())
+    masked = dict(ms="0,0,0,0,1,0;0,0,0,4,1,0.5", refs=ref_path, align=None)
+    requests = [("full compute", full, {}, np.zeros((OS_STEPS, 1), bool),
+                 OS720_TRUNK_LAUNCHES),
+                ("MagCache opensora-v1.2", cached, {}, sched, OS720_TRUNK_LAUNCHES),
+                ("MagCache, mask strategy", cached, masked, sched, OS720_MASKED_LAUNCHES)]
+    reset_counts()
+    total = dict(NO_LAUNCHES)
+    secs = {}
+    for label, pipe, kw, want, per_run in requests:
+        before = read_counts()
+        out = pipe.generate("A red sailboat glides across a calm bay at dawn.", seed=3,
+                            **kw)
+        launched = count_launches(before)
+        lat = out.latents
+        if tuple(lat.shape) != shape or not bool(torch.isfinite(lat).all()):
+            fail(f"{label}: latents {tuple(lat.shape)} not finite or misshapen")
+        if not np.array_equal(out.skips, want):
+            fail(f"{label}: realized skips differ from the schedule")
+        if kw and not torch.equal(lat[0, 0].cpu(), ref[0]):
+            fail(f"{label}: the pinned frame moved off its reference")
+        runs = int((~out.skips.all(1)).sum())
+        for k, got in launched.items():
+            if got != per_run[k] * runs:
+                fail(f"{label}: {k} launched {got} times, expected {per_run[k]} x "
+                     f"{runs} trunk runs")
+            total[k] += got
+        secs[label] = out.timings["total_s"]
+        log(f"  {label}: {secs[label]:.3f} s/video, {runs} of {OS_STEPS} forwards "
+            f"computed, K1q launches {launched['flash_attention_bshd_qknorm']}, "
+            f"latents std {float(lat.std()):.4f}")
+    ceiling = OS_STEPS / (OS_STEPS - int(sched.sum()))
+    log(f"  speedup {secs['full compute'] / secs['MagCache opensora-v1.2']:.3f}x "
+        f"against a schedule ceiling of {ceiling:.3f}x; the masked request "
+        f"{secs['MagCache, mask strategy']:.3f} s")
+    log(f"  launches in phase 17: {total}")
+    return total
+
+
+def phase_os720_card_vs_cpu(dev):
+    import os
+
+    from magcache_tpu_torch.models.convert import stdit3_params_from_numpy
+    from magcache_tpu_torch.models.stdit3 import STDiT3Config, STDiT3Model
+    from magcache_tpu_torch.pipelines.open_sora import (OpenSoraPipeline,
+                                                        OpenSoraPipelineConfig)
+
+    log("phase 18: the Open-Sora slice with frames of 2,304 tokens (K1q), a pinned "
+        "reference and loop=2, on the card (kernels, bf16) vs the CPU (plain, f32)")
+    cfg = STDiT3Config(hidden=144, heads=2, depth=2, caption_dim=64, freq_dim=64,
+                       caption_max_len=20)
+    rng = np.random.default_rng(18)
+    tree = _numpy_stdit3_tree(cfg, rng)
+    ref_path = os.path.join(_scratch_dir(), "ref_narrow.npy")
+    np.save(ref_path, rng.standard_normal((1, 96, 96, 4)).astype(np.float32))
+    # 768x768 pixels, 8 frames -> 2 latent frames of 48 x 48 = 2,304 tokens
+    base = dict(height=768, width=768, num_frames=8, num_sampling_steps=8,
+                cfg_scale=7.0, caption_len=20)
+    requests = (("plain", {}),
+                ("pinned reference, loop=2", dict(ms="0,0,0,0,1,0", refs=ref_path, loop=2,
+                                                  condition_frame_length=1, align=None)))
+    per_run = {"plain": OS720_TRUNK_LAUNCHES,
+               "pinned reference, loop=2": OS720_MASKED_LAUNCHES}
+    outs = {}
+    reset_counts()
+    for name, device, dtype in (("card", dev, "bfloat16"), ("cpu", torch.device("cpu"),
+                                                             "float32")):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        model = STDiT3Model(c, device)
+        model.load_state_dict(stdit3_params_from_numpy(tree, c, device))
+        pipe = OpenSoraPipeline(OpenSoraPipelineConfig(dtype=dtype, **base), device,
+                                model=model)
+        for label, kw in requests:
+            out = pipe.generate("a red boat", seed=4, **kw)
+            outs[name, label] = (out.latents.float().cpu(), out.skips)
+        if name == "card":
+            launched = read_counts()
+    want_launches = dict(NO_LAUNCHES)
+    for label, _ in requests:
+        (got, skips), (want, cpu_skips) = outs["card", label], outs["cpu", label]
+        if not bool(torch.isfinite(got).all()) or not np.array_equal(skips, cpu_skips):
+            fail(f"{label}: card latents not finite, or skips differ from the CPU's")
+        rel = float((got - want).norm() / want.norm())
+        runs = int((~skips.all(1)).sum())
+        for k, n in per_run[label].items():
+            want_launches[k] += n // 14 * runs      # 2 of 28 block pairs
+        # bf16 activations through 2 block pairs and the computed steps vs
+        # f32: rounding of ~2^-8 per op, accumulated -> a few percent at most
+        log(f"  {label}: latents {tuple(got.shape)}, {runs} trunk runs, rel L2 "
+            f"{rel:.3e} (tol 5e-2), max_abs_err {float((got - want).abs().max()):.3e}")
+        if rel > 5e-2:
+            fail(f"{label}: card and CPU slices disagree")
+    log(f"  card launches {launched}")
+    if launched != want_launches:
+        fail(f"card launches {launched} != {want_launches}")
+
 
 def main():
     phase_environment()
@@ -1063,12 +1407,25 @@ def main():
     del model
     torch.cuda.empty_cache()
     phase_flux_card_vs_cpu(dev)
+    t_flux = time.time() - t0 - t_wan - t_os
+    phase_os720_kernels(dev, rec)
+    torch.cuda.empty_cache()
+    log("phase 16/17 model:")
+    model = make_os_model(dev)
+    phase_os720_forward(dev, model)
+    os720_launches = phase_os720_requests(dev, model)
+    del model
+    torch.cuda.empty_cache()
+    phase_os720_card_vs_cpu(dev)
     log(f"all phases passed in {time.time() - t0:.1f} s (Wan {t_wan:.1f} s, "
-        f"Open-Sora {t_os:.1f} s)")
+        f"Open-Sora {t_os:.1f} s, FLUX {t_flux:.1f} s, Open-Sora 720p "
+        f"{time.time() - t0 - t_wan - t_os - t_flux:.1f} s)")
 
     meta = {
         "flash_attention_bshd": ("cuda", "magcache_tpu_torch/csrc/flash_attention.cu",
                                  "magcache_tpu/ops/attention.py:430"),
+        "flash_attention_bshd_qknorm": ("cuda", "magcache_tpu_torch/csrc/flash_attention.cu",
+                                        "magcache_tpu/ops/attention.py:381"),
         "rms_norm_rope": ("triton", "magcache_tpu_torch/csrc/prologue_triton.py",
                           "magcache_tpu/ops/fused_prologue.py:342"),
         "rms_norm_rope_head": ("triton", "magcache_tpu_torch/csrc/prologue_triton.py",
@@ -1084,7 +1441,8 @@ def main():
         "matmul_gated_residual": ("cuda", "magcache_tpu_torch/csrc/fused_matmul.cu",
                                   "magcache_tpu/ops/fused_prologue.py:66"),
     }
-    paths = {"wan": launches, "open-sora": os_launches, "flux": flux_launches}
+    paths = {"wan": launches, "open-sora": os_launches, "flux": flux_launches,
+             "open-sora-720p": os720_launches}
     kernels = []
     for name, (route, source, replaces) in meta.items():
         by_path = {p: c[name] for p, c in paths.items()}

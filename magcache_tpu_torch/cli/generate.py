@@ -5,8 +5,10 @@ and FLUX.1 text-to-image (``--task flux-dev`` and ``flux-kontext-dev``).
 Flag names follow the reference adapters (``--task --size --frame_num
 --sample_steps --sample_shift --sample_solver --sample_guide_scale
 --base_seed --use_magcache --magcache_thresh --magcache_K --retention_ratio
---magcache_calibration``; Open-Sora adds ``--resolution --aspect_ratio``,
-FLUX ``--txt_len``),
+--magcache_calibration``; Open-Sora adds ``--resolution --aspect_ratio``
+and its conditioning flags ``--loop --ms/--mask_strategy
+--refs/--reference_path --condition_frame_length --condition_frame_edit
+--align``, FLUX ``--txt_len``),
 and the output file name encodes the E/K/R triple. Unset flags take each
 family's reference defaults, as in the JAX CLI. Runs on a CUDA card by
 default; ``--device cpu`` runs the plain PyTorch ops instead of the kernels
@@ -16,14 +18,18 @@ Examples:
   python -m magcache_tpu_torch.cli.generate --task t2v-1.3B --size 832*480 \
       --sample_steps 50 --use_magcache --magcache_thresh 0.12 --magcache_K 2
   python -m magcache_tpu_torch.cli.generate --task t2v-1.3B --magcache_calibration
-  python -m magcache_tpu_torch.cli.generate --task open-sora --resolution 480p \
+  python -m magcache_tpu_torch.cli.generate --task open-sora --resolution 720p \
       --aspect_ratio 9:16 --frame_num 51 --use_magcache
+  python -m magcache_tpu_torch.cli.generate --task open-sora --tiny --device cpu \
+      --ms "0,0,0,0,1,0" --refs ref.npy --loop 2     # ref.npy: latents [T, H, W, C]
   python -m magcache_tpu_torch.cli.generate --task flux-dev --size 1024*1024 \
       --sample_steps 28 --use_magcache
 Checkpoints are not loaded yet: the DiT has random weights and the text
 encoders are the hash-seeded mocks, so the output is latents, not a video or
 an image. ``flux-kontext-dev`` runs its preset and guidance without a
 conditioning image: ``--image`` needs the SD VAE's weights and raises.
+Open-Sora references are ``.npy`` latents; image and video references need
+the Open-Sora VAE, which is not ported yet, and raise.
 """
 
 from __future__ import annotations
@@ -67,6 +73,21 @@ def build_parser() -> argparse.ArgumentParser:
                         "overrides --size via the training bucket tables")
     p.add_argument("--aspect_ratio", default=None,
                    help="open-sora bucket aspect ratio (9:16, 16:9, ...)")
+    # Open-Sora conditioning (the JAX CLI's names and defaults)
+    p.add_argument("--loop", type=int, default=1,
+                   help="open-sora looped generation count")
+    p.add_argument("--ms", "--mask_strategy", dest="ms", default="",
+                   help="open-sora mask strategy "
+                        "'loop,ref,ref_start,target_start,len,edit_ratio;...'")
+    p.add_argument("--refs", "--reference_path", dest="refs", default="",
+                   help="open-sora reference paths (';'-separated .npy latents "
+                        "[T, H, W, C]; image and video files need the VAE)")
+    p.add_argument("--condition_frame_length", type=int, default=5,
+                   help="latent frames handed to the next loop")
+    p.add_argument("--condition_frame_edit", type=float, default=0.0,
+                   help="edit ratio of the hand-off frames")
+    p.add_argument("--align", type=int, default=5,
+                   help="mask-strategy index alignment")
     p.add_argument("--txt_len", type=int, default=None,
                    help="FLUX text tokens (unset: 512)")
     p.add_argument("--image", default=None,
@@ -194,7 +215,15 @@ def main(argv=None):
     args = build_parser().parse_args(sys.argv[1:] if argv is None else argv)
     t0 = time.time()
     pipe, steps, lanes = _pipeline(args)
-    out = pipe.generate(args.prompt, seed=args.base_seed)
+    kw = {}
+    if args.task == "open-sora":
+        kw = dict(loop=args.loop, ms=args.ms, refs=args.refs,
+                  condition_frame_length=args.condition_frame_length,
+                  condition_frame_edit=args.condition_frame_edit, align=args.align)
+    try:
+        out = pipe.generate(args.prompt, seed=args.base_seed, **kw)
+    except NotImplementedError as e:
+        raise SystemExit(str(e)) from e
     dt = time.time() - t0
 
     E = args.magcache_thresh if args.magcache_thresh is not None else "def"
@@ -217,7 +246,7 @@ def main(argv=None):
                 "forwards (one per step, embedded guidance)"
                 if args.task.startswith("flux") else
                 "forwards (cond + uncond as one joint batch per step)")
-        print(f"skipped {int(out.skips.sum())} of {lanes * steps} {what}; "
+        print(f"skipped {int(out.skips.sum())} of {lanes * len(out.skips)} {what}; "
               f"skipped steps {np.flatnonzero(out.skips.any(1)).tolist()}")
     print(f"done: {steps} steps in {dt:.1f}s (sampling "
           f"{out.timings['total_s']:.1f}s) on {pipe.device} "

@@ -21,7 +21,9 @@ Same design as ``magcache_tpu.core.sampler``, in PyTorch's eager idiom:
   the device update, as the JAX sampler does.
 - ``sample_euler`` is the linear-update loop (RFLOW's Euler step); Open-Sora
   runs it with a joint CFG batch of 2 rows under one cache lane and an
-  N-branch ``combine_fn``.
+  N-branch ``combine_fn``. ``sample_rflow_masked`` is its masked-frame
+  variant (references, edit ratios, looped extension): the per-frame mask
+  logic is host numpy, so it costs no device-to-host sync either.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ from magcache_tpu_torch.core.magcache import MagCacheConfig, compute_skip_schedu
 from magcache_tpu_torch.schedulers.unipc import UniPCSchedule
 
 __all__ = ["DiTCore", "unipc_executor", "sample_unipc", "calibrate_unipc",
-           "sample_euler"]
+           "sample_euler", "sample_rflow_masked"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,7 +58,7 @@ class DiTCore:
     head: Callable[..., torch.Tensor]
 
 
-def _lane_masks(cache_cfg: Optional[MagCacheConfig], num_steps: int):
+def lane_skip_masks(cache_cfg: Optional[MagCacheConfig], num_steps: int):
     """Static per-scheduler-step skip bits ``bool[num_steps, lanes]``; the
     forward index of step i, lane l is ``i*lanes + l``."""
     if cache_cfg is None:
@@ -133,7 +135,7 @@ def _lane_setup(cache_cfg, num_steps, guidance_scale, lanes, batch,
     ``n_lanes`` copies of x are stacked per step; the cache may have fewer
     lanes (one lane over both CFG copies when caching is off, or Open-Sora's
     single lane over its joint CFG batch)."""
-    skip_mask, cache_lanes = _lane_masks(cache_cfg, num_steps)
+    skip_mask, cache_lanes = lane_skip_masks(cache_cfg, num_steps)
     if lanes is not None:
         n_lanes = lanes
     elif combine_fn is not None:
@@ -394,6 +396,91 @@ def sample_euler(
         skips.append(skip_mask[i])
     if calibrate:
         return x, torch.stack(stats[1:]).double().cpu().numpy()
+    if return_skips:
+        return x, np.stack(skips)
+    return x
+
+
+@torch.inference_mode()
+def sample_rflow_masked(
+    core: DiTCore,
+    x_init: torch.Tensor,
+    cond,
+    *,
+    timesteps: np.ndarray,
+    dts: np.ndarray,
+    num_train_timesteps: int,
+    mask: np.ndarray,
+    noise_fn: Callable[[int, Tuple[int, ...]], torch.Tensor],
+    lanes: int = 2,
+    combine_fn: Optional[Callable] = None,
+    cache_cfg: Optional[MagCacheConfig] = None,
+    return_skips: bool = False,
+):
+    """RFLOW Euler sampling with Open-Sora's masked-frame conditioning (the
+    JAX ``sample_rflow_masked``; reference ``scheduling_rflow_open_sora.py:
+    215-255``).
+
+    ``x_init`` ``[B, T, H, W, C]`` has the references pasted in; ``mask``
+    (host ``f32[B, T]``) is 0 for a frozen condition frame, in (0, 1) for an
+    edit ratio, 1 for a freely generated frame. At step i a frame is active
+    when ``mask * num_train_timesteps >= t_i``; on its first active step it
+    is re-noised to the current level with ``noise_fn(i, x.shape)`` (frames
+    with mask 1 count as noised from the start, so a mask of only 0 and 1
+    never draws), the model sees the active frames under the step's
+    modulation and the others under t = 0 (``cond["x_mask"]``), and after
+    the Euler update inactive frames revert to their latents before it.
+    ``noise_fn`` is the noise source (a seeded generator's draws, or given
+    draws in a test); it must return ``x``'s shape on any device.
+
+    MagCache runs its single cache lane over the joint CFG batch (the
+    Open-Sora configuration); a cache with more lanes raises.
+    """
+    num_steps = len(timesteps)
+    batch = x_init.shape[0]
+    skip_mask, n_lanes, lane_of_row, _ = _lane_setup(
+        cache_cfg, num_steps, None, lanes, batch, combine_fn)
+    if skip_mask.shape[1] != 1:
+        raise ValueError("sample_rflow_masked runs one cache lane over the joint "
+                         f"CFG batch; the cache has {skip_mask.shape[1]} lanes")
+    ts = np.asarray(timesteps, np.float32)
+    dts = np.asarray(dts, np.float32)
+    mask = np.asarray(mask, np.float32)
+    scaled = mask * np.float32(num_train_timesteps)
+    noise_added = mask >= 1.0
+    dev = x_init.device
+
+    x = x_init
+    cache = None
+    skips = []
+    for i in range(num_steps):
+        x0 = x
+        upper = scaled >= ts[i]                          # host bool[B, T]
+        add = upper & ~noise_added
+        xm = x0
+        if add.any():
+            tp = np.float32(1.0) - ts[i] / np.float32(num_train_timesteps)
+            noise = noise_fn(i, tuple(x.shape)).to(device=dev, dtype=x.dtype)
+            x_noise = float(tp) * x0 + float(np.float32(1.0) - tp) * noise
+            sel = torch.as_tensor(add, device=dev)[:, :, None, None, None]
+            xm = torch.where(sel, x_noise, x0)
+        noise_added = upper
+        active = torch.as_tensor(upper, device=dev)
+        x2 = _stack_lanes(xm, n_lanes)
+        tvec = torch.full((x2.shape[0],), float(ts[i]), dtype=torch.float32,
+                          device=dev)
+        hidden, ctx = core.prepare(x2, tvec,
+                                   dict(cond, x_mask=_stack_lanes(active, n_lanes)))
+        if cache is None:
+            cache = torch.zeros_like(hidden)
+        h_out, cache = _cached_trunk(core, hidden, ctx, cache, skip_mask[i],
+                                     lane_of_row, None)
+        out = core.head(h_out, ctx)
+        v = out if combine_fn is None else combine_fn(
+            [out[l * batch:(l + 1) * batch] for l in range(n_lanes)])
+        x = xm + float(dts[i]) * v.to(x.dtype)
+        x = torch.where(active[:, :, None, None, None], x, x0)
+        skips.append(skip_mask[i])
     if return_skips:
         return x, np.stack(skips)
     return x

@@ -35,15 +35,45 @@
 // no wgmma/TMA pipeline yet: overlap comes only from the 3-4 blocks resident
 // on each SM. That is the first thing a later change should add.
 //
+// K1q, the qk-normed variant (flash_attention_qknorm_kernel below): the
+// TPU kernel's norm=(true_d, eps) branch, which STDiT3 runs on frames of
+// more than 2,048 tokens (720p). Head dim 72, fixed max only (its callers
+// all pass fixed_max; the RMS-normed scores are bounded). Rounding points:
+//   - q and k: f32 sum of squares over the 72 values / true_d, times
+//     rsqrt(var + eps), times the f32 gain [H, 72] (as _rms_head);
+//   - q is then multiplied by scale*log2(e) in f32 and rounded to bf16 once;
+//     k is rounded to bf16 (unlike K1 above, whose q is scaled in bf16);
+//   - from there as K1's fixed-max variant.
+// q, k and v are read in place with their own batch and token strides (the
+// column slices of STDiT3's [rows*T, S, 3*H*72] qkv projection); a head row
+// is 144 contiguous, 16-byte aligned bytes. 72 is padded to 80 only in
+// shared memory (five k16 steps for QK^T; the PV product's tenth n8 tile
+// holds the zero pad columns and is not stored), as K5 does (mma_tile.cuh).
+// A block takes 64 queries of one (batch, head) and loops over the keys in
+// tiles of 64; two adjacent threads load and normalise each row. k is
+// normalised again every time a block loads a K tile: at 720p each key row
+// is normalised by all 57 query blocks of its head, about 300 f32
+// operations per key row and block against the tile's 1.3 MFLOP of mma
+// work, which is about a fifth more time than the tensor cores need at
+// their peak; K and V are re-read 57 times, mostly from L2 (one head's K
+// and V are 1 MB).
+//
+// What bounds K1q: at 720p one call is 4 x 30 x 16 x 3,600^2 x 72 = 1.79
+// TFLOP over 1.0 GB of q/k/v/o: compute bound, 1.81 ms at 989 TFLOP/s.
+//
 // Plain C interface, loaded from Python with ctypes; the wrapper checks
-// shapes, dtypes and contiguity, allocates the output and passes pointers
-// and PyTorch's current stream. The launch returns cudaGetLastError().
+// shapes, dtypes, strides and alignment, allocates the output and passes
+// pointers and PyTorch's current stream. The launch returns
+// cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mma_tile.cuh"
 
 namespace {
+
+using mc::bf16;
+using mc::ldmatrix_x4_trans;
+using mc::mma_16816;
+using mc::pack_bf16;
 
 constexpr int kHeadDim = 128;
 constexpr int kBlockM = 64;                 // query rows per block, 16 per warp
@@ -52,33 +82,9 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kStride = kHeadDim + 8;       // padded smem row, bf16 elements
 constexpr int kChunksPerRow = kHeadDim / 8; // 16-byte chunks per row
-constexpr float kNegInf = -1e30f;
+using mc::kNegInf;
 constexpr size_t kSmemBytes =
     (size_t)(kBlockM + 2 * kBlockN) * kStride * sizeof(__nv_bfloat16);
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// c[16x8, f32] += a[16x16, bf16, row] * b[16x8, bf16, col]
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
-                                                  const __nv_bfloat16* p) {
-  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
 
 // Copy kBlockN rows of one head, starting at row0, into a padded smem tile.
 // Rows at or past `limit` are zero-filled.
@@ -280,7 +286,109 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   return (int)cudaGetLastError();
 }
 
+// ---- K1q: per-head RMS qk-norm fused into the q/k loads, head dim 72 -------
+
+constexpr int kQD = mc::kHD;       // 72
+constexpr int kQDP = mc::kHDP;     // 80 in shared memory
+constexpr int kQStr = mc::kHStr;   // 88-element smem rows
+constexpr int kQTile = 64;         // queries per block, keys per KV tile
+
+struct QkNormArgs {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  bf16* o;                         // [B, Sq, H, 72], contiguous
+  const float* qg;                 // [H, 72]
+  const float* kg;
+  long long q_bs, q_ts, k_bs, k_ts, v_bs, v_ts;   // batch, token strides
+  int Sq, H, kv_len;
+  float q_scale, inv_true_d, eps, m_const;
+};
+
+__global__ void __launch_bounds__(kThreads)
+flash_attention_qknorm_kernel(QkNormArgs p) {
+  __shared__ __align__(16) bf16 Qs[kQTile * kQStr];
+  __shared__ __align__(16) bf16 Ks[kQTile * kQStr];
+  __shared__ __align__(16) bf16 Vs[kQTile * kQStr];
+  __shared__ float gains[2][kQD];                   // q and k gains of head h
+  const int q0 = blockIdx.x * kQTile;
+  const int b = blockIdx.y / p.H;
+  const int h = blockIdx.y % p.H;
+  const int warp = threadIdx.x >> 5;
+  const bf16* qh = p.q + b * p.q_bs + h * kQD;
+  const bf16* kh = p.k + b * p.k_bs + h * kQD;
+  const bf16* vh = p.v + b * p.v_bs + h * kQD;
+  for (int i = threadIdx.x; i < 2 * kQD; i += kThreads)
+    gains[i / kQD][i % kQD] = (i < kQD ? p.qg : p.kg)[h * kQD + i % kQD];
+  __syncthreads();
+
+  // threads 2r and 2r + 1 take row r of every tile; q is normed, scaled by
+  // scale*log2(e) in f32 and rounded once
+  const int row = threadIdx.x >> 1, half = threadIdx.x & 1;
+  mc::load_qk_norm_half(Qs + row * kQStr, qh + (q0 + row) * p.q_ts, q0 + row < p.Sq,
+                        gains[0], p.inv_true_d, p.eps, nullptr, nullptr, p.q_scale,
+                        half);
+  __syncthreads();
+  uint32_t qf[kQDP / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < kQDP / 16; ++kk)
+    mc::load_a_frag(qf[kk], Qs + warp * 16 * kQStr + kk * 16, kQStr);
+
+  float acc[kQDP / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < kQDP / 8; ++nt)
+    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+  float l[2] = {0.f, 0.f};
+  const int n_tiles = (p.kv_len + kQTile - 1) / kQTile;
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * kQTile;
+    __syncthreads();          // every warp is done with the previous tile
+    const int key = k0 + row;
+    mc::load_qk_norm_half(Ks + row * kQStr, kh + key * p.k_ts, key < p.kv_len,
+                          gains[1], p.inv_true_d, p.eps, nullptr, nullptr, 1.f, half);
+    mc::load_head_half(Vs + row * kQStr, vh + key * p.v_ts, key < p.kv_len, half);
+    __syncthreads();
+    float s[kQTile / 8][4];
+    mc::qk_scores<kQTile / 8>(s, qf, Ks);
+    mc::fixed_max_softmax_pv<kQTile / 8>(s, l, acc, Vs, k0, p.kv_len, p.m_const);
+  }
+  const int r0 = q0 + warp * 16;
+  mc::store_head_rows(p.o, (size_t)b * p.Sq + r0, min(16, p.Sq - r0), acc, l,
+                      (size_t)p.H * kQD, h * kQD);
+}
+
 }  // namespace
+
+extern "C" int mc_flash_attention_qknorm(
+    const void* q, const void* k, const void* v, void* o, const void* qg,
+    const void* kg, int B, int Sq, int H, int kv_len, long long q_bs,
+    long long q_ts, long long k_bs, long long k_ts, long long v_bs,
+    long long v_ts, float q_scale, float true_d, float eps, float m_const,
+    void* stream) {
+  QkNormArgs a{};
+  a.q = static_cast<const bf16*>(q);
+  a.k = static_cast<const bf16*>(k);
+  a.v = static_cast<const bf16*>(v);
+  a.o = static_cast<bf16*>(o);
+  a.qg = static_cast<const float*>(qg);
+  a.kg = static_cast<const float*>(kg);
+  a.q_bs = q_bs;
+  a.q_ts = q_ts;
+  a.k_bs = k_bs;
+  a.k_ts = k_ts;
+  a.v_bs = v_bs;
+  a.v_ts = v_ts;
+  a.Sq = Sq;
+  a.H = H;
+  a.kv_len = kv_len;
+  a.q_scale = q_scale;
+  a.inv_true_d = 1.f / true_d;
+  a.eps = eps;
+  a.m_const = m_const;
+  const dim3 grid((Sq + kQTile - 1) / kQTile, B * H);
+  flash_attention_qknorm_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int mc_flash_attention_bshd(const void* q, const void* k,
                                        const void* v, void* o, int B, int Sq,

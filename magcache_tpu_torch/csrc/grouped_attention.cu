@@ -19,7 +19,7 @@
 //     accumulator is divided by l at the end and rounded to bf16.
 //
 // What bounds it on the H100: spatial attention at STDiT3-XL/2 480p is
-// 30 frames x 16 heads x 1,590^2 x 72 x 4 = 87 GFLOP over 0.35 GB of qkv:
+// 30 frames x 16 heads x 1,590^2 x 72 x 4 = 350 GFLOP over 0.35 GB of qkv:
 // tensor-core bound. The TPU kernel holds a whole 1,590-token group in
 // VMEM; a group's K and V (458 KB) do not fit Hopper's 227 KB of shared
 // memory, so a block takes 64 queries of one group and loops over the
@@ -63,115 +63,21 @@ struct Args {
   float q_scale, inv_true_d, eps, m_const;
 };
 
-// Half a q or k head row, by one of two adjacent lanes (half 0: values
-// 0..39, half 1: values 40..71): RMS norm over the whole row (the two
-// lanes' sums of squares meet through one shuffle) x gain [, RoPE at
-// in-group position pos], x mult, rounded to bf16 into dst; half 1 also
-// zeroes columns 72..79. A row that is not valid reads as zeros and writes
-// zeros. Both lanes of the pair call it.
+// Half a q or k head row, normed [and rotated at in-group position pos]
+// (mc::load_qk_norm_half); both lanes of the pair call it.
 __device__ __forceinline__ void load_qk_half(bf16* dst, const bf16* src, bool valid,
                                              const float* gain, const Args& p,
                                              int pos, float mult, int half) {
-  const int c0 = half * 5, nc = half ? 4 : 5;
-  uint4 raw[5];
-#pragma unroll
-  for (int j = 0; j < 5; ++j) {
-    raw[j] = make_uint4(0u, 0u, 0u, 0u);
-    if (valid && j < nc) raw[j] = *reinterpret_cast<const uint4*>(src + (c0 + j) * 8);
-  }
-  float ss = 0.f;
-#pragma unroll
-  for (int j = 0; j < 5; ++j) {
-    const uint32_t* w = reinterpret_cast<const uint32_t*>(&raw[j]);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float2 v = mc::unpack_bf16(w[q]);
-      ss += v.x * v.x + v.y * v.y;
-    }
-  }
-  ss += __shfl_xor_sync(0xffffffffu, ss, 1);
-  const float r = rsqrtf(ss * p.inv_true_d + p.eps);
   const int rp = valid ? pos : 0;
   const float* cs = p.cos ? p.cos + (size_t)rp * (kD / 2) : nullptr;
   const float* sn = p.sin ? p.sin + (size_t)rp * (kD / 2) : nullptr;
-#pragma unroll
-  for (int j = 0; j < 5; ++j) {
-    if (j >= nc) break;
-    uint32_t* w = reinterpret_cast<uint32_t*>(&raw[j]);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int e = (c0 + j) * 8 + 2 * q;
-      const float2 v = mc::unpack_bf16(w[q]);
-      float ye = v.x * r * gain[e];
-      float yo = v.y * r * gain[e + 1];
-      if (cs != nullptr) {
-        const float c = cs[e / 2], sv = sn[e / 2];
-        const float re = ye * c + (-yo) * sv;
-        const float ro = yo * c + ye * sv;
-        ye = re;
-        yo = ro;
-      }
-      w[q] = mc::pack_bf16(ye * mult, yo * mult);
-    }
-    *reinterpret_cast<uint4*>(dst + (c0 + j) * 8) = raw[j];
-  }
-  if (half) *reinterpret_cast<uint4*>(dst + kD) = make_uint4(0u, 0u, 0u, 0u);
+  mc::load_qk_norm_half(dst, src, valid, gain, p.inv_true_d, p.eps, cs, sn, mult,
+                        half);
 }
 
-// Half a v head row (as load_qk_half splits it), copied; zeros if not valid.
-__device__ __forceinline__ void load_v_half(bf16* dst, const bf16* src, bool valid,
-                                            int half) {
-  const int c0 = half * 5, nc = half ? 4 : 5;
-#pragma unroll
-  for (int j = 0; j < 5; ++j) {
-    if (j >= nc) break;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (valid) v = *reinterpret_cast<const uint4*>(src + (c0 + j) * 8);
-    *reinterpret_cast<uint4*>(dst + (c0 + j) * 8) = v;
-  }
-  if (half) *reinterpret_cast<uint4*>(dst + kD) = make_uint4(0u, 0u, 0u, 0u);
-}
-
-// Fixed-max softmax numerator on masked scores; adds the f32 row sums to l,
-// then acc += bf16(p) V for 8*kNT keys.
-template <int kNT>
-__device__ __forceinline__ void softmax_pv(float (*s)[4], float* l,
-                                           float (*acc)[4], const bf16* Vs,
-                                           int key0, int gvalid, float m) {
-  const int t = (threadIdx.x & 31) & 3;
-  const float cap = m + 126.f;
-#pragma unroll
-  for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int key = key0 + nt * 8 + 2 * t + (e & 1);
-      const float sv = key < gvalid ? s[nt][e] : mc::kNegInf;
-      const float pv = exp2f(fminf(sv, cap) - m);
-      s[nt][e] = pv;
-      l[e >> 1] += pv;
-    }
-  mc::pv_accumulate<kNT>(s, acc, Vs);
-}
-
-// Divide by l and write this warp's 16 rows (row < nrows) of head h.
-__device__ __forceinline__ void store_rows(bf16* out, size_t row0, int nrows,
-                                           float (*acc)[4], float* l,
-                                           const Args& p, int h) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const float l0 = mc::quad_sum(l[0]), l1 = mc::quad_sum(l[1]);
-  const size_t ld = (size_t)p.H * kD;
-#pragma unroll
-  for (int nt = 0; nt < kD / 8; ++nt) {
-    const int col = h * kD + nt * 8 + 2 * t;
-    if (g < nrows)
-      *reinterpret_cast<uint32_t*>(out + (row0 + g) * ld + col) =
-          mc::pack_bf16(acc[nt][0] / l0, acc[nt][1] / l0);
-    if (g + 8 < nrows)
-      *reinterpret_cast<uint32_t*>(out + (row0 + g + 8) * ld + col) =
-          mc::pack_bf16(acc[nt][2] / l1, acc[nt][3] / l1);
-  }
-}
+using mc::fixed_max_softmax_pv;
+using mc::load_head_half;
+using mc::store_head_rows;
 
 // Groups of up to 16 tokens: warp w of block b takes group 4b + w whole.
 __global__ void __launch_bounds__(kThreads)
@@ -194,7 +100,7 @@ grouped_small_kernel(Args p) {
                p.q_scale, half);
   load_qk_half(Ks + r * kStr, base + r * ld + p.H * kD, r < p.gvalid, p.kg + h * kD,
                p, r, 1.f, half);
-  load_v_half(Vs + r * kStr, base + r * ld + 2 * p.H * kD, r < p.gvalid, half);
+  load_head_half(Vs + r * kStr, base + r * ld + 2 * p.H * kD, r < p.gvalid, half);
   __syncwarp();
 
   uint32_t qf[kDP / 16][4];
@@ -206,8 +112,8 @@ grouped_small_kernel(Args p) {
 #pragma unroll
   for (int nt = 0; nt < kDP / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
   float l[2] = {0.f, 0.f};
-  softmax_pv<2>(s, l, acc, Vs, 0, p.gvalid, p.m_const);
-  store_rows(p.out, row0, p.group, acc, l, p, h);
+  fixed_max_softmax_pv<2>(s, l, acc, Vs, 0, p.gvalid, p.m_const);
+  store_head_rows(p.out, row0, p.group, acc, l, (size_t)p.H * kD, h * kD);
 }
 
 // Larger groups: a block takes 64 queries of one group and loops over the
@@ -250,14 +156,15 @@ grouped_tiled_kernel(Args p) {
     const int key = k0 + row;
     load_qk_half(Ks + row * kStr, base + key * ld + p.H * kD, key < p.gvalid,
                  gains[1], p, key, 1.f, half);
-    load_v_half(Vs + row * kStr, base + key * ld + 2 * p.H * kD, key < p.gvalid, half);
+    load_head_half(Vs + row * kStr, base + key * ld + 2 * p.H * kD, key < p.gvalid, half);
     __syncthreads();
     float s[kTile / 8][4];
     mc::qk_scores<kTile / 8>(s, qf, Ks);
-    softmax_pv<kTile / 8>(s, l, acc, Vs, k0, p.gvalid, p.m_const);
+    fixed_max_softmax_pv<kTile / 8>(s, l, acc, Vs, k0, p.gvalid, p.m_const);
   }
   const int nrows = min(16, p.group - (q0 + warp * 16));
-  store_rows(p.out, row0 + q0 + warp * 16, nrows, acc, l, p, h);
+  store_head_rows(p.out, row0 + q0 + warp * 16, nrows, acc, l, (size_t)p.H * kD,
+                  h * kD);
 }
 
 }  // namespace

@@ -13,20 +13,29 @@ kernels (the TPU's 128-lane head padding is not carried over: heads stay 72
 wide):
 
 - spatial: K7 ``lnmod_matmul`` (LayerNorm + modulate + qkv projection) ->
-  K5 ``grouped_attention_fused_qkv`` (one group per frame, qk-norm fused) ->
-  K8 ``matmul_gated_residual`` (out-projection + gate + residual);
+  K5 ``grouped_attention_fused_qkv`` (one group per frame, qk-norm fused)
+  for frames of at most 2,048 tokens, or K1q ``flash_attention_bshd`` with
+  ``qk_gains`` on q/k/v views of the projection above that (720p) -> K8
+  ``matmul_gated_residual`` (out-projection + gate + residual);
 - temporal: K3 ``layer_norm_mod`` -> qkv ``nn.Linear`` on the [S, T] view ->
   K5 (groups of T, qk-norm and RoPE fused) -> K8 (gate, no residual) ->
   transpose back and add;
 - cross: K6 ``fused_cross_attention`` with the residual fused;
 - MLP: K7 with the gelu epilogue -> K8 with the residual.
 
+Masked-frame conditioning (``cond["x_mask"]``, bool ``[rows, T]``: True
+frames take the step's modulation, False ones the t = 0 modulation) runs the
+JAX package's unfused composition instead: plain LayerNorm, both
+modulations and a per-frame select; the qkv projection as ``nn.Linear``; K5
+or K1q (spatial) and K5 with RoPE (temporal); the projection; per-frame
+gates; K6 with the residual; an unfused MLP (linear, tanh-gelu, linear);
+and the head's per-frame select between the two final modulations.
+
 Dtypes: in a bf16 config the block linears are bf16; the embedders, the
 modulation tables, the qk-norm gains and the final layer stay f32, as the
-JAX parameters are. Unported (raise ``NotImplementedError``): PAB,
-masked-frame conditioning (``x_mask``), frames of more than 2048 tokens (the
-TPU routes those to K1 with the fused qk-norm), and ``qk_norm=False`` (the
-grouped kernel's fixed softmax shift is exact only for RMS-normed scores).
+JAX parameters are. Unported (raise ``NotImplementedError``): PAB and
+``qk_norm=False`` (the kernels' fixed softmax shift is exact only for
+RMS-normed scores).
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ from magcache_tpu_torch.core.sampler import DiTCore
 from magcache_tpu_torch.models.common import DTYPES, init_linear_, timestep_embedding
 from magcache_tpu_torch.models.wan import patchify, unpatchify
 from magcache_tpu_torch.ops.attention import (QKNORM_FIXED_MAX,
+                                              flash_attention_bshd,
                                               fused_cross_attention,
                                               grouped_attention_fused_qkv)
 from magcache_tpu_torch.ops.fused_prologue import (layer_norm_mod, lnmod_matmul,
@@ -54,7 +64,9 @@ from magcache_tpu_torch.ops.rope import grouped_rope_tables
 __all__ = ["STDiT3Config", "STDiT3Model", "STDIT3_XL_2", "make_stdit3_core",
            "pos_embed_2d"]
 
-MAX_FRAME_TOKENS = 2048
+# frames up to this many tokens run K5 with one group per frame; larger ones
+# run K1q (the JAX package's route, chosen by shape only)
+MAX_GROUP_TOKENS = 2048
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,43 +169,124 @@ class STDiT3Block(nn.Module):
 
     def forward(self, h: torch.Tensor, t6: torch.Tensor, y: torch.Tensor, *,
                 grid: Tuple[int, int, int], temporal: bool,
-                rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                ) -> torch.Tensor:
+                rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                x_mask: Optional[torch.Tensor] = None,
+                t6_zero: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One block on ``h`` ``[rows, T*S, d]``; with ``x_mask`` (bool
+        ``[rows, T]``) and ``t6_zero`` the masked-frame composition."""
         cfg = self.cfg
         rows, n, d = h.shape
         t, hh, ww = grid
         s = hh * ww
         e = (self.scale_shift[None] + t6).float()          # [rows, 6, d]
+        if x_mask is not None:
+            e0 = (self.scale_shift[None] + t6_zero).float()
+            return self._masked(h, e, e0, y, x_mask, grid, temporal, rope)
         sh_a, sc_a, g_a, sh_m, sc_m, g_m = e.unbind(1)
-        attn = dict(scale=1.0 / math.sqrt(cfg.head_dim),
-                    qk_gains=(self.q_norm, self.k_norm), true_d=cfg.head_dim,
-                    eps=1e-6, fixed_max=QKNORM_FIXED_MAX)
+        attn = self._attn_kw()
         if temporal:
             xn = layer_norm_mod(h, scale=sc_a, shift=sh_a, eps=cfg.eps)
-            xr = xn.reshape(rows, t, s, d).transpose(1, 2).reshape(rows * s, t, d)
-            qkv = self.qkv(xr)
-            o = grouped_attention_fused_qkv(qkv.reshape(1, rows * s * t, 3 * d),
-                                            cfg.heads, group=t, rope_tables=rope,
-                                            **attn)
-            a = matmul_gated_residual(o.reshape(rows * s, t, d), self.proj.weight,
-                                      self.proj.bias, g_a, None, rows_out=t,
-                                      batch_repeat=s)
+            a = self._temporal_attn(xn, grid, rope)
+            a = matmul_gated_residual(a, self.proj.weight, self.proj.bias, g_a, None,
+                                      rows_out=t, batch_repeat=s)
             h = h + a.reshape(rows, s, t, d).transpose(1, 2).reshape(rows, n, d)
         else:
             hf = h.reshape(rows * t, s, d)
             qkv = lnmod_matmul(hf, sc_a, sh_a, self.qkv.weight, self.qkv.bias,
                                eps=cfg.eps, batch_repeat=t)
-            o = grouped_attention_fused_qkv(qkv, cfg.heads, group=s, **attn)
+            o = self._spatial_attn(qkv)
             h = matmul_gated_residual(o, self.proj.weight, self.proj.bias, g_a,
                                       hf, batch_repeat=t).reshape(rows, n, d)
-        kv = self.cross_kv(y)
-        h = fused_cross_attention(
-            h, self.cross_q.weight, self.cross_q.bias, kv[..., :d].contiguous(),
-            kv[..., d:].contiguous(), self.cross_o.weight, self.cross_o.bias,
-            cfg.heads, scale=attn["scale"], true_d=cfg.head_dim, residual=True)
+        h = self._cross(h, y)
         y1 = lnmod_matmul(h, sc_m, sh_m, self.mlp1.weight, self.mlp1.bias,
                           act="gelu", eps=cfg.eps)
         return matmul_gated_residual(y1, self.mlp2.weight, self.mlp2.bias, g_m, h)
+
+    def _attn_kw(self) -> dict:
+        cfg = self.cfg
+        return dict(scale=1.0 / math.sqrt(cfg.head_dim),
+                    qk_gains=(self.q_norm, self.k_norm), true_d=cfg.head_dim,
+                    eps=1e-6, fixed_max=QKNORM_FIXED_MAX)
+
+    def _spatial_attn(self, qkv: torch.Tensor) -> torch.Tensor:
+        """Attention within each frame of ``qkv`` ``[frames, S, 3*d]``: K5
+        with one group per frame up to 2,048 tokens, else K1q on q/k/v views
+        of the projection. Returns ``[frames, S, d]``."""
+        frames, s, three_d = qkv.shape
+        heads = self.cfg.heads
+        if s <= MAX_GROUP_TOKENS:
+            return grouped_attention_fused_qkv(qkv, heads, group=s, **self._attn_kw())
+        q, k, v = (part.unflatten(-1, (heads, -1)) for part in qkv.chunk(3, dim=-1))
+        return flash_attention_bshd(q, k, v, **self._attn_kw()).reshape(
+            frames, s, three_d // 3)
+
+    def _temporal_attn(self, xn: torch.Tensor, grid, rope) -> torch.Tensor:
+        """qkv projection of the [S, T] view of ``xn`` and K5 over groups of
+        T with RoPE. Returns the attention ``[rows*S, T, d]``."""
+        t, hh, ww = grid
+        rows, _, d = xn.shape
+        s = hh * ww
+        xr = xn.reshape(rows, t, s, d).transpose(1, 2).reshape(rows * s, t, d)
+        qkv = self.qkv(xr)
+        o = grouped_attention_fused_qkv(qkv.reshape(1, rows * s * t, 3 * d),
+                                        self.cfg.heads, group=t, rope_tables=rope,
+                                        **self._attn_kw())
+        return o.reshape(rows * s, t, d)
+
+    def _cross(self, h: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        d = self.cfg.hidden
+        kv = self.cross_kv(y)
+        return fused_cross_attention(
+            h, self.cross_q.weight, self.cross_q.bias, kv[..., :d].contiguous(),
+            kv[..., d:].contiguous(), self.cross_o.weight, self.cross_o.bias,
+            self.cfg.heads, scale=1.0 / math.sqrt(self.cfg.head_dim),
+            true_d=self.cfg.head_dim, residual=True)
+
+    def _masked(self, h, e, e0, y, x_mask, grid, temporal, rope) -> torch.Tensor:
+        """The masked-frame block (JAX ``_block`` with ``x_mask``): each
+        modulation and gate takes the step's values on frames where
+        ``x_mask`` is True and the t = 0 values elsewhere."""
+        cfg = self.cfg
+        rows, n, d = h.shape
+        t, hh, ww = grid
+        s = hh * ww
+        sh_a, sc_a, g_a, sh_m, sc_m, g_m = e[:, :, None].unbind(1)  # [rows, 1, d]
+        z = e0[:, :, None].unbind(1)
+
+        def select(a, b):
+            return _tmask_select(x_mask, a, b, t)
+
+        def modulate(x, sh, sc, z_sh, z_sc):
+            # bf16 LayerNorm times f32 modulations is f32, as in JAX
+            nx = layer_norm(x, eps=cfg.eps)
+            return select(nx * (1 + sc) + sh, nx * (1 + z_sc) + z_sh).to(x.dtype)
+
+        def gated(x, res, g, z_g):
+            r = res.float()
+            return x + select(g * r, z_g * r).to(x.dtype)
+
+        xn = modulate(h, sh_a, sc_a, z[0], z[1])
+        if temporal:
+            a = self.proj(self._temporal_attn(xn, grid, rope))
+            a = a.reshape(rows, s, t, d).transpose(1, 2).reshape(rows, n, d)
+        else:
+            a = self.proj(self._spatial_attn(self.qkv(xn.reshape(rows * t, s, d))))
+            a = a.reshape(rows, n, d)
+        h = gated(h, a, g_a, z[2])
+        h = self._cross(h, y)
+        xm = modulate(h, sh_m, sc_m, z[3], z[4])
+        mo = self.mlp2(F.gelu(self.mlp1(xm), approximate="tanh"))
+        return gated(h, mo, g_m, z[5])
+
+
+def _tmask_select(x_mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                  t: int) -> torch.Tensor:
+    """Per-frame select over ``[rows, T*S, d]`` (JAX ``_tmask_select``): True
+    frames of ``x_mask`` ``[rows, T]`` take ``a``, the others ``b``."""
+    rows = a.shape[0]
+    keep = x_mask.reshape(rows, t, 1, 1)
+    return torch.where(keep, a.reshape(rows, t, -1, a.shape[-1]),
+                       b.reshape(rows, t, -1, b.shape[-1])).reshape(a.shape)
 
 
 class STDiT3Final(nn.Module):
@@ -252,7 +345,8 @@ def make_stdit3_core(model: STDiT3Model, grid: Tuple[int, int, int], *,
                      ) -> DiTCore:
     """(prepare, trunk, head) for a static latent patch grid (T, H, W).
 
-    cond = {"y": f[rows, caption_len, caption_dim], "fps": f[rows]}
+    cond = {"y": f[rows, caption_len, caption_dim], "fps": f[rows]
+            [, "x_mask": bool[rows, T], masked-frame conditioning]}
     x    = latent video f[rows, T*pt, H*ph, W*pw, C] (rows holds the joint
            CFG batch); the output has 2*C channels (RFLOW takes the first C).
 
@@ -265,10 +359,6 @@ def make_stdit3_core(model: STDiT3Model, grid: Tuple[int, int, int], *,
     s = gh * gw
     if pab is not None:
         raise NotImplementedError("PAB is not ported yet")
-    if s > MAX_FRAME_TOKENS:
-        raise NotImplementedError(
-            f"frames of {s} > {MAX_FRAME_TOKENS} tokens are not ported yet "
-            "(the TPU path runs them through K1 with the fused qk-norm)")
     device = model.patch_embed.weight.device
     d = cfg.hidden
     if pixel_size is not None:
@@ -285,8 +375,6 @@ def make_stdit3_core(model: STDiT3Model, grid: Tuple[int, int, int], *,
 
     @torch.inference_mode()
     def prepare(x, t, cond):
-        if "x_mask" in cond:
-            raise NotImplementedError("masked-frame conditioning is not ported yet")
         dt = cfg.torch_dtype
         rows = x.shape[0]
         # bf16 tokens times the f32 patch weight promote to f32 (as in JAX)
@@ -295,27 +383,42 @@ def make_stdit3_core(model: STDiT3Model, grid: Tuple[int, int, int], *,
         fps = cond.get("fps")
         if fps is None:
             fps = torch.full((rows,), 24.0, dtype=torch.float32, device=x.device)
-        te = embed(model.t_embed, t) + embed(model.fps_embed, fps)
+        fps_e = embed(model.fps_embed, fps)
+        te = embed(model.t_embed, t) + fps_e
         t6 = model.t_block(F.silu(te)).reshape(rows, 6, d)
         y = F.gelu(model.y_embed["in"](cond["y"].float()), approximate="tanh")
         y = model.y_embed["out"](y).to(dt)
-        return h, {"t6": t6, "te": te, "y": y}
+        ctx = {"t6": t6, "te": te, "y": y}
+        if "x_mask" in cond:
+            # masked-frame conditioning: frames outside x_mask ride the t = 0
+            # modulation (t_mask_select of the reference)
+            te0 = embed(model.t_embed, torch.zeros_like(t)) + fps_e
+            ctx.update(t6_zero=model.t_block(F.silu(te0)).reshape(rows, 6, d),
+                       te_zero=te0, x_mask=cond["x_mask"])
+        return h, ctx
 
     @torch.inference_mode()
     def trunk(hidden, ctx):
         h = hidden
+        mask = dict(x_mask=ctx.get("x_mask"), t6_zero=ctx.get("t6_zero"))
         for sp, tp in zip(model.spatial, model.temporal):
-            h = sp(h, ctx["t6"], ctx["y"], grid=grid, temporal=False)
-            h = tp(h, ctx["t6"], ctx["y"], grid=grid, temporal=True, rope=rope)
+            h = sp(h, ctx["t6"], ctx["y"], grid=grid, temporal=False, **mask)
+            h = tp(h, ctx["t6"], ctx["y"], grid=grid, temporal=True, rope=rope, **mask)
         return h
 
     @torch.inference_mode()
     def head(hidden, ctx):
         fin = model.final
-        mod = fin.scale_shift[None] + ctx["te"][:, None]
-        shift, scale = mod[:, 0:1], mod[:, 1:2]
         # bf16 LayerNorm output times f32 modulation promotes to f32 in JAX
-        out = layer_norm(hidden, eps=cfg.eps).float() * (1 + scale) + shift
+        n = layer_norm(hidden, eps=cfg.eps).float()
+
+        def modulate(te):
+            mod = fin.scale_shift[None] + te[:, None]
+            return n * (1 + mod[:, 1:2]) + mod[:, 0:1]
+
+        out = modulate(ctx["te"])
+        if "x_mask" in ctx:
+            out = _tmask_select(ctx["x_mask"], out, modulate(ctx["te_zero"]), t_len)
         out = fin.out(out.to(hidden.dtype).float())
         return unpatchify(cfg, out, grid)
 

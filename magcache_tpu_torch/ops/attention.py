@@ -4,10 +4,13 @@ versions, and the ``attention()`` dispatcher.
 Layout at the API boundary is ``[batch, seq, heads, head_dim]``, as the
 patch-embedded activations are. Each kernel wrapper takes a CUDA tensor to
 its hand-written kernel and a CPU tensor to ``<name>_plain``; a CUDA tensor
-the kernel does not take raises. Launch counts are ``<wrapper>.launches``.
+the kernel does not take raises. Launch counts are ``<wrapper>.launches``
+(K1q's: ``flash_attention_bshd.qknorm_launches``).
 
 - ``flash_attention_bshd`` (K1, ``csrc/flash_attention.cu``): full
-  attention, head dim 128.
+  attention, head dim 128; with ``qk_gains`` (K1q) the per-head RMS qk-norm
+  fused into the q/k loads, head dim 72, q/k/v read in place through their
+  token strides (STDiT3's frames of more than 2,048 tokens).
 - ``grouped_attention_fused_qkv`` (K5, ``csrc/grouped_attention.cu``):
   block-diagonal grouped attention read from the fused ``[B, S, 3*H*D]``
   projection with the per-head RMS qk-norm and optional in-group RoPE fused
@@ -56,27 +59,47 @@ def _q_scale(scale: float, dtype: torch.dtype) -> torch.Tensor:
     return torch.tensor(scale * _LOG2E, dtype=dtype)
 
 
+def _rms_head(t: torch.Tensor, gain: torch.Tensor, true_d: int,
+              eps: float) -> torch.Tensor:
+    """Per-head RMS norm in f32 over the last dim (variance = sum of squares
+    / ``true_d``) times the f32 gain (``[H, D]`` or ``[D]``)."""
+    t32 = t.float()
+    var = (t32 * t32).sum(-1, keepdim=True) * (1.0 / true_d)
+    return t32 * torch.rsqrt(var + eps) * gain.float().reshape(-1, t.shape[-1])
+
+
 def flash_attention_bshd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                *, scale: Optional[float] = None,
                                kv_len: Optional[int] = None,
                                fixed_max: Optional[float] = None,
+                               qk_gains: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                               true_d: Optional[int] = None, eps: float = 1e-6,
                                chunk: int = 256) -> torch.Tensor:
-    """K1's math in plain PyTorch, over query-row chunks of ``chunk`` rows
-    so that ``[Sq, Skv]`` scores never exist whole.
+    """K1's (and K1q's) math in plain PyTorch, over query-row chunks of
+    ``chunk`` rows so that ``[Sq, Skv]`` scores never exist whole.
 
-    q is pre-scaled by ``scale*log2(e)`` in the activation dtype, scores are
-    f32, the base-2 softmax uses the static shift ``fixed_max`` (or the row
-    max when None), p is rounded to v's dtype before the f32 PV product, and
-    the result is divided by the f32 row sum.
+    Without ``qk_gains``, q is pre-scaled by ``scale*log2(e)`` in the
+    activation dtype. With ``qk_gains=(qg, kg)``, q and k are RMS-normed per
+    head in f32 (variance over ``true_d``, default D) times their gains; q is
+    then scaled by ``scale*log2(e)`` in f32 and rounded to the activation
+    dtype, and k is rounded. Scores are f32, the base-2 softmax uses the
+    static shift ``fixed_max`` (or the row max when None), p is rounded to
+    v's dtype before the f32 PV product, and the result is divided by the f32
+    row sum.
     """
     b, sq, h, d = q.shape
     scale = (1.0 / math.sqrt(d)) if scale is None else scale
     kv_len = k.shape[1] if kv_len is None else min(kv_len, k.shape[1])
-    qs = q * _q_scale(scale, q.dtype).to(q.device)
-    kt = k[:, :kv_len].permute(0, 2, 3, 1).float()       # [B, H, D, Skv]
-    vt = v[:, :kv_len].permute(0, 2, 1, 3)               # [B, H, Skv, D]
-    vf = vt.float()
-    out = torch.empty_like(q)
+    k = k[:, :kv_len]
+    if qk_gains is not None:
+        td = d if true_d is None else true_d
+        qs = (_rms_head(q, qk_gains[0], td, eps) * (scale * _LOG2E)).to(q.dtype)
+        k = _rms_head(k, qk_gains[1], td, eps).to(v.dtype)
+    else:
+        qs = q * _q_scale(scale, q.dtype).to(q.device)
+    kt = k.permute(0, 2, 3, 1).float()                   # [B, H, D, Skv]
+    vf = v[:, :kv_len].permute(0, 2, 1, 3).float()       # [B, H, Skv, D]
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     for i0 in range(0, sq, chunk):
         s = qs[:, i0:i0 + chunk].permute(0, 2, 1, 3).float() @ kt
         if fixed_max is not None:
@@ -91,28 +114,44 @@ def flash_attention_bshd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, scale: Optional[float] = None,
                          kv_len: Optional[int] = None,
-                         fixed_max: Optional[float] = None) -> torch.Tensor:
+                         fixed_max: Optional[float] = None,
+                         qk_gains: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                         true_d: Optional[int] = None,
+                         eps: float = 1e-6) -> torch.Tensor:
     """K1: full non-causal attention on ``[B, S, H, D]`` -> ``[B, Sq, H, D]``.
 
     ``fixed_max``: the static softmax shift (pass only for trunks whose scores
     are norm-bounded); None runs the online running-max softmax.
+
+    ``qk_gains=(qg, kg)`` (``[H, D]`` or ``[D]`` f32) fuse the per-head RMS
+    qk-norm (variance over ``true_d``) into the q/k loads: K1q, which takes
+    bf16 head dim 72 with ``fixed_max`` and reads q, k and v through their
+    batch and token strides (unit channel stride, 16-byte aligned rows), so
+    column slices of one fused projection need no copies. K1 without the norm
+    takes contiguous bf16 head dim 128. Anything else on a CUDA tensor raises.
+    Launches count in ``flash_attention_bshd.launches`` (K1) and
+    ``flash_attention_bshd.qknorm_launches`` (K1q).
     """
     if q.device.type == "cpu":
         return flash_attention_bshd_plain(q, k, v, scale=scale, kv_len=kv_len,
-                                          fixed_max=fixed_max)
+                                          fixed_max=fixed_max, qk_gains=qk_gains,
+                                          true_d=true_d, eps=eps)
     b, sq, h, d = q.shape
     skv = k.shape[1]
     scale = (1.0 / math.sqrt(d)) if scale is None else scale
     kv_len = skv if kv_len is None else min(kv_len, skv)
+    if kv_len < 1 or b * h > 65535:
+        raise ValueError(f"flash_attention_bshd: kv_len {kv_len} < 1 or "
+                         f"B*H {b * h} > 65535")
+    if qk_gains is not None:
+        return _flash_attention_qknorm(q, k, v, scale, kv_len, fixed_max,
+                                       qk_gains, true_d, eps)
     if d != KERNEL_HEAD_DIM:
         raise ValueError(f"flash_attention_bshd: the kernel takes head dim "
                          f"{KERNEL_HEAD_DIM}, got {d}")
     for name, t, shape in (("q", q, (b, sq, h, d)), ("k", k, (b, skv, h, d)),
                            ("v", v, (b, skv, h, d))):
         check_bf16(f"flash_attention_bshd: {name}", t, shape, q.device)
-    if kv_len < 1 or b * h > 65535:
-        raise ValueError(f"flash_attention_bshd: kv_len {kv_len} < 1 or "
-                         f"B*H {b * h} > 65535")
     lib = load_cuda_library()
     out = torch.empty_like(q)
     code = lib.mc_flash_attention_bshd(
@@ -126,7 +165,51 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def _flash_attention_qknorm(q, k, v, scale, kv_len, fixed_max, qk_gains, true_d,
+                            eps) -> torch.Tensor:
+    """K1q's launch: checks what the kernel takes, raises on anything else."""
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    if d != GROUPED_HEAD_DIM or true_d not in (None, d):
+        raise ValueError(f"flash_attention_bshd: the qk-normed kernel takes head "
+                         f"dim {GROUPED_HEAD_DIM} (true_d None or equal), got {d} "
+                         f"(true_d {true_d})")
+    if fixed_max is None:
+        raise ValueError("flash_attention_bshd: the qk-normed kernel takes the "
+                         "fixed softmax shift only (pass fixed_max)")
+    dev = q.device
+    for name, t, shape in (("q", q, (b, sq, h, d)), ("k", k, (b, skv, h, d)),
+                           ("v", v, (b, skv, h, d))):
+        bs, ts, hs, cs = t.stride()
+        if not (t.is_cuda and t.device == dev and t.dtype == torch.bfloat16
+                and tuple(t.shape) == shape and cs == 1 and hs == d
+                and t.data_ptr() % 16 == 0 and bs % 8 == 0 and ts % 8 == 0):
+            raise ValueError(
+                f"flash_attention_bshd: {name} must be a bf16 CUDA tensor of shape "
+                f"{shape} on {dev} with unit channel stride, heads {d} apart and "
+                f"16-byte aligned rows; got {t.dtype} {tuple(t.shape)} strides "
+                f"{t.stride()} on {t.device}")
+    gains = []
+    for name, t in zip(("qg", "kg"), qk_gains):
+        if t.device != dev or t.numel() not in (d, h * d):
+            raise ValueError(f"flash_attention_bshd: {name} must hold [{h}, {d}] "
+                             f"or [{d}] on {dev}")
+        gains.append(t.float().reshape(-1, d).expand(h, d).contiguous())
+    lib = load_cuda_library()
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev)
+    code = lib.mc_flash_attention_qknorm(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        gains[0].data_ptr(), gains[1].data_ptr(), b, sq, h, kv_len,
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
+        v.stride(1), scale * _LOG2E, float(d), float(eps), float(fixed_max),
+        torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(lib, code, "flash_attention_bshd (qk-norm)")
+    flash_attention_bshd.qknorm_launches += 1
+    return out
+
+
 flash_attention_bshd.launches = 0
+flash_attention_bshd.qknorm_launches = 0
 
 
 def _attention_einsum(q, k, v, *, scale, kv_len):
@@ -176,15 +259,9 @@ def grouped_attention_fused_qkv_plain(
     key_ok = torch.arange(group, device=qkv.device) < gvalid
     out = torch.empty((ng, group, heads, d), dtype=qkv.dtype, device=qkv.device)
     step = max(1, chunk_elems // (heads * group * group))
-
-    def norm(t, gain):            # per-head RMS over true_d, x f32 gain
-        t32 = t.float()
-        var = (t32 * t32).sum(-1, keepdim=True) * (1.0 / td)
-        return t32 * torch.rsqrt(var + eps) * gain.float().reshape(-1, d)
-
     for g0 in range(0, ng, step):
         q, k, v = parts[g0:g0 + step].unbind(2)            # [n, g, H, D]
-        q, k = norm(q, qk_gains[0]), norm(k, qk_gains[1])
+        q, k = _rms_head(q, qk_gains[0], td, eps), _rms_head(k, qk_gains[1], td, eps)
         if rope_tables is not None:    # f32 in, f32 out: no rounding here
             q, k = apply_rope(q, *rope_tables), apply_rope(k, *rope_tables)
         q = (q * (scale * _LOG2E)).to(v.dtype).float()

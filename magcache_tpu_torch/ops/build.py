@@ -85,6 +85,10 @@ def load_cuda_library() -> ctypes.CDLL:
     lib.mc_flash_attention_bshd.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci,
                                             cf, ci, cf, vp]
     lib.mc_flash_attention_bshd.restype = ci
+    cl = ctypes.c_longlong
+    lib.mc_flash_attention_qknorm.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci,
+                                              cl, cl, cl, cl, cl, cl, cf, cf, cf, cf, vp]
+    lib.mc_flash_attention_qknorm.restype = ci
     lib.mc_lnmod_matmul.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
                                     ci, cf, ci, vp]
     lib.mc_lnmod_matmul.restype = ci

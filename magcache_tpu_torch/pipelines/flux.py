@@ -26,7 +26,7 @@ import torch
 
 from magcache_tpu_torch.core.magcache import MagCacheConfig
 from magcache_tpu_torch.core.presets import make_config
-from magcache_tpu_torch.core.sampler import _lane_masks, sample_euler
+from magcache_tpu_torch.core.sampler import lane_skip_masks, sample_euler
 from magcache_tpu_torch.models.flux import (FLUX_DEV, FluxConfig, FluxModel,
                                             make_flux_core)
 from magcache_tpu_torch.models.text import MockPooledEncoder, MockTextEncoder
@@ -128,7 +128,7 @@ class FluxPipeline(BasePipeline):
         steps = self.config.num_inference_steps
         if not use_magcache:
             return np.zeros((steps, 1), bool)
-        return _lane_masks(self._cache_cfg(thresh, K, retention_ratio), steps)[0]
+        return lane_skip_masks(self._cache_cfg(thresh, K, retention_ratio), steps)[0]
 
     def _core(self, kontext: bool):
         if not kontext:

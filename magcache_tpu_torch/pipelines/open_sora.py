@@ -1,30 +1,36 @@
-"""Open-Sora 1.2 text-to-video on STDiT3 + RFLOW, MagCache-enabled.
+"""Open-Sora 1.2 video generation on STDiT3 + RFLOW, MagCache-enabled.
 
-The plain t2v path of ``magcache_tpu.pipelines.open_sora`` (reference stack
+The ``magcache_tpu.pipelines.open_sora`` pipeline (reference stack
 ``videosys/pipelines/open_sora/pipeline_open_sora.py``): prompt score
 appending and T5 caption cleaning -> text encode -> seeded noise latents ->
 Euler RFLOW loop with CFG as one joint batch of 2 rows ([cond, uncond]), so
 MagCache keeps a single cache lane over the joint batch (the eval harness's
-configuration, ``eval/magcache/experiments/opensora.py``). The
-checkpoint-free path: ``MockTextEncoder``, random STDiT3 weights from a
-seeded ``torch.Generator``, no VAE decode (latents are the output).
+configuration, ``eval/magcache/experiments/opensora.py``). With a mask
+strategy, ``.npy`` latent references or ``loop > 1`` it runs the masked-frame
+sampler (``sample_rflow_masked``): references pasted into the noise, frames
+frozen or re-noised by their edit ratio, and each follow-on clip conditioned
+on the previous clip's last latents. The checkpoint-free path:
+``MockTextEncoder``, random STDiT3 weights from a seeded ``torch.Generator``,
+no VAE (latents are the output; image and video references, which the VAE
+would encode, raise).
 
 Latent geometry: VAE stride 8 in space and ``get_latent_t`` in time (51
 frames -> 15 latents), 4 channels; DiT patch (1, 2, 2). Not ported yet
-(raise): PAB, the mask strategy and references, looped generation, the
-rolling cache policy.
+(raise): PAB, the rolling cache policy.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional
+from typing import List, Optional
 
+import numpy as np
 import torch
 
 from magcache_tpu_torch.core.presets import make_config
-from magcache_tpu_torch.core.sampler import sample_euler
+from magcache_tpu_torch.core.sampler import (lane_skip_masks, sample_euler,
+                                             sample_rflow_masked)
 from magcache_tpu_torch.models.stdit3 import (STDIT3_XL_2, STDiT3Config,
                                               STDiT3Model, make_stdit3_core)
 from magcache_tpu_torch.models.text import MockTextEncoder
@@ -80,8 +86,9 @@ class OpenSoraPipelineConfig:
 
 
 class OpenSoraPipeline(BasePipeline):
-    """Open-Sora 1.2 t2v on ``device``. Without ``model``, STDiT3 gets random
-    weights from a generator seeded with ``init_seed``."""
+    """Open-Sora 1.2 on ``device``. Without ``model``, STDiT3 gets random
+    weights from a generator seeded with ``init_seed``; a given ``model``
+    brings its own configuration (widths, caption dim)."""
 
     def __init__(self, config: OpenSoraPipelineConfig, device,
                  text_encoder=None, model: Optional[STDiT3Model] = None,
@@ -89,7 +96,7 @@ class OpenSoraPipeline(BasePipeline):
         self.config = config
         c = config
         self.device = torch.device(device)
-        self.model_cfg = c.model_config()
+        self.model_cfg = model.cfg if model is not None else c.model_config()
         lat_t = oc.get_latent_t(c.num_frames)
         lat_h, lat_w = c.height // VAE_SPATIAL_STRIDE, c.width // VAE_SPATIAL_STRIDE
         self.latent_shape = (lat_t, lat_h, lat_w, self.model_cfg.in_channels)
@@ -118,6 +125,11 @@ class OpenSoraPipeline(BasePipeline):
                            retention_ratio=c.retention_ratio,
                            ratios=c.magcache_ratios)
 
+    def skip_mask_for(self) -> np.ndarray:
+        """Host-precomputed ``bool[steps, 1]`` skip bits of one loop's steps
+        (one lane over the joint CFG batch); all-False when caching is off."""
+        return lane_skip_masks(self._cache_cfg(), self.config.num_sampling_steps)[0]
+
     def _combine(self):
         g = self.config.cfg_scale
         C = self.model_cfg.in_channels
@@ -129,59 +141,125 @@ class OpenSoraPipeline(BasePipeline):
 
         return combine
 
-    def _initial_noise(self, seed: int) -> torch.Tensor:
-        """Seeded noise latents ``f32[1, T, H, W, C]`` (a CPU generator, so
-        the draw is the same on every device)."""
-        return torch.randn((1,) + self.latent_shape, generator=set_seed(seed),
-                           dtype=torch.float32).to(self.device)
+    def _initial_noise(self, gen: torch.Generator) -> torch.Tensor:
+        """A loop's noise latents ``f32[1, T, H, W, C]`` on the CPU, drawn
+        from the request's CPU generator, so every device gets the same
+        draw."""
+        return torch.randn((1,) + self.latent_shape, generator=gen,
+                           dtype=torch.float32)
+
+    def _renoise_fn(self, gen: torch.Generator):
+        """A loop's re-noise source for ``sample_rflow_masked``: draws of the
+        request's CPU generator."""
+        return lambda step, shape: torch.randn(shape, generator=gen,
+                                               dtype=torch.float32)
+
+    def _collect_references(self, reference_paths: List[str]) -> List[list]:
+        """Per-batch lists of reference latents ``[T, H, W, C]``
+        (``pipeline_open_sora.py:736-751``) from ';'-separated ``.npy`` paths.
+        Image and video files need the Open-Sora VAE to encode them, which is
+        not ported yet: they raise."""
+        refs_x = []
+        for reference_path in reference_paths:
+            ref = []
+            for r_path in (reference_path or "").split(";") if reference_path else []:
+                if not r_path.endswith(".npy"):
+                    raise NotImplementedError(
+                        f"reference {r_path!r}: image and video references are "
+                        "encoded by the Open-Sora VAE, which is not ported yet; "
+                        "pass .npy latents [T, H, W, C]")
+                lat = np.asarray(np.load(r_path), np.float32)
+                if lat.ndim != 4:
+                    raise ValueError(f"reference {r_path!r}: latents must be "
+                                     f"[T, H, W, C], got {lat.shape}")
+                ref.append(lat)
+            refs_x.append(ref)
+        return refs_x
 
     def _prompt(self, prompt: str, aes, flow, camera_motion,
                 use_text_preprocessing: bool) -> str:
-        """Score appending + twice-applied caption cleaning of a one-loop
-        prompt (``pipeline_open_sora.py:532-605``)."""
-        prompts, _, _ = oc.extract_json_from_prompts([prompt], [""], [""])
-        segs, idxs = oc.split_prompt(prompts[0])
+        """Score appending + twice-applied caption cleaning of each loop
+        segment (``pipeline_open_sora.py:532-605``), merged back into one
+        ``|i|``-indexed prompt."""
+        segs, idxs = oc.split_prompt(prompt)
         segs = oc.append_score_to_prompts(segs, aes=aes, flow=flow,
                                           camera_motion=camera_motion)
         segs = [oc.text_preprocessing(s, use_text_preprocessing) for s in segs]
-        return oc.extract_prompts_loop([oc.merge_prompt(segs, idxs)], 0)[0]
+        return oc.merge_prompt(segs, idxs)
 
     def generate(self, prompt: str, negative_prompt: str = "", seed: int = 0,
                  loop: int = 1, ms: str = "", refs: str = "",
                  aes: Optional[float] = 6.5, flow: Optional[float] = None,
                  camera_motion: Optional[str] = None,
+                 condition_frame_length: int = 5, align: Optional[int] = 5,
+                 condition_frame_edit: float = 0.0,
                  use_text_preprocessing: bool = True) -> PipelineOutput:
-        """One video's latents ``f32[1, T, H, W, 4]``. ``skips`` holds the
-        realized skip bits ``bool[steps, 1]`` (none in calibration mode, which
-        fills ``calibration``). ``loop > 1``, ``ms`` and ``refs`` are not
-        ported yet."""
-        if loop != 1 or ms or refs or "{" in prompt:
-            raise NotImplementedError("looped generation, the mask strategy "
-                                      "and references are not ported yet")
+        """One video's latents ``f32[1, T', H, W, 4]``.
+
+        ``ms`` (the mask strategy, ``loop,ref,ref_start,target_start,length,
+        edit_ratio;...``) and ``refs`` (';'-separated ``.npy`` latent paths),
+        or the same keys in a trailing JSON object of ``prompt``, condition
+        frames on references; ``loop > 1`` generates follow-on clips, each
+        conditioned on the last ``condition_frame_length`` latents of the one
+        before (edit ratio ``condition_frame_edit``), trimmed of them and
+        concatenated in time, so T' = T + (loop - 1) * (T -
+        condition_frame_length). ``align`` snaps the strategy's start frames.
+        A mask of all ones is the plain t2v loop. ``skips`` holds the realized
+        skip bits ``bool[loop * steps, 1]``, loop after loop (none in
+        calibration mode, which fills ``calibration`` and takes no mask
+        strategy).
+        """
         t0 = time.time()
         c = self.config
         calibrate = c.magcache_calibration
-        text = self._prompt(prompt, aes, flow, camera_motion,
-                            use_text_preprocessing)
-        y = self.text_encoder([text, negative_prompt], device=self.device)
+        prompts, refs_l, ms_l = oc.extract_json_from_prompts([prompt], [refs], [ms])
+        refs_x = self._collect_references(refs_l)
+        merged = self._prompt(prompts[0], aes, flow, camera_motion,
+                              use_text_preprocessing)
         fps = float(c.fps if self.latent_shape[0] > 1 else oc.IMG_FPS)
-        cond = {"y": y, "fps": torch.full((2,), fps, dtype=torch.float32,
-                                          device=self.device)}
-        z = self._initial_noise(seed)
         sch = self.schedule
         common = dict(timesteps=sch.timesteps, dts=sch.dts(), lanes=2,
                       combine_fn=self._combine())
-        if calibrate:
-            latents, stats = sample_euler(self.core, z, cond, calibrate=True,
-                                          calibrate_lanes=1, **common)
-            calibration, skips = calibration_dict(stats), None
-        else:
-            latents, skips = sample_euler(self.core, z, cond,
-                                          cache_cfg=self._cache_cfg(),
-                                          return_skips=True, **common)
-            calibration = None
+        gen = set_seed(seed)
+        clips, all_skips, calibration = [], [], None
+        for loop_i in range(loop):
+            if loop_i > 0:
+                refs_x, ms_l = oc.append_generated(
+                    None, [clips[-1][0].cpu().numpy()], refs_x, ms_l, loop_i,
+                    condition_frame_length, condition_frame_edit)
+            text = oc.extract_prompts_loop([merged], loop_i)[0]
+            cond = {"y": self.text_encoder([text, negative_prompt], device=self.device),
+                    "fps": torch.full((2,), fps, dtype=torch.float32, device=self.device)}
+            z = self._initial_noise(gen).numpy().copy()
+            masks = oc.apply_mask_strategy(z, refs_x, ms_l, loop_i, align=align)
+            if masks is not None and (masks >= 1.0).all():
+                # mask-1 frames are never re-noised or reverted and see the
+                # step's modulation: exactly the plain loop on the pasted z
+                masks = None
+            z = torch.from_numpy(z).to(self.device)
+            if calibrate:
+                if masks is not None:
+                    raise ValueError("calibration records the plain t2v trajectory; "
+                                     "drop the mask strategy and loop conditioning")
+                latents, stats = sample_euler(self.core, z, cond, calibrate=True,
+                                              calibrate_lanes=1, **common)
+                calibration = calibration_dict(stats)
+            elif masks is None:
+                latents, skips = sample_euler(self.core, z, cond,
+                                              cache_cfg=self._cache_cfg(),
+                                              return_skips=True, **common)
+            else:
+                latents, skips = sample_rflow_masked(
+                    self.core, z, cond, num_train_timesteps=sch.num_train_timesteps,
+                    mask=masks, noise_fn=self._renoise_fn(gen),
+                    cache_cfg=self._cache_cfg(), return_skips=True, **common)
+            if not calibrate:
+                all_skips.append(skips)
+            clips.append(latents)
+        latents = torch.cat([clips[0]] + [cl[:, condition_frame_length:]
+                                          for cl in clips[1:]], dim=1)
         if latents.is_cuda:
             torch.cuda.synchronize(latents.device)
         return PipelineOutput(latents=latents, calibration=calibration,
                               timings={"total_s": time.time() - t0},
-                              skips=skips)
+                              skips=None if calibrate else np.concatenate(all_skips))

@@ -1,13 +1,15 @@
-"""Open-Sora conditioning helpers for plain text-to-video (host-side), the
-subset of ``magcache_tpu.pipelines.open_sora_cond`` that the t2v path runs:
-resolution buckets and frame counts, prompt score appending, the T5 caption
-cleaning, and the prompt JSON/loop plumbing.
+"""Open-Sora conditioning helpers (host-side), the subset of
+``magcache_tpu.pipelines.open_sora_cond`` that the port runs: resolution
+buckets and frame counts, prompt score appending, the T5 caption cleaning,
+the prompt JSON/loop plumbing, and the mask strategy (parsing, reference
+pasting, looped-extension bookkeeping), all numpy and bit-identical to it.
 
 Behavioral sources are those of the JAX module
 (``videosys/pipelines/open_sora/pipeline_open_sora.py:298-424, 532-605,
 705-797`` and ``data_process.py:474-530``). The trained bucket tables are
 shared data, read by path from ``magcache_tpu/data/opensora_buckets.json``.
-The mask strategy, references and looped generation are not ported yet.
+Reading image or video references (``read_from_path``) waits for the
+Open-Sora VAE, which would encode them.
 """
 
 from __future__ import annotations
@@ -20,12 +22,15 @@ import urllib.parse as ul
 from functools import lru_cache
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
+
 from magcache_tpu_torch.data import DATA_DIR
 
 __all__ = ["IMG_FPS", "get_image_size", "get_num_frames", "get_latent_t",
            "clean_caption", "text_preprocessing", "append_score_to_prompts",
            "extract_json_from_prompts", "split_prompt", "merge_prompt",
-           "extract_prompts_loop"]
+           "extract_prompts_loop", "MASK_DEFAULT", "parse_mask_strategy",
+           "find_nearest_point", "apply_mask_strategy", "append_generated"]
 
 IMG_FPS = 120          # data_process.py:25: single-frame clips condition on this
 
@@ -265,3 +270,84 @@ def extract_prompts_loop(prompts, num_loop: int) -> List[str]:
             prompt = text_list[num_loop]
         ret.append(prompt)
     return ret
+
+
+# mask strategy (latents are channel-last: [B, T, H, W, C]; refs [T, H, W, C])
+
+MASK_DEFAULT = ["0", "0", "0", "0", "1", "0"]
+
+
+def parse_mask_strategy(mask_strategy: Optional[str]):
+    """``loop_id,ref_id,ref_start,target_start,length,edit_ratio`` groups
+    separated by ';', missing trailing fields from ``MASK_DEFAULT``
+    (``pipeline_open_sora.py:798-815``)."""
+    out = []
+    if not mask_strategy:
+        return out
+    for mask in mask_strategy.split(";"):
+        group = mask.split(",")
+        if not 1 <= len(group) <= 6:
+            raise ValueError(f"Invalid mask strategy: {mask}")
+        group = group + MASK_DEFAULT[len(group):]
+        out.append([int(group[i]) for i in range(5)] + [float(group[5])])
+    return out
+
+
+def find_nearest_point(value: int, point: int, max_value: int) -> int:
+    t = value // point
+    if value % point > point / 2 and t < max_value // point - 1:
+        t += 1
+    return t * point
+
+
+def apply_mask_strategy(z: np.ndarray, refs_x, mask_strategys, loop_i: int,
+                        align: Optional[int] = None):
+    """Paste reference latents into ``z`` ``[B, T, H, W, C]`` (in place) and
+    build the per-frame masks ``f32[B, T]`` (``pipeline_open_sora.py:825-854``);
+    None when ``mask_strategys`` is empty. ``refs_x`` holds per-batch lists of
+    ``[T, H, W, C]`` latents."""
+    masks = []
+    for i, mask_strategy in enumerate(mask_strategys):
+        mask = np.ones(z.shape[1], np.float32)
+        for mst in parse_mask_strategy(mask_strategy):
+            loop_id, m_id, m_ref_start, m_target_start, m_length, edit_ratio = mst
+            if loop_id != loop_i:
+                continue
+            ref = refs_x[i][m_id]
+            if m_ref_start < 0:
+                m_ref_start = ref.shape[0] + m_ref_start
+            if m_target_start < 0:
+                m_target_start = z.shape[1] + m_target_start
+            if align is not None:
+                m_ref_start = find_nearest_point(m_ref_start, align, ref.shape[0])
+                m_target_start = find_nearest_point(m_target_start, align, z.shape[1])
+            m_length = min(m_length, z.shape[1] - m_target_start,
+                           ref.shape[0] - m_ref_start)
+            z[i, m_target_start:m_target_start + m_length] = (
+                ref[m_ref_start:m_ref_start + m_length])
+            mask[m_target_start:m_target_start + m_length] = edit_ratio
+        masks.append(mask)
+    if not masks:
+        return None
+    return np.stack(masks)
+
+
+def append_generated(encode_fn, generated_latents, refs_x, mask_strategy,
+                     loop_i: int, condition_frame_length: int,
+                     condition_frame_edit: float):
+    """Loop extension: append the previous clip (through ``encode_fn``, or
+    its latents as they are when None) as a new reference of each batch
+    entry and extend its strategy with ``loop_i,ref,-L,0,L,edit``
+    (``pipeline_open_sora.py:857-875``)."""
+    ref_x = (encode_fn(generated_latents) if encode_fn is not None
+             else generated_latents)
+    for j in range(len(refs_x)):
+        if refs_x[j] is None or len(refs_x[j]) == 0:
+            refs_x[j] = [np.asarray(ref_x[j])]
+        else:
+            refs_x[j].append(np.asarray(ref_x[j]))
+        mask_strategy[j] = (mask_strategy[j] + ";") if mask_strategy[j] else ""
+        mask_strategy[j] += (
+            f"{loop_i},{len(refs_x[j]) - 1},-{condition_frame_length},0,"
+            f"{condition_frame_length},{condition_frame_edit}")
+    return refs_x, mask_strategy

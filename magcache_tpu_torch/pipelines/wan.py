@@ -18,7 +18,7 @@ import torch
 
 from magcache_tpu_torch.core.magcache import MagCacheConfig, prepare_mag_ratios
 from magcache_tpu_torch.core.presets import PRESETS, make_config
-from magcache_tpu_torch.core.sampler import _lane_masks, calibrate_unipc, sample_unipc
+from magcache_tpu_torch.core.sampler import calibrate_unipc, lane_skip_masks, sample_unipc
 from magcache_tpu_torch.models.text import MockTextEncoder
 from magcache_tpu_torch.models.wan import WAN_1_3B, WanConfig, WanModel, make_wan_core
 from magcache_tpu_torch.pipelines.base import BasePipeline, PipelineOutput, calibration_dict
@@ -142,7 +142,7 @@ class WanPipeline(BasePipeline):
         steps = self.config.sample_steps
         if not use_magcache:
             return np.zeros((steps, cfg.lanes), bool)
-        return _lane_masks(cfg, steps)[0]
+        return lane_skip_masks(cfg, steps)[0]
 
     def _sample_fn(self, calibrate: bool,
                    skip_override: Optional[np.ndarray] = None):

@@ -313,3 +313,76 @@ def test_k5_to_k8_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError):                            # f32 weight
         P.matmul_gated_residual(x, _rand(dev, 64, 1152, dtype=torch.float32),
                                 None, g[:, :64])
+
+
+# ---- K1q: K1 with the per-head RMS qk-norm fused (head dim 72) ---------------
+@pytest.mark.parametrize("b,s,heads,strided,shared_gain", [
+    (2, 300, 3, True, True),      # ragged tiles, column views of one projection
+    (1, 3600, 16, True, True),    # one 720p frame
+    (3, 64, 2, False, False),     # contiguous q/k/v, per-head gains
+    (1, 65, 1, True, False)])
+def test_k1q_matches_plain(dev, b, s, heads, strided, shared_gain):
+    qkv = _rand(dev, b, s, 3 * heads * 72, scale=1.5, seed=21)
+    q, k, v = (p.unflatten(-1, (heads, 72)) for p in qkv.chunk(3, dim=-1))
+    if not strided:
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    shape = (72,) if shared_gain else (heads, 72)
+    gains = tuple(1.0 + _rand(dev, *shape, dtype=torch.float32, scale=0.2, seed=22 + i)
+                  for i in range(2))
+    kw = dict(scale=72 ** -0.5, qk_gains=gains, true_d=72, eps=1e-6,
+              fixed_max=A.QKNORM_FIXED_MAX)
+    before = (A.flash_attention_bshd.launches, A.flash_attention_bshd.qknorm_launches)
+    got = A.flash_attention_bshd(q, k, v, **kw)
+    want = A.flash_attention_bshd_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert (A.flash_attention_bshd.launches,
+            A.flash_attention_bshd.qknorm_launches) == (before[0], before[1] + 1)
+    assert got.shape == (b, s, heads, 72) and got.is_contiguous()
+    # as K1: the same rounding points, f32 sums in another order
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-3, rtol=2e-2)
+
+
+def test_k1q_refuses_what_it_does_not_take(dev):
+    qkv = _rand(dev, 1, 100, 3 * 2 * 72)
+    q, k, v = (p.unflatten(-1, (2, 72)) for p in qkv.chunk(3, dim=-1))
+    g = (torch.ones(72, device=dev),) * 2
+    with pytest.raises(ValueError, match="fixed_max"):             # running max
+        A.flash_attention_bshd(q, k, v, qk_gains=g, true_d=72)
+    with pytest.raises(ValueError, match="head dim"):              # D = 128
+        x = _rand(dev, 1, 100, 2, 128)
+        A.flash_attention_bshd(x, x, x, qk_gains=(torch.ones(128, device=dev),) * 2,
+                               fixed_max=16.0)
+    with pytest.raises(ValueError):                                # f32
+        A.flash_attention_bshd(q.float(), k.float(), v.float(), qk_gains=g, fixed_max=16.0)
+    with pytest.raises(ValueError):                                # row not 16-byte aligned
+        odd = _rand(dev, 1, 100, 3 * 2 * 72 + 1)[..., 1:]
+        qo = odd[..., :144].unflatten(-1, (2, 72))
+        A.flash_attention_bshd(qo, qo, qo, qk_gains=g, fixed_max=16.0)
+
+
+def test_tiny_open_sora_masked_and_large_frames_run_through_the_kernels(dev, tmp_path):
+    """Frames of 2,304 tokens (K1q in the spatial blocks), a pinned .npy
+    reference and loop=2 through the pipeline on the card."""
+    from magcache_tpu_torch.models.stdit3 import STDiT3Config, STDiT3Model
+    from magcache_tpu_torch.pipelines.open_sora import (OpenSoraPipeline,
+                                                        OpenSoraPipelineConfig)
+
+    cfg = STDiT3Config(hidden=144, heads=2, depth=2, caption_dim=64, freq_dim=64,
+                       caption_max_len=20, dtype="bfloat16")
+    model = STDiT3Model(cfg, dev).init(torch.Generator(device=dev).manual_seed(0))
+    pipe = OpenSoraPipeline(OpenSoraPipelineConfig(
+        height=768, width=768, num_frames=8, num_sampling_steps=6, caption_len=20,
+        use_magcache=True, dtype="bfloat16"), dev, model=model)
+    ref = str(tmp_path / "ref.npy")
+    np.save(ref, np.random.default_rng(0).standard_normal((1, 96, 96, 4)).astype(np.float32))
+    before = (A.flash_attention_bshd.qknorm_launches, A.grouped_attention_fused_qkv.launches,
+              P.lnmod_matmul.launches)
+    out = pipe.generate("a boat", ms="0,0,0,0,1,0", refs=ref, loop=2,
+                        condition_frame_length=1, align=None)
+    runs = int((~out.skips.all(1)).sum())
+    # masked blocks: K1q (spatial) and K5 (temporal) per block pair, no K7
+    assert (A.flash_attention_bshd.qknorm_launches - before[0],
+            A.grouped_attention_fused_qkv.launches - before[1],
+            P.lnmod_matmul.launches - before[2]) == (2 * runs, 2 * runs, 0)
+    assert out.latents.shape == (1, 3, 96, 96, 4) and torch.isfinite(out.latents).all()
+    np.testing.assert_array_equal(out.latents[0, 0].cpu().numpy(), np.load(ref)[0])

@@ -1,5 +1,5 @@
-"""The plain versions of K5-K8 against the JAX package's Pallas kernels run
-with ``interpret=True`` on the CPU.
+"""The plain versions of K1q and K5-K8 against the JAX package's Pallas
+kernels run with ``interpret=True`` on the CPU.
 
 The port keeps the published 72-wide heads; the JAX kernels take heads
 zero-padded to 128 lanes (and, for K5, groups padded to an aligned length).
@@ -7,7 +7,7 @@ Each case builds its inputs with numpy, pads them for the JAX side, and
 slices the JAX result back. f32 cases hold to 1e-5 (only the summation order
 differs); bf16 cases to the JAX tests' own bounds for these kernels
 (``tests/test_fused_matmul_kernels.py``: atol 0.04 for K7/K8, 0.05 for K6),
-and K5 in bf16 to 2e-2 (two bf16 ulps of outputs below 2).
+and K1q and K5 in bf16 to 2e-2 (two bf16 ulps of outputs below 2).
 """
 
 import importlib
@@ -196,6 +196,65 @@ def test_grouped_attention_plain_padded_group_matches_jax(rope):
         true_d=D, eps=1e-6, fixed_max=TA.QKNORM_FIXED_MAX)
     np.testing.assert_allclose(got.numpy(), _unpad_heads(np.asarray(want)),
                                atol=1e-5, rtol=1e-5)
+
+
+# ---------------------------------------------------------------- K1q
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("s,strided", [(100, False), (130, True), (64, True)])
+def test_flash_attention_qknorm_plain_matches_jax_kernel(dtype, s, strided):
+    """K1 with the fused per-head RMS qk-norm (STDiT3's frames of more than
+    2,048 tokens): the JAX kernel on heads zero-padded to 128 lanes with
+    ``true_d`` 72 and zero-padded gains; the port on 72-wide heads, read as
+    column views of one fused projection when ``strided``. S = 100 and 130
+    leave ragged key and query tiles."""
+    jd, td = DTYPES[dtype]
+    heads, b = 2, 3
+    rng = np.random.default_rng(6)
+    qkv = rng.standard_normal((b, s, 3 * heads * D)) * 1.5
+    gains = (1.0 + 0.2 * rng.standard_normal((heads, D)),
+             1.0 + 0.2 * rng.standard_normal((heads, D)))
+    parts = [qkv[..., i * heads * D:(i + 1) * heads * D].reshape(b, s, heads, D)
+             for i in range(3)]
+    pad = [(0, 0)] * 3 + [(0, DP - D)]
+    want = JA.flash_attention_bshd(
+        *(_j(np.pad(a, pad), jd) for a in parts), scale=1.0 / np.sqrt(D),
+        fixed_max=JA.QKNORM_FIXED_MAX,
+        qk_gains=tuple(jnp.asarray(np.pad(g, ((0, 0), (0, DP - D))), jnp.float32)
+                       for g in gains),
+        true_d=D, eps=1e-6, interpret=True)
+    want = np.asarray(want, np.float32)[..., :D]
+    if strided:
+        q, k, v = (p.unflatten(-1, (heads, D)) for p in _t(qkv, td).chunk(3, dim=-1))
+        assert q.stride()[1] == 3 * heads * D and not q.is_contiguous()
+    else:
+        q, k, v = (_t(a, td) for a in parts)
+    got = TA.flash_attention_bshd(
+        q, k, v, scale=1.0 / np.sqrt(D), fixed_max=TA.QKNORM_FIXED_MAX,
+        qk_gains=tuple(_t(g, torch.float32) for g in gains), true_d=D, eps=1e-6)
+    assert got.shape == (b, s, heads, D) and got.dtype == td
+    _close(got, want, dtype, 2e-2)
+
+
+def test_flash_attention_qknorm_rounds_q_once_in_f32():
+    """The normed path scales q by scale*log2(e) in f32 and rounds once; K1
+    without the norm scales q in bf16 by the bf16-rounded factor. On normed
+    bf16 inputs with unit gains the two give different outputs."""
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((1, 40, 1, D))
+    q, k, v = (_t(x * f, torch.bfloat16) for f in (1.0, 0.7, 1.3))
+    ones = torch.ones(D)
+    fused = TA.flash_attention_bshd_plain(q, k, v, fixed_max=16.0, qk_gains=(ones, ones),
+                                          true_d=D)
+    qn, kn = (TA._rms_head(t, ones, D, 1e-6) for t in (q, k))
+    scale = float(D ** -0.5 * np.log2(np.e))
+    s = (qn * scale).to(torch.bfloat16).float()[0, :, 0] @ kn.to(torch.bfloat16).float()[0, :, 0].T
+    p = torch.exp2(s - 16.0)
+    want = (p.to(torch.bfloat16).float() @ v.float()[0, :, 0]) / p.sum(-1, keepdim=True)
+    torch.testing.assert_close(fused[0, :, 0].float(), want.to(torch.bfloat16).float(),
+                               atol=0, rtol=0)
+    unfused = TA.flash_attention_bshd_plain(qn.to(torch.bfloat16), kn.to(torch.bfloat16), v,
+                                            fixed_max=16.0)
+    assert not torch.equal(fused, unfused)
 
 
 # ---------------------------------------------------------------- K6

@@ -1,10 +1,12 @@
 """Where one DiT forward spends its device time, on one NVIDIA card.
 
-    python tools/profile_torch_forward.py [--model wan|open-sora|flux] [--frames N] [--top 15]
+    python tools/profile_torch_forward.py [--model wan|open-sora|flux] [--frames N]
+        [--resolution 480p|720p] [--top 15]
 
 Builds the model (bf16, random seeded weights) from ``magcache_tpu_torch``:
-WAN_1_3B at 832x480 (default 81 frames, 2 CFG lanes), STDiT3-XL/2 at 480p
-9:16 (default 51 frames, the joint CFG batch of 2) or FLUX.1-dev at
+WAN_1_3B at 832x480 (default 81 frames, 2 CFG lanes), STDiT3-XL/2 at the
+Open-Sora 9:16 bucket of ``--resolution`` (default 480p, 51 frames, the joint
+CFG batch of 2; 720p is 1280x720, frames of 3,600 tokens through K1q) or FLUX.1-dev at
 1024x1024 (4,096 image + 512 text tokens, one row). Runs one warm-up forward
 (prepare -> trunk -> head) and traces a second with ``torch.profiler``.
 Prints the wall time, the summed device time, the device's idle share of the
@@ -29,6 +31,8 @@ def main(argv=None):
     p.add_argument("--model", choices=["wan", "open-sora", "flux"], default="wan")
     p.add_argument("--frames", type=int, default=None,
                    help="pixel frames (default 81 for Wan, 51 for Open-Sora)")
+    p.add_argument("--resolution", default="480p",
+                   help="open-sora bucket resolution (480p, 720p)")
     p.add_argument("--top", type=int, default=15)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -67,14 +71,16 @@ def main(argv=None):
     else:
         from magcache_tpu_torch.models.stdit3 import (STDIT3_XL_2, STDiT3Model,
                                                       make_stdit3_core)
-        from magcache_tpu_torch.pipelines.open_sora_cond import get_latent_t
+        from magcache_tpu_torch.pipelines.open_sora_cond import (get_image_size,
+                                                                 get_latent_t)
 
         model = STDiT3Model(dataclasses.replace(STDIT3_XL_2, dtype="bfloat16"),
                             dev).init(gen)
         lat_t = get_latent_t(args.frames or 51)
-        grid = (lat_t, 30, 53)
-        core = make_stdit3_core(model, grid, pixel_size=(480, 854))
-        x = torch.randn((2, lat_t, 60, 106, 4), generator=g, device=dev)
+        height, width = get_image_size(args.resolution, "9:16")
+        grid = (lat_t, height // 16, width // 16)
+        core = make_stdit3_core(model, grid, pixel_size=(height, width))
+        x = torch.randn((2, lat_t, height // 8, width // 8, 4), generator=g, device=dev)
         cond = {"y": MockTextEncoder(300, 4096, 0.5)(["a boat", ""], device=dev),
                 "fps": torch.full((2,), 24.0, device=dev)}
 
