@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives ``magcache_tpu_torch`` (never JAX) in eighteen phases and exits
+Drives ``magcache_tpu_torch`` (never JAX) in twenty-two phases and exits
 nonzero on the first failure:
 
 1. environment: a CUDA card is required; prints the card's name and power
@@ -65,13 +65,33 @@ Open-Sora 1.2 at 720p and its mask-strategy conditioning (K1q, K3, K5-K8):
    frame and ``loop=2`` (the masked blocks, the masked sampler, the loop
    hand-off).
 
+Latte-1 T2V (K5r, K4, K9, K1 at padded head dim, K3, K6-K8):
+19. each kernel against its plain version at 512x512 x 16 shapes (2 rows of
+   16 frames x 1,024 tokens, bf16): K5r spatial and temporal, K4 and K9 at
+   the temporal shape (and with gains and RoPE at the STDiT3 480p temporal
+   shape), K1 with the running max at head dim 72 zero-padded to 128
+   (spatial and cross), K3, K6 over 120 caption keys, K7 and K8;
+20. one full-shape forward of LATTE_1 (28 block pairs, 1.057 B parameters)
+   on each route: packed, grouped (K4) and vpu (K9), twice each; checks the
+   launches per trunk run;
+21. requests through ``LattePipeline.generate`` at 512x512 x 16 and 50 DDIM
+   steps: a full-compute calibration request, then MagCache (E 0.12 K 3
+   R 0.2) with the recorded ratios installed, on the packed route and on the
+   grouped route with the same skip mask; checks skip bits, launch counts
+   and latents, and prints the two routes' rel L2;
+22. the Latte slice on the card (bf16) against the CPU (f32) at hidden 144,
+   2 heads of 72, 2 block pairs, 16 frames at 256x256 (256 tokens per
+   frame), on the packed and grouped routes over DDIM steps with skipped
+   ones.
+
 Kernel times are CUDA-event times of a loop of back-to-back launches
 between one event pair, divided by the count (``cuda_ms``); phase 11 times
 the short K2h and K3 calls as one replay of a CUDA graph of 20 calls
 (``cuda_graph_ms``), since their wrappers' host dispatch outlasts them. The
 second-to-last line of stdout is the kernels' JSON record: one entry per
-kernel (K2's token and head scopes apart, and K1 and K1q apart, each counted
-by its own launch count) with its launches on each path, its worst error
+kernel (K2's token and head scopes apart, K1 and K1q apart, and K5 and K5r
+apart, each counted by its own launch count) with its launches on each path
+(``latte-vpu``: phase 20's two vpu forwards, the only run of K9), its worst error
 over every shape compared, and the times of its first shape timed, named in
 ``timed_at``, with their method in ``timing`` (``loop`` or ``graph``).
 ``bound_ms`` is the least time an H100 SXM could take at that shape: the
@@ -102,7 +122,9 @@ STEPS = 20            # enough that E012K2R02 elides forwards at 20 steps
 NO_LAUNCHES = dict.fromkeys(
     ("flash_attention_bshd", "flash_attention_bshd_qknorm", "rms_norm_rope",
      "rms_norm_rope_head", "layer_norm_mod", "grouped_attention_fused_qkv",
-     "fused_cross_attention", "lnmod_matmul", "matmul_gated_residual"), 0)
+     "grouped_attention_fused_qkv_rowmax", "grouped_flash_attention_bshd",
+     "tiny_temporal_attention", "fused_cross_attention", "lnmod_matmul",
+     "matmul_gated_residual"), 0)
 TRUNK_LAUNCHES = dict(NO_LAUNCHES, flash_attention_bshd=60, rms_norm_rope=60,
                       layer_norm_mod=90)
 # Open-Sora: 28 (spatial, temporal) block pairs per trunk run
@@ -123,6 +145,16 @@ OS720_TRUNK_LAUNCHES = dict(OS_TRUNK_LAUNCHES, grouped_attention_fused_qkv=28,
 OS720_MASKED_LAUNCHES = dict(NO_LAUNCHES, flash_attention_bshd_qknorm=28,
                              grouped_attention_fused_qkv=28, fused_cross_attention=56)
 OS720_FRAMES, OS720_GRID = 17, (5, 45, 80)
+# Latte-1 at 512x512 x 16 frames: 28 (spatial, temporal) block pairs per
+# trunk run, by route
+LATTE_TRUNK_LAUNCHES = {
+    "packed": dict(NO_LAUNCHES, layer_norm_mod=28, grouped_attention_fused_qkv_rowmax=56,
+                   fused_cross_attention=28, lnmod_matmul=84, matmul_gated_residual=112),
+    "grouped": dict(NO_LAUNCHES, layer_norm_mod=112, flash_attention_bshd=56,
+                    grouped_flash_attention_bshd=28),
+    "vpu": dict(NO_LAUNCHES, layer_norm_mod=112, flash_attention_bshd=56,
+                tiny_temporal_attention=28)}
+LATTE_STEPS, LATTE_GRID, LATTE_CAP = 50, (16, 32, 32), 120
 H100_BF16_TFLOPS = 989.0  # dense bf16 peak of an H100 SXM at 700 W
 H100_F32_TFLOPS = 67.0    # f32 outside the tensor cores
 H100_HBM_TBPS = 3.35      # HBM3 bytes/s
@@ -385,9 +417,11 @@ def phase_forward(dev, model):
 def _wrappers():
     from magcache_tpu_torch.ops import attention as A
     from magcache_tpu_torch.ops import fused_prologue as P
+    from magcache_tpu_torch.ops import tiny_attention as TA
 
     return (A.flash_attention_bshd, P.rms_norm_rope, P.layer_norm_mod,
-            A.grouped_attention_fused_qkv, A.fused_cross_attention,
+            A.grouped_attention_fused_qkv, A.grouped_flash_attention_bshd,
+            TA.tiny_temporal_attention, A.fused_cross_attention,
             P.lnmod_matmul, P.matmul_gated_residual)
 
 
@@ -399,19 +433,22 @@ def reset_counts():
     for fn in _wrappers():
         fn.launches = 0
     A.flash_attention_bshd.qknorm_launches = 0
+    A.grouped_attention_fused_qkv.rowmax_launches = 0
     P.rms_norm_rope.scope_launches.update(token=0, head=0)
 
 
 def read_counts() -> dict:
-    """Every kernel record's launch count: K2's two scopes and K1 and K1q
-    each from its own count."""
+    """Every kernel record's launch count: K2's two scopes, K1 and K1q, and
+    K5 and K5r each from its own count."""
     from magcache_tpu_torch.ops import attention as A
     from magcache_tpu_torch.ops import fused_prologue as P
 
     counts = {fn.__name__: fn.launches for fn in _wrappers()}
     scopes = P.rms_norm_rope.scope_launches
     counts.update(rms_norm_rope=scopes["token"], rms_norm_rope_head=scopes["head"],
-                  flash_attention_bshd_qknorm=A.flash_attention_bshd.qknorm_launches)
+                  flash_attention_bshd_qknorm=A.flash_attention_bshd.qknorm_launches,
+                  grouped_attention_fused_qkv_rowmax=(
+                      A.grouped_attention_fused_qkv.rowmax_launches))
     return counts
 
 
@@ -560,17 +597,18 @@ def phase_card_vs_cpu(dev):
         fail("card and CPU slices disagree, or a kernel did not run as expected")
 
 # ---------------------------------------------------------------- Open-Sora
-def record(rec, name, label, got, want, ms, pms, flops, moved, atol=4e-2, rtol=2e-2):
+def record(rec, name, label, got, want, ms, pms, flops, moved, atol=4e-2, rtol=2e-2,
+           library=None, tflops=H100_BF16_TFLOPS):
     """Compares a kernel's output with its plain version's, logs both times
-    and keeps the result. K7/K8's default tolerance: a flipped bf16 rounding
-    of an intermediate (the GEMM operand, the pre-gate product, the gated
-    value before the residual add) of magnitude < 8 moves an output by up
-    to one ulp there, 2^-5."""
+    (and ``library``'s, ``(call, ms)``) and keeps the result. K7/K8's default
+    tolerance: a flipped bf16 rounding of an intermediate (the GEMM operand,
+    the pre-gate product, the gated value before the residual add) of
+    magnitude < 8 moves an output by up to one ulp there, 2^-5."""
     err = compare(f"{name} [{label}]", got, want, atol=atol, rtol=rtol)
     log(f"  {name} [{label}]: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} "
-        f"TFLOP/s, {flops / ms / 1e9 / H100_BF16_TFLOPS:.1%} of "
-        f"{H100_BF16_TFLOPS:.0f}), plain {pms:.3f} ms")
-    keep(rec, name, err, ms, pms, "loop", label, (flops, moved))
+        f"TFLOP/s, {flops / ms / 1e9 / tflops:.1%} of {tflops:.0f}), plain "
+        f"{pms:.3f} ms" + (f", {library[0]} {library[1]:.3f} ms" if library else ""))
+    keep(rec, name, err, ms, pms, "loop", label, (flops, moved, tflops), library)
 
 
 def check_stdit3_linear_kernels(dev, rec, gen, S, rows=2, T=15, d=1152, H=16, L=300):
@@ -1373,6 +1411,325 @@ def phase_os720_card_vs_cpu(dev):
         fail(f"card launches {launched} != {want_launches}")
 
 
+# -------------------------------------------------------------------- Latte
+def phase_latte_kernels(dev, rec):
+    """K5r, K4, K9, K1 at padded head dim, and K3, K6-K8 vs their plain
+    versions at Latte-1 512x512 x 16 shapes (2 rows of 16 frames x 1,024
+    tokens, bf16); then K4 and K9 with gains and RoPE at the STDiT3 480p
+    temporal shape."""
+    from magcache_tpu_torch.ops import attention as A
+    from magcache_tpu_torch.ops import fused_prologue as P
+    from magcache_tpu_torch.ops import tiny_attention as TA
+    from magcache_tpu_torch.ops.rope import rope_freqs_1d
+
+    log("phase 19: kernels vs plain at Latte-1 512x512 x 16 shapes (bf16)")
+    gen = torch.Generator(device=dev).manual_seed(1919)
+    rows, (T, gh, gw), H, D = 2, LATTE_GRID, 16, 72
+    S, d = gh * gw, H * D
+    sdpa = "F.scaled_dot_product_attention"
+
+    def rnd(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def heads(qkv, groups, group):
+        """q, k, v ``[groups, group, H, 72]`` views of a fused projection."""
+        return qkv.reshape(groups, group, 3, H, D).unbind(2)
+
+    # K5r (tolerances of the K5 records): spatial, one group per frame, and
+    # temporal, groups of 16 frames; SDPA on the same q/k/v computes the same
+    # function (no qk-norm)
+    for label, qkv, group in (
+            (f"spatial {rows * T}x{S}, group {S}", rnd(rows * T, S, 3 * d), S),
+            (f"temporal {rows * S * T} rows, group {T}", rnd(1, rows * S * T, 3 * d), T)):
+        groups = qkv.numel() // (3 * d * group)
+        kw = dict(group=group, scale=D ** -0.5)
+        got = A.grouped_attention_fused_qkv(qkv, H, **kw)
+        want = A.grouped_attention_fused_qkv_plain(qkv, H, **kw)
+        record(rec, "grouped_attention_fused_qkv_rowmax", label, got, want,
+               cuda_ms(lambda: A.grouped_attention_fused_qkv(qkv, H, **kw)),
+               cuda_ms(lambda: A.grouped_attention_fused_qkv_plain(qkv, H, **kw), 1),
+               4 * groups * H * group * group * D, nbytes(qkv, got),
+               library=(sdpa, sdpa_ms(*heads(qkv, groups, group), 20)))
+        del got, want
+
+    # K4 (q/k/v views of the projection) and K9 (the projection) at the
+    # temporal shape, no norm or RoPE: Latte's unpacked routes
+    tq, tk, tv = heads(qkv, rows * S, T)
+    flat = [t.reshape(1, rows * S * T, H, D) for t in (tq, tk, tv)]
+    kw = dict(group=T, scale=D ** -0.5)
+    got = A.grouped_flash_attention_bshd(*flat, **kw)
+    want = A.grouped_flash_attention_bshd_plain(*flat, **kw)
+    flops, moved = 4 * rows * S * H * T * T * D, nbytes(qkv, got)
+    lib = (sdpa, sdpa_ms(tq, tk, tv, 20))
+    record(rec, "grouped_flash_attention_bshd", f"temporal {rows * S * T} rows, group {T}",
+           got, want, cuda_ms(lambda: A.grouped_flash_attention_bshd(*flat, **kw)),
+           cuda_ms(lambda: A.grouped_flash_attention_bshd_plain(*flat, **kw), 1),
+           flops, moved, library=lib)
+    x3 = qkv.reshape(rows * S, T, 3 * d)
+    got = TA.tiny_temporal_attention(x3, None, None, None, None, H, mode="vpu")
+    want = TA.tiny_temporal_attention_plain(x3, None, None, None, None, H)
+    # f32 throughout, one rounding at the store: a bf16 ulp of the output
+    record(rec, "tiny_temporal_attention", f"temporal {rows * S}x{T}", got, want,
+           cuda_ms(lambda: TA.tiny_temporal_attention(x3, None, None, None, None, H,
+                                                      mode="vpu")),
+           cuda_ms(lambda: TA.tiny_temporal_attention_plain(x3, None, None, None, None,
+                                                            H), 1),
+           flops, moved, atol=1e-2, library=lib, tflops=H100_F32_TFLOPS)
+    del qkv, x3, got, want, flat, tq, tk, tv
+
+    # K4 and K9 with gains and RoPE at the STDiT3-XL/2 480p temporal shape
+    # (3,180 groups of 15); SDPA without the norm is not the same function
+    Ts, Rs = 15, 2 * 1590
+    qkv = rnd(Rs, Ts, 3 * d)
+    gains = tuple(1.0 + 0.1 * torch.randn(D, generator=gen, device=dev) for _ in range(2))
+    cos, sin = (torch.from_numpy(a).to(dev) for a in rope_freqs_1d(np.arange(Ts), D))
+    q, k, v = heads(qkv, Rs, Ts)
+    flat = [t.reshape(1, Rs * Ts, H, D) for t in (q, k, v)]
+    kw = dict(group=Ts, scale=D ** -0.5, qk_gains=gains, rope_tables=(cos, sin),
+              fixed_max=A.QKNORM_FIXED_MAX)
+    got = A.grouped_flash_attention_bshd(*flat, **kw)
+    want = A.grouped_flash_attention_bshd_plain(*flat, **kw)
+    flops, moved = 4 * Rs * H * Ts * Ts * D, nbytes(qkv, got, *gains, cos, sin)
+    record(rec, "grouped_flash_attention_bshd", f"STDiT3 480p temporal {Rs * Ts} rows, "
+           f"group {Ts}, qk-norm + RoPE", got, want,
+           cuda_ms(lambda: A.grouped_flash_attention_bshd(*flat, **kw)),
+           cuda_ms(lambda: A.grouped_flash_attention_bshd_plain(*flat, **kw), 1),
+           flops, moved)
+    got = TA.tiny_temporal_attention(qkv, *gains, cos, sin, H, mode="vpu")
+    want = TA.tiny_temporal_attention_plain(qkv, *gains, cos, sin, H)
+    record(rec, "tiny_temporal_attention", f"STDiT3 480p temporal {Rs}x{Ts}, qk-norm + "
+           f"RoPE", got, want,
+           cuda_ms(lambda: TA.tiny_temporal_attention(qkv, *gains, cos, sin, H, mode="vpu")),
+           cuda_ms(lambda: TA.tiny_temporal_attention_plain(qkv, *gains, cos, sin, H), 1),
+           flops, moved, atol=1e-2, tflops=H100_F32_TFLOPS)
+    log(f"    SDPA on the same q/k/v without the norm: {sdpa_ms(q, k, v, 20):.3f} ms")
+    del qkv, q, k, v, flat, got, want
+
+    # K1 with the running max at head dim 72 zero-padded to 128, as
+    # attention() runs it: spatial self-attention and cross-attention
+    pad = 128 - D
+    for label, sq, skv, b in ((f"running max, Latte spatial {rows * T}x{S}x{H}x72 -> 128",
+                               S, S, rows * T),
+                              (f"running max, Latte cross {rows}x{T * S} x {LATTE_CAP} "
+                               f"keys, 72 -> 128", T * S, LATTE_CAP, rows)):
+        q = torch.nn.functional.pad(rnd(b, sq, H, D), (0, pad))
+        k, v = (torch.nn.functional.pad(rnd(b, skv, H, D), (0, pad)) for _ in range(2))
+        kw = dict(scale=D ** -0.5)
+        got = A.flash_attention_bshd(q, k, v, **kw)
+        want = A.flash_attention_bshd_plain(q, k, v, **kw)
+        err = compare(f"K1 flash_attention_bshd [{label}]", got, want, atol=2e-3, rtol=2e-2)
+        ms = cuda_ms(lambda: A.flash_attention_bshd(q, k, v, **kw), 5)
+        pms = cuda_ms(lambda: A.flash_attention_bshd_plain(q, k, v, **kw), 1)
+        lms = sdpa_ms(*(t[..., :D] for t in (q, k, v)), 5)
+        flops = 4 * b * H * sq * skv * 128
+        log(f"  K1 [{label}]: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s at "
+            f"the padded width), plain {pms:.3f} ms, SDPA at head dim 72 {lms:.3f} ms")
+        keep(rec, "flash_attention_bshd", err, ms, pms, "loop", label,
+             (flops, nbytes(q, k, v, got)), (sdpa, lms))
+        del q, k, v, got, want
+
+    # K3 (temporal mod), then K6 over 120 caption keys, K7 and K8 at the
+    # Latte blocks' shapes
+    h = rnd(rows, T * S, d)
+    sc, sh = rnd(rows, d, dtype=torch.float32, scale=0.1), rnd(rows, d, dtype=torch.float32, scale=0.1)
+    got = P.layer_norm_mod(h, scale=sc, shift=sh, eps=1e-6)
+    err = compare(f"layer_norm_mod [Latte temporal mod, {rows}x{T * S}x{d}]", got,
+                  P.layer_norm_mod_plain(h, scale=sc, shift=sh, eps=1e-6),
+                  atol=3e-2, rtol=1.6e-2)
+    ms = cuda_ms(lambda: P.layer_norm_mod(h, scale=sc, shift=sh, eps=1e-6))
+    pms = cuda_ms(lambda: P.layer_norm_mod_plain(h, scale=sc, shift=sh, eps=1e-6))
+    log(f"  K3 [Latte temporal mod]: kernel {ms:.3f} ms "
+        f"({2 * h.numel() * 2 / ms / 1e6:.0f} GB/s), plain {pms:.3f} ms")
+    keep(rec, "layer_norm_mod", err, ms, pms, "loop", f"Latte mod {rows}x{T * S}x{d}",
+         elementwise_work(h, sc, sh))
+    del h, got
+    check_stdit3_linear_kernels(dev, rec, gen, S, rows=rows, T=T, L=LATTE_CAP)
+
+
+def make_latte_model(dev):
+    from magcache_tpu_torch.models.latte import LATTE_1, LatteModel
+
+    cfg = dataclasses.replace(LATTE_1, dtype="bfloat16")
+    t0 = time.time()
+    model = LatteModel(cfg, dev).init(torch.Generator(device=dev).manual_seed(0))
+    model.requires_grad_(False)
+    torch.cuda.synchronize()
+    log(f"  Latte-1 bf16 random init: {time.time() - t0:.1f} s, "
+        f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B params")
+    return model
+
+
+def phase_latte_forward(dev, model):
+    """One full-shape forward per route, twice each; returns the vpu
+    route's launches (its only run in this script)."""
+    from magcache_tpu_torch.models.latte import make_latte_core
+    from magcache_tpu_torch.models.text import MockTextEncoder
+
+    log("phase 20: full-shape forwards of Latte-1 512x512 x 16, 2 rows, on the "
+        "packed, grouped and vpu routes")
+    gen = torch.Generator(device=dev).manual_seed(20)
+    T, gh, gw = LATTE_GRID
+    x = torch.randn((2, T, 2 * gh, 2 * gw, 4), generator=gen, device=dev)
+    t = torch.full((2,), 900.0, device=dev)
+    cond = {"y": MockTextEncoder(LATTE_CAP, 4096, scale=0.5)(["a boat", ""], device=dev)}
+    outs = {}
+    for route in ("packed", "grouped", "vpu"):
+        core = make_latte_core(model, LATTE_GRID, LATTE_CAP, route=route)
+        reset_counts()
+        for run in ("first", "second"):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            hidden, c = core.prepare(x, t, cond)
+            out = core.head(core.trunk(hidden, c), c)
+            torch.cuda.synchronize()
+            log(f"  {route} forward ({run} call): {time.time() - t0:.3f} s, "
+                f"{hidden.shape[1]} tokens x {hidden.shape[0]} rows")
+        counts = read_counts()
+        if tuple(out.shape) != (2, T, 2 * gh, 2 * gw, 4) or not bool(torch.isfinite(out).all()):
+            fail(f"{route} forward output {tuple(out.shape)} is not finite or misshapen")
+        per_run = {k: n // 2 for k, n in counts.items()}
+        log(f"  {route}: output finite, std {float(out.float().std()):.4f}; launches "
+            f"per forward {per_run}")
+        if per_run != LATTE_TRUNK_LAUNCHES[route]:
+            fail(f"{route}: launches per forward {per_run} != {LATTE_TRUNK_LAUNCHES[route]}")
+        outs[route] = out.float()
+    for route in ("grouped", "vpu"):
+        rel = float((outs[route] - outs["packed"]).norm() / outs["packed"].norm())
+        log(f"  rel L2 of the {route} route's output against the packed route's: {rel:.3e}")
+    return counts
+
+
+def phase_latte_requests(dev, model):
+    from magcache_tpu_torch.pipelines.latte import LattePipeline, LattePipelineConfig
+
+    log(f"phase 21: requests through LattePipeline.generate, 512x512 x 16 frames, "
+        f"{LATTE_STEPS} DDIM steps, guidance 7.5: calibration, then MagCache with the "
+        f"recorded ratios (E 0.12 K 3 R 0.2) on the packed and the grouped route")
+    base = dict(num_sampling_steps=LATTE_STEPS, dtype="bfloat16")
+    prompt = "A red sailboat glides across a calm bay at dawn."
+    reset_counts()
+    cal = LattePipeline(LattePipelineConfig(magcache_calibration=True, **base), dev,
+                        model=model)
+    out = cal.generate(prompt, seed=3)
+    ratios = tuple(out.calibration["norm_ratio"])
+    packed = dict(read_counts())
+    if len(ratios) != LATTE_STEPS - 1 or not np.all(np.isfinite(ratios)):
+        fail(f"calibration recorded {len(ratios)} ratios, or non-finite ones")
+    for k, n in packed.items():
+        if n != LATTE_TRUNK_LAUNCHES["packed"][k] * LATTE_STEPS:
+            fail(f"calibration: {k} launched {n} times, expected "
+                 f"{LATTE_TRUNK_LAUNCHES['packed'][k]} x {LATTE_STEPS}")
+    secs = {"calibration (full compute)": out.timings["total_s"]}
+    log(f"  calibration: {secs['calibration (full compute)']:.3f} s, norm_ratio "
+        f"{np.round(ratios[:4], 4).tolist()} ... {np.round(ratios[-3:], 4).tolist()}")
+    lats, mask = {}, None
+    for route in ("packed", "grouped"):
+        pipe = LattePipeline(LattePipelineConfig(use_magcache=True, magcache_ratios=ratios,
+                                                 route=route, **base), dev, model=model)
+        want = pipe.skip_mask_for()
+        mask = want if mask is None else mask
+        before = read_counts()
+        out = pipe.generate(prompt, seed=3, skip_override=None if route == "packed" else mask)
+        launched = count_launches(before)
+        lat = out.latents
+        if tuple(lat.shape) != (1, 16, 64, 64, 4) or not bool(torch.isfinite(lat).all()):
+            fail(f"{route}: latents {tuple(lat.shape)} not finite or misshapen")
+        if not np.array_equal(out.skips, mask) or not np.array_equal(want, mask):
+            fail(f"{route}: realized skips differ from skip_mask_for")
+        runs = int((~out.skips.all(1)).sum())
+        for k, got in launched.items():
+            if got != LATTE_TRUNK_LAUNCHES[route][k] * runs:
+                fail(f"{route}: {k} launched {got} times, expected "
+                     f"{LATTE_TRUNK_LAUNCHES[route][k]} x {runs} trunk runs")
+            if route == "packed":
+                packed[k] += got
+        grouped = launched
+        secs[route] = out.timings["total_s"]
+        lats[route] = lat
+        log(f"  MagCache, {route} route: {secs[route]:.3f} s/video, {runs} of "
+            f"{LATTE_STEPS} forwards computed, skipped steps "
+            f"{np.flatnonzero(out.skips.any(1)).tolist()}, latents std {float(lat.std()):.4f}")
+    rel = float((lats["grouped"] - lats["packed"]).norm() / lats["packed"].norm())
+    ceiling = LATTE_STEPS / (LATTE_STEPS - int(mask.sum()))
+    log(f"  rel L2 of the grouped route's latents against the packed route's: {rel:.3e}")
+    log(f"  speedup {secs['calibration (full compute)'] / secs['packed']:.3f}x (packed "
+        f"MagCache against the full-compute calibration request) against a schedule "
+        f"ceiling of {ceiling:.3f}x")
+    log(f"  launches in phase 21: packed {packed}; grouped {grouped}")
+    return packed, grouped
+
+
+def _numpy_latte_tree(cfg, rng):
+    """A random Latte parameter tree in the JAX package's layout
+    (depth-stacked blocks, ``w: [d_in, d_out]``)."""
+    d, L, p2 = cfg.hidden, cfg.depth, cfg.patch * cfg.patch
+
+    def lin(d_in, d_out, depth=None):
+        shape = (d_in, d_out) if depth is None else (depth, d_in, d_out)
+        return {"w": rng.standard_normal(shape) / math.sqrt(d_in),
+                "b": rng.standard_normal(shape[:-2] + (d_out,)) * 0.02}
+
+    def group(cross):
+        g = {n: lin(d, w * d, L) for n, w in (("qkv", 3), ("proj", 1),
+                                              ("ff1", cfg.mlp_ratio))}
+        g["ff2"] = lin(cfg.mlp_ratio * d, d, L)
+        g["scale_shift"] = rng.standard_normal((L, 6, d)) / math.sqrt(d)
+        if cross:
+            g.update(cross_q=lin(d, d, L), cross_kv=lin(d, 2 * d, L), cross_o=lin(d, d, L))
+        return g
+
+    return {"patch_embed": lin(cfg.in_channels * p2, d),
+            "caption": {"in": lin(cfg.caption_dim, d), "out": lin(d, d)},
+            "time": {"in": lin(cfg.time_embed_dim, d), "out": lin(d, d)},
+            "adaln_single": lin(d, 6 * d), "spatial": group(True), "temporal": group(False),
+            "final_mod": rng.standard_normal((2, d)) / math.sqrt(d),
+            "final_out": lin(d, cfg.c_out * p2)}
+
+
+def phase_latte_card_vs_cpu(dev):
+    from magcache_tpu_torch.models.convert import latte_params_from_numpy
+    from magcache_tpu_torch.models.latte import LatteConfig, LatteModel
+    from magcache_tpu_torch.pipelines.latte import LattePipeline, LattePipelineConfig
+
+    log("phase 22: the Latte slice on the card (kernels, bf16) vs the CPU (plain, "
+        "f32): hidden 144, 2 heads of 72, 2 block pairs, 16 frames at 256x256, "
+        "packed and grouped routes")
+    cfg = LatteConfig(hidden=144, heads=2, depth=2, caption_dim=64, time_embed_dim=64,
+                      out_channels=8)
+    tree = _numpy_latte_tree(cfg, np.random.default_rng(22))
+    # 256x256 pixels -> 16 frames of 16 x 16 = 256 tokens (> 128: K1 runs the
+    # unpacked route's spatial attention)
+    base = dict(num_frames=16, height=256, width=256, num_sampling_steps=8, caption_len=20)
+    mask = np.array([0, 0, 1, 0, 1, 1, 0, 0], bool)[:, None]
+    runs = int((~mask).sum())
+    for route in ("packed", "grouped"):
+        outs = {}
+        reset_counts()
+        for name, device, dtype in (("card", dev, "bfloat16"),
+                                    ("cpu", torch.device("cpu"), "float32")):
+            c = dataclasses.replace(cfg, dtype=dtype)
+            model = LatteModel(c, device)
+            model.load_state_dict(latte_params_from_numpy(tree, c, device))
+            pipe = LattePipeline(LattePipelineConfig(dtype=dtype, route=route, **base),
+                                 device, model=model)
+            out = pipe.generate("a red boat", seed=4, skip_override=mask)
+            outs[name] = out.latents.float().cpu()
+            if name == "card":
+                launched = read_counts()
+        got, want = outs["card"], outs["cpu"]
+        rel = float((got - want).norm() / want.norm())
+        # bf16 activations through 2 block pairs and 5 computed steps vs f32:
+        # rounding of ~2^-8 per op, accumulated -> a few percent at most
+        log(f"  {route}: latents {tuple(got.shape)}, {runs} trunk runs, rel L2 "
+            f"{rel:.3e} (tol 5e-2), max_abs_err {float((got - want).abs().max()):.3e}; "
+            f"card launches {launched}")
+        want_launches = {k: n // 14 * runs for k, n in LATTE_TRUNK_LAUNCHES[route].items()}
+        if not bool(torch.isfinite(got).all()) or rel > 5e-2:
+            fail(f"{route}: card and CPU slices disagree")
+        if launched != want_launches:
+            fail(f"{route}: card launches {launched} != {want_launches}")
+
+
 def main():
     phase_environment()
     dev = torch.device("cuda", 0)
@@ -1417,9 +1774,20 @@ def main():
     del model
     torch.cuda.empty_cache()
     phase_os720_card_vs_cpu(dev)
+    t_os720 = time.time() - t0 - t_wan - t_os - t_flux
+    phase_latte_kernels(dev, rec)
+    torch.cuda.empty_cache()
+    log("phase 20/21 model:")
+    model = make_latte_model(dev)
+    latte_vpu = phase_latte_forward(dev, model)
+    latte, latte_grouped = phase_latte_requests(dev, model)
+    del model
+    torch.cuda.empty_cache()
+    phase_latte_card_vs_cpu(dev)
     log(f"all phases passed in {time.time() - t0:.1f} s (Wan {t_wan:.1f} s, "
         f"Open-Sora {t_os:.1f} s, FLUX {t_flux:.1f} s, Open-Sora 720p "
-        f"{time.time() - t0 - t_wan - t_os - t_flux:.1f} s)")
+        f"{t_os720:.1f} s, Latte "
+        f"{time.time() - t0 - t_wan - t_os - t_flux - t_os720:.1f} s)")
 
     meta = {
         "flash_attention_bshd": ("cuda", "magcache_tpu_torch/csrc/flash_attention.cu",
@@ -1434,6 +1802,13 @@ def main():
                            "magcache_tpu/ops/fused_prologue.py:440"),
         "grouped_attention_fused_qkv": ("cuda", "magcache_tpu_torch/csrc/grouped_attention.cu",
                                         "magcache_tpu/ops/attention.py:755"),
+        "grouped_attention_fused_qkv_rowmax": (
+            "cuda", "magcache_tpu_torch/csrc/grouped_attention.cu",
+            "magcache_tpu/ops/attention.py:755"),
+        "grouped_flash_attention_bshd": ("cuda", "magcache_tpu_torch/csrc/grouped_attention.cu",
+                                         "magcache_tpu/ops/attention.py:641"),
+        "tiny_temporal_attention": ("cuda", "magcache_tpu_torch/csrc/tiny_attention.cu",
+                                    "magcache_tpu/ops/tiny_attention.py:185"),
         "fused_cross_attention": ("cuda", "magcache_tpu_torch/csrc/cross_attention.cu",
                                   "magcache_tpu/ops/attention.py:933"),
         "lnmod_matmul": ("cuda", "magcache_tpu_torch/csrc/fused_matmul.cu",
@@ -1442,7 +1817,8 @@ def main():
                                   "magcache_tpu/ops/fused_prologue.py:66"),
     }
     paths = {"wan": launches, "open-sora": os_launches, "flux": flux_launches,
-             "open-sora-720p": os720_launches}
+             "open-sora-720p": os720_launches, "latte": latte,
+             "latte-grouped": latte_grouped, "latte-vpu": latte_vpu}
     kernels = []
     for name, (route, source, replaces) in meta.items():
         by_path = {p: c[name] for p, c in paths.items()}

@@ -1,6 +1,7 @@
 """Generation CLI, the ported subset of ``magcache_tpu.cli.generate``:
-Wan2.1 t2v (``--task t2v-1.3B``), Open-Sora 1.2 t2v (``--task open-sora``)
-and FLUX.1 text-to-image (``--task flux-dev`` and ``flux-kontext-dev``).
+Wan2.1 t2v (``--task t2v-1.3B``), Open-Sora 1.2 t2v (``--task open-sora``),
+FLUX.1 text-to-image (``--task flux-dev`` and ``flux-kontext-dev``) and
+Latte-1 t2v (``--task latte``).
 
 Flag names follow the reference adapters (``--task --size --frame_num
 --sample_steps --sample_shift --sample_solver --sample_guide_scale
@@ -8,7 +9,7 @@ Flag names follow the reference adapters (``--task --size --frame_num
 --magcache_calibration``; Open-Sora adds ``--resolution --aspect_ratio``
 and its conditioning flags ``--loop --ms/--mask_strategy
 --refs/--reference_path --condition_frame_length --condition_frame_edit
---align``, FLUX ``--txt_len``),
+--align``, FLUX ``--txt_len``, Latte ``--txt_len --clean_caption --route``),
 and the output file name encodes the E/K/R triple. Unset flags take each
 family's reference defaults, as in the JAX CLI. Runs on a CUDA card by
 default; ``--device cpu`` runs the plain PyTorch ops instead of the kernels
@@ -24,6 +25,10 @@ Examples:
       --ms "0,0,0,0,1,0" --refs ref.npy --loop 2     # ref.npy: latents [T, H, W, C]
   python -m magcache_tpu_torch.cli.generate --task flux-dev --size 1024*1024 \
       --sample_steps 28 --use_magcache
+  python -m magcache_tpu_torch.cli.generate --task latte --magcache_calibration \
+      --save_file latte                 # 16x512x512, 50 DDIM steps: records ratios
+  python -m magcache_tpu_torch.cli.generate --task latte --use_magcache \
+      --mag_ratios_json latte_mag_ratio.json [--route grouped]
 Checkpoints are not loaded yet: the DiT has random weights and the text
 encoders are the hash-seeded mocks, so the output is latents, not a video or
 an image. ``flux-kontext-dev`` runs its preset and guidance without a
@@ -47,27 +52,29 @@ _KNOWN = ("flux", "qwen", "hunyuan", "framepack", "open-sora", "cogvideox",
           "latte", "vchitect", "omnigen2", "t2v", "t2i", "i2v", "flf2v",
           "ti2v", "vace")
 _PORTED = {"t2v-1.3B": "wan2.1-t2v-1.3B", "open-sora": "opensora-v1.2",
-           "flux-dev": "flux-dev", "flux-kontext-dev": "flux-kontext-dev"}
+           "flux-dev": "flux-dev", "flux-kontext-dev": "flux-kontext-dev",
+           "latte": None}          # Latte has no published ratios: calibrate
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("magcache_tpu_torch generate")
     p.add_argument("--task", default="t2v-1.3B",
-                   help="t2v-1.3B | open-sora | flux-dev | flux-kontext-dev "
-                        "(the tasks ported so far)")
+                   help="t2v-1.3B | open-sora | flux-dev | flux-kontext-dev | "
+                        "latte (the tasks ported so far)")
     p.add_argument("--size", default=None,
                    help="W*H pixels (unset: 832*480 for Wan and Open-Sora, "
                         "1024*1024 for FLUX)")
     p.add_argument("--frame_num", type=int, default=None,
                    help="frames (unset: 81)")
     p.add_argument("--sample_steps", type=int, default=None,
-                   help="unset: 50 for Wan, 30 for Open-Sora, 28 for FLUX")
+                   help="unset: 50 for Wan and Latte, 30 for Open-Sora, 28 "
+                        "for FLUX")
     p.add_argument("--sample_shift", type=float, default=None,
                    help="Wan flow shift (unset: 5.0)")
     p.add_argument("--sample_solver", default="unipc", choices=["unipc"])
     p.add_argument("--sample_guide_scale", type=float, default=None,
-                   help="unset: 5.0 for Wan, 7.0 for Open-Sora; FLUX's "
-                        "embedded guidance 3.5 (2.5 for Kontext)")
+                   help="unset: 5.0 for Wan, 7.0 for Open-Sora, 7.5 for "
+                        "Latte; FLUX's embedded guidance 3.5 (2.5 for Kontext)")
     p.add_argument("--resolution", default=None,
                    help="open-sora bucket resolution (480p, 720p, ...); "
                         "overrides --size via the training bucket tables")
@@ -89,7 +96,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--align", type=int, default=5,
                    help="mask-strategy index alignment")
     p.add_argument("--txt_len", type=int, default=None,
-                   help="FLUX text tokens (unset: 512)")
+                   help="FLUX text tokens (unset: 512); Latte caption tokens "
+                        "(unset: 120)")
+    p.add_argument("--clean_caption", action="store_true",
+                   help="latte: the T5 caption cleaning, applied twice")
+    p.add_argument("--route", default="packed", choices=["packed", "grouped", "vpu"],
+                   help="latte block composition: packed (K5r/K6-K8), or unpacked "
+                        "with temporal attention through K4 (grouped) or K9 (vpu)")
     p.add_argument("--image", default=None,
                    help="flux-kontext-dev conditioning image (needs the SD "
                         "VAE's weights: not ported yet)")
@@ -182,6 +195,27 @@ def _flux_pipeline(args, device, ratios):
     return FluxPipeline(cfg, device), cfg.num_inference_steps, 1
 
 
+def _latte_pipeline(args, device, ratios):
+    from magcache_tpu_torch.pipelines.latte import LattePipeline, LattePipelineConfig
+
+    kw = dict(num_sampling_steps=args.sample_steps or 50,
+              guidance_scale=(7.5 if args.sample_guide_scale is None
+                              else args.sample_guide_scale),
+              use_magcache=args.use_magcache,
+              magcache_calibration=args.magcache_calibration, magcache_ratios=ratios,
+              clean_caption=args.clean_caption, dtype=args.dtype, tiny=args.tiny,
+              route=args.route)
+    for name in ("magcache_thresh", "magcache_K", "retention_ratio"):
+        if getattr(args, name) is not None:
+            kw[name] = getattr(args, name)
+    if args.tiny:
+        kw.update(num_frames=4, height=64, width=64, caption_len=6)
+    elif args.txt_len:
+        kw["caption_len"] = args.txt_len
+    cfg = LattePipelineConfig(**kw)
+    return LattePipeline(cfg, device), cfg.num_sampling_steps, 1
+
+
 def _parse_size(size, default: str = "832*480"):
     w, h = (int(v) for v in (size or default).split("*"))
     return w, h
@@ -208,6 +242,8 @@ def _pipeline(args):
         return _open_sora_pipeline(args, device, ratios)
     if args.task.startswith("flux"):
         return _flux_pipeline(args, device, ratios)
+    if args.task == "latte":
+        return _latte_pipeline(args, device, ratios)
     return _wan_pipeline(args, device, ratios)
 
 

@@ -19,8 +19,9 @@ Same design as ``magcache_tpu.core.sampler``, in PyTorch's eager idiom:
   device-to-host copy at the end.
 - UniPC coefficients are computed on the host in f64 and cast to f32 for
   the device update, as the JAX sampler does.
-- ``sample_euler`` is the linear-update loop (RFLOW's Euler step); Open-Sora
-  runs it with a joint CFG batch of 2 rows under one cache lane and an
+- ``sample_euler`` is the linear-update loop ``x <- cx_i * x + dt_i * v``
+  (RFLOW's Euler step, and DDIM-eps with ``x_coeffs``); Open-Sora and Latte
+  run it with a joint CFG batch of 2 rows under one cache lane and an
   N-branch ``combine_fn``. ``sample_rflow_masked`` is its masked-frame
   variant (references, edit ratios, looped extension): the per-frame mask
   logic is host numpy, so it costs no device-to-host sync either.
@@ -333,13 +334,14 @@ def sample_euler(
     calibrate: bool = False,
     calibrate_lanes: Optional[int] = None,
 ):
-    """Euler sampler ``x <- x + dt_i * v`` with MagCache (the plain-t2v subset
-    of ``magcache_tpu.core.sampler.sample_euler``).
+    """Linear-update sampler ``x <- cx_i * x + dt_i * v`` with MagCache (the
+    plain-t2v subset of ``magcache_tpu.core.sampler.sample_euler``).
 
     ``cond`` is lane-stacked on axis 0 when CFG is on; ``combine_fn(chunks)
     -> v`` takes the per-lane slices of the head's output (without it, the
     output is v). ``dts`` is the per-step multiplier of v (t-deltas / T
-    for RFLOW). ``skip_mask_override`` (``bool[num_steps, lanes]``) replaces
+    for RFLOW, DDIM's eps coefficient) and ``x_coeffs`` that of x (default
+    1; DDIM's ``c_x``). ``skip_mask_override`` (``bool[num_steps, lanes]``) replaces
     the schedule; ``return_skips`` also returns the realized skip bits.
 
     ``calibrate=True`` runs full compute and returns ``(x, stats f64
@@ -347,10 +349,10 @@ def sample_euler(
     previous step's; ``calibrate_lanes`` (default: the stacked lanes) is the
     cache's lane count, 1 for a joint CFG batch.
 
-    ``x_coeffs``, ancestral noise, ``dynamic_skip``, ``dpm_coeffs`` and
-    ``post_step`` are not ported yet and raise.
+    Ancestral noise, ``dynamic_skip``, ``dpm_coeffs`` and ``post_step`` are
+    not ported yet and raise.
     """
-    unported = {"x_coeffs": x_coeffs, "noise_scales": noise_scales,
+    unported = {"noise_scales": noise_scales,
                 "noise_key": noise_key,
                 "dynamic_skip": dynamic_skip, "dpm_coeffs": dpm_coeffs,
                 "post_step": post_step}
@@ -368,6 +370,7 @@ def sample_euler(
         skip_mask = np.asarray(skip_mask_override, bool).reshape(skip_mask.shape)
     ts = np.asarray(timesteps, np.float32)
     dts = np.asarray(dts, np.float32)
+    cxs = None if x_coeffs is None else np.asarray(x_coeffs, np.float32)
     cal_lanes = calibrate_lanes or n_lanes
 
     x = x_init
@@ -386,6 +389,8 @@ def sample_euler(
         out = core.head(h_out, ctx)
         v = out if combine_fn is None else combine_fn(
             [out[l * batch:(l + 1) * batch] for l in range(n_lanes)])
+        if cxs is not None:
+            x = float(cxs[i]) * x
         x = x + float(dts[i]) * v.to(x.dtype)
         if calibrate:
             rpl = x2.shape[0] // cal_lanes

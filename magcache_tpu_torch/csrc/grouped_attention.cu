@@ -1,43 +1,55 @@
-// K5: block-diagonal grouped attention read in place from the fused QKV
-// projection, with per-head RMS qk-norm and optional in-group RoPE fused
-// into the q/k loads. bf16, head dim 72.
+// K5, K5r and K4: block-diagonal grouped attention, bf16, head dim 72, with
+// an optional per-head RMS qk-norm and in-group RoPE fused into the q/k
+// loads, and a fixed or a row-max softmax shift.
 //
-// Replaces magcache_tpu/ops/attention.py:grouped_attention_fused_qkv
-// (Pallas body _grouped_kernel). qkv is [B, S, 3*H*72] with columns q|k|v by
-// head; token i attends exactly within its contiguous group i // group, to
-// the keys at in-group positions < group_valid. The output is [B, S, H*72].
+// Replaces magcache_tpu/ops/attention.py:grouped_attention_fused_qkv (K5;
+// K5r is its call without gains and with the row max) and
+// grouped_flash_attention_bshd (K4), both with the Pallas body
+// _grouped_kernel. Token i attends exactly within its contiguous group
+// i // group, to the keys at in-group positions < group_valid. q, k and v are
+// [B, S, H, 72] read through their batch and token strides (unit channel
+// stride, heads 72 apart): K4 gets three tensors, K5 three column views of
+// one [B, S, 3*H*72] projection row. The output is [B, S, H*72].
 //
 // Math, point for point as the TPU kernel rounds it:
-//   - q and k: RMS over the head's 72 values in f32 (sum of squares / true_d),
-//     times rsqrt(var + eps), times the f32 gain; with RoPE, the
-//     interleaved-pair rotation by the in-group position, in f32;
-//   - q * (scale * log2(e)) rounded to bf16; k rounded to bf16;
-//   - f32 scores; p = exp2(min(s, m + 126) - m) with the static shift m
-//     (fixed max: RMS-normed scores are bounded, so there is no row max and
-//     no rescale, and a KV loop inside a group is exact);
+//   - q and k: with gains, RMS over the head's 72 values in f32 (sum of
+//     squares / true_d), times rsqrt(var + eps), times the f32 gain; without
+//     them, the bf16 values taken to f32; with RoPE, the interleaved-pair
+//     rotation by the in-group position, in f32;
+//   - q * (scale * log2(e)) in f32, rounded to bf16 once; k rounded to bf16;
+//   - f32 scores; p = exp2(s - m) with m either the static shift (fixed max:
+//     RMS-normed scores are bounded, p = exp2(min(s, m + 126) - m)) or each
+//     row's max over the group's valid keys (row max, one-shot: the TPU
+//     holds the whole group and takes the true max before any exp2);
 //   - l sums the unrounded f32 p; p is rounded to bf16 before PV; the f32
 //     accumulator is divided by l at the end and rounded to bf16.
 //
 // What bounds it on the H100: spatial attention at STDiT3-XL/2 480p is
-// 30 frames x 16 heads x 1,590^2 x 72 x 4 = 350 GFLOP over 0.35 GB of qkv:
-// tensor-core bound. The TPU kernel holds a whole 1,590-token group in
-// VMEM; a group's K and V (458 KB) do not fit Hopper's 227 KB of shared
-// memory, so a block takes 64 queries of one group and loops over the
-// group's keys in tiles of 64 (the fixed max makes that loop exact). The
-// temporal call (groups of T = 15 frames, 3,180 groups x 16 heads) is a
-// memory-bound pass of 0.44 GB: there one warp takes one whole group
-// (16 rows, the last one empty) and does the 16 x 16 score tile and the
-// 16 x 72 output in a single k-step, four groups per block.
+// 30 frames x 16 heads x 1,590^2 x 72 x 4 = 350 GFLOP over 0.35 GB of qkv,
+// and Latte-1's at 512x512 32 x 16 x 1,024^2 x 72 x 4 = 155 GFLOP: tensor-core
+// bound. The TPU kernel holds a whole group in VMEM; a 1,590-token group's
+// K and V (458 KB) do not fit Hopper's 227 KB of shared memory, so a block
+// takes 64 queries of one group and loops over the group's keys in tiles of
+// 64. With the fixed max that loop is exact as it is; with the row max the
+// block first runs the loop once for QK^T alone to find each row's max
+// (one more QK^T, about +50% tensor-core work), then runs it again with
+// that max as the shift, so p is rounded exactly as the one-shot softmax
+// rounds it (an online rescaled softmax would round p against a running
+// max instead). The temporal calls (groups of T = 15 or 16 frames, 3,180 or
+// 2,048 groups x 16 heads) are memory-bound passes of 0.3-0.45 GB: there one
+// warp takes one whole group (up to 16 rows) and does the 16 x 16 score tile
+// and the 16 x 72 output in a single k-step, four groups per block; a row's
+// 16 scores sit in one quad of lanes, so its max is two shuffles.
 //
 // What the design does about it: head dim 72 is padded to 80 (five k16
 // steps) only in shared memory; rows are 88 elements (176 B) so ldmatrix and
-// the fragment loads are conflict-free. q/k/v are strided reads of one
-// [., 3*H*72] row (144-byte, 16-byte-aligned head rows): no split copies.
-// Two adjacent lanes load each head row and join their halves of the RMS
-// sum with one shuffle; the RoPE pairs stay in registers, and a block keeps
-// its head's gains in shared memory. S and P never leave registers (the S
-// accumulator layout is P's A-operand layout), V comes in through
-// ldmatrix.trans. No cp.async/TMA pipeline yet.
+// the fragment loads are conflict-free. q/k/v are strided 144-byte,
+// 16-byte-aligned head rows: no split or pad copies. Two adjacent lanes load
+// each head row and join their halves of the RMS sum with one shuffle; the
+// RoPE pairs stay in registers, and a block keeps its head's gains in
+// shared memory. S and P never leave registers (the S accumulator layout is
+// P's A-operand layout), V comes in through ldmatrix.trans. No cp.async/TMA
+// pipeline yet.
 
 #include "mma_tile.cuh"
 
@@ -53,18 +65,29 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kTile = 64;             // queries per block, keys per KV tile
 
 struct Args {
-  const bf16* qkv;      // [rows, 3*H*72]
-  bf16* out;            // [rows, H*72]
-  const float* qg;      // [H, 72]
-  const float* kg;      // [H, 72]
+  const bf16* q;        // [B, S, H, 72] through (batch, token) strides
+  const bf16* k;
+  const bf16* v;
+  long long q_bs, q_ts, k_bs, k_ts, v_bs, v_ts;   // strides, in elements
+  bf16* out;            // [n_groups * group, H*72]
+  const float* qg;      // [H, 72], or null: no qk-norm
+  const float* kg;
   const float* cos;     // [group, 36] or null
   const float* sin;
-  int n_groups, H, group, gvalid;
+  int n_groups, gpb, H, group, gvalid, rowmax;    // gpb: groups per batch row
   float q_scale, inv_true_d, eps, m_const;
 };
 
-// Half a q or k head row, normed [and rotated at in-group position pos]
-// (mc::load_qk_norm_half); both lanes of the pair call it.
+// Head h's row at in-group position pos of group grp.
+__device__ __forceinline__ const bf16* head_row(const bf16* base, long long bs,
+                                                long long ts, const Args& p, int grp,
+                                                int pos, int h) {
+  return base + (long long)(grp / p.gpb) * bs +
+         ((long long)(grp % p.gpb) * p.group + pos) * ts + h * kD;
+}
+
+// Half a q or k head row, normed (with gains) [and rotated at in-group
+// position pos] (mc::load_qk_norm_half); both lanes of the pair call it.
 __device__ __forceinline__ void load_qk_half(bf16* dst, const bf16* src, bool valid,
                                              const float* gain, const Args& p,
                                              int pos, float mult, int half) {
@@ -75,7 +98,6 @@ __device__ __forceinline__ void load_qk_half(bf16* dst, const bf16* src, bool va
                         half);
 }
 
-using mc::fixed_max_softmax_pv;
 using mc::load_head_half;
 using mc::store_head_rows;
 
@@ -90,17 +112,15 @@ grouped_small_kernel(Args p) {
   bf16* Qs = smem[warp][0];
   bf16* Ks = smem[warp][1];
   bf16* Vs = smem[warp][2];
-  const size_t ld = (size_t)3 * p.H * kD;
-  const size_t row0 = (size_t)grp * p.group;
-  const bf16* base = p.qkv + row0 * ld + h * kD;
 
   // lanes 2r and 2r + 1 take row r; keys past group_valid are masked
   const int r = lane >> 1, half = lane & 1;
-  load_qk_half(Qs + r * kStr, base + r * ld, r < p.group, p.qg + h * kD, p, r,
-               p.q_scale, half);
-  load_qk_half(Ks + r * kStr, base + r * ld + p.H * kD, r < p.gvalid, p.kg + h * kD,
-               p, r, 1.f, half);
-  load_head_half(Vs + r * kStr, base + r * ld + 2 * p.H * kD, r < p.gvalid, half);
+  load_qk_half(Qs + r * kStr, head_row(p.q, p.q_bs, p.q_ts, p, grp, r, h), r < p.group,
+               p.qg ? p.qg + h * kD : nullptr, p, r, p.q_scale, half);
+  load_qk_half(Ks + r * kStr, head_row(p.k, p.k_bs, p.k_ts, p, grp, r, h), r < p.gvalid,
+               p.kg ? p.kg + h * kD : nullptr, p, r, 1.f, half);
+  load_head_half(Vs + r * kStr, head_row(p.v, p.v_bs, p.v_ts, p, grp, r, h),
+                 r < p.gvalid, half);
   __syncwarp();
 
   uint32_t qf[kDP / 16][4];
@@ -108,16 +128,25 @@ grouped_small_kernel(Args p) {
   for (int kk = 0; kk < kDP / 16; ++kk) mc::load_a_frag(qf[kk], Qs + kk * 16, kStr);
   float s[2][4];
   mc::qk_scores<2>(s, qf, Ks);
+  float m[2] = {p.m_const, p.m_const};
+  if (p.rowmax) {
+    m[0] = m[1] = mc::kNegInf;
+    mc::row_max_update<2>(s, m, 0, p.gvalid);
+    m[0] = mc::quad_max(m[0]);
+    m[1] = mc::quad_max(m[1]);
+  }
   float acc[kDP / 8][4];
 #pragma unroll
   for (int nt = 0; nt < kDP / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
   float l[2] = {0.f, 0.f};
-  fixed_max_softmax_pv<2>(s, l, acc, Vs, 0, p.gvalid, p.m_const);
-  store_head_rows(p.out, row0, p.group, acc, l, (size_t)p.H * kD, h * kD);
+  mc::shifted_softmax_pv<2>(s, l, acc, Vs, 0, p.gvalid, m);
+  store_head_rows(p.out, (size_t)grp * p.group, p.group, acc, l, (size_t)p.H * kD,
+                  h * kD);
 }
 
 // Larger groups: a block takes 64 queries of one group and loops over the
-// group's valid keys in tiles of 64.
+// group's valid keys in tiles of 64 (twice with the row max: first for the
+// rows' max, then for p and PV).
 __global__ void __launch_bounds__(kThreads)
 grouped_tiled_kernel(Args p) {
   __shared__ __align__(16) bf16 Qs[kTile * kStr];
@@ -127,73 +156,103 @@ grouped_tiled_kernel(Args p) {
   const int grp = blockIdx.y;
   const int h = blockIdx.z;
   const int warp = threadIdx.x >> 5;
-  const size_t ld = (size_t)3 * p.H * kD;
-  const size_t row0 = (size_t)grp * p.group;
-  const bf16* base = p.qkv + row0 * ld + h * kD;
 
   __shared__ float gains[2][kD];                   // q and k gains of head h
-  for (int i = threadIdx.x; i < 2 * kD; i += kThreads)
-    gains[i / kD][i % kD] = (i < kD ? p.qg : p.kg)[h * kD + i % kD];
+  const bool norm = p.qg != nullptr;
+  if (norm)
+    for (int i = threadIdx.x; i < 2 * kD; i += kThreads)
+      gains[i / kD][i % kD] = (i < kD ? p.qg : p.kg)[h * kD + i % kD];
   __syncthreads();
   // threads 2i and 2i + 1 take row i of every tile
   const int row = threadIdx.x >> 1, half = threadIdx.x & 1;
-  load_qk_half(Qs + row * kStr, base + (q0 + row) * ld, q0 + row < p.group, gains[0],
-               p, q0 + row, p.q_scale, half);
+  load_qk_half(Qs + row * kStr, head_row(p.q, p.q_bs, p.q_ts, p, grp, q0 + row, h),
+               q0 + row < p.group, norm ? gains[0] : nullptr, p, q0 + row, p.q_scale,
+               half);
   __syncthreads();
   uint32_t qf[kDP / 16][4];
 #pragma unroll
   for (int kk = 0; kk < kDP / 16; ++kk)
     mc::load_a_frag(qf[kk], Qs + warp * 16 * kStr + kk * 16, kStr);
 
+  const int n_tiles = (p.gvalid + kTile - 1) / kTile;
+  float m[2] = {p.m_const, p.m_const};
+  if (p.rowmax) {
+    m[0] = m[1] = mc::kNegInf;
+    for (int j = 0; j < n_tiles; ++j) {
+      const int key = j * kTile + row;
+      __syncthreads();        // every warp is done with the previous tile
+      load_qk_half(Ks + row * kStr, head_row(p.k, p.k_bs, p.k_ts, p, grp, key, h),
+                   key < p.gvalid, norm ? gains[1] : nullptr, p, key, 1.f, half);
+      __syncthreads();
+      float s[kTile / 8][4];
+      mc::qk_scores<kTile / 8>(s, qf, Ks);
+      mc::row_max_update<kTile / 8>(s, m, j * kTile, p.gvalid);
+    }
+    m[0] = mc::quad_max(m[0]);
+    m[1] = mc::quad_max(m[1]);
+  }
+
   float acc[kDP / 8][4];
 #pragma unroll
   for (int nt = 0; nt < kDP / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
   float l[2] = {0.f, 0.f};
-  const int n_tiles = (p.gvalid + kTile - 1) / kTile;
   for (int j = 0; j < n_tiles; ++j) {
     const int k0 = j * kTile;
     __syncthreads();          // every warp is done with the previous tile
     const int key = k0 + row;
-    load_qk_half(Ks + row * kStr, base + key * ld + p.H * kD, key < p.gvalid,
-                 gains[1], p, key, 1.f, half);
-    load_head_half(Vs + row * kStr, base + key * ld + 2 * p.H * kD, key < p.gvalid, half);
+    load_qk_half(Ks + row * kStr, head_row(p.k, p.k_bs, p.k_ts, p, grp, key, h),
+                 key < p.gvalid, norm ? gains[1] : nullptr, p, key, 1.f, half);
+    load_head_half(Vs + row * kStr, head_row(p.v, p.v_bs, p.v_ts, p, grp, key, h),
+                   key < p.gvalid, half);
     __syncthreads();
     float s[kTile / 8][4];
     mc::qk_scores<kTile / 8>(s, qf, Ks);
-    fixed_max_softmax_pv<kTile / 8>(s, l, acc, Vs, k0, p.gvalid, p.m_const);
+    mc::shifted_softmax_pv<kTile / 8>(s, l, acc, Vs, k0, p.gvalid, m);
   }
   const int nrows = min(16, p.group - (q0 + warp * 16));
-  store_head_rows(p.out, row0 + q0 + warp * 16, nrows, acc, l, (size_t)p.H * kD,
-                  h * kD);
+  store_head_rows(p.out, (size_t)grp * p.group + q0 + warp * 16, nrows, acc, l,
+                  (size_t)p.H * kD, h * kD);
 }
 
 }  // namespace
 
-extern "C" int mc_grouped_attention_fused_qkv(
-    const void* qkv, void* out, const void* qg, const void* kg,
-    const void* cos, const void* sin, int rows, int H, int group, int gvalid,
-    float q_scale, float true_d, float eps, float m_const, void* stream) {
+extern "C" int mc_grouped_attention(
+    const void* q, const void* k, const void* v, long long q_bs, long long q_ts,
+    long long k_bs, long long k_ts, long long v_bs, long long v_ts, void* out,
+    const void* qg, const void* kg, const void* cos, const void* sin, int n_groups,
+    int gpb, int H, int group, int gvalid, int rowmax, float q_scale, float true_d,
+    float eps, float m_const, void* stream) {
   Args a{};
-  a.qkv = static_cast<const bf16*>(qkv);
+  a.q = static_cast<const bf16*>(q);
+  a.k = static_cast<const bf16*>(k);
+  a.v = static_cast<const bf16*>(v);
+  a.q_bs = q_bs;
+  a.q_ts = q_ts;
+  a.k_bs = k_bs;
+  a.k_ts = k_ts;
+  a.v_bs = v_bs;
+  a.v_ts = v_ts;
   a.out = static_cast<bf16*>(out);
   a.qg = static_cast<const float*>(qg);
   a.kg = static_cast<const float*>(kg);
   a.cos = static_cast<const float*>(cos);
   a.sin = static_cast<const float*>(sin);
-  a.n_groups = rows / group;
+  a.n_groups = n_groups;
+  a.gpb = gpb;
   a.H = H;
   a.group = group;
   a.gvalid = gvalid;
+  a.rowmax = rowmax;
   a.q_scale = q_scale;
   a.inv_true_d = 1.f / true_d;
   a.eps = eps;
   a.m_const = m_const;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (group <= 16) {
-    const dim3 grid((a.n_groups + kWarps - 1) / kWarps, H);
+    const dim3 grid((n_groups + kWarps - 1) / kWarps, H);
     grouped_small_kernel<<<grid, kThreads, 0, st>>>(a);
   } else {
-    const dim3 grid((group + kTile - 1) / kTile, a.n_groups, H);
+    const dim3 grid((group + kTile - 1) / kTile, n_groups, H);
     grouped_tiled_kernel<<<grid, kThreads, 0, st>>>(a);
   }
   return (int)cudaGetLastError();

@@ -42,6 +42,14 @@ def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0,
     return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
 
 
+def embedder_linears(d_in: int, d: int, device=None) -> nn.ModuleDict:
+    """The f32 ``in`` (``d_in -> d``) and ``out`` (``d -> d``) linears of a
+    two-layer embedder whose activation its caller applies (STDiT3's and
+    Latte's timestep and caption embedders)."""
+    return nn.ModuleDict({"in": nn.Linear(d_in, d, device=device),
+                          "out": nn.Linear(d, d, device=device)})
+
+
 class MLPEmbedder(nn.ModuleDict):
     """``out(silu(in(x)))`` with f32 ``in``/``out`` linears: the JAX
     package's ``mlp_embedder`` parameters and ``apply_mlp_embedder``."""

@@ -1,9 +1,10 @@
 """Parameter conversion into the port's modules.
 
-``wan_params_from_numpy``, ``stdit3_params_from_numpy`` and
-``flux_params_from_numpy`` turn the JAX package's Wan, STDiT3 and FLUX
-parameter pytrees, with their leaves as numpy arrays, into ``WanModel``,
-``STDiT3Model`` and ``FluxModel`` state dicts. Two layout rules:
+``wan_params_from_numpy``, ``stdit3_params_from_numpy``,
+``flux_params_from_numpy`` and ``latte_params_from_numpy`` turn the JAX
+package's Wan, STDiT3, FLUX and Latte parameter pytrees, with their leaves as
+numpy arrays, into ``WanModel``, ``STDiT3Model``, ``FluxModel`` and
+``LatteModel`` state dicts. Two layout rules:
 the JAX block weights are depth-stacked ``[L, ...]`` (one entry per block
 here), and JAX's ``linear`` is ``x @ w`` with ``w: [d_in, d_out]`` while
 ``nn.Linear`` keeps ``[d_out, d_in]``.
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from magcache_tpu_torch.models.flux import FluxConfig
+from magcache_tpu_torch.models.latte import LatteConfig
 from magcache_tpu_torch.models.stdit3 import STDiT3Config
 from magcache_tpu_torch.models.wan import WanConfig
 
@@ -156,5 +158,48 @@ def flux_params_from_numpy(tree: dict, cfg: FluxConfig, device=None,
             put_linear(f"single_blocks.{i}.{name}", stacked(sgl, name, i), dtype)
         put(f"single_blocks.{i}.qk_scale", sgl["qk_scale"][i])
     put_linear("final_mod", tree["final_mod"])
+    put_linear("final_out", tree["final_out"])
+    return sd
+
+
+_LATTE_LINEARS = ("qkv", "proj", "ff1", "ff2")
+_LATTE_CROSS_LINEARS = ("cross_q", "cross_kv", "cross_o")
+
+
+def latte_params_from_numpy(tree: dict, cfg: LatteConfig, device=None,
+                            dtype: Optional[torch.dtype] = None
+                            ) -> Dict[str, torch.Tensor]:
+    """State dict for ``LatteModel(cfg)`` from a numpy Latte pytree (the
+    layout of ``magcache_tpu.models.latte.init_latte_params``; its
+    ``temp_pos`` entry is None, the table being built per grid).
+
+    ``dtype`` is the dtype of the patch embedding and the block linears
+    (default ``cfg.torch_dtype``); every other parameter is f32.
+    """
+    dtype = cfg.torch_dtype if dtype is None else dtype
+    sd: Dict[str, torch.Tensor] = {}
+
+    def put(name, arr, dt=torch.float32):
+        sd[name] = torch.from_numpy(np.array(arr, np.float32)).to(
+            device=device, dtype=dt)
+
+    def put_linear(name, p, dt=torch.float32):
+        put(f"{name}.weight", np.asarray(p["w"]).T, dt)
+        put(f"{name}.bias", p["b"], dt)
+
+    put_linear("patch_embed", tree["patch_embed"], dtype)
+    for grp in ("caption", "time"):
+        for io in ("in", "out"):
+            put_linear(f"{grp}.{io}", tree[grp][io])
+    put_linear("adaln_single", tree["adaln_single"])
+    for kind in ("spatial", "temporal"):
+        g = tree[kind]
+        names = _LATTE_LINEARS + (_LATTE_CROSS_LINEARS if kind == "spatial" else ())
+        for i in range(cfg.depth):
+            for name in names:
+                put_linear(f"{kind}.{i}.{name}",
+                           {"w": g[name]["w"][i], "b": g[name]["b"][i]}, dtype)
+            put(f"{kind}.{i}.scale_shift", g["scale_shift"][i])
+    put("final_mod", tree["final_mod"])
     put_linear("final_out", tree["final_out"])
     return sd

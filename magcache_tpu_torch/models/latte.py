@@ -1,0 +1,305 @@
+"""Latte T2V (Latte-1), the VideoSys spatial-temporal DiT, as PyTorch modules.
+
+Same model as ``magcache_tpu.models.latte`` (behavioral source
+``videosys/models/transformers/latte_transformer_3d.py``, ``LatteT2V``):
+``depth`` paired (spatial, temporal) blocks; the spatial block is
+self-attention over each frame's S patches, cross-attention to the caption
+and an MLP, the temporal block self-attention over the T frames at each
+location and an MLP; PixArt-style AdaLN-single (one 6-way modulation from
+the timestep, plus each block's ``scale_shift`` table); absolute 2-D sincos
+position embeddings, and a temporal sincos table added to the residual
+stream once, before the first temporal block. Heads are 72 wide and have no
+qk-norm or RoPE.
+
+``make_latte_core(..., route=)`` picks the block composition explicitly (the
+JAX package switches on ``MAGCACHE_STDIT3_PACKED`` and
+``MAGCACHE_TINY_ATTN``; the route here depends on neither the environment
+nor the device):
+
+- ``"packed"``, the TPU default: spatial K7 ``lnmod_matmul`` (LayerNorm +
+  modulate + qkv) -> K5r (``grouped_attention_fused_qkv`` without gains, one
+  group per frame, row-max softmax) -> K8 ``matmul_gated_residual`` (out
+  projection + gate + residual) -> K6 ``fused_cross_attention`` with the
+  residual; temporal K3 ``layer_norm_mod`` -> qkv ``nn.Linear`` on the
+  [S, T] view -> K5r over groups of T -> K8 (gate, no residual) -> transpose
+  back and add; the MLP K7 with gelu -> K8 with the residual.
+- ``"grouped"`` and ``"vpu"``, the unpacked composition: every attention and
+  MLP branch starts with K3; ``nn.Linear`` projections; spatial
+  self-attention and cross-attention through ``attention()`` (K1 at head
+  dim 72 zero-padded to 128, running max); temporal attention through
+  ``tiny_temporal_attention`` in that mode (K4 or K9); f32 gates.
+
+The TPU's 128-lane head padding and its frame padding (``Tp``, ``Sg``) are
+not carried over: groups are T and S, and heads stay 72 wide. Dtypes: in a
+bf16 config the patch embedding and the block linears are bf16; the
+embedders, the modulation tables and the final layer stay f32, as the JAX
+parameters are. Not ported (raise ``NotImplementedError``): PAB, and frames
+of more than 2,048 tokens (no published Latte configuration has them).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from magcache_tpu_torch.core.sampler import DiTCore
+from magcache_tpu_torch.models.common import (DTYPES, embedder_linears, init_linear_,
+                                              timestep_embedding)
+from magcache_tpu_torch.models.stdit3 import pos_embed_2d
+from magcache_tpu_torch.ops.attention import (attention, fused_cross_attention,
+                                              grouped_attention_fused_qkv)
+from magcache_tpu_torch.ops.fused_prologue import (layer_norm_mod, lnmod_matmul,
+                                                   matmul_gated_residual)
+from magcache_tpu_torch.ops.norms import layer_norm
+from magcache_tpu_torch.ops.rope import rope_freqs_1d
+from magcache_tpu_torch.ops.tiny_attention import tiny_temporal_attention
+
+__all__ = ["LatteConfig", "LatteModel", "LATTE_1", "ROUTES", "make_latte_core"]
+
+ROUTES = ("packed", "grouped", "vpu")
+MAX_FRAME_TOKENS = 2048
+
+
+@dataclasses.dataclass(frozen=True)
+class LatteConfig:
+    hidden: int = 1152
+    heads: int = 16
+    depth: int = 28                 # pairs (spatial, temporal)
+    mlp_ratio: int = 4
+    in_channels: int = 4
+    # published Latte-1 predicts epsilon + variance (8); the variance half is
+    # dropped by the head. 0 -> in_channels
+    out_channels: int = 0
+    caption_dim: int = 4096
+    patch: int = 2                  # spatial patch
+    time_embed_dim: int = 256
+    eps: float = 1e-6
+    dtype: str = "float32"
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden // self.heads
+
+    @property
+    def c_out(self) -> int:
+        return self.out_channels or self.in_channels
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return DTYPES[self.dtype]
+
+    @staticmethod
+    def tiny(**kw) -> "LatteConfig":
+        d = dict(hidden=64, heads=4, depth=2, caption_dim=24, time_embed_dim=32)
+        d.update(kw)
+        return LatteConfig(**d)
+
+
+# Latte-1 (LatteT2V, 1.057 B parameters)
+LATTE_1 = LatteConfig(out_channels=8)
+
+
+class LatteBlock(nn.Module):
+    """One spatial (``cross=True``) or temporal block; parameter names follow
+    the JAX keys."""
+
+    def __init__(self, cfg: LatteConfig, cross: bool, device=None):
+        super().__init__()
+        self.cfg = cfg
+        d, dt = cfg.hidden, cfg.torch_dtype
+
+        def lin(d_in, d_out):
+            return nn.Linear(d_in, d_out, device=device, dtype=dt)
+
+        self.scale_shift = nn.Parameter(torch.zeros((6, d), device=device))
+        self.qkv, self.proj = lin(d, 3 * d), lin(d, d)
+        self.ff1, self.ff2 = lin(d, cfg.mlp_ratio * d), lin(cfg.mlp_ratio * d, d)
+        self.cross = cross
+        if cross:
+            self.cross_q, self.cross_kv, self.cross_o = lin(d, d), lin(d, 2 * d), lin(d, d)
+
+    def forward(self, h: torch.Tensor, t6: torch.Tensor, y: torch.Tensor, *,
+                grid: Tuple[int, int, int], route: str) -> torch.Tensor:
+        """One block on ``h`` ``[rows, T*S, d]``."""
+        e = (self.scale_shift[None] + t6).float()          # [rows, 6, d]
+        if route == "packed":
+            return self._packed(h, e, y, grid)
+        return self._unpacked(h, e, y, grid, route)
+
+    def _packed(self, h, e, y, grid):
+        cfg = self.cfg
+        rows, n, d = h.shape
+        t, s = grid[0], grid[1] * grid[2]
+        sh_a, sc_a, g_a, sh_m, sc_m, g_m = e.unbind(1)
+        attn = dict(scale=1.0 / math.sqrt(cfg.head_dim), true_d=cfg.head_dim)
+        if self.cross:
+            hf = h.reshape(rows * t, s, d)
+            qkv = lnmod_matmul(hf, sc_a, sh_a, self.qkv.weight, self.qkv.bias,
+                               eps=cfg.eps, batch_repeat=t)
+            o = grouped_attention_fused_qkv(qkv, cfg.heads, group=s, **attn)
+            h = matmul_gated_residual(o, self.proj.weight, self.proj.bias, g_a, hf,
+                                      batch_repeat=t).reshape(rows, n, d)
+            kv = self.cross_kv(y)
+            h = fused_cross_attention(
+                h, self.cross_q.weight, self.cross_q.bias, kv[..., :d].contiguous(),
+                kv[..., d:].contiguous(), self.cross_o.weight, self.cross_o.bias,
+                cfg.heads, residual=True, **attn)
+        else:
+            xn = layer_norm_mod(h, scale=sc_a, shift=sh_a, eps=cfg.eps)
+            xr = xn.reshape(rows, t, s, d).transpose(1, 2).reshape(rows * s, t, d)
+            qkv = self.qkv(xr)
+            o = grouped_attention_fused_qkv(qkv.reshape(1, rows * s * t, 3 * d),
+                                            cfg.heads, group=t, **attn)
+            a = matmul_gated_residual(o.reshape(rows * s, t, d), self.proj.weight,
+                                      self.proj.bias, g_a, None, rows_out=t,
+                                      batch_repeat=s)
+            h = h + a.reshape(rows, s, t, d).transpose(1, 2).reshape(rows, n, d)
+        y1 = lnmod_matmul(h, sc_m, sh_m, self.ff1.weight, self.ff1.bias,
+                          act="gelu", eps=cfg.eps)
+        return matmul_gated_residual(y1, self.ff2.weight, self.ff2.bias, g_m, h)
+
+    def _unpacked(self, h, e, y, grid, mode):
+        cfg = self.cfg
+        rows, n, d = h.shape
+        t, s = grid[0], grid[1] * grid[2]
+        sh_a, sc_a, g_a, sh_m, sc_m, g_m = e[:, :, None].unbind(1)   # [rows, 1, d]
+
+        def heads(x):
+            return x.unflatten(-1, (cfg.heads, cfg.head_dim))
+
+        xn = layer_norm_mod(h, scale=sc_a, shift=sh_a, eps=cfg.eps)
+        if self.cross:
+            q, k, v = (heads(p) for p in self.qkv(xn.reshape(rows * t, s, d)).chunk(3, -1))
+            a = self.proj(attention(q, k, v).reshape(rows * t, s, d)).reshape(rows, n, d)
+        else:
+            xr = xn.reshape(rows, t, s, d).transpose(1, 2).reshape(rows * s, t, d)
+            o = tiny_temporal_attention(self.qkv(xr), None, None, None, None,
+                                        cfg.heads, mode=mode)
+            a = self.proj(o).reshape(rows, s, t, d).transpose(1, 2).reshape(rows, n, d)
+        h = h + (g_a * a.float()).to(h.dtype)
+        if self.cross:
+            k, v = (heads(p) for p in self.cross_kv(y).chunk(2, -1))
+            c = attention(heads(self.cross_q(h)), k, v).reshape(rows, n, d)
+            h = h + self.cross_o(c)
+        xm = layer_norm_mod(h, scale=sc_m, shift=sh_m, eps=cfg.eps)
+        mo = self.ff2(F.gelu(self.ff1(xm), approximate="tanh"))
+        return h + (g_m * mo.float()).to(h.dtype)
+
+
+class LatteModel(nn.Module):
+    """Latte T2V. Build on ``device``, then ``init(generator)`` for random
+    weights or ``load_state_dict`` (``models/convert.py``)."""
+
+    def __init__(self, cfg: LatteConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        d, p2 = cfg.hidden, cfg.patch * cfg.patch
+        self.patch_embed = nn.Linear(cfg.in_channels * p2, d, device=device,
+                                     dtype=cfg.torch_dtype)
+        self.caption = embedder_linears(cfg.caption_dim, d, device)
+        self.time = embedder_linears(cfg.time_embed_dim, d, device)
+        self.adaln_single = nn.Linear(d, 6 * d, device=device)
+        self.spatial = nn.ModuleList(LatteBlock(cfg, True, device)
+                                     for _ in range(cfg.depth))
+        self.temporal = nn.ModuleList(LatteBlock(cfg, False, device)
+                                      for _ in range(cfg.depth))
+        self.final_mod = nn.Parameter(torch.zeros((2, d), device=device))
+        self.final_out = nn.Linear(d, cfg.c_out * p2, device=device)
+
+    def init(self, generator: torch.Generator) -> "LatteModel":
+        """Random weights from ``generator`` (on its device), drawn as
+        ``magcache_tpu.models.latte.init_latte_params`` draws them (the draws
+        themselves differ): LeCun-normal linears with zero bias, modulation
+        tables ``N(0, 1/hidden)``."""
+        std = self.cfg.hidden ** -0.5
+
+        def randn(shape):
+            return torch.randn(shape, generator=generator, device=generator.device) * std
+
+        with torch.no_grad():
+            for m in self.modules():
+                if isinstance(m, nn.Linear):
+                    init_linear_(m, generator)
+            for m in (*self.spatial, *self.temporal):
+                m.scale_shift.copy_(randn(m.scale_shift.shape))
+            self.final_mod.copy_(randn(self.final_mod.shape))
+        return self
+
+
+def make_latte_core(model: LatteModel, grid: Tuple[int, int, int],
+                    caption_len: int, *, route: str = "packed", pab=None) -> DiTCore:
+    """(prepare, trunk, head) for a static patch grid (T, H, W).
+
+    cond = {"y": f[rows, caption_len, caption_dim]}; x = latent video
+    f[rows, T, H*p, W*p, C] (rows holds the joint CFG batch); the output has
+    C channels (the variance half of an 8-channel head is dropped).
+    ``route``: "packed", "grouped" or "vpu" (module docstring).
+    """
+    cfg = model.cfg
+    t_len, gh, gw = grid
+    s = gh * gw
+    d = cfg.hidden
+    if route not in ROUTES:
+        raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
+    if pab is not None:
+        raise NotImplementedError("PAB is not ported yet")
+    if s > MAX_FRAME_TOKENS:
+        raise NotImplementedError(
+            f"Latte frames of {s} tokens (> {MAX_FRAME_TOKENS}) are not ported: no "
+            "published Latte configuration has them")
+    device = model.patch_embed.weight.device
+    dt = cfg.torch_dtype
+    pos2d = torch.from_numpy(pos_embed_2d(d, gh, gw)).to(device)
+    # [sin | cos] channel order (diffusers get_1d_sincos_pos_embed_from_grid),
+    # added to the residual stream before the first temporal block only
+    tcos, tsin = rope_freqs_1d(np.arange(t_len), d, 10000.0)
+    temp_pos = torch.from_numpy(np.concatenate([tsin, tcos], axis=-1)[:, :d]).to(device)
+    tp_tok = temp_pos[:, None].expand(t_len, s, d).reshape(t_len * s, d)
+    p = cfg.patch
+
+    def embed(mlp: nn.ModuleDict, v: torch.Tensor, act) -> torch.Tensor:
+        return mlp["out"](act(mlp["in"](v)))
+
+    @torch.inference_mode()
+    def prepare(x, t, cond):
+        rows = x.shape[0]
+        xp = x.to(dt).reshape(rows, t_len, gh, p, gw, p, cfg.in_channels)
+        xp = xp.permute(0, 1, 2, 4, 6, 3, 5).reshape(rows, t_len * s, -1)
+        h = model.patch_embed(xp)
+        # the f32 sincos add, kept in the compute dtype after it
+        h = (h.reshape(rows, t_len, s, d) + pos2d).reshape(rows, t_len * s, d).to(dt)
+        te = embed(model.time, timestep_embedding(t, cfg.time_embed_dim), F.silu)
+        t6 = model.adaln_single(F.silu(te)).reshape(rows, 6, d)
+        y = embed(model.caption, cond["y"].float(),
+                  lambda v: F.gelu(v, approximate="tanh")).to(dt)
+        return h, {"t6": t6, "te": te, "y": y}
+
+    @torch.inference_mode()
+    def trunk(hidden, ctx):
+        h = hidden
+        for i, (sp, tp) in enumerate(zip(model.spatial, model.temporal)):
+            h = sp(h, ctx["t6"], ctx["y"], grid=grid, route=route)
+            if i == 0:
+                h = (h.float() + tp_tok).to(h.dtype)
+            h = tp(h, ctx["t6"], ctx["y"], grid=grid, route=route)
+        return h
+
+    @torch.inference_mode()
+    def head(hidden, ctx):
+        mod = model.final_mod[None] + ctx["te"][:, None]
+        # bf16 LayerNorm output times the f32 modulation is f32, as in JAX
+        out = layer_norm(hidden, eps=cfg.eps).float() * (1 + mod[:, 1:2]) + mod[:, 0:1]
+        out = model.final_out(out.to(hidden.dtype).float())
+        rows = out.shape[0]
+        # features ordered [p, q, c] ("nhwpqc")
+        out = out.reshape(rows, t_len, gh, gw, p, p, cfg.c_out).permute(0, 1, 2, 4, 3, 5, 6)
+        out = out.reshape(rows, t_len, gh * p, gw * p, cfg.c_out)
+        return out[..., :cfg.in_channels]
+
+    return DiTCore(prepare, trunk, head)

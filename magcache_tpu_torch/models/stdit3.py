@@ -50,7 +50,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from magcache_tpu_torch.core.sampler import DiTCore
-from magcache_tpu_torch.models.common import DTYPES, init_linear_, timestep_embedding
+from magcache_tpu_torch.models.common import (DTYPES, embedder_linears, init_linear_,
+                                              timestep_embedding)
 from magcache_tpu_torch.models.wan import patchify, unpatchify
 from magcache_tpu_torch.ops.attention import (QKNORM_FIXED_MAX,
                                               flash_attention_bshd,
@@ -142,11 +143,6 @@ def pos_embed_2d(dim: int, gh: int, gw: int, scale: float = 1.0,
 
 def _param(shape, device, fill: float) -> nn.Parameter:
     return nn.Parameter(torch.full(shape, fill, dtype=torch.float32, device=device))
-
-
-def _embedder(d_in: int, d: int, device) -> nn.ModuleDict:
-    return nn.ModuleDict({"in": nn.Linear(d_in, d, device=device),
-                          "out": nn.Linear(d, d, device=device)})
 
 
 class STDiT3Block(nn.Module):
@@ -310,10 +306,10 @@ class STDiT3Model(nn.Module):
         d = cfg.hidden
         self.y_null = _param((cfg.caption_max_len, cfg.caption_dim), device, 0.0)
         self.patch_embed = nn.Linear(cfg.patch_in, d, device=device)
-        self.t_embed = _embedder(cfg.freq_dim, d, device)
-        self.fps_embed = _embedder(cfg.freq_dim, d, device)
+        self.t_embed = embedder_linears(cfg.freq_dim, d, device)
+        self.fps_embed = embedder_linears(cfg.freq_dim, d, device)
         self.t_block = nn.Linear(d, 6 * d, device=device)
-        self.y_embed = _embedder(cfg.caption_dim, d, device)
+        self.y_embed = embedder_linears(cfg.caption_dim, d, device)
         self.spatial = nn.ModuleList(STDiT3Block(cfg, device) for _ in range(cfg.depth))
         self.temporal = nn.ModuleList(STDiT3Block(cfg, device) for _ in range(cfg.depth))
         self.final = STDiT3Final(cfg, device)

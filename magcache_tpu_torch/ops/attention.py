@@ -1,11 +1,12 @@
-"""Attention for DiT trunks: kernels K1, K5 and K6 beside their plain
+"""Attention for DiT trunks: kernels K1, K4, K5 and K6 beside their plain
 versions, and the ``attention()`` dispatcher.
 
 Layout at the API boundary is ``[batch, seq, heads, head_dim]``, as the
 patch-embedded activations are. Each kernel wrapper takes a CUDA tensor to
 its hand-written kernel and a CPU tensor to ``<name>_plain``; a CUDA tensor
 the kernel does not take raises. Launch counts are ``<wrapper>.launches``
-(K1q's: ``flash_attention_bshd.qknorm_launches``).
+(K1q's: ``flash_attention_bshd.qknorm_launches``; K5r's:
+``grouped_attention_fused_qkv.rowmax_launches``).
 
 - ``flash_attention_bshd`` (K1, ``csrc/flash_attention.cu``): full
   attention, head dim 128; with ``qk_gains`` (K1q) the per-head RMS qk-norm
@@ -14,7 +15,11 @@ the kernel does not take raises. Launch counts are ``<wrapper>.launches``
 - ``grouped_attention_fused_qkv`` (K5, ``csrc/grouped_attention.cu``):
   block-diagonal grouped attention read from the fused ``[B, S, 3*H*D]``
   projection with the per-head RMS qk-norm and optional in-group RoPE fused
-  in; head dim 72 (STDiT3's spatial and temporal attention).
+  in; head dim 72 (STDiT3's spatial and temporal attention). Without gains
+  and with the row-max softmax it is K5r (Latte's packed attention).
+- ``grouped_flash_attention_bshd`` (K4, the same kernel): the same on
+  separate ``[B, S, H, D]`` q, k and v read through their strides (the
+  "grouped" mode of ``ops.tiny_attention``).
 - ``fused_cross_attention`` (K6, ``csrc/cross_attention.cu``): q-projection,
   attention over a short context and out-projection (+ residual) in one
   kernel; head dim 72.
@@ -38,6 +43,7 @@ from magcache_tpu_torch.ops.rope import apply_rope
 
 __all__ = ["attention", "flash_attention_bshd", "flash_attention_bshd_plain",
            "grouped_attention_fused_qkv", "grouped_attention_fused_qkv_plain",
+           "grouped_flash_attention_bshd", "grouped_flash_attention_bshd_plain",
            "fused_cross_attention", "fused_cross_attention_plain",
            "QKNORM_FIXED_MAX"]
 
@@ -180,15 +186,7 @@ def _flash_attention_qknorm(q, k, v, scale, kv_len, fixed_max, qk_gains, true_d,
     dev = q.device
     for name, t, shape in (("q", q, (b, sq, h, d)), ("k", k, (b, skv, h, d)),
                            ("v", v, (b, skv, h, d))):
-        bs, ts, hs, cs = t.stride()
-        if not (t.is_cuda and t.device == dev and t.dtype == torch.bfloat16
-                and tuple(t.shape) == shape and cs == 1 and hs == d
-                and t.data_ptr() % 16 == 0 and bs % 8 == 0 and ts % 8 == 0):
-            raise ValueError(
-                f"flash_attention_bshd: {name} must be a bf16 CUDA tensor of shape "
-                f"{shape} on {dev} with unit channel stride, heads {d} apart and "
-                f"16-byte aligned rows; got {t.dtype} {tuple(t.shape)} strides "
-                f"{t.stride()} on {t.device}")
+        _check_head_rows(f"flash_attention_bshd: {name}", t, shape, dev)
     gains = []
     for name, t in zip(("qg", "kg"), qk_gains):
         if t.device != dev or t.numel() not in (d, h * d):
@@ -229,54 +227,214 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Full attention over ``[B, S, H, D]`` activations.
 
     Routed on shape only: when ``max(Sq, Skv) <= 128`` the einsum path runs
-    (no flash tiling pays off there), otherwise K1.
+    (no flash tiling pays off there), otherwise K1. On a CUDA tensor with
+    head dim below K1's 128, q, k and v are zero-padded to 128 and the result
+    sliced back (exact: the padded q/k lanes add 0 to every score, the padded
+    v lanes only fill output lanes that are dropped).
     """
+    d = q.shape[-1]
+    scale = (1.0 / math.sqrt(d)) if scale is None else scale
     if max(q.shape[1], k.shape[1]) <= 128:
-        d = q.shape[-1]
-        return _attention_einsum(
-            q, k, v, scale=(1.0 / math.sqrt(d)) if scale is None else scale,
-            kv_len=kv_len)
+        return _attention_einsum(q, k, v, scale=scale, kv_len=kv_len)
+    if q.is_cuda and d < KERNEL_HEAD_DIM:
+        q, k, v = (torch.nn.functional.pad(t, (0, KERNEL_HEAD_DIM - d)) for t in (q, k, v))
+        return flash_attention_bshd(q, k, v, scale=scale, kv_len=kv_len,
+                                    fixed_max=fixed_max)[..., :d]
     return flash_attention_bshd(q, k, v, scale=scale, kv_len=kv_len,
                                 fixed_max=fixed_max)
 
 
+def _grouped_geometry(name: str, s_len: int, group: int,
+                      group_valid: Optional[int], qk_gains, fixed_max) -> int:
+    """``group_valid`` resolved; raises on a bad geometry, and on a fixed
+    shift without qk-norm gains (unbounded scores can underflow every p to
+    0; the JAX package's STDiT3 ``qk_norm=False`` fault)."""
+    gvalid = group if group_valid is None else group_valid
+    if group < 1 or s_len % group or not 1 <= gvalid <= group:
+        raise ValueError(f"{name}: bad geometry: S {s_len}, group {group}, "
+                         f"group_valid {group_valid}")
+    if fixed_max is not None and qk_gains is None:
+        raise ValueError(f"{name}: fixed_max needs qk_gains (a static shift is "
+                         f"exact only for RMS-normed scores)")
+    return gvalid
+
+
+def _check_head_rows(name: str, t: torch.Tensor, shape, dev) -> None:
+    """Raises unless ``t`` is a bf16 CUDA ``[B, S, H, D]`` tensor or view that
+    a head-dim-72 kernel reads through its batch and token strides: unit
+    channel stride, heads D apart, 16-byte aligned rows."""
+    bs, ts, hs, cs = t.stride()
+    if not (t.is_cuda and t.device == dev and t.dtype == torch.bfloat16
+            and tuple(t.shape) == tuple(shape) and cs == 1 and hs == shape[-1]
+            and t.data_ptr() % 16 == 0 and bs % 8 == 0 and ts % 8 == 0):
+        raise ValueError(
+            f"{name} must be a bf16 CUDA tensor of shape {tuple(shape)} on {dev} "
+            f"with unit channel stride, heads {shape[-1]} apart and 16-byte "
+            f"aligned rows; got {t.dtype} {tuple(t.shape)} strides {t.stride()} "
+            f"on {t.device}")
+
+
+def _grouped_launch(name: str, q, k, v, *, group, gvalid, scale, qk_gains,
+                    rope_tables, true_d, eps, fixed_max) -> torch.Tensor:
+    """The grouped kernel's launch (K4, K5, K5r) on ``[B, S, H, 72]`` q/k/v
+    read through their strides; returns ``[B, S, H*72]``. Checks what the
+    kernel takes and raises on anything else."""
+    b, s_len, heads, d = q.shape
+    dev = q.device
+    true_d = d if true_d is None else true_d
+    scale = (1.0 / math.sqrt(true_d)) if scale is None else scale
+    if d != GROUPED_HEAD_DIM or true_d != d:
+        raise ValueError(f"{name}: the kernel takes head dim {GROUPED_HEAD_DIM} "
+                         f"(true_d None or equal), got {d} (true_d {true_d})")
+    for label, t in (("q", q), ("k", k), ("v", v)):
+        _check_head_rows(f"{name}: {label}", t, (b, s_len, heads, d), dev)
+    n_groups = b * s_len // group
+    if group > 16 and n_groups > 65535 or heads > 65535:
+        raise ValueError(f"{name}: {n_groups} groups or {heads} heads exceed "
+                         f"the launch grid")
+    gains = [None, None]
+    if qk_gains is not None:
+        for i, (label, t) in enumerate(zip(("qg", "kg"), qk_gains)):
+            if t.device != dev or t.numel() not in (d, heads * d):
+                raise ValueError(f"{name}: {label} must hold [{heads}, {d}] or "
+                                 f"[{d}] on {dev}")
+            gains[i] = t.float().reshape(-1, d).expand(heads, d).contiguous()
+    cos = sin = None
+    if rope_tables is not None:
+        cos, sin = (t.float().contiguous() for t in rope_tables)
+        for t in (cos, sin):
+            if t.device != dev or tuple(t.shape) != (group, d // 2):
+                raise ValueError(f"{name}: rope tables must be [{group}, "
+                                 f"{d // 2}] on {dev}")
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
+    lib = load_cuda_library()
+    out = torch.empty((b, s_len, heads * d), dtype=v.dtype, device=dev)
+    code = lib.mc_grouped_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), q.stride(0), q.stride(1),
+        k.stride(0), k.stride(1), v.stride(0), v.stride(1), out.data_ptr(),
+        ptr(gains[0]), ptr(gains[1]), ptr(cos), ptr(sin), n_groups,
+        s_len // group, heads, group, gvalid, int(fixed_max is None),
+        scale * _LOG2E, float(d), float(eps),
+        float(fixed_max) if fixed_max is not None else 0.0,
+        torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(lib, code, name)
+    return out
+
+
+def grouped_flash_attention_bshd_plain(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, group: int,
+        group_valid: Optional[int] = None, scale: Optional[float] = None,
+        qk_gains: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+        rope_tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+        true_d: Optional[int] = None, eps: float = 1e-6,
+        fixed_max: Optional[float] = None,
+        chunk_elems: int = 1 << 26) -> torch.Tensor:
+    """K4's (and K5's) math in plain PyTorch on ``[B, S, H, D]`` q/k/v, over
+    chunks of groups so that no more than ``chunk_elems`` scores exist at
+    once: q and k normed (with gains) or taken to f32, rotated (with
+    tables), q times ``scale*log2(e)`` in f32 and rounded once, k rounded;
+    f32 scores; the fixed or the row-max shift; p rounded before PV, divided
+    by the f32 sum of p after. Returns ``[B, S, H, D]``."""
+    true_d = q.shape[-1] if true_d is None else true_d
+    group_valid = group if group_valid is None else group_valid
+    scale = (1.0 / math.sqrt(true_d)) if scale is None else scale
+    b, s_len, heads, d = q.shape
+    ng = b * (s_len // group)
+    qg, kg, vg = (t.reshape(ng, group, heads, d) for t in (q, k, v))
+    key_ok = torch.arange(group, device=q.device) < group_valid
+    out = torch.empty((ng, group, heads, d), dtype=v.dtype, device=q.device)
+    step = max(1, chunk_elems // (heads * group * group))
+    for g0 in range(0, ng, step):
+        qc, kc, vc = (t[g0:g0 + step] for t in (qg, kg, vg))      # [n, g, H, D]
+        if qk_gains is not None:
+            qc, kc = (_rms_head(qc, qk_gains[0], true_d, eps),
+                      _rms_head(kc, qk_gains[1], true_d, eps))
+        else:
+            qc, kc = qc.float(), kc.float()
+        if rope_tables is not None:    # f32 in, f32 out: no rounding here
+            qc, kc = apply_rope(qc, *rope_tables), apply_rope(kc, *rope_tables)
+        qc = (qc * (scale * _LOG2E)).to(v.dtype).float()
+        kc = kc.to(v.dtype).float()
+        s = torch.einsum("nqhd,nkhd->nhqk", qc, kc)
+        s = torch.where(key_ok, s, torch.full_like(s, _NEG_INF))
+        if fixed_max is not None:
+            p = torch.exp2(torch.clamp(s, max=fixed_max + 126.0) - fixed_max)
+        else:
+            p = torch.exp2(s - s.amax(-1, keepdim=True))
+        o = torch.einsum("nhqk,nkhd->nqhd", p.to(v.dtype).float(), vc.float())
+        out[g0:g0 + step] = (o / p.sum(-1).permute(0, 2, 1)[..., None]).to(v.dtype)
+    return out.reshape(b, s_len, heads, d)
+
+
+
+def grouped_flash_attention_bshd(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, group: int,
+        group_valid: Optional[int] = None, scale: Optional[float] = None,
+        qk_gains: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+        rope_tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+        true_d: Optional[int] = None, eps: float = 1e-6,
+        fixed_max: Optional[float] = None) -> torch.Tensor:
+    """K4: block-diagonal grouped attention on ``[B, S, H, D]`` q, k and v:
+    token i attends within its contiguous group ``i // group`` to the keys
+    at in-group positions ``< group_valid``. ``qk_gains``, ``rope_tables``,
+    ``true_d`` and ``fixed_max`` as in ``grouped_attention_fused_qkv``;
+    without ``fixed_max`` the softmax shift is each row's max. Returns
+    ``[B, S, H, D]``.
+
+    The kernel takes bf16 q/k/v of head dim 72 read through their batch and
+    token strides (unit channel stride, heads 72 apart, 16-byte aligned
+    rows), so column views of one projection need no copies; anything else
+    on a CUDA tensor raises. Launches count in
+    ``grouped_flash_attention_bshd.launches``.
+    """
+    b, s_len, heads, d = q.shape
+    gvalid = _grouped_geometry("grouped_flash_attention_bshd", s_len, group,
+                               group_valid, qk_gains, fixed_max)
+    kw = dict(group=group, group_valid=gvalid, scale=scale, qk_gains=qk_gains,
+              rope_tables=rope_tables, true_d=true_d, eps=eps, fixed_max=fixed_max)
+    if q.device.type == "cpu":
+        return grouped_flash_attention_bshd_plain(q, k, v, **kw)
+    out = _grouped_launch("grouped_flash_attention_bshd", q, k, v, group=group,
+                          gvalid=gvalid, scale=scale, qk_gains=qk_gains,
+                          rope_tables=rope_tables, true_d=true_d, eps=eps,
+                          fixed_max=fixed_max)
+    grouped_flash_attention_bshd.launches += 1
+    return out.reshape(b, s_len, heads, d)
+
+
+grouped_flash_attention_bshd.launches = 0
+
+
+def split_qkv(qkv: torch.Tensor, heads: int):
+    """q, k and v ``[B, S, H, D]`` as column views of ``[B, S, 3*H*D]``."""
+    return qkv.unflatten(-1, (3, heads, -1)).unbind(2)
+
+
 def grouped_attention_fused_qkv_plain(
         qkv: torch.Tensor, heads: int, *, group: int,
-        qk_gains: Tuple[torch.Tensor, torch.Tensor], fixed_max: float,
+        qk_gains: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+        fixed_max: Optional[float] = None,
         group_valid: Optional[int] = None, scale: Optional[float] = None,
         rope_tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
         true_d: Optional[int] = None, eps: float = 1e-6,
         chunk_elems: int = 1 << 26) -> torch.Tensor:
-    """K5's math in plain PyTorch, over chunks of groups so that no more than
-    ``chunk_elems`` scores exist at once."""
-    b, s_len, three_hd = qkv.shape
-    d = three_hd // (3 * heads)
-    td = d if true_d is None else true_d
-    gvalid = group if group_valid is None else group_valid
-    scale = (1.0 / math.sqrt(td)) if scale is None else scale
-    ng = b * (s_len // group)
-    parts = qkv.reshape(ng, group, 3, heads, d)
-    key_ok = torch.arange(group, device=qkv.device) < gvalid
-    out = torch.empty((ng, group, heads, d), dtype=qkv.dtype, device=qkv.device)
-    step = max(1, chunk_elems // (heads * group * group))
-    for g0 in range(0, ng, step):
-        q, k, v = parts[g0:g0 + step].unbind(2)            # [n, g, H, D]
-        q, k = _rms_head(q, qk_gains[0], td, eps), _rms_head(k, qk_gains[1], td, eps)
-        if rope_tables is not None:    # f32 in, f32 out: no rounding here
-            q, k = apply_rope(q, *rope_tables), apply_rope(k, *rope_tables)
-        q = (q * (scale * _LOG2E)).to(v.dtype).float()
-        k = k.to(v.dtype).float()
-        s = torch.einsum("nqhd,nkhd->nhqk", q, k)
-        s = torch.where(key_ok, s, torch.full_like(s, _NEG_INF))
-        p = torch.exp2(torch.clamp(s, max=fixed_max + 126.0) - fixed_max)
-        o = torch.einsum("nhqk,nkhd->nqhd", p.to(v.dtype).float(), v.float())
-        out[g0:g0 + step] = (o / p.sum(-1).permute(0, 2, 1)[..., None]).to(qkv.dtype)
-    return out.reshape(b, s_len, heads * d)
+    """K5's (and K5r's) math in plain PyTorch (``grouped_flash_attention_bshd_plain``
+    on column views)."""
+    b, s_len, _ = qkv.shape
+    q, k, v = split_qkv(qkv, heads)
+    return grouped_flash_attention_bshd_plain(
+        q, k, v, group=group, group_valid=group_valid, scale=scale,
+        qk_gains=qk_gains, rope_tables=rope_tables, true_d=true_d, eps=eps,
+        fixed_max=fixed_max, chunk_elems=chunk_elems).reshape(b, s_len, -1)
 
 
 def grouped_attention_fused_qkv(
         qkv: torch.Tensor, heads: int, *, group: int,
-        qk_gains: Tuple[torch.Tensor, torch.Tensor], fixed_max: float,
+        qk_gains: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+        fixed_max: Optional[float] = None,
         group_valid: Optional[int] = None, scale: Optional[float] = None,
         rope_tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
         true_d: Optional[int] = None, eps: float = 1e-6) -> torch.Tensor:
@@ -287,65 +445,44 @@ def grouped_attention_fused_qkv(
     in-group positions ``< group_valid``. ``qk_gains=(qg, kg)`` (``[H, D]``
     or ``[D]`` f32) are the per-head RMS qk-norm's gains (variance over
     ``true_d``); ``fixed_max`` is the static softmax shift, exact only for
-    such normed scores (the TPU kernel's other modes have no caller here);
-    ``rope_tables=(cos, sin)`` (``[group, D/2]`` f32, see
+    such normed scores (refused without gains); without it the shift is
+    each row's max over the group's valid keys (K5r: Latte's attention, no
+    qk-norm); ``rope_tables=(cos, sin)`` (``[group, D/2]`` f32, see
     ``ops.rope.grouped_rope_tables``) fuse RoPE over the in-group position.
     Returns ``[B, S, H*D]``.
 
-    The kernel takes bf16 and D = 72 (STDiT3's heads); anything else on a
-    CUDA tensor raises.
+    The kernel takes contiguous bf16 and D = 72 (STDiT3's and Latte's
+    heads); anything else on a CUDA tensor raises. Launches count in
+    ``grouped_attention_fused_qkv.launches`` (fixed max) and
+    ``grouped_attention_fused_qkv.rowmax_launches`` (K5r).
     """
     b, s_len, three_hd = qkv.shape
-    if three_hd % (3 * heads) or s_len % group or not 1 <= (
-            group if group_valid is None else group_valid) <= group:
-        raise ValueError(f"grouped_attention_fused_qkv: bad geometry: width "
-                         f"{three_hd}, heads {heads}, S {s_len}, group {group}, "
-                         f"group_valid {group_valid}")
+    if three_hd % (3 * heads):
+        raise ValueError(f"grouped_attention_fused_qkv: width {three_hd} is not "
+                         f"3 x {heads} heads")
+    gvalid = _grouped_geometry("grouped_attention_fused_qkv", s_len, group,
+                               group_valid, qk_gains, fixed_max)
     if qkv.device.type == "cpu":
         return grouped_attention_fused_qkv_plain(
-            qkv, heads, group=group, group_valid=group_valid, scale=scale,
+            qkv, heads, group=group, group_valid=gvalid, scale=scale,
             qk_gains=qk_gains, rope_tables=rope_tables, true_d=true_d, eps=eps,
             fixed_max=fixed_max)
-    d = three_hd // (3 * heads)
-    gvalid = group if group_valid is None else group_valid
-    if d != GROUPED_HEAD_DIM or true_d not in (None, d):
-        raise ValueError(f"grouped_attention_fused_qkv: the kernel takes head "
-                         f"dim {GROUPED_HEAD_DIM} (true_d None or equal), got "
-                         f"{d} (true_d {true_d})")
     check_bf16("grouped_attention_fused_qkv: qkv", qkv, (b, s_len, three_hd),
-                qkv.device)
-    n_groups = b * s_len // group
-    if group > 16 and n_groups > 65535 or heads > 65535:
-        raise ValueError(f"grouped_attention_fused_qkv: {n_groups} groups or "
-                         f"{heads} heads exceed the launch grid")
-    gains = []
-    for name, t in zip(("qg", "kg"), qk_gains):
-        if t.device != qkv.device or t.numel() not in (d, heads * d):
-            raise ValueError(f"grouped_attention_fused_qkv: {name} must hold "
-                             f"[{heads}, {d}] or [{d}] on {qkv.device}")
-        gains.append(t.float().reshape(-1, d).expand(heads, d).contiguous())
-    cos = sin = None
-    if rope_tables is not None:
-        cos, sin = (t.float().contiguous() for t in rope_tables)
-        for t in (cos, sin):
-            if t.device != qkv.device or tuple(t.shape) != (group, d // 2):
-                raise ValueError(f"grouped_attention_fused_qkv: rope tables "
-                                 f"must be [{group}, {d // 2}] on {qkv.device}")
-    scale = (1.0 / math.sqrt(d)) if scale is None else scale
-    lib = load_cuda_library()
-    out = torch.empty((b, s_len, heads * d), dtype=qkv.dtype, device=qkv.device)
-    code = lib.mc_grouped_attention_fused_qkv(
-        qkv.data_ptr(), out.data_ptr(), gains[0].data_ptr(), gains[1].data_ptr(),
-        cos.data_ptr() if cos is not None else None,
-        sin.data_ptr() if sin is not None else None, b * s_len, heads, group,
-        gvalid, scale * _LOG2E, float(d), float(eps), float(fixed_max),
-        torch.cuda.current_stream(qkv.device).cuda_stream)
-    check_launch(lib, code, "grouped_attention_fused_qkv")
-    grouped_attention_fused_qkv.launches += 1
+               qkv.device)
+    q, k, v = split_qkv(qkv, heads)
+    out = _grouped_launch("grouped_attention_fused_qkv", q, k, v, group=group,
+                          gvalid=gvalid, scale=scale, qk_gains=qk_gains,
+                          rope_tables=rope_tables, true_d=true_d, eps=eps,
+                          fixed_max=fixed_max)
+    if fixed_max is None:
+        grouped_attention_fused_qkv.rowmax_launches += 1
+    else:
+        grouped_attention_fused_qkv.launches += 1
     return out
 
 
 grouped_attention_fused_qkv.launches = 0
+grouped_attention_fused_qkv.rowmax_launches = 0
 
 
 def fused_cross_attention_plain(

@@ -95,9 +95,13 @@ def load_cuda_library() -> ctypes.CDLL:
     lib.mc_matmul_gated_residual.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci,
                                              ci, ci, ci, vp]
     lib.mc_matmul_gated_residual.restype = ci
-    lib.mc_grouped_attention_fused_qkv.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci,
-                                                   ci, ci, cf, cf, cf, cf, vp]
-    lib.mc_grouped_attention_fused_qkv.restype = ci
+    lib.mc_grouped_attention.argtypes = [vp, vp, vp, cl, cl, cl, cl, cl, cl, vp, vp,
+                                         vp, vp, vp, ci, ci, ci, ci, ci, ci, cf, cf,
+                                         cf, cf, vp]
+    lib.mc_grouped_attention.restype = ci
+    lib.mc_tiny_attention.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, cf, cf,
+                                      vp]
+    lib.mc_tiny_attention.restype = ci
     lib.mc_fused_cross_attention.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci,
                                              ci, ci, ci, ci, ci, ci, ci, cf, ci, vp]
     lib.mc_fused_cross_attention.restype = ci

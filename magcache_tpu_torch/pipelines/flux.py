@@ -82,11 +82,12 @@ class FluxPipelineConfig:
 
 
 class FluxPipeline(BasePipeline):
-    """FLUX.1-dev / Kontext on ``device``. Without ``model``, the DiT of
-    ``config.model_config()`` gets random weights from a generator seeded
-    with ``init_seed``; a given ``model`` brings its own config."""
+    """FLUX.1-dev / Kontext on ``device`` (the card unless told otherwise).
+    Without ``model``, the DiT of ``config.model_config()`` gets random
+    weights from a generator seeded with ``init_seed``; a given ``model``
+    brings its own config."""
 
-    def __init__(self, config: FluxPipelineConfig, device, text_encoder=None,
+    def __init__(self, config: FluxPipelineConfig, device="cuda", text_encoder=None,
                  pooled_encoder=None, model: Optional[FluxModel] = None,
                  init_seed: int = 0):
         self.config = config

@@ -86,11 +86,12 @@ class OpenSoraPipelineConfig:
 
 
 class OpenSoraPipeline(BasePipeline):
-    """Open-Sora 1.2 on ``device``. Without ``model``, STDiT3 gets random
-    weights from a generator seeded with ``init_seed``; a given ``model``
-    brings its own configuration (widths, caption dim)."""
+    """Open-Sora 1.2 on ``device`` (the card unless told otherwise).
+    Without ``model``, STDiT3 gets random weights from a generator seeded
+    with ``init_seed``; a given ``model`` brings its own configuration
+    (widths, caption dim)."""
 
-    def __init__(self, config: OpenSoraPipelineConfig, device,
+    def __init__(self, config: OpenSoraPipelineConfig, device="cuda",
                  text_encoder=None, model: Optional[STDiT3Model] = None,
                  init_seed: int = 0):
         self.config = config

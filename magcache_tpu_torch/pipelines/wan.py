@@ -82,10 +82,11 @@ class WanPipelineConfig:
 
 
 class WanPipeline(BasePipeline):
-    """Wan2.1 t2v pipeline on ``device``. Without ``model``, the DiT gets
-    random weights from a generator seeded with ``init_seed``."""
+    """Wan2.1 t2v pipeline on ``device`` (the card unless told otherwise).
+    Without ``model``, the DiT gets random weights from a generator seeded
+    with ``init_seed``."""
 
-    def __init__(self, config: WanPipelineConfig, device,
+    def __init__(self, config: WanPipelineConfig, device="cuda",
                  text_encoder=None, model: Optional[WanModel] = None,
                  init_seed: int = 0):
         self.config = config

@@ -386,3 +386,138 @@ def test_tiny_open_sora_masked_and_large_frames_run_through_the_kernels(dev, tmp
             P.lnmod_matmul.launches - before[2]) == (2 * runs, 2 * runs, 0)
     assert out.latents.shape == (1, 3, 96, 96, 4) and torch.isfinite(out.latents).all()
     np.testing.assert_array_equal(out.latents[0, 0].cpu().numpy(), np.load(ref)[0])
+
+
+# ---- Latte: K5r (K5 without gains, row max), K4, K9, K1 at padded D ----------
+@pytest.mark.parametrize("b,s,heads,group,gvalid,norm,rope", [
+    (2, 1024, 3, 1024, 1024, False, False),  # Latte spatial frame (K5r)
+    (1, 2048 * 16, 16, 16, 16, False, False),  # Latte temporal (K5r)
+    (3, 200, 2, 100, 71, False, True),       # ragged tiles, RoPE without norm
+    (1, 64, 2, 32, 27, True, True),          # gains with the row max
+    (1, 48, 2, 8, 5, True, False)])
+def test_k5r_matches_plain(dev, b, s, heads, group, gvalid, norm, rope):
+    qkv, gains, tables = _grouped_inputs(dev, b, s, heads, group)
+    kw = dict(group=group, group_valid=gvalid, scale=72 ** -0.5,
+              qk_gains=gains if norm else None, rope_tables=tables if rope else None)
+    before = (A.grouped_attention_fused_qkv.launches,
+              A.grouped_attention_fused_qkv.rowmax_launches)
+    got = A.grouped_attention_fused_qkv(qkv, heads, **kw)
+    want = A.grouped_attention_fused_qkv_plain(qkv, heads, **kw)
+    assert (A.grouped_attention_fused_qkv.launches,
+            A.grouped_attention_fused_qkv.rowmax_launches) == (before[0], before[1] + 1)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("b,s,heads,group,gvalid,norm,rope,fixed_max", [
+    (1, 2048 * 16, 16, 16, 16, False, False, None),  # Latte temporal, grouped mode
+    (1, 3180 * 15, 16, 15, 15, True, True, 16.0),    # STDiT3 480p temporal
+    (2, 96, 2, 16, 13, True, True, None),
+    (1, 300, 2, 100, 77, False, True, None),          # tiled groups
+    (1, 256, 3, 128, 128, True, False, 16.0)])
+def test_k4_matches_plain(dev, b, s, heads, group, gvalid, norm, rope, fixed_max):
+    qkv, gains, tables = _grouped_inputs(dev, b, s, heads, group)
+    q, k, v = qkv.unflatten(-1, (3, heads, 72)).unbind(2)     # strided views
+    kw = dict(group=group, group_valid=gvalid, scale=72 ** -0.5,
+              qk_gains=gains if norm else None, rope_tables=tables if rope else None,
+              fixed_max=fixed_max)
+    before = A.grouped_flash_attention_bshd.launches
+    got = A.grouped_flash_attention_bshd(q, k, v, **kw)
+    want = A.grouped_flash_attention_bshd_plain(q, k, v, **kw)
+    assert A.grouped_flash_attention_bshd.launches == before + 1
+    assert got.shape == (b, s, heads, 72)
+    _close(got, want)
+    dense = A.grouped_flash_attention_bshd(q.contiguous(), k.contiguous(), v.contiguous(), **kw)
+    assert torch.equal(dense, got)
+
+
+@pytest.mark.parametrize("r,t,heads,d,norm,rope", [
+    (2048, 16, 16, 72, False, False),   # Latte temporal, vpu mode
+    (3180, 15, 16, 72, True, True),     # STDiT3 480p temporal
+    (37, 32, 3, 64, True, False),
+    (50, 5, 2, 128, False, True),
+    (9, 1, 4, 8, True, True)])
+def test_k9_matches_plain(dev, r, t, heads, d, norm, rope):
+    from magcache_tpu_torch.ops import tiny_attention as TA
+    from magcache_tpu_torch.ops.rope import rope_freqs_1d
+
+    qkv = _rand(dev, r, t, 3 * heads * d, scale=1.5, seed=31)
+    gains = tuple(1.0 + _rand(dev, d, dtype=torch.float32, scale=0.2, seed=32 + i)
+                  for i in range(2)) if norm else (None, None)
+    tabs = tuple(torch.from_numpy(a).to(dev) for a in rope_freqs_1d(np.arange(t), d)) \
+        if rope else (None, None)
+    before = TA.tiny_temporal_attention.launches
+    got = TA.tiny_temporal_attention(qkv, *gains, *tabs, heads, mode="vpu")
+    want = TA.tiny_temporal_attention_plain(qkv, *gains, *tabs, heads)
+    assert TA.tiny_temporal_attention.launches == before + 1
+    # f32 throughout, rounded once at the store: a bf16 ulp at most
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=1e-2)
+
+
+def test_latte_kernels_refuse_what_they_do_not_take(dev):
+    from magcache_tpu_torch.ops import tiny_attention as TA
+
+    q = _rand(dev, 1, 32, 2, 64)
+    with pytest.raises(ValueError, match="head dim"):                # D = 64
+        A.grouped_flash_attention_bshd(q, q, q, group=16)
+    q = _rand(dev, 1, 32, 2, 72)
+    with pytest.raises(ValueError):                                  # f32
+        A.grouped_flash_attention_bshd(q.float(), q.float(), q.float(), group=16)
+    with pytest.raises(ValueError):                                  # row not aligned
+        odd = _rand(dev, 1, 32, 2 * 72 + 1)[..., 1:].unflatten(-1, (2, 72))
+        A.grouped_flash_attention_bshd(odd, odd, odd, group=16)
+    with pytest.raises(ValueError, match="qk_gains"):                # fixed shift, no norm
+        A.grouped_flash_attention_bshd(q, q, q, group=16, fixed_max=16.0)
+    with pytest.raises(ValueError, match="head dim"):                # D = 12
+        TA.tiny_temporal_attention(_rand(dev, 4, 8, 3 * 2 * 12), None, None, None, None,
+                                   2, mode="vpu")
+    with pytest.raises(ValueError):                                  # strided qkv
+        TA.tiny_temporal_attention(_rand(dev, 4, 8, 2 * 3 * 2 * 72)[..., :3 * 2 * 72],
+                                   None, None, None, None, 2, mode="vpu")
+
+
+@pytest.mark.parametrize("sq,skv,fixed_max", [(1024, 1024, None), (2000, 120, None),
+                                              (300, 300, 16.0)])
+def test_attention_pads_head_dim_72_for_k1(dev, sq, skv, fixed_max):
+    q = _rand(dev, 2, sq, 3, 72, seed=41)
+    k, v = _rand(dev, 2, skv, 3, 72, seed=42), _rand(dev, 2, skv, 3, 72, seed=43)
+    before = A.flash_attention_bshd.launches
+    got = A.attention(q, k, v, fixed_max=fixed_max)
+    assert A.flash_attention_bshd.launches == before + 1
+    want = A.flash_attention_bshd_plain(q, k, v, scale=72 ** -0.5, fixed_max=fixed_max)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-3, rtol=2e-2)
+
+
+@pytest.mark.parametrize("route", ["packed", "grouped", "vpu"])
+def test_tiny_latte_pipeline_runs_through_the_kernels(dev, route):
+    """Frames of 256 tokens (> 128: K1 on the unpacked routes) through the
+    pipeline on the card; per block pair packed: K3 1, K5r 2, K6 1, K7 3,
+    K8 4; unpacked: K3 4, K1 2 and one K4 or K9."""
+    from magcache_tpu_torch.models.latte import LatteConfig, LatteModel
+    from magcache_tpu_torch.ops import tiny_attention as TA
+    from magcache_tpu_torch.pipelines.latte import LattePipeline, LattePipelineConfig
+
+    cfg = LatteConfig(hidden=144, heads=2, depth=2, caption_dim=64, time_embed_dim=64,
+                      dtype="bfloat16")
+    model = LatteModel(cfg, dev).init(torch.Generator(device=dev).manual_seed(0))
+    pipe = LattePipeline(LattePipelineConfig(
+        num_frames=4, height=256, width=256, num_sampling_steps=10, caption_len=20,
+        use_magcache=True, magcache_ratios=tuple(np.linspace(1.0, 0.96, 9)),
+        route=route, dtype="bfloat16"), dev, model=model)
+    counts = {"K3": P.layer_norm_mod, "K6": A.fused_cross_attention,
+              "K7": P.lnmod_matmul, "K8": P.matmul_gated_residual,
+              "K1": A.flash_attention_bshd, "K4": A.grouped_flash_attention_bshd,
+              "K9": TA.tiny_temporal_attention}
+    before = {k: f.launches for k, f in counts.items()}
+    before["K5r"] = A.grouped_attention_fused_qkv.rowmax_launches
+    out = pipe.generate("a boat", seed=0)
+    got = {k: f.launches - before[k] for k, f in counts.items()}
+    got["K5r"] = A.grouped_attention_fused_qkv.rowmax_launches - before["K5r"]
+    runs = int((~out.skips.all(1)).sum())
+    per_pair = (dict(K3=1, K5r=2, K6=1, K7=3, K8=4) if route == "packed" else
+                dict(K3=4, K1=2, **{"K4" if route == "grouped" else "K9": 1}))
+    assert got == {k: 2 * per_pair.get(k, 0) * runs for k in got}
+    assert out.skips.any() and runs < 10
+    assert out.latents.shape == (1, 4, 32, 32, 4) and torch.isfinite(out.latents).all()
+    np.testing.assert_array_equal(out.skips, pipe.skip_mask_for())

@@ -254,9 +254,10 @@ def test_sample_euler_matches_jax(mode):
 
 
 def test_sample_euler_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="x_coeffs"):
+    # x_coeffs (DDIM-eps) is ported; ancestral noise is not
+    with pytest.raises(NotImplementedError, match="noise_scales"):
         sample_euler(None, torch.zeros(1), {}, timesteps=np.ones(2), dts=np.ones(2),
-                     x_coeffs=np.ones(2))
+                     noise_scales=np.ones(2))
     with pytest.raises(NotImplementedError, match="post_step"):
         sample_euler(None, torch.zeros(1), {}, timesteps=np.ones(2), dts=np.ones(2),
                      post_step=lambda x: x)

@@ -1,13 +1,14 @@
 """Where one DiT forward spends its device time, on one NVIDIA card.
 
-    python tools/profile_torch_forward.py [--model wan|open-sora|flux] [--frames N]
-        [--resolution 480p|720p] [--top 15]
+    python tools/profile_torch_forward.py [--model wan|open-sora|flux|latte]
+        [--frames N] [--resolution 480p|720p] [--route packed|grouped|vpu] [--top 15]
 
 Builds the model (bf16, random seeded weights) from ``magcache_tpu_torch``:
 WAN_1_3B at 832x480 (default 81 frames, 2 CFG lanes), STDiT3-XL/2 at the
 Open-Sora 9:16 bucket of ``--resolution`` (default 480p, 51 frames, the joint
-CFG batch of 2; 720p is 1280x720, frames of 3,600 tokens through K1q) or FLUX.1-dev at
-1024x1024 (4,096 image + 512 text tokens, one row). Runs one warm-up forward
+CFG batch of 2; 720p is 1280x720, frames of 3,600 tokens through K1q), FLUX.1-dev at
+1024x1024 (4,096 image + 512 text tokens, one row) or Latte-1 at 512x512 (default
+16 frames, the joint CFG batch of 2, 120 caption tokens) on ``--route``. Runs one warm-up forward
 (prepare -> trunk -> head) and traces a second with ``torch.profiler``.
 Prints the wall time, the summed device time, the device's idle share of the
 wall time, and the kernels with the most device time. Needs a card: exits
@@ -28,11 +29,14 @@ import torch
 
 def main(argv=None):
     p = argparse.ArgumentParser()
-    p.add_argument("--model", choices=["wan", "open-sora", "flux"], default="wan")
+    p.add_argument("--model", choices=["wan", "open-sora", "flux", "latte"], default="wan")
     p.add_argument("--frames", type=int, default=None,
-                   help="pixel frames (default 81 for Wan, 51 for Open-Sora)")
+                   help="pixel frames (default 81 for Wan, 51 for Open-Sora, 16 for "
+                        "Latte)")
     p.add_argument("--resolution", default="480p",
                    help="open-sora bucket resolution (480p, 720p)")
+    p.add_argument("--route", default="packed", choices=["packed", "grouped", "vpu"],
+                   help="latte block composition")
     p.add_argument("--top", type=int, default=15)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -68,6 +72,14 @@ def main(argv=None):
         cond = {"txt": MockTextEncoder(512, 4096, 0.5)(["a fox"], device=dev),
                 "vec": MockPooledEncoder(768)(["a fox"], device=dev),
                 "guidance": torch.full((1,), 3.5, device=dev)}
+    elif args.model == "latte":
+        from magcache_tpu_torch.models.latte import LATTE_1, LatteModel, make_latte_core
+
+        model = LatteModel(dataclasses.replace(LATTE_1, dtype="bfloat16"), dev).init(gen)
+        grid = (args.frames or 16, 32, 32)
+        core = make_latte_core(model, grid, 120, route=args.route)
+        x = torch.randn((2, grid[0], 64, 64, 4), generator=g, device=dev)
+        cond = {"y": MockTextEncoder(120, 4096, 0.5)(["a boat", ""], device=dev)}
     else:
         from magcache_tpu_torch.models.stdit3 import (STDIT3_XL_2, STDiT3Model,
                                                       make_stdit3_core)
