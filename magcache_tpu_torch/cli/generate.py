@@ -13,7 +13,16 @@ and its conditioning flags ``--loop --ms/--mask_strategy
 and the output file name encodes the E/K/R triple. Unset flags take each
 family's reference defaults, as in the JAX CLI. Runs on a CUDA card by
 default; ``--device cpu`` runs the plain PyTorch ops instead of the kernels
-(tests use it at ``--tiny`` size).
+(tests use it at ``--tiny`` size; the tiny models' head dims are not ones
+the kernels take, so ``--tiny`` on a card exits with a message).
+
+Sequence parallelism (Wan only): ``--sp N``, or the reference's aliases
+``--ulysses_size N`` and ``--ring_size N`` (ring attention), run N ranks,
+one process each, every rank on ``1/N`` of the tokens. Start them with
+``torchrun`` (it sets ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK`` and the
+rendezvous address), or set ``RANK`` and ``WORLD_SIZE`` yourself and pass
+``--dist_init_method``. Rank r runs on ``cuda:LOCAL_RANK`` over NCCL, or with
+``--device cpu`` over gloo. Rank 0 saves the output.
 
 Examples:
   python -m magcache_tpu_torch.cli.generate --task t2v-1.3B --size 832*480 \
@@ -29,6 +38,8 @@ Examples:
       --save_file latte                 # 16x512x512, 50 DDIM steps: records ratios
   python -m magcache_tpu_torch.cli.generate --task latte --use_magcache \
       --mag_ratios_json latte_mag_ratio.json [--route grouped]
+  torchrun --nproc_per_node 4 -m magcache_tpu_torch.cli.generate --task t2v-1.3B \
+      --use_magcache --ulysses_size 4           # or --ring_size 4
 Checkpoints are not loaded yet: the DiT has random weights and the text
 encoders are the hash-seeded mocks, so the output is latents, not a video or
 an image. ``flux-kontext-dev`` runs its preset and guidance without a
@@ -41,6 +52,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -125,11 +137,50 @@ def build_parser() -> argparse.ArgumentParser:
                    help="toy-size model for smoke runs")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' (default) needs a card")
+    # sequence parallelism (the reference's xfuser flags map onto sp)
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel ranks (t2v-1.3B; one process each)")
+    p.add_argument("--ulysses_size", type=int, default=None,
+                   help="alias: --sp with Ulysses attention")
+    p.add_argument("--ring_size", type=int, default=None,
+                   help="alias: --sp with ring attention")
+    p.add_argument("--dist_init_method", default=None,
+                   help="process-group rendezvous (tcp://host:port or "
+                        "file:///path) when not started by torchrun; RANK and "
+                        "WORLD_SIZE are read from the environment")
     return p
+
+
+def _sp_plan(args, device):
+    """``(plan, device)`` of this process's rank for ``--sp`` > 1: joins the
+    process group (NCCL on ``cuda:LOCAL_RANK``, gloo for ``--device cpu``)."""
+    from magcache_tpu_torch.parallel.mesh import MeshPlan, TorchDistGroup, init_distributed
+
+    env = os.environ
+    if "RANK" not in env or "WORLD_SIZE" not in env:
+        raise SystemExit(
+            f"--sp {args.sp} runs one process per rank: start them with torchrun "
+            f"(torchrun --nproc_per_node {args.sp} -m magcache_tpu_torch.cli.generate "
+            f"...), which sets RANK and WORLD_SIZE")
+    world, rank = int(env["WORLD_SIZE"]), int(env["RANK"])
+    if world != args.sp:
+        raise SystemExit(f"--sp {args.sp} but WORLD_SIZE is {world}")
+    if device.type == "cuda":
+        device = torch.device("cuda", int(env.get("LOCAL_RANK", rank)))
+        torch.cuda.set_device(device)
+    kw = {}
+    if args.dist_init_method:
+        kw = dict(init_method=args.dist_init_method, world_size=world, rank=rank)
+    init_distributed(backend="nccl" if device.type == "cuda" else "gloo", **kw)
+    return MeshPlan(TorchDistGroup()), device
 
 
 def _wan_pipeline(args, device, ratios):
     from magcache_tpu_torch.pipelines.wan import WanPipeline, WanPipelineConfig
+
+    plan = None
+    if args.sp > 1:
+        plan, device = _sp_plan(args, device)
 
     w, h = _parse_size(args.size)
     frame_num = args.frame_num or 81
@@ -145,8 +196,9 @@ def _wan_pipeline(args, device, ratios):
         use_magcache=args.use_magcache, magcache_thresh=args.magcache_thresh,
         magcache_K=args.magcache_K, retention_ratio=args.retention_ratio,
         magcache_calibration=args.magcache_calibration,
-        mag_ratios_override=ratios, dtype=args.dtype, tiny=args.tiny)
-    return WanPipeline(cfg, device), cfg.sample_steps, 2
+        mag_ratios_override=ratios, dtype=args.dtype, tiny=args.tiny,
+        sp=args.sp, sp_impl="ring" if args.ring_size else "auto")
+    return WanPipeline(cfg, device, plan=plan), cfg.sample_steps, 2
 
 
 def _open_sora_pipeline(args, device, ratios):
@@ -234,6 +286,16 @@ def _pipeline(args):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available "
                          "(pass --device cpu to run the plain ops)")
+    if args.tiny and device.type == "cuda":
+        raise SystemExit("--tiny: the toy models' head dims are not ones the "
+                         "kernels take; pass --device cpu to run it on the plain ops")
+    if args.ulysses_size:
+        args.sp = args.ulysses_size
+    if args.ring_size:
+        args.sp = args.ring_size
+    if args.sp > 1 and args.task != "t2v-1.3B":
+        raise SystemExit(f"--sp: sequence parallelism is ported for t2v-1.3B "
+                         f"only, not for {args.task!r}")
     ratios = None
     if args.mag_ratios_json:
         with open(args.mag_ratios_json) as f:
@@ -261,6 +323,13 @@ def main(argv=None):
     except NotImplementedError as e:
         raise SystemExit(str(e)) from e
     dt = time.time() - t0
+    plan = getattr(pipe, "plan", None)
+    if plan is not None:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+        if plan.rank != 0:
+            return             # every rank holds the whole output; rank 0 saves
 
     E = args.magcache_thresh if args.magcache_thresh is not None else "def"
     K = args.magcache_K if args.magcache_K is not None else "def"

@@ -19,6 +19,11 @@ Same design as ``magcache_tpu.core.sampler``, in PyTorch's eager idiom:
   device-to-host copy at the end.
 - UniPC coefficients are computed on the host in f64 and cast to f32 for
   the device update, as the JAX sampler does.
+- Sequence parallelism needs nothing of the loop: under a ``plan`` a core's
+  ``prepare`` returns the rank's token shard, so the residual cache holds
+  that shard only, and its ``head`` returns the whole output on every rank.
+  The skip bits come from the static schedule and are the same on every
+  rank. Only calibration takes the plan, to all-reduce its token means.
 - ``sample_euler`` is the linear-update loop ``x <- cx_i * x + dt_i * v``
   (RFLOW's Euler step, and DDIM-eps with ``x_coeffs``); Open-Sora and Latte
   run it with a joint CFG batch of 2 rows under one cache lane and an
@@ -171,6 +176,7 @@ def unipc_executor(
     skip_mask_override: Optional[np.ndarray] = None,
     batch: int = 1,
     calibrate: bool = False,
+    plan=None,
 ):
     """The UniPC step machinery. Returns ``(init_carry, step)``:
     ``init_carry(x_init)`` builds the carry and ``step(carry, i, cond)``
@@ -180,6 +186,8 @@ def unipc_executor(
 
     ``skip_mask_override`` (``bool[num_steps, lanes]``) replaces the schedule
     that ``cache_cfg`` would give; ``calibrate=True`` disables the cache.
+    ``plan``: the sequence-parallel plan the core was made with, for the
+    calibration statistics (means over all ranks' tokens).
     """
     if calibrate:
         cache_cfg = None
@@ -229,7 +237,7 @@ def unipc_executor(
             rpl = hidden.shape[0] // n_lanes
             emitted = torch.stack([
                 calibration_stats(resid[l * rpl:(l + 1) * rpl],
-                                  cache[l * rpl:(l + 1) * rpl])
+                                  cache[l * rpl:(l + 1) * rpl], plan)
                 for l in range(n_lanes)])
             cache = resid
         else:
@@ -261,14 +269,16 @@ def unipc_executor(
 
 @torch.inference_mode()
 def calibrate_unipc(core: DiTCore, x_init: torch.Tensor, cond, schedule: UniPCSchedule,
-                    *, lanes: int = 1, guidance_scale: Optional[float] = None):
+                    *, lanes: int = 1, guidance_scale: Optional[float] = None,
+                    plan=None):
     """Full-compute UniPC run that records calibration statistics on the
     generation trajectory. Returns ``(x_final, stats f64[num_steps-1, lanes,
-    3])``: step i compares with step i-1's residual of the same lane."""
+    3])``: step i compares with step i-1's residual of the same lane. Pass
+    the ``plan`` a sequence-parallel core was made with."""
     init_carry, step = unipc_executor(
         core, schedule, guidance_scale=guidance_scale,
         lanes=lanes if lanes > 1 else None, batch=x_init.shape[0],
-        calibrate=True)
+        calibrate=True, plan=plan)
     carry = init_carry(x_init)
     stats = []
     for i in range(schedule.num_steps):

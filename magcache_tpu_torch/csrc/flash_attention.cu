@@ -1,7 +1,15 @@
-// K1: flash attention forward on the DiT activation layout [B, S, H, D], bf16.
+// K1, K1b and K1c: flash attention forward, bf16, head dim 128, one kernel
+// body that reads q, k, v and writes o through (batch, head, token) strides.
 //
-// Replaces the TPU kernel magcache_tpu/ops/attention.py:flash_attention_bshd
-// (Pallas bodies _flash_kernel_bshd_fixed_max and _flash_kernel_bshd).
+// K1 replaces the TPU kernel magcache_tpu/ops/attention.py:flash_attention_bshd
+// (Pallas bodies _flash_kernel_bshd_fixed_max and _flash_kernel_bshd) on the
+// DiT activation layout [B, S, H, D]. K1b replaces flash_attention_bhsd
+// (_flash_kernel, _flash_kernel_fixed_max) on [B, H, S, D]: the same math,
+// only the strides differ, so a [B, S, H, D] tensor viewed as [B, H, S, D]
+// needs no transpose copy (Ulysses attention after its all-to-all). K1c
+// replaces flash_attention_bhsd_aux (_flash_kernel_aux): the running-max
+// softmax that also returns each row's max m and sum l (f32 [B, H, Sq]), the
+// state that ring attention merges across key shards.
 //
 // Math, point for point as the TPU kernel rounds it:
 //   - q is pre-scaled by scale*log2(e) and rounded to bf16 before the score
@@ -15,6 +23,11 @@
 //     softmax with alpha = exp2(m_old - m_new);
 //   - p is rounded to bf16 before the PV product, l sums the f32 p, the f32
 //     accumulator is divided by l at the end and rounded to bf16.
+// K1c (kAux) rounds at other points, as its TPU kernel does: q is NOT
+// pre-scaled; the f32 scores are multiplied by scale*log2(e) after the
+// product; keys at or past kv_len are always masked; from there the running
+// max as above. m is stored in the natural base (the base-2 running max
+// divided by log2(e)), l is base-invariant.
 //
 // What bounds it on the H100: at Wan-480p self-attention (B=2, S=32,760,
 // H=12, D=128) the kernel does 4*B*H*S^2*D = 1.3e13 flops over 0.2 GB of
@@ -86,42 +99,58 @@ using mc::kNegInf;
 constexpr size_t kSmemBytes =
     (size_t)(kBlockM + 2 * kBlockN) * kStride * sizeof(__nv_bfloat16);
 
-// Copy kBlockN rows of one head, starting at row0, into a padded smem tile.
-// Rows at or past `limit` are zero-filled.
+// Copy the kBlockN rows of one head that start at src into a padded smem
+// tile. Rows at or past `limit` are zero-filled.
 __device__ __forceinline__ void load_kv_tile(__nv_bfloat16* dst,
                                              const __nv_bfloat16* src,
-                                             size_t row_stride, int row0,
-                                             int limit) {
+                                             long long row_stride, int limit) {
   for (int c = threadIdx.x; c < kBlockN * kChunksPerRow; c += kThreads) {
     const int r = c / kChunksPerRow;
     const int col = (c % kChunksPerRow) * 8;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < limit)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * row_stride + col);
+    if (r < limit)
+      val = *reinterpret_cast<const uint4*>(src + (long long)r * row_stride + col);
     *reinterpret_cast<uint4*>(dst + r * kStride + col) = val;
   }
 }
 
-template <bool kFixedMax>
+enum Mode { kRunning = 0, kFixedMax = 1, kAux = 2 };
+constexpr float kLog2e = 1.4426950408889634f;
+
+// One tensor's element strides: batch, head, token (the channel stride is 1).
+struct Strides {
+  long long b, h, t;
+};
+
+struct FlashArgs {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  __nv_bfloat16* o;
+  float* m_out;            // kAux only: [B, H, Sq], natural base
+  float* l_out;            // kAux only: [B, H, Sq]
+  Strides qs, ks, vs, os;
+  int Sq, H, kv_len;
+  float q_scale;           // scale*log2(e): applied to q (bf16) or, kAux, to s (f32)
+  float m_const;           // kFixedMax only
+};
+
+template <int kMode>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_bshd_kernel(const __nv_bfloat16* __restrict__ q,
-                            const __nv_bfloat16* __restrict__ k,
-                            const __nv_bfloat16* __restrict__ v,
-                            __nv_bfloat16* __restrict__ o, int Sq, int Skv,
-                            int H, int kv_len, float q_scale, float m_const) {
+flash_attention_kernel(const FlashArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* Ks = Qs + kBlockM * kStride;
   __nv_bfloat16* Vs = Ks + kBlockN * kStride;
 
-  const int b = blockIdx.y / H;
-  const int h = blockIdx.y % H;
+  const int b = blockIdx.y / a.H;
+  const int h = blockIdx.y % a.H;
   const int q0 = blockIdx.x * kBlockM;
-  const size_t row_stride = (size_t)H * kHeadDim;
-  const __nv_bfloat16* qh = q + (size_t)b * Sq * row_stride + (size_t)h * kHeadDim;
-  const __nv_bfloat16* kh = k + (size_t)b * Skv * row_stride + (size_t)h * kHeadDim;
-  const __nv_bfloat16* vh = v + (size_t)b * Skv * row_stride + (size_t)h * kHeadDim;
-  __nv_bfloat16* oh = o + (size_t)b * Sq * row_stride + (size_t)h * kHeadDim;
+  const int Sq = a.Sq, kv_len = a.kv_len;
+  const __nv_bfloat16* qh = a.q + b * a.qs.b + h * a.qs.h;
+  const __nv_bfloat16* kh = a.k + b * a.ks.b + h * a.ks.h;
+  const __nv_bfloat16* vh = a.v + b * a.vs.b + h * a.vs.h;
+  __nv_bfloat16* oh = a.o + b * a.os.b + h * a.os.h;
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -129,17 +158,20 @@ flash_attention_bshd_kernel(const __nv_bfloat16* __restrict__ q,
   const int t = lane & 3;      // thread in group: accumulator cols 2t, 2t + 1
   const int wr = warp * 16;    // this warp's first row in the Q tile
 
-  // Q tile, scaled by scale*log2(e) and rounded to bf16; rows past Sq are 0.
+  // Q tile, scaled by scale*log2(e) and rounded to bf16 (kAux: as it is);
+  // rows past Sq are 0.
   for (int c = threadIdx.x; c < kBlockM * kChunksPerRow; c += kThreads) {
     const int r = c / kChunksPerRow;
     const int col = (c % kChunksPerRow) * 8;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (q0 + r < Sq) {
-      val = *reinterpret_cast<const uint4*>(qh + (size_t)(q0 + r) * row_stride + col);
-      __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&val);
+      val = *reinterpret_cast<const uint4*>(qh + (long long)(q0 + r) * a.qs.t + col);
+      if (kMode != kAux) {
+        __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&val);
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-        e[i] = __float2bfloat16(__bfloat162float(e[i]) * q_scale);
+        for (int i = 0; i < 8; ++i)
+          e[i] = __float2bfloat16(__bfloat162float(e[i]) * a.q_scale);
+      }
     }
     *reinterpret_cast<uint4*>(Qs + r * kStride + col) = val;
   }
@@ -167,8 +199,11 @@ flash_attention_bshd_kernel(const __nv_bfloat16* __restrict__ q,
   for (int j = 0; j < n_tiles; ++j) {
     const int k0 = j * kBlockN;
     __syncthreads();  // every warp is done with the previous tile
-    load_kv_tile(Ks, kh, row_stride, k0, kv_len);
-    load_kv_tile(Vs, vh, row_stride, k0, kv_len);
+    // the tile's base is advanced here, once per tile: with the row offset
+    // folded into every thread's address instead, nvcc 12.8 schedules the
+    // fixed-max loop about 5% slower at Wan's self shape (PERF.md)
+    load_kv_tile(Ks, kh + (long long)k0 * a.ks.t, a.ks.t, kv_len - k0);
+    load_kv_tile(Vs, vh + (long long)k0 * a.vs.t, a.vs.t, kv_len - k0);
     __syncthreads();
 
     // S = Q K^T for 16 rows x 64 keys: 8 n-tiles of 8 keys.
@@ -183,6 +218,12 @@ flash_attention_bshd_kernel(const __nv_bfloat16* __restrict__ q,
                   *reinterpret_cast<const uint32_t*>(kb + 8));
       }
     }
+    if (kMode == kAux) {
+#pragma unroll
+      for (int nt = 0; nt < kBlockN / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] *= a.q_scale;
+    }
     if (k0 + kBlockN > kv_len) {
 #pragma unroll
       for (int nt = 0; nt < kBlockN / 8; ++nt)
@@ -191,7 +232,8 @@ flash_attention_bshd_kernel(const __nv_bfloat16* __restrict__ q,
           if (k0 + nt * 8 + t * 2 + (e & 1) >= kv_len) s[nt][e] = kNegInf;
     }
 
-    if (kFixedMax) {
+    if (kMode == kFixedMax) {
+      const float m_const = a.m_const;
       const float cap = m_const + 126.f;   // exp2 overflow guard
 #pragma unroll
       for (int nt = 0; nt < kBlockN / 8; ++nt)
@@ -262,28 +304,41 @@ flash_attention_bshd_kernel(const __nv_bfloat16* __restrict__ q,
   for (int nt = 0; nt < kHeadDim / 8; ++nt) {
     const int col = nt * 8 + t * 2;
     if (r0 < Sq)
-      *reinterpret_cast<uint32_t*>(oh + (size_t)r0 * row_stride + col) =
+      *reinterpret_cast<uint32_t*>(oh + (long long)r0 * a.os.t + col) =
           pack_bf16(acc[nt][0] / l_run[0], acc[nt][1] / l_run[0]);
     if (r1 < Sq)
-      *reinterpret_cast<uint32_t*>(oh + (size_t)r1 * row_stride + col) =
+      *reinterpret_cast<uint32_t*>(oh + (long long)r1 * a.os.t + col) =
           pack_bf16(acc[nt][2] / l_run[1], acc[nt][3] / l_run[1]);
+  }
+  if (kMode == kAux && t == 0) {
+    // the quad holds the same m and l; m goes back to the natural base
+    const size_t row = (size_t)blockIdx.y * Sq;
+    if (r0 < Sq) {
+      a.m_out[row + r0] = m_run[0] / kLog2e;
+      a.l_out[row + r0] = l_run[0];
+    }
+    if (r1 < Sq) {
+      a.m_out[row + r1] = m_run[1] / kLog2e;
+      a.l_out[row + r1] = l_run[1];
+    }
   }
 }
 
-template <bool kFixedMax>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Sq, int Skv, int H, int kv_len, float q_scale, float m_const,
-           cudaStream_t stream) {
-  auto kernel = flash_attention_bshd_kernel<kFixedMax>;
+template <int kMode>
+int launch(const FlashArgs& a, int B, cudaStream_t stream) {
+  auto kernel = flash_attention_kernel<kMode>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Sq + kBlockM - 1) / kBlockM, B * H);
-  kernel<<<grid, kThreads, kSmemBytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq,
-      Skv, H, kv_len, q_scale, m_const);
+  const dim3 grid((a.Sq + kBlockM - 1) / kBlockM, B * a.H);
+  kernel<<<grid, kThreads, kSmemBytes, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+int launch_mode(int mode, const FlashArgs& a, int B, cudaStream_t stream) {
+  if (mode == kFixedMax) return launch<kFixedMax>(a, B, stream);
+  if (mode == kAux) return launch<kAux>(a, B, stream);
+  return launch<kRunning>(a, B, stream);
 }
 
 // ---- K1q: per-head RMS qk-norm fused into the q/k loads, head dim 72 -------
@@ -390,15 +445,55 @@ extern "C" int mc_flash_attention_qknorm(
   return (int)cudaGetLastError();
 }
 
+// K1: contiguous [B, S, H, 128] q, k, v and o.
 extern "C" int mc_flash_attention_bshd(const void* q, const void* k,
                                        const void* v, void* o, int B, int Sq,
                                        int Skv, int H, int kv_len,
                                        float q_scale, int fixed_max,
                                        float m_const, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (fixed_max)
-    return launch<true>(q, k, v, o, B, Sq, Skv, H, kv_len, q_scale, m_const, st);
-  return launch<false>(q, k, v, o, B, Sq, Skv, H, kv_len, q_scale, m_const, st);
+  FlashArgs a{};
+  a.q = static_cast<const __nv_bfloat16*>(q);
+  a.k = static_cast<const __nv_bfloat16*>(k);
+  a.v = static_cast<const __nv_bfloat16*>(v);
+  a.o = static_cast<__nv_bfloat16*>(o);
+  const long long row = (long long)H * kHeadDim;
+  a.qs = a.os = Strides{(long long)Sq * row, kHeadDim, row};
+  a.ks = a.vs = Strides{(long long)Skv * row, kHeadDim, row};
+  a.Sq = Sq;
+  a.H = H;
+  a.kv_len = kv_len;
+  a.q_scale = q_scale;
+  a.m_const = m_const;
+  return launch_mode(fixed_max ? kFixedMax : kRunning, a, B,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// K1b (mode 0: running max, 1: fixed max) and K1c (mode 2: running max, the
+// f32 scores scaled after the product, m and l returned): q, k, v and o of
+// head dim 128 read through their (batch, head, token) element strides,
+// `strides` = {q, k, v, o} x {batch, head, token}.
+extern "C" int mc_flash_attention_strided(
+    const void* q, const void* k, const void* v, void* o, void* m_out,
+    void* l_out, int B, int Sq, int H, int kv_len, const long long* strides,
+    float q_scale, int mode, float m_const, void* stream) {
+  if (mode < kRunning || mode > kAux) return (int)cudaErrorInvalidValue;
+  FlashArgs a{};
+  a.q = static_cast<const __nv_bfloat16*>(q);
+  a.k = static_cast<const __nv_bfloat16*>(k);
+  a.v = static_cast<const __nv_bfloat16*>(v);
+  a.o = static_cast<__nv_bfloat16*>(o);
+  a.m_out = static_cast<float*>(m_out);
+  a.l_out = static_cast<float*>(l_out);
+  a.qs = Strides{strides[0], strides[1], strides[2]};
+  a.ks = Strides{strides[3], strides[4], strides[5]};
+  a.vs = Strides{strides[6], strides[7], strides[8]};
+  a.os = Strides{strides[9], strides[10], strides[11]};
+  a.Sq = Sq;
+  a.H = H;
+  a.kv_len = kv_len;
+  a.q_scale = q_scale;
+  a.m_const = m_const;
+  return launch_mode(mode, a, B, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* mc_error_string(int code) {

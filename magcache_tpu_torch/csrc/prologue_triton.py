@@ -1,4 +1,5 @@
-"""K2 and K3: the attention-prologue kernels in Triton, one program per token.
+"""K2, K3 and K3p: the attention-prologue kernels in Triton, one program per
+token.
 
 This module imports ``triton`` at the top, so only the launching wrappers in
 ``ops/fused_prologue.py`` import it, and only for a CUDA tensor.
@@ -16,7 +17,8 @@ K3, ``layer_norm_mod_kernel``, replaces ``magcache_tpu/ops/fused_prologue.py:
 layer_norm_mod`` (Pallas body ``_ln_mod_kernel``): two-pass f32 LayerNorm,
 then ``mod`` mode rounds ln(x) to the activation dtype and applies
 ``*(1 + scale) + shift`` with the sample's f32 rows, or ``affine`` mode
-applies ``*w + b`` with no intermediate rounding.
+applies ``*w + b`` with no intermediate rounding. K3p is the TPU kernel's ``plain``
+mode (``MODE == 2``): ln(x) alone, rounded once at the store.
 
 What bounds them on the H100: each is one reduction over a 1536- to
 3072-wide row plus an elementwise epilogue, about 2 flops per byte, so HBM
@@ -74,8 +76,10 @@ def rms_norm_rope_kernel(x_ptr, g_ptr, cos_ptr, sin_ptr, o_ptr, S, stride_b,
 
 @triton.jit
 def layer_norm_mod_kernel(x_ptr, a_ptr, b_ptr, o_ptr, S, eps,
-                          D: tl.constexpr, MOD: tl.constexpr,
+                          D: tl.constexpr, MODE: tl.constexpr,
                           BLOCK: tl.constexpr):
+    # MODE 0: affine (a/b = weight/bias), 1: mod (a/b = scale/shift rows),
+    # 2: plain (a/b unread)
     row = tl.program_id(0).to(tl.int64)         # token row over B*S
     cols = tl.arange(0, BLOCK)
     mask = cols < D
@@ -84,14 +88,14 @@ def layer_norm_mod_kernel(x_ptr, a_ptr, b_ptr, o_ptr, S, eps,
     cent = tl.where(mask, x - mean, 0.0)
     var = tl.sum(cent * cent, axis=0) / D
     y = cent * (1.0 / tl.sqrt(var + eps))
-    if MOD:
+    if MODE == 1:
         # a/b are the sample's scale/shift rows [B, D]
         sample = row // S
         a = tl.load(a_ptr + sample * D + cols, mask=mask, other=0.0)
         b = tl.load(b_ptr + sample * D + cols, mask=mask, other=0.0)
         y = y.to(o_ptr.dtype.element_ty).to(tl.float32)
         y = y * (1.0 + a) + b
-    else:
+    elif MODE == 0:
         # a/b are the affine weight/bias [D]
         a = tl.load(a_ptr + cols, mask=mask, other=0.0)
         b = tl.load(b_ptr + cols, mask=mask, other=0.0)

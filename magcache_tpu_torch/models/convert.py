@@ -35,6 +35,9 @@ def wan_params_from_numpy(tree: dict, cfg: WanConfig, device=None,
 
     ``dtype`` is the dtype of the patch embedding and the block linears
     (default ``cfg.torch_dtype``); every other parameter is f32.
+
+    Sequence parallelism shards tokens, never weights: every ``sp`` rank
+    loads this same whole tree (local ranks share one model).
     """
     if cfg.model_type != "t2v" or cfg.vace_layers:
         raise NotImplementedError("only the t2v Wan parameters are ported")

@@ -22,13 +22,21 @@ so every point where JAX promotes bf16 to f32 upcasts explicitly.
 The MagCache boundary is the whole block stack: ``make_wan_core`` splits the
 model into ``prepare`` / ``trunk`` / ``head``. Only t2v is ported; i2v, VACE
 and ti2v raise ``NotImplementedError``.
+
+Sequence parallelism: with a ``plan`` (``parallel.mesh.MeshPlan``) every rank
+runs the same core on its ``1/sp`` of the tokens. ``prepare`` embeds only the
+rank's token rows, the RoPE tables are cut to those rows, the text context
+stays whole on every rank, self-attention goes through Ulysses or the ring
+and cross-attention keeps q sharded against the whole context, and ``head``
+all-gathers the sequence before it unpatchifies, so every rank returns the
+whole output. Weights are replicated.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,9 +45,9 @@ from torch import nn
 
 from magcache_tpu_torch.core.sampler import DiTCore
 from magcache_tpu_torch.models.common import DTYPES, init_linear_, timestep_embedding
-from magcache_tpu_torch.ops.attention import QKNORM_FIXED_MAX, attention
+from magcache_tpu_torch.ops.attention import QKNORM_FIXED_MAX, RING_THRESHOLD, attention
 from magcache_tpu_torch.ops.fused_prologue import layer_norm_mod, rms_norm_rope
-from magcache_tpu_torch.ops.norms import layer_norm, rms_norm
+from magcache_tpu_torch.ops.norms import rms_norm
 from magcache_tpu_torch.ops.rope import rope_freqs_1d
 
 __all__ = ["WanConfig", "WanModel", "make_wan_core", "wan_rope_tables",
@@ -158,8 +166,13 @@ class WanBlock(nn.Module):
         self.ffn1, self.ffn2 = lin(d, cfg.ffn_dim), lin(cfg.ffn_dim, d)
 
     def forward(self, x: torch.Tensor, e0: torch.Tensor, context: torch.Tensor,
-                cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+                cos: torch.Tensor, sin: torch.Tensor, sp: Optional[dict] = None
+                ) -> torch.Tensor:
+        """``sp``: the sequence-parallel arguments of ``attention()``
+        (``plan``, ``sp_impl``, ``ring_threshold``) when x holds one rank's
+        tokens (cos/sin then hold those rows' tables); None on one rank."""
         cfg = self.cfg
+        sp = sp or {}
         b, s, _ = x.shape
         heads, eps = cfg.heads, cfg.eps
         # per-block modulation table added in f32: [B, 6, D]
@@ -174,7 +187,8 @@ class WanBlock(nn.Module):
         q = rms_norm_rope(self.q(xn), self.norm_q, cos, sin, heads, eps=eps)
         k = rms_norm_rope(self.k(xn), self.norm_k, cos, sin, heads, eps=eps)
         v = self.v(xn).reshape(b, s, heads, -1)
-        a = attention(q, k, v, fixed_max=QKNORM_FIXED_MAX).reshape(x.shape)
+        a = attention(q, k, v, fixed_max=QKNORM_FIXED_MAX, kv_replicated=False,
+                      **sp).reshape(x.shape)
         x = gate(x, self.o(a), 2)
 
         # cross-attention to the text context (residual in the activation dtype)
@@ -183,7 +197,8 @@ class WanBlock(nn.Module):
         cq = rms_norm(self.cross_q(xc), self.cross_norm_q, eps=eps).reshape(b, s, heads, -1)
         ck = rms_norm(self.cross_k(context), self.cross_norm_k, eps=eps).reshape(b, sc, heads, -1)
         cv = self.cross_v(context).reshape(b, sc, heads, -1)
-        ca = attention(cq, ck, cv, fixed_max=QKNORM_FIXED_MAX).reshape(x.shape)
+        ca = attention(cq, ck, cv, fixed_max=QKNORM_FIXED_MAX, kv_replicated=True,
+                       **sp).reshape(x.shape)
         x = x + self.cross_o(ca)
 
         # FFN, tanh-gelu
@@ -243,22 +258,46 @@ class WanModel(nn.Module):
         return self
 
 
-def make_wan_core(model: WanModel, grid: Tuple[int, int, int]) -> DiTCore:
+def make_wan_core(model: WanModel, grid: Tuple[int, int, int], plan=None, *,
+                  sp_impl: str = "auto",
+                  ring_threshold: int = RING_THRESHOLD) -> DiTCore:
     """(prepare, trunk, head) for a static latent patch grid (F, H, W).
 
     cond = {"context": f[B, text_len, text_dim]}
     x    = latent video f[B, F*pt, H*ph, W*pw, C] (channel-last)
+
+    With ``plan`` the core is one rank's: hidden holds the rank's
+    ``F*H*W / sp`` token rows (the count must divide by ``sp``), x and the
+    head's output are whole on every rank. ``sp_impl`` ("auto", "ulysses",
+    "ring") and ``ring_threshold`` pick self-attention's strategy (see
+    ``ops.attention.attention``).
     """
     cfg = model.cfg
     device = model.patch_embedding.weight.device
     cos_np, sin_np = wan_rope_tables(cfg, grid)
     cos = torch.from_numpy(cos_np).to(device)
     sin = torch.from_numpy(sin_np).to(device)
+    sp = None
+    if plan is not None:
+        from magcache_tpu_torch.parallel.collectives import (gather_sequence,
+                                                             split_sequence)
+        plan.shard_len(cos.shape[0], "make_wan_core: the token")
+        ring = sp_impl == "ring" or (sp_impl == "auto"
+                                     and cos.shape[0] >= ring_threshold)
+        if not ring and cfg.heads % plan.sp:
+            raise ValueError(f"make_wan_core: {cfg.heads} heads do not divide by "
+                             f"sp = {plan.sp} (Ulysses attention)")
+        cos = split_sequence(cos, plan, 0).contiguous()
+        sin = split_sequence(sin, plan, 0).contiguous()
+        sp = dict(plan=plan, sp_impl=sp_impl, ring_threshold=ring_threshold)
 
     @torch.inference_mode()
     def prepare(x, t, cond):
         dt = cfg.torch_dtype
-        hidden = model.patch_embedding(patchify(cfg, x.to(dt)))
+        tokens = patchify(cfg, x.to(dt))
+        if plan is not None:        # embed this rank's token rows only
+            tokens = split_sequence(tokens, plan, 1)
+        hidden = model.patch_embedding(tokens)
         te = model.time_embedding
         e = te["out"](F.silu(te["in"](timestep_embedding(t, cfg.freq_dim))))
         e0 = model.time_projection(F.silu(e)).reshape(e.shape[0], 6, cfg.dim)
@@ -271,7 +310,7 @@ def make_wan_core(model: WanModel, grid: Tuple[int, int, int]) -> DiTCore:
     def trunk(hidden, ctx):
         x = hidden
         for blk in model.blocks:
-            x = blk(x, ctx["e0"], ctx["context"], cos, sin)
+            x = blk(x, ctx["e0"], ctx["context"], cos, sin, sp)
         return x
 
     @torch.inference_mode()
@@ -280,9 +319,13 @@ def make_wan_core(model: WanModel, grid: Tuple[int, int, int]) -> DiTCore:
         mod = hp.modulation[None] + ctx["e"][:, None, :]
         shift, scale = mod[:, 0:1], mod[:, 1:2]
         # bf16 LayerNorm output times f32 modulation promotes to f32 in JAX
-        h = layer_norm(hidden, eps=cfg.eps).float() * (1 + scale) + shift
+        # the affine-free LayerNorm is K3p on the card (ops.norms.layer_norm's
+        # arithmetic: f32 statistics, one rounding)
+        h = layer_norm_mod(hidden.contiguous(), eps=cfg.eps).float() * (1 + scale) + shift
         # round to the activation dtype, then the f32 head weight promotes
         out = hp.out(h.to(hidden.dtype).float())
+        if plan is not None:        # every rank gets the whole sequence back
+            out = gather_sequence(out, plan, 1)
         return unpatchify(cfg, out, grid)
 
     return DiTCore(prepare, trunk, head)

@@ -1,5 +1,5 @@
-"""Attention for DiT trunks: kernels K1, K4, K5 and K6 beside their plain
-versions, and the ``attention()`` dispatcher.
+"""Attention for DiT trunks: kernels K1, K1b, K1c, K4, K5 and K6 beside their
+plain versions, and the ``attention()`` dispatcher.
 
 Layout at the API boundary is ``[batch, seq, heads, head_dim]``, as the
 patch-embedded activations are. Each kernel wrapper takes a CUDA tensor to
@@ -12,6 +12,14 @@ the kernel does not take raises. Launch counts are ``<wrapper>.launches``
   attention, head dim 128; with ``qk_gains`` (K1q) the per-head RMS qk-norm
   fused into the q/k loads, head dim 72, q/k/v read in place through their
   token strides (STDiT3's frames of more than 2,048 tokens).
+- ``flash_attention_bhsd`` (K1b, the same kernel body): the same attention
+  on ``[B, H, S, D]``, read through (batch, head, token) strides, so a
+  ``[B, S, H, D]`` tensor viewed as ``[B, H, S, D]`` costs no copy; each
+  rank's full-sequence attention under Ulysses sequence parallelism, and
+  cross-attention under any plan.
+- ``flash_attention_bhsd_aux`` (K1c, the same body): the running-max softmax
+  that also returns each row's max ``m`` and sum ``l``; one step of ring
+  attention.
 - ``grouped_attention_fused_qkv`` (K5, ``csrc/grouped_attention.cu``):
   block-diagonal grouped attention read from the fused ``[B, S, 3*H*D]``
   projection with the per-head RMS qk-norm and optional in-group RoPE fused
@@ -38,10 +46,13 @@ from typing import Optional, Tuple
 
 import torch
 
-from magcache_tpu_torch.ops.build import check_bf16, check_launch, load_cuda_library
+from magcache_tpu_torch.ops.build import (check_bf16, check_launch, count_launch,
+                                          load_cuda_library)
 from magcache_tpu_torch.ops.rope import apply_rope
 
 __all__ = ["attention", "flash_attention_bshd", "flash_attention_bshd_plain",
+           "flash_attention_bhsd", "flash_attention_bhsd_plain",
+           "flash_attention_bhsd_aux", "flash_attention_bhsd_aux_plain",
            "grouped_attention_fused_qkv", "grouped_attention_fused_qkv_plain",
            "grouped_flash_attention_bshd", "grouped_flash_attention_bshd_plain",
            "fused_cross_attention", "fused_cross_attention_plain",
@@ -167,7 +178,7 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         float(fixed_max) if fixed_max is not None else 0.0,
         torch.cuda.current_stream(q.device).cuda_stream)
     check_launch(lib, code, "flash_attention_bshd")
-    flash_attention_bshd.launches += 1
+    count_launch(flash_attention_bshd)
     return out
 
 
@@ -210,6 +221,157 @@ flash_attention_bshd.launches = 0
 flash_attention_bshd.qknorm_launches = 0
 
 
+def flash_attention_bhsd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               *, scale: Optional[float] = None,
+                               kv_len: Optional[int] = None,
+                               fixed_max: Optional[float] = None,
+                               chunk: int = 256) -> torch.Tensor:
+    """K1b's math in plain PyTorch: ``flash_attention_bshd_plain`` on
+    ``[B, H, S, D]`` (the same rounding points; only the layout differs)."""
+    out = flash_attention_bshd_plain(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale=scale,
+        kv_len=kv_len, fixed_max=fixed_max, chunk=chunk)
+    return out.transpose(1, 2)
+
+
+def _strided_launch(name: str, q, k, v, *, scale, kv_len, mode: int,
+                    fixed_max: Optional[float]):
+    """Launch of the strided kernel body (K1b: mode 0 running max, 1 fixed
+    max; K1c: mode 2) on bf16 ``[B, H, S, 128]`` tensors or views. Checks
+    what the kernel takes and raises on anything else. Returns ``(o, m, l)``,
+    m and l None unless mode 2; o has q's layout."""
+    import ctypes
+
+    if not (q.ndim == k.ndim == v.ndim == 4):
+        raise ValueError(f"{name}: q, k and v must be [B, H, S, D]")
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    dev = q.device
+    kv_len = skv if kv_len is None else min(kv_len, skv)
+    if d != KERNEL_HEAD_DIM:
+        raise ValueError(f"{name}: the kernel takes head dim {KERNEL_HEAD_DIM}, "
+                         f"got {d}")
+    if kv_len < 1 or b * h > 65535:
+        raise ValueError(f"{name}: kv_len {kv_len} < 1 or B*H {b * h} > 65535")
+    for label, t, shape in (("q", q, (b, h, sq, d)), ("k", k, (b, h, skv, d)),
+                            ("v", v, (b, h, skv, d))):
+        if not (t.is_cuda and t.device == dev and t.dtype == torch.bfloat16
+                and tuple(t.shape) == shape and t.stride(3) == 1
+                and t.data_ptr() % 16 == 0
+                and all(st % 8 == 0 for st in t.stride()[:3])):
+            raise ValueError(
+                f"{name}: {label} must be a bf16 CUDA tensor of shape {shape} on "
+                f"{dev} with unit channel stride and 16-byte aligned rows; got "
+                f"{t.dtype} {tuple(t.shape)} strides {t.stride()} on {t.device}")
+    # o takes q's layout when q is a head-major view of [B, S, H, D]
+    if q.transpose(1, 2).is_contiguous():
+        out = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev).transpose(1, 2)
+    else:
+        out = torch.empty((b, h, sq, d), dtype=q.dtype, device=dev)
+    m = l = None
+    if mode == 2:
+        m = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+        l = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+        q_scale = scale * _LOG2E          # applied to the f32 scores
+    else:
+        q_scale = float(_q_scale(scale, q.dtype))
+    strides = (ctypes.c_longlong * 12)(*(st for t in (q, k, v, out)
+                                         for st in t.stride()[:3]))
+    lib = load_cuda_library()
+    code = lib.mc_flash_attention_strided(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        m.data_ptr() if m is not None else None,
+        l.data_ptr() if l is not None else None, b, sq, h, kv_len, strides,
+        q_scale, mode, float(fixed_max) if fixed_max is not None else 0.0,
+        torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(lib, code, name)
+    return out, m, l
+
+
+def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, scale: Optional[float] = None,
+                         kv_len: Optional[int] = None,
+                         fixed_max: Optional[float] = None) -> torch.Tensor:
+    """K1b: full non-causal attention on ``[B, H, S, D]`` -> ``[B, H, Sq, D]``,
+    K1's math (q pre-scaled by ``scale*log2(e)`` in the activation dtype,
+    keys at or past ``kv_len`` masked, the fixed shift ``fixed_max`` with its
+    clamp at ``fixed_max + 126`` or the running max).
+
+    The kernel takes bf16, head dim 128, and reads q, k and v through their
+    batch, head and token strides (unit channel stride, 16-byte aligned
+    rows): the head-major view ``x.transpose(1, 2)`` of a ``[B, S, H, D]``
+    tensor is read in place, and the output then has the same layout.
+    Anything else on a CUDA tensor raises. Launches count in
+    ``flash_attention_bhsd.launches``.
+    """
+    d = q.shape[-1]
+    scale = (1.0 / math.sqrt(d)) if scale is None else scale
+    if q.device.type == "cpu":
+        return flash_attention_bhsd_plain(q, k, v, scale=scale, kv_len=kv_len,
+                                          fixed_max=fixed_max)
+    out, _, _ = _strided_launch("flash_attention_bhsd", q, k, v, scale=scale,
+                                kv_len=kv_len, mode=int(fixed_max is not None),
+                                fixed_max=fixed_max)
+    count_launch(flash_attention_bhsd)
+    return out
+
+
+flash_attention_bhsd.launches = 0
+
+
+def flash_attention_bhsd_aux_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                   *, scale: Optional[float] = None,
+                                   kv_len: Optional[int] = None, chunk: int = 256):
+    """K1c's math in plain PyTorch over query-row chunks: f32 scores from the
+    unscaled q, times ``scale*log2(e)`` in f32, keys at or past ``kv_len``
+    masked, base-2 softmax around the row max, p rounded to v's dtype before
+    the f32 PV product, ``o = acc / l`` rounded to q's dtype. Returns
+    ``(o [B, H, Sq, D], m, l)`` with m (natural base) and l f32 ``[B, H, Sq]``.
+    """
+    b, h, sq, d = q.shape
+    scale = (1.0 / math.sqrt(d)) if scale is None else scale
+    kv_len = k.shape[2] if kv_len is None else min(kv_len, k.shape[2])
+    kt = k[:, :, :kv_len].float().transpose(2, 3)        # [B, H, D, Skv]
+    vf = v[:, :, :kv_len].float()
+    out = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
+    m = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    l = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    for i0 in range(0, sq, chunk):
+        s = (q[:, :, i0:i0 + chunk].float() @ kt) * (scale * _LOG2E)
+        m2 = s.amax(-1, keepdim=True)
+        p = torch.exp2(s - m2)
+        lc = p.sum(-1, keepdim=True)
+        out[:, :, i0:i0 + chunk] = ((p.to(v.dtype).float() @ vf) / lc).to(q.dtype)
+        m[:, :, i0:i0 + chunk] = m2[..., 0] / _LOG2E
+        l[:, :, i0:i0 + chunk] = lc[..., 0]
+    return out, m, l
+
+
+def flash_attention_bhsd_aux(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             *, scale: Optional[float] = None,
+                             kv_len: Optional[int] = None):
+    """K1c: ``flash_attention_bhsd`` with the running max that also returns
+    each row's softmax max ``m`` (natural base) and normaliser ``l``, f32
+    ``[B, H, Sq]``, so that partial results over key shards can be merged
+    (ring attention). Unlike K1 and K1b, q is not pre-scaled: the f32 scores
+    are multiplied by ``scale*log2(e)`` after the product.
+
+    The kernel takes what K1b's takes; anything else on a CUDA tensor raises.
+    Launches count in ``flash_attention_bhsd_aux.launches``.
+    """
+    d = q.shape[-1]
+    scale = (1.0 / math.sqrt(d)) if scale is None else scale
+    if q.device.type == "cpu":
+        return flash_attention_bhsd_aux_plain(q, k, v, scale=scale, kv_len=kv_len)
+    out = _strided_launch("flash_attention_bhsd_aux", q, k, v, scale=scale,
+                          kv_len=kv_len, mode=2, fixed_max=None)
+    count_launch(flash_attention_bhsd_aux)
+    return out
+
+
+flash_attention_bhsd_aux.launches = 0
+
+
 def _attention_einsum(q, k, v, *, scale, kv_len):
     """Layout-native einsum attention for tiny sequences: f32 scores and
     softmax, p rounded to v's dtype."""
@@ -221,19 +383,50 @@ def _attention_einsum(q, k, v, *, scale, kv_len):
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
 
 
+RING_THRESHOLD = 128 * 1024    # global tokens from which "auto" takes the ring
+SP_IMPLS = ("auto", "ulysses", "ring")
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               scale: Optional[float] = None, kv_len: Optional[int] = None,
-              fixed_max: Optional[float] = None) -> torch.Tensor:
+              fixed_max: Optional[float] = None, plan=None,
+              sp_impl: str = "auto", ring_threshold: int = RING_THRESHOLD,
+              kv_replicated: Optional[bool] = None) -> torch.Tensor:
     """Full attention over ``[B, S, H, D]`` activations.
 
-    Routed on shape only: when ``max(Sq, Skv) <= 128`` the einsum path runs
-    (no flash tiling pays off there), otherwise K1. On a CUDA tensor with
-    head dim below K1's 128, q, k and v are zero-padded to 128 and the result
-    sliced back (exact: the padded q/k lanes add 0 to every score, the padded
-    v lanes only fill output lanes that are dropped).
+    Without a ``plan``, routed on shape only: when ``max(Sq, Skv) <= 128`` the
+    einsum path runs (no flash tiling pays off there), otherwise K1. On a
+    CUDA tensor with head dim below K1's 128, q, k and v are zero-padded to
+    128 and the result sliced back (exact: the padded q/k lanes add 0 to
+    every score, the padded v lanes only fill output lanes that are dropped).
+
+    Under a ``plan`` (``parallel.mesh.MeshPlan``) q holds this rank's
+    ``S/sp`` tokens and the sequence-parallel strategy is picked as the JAX
+    dispatcher picks it: ring attention when ``sp_impl == "ring"``, or when
+    it is ``"auto"`` and the global sequence ``Sq * sp`` reaches
+    ``ring_threshold``, and never for replicated k/v; otherwise Ulysses with
+    ``kv_len``, ``kv_replicated`` and ``fixed_max`` passed on.
+    ``kv_replicated`` (k/v whole on every rank, cross-attention) defaults to
+    ``Skv != Sq``. ``"ring"`` or ``"ulysses"`` without a plan raises.
     """
+    if sp_impl not in SP_IMPLS:
+        raise ValueError(f"attention: sp_impl must be one of {SP_IMPLS}, got "
+                         f"{sp_impl!r}")
     d = q.shape[-1]
     scale = (1.0 / math.sqrt(d)) if scale is None else scale
+    if plan is not None:
+        from magcache_tpu_torch.parallel.collectives import (ring_attention,
+                                                             ulysses_attention)
+        kv_rep = (k.shape[1] != q.shape[1]) if kv_replicated is None else kv_replicated
+        want_ring = sp_impl == "ring" or (
+            sp_impl == "auto" and q.shape[1] * plan.sp >= ring_threshold)
+        if want_ring and not kv_rep:
+            return ring_attention(q, k, v, plan, scale=scale)
+        return ulysses_attention(q, k, v, plan, scale=scale, kv_len=kv_len,
+                                 kv_replicated=kv_rep, fixed_max=fixed_max)
+    if sp_impl in ("ring", "ulysses"):
+        raise ValueError(f"attention sp_impl {sp_impl!r} needs a mesh plan "
+                         f"(pass plan=)")
     if max(q.shape[1], k.shape[1]) <= 128:
         return _attention_einsum(q, k, v, scale=scale, kv_len=kv_len)
     if q.is_cuda and d < KERNEL_HEAD_DIM:

@@ -20,6 +20,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 
 import torch
 
@@ -65,10 +66,19 @@ def _compile_and_link(sources, lib_path: str) -> None:
         os.replace(tmp_lib, lib_path)
 
 
-@functools.lru_cache(maxsize=None)
+_BUILD_LOCK = threading.Lock()
+
+
 def load_cuda_library() -> ctypes.CDLL:
     """Compile (if needed) and load ``libmagcache_kernels``; declares the C
-    signatures. Raises with the compiler's output when nvcc fails."""
+    signatures. Raises with the compiler's output when nvcc fails. Threads
+    that ask at once wait for one build."""
+    with _BUILD_LOCK:
+        return _load_cuda_library()
+
+
+@functools.lru_cache(maxsize=None)
+def _load_cuda_library() -> ctypes.CDLL:
     sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
     headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -86,6 +96,9 @@ def load_cuda_library() -> ctypes.CDLL:
                                             cf, ci, cf, vp]
     lib.mc_flash_attention_bshd.restype = ci
     cl = ctypes.c_longlong
+    lib.mc_flash_attention_strided.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci,
+                                               ctypes.POINTER(cl), cf, ci, cf, vp]
+    lib.mc_flash_attention_strided.restype = ci
     lib.mc_flash_attention_qknorm.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci,
                                               cl, cl, cl, cl, cl, cl, cf, cf, cf, cf, vp]
     lib.mc_flash_attention_qknorm.restype = ci
@@ -127,6 +140,23 @@ def check_launch(lib: ctypes.CDLL, code: int, name: str) -> None:
     if code != 0:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.mc_error_string(code).decode()} ({code})")
+
+
+_COUNT_LOCK = threading.Lock()
+# Triton compiles at a kernel's first launch per specialisation; local ranks
+# launch from several threads, so the launches take turns
+TRITON_LOCK = threading.Lock()
+
+
+def count_launch(fn, attr: str = "launches", key=None) -> None:
+    """Adds one to a wrapper's launch count ``fn.<attr>`` (or to its entry
+    ``key`` when the count is a dict). Under a lock: the local ranks of a
+    sequence-parallel run launch from several threads."""
+    with _COUNT_LOCK:
+        if key is None:
+            setattr(fn, attr, getattr(fn, attr) + 1)
+        else:
+            getattr(fn, attr)[key] += 1
 
 
 def triton_prologue():

@@ -1,7 +1,7 @@
-"""Fused prologue/epilogue ops: kernels K2, K3, K7 and K8, each beside its
-plain version.
+"""Fused prologue/epilogue ops: kernels K2, K3 (and its plain mode K3p), K7
+and K8, each beside its plain version.
 
-``rms_norm_rope`` (K2) and ``layer_norm_mod`` (K3) take a CUDA tensor to the
+``rms_norm_rope`` (K2) and ``layer_norm_mod`` (K3, K3p) take a CUDA tensor to the
 Triton kernels in ``csrc/prologue_triton.py``; ``lnmod_matmul`` (K7) and
 ``matmul_gated_residual`` (K8) take it to the CUDA C++ kernels in
 ``csrc/fused_matmul.cu``. A CPU tensor goes to the plain PyTorch version
@@ -15,7 +15,7 @@ Rounding points, as the TPU kernels have them:
   then rotates in f32);
 - K3 ``mod`` rounds ln(x) to the activation dtype before the f32
   ``*(1 + scale) + shift``; ``affine`` applies ``*w + b`` in f32 and rounds
-  once;
+  once; ``plain`` (K3p, neither given) rounds ln(x) once;
 - K7 rounds ``(x - mean) * rsqrt(var + eps)`` to the activation dtype, then
   the f32 ``*(1 + scale) + shift`` to the weight dtype (the GEMM operand);
   bias and gelu apply in f32 and the output rounds once;
@@ -33,7 +33,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from magcache_tpu_torch.ops.build import check_bf16, check_launch
+from magcache_tpu_torch.ops.build import check_bf16, check_launch, count_launch
 from magcache_tpu_torch.ops.norms import layer_norm, rms_norm
 from magcache_tpu_torch.ops.rope import apply_rope
 
@@ -104,16 +104,17 @@ def rms_norm_rope(x: torch.Tensor, gain: torch.Tensor, cos: torch.Tensor,
                  and t.is_contiguous() and tuple(t.shape) == shape,
                  f"rms_norm_rope: {name} must be contiguous f32 {shape} on "
                  f"{x.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-    from magcache_tpu_torch.ops.build import triton_prologue
+    from magcache_tpu_torch.ops.build import TRITON_LOCK, triton_prologue
 
     out = torch.empty((b, s, heads, d), dtype=x.dtype, device=x.device)
-    triton_prologue().rms_norm_rope_kernel[(b * s,)](
-        x, gain, cos, sin, out, s, x.stride(0), x.stride(1),
-        0 if shared_gain else d, eps, H=heads, D=d,
-        BLOCK_H=_next_pow2(heads), HEAD_SCOPE=norm_scope == "head",
-        num_warps=4)
-    rms_norm_rope.launches += 1
-    rms_norm_rope.scope_launches[norm_scope] += 1
+    with TRITON_LOCK:
+        triton_prologue().rms_norm_rope_kernel[(b * s,)](
+            x, gain, cos, sin, out, s, x.stride(0), x.stride(1),
+            0 if shared_gain else d, eps, H=heads, D=d,
+            BLOCK_H=_next_pow2(heads), HEAD_SCOPE=norm_scope == "head",
+            num_warps=4)
+    count_launch(rms_norm_rope)
+    count_launch(rms_norm_rope, "scope_launches", norm_scope)
     return out
 
 
@@ -142,15 +143,17 @@ def layer_norm_mod(x: torch.Tensor, *, weight: Optional[torch.Tensor] = None,
                    shift: Optional[torch.Tensor] = None,
                    eps: float = 1e-6) -> torch.Tensor:
     """K3: LayerNorm + AdaLN modulation (``scale``/``shift``, ``[B, 1, D]`` or
-    ``[B, D]`` f32 rows) or affine LayerNorm (``weight``/``bias``, ``[D]``).
+    ``[B, D]`` f32 rows) or affine LayerNorm (``weight``/``bias``, ``[D]``);
+    with neither, K3p: the two-pass f32 LayerNorm alone, rounded once.
 
-    x: ``[B, S, D]``; returns x's dtype. The affine-free ``plain`` mode is
-    not ported yet and raises.
+    x: ``[B, S, D]``; returns x's dtype. The kernel takes contiguous bf16.
+    Launches count in ``layer_norm_mod.launches``, K3p's in
+    ``layer_norm_mod.plain_launches``.
     """
-    if (scale is None) == (weight is None):
-        raise NotImplementedError(
-            "layer_norm_mod: pass scale/shift (mod) or weight/bias (affine); "
-            "the plain mode is not ported yet")
+    if scale is not None and weight is not None:
+        raise ValueError(
+            "layer_norm_mod: affine weight/bias and AdaLN scale/shift are "
+            "separate modes; pass one pair, or neither for the plain LayerNorm")
     if x.device.type == "cpu":
         return layer_norm_mod_plain(x, weight=weight, bias=bias, scale=scale,
                                     shift=shift, eps=eps)
@@ -158,31 +161,37 @@ def layer_norm_mod(x: torch.Tensor, *, weight: Optional[torch.Tensor] = None,
     _require(x.is_cuda and x.is_contiguous() and x.dtype == torch.bfloat16,
              f"layer_norm_mod: x must be a contiguous bf16 CUDA tensor, got "
              f"{x.dtype} on {x.device}")
-    mod = scale is not None
-    if mod:   # per-sample rows, often strided slices of the modulation table
+    if scale is not None:   # per-sample rows, often strided slices of the modulation table
+        mode = 1
         a = scale.reshape(b, hd).contiguous()
         c = shift.reshape(b, hd).contiguous()
         shape = (b, hd)
-    else:
+    elif weight is not None:
+        mode = 0
         a = weight.contiguous()
         c = bias.contiguous() if bias is not None else torch.zeros_like(a)
         shape = (hd,)
-    for name, t in (("a", a), ("b", c)):
-        _require(t.device == x.device and t.dtype == torch.float32
-                 and tuple(t.shape) == shape,
-                 f"layer_norm_mod: {name} row must be f32 {shape} on "
-                 f"{x.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-    from magcache_tpu_torch.ops.build import triton_prologue
+    else:                   # K3p: the kernel reads neither row
+        mode = 2
+        a = c = x
+    if mode != 2:
+        for name, t in (("a", a), ("b", c)):
+            _require(t.device == x.device and t.dtype == torch.float32
+                     and tuple(t.shape) == shape,
+                     f"layer_norm_mod: {name} row must be f32 {shape} on "
+                     f"{x.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    from magcache_tpu_torch.ops.build import TRITON_LOCK, triton_prologue
 
     out = torch.empty_like(x)
-    triton_prologue().layer_norm_mod_kernel[(b * s,)](
-        x, a, c, out, s, eps, D=hd, MOD=mod, BLOCK=_next_pow2(hd),
-        num_warps=4)
-    layer_norm_mod.launches += 1
+    with TRITON_LOCK:
+        triton_prologue().layer_norm_mod_kernel[(b * s,)](
+            x, a, c, out, s, eps, D=hd, MODE=mode, BLOCK=_next_pow2(hd), num_warps=4)
+    count_launch(layer_norm_mod, "plain_launches" if mode == 2 else "launches")
     return out
 
 
 layer_norm_mod.launches = 0
+layer_norm_mod.plain_launches = 0       # K3p
 
 
 # K7 keeps a block's 64 normalised rows in shared memory beside its W stages

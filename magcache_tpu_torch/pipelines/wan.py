@@ -5,6 +5,13 @@ checkpoint-free path: ``MockTextEncoder``, random DiT weights from a seeded
 ``torch.Generator``, no VAE decode (latents are the output).
 
 Wan latent geometry: VAE stride (4, 8, 8), 16 channels; DiT patch (1, 2, 2).
+
+Sequence parallelism (``sp > 1``): the pipeline object is one rank's. It is
+built with the rank's ``plan`` (``parallel.mesh.MeshPlan``: a process group
+under ``torchrun``, or a local rank of ``run_local_ranks``). Every rank
+encodes the same text and draws the same noise from the seeded CPU
+generator, runs the sampler on its ``1/sp`` of the tokens, and returns the
+whole latents.
 """
 
 from __future__ import annotations
@@ -57,6 +64,8 @@ class WanPipelineConfig:
     dtype: str = "bfloat16"
     tiny: bool = False                   # toy-size model for smoke runs
     model_cfg_override: Optional[WanConfig] = None
+    sp: int = 1                          # sequence-parallel ranks
+    sp_impl: str = "auto"                # "auto" | "ulysses" | "ring"
 
     def __post_init__(self):
         if self.task != "t2v" or self.model != "wan2.1-t2v-1.3B":
@@ -84,12 +93,20 @@ class WanPipelineConfig:
 class WanPipeline(BasePipeline):
     """Wan2.1 t2v pipeline on ``device`` (the card unless told otherwise).
     Without ``model``, the DiT gets random weights from a generator seeded
-    with ``init_seed``."""
+    with ``init_seed`` (the same on every rank). With ``config.sp > 1`` it is
+    one rank's pipeline and needs that rank's ``plan``; local ranks may share
+    one ``model``."""
 
     def __init__(self, config: WanPipelineConfig, device="cuda",
                  text_encoder=None, model: Optional[WanModel] = None,
-                 init_seed: int = 0):
+                 init_seed: int = 0, plan=None):
+        if (plan.sp if plan is not None else 1) != config.sp:
+            raise ValueError(
+                f"WanPipeline: config.sp = {config.sp} needs a plan of that many "
+                f"ranks, got {'none' if plan is None else plan.sp} (start the "
+                f"ranks with torchrun, or with parallel.mesh.run_local_ranks)")
         self.config = config
+        self.plan = plan
         self.device = torch.device(device)
         self.model_cfg = config.model_config()
         lf, lh, lw = config.latent_grid()
@@ -100,7 +117,8 @@ class WanPipeline(BasePipeline):
             model = WanModel(self.model_cfg, self.device).init(
                 set_seed(init_seed, device=self.device))
         self.model = model.requires_grad_(False).eval()
-        self.core = make_wan_core(self.model, self.grid)
+        self.core = make_wan_core(self.model, self.grid, plan,
+                                  sp_impl=config.sp_impl)
         self.text_encoder = text_encoder or MockTextEncoder(
             self.model_cfg.text_len, self.model_cfg.text_dim, scale=0.5)
 
@@ -156,7 +174,8 @@ class WanPipeline(BasePipeline):
             if skip_override is not None:
                 raise ValueError("skip_override is a generation-path surface")
             return lambda x0, cond: calibrate_unipc(
-                self.core, x0, cond, sch, lanes=2, guidance_scale=c.guide_scale)
+                self.core, x0, cond, sch, lanes=2, guidance_scale=c.guide_scale,
+                plan=self.plan)
         # with an override, the cache config only supplies the lane structure
         cache_cfg = self._cache_cfg(force=skip_override is not None)
         return lambda x0, cond: sample_unipc(

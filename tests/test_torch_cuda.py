@@ -521,3 +521,101 @@ def test_tiny_latte_pipeline_runs_through_the_kernels(dev, route):
     assert out.skips.any() and runs < 10
     assert out.latents.shape == (1, 4, 32, 32, 4) and torch.isfinite(out.latents).all()
     np.testing.assert_array_equal(out.skips, pipe.skip_mask_for())
+
+
+# ---- K1b, K1c and K3p (the sequence-parallel path's kernels) ---------------
+
+# K1b is K1's kernel body read through (batch, head, token) strides: the
+# same tolerance as K1. Contiguous [B, H, S, D] and head-major views of
+# [B, S, H, D]; kv_len below the key count; lengths off the 64-row tile.
+@pytest.mark.parametrize("fixed_max", [None, 16.0])
+@pytest.mark.parametrize("sq,skv,kv_len", [(300, 77, 50), (300, 300, None),
+                                           (1000, 512, None), (65, 129, 128)])
+@pytest.mark.parametrize("view", [False, True])
+def test_k1b_matches_plain(dev, fixed_max, sq, skv, kv_len, view):
+    shape = (lambda s: (2, s, 3, 128)) if view else (lambda s: (2, 3, s, 128))
+    q, k, v = (_rand(dev, *shape(s), seed=i) for i, s in ((1, sq), (2, skv), (3, skv)))
+    if view:
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    before = A.flash_attention_bhsd.launches
+    got = A.flash_attention_bhsd(q, k, v, kv_len=kv_len, fixed_max=fixed_max)
+    want = A.flash_attention_bhsd_plain(q, k, v, kv_len=kv_len, fixed_max=fixed_max)
+    torch.cuda.synchronize()
+    assert A.flash_attention_bhsd.launches == before + 1
+    assert got.shape == q.shape and got.stride() == q.stride()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-3, rtol=2e-2)
+
+
+def test_k1b_equals_k1_on_the_same_values(dev):
+    # one kernel body: bit-equal outputs whatever the layout
+    q, k, v = (_rand(dev, 1, 333, 2, 128, seed=i) for i in range(3))
+    want = A.flash_attention_bshd(q, k, v, fixed_max=16.0)
+    got = A.flash_attention_bhsd(*(t.transpose(1, 2).contiguous() for t in (q, k, v)),
+                                 fixed_max=16.0)
+    assert torch.equal(got.transpose(1, 2), want)
+
+
+# K1c: o as K1 (a bf16 ulp or two); m is the max of f32 scores whose
+# products sum in another order (|s| < 16 -> 1e-4 covers it); l sums up to
+# 512 f32 terms -> 1e-4 relative
+@pytest.mark.parametrize("sq,skv,kv_len", [(300, 77, 50), (300, 300, None),
+                                           (1000, 512, None), (65, 129, 128)])
+@pytest.mark.parametrize("view", [False, True])
+def test_k1c_matches_plain(dev, sq, skv, kv_len, view):
+    shape = (lambda s: (2, s, 3, 128)) if view else (lambda s: (2, 3, s, 128))
+    q, k, v = (_rand(dev, *shape(s), seed=i) for i, s in ((1, sq), (2, skv), (3, skv)))
+    if view:
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    before = A.flash_attention_bhsd_aux.launches
+    o, m, l = A.flash_attention_bhsd_aux(q, k, v, kv_len=kv_len)
+    ow, mw, lw = A.flash_attention_bhsd_aux_plain(q, k, v, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert A.flash_attention_bhsd_aux.launches == before + 1
+    assert m.shape == l.shape == (2, 3, sq) and m.dtype == l.dtype == torch.float32
+    torch.testing.assert_close(o.float(), ow.float(), atol=2e-3, rtol=2e-2)
+    torch.testing.assert_close(m, mw, atol=1e-4, rtol=0)
+    torch.testing.assert_close(l, lw, atol=0, rtol=1e-4)
+
+
+def test_k1b_k1c_refuse_what_they_do_not_take(dev):
+    for fn in (A.flash_attention_bhsd, A.flash_attention_bhsd_aux):
+        q = _rand(dev, 1, 2, 200, 64)
+        with pytest.raises(ValueError, match="head dim"):
+            fn(q, q, q)
+        q = _rand(dev, 1, 2, 200, 128, dtype=torch.float32)
+        with pytest.raises(ValueError):
+            fn(q, q, q)
+        q = _rand(dev, 1, 2, 200, 256)[..., ::2]            # channel stride 2
+        with pytest.raises(ValueError, match="unit channel stride"):
+            fn(q, q, q)
+
+
+def test_ring_merge_of_k1c_matches_k1(dev):
+    # four key shards merged as ring attention merges them, against K1 with
+    # the running max on the whole sequence: o is rounded to bf16 at each of
+    # the 3 merges, half an ulp of |o| < 0.25 each -> 3 * 2^-11 on top of
+    # K1's own 2e-3
+    from magcache_tpu_torch.parallel import collectives as C
+    from magcache_tpu_torch.parallel.mesh import run_local_ranks
+
+    q, k, v = (_rand(dev, 1, 4 * 250, 2, 128, seed=i) for i in range(3))
+    want = A.flash_attention_bshd(q, k, v)
+    outs = run_local_ranks(4, lambda plan: C.ring_attention(
+        *(C.split_sequence(t, plan) for t in (q, k, v)), plan), device=dev)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(torch.cat(outs, 1).float(), want.float(),
+                               atol=2e-3 + 3 * 2 ** -11, rtol=2e-2)
+
+
+# K3p rounds once, at the store, as its plain version: a tie may flip after
+# a differently ordered f32 sum -> one bf16 ulp at |y| < 8
+@pytest.mark.parametrize("b,s,d", [(2, 300, 1536), (1, 129, 1152), (3, 7, 100)])
+def test_k3p_matches_plain(dev, b, s, d):
+    x = _rand(dev, b, s, d, scale=2.0)
+    before = (P.layer_norm_mod.launches, P.layer_norm_mod.plain_launches)
+    got = P.layer_norm_mod(x, eps=1e-6)
+    want = P.layer_norm_mod_plain(x, eps=1e-6)
+    torch.cuda.synchronize()
+    assert (P.layer_norm_mod.launches, P.layer_norm_mod.plain_launches) == (
+        before[0], before[1] + 1)
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=1.6e-2)

@@ -93,7 +93,7 @@ def test_kernel_wrappers_raise_off_cpu_without_fallback():
         tfp.layer_norm_mod(x, weight=g, bias=g)
     with pytest.raises(ValueError):
         tfp.rms_norm_rope(x, g, g, g, 2, norm_scope="head")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         tfp.layer_norm_mod(x)
 
 

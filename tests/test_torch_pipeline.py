@@ -80,6 +80,37 @@ def test_cli_calibrate_then_install_ratios(tmp_path, capsys):
     assert "skipped" in capsys.readouterr().out
 
 
+def _skipped(capsys) -> int:
+    """The skip count of the CLI's last ``skipped N of M`` line."""
+    line = [l for l in capsys.readouterr().out.splitlines() if l.startswith("skipped")][-1]
+    return int(line.split()[1])
+
+
+@pytest.mark.parametrize("task", ["open-sora", "flux-dev"])
+def test_cli_installed_ratios_change_the_skip_count(task, tmp_path, capsys):
+    # ratios of 0.5 put every step's error above the threshold: no step may
+    # skip, where the preset's published ratios skip most of them
+    base = ["--task", task, "--tiny", "--device", "cpu", "--dtype", "float32",
+            "--sample_steps", "8", "--use_magcache"]
+    cli.main(base + ["--save_file", str(tmp_path / "preset")])
+    preset = _skipped(capsys)
+    ratios = str(tmp_path / "ratios.json")
+    json.dump([0.5] * 7, open(ratios, "w"))
+    cli.main(base + ["--mag_ratios_json", ratios, "--save_file", str(tmp_path / "own")])
+    own = _skipped(capsys)
+    assert preset > 0 and own == 0
+    assert np.isfinite(np.load(str(tmp_path / "own") + "_latents.npy")).all()
+
+
+@pytest.mark.parametrize("task", ["t2v-1.3B", "open-sora", "latte", "flux-dev"])
+def test_cli_tiny_on_a_card_exits_naming_the_cpu(task, monkeypatch):
+    # the toy configs' head dims are not kernel-sized: a clean exit, not a
+    # ValueError traceback from a kernel wrapper
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(SystemExit, match="--device cpu"):
+        cli.main(["--task", task, "--tiny"])
+
+
 def test_cli_rejects_unknown_task_and_missing_card():
     with pytest.raises(SystemExit, match="matches no model family"):
         cli.main(["--task", "nonsense-1B", "--device", "cpu"])
