@@ -13,7 +13,9 @@ nonzero on the first failure:
 Wan2.1 T2V-1.3B (K1, K2, K3, and K3p in the head):
 3. each kernel against its plain PyTorch version at the path's shapes
    (832x480x81: 32,760 tokens, 2 CFG lanes, bf16), with the tolerance
-   stated, and both times;
+   stated, and both times; K1 (the warp-specialised wgmma/TMA body of
+   ``csrc/hopper_attention.cuh``, 128-row tiles) also at phase 5's
+   7,800-token request shape, whose last query and key tiles are ragged;
 4. one full-shape forward (prepare -> trunk -> head) of WAN_1_3B;
 5. requests through ``WanPipeline.generate`` at full width, 832x480x17
    (7,800 tokens): full compute, MagCache E012K2R02, and the same schedule
@@ -67,7 +69,9 @@ Open-Sora 1.2 at 720p and its mask-strategy conditioning (K1q, K3, K5-K8):
 
 Latte-1 T2V (K5r, K4, K9, K1 at padded head dim, K3, K6-K8):
 19. each kernel against its plain version at 512x512 x 16 shapes (2 rows of
-   16 frames x 1,024 tokens, bf16): K5r spatial and temporal, K4 and K9 at
+   16 frames x 1,024 tokens, bf16): K5r spatial (the row-max instantiation
+   of the wgmma/TMA body) and temporal, K5r at groups of 1,590 with 1,400
+   valid keys (ragged tiles, positions past group_valid), K4 and K9 at
    the temporal shape (and with gains and RoPE at the STDiT3 480p temporal
    shape), K1 with the running max at head dim 72 zero-padded to 128
    (spatial and cross), K3, K6 over 120 caption keys, K7 and K8;
@@ -90,8 +94,8 @@ The four ranks are threads of this process on the one card
 (``parallel.mesh.run_local_ranks``); their work is serialised on it, so a
 wall time here is no time of a four-GPU run:
 23. each new kernel against its plain version at the sp = 4 shapes of
-   832x480x81 (bf16): K1b (K1's body read through batch, head and token
-   strides) at the Ulysses self shape [2, 3, 32760, 128] with the fixed and
+   832x480x81 (bf16): K1b (K1's wgmma/TMA body read through batch, head and
+   token strides) at the Ulysses self shape [2, 3, 32760, 128] with the fixed and
    the running max and at the cross shape (8,190 queries, 512 keys, 12
    heads); K1c (the running max that returns each row's m and l) at the ring
    step shape [2, 12, 8190, 128]; the ring merge of 4 shards against K1 on
@@ -108,7 +112,8 @@ wall time here is no time of a four-GPU run:
    Ulysses and ring, against the CPU (f32) on one rank.
 
 Kernel times are CUDA-event times of a loop of back-to-back launches
-between one event pair, divided by the count (``cuda_ms``); phase 11 times
+between one event pair, divided by the count (``cuda_ms``); each attention
+kernel's line adds its TFLOP/s and its share of the bound; phase 11 times
 the short K2h and K3 calls as one replay of a CUDA graph of 20 calls
 (``cuda_graph_ms``), since their wrappers' host dispatch outlasts them. The
 second-to-last line of stdout is the kernels' JSON record: one entry per
@@ -264,6 +269,13 @@ def bound(flops: float, nbytes: float, tflops: float = H100_BF16_TFLOPS):
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
+def rate(flops: float, moved: float, ms: float, tflops: float = H100_BF16_TFLOPS) -> str:
+    """Achieved TFLOP/s at ``ms`` and the share of the bound (``bound``) it
+    reaches."""
+    bound_ms, by = bound(flops, moved, tflops)
+    return f"{flops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.1%} of the {by} bound"
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -373,10 +385,14 @@ def phase_kernels(dev, rec):
     # summation order differs -> a bf16 ulp or two of the output
     q, k, v = rnd(B, S, H, D), rnd(B, S, H, D), rnd(B, S, H, D)
     ck, cv = rnd(B, L, H, D), rnd(B, L, H, D)
+    Sr = 5 * 30 * 52        # phase 5's requests: 7,800 tokens, ragged 128-row tiles
     cases = [("self, fixed_max=16", (q, k, v), 16.0),
              ("cross 512 keys, fixed_max=16", (q, ck, cv), 16.0),
-             ("self, running max", (q, k, v), None)]
+             ("self, running max", (q, k, v), None),
+             (f"request self {Sr} tokens, fixed_max=16",
+              (q[:, :Sr], k[:, :Sr].contiguous(), v[:, :Sr].contiguous()), 16.0)]
     for label, (qq, kk, vv), fm in cases:
+        qq = qq.contiguous()
         got = A.flash_attention_bshd(qq, kk, vv, fixed_max=fm)
         want = A.flash_attention_bshd_plain(qq, kk, vv, fixed_max=fm)
         err = compare(f"K1 flash_attention_bshd [{label}]", got, want,
@@ -385,11 +401,12 @@ def phase_kernels(dev, rec):
         pms = cuda_ms(lambda: A.flash_attention_bshd_plain(qq, kk, vv,
                                                            fixed_max=fm), 2)
         lms = sdpa_ms(qq, kk, vv, 5)
-        flops = 4 * B * H * S * kk.shape[1] * D
-        log(f"  K1 [{label}]: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} "
-            f"TFLOP/s), plain {pms:.3f} ms, SDPA {lms:.3f} ms")
-        keep(rec, "flash_attention_bshd", err, ms, pms, "loop", f"2x32760x12x128 {label}",
-             (flops, 2 * nbytes(qq) + nbytes(kk, vv)),
+        flops = 4 * B * H * qq.shape[1] * kk.shape[1] * D
+        moved = 2 * nbytes(qq) + nbytes(kk, vv)
+        log(f"  K1 [{label}]: kernel {ms:.3f} ms ({rate(flops, moved, ms)}), "
+            f"plain {pms:.3f} ms, SDPA {lms:.3f} ms")
+        keep(rec, "flash_attention_bshd", err, ms, pms, "loop",
+             f"2x{qq.shape[1]}x12x128 {label}", (flops, moved),
              ("F.scaled_dot_product_attention", lms))
     del q, k, v, ck, cv
 
@@ -701,9 +718,8 @@ def record(rec, name, label, got, want, ms, pms, flops, moved, atol=4e-2, rtol=2
     the pre-gate product, the gated value before the residual add) of
     magnitude < 8 moves an output by up to one ulp there, 2^-5."""
     err = compare(f"{name} [{label}]", got, want, atol=atol, rtol=rtol)
-    log(f"  {name} [{label}]: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} "
-        f"TFLOP/s, {flops / ms / 1e9 / tflops:.1%} of {tflops:.0f}), plain "
-        f"{pms:.3f} ms" + (f", {library[0]} {library[1]:.3f} ms" if library else ""))
+    log(f"  {name} [{label}]: kernel {ms:.3f} ms ({rate(flops, moved, ms, tflops)}), "
+        f"plain {pms:.3f} ms" + (f", {library[0]} {library[1]:.3f} ms" if library else ""))
     keep(rec, name, err, ms, pms, "loop", label, (flops, moved, tflops), library)
 
 
@@ -1054,7 +1070,7 @@ def phase_flux_kernels(dev, rec):
     pms = cuda_ms(lambda: A.flash_attention_bshd_plain(q, k, v, fixed_max=16.0), 2)
     lms = sdpa_ms(q, k, v, 10)
     log(f"  K1 [joint 4608]: kernel {ms:.3f} ms "
-        f"({4 * H * S * S * D / ms / 1e9:.1f} TFLOP/s), plain {pms:.3f} ms, "
+        f"({rate(4 * H * S * S * D, 4 * nbytes(q), ms)}), plain {pms:.3f} ms, "
         f"SDPA {lms:.3f} ms")
     keep(rec, "flash_attention_bshd", err, ms, pms, "loop", "joint 1x4608x24x128",
          (4 * H * S * S * D, 4 * nbytes(q)), ("F.scaled_dot_product_attention", lms))
@@ -1534,18 +1550,21 @@ def phase_latte_kernels(dev, rec):
     # K5r (tolerances of the K5 records): spatial, one group per frame, and
     # temporal, groups of 16 frames; SDPA on the same q/k/v computes the same
     # function (no qk-norm)
-    for label, qkv, group in (
-            (f"spatial {rows * T}x{S}, group {S}", rnd(rows * T, S, 3 * d), S),
-            (f"temporal {rows * S * T} rows, group {T}", rnd(1, rows * S * T, 3 * d), T)):
+    for label, qkv, group, gvalid in (
+            (f"spatial {rows * T}x{S}, group {S}", rnd(rows * T, S, 3 * d), S, S),
+            ("8x1590, group 1590, 1400 valid keys", rnd(8, 1590, 3 * d), 1590, 1400),
+            # last: K4 and K9 below take this projection
+            (f"temporal {rows * S * T} rows, group {T}", rnd(1, rows * S * T, 3 * d), T, T)):
         groups = qkv.numel() // (3 * d * group)
-        kw = dict(group=group, scale=D ** -0.5)
+        kw = dict(group=group, group_valid=gvalid, scale=D ** -0.5)
         got = A.grouped_attention_fused_qkv(qkv, H, **kw)
         want = A.grouped_attention_fused_qkv_plain(qkv, H, **kw)
         record(rec, "grouped_attention_fused_qkv_rowmax", label, got, want,
                cuda_ms(lambda: A.grouped_attention_fused_qkv(qkv, H, **kw)),
                cuda_ms(lambda: A.grouped_attention_fused_qkv_plain(qkv, H, **kw), 1),
-               4 * groups * H * group * group * D, nbytes(qkv, got),
-               library=(sdpa, sdpa_ms(*heads(qkv, groups, group), 20)))
+               4 * groups * H * group * gvalid * D, nbytes(qkv, got),
+               library=(sdpa, sdpa_ms(*heads(qkv, groups, group), 20))
+               if gvalid == group else None)
         del got, want
 
     # K4 (q/k/v views of the projection) and K9 (the projection) at the
@@ -1618,8 +1637,8 @@ def phase_latte_kernels(dev, rec):
         pms = cuda_ms(lambda: A.flash_attention_bshd_plain(q, k, v, **kw), 1)
         lms = sdpa_ms(*(t[..., :D] for t in (q, k, v)), 5)
         flops = 4 * b * H * sq * skv * 128
-        log(f"  K1 [{label}]: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s at "
-            f"the padded width), plain {pms:.3f} ms, SDPA at head dim 72 {lms:.3f} ms")
+        log(f"  K1 [{label}]: kernel {ms:.3f} ms ({rate(flops, nbytes(q, k, v, got), ms)}"
+            f" at the padded width), plain {pms:.3f} ms, SDPA at head dim 72 {lms:.3f} ms")
         keep(rec, "flash_attention_bshd", err, ms, pms, "loop", label,
              (flops, nbytes(q, k, v, got)), (sdpa, lms))
         del q, k, v, got, want
@@ -1881,10 +1900,10 @@ def phase_sp_kernels(dev, rec):
         pms = cuda_ms(lambda: A.flash_attention_bhsd_plain(qq, kk, vv, fixed_max=fm), 2)
         lms = cuda_ms(lambda: F.scaled_dot_product_attention(qq, kk, vv), 5)
         flops = 4 * B * qq.shape[1] * qq.shape[2] * kk.shape[2] * D
-        log(f"  K1b [{label}]: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+        moved = 2 * nbytes(qq) + nbytes(kk, vv)
+        log(f"  K1b [{label}]: kernel {ms:.3f} ms ({rate(flops, moved, ms)}), "
             f"plain {pms:.3f} ms, SDPA {lms:.3f} ms")
-        keep(rec, "flash_attention_bhsd", err, ms, pms, "loop", label,
-             (flops, 2 * nbytes(qq) + nbytes(kk, vv)),
+        keep(rec, "flash_attention_bhsd", err, ms, pms, "loop", label, (flops, moved),
              ("F.scaled_dot_product_attention", lms))
     del q, k, v, cq, ck, cv, got, want
 
@@ -1901,10 +1920,10 @@ def phase_sp_kernels(dev, rec):
     pms = cuda_ms(lambda: A.flash_attention_bhsd_aux_plain(q, k, v), 2)
     lms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 5)
     flops = 4 * B * H * Sr * Sr * D
-    log(f"  K1c [{label}]: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+    moved = 2 * nbytes(q) + nbytes(k, v, m, l)
+    log(f"  K1c [{label}]: kernel {ms:.3f} ms ({rate(flops, moved, ms)}), plain "
         f"{pms:.3f} ms, SDPA {lms:.3f} ms (o only: not the same function)")
-    keep(rec, "flash_attention_bhsd_aux", err, ms, pms, "loop", label,
-         (flops, 2 * nbytes(q) + nbytes(k, v, m, l)),
+    keep(rec, "flash_attention_bhsd_aux", err, ms, pms, "loop", label, (flops, moved),
          ("F.scaled_dot_product_attention (no m, l: not the same function)", lms))
     del q, k, v, o, ow, m, mw, l, lw
 
@@ -2132,13 +2151,13 @@ def main():
         f"{time.time() - t0 - t_wan - t_os - t_flux - t_os720 - t_latte:.1f} s)")
 
     meta = {
-        "flash_attention_bshd": ("cuda", "magcache_tpu_torch/csrc/flash_attention.cu",
+        "flash_attention_bshd": ("cuda", "magcache_tpu_torch/csrc/hopper_attention.cuh",
                                  "magcache_tpu/ops/attention.py:430"),
         "flash_attention_bshd_qknorm": ("cuda", "magcache_tpu_torch/csrc/flash_attention.cu",
                                         "magcache_tpu/ops/attention.py:381"),
-        "flash_attention_bhsd": ("cuda", "magcache_tpu_torch/csrc/flash_attention.cu",
+        "flash_attention_bhsd": ("cuda", "magcache_tpu_torch/csrc/hopper_attention.cuh",
                                  "magcache_tpu/ops/attention.py:193"),
-        "flash_attention_bhsd_aux": ("cuda", "magcache_tpu_torch/csrc/flash_attention.cu",
+        "flash_attention_bhsd_aux": ("cuda", "magcache_tpu_torch/csrc/hopper_attention.cuh",
                                      "magcache_tpu/ops/attention.py:1059"),
         "rms_norm_rope": ("triton", "magcache_tpu_torch/csrc/prologue_triton.py",
                           "magcache_tpu/ops/fused_prologue.py:342"),
@@ -2151,7 +2170,7 @@ def main():
         "grouped_attention_fused_qkv": ("cuda", "magcache_tpu_torch/csrc/grouped_attention.cu",
                                         "magcache_tpu/ops/attention.py:755"),
         "grouped_attention_fused_qkv_rowmax": (
-            "cuda", "magcache_tpu_torch/csrc/grouped_attention.cu",
+            "cuda", "magcache_tpu_torch/csrc/hopper_attention.cuh",
             "magcache_tpu/ops/attention.py:755"),
         "grouped_flash_attention_bshd": ("cuda", "magcache_tpu_torch/csrc/grouped_attention.cu",
                                          "magcache_tpu/ops/attention.py:641"),

@@ -27,30 +27,42 @@
 // What bounds it on the H100: spatial attention at STDiT3-XL/2 480p is
 // 30 frames x 16 heads x 1,590^2 x 72 x 4 = 350 GFLOP over 0.35 GB of qkv,
 // and Latte-1's at 512x512 32 x 16 x 1,024^2 x 72 x 4 = 155 GFLOP: tensor-core
-// bound. The TPU kernel holds a whole group in VMEM; a 1,590-token group's
-// K and V (458 KB) do not fit Hopper's 227 KB of shared memory, so a block
-// takes 64 queries of one group and loops over the group's keys in tiles of
-// 64. With the fixed max that loop is exact as it is; with the row max the
-// block first runs the loop once for QK^T alone to find each row's max
-// (one more QK^T, about +50% tensor-core work), then runs it again with
-// that max as the shift, so p is rounded exactly as the one-shot softmax
-// rounds it (an online rescaled softmax would round p against a running
-// max instead). The temporal calls (groups of T = 15 or 16 frames, 3,180 or
-// 2,048 groups x 16 heads) are memory-bound passes of 0.3-0.45 GB: there one
-// warp takes one whole group (up to 16 rows) and does the 16 x 16 score tile
-// and the 16 x 72 output in a single k-step, four groups per block; a row's
-// 16 scores sit in one quad of lanes, so its max is two shuffles.
+// bound. The temporal calls (groups of T = 15 or 16 frames, 3,180 or 2,048
+// groups x 16 heads) are memory-bound passes of 0.3-0.45 GB.
 //
-// What the design does about it: head dim 72 is padded to 80 (five k16
-// steps) only in shared memory; rows are 88 elements (176 B) so ldmatrix and
-// the fragment loads are conflict-free. q/k/v are strided 144-byte,
-// 16-byte-aligned head rows: no split or pad copies. Two adjacent lanes load
-// each head row and join their halves of the RMS sum with one shuffle; the
-// RoPE pairs stay in registers, and a block keeps its head's gains in
-// shared memory. S and P never leave registers (the S accumulator layout is
-// P's A-operand layout), V comes in through ldmatrix.trans. No cp.async/TMA
-// pipeline yet.
+// Three kernels, chosen by the arguments alone:
+//   - the row max without gains or RoPE on groups of more than 16 tokens
+//     (K5r spatial: Latte's frames; K4 with the same arguments) runs the
+//     warp-specialised wgmma/TMA body of hopper_attention.cuh (head dim 80
+//     = 72 + a zero pad the tensor map supplies; mode kRowMax: QK^T over the
+//     group's keys once for each row's true max, then softmax and PV with
+//     that shift, K streamed through the TMA ring twice). q is scaled in
+//     shared memory after its copy: q * (scale*log2(e)) in f32, rounded once.
+//     Its TMA maps are 5-D (column, head, in-group position, group, batch)
+//     over the tensors' own byte strides, the position extent group (q) or
+//     group_valid (k, v), so positions past them arrive as zeros;
+//   - groups of up to 16 tokens (grouped_small_kernel): one warp takes one
+//     whole group (up to 16 rows) and does the 16 x 16 score tile and the
+//     16 x 72 output in a single k-step, four groups per block; a row's 16
+//     scores sit in one quad of lanes, so its max is two shuffles;
+//   - larger groups with gains or RoPE, fixed max or row max
+//     (grouped_tiled_kernel, K5 spatial): a block takes 64 queries of one
+//     group and loops over the group's keys in tiles of 64 (the TPU kernel
+//     holds a whole group in VMEM; a 1,590-token group's K and V, 458 KB,
+//     do not fit Hopper's 227 KB of shared memory). With the row max that
+//     loop runs twice (QK^T alone for the max, then p and PV), which only
+//     the callerless gains-or-RoPE row-max calls reach.
+//
+// What the mma.sync kernels' design does about it: head dim 72 is padded to
+// 80 (five k16 steps) only in shared memory; rows are 88 elements (176 B) so
+// ldmatrix and the fragment loads are conflict-free. q/k/v are strided
+// 144-byte, 16-byte-aligned head rows: no split or pad copies. Two adjacent
+// lanes load each head row and join their halves of the RMS sum with one
+// shuffle; the RoPE pairs stay in registers, and a block keeps its head's
+// gains in shared memory. S and P never leave registers (the S accumulator
+// layout is P's A-operand layout), V comes in through ldmatrix.trans.
 
+#include "hopper_attention.cuh"
 #include "mma_tile.cuh"
 
 namespace {
@@ -144,9 +156,9 @@ grouped_small_kernel(Args p) {
                   h * kD);
 }
 
-// Larger groups: a block takes 64 queries of one group and loops over the
-// group's valid keys in tiles of 64 (twice with the row max: first for the
-// rows' max, then for p and PV).
+// Larger groups with gains or RoPE: a block takes 64 queries of one group
+// and loops over the group's valid keys in tiles of 64 (twice with the row
+// max: first for the rows' max, then for p and PV).
 __global__ void __launch_bounds__(kThreads)
 grouped_tiled_kernel(Args p) {
   __shared__ __align__(16) bf16 Qs[kTile * kStr];
@@ -256,4 +268,24 @@ extern "C" int mc_grouped_attention(
     grouped_tiled_kernel<<<grid, kThreads, 0, st>>>(a);
   }
   return (int)cudaGetLastError();
+}
+
+// The row max without gains or RoPE, groups of more than 16 tokens: the
+// wgmma/TMA body (hopper_attention.cuh, head dim 80, kRowMax) on q, k and v
+// described by `maps` (ops/attention.py:grouped_tma_maps); out is
+// [n_groups * group, H*72].
+extern "C" int mc_grouped_attention_tma(const void* q, const void* k, const void* v,
+                                        void* out, const long long* maps, int n_groups,
+                                        int gpb, int H, int group, int gvalid,
+                                        float q_scale, void* stream) {
+  hopper::Args a{};
+  a.o = static_cast<bf16*>(out);
+  a.H = H;
+  a.Sq = group;
+  a.kv_len = gvalid;
+  a.gpb = gpb;
+  a.q_scale = q_scale;
+  const dim3 grid((group + hopper::kBlockM - 1) / hopper::kBlockM, n_groups, H);
+  return hopper::launch<80, hopper::kRowMax>(q, k, v, maps, a, grid,
+                                             static_cast<cudaStream_t>(stream));
 }

@@ -8,7 +8,8 @@ the kernel does not take raises. Launch counts are ``<wrapper>.launches``
 (K1q's: ``flash_attention_bshd.qknorm_launches``; K5r's:
 ``grouped_attention_fused_qkv.rowmax_launches``).
 
-- ``flash_attention_bshd`` (K1, ``csrc/flash_attention.cu``): full
+- ``flash_attention_bshd`` (K1, ``csrc/flash_attention.cu`` on the
+  warp-specialised wgmma/TMA body of ``csrc/hopper_attention.cuh``): full
   attention, head dim 128; with ``qk_gains`` (K1q) the per-head RMS qk-norm
   fused into the q/k loads, head dim 72, q/k/v read in place through their
   token strides (STDiT3's frames of more than 2,048 tokens).
@@ -24,7 +25,8 @@ the kernel does not take raises. Launch counts are ``<wrapper>.launches``
   block-diagonal grouped attention read from the fused ``[B, S, 3*H*D]``
   projection with the per-head RMS qk-norm and optional in-group RoPE fused
   in; head dim 72 (STDiT3's spatial and temporal attention). Without gains
-  and with the row-max softmax it is K5r (Latte's packed attention).
+  and with the row-max softmax it is K5r (Latte's packed attention), which
+  on groups of more than 16 tokens runs the wgmma/TMA body at head dim 80.
 - ``grouped_flash_attention_bshd`` (K4, the same kernel): the same on
   separate ``[B, S, H, D]`` q, k and v read through their strides (the
   "grouped" mode of ``ops.tiny_attention``).
@@ -37,10 +39,17 @@ lanes, which the port does not carry over.
 
 Wan runs cross-attention over the full zero-padded 512-token context without
 masking; ``kv_len`` masks trailing keys for callers that do mask.
+
+The wgmma/TMA body reads q, k and v through TMA tensor maps. Their geometry
+(extents, byte strides, boxes, swizzle) is computed here in plain Python
+(``tma_map``, ``flash_tma_maps``, ``grouped_tma_maps``) and handed to the C
+side, which only encodes it (``cuTensorMapEncodeTiled``).
 """
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
 import math
 from typing import Optional, Tuple
 
@@ -69,6 +78,88 @@ QKNORM_FIXED_MAX = 16.0
 KERNEL_HEAD_DIM = 128
 GROUPED_HEAD_DIM = 72        # K5's and K6's head dim
 CROSS_MAX_WIDTH = 1152       # K6 keeps a [64, H*72] q/o tile in shared memory
+TMA_BOX_ROWS = 128           # the wgmma/TMA body's query and key tiles
+TMA_PADDED_DIM = 80          # head dim 72 as the body carries it: boxes of 64 + 16
+
+
+@dataclasses.dataclass(frozen=True)
+class TmaMap:
+    """One TMA tensor map's geometry, innermost dimension first: extents
+    (elements), the byte strides of dimensions 1.., box extents, and the
+    swizzle span in bytes (128, or 32 for a box 16 values wide)."""
+    dims: Tuple[int, ...]
+    strides: Tuple[int, ...]
+    box: Tuple[int, ...]
+    swizzle: int
+
+    def words(self) -> list:
+        """The 16 integers the C side reads: rank, swizzle, 5 extents, 4
+        byte strides, 5 box extents (unused trailing entries 1 or 0)."""
+        pad = lambda xs, n, fill: list(xs) + [fill] * (n - len(xs))
+        return [len(self.dims), self.swizzle, *pad(self.dims, 5, 1),
+                *pad(self.strides, 4, 0), *pad(self.box, 5, 1)]
+
+
+def tma_map(label: str, sizes, strides, box, swizzle: int, itemsize: int = 2) -> TmaMap:
+    """A tensor map over a bf16 tensor of ``sizes`` with element ``strides``
+    (both innermost first; the innermost stride must be 1). Raises
+    ``ValueError`` naming ``label`` when TMA cannot describe it: byte
+    strides must be multiples of 16 below 2**40. A dimension of extent 1
+    is never stepped along, so its stride is not checked."""
+    if strides[0] != 1:
+        raise ValueError(f"{label}: TMA needs a unit innermost stride, got {tuple(strides)}")
+    byte = []
+    for n, st in zip(sizes[1:], strides[1:]):
+        b = st * itemsize if n > 1 else 16
+        if b % 16 or not 0 < b < 1 << 40:
+            raise ValueError(f"{label}: TMA needs byte strides that are multiples of 16 "
+                             f"bytes, got {[s * itemsize for s in strides[1:]]} for "
+                             f"extents {tuple(sizes)}")
+        byte.append(b)
+    if any(not 1 <= n < 1 << 32 for n in sizes) or any(not 1 <= n <= 256 for n in box):
+        raise ValueError(f"{label}: extents {tuple(sizes)} or box {tuple(box)} out of "
+                         f"TMA's range")
+    return TmaMap(tuple(sizes), tuple(byte), tuple(box), swizzle)
+
+
+def flash_tma_maps(name: str, q, k, v, kv_len: int) -> list:
+    """The six maps of K1/K1b/K1c (q, k, v x two 64-wide column boxes,
+    128-byte swizzle) over ``[B, H, S, 128]`` tensors or views: dimensions
+    (channel, token, head, batch), token extent Sq for q and ``kv_len`` for
+    k and v (rows past it arrive as zeros), boxes of 128 tokens."""
+    maps = []
+    for label, t, rows in (("q", q, q.shape[2]), ("k", k, kv_len), ("v", v, kv_len)):
+        b, h, _, d = t.shape
+        sb, sh, st, sd = t.stride()
+        m = tma_map(f"{name}: {label}", (d, rows, h, b), (sd, st, sh, sb),
+                    (64, TMA_BOX_ROWS, 1, 1), 128)
+        maps += [m, m]       # the second box starts at column 64
+    return maps
+
+
+def grouped_tma_maps(name: str, q, k, v, group: int, group_valid: int) -> list:
+    """The six maps of the row-max grouped body over ``[B, S, H, 72]``
+    tensors or views (K5r's column views of one projection, K4's tensors):
+    dimensions (channel, head, in-group position, group, batch), position
+    extent ``group`` for q and ``group_valid`` for k and v, boxes of 128
+    positions of one head; per tensor a 64-wide box (128-byte swizzle) and a
+    16-wide one over columns 64..79 (32-byte swizzle), whose columns 72..79
+    lie past the channel extent and arrive as zeros."""
+    maps = []
+    for label, t, rows in (("q", q, group), ("k", k, group_valid), ("v", v, group_valid)):
+        b, s_len, h, d = t.shape
+        bs, ts, hs, cs = t.stride()
+        sizes = (d, h, rows, s_len // group, b)
+        strides = (cs, hs, ts, ts * group, bs)
+        for width, swizzle in ((64, 128), (TMA_PADDED_DIM - 64, 32)):
+            maps.append(tma_map(f"{name}: {label}", sizes, strides,
+                                (width, 1, TMA_BOX_ROWS, 1, 1), swizzle))
+    return maps
+
+
+def _map_words(maps):
+    words = [w for m in maps for w in m.words()]
+    return (ctypes.c_longlong * len(words))(*words)
 
 
 def _q_scale(scale: float, dtype: torch.dtype) -> torch.Tensor:
@@ -169,15 +260,12 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, t, shape in (("q", q, (b, sq, h, d)), ("k", k, (b, skv, h, d)),
                            ("v", v, (b, skv, h, d))):
         check_bf16(f"flash_attention_bshd: {name}", t, shape, q.device)
-    lib = load_cuda_library()
-    out = torch.empty_like(q)
-    code = lib.mc_flash_attention_bshd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, sq, skv, h, kv_len, float(_q_scale(scale, q.dtype)),
-        int(fixed_max is not None),
-        float(fixed_max) if fixed_max is not None else 0.0,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    check_launch(lib, code, "flash_attention_bshd")
+    # K1b's launch on the head-major views: one body, one tile order
+    out, _, _ = _strided_launch("flash_attention_bshd",
+                                *(t.transpose(1, 2) for t in (q, k, v)), scale=scale,
+                                kv_len=kv_len, mode=int(fixed_max is not None),
+                                fixed_max=fixed_max)
+    out = out.transpose(1, 2)
     count_launch(flash_attention_bshd)
     return out
 
@@ -236,12 +324,10 @@ def flash_attention_bhsd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 
 def _strided_launch(name: str, q, k, v, *, scale, kv_len, mode: int,
                     fixed_max: Optional[float]):
-    """Launch of the strided kernel body (K1b: mode 0 running max, 1 fixed
+    """Launch of the wgmma/TMA body (K1 and K1b: mode 0 running max, 1 fixed
     max; K1c: mode 2) on bf16 ``[B, H, S, 128]`` tensors or views. Checks
     what the kernel takes and raises on anything else. Returns ``(o, m, l)``,
     m and l None unless mode 2; o has q's layout."""
-    import ctypes
-
     if not (q.ndim == k.ndim == v.ndim == 4):
         raise ValueError(f"{name}: q, k and v must be [B, H, S, D]")
     b, h, sq, d = q.shape
@@ -275,14 +361,14 @@ def _strided_launch(name: str, q, k, v, *, scale, kv_len, mode: int,
         q_scale = scale * _LOG2E          # applied to the f32 scores
     else:
         q_scale = float(_q_scale(scale, q.dtype))
-    strides = (ctypes.c_longlong * 12)(*(st for t in (q, k, v, out)
-                                         for st in t.stride()[:3]))
+    maps = flash_tma_maps(name, q, k, v, kv_len)
     lib = load_cuda_library()
-    code = lib.mc_flash_attention_strided(
+    code = lib.mc_flash_attention_tma(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         m.data_ptr() if m is not None else None,
-        l.data_ptr() if l is not None else None, b, sq, h, kv_len, strides,
-        q_scale, mode, float(fixed_max) if fixed_max is not None else 0.0,
+        l.data_ptr() if l is not None else None, _map_words(maps),
+        (ctypes.c_longlong * 3)(*out.stride()[:3]), b, h, sq, kv_len, q_scale, mode,
+        float(fixed_max) if fixed_max is not None else 0.0,
         torch.cuda.current_stream(dev).cuda_stream)
     check_launch(lib, code, name)
     return out, m, l
@@ -469,9 +555,11 @@ def _check_head_rows(name: str, t: torch.Tensor, shape, dev) -> None:
 
 def _grouped_launch(name: str, q, k, v, *, group, gvalid, scale, qk_gains,
                     rope_tables, true_d, eps, fixed_max) -> torch.Tensor:
-    """The grouped kernel's launch (K4, K5, K5r) on ``[B, S, H, 72]`` q/k/v
-    read through their strides; returns ``[B, S, H*72]``. Checks what the
-    kernel takes and raises on anything else."""
+    """The grouped kernels' launch (K4, K5, K5r) on ``[B, S, H, 72]`` q/k/v
+    read through their strides; returns ``[B, S, H*72]``. The row max
+    without gains or RoPE on groups of more than 16 tokens takes the
+    wgmma/TMA body, everything else the mma.sync kernels. Checks what the
+    kernels take and raises on anything else."""
     b, s_len, heads, d = q.shape
     dev = q.device
     true_d = d if true_d is None else true_d
@@ -505,16 +593,40 @@ def _grouped_launch(name: str, q, k, v, *, group, gvalid, scale, qk_gains,
 
     lib = load_cuda_library()
     out = torch.empty((b, s_len, heads * d), dtype=v.dtype, device=dev)
-    code = lib.mc_grouped_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), q.stride(0), q.stride(1),
-        k.stride(0), k.stride(1), v.stride(0), v.stride(1), out.data_ptr(),
-        ptr(gains[0]), ptr(gains[1]), ptr(cos), ptr(sin), n_groups,
-        s_len // group, heads, group, gvalid, int(fixed_max is None),
-        scale * _LOG2E, float(d), float(eps),
-        float(fixed_max) if fixed_max is not None else 0.0,
-        torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    route = grouped_kernel(group, qk_gains, rope_tables, fixed_max)
+    if route == "tma":
+        maps = grouped_tma_maps(name, q, k, v, group, gvalid)
+        code = lib.mc_grouped_attention_tma(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _map_words(maps),
+            n_groups, s_len // group, heads, group, gvalid, scale * _LOG2E, stream)
+    else:
+        code = lib.mc_grouped_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), q.stride(0), q.stride(1),
+            k.stride(0), k.stride(1), v.stride(0), v.stride(1), out.data_ptr(),
+            ptr(gains[0]), ptr(gains[1]), ptr(cos), ptr(sin), n_groups,
+            s_len // group, heads, group, gvalid, int(fixed_max is None),
+            scale * _LOG2E, float(d), float(eps),
+            float(fixed_max) if fixed_max is not None else 0.0, stream)
     check_launch(lib, code, name)
+    count_launch(_grouped_launch, "routes", route)
     return out
+
+
+_grouped_launch.routes = {"tma": 0, "tiled": 0, "small": 0}
+
+
+def grouped_kernel(group: int, qk_gains, rope_tables, fixed_max) -> str:
+    """Which grouped kernel a CUDA call runs, by its arguments alone: "tma"
+    (the wgmma/TMA body: the row max without gains or RoPE on groups of more
+    than 16 tokens), "small" (groups of up to 16 tokens) or "tiled" (larger
+    groups with gains, RoPE or the fixed max). Launches count by route in
+    ``_grouped_launch.routes`` beside the wrappers' own counts."""
+    if group <= 16:
+        return "small"
+    if fixed_max is None and qk_gains is None and rope_tables is None:
+        return "tma"
+    return "tiled"
 
 
 def grouped_flash_attention_bshd_plain(

@@ -92,13 +92,14 @@ def _load_cuda_library() -> ctypes.CDLL:
         _compile_and_link(sources, lib_path)
     lib = ctypes.CDLL(lib_path)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.mc_flash_attention_bshd.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                                            cf, ci, cf, vp]
-    lib.mc_flash_attention_bshd.restype = ci
     cl = ctypes.c_longlong
-    lib.mc_flash_attention_strided.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci,
-                                               ctypes.POINTER(cl), cf, ci, cf, vp]
-    lib.mc_flash_attention_strided.restype = ci
+    pl = ctypes.POINTER(cl)
+    lib.mc_flash_attention_tma.argtypes = [vp, vp, vp, vp, vp, vp, pl, pl, ci, ci, ci, ci,
+                                           cf, ci, cf, vp]
+    lib.mc_flash_attention_tma.restype = ci
+    lib.mc_grouped_attention_tma.argtypes = [vp, vp, vp, vp, pl, ci, ci, ci, ci, ci, cf,
+                                             vp]
+    lib.mc_grouped_attention_tma.restype = ci
     lib.mc_flash_attention_qknorm.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci,
                                               cl, cl, cl, cl, cl, cl, cf, cf, cf, cf, vp]
     lib.mc_flash_attention_qknorm.restype = ci

@@ -619,3 +619,96 @@ def test_k3p_matches_plain(dev, b, s, d):
     assert (P.layer_norm_mod.launches, P.layer_norm_mod.plain_launches) == (
         before[0], before[1] + 1)
     torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=1.6e-2)
+
+
+# ---- the wgmma/TMA body's edges: ragged 128-row tiles, shard views, groups --
+
+# K1 on 128-query, 128-key tiles: lengths off the tile, kv_len inside the
+# last key tile; the 7,800-token request shape of Wan at 832x480x17
+@pytest.mark.parametrize("fixed_max", [None, 16.0])
+@pytest.mark.parametrize("sq,skv,kv_len", [(7800, 7800, None), (1950, 512, 300),
+                                           (130, 77, None)])
+def test_k1_ragged_tiles_match_plain(dev, fixed_max, sq, skv, kv_len):
+    q = _rand(dev, 1, sq, 2, 128, seed=51)
+    k, v = _rand(dev, 1, skv, 2, 128, seed=52), _rand(dev, 1, skv, 2, 128, seed=53)
+    got = A.flash_attention_bshd(q, k, v, kv_len=kv_len, fixed_max=fixed_max)
+    want = A.flash_attention_bshd_plain(q, k, v, kv_len=kv_len, fixed_max=fixed_max)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-3, rtol=2e-2)
+
+
+# K1b on the head-major views a rank holds after Ulysses' all-to-all at the
+# 7,800-token request: sp 2 (6 heads) and sp 4 (3 heads), and the cross
+# attention of a 1,950-token shard over 512 keys
+@pytest.mark.parametrize("sp", [2, 4])
+def test_k1b_on_sp_shard_views_matches_plain(dev, sp):
+    q, k, v = (_rand(dev, 2, 7800, 12 // sp, 128, seed=60 + i).transpose(1, 2)
+               for i in range(3))
+    before = A.flash_attention_bhsd.launches
+    got = A.flash_attention_bhsd(q, k, v, fixed_max=16.0)
+    want = A.flash_attention_bhsd_plain(q, k, v, fixed_max=16.0)
+    assert got.stride() == q.stride()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-3, rtol=2e-2)
+    cq = _rand(dev, 2, 7800 // sp, 12, 128, seed=63).transpose(1, 2)
+    ck, cv = (_rand(dev, 2, 512, 12, 128, seed=64 + i).transpose(1, 2) for i in range(2))
+    got = A.flash_attention_bhsd(cq, ck, cv, fixed_max=16.0)
+    want = A.flash_attention_bhsd_plain(cq, ck, cv, fixed_max=16.0)
+    torch.cuda.synchronize()
+    assert A.flash_attention_bhsd.launches == before + 2
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-3, rtol=2e-2)
+
+
+# K1c's m and l on rows of a ragged last query tile (the ring step of a
+# 1,950-token shard; 300 queries over 77 keys with kv_len 50)
+@pytest.mark.parametrize("sq,skv,kv_len", [(1950, 1950, None), (300, 77, 50)])
+def test_k1c_ragged_rows_return_m_and_l(dev, sq, skv, kv_len):
+    q = _rand(dev, 2, sq, 3, 128, seed=71).transpose(1, 2)
+    k, v = (_rand(dev, 2, skv, 3, 128, seed=72 + i).transpose(1, 2) for i in range(2))
+    o, m, l = A.flash_attention_bhsd_aux(q, k, v, kv_len=kv_len)
+    ow, mw, lw = A.flash_attention_bhsd_aux_plain(q, k, v, kv_len=kv_len)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o.float(), ow.float(), atol=2e-3, rtol=2e-2)
+    torch.testing.assert_close(m, mw, atol=1e-4, rtol=0)
+    torch.testing.assert_close(l, lw, atol=0, rtol=1e-4)
+
+
+# the row max without gains or RoPE, groups of more than 16 tokens: the
+# wgmma/TMA body, through K5 (K5r) and K4 alike; K5's tolerances
+@pytest.mark.parametrize("b,s,heads,group,gvalid", [
+    (2, 34, 2, 17, 17), (3, 200, 2, 100, 71), (2, 1024, 3, 1024, 1024),
+    (1, 3180, 2, 1590, 1200), (1, 2048, 2, 2048, 2048)])
+@pytest.mark.parametrize("through", ["K5", "K4"])
+def test_rowmax_tma_path_matches_plain(dev, b, s, heads, group, gvalid, through):
+    qkv, _, _ = _grouped_inputs(dev, b, s, heads, group)
+    kw = dict(group=group, group_valid=gvalid, scale=72 ** -0.5)
+    before = (A._grouped_launch.routes["tma"], A.grouped_attention_fused_qkv.rowmax_launches,
+              A.grouped_flash_attention_bshd.launches)
+    if through == "K5":
+        got = A.grouped_attention_fused_qkv(qkv, heads, **kw)
+        want = A.grouped_attention_fused_qkv_plain(qkv, heads, **kw)
+        counts = (1, 1, 0)
+    else:
+        q, k, v = qkv.unflatten(-1, (3, heads, 72)).unbind(2)
+        got = A.grouped_flash_attention_bshd(q, k, v, **kw)
+        want = A.grouped_flash_attention_bshd_plain(q, k, v, **kw)
+        counts = (1, 0, 1)
+    after = (A._grouped_launch.routes["tma"], A.grouped_attention_fused_qkv.rowmax_launches,
+             A.grouped_flash_attention_bshd.launches)
+    assert tuple(x - y for x, y in zip(after, before)) == counts
+    _close(got, want)
+
+
+@pytest.mark.parametrize("norm,rope,group,route", [
+    (True, False, 32, "tiled"), (False, True, 100, "tiled"), (False, False, 16, "small")])
+def test_gains_rope_and_small_groups_stay_off_the_tma_path(dev, norm, rope, group, route):
+    qkv, gains, tables = _grouped_inputs(dev, 1, 4 * group, 2, group)
+    before = dict(A._grouped_launch.routes)
+    got = A.grouped_attention_fused_qkv(qkv, 2, group=group, scale=72 ** -0.5,
+                                        qk_gains=gains if norm else None,
+                                        rope_tables=tables if rope else None)
+    assert {k: n - before[k] for k, n in A._grouped_launch.routes.items()} == dict(
+        {"tma": 0, "tiled": 0, "small": 0}, **{route: 1})
+    _close(got, A.grouped_attention_fused_qkv_plain(
+        qkv, 2, group=group, scale=72 ** -0.5, qk_gains=gains if norm else None,
+        rope_tables=tables if rope else None))

@@ -1,0 +1,123 @@
+"""The TMA tensor-map geometry of the wgmma/TMA attention body, on the CPU.
+
+``ops/attention.py`` computes every extent, byte stride, box and swizzle
+that the C side hands to ``cuTensorMapEncodeTiled``; these tests hold it to
+the layouts the main paths pass: Wan's contiguous ``[B, S, H, 128]``
+activations (K1), Ulysses' head-major views (K1b, K1c), Latte's q/k/v column
+views of one fused projection (K5r) and K4's tensors with several groups per
+sequence. No card is needed: the geometry is plain Python.
+"""
+
+import pytest
+import torch
+
+from magcache_tpu_torch.ops import attention as A
+
+BF16 = torch.bfloat16
+
+
+def _meta(*shape):
+    # strides and shapes only: no storage is touched
+    return torch.empty(shape, dtype=BF16, device="meta")
+
+
+def test_wan_self_attention_maps():
+    x = _meta(2, 32760, 12, 128)
+    maps = A.flash_tma_maps("K1", *(t.transpose(1, 2) for t in (x, x, x)), 32760)
+    assert len(maps) == 6
+    row, plane = 12 * 128 * 2, 32760 * 12 * 128 * 2
+    for m in maps:
+        assert m.dims == (128, 32760, 12, 2)
+        assert m.strides == (row, 256, plane)
+        assert m.box == (64, A.TMA_BOX_ROWS, 1, 1) and m.swizzle == 128
+    assert maps[0] == maps[1]               # the second box starts at column 64
+    assert maps[0].words() == [4, 128, 128, 32760, 12, 2, 1, row, 256, plane, 0,
+                               64, 128, 1, 1, 1]
+
+
+def test_wan_cross_attention_masks_keys_by_extent():
+    q, ctx = _meta(2, 32760, 12, 128), _meta(2, 512, 12, 128)
+    maps = A.flash_tma_maps("K1", q.transpose(1, 2), ctx.transpose(1, 2),
+                            ctx.transpose(1, 2), 300)
+    assert maps[0].dims[1] == 32760
+    assert [m.dims[1] for m in maps[2:]] == [300] * 4   # keys past kv_len read as 0
+
+
+@pytest.mark.parametrize("sp", [2, 4])
+def test_ulysses_head_major_views(sp):
+    # after the all-to-all a rank holds all tokens of H/sp heads, [B, S, H/sp, D],
+    # and hands the kernel its [B, H/sp, S, D] view
+    x = _meta(2, 32760, 12 // sp, 128)
+    view = x.transpose(1, 2)
+    (m, _, k, _, v, _) = A.flash_tma_maps("flash_attention_bhsd", view, view, view, 32760)
+    hs = 12 // sp
+    assert m.dims == (128, 32760, hs, 2)
+    assert m.strides == (hs * 256, 256, 32760 * hs * 256)
+    # a contiguous [B, H, S, D] tensor has the token stride innermost
+    c = _meta(2, hs, 8190, 128)
+    m = A.flash_tma_maps("flash_attention_bhsd_aux", c, c, c, 8190)[0]
+    assert m.dims == (128, 8190, hs, 2)
+    assert m.strides == (256, 8190 * 256, hs * 8190 * 256)
+
+
+def test_latte_column_views():
+    qkv = torch.empty(32, 1024, 3 * 16 * 72, dtype=BF16)
+    q, k, v = A.split_qkv(qkv, 16)
+    assert (k.data_ptr() - qkv.data_ptr(), v.data_ptr() - qkv.data_ptr()) == (2304, 4608)
+    maps = A.grouped_tma_maps("grouped_attention_fused_qkv", q, k, v, 1024, 1024)
+    assert len(maps) == 6
+    for i, m in enumerate(maps):
+        # (channel, head, in-group position, group, batch); one group a frame
+        assert m.dims == (72, 16, 1024, 1, 32)
+        assert m.strides == (144, 3456 * 2, 16, 1024 * 3456 * 2)
+        wide = i % 2 == 0
+        assert m.box == ((64 if wide else 16), 1, A.TMA_BOX_ROWS, 1, 1)
+        assert m.swizzle == (128 if wide else 32)
+
+
+def test_k4_groups_within_a_sequence():
+    qkv = torch.empty(2, 300, 3 * 2 * 72, dtype=BF16)
+    q, k, v = qkv.unflatten(-1, (3, 2, 72)).unbind(2)
+    maps = A.grouped_tma_maps("grouped_flash_attention_bshd", q, k, v, 100, 77)
+    ts = 3 * 2 * 72 * 2
+    assert maps[0].dims == (72, 2, 100, 3, 2)          # q: the whole group
+    assert [m.dims[2] for m in maps[2:]] == [77] * 4    # k, v: group_valid
+    for m in maps:
+        assert m.strides == (144, ts, 100 * ts, 300 * ts)
+    dense = A.grouped_tma_maps("grouped_flash_attention_bshd", *(
+        t.contiguous() for t in (q, k, v)), 100, 77)
+    assert dense[0].strides == (144, 288, 100 * 288, 300 * 288)
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_a_stride_off_16_bytes_raises_naming_the_tensor(which):
+    good = _meta(1, 2, 200, 128)
+    bad = _meta(1, 2, 200, 132)[..., :128]              # rows 264 bytes apart
+    args = {n: (bad if n == which else good) for n in "qkv"}
+    with pytest.raises(ValueError, match=f"flash_attention_bhsd: {which}: .*16 bytes"):
+        A.flash_tma_maps("flash_attention_bhsd", args["q"], args["k"], args["v"], 200)
+    odd = torch.empty(1, 32, 3 * 2 * 72 + 4, dtype=BF16)[..., :3 * 2 * 72]
+    q, k, v = A.split_qkv(odd, 2)                       # token stride 440 bytes
+    with pytest.raises(ValueError, match="K5r: q: .*16 bytes"):
+        A.grouped_tma_maps("K5r", q, k, v, 32, 32)
+
+
+def test_extent_one_dimensions_take_any_stride():
+    # a batch of 1 is never stepped along, whatever stride the view carries
+    x = torch.empty(1 << 20, dtype=BF16, device="meta").as_strided(
+        (1, 300, 2, 128), (3, 256, 128, 1))              # batch stride 6 bytes
+    m = A.flash_tma_maps("K1", *(x.transpose(1, 2) for _ in range(3)), 300)[0]
+    assert m.dims == (128, 300, 2, 1) and m.strides == (512, 256, 16)
+
+
+@pytest.mark.parametrize("group,gains,rope,fixed_max,want", [
+    (1024, False, False, None, "tma"),     # Latte spatial (K5r)
+    (17, False, False, None, "tma"),
+    (16, False, False, None, "small"),     # Latte temporal (K5r)
+    (1590, True, False, 16.0, "tiled"),    # STDiT3 spatial (K5)
+    (100, False, True, None, "tiled"),     # the row max with RoPE
+    (32, True, False, None, "tiled")])     # the row max with gains
+def test_grouped_routing_by_arguments(group, gains, rope, fixed_max, want):
+    g = (torch.ones(72), torch.ones(72)) if gains else None
+    r = (torch.ones(group, 36), torch.zeros(group, 36)) if rope else None
+    assert A.grouped_kernel(group, g, r, fixed_max) == want
