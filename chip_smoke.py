@@ -28,6 +28,11 @@ Wan2.1 T2V-1.3B (K1, K2, K3, and K3p in the head):
 Open-Sora 1.2 STDiT3-XL/2 (K3, K5, K6, K7, K8):
 7. each kernel against its plain version at the path's shapes (480p 9:16,
    51 frames: 15 frames of 1,590 tokens, a joint CFG batch of 2, bf16);
+   K7 (the LayerNorm-modulated operand, then the wgmma/TMA GEMM body of
+   ``csrc/hopper_gemm.cuh``) beside cuBLAS on the already-modulated operand
+   (a yardstick, not the same function), K6 (GEMM body,
+   ``hopper_cross_kernel``, GEMM body) with its three launches also timed
+   apart (phases 15 and 19 the same at their shapes);
 8. one full-shape forward, 28 layers;
 9. requests through ``OpenSoraPipeline.generate`` at 480p x 51 frames and
    30 RFLOW steps: full compute, then MagCache opensora-v1.2 (18 of 30
@@ -750,7 +755,13 @@ def check_stdit3_linear_kernels(dev, rec, gen, S, rows=2, T=15, d=1152, H=16, L=
                cuda_ms(lambda: P.lnmod_matmul(x, sc, sh, w, b, **kw)),
                cuda_ms(lambda: P.lnmod_matmul_plain(x, sc, sh, w, b, **kw), 2),
                2 * x.shape[0] * x.shape[1] * d * w.shape[0], nbytes(x, w, b, got))
-        del got, want
+        # yardstick: cuBLAS on the already-modulated operand
+        y = P.lnmod_operand_plain(x, sc, sh, batch_repeat=kw.get("batch_repeat", 1),
+                                  dtype=w.dtype)
+        log(f"    lnmod_matmul [{label}]: yardstick F.linear on the modulated input "
+            f"{cuda_ms(lambda: torch.nn.functional.linear(y, w, b)):.3f} ms (GEMM only, "
+            f"not the same function)")
+        del got, want, y
 
     # K8: spatial proj + residual, temporal proj (gate row per S rows, no
     # residual), mlp2 + residual
@@ -779,10 +790,23 @@ def check_stdit3_linear_kernels(dev, rec, gen, S, rows=2, T=15, d=1152, H=16, L=
     kw = dict(scale=(d // H) ** -0.5, true_d=d // H, residual=True)
     got = A.fused_cross_attention(h, wq, bq, k, v, wo, bo, H, **kw)
     want = A.fused_cross_attention_plain(h, wq, bq, k, v, wo, bo, H, **kw)
-    record(rec, "fused_cross_attention", f"{rows}x{N} x {L} keys, residual", got, want,
+    label = f"{rows}x{N} x {L} keys, residual"
+    record(rec, "fused_cross_attention", label, got, want,
            cuda_ms(lambda: A.fused_cross_attention(h, wq, bq, k, v, wo, bo, H, **kw)),
            cuda_ms(lambda: A.fused_cross_attention_plain(h, wq, bq, k, v, wo, bo, H, **kw), 2),
            4 * rows * N * d * d + 4 * rows * N * L * d, nbytes(h, wq, bq, k, v, wo, bo, got))
+    # its three launches timed apart
+    from magcache_tpu_torch.ops.gemm import gemm_launch
+
+    b32, scale = bq.float(), kw["scale"]
+    q = gemm_launch("q", h, wq, b32)
+    o = A._cross_attention_launch(q, k, v, H, scale, L)
+    stages = (("q projection", lambda: gemm_launch("q", h, wq, b32)),
+              ("attention", lambda: A._cross_attention_launch(q, k, v, H, scale, L)),
+              ("out-projection + residual",
+               lambda: gemm_launch("o", o, wo, b32, epilogue="resid", resid=h)))
+    log(f"    fused_cross_attention [{label}] by stage: " + ", ".join(
+        f"{name} {cuda_ms(fn):.3f} ms" for name, fn in stages))
 
 
 def phase_os_kernels(dev, rec):
@@ -2176,9 +2200,9 @@ def main():
                                          "magcache_tpu/ops/attention.py:641"),
         "tiny_temporal_attention": ("cuda", "magcache_tpu_torch/csrc/tiny_attention.cu",
                                     "magcache_tpu/ops/tiny_attention.py:185"),
-        "fused_cross_attention": ("cuda", "magcache_tpu_torch/csrc/cross_attention.cu",
+        "fused_cross_attention": ("cuda", "magcache_tpu_torch/csrc/stdit3_kernels.cu",
                                   "magcache_tpu/ops/attention.py:933"),
-        "lnmod_matmul": ("cuda", "magcache_tpu_torch/csrc/fused_matmul.cu",
+        "lnmod_matmul": ("cuda", "magcache_tpu_torch/csrc/hopper_gemm.cuh",
                          "magcache_tpu/ops/fused_prologue.py:205"),
         "matmul_gated_residual": ("cuda", "magcache_tpu_torch/csrc/fused_matmul.cu",
                                   "magcache_tpu/ops/fused_prologue.py:66"),

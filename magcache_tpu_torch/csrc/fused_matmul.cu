@@ -1,47 +1,31 @@
-// K7 and K8: the STDiT3 trunk's fused projections, bf16, one GEMM main loop.
+// K8: the STDiT3 trunk's gated projection epilogue, bf16, on mma.sync.
 //
-// K7 replaces magcache_tpu/ops/fused_prologue.py:lnmod_matmul (Pallas body
-// _lnmod_mm_kernel):
-//     out = [gelu](bf16(bf16(LN(x)) * (1 + scale) + shift) @ w + bias)
 // K8 replaces magcache_tpu/ops/fused_prologue.py:matmul_gated_residual
 // (Pallas body _mm_gate_res_kernel):
 //     out = [bf16(resid +)] gate * bf16(x @ w + bias)
+// (K7, lnmod_matmul, runs on the wgmma/TMA GEMM body of hopper_gemm.cuh:
+// stdit3_kernels.cu.)
 //
-// Rounding points, as the TPU kernels have them:
-//   K7: two-pass f32 LayerNorm (mean, then the variance of the centred
-//       values), y = (x - mean) * rsqrt(var + eps) rounded to bf16, then
-//       y * (1 + a) + b in f32 rounded to bf16 as the GEMM operand; f32
-//       accumulate, + bias, tanh-gelu in f32, one rounding at the store.
-//   K8: f32 accumulate + bias, round to bf16, * gate in f32; with a residual,
-//       round to bf16 again, then + resid in f32; one rounding at the store.
+// Rounding points, as the TPU kernel has them: f32 accumulate + bias, round
+// to bf16, * gate in f32; with a residual, round to bf16 again, then + resid
+// in f32; one rounding at the store.
 // Row geometry: x is [B, S, K]; the output is [B, rows_out, N]. Output row
 // (b, s) reads x row (b, s) when s < S and is written as zeros otherwise
-// (K7's zero-filled attention-group pad; K8 also drops rows when
-// rows_out < S). Modulation and gate rows are b / batch_repeat.
+// (rows_out < S drops rows). Gate rows are b / batch_repeat.
 // Weights come as an nn.Linear weight, [N, K] with K contiguous.
 //
-// What bounds it on the H100: at STDiT3-XL/2 480p the calls are
-// 47,700 x 1152 -> 3456 (qkv), 47,700 x 1152 -> 4608 (mlp1) and
-// 47,700 x 4608 -> 1152 (mlp2): 0.25-0.5 TFLOP each over well under a GB,
-// hundreds of flops per byte, so the tensor cores bound them.
+// What bounds it on the H100: at STDiT3-XL/2 480p the calls are 47,700 x
+// 1152 -> 1152 (proj) and 47,700 x 4608 -> 1152 (mlp2): 0.13-0.5 TFLOP each
+// over well under a GB, hundreds of flops per byte, so the tensor cores
+// bound them.
 //
 // What the design does about that: every product runs on
 // mma.sync.m16n8k16 fed by ldmatrix from padded (conflict-free) shared
 // memory, with k-steps of 64 and a 3-stage cp.async pipeline (tiles land in
-// shared memory without passing through registers; one barrier per k-step).
-//   K8: 128 x 128 block tiles, 8 warps of 64 x 32, A and W both pipelined;
-//       two blocks fit on an SM.
-//   K7: LayerNorm needs the whole row before any k-step, and the TPU kernel
-//       normalises each row once per 128 output columns. Here a block owns
-//       64 rows, copied raw into shared memory in one cp.async burst
-//       (148 KB at d_in = 1152, so d_in <= 1216); a first pass computes
-//       their statistics there (each warp 8 rows, two-pass in f32), a
-//       second normalises and modulates them in place,
-//       and the block then walks half of the 256-wide N tiles with only W
-//       double-buffered (k-steps of 64), each warp 64 rows x 32 columns.
-//       The first W stage loads under the LayerNorm passes.
-// The epilogue applies bias, gelu, gate and residual to the accumulators
-// and writes bf16 pairs. No wgmma/TMA yet.
+// shared memory without passing through registers; one barrier per
+// k-step): 128 x 128 block tiles, 8 warps of 64 x 32, A and W both
+// pipelined; two blocks fit on an SM. The epilogue applies bias, gate and
+// residual to the accumulators and writes bf16 pairs. No wgmma/TMA yet.
 
 #include "mma_tile.cuh"
 
@@ -57,27 +41,15 @@ constexpr int kStr = kBK + 8;
 constexpr int kBN = 128;
 constexpr int kGateBM = 128;
 constexpr size_t kGateSmem = (size_t)kStages * (kGateBM + kBN) * kStr * sizeof(bf16);
-// K7: 64 resident rows, 256-wide N tiles, k-steps of 64, two W stages
-constexpr int kLnBM = 64;
-constexpr int kLnBN = 256;
-constexpr int kLnBK = 64;
-constexpr int kLnStr = kLnBK + 8;
-constexpr int kLnStages = 2;
-constexpr int kLnSplitN = 2;               // K7 blocks per row block, over N
-constexpr int kLnMaxK = 1216;              // K7's rows + W stages fit in 227 KB
-constexpr size_t kLnWSmem = (size_t)kLnStages * kLnBN * kLnStr * sizeof(bf16);
 
 struct Args {
   const bf16* x;          // [B, S, K]
   const bf16* w;          // [N, K]
   const float* bias;      // [N]
-  const float* mod_a;     // K7: 1 + scale [B / rep, K]
-  const float* mod_b;     // K7: shift [B / rep, K]
   const float* gate;      // K8: [B / rep, N]
   const bf16* resid;      // K8: [B, rows_out, N] or null
   bf16* out;              // [B, rows_out, N]
   int B, S, rows_out, K, N, rep;
-  float eps;
 };
 
 // Output row m of [B, rows_out, N]: its batch row, and the x row it reads
@@ -210,168 +182,6 @@ gated_matmul_kernel(Args p) {
     }
 }
 
-// ---- K7 ---------------------------------------------------------------------
-__host__ __device__ constexpr int ln_row_stride(int K) {
-  return (K + kLnBK - 1) / kLnBK * kLnBK + 8;          // 16 B over a k-step multiple
-}
-
-template <bool kGelu>
-__global__ void __launch_bounds__(kThreads)
-lnmod_matmul_kernel(Args p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int lda = ln_row_stride(p.K);
-  bf16* Ar = reinterpret_cast<bf16*>(smem);          // [64][lda]: normalised rows
-  bf16* Ws = Ar + kLnBM * lda;                        // kLnStages x [256][72]
-  float* row_mean = reinterpret_cast<float*>(Ws + kLnStages * kLnBN * kLnStr);
-  float* row_rstd = row_mean + kLnBM;
-  const int m0 = blockIdx.y * kLnBM;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int nk = (p.K + kLnBK - 1) / kLnBK;
-  const int n_tiles = (p.N + kLnBN - 1) / kLnBN;
-  auto load_stage = [&](int st, int n0, int kt) {
-    load_w_stage<kLnBN, kLnBK>(Ws + st * kLnBN * kLnStr, p, n0, kt * kLnBK);
-  };
-
-  // Pass 0: the block's raw x rows into Ar in one cp.async burst (pad rows
-  // and the columns past K read as zeros); the first N tile's W stages
-  // follow and load under the LayerNorm passes.
-  const int chunks = (lda - 8) / 8;
-  for (int c = threadIdx.x; c < kLnBM * chunks; c += kThreads) {
-    const int r = c / chunks, k = (c - r * chunks) * 8;
-    int b;
-    const bf16* xr = x_row(p, m0 + r, &b);
-    const bool ok = xr != nullptr && k < p.K;
-    mc::cp_async_16(Ar + r * lda + k, ok ? xr + k : p.x, ok);
-  }
-  mc::cp_async_commit();
-#pragma unroll
-  for (int st = 0; st < kLnStages - 1; ++st) {
-    if (st < nk) load_stage(st, blockIdx.x * kLnBN, st);
-    mc::cp_async_commit();
-  }
-  mc::cp_async_wait<kLnStages - 1>();
-  __syncthreads();
-
-  // Pass 1: row statistics from shared memory, two-pass in f32; warp w
-  // takes rows 8w..8w+7.
-  for (int rr = 0; rr < kLnBM / 8; ++rr) {
-    const int r = warp * (kLnBM / 8) + rr;
-    const bf16* xr = Ar + r * lda;
-    float sum = 0.f;
-    for (int k = lane * 8; k < p.K; k += 256) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(xr + k);
-      const uint32_t* w = reinterpret_cast<const uint32_t*>(&raw);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 v = mc::unpack_bf16(w[j]);
-        sum += v.x + v.y;
-      }
-    }
-    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    const float mean = sum / p.K;
-    float var = 0.f;
-    for (int k = lane * 8; k < p.K; k += 256) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(xr + k);
-      const uint32_t* w = reinterpret_cast<const uint32_t*>(&raw);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 v = mc::unpack_bf16(w[j]);
-        const float c0 = v.x - mean, c1 = v.y - mean;
-        var += c0 * c0 + c1 * c1;
-      }
-    }
-    for (int o = 16; o > 0; o >>= 1) var += __shfl_xor_sync(0xffffffffu, var, o);
-    if (lane == 0) {
-      row_mean[r] = mean;
-      row_rstd[r] = rsqrtf(var / p.K + p.eps);
-    }
-  }
-  __syncthreads();
-
-  // Pass 2, in place: bf16(bf16((x - mean) * rstd) * (1 + scale) + shift).
-  for (int c = threadIdx.x; c < kLnBM * chunks; c += kThreads) {
-    const int r = c / chunks, k = (c - r * chunks) * 8;
-    int b;
-    if (x_row(p, m0 + r, &b) == nullptr || k >= p.K) continue;
-    uint4* cell = reinterpret_cast<uint4*>(Ar + r * lda + k);
-    uint4 v = *cell;
-    const size_t mrow = (size_t)(b / p.rep) * p.K + k;     // 32-byte aligned
-    const float4* ap = reinterpret_cast<const float4*>(p.mod_a + mrow);
-    const float4* bp = reinterpret_cast<const float4*>(p.mod_b + mrow);
-    const float4 a4[2] = {ap[0], ap[1]}, b4[2] = {bp[0], bp[1]};
-    const float* a = reinterpret_cast<const float*>(a4);
-    const float* sh = reinterpret_cast<const float*>(b4);
-    const float mean = row_mean[r], rstd = row_rstd[r];
-    uint32_t* w = reinterpret_cast<uint32_t*>(&v);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 xv = mc::unpack_bf16(w[j]);
-      const float y0 = mc::round_bf16((xv.x - mean) * rstd);
-      const float y1 = mc::round_bf16((xv.y - mean) * rstd);
-      w[j] = mc::pack_bf16(y0 * a[2 * j] + sh[2 * j], y1 * a[2 * j + 1] + sh[2 * j + 1]);
-    }
-    *cell = v;
-  }
-  __syncthreads();
-
-  bool first = true;
-  for (int nt = blockIdx.x; nt < n_tiles; nt += gridDim.x) {
-    const int n0 = nt * kLnBN;
-    if (!first) {
-#pragma unroll
-      for (int st = 0; st < kLnStages - 1; ++st) {
-        if (st < nk) load_stage(st, n0, st);
-        mc::cp_async_commit();
-      }
-    }
-    first = false;
-    float acc[4][4][4];        // warp tile: all 64 rows x columns 32w..32w+31
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) acc[mi][ni][0] = acc[mi][ni][1] = acc[mi][ni][2] = acc[mi][ni][3] = 0.f;
-    for (int kt = 0; kt < nk; ++kt) {
-      mc::cp_async_wait<kLnStages - 2>();
-      __syncthreads();
-      if (kt + kLnStages - 1 < nk)
-        load_stage((kt + kLnStages - 1) % kLnStages, n0, kt + kLnStages - 1);
-      mc::cp_async_commit();
-      mma_kstep<4, 4, kLnBK>(acc, Ar + kt * kLnBK, lda,
-                             Ws + (kt % kLnStages) * kLnBN * kLnStr + warp * 32 * kLnStr,
-                             kLnStr);
-    }
-    mc::cp_async_wait<0>();
-    __syncthreads();             // every stage is free for the next tile
-
-    // Epilogue: f32 + bias [, gelu], one rounding; pad rows 0.
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int m = m0 + mi * 16 + g + half * 8;
-        if (m >= p.B * p.rows_out) continue;
-        int b;
-        const bool live = x_row(p, m, &b) != nullptr;
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          const int n = n0 + warp * 32 + ni * 8 + 2 * t;
-          if (n >= p.N) continue;
-          float v0 = 0.f, v1 = 0.f;
-          if (live) {
-            v0 = acc[mi][ni][2 * half] + p.bias[n];
-            v1 = acc[mi][ni][2 * half + 1] + p.bias[n + 1];
-            if (kGelu) {
-              v0 = mc::gelu_tanh(v0);
-              v1 = mc::gelu_tanh(v1);
-            }
-          }
-          *reinterpret_cast<uint32_t*>(p.out + (size_t)m * p.N + n) = mc::pack_bf16(v0, v1);
-        }
-      }
-  }
-}
-
 template <typename Kernel>
 int launch(Kernel kernel, dim3 grid, size_t smem, const Args& a, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
@@ -382,33 +192,6 @@ int launch(Kernel kernel, dim3 grid, size_t smem, const Args& a, cudaStream_t st
 }
 
 }  // namespace
-
-// K7. scale1p is 1 + scale (computed in f32 by the caller); gelu: 0 or 1.
-// Needs K <= 1216.
-extern "C" int mc_lnmod_matmul(const void* x, const void* scale1p,
-                               const void* shift, const void* w,
-                               const void* bias, void* out, int B, int S,
-                               int rows_out, int K, int N, int rep, float eps,
-                               int gelu, void* stream) {
-  Args a{};
-  a.x = static_cast<const bf16*>(x);
-  a.w = static_cast<const bf16*>(w);
-  a.bias = static_cast<const float*>(bias);
-  a.mod_a = static_cast<const float*>(scale1p);
-  a.mod_b = static_cast<const float*>(shift);
-  a.out = static_cast<bf16*>(out);
-  a.B = B; a.S = S; a.rows_out = rows_out; a.K = K; a.N = N; a.rep = rep;
-  a.eps = eps;
-  if (K > kLnMaxK) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)kLnBM * ln_row_stride(K) * sizeof(bf16) +
-                      kLnWSmem + 2 * kLnBM * sizeof(float);
-  const int n_tiles = (N + kLnBN - 1) / kLnBN;
-  const dim3 grid(n_tiles < kLnSplitN ? n_tiles : kLnSplitN,
-                  (B * rows_out + kLnBM - 1) / kLnBM);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return gelu ? launch(lnmod_matmul_kernel<true>, grid, smem, a, st)
-              : launch(lnmod_matmul_kernel<false>, grid, smem, a, st);
-}
 
 // K8. resid may be null.
 extern "C" int mc_matmul_gated_residual(const void* x, const void* w,

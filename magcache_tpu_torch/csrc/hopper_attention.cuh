@@ -2,7 +2,8 @@
 // a ring of shared-memory stages, wgmma on the tensor cores. Instantiated
 // by flash_attention.cu (K1, K1b, K1c: head dim 128) and by
 // grouped_attention.cu (K5r, and K4 with the same arguments: head dim 72,
-// carried as 80).
+// carried as 80). hopper_cross_kernel below, K6's attention stage
+// (stdit3_kernels.cu), reuses its parts with K and V resident.
 //
 // Replaces the TPU kernels magcache_tpu/ops/attention.py:flash_attention_bshd,
 // flash_attention_bhsd and flash_attention_bhsd_aux (bodies _flash_kernel*)
@@ -131,6 +132,24 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
 }
 
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n"
+      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)),
+      "r"(c0), "r"(c1) : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n"
+      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)),
+      "r"(c0), "r"(c1), "r"(c2) : "memory");
+}
+
 __device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1, int c2,
                                             int c3, int c4) {
@@ -165,6 +184,9 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
 }
 
 // Keeps the compiler from moving accesses of accumulator registers across
@@ -604,6 +626,187 @@ hopper_attention_kernel(const __grid_constant__ Maps maps, const Args a) {
   }
 }
 
+// ---- cross-attention over a short context (K6's attention stage) ------------
+//
+// The row max of kRowMax with kAux's scaling: q is not pre-scaled, the f32
+// scores are multiplied by q_scale = scale * log2(e) after the product, and
+// each row's true max over the valid keys is taken before any exp2. Head
+// dim 72 carried as 80 (the boxes of Layout<80>). A block keeps one (batch,
+// head)'s whole K and V resident (at most kCrossKeyTiles tiles of 128 keys,
+// read once) and walks `tiles_per_block` query tiles of it through a
+// two-stage Q ring, so the block prologue is paid once per block and not
+// once per 128 query rows. 288 threads: consumer warpgroups 0 and 1 (64
+// query rows each), then one producer warp; without setmaxnreg each thread
+// may hold up to 224 registers.
+constexpr int kCrossKeyTiles = 3;     // keys <= 384
+constexpr int kCrossThreads = 288;
+
+struct CrossArgs {
+  bf16* o;                // [B, N, H*72]
+  int H, N, kv_valid;
+  int tiles_per_block;    // query tiles of 128 rows a block walks
+  float q_scale;          // multiplies the f32 scores
+};
+
+struct CrossLayout {
+  using L = Layout<80>;
+  static constexpr int kKV = 2 * kCrossKeyTiles * L::kTile;   // K tiles, then V tiles
+  static constexpr int kQ = 2 * L::kTile;                     // the Q ring
+  static constexpr int kBars = kKV + kQ;
+  static constexpr int kBytes = kBars + 5 * 8 + 1024;
+};
+
+template <int kD>
+__global__ void __launch_bounds__(kCrossThreads, 1)
+hopper_cross_kernel(const __grid_constant__ Maps maps, const CrossArgs a) {
+  static_assert(kD == 80, "head dim 72 carried as 80");
+  using L = Layout<kD>;
+  using C = CrossLayout;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* q_ring = smem + C::kKV;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + C::kBars);
+  uint64_t* q_full = kv_full + 1;
+  uint64_t* q_empty = q_full + 2;
+
+  const int h = blockIdx.y % a.H, b = blockIdx.y / a.H;
+  const int n_qt = (a.N + kBlockM - 1) / kBlockM;
+  const int t0 = blockIdx.x * a.tiles_per_block;
+  const int t1 = min(n_qt, t0 + a.tiles_per_block);
+  const int n_kt = (a.kv_valid + kBlockN - 1) / kBlockN;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&q_full[s], 1);
+      mbar_init(&q_empty[s], 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == 8) {
+    // ---- producer: the whole K and V once, then the query tiles ----
+    if (lane == 0) {
+      auto load = [&](const CUtensorMap* m, unsigned char* dst, uint64_t* bar, int row) {
+        tma_load_4d(dst, &m[0], bar, 0, h, row, b);
+        tma_load_4d(dst + L::kBox0, &m[1], bar, 64, h, row, b);
+      };
+      mbar_expect_tx(kv_full, 2 * n_kt * L::kTile);
+      for (int j = 0; j < n_kt; ++j) {
+        load(maps.k, smem + j * L::kTile, kv_full, j * kBlockN);
+        load(maps.v, smem + (kCrossKeyTiles + j) * L::kTile, kv_full, j * kBlockN);
+      }
+      for (int qt = t0, i = 0; qt < t1; ++qt, ++i) {
+        const int s = i & 1;
+        mbar_wait(&q_empty[s], ((i >> 1) & 1) ^ 1);
+        mbar_expect_tx(&q_full[s], L::kTile);
+        load(maps.q, q_ring + s * L::kTile, &q_full[s], qt * kBlockM);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers ----
+  const int c = warp / 4;                     // rows 64c..64c+63 of a query tile
+  const int g = lane >> 2, t = lane & 3;
+  const uint32_t kv_base = smem_addr(smem);
+  float sc[64], o0[32], o1[8];
+  uint32_t pa[kBlockN / 16][4];
+  mbar_wait(kv_full, 0);
+
+  // S = Q K^T of key tile j, scaled, keys at or past kv_valid masked
+  auto scores = [&](uint32_t q0, uint32_t q1, int j) {
+    fence_regs(sc);
+    wgmma_fence();
+    issue_qk<80>(sc, q0, q1, kv_base + j * L::kTile);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(sc);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sc[i] *= a.q_scale;
+    if ((j + 1) * kBlockN > a.kv_valid) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i)
+        if (j * kBlockN + 8 * (i >> 2) + 2 * t + (i & 1) >= a.kv_valid) sc[i] = kNegInf;
+    }
+  };
+
+  for (int qt = t0, i = 0; qt < t1; ++qt, ++i) {
+    const int s = i & 1;
+    mbar_wait(&q_full[s], (i >> 1) & 1);
+    const uint32_t q0 = smem_addr(q_ring + s * L::kTile) + c * 64 * 128;
+    const uint32_t q1 = smem_addr(q_ring + s * L::kTile + L::kBox0) + c * 64 * L::kW1 * 2;
+
+    // pass 1: each row's max over the valid keys
+    float m_row[2] = {kNegInf, kNegInf};
+    for (int j = 0; j < n_kt; ++j) {
+      scores(q0, q1, j);
+#pragma unroll
+      for (int e = 0; e < 64; ++e) m_row[(e >> 1) & 1] = fmaxf(m_row[(e >> 1) & 1], sc[e]);
+    }
+    m_row[0] = quad_max(m_row[0]);
+    m_row[1] = quad_max(m_row[1]);
+
+    // pass 2: p = exp2(s - max), l sums the f32 p, O += bf16(P) V
+#pragma unroll
+    for (int e = 0; e < 32; ++e) o0[e] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) o1[e] = 0.f;
+    float l_row[2] = {0.f, 0.f};
+    for (int j = 0; j < n_kt; ++j) {
+      scores(q0, q1, j);
+      if (j == n_kt - 1) {            // the Q stage is read for the last time
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&q_empty[s]);
+      }
+#pragma unroll
+      for (int e = 0; e < 64; ++e) {
+        const float p = exp2f(sc[e] - m_row[(e >> 1) & 1]);
+        sc[e] = p;
+        l_row[(e >> 1) & 1] += p;
+      }
+#pragma unroll
+      for (int kk = 0; kk < kBlockN / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+      fence_regs(o0);
+      fence_regs(o1);
+      wgmma_fence();
+      issue_pv<80>(o0, o1, pa, kv_base + (kCrossKeyTiles + j) * L::kTile);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(o0);
+      fence_regs(o1);
+    }
+
+    // o = acc / l, rounded to bf16; rows past N are not stored
+    const float l0 = quad_sum(l_row[0]), l1 = quad_sum(l_row[1]);
+    const int row0 = qt * kBlockM + c * 64 + (warp % 4) * 16 + g;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= a.N) continue;
+      const float l = r ? l1 : l0;
+      bf16* dst = a.o + ((size_t)b * a.N + row) * (a.H * 72) + h * 72;
+#pragma unroll
+      for (int e = 0; e < 32; ++e)
+        if (((e >> 1) & 1) == r && (e & 1) == 0)
+          *reinterpret_cast<uint32_t*>(dst + 8 * (e >> 2) + 2 * t) =
+              pack_bf16(o0[e] / l, o0[e + 1] / l);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int col = 64 + 8 * (e >> 2) + 2 * t;
+        if (((e >> 1) & 1) == r && (e & 1) == 0 && col < 72)
+          *reinterpret_cast<uint32_t*>(dst + col) = pack_bf16(o1[e] / l, o1[e + 1] / l);
+      }
+    }
+  }
+}
+
 // ---- host side ------------------------------------------------------------
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -669,6 +872,26 @@ int launch(const void* q, const void* k, const void* v, const long long* words,
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid, kThreads, bytes, stream>>>(maps, a);
+  return (int)cudaGetLastError();
+}
+
+// The six maps of hopper_cross_kernel, then its launch: `blocks` blocks per
+// (batch, head), B * H of them.
+inline int launch_cross(const void* q, const void* k, const void* v, const long long* words,
+                        const CrossArgs& a, int blocks, int BH, cudaStream_t stream) {
+  Maps maps;
+  const void* base[3] = {q, k, v};
+  CUtensorMap* dst[6] = {&maps.q[0], &maps.q[1], &maps.k[0], &maps.k[1], &maps.v[0],
+                         &maps.v[1]};
+  for (int i = 0; i < 6; ++i) {
+    const int err = encode_map(dst[i], base[i / 2], words + i * kMapWords);
+    if (err) return err;
+  }
+  const int bytes = CrossLayout::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      hopper_cross_kernel<80>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  hopper_cross_kernel<80><<<dim3(blocks, BH), kCrossThreads, bytes, stream>>>(maps, a);
   return (int)cudaGetLastError();
 }
 

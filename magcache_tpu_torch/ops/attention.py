@@ -30,9 +30,11 @@ the kernel does not take raises. Launch counts are ``<wrapper>.launches``
 - ``grouped_flash_attention_bshd`` (K4, the same kernel): the same on
   separate ``[B, S, H, D]`` q, k and v read through their strides (the
   "grouped" mode of ``ops.tiny_attention``).
-- ``fused_cross_attention`` (K6, ``csrc/cross_attention.cu``): q-projection,
-  attention over a short context and out-projection (+ residual) in one
-  kernel; head dim 72.
+- ``fused_cross_attention`` (K6, ``csrc/stdit3_kernels.cu``): q-projection,
+  attention over a short context and out-projection (+ residual) as three
+  launches: the projections on the wgmma/TMA GEMM body (``ops/gemm.py``),
+  the attention on ``hopper_cross_kernel`` (the row max with K and V
+  resident); head dim 72, at most 384 keys.
 
 K5 and K6 keep the published 72-wide heads; the TPU package pads them to 128
 lanes, which the port does not carry over.
@@ -41,22 +43,23 @@ Wan runs cross-attention over the full zero-padded 512-token context without
 masking; ``kv_len`` masks trailing keys for callers that do mask.
 
 The wgmma/TMA body reads q, k and v through TMA tensor maps. Their geometry
-(extents, byte strides, boxes, swizzle) is computed here in plain Python
-(``tma_map``, ``flash_tma_maps``, ``grouped_tma_maps``) and handed to the C
-side, which only encodes it (``cuTensorMapEncodeTiled``).
+(extents, byte strides, boxes, swizzle) is computed in plain Python
+(``ops.build.tma_map``; here ``flash_tma_maps``, ``grouped_tma_maps``,
+``cross_tma_maps``) and handed to the C side, which only encodes it
+(``cuTensorMapEncodeTiled``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 import math
 from typing import Optional, Tuple
 
 import torch
 
 from magcache_tpu_torch.ops.build import (check_bf16, check_launch, count_launch,
-                                          load_cuda_library)
+                                          load_cuda_library, map_words, tma_map)
+from magcache_tpu_torch.ops.gemm import gemm_launch
 from magcache_tpu_torch.ops.rope import apply_rope
 
 __all__ = ["attention", "flash_attention_bshd", "flash_attention_bshd_plain",
@@ -65,6 +68,7 @@ __all__ = ["attention", "flash_attention_bshd", "flash_attention_bshd_plain",
            "grouped_attention_fused_qkv", "grouped_attention_fused_qkv_plain",
            "grouped_flash_attention_bshd", "grouped_flash_attention_bshd_plain",
            "fused_cross_attention", "fused_cross_attention_plain",
+           "cross_attention_rowmax_plain",
            "QKNORM_FIXED_MAX"]
 
 _LOG2E = math.log2(math.e)
@@ -77,49 +81,9 @@ QKNORM_FIXED_MAX = 16.0
 
 KERNEL_HEAD_DIM = 128
 GROUPED_HEAD_DIM = 72        # K5's and K6's head dim
-CROSS_MAX_WIDTH = 1152       # K6 keeps a [64, H*72] q/o tile in shared memory
+CROSS_MAX_KEYS = 384         # K6 keeps a (batch, head)'s K and V resident: 3 tiles
 TMA_BOX_ROWS = 128           # the wgmma/TMA body's query and key tiles
 TMA_PADDED_DIM = 80          # head dim 72 as the body carries it: boxes of 64 + 16
-
-
-@dataclasses.dataclass(frozen=True)
-class TmaMap:
-    """One TMA tensor map's geometry, innermost dimension first: extents
-    (elements), the byte strides of dimensions 1.., box extents, and the
-    swizzle span in bytes (128, or 32 for a box 16 values wide)."""
-    dims: Tuple[int, ...]
-    strides: Tuple[int, ...]
-    box: Tuple[int, ...]
-    swizzle: int
-
-    def words(self) -> list:
-        """The 16 integers the C side reads: rank, swizzle, 5 extents, 4
-        byte strides, 5 box extents (unused trailing entries 1 or 0)."""
-        pad = lambda xs, n, fill: list(xs) + [fill] * (n - len(xs))
-        return [len(self.dims), self.swizzle, *pad(self.dims, 5, 1),
-                *pad(self.strides, 4, 0), *pad(self.box, 5, 1)]
-
-
-def tma_map(label: str, sizes, strides, box, swizzle: int, itemsize: int = 2) -> TmaMap:
-    """A tensor map over a bf16 tensor of ``sizes`` with element ``strides``
-    (both innermost first; the innermost stride must be 1). Raises
-    ``ValueError`` naming ``label`` when TMA cannot describe it: byte
-    strides must be multiples of 16 below 2**40. A dimension of extent 1
-    is never stepped along, so its stride is not checked."""
-    if strides[0] != 1:
-        raise ValueError(f"{label}: TMA needs a unit innermost stride, got {tuple(strides)}")
-    byte = []
-    for n, st in zip(sizes[1:], strides[1:]):
-        b = st * itemsize if n > 1 else 16
-        if b % 16 or not 0 < b < 1 << 40:
-            raise ValueError(f"{label}: TMA needs byte strides that are multiples of 16 "
-                             f"bytes, got {[s * itemsize for s in strides[1:]]} for "
-                             f"extents {tuple(sizes)}")
-        byte.append(b)
-    if any(not 1 <= n < 1 << 32 for n in sizes) or any(not 1 <= n <= 256 for n in box):
-        raise ValueError(f"{label}: extents {tuple(sizes)} or box {tuple(box)} out of "
-                         f"TMA's range")
-    return TmaMap(tuple(sizes), tuple(byte), tuple(box), swizzle)
 
 
 def flash_tma_maps(name: str, q, k, v, kv_len: int) -> list:
@@ -157,9 +121,21 @@ def grouped_tma_maps(name: str, q, k, v, group: int, group_valid: int) -> list:
     return maps
 
 
-def _map_words(maps):
-    words = [w for m in maps for w in m.words()]
-    return (ctypes.c_longlong * len(words))(*words)
+def cross_tma_maps(name: str, q, k, v, kv_valid: int) -> list:
+    """The six maps of K6's attention stage over ``[B, S, H, 72]`` views of
+    contiguous ``[B, S, H*72]`` tensors: dimensions (channel, head, token,
+    batch), token extent Sq for q and ``kv_valid`` for k and v (keys past
+    it arrive as zeros), boxes of 128 tokens of one head; per tensor a
+    64-wide box (128-byte swizzle) and a 16-wide one (32-byte), columns
+    72..79 past the channel extent zero-filled, as ``grouped_tma_maps``."""
+    maps = []
+    for label, t, rows in (("q", q, q.shape[1]), ("k", k, kv_valid), ("v", v, kv_valid)):
+        b, _, h, d = t.shape
+        bs, ts, hs, cs = t.stride()
+        for width, swizzle in ((64, 128), (TMA_PADDED_DIM - 64, 32)):
+            maps.append(tma_map(f"{name}: {label}", (d, h, rows, b), (cs, hs, ts, bs),
+                                (width, 1, TMA_BOX_ROWS, 1), swizzle))
+    return maps
 
 
 def _q_scale(scale: float, dtype: torch.dtype) -> torch.Tensor:
@@ -366,7 +342,7 @@ def _strided_launch(name: str, q, k, v, *, scale, kv_len, mode: int,
     code = lib.mc_flash_attention_tma(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         m.data_ptr() if m is not None else None,
-        l.data_ptr() if l is not None else None, _map_words(maps),
+        l.data_ptr() if l is not None else None, map_words(maps),
         (ctypes.c_longlong * 3)(*out.stride()[:3]), b, h, sq, kv_len, q_scale, mode,
         float(fixed_max) if fixed_max is not None else 0.0,
         torch.cuda.current_stream(dev).cuda_stream)
@@ -598,7 +574,7 @@ def _grouped_launch(name: str, q, k, v, *, group, gvalid, scale, qk_gains,
     if route == "tma":
         maps = grouped_tma_maps(name, q, k, v, group, gvalid)
         code = lib.mc_grouped_attention_tma(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _map_words(maps),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), map_words(maps),
             n_groups, s_len // group, heads, group, gvalid, scale * _LOG2E, stream)
     else:
         code = lib.mc_grouped_attention(
@@ -831,21 +807,53 @@ def fused_cross_attention_plain(
     return out
 
 
+def cross_attention_rowmax_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 heads: int, *, scale: float,
+                                 kv_valid: Optional[int] = None,
+                                 chunk: int = 4096) -> torch.Tensor:
+    """K6's attention stage in plain PyTorch on ``[B, N, H*D]`` q and
+    ``[B, L, H*D]`` k/v: f32 scores from the unscaled q times
+    ``scale*log2(e)``, keys at or past ``kv_valid`` masked, p = exp2(s -
+    row max) rounded to v's dtype before the f32 PV product, divided by the
+    f32 sum of p, rounded to q's dtype. Returns ``[B, N, H*D]``."""
+    b, n, hd = q.shape
+    L = k.shape[1]
+    d = hd // heads
+    kv_valid = L if kv_valid is None else kv_valid
+    kf = k.float().reshape(b, L, heads, d)
+    vf = v.float().reshape(b, L, heads, d)
+    key_ok = torch.arange(L, device=q.device) < kv_valid
+    out = torch.empty_like(q)
+    for i0 in range(0, n, chunk):
+        qc = q[:, i0:i0 + chunk].float().reshape(b, -1, heads, d)
+        s = torch.einsum("bqhd,bkhd->bhqk", qc, kf) * (scale * _LOG2E)
+        s = torch.where(key_ok, s, torch.full_like(s, _NEG_INF))
+        p = torch.exp2(s - s.amax(-1, keepdim=True))
+        o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), vf)
+        o = o / p.sum(-1).permute(0, 2, 1)[..., None]
+        out[:, i0:i0 + chunk] = o.reshape(b, -1, hd).to(q.dtype)
+    return out
+
+
 def fused_cross_attention(
         x: torch.Tensor, wq: torch.Tensor, bq: Optional[torch.Tensor],
         k: torch.Tensor, v: torch.Tensor, wo: torch.Tensor,
         bo: Optional[torch.Tensor], heads: int, *,
         scale: Optional[float] = None, kv_valid: Optional[int] = None,
         true_d: Optional[int] = None, residual: bool = False) -> torch.Tensor:
-    """K6: ``[x +] attention(x @ wq.T + bq, k, v) @ wo.T + bo`` in one kernel.
+    """K6: ``[x +] attention(x @ wq.T + bq, k, v) @ wo.T + bo``.
 
     x: ``[B, N, d_model]``; wq: ``[H*D, d_model]`` and wo: ``[d_out, H*D]``
     (``nn.Linear`` weights); k/v: ``[B, L, H*D]``, the context projections.
     Keys at or past ``kv_valid`` (default: all) are masked. ``residual``
     needs ``d_out == d_model``. Returns ``[B, N, d_out]``.
 
-    The kernel takes bf16, D = 72 and H*D <= 1152; anything else on a CUDA
-    tensor raises.
+    On a CUDA tensor, three kernels (one launch count): q = x @ wq.T + bq
+    and the out-projection on the GEMM body (``ops/gemm.py``), the attention
+    between them on ``hopper_cross_kernel``. They take contiguous bf16, D =
+    72, at most 384 valid keys and widths that are multiples of 8; anything
+    else raises. The stages' plain versions are ``ops.gemm.linear_plain``
+    and ``cross_attention_rowmax_plain``.
     """
     b, n, dm = x.shape
     hd = wq.shape[0]
@@ -861,13 +869,13 @@ def fused_cross_attention(
                                            scale=scale, kv_valid=kv_valid,
                                            true_d=true_d, residual=residual)
     d = hd // heads
-    if d != GROUPED_HEAD_DIM or hd > CROSS_MAX_WIDTH or true_d not in (None, d):
-        raise ValueError(f"fused_cross_attention: the kernel takes head dim "
-                         f"{GROUPED_HEAD_DIM} and H*D <= {CROSS_MAX_WIDTH}, got "
-                         f"{heads} x {d} (true_d {true_d})")
-    if dm % 8 or d_out % 8 or b > 65535:
+    if d != GROUPED_HEAD_DIM or true_d not in (None, d) or kv_valid > CROSS_MAX_KEYS:
+        raise ValueError(f"fused_cross_attention: the kernels take head dim "
+                         f"{GROUPED_HEAD_DIM} and at most {CROSS_MAX_KEYS} valid keys, "
+                         f"got {heads} x {d} (true_d {true_d}), {kv_valid} keys")
+    if dm % 8 or d_out % 8 or b * heads > 65535:
         raise ValueError(f"fused_cross_attention: widths {dm} -> {d_out} must "
-                         f"be multiples of 8, batch {b} <= 65535")
+                         f"be multiples of 8, batch x heads {b * heads} <= 65535")
     dev = x.device
     check_bf16("fused_cross_attention: x", x, (b, n, dm), dev)
     check_bf16("fused_cross_attention: wq", wq, (hd, dm), dev)
@@ -883,16 +891,34 @@ def fused_cross_attention(
         raise ValueError(f"fused_cross_attention: biases must be [{hd}] and "
                          f"[{d_out}] on {dev}")
     scale = (1.0 / math.sqrt(d)) if scale is None else scale
-    lib = load_cuda_library()
-    out = torch.empty((b, n, d_out), dtype=x.dtype, device=dev)
-    code = lib.mc_fused_cross_attention(
-        x.data_ptr(), wq.data_ptr(), bq32.data_ptr(), k.data_ptr(),
-        v.data_ptr(), wo.data_ptr(), bo32.data_ptr(), out.data_ptr(), b, n, dm,
-        hd, d_out, heads, L, kv_valid, scale * _LOG2E, int(residual),
-        torch.cuda.current_stream(dev).cuda_stream)
-    check_launch(lib, code, "fused_cross_attention")
+    q = gemm_launch("fused_cross_attention (q)", x, wq, bq32)
+    o = _cross_attention_launch(q, k, v, heads, scale, kv_valid)
+    out = gemm_launch("fused_cross_attention (out)", o, wo, bo32,
+                      epilogue="resid" if residual else "bias",
+                      resid=x if residual else None)
     fused_cross_attention.launches += 1
     return out
+
+
+def _cross_attention_launch(q, k, v, heads: int, scale: float, kv_valid: int):
+    """K6's attention stage on the card: ``[B, N, H*72]`` from checked
+    contiguous bf16 q and k/v. A block walks query tiles of one (batch,
+    head), as many blocks per (batch, head) as fill the card once."""
+    b, n, hd = q.shape
+    dev = q.device
+    views = [t.unflatten(-1, (heads, GROUPED_HEAD_DIM)) for t in (q, k, v)]
+    maps = cross_tma_maps("fused_cross_attention", *views, kv_valid)
+    n_tiles = -(-n // TMA_BOX_ROWS)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per_head = max(1, min(n_tiles, sms // (b * heads)))
+    o = torch.empty_like(q)
+    lib = load_cuda_library()
+    code = lib.mc_cross_attention_tma(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), map_words(maps), o.data_ptr(), b, n,
+        heads, kv_valid, -(-n_tiles // per_head), scale * _LOG2E,
+        torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(lib, code, "fused_cross_attention (attention)")
+    return o
 
 
 fused_cross_attention.launches = 0

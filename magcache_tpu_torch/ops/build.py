@@ -8,11 +8,15 @@ edited source rebuilds and an unchanged one is reused. Triton kernels
 (``csrc/prologue_triton.py``) compile at their first launch; their cache is
 kept beside the library. Everything goes under ``build/torch_kernels/`` at
 the repository root, which ``.gitignore`` lists. Nothing here runs at import.
+
+Also here: the checks the wrappers share, and the TMA tensor-map geometry
+(``tma_map``, ``map_words``) that the wgmma/TMA kernels' C side encodes.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import glob
 import hashlib
@@ -21,6 +25,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from typing import Tuple
 
 import torch
 
@@ -103,9 +108,12 @@ def _load_cuda_library() -> ctypes.CDLL:
     lib.mc_flash_attention_qknorm.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci,
                                               cl, cl, cl, cl, cl, cl, cf, cf, cf, cf, vp]
     lib.mc_flash_attention_qknorm.restype = ci
-    lib.mc_lnmod_matmul.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                                    ci, cf, ci, vp]
-    lib.mc_lnmod_matmul.restype = ci
+    lib.mc_ln_modulate.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, cf, vp]
+    lib.mc_ln_modulate.restype = ci
+    lib.mc_hopper_gemm.argtypes = [vp, vp, pl, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
+    lib.mc_hopper_gemm.restype = ci
+    lib.mc_cross_attention_tma.argtypes = [vp, vp, vp, pl, vp, ci, ci, ci, ci, ci, cf, vp]
+    lib.mc_cross_attention_tma.restype = ci
     lib.mc_matmul_gated_residual.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci,
                                              ci, ci, ci, vp]
     lib.mc_matmul_gated_residual.restype = ci
@@ -116,9 +124,6 @@ def _load_cuda_library() -> ctypes.CDLL:
     lib.mc_tiny_attention.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, cf, cf,
                                       vp]
     lib.mc_tiny_attention.restype = ci
-    lib.mc_fused_cross_attention.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci,
-                                             ci, ci, ci, ci, ci, ci, ci, cf, ci, vp]
-    lib.mc_fused_cross_attention.restype = ci
     lib.mc_error_string.argtypes = [ci]
     lib.mc_error_string.restype = ctypes.c_char_p
     return lib
@@ -165,3 +170,49 @@ def triton_prologue():
     os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(BUILD_DIR, "triton"))
     from magcache_tpu_torch.csrc import prologue_triton
     return prologue_triton
+
+
+@dataclasses.dataclass(frozen=True)
+class TmaMap:
+    """One TMA tensor map's geometry, innermost dimension first: extents
+    (elements), the byte strides of dimensions 1.., box extents, and the
+    swizzle span in bytes (128, or 32 for a box 16 values wide)."""
+    dims: Tuple[int, ...]
+    strides: Tuple[int, ...]
+    box: Tuple[int, ...]
+    swizzle: int
+
+    def words(self) -> list:
+        """The 16 integers the C side reads: rank, swizzle, 5 extents, 4
+        byte strides, 5 box extents (unused trailing entries 1 or 0)."""
+        pad = lambda xs, n, fill: list(xs) + [fill] * (n - len(xs))
+        return [len(self.dims), self.swizzle, *pad(self.dims, 5, 1),
+                *pad(self.strides, 4, 0), *pad(self.box, 5, 1)]
+
+
+def tma_map(label: str, sizes, strides, box, swizzle: int, itemsize: int = 2) -> TmaMap:
+    """A tensor map over a bf16 tensor of ``sizes`` with element ``strides``
+    (both innermost first; the innermost stride must be 1). Raises
+    ``ValueError`` naming ``label`` when TMA cannot describe it: byte
+    strides must be multiples of 16 below 2**40. A dimension of extent 1
+    is never stepped along, so its stride is not checked."""
+    if strides[0] != 1:
+        raise ValueError(f"{label}: TMA needs a unit innermost stride, got {tuple(strides)}")
+    byte = []
+    for n, st in zip(sizes[1:], strides[1:]):
+        b = st * itemsize if n > 1 else 16
+        if b % 16 or not 0 < b < 1 << 40:
+            raise ValueError(f"{label}: TMA needs byte strides that are multiples of 16 "
+                             f"bytes, got {[s * itemsize for s in strides[1:]]} for "
+                             f"extents {tuple(sizes)}")
+        byte.append(b)
+    if any(not 1 <= n < 1 << 32 for n in sizes) or any(not 1 <= n <= 256 for n in box):
+        raise ValueError(f"{label}: extents {tuple(sizes)} or box {tuple(box)} out of "
+                         f"TMA's range")
+    return TmaMap(tuple(sizes), tuple(byte), tuple(box), swizzle)
+
+
+def map_words(maps):
+    """The maps' geometry words as the C array the kernels read."""
+    words = [w for m in maps for w in m.words()]
+    return (ctypes.c_longlong * len(words))(*words)

@@ -2,8 +2,10 @@
 and K8, each beside its plain version.
 
 ``rms_norm_rope`` (K2) and ``layer_norm_mod`` (K3, K3p) take a CUDA tensor to the
-Triton kernels in ``csrc/prologue_triton.py``; ``lnmod_matmul`` (K7) and
-``matmul_gated_residual`` (K8) take it to the CUDA C++ kernels in
+Triton kernels in ``csrc/prologue_triton.py``; ``lnmod_matmul`` (K7) to a
+LayerNorm-modulate kernel and the wgmma/TMA GEMM body
+(``csrc/stdit3_kernels.cu``, ``csrc/hopper_gemm.cuh``; ``ops/gemm.py``) and
+``matmul_gated_residual`` (K8) to the mma.sync kernel of
 ``csrc/fused_matmul.cu``. A CPU tensor goes to the plain PyTorch version
 (``<name>_plain``). A CUDA tensor the kernel does not take raises; nothing
 falls back. Each wrapper counts its kernel launches in ``<wrapper>.launches``;
@@ -34,11 +36,13 @@ import torch
 import torch.nn.functional as F
 
 from magcache_tpu_torch.ops.build import check_bf16, check_launch, count_launch
+from magcache_tpu_torch.ops.gemm import gemm_launch
 from magcache_tpu_torch.ops.norms import layer_norm, rms_norm
 from magcache_tpu_torch.ops.rope import apply_rope
 
 __all__ = ["rms_norm_rope", "rms_norm_rope_plain", "layer_norm_mod",
            "layer_norm_mod_plain", "lnmod_matmul", "lnmod_matmul_plain",
+           "ln_stats_plain", "lnmod_operand_plain",
            "matmul_gated_residual", "matmul_gated_residual_plain"]
 
 
@@ -194,10 +198,6 @@ layer_norm_mod.launches = 0
 layer_norm_mod.plain_launches = 0       # K3p
 
 
-# K7 keeps a block's 64 normalised rows in shared memory beside its W stages
-LNMOD_MAX_WIDTH = 1216
-
-
 def _pad_rows(out: torch.Tensor, rows_out: int) -> torch.Tensor:
     """Zero rows appended on axis 1 up to ``rows_out``."""
     if rows_out == out.shape[1]:
@@ -215,6 +215,32 @@ def _f32_vector(t: Optional[torch.Tensor], n: int, like: torch.Tensor) -> torch.
     if t is None:
         return torch.zeros(n, dtype=torch.float32, device=like.device)
     return t.reshape(n).float().contiguous()
+
+
+def ln_stats_plain(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Each row's two-pass f32 LayerNorm statistics, ``[B*S, 2]`` f32 (the
+    mean, then rsqrt of the mean of the squared centred values + eps)."""
+    x32 = x.reshape(-1, x.shape[-1]).float()
+    mean = x32.mean(-1)
+    cent = x32 - mean[:, None]
+    return torch.stack([mean, torch.rsqrt((cent * cent).mean(-1) + eps)], -1)
+
+
+def lnmod_operand_plain(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, *,
+                        eps: float = 1e-6, batch_repeat: int = 1,
+                        dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """K7's first stage in plain PyTorch, its GEMM operand: ``(x - mean) *
+    rstd`` (``ln_stats_plain``) rounded to x's dtype, then ``* (1 + scale) +
+    shift`` in f32 (row ``b // batch_repeat``) rounded to ``dtype`` (the
+    weight's; default x's)."""
+    b, s, d_in = x.shape
+    nb = b // batch_repeat
+    st = ln_stats_plain(x, eps).reshape(b, s, 2)
+    y = ((x.float() - st[..., :1]) * st[..., 1:]).to(x.dtype).float()
+    y = y.reshape(nb, batch_repeat, s, d_in)
+    y = y * (1.0 + scale.reshape(nb, 1, 1, d_in).float()) \
+        + shift.reshape(nb, 1, 1, d_in).float()
+    return y.reshape(b, s, d_in).to(dtype or x.dtype)
 
 
 def lnmod_matmul_plain(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
@@ -254,7 +280,10 @@ def lnmod_matmul(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
     rows (x row b takes modulation row ``b // batch_repeat``); w:
     ``[d_out, d_in]``; bias ``[d_out]``. Returns ``[B, rows_out, d_out]`` in
     x's dtype; rows ``S..rows_out-1`` of each batch row are zeros. The
-    kernel takes bf16 and ``d_in <= 1216``.
+    kernels (the modulated operand in one pass over x, then the wgmma/TMA
+    GEMM body) take contiguous bf16 and widths that are multiples of 8;
+    the stages' plain versions are ``lnmod_operand_plain`` and
+    ``ops.gemm.linear_plain``.
     """
     b, s, d_in = x.shape
     rows_out = s if rows_out is None else rows_out
@@ -270,9 +299,8 @@ def lnmod_matmul(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
     nb = b // batch_repeat
     check_bf16("lnmod_matmul: x", x, (b, s, d_in), x.device)
     check_bf16("lnmod_matmul: w", w, (d_out, d_in), x.device)
-    _require(d_in % 8 == 0 and d_out % 8 == 0 and d_in <= LNMOD_MAX_WIDTH,
-             f"lnmod_matmul: widths {d_in} -> {d_out} must be multiples of 8, "
-             f"d_in <= {LNMOD_MAX_WIDTH}")
+    _require(d_in % 8 == 0 and d_out % 8 == 0,
+             f"lnmod_matmul: widths {d_in} -> {d_out} must be multiples of 8")
     _require(scale.numel() == nb * d_in and shift.numel() == nb * d_in
              and scale.device == x.device and shift.device == x.device,
              f"lnmod_matmul: scale/shift must hold [{nb}, {d_in}] on {x.device}")
@@ -282,13 +310,13 @@ def lnmod_matmul(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
     from magcache_tpu_torch.ops.build import load_cuda_library
 
     lib = load_cuda_library()
-    out = torch.empty((b, rows_out, d_out), dtype=x.dtype, device=x.device)
-    code = lib.mc_lnmod_matmul(
-        x.data_ptr(), a.data_ptr(), c.data_ptr(), w.data_ptr(),
-        bias32.data_ptr(), out.data_ptr(), b, s, rows_out, d_in, d_out,
-        batch_repeat, float(eps), int(act == "gelu"),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    check_launch(lib, code, "lnmod_matmul")
+    y = torch.empty_like(x)
+    code = lib.mc_ln_modulate(x.data_ptr(), a.data_ptr(), c.data_ptr(), y.data_ptr(), b, s,
+                              d_in, batch_repeat, float(eps),
+                              torch.cuda.current_stream(x.device).cuda_stream)
+    check_launch(lib, code, "lnmod_matmul (modulate)")
+    out = gemm_launch("lnmod_matmul", y, w, bias32,
+                      epilogue="gelu" if act == "gelu" else "bias", rows_out=rows_out)
     lnmod_matmul.launches += 1
     return out
 

@@ -194,10 +194,13 @@ def _close(got, want):
 
 
 @pytest.mark.parametrize("b,s,din,dout,rows_out,rep,act", [
-    (30, 1590, 1152, 3456, None, 15, None),   # spatial qkv
+    (30, 1590, 1152, 3456, None, 15, None),   # spatial qkv: ragged last row tile a frame
     (2, 333, 1152, 4608, None, 1, "gelu"),    # mlp1, ragged rows
     (6, 27, 144, 216, 32, 2, None),           # zero-filled pad rows
-    (3, 5, 72, 40, 7, 3, "gelu")])
+    (3, 5, 72, 40, 7, 3, "gelu"),
+    (4, 300, 1152, 1152, 400, 2, None),       # a whole pad row tile; modulation rows 0, 0, 1, 1
+    (2, 200, 1536, 200, None, 1, "gelu"),     # d_in above the old 1,216 limit, ragged N tile
+    (2, 129, 4608, 1152, 130, 2, None)])      # d_in of mlp2's width
 def test_k7_matches_plain(dev, b, s, din, dout, rows_out, rep, act):
     x = _rand(dev, b, s, din, scale=2.0, seed=1)
     sc = _rand(dev, b // rep, din, dtype=torch.float32, scale=0.1, seed=2)
@@ -268,7 +271,10 @@ def test_k5_matches_plain(dev, b, s, heads, group, gvalid, rope):
     (2, 2000, 16, 1152, 300, None, True),    # the slice's cross-attention
     (1, 333, 16, 1152, 300, 250, False),     # ragged rows, masked keys
     (2, 70, 2, 144, 36, None, True),         # narrow width
-    (1, 64, 4, 200, 77, 65, False)])         # d_model not a multiple of 32
+    (1, 64, 4, 200, 77, 65, False),          # d_model not a multiple of 32
+    (2, 1000, 16, 1152, 120, 100, True),     # Latte's caption, masked keys
+    (2, 300, 17, 1152, 384, 384, True),      # H*D 1,224 > 1,152, three whole key tiles
+    (1, 40000, 2, 144, 300, 129, False)])    # several query tiles a block
 def test_k6_matches_plain(dev, b, n, heads, dm, L, kv_valid, residual):
     hd = heads * 72
     x = _rand(dev, b, n, dm, seed=14)
@@ -297,17 +303,16 @@ def test_k5_to_k8_refuse_what_they_do_not_take(dev):
         A.grouped_attention_fused_qkv(
             _rand(dev, 1, 30, 2 * 3 * 2 * 72)[..., :3 * 2 * 72], 2, **kw)
     x = _rand(dev, 2, 10, 1152)
-    kv = _rand(dev, 2, 30, 1224)
-    w = _rand(dev, 1224, 1152)
-    with pytest.raises(ValueError, match="H\\*D"):             # 17 x 72 > 1152
-        A.fused_cross_attention(x, w, None, kv, kv, w.T.contiguous(), None, 17)
+    kv = _rand(dev, 2, 400, 1152)
+    w = _rand(dev, 1152, 1152)
+    with pytest.raises(ValueError, match="384 valid keys"):    # K and V stay resident
+        A.fused_cross_attention(x, w, None, kv, kv, w, None, 16)
     g = torch.zeros(2, 1152, device=dev)
     with pytest.raises(ValueError):                            # width % 8
         P.lnmod_matmul(_rand(dev, 2, 10, 1150), g[:, :1150], g[:, :1150],
                        _rand(dev, 64, 1150))
-    with pytest.raises(ValueError, match="1216"):              # K7's rows fit smem
-        P.lnmod_matmul(_rand(dev, 2, 10, 1536), g[:, :1] + torch.zeros(2, 1536, device=dev),
-                       torch.zeros(2, 1536, device=dev), _rand(dev, 64, 1536))
+    with pytest.raises(ValueError):                            # x not contiguous
+        P.lnmod_matmul(_rand(dev, 2, 10, 2304)[..., :1152], g, g, _rand(dev, 64, 1152))
     with pytest.raises(ValueError):                            # w is [d_in, d_out]
         P.matmul_gated_residual(x, _rand(dev, 1152, 64), None, g[:, :64])
     with pytest.raises(ValueError):                            # f32 weight

@@ -121,3 +121,62 @@ def test_grouped_routing_by_arguments(group, gains, rope, fixed_max, want):
     g = (torch.ones(72), torch.ones(72)) if gains else None
     r = (torch.ones(group, 36), torch.zeros(group, 36)) if rope else None
     assert A.grouped_kernel(group, g, r, fixed_max) == want
+
+
+# ---- the GEMM body (K7, K6's projections) and K6's attention stage ----------
+from magcache_tpu_torch.ops import gemm as G                       # noqa: E402
+
+
+@pytest.mark.parametrize("b,s,k,n", [
+    (30, 1590, 1152, 3456),     # STDiT3 spatial qkv: 13 row tiles a frame, the last ragged
+    (2, 54000, 1152, 4608),     # 720p mlp1
+    (2, 16384, 1152, 1152),     # Latte's cross q projection
+    (3, 5, 72, 40)])            # one ragged k-tile, one ragged N tile
+def test_gemm_maps_are_3d_over_rows_with_the_true_extent(b, s, k, n):
+    x, w, out = _meta(b, s, k), _meta(n, k), _meta(b, s + 7, n)
+    a, wm, om = G.gemm_tma_maps("lnmod_matmul", x, w, out)
+    rows, cols, kt = G.GEMM_TILE
+    # rows past S (a ragged last tile, or rows_out's pad) arrive as zeros
+    assert a.dims == (k, s, b) and a.strides == (2 * k, 2 * k * s)
+    assert a.box == (kt, rows, 1) and a.swizzle == 128
+    # columns past K arrive as zeros in both operands
+    assert wm.dims == (k, n) and wm.strides == (2 * k,)
+    assert wm.box == (kt, cols) and wm.swizzle == 128
+    assert a.words()[:2] == [3, 128] and wm.words()[:2] == [2, 128]
+    # the stores stop at rows_out (here S + 7: zero pad rows) and N
+    assert om.dims == (n, s + 7, b) and om.strides == (2 * n, 2 * n * (s + 7))
+    assert om.box == (64, 64, 1) and om.swizzle == 128
+
+
+def test_gemm_tiles_divide_the_stdit3_widths():
+    rows, cols, _ = G.GEMM_TILE
+    assert rows == A.TMA_BOX_ROWS
+    assert all(width % cols == 0 for width in (1152, 3 * 1152, 4 * 1152))
+
+
+def test_gemm_maps_refuse_a_width_off_16_bytes():
+    # rows of 1,150 bf16 values are 2,300 bytes apart
+    with pytest.raises(ValueError, match="lnmod_matmul: x: .*16 bytes"):
+        G.gemm_tma_maps("lnmod_matmul", _meta(2, 10, 1150), _meta(64, 1150), _meta(2, 10, 64))
+    with pytest.raises(ValueError, match="lnmod_matmul: w: .*16 bytes"):
+        G.gemm_tma_maps("lnmod_matmul", _meta(2, 10, 1152)[..., :1150], _meta(64, 1150),
+                        _meta(2, 10, 64))
+
+
+@pytest.mark.parametrize("n,L,kv_valid", [(54000, 300, 300), (16384, 120, 120),
+                                          (333, 300, 250)])
+def test_cross_attention_maps_head_dim_72(n, L, kv_valid):
+    heads = 16
+    q, kv = _meta(2, n, heads * 72), _meta(2, L, heads * 72)
+    views = [t.unflatten(-1, (heads, 72)) for t in (q, kv, kv)]
+    maps = A.cross_tma_maps("fused_cross_attention", *views, kv_valid)
+    assert len(maps) == 6
+    row = heads * 72 * 2
+    for i, m in enumerate(maps):
+        # (channel, head, token, batch); q's token extent N, k and v kv_valid
+        assert m.dims == (72, heads, n if i < 2 else kv_valid, 2)
+        assert m.strides == (144, row, row * (n if i < 2 else L))
+        wide = i % 2 == 0
+        assert m.box == ((64 if wide else 16), 1, A.TMA_BOX_ROWS, 1)
+        assert m.swizzle == (128 if wide else 32)
+    assert kv_valid <= A.CROSS_MAX_KEYS

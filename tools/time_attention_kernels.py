@@ -41,12 +41,14 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def build_report(lib_dir: str) -> None:
-    """ptxas's lines on the body, and its HGMMA count per instantiation."""
-    so = sorted(glob.glob(os.path.join(lib_dir, "*.so")))[-1]
+def build_report(lib_dir: str, bodies=("hopper_attention_kernel",)) -> dict:
+    """ptxas's lines on the kernels whose names contain one of ``bodies``
+    (registers, spills) and any "wgmma ... serialized" line, then the HGMMA
+    count of each such kernel, which it also returns."""
+    so = sorted(glob.glob(os.path.join(lib_dir, "*.so")), key=os.path.getmtime)[-1]
     lines = open(so + ".log").read().splitlines()
     for i, line in enumerate(lines):
-        if "Function properties for _ZN6hopper" in line:
+        if "Function properties for" in line and any(b in line for b in bodies):
             print(line.split("for ")[-1], "|", lines[i + 1].strip(), "|", lines[i + 2].strip())
         if any(code in line for code in ("C7508", "C7512", "C7520")):
             print(line.strip())
@@ -55,9 +57,10 @@ def build_report(lib_dir: str) -> None:
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-        elif "HGMMA" in line and name and "hopper" in name:
+        elif "HGMMA" in line and name and any(b in name for b in bodies):
             counts[name] = counts.get(name, 0) + 1
     print("HGMMA instructions:", counts)
+    return counts
 
 
 def main(argv=None) -> None:
