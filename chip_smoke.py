@@ -32,7 +32,9 @@ Open-Sora 1.2 STDiT3-XL/2 (K3, K5, K6, K7, K8):
    ``csrc/hopper_gemm.cuh``) beside cuBLAS on the already-modulated operand
    (a yardstick, not the same function), K6 (GEMM body,
    ``hopper_cross_kernel``, GEMM body) with its three launches also timed
-   apart (phases 15 and 19 the same at their shapes);
+   apart, K8 (the GEMM body with its gate epilogue, rows flattened) beside
+   cuBLAS ``F.linear`` with bias (GEMM only) (phases 15 and 19 the same at
+   their shapes);
 8. one full-shape forward, 28 layers;
 9. requests through ``OpenSoraPipeline.generate`` at 480p x 51 frames and
    30 RFLOW steps: full compute, then MagCache opensora-v1.2 (18 of 30
@@ -54,9 +56,11 @@ FLUX.1-dev and FLUX.1-Kontext-dev (K1, K2 in head scope, K3):
    2 heads of 128, 2 + 2 blocks, over Euler steps with skipped ones.
 
 Open-Sora 1.2 at 720p and its mask-strategy conditioning (K1q, K3, K5-K8):
-15. K1q (K1 with the per-head RMS qk-norm fused, head dim 72) against its
-   plain version at one spatial block's 720p 9:16 shape: q/k/v read as
-   column views of one [30, 3600, 3456] bf16 projection, fixed max; then K5
+15. K1q (the per-head RMS qk-norm pre-pass, then K1's wgmma/TMA body at
+   head dim 72 carried as 80, fixed max) against its plain version at one
+   spatial block's 720p 9:16 shape: q/k/v read as column views of one
+   [30, 3600, 3456] bf16 projection, bit-equal to contiguous copies, its
+   two launches also timed apart; then K5
    and K3 at the temporal block's 720p shapes and K6, K7 and K8 at the
    720p blocks' shapes;
 16. one full-shape forward at 720p 9:16 x 51 frames (15 frames of 3,600
@@ -781,6 +785,9 @@ def check_stdit3_linear_kernels(dev, rec, gen, S, rows=2, T=15, d=1152, H=16, L=
                cuda_ms(lambda: P.matmul_gated_residual_plain(x, w, b, g, r, **kw), 2),
                2 * x.shape[0] * x.shape[1] * x.shape[2] * d,
                nbytes(x, w, b, got, *([] if r is None else [r])))
+        log(f"    matmul_gated_residual [{label}]: yardstick F.linear with bias "
+            f"{cuda_ms(lambda: torch.nn.functional.linear(x, w, b)):.3f} ms (GEMM only, "
+            f"not the same function)")
         del got, want, x
 
     # K6: cross-attention over the L-token caption, residual fused
@@ -1349,6 +1356,13 @@ def phase_os720_kernels(dev, rec):
     log(f"  K1q [720p block]: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
         f"{flops / ms / 1e9 / H100_BF16_TFLOPS:.1%} of {H100_BF16_TFLOPS:.0f}), plain "
         f"{pms:.3f} ms, SDPA without the norm {lms:.3f} ms")
+    # its two launches timed apart
+    g = [t.reshape(-1, D).expand(H, D).contiguous() for t in gains]
+    qn, kn = A._qk_norm_launch(q, k, g, D ** -0.5, 1e-6)
+    log(f"    K1q by stage: qk-norm pre-pass "
+        f"{cuda_ms(lambda: A._qk_norm_launch(q, k, g, D ** -0.5, 1e-6), 10):.3f} ms, "
+        f"attention {cuda_ms(lambda: A._qknorm_attention_launch(qn, kn, v, S, A.QKNORM_FIXED_MAX), 10):.3f} ms")
+    del qn, kn
     keep(rec, "flash_attention_bshd_qknorm", err, ms, pms, "loop", label, (flops, moved),
          ("F.scaled_dot_product_attention (same q/k/v, without the qk-norm)", lms))
     del qkv, q, k, v, got
@@ -2204,7 +2218,7 @@ def main():
                                   "magcache_tpu/ops/attention.py:933"),
         "lnmod_matmul": ("cuda", "magcache_tpu_torch/csrc/hopper_gemm.cuh",
                          "magcache_tpu/ops/fused_prologue.py:205"),
-        "matmul_gated_residual": ("cuda", "magcache_tpu_torch/csrc/fused_matmul.cu",
+        "matmul_gated_residual": ("cuda", "magcache_tpu_torch/csrc/hopper_gemm.cuh",
                                   "magcache_tpu/ops/fused_prologue.py:66"),
     }
     paths = {"wan": launches, "open-sora": os_launches, "flux": flux_launches,

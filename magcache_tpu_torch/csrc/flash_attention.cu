@@ -41,31 +41,32 @@
 // the next K/V tiles in flight, and two consumer warpgroups that take turns
 // on the tensor cores, each running its softmax while the other's wgmma run.
 //
-// K1q, the qk-normed variant (flash_attention_qknorm_kernel below): the
-// TPU kernel's norm=(true_d, eps) branch, which STDiT3 runs on frames of
-// more than 2,048 tokens (720p). Head dim 72, fixed max only (its callers
-// all pass fixed_max; the RMS-normed scores are bounded). Rounding points:
-//   - q and k: f32 sum of squares over the 72 values / true_d, times
-//     rsqrt(var + eps), times the f32 gain [H, 72] (as _rms_head);
+// K1q, the qk-normed variant: the TPU kernel's norm=(true_d, eps) branch
+// (_flash_kernel_bshd_fixed_max with norm, _rms_head), which STDiT3 runs on
+// frames of more than 2,048 tokens (720p). Head dim 72, fixed max only (its
+// callers all pass fixed_max; the RMS-normed scores are bounded). Rounding
+// points:
+//   - q and k: f32 sum of squares over the 72 values times 1/true_d, times
+//     1/sqrt(var + eps), times the f32 gain [H, 72] (as _rms_head);
 //   - q is then multiplied by scale*log2(e) in f32 and rounded to bf16 once;
 //     k is rounded to bf16 (unlike K1 above, whose q is scaled in bf16);
 //   - from there as K1's fixed-max variant.
-// q, k and v are read in place with their own batch and token strides (the
-// column slices of STDiT3's [rows*T, S, 3*H*72] qkv projection); a head row
-// is 144 contiguous, 16-byte aligned bytes. 72 is padded to 80 only in
-// shared memory (five k16 steps for QK^T; the PV product's tenth n8 tile
-// holds the zero pad columns and is not stored), as K5 does (mma_tile.cuh).
-// A block takes 64 queries of one (batch, head) and loops over the keys in
-// tiles of 64; two adjacent threads load and normalise each row. k is
-// normalised again every time a block loads a K tile: at 720p each key row
-// is normalised by all 57 query blocks of its head, about 300 f32
-// operations per key row and block against the tile's 1.3 MFLOP of mma
-// work, which is about a fifth more time than the tensor cores need at
-// their peak; K and V are re-read 57 times, mostly from L2 (one head's K
-// and V are 1 MB).
+// Two launches. (a) qk_norm_kernel reads the q and k column views of
+// STDiT3's [frames, S, 3*H*72] qkv projection once, through their batch and
+// token strides, and writes contiguous q^ (normed, scaled, rounded) and k^
+// (normed, rounded): a per-head reduction and an elementwise map, bound by
+// its bytes (about 1 GB at 720p, 0.3 ms). (b) The attention body of
+// hopper_attention.cuh at head dim 72 carried as 80, <80, kFixed>, with
+// q_scale = 1 (q^ is used as it is) on q^, k^ and v, the last read in place
+// from the projection (token stride 6,912 bytes, head offset 144). The norm
+// stays out of the product loop: the mma.sync kernel this replaces
+// normalised every K tile again in each of a head's 57 query blocks.
 //
 // What bounds K1q: at 720p one call is 4 x 30 x 16 x 3,600^2 x 72 = 1.79
-// TFLOP over 1.0 GB of q/k/v/o: compute bound, 1.81 ms at 989 TFLOP/s.
+// TFLOP over 1.0 GB of q/k/v/o: compute bound, 1.81 ms at 989 TFLOP/s; the
+// 6.2e9 exp2 of the softmax take about as long again on the SFUs (16 a
+// clock per SM), which the two consumer warpgroups taking turns overlap
+// with the other's products.
 //
 // Plain C interface, loaded from Python with ctypes; the wrapper checks
 // shapes, dtypes, strides and alignment, allocates the output and passes
@@ -73,116 +74,133 @@
 // cudaGetLastError().
 
 #include "hopper_attention.cuh"
-#include "mma_tile.cuh"
 
 namespace {
 
 using mc::bf16;
 
-constexpr int kThreads = 128;      // K1q: 4 warps x 16 query rows
-
-// ---- K1q: per-head RMS qk-norm fused into the q/k loads, head dim 72 -------
-
-constexpr int kQD = mc::kHD;       // 72
-constexpr int kQDP = mc::kHDP;     // 80 in shared memory
-constexpr int kQStr = mc::kHStr;   // 88-element smem rows
-constexpr int kQTile = 64;         // queries per block, keys per KV tile
+constexpr int kNormD = 72;                 // K1q's head dim
+constexpr int kNormChunks = kNormD / 8;    // 16-byte chunks a head row
+constexpr int kNormThreads = 32 * kNormChunks;   // 32 head rows a block
 
 struct QkNormArgs {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  bf16* o;                         // [B, Sq, H, 72], contiguous
-  const float* qg;                 // [H, 72]
-  const float* kg;
-  long long q_bs, q_ts, k_bs, k_ts, v_bs, v_ts;   // batch, token strides
-  int Sq, H, kv_len;
-  float q_scale, inv_true_d, eps, m_const;
+  const bf16* src[2];                      // q, k: [B, S, H, 72] views
+  bf16* dst[2];                            // q^, k^: contiguous [B, S, H, 72]
+  const float* gain[2];                    // [H, 72]
+  long long bs[2], ts[2];                  // batch and token strides (elements)
+  int S[2];                                // Sq, kv_len
+  int B, H;
+  float scale[2];                          // scale*log2(e) for q, 1 for k
+  float inv_true_d, eps;
 };
 
-__global__ void __launch_bounds__(kThreads)
-flash_attention_qknorm_kernel(QkNormArgs p) {
-  __shared__ __align__(16) bf16 Qs[kQTile * kQStr];
-  __shared__ __align__(16) bf16 Ks[kQTile * kQStr];
-  __shared__ __align__(16) bf16 Vs[kQTile * kQStr];
-  __shared__ float gains[2][kQD];                   // q and k gains of head h
-  const int q0 = blockIdx.x * kQTile;
-  const int b = blockIdx.y / p.H;
-  const int h = blockIdx.y % p.H;
-  const int warp = threadIdx.x >> 5;
-  const bf16* qh = p.q + b * p.q_bs + h * kQD;
-  const bf16* kh = p.k + b * p.k_bs + h * kQD;
-  const bf16* vh = p.v + b * p.v_bs + h * kQD;
-  for (int i = threadIdx.x; i < 2 * kQD; i += kThreads)
-    gains[i / kQD][i % kQD] = (i < kQD ? p.qg : p.kg)[h * kQD + i % kQD];
-  __syncthreads();
-
-  // threads 2r and 2r + 1 take row r of every tile; q is normed, scaled by
-  // scale*log2(e) in f32 and rounded once
-  const int row = threadIdx.x >> 1, half = threadIdx.x & 1;
-  mc::load_qk_norm_half(Qs + row * kQStr, qh + (q0 + row) * p.q_ts, q0 + row < p.Sq,
-                        gains[0], p.inv_true_d, p.eps, nullptr, nullptr, p.q_scale,
-                        half);
-  __syncthreads();
-  uint32_t qf[kQDP / 16][4];
+// K1q's pre-pass: blockIdx.y 0 normalises q, 1 k. Thread i of a block takes
+// 16-byte chunk i % 9 of head row blockIdx.x * 32 + i / 9 (rows in [B, S,
+// H] order, so neighbouring threads read neighbouring bytes of a token);
+// the nine partial sums of squares of a row meet in shared memory.
+__global__ void __launch_bounds__(kNormThreads)
+qk_norm_kernel(const QkNormArgs p) {
+  __shared__ float part[kNormThreads];
+  // the tensor's fields by selection, not by a dynamic index into the
+  // parameters (which would copy them to local memory)
+  const bool is_k = blockIdx.y == 1;
+  const bf16* src = is_k ? p.src[1] : p.src[0];
+  bf16* dst = is_k ? p.dst[1] : p.dst[0];
+  const float* gain = is_k ? p.gain[1] : p.gain[0];
+  const long long bs = is_k ? p.bs[1] : p.bs[0], ts = is_k ? p.ts[1] : p.ts[0];
+  const int S = is_k ? p.S[1] : p.S[0];
+  const float scale = is_k ? p.scale[1] : p.scale[0];
+  const long long rows = (long long)p.B * S * p.H;
+  const long long row = (long long)blockIdx.x * 32 + threadIdx.x / kNormChunks;
+  const int chunk = threadIdx.x % kNormChunks;
+  const bool live = row < rows;
+  int h = 0;
+  float f[8];
+  float ss = 0.f;
+  if (live) {
+    h = (int)(row % p.H);
+    const long long tok = row / p.H;
+    const long long s = tok % S, b = tok / S;
+    const uint4 raw =
+        *reinterpret_cast<const uint4*>(src + b * bs + s * ts + h * kNormD + chunk * 8);
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(&raw);
 #pragma unroll
-  for (int kk = 0; kk < kQDP / 16; ++kk)
-    mc::load_a_frag(qf[kk], Qs + warp * 16 * kQStr + kk * 16, kQStr);
-
-  float acc[kQDP / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < kQDP / 8; ++nt)
-    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-  float l[2] = {0.f, 0.f};
-  const int n_tiles = (p.kv_len + kQTile - 1) / kQTile;
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * kQTile;
-    __syncthreads();          // every warp is done with the previous tile
-    const int key = k0 + row;
-    mc::load_qk_norm_half(Ks + row * kQStr, kh + key * p.k_ts, key < p.kv_len,
-                          gains[1], p.inv_true_d, p.eps, nullptr, nullptr, 1.f, half);
-    mc::load_head_half(Vs + row * kQStr, vh + key * p.v_ts, key < p.kv_len, half);
-    __syncthreads();
-    float s[kQTile / 8][4];
-    mc::qk_scores<kQTile / 8>(s, qf, Ks);
-    mc::fixed_max_softmax_pv<kQTile / 8>(s, l, acc, Vs, k0, p.kv_len, p.m_const);
+    for (int j = 0; j < 4; ++j) {
+      const float2 v = mc::unpack_bf16(w[j]);
+      f[2 * j] = v.x;
+      f[2 * j + 1] = v.y;
+      ss += v.x * v.x + v.y * v.y;
+    }
   }
-  const int r0 = q0 + warp * 16;
-  mc::store_head_rows(p.o, (size_t)b * p.Sq + r0, min(16, p.Sq - r0), acc, l,
-                      (size_t)p.H * kQD, h * kQD);
+  part[threadIdx.x] = ss;
+  __syncthreads();
+  if (!live) return;
+  const float* mine = part + threadIdx.x / kNormChunks * kNormChunks;
+  float var = 0.f;
+#pragma unroll
+  for (int j = 0; j < kNormChunks; ++j) var += mine[j];
+  const float r = 1.f / sqrtf(var * p.inv_true_d + p.eps);
+  const float4* g4 = reinterpret_cast<const float4*>(gain + h * kNormD + chunk * 8);
+  const float4 ga = g4[0], gb = g4[1];
+  const float g[8] = {ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, gb.z, gb.w};
+  uint4 out;
+  uint32_t* o = reinterpret_cast<uint32_t*>(&out);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    o[j] = mc::pack_bf16(f[2 * j] * r * g[2 * j] * scale,
+                         f[2 * j + 1] * r * g[2 * j + 1] * scale);
+  *reinterpret_cast<uint4*>(dst + row * kNormD + chunk * 8) = out;
 }
 
 }  // namespace
 
-extern "C" int mc_flash_attention_qknorm(
-    const void* q, const void* k, const void* v, void* o, const void* qg,
-    const void* kg, int B, int Sq, int H, int kv_len, long long q_bs,
-    long long q_ts, long long k_bs, long long k_ts, long long v_bs,
-    long long v_ts, float q_scale, float true_d, float eps, float m_const,
-    void* stream) {
+// K1q (a): q^ [B, Sq, H, 72] and k^ [B, kv_len, H, 72], contiguous, from the
+// q and k views (batch and token strides in elements, unit channel stride,
+// heads 72 apart) and their f32 gains [H, 72].
+extern "C" int mc_qk_norm(const void* q, const void* k, void* qn, void* kn, const void* qg,
+                          const void* kg, int B, int Sq, int kv_len, int H, long long q_bs,
+                          long long q_ts, long long k_bs, long long k_ts, float q_scale,
+                          float inv_true_d, float eps, void* stream) {
   QkNormArgs a{};
-  a.q = static_cast<const bf16*>(q);
-  a.k = static_cast<const bf16*>(k);
-  a.v = static_cast<const bf16*>(v);
-  a.o = static_cast<bf16*>(o);
-  a.qg = static_cast<const float*>(qg);
-  a.kg = static_cast<const float*>(kg);
-  a.q_bs = q_bs;
-  a.q_ts = q_ts;
-  a.k_bs = k_bs;
-  a.k_ts = k_ts;
-  a.v_bs = v_bs;
-  a.v_ts = v_ts;
-  a.Sq = Sq;
-  a.H = H;
-  a.kv_len = kv_len;
-  a.q_scale = q_scale;
-  a.inv_true_d = 1.f / true_d;
-  a.eps = eps;
-  a.m_const = m_const;
-  const dim3 grid((Sq + kQTile - 1) / kQTile, B * H);
-  flash_attention_qknorm_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  a.src[0] = static_cast<const bf16*>(q);
+  a.src[1] = static_cast<const bf16*>(k);
+  a.dst[0] = static_cast<bf16*>(qn);
+  a.dst[1] = static_cast<bf16*>(kn);
+  a.gain[0] = static_cast<const float*>(qg);
+  a.gain[1] = static_cast<const float*>(kg);
+  a.bs[0] = q_bs; a.ts[0] = q_ts; a.bs[1] = k_bs; a.ts[1] = k_ts;
+  a.S[0] = Sq; a.S[1] = kv_len;
+  a.B = B; a.H = H;
+  a.scale[0] = q_scale; a.scale[1] = 1.f;
+  a.inv_true_d = inv_true_d; a.eps = eps;
+  const long long rows = (long long)B * (Sq > kv_len ? Sq : kv_len) * H;
+  const dim3 grid((unsigned)((rows + 31) / 32), 2);
+  qk_norm_kernel<<<grid, kNormThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
+}
+
+// K1q (b): o [B, Sq, H, 72] (element strides `o_strides`: batch, head,
+// token) from q^, k^ and v [B, H, S, 72] views described by `maps` (q, k,
+// v x a 64-wide and a 16-wide column box, ops/attention.py:flash_tma_maps);
+// the fixed max m_const, q used as it is.
+extern "C" int mc_flash_attention_qknorm_tma(const void* qn, const void* kn, const void* v,
+                                             void* o, const long long* maps,
+                                             const long long* o_strides, int B, int H,
+                                             int Sq, int kv_len, float m_const,
+                                             void* stream) {
+  hopper::Args a{};
+  a.o = static_cast<bf16*>(o);
+  a.o_b = o_strides[0];
+  a.o_h = o_strides[1];
+  a.o_t = o_strides[2];
+  a.H = H;
+  a.Sq = Sq;
+  a.kv_len = kv_len;
+  a.q_scale = 1.f;
+  a.m_const = m_const;
+  const dim3 grid((Sq + hopper::kBlockM - 1) / hopper::kBlockM, B * H);
+  return hopper::launch<80, hopper::kFixed>(qn, kn, v, maps, a, grid,
+                                            static_cast<cudaStream_t>(stream));
 }
 
 // K1 and K1b (mode 0: running max, 1: fixed max) and K1c (mode 2: running

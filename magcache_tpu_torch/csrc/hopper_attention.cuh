@@ -1,6 +1,7 @@
 // One warp-specialised attention body for Hopper (sm_90a): TMA copies into
 // a ring of shared-memory stages, wgmma on the tensor cores. Instantiated
-// by flash_attention.cu (K1, K1b, K1c: head dim 128) and by
+// by flash_attention.cu (K1, K1b, K1c: head dim 128; K1q: head dim 72
+// carried as 80, fixed max, on its pre-pass's normed q and k) and by
 // grouped_attention.cu (K5r, and K4 with the same arguments: head dim 72,
 // carried as 80). hopper_cross_kernel below, K6's attention stage
 // (stdit3_kernels.cu), reuses its parts with K and V resident.
@@ -416,9 +417,10 @@ hopper_attention_kernel(const __grid_constant__ Maps maps, const Args a) {
     const int g = lane >> 2, t = lane & 3;
 
     mbar_wait(q_full, 0);
-    if (kMode != kAux) {
+    if (kMode != kAux && a.q_scale != 1.f) {
       // q * q_scale in f32, rounded to bf16, in place (an elementwise map:
-      // the swizzle does not matter); then made visible to wgmma
+      // the swizzle does not matter); then made visible to wgmma. K1q's q
+      // comes scaled (q_scale 1) and is used as it is.
       auto scale_rows = [&](unsigned char* box, int row_bytes) {
         uint4* p = reinterpret_cast<uint4*>(box + c * 64 * row_bytes);
         for (int i = ct; i < 64 * row_bytes / 16; i += 128) {
@@ -593,7 +595,8 @@ hopper_attention_kernel(const __grid_constant__ Maps maps, const Args a) {
     }
     block(yes, no, 0, prev, [&] { release(prev); });
 
-    // o = acc / l, rounded to bf16; rows past the query count are not stored
+    // o = acc / l, rounded to bf16; rows past the query count are not
+    // stored, nor columns past a 72-wide head (the next head's at 80)
     const float l0 = quad_sum(l_row[0]), l1 = quad_sum(l_row[1]);
     const int row0 = q0 + c * 64 + warp * 16 + g;
 #pragma unroll
@@ -614,7 +617,7 @@ hopper_attention_kernel(const __grid_constant__ Maps maps, const Args a) {
 #pragma unroll
       for (int i = 0; i < L::kW1 / 2; ++i) {
         const int col = 64 + 8 * (i >> 2) + 2 * t;
-        if (((i >> 1) & 1) == r && (i & 1) == 0 && col < (kGrouped ? 72 : kD))
+        if (((i >> 1) & 1) == r && (i & 1) == 0 && col < (kD == 80 ? 72 : kD))
           *reinterpret_cast<uint32_t*>(dst + col) = pack_bf16(o1[i] / l, o1[i + 1] / l);
       }
       if (kMode == kAux && t == 0) {

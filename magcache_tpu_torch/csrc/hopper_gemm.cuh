@@ -2,8 +2,9 @@
 // of hopper_attention.cuh: out = epilogue(A @ W^T) with A [B, S, K] and W an
 // nn.Linear weight [N, K], both bf16 and K-contiguous. Instantiated by
 // stdit3_kernels.cu for K7 (lnmod_matmul: on the LayerNorm-modulated
-// operand, bias or bias + tanh-gelu) and for K6's two projections (bias;
-// bias + residual).
+// operand, bias or bias + tanh-gelu), for K6's two projections (bias;
+// bias + residual) and for K8 (matmul_gated_residual: bias, gate [+
+// residual]).
 //
 // Block: 288 threads. Warps 0-7 are two consumer warpgroups (64 output rows
 // each), warp 8 the producer: one thread issues TMA copies of A and W
@@ -19,8 +20,8 @@
 // 288-thread block may give each thread up to 224 (hopper_attention_kernel's
 // 384 threads are held to 168), so the body needs no register juggling.
 //
-// Epilogue: the consumers write their f32 + bias [+ gelu | + residual]
-// values, rounded once, into 64-column boxes of shared memory (128-byte
+// Epilogue: the consumers write their f32 + bias [+ gelu | + residual |
+// gate [+ residual]] values, rounded once at the store, into 64-column boxes of shared memory (128-byte
 // swizzle: the quads' 4-byte writes hit 32 banks) and one thread stores
 // them with TMA; the residual tile is copied in by TMA into the same boxes
 // while the tile's products run. Stores (and residual loads) of 4 bytes
@@ -63,19 +64,28 @@ constexpr int kGemmBars = kGemmOut + 2 * 3 * kGemmOutBox;
 constexpr int kGemmSmem = kGemmBars + (2 * kGemmStages + 2) * 8 + 1024;
 
 // the numbering of the C entry points' `epi`
-enum Epilogue { kEpiBias = 0, kEpiGelu = 1, kEpiResid = 2 };
+enum Epilogue { kEpiBias = 0, kEpiGelu = 1, kEpiResid = 2, kEpiGate = 3, kEpiGateResid = 4 };
+
+__host__ __device__ constexpr bool epi_has_resid(int epi) {
+  return epi == kEpiResid || epi == kEpiGateResid;
+}
+__host__ __device__ constexpr bool epi_has_gate(int epi) {
+  return epi == kEpiGate || epi == kEpiGateResid;
+}
 
 struct GemmMaps {
   CUtensorMap a;        // A: (K, S, B), box (64, 128, 1)
   CUtensorMap w;        // W: (K, N), box (64, 192)
   CUtensorMap o;        // out: (N, rows_out, B), box (64, 64, 1)
-  CUtensorMap r;        // kEpiResid: the residual, the same geometry over [B, S, N]
+  CUtensorMap r;        // with a residual: its map, the output's geometry
 };
 
 struct GemmArgs {
   const float* bias;    // [N]
+  const float* gate;    // kEpiGate*: f32 rows of N; row (b, s) takes b / rep + s / span
   int B, S, rows_out, K, N;
   int m_tiles;          // row tiles per batch row
+  int rep, span;        // kEpiGate*
 };
 
 // A 3-D TMA store from shared memory; the box's parts past the map's
@@ -136,8 +146,9 @@ hopper_gemm_kernel(const __grid_constant__ GemmMaps maps, const GemmArgs a) {
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + kGemmBars);
   uint64_t* empty = full + kGemmStages;
-  uint64_t* resid_full = empty + kGemmStages;   // kEpiResid: the residual tile landed
-  uint64_t* out_free = resid_full + 1;          // kEpiResid: both consumers' stores read
+  uint64_t* resid_full = empty + kGemmStages;   // residual: its tile landed
+  uint64_t* out_free = resid_full + 1;          // residual: both consumers' stores read
+  constexpr bool kResid = epi_has_resid(kEpi), kGate = epi_has_gate(kEpi);
 
   // Persistent: block x takes tiles x, x + gridDim.x, ...; a tile's N index
   // runs fastest, so that the tiles in flight share their A tiles in L2.
@@ -179,7 +190,7 @@ hopper_gemm_kernel(const __grid_constant__ GemmMaps maps, const GemmArgs a) {
             s = 0;
             phase ^= 1;
           }
-          if (kEpi == kEpiResid && kt == min(nk, kGemmStages) - 1) {
+          if (kResid && kt == min(nk, kGemmStages) - 1) {
             // the residual tile, into the output staging boxes it is added
             // in, once the previous tile's stores have read them (the ring
             // is full of this tile's k-tiles by then)
@@ -237,19 +248,23 @@ hopper_gemm_kernel(const __grid_constant__ GemmMaps maps, const GemmArgs a) {
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[prev]);  // the ring runs on into the next tile
 
-    // Epilogue: f32 + bias [, gelu | + residual], one rounding, into three
+    // Epilogue: f32 + bias [, gelu | + residual | rounded, * gate [,
+    // rounded, + residual]], one rounding at the store, into three
     // 64-column boxes of shared memory (128-byte swizzle, so the quads'
     // 4-byte writes hit 32 banks), then TMA stores: the map's extents drop
     // the rows past rows_out and the columns past N. Rows at or past S are
     // zeros. acc[i]: row 16w + g + 8((i >> 1) & 1) of the consumer's 64,
     // column 8(i >> 2) + 2t + (i & 1). The producer loads the next tiles'
     // k-tiles meanwhile.
-    if constexpr (kEpi == kEpiResid) mbar_wait(resid_full, it & 1);
+    if constexpr (kResid) mbar_wait(resid_full, it & 1);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int rl = (warp % 4) * 16 + g + 8 * r;
       const int srow = s0 + c * 64 + rl;
       const bool live = srow < a.S;
+      const float* grow = nullptr;
+      if constexpr (kGate)
+        grow = a.gate + (size_t)(b / a.rep + (live ? srow : 0) / a.span) * a.N;
 #pragma unroll
       for (int i = 0; i < 96; ++i) {
         if (((i >> 1) & 1) != r || (i & 1)) continue;
@@ -267,7 +282,16 @@ hopper_gemm_kernel(const __grid_constant__ GemmMaps maps, const GemmArgs a) {
             v0 = gelu_tanh_fast(v0);
             v1 = gelu_tanh_fast(v1);
           }
-          if constexpr (kEpi == kEpiResid) {
+          if constexpr (kGate) {
+            const float2 gg = __ldg(reinterpret_cast<const float2*>(grow + n));
+            v0 = mc::round_bf16(v0) * gg.x;
+            v1 = mc::round_bf16(v1) * gg.y;
+            if constexpr (kResid) {
+              v0 = mc::round_bf16(v0);
+              v1 = mc::round_bf16(v1);
+            }
+          }
+          if constexpr (kResid) {
             const float2 x = mc::unpack_bf16(*cell);
             v0 += x.x;
             v1 += x.y;
@@ -286,7 +310,7 @@ hopper_gemm_kernel(const __grid_constant__ GemmMaps maps, const GemmArgs a) {
       asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
       // the boxes are written again for the next tile: wait until read
       asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-      if constexpr (kEpi == kEpiResid) mbar_arrive(out_free);
+      if constexpr (kResid) mbar_arrive(out_free);
     }
     bar_sync(1 + c, 128);
   }
@@ -302,7 +326,7 @@ int launch_gemm(const void* x, const void* w, void* out, const void* resid,
   int err = encode_map(&maps.a, x, words);
   if (!err) err = encode_map(&maps.w, w, words + kMapWords);
   if (!err) err = encode_map(&maps.o, out, words + 2 * kMapWords);
-  if (!err && kEpi == kEpiResid) err = encode_map(&maps.r, resid, words + 3 * kMapWords);
+  if (!err && epi_has_resid(kEpi)) err = encode_map(&maps.r, resid, words + 3 * kMapWords);
   if (err) return err;
   auto kernel = hopper_gemm_kernel<kEpi>;
   cudaError_t e =

@@ -10,9 +10,10 @@ the kernel does not take raises. Launch counts are ``<wrapper>.launches``
 
 - ``flash_attention_bshd`` (K1, ``csrc/flash_attention.cu`` on the
   warp-specialised wgmma/TMA body of ``csrc/hopper_attention.cuh``): full
-  attention, head dim 128; with ``qk_gains`` (K1q) the per-head RMS qk-norm
-  fused into the q/k loads, head dim 72, q/k/v read in place through their
-  token strides (STDiT3's frames of more than 2,048 tokens).
+  attention, head dim 128; with ``qk_gains`` (K1q, STDiT3's frames of more
+  than 2,048 tokens) the per-head RMS qk-norm at head dim 72: a pre-pass
+  reads the q and k views once and writes normed contiguous copies, then the
+  same body at head dim 72 carried as 80 reads them and v in place.
 - ``flash_attention_bhsd`` (K1b, the same kernel body): the same attention
   on ``[B, H, S, D]``, read through (batch, head, token) strides, so a
   ``[B, S, H, D]`` tensor viewed as ``[B, H, S, D]`` costs no copy; each
@@ -68,8 +69,8 @@ __all__ = ["attention", "flash_attention_bshd", "flash_attention_bshd_plain",
            "grouped_attention_fused_qkv", "grouped_attention_fused_qkv_plain",
            "grouped_flash_attention_bshd", "grouped_flash_attention_bshd_plain",
            "fused_cross_attention", "fused_cross_attention_plain",
-           "cross_attention_rowmax_plain",
-           "QKNORM_FIXED_MAX"]
+           "cross_attention_rowmax_plain", "qk_norm_plain",
+           "flash_attention_prescaled_plain", "QKNORM_FIXED_MAX"]
 
 _LOG2E = math.log2(math.e)
 _NEG_INF = -1e30
@@ -87,17 +88,21 @@ TMA_PADDED_DIM = 80          # head dim 72 as the body carries it: boxes of 64 +
 
 
 def flash_tma_maps(name: str, q, k, v, kv_len: int) -> list:
-    """The six maps of K1/K1b/K1c (q, k, v x two 64-wide column boxes,
-    128-byte swizzle) over ``[B, H, S, 128]`` tensors or views: dimensions
-    (channel, token, head, batch), token extent Sq for q and ``kv_len`` for
-    k and v (rows past it arrive as zeros), boxes of 128 tokens."""
+    """The six maps of K1/K1b/K1c/K1q (q, k, v x two column boxes) over
+    ``[B, H, S, D]`` tensors or views: dimensions (channel, token, head,
+    batch), token extent Sq for q and ``kv_len`` for k and v (rows past it
+    arrive as zeros), boxes of 128 tokens. Head dim 128: two 64-wide boxes
+    (128-byte swizzle). Head dim 72 (K1q): a 64-wide box and a 16-wide one
+    (32-byte swizzle) over columns 64..79, whose columns 72..79 lie past the
+    channel extent and arrive as zeros."""
     maps = []
     for label, t, rows in (("q", q, q.shape[2]), ("k", k, kv_len), ("v", v, kv_len)):
         b, h, _, d = t.shape
         sb, sh, st, sd = t.stride()
-        m = tma_map(f"{name}: {label}", (d, rows, h, b), (sd, st, sh, sb),
-                    (64, TMA_BOX_ROWS, 1, 1), 128)
-        maps += [m, m]       # the second box starts at column 64
+        second = (64, 128) if d == KERNEL_HEAD_DIM else (TMA_PADDED_DIM - 64, 32)
+        for width, swizzle in ((64, 128), second):   # the second box at column 64
+            maps.append(tma_map(f"{name}: {label}", (d, rows, h, b), (sd, st, sh, sb),
+                                (width, TMA_BOX_ROWS, 1, 1), swizzle))
     return maps
 
 
@@ -171,19 +176,49 @@ def flash_attention_bshd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     v's dtype before the f32 PV product, and the result is divided by the f32
     row sum.
     """
-    b, sq, h, d = q.shape
+    d = q.shape[-1]
     scale = (1.0 / math.sqrt(d)) if scale is None else scale
     kv_len = k.shape[1] if kv_len is None else min(kv_len, k.shape[1])
     k = k[:, :kv_len]
     if qk_gains is not None:
-        td = d if true_d is None else true_d
-        qs = (_rms_head(q, qk_gains[0], td, eps) * (scale * _LOG2E)).to(q.dtype)
-        k = _rms_head(k, qk_gains[1], td, eps).to(v.dtype)
+        qs, k = qk_norm_plain(q, k, qk_gains, scale=scale, true_d=true_d, eps=eps,
+                              dtype=v.dtype)
     else:
         qs = q * _q_scale(scale, q.dtype).to(q.device)
+    return flash_attention_prescaled_plain(qs, k, v, kv_len=kv_len, fixed_max=fixed_max,
+                                           chunk=chunk)
+
+
+def qk_norm_plain(q: torch.Tensor, k: torch.Tensor,
+                  qk_gains: Tuple[torch.Tensor, torch.Tensor], *, scale: float,
+                  true_d: Optional[int] = None, eps: float = 1e-6,
+                  dtype: Optional[torch.dtype] = None):
+    """K1q's pre-pass in plain PyTorch: q and k RMS-normed per head in f32
+    (variance over ``true_d``, default D) times their gains; q then times
+    ``scale*log2(e)`` in f32 and rounded to its dtype, k rounded to
+    ``dtype`` (default k's). Returns contiguous ``(q^, k^)``."""
+    td = q.shape[-1] if true_d is None else true_d
+    qs = (_rms_head(q, qk_gains[0], td, eps) * (scale * _LOG2E)).to(q.dtype)
+    ks = _rms_head(k, qk_gains[1], td, eps).to(dtype or k.dtype)
+    return qs.contiguous(), ks.contiguous()
+
+
+def flash_attention_prescaled_plain(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                    *, kv_len: Optional[int] = None,
+                                    fixed_max: Optional[float] = None,
+                                    chunk: int = 256) -> torch.Tensor:
+    """The attention body's math on a q already scaled by ``scale*log2(e)``
+    and rounded (the body at q_scale 1, as K1q runs it after its pre-pass):
+    f32 scores, the base-2 softmax with the static shift ``fixed_max`` (or
+    the row max when None), p rounded to v's dtype before the f32 PV
+    product, divided by the f32 row sum; keys at or past ``kv_len`` left
+    out. Over query-row chunks of ``chunk`` rows."""
+    b, sq, h, d = qs.shape
+    kv_len = k.shape[1] if kv_len is None else min(kv_len, k.shape[1])
+    k = k[:, :kv_len]
     kt = k.permute(0, 2, 3, 1).float()                   # [B, H, D, Skv]
     vf = v[:, :kv_len].permute(0, 2, 1, 3).float()       # [B, H, Skv, D]
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, sq, h, d), dtype=qs.dtype, device=qs.device)
     for i0 in range(0, sq, chunk):
         s = qs[:, i0:i0 + chunk].permute(0, 2, 1, 3).float() @ kt
         if fixed_max is not None:
@@ -191,7 +226,7 @@ def flash_attention_bshd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
         else:
             p = torch.exp2(s - s.amax(-1, keepdim=True))
         o = (p.to(v.dtype).float() @ vf) / p.sum(-1, keepdim=True)
-        out[:, i0:i0 + chunk] = o.permute(0, 2, 1, 3).to(q.dtype)
+        out[:, i0:i0 + chunk] = o.permute(0, 2, 1, 3).to(qs.dtype)
     return out
 
 
@@ -207,12 +242,14 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``fixed_max``: the static softmax shift (pass only for trunks whose scores
     are norm-bounded); None runs the online running-max softmax.
 
-    ``qk_gains=(qg, kg)`` (``[H, D]`` or ``[D]`` f32) fuse the per-head RMS
-    qk-norm (variance over ``true_d``) into the q/k loads: K1q, which takes
-    bf16 head dim 72 with ``fixed_max`` and reads q, k and v through their
-    batch and token strides (unit channel stride, 16-byte aligned rows), so
-    column slices of one fused projection need no copies. K1 without the norm
-    takes contiguous bf16 head dim 128. Anything else on a CUDA tensor raises.
+    ``qk_gains=(qg, kg)`` (``[H, D]`` or ``[D]`` f32) add the per-head RMS
+    qk-norm (variance over ``true_d``): K1q, which takes bf16 head dim 72
+    with ``fixed_max`` and reads q, k and v through their batch and token
+    strides (unit channel stride, 16-byte aligned rows), so column slices of
+    one fused projection need no copies; a pre-pass writes the normed q and
+    k (``qk_norm_plain``), the body then runs at q_scale 1
+    (``flash_attention_prescaled_plain``). K1 without the norm takes
+    contiguous bf16 head dim 128. Anything else on a CUDA tensor raises.
     Launches count in ``flash_attention_bshd.launches`` (K1) and
     ``flash_attention_bshd.qknorm_launches`` (K1q).
     """
@@ -268,16 +305,42 @@ def _flash_attention_qknorm(q, k, v, scale, kv_len, fixed_max, qk_gains, true_d,
             raise ValueError(f"flash_attention_bshd: {name} must hold [{h}, {d}] "
                              f"or [{d}] on {dev}")
         gains.append(t.float().reshape(-1, d).expand(h, d).contiguous())
+    qn, kn = _qk_norm_launch(q, k[:, :kv_len], gains, scale, eps)
+    out = _qknorm_attention_launch(qn, kn, v, kv_len, fixed_max)
+    count_launch(flash_attention_bshd, "qknorm_launches")
+    return out
+
+
+def _qk_norm_launch(q, k, gains, scale: float, eps: float):
+    """K1q's pre-pass on the card: contiguous ``(q^, k^)`` from checked
+    ``[B, S, H, 72]`` q and k views and f32 ``[H, 72]`` gains."""
+    b, sq, h, d = q.shape
+    qn = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    kn = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     lib = load_cuda_library()
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev)
-    code = lib.mc_flash_attention_qknorm(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        gains[0].data_ptr(), gains[1].data_ptr(), b, sq, h, kv_len,
-        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
-        v.stride(1), scale * _LOG2E, float(d), float(eps), float(fixed_max),
-        torch.cuda.current_stream(dev).cuda_stream)
+    code = lib.mc_qk_norm(
+        q.data_ptr(), k.data_ptr(), qn.data_ptr(), kn.data_ptr(), gains[0].data_ptr(),
+        gains[1].data_ptr(), b, sq, k.shape[1], h, q.stride(0), q.stride(1), k.stride(0),
+        k.stride(1), scale * _LOG2E, 1.0 / d, float(eps),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    check_launch(lib, code, "flash_attention_bshd (qk-norm pre-pass)")
+    return qn, kn
+
+
+def _qknorm_attention_launch(qn, kn, v, kv_len: int, fixed_max: float):
+    """K1q's attention on the card: the body at head dim 72 carried as 80,
+    fixed max, q used as it is; q^ and k^ contiguous, v a checked view.
+    Returns a contiguous ``[B, Sq, H, 72]``."""
+    b, sq, h, d = qn.shape
+    out = torch.empty_like(qn)
+    heads_major = [t.transpose(1, 2) for t in (qn, kn, v, out)]
+    maps = flash_tma_maps("flash_attention_bshd (qk-norm)", *heads_major[:3], kv_len)
+    lib = load_cuda_library()
+    code = lib.mc_flash_attention_qknorm_tma(
+        qn.data_ptr(), kn.data_ptr(), v.data_ptr(), out.data_ptr(), map_words(maps),
+        (ctypes.c_longlong * 3)(*heads_major[3].stride()[:3]), b, h, sq, kv_len,
+        float(fixed_max), torch.cuda.current_stream(qn.device).cuda_stream)
     check_launch(lib, code, "flash_attention_bshd (qk-norm)")
-    flash_attention_bshd.qknorm_launches += 1
     return out
 
 

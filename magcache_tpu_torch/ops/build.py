@@ -105,16 +105,19 @@ def _load_cuda_library() -> ctypes.CDLL:
     lib.mc_grouped_attention_tma.argtypes = [vp, vp, vp, vp, pl, ci, ci, ci, ci, ci, cf,
                                              vp]
     lib.mc_grouped_attention_tma.restype = ci
-    lib.mc_flash_attention_qknorm.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci,
-                                              cl, cl, cl, cl, cl, cl, cf, cf, cf, cf, vp]
-    lib.mc_flash_attention_qknorm.restype = ci
+    lib.mc_qk_norm.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, cl, cl, cl, cl,
+                               cf, cf, cf, vp]
+    lib.mc_qk_norm.restype = ci
+    lib.mc_flash_attention_qknorm_tma.argtypes = [vp, vp, vp, vp, pl, pl, ci, ci, ci, ci,
+                                                  cf, vp]
+    lib.mc_flash_attention_qknorm_tma.restype = ci
     lib.mc_ln_modulate.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, cf, vp]
     lib.mc_ln_modulate.restype = ci
     lib.mc_hopper_gemm.argtypes = [vp, vp, pl, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
     lib.mc_hopper_gemm.restype = ci
     lib.mc_cross_attention_tma.argtypes = [vp, vp, vp, pl, vp, ci, ci, ci, ci, ci, cf, vp]
     lib.mc_cross_attention_tma.restype = ci
-    lib.mc_matmul_gated_residual.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci,
+    lib.mc_matmul_gated_residual.argtypes = [vp, vp, pl, vp, vp, vp, vp, ci, ci, ci, ci,
                                              ci, ci, ci, vp]
     lib.mc_matmul_gated_residual.restype = ci
     lib.mc_grouped_attention.argtypes = [vp, vp, vp, cl, cl, cl, cl, cl, cl, vp, vp,

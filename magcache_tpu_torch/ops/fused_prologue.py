@@ -5,8 +5,9 @@ and K8, each beside its plain version.
 Triton kernels in ``csrc/prologue_triton.py``; ``lnmod_matmul`` (K7) to a
 LayerNorm-modulate kernel and the wgmma/TMA GEMM body
 (``csrc/stdit3_kernels.cu``, ``csrc/hopper_gemm.cuh``; ``ops/gemm.py``) and
-``matmul_gated_residual`` (K8) to the mma.sync kernel of
-``csrc/fused_matmul.cu``. A CPU tensor goes to the plain PyTorch version
+``matmul_gated_residual`` (K8) to the same GEMM body with its gate
+epilogue (``csrc/stdit3_kernels.cu``; rows flattened where ``rows_out ==
+S_in``, ``ops.gemm.gate_geometry``). A CPU tensor goes to the plain PyTorch version
 (``<name>_plain``). A CUDA tensor the kernel does not take raises; nothing
 falls back. Each wrapper counts its kernel launches in ``<wrapper>.launches``;
 ``rms_norm_rope`` also counts them by norm scope in ``.scope_launches``.
@@ -36,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from magcache_tpu_torch.ops.build import check_bf16, check_launch, count_launch
-from magcache_tpu_torch.ops.gemm import gemm_launch
+from magcache_tpu_torch.ops.gemm import gate_geometry, gemm_launch
 from magcache_tpu_torch.ops.norms import layer_norm, rms_norm
 from magcache_tpu_torch.ops.rope import apply_rope
 
@@ -212,8 +213,12 @@ def _per_row(t: torch.Tensor, nb: int, width: int) -> torch.Tensor:
 
 
 def _f32_vector(t: Optional[torch.Tensor], n: int, like: torch.Tensor) -> torch.Tensor:
+    """A bias as contiguous f32 ``[n]`` on ``like``'s device (zeros for None);
+    raises when it lies elsewhere."""
     if t is None:
         return torch.zeros(n, dtype=torch.float32, device=like.device)
+    _require(t.device == like.device and t.numel() == n,
+             f"bias must hold [{n}] on {like.device}, got {tuple(t.shape)} on {t.device}")
     return t.reshape(n).float().contiguous()
 
 
@@ -355,6 +360,12 @@ def matmul_gated_residual(x: torch.Tensor, w: torch.Tensor,
     d_out]`` f32; resid: ``[B, rows_out, d_out]`` or None. Returns
     ``[B, rows_out, d_out]``: ``rows_out < S_in`` drops trailing rows,
     ``rows_out > S_in`` appends zero rows.
+
+    The kernel (the wgmma/TMA GEMM body with the gate epilogue) takes
+    contiguous bf16 x, w and resid and widths that are multiples of 8;
+    anything else on a CUDA tensor raises. Its stages' plain form is
+    ``ops.gemm.linear_plain`` with ``gate`` rows from
+    ``ops.gemm.gate_row_index``.
     """
     b, s_in, d_in = x.shape
     rows_out = s_in if rows_out is None else rows_out
@@ -379,18 +390,13 @@ def matmul_gated_residual(x: torch.Tensor, w: torch.Tensor,
              f"matmul_gated_residual: gate must hold [{nb}, {d_out}] on {x.device}")
     g = _per_row(gate, nb, d_out)
     bias32 = _f32_vector(bias, d_out, x)
-    from magcache_tpu_torch.ops.build import load_cuda_library
-
-    lib = load_cuda_library()
-    out = torch.empty((b, rows_out, d_out), dtype=x.dtype, device=x.device)
-    code = lib.mc_matmul_gated_residual(
-        x.data_ptr(), w.data_ptr(), bias32.data_ptr(), g.data_ptr(),
-        resid.data_ptr() if resid is not None else None, out.data_ptr(), b,
-        s_in, rows_out, d_in, d_out, batch_repeat,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    check_launch(lib, code, "matmul_gated_residual")
+    geom = gate_geometry(b, s_in, rows_out, batch_repeat)
+    out = gemm_launch(
+        "matmul_gated_residual", x.reshape(geom.batches, geom.rows, d_in), w, bias32,
+        resid=resid.reshape(geom.batches, geom.rows_out, d_out) if resid is not None else None,
+        rows_out=geom.rows_out, gate=g, rep=geom.rep, span=geom.span)
     matmul_gated_residual.launches += 1
-    return out
+    return out.reshape(b, rows_out, d_out)
 
 
 matmul_gated_residual.launches = 0

@@ -219,11 +219,15 @@ def test_k7_matches_plain(dev, b, s, din, dout, rows_out, rep, act):
 
 
 @pytest.mark.parametrize("b,s,din,dout,rows_out,rep,resid", [
-    (30, 1590, 1152, 1152, None, 15, True),   # spatial proj + residual
-    (3180, 15, 1152, 1152, None, 1590, False),  # temporal proj
+    (30, 1590, 1152, 1152, None, 15, True),   # spatial proj + residual: 1,590-row frames
+    (3180, 15, 1152, 1152, None, 1590, False),  # temporal proj, flat: T = 15 rows a batch row
     (2, 333, 4608, 1152, None, 1, True),      # mlp2
-    (4, 40, 144, 216, 33, 2, False),          # drops rows
-    (4, 40, 216, 144, 47, 1, True)])          # zero-fills rows
+    (4, 40, 144, 216, 33, 2, False),          # drops rows (3-D)
+    (4, 40, 216, 144, 47, 1, True),           # zero-fills rows (3-D)
+    (18, 15, 144, 216, None, 9, False),       # flat, 135 rows a gate row: tiles straddle
+    (18, 15, 1152, 1152, None, 9, True),      # the same with the residual epilogue
+    (4, 1590, 1152, 1152, None, 2, False),    # 3,180 rows a gate row, ragged last tile
+    (6, 15, 144, 216, 16, 3, True)])          # one pad row a batch row, residual
 def test_k8_matches_plain(dev, b, s, din, dout, rows_out, rep, resid):
     x = _rand(dev, b, s, din, seed=6)
     w = _rand(dev, dout, din, scale=din ** -0.5, seed=7)
@@ -231,11 +235,34 @@ def test_k8_matches_plain(dev, b, s, din, dout, rows_out, rep, resid):
     gate = _rand(dev, b // rep, dout, dtype=torch.float32, scale=0.5, seed=9)
     ro = s if rows_out is None else rows_out
     r = _rand(dev, b, ro, dout, seed=10) if resid else None
+    before = P.matmul_gated_residual.launches
     got = P.matmul_gated_residual(x, w, bias, gate, r, rows_out=rows_out,
                                   batch_repeat=rep)
     want = P.matmul_gated_residual_plain(x, w, bias, gate, r, rows_out=rows_out,
                                          batch_repeat=rep)
+    assert P.matmul_gated_residual.launches == before + 1
+    assert got.shape == (b, ro, dout) and got.is_contiguous()
     _close(got, want)
+    if ro > s:                                # pad rows: zeros, not gate * bias
+        assert not got[:, s:].any()
+
+
+def test_k8_refuses_what_it_does_not_take(dev):
+    x, w = _rand(dev, 4, 40, 144), _rand(dev, 216, 144)
+    g, bias = torch.ones(2, 216, device=dev), torch.zeros(216, device=dev)
+    with pytest.raises(ValueError, match="gate"):                  # gate rows for rep 1
+        P.matmul_gated_residual(x, w, bias, g, batch_repeat=1)
+    with pytest.raises(ValueError, match="resid"):                 # resid [B, S_in] for rows_out
+        P.matmul_gated_residual(x, w, bias, g, _rand(dev, 4, 40, 216), rows_out=47,
+                                batch_repeat=2)
+    with pytest.raises(ValueError, match="resid"):                 # a column view
+        P.matmul_gated_residual(x, w, bias, g, _rand(dev, 4, 40, 432)[..., :216],
+                                batch_repeat=2)
+    with pytest.raises(ValueError, match="bias"):                  # bias on the CPU
+        P.matmul_gated_residual(x, w, bias.cpu(), g, batch_repeat=2)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        P.matmul_gated_residual(_rand(dev, 4, 40, 140), _rand(dev, 216, 140), bias, g,
+                                batch_repeat=2)
 
 
 def _grouped_inputs(dev, b, s, heads, group):
@@ -347,6 +374,31 @@ def test_k1q_matches_plain(dev, b, s, heads, strided, shared_gain):
     torch.testing.assert_close(got.float(), want.float(), atol=2e-3, rtol=2e-2)
 
 
+@pytest.mark.parametrize("s,kv_len", [(3600, 3000), (2304, 300), (500, 129)])
+def test_k1q_ragged_kv_len_and_views_equal_copies(dev, s, kv_len):
+    heads = 4
+    qkv = _rand(dev, 2, s, 3 * heads * 72, scale=1.5, seed=31)
+    q, k, v = (p.unflatten(-1, (heads, 72)) for p in qkv.chunk(3, dim=-1))
+    gains = tuple(1.0 + _rand(dev, heads, 72, dtype=torch.float32, scale=0.2, seed=32 + i)
+                  for i in range(2))
+    kw = dict(scale=72 ** -0.5, qk_gains=gains, true_d=72, eps=1e-6, kv_len=kv_len,
+              fixed_max=A.QKNORM_FIXED_MAX)
+    got = A.flash_attention_bshd(q, k, v, **kw)
+    dense = A.flash_attention_bshd(q.contiguous(), k.contiguous(), v.contiguous(), **kw)
+    want = A.flash_attention_bshd_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, dense)            # strided views read as their copies
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-3, rtol=2e-2)
+    # the stages apart: the pre-pass within a bf16 rounding of its plain form
+    g = [t.reshape(-1, 72).expand(heads, 72).contiguous() for t in gains]
+    qn, kn = A._qk_norm_launch(q, k[:, :kv_len], g, 72 ** -0.5, 1e-6)
+    pq, pk = A.qk_norm_plain(q, k[:, :kv_len], gains, scale=72 ** -0.5, true_d=72)
+    torch.testing.assert_close(qn.float(), pq.float(), atol=0, rtol=2 ** -7)
+    torch.testing.assert_close(kn.float(), pk.float(), atol=0, rtol=2 ** -7)
+    o = A._qknorm_attention_launch(qn, kn, v, kv_len, A.QKNORM_FIXED_MAX)
+    assert torch.equal(o, got)
+
+
 def test_k1q_refuses_what_it_does_not_take(dev):
     qkv = _rand(dev, 1, 100, 3 * 2 * 72)
     q, k, v = (p.unflatten(-1, (2, 72)) for p in qkv.chunk(3, dim=-1))
@@ -363,6 +415,11 @@ def test_k1q_refuses_what_it_does_not_take(dev):
         odd = _rand(dev, 1, 100, 3 * 2 * 72 + 1)[..., 1:]
         qo = odd[..., :144].unflatten(-1, (2, 72))
         A.flash_attention_bshd(qo, qo, qo, qk_gains=g, fixed_max=16.0)
+    with pytest.raises(ValueError, match="qg"):                    # gains on the CPU
+        A.flash_attention_bshd(q, k, v, qk_gains=(torch.ones(72),) * 2, fixed_max=16.0)
+    with pytest.raises(ValueError, match="kg"):                    # gains of 3 heads
+        A.flash_attention_bshd(q, k, v, qk_gains=(g[0], torch.ones(3, 72, device=dev)),
+                               fixed_max=16.0)
 
 
 def test_tiny_open_sora_masked_and_large_frames_run_through_the_kernels(dev, tmp_path):

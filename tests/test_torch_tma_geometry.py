@@ -4,8 +4,10 @@
 that the C side hands to ``cuTensorMapEncodeTiled``; these tests hold it to
 the layouts the main paths pass: Wan's contiguous ``[B, S, H, 128]``
 activations (K1), Ulysses' head-major views (K1b, K1c), Latte's q/k/v column
-views of one fused projection (K5r) and K4's tensors with several groups per
-sequence. No card is needed: the geometry is plain Python.
+views of one fused projection (K5r), K4's tensors with several groups per
+sequence, K1q's normed copies beside the v view of STDiT3's projection, and
+the GEMM body's maps (K7, K6, and K8 on flattened or 3-D rows). No card is
+needed: the geometry is plain Python.
 """
 
 import pytest
@@ -180,3 +182,67 @@ def test_cross_attention_maps_head_dim_72(n, L, kv_valid):
         assert m.box == ((64 if wide else 16), 1, A.TMA_BOX_ROWS, 1)
         assert m.swizzle == (128 if wide else 32)
     assert kv_valid <= A.CROSS_MAX_KEYS
+
+
+# ---- K1q: the attention body at head dim 72 on the pre-pass's copies --------
+@pytest.mark.parametrize("frames,s,heads,kv_len", [
+    (30, 3600, 16, 3600),       # one 720p spatial block
+    (2, 2304, 2, 2304),         # frames just above K5's 2,048 tokens
+    (3, 300, 2, 77)])           # a kv_len off the 128-key tiles
+def test_k1q_maps_over_normed_copies_and_the_v_view(frames, s, heads, kv_len):
+    qkv = _meta(frames, s, 3 * heads * 72)
+    _, _, v = A.split_qkv(qkv, heads)
+    qn, kn = _meta(frames, s, heads, 72), _meta(frames, kv_len, heads, 72)
+    maps = A.flash_tma_maps("K1q", qn.transpose(1, 2), kn.transpose(1, 2),
+                            v.transpose(1, 2), kv_len)
+    assert len(maps) == 6
+    row, proj_row = heads * 72 * 2, 3 * heads * 72 * 2
+    for i, m in enumerate(maps):
+        rows = s if i < 2 else kv_len
+        # (channel, token, head, batch); columns 72..79 past the extent
+        assert m.dims == (72, rows, heads, frames)
+        wide = i % 2 == 0
+        assert m.box == ((64 if wide else 16), A.TMA_BOX_ROWS, 1, 1)
+        assert m.swizzle == (128 if wide else 32)
+        if i < 2:                                   # q^: contiguous
+            assert m.strides == (row, 144, s * row)
+        elif i < 4:                                 # k^: kv_len rows a frame
+            assert m.strides == (row, 144, kv_len * row)
+        else:                                       # v: read in place
+            assert m.strides == (proj_row, 144, s * proj_row)
+    assert proj_row == 6912 or heads != 16          # 720p: 6,912-byte token stride
+
+
+def test_k1q_v_view_offset_is_16_byte_aligned():
+    qkv = torch.empty(1, 4, 3 * 16 * 72, dtype=BF16)
+    _, _, v = A.split_qkv(qkv, 16)
+    assert (v.data_ptr() - qkv.data_ptr()) % 16 == 0 and v.stride()[2:] == (72, 1)
+
+
+# ---- K8: the GEMM body's maps over flattened or 3-D rows --------------------
+@pytest.mark.parametrize("b,s_in,rows_out,rep,k", [
+    (2 * 3600, 15, 15, 3600, 1152),     # 720p temporal proj: flat, 108,000 rows
+    (30, 3600, 3600, 15, 1152),         # 720p spatial proj + residual: flat
+    (2, 54000, 54000, 1, 4608),         # 720p mlp2: flat, 72 k-tiles
+    (4, 40, 47, 2, 144),                # pad rows: 3-D
+    (4, 40, 33, 1, 216)])               # dropped rows: 3-D
+def test_k8_maps_flat_or_3d(b, s_in, rows_out, rep, k):
+    n = 1152 if k != 144 else 216
+    geom = G.gate_geometry(b, s_in, rows_out, rep)
+    x = _meta(geom.batches, geom.rows, k)
+    out = _meta(geom.batches, geom.rows_out, n)
+    a, wm, om, rm = G.gemm_tma_maps("matmul_gated_residual", x, _meta(n, k), out, out)
+    rows = G.GEMM_TILE[0]
+    if rows_out == s_in:
+        # one batch row of all B*S_in rows: every tile but the last is live
+        assert geom.flat and a.dims == (k, b * s_in, 1) and om.dims == (n, b * s_in, 1)
+        assert geom.span == s_in * rep
+    else:
+        # tiles stay in one batch row: the extent S_in zero-fills pad rows,
+        # the output extent rows_out drops rows
+        assert not geom.flat and a.dims == (k, s_in, b) and om.dims == (n, rows_out, b)
+    assert a.box == (G.GEMM_TILE[2], rows, 1) and om.box == (64, 64, 1)
+    assert rm == om                      # the residual tile comes in as the output goes out
+    tiles = -(-geom.rows_out // rows) * geom.batches * (n // G.GEMM_TILE[1])
+    if (b, s_in) == (2 * 3600, 15):
+        assert tiles == 844 * 6          # not 7,200 x 6 tiles of 15 live rows

@@ -1,27 +1,35 @@
-"""Times K7 (lnmod_matmul) and K6 (fused_cross_attention) at the shapes their
-paths run, on one card, against another checkout's kernels in turns.
+"""Times K1q (flash_attention_bshd with qk_gains), K8 (matmul_gated_residual),
+K7 (lnmod_matmul) and K6 (fused_cross_attention) at the shapes their paths
+run, on one card, K1q and K8 against another checkout's kernels in turns.
 
-    python tools/time_stdit3_kernels.py [--parent DIR] [--reps 10]
+    python tools/time_stdit3_kernels.py [--parent DIR] [--reps 10] [--only k1q,k8,k7,k6]
 
 Builds the kernel library from this checkout and prints ptxas's report on
-the Hopper bodies K7 and K6 run on (``hopper_gemm_kernel``,
-``hopper_cross_kernel``, ``ln_modulate_kernel``: registers, spills, any
-"wgmma ... serialized" line) and the HGMMA count of each (``cuobjdump
--sass``). Then, at STDiT3-XL/2's 480p and 720p shapes and Latte-1's, the
-CUDA-event time of one call of each kernel; K6 also split by stage (q
-projection, attention, out-projection), and K7 beside cuBLAS ``F.linear``
-on the already-modulated input (GEMM only, not the same function). With
-``--parent DIR`` (an unpacked ``git archive`` of another commit, e.g. the
-parent), that checkout's library is built too and its ``mc_lnmod_matmul``
-and ``mc_fused_cross_attention`` are timed on the same inputs in turns
-(parent, this, this, parent), each output held against this checkout's.
-The last line is the times as JSON. Needs a card: exits nonzero without
-one.
+the Hopper bodies these kernels run on (``hopper_gemm_kernel`` with every
+epilogue, ``hopper_attention_kernel``, ``hopper_cross_kernel``,
+``ln_modulate_kernel``, ``qk_norm_kernel``: registers, spills, any "wgmma
+... serialized" line) and the HGMMA count of each (``cuobjdump -sass``).
+Then, at STDiT3-XL/2's 480p and 720p shapes and Latte-1's, the CUDA-event
+time of one call of each kernel: K1q also split into its pre-pass and its
+attention, beside SDPA without the norm (not the same function); K8 beside
+cuBLAS ``F.linear`` with bias (GEMM only, not the same function), and the
+temporal projection also in the 3-D row geometry (tiles of 128 rows inside
+each batch row of T rows) in place of the flattened rows; K7 beside
+cuBLAS on the already-modulated input; K6 split by stage. With ``--parent
+DIR`` (an unpacked ``git archive`` of another commit, e.g. the parent),
+that checkout's library is built from its own sources and its K1q and K8
+entries are timed on the same inputs in turns (parent, this, this, parent),
+each called with its own C signature (the mma.sync entries
+``mc_flash_attention_qknorm`` and ``mc_matmul_gated_residual`` of a
+checkout without ``mc_qk_norm``, or this checkout's), each output held
+against this checkout's. The last line is the times as JSON. Needs a card:
+exits nonzero without one.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import importlib.util
 import json
 import math
@@ -35,7 +43,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from tools.time_attention_kernels import build_report, cuda_ms  # noqa: E402
 
-BODIES = ("hopper_gemm_kernel", "hopper_cross_kernel", "ln_modulate_kernel")
+BODIES = ("hopper_gemm_kernel", "hopper_attention_kernel", "hopper_cross_kernel",
+          "ln_modulate_kernel", "qk_norm_kernel")
+LOG2E = math.log2(math.e)
 
 
 def load_parent(path: str):
@@ -43,6 +53,7 @@ def load_parent(path: str):
     spec = importlib.util.spec_from_file_location(
         "parent_build", os.path.join(path, "magcache_tpu_torch", "ops", "build.py"))
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod     # its dataclasses look their module up
     spec.loader.exec_module(mod)
     return mod.load_cuda_library()
 
@@ -51,6 +62,7 @@ def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--parent", default=None)
     p.add_argument("--reps", type=int, default=10)
+    p.add_argument("--only", default="k1q,k8,k7,k6")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -59,15 +71,17 @@ def main(argv=None) -> None:
 
     from magcache_tpu_torch.ops import attention as A
     from magcache_tpu_torch.ops import fused_prologue as P
-    from magcache_tpu_torch.ops.build import BUILD_DIR, load_cuda_library
-    from magcache_tpu_torch.ops.gemm import gemm_launch
+    from magcache_tpu_torch.ops.build import BUILD_DIR, load_cuda_library, map_words
+    from magcache_tpu_torch.ops.gemm import gate_geometry, gemm_launch, gemm_tma_maps
 
+    only = set(args.only.split(","))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip())
     load_cuda_library()
     hgmma = build_report(BUILD_DIR, BODIES)
     parent = load_parent(args.parent) if args.parent else None
+    parent_new = parent is not None and hasattr(parent, "mc_qk_norm")
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     stream = lambda: torch.cuda.current_stream(dev).cuda_stream
@@ -75,7 +89,7 @@ def main(argv=None) -> None:
     def rnd(*shape, dtype=torch.bfloat16, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
 
-    reps, d, H = args.reps, 1152, 16
+    reps, d, H, D = args.reps, 1152, 16, 72
     times, errs = {}, {}
 
     def in_turns(label, new, old, flops):
@@ -83,6 +97,7 @@ def main(argv=None) -> None:
         if old is None:
             t = {"ms": cuda_ms(new, reps)}
         else:
+            errs[label] = float((new().float() - old().float()).abs().max())
             o1, n1, n2, o2 = (cuda_ms(f, reps) for f in (old, new, new, old))
             t = {"ms": min(n1, n2), "ms_runs": [n1, n2], "parent_ms": min(o1, o2),
                  "parent_runs": [o1, o2]}
@@ -90,76 +105,167 @@ def main(argv=None) -> None:
         times[label] = t
         print(f"{label}: {json.dumps(t)}")
 
-    # K7: qkv (per-frame view, batch_repeat T) and mlp1 + gelu
-    for tag, rows, T, S in (("480p", 2, 15, 1590), ("720p", 2, 15, 3600),
-                            ("Latte", 2, 16, 1024)):
-        h = rnd(rows, T * S, d)
-        sc = rnd(rows, d, dtype=torch.float32, scale=0.1)
-        sh = rnd(rows, d, dtype=torch.float32, scale=0.1)
-        for kind, x, w, b, kw in (
-                ("qkv", h.reshape(rows * T, S, d), rnd(3 * d, d, scale=d ** -0.5),
-                 rnd(3 * d, scale=0.1), dict(batch_repeat=T)),
-                ("mlp1", h, rnd(4 * d, d, scale=d ** -0.5), rnd(4 * d, scale=0.1),
-                 dict(act="gelu"))):
-            label = f"K7 {tag} {kind} {tuple(x.shape)} -> {w.shape[0]}"
-            new = lambda: P.lnmod_matmul(x, sc, sh, w, b, **kw)
-            old = None
-            if parent is not None:
-                rep = kw.get("batch_repeat", 1)
-                a32 = (1.0 + sc.float()).contiguous()
-                b32 = b.float().contiguous()
-                out = torch.empty(x.shape[0], x.shape[1], w.shape[0], dtype=x.dtype, device=dev)
-
-                def old():
-                    code = parent.mc_lnmod_matmul(
-                        x.data_ptr(), a32.data_ptr(), sh.data_ptr(), w.data_ptr(),
-                        b32.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], x.shape[1],
-                        d, w.shape[0], rep, 1e-6, int(kw.get("act") == "gelu"), stream())
-                    assert code == 0, code
-                    return out
-                errs[label] = float((new().float() - old().float()).abs().max())
-            in_turns(label, new, old, 2 * x.shape[0] * x.shape[1] * d * w.shape[0])
-            y = P.lnmod_operand_plain(x, sc, sh, batch_repeat=kw.get("batch_repeat", 1),
-                                      dtype=w.dtype)
-            times[label]["cublas_gemm_only_ms"] = cuda_ms(lambda: F.linear(y, w, b), reps)
-            del y
-        del h
-
-    # K6: cross-attention over the caption, residual fused; and its stages
-    for tag, rows, N, L in (("480p", 2, 23850, 300), ("720p", 2, 54000, 300),
-                            ("Latte", 2, 16384, 120)):
-        h = rnd(rows, N, d)
-        wq, wo = rnd(d, d, scale=d ** -0.5), rnd(d, d, scale=d ** -0.5)
-        bq, bo = rnd(d, scale=0.05), rnd(d, scale=0.05)
-        k, v = rnd(rows, L, d), rnd(rows, L, d)
-        scale = 72 ** -0.5
-        label = f"K6 {tag} {rows}x{N} x {L} keys"
-        new = lambda: A.fused_cross_attention(h, wq, bq, k, v, wo, bo, H, scale=scale,
-                                              residual=True)
+    # K1q: one 720p spatial block, q/k/v views of the [30, 3600, 3456] projection
+    if "k1q" in only:
+        frames, S = 30, 3600
+        qkv = rnd(frames, S, 3 * H * D)
+        q, k, v = (part.unflatten(-1, (H, D)) for part in qkv.chunk(3, dim=-1))
+        gains = tuple(1.0 + 0.1 * torch.randn(H, D, generator=gen, device=dev)
+                      for _ in range(2))
+        kw = dict(scale=D ** -0.5, qk_gains=gains, true_d=D, eps=1e-6,
+                  fixed_max=A.QKNORM_FIXED_MAX)
+        label = f"K1q 720p {frames}x{S}x{H}x{D} views of [{frames}, {S}, {3 * H * D}]"
+        new = lambda: A.flash_attention_bshd(q, k, v, **kw)
         old = None
         if parent is not None:
-            bq32, bo32 = bq.float().contiguous(), bo.float().contiguous()
-            out = torch.empty_like(h)
-
-            def old():
-                code = parent.mc_fused_cross_attention(
-                    h.data_ptr(), wq.data_ptr(), bq32.data_ptr(), k.data_ptr(), v.data_ptr(),
-                    wo.data_ptr(), bo32.data_ptr(), out.data_ptr(), rows, N, d, d, d, H, L,
-                    L, scale * math.log2(math.e), 1, stream())
-                assert code == 0, code
-                return out
-            errs[label] = float((new().float() - old().float()).abs().max())
-        in_turns(label, new, old, 4 * rows * N * d * d + 4 * rows * N * L * d)
-        b32 = bq.float().contiguous()
-        q = gemm_launch("q", h, wq, b32)
-        o = A._cross_attention_launch(q, k, v, H, scale, L)
+            out = torch.empty((frames, S, H, D), dtype=torch.bfloat16, device=dev)
+            if parent_new:
+                def old():
+                    qn = torch.empty_like(out)
+                    kn = torch.empty_like(out)
+                    code = parent.mc_qk_norm(
+                        q.data_ptr(), k.data_ptr(), qn.data_ptr(), kn.data_ptr(),
+                        gains[0].data_ptr(), gains[1].data_ptr(), frames, S, S, H,
+                        q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+                        D ** -0.5 * LOG2E, 1.0 / D, 1e-6, stream())
+                    assert code == 0, code
+                    hm = [t.transpose(1, 2) for t in (qn, kn, v, out)]
+                    code = parent.mc_flash_attention_qknorm_tma(
+                        qn.data_ptr(), kn.data_ptr(), v.data_ptr(), out.data_ptr(),
+                        map_words(A.flash_tma_maps("parent", *hm[:3], S)),
+                        (ctypes.c_longlong * 3)(*hm[3].stride()[:3]), frames, H, S, S,
+                        A.QKNORM_FIXED_MAX, stream())
+                    assert code == 0, code
+                    return out
+            else:
+                def old():
+                    code = parent.mc_flash_attention_qknorm(
+                        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                        gains[0].data_ptr(), gains[1].data_ptr(), frames, S, H, S,
+                        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
+                        v.stride(1), D ** -0.5 * LOG2E, float(D), 1e-6,
+                        A.QKNORM_FIXED_MAX, stream())
+                    assert code == 0, code
+                    return out
+        in_turns(label, new, old, 4 * frames * H * S * S * D)
+        g = [t.contiguous() for t in gains]
+        qn, kn = A._qk_norm_launch(q, k, g, D ** -0.5, 1e-6)
         times[label]["stages_ms"] = {
-            "q projection": cuda_ms(lambda: gemm_launch("q", h, wq, b32), reps),
-            "attention": cuda_ms(lambda: A._cross_attention_launch(q, k, v, H, scale, L), reps),
-            "out-projection + residual": cuda_ms(
-                lambda: gemm_launch("o", o, wo, b32, epilogue="resid", resid=h), reps)}
-        print(f"  stages: {json.dumps(times[label]['stages_ms'])}")
-        del h, q, o
+            "qk-norm pre-pass": cuda_ms(lambda: A._qk_norm_launch(q, k, g, D ** -0.5, 1e-6),
+                                        reps),
+            "attention": cuda_ms(lambda: A._qknorm_attention_launch(
+                qn, kn, v, S, A.QKNORM_FIXED_MAX), reps)}
+        times[label]["sdpa_no_norm_ms"] = cuda_ms(
+            lambda: F.scaled_dot_product_attention(*(t.transpose(1, 2) for t in (q, k, v)),
+                                                   scale=D ** -0.5), reps)
+        print(f"  stages: {json.dumps(times[label]['stages_ms'])}, SDPA without the norm "
+              f"{times[label]['sdpa_no_norm_ms']:.3f} ms")
+        del qkv, q, k, v, qn, kn
+
+    # K8: spatial proj + residual, temporal proj (rows_out = T, batch_repeat
+    # S), mlp2 + residual
+    if "k8" in only:
+        for tag, rows, T, S in (("480p", 2, 15, 1590), ("720p", 2, 15, 3600),
+                                ("Latte", 2, 16, 1024)):
+            h = rnd(rows, T * S, d)
+            g = rnd(rows, d, dtype=torch.float32, scale=0.5)
+            for kind, x, w, r, rep in (
+                    ("spatial proj + resid", rnd(rows * T, S, d), rnd(d, d, scale=d ** -0.5),
+                     h.reshape(rows * T, S, d), T),
+                    ("temporal proj", rnd(rows * S, T, d), rnd(d, d, scale=d ** -0.5), None, S),
+                    ("mlp2 + resid", rnd(rows, T * S, 4 * d),
+                     rnd(d, 4 * d, scale=(4 * d) ** -0.5), h, 1)):
+                b = rnd(d, scale=0.1)
+                label = f"K8 {tag} {kind} {tuple(x.shape)} -> {d}"
+                new = lambda: P.matmul_gated_residual(x, w, b, g, r, batch_repeat=rep)
+                old = None
+                if parent is not None:
+                    b32 = b.float().contiguous()
+                    out = torch.empty(x.shape[0], x.shape[1], d, dtype=x.dtype, device=dev)
+                    if parent_new:
+                        def old():
+                            geom = gate_geometry(x.shape[0], x.shape[1], x.shape[1], rep)
+                            xv = x.reshape(geom.batches, geom.rows, -1)
+                            ov = out.reshape(geom.batches, geom.rows_out, d)
+                            rv = None if r is None else r.reshape(ov.shape)
+                            code = parent.mc_matmul_gated_residual(
+                                xv.data_ptr(), w.data_ptr(),
+                                map_words(gemm_tma_maps("parent", xv, w, ov, rv)),
+                                ov.data_ptr(), b32.data_ptr(), g.data_ptr(),
+                                None if rv is None else rv.data_ptr(), geom.batches,
+                                geom.rows, geom.rows_out, x.shape[2], d, geom.rep, geom.span,
+                                stream())
+                            assert code == 0, code
+                            return out
+                    else:
+                        def old():
+                            code = parent.mc_matmul_gated_residual(
+                                x.data_ptr(), w.data_ptr(), b32.data_ptr(), g.data_ptr(),
+                                None if r is None else r.data_ptr(), out.data_ptr(),
+                                x.shape[0], x.shape[1], x.shape[1], x.shape[2], d, rep,
+                                stream())
+                            assert code == 0, code
+                            return out
+                in_turns(label, new, old, 2 * x.shape[0] * x.shape[1] * x.shape[2] * d)
+                times[label]["cublas_gemm_only_ms"] = cuda_ms(lambda: F.linear(x, w, b), reps)
+                if r is None:
+                    # the 3-D geometry K8 keeps for rows_out != S: 128-row
+                    # tiles inside each batch row of T rows
+                    b32, s_in = b.float().contiguous(), x.shape[1]
+                    tiled = lambda: gemm_launch("3-D", x, w, b32, gate=g, rep=rep,
+                                                span=s_in * rep)
+                    times[label]["rows_3d_equal"] = bool(torch.equal(tiled(), new()))
+                    times[label]["rows_3d_ms"] = cuda_ms(tiled, reps)
+                    print(f"  in 3-D rows: {times[label]['rows_3d_ms']:.3f} ms, the same "
+                          f"bits: {times[label]['rows_3d_equal']}")
+                del x, r
+            del h
+
+    # K7: qkv (per-frame view, batch_repeat T) and mlp1 + gelu
+    if "k7" in only:
+        for tag, rows, T, S in (("480p", 2, 15, 1590), ("720p", 2, 15, 3600),
+                                ("Latte", 2, 16, 1024)):
+            h = rnd(rows, T * S, d)
+            sc = rnd(rows, d, dtype=torch.float32, scale=0.1)
+            sh = rnd(rows, d, dtype=torch.float32, scale=0.1)
+            for kind, x, w, b, kw in (
+                    ("qkv", h.reshape(rows * T, S, d), rnd(3 * d, d, scale=d ** -0.5),
+                     rnd(3 * d, scale=0.1), dict(batch_repeat=T)),
+                    ("mlp1", h, rnd(4 * d, d, scale=d ** -0.5), rnd(4 * d, scale=0.1),
+                     dict(act="gelu"))):
+                label = f"K7 {tag} {kind} {tuple(x.shape)} -> {w.shape[0]}"
+                in_turns(label, lambda: P.lnmod_matmul(x, sc, sh, w, b, **kw), None,
+                         2 * x.shape[0] * x.shape[1] * d * w.shape[0])
+                y = P.lnmod_operand_plain(x, sc, sh, batch_repeat=kw.get("batch_repeat", 1),
+                                          dtype=w.dtype)
+                times[label]["cublas_gemm_only_ms"] = cuda_ms(lambda: F.linear(y, w, b), reps)
+                del y
+            del h
+
+    # K6: cross-attention over the caption, residual fused; and its stages
+    if "k6" in only:
+        for tag, rows, N, L in (("480p", 2, 23850, 300), ("720p", 2, 54000, 300),
+                                ("Latte", 2, 16384, 120)):
+            h = rnd(rows, N, d)
+            wq, wo = rnd(d, d, scale=d ** -0.5), rnd(d, d, scale=d ** -0.5)
+            bq, bo = rnd(d, scale=0.05), rnd(d, scale=0.05)
+            k, v = rnd(rows, L, d), rnd(rows, L, d)
+            scale = 72 ** -0.5
+            label = f"K6 {tag} {rows}x{N} x {L} keys"
+            in_turns(label, lambda: A.fused_cross_attention(h, wq, bq, k, v, wo, bo, H,
+                                                            scale=scale, residual=True),
+                     None, 4 * rows * N * d * d + 4 * rows * N * L * d)
+            b32 = bq.float().contiguous()
+            q = gemm_launch("q", h, wq, b32)
+            o = A._cross_attention_launch(q, k, v, H, scale, L)
+            times[label]["stages_ms"] = {
+                "q projection": cuda_ms(lambda: gemm_launch("q", h, wq, b32), reps),
+                "attention": cuda_ms(lambda: A._cross_attention_launch(q, k, v, H, scale, L),
+                                     reps),
+                "out-projection + residual": cuda_ms(
+                    lambda: gemm_launch("o", o, wo, b32, epilogue="resid", resid=h), reps)}
+            print(f"  stages: {json.dumps(times[label]['stages_ms'])}")
+            del h, q, o
     if errs:
         print("max |this - parent| per shape:", json.dumps(errs))
     print(json.dumps({"device": torch.cuda.get_device_name(0), "hgmma": hgmma,
