@@ -34,8 +34,13 @@ Open-Sora 1.2 STDiT3-XL/2 (K3, K5, K6, K7, K8):
    ``hopper_cross_kernel``, GEMM body) with its three launches also timed
    apart, K8 (the GEMM body with its gate epilogue, rows flattened) beside
    cuBLAS ``F.linear`` with bias (GEMM only) (phases 15 and 19 the same at
-   their shapes);
-8. one full-shape forward, 28 layers;
+   their shapes); K5 spatial (the "prepass" route: the qk-norm pre-pass,
+   then the wgmma/TMA body in the grouped geometry, fixed max) with its two
+   launches also timed apart, and K5 spatial and temporal (the "stream"
+   route) beside SDPA on the same q/k/v without the norm (not the same
+   function);
+8. one full-shape forward, 28 layers; checks the grouped launches by route
+   per forward (prepass 28, stream 28; no "tiled" route any more);
 9. requests through ``OpenSoraPipeline.generate`` at 480p x 51 frames and
    30 RFLOW steps: full compute, then MagCache opensora-v1.2 (18 of 30
    steps skipped); checks skip bits, launch counts and latents;
@@ -61,10 +66,12 @@ Open-Sora 1.2 at 720p and its mask-strategy conditioning (K1q, K3, K5-K8):
    spatial block's 720p 9:16 shape: q/k/v read as column views of one
    [30, 3600, 3456] bf16 projection, bit-equal to contiguous copies, its
    two launches also timed apart; then K5
-   and K3 at the temporal block's 720p shapes and K6, K7 and K8 at the
-   720p blocks' shapes;
+   (the "stream" route, with its TB/s and SDPA without the norm) and K3 at
+   the temporal block's 720p shapes and K6, K7 and K8 at the 720p blocks'
+   shapes;
 16. one full-shape forward at 720p 9:16 x 51 frames (15 frames of 3,600
-   tokens, 2 rows: 108,000 tokens), 28 layers, twice;
+   tokens, 2 rows: 108,000 tokens), 28 layers, twice; grouped launches by
+   route per forward: stream 28;
 17. requests through ``OpenSoraPipeline.generate`` at 720p 9:16 x 17 frames
    (5 latent frames; frames cut from 51 so the phase stays short) and 30
    RFLOW steps: full compute, MagCache opensora-v1.2 (18 of 30 skipped), and
@@ -79,14 +86,15 @@ Open-Sora 1.2 at 720p and its mask-strategy conditioning (K1q, K3, K5-K8):
 Latte-1 T2V (K5r, K4, K9, K1 at padded head dim, K3, K6-K8):
 19. each kernel against its plain version at 512x512 x 16 shapes (2 rows of
    16 frames x 1,024 tokens, bf16): K5r spatial (the row-max instantiation
-   of the wgmma/TMA body) and temporal, K5r at groups of 1,590 with 1,400
-   valid keys (ragged tiles, positions past group_valid), K4 and K9 at
-   the temporal shape (and with gains and RoPE at the STDiT3 480p temporal
-   shape), K1 with the running max at head dim 72 zero-padded to 128
+   of the wgmma/TMA body) and temporal (the "stream" kernel), K5r at groups
+   of 1,590 with 1,400 valid keys (ragged tiles, positions past
+   group_valid), K4 and K9 at the temporal shape (and with gains and RoPE
+   at the STDiT3 480p temporal shape), K1 with the running max at head dim 72 zero-padded to 128
    (spatial and cross), K3, K6 over 120 caption keys, K7 and K8;
 20. one full-shape forward of LATTE_1 (28 block pairs, 1.057 B parameters)
    on each route: packed, grouped (K4) and vpu (K9), twice each; checks the
-   launches per trunk run;
+   launches per trunk run, and the grouped launches by route (packed: tma
+   28, stream 28; grouped: stream 28; vpu: none);
 21. requests through ``LattePipeline.generate`` at 512x512 x 16 and 50 DDIM
    steps: a full-compute calibration request, then MagCache (E 0.12 K 3
    R 0.2) with the recorded ratios installed, on the packed route and on the
@@ -205,6 +213,15 @@ OS720_TRUNK_LAUNCHES = dict(OS_TRUNK_LAUNCHES, grouped_attention_fused_qkv=28,
 OS720_MASKED_LAUNCHES = dict(NO_LAUNCHES, flash_attention_bshd_qknorm=28,
                              grouped_attention_fused_qkv=28, fused_cross_attention=56)
 OS720_FRAMES, OS720_GRID = 17, (5, 45, 80)
+# K5/K5r/K4 launches per trunk run by route (ops.attention.grouped_kernel):
+# "prepass" (groups above 16 tokens with gains or RoPE: STDiT3's spatial
+# frames), "tma" (the row max without them: Latte's frames), "stream"
+# (groups of up to 16 tokens: every temporal call)
+NO_ROUTES = {"stream": 0, "tma": 0, "prepass": 0}
+OS_ROUTES = dict(NO_ROUTES, stream=28, prepass=28)
+OS720_ROUTES = dict(NO_ROUTES, stream=28)
+LATTE_ROUTES = {"packed": dict(NO_ROUTES, stream=28, tma=28),
+                "grouped": dict(NO_ROUTES, stream=28), "vpu": NO_ROUTES}
 # Latte-1 at 512x512 x 16 frames: 28 (spatial, temporal) block pairs per
 # trunk run, by route
 LATTE_TRUNK_LAUNCHES = {
@@ -519,6 +536,7 @@ def reset_counts():
     A.flash_attention_bshd.qknorm_launches = 0
     P.layer_norm_mod.plain_launches = 0
     A.grouped_attention_fused_qkv.rowmax_launches = 0
+    A._grouped_launch.routes.update(NO_ROUTES)
     P.rms_norm_rope.scope_launches.update(token=0, head=0)
 
 
@@ -536,6 +554,18 @@ def read_counts() -> dict:
                   grouped_attention_fused_qkv_rowmax=(
                       A.grouped_attention_fused_qkv.rowmax_launches))
     return counts
+
+
+def check_routes(label: str, runs: int, want: dict) -> None:
+    """Fails unless the grouped kernels' launches by route since the last
+    ``reset_counts`` are ``want`` per trunk run over ``runs`` runs (no
+    "tiled" route: the mma.sync kernel for large groups is gone)."""
+    from magcache_tpu_torch.ops import attention as A
+
+    got = dict(A._grouped_launch.routes)
+    log(f"  {label}: grouped launches by route {got} ({runs} trunk runs)")
+    if got != {k: n * runs for k, n in want.items()}:
+        fail(f"{label}: grouped routes {got} != {want} x {runs}")
 
 
 def count_launches(counts_before: dict) -> dict:
@@ -839,6 +869,7 @@ def phase_os_kernels(dev, rec):
     tabs = tuple(torch.from_numpy(a).to(dev) for a in grouped_rope_tables(T, T, 72))
     attn = dict(scale=72 ** -0.5, qk_gains=gains, true_d=72, eps=1e-6,
                 fixed_max=A.QKNORM_FIXED_MAX)
+    sdpa = "F.scaled_dot_product_attention (same q/k/v, without the qk-norm)"
     for label, qkv, kw, flops in (
             ("spatial 30x1590, group 1590", rnd(rows * T, S, 3 * d), dict(group=S),
              4 * rows * T * H * S * S * 72),
@@ -846,11 +877,27 @@ def phase_os_kernels(dev, rec):
              dict(group=T, rope_tables=tabs), 4 * rows * S * H * T * T * 72)):
         got = A.grouped_attention_fused_qkv(qkv, H, **kw, **attn)
         want = A.grouped_attention_fused_qkv_plain(qkv, H, **kw, **attn)
+        group = kw["group"]
+        q, k, v = A.split_qkv(qkv, H)
+        heads = [t.reshape(-1, group, H, 72) for t in (q, k, v)]
         record(rec, "grouped_attention_fused_qkv", label, got, want,
                cuda_ms(lambda: A.grouped_attention_fused_qkv(qkv, H, **kw, **attn)),
                cuda_ms(lambda: A.grouped_attention_fused_qkv_plain(qkv, H, **kw, **attn), 2),
-               flops, nbytes(qkv, got), atol=1e-2)
-        del got, want, qkv
+               flops, nbytes(qkv, got), atol=1e-2, library=(sdpa, sdpa_ms(*heads, 20)))
+        route = A.grouped_kernel(group, gains, kw.get("rope_tables"), A.QKNORM_FIXED_MAX)
+        log(f"    K5 [{label}]: route {route!r}, {nbytes(qkv, got) / 1e9:.3f} GB of qkv "
+            f"and output")
+        if route == "prepass":
+            # its two launches timed apart
+            g = [t.contiguous() for t in gains]
+            prepass = lambda: A._qk_norm_launch(q, k, g, 72 ** -0.5, 1e-6, group=group)
+            qn, kn = prepass()
+            body = lambda: A._grouped_tma_launch("K5", qn, kn, v, group, group, 1.0,
+                                                 A.QKNORM_FIXED_MAX)
+            log(f"    K5 [{label}] by stage: qk-norm pre-pass {cuda_ms(prepass):.3f} ms, "
+                f"attention {cuda_ms(body):.3f} ms")
+            del qn, kn
+        del got, want, qkv, q, k, v, heads
 
     # K3 at the temporal block's shape (mod mode)
     h = rnd(rows, N, d)
@@ -908,6 +955,7 @@ def phase_os_forward(dev, model):
         f"launches per forward {per_run}")
     if per_run != OS_TRUNK_LAUNCHES:
         fail(f"launches per forward {per_run} != {OS_TRUNK_LAUNCHES}")
+    check_routes("480p forward", 2, OS_ROUTES)
 
 
 def phase_os_requests(dev, model):
@@ -1380,7 +1428,9 @@ def phase_os720_kernels(dev, rec):
                   atol=1e-2, rtol=2e-2)
     ms = cuda_ms(lambda: A.grouped_attention_fused_qkv(qkv, H, **tkw))
     pms = cuda_ms(lambda: A.grouped_attention_fused_qkv_plain(qkv, H, **tkw), 2)
-    log(f"  K5 [{label}]: kernel {ms:.3f} ms, plain {pms:.3f} ms")
+    lms = sdpa_ms(*(t.reshape(-1, T, H, D) for t in A.split_qkv(qkv, H)), 20)
+    log(f"  K5 [{label}]: kernel {ms:.3f} ms ({nbytes(qkv, got) / ms / 1e9:.2f} TB/s, route "
+        f"'stream'), plain {pms:.3f} ms, SDPA without the norm {lms:.3f} ms")
     keep(rec, "grouped_attention_fused_qkv", err, ms, pms, "loop", label,
          (4 * 2 * S * H * T * T * D, nbytes(qkv, got)))
     del qkv, got
@@ -1430,6 +1480,7 @@ def phase_os720_forward(dev, model):
         f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
     if per_run != OS720_TRUNK_LAUNCHES:
         fail(f"launches per forward {per_run} != {OS720_TRUNK_LAUNCHES}")
+    check_routes("720p forward", 2, OS720_ROUTES)
 
 
 def _scratch_dir() -> str:
@@ -1745,6 +1796,7 @@ def phase_latte_forward(dev, model):
             f"per forward {per_run}")
         if per_run != LATTE_TRUNK_LAUNCHES[route]:
             fail(f"{route}: launches per forward {per_run} != {LATTE_TRUNK_LAUNCHES[route]}")
+        check_routes(f"{route} forward", 2, LATTE_ROUTES[route])
         outs[route] = out.float()
     for route in ("grouped", "vpu"):
         rel = float((outs[route] - outs["packed"]).norm() / outs["packed"].norm())

@@ -62,6 +62,15 @@
 // stays out of the product loop: the mma.sync kernel this replaces
 // normalised every K tile again in each of a head's 57 query blocks.
 //
+// The pre-pass also serves K5 on groups of more than 16 tokens with gains or
+// RoPE (grouped_attention.cu, route "prepass"): the gains are optional, and
+// an optional interleaved-pair RoPE rotates each row in f32 by its in-group
+// position token % group (f32 [group, 36] tables), after the norm and
+// before q's scale, as magcache_tpu/ops/attention.py:_grouped_kernel
+// rounds; k rows at in-group positions from group_valid on are neither read
+// nor written. K1q's call (gains, no RoPE, group = valid = the sequence)
+// does the same operations in the same order as before.
+//
 // What bounds K1q: at 720p one call is 4 x 30 x 16 x 3,600^2 x 72 = 1.79
 // TFLOP over 1.0 GB of q/k/v/o: compute bound, 1.81 ms at 989 TFLOP/s; the
 // 6.2e9 exp2 of the softmax take about as long again on the SFUs (16 a
@@ -79,25 +88,32 @@ namespace {
 
 using mc::bf16;
 
-constexpr int kNormD = 72;                 // K1q's head dim
+constexpr int kNormD = 72;                 // K1q's and K5's head dim
 constexpr int kNormChunks = kNormD / 8;    // 16-byte chunks a head row
 constexpr int kNormThreads = 32 * kNormChunks;   // 32 head rows a block
 
 struct QkNormArgs {
   const bf16* src[2];                      // q, k: [B, S, H, 72] views
   bf16* dst[2];                            // q^, k^: contiguous [B, S, H, 72]
-  const float* gain[2];                    // [H, 72]
+  const float* gain[2];                    // [H, 72], or null: no norm
+  const float* cos;                        // [group, 36] or null: no RoPE
+  const float* sin;
   long long bs[2], ts[2];                  // batch and token strides (elements)
-  int S[2];                                // Sq, kv_len
+  int S[2];                                // tokens a batch row
+  int group[2];                            // positions a group (RoPE, valid)
+  int valid[2];                            // in-group positions written
   int B, H;
   float scale[2];                          // scale*log2(e) for q, 1 for k
   float inv_true_d, eps;
 };
 
-// K1q's pre-pass: blockIdx.y 0 normalises q, 1 k. Thread i of a block takes
-// 16-byte chunk i % 9 of head row blockIdx.x * 32 + i / 9 (rows in [B, S,
-// H] order, so neighbouring threads read neighbouring bytes of a token);
-// the nine partial sums of squares of a row meet in shared memory.
+// The pre-pass of K1q and of K5's groups of more than 16 tokens:
+// blockIdx.y 0 takes q, 1 k. Thread i of a block takes 16-byte chunk i % 9
+// of head row blockIdx.x * 32 + i / 9 (rows in [B, S, H] order, so
+// neighbouring threads read neighbouring bytes of a token); the nine
+// partial sums of squares of a row meet in shared memory. Rows at in-group
+// positions past `valid` are neither read nor written. A chunk holds four
+// whole RoPE pairs (2e, 2e + 1).
 __global__ void __launch_bounds__(kNormThreads)
 qk_norm_kernel(const QkNormArgs p) {
   __shared__ float part[kNormThreads];
@@ -109,58 +125,84 @@ qk_norm_kernel(const QkNormArgs p) {
   const float* gain = is_k ? p.gain[1] : p.gain[0];
   const long long bs = is_k ? p.bs[1] : p.bs[0], ts = is_k ? p.ts[1] : p.ts[0];
   const int S = is_k ? p.S[1] : p.S[0];
+  const int group = is_k ? p.group[1] : p.group[0];
+  const int valid = is_k ? p.valid[1] : p.valid[0];
   const float scale = is_k ? p.scale[1] : p.scale[0];
   const long long rows = (long long)p.B * S * p.H;
   const long long row = (long long)blockIdx.x * 32 + threadIdx.x / kNormChunks;
   const int chunk = threadIdx.x % kNormChunks;
-  const bool live = row < rows;
-  int h = 0;
+  int h = 0, pos = 0;
+  bool live = row < rows;
   float f[8];
   float ss = 0.f;
   if (live) {
     h = (int)(row % p.H);
     const long long tok = row / p.H;
     const long long s = tok % S, b = tok / S;
-    const uint4 raw =
-        *reinterpret_cast<const uint4*>(src + b * bs + s * ts + h * kNormD + chunk * 8);
-    const uint32_t* w = reinterpret_cast<const uint32_t*>(&raw);
+    pos = (int)(s % group);
+    live = pos < valid;
+    if (live) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(src + b * bs + s * ts + h * kNormD +
+                                                        chunk * 8);
+      const uint32_t* w = reinterpret_cast<const uint32_t*>(&raw);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 v = mc::unpack_bf16(w[j]);
-      f[2 * j] = v.x;
-      f[2 * j + 1] = v.y;
-      ss += v.x * v.x + v.y * v.y;
+      for (int j = 0; j < 4; ++j) {
+        const float2 v = mc::unpack_bf16(w[j]);
+        f[2 * j] = v.x;
+        f[2 * j + 1] = v.y;
+        ss += v.x * v.x + v.y * v.y;
+      }
     }
   }
   part[threadIdx.x] = ss;
   __syncthreads();
   if (!live) return;
-  const float* mine = part + threadIdx.x / kNormChunks * kNormChunks;
-  float var = 0.f;
+  if (gain != nullptr) {
+    const float* mine = part + threadIdx.x / kNormChunks * kNormChunks;
+    float var = 0.f;
 #pragma unroll
-  for (int j = 0; j < kNormChunks; ++j) var += mine[j];
-  const float r = 1.f / sqrtf(var * p.inv_true_d + p.eps);
-  const float4* g4 = reinterpret_cast<const float4*>(gain + h * kNormD + chunk * 8);
-  const float4 ga = g4[0], gb = g4[1];
-  const float g[8] = {ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, gb.z, gb.w};
+    for (int j = 0; j < kNormChunks; ++j) var += mine[j];
+    const float r = 1.f / sqrtf(var * p.inv_true_d + p.eps);
+    const float4* g4 = reinterpret_cast<const float4*>(gain + h * kNormD + chunk * 8);
+    const float4 ga = g4[0], gb = g4[1];
+    const float g[8] = {ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, gb.z, gb.w};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) f[j] = f[j] * r * g[j];
+  }
+  if (p.cos != nullptr) {
+    // interleaved pairs, rotated by the in-group position, in f32
+    const float4 c = *reinterpret_cast<const float4*>(p.cos + pos * (kNormD / 2) + chunk * 4);
+    const float4 sn = *reinterpret_cast<const float4*>(p.sin + pos * (kNormD / 2) + chunk * 4);
+    const float cc[4] = {c.x, c.y, c.z, c.w}, sv[4] = {sn.x, sn.y, sn.z, sn.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float ye = f[2 * j], yo = f[2 * j + 1];
+      f[2 * j] = ye * cc[j] - yo * sv[j];
+      f[2 * j + 1] = ye * sv[j] + yo * cc[j];
+    }
+  }
   uint4 out;
   uint32_t* o = reinterpret_cast<uint32_t*>(&out);
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
-    o[j] = mc::pack_bf16(f[2 * j] * r * g[2 * j] * scale,
-                         f[2 * j + 1] * r * g[2 * j + 1] * scale);
+  for (int j = 0; j < 4; ++j) o[j] = mc::pack_bf16(f[2 * j] * scale, f[2 * j + 1] * scale);
   *reinterpret_cast<uint4*>(dst + row * kNormD + chunk * 8) = out;
 }
 
 }  // namespace
 
-// K1q (a): q^ [B, Sq, H, 72] and k^ [B, kv_len, H, 72], contiguous, from the
-// q and k views (batch and token strides in elements, unit channel stride,
-// heads 72 apart) and their f32 gains [H, 72].
-extern "C" int mc_qk_norm(const void* q, const void* k, void* qn, void* kn, const void* qg,
-                          const void* kg, int B, int Sq, int kv_len, int H, long long q_bs,
-                          long long q_ts, long long k_bs, long long k_ts, float q_scale,
-                          float inv_true_d, float eps, void* stream) {
+// The pre-pass (K1q (a); K5 on groups of more than 16 tokens): q^ [B, Sq,
+// H, 72] and k^ [B, Sk, H, 72], contiguous, from the q and k views (batch
+// and token strides in elements, unit channel stride, heads 72 apart): RMS
+// norm with the f32 gains [H, 72] (or none: null), then RoPE at the
+// in-group position token % group with the f32 [group, 36] tables (or none:
+// null), then q times q_scale; rounded to bf16. Rows at in-group positions
+// from q_valid (k_valid) on are not written. K1q: group = valid = Sq (Sk).
+extern "C" int mc_qk_prepass(const void* q, const void* k, void* qn, void* kn, const void* qg,
+                             const void* kg, const void* cos, const void* sin, int B, int Sq,
+                             int Sk, int H, long long q_bs, long long q_ts, long long k_bs,
+                             long long k_ts, int q_group, int k_group, int q_valid,
+                             int k_valid, float q_scale, float inv_true_d, float eps,
+                             void* stream) {
   QkNormArgs a{};
   a.src[0] = static_cast<const bf16*>(q);
   a.src[1] = static_cast<const bf16*>(k);
@@ -168,12 +210,16 @@ extern "C" int mc_qk_norm(const void* q, const void* k, void* qn, void* kn, cons
   a.dst[1] = static_cast<bf16*>(kn);
   a.gain[0] = static_cast<const float*>(qg);
   a.gain[1] = static_cast<const float*>(kg);
+  a.cos = static_cast<const float*>(cos);
+  a.sin = static_cast<const float*>(sin);
   a.bs[0] = q_bs; a.ts[0] = q_ts; a.bs[1] = k_bs; a.ts[1] = k_ts;
-  a.S[0] = Sq; a.S[1] = kv_len;
+  a.S[0] = Sq; a.S[1] = Sk;
+  a.group[0] = q_group; a.group[1] = k_group;
+  a.valid[0] = q_valid; a.valid[1] = k_valid;
   a.B = B; a.H = H;
   a.scale[0] = q_scale; a.scale[1] = 1.f;
   a.inv_true_d = inv_true_d; a.eps = eps;
-  const long long rows = (long long)B * (Sq > kv_len ? Sq : kv_len) * H;
+  const long long rows = (long long)B * (Sq > Sk ? Sq : Sk) * H;
   const dim3 grid((unsigned)((rows + 31) / 32), 2);
   qk_norm_kernel<<<grid, kNormThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();

@@ -1,6 +1,6 @@
 // K5, K5r and K4: block-diagonal grouped attention, bf16, head dim 72, with
-// an optional per-head RMS qk-norm and in-group RoPE fused into the q/k
-// loads, and a fixed or a row-max softmax shift.
+// an optional per-head RMS qk-norm and in-group RoPE, and a fixed or a
+// row-max softmax shift.
 //
 // Replaces magcache_tpu/ops/attention.py:grouped_attention_fused_qkv (K5;
 // K5r is its call without gains and with the row max) and
@@ -27,40 +27,62 @@
 // What bounds it on the H100: spatial attention at STDiT3-XL/2 480p is
 // 30 frames x 16 heads x 1,590^2 x 72 x 4 = 350 GFLOP over 0.35 GB of qkv,
 // and Latte-1's at 512x512 32 x 16 x 1,024^2 x 72 x 4 = 155 GFLOP: tensor-core
-// bound. The temporal calls (groups of T = 15 or 16 frames, 3,180 or 2,048
-// groups x 16 heads) are memory-bound passes of 0.3-0.45 GB.
+// bound. The temporal calls (groups of T = 15 or 16 frames, 3,180 to 7,200
+// groups x 16 heads) do about 4 x 16 x 72 flops a byte: they are bound by
+// their bytes (0.44-1.0 GB of qkv and output).
 //
-// Three kernels, chosen by the arguments alone:
-//   - the row max without gains or RoPE on groups of more than 16 tokens
-//     (K5r spatial: Latte's frames; K4 with the same arguments) runs the
-//     warp-specialised wgmma/TMA body of hopper_attention.cuh (head dim 80
-//     = 72 + a zero pad the tensor map supplies; mode kRowMax: QK^T over the
-//     group's keys once for each row's true max, then softmax and PV with
-//     that shift, K streamed through the TMA ring twice). q is scaled in
-//     shared memory after its copy: q * (scale*log2(e)) in f32, rounded once.
-//     Its TMA maps are 5-D (column, head, in-group position, group, batch)
-//     over the tensors' own byte strides, the position extent group (q) or
+// Three routes, chosen by the arguments alone (ops/attention.py:grouped_kernel):
+//   - "tma": the row max without gains or RoPE on groups of more than 16
+//     tokens (K5r spatial: Latte's frames; K4 with the same arguments) runs
+//     the warp-specialised wgmma/TMA body of hopper_attention.cuh at head
+//     dim 80 = 72 + a zero pad the tensor map supplies, mode kRowMax (QK^T
+//     over the group's keys once for each row's true max, then softmax and
+//     PV with that shift), grouped geometry. q is scaled in shared memory
+//     after its copy: q * (scale*log2(e)) in f32, rounded once. Its TMA
+//     maps are 5-D (column, head, in-group position, group, batch) over the
+//     tensors' own byte strides, the position extent group (q) or
 //     group_valid (k, v), so positions past them arrive as zeros;
-//   - groups of up to 16 tokens (grouped_small_kernel): one warp takes one
-//     whole group (up to 16 rows) and does the 16 x 16 score tile and the
-//     16 x 72 output in a single k-step, four groups per block; a row's 16
-//     scores sit in one quad of lanes, so its max is two shuffles;
-//   - larger groups with gains or RoPE, fixed max or row max
-//     (grouped_tiled_kernel, K5 spatial): a block takes 64 queries of one
-//     group and loops over the group's keys in tiles of 64 (the TPU kernel
-//     holds a whole group in VMEM; a 1,590-token group's K and V, 458 KB,
-//     do not fit Hopper's 227 KB of shared memory). With the row max that
-//     loop runs twice (QK^T alone for the max, then p and PV), which only
-//     the callerless gains-or-RoPE row-max calls reach.
+//   - "prepass": groups of more than 16 tokens with gains or RoPE (K5
+//     spatial, fixed max; any such call with the row max): two launches.
+//     flash_attention.cu's qk_norm_kernel writes contiguous q^ (normed,
+//     rotated at token % group, scaled, rounded) and k^ (normed, rotated,
+//     rounded; positions past group_valid not written), then the same body
+//     at <80, kFixed or kRowMax, grouped> with q_scale 1 reads q^, k^ and v
+//     in place through the 5-D maps. The norm is done once per row: the
+//     mma.sync kernel this replaces normalised every K tile again in each
+//     of a frame's 25 query blocks (125 TFLOP/s at 480p on an H100);
+//   - "stream": groups of up to 16 tokens (K5 and K5r temporal, K4 on
+//     Latte), grouped_stream_kernel below.
 //
-// What the mma.sync kernels' design does about it: head dim 72 is padded to
-// 80 (five k16 steps) only in shared memory; rows are 88 elements (176 B) so
-// ldmatrix and the fragment loads are conflict-free. q/k/v are strided
-// 144-byte, 16-byte-aligned head rows: no split or pad copies. Two adjacent
-// lanes load each head row and join their halves of the RMS sum with one
-// shuffle; the RoPE pairs stay in registers, and a block keeps its head's
-// gains in shared memory. S and P never leave registers (the S accumulator
-// layout is P's A-operand layout), V comes in through ldmatrix.trans.
+// grouped_stream_kernel is built for HBM bandwidth. A task is one (group,
+// head); a stage is one group's heads 8j .. 8j + 7, one a consumer warp.
+// Persistent blocks (one an SM: 8 consumer warps and a producer warp) walk
+// a contiguous range of stages front to back through a ring of three
+// shared-memory stages. The producer issues three TMA loads a stage, one
+// box of 72 columns x 16 positions x 8 heads each of q, k and v over 5-D
+// maps of the tensors' own strides (a token's 8 heads are 1,152 contiguous
+// bytes); positions past group or group_valid and heads past H arrive as
+// zeros, without being read. Rows land 144 bytes apart, which keeps
+// ldmatrix conflict-free; the products never use columns 72..79 (the fifth
+// k-step of Q K^T is an m16n8k8, P V leaves its tenth n8 tile out). The
+// block keeps the gains [H, 72] and the RoPE tables [group, 36] in shared
+// memory. A consumer warp writes its task's q^ (lane r: row r; the norm,
+// RoPE and q's scale are template parameters) and, with the norm or RoPE,
+// k^ (lane 16 + r) to its own scratch rows, does the 16 x 16 score tile and
+// the 16 x 72 output with mma.sync m16n8k16 in one k-step (a row's 16
+// scores sit in one quad of lanes: its max is two shuffles), releases the
+// stage as soon as P V has read V, and stores the output rows from its
+// scratch with 16-byte stores. The ring is written only by the copy engine
+// and read only by the consumers, so no proxy fence sits in the loop.
+// mma.sync stays the right instruction here: wgmma's M = 64 would waste
+// three quarters of each product on 16-row block-diagonal groups.
+//
+// What the design steps measured on an H100 SXM (tools/time_stdit3_kernels.py,
+// PERF.md section 6, PR 10): cp.async into the ring with one block of
+// eight warps an SM reached 1.1-1.8 TB/s (address arithmetic and the
+// in-place norm on the ring's critical path); one bulk copy a 144-byte row
+// was slower still; the TMA boxes, the scratch rows and the early release
+// reach 2.2-2.6 TB/s.
 
 #include "hopper_attention.cuh"
 #include "mma_tile.cuh"
@@ -69,215 +91,270 @@ namespace {
 
 using mc::bf16;
 
-constexpr int kD = mc::kHD;
-constexpr int kDP = mc::kHDP;
-constexpr int kStr = mc::kHStr;
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kTile = 64;             // queries per block, keys per KV tile
+constexpr int kD = mc::kHD;                         // 72
+constexpr int kDP = mc::kHDP;                       // 80: five k16 steps
+constexpr int kStr = mc::kHStr;                     // 72: a head row in shared memory
+constexpr int kSlots = 8;                           // heads a stage, one a warp
+constexpr int kThreads = (kSlots + 1) * 32;         // + the producer warp
+constexpr int kRows = 16;                           // a group's rows, padded
+constexpr int kChunks = kD / 8;                     // 16-byte chunks a head row
+constexpr int kRing = 3;                            // stages in shared memory
+constexpr int kSlotElems = kRows * kStr;            // one tensor's rows of a task
+constexpr int kBoxElems = kSlots * kSlotElems;      // one tensor's TMA box
+constexpr int kStageElems = 3 * kBoxElems;          // q, k and v of 8 tasks
+constexpr int kScratchElems = 2 * kSlotElems;       // a warp's q^ (then o) and k^
 
-struct Args {
-  const bf16* q;        // [B, S, H, 72] through (batch, token) strides
-  const bf16* k;
-  const bf16* v;
-  long long q_bs, q_ts, k_bs, k_ts, v_bs, v_ts;   // strides, in elements
+struct StreamArgs {
   bf16* out;            // [n_groups * group, H*72]
   const float* qg;      // [H, 72], or null: no qk-norm
   const float* kg;
   const float* cos;     // [group, 36] or null
   const float* sin;
-  int n_groups, gpb, H, group, gvalid, rowmax;    // gpb: groups per batch row
+  int gpb, H, group, gvalid, rowmax;              // gpb: groups per batch row
+  int n_stages, per_block;                        // stages; a block's range
   float q_scale, inv_true_d, eps, m_const;
 };
 
-// Head h's row at in-group position pos of group grp.
-__device__ __forceinline__ const bf16* head_row(const bf16* base, long long bs,
-                                                long long ts, const Args& p, int grp,
-                                                int pos, int h) {
-  return base + (long long)(grp / p.gpb) * bs +
-         ((long long)(grp % p.gpb) * p.group + pos) * ts + h * kD;
-}
+// q, k and v: 5-D maps (channel, in-group position, head, group, batch),
+// box 72 x 16 x 8 x 1 x 1 (ops/attention.py:stream_tma_maps)
+struct StreamMaps {
+  CUtensorMap t[3];
+};
 
-// Half a q or k head row, normed (with gains) [and rotated at in-group
-// position pos] (mc::load_qk_norm_half); both lanes of the pair call it.
-__device__ __forceinline__ void load_qk_half(bf16* dst, const bf16* src, bool valid,
-                                             const float* gain, const Args& p,
-                                             int pos, float mult, int half) {
-  const int rp = valid ? pos : 0;
-  const float* cs = p.cos ? p.cos + (size_t)rp * (kD / 2) : nullptr;
-  const float* sn = p.sin ? p.sin + (size_t)rp * (kD / 2) : nullptr;
-  mc::load_qk_norm_half(dst, src, valid, gain, p.inv_true_d, p.eps, cs, sn, mult,
-                        half);
-}
-
-using mc::load_head_half;
-using mc::store_head_rows;
-
-// Groups of up to 16 tokens: warp w of block b takes group 4b + w whole.
-__global__ void __launch_bounds__(kThreads)
-grouped_small_kernel(Args p) {
-  __shared__ __align__(16) bf16 smem[kWarps][3][16 * kStr];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int grp = blockIdx.x * kWarps + warp;
-  const int h = blockIdx.y;
-  if (grp >= p.n_groups) return;
-  bf16* Qs = smem[warp][0];
-  bf16* Ks = smem[warp][1];
-  bf16* Vs = smem[warp][2];
-
-  // lanes 2r and 2r + 1 take row r; keys past group_valid are masked
-  const int r = lane >> 1, half = lane & 1;
-  load_qk_half(Qs + r * kStr, head_row(p.q, p.q_bs, p.q_ts, p, grp, r, h), r < p.group,
-               p.qg ? p.qg + h * kD : nullptr, p, r, p.q_scale, half);
-  load_qk_half(Ks + r * kStr, head_row(p.k, p.k_bs, p.k_ts, p, grp, r, h), r < p.gvalid,
-               p.kg ? p.kg + h * kD : nullptr, p, r, 1.f, half);
-  load_head_half(Vs + r * kStr, head_row(p.v, p.v_bs, p.v_ts, p, grp, r, h),
-                 r < p.gvalid, half);
-  __syncwarp();
-
-  uint32_t qf[kDP / 16][4];
+// One q or k head row from src to dst (both in shared memory): RMS norm
+// over its 72 values times the gain (kNorm), RoPE by the 36 angles of
+// cs/sn (kRope), times mult, rounded to bf16.
+template <bool kNorm, bool kRope>
+__device__ __forceinline__ void prep_row(bf16* dst, const bf16* src, const float* gain,
+                                         const float* cs, const float* sn, float mult,
+                                         float inv_true_d, float eps) {
+  uint4 raw[kChunks];
 #pragma unroll
-  for (int kk = 0; kk < kDP / 16; ++kk) mc::load_a_frag(qf[kk], Qs + kk * 16, kStr);
-  float s[2][4];
-  mc::qk_scores<2>(s, qf, Ks);
-  float m[2] = {p.m_const, p.m_const};
-  if (p.rowmax) {
-    m[0] = m[1] = mc::kNegInf;
-    mc::row_max_update<2>(s, m, 0, p.gvalid);
-    m[0] = mc::quad_max(m[0]);
-    m[1] = mc::quad_max(m[1]);
-  }
-  float acc[kDP / 8][4];
+  for (int c = 0; c < kChunks; ++c) raw[c] = reinterpret_cast<const uint4*>(src)[c];
+  uint32_t* w = reinterpret_cast<uint32_t*>(raw);
+  float r = 1.f;
+  if (kNorm) {
+    float ss = 0.f;
 #pragma unroll
-  for (int nt = 0; nt < kDP / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-  float l[2] = {0.f, 0.f};
-  mc::shifted_softmax_pv<2>(s, l, acc, Vs, 0, p.gvalid, m);
-  store_head_rows(p.out, (size_t)grp * p.group, p.group, acc, l, (size_t)p.H * kD,
-                  h * kD);
-}
-
-// Larger groups with gains or RoPE: a block takes 64 queries of one group
-// and loops over the group's valid keys in tiles of 64 (twice with the row
-// max: first for the rows' max, then for p and PV).
-__global__ void __launch_bounds__(kThreads)
-grouped_tiled_kernel(Args p) {
-  __shared__ __align__(16) bf16 Qs[kTile * kStr];
-  __shared__ __align__(16) bf16 Ks[kTile * kStr];
-  __shared__ __align__(16) bf16 Vs[kTile * kStr];
-  const int q0 = blockIdx.x * kTile;        // first query, in-group position
-  const int grp = blockIdx.y;
-  const int h = blockIdx.z;
-  const int warp = threadIdx.x >> 5;
-
-  __shared__ float gains[2][kD];                   // q and k gains of head h
-  const bool norm = p.qg != nullptr;
-  if (norm)
-    for (int i = threadIdx.x; i < 2 * kD; i += kThreads)
-      gains[i / kD][i % kD] = (i < kD ? p.qg : p.kg)[h * kD + i % kD];
-  __syncthreads();
-  // threads 2i and 2i + 1 take row i of every tile
-  const int row = threadIdx.x >> 1, half = threadIdx.x & 1;
-  load_qk_half(Qs + row * kStr, head_row(p.q, p.q_bs, p.q_ts, p, grp, q0 + row, h),
-               q0 + row < p.group, norm ? gains[0] : nullptr, p, q0 + row, p.q_scale,
-               half);
-  __syncthreads();
-  uint32_t qf[kDP / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < kDP / 16; ++kk)
-    mc::load_a_frag(qf[kk], Qs + warp * 16 * kStr + kk * 16, kStr);
-
-  const int n_tiles = (p.gvalid + kTile - 1) / kTile;
-  float m[2] = {p.m_const, p.m_const};
-  if (p.rowmax) {
-    m[0] = m[1] = mc::kNegInf;
-    for (int j = 0; j < n_tiles; ++j) {
-      const int key = j * kTile + row;
-      __syncthreads();        // every warp is done with the previous tile
-      load_qk_half(Ks + row * kStr, head_row(p.k, p.k_bs, p.k_ts, p, grp, key, h),
-                   key < p.gvalid, norm ? gains[1] : nullptr, p, key, 1.f, half);
-      __syncthreads();
-      float s[kTile / 8][4];
-      mc::qk_scores<kTile / 8>(s, qf, Ks);
-      mc::row_max_update<kTile / 8>(s, m, j * kTile, p.gvalid);
+    for (int i = 0; i < kD / 2; ++i) {
+      const float2 x = mc::unpack_bf16(w[i]);
+      ss += x.x * x.x + x.y * x.y;
     }
-    m[0] = mc::quad_max(m[0]);
-    m[1] = mc::quad_max(m[1]);
+    r = rsqrtf(ss * inv_true_d + eps);
+  }
+#pragma unroll
+  for (int i = 0; i < kD / 2; ++i) {
+    const float2 x = mc::unpack_bf16(w[i]);
+    float ye = x.x, yo = x.y;
+    if (kNorm) {
+      const float2 g = reinterpret_cast<const float2*>(gain)[i];
+      ye = x.x * r * g.x;
+      yo = x.y * r * g.y;
+    }
+    if (kRope) {
+      const float c = cs[i], s = sn[i];
+      const float re = ye * c - yo * s;
+      const float ro = ye * s + yo * c;
+      ye = re;
+      yo = ro;
+    }
+    w[i] = mc::pack_bf16(ye * mult, yo * mult);
+  }
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) reinterpret_cast<uint4*>(dst)[c] = raw[c];
+}
+
+// Groups of up to 16 tokens: a persistent block streams stages
+// [blockIdx.x * per_block, + per_block) through the ring; stage s is heads
+// 8(s % hc) .. + 7 of group s / hc, hc = ceil(H / 8). Warps 0..7 are
+// consumers (warp w takes head slot w); warp 8 is the producer. The ring is
+// written only by the copy engine and read only by the consumers; a
+// consumer writes q^ (and k^ with the norm or RoPE), then its output, to its
+// own scratch rows, and releases the stage as soon as P V has read V.
+template <bool kNorm, bool kRope>
+__global__ void __launch_bounds__(kThreads, 1)
+grouped_stream_kernel(const __grid_constant__ StreamMaps maps, const StreamArgs p) {
+  constexpr bool kPrepK = kNorm || kRope;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  bf16* scratch = ring + kRing * kStageElems;                       // [8][2][16][72]
+  uint64_t* full = reinterpret_cast<uint64_t*>(scratch + kSlots * kScratchElems);
+  uint64_t* empty = full + kRing;
+  float* gains = reinterpret_cast<float*>(empty + kRing);          // [2][H][72]
+  float* tabs = gains + (kNorm ? 2 * p.H * kD : 0);                // [2][group][36]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int hc = (p.H + kSlots - 1) / kSlots;
+  const int s0 = blockIdx.x * p.per_block;
+  const int s1 = min(p.n_stages, s0 + p.per_block);
+
+  // scratch rows past group (q) or group_valid (k) are never written: zeros
+  for (int i = tid; i < kSlots * kScratchElems / 8; i += kThreads)
+    reinterpret_cast<uint4*>(scratch)[i] = make_uint4(0u, 0u, 0u, 0u);
+  if (kNorm)
+    for (int i = tid; i < 2 * p.H * kD; i += kThreads)
+      gains[i] = i < p.H * kD ? p.qg[i] : p.kg[i - p.H * kD];
+  if (kRope)
+    for (int i = tid; i < p.group * kD; i += kThreads)
+      tabs[i] = i < p.group * (kD / 2) ? p.cos[i] : p.sin[i - p.group * (kD / 2)];
+  if (tid == 0) {
+    for (int i = 0; i < kRing; ++i) {
+      hopper::mbar_init(&full[i], 1);
+      hopper::mbar_init(&empty[i], kSlots);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kSlots) {
+    // ---- producer: three boxes a stage; positions past group (q) or
+    // group_valid (k, v) and heads past H arrive as zeros
+    if (lane == 0) {
+      for (int s = s0, it = 0; s < s1; ++s, ++it) {
+        const int buf = it % kRing;
+        hopper::mbar_wait(&empty[buf], ((it / kRing) & 1) ^ 1);
+        const int g = s / hc, h0 = (s % hc) * kSlots;
+        bf16* st = ring + buf * kStageElems;
+        hopper::mbar_expect_tx(&full[buf], kStageElems * 2);
+#pragma unroll
+        for (int x = 0; x < 3; ++x)
+          hopper::tma_load_5d(st + x * kBoxElems, &maps.t[x], &full[buf], 0, 0, h0,
+                              g % p.gpb, g / p.gpb);
+      }
+    }
+    return;
   }
 
-  float acc[kDP / 8][4];
+  // ---- consumers ----
+  const size_t ld = (size_t)p.H * kD;
+  bf16* Qn = scratch + warp * kScratchElems;                // q^, then the output
+  bf16* Kn = Qn + kSlotElems;                               // k^
+  for (int s = s0, it = 0; s < s1; ++s, ++it) {
+    const int buf = it % kRing;
+    const int g = s / hc, h = (s % hc) * kSlots + warp;
+    const bf16* Qs = ring + buf * kStageElems + warp * kSlotElems;
+    const bf16* Ks = Qs + kBoxElems;
+    const bf16* Vs = Qs + 2 * kBoxElems;
+    // every warp waits, so none arrives on a stage's "empty" ahead of it
+    hopper::mbar_wait(&full[buf], (it / kRing) & 1);
+    if (h >= p.H) {
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[buf]);
+      continue;
+    }
+    // lane r: q row r; lane 16 + r: k row r (without the norm or RoPE k is
+    // read from the ring as it is)
+    const bool is_k = lane >= 16;
+    const int r = lane & 15;
+    if (!is_k && r < p.group)
+      prep_row<kNorm, kRope>(Qn + r * kStr, Qs + r * kStr, gains + h * kD,
+                             tabs + r * (kD / 2), tabs + (p.group + r) * (kD / 2),
+                             p.q_scale, p.inv_true_d, p.eps);
+    if (kPrepK && is_k && r < p.gvalid)
+      prep_row<kNorm, kRope>(Kn + r * kStr, Ks + r * kStr, gains + (p.H + h) * kD,
+                             tabs + r * (kD / 2), tabs + (p.group + r) * (kD / 2), 1.f,
+                             p.inv_true_d, p.eps);
+    __syncwarp();
+
+    uint32_t qf[kDP / 16][4];
 #pragma unroll
-  for (int nt = 0; nt < kDP / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-  float l[2] = {0.f, 0.f};
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * kTile;
-    __syncthreads();          // every warp is done with the previous tile
-    const int key = k0 + row;
-    load_qk_half(Ks + row * kStr, head_row(p.k, p.k_bs, p.k_ts, p, grp, key, h),
-                 key < p.gvalid, norm ? gains[1] : nullptr, p, key, 1.f, half);
-    load_head_half(Vs + row * kStr, head_row(p.v, p.v_bs, p.v_ts, p, grp, key, h),
-                   key < p.gvalid, half);
-    __syncthreads();
-    float s[kTile / 8][4];
-    mc::qk_scores<kTile / 8>(s, qf, Ks);
-    mc::shifted_softmax_pv<kTile / 8>(s, l, acc, Vs, k0, p.gvalid, m);
+    for (int kk = 0; kk < kDP / 16; ++kk) mc::load_a_frag(qf[kk], Qn + kk * 16, kStr);
+    float sc[2][4];
+    mc::qk_scores<2>(sc, qf, kPrepK ? Kn : Ks);
+    float m[2] = {p.m_const, p.m_const};
+    if (p.rowmax) {
+      m[0] = m[1] = mc::kNegInf;
+      mc::row_max_update<2>(sc, m, 0, p.gvalid);
+      m[0] = mc::quad_max(m[0]);
+      m[1] = mc::quad_max(m[1]);
+    }
+    float acc[kDP / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < kDP / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+    float l[2] = {0.f, 0.f};
+    mc::shifted_softmax_pv<2>(sc, l, acc, Vs, 0, p.gvalid, m);
+    __syncwarp();                 // the stage is read: release it
+    if (lane == 0) hopper::mbar_arrive(&empty[buf]);
+    mc::store_head_rows(Qn, p.group, acc, l, kStr);
+    __syncwarp();
+    // out: the head's rows, 16 bytes a lane
+    bf16* dst = p.out + (size_t)g * p.group * ld + h * kD;
+    for (int i = lane; i < p.group * kChunks; i += 32) {
+      const int row = i / kChunks, c = i % kChunks;
+      *reinterpret_cast<uint4*>(dst + row * ld + c * 8) =
+          *reinterpret_cast<const uint4*>(Qn + row * kStr + c * 8);
+    }
+    __syncwarp();                 // the scratch rows are read
   }
-  const int nrows = min(16, p.group - (q0 + warp * 16));
-  store_head_rows(p.out, (size_t)grp * p.group + q0 + warp * 16, nrows, acc, l,
-                  (size_t)p.H * kD, h * kD);
+}
+
+template <bool kNorm, bool kRope>
+int launch_stream(const StreamMaps& m, const StreamArgs& a, int grid, int smem_bytes,
+                  cudaStream_t stream) {
+  auto kernel = grouped_stream_kernel<kNorm, kRope>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, kThreads, smem_bytes, stream>>>(m, a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int mc_grouped_attention(
-    const void* q, const void* k, const void* v, long long q_bs, long long q_ts,
-    long long k_bs, long long k_ts, long long v_bs, long long v_ts, void* out,
-    const void* qg, const void* kg, const void* cos, const void* sin, int n_groups,
-    int gpb, int H, int group, int gvalid, int rowmax, float q_scale, float true_d,
-    float eps, float m_const, void* stream) {
-  Args a{};
-  a.q = static_cast<const bf16*>(q);
-  a.k = static_cast<const bf16*>(k);
-  a.v = static_cast<const bf16*>(v);
-  a.q_bs = q_bs;
-  a.q_ts = q_ts;
-  a.k_bs = k_bs;
-  a.k_ts = k_ts;
-  a.v_bs = v_bs;
-  a.v_ts = v_ts;
+// The "stream" route: groups of up to 16 tokens, q, k and v described by
+// `maps` (ops/attention.py:stream_tma_maps). `grid` blocks of `per_block`
+// stages each and `smem_bytes` of dynamic shared memory
+// (ops/attention.py:stream_geometry).
+extern "C" int mc_grouped_stream(const void* q, const void* k, const void* v,
+                                 const long long* maps, void* out, const void* qg,
+                                 const void* kg, const void* cos, const void* sin,
+                                 int n_groups, int gpb, int H, int group, int gvalid,
+                                 int rowmax, float q_scale, float true_d, float eps,
+                                 float m_const, int grid, int per_block, int smem_bytes,
+                                 void* stream) {
+  StreamMaps m;
+  const void* base[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    const int err = hopper::encode_map(&m.t[i], base[i], maps + i * hopper::kMapWords);
+    if (err) return err;
+  }
+  StreamArgs a{};
   a.out = static_cast<bf16*>(out);
   a.qg = static_cast<const float*>(qg);
   a.kg = static_cast<const float*>(kg);
   a.cos = static_cast<const float*>(cos);
   a.sin = static_cast<const float*>(sin);
-  a.n_groups = n_groups;
   a.gpb = gpb;
   a.H = H;
   a.group = group;
   a.gvalid = gvalid;
   a.rowmax = rowmax;
+  a.n_stages = n_groups * ((H + kSlots - 1) / kSlots);
+  a.per_block = per_block;
   a.q_scale = q_scale;
   a.inv_true_d = 1.f / true_d;
   a.eps = eps;
   a.m_const = m_const;
+  if (group > kRows || (long long)grid * per_block < a.n_stages) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (group <= 16) {
-    const dim3 grid((n_groups + kWarps - 1) / kWarps, H);
-    grouped_small_kernel<<<grid, kThreads, 0, st>>>(a);
-  } else {
-    const dim3 grid((group + kTile - 1) / kTile, n_groups, H);
-    grouped_tiled_kernel<<<grid, kThreads, 0, st>>>(a);
-  }
-  return (int)cudaGetLastError();
+  if (qg != nullptr)
+    return cos != nullptr ? launch_stream<true, true>(m, a, grid, smem_bytes, st)
+                          : launch_stream<true, false>(m, a, grid, smem_bytes, st);
+  return cos != nullptr ? launch_stream<false, true>(m, a, grid, smem_bytes, st)
+                        : launch_stream<false, false>(m, a, grid, smem_bytes, st);
 }
 
-// The row max without gains or RoPE, groups of more than 16 tokens: the
-// wgmma/TMA body (hopper_attention.cuh, head dim 80, kRowMax) on q, k and v
-// described by `maps` (ops/attention.py:grouped_tma_maps); out is
-// [n_groups * group, H*72].
+// The "tma" (q scaled in the body, q_scale = scale*log2(e), row max) and
+// "prepass" (q^ and k^ from mc_qk_prepass, q_scale 1, fixed max or row max)
+// routes: the wgmma/TMA body (hopper_attention.cuh, head dim 80, grouped
+// geometry) on q, k and v described by `maps`
+// (ops/attention.py:grouped_tma_maps); out is [n_groups * group, H*72].
 extern "C" int mc_grouped_attention_tma(const void* q, const void* k, const void* v,
                                         void* out, const long long* maps, int n_groups,
                                         int gpb, int H, int group, int gvalid,
-                                        float q_scale, void* stream) {
+                                        float q_scale, int fixed, float m_const,
+                                        void* stream) {
   hopper::Args a{};
   a.o = static_cast<bf16*>(out);
   a.H = H;
@@ -285,7 +362,9 @@ extern "C" int mc_grouped_attention_tma(const void* q, const void* k, const void
   a.kv_len = gvalid;
   a.gpb = gpb;
   a.q_scale = q_scale;
+  a.m_const = m_const;
   const dim3 grid((group + hopper::kBlockM - 1) / hopper::kBlockM, n_groups, H);
-  return hopper::launch<80, hopper::kRowMax>(q, k, v, maps, a, grid,
-                                             static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (fixed) return hopper::launch<80, hopper::kFixed, true>(q, k, v, maps, a, grid, st);
+  return hopper::launch<80, hopper::kRowMax, true>(q, k, v, maps, a, grid, st);
 }

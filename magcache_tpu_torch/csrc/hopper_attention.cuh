@@ -2,14 +2,15 @@
 // a ring of shared-memory stages, wgmma on the tensor cores. Instantiated
 // by flash_attention.cu (K1, K1b, K1c: head dim 128; K1q: head dim 72
 // carried as 80, fixed max, on its pre-pass's normed q and k) and by
-// grouped_attention.cu (K5r, and K4 with the same arguments: head dim 72,
-// carried as 80). hopper_cross_kernel below, K6's attention stage
+// grouped_attention.cu in the grouped geometry (head dim 72 carried as 80:
+// K5r and K4 with the row max on the q/k/v views; K5 and K4 with gains or
+// RoPE, fixed max or row max, on the pre-pass's q^ and k^). hopper_cross_kernel below, K6's attention stage
 // (stdit3_kernels.cu), reuses its parts with K and V resident.
 //
 // Replaces the TPU kernels magcache_tpu/ops/attention.py:flash_attention_bshd,
 // flash_attention_bhsd and flash_attention_bhsd_aux (bodies _flash_kernel*)
-// and the row-max branch of _grouped_kernel (grouped_attention_fused_qkv and
-// grouped_flash_attention_bshd without gains or RoPE, :626-632). What each
+// and, for groups of more than 16 tokens, _grouped_kernel
+// (grouped_attention_fused_qkv and grouped_flash_attention_bshd). What each
 // computes, and where it rounds, is stated in the .cu file that
 // instantiates it; the modes here:
 //   kFixed    p = exp2(min(s, m + 126) - m) with the constant m; no rescale.
@@ -341,11 +342,13 @@ __device__ __forceinline__ void issue_pv(float (&o0)[32], float (&o1)[Layout<kD>
   }
 }
 
-template <int kD, int kMode>
+// kGrouped: the grouped geometry (5-D maps, grid (query tile, group,
+// head), o [groups * group, H*72]) of K5r, K4 and K5; otherwise the flash
+// geometry (4-D maps, grid (query tile, batch * H), o through strides).
+template <int kD, int kMode, bool kGrouped>
 __global__ void __launch_bounds__(kThreads, 1)
 hopper_attention_kernel(const __grid_constant__ Maps maps, const Args a) {
   using L = Layout<kD>;
-  constexpr bool kGrouped = kMode == kRowMax;
   constexpr int kPasses = kMode == kRowMax ? 2 : 1;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -834,7 +837,8 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // One map from its geometry words (ops/attention.py, tma_map): rank,
-// swizzle bytes, 5 extents, 4 byte strides, 5 box extents, innermost first.
+// swizzle bytes (128, 32 or 0: none), 5 extents, 4 byte strides, 5 box
+// extents, innermost first.
 inline int encode_map(CUtensorMap* map, const void* base, const long long* w) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
@@ -847,8 +851,9 @@ inline int encode_map(CUtensorMap* map, const void* base, const long long* w) {
     one[i] = 1;
   }
   for (int i = 0; i < 4; ++i) strides[i] = (cuuint64_t)w[7 + i];
-  const CUtensorMapSwizzle swizzle =
-      w[1] == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUtensorMapSwizzle swizzle = w[1] == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : w[1] == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                                                  : CU_TENSOR_MAP_SWIZZLE_NONE;
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
                         dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
@@ -858,7 +863,7 @@ inline int encode_map(CUtensorMap* map, const void* base, const long long* w) {
 
 // Encodes the six maps (q, k, v x two boxes; `words`: 6 x kMapWords) and
 // launches the instantiation on `grid`.
-template <int kD, int kMode>
+template <int kD, int kMode, bool kGrouped = false>
 int launch(const void* q, const void* k, const void* v, const long long* words,
            const Args& a, dim3 grid, cudaStream_t stream) {
   Maps maps;
@@ -869,7 +874,7 @@ int launch(const void* q, const void* k, const void* v, const long long* words,
     const int err = encode_map(dst[i], base[i / 2], words + i * kMapWords);
     if (err) return err;
   }
-  auto kernel = hopper_attention_kernel<kD, kMode>;
+  auto kernel = hopper_attention_kernel<kD, kMode, kGrouped>;
   const int bytes = Layout<kD>::kBytes;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);

@@ -24,11 +24,15 @@ the kernel does not take raises. Launch counts are ``<wrapper>.launches``
   attention.
 - ``grouped_attention_fused_qkv`` (K5, ``csrc/grouped_attention.cu``):
   block-diagonal grouped attention read from the fused ``[B, S, 3*H*D]``
-  projection with the per-head RMS qk-norm and optional in-group RoPE fused
-  in; head dim 72 (STDiT3's spatial and temporal attention). Without gains
-  and with the row-max softmax it is K5r (Latte's packed attention), which
-  on groups of more than 16 tokens runs the wgmma/TMA body at head dim 80.
-- ``grouped_flash_attention_bshd`` (K4, the same kernel): the same on
+  projection with the per-head RMS qk-norm and optional in-group RoPE;
+  head dim 72 (STDiT3's spatial and temporal attention). Without gains and
+  with the row-max softmax it is K5r (Latte's packed attention). Three
+  routes (``grouped_kernel``): groups of up to 16 tokens stream through
+  ``grouped_stream_kernel`` (one fused pass, bound by its bytes); larger
+  groups run the wgmma/TMA body at head dim 80, on the q/k/v views ("tma",
+  the row max without gains or RoPE) or after the norm pre-pass
+  ("prepass": K1q's ``qk_norm_kernel`` with RoPE at ``token % group``).
+- ``grouped_flash_attention_bshd`` (K4, the same kernels): the same on
   separate ``[B, S, H, D]`` q, k and v read through their strides (the
   "grouped" mode of ``ops.tiny_attention``).
 - ``fused_cross_attention`` (K6, ``csrc/stdit3_kernels.cu``): q-projection,
@@ -53,6 +57,7 @@ The wgmma/TMA body reads q, k and v through TMA tensor maps. Their geometry
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 from typing import Optional, Tuple
 
@@ -70,7 +75,8 @@ __all__ = ["attention", "flash_attention_bshd", "flash_attention_bshd_plain",
            "grouped_flash_attention_bshd", "grouped_flash_attention_bshd_plain",
            "fused_cross_attention", "fused_cross_attention_plain",
            "cross_attention_rowmax_plain", "qk_norm_plain",
-           "flash_attention_prescaled_plain", "QKNORM_FIXED_MAX"]
+           "flash_attention_prescaled_plain", "grouped_attention_prescaled_plain",
+           "QKNORM_FIXED_MAX"]
 
 _LOG2E = math.log2(math.e)
 _NEG_INF = -1e30
@@ -83,6 +89,7 @@ QKNORM_FIXED_MAX = 16.0
 KERNEL_HEAD_DIM = 128
 GROUPED_HEAD_DIM = 72        # K5's and K6's head dim
 CROSS_MAX_KEYS = 384         # K6 keeps a (batch, head)'s K and V resident: 3 tiles
+SMEM_LIMIT = 232448          # dynamic shared memory an H100 block may use
 TMA_BOX_ROWS = 128           # the wgmma/TMA body's query and key tiles
 TMA_PADDED_DIM = 80          # head dim 72 as the body carries it: boxes of 64 + 16
 
@@ -190,16 +197,31 @@ def flash_attention_bshd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 
 
 def qk_norm_plain(q: torch.Tensor, k: torch.Tensor,
-                  qk_gains: Tuple[torch.Tensor, torch.Tensor], *, scale: float,
+                  qk_gains: Optional[Tuple[torch.Tensor, torch.Tensor]], *, scale: float,
                   true_d: Optional[int] = None, eps: float = 1e-6,
-                  dtype: Optional[torch.dtype] = None):
-    """K1q's pre-pass in plain PyTorch: q and k RMS-normed per head in f32
-    (variance over ``true_d``, default D) times their gains; q then times
-    ``scale*log2(e)`` in f32 and rounded to its dtype, k rounded to
-    ``dtype`` (default k's). Returns contiguous ``(q^, k^)``."""
+                  dtype: Optional[torch.dtype] = None,
+                  rope_tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                  group: Optional[int] = None):
+    """The pre-pass of K1q and of K5's groups above 16 tokens in plain
+    PyTorch: q and k RMS-normed per head in f32 (variance over ``true_d``,
+    default D) times their gains, or taken to f32 when ``qk_gains`` is None;
+    with ``rope_tables`` (``[group, D/2]``) rotated in f32 at the in-group
+    position ``token % group`` (S a multiple of ``group``); q then times
+    ``scale*log2(e)`` in f32 and rounded to its dtype, k rounded to ``dtype``
+    (default k's). Returns contiguous ``(q^, k^)``."""
     td = q.shape[-1] if true_d is None else true_d
-    qs = (_rms_head(q, qk_gains[0], td, eps) * (scale * _LOG2E)).to(q.dtype)
-    ks = _rms_head(k, qk_gains[1], td, eps).to(dtype or k.dtype)
+
+    def prep(t, gain):
+        t32 = _rms_head(t, gain, td, eps) if gain is not None else t.float()
+        if rope_tables is None:
+            return t32
+        b, s_len, h, d = t32.shape
+        grouped = t32.reshape(b, s_len // group, group, h, d)
+        return apply_rope(grouped, *rope_tables).reshape(b, s_len, h, d)
+
+    gq, gk = qk_gains if qk_gains is not None else (None, None)
+    qs = (prep(q, gq) * (scale * _LOG2E)).to(q.dtype)
+    ks = prep(k, gk).to(dtype or k.dtype)
     return qs.contiguous(), ks.contiguous()
 
 
@@ -311,19 +333,29 @@ def _flash_attention_qknorm(q, k, v, scale, kv_len, fixed_max, qk_gains, true_d,
     return out
 
 
-def _qk_norm_launch(q, k, gains, scale: float, eps: float):
-    """K1q's pre-pass on the card: contiguous ``(q^, k^)`` from checked
-    ``[B, S, H, 72]`` q and k views and f32 ``[H, 72]`` gains."""
+def _qk_norm_launch(q, k, gains, scale: float, eps: float, *, rope=None,
+                    group: Optional[int] = None, group_valid: Optional[int] = None):
+    """The pre-pass on the card (``qk_norm_kernel``): contiguous ``(q^,
+    k^)`` from checked ``[B, S, H, 72]`` q and k views, f32 ``[H, 72]``
+    gains (or ``[None, None]``) and optional f32 ``[group, 36]`` RoPE tables
+    at ``token % group``. K1q: no RoPE, every row (``group`` None). K5: k^
+    rows at in-group positions from ``group_valid`` on are left unwritten
+    (the attention's tensor map never reads them)."""
     b, sq, h, d = q.shape
+    sk = k.shape[1]
     qn = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     kn = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    gq, gk = (sq, sk) if group is None else (group, group)
+    kv = gk if group_valid is None else group_valid
+    cos, sin = rope if rope is not None else (None, None)
+    ptr = lambda t: t.data_ptr() if t is not None else None
     lib = load_cuda_library()
-    code = lib.mc_qk_norm(
-        q.data_ptr(), k.data_ptr(), qn.data_ptr(), kn.data_ptr(), gains[0].data_ptr(),
-        gains[1].data_ptr(), b, sq, k.shape[1], h, q.stride(0), q.stride(1), k.stride(0),
-        k.stride(1), scale * _LOG2E, 1.0 / d, float(eps),
+    code = lib.mc_qk_prepass(
+        q.data_ptr(), k.data_ptr(), qn.data_ptr(), kn.data_ptr(), ptr(gains[0]),
+        ptr(gains[1]), ptr(cos), ptr(sin), b, sq, sk, h, q.stride(0), q.stride(1),
+        k.stride(0), k.stride(1), gq, gk, gq, kv, scale * _LOG2E, 1.0 / d, float(eps),
         torch.cuda.current_stream(q.device).cuda_stream)
-    check_launch(lib, code, "flash_attention_bshd (qk-norm pre-pass)")
+    check_launch(lib, code, "qk-norm pre-pass")
     return qn, kn
 
 
@@ -592,13 +624,70 @@ def _check_head_rows(name: str, t: torch.Tensor, shape, dev) -> None:
             f"on {t.device}")
 
 
+STREAM_SLOTS = 8              # the stream kernel's heads a stage, one a warp
+STREAM_RING = 3               # its stages in shared memory
+STREAM_MAX_GROUP = 16         # groups it takes: up to 16 tokens (a box of 16 rows)
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamGeometry:
+    """The stream kernel's launch: ``grid`` persistent blocks walking
+    ``per_block`` consecutive stages each (``stages`` in all: one a group and
+    ``STREAM_SLOTS`` heads), with ``smem_bytes`` of shared memory: the ring
+    (a stage holds one TMA box of 8 heads x 16 rows x 72 columns of q, k and
+    v each), each consumer warp's q^ and k^ rows, two mbarriers a stage, 128
+    bytes of alignment and, when present, the gains ``[2, H, 72]`` and RoPE
+    tables ``[2, group, 36]`` in f32."""
+    stages: int
+    per_block: int
+    grid: int
+    smem_bytes: int
+
+
+def stream_geometry(n_groups: int, heads: int, group: int, sms: int, *,
+                    gains: bool, rope: bool) -> StreamGeometry:
+    """The stream kernel's geometry for ``n_groups`` groups of ``group``
+    tokens and ``heads`` heads on a card with ``sms`` SMs; raises when its
+    shared memory would exceed a block's (more than 43 heads with gains and
+    RoPE)."""
+    stages = n_groups * -(-heads // STREAM_SLOTS)
+    per_block = -(-stages // min(sms, stages))
+    rows = STREAM_MAX_GROUP * GROUPED_HEAD_DIM * 2          # a head's 16 rows, bytes
+    smem = STREAM_RING * (3 * STREAM_SLOTS * rows + 2 * 8) + STREAM_SLOTS * 2 * rows + 128 \
+        + (2 * heads * GROUPED_HEAD_DIM * 4 if gains else 0) \
+        + (2 * group * GROUPED_HEAD_DIM // 2 * 4 if rope else 0)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"grouped attention: {heads} heads with gains need {smem} bytes "
+                         f"of shared memory, more than {SMEM_LIMIT}")
+    return StreamGeometry(stages, per_block, -(-stages // per_block), smem)
+
+
+def stream_tma_maps(name: str, q, k, v, group: int, group_valid: int) -> list:
+    """The stream kernel's three maps over ``[B, S, H, 72]`` tensors or
+    views: dimensions (channel, in-group position, head, group, batch) over
+    the tensors' own strides, position extent ``group`` for q and
+    ``group_valid`` for k and v; one box is 72 columns x 16 positions x 8
+    heads of one group, unswizzled, so that shared memory holds each head's
+    16 rows of 72 (144 bytes) together. Positions past the extent and heads
+    past H arrive as zeros."""
+    maps = []
+    for label, t, rows in (("q", q, group), ("k", k, group_valid), ("v", v, group_valid)):
+        b, s_len, h, d = t.shape
+        bs, ts, hs, cs = t.stride()
+        maps.append(tma_map(f"{name}: {label}", (d, rows, h, s_len // group, b),
+                            (cs, ts, hs, ts * group, bs),
+                            (d, STREAM_MAX_GROUP, STREAM_SLOTS, 1, 1), 0))
+    return maps
+
+
 def _grouped_launch(name: str, q, k, v, *, group, gvalid, scale, qk_gains,
                     rope_tables, true_d, eps, fixed_max) -> torch.Tensor:
     """The grouped kernels' launch (K4, K5, K5r) on ``[B, S, H, 72]`` q/k/v
-    read through their strides; returns ``[B, S, H*72]``. The row max
-    without gains or RoPE on groups of more than 16 tokens takes the
-    wgmma/TMA body, everything else the mma.sync kernels. Checks what the
-    kernels take and raises on anything else."""
+    read through their strides; returns ``[B, S, H*72]``. The route
+    (``grouped_kernel``): "stream" for groups of up to 16 tokens; above
+    that the wgmma/TMA body, on the q/k/v views ("tma") or after the norm
+    pre-pass ("prepass"). Checks what the kernels take and raises on
+    anything else."""
     b, s_len, heads, d = q.shape
     dev = q.device
     true_d = d if true_d is None else true_d
@@ -609,7 +698,8 @@ def _grouped_launch(name: str, q, k, v, *, group, gvalid, scale, qk_gains,
     for label, t in (("q", q), ("k", k), ("v", v)):
         _check_head_rows(f"{name}: {label}", t, (b, s_len, heads, d), dev)
     n_groups = b * s_len // group
-    if group > 16 and n_groups > 65535 or heads > 65535:
+    route = grouped_kernel(group, qk_gains, rope_tables, fixed_max)
+    if route != "stream" and n_groups > 65535 or heads > 65535:
         raise ValueError(f"{name}: {n_groups} groups or {heads} heads exceed "
                          f"the launch grid")
     gains = [None, None]
@@ -619,53 +709,113 @@ def _grouped_launch(name: str, q, k, v, *, group, gvalid, scale, qk_gains,
                 raise ValueError(f"{name}: {label} must hold [{heads}, {d}] or "
                                  f"[{d}] on {dev}")
             gains[i] = t.float().reshape(-1, d).expand(heads, d).contiguous()
-    cos = sin = None
+    rope = None
     if rope_tables is not None:
-        cos, sin = (t.float().contiguous() for t in rope_tables)
-        for t in (cos, sin):
+        rope = tuple(t.float().contiguous() for t in rope_tables)
+        for t in rope:
             if t.device != dev or tuple(t.shape) != (group, d // 2):
                 raise ValueError(f"{name}: rope tables must be [{group}, "
                                  f"{d // 2}] on {dev}")
 
-    def ptr(t):
-        return t.data_ptr() if t is not None else None
-
-    lib = load_cuda_library()
-    out = torch.empty((b, s_len, heads * d), dtype=v.dtype, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    route = grouped_kernel(group, qk_gains, rope_tables, fixed_max)
-    if route == "tma":
-        maps = grouped_tma_maps(name, q, k, v, group, gvalid)
-        code = lib.mc_grouped_attention_tma(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), map_words(maps),
-            n_groups, s_len // group, heads, group, gvalid, scale * _LOG2E, stream)
+    if route == "prepass":
+        # q^ (normed, rotated, scaled, rounded) and k^ (normed, rotated,
+        # rounded), contiguous; the body then uses q as it is
+        qn, kn = _qk_norm_launch(q, k, gains, scale, eps, rope=rope, group=group,
+                                 group_valid=gvalid)
+        out = _grouped_tma_launch(name, qn, kn, v, group, gvalid, 1.0, fixed_max)
+    elif route == "tma":
+        out = _grouped_tma_launch(name, q, k, v, group, gvalid, scale * _LOG2E, fixed_max)
     else:
-        code = lib.mc_grouped_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), q.stride(0), q.stride(1),
-            k.stride(0), k.stride(1), v.stride(0), v.stride(1), out.data_ptr(),
-            ptr(gains[0]), ptr(gains[1]), ptr(cos), ptr(sin), n_groups,
-            s_len // group, heads, group, gvalid, int(fixed_max is None),
-            scale * _LOG2E, float(d), float(eps),
-            float(fixed_max) if fixed_max is not None else 0.0, stream)
-    check_launch(lib, code, name)
+        out = torch.empty((b, s_len, heads * d), dtype=v.dtype, device=dev)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        geom = stream_geometry(n_groups, heads, group, sms, gains=qk_gains is not None,
+                               rope=rope is not None)
+        cos, sin = rope if rope is not None else (None, None)
+        ptr = lambda t: t.data_ptr() if t is not None else None
+        maps = stream_tma_maps(name, q, k, v, group, gvalid)
+        lib = load_cuda_library()
+        code = lib.mc_grouped_stream(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), map_words(maps), out.data_ptr(),
+            ptr(gains[0]), ptr(gains[1]), ptr(cos), ptr(sin), n_groups, s_len // group,
+            heads, group, gvalid, int(fixed_max is None), scale * _LOG2E, float(d),
+            float(eps), float(fixed_max or 0.0), geom.grid, geom.per_block,
+            geom.smem_bytes, torch.cuda.current_stream(dev).cuda_stream)
+        check_launch(lib, code, name)
     count_launch(_grouped_launch, "routes", route)
     return out
 
 
-_grouped_launch.routes = {"tma": 0, "tiled": 0, "small": 0}
+def _grouped_tma_launch(name: str, q, k, v, group: int, gvalid: int, q_scale: float,
+                        fixed_max: Optional[float]) -> torch.Tensor:
+    """The wgmma/TMA body in the grouped geometry on checked ``[B, S, H, 72]``
+    q, k and v (views, or the pre-pass's copies with ``q_scale`` 1): the
+    fixed max when given, else the row max. Returns ``[B, S, H*72]``."""
+    b, s_len, heads, d = q.shape
+    out = torch.empty((b, s_len, heads * d), dtype=v.dtype, device=q.device)
+    maps = grouped_tma_maps(name, q, k, v, group, gvalid)
+    lib = load_cuda_library()
+    code = lib.mc_grouped_attention_tma(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), map_words(maps),
+        b * s_len // group, s_len // group, heads, group, gvalid, q_scale,
+        int(fixed_max is not None), float(fixed_max or 0.0),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    check_launch(lib, code, name)
+    return out
+
+
+_grouped_launch.routes = {"stream": 0, "tma": 0, "prepass": 0}
 
 
 def grouped_kernel(group: int, qk_gains, rope_tables, fixed_max) -> str:
-    """Which grouped kernel a CUDA call runs, by its arguments alone: "tma"
-    (the wgmma/TMA body: the row max without gains or RoPE on groups of more
-    than 16 tokens), "small" (groups of up to 16 tokens) or "tiled" (larger
-    groups with gains, RoPE or the fixed max). Launches count by route in
-    ``_grouped_launch.routes`` beside the wrappers' own counts."""
-    if group <= 16:
-        return "small"
-    if fixed_max is None and qk_gains is None and rope_tables is None:
+    """Which grouped kernel a CUDA call runs, by its arguments alone:
+    "stream" (groups of up to 16 tokens: ``grouped_stream_kernel``), "tma"
+    (the wgmma/TMA body on the q/k/v views: the row max without gains or
+    RoPE on larger groups) or "prepass" (larger groups with gains or RoPE,
+    fixed max or row max: the norm pre-pass, then the same body). Launches
+    count by route in ``_grouped_launch.routes`` beside the wrappers' own
+    counts."""
+    if group <= STREAM_MAX_GROUP:
+        return "stream"
+    if qk_gains is None and rope_tables is None:
         return "tma"
-    return "tiled"
+    return "prepass"
+
+
+def _grouped_softmax_pv(qc, kc, vc, key_ok, fixed_max, dtype) -> torch.Tensor:
+    """One chunk of groups ``[n, group, H, D]`` of f32 q (scaled, rounded)
+    and k (rounded): f32 scores over the keys ``key_ok``, the fixed or the
+    row-max shift, p rounded to ``dtype`` before PV, divided by the f32 sum
+    of p; returns ``dtype``."""
+    s = torch.einsum("nqhd,nkhd->nhqk", qc, kc)
+    s = torch.where(key_ok, s, torch.full_like(s, _NEG_INF))
+    if fixed_max is not None:
+        p = torch.exp2(torch.clamp(s, max=fixed_max + 126.0) - fixed_max)
+    else:
+        p = torch.exp2(s - s.amax(-1, keepdim=True))
+    o = torch.einsum("nhqk,nkhd->nqhd", p.to(dtype).float(), vc)
+    return (o / p.sum(-1).permute(0, 2, 1)[..., None]).to(dtype)
+
+
+def grouped_attention_prescaled_plain(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                      *, group: int, group_valid: Optional[int] = None,
+                                      fixed_max: Optional[float] = None,
+                                      chunk_elems: int = 1 << 26) -> torch.Tensor:
+    """The "prepass" route's attention in plain PyTorch: on a q already
+    normed, rotated, scaled by ``scale*log2(e)`` and rounded, and a k
+    normed, rotated and rounded (``qk_norm_plain`` with ``group``), each
+    ``[B, S, H, D]``: the groups' attention as ``grouped_flash_attention_bshd_plain``
+    computes it from there, over chunks of groups. Returns ``[B, S, H, D]``."""
+    group_valid = group if group_valid is None else group_valid
+    b, s_len, heads, d = qs.shape
+    ng = b * (s_len // group)
+    qg, kg, vg = (t.reshape(ng, group, heads, d) for t in (qs, k, v))
+    key_ok = torch.arange(group, device=qs.device) < group_valid
+    out = torch.empty((ng, group, heads, d), dtype=v.dtype, device=qs.device)
+    step = max(1, chunk_elems // (heads * group * group))
+    for g0 in range(0, ng, step):
+        out[g0:g0 + step] = _grouped_softmax_pv(
+            *(t[g0:g0 + step].float() for t in (qg, kg, vg)), key_ok, fixed_max, v.dtype)
+    return out.reshape(b, s_len, heads, d)
 
 
 def grouped_flash_attention_bshd_plain(
@@ -702,14 +852,8 @@ def grouped_flash_attention_bshd_plain(
             qc, kc = apply_rope(qc, *rope_tables), apply_rope(kc, *rope_tables)
         qc = (qc * (scale * _LOG2E)).to(v.dtype).float()
         kc = kc.to(v.dtype).float()
-        s = torch.einsum("nqhd,nkhd->nhqk", qc, kc)
-        s = torch.where(key_ok, s, torch.full_like(s, _NEG_INF))
-        if fixed_max is not None:
-            p = torch.exp2(torch.clamp(s, max=fixed_max + 126.0) - fixed_max)
-        else:
-            p = torch.exp2(s - s.amax(-1, keepdim=True))
-        o = torch.einsum("nhqk,nkhd->nqhd", p.to(v.dtype).float(), vc.float())
-        out[g0:g0 + step] = (o / p.sum(-1).permute(0, 2, 1)[..., None]).to(v.dtype)
+        out[g0:g0 + step] = _grouped_softmax_pv(qc, kc, vc.float(), key_ok, fixed_max,
+                                                v.dtype)
     return out.reshape(b, s_len, heads, d)
 
 

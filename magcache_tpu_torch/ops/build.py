@@ -103,11 +103,11 @@ def _load_cuda_library() -> ctypes.CDLL:
                                            cf, ci, cf, vp]
     lib.mc_flash_attention_tma.restype = ci
     lib.mc_grouped_attention_tma.argtypes = [vp, vp, vp, vp, pl, ci, ci, ci, ci, ci, cf,
-                                             vp]
+                                             ci, cf, vp]
     lib.mc_grouped_attention_tma.restype = ci
-    lib.mc_qk_norm.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, cl, cl, cl, cl,
-                               cf, cf, cf, vp]
-    lib.mc_qk_norm.restype = ci
+    lib.mc_qk_prepass.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, cl, cl,
+                                  cl, cl, ci, ci, ci, ci, cf, cf, cf, vp]
+    lib.mc_qk_prepass.restype = ci
     lib.mc_flash_attention_qknorm_tma.argtypes = [vp, vp, vp, vp, pl, pl, ci, ci, ci, ci,
                                                   cf, vp]
     lib.mc_flash_attention_qknorm_tma.restype = ci
@@ -120,10 +120,9 @@ def _load_cuda_library() -> ctypes.CDLL:
     lib.mc_matmul_gated_residual.argtypes = [vp, vp, pl, vp, vp, vp, vp, ci, ci, ci, ci,
                                              ci, ci, ci, vp]
     lib.mc_matmul_gated_residual.restype = ci
-    lib.mc_grouped_attention.argtypes = [vp, vp, vp, cl, cl, cl, cl, cl, cl, vp, vp,
-                                         vp, vp, vp, ci, ci, ci, ci, ci, ci, cf, cf,
-                                         cf, cf, vp]
-    lib.mc_grouped_attention.restype = ci
+    lib.mc_grouped_stream.argtypes = [vp, vp, vp, pl, vp, vp, vp, vp, vp, ci, ci, ci, ci,
+                                      ci, ci, cf, cf, cf, cf, ci, ci, ci, vp]
+    lib.mc_grouped_stream.restype = ci
     lib.mc_tiny_attention.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, cf, cf,
                                       vp]
     lib.mc_tiny_attention.restype = ci
@@ -179,7 +178,7 @@ def triton_prologue():
 class TmaMap:
     """One TMA tensor map's geometry, innermost dimension first: extents
     (elements), the byte strides of dimensions 1.., box extents, and the
-    swizzle span in bytes (128, or 32 for a box 16 values wide)."""
+    swizzle span in bytes (128, 32 for a box 16 values wide, or 0: none)."""
     dims: Tuple[int, ...]
     strides: Tuple[int, ...]
     box: Tuple[int, ...]

@@ -281,7 +281,12 @@ def _grouped_inputs(dev, b, s, heads, group):
     (1, 7 * 15, 2, 15, 15, True),      # groups not a multiple of the block
     (3, 64, 2, 32, 27, False),         # padded groups
     (1, 200, 2, 100, 71, True),        # a group spanning two query tiles
-    (1, 48, 2, 8, 5, True)])
+    (1, 48, 2, 8, 5, True),
+    (2, 1590, 3, 1590, 1400, False),   # group 1,590, 1,400 valid keys (pre-pass)
+    (1, 3180, 2, 1590, 1590, True),    # two groups a batch row, fixed max, RoPE
+    (1, 15 * 21, 2, 15, 13, True),     # group 15, 13 valid, 42 tasks: a stage cut
+    (1, 16 * 21, 2, 16, 13, True),     # group 16, 13 valid
+    (1, 11 * 15, 3, 15, 15, False)])   # 33 tasks: stages cut by n_groups
 def test_k5_matches_plain(dev, b, s, heads, group, gvalid, rope):
     qkv, gains, tables = _grouped_inputs(dev, b, s, heads, group)
     kw = dict(group=group, group_valid=gvalid, scale=72 ** -0.5, qk_gains=gains,
@@ -456,7 +461,11 @@ def test_tiny_open_sora_masked_and_large_frames_run_through_the_kernels(dev, tmp
     (1, 2048 * 16, 16, 16, 16, False, False),  # Latte temporal (K5r)
     (3, 200, 2, 100, 71, False, True),       # ragged tiles, RoPE without norm
     (1, 64, 2, 32, 27, True, True),          # gains with the row max
-    (1, 48, 2, 8, 5, True, False)])
+    (1, 48, 2, 8, 5, True, False),
+    (1, 300, 2, 100, 100, True, True),       # group 100: gains + RoPE + row max
+    (2, 1590, 2, 1590, 1400, True, False),   # gains, row max, 1,400 valid keys
+    (1, 15 * 21, 2, 15, 13, False, False),   # group 15, 13 valid, a stage cut
+    (1, 16 * 21, 2, 16, 13, True, True)])    # group 16, 13 valid, gains + RoPE
 def test_k5r_matches_plain(dev, b, s, heads, group, gvalid, norm, rope):
     qkv, gains, tables = _grouped_inputs(dev, b, s, heads, group)
     kw = dict(group=group, group_valid=gvalid, scale=72 ** -0.5,
@@ -474,8 +483,10 @@ def test_k5r_matches_plain(dev, b, s, heads, group, gvalid, norm, rope):
     (1, 2048 * 16, 16, 16, 16, False, False, None),  # Latte temporal, grouped mode
     (1, 3180 * 15, 16, 15, 15, True, True, 16.0),    # STDiT3 480p temporal
     (2, 96, 2, 16, 13, True, True, None),
-    (1, 300, 2, 100, 77, False, True, None),          # tiled groups
-    (1, 256, 3, 128, 128, True, False, 16.0)])
+    (1, 300, 2, 100, 77, False, True, None),          # pre-pass groups
+    (1, 256, 3, 128, 128, True, False, 16.0),
+    (1, 15 * 21, 2, 15, 13, True, True, 16.0),        # group 15, 13 valid
+    (1, 3180, 2, 1590, 1400, True, True, 16.0)])      # two groups a row, pre-pass
 def test_k4_matches_plain(dev, b, s, heads, group, gvalid, norm, rope, fixed_max):
     qkv, gains, tables = _grouped_inputs(dev, b, s, heads, group)
     q, k, v = qkv.unflatten(-1, (3, heads, 72)).unbind(2)     # strided views
@@ -487,6 +498,29 @@ def test_k4_matches_plain(dev, b, s, heads, group, gvalid, norm, rope, fixed_max
     want = A.grouped_flash_attention_bshd_plain(q, k, v, **kw)
     assert A.grouped_flash_attention_bshd.launches == before + 1
     assert got.shape == (b, s, heads, 72)
+    _close(got, want)
+    dense = A.grouped_flash_attention_bshd(q.contiguous(), k.contiguous(), v.contiguous(), **kw)
+    assert torch.equal(dense, got)
+
+
+@pytest.mark.parametrize("group,gvalid,norm,rope,fixed_max", [
+    (15, 13, True, True, 16.0), (16, 16, False, False, None), (100, 90, True, True, None),
+    (100, 100, False, False, None)])
+def test_k4_on_separate_strided_tensors_matches_plain(dev, group, gvalid, norm, rope,
+                                                      fixed_max):
+    # three tensors, each a view with a padded token stride (and batch stride)
+    heads, b, s = 3, 2, 4 * group
+    _, gains, tables = _grouped_inputs(dev, b, s, heads, group)
+    q, k, v = (_rand(dev, b, s, heads * 72 + 8 * (i + 1), scale=1.5, seed=50 + i)
+               [..., :heads * 72].unflatten(-1, (heads, 72)) for i in range(3))
+    assert len({t.stride(1) for t in (q, k, v)}) == 3
+    kw = dict(group=group, group_valid=gvalid, scale=72 ** -0.5,
+              qk_gains=gains if norm else None, rope_tables=tables if rope else None,
+              fixed_max=fixed_max)
+    before = A.grouped_flash_attention_bshd.launches
+    got = A.grouped_flash_attention_bshd(q, k, v, **kw)
+    want = A.grouped_flash_attention_bshd_plain(q, k, v, **kw)
+    assert A.grouped_flash_attention_bshd.launches == before + 1
     _close(got, want)
     dense = A.grouped_flash_attention_bshd(q.contiguous(), k.contiguous(), v.contiguous(), **kw)
     assert torch.equal(dense, got)
@@ -762,15 +796,16 @@ def test_rowmax_tma_path_matches_plain(dev, b, s, heads, group, gvalid, through)
 
 
 @pytest.mark.parametrize("norm,rope,group,route", [
-    (True, False, 32, "tiled"), (False, True, 100, "tiled"), (False, False, 16, "small")])
-def test_gains_rope_and_small_groups_stay_off_the_tma_path(dev, norm, rope, group, route):
+    (True, False, 32, "prepass"), (False, True, 100, "prepass"), (False, False, 16, "stream")])
+def test_gains_or_rope_take_the_prepass_and_small_groups_stream(dev, norm, rope, group,
+                                                                  route):
     qkv, gains, tables = _grouped_inputs(dev, 1, 4 * group, 2, group)
     before = dict(A._grouped_launch.routes)
     got = A.grouped_attention_fused_qkv(qkv, 2, group=group, scale=72 ** -0.5,
                                         qk_gains=gains if norm else None,
                                         rope_tables=tables if rope else None)
     assert {k: n - before[k] for k, n in A._grouped_launch.routes.items()} == dict(
-        {"tma": 0, "tiled": 0, "small": 0}, **{route: 1})
+        {"stream": 0, "tma": 0, "prepass": 0}, **{route: 1})
     _close(got, A.grouped_attention_fused_qkv_plain(
         qkv, 2, group=group, scale=72 ** -0.5, qk_gains=gains if norm else None,
         rope_tables=tables if rope else None))

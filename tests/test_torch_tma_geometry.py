@@ -115,14 +115,93 @@ def test_extent_one_dimensions_take_any_stride():
 @pytest.mark.parametrize("group,gains,rope,fixed_max,want", [
     (1024, False, False, None, "tma"),     # Latte spatial (K5r)
     (17, False, False, None, "tma"),
-    (16, False, False, None, "small"),     # Latte temporal (K5r)
-    (1590, True, False, 16.0, "tiled"),    # STDiT3 spatial (K5)
-    (100, False, True, None, "tiled"),     # the row max with RoPE
-    (32, True, False, None, "tiled")])     # the row max with gains
+    (16, False, False, None, "stream"),    # Latte temporal (K5r)
+    (1590, True, False, 16.0, "prepass"),  # STDiT3 spatial (K5)
+    (100, False, True, None, "prepass"),   # the row max with RoPE
+    (32, True, False, None, "prepass")])   # the row max with gains
 def test_grouped_routing_by_arguments(group, gains, rope, fixed_max, want):
     g = (torch.ones(72), torch.ones(72)) if gains else None
     r = (torch.ones(group, 36), torch.zeros(group, 36)) if rope else None
     assert A.grouped_kernel(group, g, r, fixed_max) == want
+
+
+def test_k5_spatial_prepass_maps_over_normed_copies_and_the_v_view():
+    # 480p: 30 frames of 1,590 tokens, one group a frame, 1,400 valid keys;
+    # q^ and k^ are the pre-pass's contiguous copies, v a column view
+    frames, s, heads, gvalid = 30, 1590, 16, 1400
+    qkv = _meta(frames, s, 3 * heads * 72)
+    _, _, v = A.split_qkv(qkv, heads)
+    qn = kn = _meta(frames, s, heads, 72)
+    maps = A.grouped_tma_maps("grouped_attention_fused_qkv", qn, kn, v, s, gvalid)
+    assert len(maps) == 6
+    row, proj_row = heads * 72 * 2, 3 * heads * 72 * 2
+    for i, m in enumerate(maps):
+        # (channel, head, in-group position, group, batch): positions past
+        # group_valid in k^ (never written) and v arrive as zeros
+        assert m.dims == (72, heads, s if i < 2 else gvalid, 1, frames)
+        wide = i % 2 == 0
+        assert m.box == ((64 if wide else 16), 1, A.TMA_BOX_ROWS, 1, 1)
+        assert m.swizzle == (128 if wide else 32)
+        # one group a batch row: its dimension (extent 1) is never stepped
+        if i < 4:                                   # q^, k^: contiguous
+            assert m.strides == (144, row, 16, row * s)
+        else:                                       # v: read in place
+            assert m.strides == (144, proj_row, 16, proj_row * s)
+    assert A.grouped_kernel(s, (None, None), None, 16.0) == "prepass"
+
+
+@pytest.mark.parametrize("n_groups,heads,group,gains,rope,stages,per_block,grid", [
+    (7200, 16, 15, True, True, 14400, 110, 131),   # 720p temporal: 108,000 rows
+    (3180, 16, 15, True, True, 6360, 49, 130),     # 480p temporal
+    (2048, 16, 16, False, False, 4096, 32, 128),   # Latte temporal
+    (7, 3, 15, True, False, 7, 1, 7),              # 3 heads: one stage a group
+    (5, 20, 15, False, True, 15, 1, 15),           # 20 heads: the third stage of a group cut
+    (1, 1, 16, False, True, 1, 1, 1)])
+def test_stream_geometry(n_groups, heads, group, gains, rope, stages, per_block, grid):
+    g = A.stream_geometry(n_groups, heads, group, 132, gains=gains, rope=rope)
+    assert (g.stages, g.per_block, g.grid) == (stages, per_block, grid)
+    # a stage is one group's 8 heads: ceil(H / 8) stages a group
+    assert g.stages == n_groups * -(-heads // A.STREAM_SLOTS)
+    # every stage in exactly one block's range, no block without a stage
+    assert g.grid * g.per_block >= g.stages > (g.grid - 1) * g.per_block
+    rows = 16 * 72 * 2                                # a head's 16 rows of 72
+    ring = A.STREAM_RING * (3 * A.STREAM_SLOTS * rows + 16)   # q, k, v boxes + mbarriers
+    scratch = A.STREAM_SLOTS * 2 * rows               # each consumer warp's q^ and k^
+    assert g.smem_bytes == ring + scratch + 128 + (2 * heads * 72 * 4 if gains else 0) + \
+        (2 * group * 36 * 4 if rope else 0)
+    assert g.smem_bytes <= A.SMEM_LIMIT
+
+
+def test_stream_geometry_refuses_what_does_not_fit():
+    assert A.stream_geometry(10, 43, 16, 132, gains=True, rope=True).smem_bytes <= A.SMEM_LIMIT
+    with pytest.raises(ValueError, match="shared memory"):
+        A.stream_geometry(10, 44, 16, 132, gains=True, rope=True)
+
+
+@pytest.mark.parametrize("which", ["K5", "K4"])
+def test_stream_maps_box_eight_heads_of_one_group(which):
+    # 720p temporal: 7,200 groups of 15 frames in one row of the projection
+    # (K5); K4: three tensors with their own token strides, 2 batch rows
+    heads, group, gvalid = 16, 15, 13
+    if which == "K5":
+        qkv = _meta(1, 7200 * group, 3 * heads * 72)
+        q, k, v = A.split_qkv(qkv, heads)
+    else:
+        q, k, v = (_meta(2, 40 * group, heads * 72 + 8 * i)[..., :heads * 72]
+                   .unflatten(-1, (heads, 72)) for i in range(1, 4))
+    maps = A.stream_tma_maps("grouped_attention", q, k, v, group, gvalid)
+    assert len(maps) == 3
+    for i, (m, t) in enumerate(zip(maps, (q, k, v))):
+        b, s, _, _ = t.shape
+        ts = t.stride(1) * 2
+        # (channel, in-group position, head, group, batch); rows past the
+        # position extent (group for q, group_valid for k and v) are zeros
+        assert m.dims == (72, group if i == 0 else gvalid, heads, s // group, b)
+        assert m.strides[:3] == (ts, 144, group * ts)
+        assert m.box == (72, 16, A.STREAM_SLOTS, 1, 1) and m.swizzle == 0
+        assert m.words()[:2] == [5, 0]
+    if which == "K5":
+        assert maps[0].strides[0] == 6912 and maps[0].dims[3] == 7200
 
 
 # ---- the GEMM body (K7, K6's projections) and K6's attention stage ----------

@@ -1,29 +1,41 @@
-"""Times K1q (flash_attention_bshd with qk_gains), K8 (matmul_gated_residual),
-K7 (lnmod_matmul) and K6 (fused_cross_attention) at the shapes their paths
-run, on one card, K1q and K8 against another checkout's kernels in turns.
+"""Times K5 (grouped_attention_fused_qkv, with K5r and K4), K1q
+(flash_attention_bshd with qk_gains), K8 (matmul_gated_residual), K7
+(lnmod_matmul) and K6 (fused_cross_attention) at the shapes their paths
+run, on one card, K5, K1q and K8 against another checkout's kernels in turns.
 
-    python tools/time_stdit3_kernels.py [--parent DIR] [--reps 10] [--only k1q,k8,k7,k6]
+    python tools/time_stdit3_kernels.py [--parent DIR] [--reps 10] [--only k5,k1q,k8,k7,k6]
 
 Builds the kernel library from this checkout and prints ptxas's report on
 the Hopper bodies these kernels run on (``hopper_gemm_kernel`` with every
-epilogue, ``hopper_attention_kernel``, ``hopper_cross_kernel``,
-``ln_modulate_kernel``, ``qk_norm_kernel``: registers, spills, any "wgmma
-... serialized" line) and the HGMMA count of each (``cuobjdump -sass``).
-Then, at STDiT3-XL/2's 480p and 720p shapes and Latte-1's, the CUDA-event
-time of one call of each kernel: K1q also split into its pre-pass and its
-attention, beside SDPA without the norm (not the same function); K8 beside
-cuBLAS ``F.linear`` with bias (GEMM only, not the same function), and the
-temporal projection also in the 3-D row geometry (tiles of 128 rows inside
-each batch row of T rows) in place of the flattened rows; K7 beside
-cuBLAS on the already-modulated input; K6 split by stage. With ``--parent
-DIR`` (an unpacked ``git archive`` of another commit, e.g. the parent),
-that checkout's library is built from its own sources and its K1q and K8
-entries are timed on the same inputs in turns (parent, this, this, parent),
-each called with its own C signature (the mma.sync entries
-``mc_flash_attention_qknorm`` and ``mc_matmul_gated_residual`` of a
-checkout without ``mc_qk_norm``, or this checkout's), each output held
-against this checkout's. The last line is the times as JSON. Needs a card:
-exits nonzero without one.
+epilogue, ``hopper_attention_kernel`` with every instantiation,
+``hopper_cross_kernel``, ``ln_modulate_kernel``, ``qk_norm_kernel``,
+``grouped_stream_kernel``: registers, spills, any "wgmma ... serialized"
+line) and the HGMMA count of each (``cuobjdump -sass``). Then, at
+STDiT3-XL/2's 480p and 720p shapes and Latte-1's, the CUDA-event time of one
+call of each kernel: K5 spatial (one group a frame, gains, fixed max) also
+split into its pre-pass and its attention, K5 temporal (groups of 15,
+gains and RoPE), K5r and K4 at Latte's temporal shape (groups of 16, no
+norm, row max), each beside SDPA on the same q/k/v (without the norm where
+K5 has one: not the same function) and with its rate in TB/s; K1q also
+split into its pre-pass and its attention, beside SDPA without the norm;
+K8 beside cuBLAS ``F.linear`` with bias (GEMM only, not the same
+function), and the temporal projection also in the 3-D row geometry
+(tiles of 128 rows inside each batch row of T rows) in place of the
+flattened rows; K7 beside cuBLAS on the already-modulated input; K6 split
+by stage. With ``--parent DIR`` (an unpacked ``git archive`` of another
+commit, e.g. the parent), that checkout's library is built from its own
+sources and its K5, K1q and K8 entries are timed on the same inputs in
+turns (parent, this, this, parent), each called with its own C signature
+(K5: the mma.sync entry ``mc_grouped_attention``, or, for a checkout
+with this one's entries, its library behind this checkout's wrappers; K1q: ``mc_qk_prepass``,
+``mc_qk_norm`` or the mma.sync ``mc_flash_attention_qknorm``; K8:
+``mc_matmul_gated_residual`` in either form), each output held against
+this checkout's. For the groups of up to 16 tokens the parent's
+``grouped_small_kernel`` is also built with its grid transposed (heads in
+``blockIdx.x``, a copy of its package under ``build/transposed``) and
+timed in the same turns (parent, transposed, this, this, transposed,
+parent). The last line is the times as JSON. Needs a card: exits nonzero
+without one.
 """
 
 from __future__ import annotations
@@ -34,6 +46,7 @@ import importlib.util
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 
@@ -44,7 +57,14 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from tools.time_attention_kernels import build_report, cuda_ms  # noqa: E402
 
 BODIES = ("hopper_gemm_kernel", "hopper_attention_kernel", "hopper_cross_kernel",
-          "ln_modulate_kernel", "qk_norm_kernel")
+          "ln_modulate_kernel", "qk_norm_kernel", "grouped_stream_kernel")
+# the parent's mma.sync small-group kernel with its grid transposed (heads
+# in blockIdx.x): the diagnostic that splits its loss between locality and
+# latency
+TRANSPOSE = (("const int grp = blockIdx.x * kWarps + warp;\n  const int h = blockIdx.y;",
+              "const int grp = blockIdx.y * kWarps + warp;\n  const int h = blockIdx.x;"),
+             ("const dim3 grid((n_groups + kWarps - 1) / kWarps, H);",
+              "const dim3 grid(H, (n_groups + kWarps - 1) / kWarps);"))
 LOG2E = math.log2(math.e)
 
 
@@ -58,11 +78,45 @@ def load_parent(path: str):
     return mod.load_cuda_library()
 
 
+def load_transposed(path: str):
+    """The other checkout's library with ``grouped_small_kernel``'s grid
+    transposed: its package copied under ``build/``, the two lines of
+    ``TRANSPOSE`` rewritten, built from that copy. None when the checkout
+    has no such kernel."""
+    src = os.path.join(path, "magcache_tpu_torch")
+    cu = os.path.join(src, "csrc", "grouped_attention.cu")
+    text = open(cu).read()
+    if not all(a in text for a, _ in TRANSPOSE):
+        return None
+    dst = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                       "build", "transposed")
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(src, os.path.join(dst, "magcache_tpu_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__", "build"))
+    for a, b in TRANSPOSE:
+        text = text.replace(a, b)
+    with open(os.path.join(dst, "magcache_tpu_torch", "csrc", "grouped_attention.cu"),
+              "w") as f:
+        f.write(text)
+    return load_parent(dst)
+
+
+def with_library(module, lib, fn):
+    """``fn()`` with ``module``'s wrappers launching ``lib``'s entries (a
+    library built from another checkout with the same C signatures)."""
+    saved = module.load_cuda_library
+    module.load_cuda_library = lambda: lib
+    try:
+        return fn()
+    finally:
+        module.load_cuda_library = saved
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--parent", default=None)
     p.add_argument("--reps", type=int, default=10)
-    p.add_argument("--only", default="k1q,k8,k7,k6")
+    p.add_argument("--only", default="k5,k1q,k8,k7,k6")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -81,7 +135,9 @@ def main(argv=None) -> None:
     load_cuda_library()
     hgmma = build_report(BUILD_DIR, BODIES)
     parent = load_parent(args.parent) if args.parent else None
-    parent_new = parent is not None and hasattr(parent, "mc_qk_norm")
+    # the parent's pre-pass entry: PR 9's mc_qk_norm, this checkout's mc_qk_prepass
+    parent_new = parent is not None and (hasattr(parent, "mc_qk_norm")
+                                         or hasattr(parent, "mc_qk_prepass"))
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     stream = lambda: torch.cuda.current_stream(dev).cuda_stream
@@ -92,18 +148,107 @@ def main(argv=None) -> None:
     reps, d, H, D = args.reps, 1152, 16, 72
     times, errs = {}, {}
 
-    def in_turns(label, new, old, flops):
-        """(parent, this, this, parent) when there is a parent."""
+    def in_turns(label, new, old, flops, moved=None, alt=None):
+        """(parent, this, this, parent) when there is a parent; with ``alt``
+        (the parent transposed) (parent, alt, this, this, alt, parent)."""
         if old is None:
             t = {"ms": cuda_ms(new, reps)}
         else:
             errs[label] = float((new().float() - old().float()).abs().max())
-            o1, n1, n2, o2 = (cuda_ms(f, reps) for f in (old, new, new, old))
-            t = {"ms": min(n1, n2), "ms_runs": [n1, n2], "parent_ms": min(o1, o2),
-                 "parent_runs": [o1, o2]}
+            fns = (old, new, new, old) if alt is None else (old, alt, new, new, alt, old)
+            runs = [cuda_ms(f, reps) for f in fns]
+            n1, n2 = runs[len(runs) // 2 - 1:len(runs) // 2 + 1]
+            t = {"ms": min(n1, n2), "ms_runs": [n1, n2],
+                 "parent_ms": min(runs[0], runs[-1]), "parent_runs": [runs[0], runs[-1]]}
+            if alt is not None:
+                t["transposed_equal"] = bool(torch.equal(alt(), old()))
+                t["transposed_ms"] = min(runs[1], runs[-2])
+                t["transposed_runs"] = [runs[1], runs[-2]]
         t["tflops"] = flops / t["ms"] / 1e9
+        if moved is not None:
+            t["tb_per_s"] = moved / t["ms"] / 1e9
+            for key in ("parent", "transposed"):
+                if f"{key}_ms" in t:
+                    t[f"{key}_tb_per_s"] = moved / t[f"{key}_ms"] / 1e9
         times[label] = t
         print(f"{label}: {json.dumps(t)}")
+
+    # K5 (spatial with gains, fixed max; temporal with gains and RoPE), K5r
+    # and K4 (Latte temporal, no norm, row max)
+    if "k5" in only:
+        from magcache_tpu_torch.ops.rope import grouped_rope_tables
+
+        trans = load_transposed(args.parent) if parent is not None else None
+        gains = tuple(1.0 + 0.1 * torch.randn(H, D, generator=gen, device=dev)
+                      for _ in range(2))
+        for tag, rows, S, group, norm in (
+                ("K5 480p spatial, gains, fixed max", 30, 1590, 1590, True),
+                ("K5 480p temporal, gains + RoPE, fixed max", 1, 47700, 15, True),
+                ("K5 720p temporal, gains + RoPE, fixed max", 1, 108000, 15, True),
+                ("K5r Latte temporal, row max", 1, 32768, 16, False),
+                ("K4 Latte temporal, q/k/v views, row max", 1, 32768, 16, False)):
+            qkv = rnd(rows, S, 3 * H * D)
+            q, k, v = A.split_qkv(qkv, H)
+            rope = tuple(torch.from_numpy(a).to(dev) for a in
+                         grouped_rope_tables(group, group, D)) if group <= 16 and norm else None
+            kw = dict(group=group, scale=D ** -0.5, qk_gains=gains if norm else None,
+                      rope_tables=rope, true_d=D, eps=1e-6,
+                      fixed_max=A.QKNORM_FIXED_MAX if norm else None)
+            if tag.startswith("K4"):
+                new = lambda: A.grouped_flash_attention_bshd(q, k, v, **kw).reshape(
+                    rows, S, H * D)
+            else:
+                new = lambda: A.grouped_attention_fused_qkv(qkv, H, **kw)
+            n_groups = rows * S // group
+            label = f"{tag} {rows}x{S}, group {group}"
+
+            def entry(lib):
+                out = torch.empty(rows, S, H * D, dtype=torch.bfloat16, device=dev)
+                ptr = lambda t: t.data_ptr() if t is not None else None
+                g = [t.contiguous() for t in gains] if norm else [None, None]
+                cs = rope if rope is not None else (None, None)
+
+                def call():
+                    code = lib.mc_grouped_attention(
+                        q.data_ptr(), k.data_ptr(), v.data_ptr(), q.stride(0), q.stride(1),
+                        k.stride(0), k.stride(1), v.stride(0), v.stride(1), out.data_ptr(),
+                        ptr(g[0]), ptr(g[1]), ptr(cs[0]), ptr(cs[1]), n_groups,
+                        S // group, H, group, group, int(not norm), D ** -0.5 * LOG2E,
+                        float(D), 1e-6, A.QKNORM_FIXED_MAX if norm else 0.0, stream())
+                    assert code == 0, code
+                    return out
+                return call
+
+            old = None
+            if parent is not None and hasattr(parent, "mc_grouped_attention"):
+                old = entry(parent)
+            elif parent is not None:
+                # a checkout with this one's entries: its library behind
+                # this checkout's wrappers
+                old = lambda fn=new: with_library(A, parent, fn)
+            alt = entry(trans) if trans is not None and group <= 16 and old is not None \
+                else None
+            in_turns(label, new, old, 4 * n_groups * H * group * group * D,
+                     moved=qkv.numel() * 2 * 4 // 3 + (rope[0].numel() * 8 if rope else 0),
+                     alt=alt)
+            q4, k4, v4 = (t.reshape(n_groups, group, H, D) for t in (q, k, v))
+            times[label]["sdpa_ms"] = cuda_ms(
+                lambda: F.scaled_dot_product_attention(*(t.transpose(1, 2) for t in
+                                                         (q4, k4, v4)), scale=D ** -0.5),
+                reps)
+            print(f"  SDPA{' without the norm' if norm else ''}: "
+                  f"{times[label]['sdpa_ms']:.3f} ms")
+            if group > 16:
+                g = [t.contiguous() for t in gains]
+                qn, kn = A._qk_norm_launch(q, k, g, D ** -0.5, 1e-6, group=group)
+                times[label]["stages_ms"] = {
+                    "qk-norm pre-pass": cuda_ms(lambda: A._qk_norm_launch(
+                        q, k, g, D ** -0.5, 1e-6, group=group), reps),
+                    "attention": cuda_ms(lambda: A._grouped_tma_launch(
+                        "K5", qn, kn, v, group, group, 1.0, A.QKNORM_FIXED_MAX), reps)}
+                print(f"  stages: {json.dumps(times[label]['stages_ms'])}")
+                del qn, kn
+            del qkv, q, k, v, q4, k4, v4
 
     # K1q: one 720p spatial block, q/k/v views of the [30, 3600, 3456] projection
     if "k1q" in only:
@@ -123,11 +268,17 @@ def main(argv=None) -> None:
                 def old():
                     qn = torch.empty_like(out)
                     kn = torch.empty_like(out)
-                    code = parent.mc_qk_norm(
-                        q.data_ptr(), k.data_ptr(), qn.data_ptr(), kn.data_ptr(),
-                        gains[0].data_ptr(), gains[1].data_ptr(), frames, S, S, H,
-                        q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-                        D ** -0.5 * LOG2E, 1.0 / D, 1e-6, stream())
+                    ptrs = (q.data_ptr(), k.data_ptr(), qn.data_ptr(), kn.data_ptr(),
+                            gains[0].data_ptr(), gains[1].data_ptr())
+                    strides = (q.stride(0), q.stride(1), k.stride(0), k.stride(1))
+                    if hasattr(parent, "mc_qk_prepass"):
+                        code = parent.mc_qk_prepass(*ptrs, None, None, frames, S, S, H,
+                                                    *strides, S, S, S, S,
+                                                    D ** -0.5 * LOG2E, 1.0 / D, 1e-6,
+                                                    stream())
+                    else:
+                        code = parent.mc_qk_norm(*ptrs, frames, S, S, H, *strides,
+                                                 D ** -0.5 * LOG2E, 1.0 / D, 1e-6, stream())
                     assert code == 0, code
                     hm = [t.transpose(1, 2) for t in (qn, kn, v, out)]
                     code = parent.mc_flash_attention_qknorm_tma(
