@@ -89,12 +89,15 @@ Latte-1 T2V (K5r, K4, K9, K1 at padded head dim, K3, K6-K8):
    of the wgmma/TMA body) and temporal (the "stream" kernel), K5r at groups
    of 1,590 with 1,400 valid keys (ragged tiles, positions past
    group_valid), K4 and K9 at the temporal shape (and with gains and RoPE
-   at the STDiT3 480p temporal shape), K1 with the running max at head dim 72 zero-padded to 128
-   (spatial and cross), K3, K6 over 120 caption keys, K7 and K8;
+   at the STDiT3 480p temporal shape; K9 on its "stream" route at both,
+   logged with its rate in TB/s), K1 with the running max at head dim 72
+   zero-padded to 128 (spatial and cross), K3, K6 over 120 caption keys, K7
+   and K8;
 20. one full-shape forward of LATTE_1 (28 block pairs, 1.057 B parameters)
    on each route: packed, grouped (K4) and vpu (K9), twice each; checks the
-   launches per trunk run, and the grouped launches by route (packed: tma
-   28, stream 28; grouped: stream 28; vpu: none);
+   launches per trunk run, the grouped launches by route (packed: tma
+   28, stream 28; grouped: stream 28; vpu: none) and K9's (vpu: stream
+   28);
 21. requests through ``LattePipeline.generate`` at 512x512 x 16 and 50 DDIM
    steps: a full-compute calibration request, then MagCache (E 0.12 K 3
    R 0.2) with the recorded ratios installed, on the packed route and on the
@@ -222,6 +225,11 @@ OS_ROUTES = dict(NO_ROUTES, stream=28, prepass=28)
 OS720_ROUTES = dict(NO_ROUTES, stream=28)
 LATTE_ROUTES = {"packed": dict(NO_ROUTES, stream=28, tma=28),
                 "grouped": dict(NO_ROUTES, stream=28), "vpu": NO_ROUTES}
+# K9's launches per trunk run by route (ops.tiny_attention.tiny_kernel_route):
+# the vpu route's temporal attention, 16 frames of head dim 72, streams
+NO_TINY_ROUTES = {"stream": 0, "general": 0}
+LATTE_TINY_ROUTES = {"packed": NO_TINY_ROUTES, "grouped": NO_TINY_ROUTES,
+                     "vpu": dict(NO_TINY_ROUTES, stream=28)}
 # Latte-1 at 512x512 x 16 frames: 28 (spatial, temporal) block pairs per
 # trunk run, by route
 LATTE_TRUNK_LAUNCHES = {
@@ -530,9 +538,11 @@ def reset_counts():
     """Sets every kernel wrapper's launch counts to 0."""
     from magcache_tpu_torch.ops import attention as A
     from magcache_tpu_torch.ops import fused_prologue as P
+    from magcache_tpu_torch.ops import tiny_attention as TA
 
     for fn in _wrappers():
         fn.launches = 0
+    TA.tiny_temporal_attention.routes.update(NO_TINY_ROUTES)
     A.flash_attention_bshd.qknorm_launches = 0
     P.layer_norm_mod.plain_launches = 0
     A.grouped_attention_fused_qkv.rowmax_launches = 0
@@ -556,16 +566,19 @@ def read_counts() -> dict:
     return counts
 
 
-def check_routes(label: str, runs: int, want: dict) -> None:
+def check_routes(label: str, runs: int, want: dict, tiny: dict = NO_TINY_ROUTES) -> None:
     """Fails unless the grouped kernels' launches by route since the last
     ``reset_counts`` are ``want`` per trunk run over ``runs`` runs (no
-    "tiled" route: the mma.sync kernel for large groups is gone)."""
+    "tiled" route: the mma.sync kernel for large groups is gone), and K9's
+    are ``tiny``."""
     from magcache_tpu_torch.ops import attention as A
+    from magcache_tpu_torch.ops import tiny_attention as TA
 
-    got = dict(A._grouped_launch.routes)
-    log(f"  {label}: grouped launches by route {got} ({runs} trunk runs)")
-    if got != {k: n * runs for k, n in want.items()}:
-        fail(f"{label}: grouped routes {got} != {want} x {runs}")
+    for kind, got, per_run in (("grouped", dict(A._grouped_launch.routes), want),
+                               ("K9", dict(TA.tiny_temporal_attention.routes), tiny)):
+        log(f"  {label}: {kind} launches by route {got} ({runs} trunk runs)")
+        if got != {k: n * runs for k, n in per_run.items()}:
+            fail(f"{label}: {kind} routes {got} != {per_run} x {runs}")
 
 
 def count_launches(counts_before: dict) -> dict:
@@ -1613,6 +1626,18 @@ def phase_os720_card_vs_cpu(dev):
 
 
 # -------------------------------------------------------------------- Latte
+def check_tiny_route(route: str, call):
+    """``call()``'s result; fails unless it launched K9 once, on ``route``."""
+    from magcache_tpu_torch.ops import tiny_attention as TA
+
+    before = dict(TA.tiny_temporal_attention.routes)
+    out = call()
+    got = {k: n - before[k] for k, n in TA.tiny_temporal_attention.routes.items()}
+    if got != dict(NO_TINY_ROUTES, **{route: 1}):
+        fail(f"K9 launched by route {got}, not once on {route!r}")
+    return out
+
+
 def phase_latte_kernels(dev, rec):
     """K5r, K4, K9, K1 at padded head dim, and K3, K6-K8 vs their plain
     versions at Latte-1 512x512 x 16 shapes (2 rows of 16 frames x 1,024
@@ -1636,9 +1661,15 @@ def phase_latte_kernels(dev, rec):
         """q, k, v ``[groups, group, H, 72]`` views of a fused projection."""
         return qkv.reshape(groups, group, 3, H, D).unbind(2)
 
+    def valid_keys(qkv_heads, gvalid):
+        """q, and k and v cut to their first ``gvalid`` positions."""
+        q, k, v = qkv_heads
+        return q, k[:, :gvalid], v[:, :gvalid]
+
     # K5r (tolerances of the K5 records): spatial, one group per frame, and
     # temporal, groups of 16 frames; SDPA on the same q/k/v computes the same
-    # function (no qk-norm)
+    # function (no qk-norm), over the frames as the batch with k and v cut to
+    # the valid keys where group_valid < group
     for label, qkv, group, gvalid in (
             (f"spatial {rows * T}x{S}, group {S}", rnd(rows * T, S, 3 * d), S, S),
             ("8x1590, group 1590, 1400 valid keys", rnd(8, 1590, 3 * d), 1590, 1400),
@@ -1652,8 +1683,7 @@ def phase_latte_kernels(dev, rec):
                cuda_ms(lambda: A.grouped_attention_fused_qkv(qkv, H, **kw)),
                cuda_ms(lambda: A.grouped_attention_fused_qkv_plain(qkv, H, **kw), 1),
                4 * groups * H * group * gvalid * D, nbytes(qkv, got),
-               library=(sdpa, sdpa_ms(*heads(qkv, groups, group), 20))
-               if gvalid == group else None)
+               library=(sdpa, sdpa_ms(*valid_keys(heads(qkv, groups, group), gvalid), 20)))
         del got, want
 
     # K4 (q/k/v views of the projection) and K9 (the projection) at the
@@ -1670,15 +1700,16 @@ def phase_latte_kernels(dev, rec):
            cuda_ms(lambda: A.grouped_flash_attention_bshd_plain(*flat, **kw), 1),
            flops, moved, library=lib)
     x3 = qkv.reshape(rows * S, T, 3 * d)
-    got = TA.tiny_temporal_attention(x3, None, None, None, None, H, mode="vpu")
+    got = check_tiny_route("stream", lambda: TA.tiny_temporal_attention(
+        x3, None, None, None, None, H, mode="vpu"))
     want = TA.tiny_temporal_attention_plain(x3, None, None, None, None, H)
     # f32 throughout, one rounding at the store: a bf16 ulp of the output
-    record(rec, "tiny_temporal_attention", f"temporal {rows * S}x{T}", got, want,
-           cuda_ms(lambda: TA.tiny_temporal_attention(x3, None, None, None, None, H,
-                                                      mode="vpu")),
-           cuda_ms(lambda: TA.tiny_temporal_attention_plain(x3, None, None, None, None,
-                                                            H), 1),
+    ms = cuda_ms(lambda: TA.tiny_temporal_attention(x3, None, None, None, None, H, mode="vpu"))
+    record(rec, "tiny_temporal_attention", f"temporal {rows * S}x{T}, route stream", got,
+           want, ms, cuda_ms(lambda: TA.tiny_temporal_attention_plain(x3, None, None, None,
+                                                                      None, H), 1),
            flops, moved, atol=1e-2, library=lib, tflops=H100_F32_TFLOPS)
+    log(f"    K9 route stream: {moved / ms / 1e9:.2f} TB/s")
     del qkv, x3, got, want, flat, tq, tk, tv
 
     # K4 and K9 with gains and RoPE at the STDiT3-XL/2 480p temporal shape
@@ -1699,13 +1730,15 @@ def phase_latte_kernels(dev, rec):
            cuda_ms(lambda: A.grouped_flash_attention_bshd(*flat, **kw)),
            cuda_ms(lambda: A.grouped_flash_attention_bshd_plain(*flat, **kw), 1),
            flops, moved)
-    got = TA.tiny_temporal_attention(qkv, *gains, cos, sin, H, mode="vpu")
+    got = check_tiny_route("stream", lambda: TA.tiny_temporal_attention(
+        qkv, *gains, cos, sin, H, mode="vpu"))
     want = TA.tiny_temporal_attention_plain(qkv, *gains, cos, sin, H)
+    ms = cuda_ms(lambda: TA.tiny_temporal_attention(qkv, *gains, cos, sin, H, mode="vpu"))
     record(rec, "tiny_temporal_attention", f"STDiT3 480p temporal {Rs}x{Ts}, qk-norm + "
-           f"RoPE", got, want,
-           cuda_ms(lambda: TA.tiny_temporal_attention(qkv, *gains, cos, sin, H, mode="vpu")),
+           f"RoPE, route stream", got, want, ms,
            cuda_ms(lambda: TA.tiny_temporal_attention_plain(qkv, *gains, cos, sin, H), 1),
            flops, moved, atol=1e-2, tflops=H100_F32_TFLOPS)
+    log(f"    K9 route stream: {moved / ms / 1e9:.2f} TB/s")
     log(f"    SDPA on the same q/k/v without the norm: {sdpa_ms(q, k, v, 20):.3f} ms")
     del qkv, q, k, v, flat, got, want
 
@@ -1796,7 +1829,7 @@ def phase_latte_forward(dev, model):
             f"per forward {per_run}")
         if per_run != LATTE_TRUNK_LAUNCHES[route]:
             fail(f"{route}: launches per forward {per_run} != {LATTE_TRUNK_LAUNCHES[route]}")
-        check_routes(f"{route} forward", 2, LATTE_ROUTES[route])
+        check_routes(f"{route} forward", 2, LATTE_ROUTES[route], LATTE_TINY_ROUTES[route])
         outs[route] = out.float()
     for route in ("grouped", "vpu"):
         rel = float((outs[route] - outs["packed"]).norm() / outs["packed"].norm())

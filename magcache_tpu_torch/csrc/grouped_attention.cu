@@ -58,24 +58,26 @@
 // head); a stage is one group's heads 8j .. 8j + 7, one a consumer warp.
 // Persistent blocks (one an SM: 8 consumer warps and a producer warp) walk
 // a contiguous range of stages front to back through a ring of three
-// shared-memory stages. The producer issues three TMA loads a stage, one
-// box of 72 columns x 16 positions x 8 heads each of q, k and v over 5-D
-// maps of the tensors' own strides (a token's 8 heads are 1,152 contiguous
-// bytes); positions past group or group_valid and heads past H arrive as
-// zeros, without being read. Rows land 144 bytes apart, which keeps
-// ldmatrix conflict-free; the products never use columns 72..79 (the fifth
-// k-step of Q K^T is an m16n8k8, P V leaves its tenth n8 tile out). The
-// block keeps the gains [H, 72] and the RoPE tables [group, 36] in shared
-// memory. A consumer warp writes its task's q^ (lane r: row r; the norm,
-// RoPE and q's scale are template parameters) and, with the norm or RoPE,
-// k^ (lane 16 + r) to its own scratch rows, does the 16 x 16 score tile and
-// the 16 x 72 output with mma.sync m16n8k16 in one k-step (a row's 16
-// scores sit in one quad of lanes: its max is two shuffles), releases the
-// stage as soon as P V has read V, and stores the output rows from its
-// scratch with 16-byte stores. The ring is written only by the copy engine
-// and read only by the consumers, so no proxy fence sits in the loop.
-// mma.sync stays the right instruction here: wgmma's M = 64 would waste
-// three quarters of each product on 16-row block-diagonal groups.
+// shared-memory stages (the skeleton of stream_ring.cuh, which K9's
+// tiny_stream_kernel shares). The producer issues three TMA loads a stage,
+// one box of 72 columns x 16 positions x 8 heads each of q, k and v over
+// 5-D maps of the tensors' own strides (a token's 8 heads are 1,152
+// contiguous bytes); positions past group or group_valid and heads past H
+// arrive as zeros, without being read. Rows land 144 bytes apart, which
+// keeps ldmatrix conflict-free; the products never use columns 72..79 (the
+// fifth k-step of Q K^T is an m16n8k8, P V leaves its tenth n8 tile out).
+// The block keeps the gains [H, 72] and the RoPE tables [group, 36] in
+// shared memory. A consumer warp writes its task's q^ (lane r: row r; the
+// norm, RoPE and q's scale are template parameters) and, with the norm or
+// RoPE, k^ (lane 16 + r) to its own scratch rows, does the 16 x 16 score
+// tile and the 16 x 72 output with mma.sync m16n8k16 in one k-step (a row's
+// 16 scores sit in one quad of lanes: its max is two shuffles), releases
+// the stage as soon as P V has read V, divides each value by its row's l
+// (correctly rounded, as the reference's o / l) and stores the output rows
+// from its scratch with 16-byte stores. The ring is written only by the
+// copy engine and read only by the consumers, so no proxy fence sits in the
+// loop. mma.sync stays the right instruction here: wgmma's M = 64 would
+// waste three quarters of each product on 16-row block-diagonal groups.
 //
 // What the design steps measured on an H100 SXM (tools/time_stdit3_kernels.py,
 // PERF.md section 6, PR 10): cp.async into the ring with one block of
@@ -86,22 +88,24 @@
 
 #include "hopper_attention.cuh"
 #include "mma_tile.cuh"
+#include "stream_ring.cuh"
 
 namespace {
 
 using mc::bf16;
+using stream_ring::kBoxElems;
+using stream_ring::kD;                              // 72
+using stream_ring::kRows;
+using stream_ring::kSlotElems;
+using stream_ring::kSlots;
+using stream_ring::kStageElems;
+using stream_ring::kThreads;
+using stream_ring::StreamMaps;
 
-constexpr int kD = mc::kHD;                         // 72
+constexpr int kRing = 3;                            // stages in shared memory
 constexpr int kDP = mc::kHDP;                       // 80: five k16 steps
 constexpr int kStr = mc::kHStr;                     // 72: a head row in shared memory
-constexpr int kSlots = 8;                           // heads a stage, one a warp
-constexpr int kThreads = (kSlots + 1) * 32;         // + the producer warp
-constexpr int kRows = 16;                           // a group's rows, padded
 constexpr int kChunks = kD / 8;                     // 16-byte chunks a head row
-constexpr int kRing = 3;                            // stages in shared memory
-constexpr int kSlotElems = kRows * kStr;            // one tensor's rows of a task
-constexpr int kBoxElems = kSlots * kSlotElems;      // one tensor's TMA box
-constexpr int kStageElems = 3 * kBoxElems;          // q, k and v of 8 tasks
 constexpr int kScratchElems = 2 * kSlotElems;       // a warp's q^ (then o) and k^
 
 struct StreamArgs {
@@ -113,12 +117,6 @@ struct StreamArgs {
   int gpb, H, group, gvalid, rowmax;              // gpb: groups per batch row
   int n_stages, per_block;                        // stages; a block's range
   float q_scale, inv_true_d, eps, m_const;
-};
-
-// q, k and v: 5-D maps (channel, in-group position, head, group, batch),
-// box 72 x 16 x 8 x 1 x 1 (ops/attention.py:stream_tma_maps)
-struct StreamMaps {
-  CUtensorMap t[3];
 };
 
 // One q or k head row from src to dst (both in shared memory): RMS norm
@@ -176,9 +174,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 grouped_stream_kernel(const __grid_constant__ StreamMaps maps, const StreamArgs p) {
   constexpr bool kPrepK = kNorm || kRope;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
-  bf16* ring = reinterpret_cast<bf16*>(smem);
+  bf16* ring = reinterpret_cast<bf16*>(stream_ring::aligned_smem(smem_raw));
   bf16* scratch = ring + kRing * kStageElems;                       // [8][2][16][72]
   uint64_t* full = reinterpret_cast<uint64_t*>(scratch + kSlots * kScratchElems);
   uint64_t* empty = full + kRing;
@@ -198,31 +194,13 @@ grouped_stream_kernel(const __grid_constant__ StreamMaps maps, const StreamArgs 
   if (kRope)
     for (int i = tid; i < p.group * kD; i += kThreads)
       tabs[i] = i < p.group * (kD / 2) ? p.cos[i] : p.sin[i - p.group * (kD / 2)];
-  if (tid == 0) {
-    for (int i = 0; i < kRing; ++i) {
-      hopper::mbar_init(&full[i], 1);
-      hopper::mbar_init(&empty[i], kSlots);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  if (tid == 0) stream_ring::init_barriers<kRing>(full, empty);
   __syncthreads();
 
   if (warp == kSlots) {
     // ---- producer: three boxes a stage; positions past group (q) or
     // group_valid (k, v) and heads past H arrive as zeros
-    if (lane == 0) {
-      for (int s = s0, it = 0; s < s1; ++s, ++it) {
-        const int buf = it % kRing;
-        hopper::mbar_wait(&empty[buf], ((it / kRing) & 1) ^ 1);
-        const int g = s / hc, h0 = (s % hc) * kSlots;
-        bf16* st = ring + buf * kStageElems;
-        hopper::mbar_expect_tx(&full[buf], kStageElems * 2);
-#pragma unroll
-        for (int x = 0; x < 3; ++x)
-          hopper::tma_load_5d(st + x * kBoxElems, &maps.t[x], &full[buf], 0, 0, h0,
-                              g % p.gpb, g / p.gpb);
-      }
-    }
+    if (lane == 0) stream_ring::produce<kRing>(maps, ring, full, empty, s0, s1, hc, p.gpb);
     return;
   }
 
@@ -289,6 +267,12 @@ grouped_stream_kernel(const __grid_constant__ StreamMaps maps, const StreamArgs 
   }
 }
 
+// out[i] = acc[i] / l[i] through the stream store's division (a test entry).
+__global__ void row_quotient_kernel(const float* acc, const float* l, float* out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = mc::row_quotient(acc[i], l[i], mc::row_reciprocal(l[i]));
+}
+
 template <bool kNorm, bool kRope>
 int launch_stream(const StreamMaps& m, const StreamArgs& a, int grid, int smem_bytes,
                   cudaStream_t stream) {
@@ -314,11 +298,8 @@ extern "C" int mc_grouped_stream(const void* q, const void* k, const void* v,
                                  float m_const, int grid, int per_block, int smem_bytes,
                                  void* stream) {
   StreamMaps m;
-  const void* base[3] = {q, k, v};
-  for (int i = 0; i < 3; ++i) {
-    const int err = hopper::encode_map(&m.t[i], base[i], maps + i * hopper::kMapWords);
-    if (err) return err;
-  }
+  const int err = stream_ring::encode_maps(&m, q, k, v, maps);
+  if (err) return err;
   StreamArgs a{};
   a.out = static_cast<bf16*>(out);
   a.qg = static_cast<const float*>(qg);
@@ -343,6 +324,16 @@ extern "C" int mc_grouped_stream(const void* q, const void* k, const void* v,
                           : launch_stream<true, false>(m, a, grid, smem_bytes, st);
   return cos != nullptr ? launch_stream<false, true>(m, a, grid, smem_bytes, st)
                         : launch_stream<false, false>(m, a, grid, smem_bytes, st);
+}
+
+// The stream store's division over n (acc, l) pairs of f32: the test of its
+// rounding against torch.div.
+extern "C" int mc_row_quotient(const void* acc, const void* l, void* out, int n,
+                               void* stream) {
+  row_quotient_kernel<<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(acc), static_cast<const float*>(l), static_cast<float*>(out),
+      n);
+  return (int)cudaGetLastError();
 }
 
 // The "tma" (q scaled in the body, q_scale = scale*log2(e), row max) and

@@ -625,41 +625,57 @@ def _check_head_rows(name: str, t: torch.Tensor, shape, dev) -> None:
 
 
 STREAM_SLOTS = 8              # the stream kernel's heads a stage, one a warp
-STREAM_RING = 3               # its stages in shared memory
+STREAM_RING = 3               # its stages in shared memory (K9's kernel: 2)
 STREAM_MAX_GROUP = 16         # groups it takes: up to 16 tokens (a box of 16 rows)
+STREAM_BOX_BYTES = STREAM_MAX_GROUP * GROUPED_HEAD_DIM * 2    # a head's 16 rows of 72
 
 
 @dataclasses.dataclass(frozen=True)
 class StreamGeometry:
-    """The stream kernel's launch: ``grid`` persistent blocks walking
-    ``per_block`` consecutive stages each (``stages`` in all: one a group and
-    ``STREAM_SLOTS`` heads), with ``smem_bytes`` of shared memory: the ring
-    (a stage holds one TMA box of 8 heads x 16 rows x 72 columns of q, k and
-    v each), each consumer warp's q^ and k^ rows, two mbarriers a stage, 128
-    bytes of alignment and, when present, the gains ``[2, H, 72]`` and RoPE
-    tables ``[2, group, 36]`` in f32."""
+    """The launch of a kernel on the stream skeleton (K5's stream route,
+    K9's): ``grid`` persistent blocks walking ``per_block`` consecutive
+    stages each (``stages`` in all: one a group and ``STREAM_SLOTS`` heads),
+    with ``smem_bytes`` of shared memory: the ring (a stage holds one TMA box
+    of 8 heads x 16 rows x 72 columns of q, k and v each), each consumer
+    warp's scratch rows, two mbarriers a stage, 128 bytes of alignment and,
+    when present, the gains ``[2, H, 72]`` and RoPE tables ``[2, group, 36]``
+    in f32."""
     stages: int
     per_block: int
     grid: int
     smem_bytes: int
 
 
-def stream_geometry(n_groups: int, heads: int, group: int, sms: int, *,
-                    gains: bool, rope: bool) -> StreamGeometry:
-    """The stream kernel's geometry for ``n_groups`` groups of ``group``
-    tokens and ``heads`` heads on a card with ``sms`` SMs; raises when its
-    shared memory would exceed a block's (more than 43 heads with gains and
-    RoPE)."""
+def persistent_stream(name: str, n_groups: int, heads: int, group: int, sms: int,
+                      scratch: int, *, gains: bool, rope: bool,
+                      ring: int = STREAM_RING) -> StreamGeometry:
+    """The launch of a kernel on the stream skeleton (``csrc/stream_ring.cuh``)
+    for ``n_groups`` groups of ``group`` tokens and ``heads`` heads on a card
+    with ``sms`` SMs: ``ceil(H / 8)`` stages a group, split into contiguous
+    ranges, one a block and at most one block an SM; shared memory for the
+    ring (``ring`` stages of q, k and v boxes, two mbarriers each), the
+    kernel's ``scratch`` bytes, 128 bytes of alignment, and the gains
+    ``[2, H, 72]`` and RoPE tables ``[2, group, 36]`` in f32 when present.
+    Raises naming ``name`` when that exceeds a block's shared memory."""
     stages = n_groups * -(-heads // STREAM_SLOTS)
     per_block = -(-stages // min(sms, stages))
-    rows = STREAM_MAX_GROUP * GROUPED_HEAD_DIM * 2          # a head's 16 rows, bytes
-    smem = STREAM_RING * (3 * STREAM_SLOTS * rows + 2 * 8) + STREAM_SLOTS * 2 * rows + 128 \
+    smem = ring * (3 * STREAM_SLOTS * STREAM_BOX_BYTES + 2 * 8) + scratch + 128 \
         + (2 * heads * GROUPED_HEAD_DIM * 4 if gains else 0) \
         + (2 * group * GROUPED_HEAD_DIM // 2 * 4 if rope else 0)
     if smem > SMEM_LIMIT:
-        raise ValueError(f"grouped attention: {heads} heads with gains need {smem} bytes "
+        raise ValueError(f"{name}: {heads} heads with gains need {smem} bytes "
                          f"of shared memory, more than {SMEM_LIMIT}")
     return StreamGeometry(stages, per_block, -(-stages // per_block), smem)
+
+
+def stream_geometry(n_groups: int, heads: int, group: int, sms: int, *,
+                    gains: bool, rope: bool) -> StreamGeometry:
+    """The stream kernel's geometry (``persistent_stream``; its scratch is
+    each consumer warp's q^ and k^ rows in bf16); raises when its shared
+    memory would exceed a block's (more than 43 heads with gains and
+    RoPE)."""
+    return persistent_stream("grouped attention", n_groups, heads, group, sms,
+                             STREAM_SLOTS * 2 * STREAM_BOX_BYTES, gains=gains, rope=rope)
 
 
 def stream_tma_maps(name: str, q, k, v, group: int, group_valid: int) -> list:

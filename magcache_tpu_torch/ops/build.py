@@ -126,6 +126,11 @@ def _load_cuda_library() -> ctypes.CDLL:
     lib.mc_tiny_attention.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, cf, cf,
                                       vp]
     lib.mc_tiny_attention.restype = ci
+    lib.mc_tiny_stream.argtypes = [vp, vp, vp, pl, vp, vp, vp, vp, vp, ci, ci, ci, cf, cf,
+                                   ci, ci, ci, vp]
+    lib.mc_tiny_stream.restype = ci
+    lib.mc_row_quotient.argtypes = [vp, vp, vp, ci, vp]
+    lib.mc_row_quotient.restype = ci
     lib.mc_error_string.argtypes = [ci]
     lib.mc_error_string.restype = ctypes.c_char_p
     return lib

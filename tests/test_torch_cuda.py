@@ -526,13 +526,19 @@ def test_k4_on_separate_strided_tensors_matches_plain(dev, group, gvalid, norm, 
     assert torch.equal(dense, got)
 
 
-@pytest.mark.parametrize("r,t,heads,d,norm,rope", [
-    (2048, 16, 16, 72, False, False),   # Latte temporal, vpu mode
-    (3180, 15, 16, 72, True, True),     # STDiT3 480p temporal
-    (37, 32, 3, 64, True, False),
-    (50, 5, 2, 128, False, True),
-    (9, 1, 4, 8, True, True)])
-def test_k9_matches_plain(dev, r, t, heads, d, norm, rope):
+@pytest.mark.parametrize("r,t,heads,d,norm,rope,route", [
+    (2048, 16, 16, 72, False, False, "stream"),   # Latte temporal, vpu mode
+    (3180, 15, 16, 72, True, True, "stream"),     # STDiT3 480p temporal
+    (37, 32, 3, 64, True, False, "general"),
+    (50, 5, 2, 128, False, True, "general"),
+    (9, 1, 4, 8, True, True, "general"),
+    (41, 17, 2, 72, False, True, "general"),      # one frame past the stream boxes
+    (300, 16, 2, 64, True, False, "general"),     # 16 frames of another head dim
+    (133, 16, 3, 72, True, True, "stream"),       # 3 heads; the last block one stage
+    (1000, 15, 20, 72, False, False, "stream"),   # a group's third stage 4 heads
+    (7, 9, 11, 72, True, False, "stream"),
+    (5, 1, 8, 72, False, True, "stream")])
+def test_k9_matches_plain(dev, r, t, heads, d, norm, rope, route):
     from magcache_tpu_torch.ops import tiny_attention as TA
     from magcache_tpu_torch.ops.rope import rope_freqs_1d
 
@@ -542,12 +548,49 @@ def test_k9_matches_plain(dev, r, t, heads, d, norm, rope):
     tabs = tuple(torch.from_numpy(a).to(dev) for a in rope_freqs_1d(np.arange(t), d)) \
         if rope else (None, None)
     before = TA.tiny_temporal_attention.launches
+    routes = dict(TA.tiny_temporal_attention.routes)
     got = TA.tiny_temporal_attention(qkv, *gains, *tabs, heads, mode="vpu")
     want = TA.tiny_temporal_attention_plain(qkv, *gains, *tabs, heads)
     assert TA.tiny_temporal_attention.launches == before + 1
+    routes[route] += 1
+    assert TA.tiny_temporal_attention.routes == routes
     # f32 throughout, rounded once at the store: a bf16 ulp at most
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=1e-2)
+
+
+def test_stream_store_divides_exactly(dev):
+    """The stream route's store (``mc::row_quotient`` in ``csrc/mma_tile.cuh``,
+    through the library's test entry) is the correctly rounded acc / l, bit
+    for bit: row sums l in [1, 16] (the row max's p is 1) and far outside
+    (a fixed shift), reciprocals whose mantissa is all ones, and
+    accumulators of every sign over 2^-60 .. 2^60 (the range it is exact
+    in reaches about 2^-100 .. 2^100)."""
+    from magcache_tpu_torch.ops.build import load_cuda_library
+
+    rng = np.random.default_rng(11)
+    n = 1 << 21
+    l_vals = np.where(rng.random(n) < 0.5, 1.0 + 15.0 * rng.random(n),
+                      2.0 ** rng.uniform(-30, 30, n))
+    l_vals[:8] = [1.0, 2.0, 16.0, 3.0, 7.0, np.nextafter(np.float32(2), 0),
+                  np.nextafter(np.float32(1), 2), np.nextafter(np.float32(16), 0)]
+    ones = np.nextafter(np.float32(2), 0) * 2.0 ** rng.integers(-10, 4, n // 8)
+    l_vals[n - n // 8:] = ones                              # 1.11..1 x 2^e
+    acc_vals = rng.standard_normal(n) * 2.0 ** rng.uniform(-60, 60, n)
+    acc_vals[8:64] = rng.integers(-4096, 4096, 56)           # exact quotients too
+    acc_vals[64] = 0.0
+    acc = torch.from_numpy(acc_vals.astype(np.float32))
+    l_sum = torch.from_numpy(l_vals.astype(np.float32))
+    acc_d, l_d = acc.to(dev), l_sum.to(dev)
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+    lib = load_cuda_library()
+    code = lib.mc_row_quotient(acc_d.data_ptr(), l_d.data_ptr(), out.data_ptr(), n,
+                               torch.cuda.current_stream(dev).cuda_stream)
+    torch.cuda.synchronize()
+    assert code == 0
+    want = torch.div(acc, l_sum)
+    assert torch.equal(out.cpu().view(torch.int32), want.view(torch.int32))
+    assert torch.equal(out.cpu().to(torch.bfloat16), want.to(torch.bfloat16))
 
 
 def test_latte_kernels_refuse_what_they_do_not_take(dev):

@@ -230,6 +230,87 @@ def test_tiny_attention_routes_by_shape():
         T.tiny_temporal_attention(odd, None, None, None, None, 2, mode="0")
 
 
+@pytest.mark.parametrize("t,d,route", [
+    (16, 72, "stream"),      # Latte temporal
+    (15, 72, "stream"),      # STDiT3 temporal
+    (1, 72, "stream"),
+    (17, 72, "general"),     # past a box of 16 frames
+    (16, 64, "general"),     # another head dim
+    (32, 128, "general"),
+    (5, 80, "general")])
+def test_k9_route_by_frames_and_head_dim(t, d, route):
+    assert T.tiny_kernel_route(t, d) == route
+
+
+@pytest.mark.parametrize("rows,heads,t,gains,rope,stages,per_block,grid", [
+    (2048, 16, 16, False, False, 4096, 32, 128),   # Latte temporal
+    (3180, 16, 15, True, True, 6360, 49, 130),     # STDiT3 480p temporal
+    (133, 3, 16, True, True, 133, 2, 67),          # 3 heads; the last block one stage
+    (1000, 20, 15, False, True, 3000, 23, 131),    # 20 heads: a group's third stage cut
+    (5, 16, 9, True, False, 10, 1, 10)])
+def test_k9_stream_geometry(rows, heads, t, gains, rope, stages, per_block, grid):
+    g = T.tiny_stream_geometry(rows, heads, t, 132, gains=gains, rope=rope)
+    assert (g.stages, g.per_block, g.grid) == (stages, per_block, grid)
+    # every stage in exactly one block's range, no block without a stage
+    assert g.grid * g.per_block >= g.stages > (g.grid - 1) * g.per_block
+    box = 16 * 72 * 2                               # a head's 16 rows of 72, bf16
+    ring = 2 * (3 * 8 * box + 16)                   # q, k, v boxes + two mbarriers
+    scratch = 8 * 2 * 16 * 76 * 4                   # each consumer warp's f32 k^ and v
+    assert g.smem_bytes == ring + scratch + 128 + (2 * heads * 72 * 4 if gains else 0) + \
+        (2 * t * 36 * 4 if rope else 0)
+    assert g.smem_bytes <= A.SMEM_LIMIT
+
+
+def test_k9_stream_geometry_refuses_what_does_not_fit():
+    assert T.tiny_stream_geometry(10, 68, 16, 132, gains=True, rope=True).smem_bytes \
+        <= A.SMEM_LIMIT
+    with pytest.raises(ValueError, match="shared memory"):
+        T.tiny_stream_geometry(10, 69, 16, 132, gains=True, rope=True)
+
+
+def test_k9_stream_maps_are_column_views_of_the_projection():
+    # R groups of T frames: [1, R*T, H, 72] views of qkv [R, T, 3*H*72]
+    r, t, heads = 6, 15, 3
+    qkv = torch.zeros(r, t, 3 * heads * D, dtype=torch.bfloat16)
+    q, k, v = A.split_qkv(qkv.reshape(1, r * t, -1), heads)
+    maps = A.stream_tma_maps("tiny_temporal_attention", q, k, v, t, t)
+    row = 3 * heads * D * 2                         # a token's bytes
+    for m, view in zip(maps, (q, k, v)):
+        assert view.data_ptr() - qkv.data_ptr() in (0, heads * D * 2, 2 * heads * D * 2)
+        assert m.dims == (D, t, heads, r, 1)
+        assert m.strides[:3] == (row, D * 2, t * row)
+        assert m.box == (D, 16, 8, 1, 1) and m.swizzle == 0
+
+
+def test_k9_refuses_what_its_kernels_do_not_take():
+    r, t, heads = 4, 16, 2
+    cos, sin = (torch.from_numpy(a) for a in rope_freqs_1d(np.arange(t), D))
+    gain = torch.ones(D)
+    gains, tabs = T.check_kernel_args((r, t, 3 * heads * D), heads, gain, gain * 2, cos,
+                                      sin, torch.device("cpu"))
+    assert [tuple(g.shape) for g in gains] == [(heads, D)] * 2 and gains[1][1, 0] == 2
+    assert all(x.dtype == torch.float32 and x.is_contiguous() for x in gains + tabs)
+    assert T.check_kernel_args((r, t, 3 * heads * D), heads, None, None, None, None,
+                               torch.device("cpu")) == ([None, None], [None, None])
+    cpu = torch.device("cpu")
+    for d in (12, 136):                              # not a multiple of 8; past 128
+        with pytest.raises(ValueError, match="head dims"):
+            T.check_kernel_args((r, t, 3 * heads * d), heads, None, None, None, None, cpu)
+    with pytest.raises(ValueError, match="q_gain"):  # neither [H, D] nor [D]
+        T.check_kernel_args((r, t, 3 * heads * D), heads, torch.ones(D - 8), gain, None,
+                            None, cpu)
+    with pytest.raises(ValueError, match="k_gain"):  # one gain only
+        T.check_kernel_args((r, t, 3 * heads * D), heads, gain, None, None, None, cpu)
+    with pytest.raises(ValueError, match="rope tables"):   # tables of other frames
+        T.check_kernel_args((r, t + 1, 3 * heads * D), heads, None, None, cos, sin, cpu)
+    with pytest.raises(ValueError, match="rope tables"):   # on another device
+        T.check_kernel_args((r, t, 3 * heads * D), heads, None, None, cos, sin,
+                            torch.device("meta"))
+    with pytest.raises(ValueError, match="mode"):
+        T.tiny_temporal_attention(torch.zeros(r, t, 3 * heads * D), None, None, None, None,
+                                  heads, mode="tiled")
+
+
 # ---------------------------------------------------------------- attention()
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("sq,skv", [(200, 200), (300, 40)])

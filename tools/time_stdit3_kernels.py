@@ -1,16 +1,18 @@
 """Times K5 (grouped_attention_fused_qkv, with K5r and K4), K1q
 (flash_attention_bshd with qk_gains), K8 (matmul_gated_residual), K7
-(lnmod_matmul) and K6 (fused_cross_attention) at the shapes their paths
-run, on one card, K5, K1q and K8 against another checkout's kernels in turns.
+(lnmod_matmul), K6 (fused_cross_attention) and K9 (tiny_temporal_attention)
+at the shapes their paths run, on one card, K5, K1q, K8 and K9 against
+another checkout's kernels in turns.
 
-    python tools/time_stdit3_kernels.py [--parent DIR] [--reps 10] [--only k5,k1q,k8,k7,k6]
+    python tools/time_stdit3_kernels.py [--parent DIR] [--reps 10] [--only k5,k1q,k8,k7,k6,k9]
 
 Builds the kernel library from this checkout and prints ptxas's report on
 the Hopper bodies these kernels run on (``hopper_gemm_kernel`` with every
 epilogue, ``hopper_attention_kernel`` with every instantiation,
 ``hopper_cross_kernel``, ``ln_modulate_kernel``, ``qk_norm_kernel``,
-``grouped_stream_kernel``: registers, spills, any "wgmma ... serialized"
-line) and the HGMMA count of each (``cuobjdump -sass``). Then, at
+``grouped_stream_kernel``, ``tiny_stream_kernel``, ``tiny_attention_kernel``:
+registers, spills, any "wgmma ... serialized" line) and the HGMMA count of
+each (``cuobjdump -sass``). Then, at
 STDiT3-XL/2's 480p and 720p shapes and Latte-1's, the CUDA-event time of one
 call of each kernel: K5 spatial (one group a frame, gains, fixed max) also
 split into its pre-pass and its attention, K5 temporal (groups of 15,
@@ -34,7 +36,15 @@ this checkout's. For the groups of up to 16 tokens the parent's
 ``grouped_small_kernel`` is also built with its grid transposed (heads in
 ``blockIdx.x``, a copy of its package under ``build/transposed``) and
 timed in the same turns (parent, transposed, this, this, transposed,
-parent). The last line is the times as JSON. Needs a card: exits nonzero
+parent). K9 runs at Latte's temporal shape (2,048 groups of 16 frames, no
+norm) and STDiT3 480p's (3,180 groups of 15, gains and RoPE) on the route
+``tiny_kernel_route`` picks, in turns against the other checkout's
+``mc_tiny_attention`` (the general kernel, the same C signature in both;
+for a checkout with this one's entries, its library behind this
+checkout's wrappers),
+with its rate in TB/s, this checkout's general kernel and SDPA on the same
+q/k/v (without the norm where K9 has one: not the same function) beside
+it. The last line is the times as JSON. Needs a card: exits nonzero
 without one.
 """
 
@@ -50,6 +60,7 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -57,7 +68,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from tools.time_attention_kernels import build_report, cuda_ms  # noqa: E402
 
 BODIES = ("hopper_gemm_kernel", "hopper_attention_kernel", "hopper_cross_kernel",
-          "ln_modulate_kernel", "qk_norm_kernel", "grouped_stream_kernel")
+          "ln_modulate_kernel", "qk_norm_kernel", "grouped_stream_kernel",
+          "tiny_stream_kernel", "tiny_attention_kernel")
 # the parent's mma.sync small-group kernel with its grid transposed (heads
 # in blockIdx.x): the diagnostic that splits its loss between locality and
 # latency
@@ -116,7 +128,7 @@ def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--parent", default=None)
     p.add_argument("--reps", type=int, default=10)
-    p.add_argument("--only", default="k5,k1q,k8,k7,k6")
+    p.add_argument("--only", default="k5,k1q,k8,k7,k6,k9")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -417,6 +429,59 @@ def main(argv=None) -> None:
                     lambda: gemm_launch("o", o, wo, b32, epilogue="resid", resid=h), reps)}
             print(f"  stages: {json.dumps(times[label]['stages_ms'])}")
             del h, q, o
+    # K9: the route tiny_kernel_route picks against the general kernel of the
+    # other checkout and of this one, called through mc_tiny_attention
+    if "k9" in only:
+        from magcache_tpu_torch.ops import tiny_attention as TA
+        from magcache_tpu_torch.ops.rope import rope_freqs_1d
+
+        for tag, R, T, norm in (("K9 Latte temporal", 2048, 16, False),
+                                ("K9 STDiT3 480p temporal, gains + RoPE", 3180, 15, True)):
+            qkv = rnd(R, T, 3 * H * D)
+            gains = tuple(1.0 + 0.1 * torch.randn(D, generator=gen, device=dev)
+                          for _ in range(2)) if norm else (None, None)
+            tabs = tuple(torch.from_numpy(a).to(dev) for a in rope_freqs_1d(np.arange(T), D)) \
+                if norm else (None, None)
+            label = f"K9 {tag[3:]} {R}x{T}, route {TA.tiny_kernel_route(T, D)}"
+            new = lambda: TA.tiny_temporal_attention(qkv, *gains, *tabs, H, mode="vpu")
+
+            def general(lib):
+                out = torch.empty(R, T, H * D, dtype=torch.bfloat16, device=dev)
+                g = [None if t is None else t.expand(H, D).contiguous() for t in gains]
+                ptr = lambda t: t.data_ptr() if t is not None else None
+
+                def call():
+                    code = lib.mc_tiny_attention(
+                        qkv.data_ptr(), out.data_ptr(), ptr(g[0]), ptr(g[1]), ptr(tabs[0]),
+                        ptr(tabs[1]), R, T, H, D, D ** -0.5 * LOG2E, 1e-6, stream())
+                    assert code == 0, code
+                    return out
+                return call
+
+            moved = qkv.numel() * 2 * 4 // 3 + sum(t.numel() * 4 for t in gains + tabs
+                                                    if t is not None)
+            old = None
+            if parent is not None and hasattr(parent, "mc_tiny_stream"):
+                # a checkout with this one's entries: its library behind
+                # this checkout's wrappers
+                old = lambda fn=new: with_library(TA, parent, fn)
+            elif parent is not None:
+                old = general(parent)
+            in_turns(label, new, old, 4 * R * H * T * T * D, moved=moved)
+            this_general = general(load_cuda_library())
+            times[label]["general_max_abs"] = float(
+                (new().float() - this_general().float()).abs().max())
+            times[label]["general_ms"] = cuda_ms(this_general, reps)
+            q4, k4, v4 = (t.reshape(R, T, H, D) for t in A.split_qkv(qkv, H))
+            times[label]["sdpa_ms"] = cuda_ms(
+                lambda: F.scaled_dot_product_attention(*(t.transpose(1, 2) for t in
+                                                         (q4, k4, v4)), scale=D ** -0.5),
+                reps)
+            print(f"  this checkout's general kernel {times[label]['general_ms']:.3f} ms "
+                  f"(max |stream - general| {times[label]['general_max_abs']:.3e}); "
+                  f"SDPA{' without the norm' if norm else ''} "
+                  f"{times[label]['sdpa_ms']:.3f} ms")
+            del qkv, q4, k4, v4
     if errs:
         print("max |this - parent| per shape:", json.dumps(errs))
     print(json.dumps({"device": torch.cuda.get_device_name(0), "hgmma": hgmma,
