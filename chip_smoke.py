@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives ``magcache_tpu_torch`` (never JAX) in twenty-six phases and exits
+Drives ``magcache_tpu_torch`` (never JAX) in thirty-three phases and exits
 nonzero on the first failure:
 
 1. environment: a CUDA card is required; prints the card's name and power
@@ -131,6 +131,41 @@ wall time here is no time of a four-GPU run:
 26. the narrow Wan slice of phase 6 on the card (bf16) under 2 local ranks,
    Ulysses and ring, against the CPU (f32) on one rank.
 
+Open-Sora 1.2 on STDiT3's unpacked routes and without qk-norm (K1 at head
+dim 72 zero-padded to 128, K3, K4, K7, K9; K5r, K6-K8):
+27. K1 as ``attention()`` runs it at STDiT3's unpacked shapes (spatial
+   30x1590x16x72 with the fixed and the running max, 720p's 30x3600x16x72
+   with the running max, cross 2x23,850 x 300 keys), each beside SDPA at
+   head dim 72 and bounded at 72; K5r's "stream" route with RoPE and no
+   norm at the 480p temporal shape (47,700 rows, groups of 15), as the
+   packed route runs it without qk-norm; and K4 as the "grouped" route
+   calls it (q and k normed and rotated by plain ops, groups of 15, the row
+   max) beside SDPA on the same q/k/v, and the route's whole temporal call;
+28. full-shape forwards at 480p 9:16 x 51 on the packed route (once) and on
+   "grouped" and "vpu" (twice each), the same weights and inputs: launches
+   per forward (K3 56, K1 84 of which 28 at the fixed max, K7 56, and K4 or
+   K9 28 on its "stream" route), rel L2 against the packed output <= 5e-2;
+29. a MagCache request on "grouped" at 480p x 51 frames and 30 RFLOW steps:
+   skip bits and launches;
+30. STDiT3-XL/2 with ``qk_norm=False``: forwards on "packed" and "grouped"
+   at 480p and at 720p (frames of 3,600 tokens: packed runs K1 through
+   ``attention()`` there), rel L2 <= 5e-2 between the two routes at each
+   size; no fixed-max launch (K1, K1q, K5) on any.
+
+Wan2.1 T2V-1.3B's ends (cuBLAS and cuDNN; TF32 off, as phase 1 sets it):
+31. UMT5-XXL (5.68 B parameters, its config's f32) encoding the request's two
+   prompts x 512 tokens through the hash tokenizer: init and encode times,
+   peak memory; a narrow encoder on the card against the CPU (f32, <= 1e-4
+   of the largest value);
+32. the Wan2.1 VAE decoding seeded latents [1, 21, 60, 104, 16] to pixels
+   [1, 81, 480, 832, 3], one latent frame a call, in f32 and in bf16: times
+   and peak memory, bf16 within 5e-2 of f32 (of the largest pixel); on a
+   narrow clip the card against the CPU and streamed against whole (f32,
+   <= 1e-4 of the largest pixel);
+33. one request through ``WanPipeline.generate`` at 832x480x17 and 20
+   steps with phase 31's UMT5-XXL and phase 32's f32 VAE: pixels
+   [1, 17, 480, 832, 3], launches, request and decode times.
+
 Kernel times are CUDA-event times of a loop of back-to-back launches
 between one event pair, divided by the count (``cuda_ms``); each attention
 kernel's line adds its TFLOP/s and its share of the bound; phase 11 times
@@ -140,7 +175,10 @@ second-to-last line of stdout is the kernels' JSON record: one entry per
 kernel (K2's token and head scopes apart, K1 and K1q apart, K5 and K5r
 apart, and K3 and K3p apart, each counted by its own launch count) with its
 launches on each path (``wan-ulysses`` and ``wan-ring``: phase 25's requests
-; ``latte-vpu``: phase 20's two vpu forwards, the only run of K9), its worst error
+; ``latte-vpu``: phase 20's two vpu forwards; ``open-sora-grouped``: phase
+28's two grouped forwards and phase 29's request; ``open-sora-vpu``: phase
+28's two vpu forwards; ``open-sora-noqknorm``: phase 30's four forwards;
+``wan-video``: phase 33's request), its worst error
 over every shape compared, and the times of its first shape timed, named in
 ``timed_at``, with their method in ``timing`` (``loop`` or ``graph``).
 ``bound_ms`` is the least time an H100 SXM could take at that shape: the
@@ -544,6 +582,7 @@ def reset_counts():
         fn.launches = 0
     TA.tiny_temporal_attention.routes.update(NO_TINY_ROUTES)
     A.flash_attention_bshd.qknorm_launches = 0
+    A.flash_attention_bshd.modes.update(fixed=0, running=0)
     P.layer_norm_mod.plain_launches = 0
     A.grouped_attention_fused_qkv.rowmax_launches = 0
     A._grouped_launch.routes.update(NO_ROUTES)
@@ -775,6 +814,90 @@ def record(rec, name, label, got, want, ms, pms, flops, moved, atol=4e-2, rtol=2
     keep(rec, name, err, ms, pms, "loop", label, (flops, moved, tflops), library)
 
 
+def k1_modes() -> dict:
+    """K1's launches by softmax shift since the last ``reset_counts``."""
+    from magcache_tpu_torch.ops import attention as A
+
+    return dict(A.flash_attention_bshd.modes)
+
+
+def k1_check(rec, title, label, q, k, v, fixed_max):
+    """K1 as ``attention()`` runs it at head dim D < 128: ``[B, S, H, D]``
+    q/k/v zero-padded to 128, the kernel held against its plain version
+    and timed beside SDPA at D. The bound counts the function, attention at
+    D: 4·B·H·Sq·Skv·D operations and the unpadded q, k, v and output."""
+    from magcache_tpu_torch.ops import attention as A
+
+    d = q.shape[-1]
+    qp, kp, vp = (torch.nn.functional.pad(t, (0, 128 - d)) for t in (q, k, v))
+    kw = dict(scale=d ** -0.5, fixed_max=fixed_max)
+    got = A.flash_attention_bshd(qp, kp, vp, **kw)
+    want = A.flash_attention_bshd_plain(qp, kp, vp, **kw)
+    err = compare(f"K1 flash_attention_bshd [{label}]", got, want, atol=2e-3, rtol=2e-2)
+    ms = cuda_ms(lambda: A.flash_attention_bshd(qp, kp, vp, **kw), 5)
+    pms = cuda_ms(lambda: A.flash_attention_bshd_plain(qp, kp, vp, **kw), 1)
+    lms = sdpa_ms(q, k, v, 5)
+    b, sq, h, _ = q.shape
+    flops = 4 * b * h * sq * k.shape[1] * d
+    moved = nbytes(q, k, v, got[..., :d])
+    log(f"  {title}: kernel {ms:.3f} ms ({rate(flops, moved, ms)} at head dim {d}), "
+        f"plain {pms:.3f} ms, SDPA at head dim {d} {lms:.3f} ms")
+    keep(rec, "flash_attention_bshd", err, ms, pms, "loop", label, (flops, moved),
+         ("F.scaled_dot_product_attention", lms))
+
+
+def os_inputs(dev, grid, seed):
+    """Seeded STDiT3 inputs for a patch grid: 2 rows of latents, t = 900,
+    the mock caption and fps 24."""
+    from magcache_tpu_torch.models.text import MockTextEncoder
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t_len, gh, gw = grid
+    x = torch.randn((2, t_len, 2 * gh, 2 * gw, 4), generator=gen, device=dev)
+    t = torch.full((2,), 900.0, device=dev)
+    cond = {"y": MockTextEncoder(300, 4096, scale=0.5)(["a boat", ""], device=dev),
+            "fps": torch.full((2,), 24.0, device=dev)}
+    return x, t, cond
+
+
+def os_forward(model, grid, pixels, route, inputs, label, runs=1):
+    """``runs`` timed forwards of ``model`` on ``route``; returns the last
+    output (f32) after checking it is finite and shaped."""
+    from magcache_tpu_torch.models.stdit3 import make_stdit3_core
+
+    core = make_stdit3_core(model, grid, route=route, pixel_size=pixels)
+    x, t, cond = inputs
+    for run in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        hidden, c = core.prepare(x, t, cond)
+        out = core.head(core.trunk(hidden, c), c)
+        torch.cuda.synchronize()
+        log(f"  {label} forward (call {run + 1}): {time.time() - t0:.3f} s, "
+            f"{hidden.shape[1]} tokens x {hidden.shape[0]} rows")
+    want = tuple(x.shape[:-1]) + (8,)
+    if tuple(out.shape) != want or not bool(torch.isfinite(out).all()):
+        fail(f"{label}: forward output {tuple(out.shape)} is not finite or misshapen")
+    return out.float()
+
+
+def check_forward_counts(label: str, runs: int, want: dict, routes: dict,
+                         tiny: dict = NO_TINY_ROUTES, fixed=None) -> dict:
+    """Fails unless the launches since the last ``reset_counts`` are
+    ``want`` per forward over ``runs`` forwards, by route too, and (when
+    ``fixed`` is given) K1's fixed-max launches per forward are ``fixed``;
+    returns the launches."""
+    counts = read_counts()
+    per_run = {k: n // runs for k, n in counts.items()}
+    log(f"  {label}: launches per forward {per_run}; K1 by shift {k1_modes()}")
+    if per_run != want or any(n % runs for n in counts.values()):
+        fail(f"{label}: launches per forward {per_run} != {want}")
+    check_routes(label, runs, routes, tiny)
+    if fixed is not None and k1_modes()["fixed"] != fixed * runs:
+        fail(f"{label}: K1 fixed-max launches {k1_modes()['fixed']} != {fixed} x {runs}")
+    return counts
+
+
 def check_stdit3_linear_kernels(dev, rec, gen, S, rows=2, T=15, d=1152, H=16, L=300):
     """K7, K8 and K6 vs their plain versions at the shapes that STDiT3-XL/2
     gives them for ``rows`` rows of T latent frames of S tokens each."""
@@ -941,34 +1064,11 @@ def make_os_model(dev):
 
 
 def phase_os_forward(dev, model):
-    from magcache_tpu_torch.models.stdit3 import make_stdit3_core
-    from magcache_tpu_torch.models.text import MockTextEncoder
-
     log("phase 8: one full-shape forward, STDiT3-XL/2 480p 9:16 x 51, 2 rows")
     grid = (15, 30, 53)
-    core = make_stdit3_core(model, grid, pixel_size=(480, 854))
-    gen = torch.Generator(device=dev).manual_seed(8)
-    x = torch.randn((2, 15, 60, 106, 4), generator=gen, device=dev)
-    t = torch.full((2,), 900.0, device=dev)
-    cond = {"y": MockTextEncoder(300, 4096, scale=0.5)(["a boat", ""], device=dev),
-            "fps": torch.full((2,), 24.0, device=dev)}
     reset_counts()
-    for run in ("first", "second"):
-        torch.cuda.synchronize()
-        t0 = time.time()
-        hidden, c = core.prepare(x, t, cond)
-        out = core.head(core.trunk(hidden, c), c)
-        torch.cuda.synchronize()
-        log(f"  forward ({run} call): {time.time() - t0:.3f} s, "
-            f"{hidden.shape[1]} tokens x {hidden.shape[0]} rows")
-    if tuple(out.shape) != (2, 15, 60, 106, 8) or not bool(torch.isfinite(out).all()):
-        fail(f"forward output {tuple(out.shape)} is not finite or misshapen")
-    per_run = {k: n // 2 for k, n in read_counts().items()}
-    log(f"  output {tuple(out.shape)} finite, std {float(out.float().std()):.4f}; "
-        f"launches per forward {per_run}")
-    if per_run != OS_TRUNK_LAUNCHES:
-        fail(f"launches per forward {per_run} != {OS_TRUNK_LAUNCHES}")
-    check_routes("480p forward", 2, OS_ROUTES)
+    os_forward(model, grid, (480, 854), "packed", os_inputs(dev, grid, 8), "480p", runs=2)
+    check_forward_counts("480p forward", 2, OS_TRUNK_LAUNCHES, OS_ROUTES)
 
 
 def phase_os_requests(dev, model):
@@ -1464,36 +1564,13 @@ def phase_os720_kernels(dev, rec):
 
 
 def phase_os720_forward(dev, model):
-    from magcache_tpu_torch.models.stdit3 import make_stdit3_core
-    from magcache_tpu_torch.models.text import MockTextEncoder
-
     log("phase 16: one full-shape forward, STDiT3-XL/2 720p 9:16 x 51, 2 rows")
     grid = (15,) + OS720_GRID[1:]
-    core = make_stdit3_core(model, grid, pixel_size=(720, 1280))
-    gen = torch.Generator(device=dev).manual_seed(16)
-    x = torch.randn((2, 15, 90, 160, 4), generator=gen, device=dev)
-    t = torch.full((2,), 900.0, device=dev)
-    cond = {"y": MockTextEncoder(300, 4096, scale=0.5)(["a boat", ""], device=dev),
-            "fps": torch.full((2,), 24.0, device=dev)}
     reset_counts()
     torch.cuda.reset_peak_memory_stats(dev)
-    for run in ("first", "second"):
-        torch.cuda.synchronize()
-        t0 = time.time()
-        hidden, c = core.prepare(x, t, cond)
-        out = core.head(core.trunk(hidden, c), c)
-        torch.cuda.synchronize()
-        log(f"  forward ({run} call): {time.time() - t0:.3f} s, "
-            f"{hidden.shape[1]} tokens x {hidden.shape[0]} rows")
-    if tuple(out.shape) != (2, 15, 90, 160, 8) or not bool(torch.isfinite(out).all()):
-        fail(f"forward output {tuple(out.shape)} is not finite or misshapen")
-    per_run = {k: n // 2 for k, n in read_counts().items()}
-    log(f"  output {tuple(out.shape)} finite, std {float(out.float().std()):.4f}; "
-        f"launches per forward {per_run}; peak memory "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
-    if per_run != OS720_TRUNK_LAUNCHES:
-        fail(f"launches per forward {per_run} != {OS720_TRUNK_LAUNCHES}")
-    check_routes("720p forward", 2, OS720_ROUTES)
+    os_forward(model, grid, (720, 1280), "packed", os_inputs(dev, grid, 16), "720p", runs=2)
+    log(f"  peak memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    check_forward_counts("720p forward", 2, OS720_TRUNK_LAUNCHES, OS720_ROUTES)
 
 
 def _scratch_dir() -> str:
@@ -1744,26 +1821,12 @@ def phase_latte_kernels(dev, rec):
 
     # K1 with the running max at head dim 72 zero-padded to 128, as
     # attention() runs it: spatial self-attention and cross-attention
-    pad = 128 - D
     for label, sq, skv, b in ((f"running max, Latte spatial {rows * T}x{S}x{H}x72 -> 128",
                                S, S, rows * T),
                               (f"running max, Latte cross {rows}x{T * S} x {LATTE_CAP} "
                                f"keys, 72 -> 128", T * S, LATTE_CAP, rows)):
-        q = torch.nn.functional.pad(rnd(b, sq, H, D), (0, pad))
-        k, v = (torch.nn.functional.pad(rnd(b, skv, H, D), (0, pad)) for _ in range(2))
-        kw = dict(scale=D ** -0.5)
-        got = A.flash_attention_bshd(q, k, v, **kw)
-        want = A.flash_attention_bshd_plain(q, k, v, **kw)
-        err = compare(f"K1 flash_attention_bshd [{label}]", got, want, atol=2e-3, rtol=2e-2)
-        ms = cuda_ms(lambda: A.flash_attention_bshd(q, k, v, **kw), 5)
-        pms = cuda_ms(lambda: A.flash_attention_bshd_plain(q, k, v, **kw), 1)
-        lms = sdpa_ms(*(t[..., :D] for t in (q, k, v)), 5)
-        flops = 4 * b * H * sq * skv * 128
-        log(f"  K1 [{label}]: kernel {ms:.3f} ms ({rate(flops, nbytes(q, k, v, got), ms)}"
-            f" at the padded width), plain {pms:.3f} ms, SDPA at head dim 72 {lms:.3f} ms")
-        keep(rec, "flash_attention_bshd", err, ms, pms, "loop", label,
-             (flops, nbytes(q, k, v, got)), (sdpa, lms))
-        del q, k, v, got, want
+        k1_check(rec, f"K1 [{label}]", label, rnd(b, sq, H, D), rnd(b, skv, H, D),
+                 rnd(b, skv, H, D), None)
 
     # K3 (temporal mod), then K6 over 120 caption keys, K7 and K8 at the
     # Latte blocks' shapes
@@ -2204,6 +2267,348 @@ def phase_sp_card_vs_cpu(dev, cpu_latents):
                                   2 * len(NARROW_MASK)))
 
 
+# ------------------------------------------- Open-Sora 1.2, unpacked routes
+def phase_os_unpacked_kernels(dev, rec):
+    """K1 at head dim 72 zero-padded to 128 and K4 as STDiT3's unpacked
+    routes call them at 480p 9:16 x 51 (bf16)."""
+    from magcache_tpu_torch.ops import attention as A
+    from magcache_tpu_torch.ops import tiny_attention as TA
+    from magcache_tpu_torch.ops.norms import rms_norm
+    from magcache_tpu_torch.ops.rope import grouped_rope_tables, rope_freqs_1d
+
+    log("phase 27: kernels vs plain at STDiT3-XL/2's unpacked 480p 9:16 x 51 shapes (bf16)")
+    gen = torch.Generator(device=dev).manual_seed(2727)
+    rows, T, S, H, D, L = 2, 15, 1590, 16, 72, 300
+    sdpa = "F.scaled_dot_product_attention"
+
+    def rnd(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    # K1 as attention() runs it at head dim 72: spatial self-attention over
+    # each frame (q/k RMS-normed, fixed max; and the running max as
+    # qk_norm=False runs it, at 480p and over the 3,600-token frames of
+    # 720p) and cross-attention over the 300 caption keys
+    normed = [rms_norm(rnd(rows * T, S, H, D, scale=2.0),
+                       1.0 + rnd(D, dtype=torch.float32, scale=0.1), eps=1e-6)
+              for _ in range(2)]
+    for label, b, sq, skv, fm in (
+            (f"fixed max, STDiT3 spatial {rows * T}x{S}x{H}x72 -> 128", rows * T, S, S,
+             A.QKNORM_FIXED_MAX),
+            (f"running max, STDiT3 spatial {rows * T}x{S}x{H}x72 -> 128", rows * T, S, S,
+             None),
+            (f"running max, STDiT3 720p spatial {rows * T}x3600x{H}x72 -> 128", rows * T,
+             3600, 3600, None),
+            (f"running max, STDiT3 cross {rows}x{T * S} x {L} keys, 72 -> 128", rows,
+             T * S, L, None)):
+        q = normed[0] if sq == S else rnd(b, sq, H, D)
+        k = normed[1] if skv == S else rnd(b, skv, H, D)
+        v = rnd(b, skv, H, D)
+        k1_check(rec, f"K1 [{label}]", label, q, k, v, fm)
+        del q, k, v
+    del normed
+
+    # K5r's "stream" route with RoPE and no norm, as the packed temporal
+    # blocks run it without qk-norm (3,180 groups of 15 frames)
+    qkv = rnd(1, rows * S * T, 3 * H * D)
+    tabs = tuple(torch.from_numpy(a).to(dev) for a in grouped_rope_tables(T, T, D))
+    kw = dict(group=T, scale=D ** -0.5, rope_tables=tabs)
+    route = A.grouped_kernel(T, None, tabs, None)
+    if route != "stream":
+        fail(f"K5r temporal with RoPE and no norm takes route {route!r}, not 'stream'")
+    got = A.grouped_attention_fused_qkv(qkv, H, **kw)
+    want = A.grouped_attention_fused_qkv_plain(qkv, H, **kw)
+    record(rec, "grouped_attention_fused_qkv_rowmax", f"STDiT3 480p temporal "
+           f"{rows * S * T} rows, group {T}, RoPE, no norm, route {route}", got, want,
+           cuda_ms(lambda: A.grouped_attention_fused_qkv(qkv, H, **kw)),
+           cuda_ms(lambda: A.grouped_attention_fused_qkv_plain(qkv, H, **kw), 1),
+           4 * rows * S * H * T * T * D, nbytes(qkv, got, *tabs))
+    del qkv, got, want
+
+    # K4 as the "grouped" route calls it: q and k normed and rotated by plain
+    # ops and rounded (ops.tiny_attention._grouped), then K4 over groups of
+    # 15 without gains (the row max): SDPA on the same q^/k^/v computes the
+    # same function. The whole tiny_temporal_attention call timed beside it.
+    Rs = rows * S
+    qkv = rnd(Rs, T, 3 * H * D)
+    gains = tuple(1.0 + 0.1 * torch.randn(D, generator=gen, device=dev) for _ in range(2))
+    cos, sin = (torch.from_numpy(a).to(dev) for a in rope_freqs_1d(np.arange(T), D))
+    q, k, v = A.split_qkv(qkv, H)
+    q, k = TA._norm_rope(q, k, *gains, cos, sin, 1e-6)
+    flat = [t.reshape(1, Rs * T, H, D) for t in (q.to(v.dtype), k.to(v.dtype), v)]
+    kw = dict(group=T, scale=D ** -0.5)
+    got = A.grouped_flash_attention_bshd(*flat, **kw)
+    want = A.grouped_flash_attention_bshd_plain(*flat, **kw)
+    flops, moved = 4 * Rs * H * T * T * D, nbytes(*flat, got)
+    lms = sdpa_ms(*(t.reshape(Rs, T, H, D) for t in flat), 20)
+    record(rec, "grouped_flash_attention_bshd", f"STDiT3 480p temporal {Rs * T} rows, "
+           f"group {T}, q/k pre-normed and rotated (the grouped route's call)", got, want,
+           cuda_ms(lambda: A.grouped_flash_attention_bshd(*flat, **kw)),
+           cuda_ms(lambda: A.grouped_flash_attention_bshd_plain(*flat, **kw), 1),
+           flops, moved, library=(sdpa, lms))
+    whole = cuda_ms(lambda: TA.tiny_temporal_attention(qkv, *gains, cos, sin, H,
+                                                       mode="grouped"))
+    log(f"    the grouped route's tiny_temporal_attention call (plain norm and RoPE, "
+        f"then K4): {whole:.3f} ms")
+    del qkv, q, k, v, flat, got, want
+
+
+# 28 (spatial, temporal) block pairs per trunk run on STDiT3's unpacked
+# routes: K3 before each attention, K1 spatial (fixed max with qk-norm) and
+# two cross, K7 mlp1 twice, and the route's temporal kernel
+OS_UNPACKED_LAUNCHES = {
+    route: dict(NO_LAUNCHES, layer_norm_mod=56, flash_attention_bshd=84, lnmod_matmul=56,
+                **{kernel: 28})
+    for route, kernel in (("grouped", "grouped_flash_attention_bshd"),
+                          ("vpu", "tiny_temporal_attention"))}
+OS_UNPACKED_ROUTES = {"grouped": (dict(NO_ROUTES, stream=28), NO_TINY_ROUTES),
+                      "vpu": (NO_ROUTES, dict(NO_TINY_ROUTES, stream=28))}
+# without qk-norm: the row max everywhere, no fixed-max launch; packed K5r
+# (spatial "tma", temporal "stream"); at 720p K1 (attention()'s pad) in the
+# spatial blocks; the grouped route the same at both sizes
+OS_NOQK_LAUNCHES = {
+    "packed": dict(OS_TRUNK_LAUNCHES, grouped_attention_fused_qkv=0,
+                   grouped_attention_fused_qkv_rowmax=56),
+    "grouped": OS_UNPACKED_LAUNCHES["grouped"],
+    "packed 720p": dict(OS_TRUNK_LAUNCHES, grouped_attention_fused_qkv=0,
+                        grouped_attention_fused_qkv_rowmax=28, flash_attention_bshd=28),
+    "grouped 720p": OS_UNPACKED_LAUNCHES["grouped"]}
+OS_NOQK_ROUTES = {"packed": dict(NO_ROUTES, tma=28, stream=28),
+                  "grouped": dict(NO_ROUTES, stream=28),
+                  "packed 720p": dict(NO_ROUTES, stream=28),
+                  "grouped 720p": dict(NO_ROUTES, stream=28)}
+
+
+def phase_os_unpacked_forward(dev, model):
+    """Packed, grouped and vpu forwards at 480p on the same weights and
+    inputs; returns the grouped and vpu paths' launches."""
+    log("phase 28: full-shape forwards of STDiT3-XL/2 480p 9:16 x 51, 2 rows, on the "
+        "packed, grouped and vpu routes")
+    grid, pixels = (15, 30, 53), (480, 854)
+    inputs = os_inputs(dev, grid, 8)
+    outs, paths = {}, {}
+    for route in ("packed", "grouped", "vpu"):
+        reset_counts()
+        outs[route] = os_forward(model, grid, pixels, route, inputs, route,
+                                 runs=1 if route == "packed" else 2)
+        if route == "packed":
+            continue
+        paths[route] = check_forward_counts(
+            f"{route} forward", 2, OS_UNPACKED_LAUNCHES[route], *OS_UNPACKED_ROUTES[route],
+            fixed=28)
+        rel = rel_l2(outs[route], outs["packed"])
+        log(f"  rel L2 of the {route} route's output against the packed route's: "
+            f"{rel:.3e} (tol 5e-2)")
+        if rel > 5e-2:
+            fail(f"the {route} route's forward disagrees with the packed route's")
+    return paths
+
+
+def phase_os_unpacked_request(dev, model, launches):
+    """One MagCache request on the grouped route; its launches add to the
+    grouped path's."""
+    from magcache_tpu_torch.core.magcache import compute_skip_schedule
+    from magcache_tpu_torch.pipelines.open_sora import (OpenSoraPipeline,
+                                                        OpenSoraPipelineConfig)
+
+    log(f"phase 29: a MagCache request on the grouped route, 480p 9:16 x {OS_FRAMES} "
+        f"frames, {OS_STEPS} RFLOW steps")
+    pipe = OpenSoraPipeline(OpenSoraPipelineConfig(
+        resolution="480p", aspect_ratio="9:16", num_frames=OS_FRAMES,
+        num_sampling_steps=OS_STEPS, cfg_scale=7.0, dtype="bfloat16", use_magcache=True,
+        route="grouped"), dev, model=model)
+    sched = compute_skip_schedule(pipe._cache_cfg()).reshape(OS_STEPS, 1)
+    reset_counts()
+    out = pipe.generate("A red sailboat glides across a calm bay at dawn.", seed=3)
+    lat = out.latents
+    if tuple(lat.shape) != (1, 15, 60, 106, 4) or not bool(torch.isfinite(lat).all()):
+        fail(f"grouped request: latents {tuple(lat.shape)} not finite or misshapen")
+    if not np.array_equal(out.skips, sched):
+        fail("grouped request: realized skips differ from the schedule")
+    runs = int((~out.skips.all(1)).sum())
+    counts = check_forward_counts("grouped request", runs, OS_UNPACKED_LAUNCHES["grouped"],
+                                  *OS_UNPACKED_ROUTES["grouped"], fixed=28)
+    log(f"  {out.timings['total_s']:.3f} s/video, {runs} of {OS_STEPS} forwards "
+        f"computed, skipped steps {np.flatnonzero(out.skips.any(1)).tolist()}, latents "
+        f"std {float(lat.std()):.4f}")
+    return {k: n + counts[k] for k, n in launches.items()}
+
+
+def phase_os_noqknorm(dev):
+    """STDiT3 with ``qk_norm=False``: forwards on packed and grouped at
+    480p and at 720p (frames above 2,048 tokens), each grouped output held
+    to the packed one; the row max everywhere. Returns the path's
+    launches."""
+    from magcache_tpu_torch.models.stdit3 import STDIT3_XL_2, STDiT3Model
+
+    log("phase 30: STDiT3-XL/2 without qk-norm: 480p and 720p 9:16 x 51 on packed and "
+        "grouped")
+    cfg = dataclasses.replace(STDIT3_XL_2, qk_norm=False, dtype="bfloat16")
+    model = STDiT3Model(cfg, dev).init(torch.Generator(device=dev).manual_seed(0))
+    model.requires_grad_(False)
+    total = dict(NO_LAUNCHES)
+    outs = {}
+    for label, grid, pixels in (("packed", (15, 30, 53), (480, 854)),
+                                ("grouped", (15, 30, 53), (480, 854)),
+                                ("packed 720p", (15, 45, 80), (720, 1280)),
+                                ("grouped 720p", (15, 45, 80), (720, 1280))):
+        reset_counts()
+        outs[label] = os_forward(model, grid, pixels, label.split()[0],
+                                 os_inputs(dev, grid, 30), f"{label} (no qk-norm)")
+        counts = check_forward_counts(f"{label} (no qk-norm)", 1, OS_NOQK_LAUNCHES[label],
+                                      OS_NOQK_ROUTES[label], fixed=0)
+        total = {k: n + counts[k] for k, n in total.items()}
+    for size in ("", " 720p"):
+        rel = rel_l2(outs["grouped" + size], outs["packed" + size])
+        log(f"  rel L2 of the grouped route's{size} output against the packed route's: "
+            f"{rel:.3e} (tol 5e-2)")
+        if rel > 5e-2:
+            fail(f"without qk-norm the grouped and packed routes disagree{size}")
+    del model
+    torch.cuda.empty_cache()
+    return total
+
+
+# ------------------------------------------------ Wan2.1: UMT5 and the VAE
+def phase_umt5(dev):
+    """UMT5-XXL at full width in its config's dtype: 2 prompts x 512 tokens
+    through the hash tokenizer; then a narrow encoder on the card against
+    the CPU. Returns the full-width encoder (the request of phase 33 uses
+    it)."""
+    from magcache_tpu_torch.models.text import FallbackHashTokenizer
+    from magcache_tpu_torch.models.umt5 import UMT5_XXL, UMT5Config, UMT5Encoder, UMT5Model
+    from magcache_tpu_torch.pipelines.wan import DEFAULT_NEGATIVE
+
+    log(f"phase 31: UMT5-XXL encode, 2 prompts x 512 tokens, {UMT5_XXL.dtype}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    tok = FallbackHashTokenizer(UMT5_XXL.vocab_size)
+    enc = UMT5Encoder(UMT5_XXL, seq_len=512, tokenizer=tok, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(31))
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in enc.model.parameters())
+    log(f"  random init: {time.time() - t0:.1f} s, {n / 1e9:.3f} B params, "
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.1f} GB ({UMT5_XXL.dtype})")
+    prompts = [WAN_PROMPT, DEFAULT_NEGATIVE]
+    for run in ("first", "second"):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = enc(prompts)
+        torch.cuda.synchronize()
+        log(f"  encode ({run} call): {time.time() - t0:.3f} s")
+    mask = torch.from_numpy(tok(prompts, max_length=512)["attention_mask"]).to(dev)
+    if (tuple(out.shape) != (2, 512, 4096) or not bool(torch.isfinite(out).all())
+            or bool(out[mask == 0].any())):
+        fail(f"UMT5 output {tuple(out.shape)} not finite, misshapen or nonzero past the "
+             f"prompt")
+    log(f"  output {tuple(out.shape)} {out.dtype}, {int(mask.sum())} prompt tokens, std "
+        f"{float(out[mask == 1].float().std()):.4f}; peak memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.1f} GB")
+
+    cfg = UMT5Config.tiny(d_model=256, d_ff=512, heads=4, d_kv=64, vocab_size=1000)
+    ids = np.random.default_rng(31).integers(2, 1000, (2, 64))
+    attn = np.ones((2, 64), np.int64)
+    attn[1, 40:] = 0
+    card = UMT5Encoder(cfg, device=dev)
+    cpu_model = UMT5Model(cfg, "cpu")
+    cpu_model.load_state_dict(card.model.state_dict())
+    cpu = UMT5Encoder(cfg, model=cpu_model)
+    got = card.encode_ids(ids, attn).cpu()
+    want = cpu.encode_ids(ids, attn)
+    # f32 without TF32 on both: summation order only
+    err = float((got - want).abs().max() / want.abs().max())
+    log(f"  narrow encoder (d 256, 3 layers) card vs CPU, f32: max |diff| / max |CPU| "
+        f"{err:.3e} (tol 1e-4), rel L2 {rel_l2(got, want):.3e}")
+    if err > 1e-4:
+        fail("UMT5 on the card disagrees with the CPU")
+    return enc
+
+
+def phase_vae_decode(dev):
+    """The Wan2.1 VAE decoding 832x480x81 streamed, in f32 and bf16; then a
+    narrow clip card vs CPU and streamed vs whole. Returns the f32 VAE."""
+    from magcache_tpu_torch.models.vae_wan import WAN21_VAE, WanVAE
+
+    log("phase 32: Wan2.1 VAE decode, latents [1, 21, 60, 104, 16] -> pixels "
+        "[1, 81, 480, 832, 3], one latent frame a call")
+    z = torch.randn((1, 21, 60, 104, 16), generator=torch.Generator(device=dev).manual_seed(32),
+                    device=dev)
+    vaes, videos = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        vae = WanVAE(dataclasses.replace(WAN21_VAE, dtype=dtype), dev)
+        vaes[dtype] = vae.init(torch.Generator(device=dev).manual_seed(0)).requires_grad_(False)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        for run in ("first", "second"):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            video = vaes[dtype].decode(z)
+            torch.cuda.synchronize()
+            log(f"  {dtype} decode ({run} call): {time.time() - t0:.3f} s")
+        if tuple(video.shape) != (1, 81, 480, 832, 3) or not bool(torch.isfinite(video).all()):
+            fail(f"{dtype} decode: pixels {tuple(video.shape)} not finite or misshapen")
+        log(f"  {dtype}: pixels {tuple(video.shape)} finite, std {float(video.std()):.4f}; "
+            f"peak memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB "
+            f"({(torch.cuda.max_memory_allocated(dev) - base) / 1e9:.2f} GB above the "
+            f"weights, z and the pixels held)")
+        videos[dtype] = video
+    f32, b16 = videos["float32"], videos["bfloat16"]
+    rel_max = float((b16 - f32).abs().max() / f32.abs().max())
+    log(f"  bf16 vs f32: max |diff| / max |f32| {rel_max:.3e} (tol 5e-2), rel L2 "
+        f"{rel_l2(b16, f32):.3e}")
+    if rel_max > 5e-2:
+        fail("the bf16 decode strays from the f32 decode")
+    del videos, video, f32, b16, vaes["bfloat16"]
+    torch.cuda.empty_cache()
+
+    # narrow clip at full width: [1, 3, 4, 6, 16] -> [1, 9, 32, 48, 3]
+    vae = vaes["float32"]
+    zs = z[:, :3, :4, :6].contiguous()
+    card = vae.decode(zs).cpu()
+    whole = vae.decode(zs, latent_chunk=None).cpu()
+    cpu = WanVAE(vae.cfg, "cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in vae.state_dict().items()})
+    want = cpu.decode(zs.cpu())
+    for label, got, ref in (("card vs CPU, streamed", card, want),
+                            ("streamed vs whole, card", card, whole)):
+        err = float((got - ref).abs().max() / ref.abs().max())
+        # f32 convs without TF32 on both sides: summation order only
+        log(f"  narrow clip {tuple(card.shape)} {label}: max |diff| / max |ref| {err:.3e} "
+            f"(tol 1e-4), rel L2 {rel_l2(got, ref):.3e}")
+        if err > 1e-4:
+            fail(f"VAE narrow clip: {label} disagree")
+    return vae
+
+
+def phase_wan_video(dev, text_encoder, vae):
+    """One Wan request that ends in pixels: UMT5-XXL, the DiT, the VAE.
+    Returns its launches."""
+    from magcache_tpu_torch.pipelines.wan import WanPipeline, WanPipelineConfig
+
+    log(f"phase 33: a Wan request ending in pixels, 832x480x17, {STEPS} UniPC steps, "
+        f"UMT5-XXL text, f32 VAE")
+    model = make_model(dev)
+    pipe = WanPipeline(WanPipelineConfig(size=(832, 480), frame_num=17, sample_steps=STEPS,
+                                         sample_shift=5.0, guide_scale=5.0),
+                       dev, model=model, text_encoder=text_encoder, vae=vae)
+    reset_counts()
+    out = pipe.generate(WAN_PROMPT, seed=3)
+    counts = read_counts()
+    video = out.video
+    if (video is None or tuple(video.shape) != (1, 17, 480, 832, 3)
+            or not bool(torch.isfinite(video).all())):
+        fail(f"Wan request: video {None if video is None else tuple(video.shape)} "
+             f"missing, misshapen or not finite")
+    expected = wan_launches(TRUNK_LAUNCHES, STEPS, STEPS)
+    if counts != expected:
+        fail(f"Wan request: launches {counts} != {expected}")
+    log(f"  {out.timings['total_s']:.3f} s/video (VAE decode {out.timings['decode_s']:.3f}"
+        f" s), video {tuple(video.shape)} finite, std {float(video.std()):.4f}; launches "
+        f"{counts}")
+    del model, pipe
+    return counts
+
+
 def main():
     phase_environment()
     dev = torch.device("cuda", 0)
@@ -2268,10 +2673,27 @@ def main():
     del model, single_forward
     torch.cuda.empty_cache()
     phase_sp_card_vs_cpu(dev, narrow_cpu)
+    t_sp = time.time() - t0 - t_wan - t_os - t_flux - t_os720 - t_latte
+    phase_os_unpacked_kernels(dev, rec)
+    torch.cuda.empty_cache()
+    log("phase 28/29 model:")
+    model = make_os_model(dev)       # the same seed: phase 8's weights
+    os_unpacked = phase_os_unpacked_forward(dev, model)
+    os_unpacked["grouped"] = phase_os_unpacked_request(dev, model, os_unpacked["grouped"])
+    del model
+    torch.cuda.empty_cache()
+    os_noqk = phase_os_noqknorm(dev)
+    t_unpacked = time.time() - t0 - t_wan - t_os - t_flux - t_os720 - t_latte - t_sp
+    umt5 = phase_umt5(dev)
+    vae = phase_vae_decode(dev)
+    wan_video = phase_wan_video(dev, umt5, vae)
+    del umt5, vae
+    torch.cuda.empty_cache()
     log(f"all phases passed in {time.time() - t0:.1f} s (Wan {t_wan:.1f} s, "
         f"Open-Sora {t_os:.1f} s, FLUX {t_flux:.1f} s, Open-Sora 720p "
-        f"{t_os720:.1f} s, Latte {t_latte:.1f} s, Wan sequence-parallel "
-        f"{time.time() - t0 - t_wan - t_os - t_flux - t_os720 - t_latte:.1f} s)")
+        f"{t_os720:.1f} s, Latte {t_latte:.1f} s, Wan sequence-parallel {t_sp:.1f} s, "
+        f"Open-Sora unpacked and without qk-norm {t_unpacked:.1f} s, UMT5, VAE and "
+        f"the Wan video {time.time() - t0 - t_wan - t_os - t_flux - t_os720 - t_latte - t_sp - t_unpacked:.1f} s)")
 
     meta = {
         "flash_attention_bshd": ("cuda", "magcache_tpu_torch/csrc/hopper_attention.cuh",
@@ -2309,7 +2731,9 @@ def main():
     paths = {"wan": launches, "open-sora": os_launches, "flux": flux_launches,
              "open-sora-720p": os720_launches, "latte": latte,
              "latte-grouped": latte_grouped, "latte-vpu": latte_vpu,
-             "wan-ulysses": sp_ulysses, "wan-ring": sp_ring}
+             "wan-ulysses": sp_ulysses, "wan-ring": sp_ring,
+             "open-sora-grouped": os_unpacked["grouped"], "open-sora-vpu": os_unpacked["vpu"],
+             "open-sora-noqknorm": os_noqk, "wan-video": wan_video}
     kernels = []
     for name, (route, source, replaces) in meta.items():
         by_path = {p: c[name] for p, c in paths.items()}

@@ -6,9 +6,11 @@ its counterpart at ``magcache_tpu_torch.X.Y``. The port imports ``torch``
 and never ``jax`` or ``magcache_tpu``; it reads the shared calibration data
 (``magcache_tpu/data/*.json``) by file path.
 
-Slice ported so far: Wan2.1 T2V-1.3B with UniPC, dual CFG cache lanes and
-MagCache E/K/R, through three hand-written kernels (``ops/attention.py``,
-``ops/fused_prologue.py``; sources under ``csrc/``).
+Ported so far: Wan2.1 T2V-1.3B (UniPC, dual CFG cache lanes, MagCache
+E/K/R, sequence parallelism, the UMT5 encoder and the VAE decode), Open-Sora
+1.2 (STDiT3 on three routes), FLUX.1-dev / Kontext and Latte-1. Every TPU
+kernel of the JAX package has a hand-written counterpart (``ops/``; sources
+under ``csrc/``).
 """
 
 __version__ = "0.1.0"

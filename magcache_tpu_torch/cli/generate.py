@@ -9,7 +9,8 @@ Flag names follow the reference adapters (``--task --size --frame_num
 --magcache_calibration``; Open-Sora adds ``--resolution --aspect_ratio``
 and its conditioning flags ``--loop --ms/--mask_strategy
 --refs/--reference_path --condition_frame_length --condition_frame_edit
---align``, FLUX ``--txt_len``, Latte ``--txt_len --clean_caption --route``),
+--align --route``, FLUX ``--txt_len``, Latte ``--txt_len --clean_caption
+--route``),
 and the output file name encodes the E/K/R triple. Unset flags take each
 family's reference defaults, as in the JAX CLI. Runs on a CUDA card by
 default; ``--device cpu`` runs the plain PyTorch ops instead of the kernels
@@ -32,6 +33,8 @@ Examples:
       --aspect_ratio 9:16 --frame_num 51 --use_magcache
   python -m magcache_tpu_torch.cli.generate --task open-sora --tiny --device cpu \
       --ms "0,0,0,0,1,0" --refs ref.npy --loop 2     # ref.npy: latents [T, H, W, C]
+  python -m magcache_tpu_torch.cli.generate --task open-sora --tiny --device cpu \
+      --route grouped                   # or vpu: STDiT3's unpacked composition
   python -m magcache_tpu_torch.cli.generate --task flux-dev --size 1024*1024 \
       --sample_steps 28 --use_magcache
   python -m magcache_tpu_torch.cli.generate --task latte --magcache_calibration \
@@ -113,8 +116,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--clean_caption", action="store_true",
                    help="latte: the T5 caption cleaning, applied twice")
     p.add_argument("--route", default="packed", choices=["packed", "grouped", "vpu"],
-                   help="latte block composition: packed (K5r/K6-K8), or unpacked "
-                        "with temporal attention through K4 (grouped) or K9 (vpu)")
+                   help="open-sora and latte block composition: packed (K5-K8), "
+                        "or unpacked with temporal attention through K4 (grouped) "
+                        "or K9 (vpu)")
     p.add_argument("--image", default=None,
                    help="flux-kontext-dev conditioning image (needs the SD "
                         "VAE's weights: not ported yet)")
@@ -220,7 +224,7 @@ def _open_sora_pipeline(args, device, ratios):
         use_magcache=args.use_magcache, magcache_thresh=args.magcache_thresh,
         magcache_K=args.magcache_K, retention_ratio=args.retention_ratio,
         magcache_calibration=args.magcache_calibration, magcache_ratios=ratios,
-        dtype=args.dtype, tiny=args.tiny)
+        dtype=args.dtype, tiny=args.tiny, route=args.route)
     return OpenSoraPipeline(cfg, device), cfg.num_sampling_steps, 1
 
 

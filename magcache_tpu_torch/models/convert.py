@@ -4,10 +4,13 @@
 ``flux_params_from_numpy`` and ``latte_params_from_numpy`` turn the JAX
 package's Wan, STDiT3, FLUX and Latte parameter pytrees, with their leaves as
 numpy arrays, into ``WanModel``, ``STDiT3Model``, ``FluxModel`` and
-``LatteModel`` state dicts. Two layout rules:
-the JAX block weights are depth-stacked ``[L, ...]`` (one entry per block
-here), and JAX's ``linear`` is ``x @ w`` with ``w: [d_in, d_out]`` while
-``nn.Linear`` keeps ``[d_out, d_in]``.
+``LatteModel`` state dicts; ``umt5_params_from_numpy`` and
+``wan_vae_params_from_numpy`` do the same for the UMT5 encoder and the Wan
+VAE's decoder. Three layout rules: the JAX block weights are depth-stacked
+``[L, ...]`` (one entry per block here), JAX's ``linear`` is ``x @ w`` with
+``w: [d_in, d_out]`` while ``nn.Linear`` keeps ``[d_out, d_in]``, and JAX's
+conv kernels are ``[kt, kh, kw, C_in, C_out]`` (``[kh, kw, C_in, C_out]``)
+where PyTorch's are ``[C_out, C_in, kt, kh, kw]``.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ import torch
 from magcache_tpu_torch.models.flux import FluxConfig
 from magcache_tpu_torch.models.latte import LatteConfig
 from magcache_tpu_torch.models.stdit3 import STDiT3Config
+from magcache_tpu_torch.models.umt5 import UMT5Config
+from magcache_tpu_torch.models.vae_wan import WanVAEConfig
 from magcache_tpu_torch.models.wan import WanConfig
 
 _BLOCK_LINEARS = ("q", "k", "v", "o", "cross_q", "cross_k", "cross_v",
@@ -71,7 +76,7 @@ def wan_params_from_numpy(tree: dict, cfg: WanConfig, device=None,
 
 
 _STDIT3_LINEARS = ("qkv", "proj", "cross_q", "cross_kv", "cross_o", "mlp1", "mlp2")
-_STDIT3_VECTORS = ("scale_shift", "q_norm", "k_norm")
+_STDIT3_VECTORS = ("scale_shift", "q_norm", "k_norm")   # the gains only with qk-norm
 
 
 def stdit3_params_from_numpy(tree: dict, cfg: STDiT3Config, device=None,
@@ -106,7 +111,7 @@ def stdit3_params_from_numpy(tree: dict, cfg: STDiT3Config, device=None,
             for name in _STDIT3_LINEARS:
                 put_linear(f"{kind}.{i}.{name}",
                            {"w": g[name]["w"][i], "b": g[name]["b"][i]}, dtype)
-            for name in _STDIT3_VECTORS:
+            for name in _STDIT3_VECTORS[:None if cfg.qk_norm else 1]:
                 put(f"{kind}.{i}.{name}", g[name][i])
     put("final.scale_shift", tree["final"]["scale_shift"])
     put_linear("final.out", tree["final"]["out"])
@@ -205,4 +210,71 @@ def latte_params_from_numpy(tree: dict, cfg: LatteConfig, device=None,
             put(f"{kind}.{i}.scale_shift", g["scale_shift"][i])
     put("final_mod", tree["final_mod"])
     put_linear("final_out", tree["final_out"])
+    return sd
+
+
+_UMT5_LINEARS = ("q", "k", "v", "o", "wi0", "wi1", "wo")
+
+
+def umt5_params_from_numpy(tree: dict, cfg: UMT5Config, device=None
+                           ) -> Dict[str, torch.Tensor]:
+    """State dict for ``UMT5Model(cfg)`` from a numpy UMT5 pytree (the
+    layout of ``magcache_tpu.models.umt5.init_umt5_params``), every tensor
+    in ``cfg.torch_dtype``."""
+    dt = cfg.torch_dtype
+
+    def put(arr):
+        return torch.from_numpy(np.array(arr, np.float32)).to(device=device, dtype=dt)
+
+    blocks = tree["blocks"]
+    sd = {"embed": put(tree["embed"]), "final_ln": put(tree["final_ln"])}
+    for i in range(cfg.layers):
+        for name in ("ln1", "ln2", "rel"):
+            sd[f"blocks.{i}.{name}"] = put(blocks[name][i])
+        for name in _UMT5_LINEARS:
+            sd[f"blocks.{i}.{name}.weight"] = put(np.asarray(blocks[name][i]).T)
+    return sd
+
+
+def wan_vae_params_from_numpy(tree: dict, cfg: WanVAEConfig, device=None
+                              ) -> Dict[str, torch.Tensor]:
+    """State dict for ``WanVAE(cfg)`` (the decoder and the post-quant conv)
+    from a numpy Wan VAE pytree (the layout of ``magcache_tpu.models.
+    vae_wan.init_wan_vae_params``; its encoder is not ported and is left
+    out). Conv weights and biases in ``cfg.torch_dtype``, norm gains f32."""
+    dt = cfg.torch_dtype
+    sd: Dict[str, torch.Tensor] = {}
+
+    def put(name, arr, dtype=torch.float32):
+        sd[name] = torch.from_numpy(np.array(arr, np.float32)).to(device=device, dtype=dtype)
+
+    def conv(name, p):
+        w = np.asarray(p["w"])
+        put(f"{name}.weight", w.transpose((w.ndim - 1, w.ndim - 2) + tuple(range(w.ndim - 2))),
+            dt)
+        put(f"{name}.bias", p["b"], dt)
+
+    def res(name, p):
+        put(f"{name}.norm1", p["norm1"])
+        put(f"{name}.norm2", p["norm2"])
+        for c in ("conv1", "conv2", "shortcut"):
+            if c in p:
+                conv(f"{name}.{c}", p[c])
+
+    dec = tree["decoder"]
+    conv("post_quant", tree["post_quant"])
+    conv("decoder.conv1", dec["conv1"])
+    for i, p in enumerate(dec["mid"]):
+        res(f"decoder.mid.{i}", p)
+    put("decoder.mid_attn.norm", dec["mid_attn"]["norm"])
+    conv("decoder.mid_attn.qkv", dec["mid_attn"]["qkv"])
+    conv("decoder.mid_attn.proj", dec["mid_attn"]["proj"])
+    for i, lv in enumerate(dec["levels"]):
+        for j, p in enumerate(lv["blocks"]):
+            res(f"decoder.levels.{i}.blocks.{j}", p)
+        for c in ("resample", "time_conv"):
+            if lv[c] is not None:
+                conv(f"decoder.levels.{i}.{c}", lv[c])
+    put("decoder.head_norm", dec["head_norm"])
+    conv("decoder.head", dec["head"])
     return sd

@@ -51,7 +51,7 @@ from torch import nn
 from magcache_tpu_torch.core.sampler import DiTCore
 from magcache_tpu_torch.models.common import (DTYPES, embedder_linears, init_linear_,
                                               timestep_embedding)
-from magcache_tpu_torch.models.stdit3 import pos_embed_2d
+from magcache_tpu_torch.models.stdit3 import ROUTES, pos_embed_2d
 from magcache_tpu_torch.ops.attention import (attention, fused_cross_attention,
                                               grouped_attention_fused_qkv)
 from magcache_tpu_torch.ops.fused_prologue import (layer_norm_mod, lnmod_matmul,
@@ -62,7 +62,6 @@ from magcache_tpu_torch.ops.tiny_attention import tiny_temporal_attention
 
 __all__ = ["LatteConfig", "LatteModel", "LATTE_1", "ROUTES", "make_latte_core"]
 
-ROUTES = ("packed", "grouped", "vpu")
 MAX_FRAME_TOKENS = 2048
 
 

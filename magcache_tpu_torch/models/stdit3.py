@@ -8,34 +8,48 @@ frames at a location, with RoPE), cross-attention to the caption and an MLP,
 gated 6-way by ``scale_shift_table + t6``; a T2I final layer with 2-way
 modulation; a 2-D sincos position embedding with the multi-resolution scale.
 
-The block runs the JAX package's packed-path composition, through the
-kernels (the TPU's 128-lane head padding is not carried over: heads stay 72
-wide):
+``make_stdit3_core(..., route=)`` picks the block composition explicitly
+(the JAX package switches on ``MAGCACHE_STDIT3_PACKED`` and
+``MAGCACHE_TINY_ATTN`` and the backend; the route here depends on neither
+the environment nor the device):
 
-- spatial: K7 ``lnmod_matmul`` (LayerNorm + modulate + qkv projection) ->
+- ``"packed"``, the JAX package's TPU composition, through the kernels (the
+  TPU's 128-lane head padding is not carried over: heads stay 72 wide):
+  spatial K7 ``lnmod_matmul`` (LayerNorm + modulate + qkv projection) ->
   K5 ``grouped_attention_fused_qkv`` (one group per frame, qk-norm fused)
   for frames of at most 2,048 tokens, or K1q ``flash_attention_bshd`` with
   ``qk_gains`` on q/k/v views of the projection above that (720p) -> K8
-  ``matmul_gated_residual`` (out-projection + gate + residual);
-- temporal: K3 ``layer_norm_mod`` -> qkv ``nn.Linear`` on the [S, T] view ->
-  K5 (groups of T, qk-norm and RoPE fused) -> K8 (gate, no residual) ->
-  transpose back and add;
-- cross: K6 ``fused_cross_attention`` with the residual fused;
-- MLP: K7 with the gelu epilogue -> K8 with the residual.
+  ``matmul_gated_residual`` (out-projection + gate + residual); temporal
+  K3 ``layer_norm_mod`` -> qkv ``nn.Linear`` on the [S, T] view -> K5
+  (groups of T, qk-norm and RoPE fused) -> K8 (gate, no residual) ->
+  transpose back and add; cross K6 ``fused_cross_attention`` with the
+  residual fused; MLP K7 with the gelu epilogue -> K8 with the residual.
+- ``"grouped"`` and ``"vpu"``, the JAX package's unpacked composition (its
+  default off the TPU): each attention branch starts with K3; ``nn.Linear``
+  projections; temporal attention through ``tiny_temporal_attention`` with
+  the q/k gains and the frame RoPE in that mode (K4 or K9); spatial
+  attention as a per-head RMS norm (plain ops) and ``attention()`` (K1 at
+  head dim 72 zero-padded to 128, the fixed max with qk-norm), at any frame
+  size; cross-attention through ``attention()`` (K1, running max); the MLP
+  K7 with gelu, then ``nn.Linear``; f32 gates.
 
 Masked-frame conditioning (``cond["x_mask"]``, bool ``[rows, T]``: True
 frames take the step's modulation, False ones the t = 0 modulation) runs the
-JAX package's unfused composition instead: plain LayerNorm, both
-modulations and a per-frame select; the qkv projection as ``nn.Linear``; K5
-or K1q (spatial) and K5 with RoPE (temporal); the projection; per-frame
-gates; K6 with the residual; an unfused MLP (linear, tanh-gelu, linear);
-and the head's per-frame select between the two final modulations.
+unfused composition of its route instead: plain LayerNorm, both modulations
+and a per-frame select; the qkv projection as ``nn.Linear``; the route's
+attention (packed: K5 or K1q, and K6 with the residual; unpacked as above);
+the projection; per-frame gates; an unfused MLP (linear, tanh-gelu,
+linear); and the head's per-frame select between the two final modulations.
+
+``qk_norm=False`` runs every route with the row-max softmax (the JAX packed
+composition passes its fixed shift without gains, which can underflow every
+p to 0; the port does not carry that over): packed K5r ("tma" route) for
+frames of at most 2,048 tokens, K1 through ``attention()`` above that, K5r's
+"stream" route with RoPE and no norm in the temporal blocks.
 
 Dtypes: in a bf16 config the block linears are bf16; the embedders, the
 modulation tables, the qk-norm gains and the final layer stay f32, as the
-JAX parameters are. Unported (raise ``NotImplementedError``): PAB and
-``qk_norm=False`` (the kernels' fixed softmax shift is exact only for
-RMS-normed scores).
+JAX parameters are. Unported (raises ``NotImplementedError``): PAB.
 """
 
 from __future__ import annotations
@@ -53,17 +67,20 @@ from magcache_tpu_torch.core.sampler import DiTCore
 from magcache_tpu_torch.models.common import (DTYPES, embedder_linears, init_linear_,
                                               timestep_embedding)
 from magcache_tpu_torch.models.wan import patchify, unpatchify
-from magcache_tpu_torch.ops.attention import (QKNORM_FIXED_MAX,
+from magcache_tpu_torch.ops.attention import (QKNORM_FIXED_MAX, attention,
                                               flash_attention_bshd,
                                               fused_cross_attention,
-                                              grouped_attention_fused_qkv)
+                                              grouped_attention_fused_qkv, split_qkv)
 from magcache_tpu_torch.ops.fused_prologue import (layer_norm_mod, lnmod_matmul,
                                                    matmul_gated_residual)
-from magcache_tpu_torch.ops.norms import layer_norm
-from magcache_tpu_torch.ops.rope import grouped_rope_tables
+from magcache_tpu_torch.ops.norms import layer_norm, rms_norm
+from magcache_tpu_torch.ops.rope import rope_freqs_1d
+from magcache_tpu_torch.ops.tiny_attention import tiny_temporal_attention
 
-__all__ = ["STDiT3Config", "STDiT3Model", "STDIT3_XL_2", "make_stdit3_core",
+__all__ = ["STDiT3Config", "STDiT3Model", "STDIT3_XL_2", "ROUTES", "make_stdit3_core",
            "pos_embed_2d"]
+
+ROUTES = ("packed", "grouped", "vpu")
 
 # frames up to this many tokens run K5 with one group per frame; larger ones
 # run K1q (the JAX package's route, chosen by shape only)
@@ -160,16 +177,18 @@ class STDiT3Block(nn.Module):
         self.qkv, self.proj = lin(d, 3 * d), lin(d, d)
         self.cross_q, self.cross_kv, self.cross_o = lin(d, d), lin(d, 2 * d), lin(d, d)
         self.mlp1, self.mlp2 = lin(d, cfg.mlp_ratio * d), lin(cfg.mlp_ratio * d, d)
-        self.q_norm = _param((cfg.head_dim,), device, 1.0)
-        self.k_norm = _param((cfg.head_dim,), device, 1.0)
+        if cfg.qk_norm:
+            self.q_norm = _param((cfg.head_dim,), device, 1.0)
+            self.k_norm = _param((cfg.head_dim,), device, 1.0)
 
     def forward(self, h: torch.Tensor, t6: torch.Tensor, y: torch.Tensor, *,
-                grid: Tuple[int, int, int], temporal: bool,
+                grid: Tuple[int, int, int], temporal: bool, route: str = "packed",
                 rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                 x_mask: Optional[torch.Tensor] = None,
                 t6_zero: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """One block on ``h`` ``[rows, T*S, d]``; with ``x_mask`` (bool
-        ``[rows, T]``) and ``t6_zero`` the masked-frame composition."""
+        """One block on ``h`` ``[rows, T*S, d]`` on ``route``; with ``x_mask``
+        (bool ``[rows, T]``) and ``t6_zero`` the masked-frame composition.
+        ``rope``: the frame tables ``[T, D/2]`` (temporal blocks)."""
         cfg = self.cfg
         rows, n, d = h.shape
         t, hh, ww = grid
@@ -177,9 +196,10 @@ class STDiT3Block(nn.Module):
         e = (self.scale_shift[None] + t6).float()          # [rows, 6, d]
         if x_mask is not None:
             e0 = (self.scale_shift[None] + t6_zero).float()
-            return self._masked(h, e, e0, y, x_mask, grid, temporal, rope)
+            return self._masked(h, e, e0, y, x_mask, grid, temporal, rope, route)
+        if route != "packed":
+            return self._unpacked(h, e, y, grid, temporal, rope, route)
         sh_a, sc_a, g_a, sh_m, sc_m, g_m = e.unbind(1)
-        attn = self._attn_kw()
         if temporal:
             xn = layer_norm_mod(h, scale=sc_a, shift=sh_a, eps=cfg.eps)
             a = self._temporal_attn(xn, grid, rope)
@@ -198,23 +218,34 @@ class STDiT3Block(nn.Module):
                           act="gelu", eps=cfg.eps)
         return matmul_gated_residual(y1, self.mlp2.weight, self.mlp2.bias, g_m, h)
 
+    def _gains(self):
+        """The q/k gains, or ``(None, None)`` without qk-norm."""
+        return (self.q_norm, self.k_norm) if self.cfg.qk_norm else (None, None)
+
     def _attn_kw(self) -> dict:
+        """The packed kernels' arguments: with qk-norm the gains and the
+        fixed softmax shift, without it neither (the row max)."""
         cfg = self.cfg
-        return dict(scale=1.0 / math.sqrt(cfg.head_dim),
-                    qk_gains=(self.q_norm, self.k_norm), true_d=cfg.head_dim,
-                    eps=1e-6, fixed_max=QKNORM_FIXED_MAX)
+        kw = dict(scale=1.0 / math.sqrt(cfg.head_dim), true_d=cfg.head_dim)
+        if cfg.qk_norm:
+            kw.update(qk_gains=self._gains(), eps=1e-6, fixed_max=QKNORM_FIXED_MAX)
+        return kw
 
     def _spatial_attn(self, qkv: torch.Tensor) -> torch.Tensor:
         """Attention within each frame of ``qkv`` ``[frames, S, 3*d]``: K5
-        with one group per frame up to 2,048 tokens, else K1q on q/k/v views
-        of the projection. Returns ``[frames, S, d]``."""
+        (K5r without qk-norm) with one group per frame up to 2,048 tokens,
+        else K1q on q/k/v views of the projection (without qk-norm K1 through
+        ``attention()``, running max). Returns ``[frames, S, d]``."""
         frames, s, three_d = qkv.shape
         heads = self.cfg.heads
         if s <= MAX_GROUP_TOKENS:
             return grouped_attention_fused_qkv(qkv, heads, group=s, **self._attn_kw())
-        q, k, v = (part.unflatten(-1, (heads, -1)) for part in qkv.chunk(3, dim=-1))
-        return flash_attention_bshd(q, k, v, **self._attn_kw()).reshape(
-            frames, s, three_d // 3)
+        q, k, v = split_qkv(qkv, heads)
+        if self.cfg.qk_norm:
+            o = flash_attention_bshd(q, k, v, **self._attn_kw())
+        else:
+            o = attention(q, k, v, scale=1.0 / math.sqrt(self.cfg.head_dim))
+        return o.reshape(frames, s, three_d // 3)
 
     def _temporal_attn(self, xn: torch.Tensor, grid, rope) -> torch.Tensor:
         """qkv projection of the [S, T] view of ``xn`` and K5 over groups of
@@ -238,10 +269,59 @@ class STDiT3Block(nn.Module):
             self.cfg.heads, scale=1.0 / math.sqrt(self.cfg.head_dim),
             true_d=self.cfg.head_dim, residual=True)
 
-    def _masked(self, h, e, e0, y, x_mask, grid, temporal, rope) -> torch.Tensor:
+    def _unpacked(self, h, e, y, grid, temporal, rope, route) -> torch.Tensor:
+        """The unpacked block (JAX ``_block`` with ``packed=False``): K3,
+        the route's attention, the f32 gate; cross-attention through
+        ``attention()``; K7 with gelu, ``mlp2`` and the f32 gate."""
+        cfg = self.cfg
+        sh_a, sc_a, g_a, sh_m, sc_m, g_m = e.unbind(1)       # [rows, d]
+        xn = layer_norm_mod(h, scale=sc_a, shift=sh_a, eps=cfg.eps)
+        a = self._unpacked_attn(xn, grid, temporal, rope, route)
+        h = h + (g_a[:, None] * a.float()).to(h.dtype)
+        h = self._unpacked_cross(h, y)
+        mo = self.mlp2(lnmod_matmul(h, sc_m, sh_m, self.mlp1.weight, self.mlp1.bias,
+                                    act="gelu", eps=cfg.eps))
+        return h + (g_m[:, None] * mo.float()).to(h.dtype)
+
+    def _unpacked_attn(self, xn, grid, temporal, rope, route) -> torch.Tensor:
+        """The unpacked self-attention branch on the modulated ``xn``
+        ``[rows, T*S, d]``, projections included: temporal through
+        ``tiny_temporal_attention`` in mode ``route`` (the gains and the
+        frame RoPE inside), spatial as the per-head RMS norm and
+        ``attention()`` (JAX ``_attn``). Returns ``[rows, T*S, d]``."""
+        cfg = self.cfg
+        rows, n, d = xn.shape
+        t, s = grid[0], grid[1] * grid[2]
+        if temporal:
+            xr = xn.reshape(rows, t, s, d).transpose(1, 2).reshape(rows * s, t, d)
+            o = tiny_temporal_attention(self.qkv(xr), *self._gains(), *rope, cfg.heads,
+                                        eps=1e-6, mode=route)
+            return self.proj(o).reshape(rows, s, t, d).transpose(1, 2).reshape(rows, n, d)
+        q, k, v = split_qkv(self.qkv(xn.reshape(rows * t, s, d)), cfg.heads)
+        if cfg.qk_norm:
+            # per-head RMS qk-norm bounds the scores: the fixed shift is exact
+            q, k = rms_norm(q, self.q_norm, eps=1e-6), rms_norm(k, self.k_norm, eps=1e-6)
+        o = attention(q, k, v, fixed_max=QKNORM_FIXED_MAX if cfg.qk_norm else None)
+        return self.proj(o.reshape(rows * t, s, d)).reshape(rows, n, d)
+
+    def _unpacked_cross(self, h: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """Cross-attention to the caption through ``attention()`` (running
+        max), with the residual."""
+        cfg = self.cfg
+        rows, n, d = h.shape
+
+        def heads(x):
+            return x.unflatten(-1, (cfg.heads, cfg.head_dim))
+
+        k, v = (heads(p) for p in self.cross_kv(y).chunk(2, -1))
+        c = attention(heads(self.cross_q(h)), k, v).reshape(rows, n, d)
+        return h + self.cross_o(c)
+
+    def _masked(self, h, e, e0, y, x_mask, grid, temporal, rope, route) -> torch.Tensor:
         """The masked-frame block (JAX ``_block`` with ``x_mask``): each
         modulation and gate takes the step's values on frames where
-        ``x_mask`` is True and the t = 0 values elsewhere."""
+        ``x_mask`` is True and the t = 0 values elsewhere; attention and
+        cross-attention as ``route`` runs them."""
         cfg = self.cfg
         rows, n, d = h.shape
         t, hh, ww = grid
@@ -262,14 +342,16 @@ class STDiT3Block(nn.Module):
             return x + select(g * r, z_g * r).to(x.dtype)
 
         xn = modulate(h, sh_a, sc_a, z[0], z[1])
-        if temporal:
+        if route != "packed":
+            a = self._unpacked_attn(xn, grid, temporal, rope, route)
+        elif temporal:
             a = self.proj(self._temporal_attn(xn, grid, rope))
             a = a.reshape(rows, s, t, d).transpose(1, 2).reshape(rows, n, d)
         else:
             a = self.proj(self._spatial_attn(self.qkv(xn.reshape(rows * t, s, d))))
             a = a.reshape(rows, n, d)
         h = gated(h, a, g_a, z[2])
-        h = self._cross(h, y)
+        h = self._cross(h, y) if route == "packed" else self._unpacked_cross(h, y)
         xm = modulate(h, sh_m, sc_m, z[3], z[4])
         mo = self.mlp2(F.gelu(self.mlp1(xm), approximate="tanh"))
         return gated(h, mo, g_m, z[5])
@@ -298,10 +380,6 @@ class STDiT3Model(nn.Module):
 
     def __init__(self, cfg: STDiT3Config, device=None):
         super().__init__()
-        if not cfg.qk_norm:
-            raise NotImplementedError(
-                "STDiT3 without qk-norm is not ported: the grouped kernel's "
-                "fixed softmax shift needs RMS-normed scores")
         self.cfg = cfg
         d = cfg.hidden
         self.y_null = _param((cfg.caption_max_len, cfg.caption_dim), device, 0.0)
@@ -337,8 +415,8 @@ class STDiT3Model(nn.Module):
 
 
 def make_stdit3_core(model: STDiT3Model, grid: Tuple[int, int, int], *,
-                     pab=None, pixel_size: Optional[Tuple[int, int]] = None
-                     ) -> DiTCore:
+                     route: str = "packed", pab=None,
+                     pixel_size: Optional[Tuple[int, int]] = None) -> DiTCore:
     """(prepare, trunk, head) for a static latent patch grid (T, H, W).
 
     cond = {"y": f[rows, caption_len, caption_dim], "fps": f[rows]
@@ -348,11 +426,14 @@ def make_stdit3_core(model: STDiT3Model, grid: Tuple[int, int, int], *,
 
     ``pixel_size`` (H_px, W_px) switches on the multi-resolution position
     embedding: scale = sqrt(H_px*W_px) / input_sq_size, base_size =
-    round(sqrt(S)).
+    round(sqrt(S)). ``route``: "packed", "grouped" or "vpu" (module
+    docstring).
     """
     cfg = model.cfg
     t_len, gh, gw = grid
     s = gh * gw
+    if route not in ROUTES:
+        raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
     if pab is not None:
         raise NotImplementedError("PAB is not ported yet")
     device = model.patch_embed.weight.device
@@ -363,8 +444,10 @@ def make_stdit3_core(model: STDiT3Model, grid: Tuple[int, int, int], *,
     else:
         pos = pos_embed_2d(d, gh, gw)
     pos2d = torch.from_numpy(pos).to(device)
+    # frame RoPE [T, D/2] (JAX ``rope_freqs_1d(arange(T))``; K5's in-group
+    # tables, since its groups are exactly T)
     rope = tuple(torch.from_numpy(a).to(device)
-                 for a in grouped_rope_tables(t_len, t_len, cfg.head_dim))
+                 for a in rope_freqs_1d(np.arange(t_len), cfg.head_dim))
 
     def embed(mlp: nn.ModuleDict, v: torch.Tensor) -> torch.Tensor:
         return mlp["out"](F.silu(mlp["in"](timestep_embedding(v, cfg.freq_dim))))
@@ -396,10 +479,11 @@ def make_stdit3_core(model: STDiT3Model, grid: Tuple[int, int, int], *,
     @torch.inference_mode()
     def trunk(hidden, ctx):
         h = hidden
-        mask = dict(x_mask=ctx.get("x_mask"), t6_zero=ctx.get("t6_zero"))
+        kw = dict(grid=grid, route=route, x_mask=ctx.get("x_mask"),
+                  t6_zero=ctx.get("t6_zero"))
         for sp, tp in zip(model.spatial, model.temporal):
-            h = sp(h, ctx["t6"], ctx["y"], grid=grid, temporal=False, **mask)
-            h = tp(h, ctx["t6"], ctx["y"], grid=grid, temporal=True, rope=rope, **mask)
+            h = sp(h, ctx["t6"], ctx["y"], temporal=False, **kw)
+            h = tp(h, ctx["t6"], ctx["y"], temporal=True, rope=rope, **kw)
         return h
 
     @torch.inference_mode()

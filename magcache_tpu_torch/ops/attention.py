@@ -272,7 +272,8 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     k (``qk_norm_plain``), the body then runs at q_scale 1
     (``flash_attention_prescaled_plain``). K1 without the norm takes
     contiguous bf16 head dim 128. Anything else on a CUDA tensor raises.
-    Launches count in ``flash_attention_bshd.launches`` (K1) and
+    Launches count in ``flash_attention_bshd.launches`` (K1; by softmax
+    shift in ``flash_attention_bshd.modes``, "fixed" or "running") and
     ``flash_attention_bshd.qknorm_launches`` (K1q).
     """
     if q.device.type == "cpu":
@@ -302,6 +303,7 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                 fixed_max=fixed_max)
     out = out.transpose(1, 2)
     count_launch(flash_attention_bshd)
+    count_launch(flash_attention_bshd, "modes", "running" if fixed_max is None else "fixed")
     return out
 
 
@@ -377,6 +379,7 @@ def _qknorm_attention_launch(qn, kn, v, kv_len: int, fixed_max: float):
 
 
 flash_attention_bshd.launches = 0
+flash_attention_bshd.modes = {"fixed": 0, "running": 0}
 flash_attention_bshd.qknorm_launches = 0
 
 

@@ -12,10 +12,12 @@ import torch
 @dataclasses.dataclass
 class PipelineOutput:
     latents: torch.Tensor                # f32 [B, F, H, W, C] (FLUX: packed
-                                         # [B, S, C]); no VAE yet
+                                         # [B, S, C])
     calibration: Optional[dict] = None   # calibration-mode artifacts
     timings: Optional[dict] = None
     skips: Optional[np.ndarray] = None   # realized skip bits [steps, lanes]
+    video: Optional[torch.Tensor] = None  # f32 pixels [B, F, H, W, 3] when a
+                                          # VAE decoded the latents
 
 
 class BasePipeline:

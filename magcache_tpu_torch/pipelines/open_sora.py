@@ -14,6 +14,9 @@ on the previous clip's last latents. The checkpoint-free path:
 no VAE (latents are the output; image and video references, which the VAE
 would encode, raise).
 
+``route`` picks STDiT3's block composition (``models.stdit3``: "packed",
+"grouped" or "vpu"), for the masked-frame sampler too.
+
 Latent geometry: VAE stride 8 in space and ``get_latent_t`` in time (51
 frames -> 15 latents), 4 channels; DiT patch (1, 2, 2). Not ported yet
 (raise): PAB, the rolling cache policy.
@@ -66,6 +69,7 @@ class OpenSoraPipelineConfig:
     enable_pab: bool = False
     dtype: str = "float32"
     tiny: bool = False
+    route: str = "packed"                     # STDiT3's block composition
 
     def __post_init__(self):
         if self.cache_policy != "adapter":
@@ -110,7 +114,7 @@ class OpenSoraPipeline(BasePipeline):
             model = STDiT3Model(self.model_cfg, self.device).init(
                 set_seed(init_seed, device=self.device))
         self.model = model.requires_grad_(False).eval()
-        self.core = make_stdit3_core(self.model, self.grid,
+        self.core = make_stdit3_core(self.model, self.grid, route=c.route,
                                      pixel_size=(c.height, c.width))
         self.text_encoder = text_encoder or MockTextEncoder(
             c.caption_len, self.model_cfg.caption_dim, scale=0.5)

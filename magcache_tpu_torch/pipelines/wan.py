@@ -1,8 +1,11 @@
 """Wan 2.1 generation pipeline (t2v), MagCache-enabled.
 
-Text encode -> seeded noise latents -> cached UniPC denoise loop. The
-checkpoint-free path: ``MockTextEncoder``, random DiT weights from a seeded
-``torch.Generator``, no VAE decode (latents are the output).
+Text encode -> seeded noise latents -> cached UniPC denoise loop -> VAE
+decode when the pipeline has a VAE (``models.vae_wan.WanVAE``, streamed one
+latent frame a call), as the JAX pipeline does. The checkpoint-free path:
+``MockTextEncoder`` (or ``models.umt5.UMT5Encoder`` with random weights and
+the hash tokenizer), random DiT weights from a seeded ``torch.Generator``,
+and latents as the output unless a VAE is given.
 
 Wan latent geometry: VAE stride (4, 8, 8), 16 channels; DiT patch (1, 2, 2).
 
@@ -95,11 +98,13 @@ class WanPipeline(BasePipeline):
     Without ``model``, the DiT gets random weights from a generator seeded
     with ``init_seed`` (the same on every rank). With ``config.sp > 1`` it is
     one rank's pipeline and needs that rank's ``plan``; local ranks may share
-    one ``model``."""
+    one ``model``. ``text_encoder(prompts, device=)`` gives the context
+    ``[2, text_len, text_dim]`` (default: the mock); with ``vae``
+    (``WanVAE``) ``generate`` also decodes the latents to ``video``."""
 
     def __init__(self, config: WanPipelineConfig, device="cuda",
                  text_encoder=None, model: Optional[WanModel] = None,
-                 init_seed: int = 0, plan=None):
+                 init_seed: int = 0, plan=None, vae=None):
         if (plan.sp if plan is not None else 1) != config.sp:
             raise ValueError(
                 f"WanPipeline: config.sp = {config.sp} needs a plan of that many "
@@ -121,6 +126,7 @@ class WanPipeline(BasePipeline):
                                   sp_impl=config.sp_impl)
         self.text_encoder = text_encoder or MockTextEncoder(
             self.model_cfg.text_len, self.model_cfg.text_dim, scale=0.5)
+        self.vae = vae
 
     def _schedule(self) -> UniPCSchedule:
         c = self.config
@@ -183,24 +189,40 @@ class WanPipeline(BasePipeline):
             guidance_scale=c.guide_scale, skip_mask_override=skip_override,
             return_skips=True)
 
+    def _initial_noise(self, gen: torch.Generator) -> torch.Tensor:
+        """The noise latents ``f32[1, F, H, W, 16]`` on the CPU, drawn from
+        the request's CPU generator, so every device and rank gets the same
+        draw."""
+        return torch.randn((1,) + self.latent_shape, generator=gen, dtype=torch.float32)
+
     def generate(self, prompt: str, negative_prompt: str = DEFAULT_NEGATIVE,
                  seed: int = 0,
                  skip_override: Optional[np.ndarray] = None) -> PipelineOutput:
-        """One video's latents ``f32[1, F, H, W, 16]``. ``skips`` in the output
-        holds the realized skip bits ``bool[num_steps, lanes]`` (none in
-        calibration mode, which fills ``calibration`` instead)."""
+        """One video's latents ``f32[1, F, H, W, 16]``, and with a VAE its
+        pixels ``video`` ``f32[1, frames, H_px, W_px, 3]``. ``skips`` in the
+        output holds the realized skip bits ``bool[num_steps, lanes]`` (none
+        in calibration mode, which fills ``calibration`` instead)."""
         t0 = time.time()
         calibrate = self.config.magcache_calibration
         fn = self._sample_fn(calibrate, skip_override)
         cond = {"context": self.text_encoder([prompt, negative_prompt],
                                              device=self.device)}
-        x0 = torch.randn((1,) + self.latent_shape, generator=set_seed(seed),
-                         dtype=torch.float32).to(self.device)
+        x0 = self._initial_noise(set_seed(seed)).to(self.device)
         latents, aux = fn(x0, cond)
         calibration = calibration_dict(aux) if calibrate else None
         skips = None if calibrate else aux
-        if latents.is_cuda:
-            torch.cuda.synchronize(latents.device)
+        timings, video = {}, None
+        if self.vae is not None:
+            t1 = _synced_clock(latents)
+            video = self.vae.decode(latents)
+            timings["decode_s"] = _synced_clock(video) - t1
+        timings["total_s"] = _synced_clock(latents) - t0
         return PipelineOutput(latents=latents, calibration=calibration,
-                              timings={"total_s": time.time() - t0},
-                              skips=skips)
+                              timings=timings, skips=skips, video=video)
+
+
+def _synced_clock(t: torch.Tensor) -> float:
+    """The host clock once the work queued on ``t``'s card is done."""
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+    return time.time()

@@ -455,6 +455,55 @@ def test_tiny_open_sora_masked_and_large_frames_run_through_the_kernels(dev, tmp
     np.testing.assert_array_equal(out.latents[0, 0].cpu().numpy(), np.load(ref)[0])
 
 
+@pytest.mark.parametrize("qk_norm", [True, False])
+@pytest.mark.parametrize("route", ["packed", "grouped", "vpu"])
+def test_tiny_open_sora_routes_run_through_the_kernels(dev, route, qk_norm):
+    """STDiT3 at head dim 72 (frames of 256 tokens, 5 latent frames) through
+    the pipeline on each route, with and without qk-norm. Per block pair
+    packed: K3 1, K5 (K5r without qk-norm) 2, K6 2, K7 3, K8 4; unpacked: K3
+    2, K1 3 (the spatial one at the fixed max with qk-norm, the cross ones at
+    the running max), K7 2 and one K4 or K9 on its "stream" route."""
+    from magcache_tpu_torch.models.stdit3 import STDiT3Config, STDiT3Model
+    from magcache_tpu_torch.ops import tiny_attention as TA
+    from magcache_tpu_torch.pipelines.open_sora import (OpenSoraPipeline,
+                                                        OpenSoraPipelineConfig)
+
+    cfg = STDiT3Config(hidden=144, heads=2, depth=2, caption_dim=64, freq_dim=64,
+                       caption_max_len=20, qk_norm=qk_norm, dtype="bfloat16")
+    model = STDiT3Model(cfg, dev).init(torch.Generator(device=dev).manual_seed(0))
+    pipe = OpenSoraPipeline(OpenSoraPipelineConfig(
+        height=256, width=256, num_frames=17, num_sampling_steps=6, caption_len=20,
+        use_magcache=True, route=route, dtype="bfloat16"), dev, model=model)
+    counts = {"K3": (P.layer_norm_mod, "launches"), "K7": (P.lnmod_matmul, "launches"),
+              "K8": (P.matmul_gated_residual, "launches"),
+              "K5": (A.grouped_attention_fused_qkv, "launches"),
+              "K5r": (A.grouped_attention_fused_qkv, "rowmax_launches"),
+              "K6": (A.fused_cross_attention, "launches"),
+              "K1": (A.flash_attention_bshd, "launches"),
+              "K4": (A.grouped_flash_attention_bshd, "launches"),
+              "K9": (TA.tiny_temporal_attention, "launches")}
+
+    def read():
+        got = {k: getattr(f, attr) for k, (f, attr) in counts.items()}
+        got["K1 fixed"] = A.flash_attention_bshd.modes["fixed"]
+        got["stream"] = (A._grouped_launch.routes["stream"]
+                         + TA.tiny_temporal_attention.routes["stream"])
+        return got
+
+    before = read()
+    out = pipe.generate("a boat", seed=0)
+    got = {k: n - before[k] for k, n in read().items()}
+    runs = int((~out.skips.all(1)).sum())
+    if route == "packed":
+        per_pair = dict(K3=1, K6=2, K7=3, K8=4, stream=1, **{"K5" if qk_norm else "K5r": 2})
+    else:
+        per_pair = {"K3": 2, "K1": 3, "K7": 2, "K1 fixed": int(qk_norm), "stream": 1,
+                    "K4" if route == "grouped" else "K9": 1}
+    assert got == {k: 2 * per_pair.get(k, 0) * runs for k in got}
+    assert out.skips.any() and runs < 6
+    assert out.latents.shape == (1, 5, 32, 32, 4) and torch.isfinite(out.latents).all()
+
+
 # ---- Latte: K5r (K5 without gains, row max), K4, K9, K1 at padded D ----------
 @pytest.mark.parametrize("b,s,heads,group,gvalid,norm,rope", [
     (2, 1024, 3, 1024, 1024, False, False),  # Latte spatial frame (K5r)

@@ -193,11 +193,20 @@ def test_unported_stdit3_paths_raise():
     _, _, model = _models("float32")
     with pytest.raises(NotImplementedError, match="PAB"):
         T.make_stdit3_core(model, GRID, pab=object())
-    with pytest.raises(NotImplementedError, match="qk-norm"):
-        T.STDiT3Model(T.STDiT3Config(**NARROW, qk_norm=False))
+    x, y, t = _inputs()
+    # qk_norm=False is ported (the row max, not the JAX packed path's fixed
+    # shift): the packed route against the JAX core's unpacked composition
+    # (its default off the TPU)
+    jcfg, params, plain = _models("float32", qk_norm=False)
+    jcore = J.make_stdit3_core(jcfg, GRID, CAP, pixel_size=PIXELS)
+    hj, cj = jcore.prepare(params, jnp.asarray(x), jnp.asarray(t), {"y": jnp.asarray(y)})
+    want = _np(jcore.head(params, jcore.trunk(params, hj, cj), cj))
+    tcore = T.make_stdit3_core(plain, GRID, pixel_size=PIXELS)
+    ht, ct = tcore.prepare(torch.from_numpy(x), torch.from_numpy(t), {"y": torch.from_numpy(y)})
+    np.testing.assert_allclose(tcore.head(tcore.trunk(ht, ct), ct).numpy(), want,
+                               atol=F32_TOL, rtol=F32_TOL)
     # frames above 2,048 tokens (K1q) and masked frames are ported
     core = T.make_stdit3_core(model, GRID)
-    x, y, t = _inputs()
     _, ctx = core.prepare(torch.from_numpy(x), torch.from_numpy(t),
                           {"y": torch.from_numpy(y),
                            "x_mask": torch.ones(2, 3, dtype=torch.bool)})
