@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives ``magcache_tpu_torch`` (never JAX) in thirty-three phases and exits
+Drives ``magcache_tpu_torch`` (never JAX) in thirty-eight phases and exits
 nonzero on the first failure:
 
 1. environment: a CUDA card is required; prints the card's name and power
@@ -166,6 +166,41 @@ Wan2.1 T2V-1.3B's ends (cuBLAS and cuDNN; TF32 off, as phase 1 sets it):
    steps with phase 31's UMT5-XXL and phase 32's f32 VAE: pixels
    [1, 17, 480, 832, 3], launches, request and decode times.
 
+Wan's other solvers and policies, and PAB (no new kernel; K6 without the
+residual for the first time; the reuse decisions are host masks):
+34. requests through ``WanPipeline.generate`` at 832x480x17 and 20 steps,
+   phase 5's weights: dpm++ and Euler at full compute, dpm++ with MagCache
+   E012K2R02, a dpm++ calibration whose recorded ratios a second request
+   installs (``mag_ratios_override``), and the rolling policy at 50 steps
+   with 0.12 / K 2 (unipc); skip bits against the schedule, launches against
+   the trunk runs, and dpm++'s and Euler's rel L2 against phase 5's unipc;
+35. TeaCache requests at 832x480x17, 20 UniPC steps, threshold 0.2, without
+   and with ``use_ret_steps``: every forced-window forward computed, launches
+   against the realized per-lane bits (a half-batch step is one trunk run),
+   the skips per lane printed (bf16 may move a near-threshold decision, so
+   they are not held to the CPU's);
+36. K6 without the residual against its plain version at 480p (the
+   ``fused_cross_attention_bias`` record), then requests at 480p 9:16 x 51
+   and 30 RFLOW steps, phase 9's weights: ``OPEN_SORA_PAB``, PAB with
+   MagCache opensora-v1.2, and the rolling policy without PAB; the reuse
+   steps per site (counted at each site) against ``broadcast_masks`` over
+   the trunk runs, launches per trunk run from the step's masks (spatial
+   K7 + K5 "prepass", temporal K3 + K5 "stream", K6 without the residual
+   twice a pair, K7 mlp1 twice a pair; no K8), peak memory and rel L2
+   against phase 9's full compute; then one trunk run's device time per
+   reuse signature of the masks, beside full compute and the plain trunk;
+37. a ``LATTE_PAB`` request at 512x512 x 16 and 50 DDIM steps, phase 21's
+   weights: reuse steps per site, the MLPs' reuse and save block-steps
+   (blocks 0-4) against the masks, launches per trunk run (K3 per computed
+   attention and MLP, K5r "tma"/"stream", K1 for the cross-attention), peak
+   memory and rel L2 against phase 21's full-compute calibration request,
+   and one trunk run's device time per reuse signature (the MLP column: any
+   block replays);
+38. narrow slices on the card (bf16) against the CPU (f32): Wan dpm++
+   (phase 6's), STDiT3 under PAB (phase 10's, every window opened) and
+   Latte under PAB (phase 22's, an MLP anchor at t = 750), each with
+   skipped steps, within 5e-2 rel L2.
+
 Kernel times are CUDA-event times of a loop of back-to-back launches
 between one event pair, divided by the count (``cuda_ms``); each attention
 kernel's line adds its TFLOP/s and its share of the bound; phase 11 times
@@ -178,7 +213,9 @@ launches on each path (``wan-ulysses`` and ``wan-ring``: phase 25's requests
 ; ``latte-vpu``: phase 20's two vpu forwards; ``open-sora-grouped``: phase
 28's two grouped forwards and phase 29's request; ``open-sora-vpu``: phase
 28's two vpu forwards; ``open-sora-noqknorm``: phase 30's four forwards;
-``wan-video``: phase 33's request), its worst error
+``wan-video``: phase 33's request; ``wan-solvers``, ``wan-teacache``:
+phases 34 and 35; ``open-sora-pab`` and ``open-sora-rolling``: phase 36's
+PAB requests and its rolling one; ``latte-pab``: phase 37), its worst error
 over every shape compared, and the times of its first shape timed, named in
 ``timed_at``, with their method in ``timing`` (``loop`` or ``graph``).
 ``bound_ms`` is the least time an H100 SXM could take at that shape: the
@@ -212,8 +249,8 @@ NO_LAUNCHES = dict.fromkeys(
      "rms_norm_rope_head", "layer_norm_mod", "layer_norm_mod_plain",
      "flash_attention_bhsd", "flash_attention_bhsd_aux", "grouped_attention_fused_qkv",
      "grouped_attention_fused_qkv_rowmax", "grouped_flash_attention_bshd",
-     "tiny_temporal_attention", "fused_cross_attention", "lnmod_matmul",
-     "matmul_gated_residual"), 0)
+     "tiny_temporal_attention", "fused_cross_attention", "fused_cross_attention_bias",
+     "lnmod_matmul", "matmul_gated_residual"), 0)
 TRUNK_LAUNCHES = dict(NO_LAUNCHES, flash_attention_bshd=60, rms_norm_rope=60,
                       layer_norm_mod=90)
 SP = 4                # local ranks of the sequence-parallel phases
@@ -587,11 +624,13 @@ def reset_counts():
     A.grouped_attention_fused_qkv.rowmax_launches = 0
     A._grouped_launch.routes.update(NO_ROUTES)
     P.rms_norm_rope.scope_launches.update(token=0, head=0)
+    A.fused_cross_attention.epilogues.update(resid=0, bias=0)
 
 
 def read_counts() -> dict:
     """Every kernel record's launch count: K2's two scopes, K1 and K1q, K3
-    and K3p, and K5 and K5r each from its own count."""
+    and K3p, K5 and K5r, and K6 with and without the residual each from its
+    own count."""
     from magcache_tpu_torch.ops import attention as A
     from magcache_tpu_torch.ops import fused_prologue as P
 
@@ -601,7 +640,9 @@ def read_counts() -> dict:
                   flash_attention_bshd_qknorm=A.flash_attention_bshd.qknorm_launches,
                   layer_norm_mod_plain=P.layer_norm_mod.plain_launches,
                   grouped_attention_fused_qkv_rowmax=(
-                      A.grouped_attention_fused_qkv.rowmax_launches))
+                      A.grouped_attention_fused_qkv.rowmax_launches),
+                  fused_cross_attention=A.fused_cross_attention.epilogues["resid"],
+                  fused_cross_attention_bias=A.fused_cross_attention.epilogues["bias"])
     return counts
 
 
@@ -1087,7 +1128,7 @@ def phase_os_requests(dev, model):
     ceiling = OS_STEPS / (OS_STEPS - int(sched.sum()))
     reset_counts()
     total = dict(NO_LAUNCHES)
-    secs = {}
+    secs, full_latents = {}, None
     for label, pipe, want in (("full compute", full, np.zeros((OS_STEPS, 1), bool)),
                               ("MagCache opensora-v1.2", cached, sched)):
         before = read_counts()
@@ -1106,6 +1147,7 @@ def phase_os_requests(dev, model):
                      f"{OS_TRUNK_LAUNCHES[k]} x {runs} trunk runs")
             total[k] += got
         secs[label] = out.timings["total_s"]
+        full_latents = lat.float().cpu() if full_latents is None else full_latents
         log(f"  {label}: {secs[label]:.3f} s/video, {runs} of {OS_STEPS} "
             f"forwards computed, skipped steps "
             f"{np.flatnonzero(out.skips.any(1)).tolist()}, latents std "
@@ -1116,7 +1158,7 @@ def phase_os_requests(dev, model):
     if int(sched.sum()) != 18:
         fail(f"opensora-v1.2 skips {int(sched.sum())} of 30 steps, expected 18")
     log(f"  launches in phase 9: {total}")
-    return total
+    return total, full_latents
 
 
 def _numpy_stdit3_tree(cfg, rng):
@@ -1912,6 +1954,7 @@ def phase_latte_requests(dev, model):
     cal = LattePipeline(LattePipelineConfig(magcache_calibration=True, **base), dev,
                         model=model)
     out = cal.generate(prompt, seed=3)
+    full_latents = out.latents.float().cpu()
     ratios = tuple(out.calibration["norm_ratio"])
     packed = dict(read_counts())
     if len(ratios) != LATTE_STEPS - 1 or not np.all(np.isfinite(ratios)):
@@ -1957,7 +2000,7 @@ def phase_latte_requests(dev, model):
         f"MagCache against the full-compute calibration request) against a schedule "
         f"ceiling of {ceiling:.3f}x")
     log(f"  launches in phase 21: packed {packed}; grouped {grouped}")
-    return packed, grouped
+    return packed, grouped, full_latents
 
 
 def _numpy_latte_tree(cfg, rng):
@@ -2609,6 +2652,459 @@ def phase_wan_video(dev, text_encoder, vae):
     return counts
 
 
+# ------------------------------------------- Wan's other solvers and policies
+ROLLING_STEPS = 50    # the published rolling table's length: 100 forwards
+
+
+def wan_request(pipe, label, want, total, steps=STEPS):
+    """One Wan request at 832x480x17: finite latents, the realized skip
+    bits equal to ``want`` (None: any), and the launches equal to trunk runs
+    x ``TRUNK_LAUNCHES`` plus K3p once a step; a step where one lane skips
+    runs the half-batch trunk, one run of each kernel. Adds the launches to
+    ``total``; returns the output."""
+    before = read_counts()
+    out = pipe.generate(WAN_PROMPT, seed=3)
+    launched = count_launches(before)
+    lat = out.latents
+    if tuple(lat.shape) != (1, 5, 60, 104, 16) or not bool(torch.isfinite(lat).all()):
+        fail(f"{label}: latents {tuple(lat.shape)} not finite or misshapen")
+    bits = out.skips if out.skips is not None else np.zeros((steps, 1), bool)
+    if want is not None and not np.array_equal(bits, want):
+        fail(f"{label}: realized skips differ from the schedule")
+    runs = int((~bits.all(1)).sum())
+    expected = wan_launches(TRUNK_LAUNCHES, runs, steps)
+    if launched != expected:
+        fail(f"{label}: launches {launched} != {expected} ({runs} trunk runs)")
+    for k, n in launched.items():
+        total[k] += n
+    log(f"  {label}: {out.timings['total_s']:.3f} s/video, {runs} trunk runs of {steps} "
+        f"steps ({int((bits.sum(1) == 1).sum())} half-batch), skips per lane "
+        f"{bits.sum(0).tolist()}, latents std {float(lat.std()):.4f}")
+    return out
+
+
+def phase_wan_solvers(dev, model, unipc_full):
+    """Returns the phase's launches."""
+    from magcache_tpu_torch.core.magcache import compute_skip_schedule
+    from magcache_tpu_torch.core.rolling import compute_rolling_schedule, load_eval_ratios
+    from magcache_tpu_torch.pipelines.wan import WanPipeline, WanPipelineConfig
+
+    log(f"phase 34: Wan's dpm++ and Euler solvers and the rolling policy through "
+        f"WanPipeline.generate, 832x480x17, {STEPS} steps (rolling: {ROLLING_STEPS}), CFG 5.0")
+
+    def pipe(**kw):
+        base = dict(size=(832, 480), frame_num=17, sample_steps=STEPS, sample_shift=5.0,
+                    guide_scale=5.0)
+        return WanPipeline(WanPipelineConfig(**dict(base, **kw)), dev, model=model)
+
+    reset_counts()
+    total = dict(NO_LAUNCHES)
+    none = np.zeros((STEPS, 1), bool)
+    lats = {}
+    for solver in ("dpm++", "euler"):
+        out = wan_request(pipe(sample_solver=solver), f"{solver}, full compute", none, total)
+        lats[solver] = out.latents.float().cpu()
+    cached = pipe(sample_solver="dpm++", use_magcache=True)
+    sched = compute_skip_schedule(cached._cache_cfg()).reshape(STEPS, 2)
+    wan_request(cached, "dpm++, MagCache E012K2R02", sched, total)
+    cal = wan_request(pipe(sample_solver="dpm++", magcache_calibration=True),
+                      "dpm++, calibration", None, total)
+    ratios = tuple(cal.calibration["norm_ratio"])
+    if len(ratios) != 2 * (STEPS - 1) or not np.all(np.isfinite(ratios)):
+        fail(f"dpm++ calibration recorded {len(ratios)} ratios, or non-finite ones")
+    installed = pipe(sample_solver="dpm++", use_magcache=True, mag_ratios_override=ratios)
+    if tuple(installed._cache_cfg().mag_ratios[2:]) != ratios:
+        fail("the recorded ratios were not installed")
+    wan_request(installed, "dpm++, MagCache with the recorded ratios",
+                installed.skip_mask_for(), total)
+    rolling = compute_rolling_schedule(2 * ROLLING_STEPS, load_eval_ratios(), 0.12, 2)
+    if not rolling.any():
+        fail("the rolling schedule at 0.12 / K 2 elides no forward")
+    wan_request(pipe(sample_steps=ROLLING_STEPS, use_magcache=True, cache_policy="rolling",
+                     magcache_thresh=0.12, magcache_K=2),
+                f"unipc, rolling 0.12 / K 2 ({int(rolling.sum())} of {2 * ROLLING_STEPS} "
+                f"forwards elided)", rolling.reshape(ROLLING_STEPS, 2), total,
+                steps=ROLLING_STEPS)
+    for solver, lat in lats.items():
+        log(f"  rel L2 of {solver}'s full-compute latents against unipc's (phase 5): "
+            f"{rel_l2(lat, unipc_full):.3e}")
+    log(f"  launches in phase 34: {total}")
+    return total
+
+
+def phase_wan_teacache(dev, model):
+    """Returns the phase's launches."""
+    from magcache_tpu_torch.pipelines.wan import WanPipeline, WanPipelineConfig
+
+    log(f"phase 35: Wan TeaCache through WanPipeline.generate, 832x480x17, {STEPS} "
+        f"UniPC steps, threshold 0.2, use_ret_steps off and on")
+    reset_counts()
+    total = dict(NO_LAUNCHES)
+    for ret in (False, True):
+        pipe = WanPipeline(WanPipelineConfig(
+            size=(832, 480), frame_num=17, sample_steps=STEPS, sample_shift=5.0,
+            guide_scale=5.0, enable_teacache=True, teacache_thresh=0.2,
+            use_ret_steps=ret), dev, model=model)
+        forced = pipe._teacache_lanes().forced_mask(STEPS)
+        out = wan_request(pipe, f"TeaCache, use_ret_steps={ret}", None, total)
+        if (out.skips & forced).any():
+            fail(f"use_ret_steps={ret}: a forward of the forced window skipped")
+        log(f"    forced window {int(forced.sum())} lane-forwards, all computed; skipped "
+            f"steps by lane {[np.flatnonzero(out.skips[:, l]).tolist() for l in (0, 1)]}")
+    log(f"  launches in phase 35: {total}")
+    return total
+
+
+# ------------------------------------------------------------ PAB, STDiT3
+def pab_site_spy(module, per_block: int):
+    """Counts ``module._pab_site`` calls as ``{(position in the block pair,
+    kind): [computed, reused, saved]}`` while installed; ``per_block`` is
+    the calls a block pair makes. Returns ``(counts, uninstall)``."""
+    real = module._pab_site
+    counts, seen = {}, [0]
+
+    def spy(slots, reuse, kind, compute, save=True):
+        key = (seen[0] % per_block, kind)
+        seen[0] += 1
+        c = counts.setdefault(key, [0, 0, 0])
+        c[1 if reuse[kind] else 0] += 1
+        c[2] += int(not reuse[kind] and save and slots.get(kind) is not None)
+        return real(slots, reuse, kind, compute, save)
+
+    module._pab_site = spy
+    return counts, lambda: setattr(module, "_pab_site", real)
+
+
+def os_pab_launches(masks: dict, runs: np.ndarray, depth: int = 28):
+    """Launches and K5 routes of STDiT3's PAB trunk runs at the steps
+    ``runs``: spatial K7 + K5 (prepass), temporal K3 + K5 (stream), K6
+    without the residual twice a pair, K7 (mlp1) twice a pair, no K8."""
+    want, routes = dict(NO_LAUNCHES), dict(NO_ROUTES)
+    for i in np.flatnonzero(runs):
+        sp, tp, cr, ml = (not masks[k][i] for k in ("spatial", "temporal", "cross", "mlp"))
+        want["lnmod_matmul"] += depth * (sp + 2 * ml)
+        want["grouped_attention_fused_qkv"] += depth * (sp + tp)
+        want["layer_norm_mod"] += depth * tp
+        want["fused_cross_attention_bias"] += 2 * depth * cr
+        routes["prepass"] += depth * sp
+        routes["stream"] += depth * tp
+    return want, routes
+
+
+def check_launch_routes(label: str, launched: dict, want: dict, routes: dict) -> None:
+    from magcache_tpu_torch.ops import attention as A
+
+    got = dict(A._grouped_launch.routes)
+    if launched != want or got != routes:
+        fail(f"{label}: launches {launched} != {want}, or routes {got} != {routes}")
+
+
+def pab_trunk_ms(label: str, pipe, plain_core, signature: np.ndarray) -> None:
+    """Logs one PAB trunk run's device time for each reuse signature
+    (``signature``: a ``bool[steps, sites]`` row per step; its first step of
+    each distinct row is timed, -1 is full compute) beside the plain
+    packed trunk's, on a seeded input at the schedule's first timestep. The
+    trunk state is freshly zeroed (a replayed site reads zeros: the time is
+    the same). Two calls each, the second timed between CUDA events."""
+    core = pipe.core
+    dev = pipe.device
+    gen = torch.Generator(device=dev).manual_seed(99)
+    x = torch.randn((2,) + pipe.latent_shape, generator=gen, device=dev)
+    t = torch.full((2,), float(pipe.schedule.timesteps[0]), device=dev)
+    hidden, ctx = core.prepare(x, t, {"y": pipe.text_encoder(["a boat", ""], device=dev)})
+    state = core.init_state(hidden, ctx)
+
+    def ms(fn):
+        fn()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+
+    rows, first = np.unique(signature, axis=0, return_index=True)
+    parts = [f"plain packed trunk {ms(lambda: plain_core.trunk(hidden, ctx)):.1f} ms",
+             f"PAB full compute {ms(lambda: core.trunk(hidden, ctx, state, -1)):.1f} ms"]
+    for row, i in zip(rows, first):
+        n = int((signature == row).all(1).sum())
+        parts.append(f"reuse {row.astype(int).tolist()} ({n} steps) "
+                     f"{ms(lambda: core.trunk(hidden, ctx, state, int(i))):.1f} ms")
+    log(f"  {label} trunk by reuse signature: " + "; ".join(parts))
+    del state
+
+
+def phase_os_pab(dev, rec, model, full_latents):
+    """Returns the launches of the PAB requests and of the rolling one."""
+    from magcache_tpu_torch.core.pab import OPEN_SORA_PAB, broadcast_masks
+    from magcache_tpu_torch.core.sampler import lane_skip_masks
+    from magcache_tpu_torch.models import stdit3 as S
+    from magcache_tpu_torch.ops import attention as A
+    from magcache_tpu_torch.pipelines.open_sora import (OpenSoraPipeline,
+                                                        OpenSoraPipelineConfig)
+
+    log(f"phase 36: Open-Sora PAB and the rolling policy, 480p 9:16 x {OS_FRAMES}, "
+        f"{OS_STEPS} RFLOW steps, packed route; K6 without the residual first")
+    gen = torch.Generator(device=dev).manual_seed(36)
+    rows, N, d, H, L = 2, 15 * 1590, 1152, 16, 300
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+
+    h, k, v = rnd(rows, N, d), rnd(rows, L, d), rnd(rows, L, d)
+    wq, wo = rnd(d, d, scale=d ** -0.5), rnd(d, d, scale=d ** -0.5)
+    bq, bo = rnd(d, scale=0.05), rnd(d, scale=0.05)
+    kw = dict(scale=(d // H) ** -0.5, true_d=d // H, residual=False)
+    got = A.fused_cross_attention(h, wq, bq, k, v, wo, bo, H, **kw)
+    want = A.fused_cross_attention_plain(h, wq, bq, k, v, wo, bo, H, **kw)
+    record(rec, "fused_cross_attention_bias", f"{rows}x{N} x {L} keys, no residual",
+           got, want,
+           cuda_ms(lambda: A.fused_cross_attention(h, wq, bq, k, v, wo, bo, H, **kw)),
+           cuda_ms(lambda: A.fused_cross_attention_plain(h, wq, bq, k, v, wo, bo, H, **kw), 2),
+           4 * rows * N * d * d + 4 * rows * N * L * d, nbytes(h, wq, bq, k, v, wo, bo, got))
+    del h, k, v, got, want
+    torch.cuda.empty_cache()
+
+    base = dict(resolution="480p", aspect_ratio="9:16", num_frames=OS_FRAMES,
+                num_sampling_steps=OS_STEPS, cfg_scale=7.0, dtype="bfloat16")
+    prompt = "A red sailboat glides across a calm bay at dawn."
+    totals = {"pab": dict(NO_LAUNCHES), "rolling": dict(NO_LAUNCHES)}
+    for label, kind, kw in (("PAB (OPEN_SORA_PAB)", "pab", dict(enable_pab=True)),
+                            ("PAB + MagCache opensora-v1.2", "pab",
+                             dict(enable_pab=True, use_magcache=True)),
+                            ("rolling 0.12 / K 3, no PAB", "rolling",
+                             dict(use_magcache=True, cache_policy="rolling"))):
+        pipe = OpenSoraPipeline(OpenSoraPipelineConfig(**base, **kw), dev, model=model)
+        sched = lane_skip_masks(pipe._cache_cfg(), OS_STEPS)[0]
+        runs = ~sched.all(1)
+        reset_counts()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        sites, uninstall = pab_site_spy(S, 6)
+        try:
+            out = pipe.generate(prompt, seed=3)
+        finally:
+            uninstall()
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        launched = read_counts()
+        lat = out.latents
+        if tuple(lat.shape) != (1, 15, 60, 106, 4) or not bool(torch.isfinite(lat).all()):
+            fail(f"{label}: latents {tuple(lat.shape)} not finite or misshapen")
+        if not np.array_equal(out.skips, sched):
+            fail(f"{label}: realized skips differ from the schedule")
+        if kind == "pab":
+            masks = broadcast_masks(OPEN_SORA_PAB, pipe.schedule.timesteps)
+            want, routes = os_pab_launches(masks, runs)
+            reused = {site: int(masks[m][runs].sum()) for site, m in (
+                ("spatial", "spatial"), ("temporal", "temporal"), ("cross", "cross"),
+                ("mlp", "mlp"))}
+            got_reuse = {"spatial": sites[(0, "attn")][1] // 28,
+                         "temporal": sites[(3, "attn")][1] // 28,
+                         "cross": sites[(1, "cross")][1] // 28,
+                         "mlp": sites[(2, "mlp")][1] // 28}
+            log(f"    reuse steps per site {got_reuse} (of {int(runs.sum())} trunk runs; "
+                f"the masks: spatial {int(masks['spatial'].sum())}, temporal "
+                f"{int(masks['temporal'].sum())}, cross {int(masks['cross'].sum())}, mlp "
+                f"{int(masks['mlp'].sum())} of {OS_STEPS}); state slots "
+                f"{S.pab_slots(masks, S.PAB_SLOTS)}")
+            if got_reuse != reused:
+                fail(f"{label}: reuse steps per site {got_reuse} != the masks' {reused}")
+            if launched["matmul_gated_residual"] or launched["fused_cross_attention"]:
+                fail(f"{label}: a K8 or residual K6 launch in a PAB request")
+        else:
+            want = {k: n * int(runs.sum()) for k, n in OS_TRUNK_LAUNCHES.items()}
+            routes = {k: n * int(runs.sum()) for k, n in OS_ROUTES.items()}
+        check_launch_routes(label, launched, want, routes)
+        for k, n in launched.items():
+            totals[kind][k] += n
+        log(f"  {label}: {out.timings['total_s']:.3f} s/video, {int(runs.sum())} of "
+            f"{OS_STEPS} trunk runs, peak memory {peak:.2f} GB, rel L2 against full compute "
+            f"(phase 9) {rel_l2(lat, full_latents):.3e}, launches {launched}")
+    masks = broadcast_masks(OPEN_SORA_PAB, pipe.schedule.timesteps)
+    pab_trunk_ms("480p PAB", OpenSoraPipeline(OpenSoraPipelineConfig(**base, enable_pab=True),
+                                              dev, model=model),
+                 S.make_stdit3_core(model, pipe.grid, pixel_size=(pipe.config.height,
+                                                                  pipe.config.width)),
+                 np.stack([masks[k] for k in ("spatial", "temporal", "cross", "mlp")], 1))
+    log(f"  launches in phase 36: PAB {totals['pab']}; rolling {totals['rolling']}")
+    return totals["pab"], totals["rolling"]
+
+
+# -------------------------------------------------------------- PAB, Latte
+def latte_pab_launches(masks: dict, runs: np.ndarray, depth: int = 28):
+    """Launches and K5r routes of Latte's PAB trunk runs at the steps
+    ``runs``: attention K3 + K5r (spatial "tma", temporal "stream"), cross
+    through ``attention()`` (K1), the MLP's K3 in each block that computes
+    it."""
+    want, routes = dict(NO_LAUNCHES), dict(NO_ROUTES)
+    for i in np.flatnonzero(runs):
+        sp, tp, cr = (not masks[k][i] for k in ("spatial", "temporal", "cross"))
+        mlp = int((~masks["mlp_sp_reuse"][i]).sum() + (~masks["mlp_tp_reuse"][i]).sum())
+        want["layer_norm_mod"] += depth * (sp + tp) + mlp
+        want["grouped_attention_fused_qkv_rowmax"] += depth * (sp + tp)
+        want["flash_attention_bshd"] += depth * cr
+        routes["tma"] += depth * sp
+        routes["stream"] += depth * tp
+    return want, routes
+
+
+def phase_latte_pab(dev, model, full_latents):
+    """Returns the phase's launches."""
+    from magcache_tpu_torch.core.pab import LATTE_PAB
+    from magcache_tpu_torch.models import latte as LM
+    from magcache_tpu_torch.pipelines.latte import LattePipeline, LattePipelineConfig
+
+    log(f"phase 37: Latte PAB (LATTE_PAB) through LattePipeline.generate, 512x512 x 16 "
+        f"frames, {LATTE_STEPS} DDIM steps, packed route")
+    pipe = LattePipeline(LattePipelineConfig(num_sampling_steps=LATTE_STEPS,
+                                             dtype="bfloat16", enable_pab=True),
+                         dev, model=model)
+    masks = LM.latte_pab_masks(LATTE_PAB, pipe.schedule.timesteps, 28)
+    runs = np.ones(LATTE_STEPS, bool)
+    reset_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    sites, uninstall = pab_site_spy(LM, 5)
+    try:
+        out = pipe.generate("A red sailboat glides across a calm bay at dawn.", seed=3)
+    finally:
+        uninstall()
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    launched = read_counts()
+    lat = out.latents
+    if tuple(lat.shape) != (1, 16, 64, 64, 4) or not bool(torch.isfinite(lat).all()):
+        fail(f"Latte PAB: latents {tuple(lat.shape)} not finite or misshapen")
+    want, routes = latte_pab_launches(masks, runs)
+    check_launch_routes("Latte PAB", launched, want, routes)
+    got = {"spatial": sites[(0, "attn")][1] // 28, "temporal": sites[(3, "attn")][1] // 28,
+           "cross": sites[(1, "cross")][1] // 28,
+           "mlp spatial": sites[(2, "mlp")][1], "mlp temporal": sites[(4, "mlp")][1],
+           "mlp saves": sites[(2, "mlp")][2] + sites[(4, "mlp")][2]}
+    expect = {"spatial": int(masks["spatial"].sum()), "temporal": int(masks["temporal"].sum()),
+              "cross": int(masks["cross"].sum()),
+              "mlp spatial": int(masks["mlp_sp_reuse"].sum()),
+              "mlp temporal": int(masks["mlp_tp_reuse"].sum()),
+              "mlp saves": int(masks["mlp_sp_save"].sum() + masks["mlp_tp_save"].sum())}
+    blocks = sorted({int(b) for b in np.flatnonzero(masks["mlp_sp_reuse"].any(0))})
+    log(f"  reuse steps per site (block-steps for the MLPs) and MLP saves {got}; the "
+        f"masks {expect}; MLP reuse on blocks {blocks}")
+    if got != expect:
+        fail(f"Latte PAB: site counts {got} != the masks' {expect}")
+    pab_trunk_ms("Latte PAB", pipe, LM.make_latte_core(model, pipe.grid, LATTE_CAP),
+                 np.stack([masks["spatial"], masks["temporal"], masks["cross"],
+                           masks["mlp_sp_reuse"].any(1) | masks["mlp_tp_reuse"].any(1)], 1))
+    log(f"  Latte PAB: {out.timings['total_s']:.3f} s/video, peak memory {peak:.2f} GB, "
+        f"rel L2 against full compute (phase 21's calibration request) "
+        f"{rel_l2(lat, full_latents):.3e}, launches {launched}")
+    return launched
+
+
+# ------------------------------------------------- narrow, card against CPU
+def phase_narrow_new_paths(dev):
+    from magcache_tpu_torch.core.pab import LattePABConfig, OpenSoraPABConfig
+    from magcache_tpu_torch.core.presets import make_config
+    from magcache_tpu_torch.core.sampler import sample_euler
+    from magcache_tpu_torch.models.convert import (latte_params_from_numpy,
+                                                   stdit3_params_from_numpy)
+    from magcache_tpu_torch.models.latte import LatteConfig, LatteModel, latte_pab_masks
+    from magcache_tpu_torch.models.stdit3 import (STDiT3Config, STDiT3Model,
+                                                  make_stdit3_core)
+    from magcache_tpu_torch.models.text import MockTextEncoder
+    from magcache_tpu_torch.models.wan import make_wan_core
+    from magcache_tpu_torch.pipelines.latte import LattePipeline, LattePipelineConfig
+    from magcache_tpu_torch.schedulers.dpm_flow import dpmpp_2m_flow_coeffs
+    from magcache_tpu_torch.schedulers.flow_match import FlowMatchSchedule
+    from magcache_tpu_torch.schedulers.rflow import RFlowSchedule
+
+    log("phase 38: narrow slices of the new paths on the card (kernels, bf16) vs the "
+        "CPU (plain, f32): Wan dpm++, STDiT3 PAB, Latte PAB")
+    # Wan dpm++: phase 6's slice on the dpm++ update
+    sch = FlowMatchSchedule.create(len(NARROW_MASK), shift=5.0)
+    outs = {}
+    reset_counts()
+    for name, device, dtype in (("card", dev, torch.bfloat16),
+                                ("cpu", torch.device("cpu"), torch.float32)):
+        model = narrow_wan_model(device, dtype)
+        cfg = model.cfg
+        ctx = MockTextEncoder(cfg.text_len, cfg.text_dim, scale=0.5)(["a cat", ""])
+        lat, skips = sample_euler(
+            make_wan_core(model, (2, 8, 12)),
+            torch.from_numpy(_narrow_wan_inputs(cfg)[1]).to(device),
+            {"context": ctx.to(device)}, timesteps=sch.timesteps, dts=np.diff(sch.sigmas),
+            cache_cfg=make_config("wan2.1-t2v-1.3B", len(NARROW_MASK)), guidance_scale=5.0,
+            dpm_coeffs=dpmpp_2m_flow_coeffs(sch.sigmas), skip_mask_override=NARROW_MASK,
+            return_skips=True)
+        if not np.array_equal(skips, NARROW_MASK):
+            fail("narrow dpm++: realized skips differ from the override")
+        outs[name] = lat.float().cpu()
+        if name == "card":
+            launched = read_counts()
+    per_run = {k: n * NARROW_LAYERS // 30 for k, n in TRUNK_LAUNCHES.items()}
+    check_narrow("Wan dpm++", outs["card"], outs["cpu"], launched,
+                 wan_launches(per_run, int((~NARROW_MASK.all(1)).sum()), len(NARROW_MASK)))
+
+    # STDiT3 PAB: phase 10's slice with every site's window opened
+    cfg = STDiT3Config(hidden=144, heads=2, depth=2, caption_dim=64, freq_dim=64,
+                       caption_max_len=20)
+    grid = (5, 5, 8)
+    rng = np.random.default_rng(12)
+    tree = _numpy_stdit3_tree(cfg, rng)
+    x0 = rng.standard_normal((1, 5, 10, 16, 4)).astype(np.float32)
+    y = MockTextEncoder(20, 64, scale=0.5)(["a red boat", ""])
+    mask = np.array([0, 0, 1, 0, 1, 1, 0, 0], bool)[:, None]
+    sch = RFlowSchedule.create(len(mask), use_timestep_transform=True, height=80,
+                               width=128, num_frames=17)
+    pab = OpenSoraPABConfig(spatial_threshold=(0, 1000), temporal_threshold=(0, 1000),
+                            cross_threshold=(0, 1000))
+    from magcache_tpu_torch.core.pab import broadcast_masks
+
+    masks = broadcast_masks(pab, sch.timesteps)
+
+    def combine(chunks):
+        return chunks[1][..., :4] + 7.0 * (chunks[0][..., :4] - chunks[1][..., :4])
+
+    reset_counts()
+    for name, device, dtype in (("card", dev, "bfloat16"), ("cpu", torch.device("cpu"), "float32")):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        model = STDiT3Model(c, device)
+        model.load_state_dict(stdit3_params_from_numpy(tree, c, device))
+        core = make_stdit3_core(model, grid, pab=pab, timesteps=sch.timesteps,
+                                pixel_size=(80, 128))
+        lat = sample_euler(core, torch.from_numpy(x0).to(device),
+                           {"y": y.to(device), "fps": torch.full((2,), 24.0, device=device)},
+                           timesteps=sch.timesteps, dts=sch.dts(), lanes=2,
+                           combine_fn=combine, cache_cfg=make_config("opensora-v1.2", len(mask)),
+                           skip_mask_override=mask)
+        outs[name] = lat.float().cpu()
+        if name == "card":
+            launched = read_counts()
+    want, _ = os_pab_launches(masks, ~mask[:, 0], depth=2)
+    log(f"  STDiT3 PAB reuse steps among the trunk runs: " + ", ".join(
+        f"{k} {int(masks[k][~mask[:, 0]].sum())}" for k in ("spatial", "temporal", "cross")))
+    check_narrow("STDiT3 PAB", outs["card"], outs["cpu"], launched, want)
+
+    # Latte PAB: phase 22's slice, MLP anchors at the 8-step schedule's 750
+    cfg = LatteConfig(hidden=144, heads=2, depth=2, caption_dim=64, time_embed_dim=64,
+                      out_channels=8)
+    tree = _numpy_latte_tree(cfg, np.random.default_rng(22))
+    anchors = ((750, (0, 1), 2),)
+    pab = LattePABConfig(mlp_spatial_config=anchors, mlp_temporal_config=anchors)
+    base = dict(num_frames=16, height=256, width=256, num_sampling_steps=8, caption_len=20,
+                enable_pab=True, pab_config=pab)
+    reset_counts()
+    for name, device, dtype in (("card", dev, "bfloat16"), ("cpu", torch.device("cpu"), "float32")):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        model = LatteModel(c, device)
+        model.load_state_dict(latte_params_from_numpy(tree, c, device))
+        pipe = LattePipeline(LattePipelineConfig(dtype=dtype, **base), device, model=model)
+        outs[name] = pipe.generate("a red boat", seed=4, skip_override=mask).latents.float().cpu()
+        if name == "card":
+            launched = read_counts()
+            masks = latte_pab_masks(pab, pipe.schedule.timesteps, 2)
+    want, _ = latte_pab_launches(masks, ~mask[:, 0], depth=2)
+    check_narrow("Latte PAB", outs["card"], outs["cpu"], launched, want)
+
+
 def main():
     phase_environment()
     dev = torch.device("cuda", 0)
@@ -2629,7 +3125,7 @@ def main():
     log("phase 8/9 model:")
     model = make_os_model(dev)
     phase_os_forward(dev, model)
-    os_launches = phase_os_requests(dev, model)
+    os_launches, os_full = phase_os_requests(dev, model)
     del model
     torch.cuda.empty_cache()
     phase_os_card_vs_cpu(dev)
@@ -2659,7 +3155,7 @@ def main():
     log("phase 20/21 model:")
     model = make_latte_model(dev)
     latte_vpu = phase_latte_forward(dev, model)
-    latte, latte_grouped = phase_latte_requests(dev, model)
+    latte, latte_grouped, latte_full = phase_latte_requests(dev, model)
     del model
     torch.cuda.empty_cache()
     phase_latte_card_vs_cpu(dev)
@@ -2689,11 +3185,30 @@ def main():
     wan_video = phase_wan_video(dev, umt5, vae)
     del umt5, vae
     torch.cuda.empty_cache()
+    t_ends = time.time() - t0 - t_wan - t_os - t_flux - t_os720 - t_latte - t_sp - t_unpacked
+    log("phase 34/35 model:")
+    model = make_model(dev)          # the same seed: phase 5's weights
+    wan_solvers = phase_wan_solvers(dev, model, single_latents["full compute"])
+    wan_tea = phase_wan_teacache(dev, model)
+    del model
+    torch.cuda.empty_cache()
+    log("phase 36 model:")
+    model = make_os_model(dev)       # the same seed: phase 9's weights
+    os_pab, os_rolling = phase_os_pab(dev, rec, model, os_full)
+    del model
+    torch.cuda.empty_cache()
+    log("phase 37 model:")
+    model = make_latte_model(dev)    # the same seed: phase 21's weights
+    latte_pab = phase_latte_pab(dev, model, latte_full)
+    del model
+    torch.cuda.empty_cache()
+    phase_narrow_new_paths(dev)
     log(f"all phases passed in {time.time() - t0:.1f} s (Wan {t_wan:.1f} s, "
         f"Open-Sora {t_os:.1f} s, FLUX {t_flux:.1f} s, Open-Sora 720p "
         f"{t_os720:.1f} s, Latte {t_latte:.1f} s, Wan sequence-parallel {t_sp:.1f} s, "
         f"Open-Sora unpacked and without qk-norm {t_unpacked:.1f} s, UMT5, VAE and "
-        f"the Wan video {time.time() - t0 - t_wan - t_os - t_flux - t_os720 - t_latte - t_sp - t_unpacked:.1f} s)")
+        f"the Wan video {t_ends:.1f} s, the new solvers, policies and PAB "
+        f"{time.time() - t0 - t_wan - t_os - t_flux - t_os720 - t_latte - t_sp - t_unpacked - t_ends:.1f} s)")
 
     meta = {
         "flash_attention_bshd": ("cuda", "magcache_tpu_torch/csrc/hopper_attention.cuh",
@@ -2723,6 +3238,8 @@ def main():
                                     "magcache_tpu/ops/tiny_attention.py:185"),
         "fused_cross_attention": ("cuda", "magcache_tpu_torch/csrc/stdit3_kernels.cu",
                                   "magcache_tpu/ops/attention.py:933"),
+        "fused_cross_attention_bias": ("cuda", "magcache_tpu_torch/csrc/stdit3_kernels.cu",
+                                       "magcache_tpu/ops/attention.py:933"),
         "lnmod_matmul": ("cuda", "magcache_tpu_torch/csrc/hopper_gemm.cuh",
                          "magcache_tpu/ops/fused_prologue.py:205"),
         "matmul_gated_residual": ("cuda", "magcache_tpu_torch/csrc/hopper_gemm.cuh",
@@ -2733,7 +3250,9 @@ def main():
              "latte-grouped": latte_grouped, "latte-vpu": latte_vpu,
              "wan-ulysses": sp_ulysses, "wan-ring": sp_ring,
              "open-sora-grouped": os_unpacked["grouped"], "open-sora-vpu": os_unpacked["vpu"],
-             "open-sora-noqknorm": os_noqk, "wan-video": wan_video}
+             "open-sora-noqknorm": os_noqk, "wan-video": wan_video,
+             "wan-solvers": wan_solvers, "wan-teacache": wan_tea, "open-sora-pab": os_pab,
+             "open-sora-rolling": os_rolling, "latte-pab": latte_pab}
     kernels = []
     for name, (route, source, replaces) in meta.items():
         by_path = {p: c[name] for p, c in paths.items()}

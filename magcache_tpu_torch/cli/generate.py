@@ -6,11 +6,12 @@ Latte-1 t2v (``--task latte``).
 Flag names follow the reference adapters (``--task --size --frame_num
 --sample_steps --sample_shift --sample_solver --sample_guide_scale
 --base_seed --use_magcache --magcache_thresh --magcache_K --retention_ratio
---magcache_calibration``; Open-Sora adds ``--resolution --aspect_ratio``
-and its conditioning flags ``--loop --ms/--mask_strategy
---refs/--reference_path --condition_frame_length --condition_frame_edit
---align --route``, FLUX ``--txt_len``, Latte ``--txt_len --clean_caption
---route``),
+--magcache_calibration --cache_policy``; Wan adds ``--enable_teacache
+--teacache_thresh --use_ret_steps``, Open-Sora ``--resolution
+--aspect_ratio --enable_pab`` and its conditioning flags ``--loop
+--ms/--mask_strategy --refs/--reference_path --condition_frame_length
+--condition_frame_edit --align --route``, FLUX ``--txt_len``, Latte
+``--txt_len --clean_caption --route --enable_pab``),
 and the output file name encodes the E/K/R triple. Unset flags take each
 family's reference defaults, as in the JAX CLI. Runs on a CUDA card by
 default; ``--device cpu`` runs the plain PyTorch ops instead of the kernels
@@ -29,6 +30,12 @@ Examples:
   python -m magcache_tpu_torch.cli.generate --task t2v-1.3B --size 832*480 \
       --sample_steps 50 --use_magcache --magcache_thresh 0.12 --magcache_K 2
   python -m magcache_tpu_torch.cli.generate --task t2v-1.3B --magcache_calibration
+  python -m magcache_tpu_torch.cli.generate --task t2v-1.3B --sample_solver dpm++ \
+      --use_magcache --cache_policy rolling --magcache_thresh 0.12 --magcache_K 2
+  python -m magcache_tpu_torch.cli.generate --task t2v-1.3B --enable_teacache \
+      --teacache_thresh 0.2 --use_ret_steps
+  python -m magcache_tpu_torch.cli.generate --task open-sora --resolution 480p \
+      --aspect_ratio 9:16 --frame_num 51 --enable_pab      # or --task latte
   python -m magcache_tpu_torch.cli.generate --task open-sora --resolution 720p \
       --aspect_ratio 9:16 --frame_num 51 --use_magcache
   python -m magcache_tpu_torch.cli.generate --task open-sora --tiny --device cpu \
@@ -86,7 +93,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "for FLUX")
     p.add_argument("--sample_shift", type=float, default=None,
                    help="Wan flow shift (unset: 5.0)")
-    p.add_argument("--sample_solver", default="unipc", choices=["unipc"])
+    p.add_argument("--sample_solver", default="unipc",
+                   choices=["unipc", "dpm++", "euler"],
+                   help="Wan's solver (the reference's unipc and dpm++, and Euler)")
     p.add_argument("--sample_guide_scale", type=float, default=None,
                    help="unset: 5.0 for Wan, 7.0 for Open-Sora, 7.5 for "
                         "Latte; FLUX's embedded guidance 3.5 (2.5 for Kontext)")
@@ -131,7 +140,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--magcache_thresh", type=float, default=None)
     p.add_argument("--magcache_K", type=int, default=None)
     p.add_argument("--retention_ratio", type=float, default=None)
+    p.add_argument("--cache_policy", choices=("adapter", "rolling"), default="adapter",
+                   help="MagCache decision rule for t2v-1.3B and open-sora: the "
+                        "release adapter rule, or the eval scripts' rolling rule "
+                        "(wan_magcache.py:683-817)")
     p.add_argument("--magcache_calibration", action="store_true")
+    p.add_argument("--enable_teacache", action="store_true",
+                   help="t2v-1.3B: the TeaCache comparator (per-lane, UniPC only)")
+    p.add_argument("--teacache_thresh", type=float, default=None,
+                   help="TeaCache threshold (unset: 0.2)")
+    p.add_argument("--use_ret_steps", action="store_true",
+                   help="TeaCache's retention-steps variant: the e0 signal and a "
+                        "longer forced warm-up")
+    p.add_argument("--enable_pab", action="store_true",
+                   help="open-sora and latte: Pyramid Attention Broadcast "
+                        "(packed route)")
     p.add_argument("--mag_ratios_json", default=None,
                    help="path to a calibration-mode *_mag_ratio.json; its "
                         "ratios replace the preset's published array")
@@ -199,7 +222,10 @@ def _wan_pipeline(args, device, ratios):
                      else args.sample_guide_scale),
         use_magcache=args.use_magcache, magcache_thresh=args.magcache_thresh,
         magcache_K=args.magcache_K, retention_ratio=args.retention_ratio,
-        magcache_calibration=args.magcache_calibration,
+        cache_policy=args.cache_policy, magcache_calibration=args.magcache_calibration,
+        enable_teacache=args.enable_teacache,
+        teacache_thresh=0.2 if args.teacache_thresh is None else args.teacache_thresh,
+        use_ret_steps=args.use_ret_steps,
         mag_ratios_override=ratios, dtype=args.dtype, tiny=args.tiny,
         sp=args.sp, sp_impl="ring" if args.ring_size else "auto")
     return WanPipeline(cfg, device, plan=plan), cfg.sample_steps, 2
@@ -224,6 +250,7 @@ def _open_sora_pipeline(args, device, ratios):
         use_magcache=args.use_magcache, magcache_thresh=args.magcache_thresh,
         magcache_K=args.magcache_K, retention_ratio=args.retention_ratio,
         magcache_calibration=args.magcache_calibration, magcache_ratios=ratios,
+        cache_policy=args.cache_policy, enable_pab=args.enable_pab,
         dtype=args.dtype, tiny=args.tiny, route=args.route)
     return OpenSoraPipeline(cfg, device), cfg.num_sampling_steps, 1
 
@@ -260,7 +287,7 @@ def _latte_pipeline(args, device, ratios):
               use_magcache=args.use_magcache,
               magcache_calibration=args.magcache_calibration, magcache_ratios=ratios,
               clean_caption=args.clean_caption, dtype=args.dtype, tiny=args.tiny,
-              route=args.route)
+              route=args.route, enable_pab=args.enable_pab)
     for name in ("magcache_thresh", "magcache_K", "retention_ratio"):
         if getattr(args, name) is not None:
             kw[name] = getattr(args, name)
@@ -300,6 +327,15 @@ def _pipeline(args):
     if args.sp > 1 and args.task != "t2v-1.3B":
         raise SystemExit(f"--sp: sequence parallelism is ported for t2v-1.3B "
                          f"only, not for {args.task!r}")
+    wan = args.task == "t2v-1.3B"
+    for flag, on, ok in (("--sample_solver", args.sample_solver != "unipc", wan),
+                         ("--cache_policy", args.cache_policy != "adapter",
+                          wan or args.task == "open-sora"),
+                         ("--enable_teacache", args.enable_teacache, wan),
+                         ("--enable_pab", args.enable_pab,
+                          args.task in ("open-sora", "latte"))):
+        if on and not ok:
+            raise SystemExit(f"{flag} does not apply to --task {args.task!r}")
     ratios = None
     if args.mag_ratios_json:
         with open(args.mag_ratios_json) as f:
@@ -338,7 +374,13 @@ def main(argv=None):
     E = args.magcache_thresh if args.magcache_thresh is not None else "def"
     K = args.magcache_K if args.magcache_K is not None else "def"
     R = args.retention_ratio if args.retention_ratio is not None else "def"
-    tag = f"magcache_E{E}_K{K}_R{R}" if args.use_magcache else "full"
+    if args.enable_teacache:
+        T = args.teacache_thresh if args.teacache_thresh is not None else "def"
+        tag = f"teacache_T{T}" + ("_ret" if args.use_ret_steps else "")
+    elif args.use_magcache:
+        tag = f"magcache_E{E}_K{K}_R{R}"
+    else:
+        tag = "pab" if args.enable_pab else "full"
     save_file = args.save_file or f"{args.task}_{tag}_seed{args.base_seed}"
     if out.calibration is not None:
         for name in ("norm_ratio", "norm_std", "cos_dis"):
@@ -357,9 +399,13 @@ def main(argv=None):
                 "forwards (cond + uncond as one joint batch per step)")
         print(f"skipped {int(out.skips.sum())} of {lanes * len(out.skips)} {what}; "
               f"skipped steps {np.flatnonzero(out.skips.any(1)).tolist()}")
+    mode = ("teacache" if args.enable_teacache else "magcache" if args.use_magcache
+            else "full")
+    if args.enable_pab:
+        mode += "+pab"
     print(f"done: {steps} steps in {dt:.1f}s (sampling "
           f"{out.timings['total_s']:.1f}s) on {pipe.device} "
-          f"mode={'magcache' if args.use_magcache else 'full'}")
+          f"mode={mode}")
 
 
 if __name__ == "__main__":

@@ -37,8 +37,8 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["MagCacheConfig", "compute_skip_schedule", "nearest_interp",
-           "prepare_mag_ratios"]
+__all__ = ["MagCacheConfig", "MagCacheState", "compute_skip_schedule",
+           "dynamic_init", "dynamic_update", "nearest_interp", "prepare_mag_ratios"]
 
 
 def nearest_interp(src_array: np.ndarray, target_length: int) -> np.ndarray:
@@ -160,3 +160,50 @@ def compute_skip_schedule(cfg: MagCacheConfig) -> np.ndarray:
             acc_err[lane] = 0.0
             acc_steps[lane] = 0
     return skip
+
+
+# --------------------------------------------------------------------------
+# Per-forward mode: the same recurrence one forward at a time, carried in a
+# state, for parity with the JAX package's in-graph path (``dynamic_update``
+# there). The decision depends only on the config, so it runs on host
+# scalars, in f32 as the JAX carry is.
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MagCacheState:
+    """Per-lane accumulators of the per-forward mode."""
+
+    acc_ratio: np.ndarray   # f32[lanes]
+    acc_err: np.ndarray     # f32[lanes]
+    acc_steps: np.ndarray   # i32[lanes]
+
+
+def dynamic_init(cfg: MagCacheConfig) -> MagCacheState:
+    return MagCacheState(acc_ratio=np.ones(cfg.lanes, np.float32),
+                         acc_err=np.zeros(cfg.lanes, np.float32),
+                         acc_steps=np.zeros(cfg.lanes, np.int32))
+
+
+def dynamic_update(state: MagCacheState, cnt: int,
+                   cfg: MagCacheConfig) -> Tuple[bool, MagCacheState]:
+    """One decision at forward index ``cnt``: ``(skip, new_state)``. Outside
+    the retention gate the state passes through; a refused skip resets the
+    lane."""
+    if not cfg.gate_open(cnt):
+        return False, state
+    lane = cnt % cfg.lanes
+    one = np.float32(1.0)
+    ratio = np.float32(cfg.mag_ratios[cnt])
+    acc_ratio, acc_err, acc_steps = (a.copy() for a in dataclasses.astuple(state))
+    acc_ratio[lane] = acc_ratio[lane] * ratio
+    acc_steps[lane] += 1
+    acc_err[lane] = acc_err[lane] + np.abs(one - acc_ratio[lane])
+    thresh = np.float32(cfg.thresh)
+    ok = acc_err[lane] <= thresh if cfg.err_inclusive else acc_err[lane] < thresh
+    ok = ok and acc_steps[lane] <= cfg.max_consecutive_skips
+    if cfg.max_ratio_deviation is not None:
+        ok = ok and np.abs(one - ratio) <= np.float32(cfg.max_ratio_deviation)
+    ok = bool(ok and not cfg.forced_compute(cnt))
+    if not ok:
+        acc_ratio[lane], acc_err[lane], acc_steps[lane] = 1.0, 0.0, 0
+    return ok, MagCacheState(acc_ratio, acc_err, acc_steps)

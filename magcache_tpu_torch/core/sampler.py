@@ -30,6 +30,18 @@ Same design as ``magcache_tpu.core.sampler``, in PyTorch's eager idiom:
   N-branch ``combine_fn``. ``sample_rflow_masked`` is its masked-frame
   variant (references, edit ratios, looped extension): the per-frame mask
   logic is host numpy, so it costs no device-to-host sync either.
+- A core may carry trunk state across steps (``DiTCore.init_state``; PAB's
+  per-block output caches): its trunk is then ``trunk(hidden, ctx, state,
+  step_idx) -> (hidden, state)``, a skipped step passes the state through,
+  and a stateful trunk never takes the half-batch branch (its lanes compute
+  together and the skipping lane keeps its cached residual).
+- ``dynamic_skip`` (TeaCache's ``TeaCacheLanes``) decides each lane's skip
+  from the step's ``prepare`` outputs: the static mask then carries the
+  policy's forced-compute window, and each step reads one small host copy
+  of the per-lane accumulators (the only activation-dependent decision).
+- ``sample_euler(dpm_coeffs=)`` is DPM-Solver++(2M) on the flow sigmas
+  (Wan's dpm++), with the previous data prediction carried; ``post_step``
+  maps the sample after every update on both samplers.
 """
 
 from __future__ import annotations
@@ -45,7 +57,7 @@ from magcache_tpu_torch.core.magcache import MagCacheConfig, compute_skip_schedu
 from magcache_tpu_torch.schedulers.unipc import UniPCSchedule
 
 __all__ = ["DiTCore", "unipc_executor", "sample_unipc", "calibrate_unipc",
-           "sample_euler", "sample_rflow_masked"]
+           "sample_euler", "sample_rflow_masked", "lane_skip_masks"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,20 +68,30 @@ class DiTCore:
     trunk:   (hidden, ctx) -> hidden          # the blocks (cacheable)
     head:    (hidden, ctx) -> out             # final layer + unpatchify
 
-    The parameters live in the model the functions close over.
+    With ``init_state`` (``(hidden, ctx) -> state``, built from the first
+    step's prepare outputs) the trunk carries state across steps:
+    ``trunk(hidden, ctx, state, step_idx) -> (hidden, state)``, where
+    ``step_idx = -1`` asks for full compute. The parameters live in the
+    model the functions close over.
     """
 
     prepare: Callable[..., Tuple[torch.Tensor, Any]]
-    trunk: Callable[..., torch.Tensor]
+    trunk: Callable[..., Any]
     head: Callable[..., torch.Tensor]
+    init_state: Optional[Callable[..., Any]] = None
 
 
-def lane_skip_masks(cache_cfg: Optional[MagCacheConfig], num_steps: int):
+def lane_skip_masks(cache_cfg, num_steps: int):
     """Static per-scheduler-step skip bits ``bool[num_steps, lanes]``; the
-    forward index of step i, lane l is ``i*lanes + l``."""
+    forward index of step i, lane l is ``i*lanes + l``. ``cache_cfg`` is a
+    ``MagCacheConfig``, or any config with ``lanes``, ``num_steps`` and its
+    own ``skip_schedule()`` (``core.rolling.RollingCacheConfig``)."""
     if cache_cfg is None:
         return np.zeros((num_steps, 1), bool), 1
-    sched = compute_skip_schedule(cache_cfg)
+    if hasattr(cache_cfg, "skip_schedule"):
+        sched = np.asarray(cache_cfg.skip_schedule(), bool)
+    else:
+        sched = compute_skip_schedule(cache_cfg)
     lanes = cache_cfg.lanes
     if cache_cfg.num_steps != num_steps * lanes:
         raise ValueError(f"cache num_steps {cache_cfg.num_steps} != sampler "
@@ -98,26 +120,36 @@ def _stack_lanes(x: torch.Tensor, lanes: int) -> torch.Tensor:
     return torch.cat([x] * lanes, dim=0) if lanes > 1 else x
 
 
+def _run_trunk(core: DiTCore, hidden, ctx, state, step_idx: int):
+    if core.init_state is None:
+        return core.trunk(hidden, ctx), state
+    return core.trunk(hidden, ctx, state, step_idx)
+
+
 def _cached_trunk(core: DiTCore, hidden, ctx, cache, skip_bits: np.ndarray,
-                  lane_of_row: np.ndarray, partial_lanes: Optional[int]):
+                  lane_of_row: np.ndarray, partial_lanes: Optional[int],
+                  state=None, step_idx: int = -1):
     """One trunk evaluation under the cache policy.
 
     skip_bits: host ``bool[lanes]``; cache has hidden's shape and dtype.
-    Returns ``(hidden_out, new_cache)``.
+    Returns ``(hidden_out, new_cache, new_state)``; a step that skips every
+    lane passes ``state`` through.
 
-    With ``partial_lanes`` (cache lanes == stacked lanes > 1) the step
-    branches on how many lanes skip: all replay their residuals, none runs
-    the full trunk, and in between only the computing lanes' rows (in order)
-    go through the trunk and their residuals are scattered into the cache.
+    With ``partial_lanes`` (cache lanes == stacked lanes > 1) and a
+    stateless trunk the step branches on how many lanes skip: all replay
+    their residuals, none runs the full trunk, and in between only the
+    computing lanes' rows (in order) go through the trunk and their
+    residuals are scattered into the cache. A stateful trunk runs all rows
+    whenever a lane computes, and the skipping rows keep their cache.
     """
     row_skip = skip_bits[lane_of_row]
-    if partial_lanes is not None:
+    if partial_lanes is not None and core.init_state is None:
         n_skip = int(skip_bits.sum())
         if n_skip == partial_lanes:
-            return hidden + cache, cache
+            return hidden + cache, cache, state
         if n_skip == 0:
             h = core.trunk(hidden, ctx)
-            return h, h - hidden
+            return h, h - hidden, state
         rows = hidden.shape[0]
         # stable: non-skipping rows first, original order kept
         keep = (partial_lanes - n_skip) * (rows // partial_lanes)
@@ -127,12 +159,15 @@ def _cached_trunk(core: DiTCore, hidden, ctx, cache, skip_bits: np.ndarray,
         resid_g = core.trunk(h_in, _gather_rows(ctx, idx, rows)) - h_in
         resid_full = cache.clone()
         resid_full[idx] = resid_g.to(cache.dtype)
-        return hidden + resid_full, resid_full
-    # one cache lane over all rows: they skip together or compute together
+        return hidden + resid_full, resid_full, state
     if row_skip.all():
-        return hidden + cache, cache
-    resid = core.trunk(hidden, ctx) - hidden
-    return hidden + resid, resid
+        return hidden + cache, cache, state
+    h, state = _run_trunk(core, hidden, ctx, state, step_idx)
+    resid = h - hidden
+    if row_skip.any():
+        keep = torch.as_tensor(row_skip, device=hidden.device)
+        resid = torch.where(keep.reshape((-1,) + (1,) * (hidden.ndim - 1)), cache, resid)
+    return hidden + resid, resid, state
 
 
 def _lane_setup(cache_cfg, num_steps, guidance_scale, lanes, batch,
@@ -166,17 +201,43 @@ def _f32(a) -> np.ndarray:
     return np.asarray(a, np.float64).astype(np.float32)
 
 
+def _dynamic_setup(dynamic_skip, core: DiTCore, n_lanes: int, batch: int,
+                   num_steps: int):
+    """``(forced_mask, lane_of_row, partial_lanes)`` of a dynamic policy: the
+    static mask slot carries its forced-compute window, each lane owns its
+    rows, and lane-asymmetric steps run the half-batch trunk."""
+    if core.init_state is not None:
+        raise ValueError("a dynamic skip policy needs a stateless trunk")
+    if dynamic_skip.lanes != n_lanes:
+        raise ValueError(f"dynamic_skip lanes {dynamic_skip.lanes} != sampler "
+                         f"lanes {n_lanes}")
+    return (np.asarray(dynamic_skip.forced_mask(num_steps), bool),
+            np.arange(batch * n_lanes) // batch, n_lanes if n_lanes > 1 else None)
+
+
+def _decide(dynamic_skip, hidden, ctx, dstate, bits):
+    """The step's skip bits: the static ones, or the dynamic policy's
+    decision (and its new state) given the forced bits."""
+    if dynamic_skip is None:
+        return bits, dstate
+    if dstate is None:
+        dstate = dynamic_skip.init_state(dynamic_skip.signal_fn(hidden, ctx))
+    return dynamic_skip.decide(hidden, ctx, dstate, bits)
+
+
 def unipc_executor(
     core: DiTCore,
     schedule: UniPCSchedule,
     *,
-    cache_cfg: Optional[MagCacheConfig] = None,
+    cache_cfg=None,
     guidance_scale: Optional[float] = None,
     lanes: Optional[int] = None,
     skip_mask_override: Optional[np.ndarray] = None,
     batch: int = 1,
     calibrate: bool = False,
     plan=None,
+    dynamic_skip=None,
+    post_step: Optional[Callable] = None,
 ):
     """The UniPC step machinery. Returns ``(init_carry, step)``:
     ``init_carry(x_init)`` builds the carry and ``step(carry, i, cond)``
@@ -188,16 +249,28 @@ def unipc_executor(
     that ``cache_cfg`` would give; ``calibrate=True`` disables the cache.
     ``plan``: the sequence-parallel plan the core was made with, for the
     calibration statistics (means over all ranks' tokens).
+
+    ``dynamic_skip`` (``core.teacache.TeaCacheLanes``): an activation-gated
+    per-lane policy in place of ``cache_cfg``; the step then decides its
+    bits from ``prepare``'s outputs. ``post_step`` (``x -> x``) maps both
+    the corrected and the predicted sample after every step.
     """
     if calibrate:
         cache_cfg = None
         skip_mask_override = None
+        if dynamic_skip is not None or core.init_state is not None:
+            raise ValueError("calibration runs full compute on a stateless trunk")
     n = schedule.num_steps
     hist = max(2, schedule.order)
     skip_mask, n_lanes, lane_of_row, partial_lanes = _lane_setup(
         cache_cfg, n, guidance_scale, lanes, batch)
     if skip_mask_override is not None:
         skip_mask = np.asarray(skip_mask_override, bool).reshape(skip_mask.shape)
+    if dynamic_skip is not None:
+        if cache_cfg is not None or skip_mask_override is not None:
+            raise ValueError("dynamic_skip replaces cache_cfg and skip_mask_override")
+        skip_mask, lane_of_row, partial_lanes = _dynamic_setup(
+            dynamic_skip, core, n_lanes, batch, n)
 
     # host-precomputed per-step coefficient tables, padded to fixed width
     p_cx, p_cm0, p_w = np.zeros(n), np.zeros(n), np.zeros((n, hist))
@@ -221,16 +294,19 @@ def unipc_executor(
 
     def init_carry(x_init):
         m_hist = [torch.zeros_like(x_init)] * hist
-        return (x_init, x_init, m_hist, None)
+        # (x_pred, x_prev, m_hist, cache, trunk state, dynamic policy state)
+        return (x_init, x_init, m_hist, None, None, None)
 
     def step(carry, i, cond):
-        x_pred, x_prev, m_hist, cache = carry
+        x_pred, x_prev, m_hist, cache, state, dstate = carry
         x2 = _stack_lanes(x_pred, n_lanes)
         tvec = torch.full((x2.shape[0],), float(ts[i]), dtype=torch.float32,
                           device=x2.device)
         hidden, ctx = core.prepare(x2, tvec, cond)
         if cache is None:
             cache = torch.zeros_like(hidden)
+        if state is None and core.init_state is not None:
+            state = core.init_state(hidden, ctx)
         if calibrate:
             h_out = core.trunk(hidden, ctx)
             resid = h_out - hidden
@@ -241,9 +317,9 @@ def unipc_executor(
                 for l in range(n_lanes)])
             cache = resid
         else:
-            emitted = skip_mask[i]
-            h_out, cache = _cached_trunk(core, hidden, ctx, cache, emitted,
-                                         lane_of_row, partial_lanes)
+            emitted, dstate = _decide(dynamic_skip, hidden, ctx, dstate, skip_mask[i])
+            h_out, cache, state = _cached_trunk(core, hidden, ctx, cache, emitted,
+                                                lane_of_row, partial_lanes, state, i)
         out = core.head(h_out, ctx)
         v = _cfg_combine(out, guidance_scale, batch)
         m = x_pred - float(sig[i]) * v.to(x_pred.dtype)
@@ -261,8 +337,10 @@ def unipc_executor(
         x_next = float(p_cx[i]) * x_cur + float(p_cm0[i]) * m
         for l in range(hist):
             x_next = x_next + float(p_w[i, l]) * m_hist[l]
+        if post_step is not None:
+            x_cur, x_next = post_step(x_cur), post_step(x_next)
         m_hist = [m] + m_hist[:-1]
-        return (x_next, x_cur, m_hist, cache), emitted
+        return (x_next, x_cur, m_hist, cache, state, dstate), emitted
 
     return init_carry, step
 
@@ -295,13 +373,16 @@ def sample_unipc(
     cond,
     schedule: UniPCSchedule,
     *,
-    cache_cfg: Optional[MagCacheConfig] = None,
+    cache_cfg=None,
     guidance_scale: Optional[float] = None,
     lanes: Optional[int] = None,
     skip_mask_override: Optional[np.ndarray] = None,
+    dynamic_skip=None,
     return_skips: bool = False,
+    post_step: Optional[Callable] = None,
 ):
-    """UniPC predictor-corrector flow sampler with MagCache.
+    """UniPC predictor-corrector flow sampler with MagCache (or the dynamic
+    policy ``dynamic_skip``).
 
     ``cond`` is lane-stacked ([cond; uncond] on axis 0) when
     ``guidance_scale`` is set. ``return_skips=True`` also returns the
@@ -311,7 +392,7 @@ def sample_unipc(
     init_carry, step = unipc_executor(
         core, schedule, cache_cfg=cache_cfg, guidance_scale=guidance_scale,
         lanes=lanes, skip_mask_override=skip_mask_override,
-        batch=x_init.shape[0])
+        batch=x_init.shape[0], dynamic_skip=dynamic_skip, post_step=post_step)
     carry = init_carry(x_init)
     skips = []
     for i in range(schedule.num_steps):
@@ -322,6 +403,9 @@ def sample_unipc(
     return carry[0]
 
 
+_DPM_KEYS = ("sigma_t", "a", "b", "c_x", "c_d")
+
+
 @torch.inference_mode()
 def sample_euler(
     core: DiTCore,
@@ -330,7 +414,8 @@ def sample_euler(
     *,
     timesteps: np.ndarray,
     dts: np.ndarray,
-    cache_cfg: Optional[MagCacheConfig] = None,
+    cache_cfg=None,
+    guidance_scale: Optional[float] = None,
     lanes: Optional[int] = None,
     combine_fn: Optional[Callable] = None,
     skip_mask_override: Optional[np.ndarray] = None,
@@ -345,46 +430,62 @@ def sample_euler(
     calibrate_lanes: Optional[int] = None,
 ):
     """Linear-update sampler ``x <- cx_i * x + dt_i * v`` with MagCache (the
-    plain-t2v subset of ``magcache_tpu.core.sampler.sample_euler``).
+    JAX ``magcache_tpu.core.sampler.sample_euler`` without ancestral noise).
 
-    ``cond`` is lane-stacked on axis 0 when CFG is on; ``combine_fn(chunks)
-    -> v`` takes the per-lane slices of the head's output (without it, the
-    output is v). ``dts`` is the per-step multiplier of v (t-deltas / T
-    for RFLOW, DDIM's eps coefficient) and ``x_coeffs`` that of x (default
-    1; DDIM's ``c_x``). ``skip_mask_override`` (``bool[num_steps, lanes]``) replaces
-    the schedule; ``return_skips`` also returns the realized skip bits.
+    ``cond`` is lane-stacked on axis 0 when CFG is on: ``guidance_scale``
+    combines two lanes as ``uncond + g * (cond - uncond)``, ``combine_fn
+    (chunks) -> v`` takes the per-lane slices of the head's output (without
+    either, the output is v). ``dts`` is the per-step multiplier of v
+    (sigma deltas for flow matching, t-deltas / T for RFLOW, DDIM's eps
+    coefficient) and ``x_coeffs`` that of x (default 1; DDIM's ``c_x``).
+    ``skip_mask_override``
+    (``bool[num_steps, lanes]``) replaces the schedule; ``return_skips``
+    also returns the realized skip bits.
+
+    ``dpm_coeffs`` (``schedulers.dpm_flow.dpmpp_2m_flow_coeffs``) switches
+    the update to DPM-Solver++(2M): ``x0 = x - sigma_t * v``, ``x <- c_x * x
+    + c_d * (a * x0 + b * x0_prev)``, the previous x0 carried (``dts`` is
+    then unused). ``dynamic_skip`` and ``post_step`` as in
+    ``unipc_executor``.
 
     ``calibrate=True`` runs full compute and returns ``(x, stats f64
     [num_steps-1, calibrate_lanes, 3])``, each step's residual against the
     previous step's; ``calibrate_lanes`` (default: the stacked lanes) is the
     cache's lane count, 1 for a joint CFG batch.
 
-    Ancestral noise, ``dynamic_skip``, ``dpm_coeffs`` and ``post_step`` are
-    not ported yet and raise.
+    Ancestral noise (``noise_scales``, ``noise_key``) is not ported yet and
+    raises; neither is the model-input scaling (``in_scales``) that comes
+    with it.
     """
-    unported = {"noise_scales": noise_scales,
-                "noise_key": noise_key,
-                "dynamic_skip": dynamic_skip, "dpm_coeffs": dpm_coeffs,
-                "post_step": post_step}
-    given = [k for k, v in unported.items() if v is not None]
-    if given:
-        raise NotImplementedError(f"sample_euler: {', '.join(given)} not ported yet")
+    if noise_scales is not None or noise_key is not None:
+        raise NotImplementedError("sample_euler: noise_scales, noise_key (ancestral "
+                                  "noise) not ported yet")
     num_steps = len(timesteps)
     batch = x_init.shape[0]
     if calibrate and (cache_cfg is not None or skip_mask_override is not None
-                      or return_skips):
+                      or return_skips or dynamic_skip is not None):
         raise ValueError("calibrate is a full-compute recording mode")
+    if dpm_coeffs is not None and x_coeffs is not None:
+        raise ValueError("dpm_coeffs replaces the linear-update coefficients (x_coeffs)")
     skip_mask, n_lanes, lane_of_row, partial_lanes = _lane_setup(
-        cache_cfg, num_steps, None, lanes, batch, combine_fn)
+        cache_cfg, num_steps, guidance_scale, lanes, batch, combine_fn)
     if skip_mask_override is not None:
         skip_mask = np.asarray(skip_mask_override, bool).reshape(skip_mask.shape)
+    if dynamic_skip is not None:
+        if cache_cfg is not None or skip_mask_override is not None:
+            raise ValueError("dynamic_skip replaces cache_cfg and skip_mask_override")
+        skip_mask, lane_of_row, partial_lanes = _dynamic_setup(
+            dynamic_skip, core, n_lanes, batch, num_steps)
     ts = np.asarray(timesteps, np.float32)
     dts = np.asarray(dts, np.float32)
     cxs = None if x_coeffs is None else np.asarray(x_coeffs, np.float32)
+    dpm = (None if dpm_coeffs is None else
+           {k: np.asarray(dpm_coeffs[k], np.float32) for k in _DPM_KEYS})
     cal_lanes = calibrate_lanes or n_lanes
 
     x = x_init
-    cache = None
+    x0_prev = torch.zeros_like(x_init) if dpm is not None else None
+    cache = state = dstate = None
     skips, stats = [], []
     for i in range(num_steps):
         x2 = _stack_lanes(x, n_lanes)
@@ -393,22 +494,35 @@ def sample_euler(
         hidden, ctx = core.prepare(x2, tvec, cond)
         if cache is None:
             cache = torch.zeros_like(hidden)
+        if state is None and core.init_state is not None:
+            state = core.init_state(hidden, ctx)
         cache_prev = cache
-        h_out, cache = _cached_trunk(core, hidden, ctx, cache, skip_mask[i],
-                                     lane_of_row, partial_lanes)
+        bits, dstate = _decide(dynamic_skip, hidden, ctx, dstate, skip_mask[i])
+        h_out, cache, state = _cached_trunk(core, hidden, ctx, cache, bits,
+                                            lane_of_row, partial_lanes, state, i)
         out = core.head(h_out, ctx)
-        v = out if combine_fn is None else combine_fn(
-            [out[l * batch:(l + 1) * batch] for l in range(n_lanes)])
-        if cxs is not None:
-            x = float(cxs[i]) * x
-        x = x + float(dts[i]) * v.to(x.dtype)
+        if combine_fn is not None:
+            v = combine_fn([out[l * batch:(l + 1) * batch] for l in range(n_lanes)])
+        else:
+            v = _cfg_combine(out, guidance_scale, batch)
+        if dpm is not None:
+            sg, av, bv, cxd, cdd = (float(dpm[k][i]) for k in _DPM_KEYS)
+            x0 = x - sg * v.to(x.dtype)
+            x = cxd * x + cdd * (av * x0 + bv * x0_prev)
+            x0_prev = x0
+        else:
+            if cxs is not None:
+                x = float(cxs[i]) * x
+            x = x + float(dts[i]) * v.to(x.dtype)
+        if post_step is not None:
+            x = post_step(x)
         if calibrate:
             rpl = x2.shape[0] // cal_lanes
             stats.append(torch.stack([
                 calibration_stats(cache[l * rpl:(l + 1) * rpl],
                                   cache_prev[l * rpl:(l + 1) * rpl])
                 for l in range(cal_lanes)]))
-        skips.append(skip_mask[i])
+        skips.append(bits)
     if calibrate:
         return x, torch.stack(stats[1:]).double().cpu().numpy()
     if return_skips:
@@ -466,7 +580,7 @@ def sample_rflow_masked(
     dev = x_init.device
 
     x = x_init
-    cache = None
+    cache = state = None
     skips = []
     for i in range(num_steps):
         x0 = x
@@ -488,8 +602,10 @@ def sample_rflow_masked(
                                    dict(cond, x_mask=_stack_lanes(active, n_lanes)))
         if cache is None:
             cache = torch.zeros_like(hidden)
-        h_out, cache = _cached_trunk(core, hidden, ctx, cache, skip_mask[i],
-                                     lane_of_row, None)
+        if state is None and core.init_state is not None:
+            state = core.init_state(hidden, ctx)
+        h_out, cache, state = _cached_trunk(core, hidden, ctx, cache, skip_mask[i],
+                                            lane_of_row, None, state, i)
         out = core.head(h_out, ctx)
         v = out if combine_fn is None else combine_fn(
             [out[l * batch:(l + 1) * batch] for l in range(n_lanes)])

@@ -33,7 +33,16 @@ The TPU's 128-lane head padding and its frame padding (``Tp``, ``Sg``) are
 not carried over: groups are T and S, and heads stay 72 wide. Dtypes: in a
 bf16 config the patch embedding and the block linears are bf16; the
 embedders, the modulation tables and the final layer stay f32, as the JAX
-parameters are. Not ported (raise ``NotImplementedError``): PAB, and frames
+parameters are.
+
+PAB (``make_latte_core(pab=, timesteps=)``, packed route, the JAX
+``_block(cached=...)``) runs every step unfused: spatial attention K3 ->
+qkv -> K5r -> ``proj``, temporal the same over groups of T, cross-attention
+``cross_q`` -> ``attention()`` (K1) -> ``cross_o``, the MLP K3 -> ``ff1`` ->
+gelu -> ``ff2``, f32 gates; each site replays its slot by the step's host
+mask, and the MLP slots follow the block-granular masks (refreshed only on
+save steps). Temporal blocks have no cross slot. Not ported (raise
+``NotImplementedError``): PAB on the "grouped" and "vpu" routes, and frames
 of more than 2,048 tokens (no published Latte configuration has them).
 """
 
@@ -48,10 +57,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from magcache_tpu_torch.core.pab import broadcast_masks, mlp_skip_masks
 from magcache_tpu_torch.core.sampler import DiTCore
 from magcache_tpu_torch.models.common import (DTYPES, embedder_linears, init_linear_,
                                               timestep_embedding)
-from magcache_tpu_torch.models.stdit3 import ROUTES, pos_embed_2d
+from magcache_tpu_torch.models.stdit3 import ROUTES, _pab_site, pab_slots, pos_embed_2d
 from magcache_tpu_torch.ops.attention import (attention, fused_cross_attention,
                                               grouped_attention_fused_qkv)
 from magcache_tpu_torch.ops.fused_prologue import (layer_norm_mod, lnmod_matmul,
@@ -60,7 +70,8 @@ from magcache_tpu_torch.ops.norms import layer_norm
 from magcache_tpu_torch.ops.rope import rope_freqs_1d
 from magcache_tpu_torch.ops.tiny_attention import tiny_temporal_attention
 
-__all__ = ["LatteConfig", "LatteModel", "LATTE_1", "ROUTES", "make_latte_core"]
+__all__ = ["LatteConfig", "LatteModel", "LATTE_1", "ROUTES", "latte_pab_masks",
+           "make_latte_core"]
 
 MAX_FRAME_TOKENS = 2048
 
@@ -124,9 +135,14 @@ class LatteBlock(nn.Module):
             self.cross_q, self.cross_kv, self.cross_o = lin(d, d), lin(d, 2 * d), lin(d, d)
 
     def forward(self, h: torch.Tensor, t6: torch.Tensor, y: torch.Tensor, *,
-                grid: Tuple[int, int, int], route: str) -> torch.Tensor:
-        """One block on ``h`` ``[rows, T*S, d]``."""
+                grid: Tuple[int, int, int], route: str, pab=None) -> torch.Tensor:
+        """One block on ``h`` ``[rows, T*S, d]``. ``pab``: ``(slots, reuse,
+        save_mlp)``, the block's PAB slots (``"attn"``, ``"cross"``,
+        ``"mlp"`` -> ``[rows, T*S, d]`` or absent), this step's reuse bits
+        per site and whether the MLP slot refreshes (packed route)."""
         e = (self.scale_shift[None] + t6).float()          # [rows, 6, d]
+        if pab is not None:
+            return self._pab(h, e, y, grid, *pab)
         if route == "packed":
             return self._packed(h, e, y, grid)
         return self._unpacked(h, e, y, grid, route)
@@ -162,6 +178,46 @@ class LatteBlock(nn.Module):
         y1 = lnmod_matmul(h, sc_m, sh_m, self.ff1.weight, self.ff1.bias,
                           act="gelu", eps=cfg.eps)
         return matmul_gated_residual(y1, self.ff2.weight, self.ff2.bias, g_m, h)
+
+    def _pab(self, h, e, y, grid, slots: dict, reuse: dict, save_mlp: bool):
+        """The PAB block (JAX ``_block(cached=...)`` on the packed route):
+        outputs cached before their gates, gates in f32, the MLP slot
+        written only on save steps."""
+        cfg = self.cfg
+        rows, n, d = h.shape
+        t, s = grid[0], grid[1] * grid[2]
+        sh_a, sc_a, g_a, sh_m, sc_m, g_m = e.unbind(1)
+        attn_kw = dict(scale=1.0 / math.sqrt(cfg.head_dim), true_d=cfg.head_dim)
+
+        def heads(x):
+            return x.unflatten(-1, (cfg.heads, cfg.head_dim))
+
+        def attn():
+            xn = layer_norm_mod(h, scale=sc_a, shift=sh_a, eps=cfg.eps)
+            if self.cross:
+                qkv = self.qkv(xn.reshape(rows * t, s, d))
+                o = grouped_attention_fused_qkv(qkv, cfg.heads, group=s, **attn_kw)
+                return self.proj(o).reshape(rows, n, d)
+            xr = xn.reshape(rows, t, s, d).transpose(1, 2).reshape(rows * s, t, d)
+            o = grouped_attention_fused_qkv(self.qkv(xr).reshape(1, rows * s * t, 3 * d),
+                                            cfg.heads, group=t, **attn_kw)
+            a = self.proj(o.reshape(rows * s, t, d))
+            return a.reshape(rows, s, t, d).transpose(1, 2).reshape(rows, n, d)
+
+        def cross():
+            k, v = (heads(p) for p in self.cross_kv(y).chunk(2, -1))
+            return self.cross_o(attention(heads(self.cross_q(h)), k, v).reshape(rows, n, d))
+
+        def mlp():
+            xm = layer_norm_mod(h, scale=sc_m, shift=sh_m, eps=cfg.eps)
+            return self.ff2(F.gelu(self.ff1(xm), approximate="tanh"))
+
+        a = _pab_site(slots, reuse, "attn", attn)
+        h = h + (g_a[:, None] * a.float()).to(h.dtype)
+        if self.cross:
+            h = h + _pab_site(slots, reuse, "cross", cross)
+        mo = _pab_site(slots, reuse, "mlp", mlp, save=save_mlp)
+        return h + (g_m[:, None] * mo.float()).to(h.dtype)
 
     def _unpacked(self, h, e, y, grid, mode):
         cfg = self.cfg
@@ -231,14 +287,38 @@ class LatteModel(nn.Module):
         return self
 
 
+# PAB state slots and the mask that reads each (temporal blocks have no
+# cross-attention)
+PAB_SLOTS = (("sp_attn", "spatial"), ("tp_attn", "temporal"), ("sp_cross", "cross"),
+             ("sp_mlp", "mlp_sp_reuse"), ("tp_mlp", "mlp_tp_reuse"))
+
+
+def latte_pab_masks(pab, timesteps, depth: int) -> dict:
+    """Latte's PAB masks: ``broadcast_masks`` (``bool[steps]`` per kind) and
+    the block-granular MLP masks of each branch, ``mlp_{sp,tp}_{reuse,save}``
+    (``bool[steps, depth]``)."""
+    masks = broadcast_masks(pab, timesteps)
+    for br, temporal in (("sp", False), ("tp", True)):
+        mm = mlp_skip_masks(pab, timesteps, depth, temporal=temporal)
+        masks[f"mlp_{br}_reuse"], masks[f"mlp_{br}_save"] = mm["reuse"], mm["save"]
+    return masks
+
+
 def make_latte_core(model: LatteModel, grid: Tuple[int, int, int],
-                    caption_len: int, *, route: str = "packed", pab=None) -> DiTCore:
+                    caption_len: int, *, route: str = "packed", pab=None,
+                    timesteps=None) -> DiTCore:
     """(prepare, trunk, head) for a static patch grid (T, H, W).
 
     cond = {"y": f[rows, caption_len, caption_dim]}; x = latent video
     f[rows, T, H*p, W*p, C] (rows holds the joint CFG batch); the output has
     C channels (the variance half of an 8-channel head is dropped).
     ``route``: "packed", "grouped" or "vpu" (module docstring).
+
+    ``pab`` (``core.pab.PABConfig``, packed route) with the sampler's
+    ``timesteps`` makes a stateful core: ``trunk(hidden, ctx, state,
+    step_idx)`` reuses by ``broadcast_masks`` and, for the MLPs,
+    ``mlp_skip_masks`` per block at ``step_idx`` (-1: full compute);
+    ``init_state`` allocates the slots some mask can read.
     """
     cfg = model.cfg
     t_len, gh, gw = grid
@@ -246,8 +326,14 @@ def make_latte_core(model: LatteModel, grid: Tuple[int, int, int],
     d = cfg.hidden
     if route not in ROUTES:
         raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
+    masks = None
     if pab is not None:
-        raise NotImplementedError("PAB is not ported yet")
+        if route != "packed":
+            raise NotImplementedError(
+                f"PAB on the {route!r} route is not ported yet (packed only)")
+        if timesteps is None:
+            raise ValueError("PAB needs the sampling timesteps")
+        masks = latte_pab_masks(pab, timesteps, cfg.depth)
     if s > MAX_FRAME_TOKENS:
         raise NotImplementedError(
             f"Latte frames of {s} tokens (> {MAX_FRAME_TOKENS}) are not ported: no "
@@ -289,6 +375,30 @@ def make_latte_core(model: LatteModel, grid: Tuple[int, int, int],
             h = tp(h, ctx["t6"], ctx["y"], grid=grid, route=route)
         return h
 
+    def init_state(hidden, ctx):
+        """One zeroed ``[depth, rows, T*S, d]`` slot per site kind and branch
+        that some mask can read (temporal blocks have no cross slot)."""
+        return {slot: torch.zeros((cfg.depth,) + tuple(hidden.shape), dtype=hidden.dtype,
+                                  device=hidden.device)
+                for slot in pab_slots(masks, PAB_SLOTS)}
+
+    @torch.inference_mode()
+    def trunk_pab(hidden, ctx, state, step_idx):
+        full = not 0 <= step_idx < len(masks["spatial"])
+        bit = {k: np.zeros_like(m[0]) if full else m[step_idx] for k, m in masks.items()}
+        h = hidden
+        for i, (sp, tp) in enumerate(zip(model.spatial, model.temporal)):
+            for blk, br, kind in ((sp, "sp", "spatial"), (tp, "tp", "temporal")):
+                slots = {site: state[f"{br}_{site}"][i] for site in ("attn", "cross", "mlp")
+                         if f"{br}_{site}" in state}
+                reuse = {"attn": bool(bit[kind]), "cross": bool(bit["cross"]),
+                         "mlp": bool(bit[f"mlp_{br}_reuse"][i])}
+                h = blk(h, ctx["t6"], ctx["y"], grid=grid, route=route,
+                        pab=(slots, reuse, bool(bit[f"mlp_{br}_save"][i])))
+                if i == 0 and br == "sp":
+                    h = (h.float() + tp_tok).to(h.dtype)
+        return h, state
+
     @torch.inference_mode()
     def head(hidden, ctx):
         mod = model.final_mod[None] + ctx["te"][:, None]
@@ -301,4 +411,6 @@ def make_latte_core(model: LatteModel, grid: Tuple[int, int, int],
         out = out.reshape(rows, t_len, gh * p, gw * p, cfg.c_out)
         return out[..., :cfg.in_channels]
 
+    if masks is not None:
+        return DiTCore(prepare, trunk_pab, head, init_state=init_state)
     return DiTCore(prepare, trunk, head)

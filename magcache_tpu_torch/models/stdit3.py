@@ -47,9 +47,20 @@ p to 0; the port does not carry that over): packed K5r ("tma" route) for
 frames of at most 2,048 tokens, K1 through ``attention()`` above that, K5r's
 "stream" route with RoPE and no norm in the temporal blocks.
 
+PAB (``make_stdit3_core(pab=, timesteps=)``, packed route, the JAX
+``_block(cached=...)``): every step runs the unfused-epilogue block, whose
+three sites each either compute or replay the block's slot of the trunk
+state by the step's host mask: spatial attention K7 -> K5 (K1q above 2,048
+tokens) -> ``proj``, temporal K3 -> qkv -> K5 -> ``proj``, cross-attention
+K6 without the residual, the MLP K7 with gelu -> ``mlp2``; each site's
+output is cached before its gate, and the gates and residuals run in f32
+(no K8: its fused epilogue rounds elsewhere). The state holds one
+``[depth, rows, N, d]`` tensor per slot that some mask can read. PAB on the
+"grouped" and "vpu" routes and with masked frames raises.
+
 Dtypes: in a bf16 config the block linears are bf16; the embedders, the
 modulation tables, the qk-norm gains and the final layer stay f32, as the
-JAX parameters are. Unported (raises ``NotImplementedError``): PAB.
+JAX parameters are.
 """
 
 from __future__ import annotations
@@ -63,6 +74,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from magcache_tpu_torch.core.pab import broadcast_masks
 from magcache_tpu_torch.core.sampler import DiTCore
 from magcache_tpu_torch.models.common import (DTYPES, embedder_linears, init_linear_,
                                               timestep_embedding)
@@ -185,15 +197,21 @@ class STDiT3Block(nn.Module):
                 grid: Tuple[int, int, int], temporal: bool, route: str = "packed",
                 rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                 x_mask: Optional[torch.Tensor] = None,
-                t6_zero: Optional[torch.Tensor] = None) -> torch.Tensor:
+                t6_zero: Optional[torch.Tensor] = None,
+                pab: Optional[Tuple[dict, dict]] = None) -> torch.Tensor:
         """One block on ``h`` ``[rows, T*S, d]`` on ``route``; with ``x_mask``
         (bool ``[rows, T]``) and ``t6_zero`` the masked-frame composition.
-        ``rope``: the frame tables ``[T, D/2]`` (temporal blocks)."""
+        ``rope``: the frame tables ``[T, D/2]`` (temporal blocks). ``pab``:
+        ``(slots, reuse)``, the block's PAB slots (``"attn"``, ``"cross"``,
+        ``"mlp"`` -> ``[rows, T*S, d]`` or absent) and this step's reuse
+        bits per site (packed route)."""
         cfg = self.cfg
         rows, n, d = h.shape
         t, hh, ww = grid
         s = hh * ww
         e = (self.scale_shift[None] + t6).float()          # [rows, 6, d]
+        if pab is not None:
+            return self._pab(h, e, y, grid, temporal, rope, *pab)
         if x_mask is not None:
             e0 = (self.scale_shift[None] + t6_zero).float()
             return self._masked(h, e, e0, y, x_mask, grid, temporal, rope, route)
@@ -260,14 +278,46 @@ class STDiT3Block(nn.Module):
                                         **self._attn_kw())
         return o.reshape(rows * s, t, d)
 
-    def _cross(self, h: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    def _cross(self, h: torch.Tensor, y: torch.Tensor,
+               residual: bool = True) -> torch.Tensor:
+        """K6: cross-attention to the caption, with the residual or without
+        it (PAB caches the branch alone)."""
         d = self.cfg.hidden
         kv = self.cross_kv(y)
         return fused_cross_attention(
             h, self.cross_q.weight, self.cross_q.bias, kv[..., :d].contiguous(),
             kv[..., d:].contiguous(), self.cross_o.weight, self.cross_o.bias,
             self.cfg.heads, scale=1.0 / math.sqrt(self.cfg.head_dim),
-            true_d=self.cfg.head_dim, residual=True)
+            true_d=self.cfg.head_dim, residual=residual)
+
+    def _pab(self, h, e, y, grid, temporal, rope, slots: dict, reuse: dict):
+        """The PAB block (JAX ``_block(cached=...)`` on the packed route): each
+        site replays its slot where ``reuse`` says so, else computes (and
+        refreshes the slot); outputs are cached before their gates, which
+        run in f32."""
+        cfg = self.cfg
+        rows, n, d = h.shape
+        t, s = grid[0], grid[1] * grid[2]
+        sh_a, sc_a, g_a, sh_m, sc_m, g_m = e.unbind(1)
+
+        def attn():
+            if temporal:
+                xn = layer_norm_mod(h, scale=sc_a, shift=sh_a, eps=cfg.eps)
+                a = self.proj(self._temporal_attn(xn, grid, rope))
+                return a.reshape(rows, s, t, d).transpose(1, 2).reshape(rows, n, d)
+            qkv = lnmod_matmul(h.reshape(rows * t, s, d), sc_a, sh_a, self.qkv.weight,
+                               self.qkv.bias, eps=cfg.eps, batch_repeat=t)
+            return self.proj(self._spatial_attn(qkv)).reshape(rows, n, d)
+
+        def mlp():
+            return self.mlp2(lnmod_matmul(h, sc_m, sh_m, self.mlp1.weight,
+                                          self.mlp1.bias, act="gelu", eps=cfg.eps))
+
+        a = _pab_site(slots, reuse, "attn", attn)
+        h = h + (g_a[:, None] * a.float()).to(h.dtype)
+        h = h + _pab_site(slots, reuse, "cross", lambda: self._cross(h, y, residual=False))
+        mo = _pab_site(slots, reuse, "mlp", mlp)
+        return h + (g_m[:, None] * mo.float()).to(h.dtype)
 
     def _unpacked(self, h, e, y, grid, temporal, rope, route) -> torch.Tensor:
         """The unpacked block (JAX ``_block`` with ``packed=False``): K3,
@@ -357,6 +407,30 @@ class STDiT3Block(nn.Module):
         return gated(h, mo, g_m, z[5])
 
 
+def _pab_site(slots: dict, reuse: dict, kind: str, compute,
+              save: bool = True) -> torch.Tensor:
+    """One PAB site: the slot's cached output when this step reuses it, else
+    ``compute()``, written into the slot when there is one and ``save``."""
+    slot = slots.get(kind)
+    if reuse[kind]:
+        return slot
+    out = compute()
+    if slot is not None and save:
+        slot.copy_(out)
+    return out
+
+
+# PAB state slots (branch and site) and the mask that reads each
+PAB_SLOTS = (("sp_attn", "spatial"), ("tp_attn", "temporal"), ("sp_cross", "cross"),
+             ("tp_cross", "cross"), ("sp_mlp", "mlp"), ("tp_mlp", "mlp"))
+
+
+def pab_slots(masks: dict, kinds) -> list:
+    """The PAB state's slot names that some mask can read: ``(slot, mask
+    key)`` pairs in ``kinds`` whose ``bool[steps]`` mask has a True."""
+    return [slot for slot, key in kinds if np.asarray(masks[key]).any()]
+
+
 def _tmask_select(x_mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                   t: int) -> torch.Tensor:
     """Per-frame select over ``[rows, T*S, d]`` (JAX ``_tmask_select``): True
@@ -416,6 +490,7 @@ class STDiT3Model(nn.Module):
 
 def make_stdit3_core(model: STDiT3Model, grid: Tuple[int, int, int], *,
                      route: str = "packed", pab=None,
+                     timesteps: Optional[np.ndarray] = None,
                      pixel_size: Optional[Tuple[int, int]] = None) -> DiTCore:
     """(prepare, trunk, head) for a static latent patch grid (T, H, W).
 
@@ -428,14 +503,26 @@ def make_stdit3_core(model: STDiT3Model, grid: Tuple[int, int, int], *,
     embedding: scale = sqrt(H_px*W_px) / input_sq_size, base_size =
     round(sqrt(S)). ``route``: "packed", "grouped" or "vpu" (module
     docstring).
+
+    ``pab`` (``core.pab.PABConfig``, packed route) with the sampler's
+    ``timesteps`` makes a stateful core: ``trunk(hidden, ctx, state,
+    step_idx)`` reuses each site by ``broadcast_masks(pab, timesteps)`` at
+    ``step_idx`` (-1: full compute) and ``init_state`` allocates the slots
+    some mask can read.
     """
     cfg = model.cfg
     t_len, gh, gw = grid
     s = gh * gw
     if route not in ROUTES:
         raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
+    masks = None
     if pab is not None:
-        raise NotImplementedError("PAB is not ported yet")
+        if route != "packed":
+            raise NotImplementedError(
+                f"PAB on the {route!r} route is not ported yet (packed only)")
+        if timesteps is None:
+            raise ValueError("PAB needs the sampling timesteps")
+        masks = broadcast_masks(pab, timesteps)
     device = model.patch_embed.weight.device
     d = cfg.hidden
     if pixel_size is not None:
@@ -486,6 +573,30 @@ def make_stdit3_core(model: STDiT3Model, grid: Tuple[int, int, int], *,
             h = tp(h, ctx["t6"], ctx["y"], temporal=True, rope=rope, **kw)
         return h
 
+    def init_state(hidden, ctx):
+        """One zeroed ``[depth, rows, T*S, d]`` slot per site kind and branch
+        that some mask can read."""
+        return {slot: torch.zeros((cfg.depth,) + tuple(hidden.shape), dtype=hidden.dtype,
+                                  device=hidden.device)
+                for slot in pab_slots(masks, PAB_SLOTS)}
+
+    @torch.inference_mode()
+    def trunk_pab(hidden, ctx, state, step_idx):
+        if "x_mask" in ctx:
+            raise NotImplementedError("PAB with masked frames (x_mask: references, "
+                                      "loops) is not ported yet")
+        full = not 0 <= step_idx < len(masks["spatial"])
+        bit = {k: (not full) and bool(m[step_idx]) for k, m in masks.items()}
+        h = hidden
+        for i, (sp, tp) in enumerate(zip(model.spatial, model.temporal)):
+            for blk, br, kind in ((sp, "sp", "spatial"), (tp, "tp", "temporal")):
+                slots = {site: state[f"{br}_{site}"][i] for site in ("attn", "cross", "mlp")
+                         if f"{br}_{site}" in state}
+                reuse = {"attn": bit[kind], "cross": bit["cross"], "mlp": bit["mlp"]}
+                h = blk(h, ctx["t6"], ctx["y"], grid=grid, temporal=br == "tp",
+                        rope=rope if br == "tp" else None, pab=(slots, reuse))
+        return h, state
+
     @torch.inference_mode()
     def head(hidden, ctx):
         fin = model.final
@@ -502,4 +613,6 @@ def make_stdit3_core(model: STDiT3Model, grid: Tuple[int, int, int], *,
         out = fin.out(out.to(hidden.dtype).float())
         return unpatchify(cfg, out, grid)
 
+    if masks is not None:
+        return DiTCore(prepare, trunk_pab, head, init_state=init_state)
     return DiTCore(prepare, trunk, head)

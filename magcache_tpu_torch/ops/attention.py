@@ -1074,7 +1074,8 @@ def fused_cross_attention(
     Keys at or past ``kv_valid`` (default: all) are masked. ``residual``
     needs ``d_out == d_model``. Returns ``[B, N, d_out]``.
 
-    On a CUDA tensor, three kernels (one launch count): q = x @ wq.T + bq
+    On a CUDA tensor, three kernels (one launch count, and one in
+    ``fused_cross_attention.epilogues`` by ``residual``): q = x @ wq.T + bq
     and the out-projection on the GEMM body (``ops/gemm.py``), the attention
     between them on ``hopper_cross_kernel``. They take contiguous bf16, D =
     72, at most 384 valid keys and widths that are multiples of 8; anything
@@ -1122,7 +1123,8 @@ def fused_cross_attention(
     out = gemm_launch("fused_cross_attention (out)", o, wo, bo32,
                       epilogue="resid" if residual else "bias",
                       resid=x if residual else None)
-    fused_cross_attention.launches += 1
+    count_launch(fused_cross_attention)
+    count_launch(fused_cross_attention, "epilogues", "resid" if residual else "bias")
     return out
 
 
@@ -1148,3 +1150,6 @@ def _cross_attention_launch(q, k, v, heads: int, scale: float, kv_valid: int):
 
 
 fused_cross_attention.launches = 0
+# launches by the out-projection's epilogue: "resid" (the residual fused),
+# "bias" (PAB's cached branch, no residual)
+fused_cross_attention.epilogues = {"resid": 0, "bias": 0}

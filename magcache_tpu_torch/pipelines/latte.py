@@ -14,7 +14,9 @@ the norm ratios (joint single lane, steps - 1 entries) and
 ``magcache_ratios`` installs them (padded and resampled as
 ``prepare_mag_ratios(lanes=1)`` does). The checkpoint-free path:
 ``MockTextEncoder``, random Latte weights from a seeded ``torch.Generator``,
-no VAE (latents are the output). Not ported (raise): PAB.
+no VAE (latents are the output). Pyramid Attention Broadcast
+(``enable_pab``, ``pab_config``, default ``LATTE_PAB``) runs on the packed
+route over the DDIM timesteps, alone or under MagCache.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from magcache_tpu_torch.core.magcache import MagCacheConfig, prepare_mag_ratios
+from magcache_tpu_torch.core.pab import LATTE_PAB, PABConfig
 from magcache_tpu_torch.core.sampler import lane_skip_masks, sample_euler
 from magcache_tpu_torch.models.latte import (LATTE_1, LatteConfig, LatteModel,
                                              make_latte_core)
@@ -56,6 +59,7 @@ class LattePipelineConfig:
     magcache_K: int = 3
     retention_ratio: float = 0.2
     enable_pab: bool = False
+    pab_config: Optional[PABConfig] = None   # None: LATTE_PAB
     dtype: str = "float32"
     tiny: bool = False
     # T5 caption cleaning, applied twice (pipeline_latte.py:296,342,519-526)
@@ -64,10 +68,6 @@ class LattePipelineConfig:
     out_channels: Optional[int] = None
     # the model's block composition: "packed", "grouped" or "vpu"
     route: str = "packed"
-
-    def __post_init__(self):
-        if self.enable_pab:
-            raise NotImplementedError("PAB is not ported yet")
 
     def model_config(self) -> LatteConfig:
         if self.tiny:
@@ -98,7 +98,10 @@ class LattePipeline(BasePipeline):
             model = LatteModel(self.model_cfg, self.device).init(
                 set_seed(init_seed, device=self.device))
         self.model = model.requires_grad_(False).eval()
-        self.core = make_latte_core(self.model, self.grid, c.caption_len, route=c.route)
+        self.core = make_latte_core(
+            self.model, self.grid, c.caption_len, route=c.route,
+            pab=(c.pab_config or LATTE_PAB) if c.enable_pab else None,
+            timesteps=self.schedule.timesteps.astype(np.float32))
         self.text_encoder = text_encoder or MockTextEncoder(
             c.caption_len, self.model_cfg.caption_dim, scale=0.5)
 

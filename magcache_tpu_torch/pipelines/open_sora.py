@@ -17,9 +17,15 @@ would encode, raise).
 ``route`` picks STDiT3's block composition (``models.stdit3``: "packed",
 "grouped" or "vpu"), for the masked-frame sampler too.
 
+Cache policies: the published opensora-v1.2 MagCache rule
+(``cache_policy="adapter"``) or the eval scripts' rolling rule
+(``"rolling"``, ``core.rolling.RollingCacheConfig.opensora``); Pyramid
+Attention Broadcast (``enable_pab``, ``pab_config``, default
+``OPEN_SORA_PAB``) on the packed route, over the schedule's own timesteps,
+alone or under MagCache.
+
 Latent geometry: VAE stride 8 in space and ``get_latent_t`` in time (51
-frames -> 15 latents), 4 channels; DiT patch (1, 2, 2). Not ported yet
-(raise): PAB, the rolling cache policy.
+frames -> 15 latents), 4 channels; DiT patch (1, 2, 2).
 """
 
 from __future__ import annotations
@@ -31,7 +37,9 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from magcache_tpu_torch.core.pab import OPEN_SORA_PAB, PABConfig
 from magcache_tpu_torch.core.presets import make_config
+from magcache_tpu_torch.core.rolling import RollingCacheConfig
 from magcache_tpu_torch.core.sampler import (lane_skip_masks, sample_euler,
                                              sample_rflow_masked)
 from magcache_tpu_torch.models.stdit3 import (STDIT3_XL_2, STDiT3Config,
@@ -65,19 +73,19 @@ class OpenSoraPipelineConfig:
     retention_ratio: Optional[float] = None
     # recorded calibration ratios (num_steps - 1 entries); None = published
     magcache_ratios: Optional[tuple] = None
+    # "adapter": the published opensora-v1.2 rule; "rolling": the eval
+    # scripts' single-lane rule (experiments/opensora.py:296-312)
     cache_policy: str = "adapter"
     enable_pab: bool = False
+    pab_config: PABConfig = OPEN_SORA_PAB
     dtype: str = "float32"
     tiny: bool = False
     route: str = "packed"                     # STDiT3's block composition
 
     def __post_init__(self):
-        if self.cache_policy != "adapter":
-            raise NotImplementedError(
-                f"cache_policy {self.cache_policy!r} is not ported yet; only "
-                "'adapter' (the published opensora-v1.2 rule) is")
-        if self.enable_pab:
-            raise NotImplementedError("PAB is not ported yet")
+        if self.cache_policy not in ("adapter", "rolling"):
+            raise ValueError(f"cache_policy must be adapter or rolling, got "
+                             f"{self.cache_policy!r}")
         if self.resolution is not None:
             ar = self.aspect_ratio or "9:16"
             self.height, self.width = oc.get_image_size(self.resolution, ar)
@@ -115,16 +123,25 @@ class OpenSoraPipeline(BasePipeline):
                 set_seed(init_seed, device=self.device))
         self.model = model.requires_grad_(False).eval()
         self.core = make_stdit3_core(self.model, self.grid, route=c.route,
+                                     pab=c.pab_config if c.enable_pab else None,
+                                     timesteps=self.schedule.timesteps,
                                      pixel_size=(c.height, c.width))
         self.text_encoder = text_encoder or MockTextEncoder(
             c.caption_len, self.model_cfg.caption_dim, scale=0.5)
 
     def _cache_cfg(self):
-        """The single-lane MagCacheConfig over the joint CFG batch, or None
-        when caching is off."""
+        """The single-lane cache config over the joint CFG batch (MagCache's,
+        or the rolling rule's), or None when caching is off."""
         c = self.config
         if not c.use_magcache or c.magcache_calibration:
             return None
+        if c.cache_policy == "rolling":
+            st = (None if c.retention_ratio is None
+                  else int(c.num_sampling_steps * c.retention_ratio))
+            return RollingCacheConfig.opensora(
+                c.num_sampling_steps, thresh=0.12 if c.magcache_thresh is None
+                else c.magcache_thresh, K=3 if c.magcache_K is None else c.magcache_K,
+                skip_time=st)
         return make_config("opensora-v1.2", c.num_sampling_steps,
                            thresh=c.magcache_thresh, K=c.magcache_K,
                            retention_ratio=c.retention_ratio,

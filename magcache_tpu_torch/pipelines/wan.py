@@ -1,7 +1,8 @@
 """Wan 2.1 generation pipeline (t2v), MagCache-enabled.
 
-Text encode -> seeded noise latents -> cached UniPC denoise loop -> VAE
-decode when the pipeline has a VAE (``models.vae_wan.WanVAE``, streamed one
+Text encode -> seeded noise latents -> cached denoise loop (UniPC, or
+DPM-Solver++(2M) or Euler on the same flow sigmas) -> VAE decode when the
+pipeline has a VAE (``models.vae_wan.WanVAE``, streamed one
 latent frame a call), as the JAX pipeline does. The checkpoint-free path:
 ``MockTextEncoder`` (or ``models.umt5.UMT5Encoder`` with random weights and
 the hash tokenizer), random DiT weights from a seeded ``torch.Generator``,
@@ -15,6 +16,12 @@ under ``torchrun``, or a local rank of ``run_local_ranks``). Every rank
 encodes the same text and draws the same noise from the seeded CPU
 generator, runs the sampler on its ``1/sp`` of the tokens, and returns the
 whole latents.
+
+Cache policies: MagCache's release adapter rule (``cache_policy="adapter"``,
+the presets) or the eval scripts' rolling rule (``"rolling"``,
+``core.rolling``), and the TeaCache comparator (``enable_teacache``, per
+CFG lane, UniPC only, exclusive with MagCache). Under ``sp > 1`` only UniPC
+with the adapter rule is ported; the others raise.
 """
 
 from __future__ import annotations
@@ -28,10 +35,15 @@ import torch
 
 from magcache_tpu_torch.core.magcache import MagCacheConfig, prepare_mag_ratios
 from magcache_tpu_torch.core.presets import PRESETS, make_config
-from magcache_tpu_torch.core.sampler import calibrate_unipc, lane_skip_masks, sample_unipc
+from magcache_tpu_torch.core.rolling import RollingCacheConfig
+from magcache_tpu_torch.core.sampler import (calibrate_unipc, lane_skip_masks, sample_euler,
+                                             sample_unipc)
+from magcache_tpu_torch.core.teacache import TeaCacheLanes, wan_teacache_settings
 from magcache_tpu_torch.models.text import MockTextEncoder
 from magcache_tpu_torch.models.wan import WAN_1_3B, WanConfig, WanModel, make_wan_core
 from magcache_tpu_torch.pipelines.base import BasePipeline, PipelineOutput, calibration_dict
+from magcache_tpu_torch.schedulers.dpm_flow import dpmpp_2m_flow_coeffs
+from magcache_tpu_torch.schedulers.flow_match import FlowMatchSchedule
 from magcache_tpu_torch.schedulers.unipc import UniPCSchedule
 from magcache_tpu_torch.utils.misc import set_seed
 
@@ -55,13 +67,20 @@ class WanPipelineConfig:
     frame_num: int = 81
     sample_steps: int = 50
     sample_shift: float = 8.0
-    sample_solver: str = "unipc"
+    sample_solver: str = "unipc"         # unipc | dpm++ | euler
     guide_scale: float = 6.0
     use_magcache: bool = False
     magcache_thresh: Optional[float] = None
     magcache_K: Optional[int] = None
     retention_ratio: Optional[float] = None
     magcache_calibration: bool = False
+    # "adapter": the release MagCache rule; "rolling": the eval scripts' rule
+    # behind the published VBench numbers (core/rolling.py)
+    cache_policy: str = "adapter"
+    # TeaCache: per-lane activation-gated skips (wan_teacache.py:533-590)
+    enable_teacache: bool = False
+    teacache_thresh: float = 0.2
+    use_ret_steps: bool = False
     # user-calibrated ratios (unpadded, as calibration mode saves them)
     mag_ratios_override: Optional[tuple] = None
     dtype: str = "bfloat16"
@@ -75,10 +94,17 @@ class WanPipelineConfig:
             raise NotImplementedError(
                 f"Wan {self.model!r} task {self.task!r} is not ported yet; "
                 "only wan2.1-t2v-1.3B t2v is")
-        if self.sample_solver != "unipc":
+        if self.sample_solver not in ("unipc", "dpm++", "euler"):
+            raise ValueError(f"sample_solver must be unipc, dpm++ or euler, got "
+                             f"{self.sample_solver!r}")
+        if self.cache_policy not in ("adapter", "rolling"):
+            raise ValueError(f"cache_policy must be adapter or rolling, got "
+                             f"{self.cache_policy!r}")
+        if self.sp > 1 and (self.sample_solver != "unipc" or self.enable_teacache
+                            or self.cache_policy != "adapter"):
             raise NotImplementedError(
-                f"sample_solver {self.sample_solver!r} is not ported yet; "
-                "only unipc is")
+                "under sp > 1 only the unipc solver with the adapter cache policy "
+                "is ported yet (not dpm++, euler, rolling or TeaCache)")
 
     def model_config(self) -> WanConfig:
         if self.model_cfg_override is not None:
@@ -128,21 +154,31 @@ class WanPipeline(BasePipeline):
             self.model_cfg.text_len, self.model_cfg.text_dim, scale=0.5)
         self.vae = vae
 
-    def _schedule(self) -> UniPCSchedule:
+    def _schedule(self):
+        """UniPC's schedule, or the flow-matching sigmas dpm++ and Euler
+        step on."""
         c = self.config
-        return UniPCSchedule.create(c.sample_steps, shift=c.sample_shift)
+        if c.sample_solver == "unipc":
+            return UniPCSchedule.create(c.sample_steps, shift=c.sample_shift)
+        return FlowMatchSchedule.create(c.sample_steps, shift=c.sample_shift)
 
     def _cache_cfg(self, *, thresh=None, K=None, retention=None,
-                   force: bool = False) -> Optional[MagCacheConfig]:
-        """The run's MagCacheConfig (None when caching is off, unless
-        ``force``); ``thresh``/``K``/``retention`` override the config's
-        E/K/R."""
+                   force: bool = False):
+        """The run's MagCacheConfig, or its RollingCacheConfig under the
+        rolling policy (None when caching is off, unless ``force``);
+        ``thresh``/``K``/``retention`` override the config's E/K/R."""
         c = self.config
         if not c.use_magcache and not force:
             return None
         thresh = c.magcache_thresh if thresh is None else thresh
         K = c.magcache_K if K is None else K
         retention = c.retention_ratio if retention is None else retention
+        if c.cache_policy == "rolling":
+            # the eval scripts' defaults (0.015, K -1) never skip; the
+            # published runs pass 0.12 and K 2
+            return RollingCacheConfig(
+                num_steps=c.sample_steps * 2, thresh=0.015 if thresh is None else thresh,
+                K=-1 if K is None else K, retention=0.2 if retention is None else retention)
         if c.mag_ratios_override is not None:
             p = PRESETS[c.model]
             num_steps = c.sample_steps * p.lanes
@@ -169,25 +205,59 @@ class WanPipeline(BasePipeline):
             return np.zeros((steps, cfg.lanes), bool)
         return lane_skip_masks(cfg, steps)[0]
 
+    def _teacache_lanes(self) -> TeaCacheLanes:
+        """The per-lane TeaCache policy from the published Wan settings: the
+        signal is ``e0`` with ret steps, else the time embedding ``e``
+        (``wan_teacache.py:534``)."""
+        c = self.config
+        coeffs, ret, cutoff = wan_teacache_settings("t2v-1.3B", c.sample_steps,
+                                                    c.use_ret_steps)
+        key = "e0" if c.use_ret_steps else "e"
+        return TeaCacheLanes(thresh=c.teacache_thresh, coefficients=coeffs,
+                             ret_steps=ret, cutoff_steps=cutoff, lanes=2,
+                             signal_fn=lambda hidden, ctx: ctx[key])
+
     def _sample_fn(self, calibrate: bool,
                    skip_override: Optional[np.ndarray] = None):
         """``(x0, cond) -> (latents, aux)``: the calibration run (aux = stats
-        ``[steps-1, 2, 3]``) or the cached sampler (aux = realized skip bits);
-        ``skip_override`` replaces the config's schedule."""
+        ``[steps-1, 2, 3]``) or the sampler (aux = realized skip bits) of the
+        config's solver and policy; ``skip_override`` replaces the config's
+        schedule."""
         c = self.config
         sch = self._schedule()
-        if calibrate:
-            if skip_override is not None:
-                raise ValueError("skip_override is a generation-path surface")
+        g = c.guide_scale
+        dpm = dpmpp_2m_flow_coeffs(sch.sigmas) if c.sample_solver == "dpm++" else None
+        if calibrate and skip_override is not None:
+            raise ValueError("skip_override is a generation-path surface")
+        if calibrate and c.sample_solver == "unipc":
             return lambda x0, cond: calibrate_unipc(
-                self.core, x0, cond, sch, lanes=2, guidance_scale=c.guide_scale,
-                plan=self.plan)
+                self.core, x0, cond, sch, lanes=2, guidance_scale=g, plan=self.plan)
+        if calibrate:
+            # calibration rides the trajectory generation uses
+            return lambda x0, cond: sample_euler(
+                self.core, x0, cond, timesteps=sch.timesteps, dts=np.diff(sch.sigmas),
+                guidance_scale=g, dpm_coeffs=dpm, calibrate=True)
+        tea = None
+        if c.enable_teacache:
+            if c.use_magcache:
+                raise ValueError("enable_teacache and use_magcache are mutually exclusive")
+            if c.sample_solver != "unipc":
+                raise ValueError("Wan TeaCache rides the UniPC trajectory (the "
+                                 "reference eval's solver); set sample_solver='unipc'")
+            if skip_override is not None:
+                raise ValueError("skip_override and enable_teacache are mutually "
+                                 "exclusive (TeaCache decides from activations)")
+            tea = self._teacache_lanes()
         # with an override, the cache config only supplies the lane structure
         cache_cfg = self._cache_cfg(force=skip_override is not None)
-        return lambda x0, cond: sample_unipc(
-            self.core, x0, cond, sch, cache_cfg=cache_cfg,
-            guidance_scale=c.guide_scale, skip_mask_override=skip_override,
-            return_skips=True)
+        if c.sample_solver == "unipc":
+            return lambda x0, cond: sample_unipc(
+                self.core, x0, cond, sch, cache_cfg=cache_cfg, guidance_scale=g,
+                skip_mask_override=skip_override, dynamic_skip=tea, return_skips=True)
+        return lambda x0, cond: sample_euler(
+            self.core, x0, cond, timesteps=sch.timesteps, dts=np.diff(sch.sigmas),
+            cache_cfg=cache_cfg, guidance_scale=g, dpm_coeffs=dpm,
+            skip_mask_override=skip_override, return_skips=True)
 
     def _initial_noise(self, gen: torch.Generator) -> torch.Tensor:
         """The noise latents ``f32[1, F, H, W, 16]`` on the CPU, drawn from

@@ -306,7 +306,8 @@ def test_k5_matches_plain(dev, b, s, heads, group, gvalid, rope):
     (1, 64, 4, 200, 77, 65, False),          # d_model not a multiple of 32
     (2, 1000, 16, 1152, 120, 100, True),     # Latte's caption, masked keys
     (2, 300, 17, 1152, 384, 384, True),      # H*D 1,224 > 1,152, three whole key tiles
-    (1, 40000, 2, 144, 300, 129, False)])    # several query tiles a block
+    (1, 40000, 2, 144, 300, 129, False),     # several query tiles a block
+    (2, 23850, 16, 1152, 300, None, False)])  # STDiT3 480p x 51 under PAB: the bias epilogue
 def test_k6_matches_plain(dev, b, n, heads, dm, L, kv_valid, residual):
     hd = heads * 72
     x = _rand(dev, b, n, dm, seed=14)
@@ -318,9 +319,12 @@ def test_k6_matches_plain(dev, b, n, heads, dm, L, kv_valid, residual):
     bo = _rand(dev, dm, scale=0.05, seed=20)
     kw = dict(scale=72 ** -0.5, kv_valid=kv_valid, true_d=72, residual=residual)
     before = A.fused_cross_attention.launches
+    epilogue = "resid" if residual else "bias"
+    before_epi = A.fused_cross_attention.epilogues[epilogue]
     got = A.fused_cross_attention(x, wq, bq, k, v, wo, bo, heads, **kw)
     want = A.fused_cross_attention_plain(x, wq, bq, k, v, wo, bo, heads, **kw)
     assert A.fused_cross_attention.launches == before + 1
+    assert A.fused_cross_attention.epilogues[epilogue] == before_epi + 1
     _close(got, want)
 
 

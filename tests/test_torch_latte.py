@@ -26,6 +26,7 @@ from magcache_tpu.schedulers.ddim_eps import DDIMEpsSchedule as JDDIM
 from magcache_tpu.utils.misc import set_seed as j_set_seed
 from magcache_tpu_torch.cli import generate as cli
 from magcache_tpu_torch.core.magcache import MagCacheConfig, prepare_mag_ratios
+from magcache_tpu_torch.core.pab import LATTE_PAB
 from magcache_tpu_torch.core.sampler import sample_euler
 from magcache_tpu_torch.models import latte as T
 from magcache_tpu_torch.models.convert import latte_params_from_numpy
@@ -206,14 +207,19 @@ def test_random_init_follows_jax():
 
 def test_unported_latte_paths_raise():
     _, _, model = _models("float32")
-    with pytest.raises(NotImplementedError, match="PAB"):
-        T.make_latte_core(model, GRID, CAP, pab=object())
+    # PAB is ported on the packed route; the unpacked routes raise under it
+    for route in ("grouped", "vpu"):
+        with pytest.raises(NotImplementedError, match="PAB"):
+            T.make_latte_core(model, GRID, CAP, route=route, pab=LATTE_PAB,
+                              timesteps=np.ones(2))
     with pytest.raises(NotImplementedError, match="2048"):
         T.make_latte_core(model, (2, 48, 48), CAP)
     with pytest.raises(ValueError, match="route"):
         T.make_latte_core(model, GRID, CAP, route="0")
     with pytest.raises(NotImplementedError, match="PAB"):
-        tpipe.LattePipelineConfig(enable_pab=True)
+        tpipe.LattePipeline(tpipe.LattePipelineConfig(
+            tiny=True, num_frames=4, height=64, width=64, num_sampling_steps=2,
+            caption_len=6, enable_pab=True, route="vpu"), "cpu")
     T.make_latte_core(model, (2, 32, 64), CAP)           # 2,048 tokens: ported
 
 

@@ -27,6 +27,7 @@ from magcache_tpu.utils.misc import set_seed as j_set_seed
 from magcache_tpu_torch.cli import generate as cli
 from magcache_tpu_torch.core.magcache import compute_skip_schedule
 from magcache_tpu_torch.core.presets import make_config
+from magcache_tpu_torch.core.pab import OPEN_SORA_PAB
 from magcache_tpu_torch.core.sampler import sample_euler
 from magcache_tpu_torch.models import stdit3 as T
 from magcache_tpu_torch.models.convert import stdit3_params_from_numpy
@@ -191,8 +192,13 @@ def test_pos_embed_and_random_init_follow_jax():
 
 def test_unported_stdit3_paths_raise():
     _, _, model = _models("float32")
-    with pytest.raises(NotImplementedError, match="PAB"):
-        T.make_stdit3_core(model, GRID, pab=object())
+    # PAB is ported on the packed route; the unpacked routes raise under it
+    for route in ("grouped", "vpu"):
+        with pytest.raises(NotImplementedError, match="PAB"):
+            T.make_stdit3_core(model, GRID, route=route, pab=OPEN_SORA_PAB,
+                               timesteps=np.ones(2))
+    assert T.make_stdit3_core(model, GRID, pab=OPEN_SORA_PAB,
+                              timesteps=np.ones(2)).init_state is not None
     x, y, t = _inputs()
     # qk_norm=False is ported (the row max, not the JAX packed path's fixed
     # shift): the packed route against the JAX core's unpacked composition
@@ -267,9 +273,15 @@ def test_sample_euler_unported_options_raise():
     with pytest.raises(NotImplementedError, match="noise_scales"):
         sample_euler(None, torch.zeros(1), {}, timesteps=np.ones(2), dts=np.ones(2),
                      noise_scales=np.ones(2))
-    with pytest.raises(NotImplementedError, match="post_step"):
+    with pytest.raises(NotImplementedError, match="noise_key"):
         sample_euler(None, torch.zeros(1), {}, timesteps=np.ones(2), dts=np.ones(2),
-                     post_step=lambda x: x)
+                     noise_key=0)
+    # post_step and dpm_coeffs are ported; dpm++ replaces the linear update
+    with pytest.raises(ValueError, match="dpm_coeffs"):
+        sample_euler(None, torch.zeros(1), {}, timesteps=np.ones(2), dts=np.ones(2),
+                     x_coeffs=np.ones(2), post_step=lambda x: x,
+                     dpm_coeffs=dict.fromkeys(("sigma_t", "a", "b", "c_x", "c_d"),
+                                              np.ones(2)))
 
 
 # ---------------------------------------------------------------- pipeline
@@ -309,10 +321,14 @@ def test_pipeline_latents_match_jax(kw, monkeypatch):
 
 
 def test_pipeline_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="rolling"):
-        tpipe.OpenSoraPipelineConfig(cache_policy="rolling")
-    with pytest.raises(NotImplementedError, match="PAB"):
-        tpipe.OpenSoraPipelineConfig(enable_pab=True)
+    # the rolling policy and PAB are ported (PAB on the packed route only)
+    with pytest.raises(ValueError, match="cache_policy"):
+        tpipe.OpenSoraPipelineConfig(cache_policy="lru")
+    for route in ("grouped", "vpu"):
+        with pytest.raises(NotImplementedError, match="PAB"):
+            tpipe.OpenSoraPipeline(tpipe.OpenSoraPipelineConfig(
+                tiny=True, num_frames=8, height=32, width=32, num_sampling_steps=2,
+                caption_len=6, enable_pab=True, route=route), "cpu")
     cfg = tpipe.OpenSoraPipelineConfig(tiny=True, num_frames=8, height=32, width=32,
                                        num_sampling_steps=2, caption_len=6,
                                        resolution=None)

@@ -61,8 +61,11 @@ def test_generate_skip_override_and_full_compute():
 def test_unported_configs_raise():
     with pytest.raises(NotImplementedError):
         WanPipelineConfig(task="i2v")
-    with pytest.raises(NotImplementedError):
-        WanPipelineConfig(sample_solver="dpm++")
+    # dpm++ and Euler are ported on one rank; under sp they raise
+    with pytest.raises(NotImplementedError, match="sp > 1"):
+        WanPipelineConfig(sample_solver="dpm++", sp=2)
+    with pytest.raises(ValueError, match="sample_solver"):
+        WanPipelineConfig(sample_solver="ddim")
 
 
 def test_cli_calibrate_then_install_ratios(tmp_path, capsys):
