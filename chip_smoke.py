@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives ``magcache_tpu_torch`` (never JAX) in thirty-eight phases and exits
+Drives ``magcache_tpu_torch`` (never JAX) in forty-five phases and exits
 nonzero on the first failure:
 
 1. environment: a CUDA card is required; prints the card's name and power
@@ -201,6 +201,41 @@ residual for the first time; the reuse decisions are host masks):
    Latte under PAB (phase 22's, an MLP anchor at t = 750), each with
    skipped steps, within 5e-2 rel L2.
 
+Open-Sora-Plan v1.2 and v1.1, CogVideoX-5B (no new kernel; K1 at head dims
+72 and 64 on full 3-D and joint sequences, K6 over 512 caption keys, K5r
+over groups of 17 on its "tma" body):
+39. K1 (running max, 72 padded to 128) at v1.2's 3-D 2x28,800x16x72
+   (93x480x640), K7 (qkv, ff1 + gelu), K8 (proj, ff2) and K6 over 512 keys
+   at its 2x28,800x1152 shapes, K6 at v1.1's 2x17,408 queries and K5r over
+   v1.1's temporal groups of 17 (65x512x512, 34,816 rows, the "tma"
+   route), each against its plain version beside SDPA where that computes
+   the same function;
+40. two full-shape forwards of Open-Sora-Plan v1.2 at 93x480x640 (28,800
+   tokens, 2 CFG rows, 28 blocks, packed route): time, peak memory,
+   launches per forward;
+41. requests through ``OpenSoraPlanPipeline.generate`` (v120) at 29x480x640
+   (9,600 tokens) and 30 Euler-Ancestral steps (cut from 150): full compute,
+   MagCache (0.12 / K 3 / R 0.2, flat ratios, 2 lanes), a calibration whose
+   ratios a second MagCache request installs, and PAB (spatial + cross);
+   skip bits against ``compute_skip_schedule``, launches against the trunk
+   runs, PAB's reuse per site against ``broadcast_masks``, peak memory;
+42. requests through the same pipeline (v110: the Latte-1 trunk, 8 output
+   channels) at 65x512x512 (17 latent frames of 1,024 tokens) and 20 PNDM
+   steps (cut from 150: 21 model calls): full compute, MagCache, and
+   ``OSP_V110_PAB`` with its MLP anchors moved onto the 20-step grid
+   (700 and 500, blocks 0-6), launches and K5r routes ("tma" 56 a trunk
+   run) checked;
+43. CogVideoX-5B (9.5 B parameters, bf16, initialised on the card): K1 at
+   the 49x480x720 joint shape 2x17,776x48x64 (padded to 128) against its
+   plain version beside SDPA at 64, then two full-shape forwards (17,550
+   video + 226 text tokens, 42 blocks);
+44. requests through ``CogVideoXPipeline.generate`` at 13x480x720 (frames
+   cut from 49: 5,400 video tokens) and 20 DDIM steps (cut from 50): full
+   compute, MagCache, dynamic CFG with MagCache, PAB (``COGVIDEOX_PAB``);
+45. narrow Open-Sora-Plan v1.2 (both routes), v1.1 (17 latent frames) and
+   CogVideoX through their pipelines with skipped steps, bf16 on the card
+   against f32 on the CPU, within 5e-2 rel L2.
+
 Kernel times are CUDA-event times of a loop of back-to-back launches
 between one event pair, divided by the count (``cuda_ms``); each attention
 kernel's line adds its TFLOP/s and its share of the bound; phase 11 times
@@ -215,9 +250,12 @@ launches on each path (``wan-ulysses`` and ``wan-ring``: phase 25's requests
 28's two vpu forwards; ``open-sora-noqknorm``: phase 30's four forwards;
 ``wan-video``: phase 33's request; ``wan-solvers``, ``wan-teacache``:
 phases 34 and 35; ``open-sora-pab`` and ``open-sora-rolling``: phase 36's
-PAB requests and its rolling one; ``latte-pab``: phase 37), its worst error
-over every shape compared, and the times of its first shape timed, named in
-``timed_at``, with their method in ``timing`` (``loop`` or ``graph``).
+PAB requests and its rolling one; ``latte-pab``: phase 37;
+``open-sora-plan``: phases 40 and 41; ``open-sora-plan-v110``: phase 42;
+``cogvideox``: phases 43 and 44), its worst error over every shape
+compared, and the times of its first shape timed, named in ``timed_at``,
+with their method in ``timing`` (``loop`` or ``graph``); ``shapes`` lists
+every shape compared with its own error, times and bound.
 ``bound_ms`` is the least time an H100 SXM could take at that shape: the
 larger of the bytes moved (each input read once, each output written once)
 over 3.35 TB/s and the operations over the peak rate of their type (989
@@ -367,6 +405,18 @@ def cuda_graph_ms(fn, reps: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed_once(fn):
+    """``(fn(), ms)``: one call between a pair of CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def bound(flops: float, nbytes: float, tflops: float = H100_BF16_TFLOPS):
@@ -676,13 +726,17 @@ def keep(rec: dict, name: str, err: float, ms: float, pms: float, timing: str,
     function there. Logs the bound at every shape."""
     bound_ms, bound_by = bound(*work)
     log(f"    {name} [{shape}]: bound {bound_ms:.4f} ms by {bound_by}")
+    at = {"shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": pms,
+          "bound_ms": bound_ms, "bound_by": bound_by,
+          "library_ms": library[1] if library else None, "timing": timing}
     if name in rec:
         rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
+        rec[name]["shapes"].append(at)
         return
     rec[name] = {"max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": bound_ms,
                  "bound_by": bound_by, "library_ms": library[1] if library else None,
                  "library_call": library[0] if library else None,
-                 "timing": timing, "timed_at": shape}
+                 "timing": timing, "timed_at": shape, "shapes": [at]}
 
 
 def phase_requests(dev, model):
@@ -862,21 +916,25 @@ def k1_modes() -> dict:
     return dict(A.flash_attention_bshd.modes)
 
 
-def k1_check(rec, title, label, q, k, v, fixed_max):
+def k1_check(rec, title, label, q, k, v, fixed_max, big: bool = False):
     """K1 as ``attention()`` runs it at head dim D < 128: ``[B, S, H, D]``
     q/k/v zero-padded to 128, the kernel held against its plain version
     and timed beside SDPA at D. The bound counts the function, attention at
-    D: 4·B·H·Sq·Skv·D operations and the unpadded q, k, v and output."""
+    D: 4·B·H·Sq·Skv·D operations and the unpadded q, k, v and output.
+    ``big``: the plain version is timed by its one comparison call (CUDA
+    events), not by a loop of its own, at shapes where it takes seconds."""
     from magcache_tpu_torch.ops import attention as A
 
     d = q.shape[-1]
     qp, kp, vp = (torch.nn.functional.pad(t, (0, 128 - d)) for t in (q, k, v))
     kw = dict(scale=d ** -0.5, fixed_max=fixed_max)
     got = A.flash_attention_bshd(qp, kp, vp, **kw)
-    want = A.flash_attention_bshd_plain(qp, kp, vp, **kw)
+    want, plain_once = timed_once(lambda: A.flash_attention_bshd_plain(qp, kp, vp, **kw))
     err = compare(f"K1 flash_attention_bshd [{label}]", got, want, atol=2e-3, rtol=2e-2)
+    del want
     ms = cuda_ms(lambda: A.flash_attention_bshd(qp, kp, vp, **kw), 5)
-    pms = cuda_ms(lambda: A.flash_attention_bshd_plain(qp, kp, vp, **kw), 1)
+    pms = plain_once if big else cuda_ms(
+        lambda: A.flash_attention_bshd_plain(qp, kp, vp, **kw), 1)
     lms = sdpa_ms(q, k, v, 5)
     b, sq, h, _ = q.shape
     flops = 4 * b * h * sq * k.shape[1] * d
@@ -3105,6 +3163,603 @@ def phase_narrow_new_paths(dev):
     check_narrow("Latte PAB", outs["card"], outs["cpu"], launched, want)
 
 
+# ------------------------------------------ Open-Sora-Plan and CogVideoX
+# Open-Sora-Plan v1.2: 28 blocks per trunk run. Packed: K7 qkv and ff1, K1
+# (full 3-D attention, head dim 72 padded), K8 proj and ff2, K6; unpacked
+# (and PAB's computed sites): K3 before the attention and the MLP, K1 for
+# the self- and the cross-attention
+OSP_TRUNK_LAUNCHES = {
+    "packed": dict(NO_LAUNCHES, lnmod_matmul=56, flash_attention_bshd=28,
+                   matmul_gated_residual=56, fused_cross_attention=28),
+    "unpacked": dict(NO_LAUNCHES, layer_norm_mod=56, flash_attention_bshd=56)}
+OSP_CAP = 512
+OSP_FRAMES, OSP_GRID = 93, (24, 30, 40)          # 93x480x640: 28,800 tokens
+OSP_REQ_FRAMES, OSP_REQ_GRID, OSP_STEPS = 29, (8, 30, 40), 30   # 9,600 tokens
+# v1.1: the Latte trunk at 65 frames (17 latent frames of 32 x 32 patches);
+# its temporal groups of 17 take K5r's "tma" body, as the spatial frames do
+V110_FRAMES, V110_GRID, V110_STEPS = 65, (17, 32, 32), 20
+V110_ROUTES = dict(NO_ROUTES, tma=56)
+# CogVideoX-5B: 42 joint blocks, K1 (head dim 64 padded) once each
+COG_TRUNK_LAUNCHES = dict(NO_LAUNCHES, flash_attention_bshd=42)
+COG_TXT = 226
+COG_FRAMES, COG_GRID = 49, (13, 30, 45)          # 17,550 video + 226 text tokens
+COG_REQ_FRAMES, COG_REQ_GRID, COG_STEPS = 13, (4, 30, 45), 20  # 5,400 video tokens
+
+
+def phase_osp_kernels(dev, rec):
+    """K1, K7, K8 and K6 at Open-Sora-Plan v1.2's 93x480x640 shapes, K5r over
+    v1.1's temporal groups of 17 and K6 at its 65x512x512 shapes, each vs its
+    plain version (bf16)."""
+    from magcache_tpu_torch.ops import attention as A
+    from magcache_tpu_torch.ops import fused_prologue as P
+
+    log("phase 39: kernels vs plain at Open-Sora-Plan v1.2 93x480x640 and v1.1 "
+        "65x512x512 shapes (bf16)")
+    gen = torch.Generator(device=dev).manual_seed(3939)
+    rows, H, D = 2, 16, 72
+    d = H * D
+    N = math.prod(OSP_GRID)
+
+    def rnd(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    # K1: the full 3-D self-attention over 28,800 tokens, running max
+    label = f"running max, OSP v1.2 3-D {rows}x{N}x{H}x72 -> 128"
+    k1_check(rec, f"K1 [{label}]", label, rnd(rows, N, H, D), rnd(rows, N, H, D),
+             rnd(rows, N, H, D), None, big=True)
+
+    # K7 (qkv; ff1 with gelu) and K8 (proj; ff2, both with the residual)
+    h = rnd(rows, N, d)
+    sc, sh = rnd(rows, d, dtype=torch.float32, scale=0.1), rnd(rows, d, dtype=torch.float32,
+                                                                scale=0.1)
+    for label, wide, kw in ((f"OSP qkv {rows}x{N}x{d} -> {3 * d}", 3 * d, {}),
+                            (f"OSP ff1 {rows}x{N}x{d} -> {4 * d}, gelu", 4 * d,
+                             dict(act="gelu"))):
+        w, b = rnd(wide, d, scale=d ** -0.5), rnd(wide, scale=0.1)
+        got = P.lnmod_matmul(h, sc, sh, w, b, **kw)
+        want, pms = timed_once(lambda: P.lnmod_matmul_plain(h, sc, sh, w, b, **kw))
+        record(rec, "lnmod_matmul", label, got, want,
+               cuda_ms(lambda: P.lnmod_matmul(h, sc, sh, w, b, **kw)), pms,
+               2 * rows * N * d * wide, nbytes(h, w, b, got))
+        del got, want
+    g = rnd(rows, d, dtype=torch.float32, scale=0.5)
+    for label, wide in ((f"OSP proj {rows}x{N}x{d} + resid", d),
+                        (f"OSP ff2 {rows}x{N}x{4 * d} + resid", 4 * d)):
+        x, w, b = rnd(rows, N, wide), rnd(d, wide, scale=wide ** -0.5), rnd(d, scale=0.1)
+        got = P.matmul_gated_residual(x, w, b, g, h)
+        want, pms = timed_once(lambda: P.matmul_gated_residual_plain(x, w, b, g, h))
+        record(rec, "matmul_gated_residual", label, got, want,
+               cuda_ms(lambda: P.matmul_gated_residual(x, w, b, g, h)), pms,
+               2 * rows * N * wide * d, nbytes(x, w, b, got, h))
+        del got, want, x
+
+    # K6 over 512 caption keys (four whole key tiles): v1.2's 2 x 28,800
+    # and v1.1's 2 x 17,408 queries
+    wq, wo = rnd(d, d, scale=d ** -0.5), rnd(d, d, scale=d ** -0.5)
+    bq, bo = rnd(d, scale=0.05), rnd(d, scale=0.05)
+    k, v = rnd(rows, OSP_CAP, d), rnd(rows, OSP_CAP, d)
+    kw = dict(scale=D ** -0.5, true_d=D, residual=True)
+    for n, what in ((N, "v1.2"), (math.prod(V110_GRID), "v1.1")):
+        x = h[:, :n].contiguous()
+        got = A.fused_cross_attention(x, wq, bq, k, v, wo, bo, H, **kw)
+        want, pms = timed_once(lambda: A.fused_cross_attention_plain(x, wq, bq, k, v, wo,
+                                                                     bo, H, **kw))
+        record(rec, "fused_cross_attention", f"OSP {what} {rows}x{n} x {OSP_CAP} keys, "
+               f"residual", got, want,
+               cuda_ms(lambda: A.fused_cross_attention(x, wq, bq, k, v, wo, bo, H, **kw)),
+               pms, 4 * rows * n * d * d + 4 * rows * n * OSP_CAP * d,
+               nbytes(x, wq, bq, k, v, wo, bo, got))
+        del got, want, x
+    del h
+
+    # K5r over v1.1's temporal groups of 17 (the "tma" body), beside SDPA
+    # with the frames as the batch
+    T, S = V110_GRID[0], V110_GRID[1] * V110_GRID[2]
+    qkv = rnd(1, rows * S * T, 3 * d)
+    before = dict(A._grouped_launch.routes)
+    kw = dict(group=T, scale=D ** -0.5)
+    got = A.grouped_attention_fused_qkv(qkv, H, **kw)
+    if A._grouped_launch.routes["tma"] != before["tma"] + 1:
+        fail("K5r over groups of 17 did not take the tma route")
+    want, pms = timed_once(lambda: A.grouped_attention_fused_qkv_plain(qkv, H, **kw))
+    q, kk, vv = qkv.reshape(rows * S, T, 3, H, D).unbind(2)
+    record(rec, "grouped_attention_fused_qkv_rowmax",
+           f"OSP v1.1 temporal {rows * S * T} rows, group {T}, route tma", got, want,
+           cuda_ms(lambda: A.grouped_attention_fused_qkv(qkv, H, **kw)), pms,
+           4 * rows * S * H * T * T * D, nbytes(qkv, got),
+           library=("F.scaled_dot_product_attention", sdpa_ms(q, kk, vv, 20)))
+    del qkv, got, want, q, kk, vv
+
+
+def make_osp_model(dev):
+    from magcache_tpu_torch.models.open_sora_plan import OSP_V120, OSPModel
+
+    cfg = dataclasses.replace(OSP_V120, dtype="bfloat16")
+    t0 = time.time()
+    model = OSPModel(cfg, dev).init(torch.Generator(device=dev).manual_seed(0))
+    model.requires_grad_(False)
+    torch.cuda.synchronize()
+    log(f"  Open-Sora-Plan v1.2 bf16 random init: {time.time() - t0:.1f} s, "
+        f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B params")
+    return model
+
+
+def profile_forward(label: str, core, x, t, cond, top: int = 10) -> None:
+    """One forward (prepare -> trunk -> head) under ``torch.profiler`` (CPU
+    and CUDA): the wall time, the summed device time, the device's idle
+    share and the ``top`` device-time entries, as
+    ``tools/profile_torch_forward.py`` prints them."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        hidden, c = core.prepare(x, t, cond)
+        core.head(core.trunk(hidden, c), c)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_time_total > 0
+              and e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.device_time_total for e in events) / 1e3
+    log(f"  {label} profiled: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, idle "
+        f"share {max(0.0, 1 - busy_ms / wall_ms):.3f}")
+    for e in sorted(events, key=lambda e: -e.device_time_total)[:top]:
+        ms = e.device_time_total / 1e3
+        log(f"    {ms:9.2f} ms  {100 * ms / busy_ms:5.1f}%  x{e.count:<5d} {e.key[:80]}")
+
+
+def timed_forwards(core, x, t, cond, label, runs=2):
+    """``runs`` forwards (prepare -> trunk -> head), each timed; returns the
+    last output after checking it is finite and of x's shape (C channels)."""
+    for run in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        hidden, c = core.prepare(x, t, cond)
+        out = core.head(core.trunk(hidden, c), c)
+        torch.cuda.synchronize()
+        log(f"  {label} forward (call {run + 1}): {time.time() - t0:.3f} s, "
+            f"{hidden.shape[1]} tokens x {hidden.shape[0]} rows in the trunk")
+    if tuple(out.shape) != tuple(x.shape) or not bool(torch.isfinite(out).all()):
+        fail(f"{label}: forward output {tuple(out.shape)} is not finite or misshapen")
+    return out
+
+
+def phase_osp_forward(dev, model):
+    """Returns the forwards' launches."""
+    from magcache_tpu_torch.models.open_sora_plan import make_osp_core
+    from magcache_tpu_torch.models.text import MockTextEncoder
+
+    log(f"phase 40: full-shape forwards of Open-Sora-Plan v1.2 {OSP_FRAMES}x480x640 "
+        f"(latent patches {OSP_GRID}: {math.prod(OSP_GRID)} tokens), 2 CFG rows, 28 blocks, "
+        f"packed route")
+    gen = torch.Generator(device=dev).manual_seed(40)
+    T, gh, gw = OSP_GRID
+    x = torch.randn((2, T, 2 * gh, 2 * gw, 4), generator=gen, device=dev)
+    t = torch.full((2,), 900.0, device=dev)
+    cond = {"y": MockTextEncoder(OSP_CAP, 4096, scale=0.5)(["a boat", ""], device=dev)}
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    core = make_osp_core(model, OSP_GRID, OSP_CAP, route="packed")
+    out = timed_forwards(core, x, t, cond, "OSP v1.2 packed")
+    log(f"  output std {float(out.float().std()):.4f}, peak memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    counts = check_forward_counts("OSP v1.2 packed", 2, OSP_TRUNK_LAUNCHES["packed"],
+                                  NO_ROUTES)
+    if k1_modes() != {"fixed": 0, "running": 56}:
+        fail(f"OSP v1.2: K1 by shift {k1_modes()}, not 28 running a forward")
+    profile_forward("OSP v1.2 packed forward", core, x, t, cond)
+    return counts
+
+
+def request_checks(label, out, want_skips, shape, per_run, routes=None):
+    """Checks a request's latents (finite, ``shape``), its realized skip bits
+    (``want_skips``; a calibration request has none and computes every one
+    of ``len(want_skips)`` steps) and the launches since the last
+    ``reset_counts`` against ``per_run`` per trunk run (a step where some
+    lane computes), and the grouped routes against ``routes`` per run when
+    given; returns the launches."""
+    from magcache_tpu_torch.ops import attention as A
+
+    lat = out.latents
+    if tuple(lat.shape) != shape or not bool(torch.isfinite(lat).all()):
+        fail(f"{label}: latents {tuple(lat.shape)} not finite or misshapen")
+    skips = want_skips if out.skips is None else out.skips
+    if not np.array_equal(skips, want_skips):
+        fail(f"{label}: realized skips differ from compute_skip_schedule")
+    runs = int((~skips.all(1)).sum())
+    launched = read_counts()
+    if launched != {k: n * runs for k, n in per_run.items()}:
+        fail(f"{label}: launches {launched} != {per_run} x {runs} trunk runs")
+    got = dict(A._grouped_launch.routes)
+    if routes is not None and got != {k: n * runs for k, n in routes.items()}:
+        fail(f"{label}: grouped routes {got} != {routes} x {runs}")
+    log(f"  {label}: {out.timings['total_s']:.3f} s/video, {runs} of {len(skips)} model "
+        f"calls computed, skips per lane {skips.sum(0).tolist()}, latents std "
+        f"{float(lat.float().std()):.4f}")
+    return launched
+
+
+def pab_request(label, module, per_block, pipe, prompt, masks, sites):
+    """A PAB request with the sites' reuse counted at each site
+    (``pab_site_spy``); fails unless each site in ``sites`` (``{name:
+    (position, kind, mask key, per-step count)}``) reused on exactly the
+    steps its mask says. Returns the output and the peak memory in GB."""
+    reset_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(pipe.device)
+    spied, uninstall = pab_site_spy(module, per_block)
+    try:
+        out = pipe.generate(prompt, seed=3)
+    finally:
+        uninstall()
+    peak = torch.cuda.max_memory_allocated(pipe.device) / 1e9
+    got = {name: spied.get((pos, kind), [0, 0, 0])[1] // per
+           for name, (pos, kind, _, per) in sites.items()}
+    expect = {name: int(np.asarray(masks[key]).sum()) for name, (_, _, key, _) in sites.items()}
+    log(f"  {label}: reuse steps per site {got}; the masks {expect}; peak memory {peak:.2f} GB")
+    if got != expect:
+        fail(f"{label}: site reuse {got} != the masks' {expect}")
+    return out, peak
+
+
+def osp_pab_launches(masks: dict, depth: int = 28) -> dict:
+    """Launches of v1.2's PAB trunk runs (the unpacked sites; every step
+    runs the trunk): K3 before each computed attention and MLP, K1 for each
+    computed self- and cross-attention."""
+    want = dict(NO_LAUNCHES)
+    for i in range(len(masks["spatial"])):
+        sp, cr, ml = (not masks[k][i] for k in ("spatial", "cross", "mlp"))
+        want["layer_norm_mod"] += depth * (sp + ml)
+        want["flash_attention_bshd"] += depth * (sp + cr)
+    return want
+
+
+def phase_osp_requests(dev, model):
+    """Returns the phase's launches."""
+    from magcache_tpu_torch.core.magcache import compute_skip_schedule
+    from magcache_tpu_torch.core.pab import broadcast_masks
+    from magcache_tpu_torch.models import open_sora_plan as OM
+    from magcache_tpu_torch.pipelines.open_sora_plan import (OpenSoraPlanPipeline,
+                                                             OpenSoraPlanPipelineConfig)
+
+    log(f"phase 41: requests through OpenSoraPlanPipeline.generate (v120), "
+        f"{OSP_REQ_FRAMES}x480x640 ({math.prod(OSP_REQ_GRID)} tokens), {OSP_STEPS} "
+        f"Euler-Ancestral steps (cut from 150), guidance 7.5: full compute, MagCache "
+        f"(0.12 / K 3 / R 0.2, flat ratios), calibration and its ratios installed, PAB")
+    base = dict(num_frames=OSP_REQ_FRAMES, num_inference_steps=OSP_STEPS, dtype="bfloat16")
+    prompt = "A red sailboat glides across a calm bay at dawn."
+    shape = (1, OSP_REQ_GRID[0], 60, 80, 4)
+    per_run = OSP_TRUNK_LAUNCHES["packed"]
+    total = dict(NO_LAUNCHES)
+
+    def run(label, **kw):
+        pipe = OpenSoraPlanPipeline(OpenSoraPlanPipelineConfig(**base, **kw), dev,
+                                    model=model)
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = pipe.generate(prompt, seed=3)
+        cache = pipe._cache_cfg()
+        want = (compute_skip_schedule(cache).reshape(OSP_STEPS, 2) if cache is not None
+                else np.zeros((OSP_STEPS, 1), bool))
+        launched = request_checks(label, out, want, shape, per_run)
+        log(f"    peak memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+        for k, n in launched.items():
+            total[k] += n
+        return out
+
+    full = run("full compute")
+    run("MagCache E012K3R02, flat ratios", use_magcache=True)
+    cal = run("calibration (full compute)", magcache_calibration=True)
+    ratios = tuple(cal.calibration["norm_ratio"])
+    if len(ratios) != 2 * (OSP_STEPS - 1) or not np.all(np.isfinite(ratios)):
+        fail(f"calibration recorded {len(ratios)} ratios, or non-finite ones")
+    log(f"  norm_ratio (2 lanes) {np.round(ratios[:4], 4).tolist()} ... "
+        f"{np.round(ratios[-4:], 4).tolist()}")
+    run("MagCache with the recorded ratios", use_magcache=True, magcache_ratios=ratios)
+    pipe = OpenSoraPlanPipeline(OpenSoraPlanPipelineConfig(**base, enable_pab=True), dev,
+                                model=model)
+    masks = broadcast_masks(pipe.config.pab(), pipe.schedule.timesteps)
+    out, _ = pab_request("PAB (v1.2 windows: spatial + cross)", OM, 3, pipe, prompt, masks,
+                         {"spatial": (0, "attn", "spatial", 28),
+                          "cross": (1, "cross", "cross", 28)})
+    launched = read_counts()
+    if launched != osp_pab_launches(masks):
+        fail(f"OSP PAB: launches {launched} != {osp_pab_launches(masks)}")
+    for k, n in launched.items():
+        total[k] += n
+    log(f"  PAB: {out.timings['total_s']:.3f} s/video, rel L2 against full compute "
+        f"{rel_l2(out.latents, full.latents):.3e}, launches {launched}")
+    log(f"  launches in phase 41: {total}")
+    return total
+
+
+def v110_pab_launches(masks: dict, depth: int = 28):
+    """Launches and K5r routes of v1.1's PAB trunk runs (Latte's PAB block,
+    every step): ``latte_pab_launches`` with the temporal groups of 17 on
+    the "tma" body."""
+    want, routes = latte_pab_launches(masks, np.ones(len(masks["spatial"]), bool), depth)
+    return want, dict(routes, tma=routes["tma"] + routes["stream"], stream=0)
+
+
+def phase_v110_requests(dev):
+    """Returns the phase's launches."""
+    from magcache_tpu_torch.core.magcache import compute_skip_schedule
+    from magcache_tpu_torch.core.pab import OSP_V110_PAB
+    from magcache_tpu_torch.models import latte as LM
+    from magcache_tpu_torch.pipelines.open_sora_plan import (OpenSoraPlanPipeline,
+                                                             OpenSoraPlanPipelineConfig)
+
+    n_calls = V110_STEPS + 1
+    log(f"phase 42: requests through OpenSoraPlanPipeline.generate (v110: the Latte-1 "
+        f"trunk, 8 output channels), {V110_FRAMES}x512x512 ({V110_GRID[0]} latent frames "
+        f"of {V110_GRID[1] * V110_GRID[2]} tokens), PNDM {V110_STEPS} steps (cut from "
+        f"150; {n_calls} model calls), caption 512: full compute, MagCache, PAB")
+    model = make_latte_model(dev)
+    base = dict(version="v110", num_frames=V110_FRAMES, height=512, width=512,
+                num_inference_steps=V110_STEPS, dtype="bfloat16")
+    prompt = "A red sailboat glides across a calm bay at dawn."
+    shape = (1,) + V110_GRID[:1] + (64, 64, 4)
+    per_run = LATTE_TRUNK_LAUNCHES["packed"]
+    total = dict(NO_LAUNCHES)
+    lats = {}
+    for label, kw in (("full compute", {}), ("MagCache E012K3R02, flat ratios",
+                                             dict(use_magcache=True))):
+        pipe = OpenSoraPlanPipeline(OpenSoraPlanPipelineConfig(**base, **kw), dev,
+                                    model=model)
+        reset_counts()
+        out = pipe.generate(prompt, seed=3)
+        cache = pipe._cache_cfg()
+        want = (compute_skip_schedule(cache).reshape(n_calls, 2) if cache is not None
+                else np.zeros((n_calls, 1), bool))
+        launched = request_checks(label, out, want, shape, per_run, V110_ROUTES)
+        lats[label] = out.latents
+        for k, n in launched.items():
+            total[k] += n
+    # OSP_V110_PAB's windows; its MLP anchors (every 24 timesteps from 738 at
+    # 150 steps: save, reuse twice, compute) moved onto the 20-step grid of
+    # multiples of 50 (every 200 from 700) so that they fire
+    anchors = tuple((t, tuple(range(7)), 2) for t in (700, 500))
+    pab = dataclasses.replace(OSP_V110_PAB, mlp_spatial_config=anchors,
+                              mlp_temporal_config=anchors)
+    pipe = OpenSoraPlanPipeline(OpenSoraPlanPipelineConfig(**base, enable_pab=True,
+                                                           pab_config=pab), dev, model=model)
+    masks = LM.latte_pab_masks(pab, pipe.schedule.timesteps, 28)
+    out, _ = pab_request("PAB (OSP_V110_PAB, MLP anchors 700 and 500 on blocks 0-6)", LM, 5,
+                         pipe, prompt,
+                         dict(masks, mlp_sp=masks["mlp_sp_reuse"], mlp_tp=masks["mlp_tp_reuse"]),
+                         {"spatial": (0, "attn", "spatial", 28),
+                          "temporal": (3, "attn", "temporal", 28),
+                          "cross": (1, "cross", "cross", 28),
+                          "mlp spatial": (2, "mlp", "mlp_sp", 1),
+                          "mlp temporal": (4, "mlp", "mlp_tp", 1)})
+    launched = read_counts()
+    want, routes = v110_pab_launches(masks)
+    check_launch_routes("OSP v1.1 PAB", launched, want, routes)
+    for k, n in launched.items():
+        total[k] += n
+    log(f"  PAB: {out.timings['total_s']:.3f} s/video, rel L2 against full compute "
+        f"{rel_l2(out.latents, lats['full compute']):.3e}, launches {launched}")
+    log(f"  launches in phase 42: {total}")
+    return total
+
+
+def make_cogvideox_model(dev):
+    from magcache_tpu_torch.models.cogvideox import COGVIDEOX_5B, CogVideoXModel
+
+    cfg = dataclasses.replace(COGVIDEOX_5B, dtype="bfloat16")
+    t0 = time.time()
+    model = CogVideoXModel(cfg, dev).init(torch.Generator(device=dev).manual_seed(0))
+    model.requires_grad_(False)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    log(f"  CogVideoX-5B bf16 random init on the card: {time.time() - t0:.1f} s, "
+        f"{n / 1e9:.3f} B params ({torch.cuda.memory_allocated(dev) / 1e9:.2f} GB "
+        f"allocated)")
+    return model
+
+
+def phase_cogvideox_forward(dev, rec, model):
+    """K1 at the 5B forward's joint shape vs its plain version, then two
+    full-shape forwards; returns their launches."""
+    from magcache_tpu_torch.models.cogvideox import make_cogvideox_core
+    from magcache_tpu_torch.models.text import MockTextEncoder
+
+    n_vid = math.prod(COG_GRID)
+    log(f"phase 43: CogVideoX-5B at {COG_FRAMES}x480x720 (latent patches {COG_GRID}: "
+        f"{n_vid} video + {COG_TXT} text tokens), 2 CFG rows, 42 blocks: K1 vs plain at "
+        f"the joint shape, then full-shape forwards")
+    gen = torch.Generator(device=dev).manual_seed(43)
+    s = n_vid + COG_TXT
+    label = f"running max, CogVideoX joint 2x{s}x48x64 -> 128"
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    k1_check(rec, f"K1 [{label}]", label, rnd(2, s, 48, 64), rnd(2, s, 48, 64),
+             rnd(2, s, 48, 64), None, big=True)
+    T, gh, gw = COG_GRID
+    x = torch.randn((2, T, 2 * gh, 2 * gw, 16), generator=gen, device=dev)
+    t = torch.full((2,), 900.0, device=dev)
+    cond = {"txt": MockTextEncoder(COG_TXT, 4096, scale=0.5)(["a boat", ""], device=dev)}
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    core = make_cogvideox_core(model, COG_TXT, COG_GRID)
+    out = timed_forwards(core, x, t, cond, "CogVideoX-5B")
+    log(f"  output std {float(out.float().std()):.4f}, peak memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    counts = check_forward_counts("CogVideoX-5B", 2, COG_TRUNK_LAUNCHES, NO_ROUTES)
+    if k1_modes() != {"fixed": 0, "running": 84}:
+        fail(f"CogVideoX: K1 by shift {k1_modes()}, not 42 running a forward")
+    profile_forward("CogVideoX-5B forward", core, x, t, cond)
+    return counts
+
+
+def phase_cogvideox_requests(dev, model):
+    """Returns the phase's launches."""
+    from magcache_tpu_torch.core.pab import COGVIDEOX_PAB, broadcast_masks
+    from magcache_tpu_torch.models import cogvideox as CM
+    from magcache_tpu_torch.pipelines.cogvideox import (CogVideoXPipeline,
+                                                        CogVideoXPipelineConfig)
+
+    log(f"phase 44: requests through CogVideoXPipeline.generate, {COG_REQ_FRAMES}x480x720 "
+        f"(frames cut from 49: {math.prod(COG_REQ_GRID)} video tokens), {COG_STEPS} DDIM "
+        f"steps (cut from 50), guidance 6.0: full compute, MagCache (0.12 / K 3 / R 0.2, "
+        f"flat ratios), dynamic CFG with MagCache, PAB (COGVIDEOX_PAB)")
+    base = dict(num_frames=COG_REQ_FRAMES, num_inference_steps=COG_STEPS, dtype="bfloat16")
+    prompt = "A red sailboat glides across a calm bay at dawn."
+    shape = (1,) + COG_REQ_GRID[:1] + (60, 90, 16)
+    total = dict(NO_LAUNCHES)
+    lats = {}
+    for label, kw in (("full compute", {}),
+                      ("MagCache E012K3R02, flat ratios", dict(use_magcache=True)),
+                      ("dynamic CFG + MagCache", dict(use_dynamic_cfg=True,
+                                                      use_magcache=True))):
+        pipe = CogVideoXPipeline(CogVideoXPipelineConfig(**base, **kw), dev, model=model)
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = pipe.generate(prompt, seed=3)
+        want = pipe.skip_mask_for(use_magcache=bool(kw.get("use_magcache")))
+        launched = request_checks(label, out, want, shape, COG_TRUNK_LAUNCHES)
+        log(f"    peak memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+        if kw.get("use_dynamic_cfg"):
+            gs = pipe.guidance_scales()
+            log(f"    dynamic guidance {gs[0]:.4f} -> {gs[-1]:.4f} over the steps")
+        lats[label] = out.latents
+        for k, n in launched.items():
+            total[k] += n
+    pipe = CogVideoXPipeline(CogVideoXPipelineConfig(**base, enable_pab=True), dev,
+                             model=model)
+    masks = broadcast_masks(COGVIDEOX_PAB, pipe.schedule.timesteps.astype(np.float32))
+    out, _ = pab_request("PAB (COGVIDEOX_PAB)", CM, 2, pipe, prompt, masks,
+                         {"spatial": (0, "attn", "spatial", 42)})
+    launched = read_counts()
+    want = dict(NO_LAUNCHES, flash_attention_bshd=42 * int((~masks["spatial"]).sum()))
+    if launched != want:
+        fail(f"CogVideoX PAB: launches {launched} != {want}")
+    for k, n in launched.items():
+        total[k] += n
+    log(f"  PAB: {out.timings['total_s']:.3f} s/video, rel L2 against full compute "
+        f"{rel_l2(out.latents, lats['full compute']):.3e}, launches {launched}")
+    log(f"  launches in phase 44: {total}")
+    return total
+
+
+def _numpy_osp_tree(cfg, rng):
+    """A random Open-Sora-Plan v1.2 parameter tree in the JAX package's
+    layout (depth-stacked blocks, ``w: [d_in, d_out]``)."""
+    d, L = cfg.hidden, cfg.depth
+
+    def lin(d_in, d_out, depth=None):
+        shape = (d_in, d_out) if depth is None else (depth, d_in, d_out)
+        return {"w": rng.standard_normal(shape) / math.sqrt(d_in),
+                "b": rng.standard_normal(shape[:-2] + (d_out,)) * 0.02}
+
+    blocks = {n: lin(d, w * d, L) for n, w in (("qkv", 3), ("proj", 1), ("cross_q", 1),
+                                               ("cross_kv", 2), ("cross_o", 1),
+                                               ("ff1", cfg.mlp_ratio))}
+    blocks["ff2"] = lin(cfg.mlp_ratio * d, d, L)
+    blocks["scale_shift"] = rng.standard_normal((L, 6, d)) / math.sqrt(d)
+    return {"patch_embed": lin(cfg.patch_in, d),
+            "caption": {"in": lin(cfg.caption_dim, d), "out": lin(d, d)},
+            "time": {"in": lin(cfg.time_embed_dim, d), "out": lin(d, d)},
+            "adaln_single": lin(d, 6 * d), "blocks": blocks,
+            "final_mod": rng.standard_normal((2, d)) / math.sqrt(d),
+            "final_out": lin(d, cfg.c_out * math.prod(cfg.patch))}
+
+
+def _numpy_cogvideox_tree(cfg, rng):
+    """A random CogVideoX parameter tree in the JAX package's layout, the
+    norms' affines near 1 and 0."""
+    d, L, ct, hd = cfg.hidden, cfg.layers, cfg.cond_dim, cfg.head_dim
+
+    def lin(d_in, d_out, depth=None):
+        shape = (d_in, d_out) if depth is None else (depth, d_in, d_out)
+        return {"w": rng.standard_normal(shape) / math.sqrt(d_in),
+                "b": rng.standard_normal(shape[:-2] + (d_out,)) * 0.02}
+
+    def near(shape, v):
+        return v + 0.1 * rng.standard_normal(shape)
+
+    blocks = {"mod1": lin(ct, 6 * d, L), "mod2": lin(ct, 6 * d, L), "qkv": lin(d, 3 * d, L),
+              "proj": lin(d, d, L), "ff1": lin(d, cfg.mlp_ratio * d, L),
+              "ff2": lin(cfg.mlp_ratio * d, d, L)}
+    for name, n, v in (("ln1_w", d, 1.0), ("ln1_b", d, 0.0), ("ln2_w", d, 1.0),
+                       ("ln2_b", d, 0.0), ("q_norm_w", hd, 1.0), ("q_norm_b", hd, 0.0),
+                       ("k_norm_w", hd, 1.0), ("k_norm_b", hd, 0.0)):
+        blocks[name] = near((L, n), v)
+    return {"patch_embed": lin(cfg.in_channels * cfg.patch ** 2, d),
+            "text_proj": lin(cfg.text_dim, d),
+            "time": {"in": lin(cfg.time_embed_dim, ct), "out": lin(ct, ct)},
+            "blocks": blocks, "norm_final_w": near(d, 1.0), "norm_final_b": near(d, 0.0),
+            "norm_out_w": near(d, 1.0), "norm_out_b": near(d, 0.0),
+            "final_mod": lin(ct, 2 * d), "final_out": lin(d, cfg.in_channels * cfg.patch ** 2)}
+
+
+def phase_osp_cogvideox_card_vs_cpu(dev):
+    """Narrow Open-Sora-Plan v1.2 (both routes), v1.1 and CogVideoX through
+    their pipelines with MagCache (flat ratios: some steps skip), bf16 on
+    the card against f32 on the CPU."""
+    from magcache_tpu_torch.models.cogvideox import CogVideoXConfig, CogVideoXModel
+    from magcache_tpu_torch.models.convert import (cogvideox_params_from_numpy,
+                                                   latte_params_from_numpy,
+                                                   osp_params_from_numpy)
+    from magcache_tpu_torch.models.latte import LatteConfig, LatteModel
+    from magcache_tpu_torch.models.open_sora_plan import OpenSoraPlanConfig, OSPModel
+    from magcache_tpu_torch.pipelines.cogvideox import (CogVideoXPipeline,
+                                                        CogVideoXPipelineConfig)
+    from magcache_tpu_torch.pipelines.open_sora_plan import (OpenSoraPlanPipeline,
+                                                             OpenSoraPlanPipelineConfig)
+
+    log("phase 45: narrow Open-Sora-Plan v1.2 (packed and unpacked), v1.1 (17 latent "
+        "frames) and CogVideoX on the card (kernels, bf16) vs the CPU (plain, f32), "
+        "MagCache with skipped steps")
+    osp = OpenSoraPlanConfig(hidden=144, heads=2, depth=2, caption_dim=64, time_embed_dim=64,
+                             out_channels=8)
+    latte = LatteConfig(hidden=144, heads=2, depth=2, caption_dim=64, time_embed_dim=64,
+                        out_channels=8)
+    cog = CogVideoXConfig(hidden=128, heads=2, layers=2, text_dim=64, time_embed_dim=64)
+    mag = dict(use_magcache=True, magcache_thresh=0.3)
+    cases = (
+        # 9 frames at 128x128: 3 latent frames of 64 patches (192 tokens > 128: K1)
+        ("OSP v1.2 packed", osp, OSPModel, osp_params_from_numpy, _numpy_osp_tree,
+         OpenSoraPlanPipeline, OpenSoraPlanPipelineConfig,
+         dict(num_frames=9, height=128, width=128, num_inference_steps=8, caption_len=20,
+              route="packed", **mag), OSP_TRUNK_LAUNCHES["packed"], 28),
+        ("OSP v1.2 unpacked", osp, OSPModel, osp_params_from_numpy, _numpy_osp_tree,
+         OpenSoraPlanPipeline, OpenSoraPlanPipelineConfig,
+         dict(num_frames=9, height=128, width=128, num_inference_steps=8, caption_len=20,
+              route="unpacked", **mag), OSP_TRUNK_LAUNCHES["unpacked"], 28),
+        # 65 frames: 17 latent frames of 64 patches, K5r "tma" both ways
+        ("OSP v1.1", latte, LatteModel, latte_params_from_numpy, _numpy_latte_tree,
+         OpenSoraPlanPipeline, OpenSoraPlanPipelineConfig,
+         dict(version="v110", num_frames=65, height=128, width=128, num_inference_steps=6,
+              caption_len=20, **mag), LATTE_TRUNK_LAUNCHES["packed"], 28),
+        ("CogVideoX", cog, CogVideoXModel, cogvideox_params_from_numpy,
+         _numpy_cogvideox_tree, CogVideoXPipeline, CogVideoXPipelineConfig,
+         dict(num_frames=9, height=128, width=128, num_inference_steps=8, txt_len=20,
+              **mag), COG_TRUNK_LAUNCHES, 42))
+    for label, cfg, cls, convert, tree_fn, pipe_cls, pipe_cfg, kw, trunk, depth in cases:
+        tree = tree_fn(cfg, np.random.default_rng(45))
+        outs = {}
+        reset_counts()
+        for name, device, dtype in (("card", dev, "bfloat16"),
+                                    ("cpu", torch.device("cpu"), "float32")):
+            c = dataclasses.replace(cfg, dtype=dtype)
+            model = cls(c, device)
+            model.load_state_dict(convert(tree, c, device))
+            pipe = pipe_cls(pipe_cfg(dtype=dtype, **kw), device, model=model)
+            out = pipe.generate("a red boat", seed=4)
+            outs[name] = out.latents.float().cpu()
+            if name == "card":
+                launched = read_counts()
+                skips = out.skips
+        runs = int((~skips.all(1)).sum())
+        if not skips.any() or runs == len(skips):
+            fail(f"{label}: no step skipped, or every step did")
+        check_narrow(label, outs["card"], outs["cpu"], launched,
+                     {k: n * 2 // depth * runs for k, n in trunk.items()})
+        log(f"    {label}: {runs} of {len(skips)} model calls computed")
+
+
 def main():
     phase_environment()
     dev = torch.device("cuda", 0)
@@ -3203,12 +3858,35 @@ def main():
     del model
     torch.cuda.empty_cache()
     phase_narrow_new_paths(dev)
+    t_pab = time.time() - t0 - t_wan - t_os - t_flux - t_os720 - t_latte - t_sp \
+        - t_unpacked - t_ends
+    phase_osp_kernels(dev, rec)
+    torch.cuda.empty_cache()
+    log("phase 40/41 model:")
+    model = make_osp_model(dev)
+    osp = phase_osp_forward(dev, model)
+    reqs = phase_osp_requests(dev, model)
+    osp = {k: n + reqs[k] for k, n in osp.items()}
+    del model
+    torch.cuda.empty_cache()
+    log("phase 42 model:")
+    osp_v110 = phase_v110_requests(dev)
+    torch.cuda.empty_cache()
+    log("phase 43/44 model:")
+    model = make_cogvideox_model(dev)
+    cog = phase_cogvideox_forward(dev, rec, model)
+    reqs = phase_cogvideox_requests(dev, model)
+    cog = {k: n + reqs[k] for k, n in cog.items()}
+    del model
+    torch.cuda.empty_cache()
+    phase_osp_cogvideox_card_vs_cpu(dev)
     log(f"all phases passed in {time.time() - t0:.1f} s (Wan {t_wan:.1f} s, "
         f"Open-Sora {t_os:.1f} s, FLUX {t_flux:.1f} s, Open-Sora 720p "
         f"{t_os720:.1f} s, Latte {t_latte:.1f} s, Wan sequence-parallel {t_sp:.1f} s, "
         f"Open-Sora unpacked and without qk-norm {t_unpacked:.1f} s, UMT5, VAE and "
         f"the Wan video {t_ends:.1f} s, the new solvers, policies and PAB "
-        f"{time.time() - t0 - t_wan - t_os - t_flux - t_os720 - t_latte - t_sp - t_unpacked - t_ends:.1f} s)")
+        f"{t_pab:.1f} s, Open-Sora-Plan and CogVideoX "
+        f"{time.time() - t0 - t_wan - t_os - t_flux - t_os720 - t_latte - t_sp - t_unpacked - t_ends - t_pab:.1f} s)")
 
     meta = {
         "flash_attention_bshd": ("cuda", "magcache_tpu_torch/csrc/hopper_attention.cuh",
@@ -3252,7 +3930,8 @@ def main():
              "open-sora-grouped": os_unpacked["grouped"], "open-sora-vpu": os_unpacked["vpu"],
              "open-sora-noqknorm": os_noqk, "wan-video": wan_video,
              "wan-solvers": wan_solvers, "wan-teacache": wan_tea, "open-sora-pab": os_pab,
-             "open-sora-rolling": os_rolling, "latte-pab": latte_pab}
+             "open-sora-rolling": os_rolling, "latte-pab": latte_pab,
+             "open-sora-plan": osp, "open-sora-plan-v110": osp_v110, "cogvideox": cog}
     kernels = []
     for name, (route, source, replaces) in meta.items():
         by_path = {p: c[name] for p, c in paths.items()}

@@ -1,7 +1,9 @@
 """Generation CLI, the ported subset of ``magcache_tpu.cli.generate``:
 Wan2.1 t2v (``--task t2v-1.3B``), Open-Sora 1.2 t2v (``--task open-sora``),
-FLUX.1 text-to-image (``--task flux-dev`` and ``flux-kontext-dev``) and
-Latte-1 t2v (``--task latte``).
+FLUX.1 text-to-image (``--task flux-dev`` and ``flux-kontext-dev``), Latte-1
+t2v (``--task latte``), Open-Sora-Plan t2v (``--task open-sora-plan``: v1.2,
+or v1.1 with ``--osp_version v110``) and CogVideoX-5B t2v (``--task
+cogvideox``).
 
 Flag names follow the reference adapters (``--task --size --frame_num
 --sample_steps --sample_shift --sample_solver --sample_guide_scale
@@ -11,7 +13,9 @@ Flag names follow the reference adapters (``--task --size --frame_num
 --aspect_ratio --enable_pab`` and its conditioning flags ``--loop
 --ms/--mask_strategy --refs/--reference_path --condition_frame_length
 --condition_frame_edit --align --route``, FLUX ``--txt_len``, Latte
-``--txt_len --clean_caption --route --enable_pab``),
+``--txt_len --clean_caption --route --enable_pab``, Open-Sora-Plan
+``--txt_len --no_text_preprocessing --route --enable_pab --osp_version``,
+CogVideoX ``--txt_len --use_dynamic_cfg --enable_pab``),
 and the output file name encodes the E/K/R triple. Unset flags take each
 family's reference defaults, as in the JAX CLI. Runs on a CUDA card by
 default; ``--device cpu`` runs the plain PyTorch ops instead of the kernels
@@ -48,6 +52,10 @@ Examples:
       --save_file latte                 # 16x512x512, 50 DDIM steps: records ratios
   python -m magcache_tpu_torch.cli.generate --task latte --use_magcache \
       --mag_ratios_json latte_mag_ratio.json [--route grouped]
+  python -m magcache_tpu_torch.cli.generate --task open-sora-plan --use_magcache \
+      [--route unpacked | --osp_version v110] [--enable_pab]   # 29x480x640
+  python -m magcache_tpu_torch.cli.generate --task cogvideox --use_dynamic_cfg \
+      --use_magcache [--enable_pab]                             # 49x480x720
   torchrun --nproc_per_node 4 -m magcache_tpu_torch.cli.generate --task t2v-1.3B \
       --use_magcache --ulysses_size 4           # or --ring_size 4
 Checkpoints are not loaded yet: the DiT has random weights and the text
@@ -75,30 +83,32 @@ _KNOWN = ("flux", "qwen", "hunyuan", "framepack", "open-sora", "cogvideox",
           "ti2v", "vace")
 _PORTED = {"t2v-1.3B": "wan2.1-t2v-1.3B", "open-sora": "opensora-v1.2",
            "flux-dev": "flux-dev", "flux-kontext-dev": "flux-kontext-dev",
-           "latte": None}          # Latte has no published ratios: calibrate
+           # no published ratios: calibrate, then --mag_ratios_json
+           "latte": None, "open-sora-plan": None, "cogvideox": None}
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("magcache_tpu_torch generate")
     p.add_argument("--task", default="t2v-1.3B",
                    help="t2v-1.3B | open-sora | flux-dev | flux-kontext-dev | "
-                        "latte (the tasks ported so far)")
+                        "latte | open-sora-plan | cogvideox (the tasks ported so far)")
     p.add_argument("--size", default=None,
                    help="W*H pixels (unset: 832*480 for Wan and Open-Sora, "
                         "1024*1024 for FLUX)")
     p.add_argument("--frame_num", type=int, default=None,
                    help="frames (unset: 81)")
     p.add_argument("--sample_steps", type=int, default=None,
-                   help="unset: 50 for Wan and Latte, 30 for Open-Sora, 28 "
-                        "for FLUX")
+                   help="unset: 50 for Wan, Latte and CogVideoX, 30 for Open-Sora, "
+                        "28 for FLUX, 150 for Open-Sora-Plan")
     p.add_argument("--sample_shift", type=float, default=None,
                    help="Wan flow shift (unset: 5.0)")
     p.add_argument("--sample_solver", default="unipc",
                    choices=["unipc", "dpm++", "euler"],
                    help="Wan's solver (the reference's unipc and dpm++, and Euler)")
     p.add_argument("--sample_guide_scale", type=float, default=None,
-                   help="unset: 5.0 for Wan, 7.0 for Open-Sora, 7.5 for "
-                        "Latte; FLUX's embedded guidance 3.5 (2.5 for Kontext)")
+                   help="unset: 5.0 for Wan, 7.0 for Open-Sora, 7.5 for Latte "
+                        "and Open-Sora-Plan, 6.0 for CogVideoX; FLUX's embedded "
+                        "guidance 3.5 (2.5 for Kontext)")
     p.add_argument("--resolution", default=None,
                    help="open-sora bucket resolution (480p, 720p, ...); "
                         "overrides --size via the training bucket tables")
@@ -121,13 +131,21 @@ def build_parser() -> argparse.ArgumentParser:
                    help="mask-strategy index alignment")
     p.add_argument("--txt_len", type=int, default=None,
                    help="FLUX text tokens (unset: 512); Latte caption tokens "
-                        "(unset: 120)")
+                        "(unset: 120); Open-Sora-Plan (512), CogVideoX (226)")
     p.add_argument("--clean_caption", action="store_true",
                    help="latte: the T5 caption cleaning, applied twice")
-    p.add_argument("--route", default="packed", choices=["packed", "grouped", "vpu"],
+    p.add_argument("--no_text_preprocessing", action="store_true",
+                   help="open-sora-plan: skip the caption cleaning (on by default)")
+    p.add_argument("--use_dynamic_cfg", action="store_true",
+                   help="cogvideox: per-step cosine-ramped guidance scale")
+    p.add_argument("--osp_version", default="v120", choices=["v120", "v110"],
+                   help="open-sora-plan: v120 (3-D attention, Euler-Ancestral) or "
+                        "v110 (the Latte trunk, PNDM)")
+    p.add_argument("--route", default="packed",
+                   choices=["packed", "grouped", "vpu", "unpacked"],
                    help="open-sora and latte block composition: packed (K5-K8), "
                         "or unpacked with temporal attention through K4 (grouped) "
-                        "or K9 (vpu)")
+                        "or K9 (vpu); open-sora-plan v120: packed or unpacked")
     p.add_argument("--image", default=None,
                    help="flux-kontext-dev conditioning image (needs the SD "
                         "VAE's weights: not ported yet)")
@@ -153,8 +171,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="TeaCache's retention-steps variant: the e0 signal and a "
                         "longer forced warm-up")
     p.add_argument("--enable_pab", action="store_true",
-                   help="open-sora and latte: Pyramid Attention Broadcast "
-                        "(packed route)")
+                   help="open-sora, latte, open-sora-plan and cogvideox: Pyramid "
+                        "Attention Broadcast")
     p.add_argument("--mag_ratios_json", default=None,
                    help="path to a calibration-mode *_mag_ratio.json; its "
                         "ratios replace the preset's published array")
@@ -299,6 +317,56 @@ def _latte_pipeline(args, device, ratios):
     return LattePipeline(cfg, device), cfg.num_sampling_steps, 1
 
 
+def _common_kw(args, ratios) -> dict:
+    """The MagCache and PAB settings every later family's config takes."""
+    kw = dict(use_magcache=args.use_magcache, magcache_calibration=args.magcache_calibration,
+              magcache_ratios=ratios, dtype=args.dtype, tiny=args.tiny,
+              enable_pab=args.enable_pab)
+    for name in ("magcache_thresh", "magcache_K", "retention_ratio"):
+        if getattr(args, name) is not None:
+            kw[name] = getattr(args, name)
+    return kw
+
+
+def _open_sora_plan_pipeline(args, device, ratios):
+    from magcache_tpu_torch.pipelines.open_sora_plan import (OpenSoraPlanPipeline,
+                                                             OpenSoraPlanPipelineConfig)
+
+    if args.route not in ("packed", "unpacked"):
+        raise SystemExit(f"--route {args.route}: open-sora-plan takes packed or unpacked")
+    if args.osp_version == "v110" and (args.route != "packed" or args.magcache_calibration):
+        raise SystemExit("open-sora-plan v110 runs the Latte trunk's packed route and "
+                         "records no calibration (its PNDM is not wired for it)")
+    kw = dict(_common_kw(args, ratios), version=args.osp_version,
+              num_inference_steps=args.sample_steps or 150,
+              guidance_scale=(7.5 if args.sample_guide_scale is None
+                              else args.sample_guide_scale),
+              clean_caption=not args.no_text_preprocessing, route=args.route)
+    if args.tiny:
+        kw.update(num_frames=5, height=32, width=32, caption_len=6)
+    elif args.txt_len:
+        kw["caption_len"] = args.txt_len
+    cfg = OpenSoraPlanPipelineConfig(**kw)
+    pipe = OpenSoraPlanPipeline(cfg, device)
+    return pipe, cfg.num_inference_steps, 2
+
+
+def _cogvideox_pipeline(args, device, ratios):
+    from magcache_tpu_torch.pipelines.cogvideox import (CogVideoXPipeline,
+                                                        CogVideoXPipelineConfig)
+
+    kw = dict(_common_kw(args, ratios), num_inference_steps=args.sample_steps or 50,
+              guidance_scale=(6.0 if args.sample_guide_scale is None
+                              else args.sample_guide_scale),
+              use_dynamic_cfg=args.use_dynamic_cfg)
+    if args.tiny:
+        kw.update(num_frames=5, height=32, width=32)
+    elif args.txt_len:
+        kw["txt_len"] = args.txt_len
+    cfg = CogVideoXPipelineConfig(**kw)
+    return CogVideoXPipeline(cfg, device), cfg.num_inference_steps, 1
+
+
 def _parse_size(size, default: str = "832*480"):
     w, h = (int(v) for v in (size or default).split("*"))
     return w, h
@@ -333,7 +401,15 @@ def _pipeline(args):
                           wan or args.task == "open-sora"),
                          ("--enable_teacache", args.enable_teacache, wan),
                          ("--enable_pab", args.enable_pab,
-                          args.task in ("open-sora", "latte"))):
+                          args.task in ("open-sora", "latte", "open-sora-plan",
+                                        "cogvideox")),
+                         ("--use_dynamic_cfg", args.use_dynamic_cfg, args.task == "cogvideox"),
+                         ("--osp_version", args.osp_version != "v120",
+                          args.task == "open-sora-plan"),
+                         ("--no_text_preprocessing", args.no_text_preprocessing,
+                          args.task == "open-sora-plan"),
+                         ("--route unpacked", args.route == "unpacked",
+                          args.task == "open-sora-plan")):
         if on and not ok:
             raise SystemExit(f"{flag} does not apply to --task {args.task!r}")
     ratios = None
@@ -346,6 +422,10 @@ def _pipeline(args):
         return _flux_pipeline(args, device, ratios)
     if args.task == "latte":
         return _latte_pipeline(args, device, ratios)
+    if args.task == "open-sora-plan":
+        return _open_sora_plan_pipeline(args, device, ratios)
+    if args.task == "cogvideox":
+        return _cogvideox_pipeline(args, device, ratios)
     return _wan_pipeline(args, device, ratios)
 
 

@@ -42,11 +42,20 @@ Same design as ``magcache_tpu.core.sampler``, in PyTorch's eager idiom:
 - ``sample_euler(dpm_coeffs=)`` is DPM-Solver++(2M) on the flow sigmas
   (Wan's dpm++), with the previous data prediction carried; ``post_step``
   maps the sample after every update on both samplers.
+- Euler-Ancestral (Open-Sora-Plan v1.2) is ``sample_euler`` with
+  ``in_scales`` (the model input's scaling) and ``noise_scales`` with a
+  ``noise_fn(step, shape)`` noise source, as ``sample_rflow_masked`` takes
+  its re-noise draws. ``sample_pndm`` (Open-Sora-Plan v1.1's PLMS) and
+  ``sample_dpm_cogvideo`` (CogVideoX's DPM-Solver++ 2M) are linear
+  multistep loops over host coefficient tables. A two-argument
+  ``combine_fn(chunks, step_idx)`` gets the step index in every sampler
+  that takes one (CogVideoX's dynamic CFG).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
@@ -57,7 +66,8 @@ from magcache_tpu_torch.core.magcache import MagCacheConfig, compute_skip_schedu
 from magcache_tpu_torch.schedulers.unipc import UniPCSchedule
 
 __all__ = ["DiTCore", "unipc_executor", "sample_unipc", "calibrate_unipc",
-           "sample_euler", "sample_rflow_masked", "lane_skip_masks"]
+           "sample_euler", "sample_rflow_masked", "sample_pndm", "sample_dpm_cogvideo",
+           "lane_skip_masks"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,8 +110,19 @@ def lane_skip_masks(cache_cfg, num_steps: int):
 
 
 def _cfg_combine(out: torch.Tensor, guidance_scale: Optional[float],
-                 batch: int) -> torch.Tensor:
-    """Dual-lane guidance: ``uncond + g * (cond - uncond)``."""
+                 batch: int, combine_fn: Optional[Callable] = None,
+                 n_lanes: int = 1, step_idx: Optional[int] = None) -> torch.Tensor:
+    """Combine the lanes of the head's output. ``combine_fn(chunks) -> v``
+    takes the per-lane slices (N-branch guidance); one that takes two
+    arguments, ``combine_fn(chunks, step_idx)``, also gets the step index
+    (step-dependent guidance such as CogVideoX's dynamic CFG). Without it,
+    dual-lane guidance ``uncond + g * (cond - uncond)``, or the output
+    itself without ``guidance_scale``."""
+    if combine_fn is not None:
+        chunks = [out[l * batch:(l + 1) * batch] for l in range(n_lanes)]
+        if step_idx is not None and len(inspect.signature(combine_fn).parameters) >= 2:
+            return combine_fn(chunks, step_idx)
+        return combine_fn(chunks)
     if guidance_scale is None:
         return out
     cond, uncond = out[:batch], out[batch:]
@@ -420,7 +441,9 @@ def sample_euler(
     combine_fn: Optional[Callable] = None,
     skip_mask_override: Optional[np.ndarray] = None,
     x_coeffs: Optional[np.ndarray] = None,
+    in_scales: Optional[np.ndarray] = None,
     noise_scales: Optional[np.ndarray] = None,
+    noise_fn: Optional[Callable[[int, Tuple[int, ...]], torch.Tensor]] = None,
     noise_key=None,
     dynamic_skip=None,
     dpm_coeffs=None,
@@ -429,13 +452,14 @@ def sample_euler(
     calibrate: bool = False,
     calibrate_lanes: Optional[int] = None,
 ):
-    """Linear-update sampler ``x <- cx_i * x + dt_i * v`` with MagCache (the
-    JAX ``magcache_tpu.core.sampler.sample_euler`` without ancestral noise).
+    """Linear-update sampler ``x <- cx_i * x + dt_i * v [+ ns_i * z_i]`` with
+    MagCache (the JAX ``magcache_tpu.core.sampler.sample_euler``).
 
     ``cond`` is lane-stacked on axis 0 when CFG is on: ``guidance_scale``
     combines two lanes as ``uncond + g * (cond - uncond)``, ``combine_fn
-    (chunks) -> v`` takes the per-lane slices of the head's output (without
-    either, the output is v). ``dts`` is the per-step multiplier of v
+    (chunks) -> v`` takes the per-lane slices of the head's output, and
+    ``combine_fn(chunks, step_idx)`` also the step index (without either,
+    the output is v). ``dts`` is the per-step multiplier of v
     (sigma deltas for flow matching, t-deltas / T for RFLOW, DDIM's eps
     coefficient) and ``x_coeffs`` that of x (default 1; DDIM's ``c_x``).
     ``skip_mask_override``
@@ -453,20 +477,28 @@ def sample_euler(
     previous step's; ``calibrate_lanes`` (default: the stacked lanes) is the
     cache's lane count, 1 for a joint CFG batch.
 
-    Ancestral noise (``noise_scales``, ``noise_key``) is not ported yet and
-    raises; neither is the model-input scaling (``in_scales``) that comes
-    with it.
+    Euler-Ancestral (``schedulers.euler_ancestral``): ``in_scales`` scales
+    the model's input only (``x_model = in_i * x``), and ``noise_scales``
+    adds ``ns_i * noise_fn(i, x.shape)`` after each update. ``noise_fn`` is
+    the noise source (a seeded CPU generator's draws in the pipelines, given
+    draws in a test) and must return ``x``'s shape on any device; it is
+    called at every step. The JAX ``noise_key`` has no counterpart and
+    raises.
     """
-    if noise_scales is not None or noise_key is not None:
-        raise NotImplementedError("sample_euler: noise_scales, noise_key (ancestral "
-                                  "noise) not ported yet")
+    if noise_key is not None:
+        raise NotImplementedError("sample_euler: noise_key is the JAX noise source; "
+                                  "pass noise_fn(step, shape) -> Tensor")
     num_steps = len(timesteps)
     batch = x_init.shape[0]
     if calibrate and (cache_cfg is not None or skip_mask_override is not None
                       or return_skips or dynamic_skip is not None):
         raise ValueError("calibrate is a full-compute recording mode")
-    if dpm_coeffs is not None and x_coeffs is not None:
-        raise ValueError("dpm_coeffs replaces the linear-update coefficients (x_coeffs)")
+    if dpm_coeffs is not None and (x_coeffs is not None or in_scales is not None
+                                   or noise_scales is not None):
+        raise ValueError("dpm_coeffs replaces the linear-update coefficients "
+                         "(x_coeffs, in_scales, noise_scales)")
+    if (noise_scales is None) != (noise_fn is None):
+        raise ValueError("noise_scales and noise_fn come together (ancestral noise)")
     skip_mask, n_lanes, lane_of_row, partial_lanes = _lane_setup(
         cache_cfg, num_steps, guidance_scale, lanes, batch, combine_fn)
     if skip_mask_override is not None:
@@ -479,6 +511,8 @@ def sample_euler(
     ts = np.asarray(timesteps, np.float32)
     dts = np.asarray(dts, np.float32)
     cxs = None if x_coeffs is None else np.asarray(x_coeffs, np.float32)
+    cins = None if in_scales is None else np.asarray(in_scales, np.float32)
+    nss = None if noise_scales is None else np.asarray(noise_scales, np.float32)
     dpm = (None if dpm_coeffs is None else
            {k: np.asarray(dpm_coeffs[k], np.float32) for k in _DPM_KEYS})
     cal_lanes = calibrate_lanes or n_lanes
@@ -488,7 +522,7 @@ def sample_euler(
     cache = state = dstate = None
     skips, stats = [], []
     for i in range(num_steps):
-        x2 = _stack_lanes(x, n_lanes)
+        x2 = _stack_lanes(x if cins is None else float(cins[i]) * x, n_lanes)
         tvec = torch.full((x2.shape[0],), float(ts[i]), dtype=torch.float32,
                           device=x2.device)
         hidden, ctx = core.prepare(x2, tvec, cond)
@@ -501,10 +535,7 @@ def sample_euler(
         h_out, cache, state = _cached_trunk(core, hidden, ctx, cache, bits,
                                             lane_of_row, partial_lanes, state, i)
         out = core.head(h_out, ctx)
-        if combine_fn is not None:
-            v = combine_fn([out[l * batch:(l + 1) * batch] for l in range(n_lanes)])
-        else:
-            v = _cfg_combine(out, guidance_scale, batch)
+        v = _cfg_combine(out, guidance_scale, batch, combine_fn, n_lanes, i)
         if dpm is not None:
             sg, av, bv, cxd, cdd = (float(dpm[k][i]) for k in _DPM_KEYS)
             x0 = x - sg * v.to(x.dtype)
@@ -514,6 +545,9 @@ def sample_euler(
             if cxs is not None:
                 x = float(cxs[i]) * x
             x = x + float(dts[i]) * v.to(x.dtype)
+        if nss is not None:
+            z = noise_fn(i, tuple(x.shape)).to(device=x.device, dtype=x.dtype)
+            x = x + float(nss[i]) * z
         if post_step is not None:
             x = post_step(x)
         if calibrate:
@@ -607,11 +641,120 @@ def sample_rflow_masked(
         h_out, cache, state = _cached_trunk(core, hidden, ctx, cache, skip_mask[i],
                                             lane_of_row, None, state, i)
         out = core.head(h_out, ctx)
-        v = out if combine_fn is None else combine_fn(
-            [out[l * batch:(l + 1) * batch] for l in range(n_lanes)])
+        v = _cfg_combine(out, None, batch, combine_fn, n_lanes, i)
         x = xm + float(dts[i]) * v.to(x.dtype)
         x = torch.where(active[:, :, None, None, None], x, x0)
         skips.append(skip_mask[i])
     if return_skips:
         return x, np.stack(skips)
+    return x
+
+
+def _model_call(core: DiTCore, x, i: int, t: float, cond, carry, skip_bits,
+                   lane_of_row, partial_lanes, n_lanes: int):
+    """One model call of a linear multistep sampler: prepare on the lanes
+    stacked from ``x``, the cached trunk and the head. ``carry`` is
+    ``(cache, state)``, built on the first call; returns ``(out, carry)``."""
+    cache, state = carry
+    x2 = _stack_lanes(x, n_lanes)
+    tvec = torch.full((x2.shape[0],), t, dtype=torch.float32, device=x2.device)
+    hidden, ctx = core.prepare(x2, tvec, cond)
+    if cache is None:
+        cache = torch.zeros_like(hidden)
+    if state is None and core.init_state is not None:
+        state = core.init_state(hidden, ctx)
+    h_out, cache, state = _cached_trunk(core, hidden, ctx, cache, skip_bits,
+                                        lane_of_row, partial_lanes, state, i)
+    return core.head(h_out, ctx), (cache, state)
+
+
+@torch.inference_mode()
+def sample_pndm(
+    core: DiTCore,
+    x_init: torch.Tensor,
+    cond,
+    schedule,
+    *,
+    cache_cfg=None,
+    guidance_scale: Optional[float] = None,
+    lanes: Optional[int] = None,
+    combine_fn: Optional[Callable] = None,
+    return_skips: bool = False,
+):
+    """PNDM/PLMS sampler (Open-Sora-Plan v1.1's scheduler, the JAX
+    ``sample_pndm``) with MagCache over ``schedule``'s n+1 model calls
+    (``schedulers.pndm.PNDMSchedule``): each call's eps (the lanes combined
+    by ``guidance_scale`` or ``combine_fn``) is weighted with the three last
+    pushed ones by the step's Adams-Bashforth row, and ``x <- c_x * base +
+    c_e * e'`` transfers from ``x``, or from ``x_init`` on the duplicated
+    second timestep (the Heun redo from the stashed first sample). A
+    stateful core (PAB) gets the call index as its step. ``return_skips``
+    also returns the realized skip bits ``bool[n+1, lanes]``.
+    """
+    n = schedule.num_steps
+    batch = x_init.shape[0]
+    skip_mask, n_lanes, lane_of_row, partial_lanes = _lane_setup(
+        cache_cfg, n, guidance_scale, lanes, batch, combine_fn)
+    ts = np.asarray(schedule.timesteps, np.float32)
+    c_x, c_e = (np.asarray(a, np.float32) for a in (schedule.c_x, schedule.c_e))
+    wts = np.asarray(schedule.eps_weights, np.float32)
+    push = np.asarray(schedule.push_eps) != 0
+    use_cur = np.asarray(schedule.use_cur) != 0
+
+    x = x_init
+    hist = [torch.zeros_like(x_init)] * 3           # e pushed last, then older
+    carry = (None, None)
+    for i in range(n):
+        out, carry = _model_call(core, x, i, float(ts[i]), cond, carry, skip_mask[i],
+                                    lane_of_row, partial_lanes, n_lanes)
+        e = _cfg_combine(out, guidance_scale, batch, combine_fn, n_lanes, i).to(x.dtype)
+        e_prime = float(wts[i, 0]) * e
+        for w, h in zip(wts[i, 1:], hist):
+            e_prime = e_prime + float(w) * h
+        x = float(c_x[i]) * (x_init if use_cur[i] else x) + float(c_e[i]) * e_prime
+        if push[i]:
+            hist = [e] + hist[:-1]
+    if return_skips:
+        return x, skip_mask.copy()
+    return x
+
+
+@torch.inference_mode()
+def sample_dpm_cogvideo(
+    core: DiTCore,
+    x_init: torch.Tensor,
+    cond,
+    schedule,
+    *,
+    cache_cfg=None,
+    guidance_scale: Optional[float] = None,
+    lanes: Optional[int] = None,
+    combine_fn: Optional[Callable] = None,
+    return_skips: bool = False,
+):
+    """DPM-Solver++ 2M on the CogVideoX alpha schedule (v-prediction,
+    ``schedulers.ddim_cogvideo.CogVideoDPMSchedule``; the JAX
+    ``sample_dpm_cogvideo``) with MagCache: per step the data prediction
+    ``m = sa * x - sb * v`` and ``x <- c_x * x + c_m0 * m + c_m1 * m_prev``
+    from host coefficients. ``return_skips`` also returns the realized skip
+    bits ``bool[steps, lanes]``."""
+    n = schedule.num_steps
+    batch = x_init.shape[0]
+    skip_mask, n_lanes, lane_of_row, partial_lanes = _lane_setup(
+        cache_cfg, n, guidance_scale, lanes, batch, combine_fn)
+    c_x, c_m0, c_m1, sa, sb = schedule.step_arrays()
+    ts = np.asarray(schedule.timesteps, np.float32)
+
+    x = x_init
+    m_prev = torch.zeros_like(x_init)
+    carry = (None, None)
+    for i in range(n):
+        out, carry = _model_call(core, x, i, float(ts[i]), cond, carry, skip_mask[i],
+                                    lane_of_row, partial_lanes, n_lanes)
+        v = _cfg_combine(out, guidance_scale, batch, combine_fn, n_lanes, i).to(x.dtype)
+        m = float(sa[i]) * x - float(sb[i]) * v
+        x = float(c_x[i]) * x + float(c_m0[i]) * m + float(c_m1[i]) * m_prev
+        m_prev = m
+    if return_skips:
+        return x, skip_mask.copy()
     return x

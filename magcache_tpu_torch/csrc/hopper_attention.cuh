@@ -644,7 +644,7 @@ hopper_attention_kernel(const __grid_constant__ Maps maps, const Args a) {
 // once per 128 query rows. 288 threads: consumer warpgroups 0 and 1 (64
 // query rows each), then one producer warp; without setmaxnreg each thread
 // may hold up to 224 registers.
-constexpr int kCrossKeyTiles = 3;     // keys <= 384
+constexpr int kCrossKeyTiles = 4;     // keys <= 512
 constexpr int kCrossThreads = 288;
 
 struct CrossArgs {

@@ -174,7 +174,7 @@ extern "C" int mc_matmul_gated_residual(const void* x, const void* w, const long
 }
 
 // K6's attention stage: o [B, N, H*72] from q [B, N, H*72] and k, v
-// [B, L, H*72] (six maps in `words`), kv_valid <= 384 keys, each block
+// [B, L, H*72] (six maps in `words`), kv_valid <= 512 keys, each block
 // walking `tiles_per_block` query tiles of one (batch, head).
 extern "C" int mc_cross_attention_tma(const void* q, const void* k, const void* v,
                                       const long long* words, void* o, int B, int N,

@@ -1,10 +1,12 @@
 """Parameter conversion into the port's modules.
 
 ``wan_params_from_numpy``, ``stdit3_params_from_numpy``,
-``flux_params_from_numpy`` and ``latte_params_from_numpy`` turn the JAX
-package's Wan, STDiT3, FLUX and Latte parameter pytrees, with their leaves as
-numpy arrays, into ``WanModel``, ``STDiT3Model``, ``FluxModel`` and
-``LatteModel`` state dicts; ``umt5_params_from_numpy`` and
+``flux_params_from_numpy``, ``latte_params_from_numpy``,
+``osp_params_from_numpy`` and ``cogvideox_params_from_numpy`` turn the JAX
+package's Wan, STDiT3, FLUX, Latte, Open-Sora-Plan v1.2 and CogVideoX
+parameter pytrees, with their leaves as numpy arrays, into ``WanModel``,
+``STDiT3Model``, ``FluxModel``, ``LatteModel``, ``OSPModel`` and
+``CogVideoXModel`` state dicts; ``umt5_params_from_numpy`` and
 ``wan_vae_params_from_numpy`` do the same for the UMT5 encoder and the Wan
 VAE's decoder. Three layout rules: the JAX block weights are depth-stacked
 ``[L, ...]`` (one entry per block here), JAX's ``linear`` is ``x @ w`` with
@@ -20,12 +22,28 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from magcache_tpu_torch.models.cogvideox import CogVideoXConfig
 from magcache_tpu_torch.models.flux import FluxConfig
 from magcache_tpu_torch.models.latte import LatteConfig
+from magcache_tpu_torch.models.open_sora_plan import OpenSoraPlanConfig
 from magcache_tpu_torch.models.stdit3 import STDiT3Config
 from magcache_tpu_torch.models.umt5 import UMT5Config
 from magcache_tpu_torch.models.vae_wan import WanVAEConfig
 from magcache_tpu_torch.models.wan import WanConfig
+
+
+def _putters(sd: dict, device):
+    """``(put, put_linear)``: a numpy array, or a JAX ``{"w": [d_in, d_out],
+    "b"}`` linear transposed to ``nn.Linear``'s layout, into ``sd``."""
+    def put(name, arr, dt=torch.float32):
+        sd[name] = torch.from_numpy(np.array(arr, np.float32)).to(device=device, dtype=dt)
+
+    def put_linear(name, p, dt=torch.float32):
+        put(f"{name}.weight", np.asarray(p["w"]).T, dt)
+        put(f"{name}.bias", p["b"], dt)
+
+    return put, put_linear
+
 
 _BLOCK_LINEARS = ("q", "k", "v", "o", "cross_q", "cross_k", "cross_v",
                   "cross_o", "ffn1", "ffn2")
@@ -48,14 +66,7 @@ def wan_params_from_numpy(tree: dict, cfg: WanConfig, device=None,
         raise NotImplementedError("only the t2v Wan parameters are ported")
     dtype = cfg.torch_dtype if dtype is None else dtype
     sd: Dict[str, torch.Tensor] = {}
-
-    def put(name, arr, dt=torch.float32):
-        sd[name] = torch.from_numpy(np.array(arr, np.float32)).to(
-            device=device, dtype=dt)
-
-    def put_linear(name, p, dt=torch.float32):
-        put(f"{name}.weight", np.asarray(p["w"]).T, dt)
-        put(f"{name}.bias", p["b"], dt)
+    put, put_linear = _putters(sd, device)
 
     put_linear("patch_embedding", tree["patch_embedding"], dtype)
     for grp in ("text_embedding", "time_embedding"):
@@ -90,14 +101,7 @@ def stdit3_params_from_numpy(tree: dict, cfg: STDiT3Config, device=None,
     """
     dtype = cfg.torch_dtype if dtype is None else dtype
     sd: Dict[str, torch.Tensor] = {}
-
-    def put(name, arr, dt=torch.float32):
-        sd[name] = torch.from_numpy(np.array(arr, np.float32)).to(
-            device=device, dtype=dt)
-
-    def put_linear(name, p, dt=torch.float32):
-        put(f"{name}.weight", np.asarray(p["w"]).T, dt)
-        put(f"{name}.bias", p["b"], dt)
+    put, put_linear = _putters(sd, device)
 
     put("y_null", tree["y_null"])
     put_linear("patch_embed", tree["patch_embed"])
@@ -136,14 +140,7 @@ def flux_params_from_numpy(tree: dict, cfg: FluxConfig, device=None,
     """
     dtype = cfg.torch_dtype if dtype is None else dtype
     sd: Dict[str, torch.Tensor] = {}
-
-    def put(name, arr, dt=torch.float32):
-        sd[name] = torch.from_numpy(np.array(arr, np.float32)).to(
-            device=device, dtype=dt)
-
-    def put_linear(name, p, dt=torch.float32):
-        put(f"{name}.weight", np.asarray(p["w"]).T, dt)
-        put(f"{name}.bias", p["b"], dt)
+    put, put_linear = _putters(sd, device)
 
     def stacked(group, name, i):
         return {"w": group[name]["w"][i], "b": group[name]["b"][i]}
@@ -186,14 +183,7 @@ def latte_params_from_numpy(tree: dict, cfg: LatteConfig, device=None,
     """
     dtype = cfg.torch_dtype if dtype is None else dtype
     sd: Dict[str, torch.Tensor] = {}
-
-    def put(name, arr, dt=torch.float32):
-        sd[name] = torch.from_numpy(np.array(arr, np.float32)).to(
-            device=device, dtype=dt)
-
-    def put_linear(name, p, dt=torch.float32):
-        put(f"{name}.weight", np.asarray(p["w"]).T, dt)
-        put(f"{name}.bias", p["b"], dt)
+    put, put_linear = _putters(sd, device)
 
     put_linear("patch_embed", tree["patch_embed"], dtype)
     for grp in ("caption", "time"):
@@ -209,6 +199,69 @@ def latte_params_from_numpy(tree: dict, cfg: LatteConfig, device=None,
                            {"w": g[name]["w"][i], "b": g[name]["b"][i]}, dtype)
             put(f"{kind}.{i}.scale_shift", g["scale_shift"][i])
     put("final_mod", tree["final_mod"])
+    put_linear("final_out", tree["final_out"])
+    return sd
+
+
+_OSP_LINEARS = ("qkv", "proj", "cross_q", "cross_kv", "cross_o", "ff1", "ff2")
+
+
+def osp_params_from_numpy(tree: dict, cfg: OpenSoraPlanConfig, device=None,
+                          dtype: Optional[torch.dtype] = None
+                          ) -> Dict[str, torch.Tensor]:
+    """State dict for ``OSPModel(cfg)`` from a numpy Open-Sora-Plan v1.2
+    pytree (the layout of ``magcache_tpu.models.open_sora_plan.
+    init_osp_params``). ``dtype`` is the dtype of the patch embedding and the
+    block linears (default ``cfg.torch_dtype``); every other parameter is
+    f32."""
+    dtype = cfg.torch_dtype if dtype is None else dtype
+    sd: Dict[str, torch.Tensor] = {}
+    put, put_linear = _putters(sd, device)
+    put_linear("patch_embed", tree["patch_embed"], dtype)
+    for grp in ("caption", "time"):
+        for io in ("in", "out"):
+            put_linear(f"{grp}.{io}", tree[grp][io])
+    put_linear("adaln_single", tree["adaln_single"])
+    g = tree["blocks"]
+    for i in range(cfg.depth):
+        for name in _OSP_LINEARS:
+            put_linear(f"blocks.{i}.{name}", {"w": g[name]["w"][i], "b": g[name]["b"][i]},
+                       dtype)
+        put(f"blocks.{i}.scale_shift", g["scale_shift"][i])
+    put("final_mod", tree["final_mod"])
+    put_linear("final_out", tree["final_out"])
+    return sd
+
+
+_COGVIDEOX_LINEARS = ("mod1", "mod2", "qkv", "proj", "ff1", "ff2")
+_COGVIDEOX_VECTORS = ("ln1_w", "ln1_b", "ln2_w", "ln2_b", "q_norm_w", "q_norm_b",
+                      "k_norm_w", "k_norm_b")
+
+
+def cogvideox_params_from_numpy(tree: dict, cfg: CogVideoXConfig, device=None,
+                                dtype: Optional[torch.dtype] = None
+                                ) -> Dict[str, torch.Tensor]:
+    """State dict for ``CogVideoXModel(cfg)`` from a numpy CogVideoX pytree
+    (the layout of ``magcache_tpu.models.cogvideox.init_cogvideox_params``).
+    ``dtype`` is the dtype of the patch and text embeddings and the block
+    linears (default ``cfg.torch_dtype``); every other parameter is f32."""
+    dtype = cfg.torch_dtype if dtype is None else dtype
+    sd: Dict[str, torch.Tensor] = {}
+    put, put_linear = _putters(sd, device)
+    put_linear("patch_embed", tree["patch_embed"], dtype)
+    put_linear("text_proj", tree["text_proj"], dtype)
+    for io in ("in", "out"):
+        put_linear(f"time.{io}", tree["time"][io])
+    g = tree["blocks"]
+    for i in range(cfg.layers):
+        for name in _COGVIDEOX_LINEARS:
+            put_linear(f"blocks.{i}.{name}", {"w": g[name]["w"][i], "b": g[name]["b"][i]},
+                       dtype)
+        for name in _COGVIDEOX_VECTORS:
+            put(f"blocks.{i}.{name}", g[name][i])
+    for name in ("norm_final_w", "norm_final_b", "norm_out_w", "norm_out_b"):
+        put(name, tree[name])
+    put_linear("final_mod", tree["final_mod"])
     put_linear("final_out", tree["final_out"])
     return sd
 
@@ -244,9 +297,7 @@ def wan_vae_params_from_numpy(tree: dict, cfg: WanVAEConfig, device=None
     out). Conv weights and biases in ``cfg.torch_dtype``, norm gains f32."""
     dt = cfg.torch_dtype
     sd: Dict[str, torch.Tensor] = {}
-
-    def put(name, arr, dtype=torch.float32):
-        sd[name] = torch.from_numpy(np.array(arr, np.float32)).to(device=device, dtype=dtype)
+    put, _ = _putters(sd, device)
 
     def conv(name, p):
         w = np.asarray(p["w"])

@@ -39,7 +39,7 @@ the kernel does not take raises. Launch counts are ``<wrapper>.launches``
   attention over a short context and out-projection (+ residual) as three
   launches: the projections on the wgmma/TMA GEMM body (``ops/gemm.py``),
   the attention on ``hopper_cross_kernel`` (the row max with K and V
-  resident); head dim 72, at most 384 keys.
+  resident); head dim 72, at most 512 keys.
 
 K5 and K6 keep the published 72-wide heads; the TPU package pads them to 128
 lanes, which the port does not carry over.
@@ -88,7 +88,7 @@ QKNORM_FIXED_MAX = 16.0
 
 KERNEL_HEAD_DIM = 128
 GROUPED_HEAD_DIM = 72        # K5's and K6's head dim
-CROSS_MAX_KEYS = 384         # K6 keeps a (batch, head)'s K and V resident: 3 tiles
+CROSS_MAX_KEYS = 512         # K6 keeps a (batch, head)'s K and V resident: 4 tiles
 SMEM_LIMIT = 232448          # dynamic shared memory an H100 block may use
 TMA_BOX_ROWS = 128           # the wgmma/TMA body's query and key tiles
 TMA_PADDED_DIM = 80          # head dim 72 as the body carries it: boxes of 64 + 16
@@ -1078,7 +1078,7 @@ def fused_cross_attention(
     ``fused_cross_attention.epilogues`` by ``residual``): q = x @ wq.T + bq
     and the out-projection on the GEMM body (``ops/gemm.py``), the attention
     between them on ``hopper_cross_kernel``. They take contiguous bf16, D =
-    72, at most 384 valid keys and widths that are multiples of 8; anything
+    72, at most 512 valid keys and widths that are multiples of 8; anything
     else raises. The stages' plain versions are ``ops.gemm.linear_plain``
     and ``cross_attention_rowmax_plain``.
     """

@@ -29,6 +29,30 @@ class BasePipeline:
     def __call__(self, *args, **kwargs) -> PipelineOutput:
         return self.generate(*args, **kwargs)
 
+    @staticmethod
+    def _skip_mask_from_cfg(cache_cfg, use_magcache: bool = True) -> np.ndarray:
+        """The host-precomputed ``bool[steps, lanes]`` skip mask of a cache
+        config (all False without ``use_magcache``), for
+        ``generate(skip_override=...)``: any E/K/R triple through one
+        sampler call."""
+        from magcache_tpu_torch.core.sampler import lane_skip_masks
+
+        steps = cache_cfg.num_steps // cache_cfg.lanes
+        if not use_magcache:
+            return np.zeros((steps, cache_cfg.lanes), bool)
+        return lane_skip_masks(cache_cfg, steps)[0]
+
+
+def cfg_combine(guidance_scale: float, channels: Optional[int] = None):
+    """The ``combine_fn`` of a [cond, uncond] lane pair: ``uncond + g *
+    (cond - uncond)`` over the first ``channels`` of the head's output (all
+    when None; an eps + variance head's sampler takes the eps half)."""
+    def combine(chunks):
+        cond_o, uncond_o = (c[..., :channels] for c in chunks)
+        return uncond_o + guidance_scale * (cond_o - uncond_o)
+
+    return combine
+
 
 def calibration_dict(stats: np.ndarray) -> dict:
     """Flatten calibration stats ``[steps-1, lanes, 3]`` into the reference's

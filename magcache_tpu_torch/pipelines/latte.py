@@ -34,7 +34,8 @@ from magcache_tpu_torch.core.sampler import lane_skip_masks, sample_euler
 from magcache_tpu_torch.models.latte import (LATTE_1, LatteConfig, LatteModel,
                                              make_latte_core)
 from magcache_tpu_torch.models.text import MockTextEncoder
-from magcache_tpu_torch.pipelines.base import BasePipeline, PipelineOutput, calibration_dict
+from magcache_tpu_torch.pipelines.base import (BasePipeline, PipelineOutput,
+                                               calibration_dict, cfg_combine)
 from magcache_tpu_torch.pipelines.open_sora_cond import clean_caption
 from magcache_tpu_torch.schedulers.ddim_eps import DDIMEpsSchedule
 from magcache_tpu_torch.utils.misc import set_seed
@@ -129,16 +130,6 @@ class LattePipeline(BasePipeline):
         return lane_skip_masks(self._cache_cfg_force(thresh, K, retention_ratio),
                                self.config.num_sampling_steps)[0]
 
-    def _combine(self):
-        g = self.config.guidance_scale
-        C = self.model_cfg.in_channels
-
-        def combine(chunks):
-            cond_o, uncond_o = chunks[0][..., :C], chunks[1][..., :C]
-            return uncond_o + g * (cond_o - uncond_o)
-
-        return combine
-
     def _initial_noise(self, gen: torch.Generator) -> torch.Tensor:
         """The noise latents ``f32[1, T, H, W, C]`` on the CPU, drawn from the
         request's CPU generator, so every device gets the same draw."""
@@ -160,7 +151,8 @@ class LattePipeline(BasePipeline):
         z = self._initial_noise(set_seed(seed)).to(self.device)
         c_x, c_eps = self.schedule.step_arrays()
         common = dict(timesteps=self.schedule.timesteps.astype(np.float32), dts=c_eps,
-                      x_coeffs=c_x, lanes=2, combine_fn=self._combine())
+                      x_coeffs=c_x, lanes=2,
+                      combine_fn=cfg_combine(c.guidance_scale, self.model_cfg.in_channels))
         calibration = skips = None
         if c.magcache_calibration:
             if skip_override is not None:

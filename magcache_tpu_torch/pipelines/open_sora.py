@@ -46,7 +46,8 @@ from magcache_tpu_torch.models.stdit3 import (STDIT3_XL_2, STDiT3Config,
                                               STDiT3Model, make_stdit3_core)
 from magcache_tpu_torch.models.text import MockTextEncoder
 from magcache_tpu_torch.pipelines import open_sora_cond as oc
-from magcache_tpu_torch.pipelines.base import BasePipeline, PipelineOutput, calibration_dict
+from magcache_tpu_torch.pipelines.base import (BasePipeline, PipelineOutput,
+                                               calibration_dict, cfg_combine)
 from magcache_tpu_torch.schedulers.rflow import RFlowSchedule
 from magcache_tpu_torch.utils.misc import set_seed
 
@@ -152,17 +153,6 @@ class OpenSoraPipeline(BasePipeline):
         (one lane over the joint CFG batch); all-False when caching is off."""
         return lane_skip_masks(self._cache_cfg(), self.config.num_sampling_steps)[0]
 
-    def _combine(self):
-        g = self.config.cfg_scale
-        C = self.model_cfg.in_channels
-
-        def combine(chunks):
-            # the model predicts 2C channels; RFLOW takes the first C
-            cond_o, uncond_o = chunks[0][..., :C], chunks[1][..., :C]
-            return uncond_o + g * (cond_o - uncond_o)
-
-        return combine
-
     def _initial_noise(self, gen: torch.Generator) -> torch.Tensor:
         """A loop's noise latents ``f32[1, T, H, W, C]`` on the CPU, drawn
         from the request's CPU generator, so every device gets the same
@@ -241,7 +231,7 @@ class OpenSoraPipeline(BasePipeline):
         fps = float(c.fps if self.latent_shape[0] > 1 else oc.IMG_FPS)
         sch = self.schedule
         common = dict(timesteps=sch.timesteps, dts=sch.dts(), lanes=2,
-                      combine_fn=self._combine())
+                      combine_fn=cfg_combine(c.cfg_scale, self.model_cfg.in_channels))
         gen = set_seed(seed)
         clips, all_skips, calibration = [], [], None
         for loop_i in range(loop):

@@ -307,7 +307,9 @@ def test_k5_matches_plain(dev, b, s, heads, group, gvalid, rope):
     (2, 1000, 16, 1152, 120, 100, True),     # Latte's caption, masked keys
     (2, 300, 17, 1152, 384, 384, True),      # H*D 1,224 > 1,152, three whole key tiles
     (1, 40000, 2, 144, 300, 129, False),     # several query tiles a block
-    (2, 23850, 16, 1152, 300, None, False)])  # STDiT3 480p x 51 under PAB: the bias epilogue
+    (2, 23850, 16, 1152, 300, None, False),  # STDiT3 480p x 51 under PAB: the bias epilogue
+    (2, 4000, 16, 1152, 512, None, True),    # Open-Sora-Plan's 512 caption keys: 4 tiles
+    (1, 333, 16, 1152, 512, 500, False)])    # 512 keys, the last tile masked in part
 def test_k6_matches_plain(dev, b, n, heads, dm, L, kv_valid, residual):
     hd = heads * 72
     x = _rand(dev, b, n, dm, seed=14)
@@ -339,9 +341,9 @@ def test_k5_to_k8_refuse_what_they_do_not_take(dev):
         A.grouped_attention_fused_qkv(
             _rand(dev, 1, 30, 2 * 3 * 2 * 72)[..., :3 * 2 * 72], 2, **kw)
     x = _rand(dev, 2, 10, 1152)
-    kv = _rand(dev, 2, 400, 1152)
+    kv = _rand(dev, 2, 520, 1152)
     w = _rand(dev, 1152, 1152)
-    with pytest.raises(ValueError, match="384 valid keys"):    # K and V stay resident
+    with pytest.raises(ValueError, match="512 valid keys"):    # K and V stay resident
         A.fused_cross_attention(x, w, None, kv, kv, w, None, 16)
     g = torch.zeros(2, 1152, device=dev)
     with pytest.raises(ValueError):                            # width % 8
@@ -869,7 +871,8 @@ def test_k1c_ragged_rows_return_m_and_l(dev, sq, skv, kv_len):
 # wgmma/TMA body, through K5 (K5r) and K4 alike; K5's tolerances
 @pytest.mark.parametrize("b,s,heads,group,gvalid", [
     (2, 34, 2, 17, 17), (3, 200, 2, 100, 71), (2, 1024, 3, 1024, 1024),
-    (1, 3180, 2, 1590, 1200), (1, 2048, 2, 2048, 2048)])
+    (1, 3180, 2, 1590, 1200), (1, 2048, 2, 2048, 2048),
+    (1, 2 * 1024 * 17, 16, 17, 17)])   # Open-Sora-Plan v1.1's temporal groups of 17
 @pytest.mark.parametrize("through", ["K5", "K4"])
 def test_rowmax_tma_path_matches_plain(dev, b, s, heads, group, gvalid, through):
     qkv, _, _ = _grouped_inputs(dev, b, s, heads, group)

@@ -269,11 +269,12 @@ def test_sample_euler_matches_jax(mode):
 
 
 def test_sample_euler_unported_options_raise():
-    # x_coeffs (DDIM-eps) is ported; ancestral noise is not
-    with pytest.raises(NotImplementedError, match="noise_scales"):
+    # x_coeffs (DDIM-eps) and ancestral noise are ported: noise_scales comes
+    # with a noise_fn, and the JAX noise_key raises naming it
+    with pytest.raises(ValueError, match="noise_fn"):
         sample_euler(None, torch.zeros(1), {}, timesteps=np.ones(2), dts=np.ones(2),
                      noise_scales=np.ones(2))
-    with pytest.raises(NotImplementedError, match="noise_key"):
+    with pytest.raises(NotImplementedError, match="noise_key.*noise_fn"):
         sample_euler(None, torch.zeros(1), {}, timesteps=np.ones(2), dts=np.ones(2),
                      noise_key=0)
     # post_step and dpm_coeffs are ported; dpm++ replaces the linear update
@@ -357,4 +358,4 @@ def test_cli_open_sora_tiny_route(tmp_path, capsys):
     assert "skipped 18 of 30 forwards" in text
     assert "skipped steps [6, 7, 8, 10, 11, 12, 14, 15, 16, 18, 19, 20, 22, 23, 24, 26, 27, 28]" in text
     with pytest.raises(SystemExit, match="not ported"):
-        cli.main(["--task", "open-sora-plan", "--device", "cpu"])
+        cli.main(["--task", "vchitect", "--device", "cpu"])

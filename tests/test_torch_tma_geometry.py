@@ -245,7 +245,7 @@ def test_gemm_maps_refuse_a_width_off_16_bytes():
 
 
 @pytest.mark.parametrize("n,L,kv_valid", [(54000, 300, 300), (16384, 120, 120),
-                                          (333, 300, 250)])
+                                          (333, 300, 250), (28800, 512, 512)])
 def test_cross_attention_maps_head_dim_72(n, L, kv_valid):
     heads = 16
     q, kv = _meta(2, n, heads * 72), _meta(2, L, heads * 72)
