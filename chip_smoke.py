@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives ``magcache_tpu_torch`` (never JAX) in forty-five phases and exits
+Drives ``magcache_tpu_torch`` (never JAX) in fifty-one phases and exits
 nonzero on the first failure:
 
 1. environment: a CUDA card is required; prints the card's name and power
@@ -236,6 +236,41 @@ over groups of 17 on its "tma" body):
    CogVideoX through their pipelines with skipped steps, bf16 on the card
    against f32 on the CPU, within 5e-2 rel L2.
 
+Vchitect-XL-2B, and the Open-Sora-Plan and CogVideoX VAE decoders (no new
+kernel; K1 at head dim 64 over per-frame joint sequences of 1,517 tokens
+and from 121,360 queries to 77 keys; the VAEs are cuDNN convs in f32):
+46. K1 (running max, 64 padded to 128) at Vchitect's 40x480x768 spatial
+   shape 80x1,517x24x64 and cross shape 2x60,680x24x64 x 77 keys, each
+   against its plain version beside SDPA at 64;
+47. two full-shape forwards of Vchitect-XL-2B (2.42 B parameters, bf16) at
+   40x480x768 (40 frames of 30x48 patches + 77 context tokens, 2 CFG rows,
+   24 blocks): time, peak memory, 24 spatial + 24 cross K1 launches a
+   forward and nothing else of the kernel table (the temporal attention
+   over 40 frames takes the einsum path), and a profile;
+48. requests through ``VchitectPipeline.generate`` at 16x480x768 (frames
+   cut from 40) and 20 FlowMatch-Euler steps (cut from 100), guidance 7.5:
+   full compute, MagCache (0.12 / K 3 / R 0.2, flat ratios, 2 lanes), a
+   calibration whose ratios a second MagCache request installs, and PAB
+   (spatial range 2, temporal range 4 in (100, 800)); skip bits against
+   ``skip_mask_for``, launches against the trunk runs, reuse per site
+   against ``broadcast_masks``, peak memory;
+49. f32 decodes with random weights: the Open-Sora-Plan CausalVAE in the
+   v1.2 layout (latents [1, 24, 60, 80, 4] -> pixels [1, 93, 480, 640, 3]:
+   two time windows, 3 x 3 tiles) and the v1.1 layout ([1, 17, 64, 64, 4]
+   -> [1, 65, 512, 512, 3]), and the CogVideoX VAE's ``decode_tiled``
+   ([1, 13, 60, 90, 16] -> [1, 49, 480, 720, 3]): time, peak memory, shape,
+   finite;
+50. phase 41's and 44's MagCache requests once more with ``vae=`` (phase
+   49's v1.2 and CogVideoX VAEs): pixels [1, 29, 480, 640, 3] and, at 17
+   frames (the CogVideoX VAE needs an odd latent count: 13 frames are 4
+   latent frames, which it decodes to 16), [1, 17, 480, 720, 3];
+   ``decode_s``;
+51. a narrow Vchitect (2 heads of 64, 2 blocks, non-zero ``ot``/``oc``/
+   ``add_out_t``, frames of 144 + 20 tokens: K1) through its pipeline with
+   skipped steps, bf16 on the card against f32 on the CPU within 5e-2 rel
+   L2; both VAEs at their published widths on narrow clips, f32 on the card
+   against the CPU within 1e-4 of the largest pixel.
+
 Kernel times are CUDA-event times of a loop of back-to-back launches
 between one event pair, divided by the count (``cuda_ms``); each attention
 kernel's line adds its TFLOP/s and its share of the bound; phase 11 times
@@ -251,8 +286,9 @@ launches on each path (``wan-ulysses`` and ``wan-ring``: phase 25's requests
 ``wan-video``: phase 33's request; ``wan-solvers``, ``wan-teacache``:
 phases 34 and 35; ``open-sora-pab`` and ``open-sora-rolling``: phase 36's
 PAB requests and its rolling one; ``latte-pab``: phase 37;
-``open-sora-plan``: phases 40 and 41; ``open-sora-plan-v110``: phase 42;
-``cogvideox``: phases 43 and 44), its worst error over every shape
+``open-sora-plan``: phases 40, 41 and 50; ``open-sora-plan-v110``: phase 42;
+``cogvideox``: phases 43, 44 and 50; ``vchitect``: phases 47 and 48), its
+worst error over every shape
 compared, and the times of its first shape timed, named in ``timed_at``,
 with their method in ``timing`` (``loop`` or ``graph``); ``shapes`` lists
 every shape compared with its own error, times and bound.
@@ -3184,6 +3220,9 @@ COG_TRUNK_LAUNCHES = dict(NO_LAUNCHES, flash_attention_bshd=42)
 COG_TXT = 226
 COG_FRAMES, COG_GRID = 49, (13, 30, 45)          # 17,550 video + 226 text tokens
 COG_REQ_FRAMES, COG_REQ_GRID, COG_STEPS = 13, (4, 30, 45), 20  # 5,400 video tokens
+# the CogVideoX VAE needs an odd latent frame count (13 frames would decode to
+# 16): the request that ends in pixels takes 17 frames, 5 latent frames
+COG_PX_FRAMES, COG_PX_GRID = 17, (5, 30, 45)
 
 
 def phase_osp_kernels(dev, rec):
@@ -3760,6 +3799,297 @@ def phase_osp_cogvideox_card_vs_cpu(dev):
         log(f"    {label}: {runs} of {len(skips)} model calls computed")
 
 
+
+# ------------------------------------------------- Vchitect-XL and the VAEs
+# Vchitect-XL-2B: 23 joint blocks and the context-pre-only last; K1 (head dim
+# 64 padded) for each block's spatial and cross attention; the temporal one
+# over the frames takes attention()'s einsum path
+VCH_TRUNK_LAUNCHES = dict(NO_LAUNCHES, flash_attention_bshd=48)
+VCH_TXT = 77
+VCH_FRAMES, VCH_GRID = 40, (40, 30, 48)      # 1,440 video + 77 text tokens a frame
+VCH_REQ_FRAMES, VCH_REQ_GRID, VCH_STEPS = 16, (16, 30, 48), 20
+
+
+def phase_vchitect_kernels(dev, rec):
+    log("phase 46: K1 at Vchitect-XL's 40x480x768 shapes, running max, head dim 64 padded "
+        "to 128 (bf16)")
+    gen = torch.Generator(device=dev).manual_seed(4646)
+    T, gh, gw = VCH_GRID
+    j = gh * gw + VCH_TXT
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    label = f"running max, Vchitect spatial {2 * T}x{j}x24x64 -> 128"
+    k1_check(rec, f"K1 [{label}]", label, rnd(2 * T, j, 24, 64), rnd(2 * T, j, 24, 64),
+             rnd(2 * T, j, 24, 64), None, big=True)
+    label = f"running max, Vchitect cross 2x{T * j}x24x64 x {VCH_TXT} keys -> 128"
+    k1_check(rec, f"K1 [{label}]", label, rnd(2, T * j, 24, 64), rnd(2, VCH_TXT, 24, 64),
+             rnd(2, VCH_TXT, 24, 64), None, big=True)
+
+
+def make_vchitect_model(dev):
+    from magcache_tpu_torch.models.vchitect import VCHITECT_XL, VchitectModel
+
+    cfg = dataclasses.replace(VCHITECT_XL, dtype="bfloat16")
+    t0 = time.time()
+    model = VchitectModel(cfg, dev).init(torch.Generator(device=dev).manual_seed(0))
+    model.requires_grad_(False)
+    torch.cuda.synchronize()
+    log(f"  Vchitect-XL bf16 random init on the card: {time.time() - t0:.1f} s, "
+        f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B params")
+    return model
+
+
+def vchitect_cond(dev, txt_len=VCH_TXT, text_dim=4096, vec_dim=2048):
+    from magcache_tpu_torch.models.text import MockPooledEncoder, MockTextEncoder
+
+    prompts = ["a boat", ""]
+    return {"txt": MockTextEncoder(txt_len, text_dim, scale=0.5)(prompts, device=dev),
+            "vec": MockPooledEncoder(vec_dim)(prompts, device=dev)}
+
+
+def phase_vchitect_forward(dev, model):
+    """Returns the forwards' launches."""
+    from magcache_tpu_torch.models.vchitect import make_vchitect_core
+
+    T, gh, gw = VCH_GRID
+    log(f"phase 47: full-shape forwards of Vchitect-XL-2B at {VCH_FRAMES}x480x768 (latent "
+        f"patches {VCH_GRID}: {gh * gw} video + {VCH_TXT} text tokens a frame), 2 CFG rows, "
+        f"24 blocks")
+    gen = torch.Generator(device=dev).manual_seed(47)
+    x = torch.randn((2, T, 2 * gh, 2 * gw, 16), generator=gen, device=dev)
+    t = torch.full((2,), 900.0, device=dev)
+    cond = vchitect_cond(dev)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    core = make_vchitect_core(model, VCH_GRID, VCH_TXT)
+    out = timed_forwards(core, x, t, cond, "Vchitect-XL")
+    log(f"  output std {float(out.float().std()):.4f}, peak memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    counts = check_forward_counts("Vchitect-XL", 2, VCH_TRUNK_LAUNCHES, NO_ROUTES)
+    if k1_modes() != {"fixed": 0, "running": 96}:
+        fail(f"Vchitect: K1 by shift {k1_modes()}, not 48 running a forward")
+    profile_forward("Vchitect-XL forward", core, x, t, cond)
+    return counts
+
+
+def phase_vchitect_requests(dev, model):
+    """Returns the phase's launches."""
+    from magcache_tpu_torch.core.pab import broadcast_masks
+    from magcache_tpu_torch.models import vchitect as VM
+    from magcache_tpu_torch.pipelines.vchitect import VchitectPipeline, VchitectPipelineConfig
+
+    log(f"phase 48: requests through VchitectPipeline.generate, {VCH_REQ_FRAMES}x480x768 "
+        f"(frames cut from 40: {math.prod(VCH_REQ_GRID)} video tokens), {VCH_STEPS} "
+        f"FlowMatch-Euler steps (cut from 100), guidance 7.5: full compute, MagCache (0.12 / "
+        f"K 3 / R 0.2, flat ratios), calibration and its ratios installed, PAB")
+    base = dict(num_frames=VCH_REQ_FRAMES, num_inference_steps=VCH_STEPS, dtype="bfloat16")
+    prompt = "A red sailboat glides across a calm bay at dawn."
+    shape = (1, VCH_REQ_FRAMES, 60, 96, 16)
+    total = dict(NO_LAUNCHES)
+
+    def run(label, **kw):
+        pipe = VchitectPipeline(VchitectPipelineConfig(**base, **kw), dev, model=model)
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = pipe.generate(prompt, seed=3)
+        launched = request_checks(label, out, pipe.skip_mask_for(), shape, VCH_TRUNK_LAUNCHES)
+        log(f"    peak memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+        for k, n in launched.items():
+            total[k] += n
+        return out
+
+    full = run("full compute")
+    run("MagCache E012K3R02, flat ratios", use_magcache=True)
+    cal = run("calibration (full compute)", magcache_calibration=True)
+    ratios = tuple(cal.calibration["norm_ratio"])
+    if len(ratios) != 2 * (VCH_STEPS - 1) or not np.all(np.isfinite(ratios)):
+        fail(f"calibration recorded {len(ratios)} ratios, or non-finite ones")
+    log(f"  norm_ratio (2 lanes) {np.round(ratios[:4], 4).tolist()} ... "
+        f"{np.round(ratios[-4:], 4).tolist()}")
+    run("MagCache with the recorded ratios", use_magcache=True, magcache_ratios=ratios)
+    pipe = VchitectPipeline(VchitectPipelineConfig(**base, enable_pab=True), dev, model=model)
+    masks = broadcast_masks(pipe.config.pab(), pipe.schedule.timesteps)
+    out, _ = pab_request("PAB (spatial range 2, temporal range 4, in (100, 800))", VM, 3, pipe,
+                         prompt, masks, {"temporal": (0, "temporal", "temporal", 24),
+                                         "cross": (1, "cross", "cross", 24),
+                                         "spatial": (2, "spatial", "spatial", 24)})
+    launched = read_counts()
+    want = dict(NO_LAUNCHES, flash_attention_bshd=24 * int(
+        (~masks["spatial"]).sum() + (~masks["cross"]).sum()))
+    if launched != want:
+        fail(f"Vchitect PAB: launches {launched} != {want}")
+    if tuple(out.latents.shape) != shape or not bool(torch.isfinite(out.latents).all()):
+        fail("Vchitect PAB: latents not finite or misshapen")
+    for k, n in launched.items():
+        total[k] += n
+    log(f"  PAB: {out.timings['total_s']:.3f} s/video, rel L2 against full compute "
+        f"{rel_l2(out.latents, full.latents):.3e}, launches {launched}")
+    log(f"  launches in phase 48: {total}")
+    return total
+
+
+def phase_vae_decodes(dev):
+    """Returns the v1.2-layout OSP VAE and the CogVideoX VAE."""
+    from magcache_tpu_torch.models.vae_cogvideox import CogVideoXVAE, CogVideoXVAEConfig
+    from magcache_tpu_torch.models.vae_osp import OSP_V110_VAE, OSP_V120_VAE, OSPCausalVAE
+
+    log("phase 49: f32 VAE decodes with random weights: Open-Sora-Plan CausalVAE v1.2 and "
+        "v1.1 layouts (tiled), CogVideoX decode_tiled; one call each")
+    gen = torch.Generator(device=dev).manual_seed(49)
+    cases = (("OSP CausalVAE, v1.2 layout", OSPCausalVAE(OSP_V120_VAE, dev), "decode",
+              (1, 24, 60, 80, 4), (1, 93, 480, 640, 3)),
+             ("OSP CausalVAE, v1.1 layout", OSPCausalVAE(OSP_V110_VAE, dev), "decode",
+              (1, 17, 64, 64, 4), (1, 65, 512, 512, 3)),
+             ("CogVideoX VAE", CogVideoXVAE(CogVideoXVAEConfig(), dev), "decode_tiled",
+              (1, 13, 60, 90, 16), (1, 49, 480, 720, 3)))
+    vaes = []
+    for label, vae, method, zshape, pshape in cases:
+        vae.init(gen).requires_grad_(False)
+        z = torch.randn(zshape, generator=gen, device=dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        video = getattr(vae, method)(z)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        if tuple(video.shape) != pshape or not bool(torch.isfinite(video).all()):
+            fail(f"{label}: pixels {tuple(video.shape)} not finite or not {pshape}")
+        log(f"  {label}: {method} {zshape} -> {pshape} in {dt:.3f} s, peak memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB, "
+            f"{sum(p.numel() for p in vae.parameters()) / 1e6:.1f} M params, pixel std "
+            f"{float(video.std()):.4f}")
+        vaes.append(vae)
+        del video
+    return vaes[0], vaes[2]
+
+
+def phase_pixel_requests(dev, osp_vae, cog_vae):
+    """Returns the Open-Sora-Plan and CogVideoX requests' launches."""
+    from magcache_tpu_torch.core.magcache import compute_skip_schedule
+    from magcache_tpu_torch.pipelines.cogvideox import CogVideoXPipeline, CogVideoXPipelineConfig
+    from magcache_tpu_torch.pipelines.open_sora_plan import (OpenSoraPlanPipeline,
+                                                             OpenSoraPlanPipelineConfig)
+
+    log(f"phase 50: phase 41's and 44's MagCache requests once more, ending in pixels "
+        f"(f32 VAEs of phase 49); CogVideoX at {COG_PX_FRAMES} frames (an odd latent count)")
+    prompt = "A red sailboat glides across a calm bay at dawn."
+    out_counts = []
+    for label, make, pipe_cls, cfg_cls, kw, vae, lat, pixels, per_run, skip_mask in (
+            ("OSP v1.2", make_osp_model, OpenSoraPlanPipeline, OpenSoraPlanPipelineConfig,
+             dict(num_frames=OSP_REQ_FRAMES, num_inference_steps=OSP_STEPS), osp_vae,
+             (1, OSP_REQ_GRID[0], 60, 80, 4), (1, OSP_REQ_FRAMES, 480, 640, 3),
+             OSP_TRUNK_LAUNCHES["packed"],
+             lambda p: compute_skip_schedule(p._cache_cfg()).reshape(OSP_STEPS, 2)),
+            ("CogVideoX-5B", make_cogvideox_model, CogVideoXPipeline, CogVideoXPipelineConfig,
+             dict(num_frames=COG_PX_FRAMES, num_inference_steps=COG_STEPS), cog_vae,
+             (1, COG_PX_GRID[0], 60, 90, 16), (1, COG_PX_FRAMES, 480, 720, 3),
+             COG_TRUNK_LAUNCHES, lambda p: p.skip_mask_for())):
+        model = make(dev)                  # the seed of phases 40 and 43
+        pipe = pipe_cls(cfg_cls(**kw, use_magcache=True, dtype="bfloat16"), dev, model=model,
+                        vae=vae)
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = pipe.generate(prompt, seed=3)
+        counts = request_checks(f"{label} with pixels", out, skip_mask(pipe), lat, per_run)
+        video = out.video
+        if (video is None or tuple(video.shape) != pixels
+                or not bool(torch.isfinite(video).all())):
+            fail(f"{label}: video {None if video is None else tuple(video.shape)} missing, "
+                 f"not {pixels} or not finite")
+        log(f"    video {tuple(video.shape)} finite, std {float(video.std()):.4f}; VAE decode "
+            f"{out.timings['decode_s']:.3f} s of {out.timings['total_s']:.3f} s; peak memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+        out_counts.append(counts)
+        del model, pipe, out, video
+        torch.cuda.empty_cache()
+    return out_counts
+
+
+def _numpy_vchitect_tree(cfg, rng):
+    """A random Vchitect-XL parameter tree in the JAX package's layout, with
+    ``ot``, ``oc`` and ``add_out_t`` as random as the rest."""
+    d, L, f = cfg.hidden, cfg.depth - 1, cfg.mlp_ratio * cfg.hidden
+
+    def lin(d_in, d_out, depth=None):
+        shape = (d_in, d_out) if depth is None else (depth, d_in, d_out)
+        return {"w": rng.standard_normal(shape) / math.sqrt(d_in),
+                "b": rng.standard_normal(shape[:-2] + (d_out,)) * 0.02}
+
+    def block(depth, pre_only):
+        p = {n: lin(d, d, depth) for n in ("q", "k", "v", "o", "qt", "kt", "vt", "ot", "qc",
+                                           "oc", "add_q", "add_k", "add_v")}
+        p.update(mod_x=lin(d, 6 * d, depth), ff1=lin(d, f, depth), ff2=lin(f, d, depth))
+        if pre_only:
+            p["mod_c2"] = lin(d, 2 * d, depth)
+        else:
+            p.update(mod_c=lin(d, 6 * d, depth), add_out=lin(d, d, depth),
+                     add_out_t=lin(d, d, depth), ffc1=lin(d, f, depth), ffc2=lin(f, d, depth))
+        return p
+
+    return {"patch_embed": lin(cfg.in_channels * cfg.patch ** 2, d),
+            "context_in": lin(cfg.text_dim, d),
+            "time_in": {"in": lin(cfg.time_embed_dim, d), "out": lin(d, d)},
+            "pooled_in": {"in": lin(cfg.vec_dim, d), "out": lin(d, d)},
+            "blocks": block(L, False), "last": block(None, True),
+            "norm_out_mod": lin(d, 2 * d), "proj_out": lin(d, cfg.in_channels * cfg.patch ** 2)}
+
+
+def phase_vchitect_vae_card_vs_cpu(dev, osp_vae, cog_vae):
+    """A narrow Vchitect through its pipeline with MagCache (flat ratios:
+    some steps skip), bf16 on the card against f32 on the CPU; both VAEs at
+    their published widths on narrow clips, f32 on the card and the CPU."""
+    from magcache_tpu_torch.models.convert import vchitect_params_from_numpy
+    from magcache_tpu_torch.models.vchitect import VchitectConfig, VchitectModel
+    from magcache_tpu_torch.pipelines.vchitect import VchitectPipeline, VchitectPipelineConfig
+
+    log("phase 51: narrow Vchitect on the card (K1, bf16) vs the CPU (plain, f32) with "
+        "skipped steps; the VAEs' f32 decodes of narrow clips, card vs CPU")
+    cfg = VchitectConfig(hidden=128, heads=2, depth=2, text_dim=64, vec_dim=32,
+                         time_embed_dim=64)
+    tree = _numpy_vchitect_tree(cfg, np.random.default_rng(51))
+    # 3 frames of 12 x 12 patches + 20 context tokens: 164 tokens a frame (K1)
+    kw = dict(num_frames=3, height=192, width=192, num_inference_steps=8, txt_len=20,
+              use_magcache=True, magcache_thresh=0.3)
+    outs = {}
+    reset_counts()
+    for name, device, dtype in (("card", dev, "bfloat16"), ("cpu", torch.device("cpu"),
+                                                            "float32")):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        model = VchitectModel(c, device)
+        model.load_state_dict(vchitect_params_from_numpy(tree, c, device))
+        pipe = VchitectPipeline(VchitectPipelineConfig(dtype=dtype, **kw), device, model=model)
+        out = pipe.generate("a red boat", seed=4)
+        outs[name] = out.latents.float().cpu()
+        if name == "card":
+            launched = read_counts()
+            skips = out.skips
+    runs = int((~skips.all(1)).sum())
+    if not skips.any() or runs == len(skips):
+        fail("narrow Vchitect: no step skipped, or every step did")
+    check_narrow("Vchitect", outs["card"], outs["cpu"], launched,
+                 {k: n * cfg.depth // 24 * runs for k, n in VCH_TRUNK_LAUNCHES.items()})
+    log(f"    Vchitect: {runs} of {len(skips)} steps computed")
+
+    for label, vae, decode, z_shape in (
+            ("OSP CausalVAE v1.2 layout, whole", osp_vae, "decode", (1, 3, 4, 5, 4)),
+            ("CogVideoX VAE, decode_tiled in slices of 3 + 2", cog_vae, "decode_tiled",
+             (1, 5, 4, 6, 16))):
+        z = torch.randn(z_shape, generator=torch.Generator().manual_seed(51))
+        card = getattr(vae, decode)(z.to(dev)).cpu()
+        cpu = type(vae)(vae.cfg, "cpu")
+        cpu.load_state_dict({k: v.cpu() for k, v in vae.state_dict().items()})
+        want = getattr(cpu, decode)(z)
+        err = float((card - want).abs().max() / want.abs().max())
+        # f32 convs without TF32 on both sides: summation order only
+        log(f"  {label} {tuple(want.shape)}: card vs CPU max |diff| / max |CPU| {err:.3e} "
+            f"(tol 1e-4), rel L2 {rel_l2(card, want):.3e}")
+        if tuple(card.shape) != tuple(want.shape) or err > 1e-4:
+            fail(f"{label}: card and CPU disagree")
+
+
 def main():
     phase_environment()
     dev = torch.device("cuda", 0)
@@ -3880,13 +4210,33 @@ def main():
     del model
     torch.cuda.empty_cache()
     phase_osp_cogvideox_card_vs_cpu(dev)
+    t_osp = time.time() - t0 - t_wan - t_os - t_flux - t_os720 - t_latte - t_sp \
+        - t_unpacked - t_ends - t_pab
+    phase_vchitect_kernels(dev, rec)
+    torch.cuda.empty_cache()
+    log("phase 47/48 model:")
+    model = make_vchitect_model(dev)
+    vch = phase_vchitect_forward(dev, model)
+    reqs = phase_vchitect_requests(dev, model)
+    vch = {k: n + reqs[k] for k, n in vch.items()}
+    del model
+    torch.cuda.empty_cache()
+    osp_vae, cog_vae = phase_vae_decodes(dev)
+    torch.cuda.empty_cache()
+    osp_px, cog_px = phase_pixel_requests(dev, osp_vae, cog_vae)
+    osp = {k: n + osp_px[k] for k, n in osp.items()}
+    cog = {k: n + cog_px[k] for k, n in cog.items()}
+    phase_vchitect_vae_card_vs_cpu(dev, osp_vae, cog_vae)
+    del osp_vae, cog_vae
+    torch.cuda.empty_cache()
     log(f"all phases passed in {time.time() - t0:.1f} s (Wan {t_wan:.1f} s, "
         f"Open-Sora {t_os:.1f} s, FLUX {t_flux:.1f} s, Open-Sora 720p "
         f"{t_os720:.1f} s, Latte {t_latte:.1f} s, Wan sequence-parallel {t_sp:.1f} s, "
         f"Open-Sora unpacked and without qk-norm {t_unpacked:.1f} s, UMT5, VAE and "
         f"the Wan video {t_ends:.1f} s, the new solvers, policies and PAB "
-        f"{t_pab:.1f} s, Open-Sora-Plan and CogVideoX "
-        f"{time.time() - t0 - t_wan - t_os - t_flux - t_os720 - t_latte - t_sp - t_unpacked - t_ends - t_pab:.1f} s)")
+        f"{t_pab:.1f} s, Open-Sora-Plan and CogVideoX {t_osp:.1f} s, Vchitect and the "
+        f"Open-Sora-Plan and CogVideoX VAEs "
+        f"{time.time() - t0 - t_wan - t_os - t_flux - t_os720 - t_latte - t_sp - t_unpacked - t_ends - t_pab - t_osp:.1f} s)")
 
     meta = {
         "flash_attention_bshd": ("cuda", "magcache_tpu_torch/csrc/hopper_attention.cuh",
@@ -3931,7 +4281,8 @@ def main():
              "open-sora-noqknorm": os_noqk, "wan-video": wan_video,
              "wan-solvers": wan_solvers, "wan-teacache": wan_tea, "open-sora-pab": os_pab,
              "open-sora-rolling": os_rolling, "latte-pab": latte_pab,
-             "open-sora-plan": osp, "open-sora-plan-v110": osp_v110, "cogvideox": cog}
+             "open-sora-plan": osp, "open-sora-plan-v110": osp_v110, "cogvideox": cog,
+             "vchitect": vch}
     kernels = []
     for name, (route, source, replaces) in meta.items():
         by_path = {p: c[name] for p, c in paths.items()}

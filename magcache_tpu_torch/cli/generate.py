@@ -2,8 +2,8 @@
 Wan2.1 t2v (``--task t2v-1.3B``), Open-Sora 1.2 t2v (``--task open-sora``),
 FLUX.1 text-to-image (``--task flux-dev`` and ``flux-kontext-dev``), Latte-1
 t2v (``--task latte``), Open-Sora-Plan t2v (``--task open-sora-plan``: v1.2,
-or v1.1 with ``--osp_version v110``) and CogVideoX-5B t2v (``--task
-cogvideox``).
+or v1.1 with ``--osp_version v110``), CogVideoX-5B t2v (``--task
+cogvideox``) and Vchitect-XL-2B t2v (``--task vchitect``).
 
 Flag names follow the reference adapters (``--task --size --frame_num
 --sample_steps --sample_shift --sample_solver --sample_guide_scale
@@ -15,7 +15,8 @@ Flag names follow the reference adapters (``--task --size --frame_num
 --condition_frame_edit --align --route``, FLUX ``--txt_len``, Latte
 ``--txt_len --clean_caption --route --enable_pab``, Open-Sora-Plan
 ``--txt_len --no_text_preprocessing --route --enable_pab --osp_version``,
-CogVideoX ``--txt_len --use_dynamic_cfg --enable_pab``),
+CogVideoX ``--txt_len --use_dynamic_cfg --enable_pab``, Vchitect
+``--txt_len --enable_pab``),
 and the output file name encodes the E/K/R triple. Unset flags take each
 family's reference defaults, as in the JAX CLI. Runs on a CUDA card by
 default; ``--device cpu`` runs the plain PyTorch ops instead of the kernels
@@ -56,6 +57,10 @@ Examples:
       [--route unpacked | --osp_version v110] [--enable_pab]   # 29x480x640
   python -m magcache_tpu_torch.cli.generate --task cogvideox --use_dynamic_cfg \
       --use_magcache [--enable_pab]                             # 49x480x720
+  python -m magcache_tpu_torch.cli.generate --task vchitect --magcache_calibration \
+      --save_file vch                  # 40x480x768, 100 FlowMatch-Euler steps
+  python -m magcache_tpu_torch.cli.generate --task vchitect --use_magcache \
+      --mag_ratios_json vch_mag_ratio.json [--enable_pab]
   torchrun --nproc_per_node 4 -m magcache_tpu_torch.cli.generate --task t2v-1.3B \
       --use_magcache --ulysses_size 4           # or --ring_size 4
 Checkpoints are not loaded yet: the DiT has random weights and the text
@@ -84,14 +89,15 @@ _KNOWN = ("flux", "qwen", "hunyuan", "framepack", "open-sora", "cogvideox",
 _PORTED = {"t2v-1.3B": "wan2.1-t2v-1.3B", "open-sora": "opensora-v1.2",
            "flux-dev": "flux-dev", "flux-kontext-dev": "flux-kontext-dev",
            # no published ratios: calibrate, then --mag_ratios_json
-           "latte": None, "open-sora-plan": None, "cogvideox": None}
+           "latte": None, "open-sora-plan": None, "cogvideox": None, "vchitect": None}
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("magcache_tpu_torch generate")
     p.add_argument("--task", default="t2v-1.3B",
                    help="t2v-1.3B | open-sora | flux-dev | flux-kontext-dev | "
-                        "latte | open-sora-plan | cogvideox (the tasks ported so far)")
+                        "latte | open-sora-plan | cogvideox | vchitect (the tasks ported "
+                        "so far)")
     p.add_argument("--size", default=None,
                    help="W*H pixels (unset: 832*480 for Wan and Open-Sora, "
                         "1024*1024 for FLUX)")
@@ -99,15 +105,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="frames (unset: 81)")
     p.add_argument("--sample_steps", type=int, default=None,
                    help="unset: 50 for Wan, Latte and CogVideoX, 30 for Open-Sora, "
-                        "28 for FLUX, 150 for Open-Sora-Plan")
+                        "28 for FLUX, 150 for Open-Sora-Plan, 100 for Vchitect")
     p.add_argument("--sample_shift", type=float, default=None,
                    help="Wan flow shift (unset: 5.0)")
     p.add_argument("--sample_solver", default="unipc",
                    choices=["unipc", "dpm++", "euler"],
                    help="Wan's solver (the reference's unipc and dpm++, and Euler)")
     p.add_argument("--sample_guide_scale", type=float, default=None,
-                   help="unset: 5.0 for Wan, 7.0 for Open-Sora, 7.5 for Latte "
-                        "and Open-Sora-Plan, 6.0 for CogVideoX; FLUX's embedded "
+                   help="unset: 5.0 for Wan, 7.0 for Open-Sora, 7.5 for Latte, "
+                        "Open-Sora-Plan and Vchitect, 6.0 for CogVideoX; FLUX's embedded "
                         "guidance 3.5 (2.5 for Kontext)")
     p.add_argument("--resolution", default=None,
                    help="open-sora bucket resolution (480p, 720p, ...); "
@@ -131,7 +137,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="mask-strategy index alignment")
     p.add_argument("--txt_len", type=int, default=None,
                    help="FLUX text tokens (unset: 512); Latte caption tokens "
-                        "(unset: 120); Open-Sora-Plan (512), CogVideoX (226)")
+                        "(unset: 120); Open-Sora-Plan (512), CogVideoX (226), "
+                        "Vchitect (77)")
     p.add_argument("--clean_caption", action="store_true",
                    help="latte: the T5 caption cleaning, applied twice")
     p.add_argument("--no_text_preprocessing", action="store_true",
@@ -171,8 +178,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="TeaCache's retention-steps variant: the e0 signal and a "
                         "longer forced warm-up")
     p.add_argument("--enable_pab", action="store_true",
-                   help="open-sora, latte, open-sora-plan and cogvideox: Pyramid "
-                        "Attention Broadcast")
+                   help="open-sora, latte, open-sora-plan, cogvideox and vchitect: "
+                        "Pyramid Attention Broadcast")
     p.add_argument("--mag_ratios_json", default=None,
                    help="path to a calibration-mode *_mag_ratio.json; its "
                         "ratios replace the preset's published array")
@@ -367,6 +374,21 @@ def _cogvideox_pipeline(args, device, ratios):
     return CogVideoXPipeline(cfg, device), cfg.num_inference_steps, 1
 
 
+def _vchitect_pipeline(args, device, ratios):
+    from magcache_tpu_torch.pipelines.vchitect import (VchitectPipeline,
+                                                       VchitectPipelineConfig)
+
+    kw = dict(_common_kw(args, ratios), num_inference_steps=args.sample_steps or 100,
+              guidance_scale=(7.5 if args.sample_guide_scale is None
+                              else args.sample_guide_scale))
+    if args.tiny:
+        kw.update(num_frames=4, height=32, width=32, txt_len=6)
+    elif args.txt_len:
+        kw["txt_len"] = args.txt_len
+    cfg = VchitectPipelineConfig(**kw)
+    return VchitectPipeline(cfg, device), cfg.num_inference_steps, 2
+
+
 def _parse_size(size, default: str = "832*480"):
     w, h = (int(v) for v in (size or default).split("*"))
     return w, h
@@ -402,7 +424,7 @@ def _pipeline(args):
                          ("--enable_teacache", args.enable_teacache, wan),
                          ("--enable_pab", args.enable_pab,
                           args.task in ("open-sora", "latte", "open-sora-plan",
-                                        "cogvideox")),
+                                        "cogvideox", "vchitect")),
                          ("--use_dynamic_cfg", args.use_dynamic_cfg, args.task == "cogvideox"),
                          ("--osp_version", args.osp_version != "v120",
                           args.task == "open-sora-plan"),
@@ -426,6 +448,8 @@ def _pipeline(args):
         return _open_sora_plan_pipeline(args, device, ratios)
     if args.task == "cogvideox":
         return _cogvideox_pipeline(args, device, ratios)
+    if args.task == "vchitect":
+        return _vchitect_pipeline(args, device, ratios)
     return _wan_pipeline(args, device, ratios)
 
 

@@ -6,9 +6,11 @@
 package's Wan, STDiT3, FLUX, Latte, Open-Sora-Plan v1.2 and CogVideoX
 parameter pytrees, with their leaves as numpy arrays, into ``WanModel``,
 ``STDiT3Model``, ``FluxModel``, ``LatteModel``, ``OSPModel`` and
-``CogVideoXModel`` state dicts; ``umt5_params_from_numpy`` and
-``wan_vae_params_from_numpy`` do the same for the UMT5 encoder and the Wan
-VAE's decoder. Three layout rules: the JAX block weights are depth-stacked
+``CogVideoXModel`` state dicts; ``vchitect_params_from_numpy`` does the
+same for Vchitect-XL, and ``umt5_params_from_numpy``,
+``wan_vae_params_from_numpy``, ``osp_vae_params_from_numpy`` and
+``cogvideox_vae_params_from_numpy`` for the UMT5 encoder and the Wan,
+Open-Sora-Plan and CogVideoX VAEs' decoders. Three layout rules: the JAX block weights are depth-stacked
 ``[L, ...]`` (one entry per block here), JAX's ``linear`` is ``x @ w`` with
 ``w: [d_in, d_out]`` while ``nn.Linear`` keeps ``[d_out, d_in]``, and JAX's
 conv kernels are ``[kt, kh, kw, C_in, C_out]`` (``[kh, kw, C_in, C_out]``)
@@ -28,7 +30,10 @@ from magcache_tpu_torch.models.latte import LatteConfig
 from magcache_tpu_torch.models.open_sora_plan import OpenSoraPlanConfig
 from magcache_tpu_torch.models.stdit3 import STDiT3Config
 from magcache_tpu_torch.models.umt5 import UMT5Config
+from magcache_tpu_torch.models.vae_cogvideox import CogVideoXVAEConfig
+from magcache_tpu_torch.models.vae_osp import OSPVAEConfig
 from magcache_tpu_torch.models.vae_wan import WanVAEConfig
+from magcache_tpu_torch.models.vchitect import VchitectConfig
 from magcache_tpu_torch.models.wan import WanConfig
 
 
@@ -328,4 +333,82 @@ def wan_vae_params_from_numpy(tree: dict, cfg: WanVAEConfig, device=None
                 conv(f"decoder.levels.{i}.{c}", lv[c])
     put("decoder.head_norm", dec["head_norm"])
     conv("decoder.head", dec["head"])
+    return sd
+
+
+_VCHITECT_LAST = ("mod_x", "q", "k", "v", "o", "qt", "kt", "vt", "ot", "qc", "oc", "add_q",
+                  "add_k", "add_v", "ff1", "ff2", "mod_c2")
+_VCHITECT_BLOCK = _VCHITECT_LAST[:-1] + ("mod_c", "add_out", "add_out_t", "ffc1", "ffc2")
+
+
+def vchitect_params_from_numpy(tree: dict, cfg: VchitectConfig, device=None,
+                               dtype: Optional[torch.dtype] = None
+                               ) -> Dict[str, torch.Tensor]:
+    """State dict for ``VchitectModel(cfg)`` from a numpy Vchitect-XL pytree
+    (the layout of ``magcache_tpu.models.vchitect.init_vchitect_params``: the
+    ``depth - 1`` joint blocks stacked in ``blocks``, the context-pre-only
+    block in ``last``). ``dtype`` is the dtype of the patch and context
+    embeddings and the block linears (default ``cfg.torch_dtype``); the
+    time and pooled embedders, ``norm_out_mod`` and ``proj_out`` are f32."""
+    dtype = cfg.torch_dtype if dtype is None else dtype
+    sd: Dict[str, torch.Tensor] = {}
+    put, put_linear = _putters(sd, device)
+    put_linear("patch_embed", tree["patch_embed"], dtype)
+    put_linear("context_in", tree["context_in"], dtype)
+    for grp in ("time_in", "pooled_in"):
+        for io in ("in", "out"):
+            put_linear(f"{grp}.{io}", tree[grp][io])
+    g = tree["blocks"]
+    for i in range(cfg.depth - 1):
+        for name in _VCHITECT_BLOCK:
+            put_linear(f"blocks.{i}.{name}", {"w": g[name]["w"][i], "b": g[name]["b"][i]},
+                       dtype)
+    for name in _VCHITECT_LAST:
+        put_linear(f"last.{name}", tree["last"][name], dtype)
+    put_linear("norm_out_mod", tree["norm_out_mod"])
+    put_linear("proj_out", tree["proj_out"])
+    return sd
+
+
+def _put_vae_tree(put, prefix: str, node) -> None:
+    """A JAX VAE subtree into state dict entries named by its keys and list
+    indices: a ``{"w", "b"}`` leaf is a conv (``w [k..., C_in, C_out]`` ->
+    ``[C_out, C_in, k...]``) or a GroupNorm affine (``w [C]``); None is a
+    layer the configuration leaves out."""
+    if node is None:
+        return
+    if isinstance(node, dict) and "w" in node:
+        w = np.asarray(node["w"])
+        if w.ndim > 1:
+            w = w.transpose((w.ndim - 1, w.ndim - 2) + tuple(range(w.ndim - 2)))
+        put(f"{prefix}.weight", w)
+        put(f"{prefix}.bias", node["b"])
+        return
+    for key, sub in (node.items() if isinstance(node, dict) else enumerate(node)):
+        _put_vae_tree(put, f"{prefix}.{key}", sub)
+
+
+def osp_vae_params_from_numpy(tree: dict, cfg: OSPVAEConfig, device=None
+                              ) -> Dict[str, torch.Tensor]:
+    """State dict for ``OSPCausalVAE(cfg)`` (the decoder and the post-quant
+    conv, f32) from a numpy Open-Sora-Plan CausalVAE pytree (the layout of
+    ``magcache_tpu.models.vae_osp.init_osp_vae_params``; its encoder is not
+    ported and is left out)."""
+    sd: Dict[str, torch.Tensor] = {}
+    put, _ = _putters(sd, device)
+    if cfg.use_quant_layer:
+        _put_vae_tree(put, "post_quant_conv", tree["post_quant_conv"])
+    _put_vae_tree(put, "decoder", tree["decoder"])
+    return sd
+
+
+def cogvideox_vae_params_from_numpy(tree: dict, cfg: CogVideoXVAEConfig, device=None
+                                    ) -> Dict[str, torch.Tensor]:
+    """State dict for ``CogVideoXVAE(cfg)`` (the decoder, f32) from a numpy
+    CogVideoX VAE pytree (the layout of ``magcache_tpu.models.vae_cogvideox.
+    init_cogvideox_vae_params``; its encoder is not ported and is left
+    out)."""
+    sd: Dict[str, torch.Tensor] = {}
+    put, _ = _putters(sd, device)
+    _put_vae_tree(put, "decoder", tree["decoder"])
     return sd

@@ -37,7 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from magcache_tpu_torch.models.common import DTYPES
-from magcache_tpu_torch.models.vae import causal_conv3d, channel_rms_norm
+from magcache_tpu_torch.models.vae import causal_conv3d, channel_rms_norm, init_convs_
 
 __all__ = ["WanVAEConfig", "WanVAE", "WAN21_VAE"]
 
@@ -167,13 +167,7 @@ class WanVAE(nn.Module):
         ``magcache_tpu.models.vae_wan.init_wan_vae_params`` draws them (the
         draws themselves differ): conv weights ``N(0, 1/fan_in)``, zero
         biases, unit norm gains."""
-        with torch.no_grad():
-            for m in self.modules():
-                if isinstance(m, (nn.Conv2d, nn.Conv3d)):
-                    w = torch.randn(m.weight.shape, generator=generator,
-                                    device=generator.device)
-                    m.weight.copy_(w / math.sqrt(m.weight[0].numel()))
-                    m.bias.zero_()
+        init_convs_(self, generator)
         return self
 
     def _res(self, blk: ResBlock, x, tc=None, out=None):

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional
 
 import numpy as np
@@ -63,3 +64,10 @@ def calibration_dict(stats: np.ndarray) -> dict:
         "norm_std": [round(float(v), 5) for v in flat[:, 1]],
         "cos_dis": [round(float(v), 5) for v in flat[:, 2]],
     }
+
+
+def synced_clock(t: torch.Tensor) -> float:
+    """The host clock once the work queued on ``t``'s card is done."""
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+    return time.time()

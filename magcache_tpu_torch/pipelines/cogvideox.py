@@ -17,7 +17,10 @@ joint lane, steps - 1 entries; ``magcache_ratios`` installs them as
 calibration request with an override raises ``ValueError``. PAB
 (``enable_pab``, ``pab_config``, default ``COGVIDEOX_PAB``) runs alone or
 under MagCache. The checkpoint-free path: ``MockTextEncoder``, random weights
-from a seeded ``torch.Generator``, no VAE (latents are the output).
+from a seeded ``torch.Generator``; latents are the output unless a VAE is
+given (``vae=``, a ``CogVideoXVAE``: the latents divided by its
+``scaling_factor`` go through ``decode_tiled`` into ``video``, timed in
+``timings["decode_s"]``).
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ from magcache_tpu_torch.models.cogvideox import (CogVideoXConfig, CogVideoXModel
                                                  make_cogvideox_core)
 from magcache_tpu_torch.models.text import MockTextEncoder
 from magcache_tpu_torch.pipelines.base import (BasePipeline, PipelineOutput,
-                                               calibration_dict, cfg_combine)
+                                               calibration_dict, cfg_combine, synced_clock)
 from magcache_tpu_torch.schedulers.ddim_cogvideo import CogVideoDDIMSchedule
 from magcache_tpu_torch.utils.misc import set_seed
 
@@ -77,11 +80,18 @@ class CogVideoXPipeline(BasePipeline):
     """CogVideoX T2V on ``device`` (the card unless told otherwise). Without
     ``model``, the transformer gets random weights from a generator (on the
     device) seeded with ``init_seed``; a given ``model`` brings its own
-    configuration."""
+    configuration. ``vae`` (a ``CogVideoXVAE``) must have the latents'
+    strides, and the latents an odd frame count."""
 
     def __init__(self, config: CogVideoXPipelineConfig, device="cuda", text_encoder=None,
-                 model: Optional[CogVideoXModel] = None, init_seed: int = 0):
+                 model: Optional[CogVideoXModel] = None, init_seed: int = 0, vae=None):
         c = self.config = config
+        if vae is not None and (vae.cfg.temporal_compression, vae.cfg.space_stride) != (
+                VAE_TEMPORAL_STRIDE, VAE_SPATIAL_STRIDE):
+            raise ValueError(f"the VAE's strides (time {vae.cfg.temporal_compression}, space "
+                             f"{vae.cfg.space_stride}) are not the latents' "
+                             f"({VAE_TEMPORAL_STRIDE}, {VAE_SPATIAL_STRIDE})")
+        self.vae = vae
         self.device = torch.device(device)
         self.model_cfg = model.cfg if model is not None else c.model_config()
         lat_t = (c.num_frames - 1) // VAE_TEMPORAL_STRIDE + 1
@@ -89,6 +99,11 @@ class CogVideoXPipeline(BasePipeline):
         p = self.model_cfg.patch
         self.latent_shape = (lat_t, lat_h, lat_w, self.model_cfg.in_channels)
         self.grid = (lat_t, lat_h // p, lat_w // p)
+        if vae is not None and lat_t % 2 == 0:
+            # the VAE keeps frame 0 apart only in an odd first slice
+            raise ValueError(f"{c.num_frames} frames are {lat_t} latent frames, which the "
+                             f"CogVideoX VAE decodes to {4 * lat_t} frames, not "
+                             f"{1 + 4 * (lat_t - 1)}: take num_frames = 1 (mod 8)")
         self.schedule = CogVideoDDIMSchedule.create(c.num_inference_steps)
         if model is None:
             model = CogVideoXModel(self.model_cfg, self.device).init(
@@ -151,7 +166,8 @@ class CogVideoXPipeline(BasePipeline):
 
     def generate(self, prompt: str, negative_prompt: str = "", seed: int = 42,
                  skip_override: Optional[np.ndarray] = None) -> PipelineOutput:
-        """One video's latents ``f32[1, T, H, W, 16]``. ``skip_override``
+        """One video's latents ``f32[1, T, H, W, 16]`` (and with a VAE its
+        pixels ``f32[1, 1 + 4 (T - 1), 8H, 8W, 3]``). ``skip_override``
         (``bool[steps, 1]``, from ``skip_mask_for``) replaces the cache
         schedule on the static-CFG path; ``skips`` holds the realized skip
         bits (none in calibration mode, which fills ``calibration``)."""
@@ -177,7 +193,11 @@ class CogVideoXPipeline(BasePipeline):
             latents, skips = sample_euler(self.core, z, cond, cache_cfg=cache_cfg,
                                           skip_mask_override=skip_override,
                                           return_skips=True, **common)
-        if latents.is_cuda:
-            torch.cuda.synchronize(latents.device)
-        return PipelineOutput(latents=latents, calibration=calibration,
-                              timings={"total_s": time.time() - t0}, skips=skips)
+        timings, video = {}, None
+        if self.vae is not None:
+            t1 = synced_clock(latents)
+            video = self.vae.decode_tiled(latents / self.vae.cfg.scaling_factor)
+            timings["decode_s"] = synced_clock(video) - t1
+        timings["total_s"] = synced_clock(latents) - t0
+        return PipelineOutput(latents=latents, calibration=calibration, timings=timings,
+                              skips=skips, video=video)

@@ -21,7 +21,9 @@ block-granular MLP anchors on v1.1, spatial + cross windows on v1.2;
 ``pab_config`` replaces either.
 
 The checkpoint-free path: ``MockTextEncoder``, random weights from a seeded
-``torch.Generator``, no VAE (latents are the output). The request's noise
+``torch.Generator``; latents are the output unless a VAE is given (``vae=``,
+an ``OSPCausalVAE`` of the version's layout, ``vae_config()``: its
+``decode`` fills ``video`` and ``timings["decode_s"]``). The request's noise
 (initial and ancestral) comes from its seeded CPU generator, so every device
 gets the same draws.
 """
@@ -42,8 +44,9 @@ from magcache_tpu_torch.models.latte import LatteConfig, LatteModel, make_latte_
 from magcache_tpu_torch.models.open_sora_plan import (OpenSoraPlanConfig, OSPModel,
                                                       make_osp_core)
 from magcache_tpu_torch.models.text import MockTextEncoder
+from magcache_tpu_torch.models.vae_osp import OSP_V110_VAE, OSP_V120_VAE, OSPVAEConfig
 from magcache_tpu_torch.pipelines.base import (BasePipeline, PipelineOutput,
-                                               calibration_dict, cfg_combine)
+                                               calibration_dict, cfg_combine, synced_clock)
 from magcache_tpu_torch.pipelines.open_sora_cond import clean_caption
 from magcache_tpu_torch.schedulers.euler_ancestral import EulerAncestralSchedule
 from magcache_tpu_torch.schedulers.pndm import PNDMSchedule
@@ -99,6 +102,12 @@ class OpenSoraPlanPipelineConfig:
             return OpenSoraPlanConfig.tiny(dtype=self.dtype, **kw)
         return OpenSoraPlanConfig(dtype=self.dtype, out_channels=self.out_channels or 8)
 
+    def vae_config(self) -> OSPVAEConfig:
+        """The CausalVAE layout of this version, 4x in time and 8x in space as
+        the latents are counted (not the JAX default layout, which is 8x in
+        time)."""
+        return OSP_V110_VAE if self.version == "v110" else OSP_V120_VAE
+
     def pab(self) -> PABConfig:
         """The PAB configuration of this version (``pab_config`` if set)."""
         if self.pab_config is not None:
@@ -120,13 +129,21 @@ class OpenSoraPlanPipeline(BasePipeline):
     """Open-Sora-Plan T2V on ``device`` (the card unless told otherwise).
     Without ``model``, the version's transformer gets random weights from a
     generator seeded with ``init_seed``; a given ``model`` (``OSPModel`` for
-    v1.2, ``LatteModel`` for v1.1) brings its own configuration."""
+    v1.2, ``LatteModel`` for v1.1) brings its own configuration. ``vae``
+    (an ``OSPCausalVAE``) must have the latents' strides."""
 
     def __init__(self, config: OpenSoraPlanPipelineConfig, device="cuda",
-                 text_encoder=None, model=None, init_seed: int = 0):
+                 text_encoder=None, model=None, init_seed: int = 0, vae=None):
         c = self.config = config
         if c.version not in VERSIONS:
             raise ValueError(f"version must be one of {VERSIONS}, got {c.version!r}")
+        if vae is not None and (vae.cfg.time_stride, vae.cfg.space_stride) != (
+                VAE_TEMPORAL_STRIDE, VAE_SPATIAL_STRIDE):
+            raise ValueError(f"the VAE's strides (time {vae.cfg.time_stride}, space "
+                             f"{vae.cfg.space_stride}) are not the latents' "
+                             f"({VAE_TEMPORAL_STRIDE}, {VAE_SPATIAL_STRIDE}): take "
+                             f"config.vae_config()")
+        self.vae = vae
         self.device = torch.device(device)
         self.model_cfg = model.cfg if model is not None else c.model_config()
         lat_t = (c.num_frames - 1) // VAE_TEMPORAL_STRIDE + 1
@@ -185,7 +202,8 @@ class OpenSoraPlanPipeline(BasePipeline):
 
     def generate(self, prompt: str, negative_prompt: str = "", seed: int = 0
                  ) -> PipelineOutput:
-        """One video's latents ``f32[1, T, H, W, 4]``; ``skips`` holds the
+        """One video's latents ``f32[1, T, H, W, 4]`` (and with a VAE its
+        pixels ``f32[1, 1 + 4 (T - 1), 8H, 8W, 3]``); ``skips`` holds the
         realized skip bits ``bool[model calls, 2]`` (none in calibration
         mode, which fills ``calibration``)."""
         t0 = time.time()
@@ -219,7 +237,11 @@ class OpenSoraPlanPipeline(BasePipeline):
             else:
                 latents, skips = sample_euler(self.core, z, cond, cache_cfg=self._cache_cfg(),
                                               return_skips=True, **common)
-        if latents.is_cuda:
-            torch.cuda.synchronize(latents.device)
-        return PipelineOutput(latents=latents, calibration=calibration,
-                              timings={"total_s": time.time() - t0}, skips=skips)
+        timings, video = {}, None
+        if self.vae is not None:
+            t1 = synced_clock(latents)
+            video = self.vae.decode(latents)
+            timings["decode_s"] = synced_clock(video) - t1
+        timings["total_s"] = synced_clock(latents) - t0
+        return PipelineOutput(latents=latents, calibration=calibration, timings=timings,
+                              skips=skips, video=video)

@@ -41,7 +41,8 @@ from magcache_tpu_torch.core.sampler import (calibrate_unipc, lane_skip_masks, s
 from magcache_tpu_torch.core.teacache import TeaCacheLanes, wan_teacache_settings
 from magcache_tpu_torch.models.text import MockTextEncoder
 from magcache_tpu_torch.models.wan import WAN_1_3B, WanConfig, WanModel, make_wan_core
-from magcache_tpu_torch.pipelines.base import BasePipeline, PipelineOutput, calibration_dict
+from magcache_tpu_torch.pipelines.base import (BasePipeline, PipelineOutput, calibration_dict,
+                                               synced_clock)
 from magcache_tpu_torch.schedulers.dpm_flow import dpmpp_2m_flow_coeffs
 from magcache_tpu_torch.schedulers.flow_match import FlowMatchSchedule
 from magcache_tpu_torch.schedulers.unipc import UniPCSchedule
@@ -283,16 +284,10 @@ class WanPipeline(BasePipeline):
         skips = None if calibrate else aux
         timings, video = {}, None
         if self.vae is not None:
-            t1 = _synced_clock(latents)
+            t1 = synced_clock(latents)
             video = self.vae.decode(latents)
-            timings["decode_s"] = _synced_clock(video) - t1
-        timings["total_s"] = _synced_clock(latents) - t0
+            timings["decode_s"] = synced_clock(video) - t1
+        timings["total_s"] = synced_clock(latents) - t0
         return PipelineOutput(latents=latents, calibration=calibration,
                               timings=timings, skips=skips, video=video)
 
-
-def _synced_clock(t: torch.Tensor) -> float:
-    """The host clock once the work queued on ``t``'s card is done."""
-    if t.is_cuda:
-        torch.cuda.synchronize(t.device)
-    return time.time()

@@ -683,6 +683,22 @@ def test_attention_pads_head_dim_72_for_k1(dev, sq, skv, fixed_max):
     torch.testing.assert_close(got.float(), want.float(), atol=2e-3, rtol=2e-2)
 
 
+# Vchitect-XL's K1 calls at head dim 64 (padded to 128 by attention()): the
+# per-frame joint attention over 1,517 tokens (4 frames of the 80 here; the
+# last q and key tiles ragged) and the cross-attention of 2 x 60,680 queries
+# to frame 0's 77 keys (one partial key tile)
+@pytest.mark.parametrize("b,sq,skv", [(4, 1517, 1517), (2, 60680, 77)])
+def test_attention_at_vchitect_shapes_matches_plain(dev, b, sq, skv):
+    q = _rand(dev, b, sq, 24, 64, seed=91)
+    k, v = _rand(dev, b, skv, 24, 64, seed=92), _rand(dev, b, skv, 24, 64, seed=93)
+    before = A.flash_attention_bshd.launches
+    got = A.attention(q, k, v)
+    assert A.flash_attention_bshd.launches == before + 1
+    want = A.flash_attention_bshd_plain(q, k, v, scale=64 ** -0.5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-3, rtol=2e-2)
+
+
 @pytest.mark.parametrize("route", ["packed", "grouped", "vpu"])
 def test_tiny_latte_pipeline_runs_through_the_kernels(dev, route):
     """Frames of 256 tokens (> 128: K1 on the unpacked routes) through the
