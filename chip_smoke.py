@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives ``magcache_tpu_torch`` (never JAX) in fifty-one phases and exits
+Drives ``magcache_tpu_torch`` (never JAX) in fifty-four phases and exits
 nonzero on the first failure:
 
 1. environment: a CUDA card is required; prints the card's name and power
@@ -271,6 +271,28 @@ and from 121,360 queries to 77 keys; the VAEs are cuDNN convs in f32):
    L2; both VAEs at their published widths on narrow clips, f32 on the card
    against the CPU within 1e-4 of the largest pixel.
 
+The SD VAE, Open-Sora's temporal VAE and their micro-frame composite, so
+FLUX, Kontext, Latte, Vchitect and Open-Sora return pixels (no new kernel;
+f32 cuDNN convs, the mid attention plain PyTorch):
+52. f32 decodes with random weights at each family's full shape, one call
+   each: the FLUX.1 VAE [1, 128, 128, 16] -> [1, 1024, 1024, 3] by
+   ``decode`` and ``decode_tiled``, sd-vae-ft (Latte) [1, 16, 64, 64, 4] ->
+   [1, 16, 512, 512, 3], the SD3 VAE (Vchitect) [1, 40, 60, 96, 16] ->
+   [1, 40, 480, 768, 3] frame by frame in chunks of 8, and Open-Sora's
+   ``MicroFrameVAE`` [1, 15, 60, 106, 4] -> [1, 51, 480, 848, 3] (the 480p
+   9:16 request's 854 columns are 106 latent columns, 848 pixels): seconds,
+   peak memory, parameters, pixel std; shape and finite checked;
+53. requests with MagCache ending in pixels through phase 52's VAEs:
+   flux-dev and Kontext (a seeded 1024x1024 image encoded by the FLUX.1 VAE)
+   at 1024x1024 x 28 steps, Latte 512x512 x 16 x 50 steps (flat ratios),
+   Vchitect 16x480x768 x 20 steps (flat ratios), Open-Sora 480p 9:16 x 51 x
+   30 steps with latent frame 0 pinned to an in-memory image encoded by
+   ``MicroFrameVAE.encode`` (no image file, no PIL); pixels, ``decode_s``,
+   skip bits against ``skip_mask_for``, launches against the trunk runs;
+54. the SD VAE, the temporal VAE and ``MicroFrameVAE`` at tiny widths, f32
+   encode and decode on the card against the CPU within 1e-4 of the largest
+   value.
+
 Kernel times are CUDA-event times of a loop of back-to-back launches
 between one event pair, divided by the count (``cuda_ms``); each attention
 kernel's line adds its TFLOP/s and its share of the bound; phase 11 times
@@ -287,7 +309,9 @@ launches on each path (``wan-ulysses`` and ``wan-ring``: phase 25's requests
 phases 34 and 35; ``open-sora-pab`` and ``open-sora-rolling``: phase 36's
 PAB requests and its rolling one; ``latte-pab``: phase 37;
 ``open-sora-plan``: phases 40, 41 and 50; ``open-sora-plan-v110``: phase 42;
-``cogvideox``: phases 43, 44 and 50; ``vchitect``: phases 47 and 48), its
+``cogvideox``: phases 43, 44 and 50; ``vchitect``: phases 47 and 48;
+``flux-pixels``, ``latte-pixels``, ``vchitect-pixels``, ``open-sora-pixels``:
+phase 53), its
 worst error over every shape
 compared, and the times of its first shape timed, named in ``timed_at``,
 with their method in ``timing`` (``loop`` or ``graph``); ``shapes`` lists
@@ -4090,6 +4114,221 @@ def phase_vchitect_vae_card_vs_cpu(dev, osp_vae, cog_vae):
             fail(f"{label}: card and CPU disagree")
 
 
+# The SD VAE, Open-Sora's temporal VAE and their micro-frame composite:
+# per-request launches of Open-Sora's masked-frame blocks at 480p (a pinned
+# reference frame: the unfused block, K5 spatial and temporal, K6 twice)
+OS_MASKED_LAUNCHES = dict(NO_LAUNCHES, grouped_attention_fused_qkv=56,
+                          fused_cross_attention=56)
+
+
+def timed_decode(label: str, dev, fn, shape) -> torch.Tensor:
+    """Runs ``fn()`` once on the card and logs its seconds and peak memory;
+    fails unless its pixels are finite and of ``shape``."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    px, ms = timed_once(fn)
+    if tuple(px.shape) != shape or not bool(torch.isfinite(px).all()):
+        fail(f"{label}: pixels {tuple(px.shape)} not finite or not {shape}")
+    log(f"  {label}: {shape} in {ms / 1e3:.3f} s, peak memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB, pixel std {float(px.std()):.4f}")
+    return px
+
+
+def phase_sd_vae_decodes(dev):
+    """Returns the FLUX, Latte, Vchitect and Open-Sora VAEs."""
+    from magcache_tpu_torch.models.vae_sd import FLUX_VAE, SD3_VAE, SD_VAE_FT, SDVAE
+    from magcache_tpu_torch.models.vae_temporal import open_sora_vae
+
+    log("phase 52: f32 decodes with random weights at each family's full shape, one call "
+        "each: the SD VAE (FLUX.1, sd-vae-ft, SD3 presets; video latents frame by frame in "
+        "chunks of 8) and Open-Sora's MicroFrameVAE")
+    gen = torch.Generator(device=dev).manual_seed(52)
+    vaes = {"flux": SDVAE(FLUX_VAE, dev), "latte": SDVAE(SD_VAE_FT, dev),
+            "vchitect": SDVAE(SD3_VAE, dev), "open-sora": open_sora_vae(dev)}
+    for name, vae in vaes.items():
+        vae.init(gen).requires_grad_(False)
+        log(f"  {name} VAE: {sum(p.numel() for p in vae.parameters()) / 1e6:.1f} M params")
+    flux, latte, vch, osv = (vaes[k] for k in ("flux", "latte", "vchitect", "open-sora"))
+    z = torch.randn((1, 128, 128, 16), generator=gen, device=dev)
+    whole = timed_decode("FLUX.1 VAE decode 1x128x128x16", dev, lambda: flux.decode(z),
+                         (1, 1024, 1024, 3))
+    tiled = timed_decode("FLUX.1 VAE decode_tiled (64-latent tiles, overlap 8)", dev,
+                         lambda: flux.decode_tiled(z), (1, 1024, 1024, 3))
+    log(f"    tiled against whole: rel L2 {rel_l2(tiled, whole):.3e} (the blended seams)")
+    del whole, tiled
+    z = torch.randn((1, 16, 64, 64, 4), generator=gen, device=dev)
+    timed_decode("sd-vae-ft (Latte) decode 16x64x64x4", dev, lambda: latte.decode(z),
+                 (1, 16, 512, 512, 3))
+    z = torch.randn((1, 40, 60, 96, 16), generator=gen, device=dev)
+    timed_decode("SD3 VAE (Vchitect) decode 40x60x96x16", dev, lambda: vch.decode(z),
+                 (1, 40, 480, 768, 3))
+    # the 480p 9:16 request asks for 480x854; its latent grid is 60x106, so
+    # the pixels are 848 wide
+    z = torch.randn((1, 15, 60, 106, 4), generator=gen, device=dev)
+    timed_decode("Open-Sora MicroFrameVAE decode 15x60x106x4 (3 chunks of 5 latents)", dev,
+                  lambda: osv.decode(z), (1, 51, 480, 848, 3))
+    del z
+    torch.cuda.empty_cache()
+    return vaes
+
+
+def pixel_request(label, pipe, want_skips, lat_shape, px_shape, per_run, extra=None,
+                  **kw):
+    """One request through ``pipe.generate`` ending in pixels: finite pixels
+    of ``px_shape``, ``decode_s``, the realized skip bits equal to
+    ``want_skips``, latents of ``lat_shape``, and the launches since the
+    counts were set to 0 equal to ``per_run`` per trunk run (plus
+    ``extra``); returns the launches."""
+    prompt = "A red sailboat glides across a calm bay at dawn."
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    out = pipe.generate(prompt, seed=3, **kw)
+    launched = read_counts()
+    px = out.image if out.video is None else out.video
+    if px is None or tuple(px.shape) != px_shape or not bool(torch.isfinite(px).all()):
+        fail(f"{label}: pixels {None if px is None else tuple(px.shape)} missing, not "
+             f"{px_shape} or not finite")
+    if tuple(out.latents.shape) != lat_shape or not bool(torch.isfinite(out.latents).all()):
+        fail(f"{label}: latents {tuple(out.latents.shape)} not finite or not {lat_shape}")
+    if not np.array_equal(out.skips, want_skips):
+        fail(f"{label}: realized skips differ from skip_mask_for")
+    if not out.timings.get("decode_s", 0) > 0:
+        fail(f"{label}: no decode_s")
+    runs = int((~out.skips.all(1)).sum())
+    want = {k: n * runs + (extra or {}).get(k, 0) for k, n in per_run.items()}
+    if launched != want:
+        fail(f"{label}: launches {launched} != {want}")
+    log(f"  {label}: {out.timings['total_s']:.3f} s, VAE decode {out.timings['decode_s']:.3f} "
+        f"s; {runs} of {len(out.skips)} steps computed; pixels {tuple(px.shape)} finite, std "
+        f"{float(px.std()):.4f}; peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return launched
+
+
+def phase_pixel_families(dev, vaes):
+    """Returns the launches by path: ``flux-pixels``, ``latte-pixels``,
+    ``vchitect-pixels``, ``open-sora-pixels``."""
+    import os
+
+    from magcache_tpu_torch.pipelines.flux import FluxPipeline, FluxPipelineConfig
+    from magcache_tpu_torch.pipelines.latte import LattePipeline, LattePipelineConfig
+    from magcache_tpu_torch.pipelines.open_sora import (OpenSoraPipeline,
+                                                        OpenSoraPipelineConfig)
+    from magcache_tpu_torch.pipelines.vchitect import VchitectPipeline, VchitectPipelineConfig
+
+    log("phase 53: requests ending in pixels through the phase-52 VAEs: flux-dev and "
+        "Kontext (a conditioning image encoded by the FLUX.1 VAE) at 1024x1024 x 28 steps, "
+        f"Latte 512x512 x 16 x {LATTE_STEPS} steps, Vchitect {VCH_REQ_FRAMES}x480x768 x "
+        f"{VCH_STEPS} steps, Open-Sora 480p 9:16 x 51 x {OS_STEPS} steps with an image "
+        "reference encoded by MicroFrameVAE.encode; all with MagCache")
+    paths = {}
+    model = make_flux_model(dev)
+    head = {"layer_norm_mod": FLUX_STEPS}          # FLUX's head: one K3 a step
+    total = dict(NO_LAUNCHES)
+    for key, guidance in (("flux-dev", 3.5), ("flux-kontext-dev", 2.5)):
+        pipe = FluxPipeline(FluxPipelineConfig(model=key, guidance=guidance, use_magcache=True,
+                                               num_inference_steps=FLUX_STEPS), dev,
+                            model=model, vae=vaes["flux"])
+        kw = {}
+        if "kontext" in key:
+            img = np.random.default_rng(53).uniform(size=(1024, 1024, 3)).astype(np.float32)
+            kw["cond_latents"], ms = timed_once(lambda: pipe.encode_image(img))
+            log(f"  Kontext conditioning image 1024x1024 encoded by the FLUX.1 VAE in "
+                f"{ms / 1e3:.3f} s, latents std {float(kw['cond_latents'].std()):.4f}")
+        launched = pixel_request(f"{key} with pixels", pipe, pipe.skip_mask_for(),
+                                 (1, 4096, 64), (1, 1024, 1024, 3), FLUX_TRUNK_LAUNCHES,
+                                 extra=head, **kw)
+        total = {k: n + launched[k] for k, n in total.items()}
+    paths["flux-pixels"] = total
+    del model, pipe
+    torch.cuda.empty_cache()
+
+    model = make_latte_model(dev)
+    pipe = LattePipeline(LattePipelineConfig(num_sampling_steps=LATTE_STEPS, dtype="bfloat16",
+                                             use_magcache=True), dev, model=model,
+                         vae=vaes["latte"])
+    paths["latte-pixels"] = pixel_request(
+        "Latte-1 (flat ratios) with pixels", pipe, pipe.skip_mask_for(), (1, 16, 64, 64, 4),
+        (1, 16, 512, 512, 3), LATTE_TRUNK_LAUNCHES["packed"])
+    del model, pipe
+    torch.cuda.empty_cache()
+
+    model = make_vchitect_model(dev)
+    pipe = VchitectPipeline(VchitectPipelineConfig(num_frames=VCH_REQ_FRAMES,
+                                                   num_inference_steps=VCH_STEPS,
+                                                   dtype="bfloat16", use_magcache=True),
+                            dev, model=model, vae=vaes["vchitect"])
+    paths["vchitect-pixels"] = pixel_request(
+        "Vchitect-XL (flat ratios) with pixels", pipe, pipe.skip_mask_for(),
+        (1, VCH_REQ_FRAMES, 60, 96, 16), (1, VCH_REQ_FRAMES, 480, 768, 3),
+        VCH_TRUNK_LAUNCHES)
+    del model, pipe
+    torch.cuda.empty_cache()
+
+    model = make_os_model(dev)
+    pipe = OpenSoraPipeline(OpenSoraPipelineConfig(
+        resolution="480p", aspect_ratio="9:16", num_frames=OS_FRAMES,
+        num_sampling_steps=OS_STEPS, dtype="bfloat16", use_magcache=True), dev, model=model,
+        vae=vaes["open-sora"])
+    # an image reference built in memory (no file, no PIL): one frame at the
+    # request's 480x854, in [-1, 1], encoded as references are (to 60x106)
+    hw = (pipe.config.height, pipe.config.width)
+    img = np.random.default_rng(530).uniform(-1, 1, (1,) + hw + (3,)).astype(np.float32)
+    ref, ms = timed_once(lambda: pipe.encode_reference(img))
+    log(f"  image reference {hw[0]}x{hw[1]} encoded by MicroFrameVAE.encode in "
+        f"{ms / 1e3:.3f} s: latents {ref.shape}, std {float(ref.std()):.4f}")
+    if ref.shape != (1,) + pipe.latent_shape[1:] or not np.isfinite(ref).all():
+        fail(f"Open-Sora reference latents {ref.shape} not one frame of the request's "
+             f"{pipe.latent_shape} or not finite")
+    ref_path = os.path.join(_scratch_dir(), "ref_480p_image.npy")
+    np.save(ref_path, ref)
+    paths["open-sora-pixels"] = pixel_request(
+        "Open-Sora 480p x 51, frame 0 pinned to the image reference, with pixels", pipe,
+        pipe.skip_mask_for(), (1, 15, 60, 106, 4), (1, OS_FRAMES, 480, 848, 3),
+        OS_MASKED_LAUNCHES, ms="0,0,0,0,1,0", refs=ref_path, align=None)
+    del model, pipe
+    torch.cuda.empty_cache()
+    return paths
+
+
+def phase_vae_card_vs_cpu(dev):
+    """The SD VAE, the temporal VAE and the composite at tiny widths, f32
+    encode and decode on the card against the CPU."""
+    from magcache_tpu_torch.models.vae import MicroFrameVAE
+    from magcache_tpu_torch.models.vae_sd import SDVAE, SDVAEConfig
+    from magcache_tpu_torch.models.vae_temporal import VAETemporal, VAETemporalConfig
+
+    log("phase 54: the SD VAE, the temporal VAE and MicroFrameVAE at tiny widths, f32 "
+        "encode and decode, the card against the CPU (tol 1e-4 of the largest value)")
+    scfg = SDVAEConfig(base=8, ch_mult=(1, 1, 2, 2), blocks_per_level=1, groups=4)
+    tcfg = VAETemporalConfig(filters=8, num_res_blocks=1, groups=4)
+
+    def make_vaes(device):
+        return {"SD VAE": SDVAE(scfg, device), "temporal VAE": VAETemporal(tcfg, device),
+                "MicroFrameVAE": MicroFrameVAE(SDVAE(scfg, device), VAETemporal(tcfg, device))}
+
+    g = torch.Generator().manual_seed(54)
+    cases = {"SD VAE": (torch.rand((3, 48, 80, 3), generator=g) * 2 - 1,
+                        torch.randn((3, 6, 10, 4), generator=g)),
+             "temporal VAE": (torch.randn((1, 9, 6, 10, 4), generator=g),
+                              torch.randn((1, 3, 6, 10, 4), generator=g)),
+             "MicroFrameVAE": (torch.rand((1, 9, 48, 80, 3), generator=g) * 2 - 1,
+                               torch.randn((1, 7, 6, 10, 4), generator=g))}
+    gen = torch.Generator(device=dev).manual_seed(54)
+    card, cpu = make_vaes(dev), make_vaes("cpu")
+    for name, (x, z) in cases.items():
+        card[name].init(gen)
+        cpu[name].load_state_dict({k: v.cpu() for k, v in card[name].state_dict().items()})
+        for op, arg in (("encode", x), ("decode", z)):
+            want = getattr(cpu[name], op)(arg)
+            got = getattr(card[name], op)(arg.to(dev))
+            want, got = (w[0] if isinstance(w, tuple) else w for w in (want, got))
+            err = float((got.cpu() - want).abs().max() / want.abs().max())
+            log(f"  {name} {op} {tuple(arg.shape)} -> {tuple(want.shape)}: card vs CPU "
+                f"max |diff| / max |CPU| {err:.3e}")
+            if tuple(got.shape) != tuple(want.shape) or err > 1e-4:
+                fail(f"{name} {op}: card and CPU disagree")
+
+
 def main():
     phase_environment()
     dev = torch.device("cuda", 0)
@@ -4229,14 +4468,22 @@ def main():
     phase_vchitect_vae_card_vs_cpu(dev, osp_vae, cog_vae)
     del osp_vae, cog_vae
     torch.cuda.empty_cache()
+    t_vch = time.time() - t0 - t_wan - t_os - t_flux - t_os720 - t_latte - t_sp \
+        - t_unpacked - t_ends - t_pab - t_osp
+    vaes = phase_sd_vae_decodes(dev)
+    pixel_paths = phase_pixel_families(dev, vaes)
+    del vaes
+    torch.cuda.empty_cache()
+    phase_vae_card_vs_cpu(dev)
     log(f"all phases passed in {time.time() - t0:.1f} s (Wan {t_wan:.1f} s, "
         f"Open-Sora {t_os:.1f} s, FLUX {t_flux:.1f} s, Open-Sora 720p "
         f"{t_os720:.1f} s, Latte {t_latte:.1f} s, Wan sequence-parallel {t_sp:.1f} s, "
         f"Open-Sora unpacked and without qk-norm {t_unpacked:.1f} s, UMT5, VAE and "
         f"the Wan video {t_ends:.1f} s, the new solvers, policies and PAB "
         f"{t_pab:.1f} s, Open-Sora-Plan and CogVideoX {t_osp:.1f} s, Vchitect and the "
-        f"Open-Sora-Plan and CogVideoX VAEs "
-        f"{time.time() - t0 - t_wan - t_os - t_flux - t_os720 - t_latte - t_sp - t_unpacked - t_ends - t_pab - t_osp:.1f} s)")
+        f"Open-Sora-Plan and CogVideoX VAEs {t_vch:.1f} s, the SD and Open-Sora VAEs "
+        f"and the requests ending in their pixels "
+        f"{time.time() - t0 - t_wan - t_os - t_flux - t_os720 - t_latte - t_sp - t_unpacked - t_ends - t_pab - t_osp - t_vch:.1f} s)")
 
     meta = {
         "flash_attention_bshd": ("cuda", "magcache_tpu_torch/csrc/hopper_attention.cuh",
@@ -4282,7 +4529,7 @@ def main():
              "wan-solvers": wan_solvers, "wan-teacache": wan_tea, "open-sora-pab": os_pab,
              "open-sora-rolling": os_rolling, "latte-pab": latte_pab,
              "open-sora-plan": osp, "open-sora-plan-v110": osp_v110, "cogvideox": cog,
-             "vchitect": vch}
+             "vchitect": vch, **pixel_paths}
     kernels = []
     for name, (route, source, replaces) in meta.items():
         by_path = {p: c[name] for p, c in paths.items()}

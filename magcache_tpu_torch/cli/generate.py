@@ -65,10 +65,13 @@ Examples:
       --use_magcache --ulysses_size 4           # or --ring_size 4
 Checkpoints are not loaded yet: the DiT has random weights and the text
 encoders are the hash-seeded mocks, so the output is latents, not a video or
-an image. ``flux-kontext-dev`` runs its preset and guidance without a
-conditioning image: ``--image`` needs the SD VAE's weights and raises.
-Open-Sora references are ``.npy`` latents; image and video references need
-the Open-Sora VAE, which is not ported yet, and raise.
+an image (the pipelines' ``vae=`` takes a VAE through the API; the CLI
+builds none). ``flux-kontext-dev --image`` (a ``.npy`` array ``[H, W, 3]`` in
+[0, 1], or an image file read with PIL) conditions on the image as the JAX
+CLI does without ``--vae_ckpt``: nearest-resized and channel-tiled to the
+latent grid, not encoded. Open-Sora references are ``.npy`` latents; image
+and video references need the pipeline's VAE, which the CLI does not build,
+and raise.
 """
 
 from __future__ import annotations
@@ -128,7 +131,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "'loop,ref,ref_start,target_start,len,edit_ratio;...'")
     p.add_argument("--refs", "--reference_path", dest="refs", default="",
                    help="open-sora reference paths (';'-separated .npy latents "
-                        "[T, H, W, C]; image and video files need the VAE)")
+                        "[T, H, W, C]; image and video files need a VAE, which "
+                        "the CLI does not build)")
     p.add_argument("--condition_frame_length", type=int, default=5,
                    help="latent frames handed to the next loop")
     p.add_argument("--condition_frame_edit", type=float, default=0.0,
@@ -154,8 +158,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "or unpacked with temporal attention through K4 (grouped) "
                         "or K9 (vpu); open-sora-plan v120: packed or unpacked")
     p.add_argument("--image", default=None,
-                   help="flux-kontext-dev conditioning image (needs the SD "
-                        "VAE's weights: not ported yet)")
+                   help="flux-kontext-dev conditioning image (.npy [H, W, 3] in "
+                        "[0, 1], or an image file); resized and channel-tiled "
+                        "to the latent grid (no VAE weights)")
     p.add_argument("--base_seed", type=int, default=0)
     p.add_argument("--prompt", default="Two anthropomorphic cats in comfy "
                    "boxing gear and bright gloves fight intensely on a "
@@ -283,9 +288,9 @@ def _open_sora_pipeline(args, device, ratios):
 def _flux_pipeline(args, device, ratios):
     from magcache_tpu_torch.pipelines.flux import FluxPipeline, FluxPipelineConfig
 
-    if args.image:
-        raise SystemExit("--image: Kontext's conditioning image is encoded by "
-                         "the SD VAE, which is not ported yet (no weights)")
+    if args.image and "kontext" not in args.task:
+        raise SystemExit("--image: only flux-kontext-dev conditions on an input "
+                         "image (FLUX.1-dev is t2i)")
     w, h = _parse_size(args.size, "1024*1024")
     if args.tiny:
         w = h = 64
@@ -462,9 +467,13 @@ def main(argv=None):
         kw = dict(loop=args.loop, ms=args.ms, refs=args.refs,
                   condition_frame_length=args.condition_frame_length,
                   condition_frame_edit=args.condition_frame_edit, align=args.align)
+    elif args.image:
+        from magcache_tpu_torch.pipelines.flux import load_image
+
+        kw = dict(cond_latents=pipe.encode_image(load_image(args.image)))
     try:
         out = pipe.generate(args.prompt, seed=args.base_seed, **kw)
-    except NotImplementedError as e:
+    except (NotImplementedError, ValueError) as e:
         raise SystemExit(str(e)) from e
     dt = time.time() - t0
     plan = getattr(pipe, "plan", None)

@@ -10,8 +10,11 @@ parameter pytrees, with their leaves as numpy arrays, into ``WanModel``,
 same for Vchitect-XL, and ``umt5_params_from_numpy``,
 ``wan_vae_params_from_numpy``, ``osp_vae_params_from_numpy`` and
 ``cogvideox_vae_params_from_numpy`` for the UMT5 encoder and the Wan,
-Open-Sora-Plan and CogVideoX VAEs' decoders. Three layout rules: the JAX block weights are depth-stacked
-``[L, ...]`` (one entry per block here), JAX's ``linear`` is ``x @ w`` with
+Open-Sora-Plan and CogVideoX VAEs' decoders, and
+``sd_vae_params_from_numpy`` and ``vae_temporal_params_from_numpy`` for the
+SD VAE and Open-Sora's temporal VAE, encoder and decoder. Three layout
+rules: the JAX block weights are depth-stacked ``[L, ...]`` (one entry per
+block here), JAX's ``linear`` is ``x @ w`` with
 ``w: [d_in, d_out]`` while ``nn.Linear`` keeps ``[d_out, d_in]``, and JAX's
 conv kernels are ``[kt, kh, kw, C_in, C_out]`` (``[kh, kw, C_in, C_out]``)
 where PyTorch's are ``[C_out, C_in, kt, kh, kw]``.
@@ -32,6 +35,8 @@ from magcache_tpu_torch.models.stdit3 import STDiT3Config
 from magcache_tpu_torch.models.umt5 import UMT5Config
 from magcache_tpu_torch.models.vae_cogvideox import CogVideoXVAEConfig
 from magcache_tpu_torch.models.vae_osp import OSPVAEConfig
+from magcache_tpu_torch.models.vae_sd import SDVAEConfig
+from magcache_tpu_torch.models.vae_temporal import VAETemporalConfig
 from magcache_tpu_torch.models.vae_wan import WanVAEConfig
 from magcache_tpu_torch.models.vchitect import VchitectConfig
 from magcache_tpu_torch.models.wan import WanConfig
@@ -411,4 +416,88 @@ def cogvideox_vae_params_from_numpy(tree: dict, cfg: CogVideoXVAEConfig, device=
     sd: Dict[str, torch.Tensor] = {}
     put, _ = _putters(sd, device)
     _put_vae_tree(put, "decoder", tree["decoder"])
+    return sd
+
+
+def _sd_res(node: dict) -> dict:
+    """A JAX SD-VAE ResNet block with diffusers' shortcut name."""
+    return {("conv_shortcut" if k == "shortcut" else k): v for k, v in node.items()}
+
+
+def _put_sd_mid(put, prefix: str, mid: dict) -> None:
+    """A JAX SD-VAE mid block (``res1``, ``attn``, ``res2``) under diffusers'
+    names; the attention's ``[out, in]`` linears come over as they are."""
+    _put_vae_tree(put, f"{prefix}.resnets", [_sd_res(mid["res1"]), _sd_res(mid["res2"])])
+    a = f"{prefix}.attentions.0"
+    _put_vae_tree(put, f"{a}.group_norm", mid["attn"]["norm"])
+    for src, dst in (("q", "to_q"), ("k", "to_k"), ("v", "to_v"), ("o", "to_out.0")):
+        put(f"{a}.{dst}.weight", mid["attn"][src]["w"])
+        put(f"{a}.{dst}.bias", mid["attn"][src]["b"])
+
+
+def sd_vae_params_from_numpy(tree: dict, cfg: SDVAEConfig, device=None
+                             ) -> Dict[str, torch.Tensor]:
+    """State dict for ``SDVAE(cfg)`` (f32, diffusers ``AutoencoderKL`` names)
+    from a numpy SD-VAE pytree (the layout of ``magcache_tpu.models.vae_sd.
+    init_sd_vae_params``: ``level{i}`` with ``res`` and ``down`` / ``up``,
+    ``mid`` with ``res1``, ``attn``, ``res2``)."""
+    sd: Dict[str, torch.Tensor] = {}
+    put, _ = _putters(sd, device)
+    for side, blocks, resample in (("encoder", "down_blocks", "downsamplers"),
+                                   ("decoder", "up_blocks", "upsamplers")):
+        t = tree[side]
+        _put_vae_tree(put, f"{side}.conv_in", t["conv_in"])
+        _put_sd_mid(put, f"{side}.mid_block", t["mid"])
+        for i in range(len(cfg.ch_mult)):
+            lv = t[f"level{i}"]
+            _put_vae_tree(put, f"{side}.{blocks}.{i}.resnets", [_sd_res(r) for r in lv["res"]])
+            _put_vae_tree(put, f"{side}.{blocks}.{i}.{resample}.0.conv",
+                          lv["down" if side == "encoder" else "up"])
+        _put_vae_tree(put, f"{side}.conv_norm_out", t["norm_out"])
+        _put_vae_tree(put, f"{side}.conv_out", t["conv_out"])
+    if cfg.quant_conv:
+        _put_vae_tree(put, "quant_conv", tree["quant_conv"])
+        _put_vae_tree(put, "post_quant_conv", tree["post_quant_conv"])
+    return sd
+
+
+def vae_temporal_params_from_numpy(tree: dict, cfg: VAETemporalConfig, device=None
+                                   ) -> Dict[str, torch.Tensor]:
+    """State dict for ``VAETemporal(cfg)`` (f32, the reference's
+    ``VAE_Temporal`` names) from a numpy tree in the layout of
+    ``magcache_tpu.models.vae_temporal.init_vae_temporal_params``; every conv
+    sits in a ``CausalConv3d`` (``.conv``), the ResNet convs without bias."""
+    sd: Dict[str, torch.Tensor] = {}
+    put, _ = _putters(sd, device)
+
+    def conv(prefix, node):
+        w = np.asarray(node["w"])
+        put(f"{prefix}.conv.weight", w.transpose(4, 3, 0, 1, 2))
+        if "b" in node:
+            put(f"{prefix}.conv.bias", node["b"])
+
+    def res(prefix, node):
+        for name in ("norm1", "norm2"):
+            _put_vae_tree(put, f"{prefix}.{name}", node[name])
+        for name in ("conv1", "conv2", "conv3"):
+            if name in node:
+                conv(f"{prefix}.{name}", node[name])
+
+    for side in ("encoder", "decoder"):
+        t = tree[side]
+        for j, r in enumerate(t["res_blocks"]):
+            res(f"{side}.res_blocks.{j}", r)
+        for i, lv in enumerate(t["blocks"]):
+            for j, r in enumerate(lv["res"]):
+                res(f"{side}.block_res_blocks.{i}.{j}", r)
+            resample = lv["down"] if side == "encoder" else lv["up"]
+            if resample is not None:
+                conv(f"{side}.conv_blocks.{i if side == 'encoder' else i - 1}", resample)
+        _put_vae_tree(put, f"{side}.norm1", t["norm1"])
+    conv("encoder.conv_in", tree["encoder"]["conv_in"])
+    conv("encoder.conv2", tree["encoder"]["conv2"])
+    conv("decoder.conv1", tree["decoder"]["conv1"])
+    conv("decoder.conv_out", tree["decoder"]["conv_out"])
+    conv("quant_conv", tree["quant_conv"])
+    conv("post_quant_conv", tree["post_quant_conv"])
     return sd

@@ -1,5 +1,6 @@
-"""Causal-VAE primitives that the Wan, Open-Sora-Plan and CogVideoX VAEs are
-built from (the ported part of ``magcache_tpu.models.vae``).
+"""Causal-VAE primitives that the Wan, Open-Sora-Plan, CogVideoX, SD and
+Open-Sora temporal VAEs are built from, and Open-Sora 1.2's micro-frame
+composite ``MicroFrameVAE`` (the ported part of ``magcache_tpu.models.vae``).
 
 The JAX package keeps activations channel-last (NDHWC, XLA's TPU layout).
 Here they are NCDHW, cuDNN's layout, with weights in PyTorch's conv layout
@@ -18,7 +19,8 @@ import torch.nn.functional as F
 from torch import nn
 
 __all__ = ["channel_rms_norm", "causal_conv3d", "group_norm", "GroupNormAffine",
-           "init_convs_", "blend_edge", "stitch_tiles"]
+           "init_convs_", "blend_edge", "stitch_tiles", "MicroFrameVAE",
+           "OPEN_SORA_VAE_SCALE", "OPEN_SORA_VAE_SHIFT"]
 
 
 def channel_rms_norm(x: torch.Tensor, weight: torch.Tensor,
@@ -88,13 +90,15 @@ class GroupNormAffine(nn.Module):
 def init_convs_(module: nn.Module, generator: torch.Generator) -> None:
     """Random conv weights as the JAX VAEs draw them (the draws themselves
     differ): ``N(0, 1/fan_in)`` from ``generator`` on its device, zero
-    biases; every other parameter keeps its value."""
+    biases (where the conv has one); every other parameter keeps its
+    value."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, (nn.Conv2d, nn.Conv3d)):
                 w = torch.randn(m.weight.shape, generator=generator, device=generator.device)
                 m.weight.copy_(w / math.sqrt(m.weight[0].numel()))
-                m.bias.zero_()
+                if m.bias is not None:
+                    m.bias.zero_()
 
 
 def blend_edge(a: torch.Tensor, b: torch.Tensor, ext: int, dim: int) -> torch.Tensor:
@@ -127,3 +131,87 @@ def stitch_tiles(rows: List[List[torch.Tensor]], ext: int, limit: int) -> torch.
             out.append(t[:, :, :, :limit, :limit])
         out_rows.append(torch.cat(out, dim=4))
     return torch.cat(out_rows, dim=3)
+
+
+# Open-Sora 1.2's per-channel latent scale and shift (Open-Sora
+# opensora/models/vae/vae.py ``OpenSoraVAE_V1_2``, ``VideoAutoencoderPipeline``
+# ``scale`` / ``shift``; not in the repository): the sampler's latents z are
+# the VAE's ``z * scale + shift``
+OPEN_SORA_VAE_SCALE = (3.85, 2.32, 2.33, 3.06)
+OPEN_SORA_VAE_SHIFT = (-0.10, 0.34, 0.27, 0.98)
+
+
+class MicroFrameVAE(nn.Module):
+    """Open-Sora 1.2's composite VAE (``VideoAutoencoderPipeline``,
+    ``autoencoder_kl_open_sora.py:621-761``): a 2-D ``spatial`` VAE
+    (``models.vae_sd.SDVAE``) over every frame, then a temporal causal VAE
+    (``models.vae_temporal.VAETemporal``) over independent chunks of
+    ``micro_frame_size`` frames (17; ``ceil(17 / time_factor)`` = 5 latents a
+    chunk), so 51 frames are 15 latents and decode back to 51. The spatial
+    VAE's ``micro_batch`` bounds the frames a spatial call takes.
+
+    The reference's two latent scales: ``decode`` starts with ``z * scale +
+    shift`` (per channel) and ``encode`` ends with its inverse; between the
+    stages the spatial VAE's ``from_latent`` / ``to_latent`` (its
+    ``scaling_factor``, 0.18215) is applied to each frame. The JAX composite
+    applies neither; identity values (scale 1, shift 0, a spatial VAE with
+    ``scaling_factor`` 1 and ``shift_factor`` 0) make this module that one.
+    Channel-last f32 at the API: pixels ``[B, T, H, W, 3]``, latents ``[B,
+    T', H/s, W/s, C]``."""
+
+    def __init__(self, spatial: nn.Module, temporal: nn.Module, micro_frame_size: int = 17,
+                 scale: Tuple[float, ...] = OPEN_SORA_VAE_SCALE,
+                 shift: Tuple[float, ...] = OPEN_SORA_VAE_SHIFT):
+        super().__init__()
+        self.spatial, self.temporal = spatial, temporal
+        self.micro_frame_size = micro_frame_size
+        self.scale, self.shift = tuple(scale), tuple(shift)
+
+    def init(self, generator: torch.Generator) -> "MicroFrameVAE":
+        """Random weights for both stages from ``generator``."""
+        self.spatial.init(generator)
+        self.temporal.init(generator)
+        return self
+
+    def _affine(self, z: torch.Tensor):
+        """The per-channel ``(scale, shift)`` as tensors on z's device."""
+        return (torch.tensor(self.scale, dtype=torch.float32, device=z.device),
+                torch.tensor(self.shift, dtype=torch.float32, device=z.device))
+
+    def _spatial_encode(self, x: torch.Tensor) -> torch.Tensor:
+        mean, _ = self.spatial.encode(x)
+        return self.spatial.to_latent(mean)
+
+    def _spatial_decode(self, z: torch.Tensor) -> torch.Tensor:
+        return self.spatial.decode(self.spatial.from_latent(z))
+
+    @torch.inference_mode()
+    def encode(self, x: torch.Tensor) -> torch.Tensor:
+        """Pixels ``[B, T, H, W, 3]`` in [-1, 1] -> latents ``[B, T', H/s,
+        W/s, C]``: each chunk of ``micro_frame_size`` frames encoded alone
+        (its temporal mean), then ``(z - shift) / scale``."""
+        zs = self._spatial_encode(x)
+        mf = self.micro_frame_size
+        z = torch.cat([self.temporal.encode(zs[:, i:i + mf])[0]
+                       for i in range(0, zs.shape[1], mf)], dim=1)
+        scale, shift = self._affine(z)
+        return (z - shift) / scale
+
+    @torch.inference_mode()
+    def decode(self, z: torch.Tensor) -> torch.Tensor:
+        """Latents ``[B, T', h, w, C]`` -> pixels ``[B, T, s h, s w, 3]``:
+        ``z * scale + shift``, then each chunk of ``ceil(micro_frame_size /
+        time_factor)`` latents decoded alone to at most ``micro_frame_size``
+        frames (the temporal VAE front-pads), frame by frame in space."""
+        z = z.to(device=self.temporal.device, dtype=torch.float32)
+        scale, shift = self._affine(z)
+        z = z * scale + shift
+        tf = self.temporal.cfg.time_factor
+        chunk = -(-self.micro_frame_size // tf)
+        outs = []
+        for i in range(0, z.shape[1], chunk):
+            zc = z[:, i:i + chunk]
+            y = self.temporal.decode(zc, num_frames=min(self.micro_frame_size,
+                                                         zc.shape[1] * tf))
+            outs.append(self._spatial_decode(y))
+        return torch.cat(outs, dim=1)

@@ -19,6 +19,7 @@ class PipelineOutput:
     skips: Optional[np.ndarray] = None   # realized skip bits [steps, lanes]
     video: Optional[torch.Tensor] = None  # f32 pixels [B, F, H, W, 3] when a
                                           # VAE decoded the latents
+    image: Optional[torch.Tensor] = None  # f32 pixels [B, H, W, 3] (FLUX)
 
 
 class BasePipeline:
@@ -71,3 +72,23 @@ def synced_clock(t: torch.Tensor) -> float:
     if t.is_cuda:
         torch.cuda.synchronize(t.device)
     return time.time()
+
+
+def check_image_vae(vae, channels: int, stride: int) -> None:
+    """Raise ``ValueError`` unless ``vae`` (an ``SDVAE``, or None) has a
+    model's latent ``channels`` and spatial ``stride``."""
+    if vae is not None and (vae.cfg.z_channels, vae.cfg.spatial_down) != (channels, stride):
+        raise ValueError(f"the VAE's latents ({vae.cfg.z_channels} channels, stride "
+                         f"{vae.cfg.spatial_down}) do not fit the model's ({channels} "
+                         f"channels, stride {stride})")
+
+
+def decode_pixels(vae, latents: torch.Tensor):
+    """``(pixels, timings)``: an ``SDVAE``'s decode of the sampler's latents
+    (``[B, h, w, C]``, or ``[B, T, h, w, C]`` frame by frame) after
+    ``from_latent``, and its ``decode_s``; ``(None, {})`` without a VAE."""
+    if vae is None:
+        return None, {}
+    t0 = synced_clock(latents)
+    video = vae.decode(vae.from_latent(latents))
+    return video, {"decode_s": synced_clock(video) - t0}

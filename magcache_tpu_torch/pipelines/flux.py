@@ -9,10 +9,15 @@ and MagCache keeps one cache lane. Kontext (``generate(cond_latents=...)``)
 appends the conditioning image's packed latents after the noise tokens,
 with index-1 rope ids; the head drops them.
 
-The DiT has random weights from a seeded ``torch.Generator``; no VAE decode
-(the packed latents are the output). Not ported yet (raise): checkpoints
-(``ckpt_dir``), LoRA (``lora_path``) and multi-device plans (``dp``/``sp``/
-``tp`` > 1).
+The DiT has random weights from a seeded ``torch.Generator``. With ``vae=``
+(an ``SDVAE`` of 16 latent channels and stride 8, e.g. ``FLUX_VAE``) the
+packed latents are unpacked, ``from_latent`` undoes the VAE's shift and
+scale, and the decode fills ``image``; without one the packed latents are the
+output. ``encode_image`` turns a conditioning image into Kontext's packed
+latents (the JAX CLI's ``_image_to_grid_latent``): through the VAE when the
+pipeline has one, else by the JAX package's checkpoint-free nearest resize
+and channel tile. Not ported yet (raise): checkpoints (``ckpt_dir``), LoRA
+(``lora_path``) and multi-device plans (``dp``/``sp``/``tp`` > 1).
 """
 
 from __future__ import annotations
@@ -28,13 +33,64 @@ from magcache_tpu_torch.core.magcache import MagCacheConfig
 from magcache_tpu_torch.core.presets import make_config
 from magcache_tpu_torch.core.sampler import lane_skip_masks, sample_euler
 from magcache_tpu_torch.models.flux import (FLUX_DEV, FluxConfig, FluxModel,
-                                            make_flux_core)
+                                            make_flux_core, pack_latents, unpack_latents)
 from magcache_tpu_torch.models.text import MockPooledEncoder, MockTextEncoder
-from magcache_tpu_torch.pipelines.base import BasePipeline, PipelineOutput, calibration_dict
+from magcache_tpu_torch.pipelines.base import (BasePipeline, PipelineOutput,
+                                               calibration_dict, check_image_vae,
+                                               decode_pixels, synced_clock)
 from magcache_tpu_torch.schedulers.flow_match import FlowMatchSchedule
 from magcache_tpu_torch.utils.misc import set_seed
 
 FLUX_MODELS = ("flux-dev", "flux-kontext-dev")
+# pixels -> VAE latents (the SD VAE's spatial stride) -> 2x2 packed tokens
+VAE_SPATIAL_STRIDE = 8
+
+
+def load_image(path: str) -> np.ndarray:
+    """An input image as ``f32 [H, W, 3]`` in [0, 1]: a ``.npy`` array as it
+    is (uint8 scaled by 1/255), any other file through PIL (imported here:
+    only image files need it)."""
+    if path.endswith(".npy"):
+        img = np.load(path)
+    else:
+        from PIL import Image
+
+        with Image.open(path) as im:
+            img = np.asarray(im.convert("RGB"))
+    if img.dtype == np.uint8:
+        img = img.astype(np.float32) / 255.0
+    return np.asarray(img, np.float32)
+
+
+def _nearest_resize(a: np.ndarray, h: int, w: int) -> np.ndarray:
+    ys = (np.arange(h) * a.shape[0] // h).clip(0, a.shape[0] - 1)
+    xs = (np.arange(w) * a.shape[1] // w).clip(0, a.shape[1] - 1)
+    return a[ys][:, xs]
+
+
+def image_to_grid_latent(vae, img: np.ndarray, h_lat: int, w_lat: int, c_lat: int
+                         ) -> np.ndarray:
+    """A pixel image ``[H, W, 3]`` in [0, 1] -> a conditioning latent ``f32
+    [h_lat, w_lat, c_lat]`` (the JAX CLI's ``_image_to_grid_latent``).
+
+    With ``vae`` (an ``SDVAE``): pixels to [-1, 1], the encode's mean,
+    ``to_latent``, and a nearest resize where the grid differs; a VAE of
+    other latent channels raises ``ValueError``. Without one: a nearest
+    resize and the channels tiled to ``c_lat`` (shape-correct conditioning
+    for checkpoint-free runs only)."""
+    if vae is not None:
+        px = torch.from_numpy(np.asarray(img, np.float32) * 2.0 - 1.0)[None]
+        mean, _ = vae.encode(px)
+        lat = vae.to_latent(mean)[0].cpu().numpy()
+        if lat.shape[:2] != (h_lat, w_lat):
+            lat = _nearest_resize(lat, h_lat, w_lat)
+        if lat.shape[-1] != c_lat:
+            raise ValueError(f"the VAE gives {lat.shape[-1]} latent channels but the "
+                             f"model conditions on {c_lat}: wrong VAE for this model")
+        return lat
+    px = _nearest_resize(np.asarray(img, np.float32), h_lat, w_lat)
+    reps = -(-c_lat // px.shape[-1])
+    return np.tile(px, (1, 1, reps))[:, :, :c_lat]
 
 
 @dataclasses.dataclass
@@ -85,17 +141,22 @@ class FluxPipeline(BasePipeline):
     """FLUX.1-dev / Kontext on ``device`` (the card unless told otherwise).
     Without ``model``, the DiT of ``config.model_config()`` gets random
     weights from a generator seeded with ``init_seed``; a given ``model``
-    brings its own config."""
+    brings its own config. ``vae`` (an ``SDVAE``) must have the packed
+    latents' channels (``in_channels / 4``) and stride 8."""
 
     def __init__(self, config: FluxPipelineConfig, device="cuda", text_encoder=None,
                  pooled_encoder=None, model: Optional[FluxModel] = None,
-                 init_seed: int = 0):
+                 init_seed: int = 0, vae=None):
         self.config = config
         c = config
         self.device = torch.device(device)
         self.grid = c.packed_grid()
+        model_cfg = model.cfg if model is not None else c.model_config()
+        # the model's tokens pack 2x2 latent positions
+        check_image_vae(vae, model_cfg.in_channels // 4, VAE_SPATIAL_STRIDE)
+        self.vae = vae
         if model is None:
-            model = FluxModel(c.model_config(), self.device).init(
+            model = FluxModel(model_cfg, self.device).init(
                 set_seed(init_seed, device=self.device))
         self.model_cfg = model.cfg
         self.model = model.requires_grad_(False).eval()
@@ -131,6 +192,16 @@ class FluxPipeline(BasePipeline):
             return np.zeros((steps, 1), bool)
         return lane_skip_masks(self._cache_cfg(thresh, K, retention_ratio), steps)[0]
 
+    def encode_image(self, img: np.ndarray) -> torch.Tensor:
+        """A conditioning image ``[H, W, 3]`` in [0, 1] -> Kontext's packed
+        latents ``f32[1, gh*gw, in_channels]`` on the pipeline's device (for
+        ``generate(cond_latents=...)``), through ``image_to_grid_latent``
+        with the pipeline's VAE (or without one)."""
+        gh, gw = self.grid
+        lat = image_to_grid_latent(self.vae, img, 2 * gh, 2 * gw,
+                                   self.model_cfg.in_channels // 4)
+        return pack_latents(torch.from_numpy(np.ascontiguousarray(lat))[None]).to(self.device)
+
     def _core(self, kontext: bool):
         if not kontext:
             return self.core
@@ -150,7 +221,8 @@ class FluxPipeline(BasePipeline):
     def generate(self, prompt: str, seed: int = 42,
                  cond_latents: Optional[torch.Tensor] = None,
                  skip_override: Optional[np.ndarray] = None) -> PipelineOutput:
-        """One image's packed latents ``f32[1, gh*gw, in_channels]``.
+        """One image's packed latents ``f32[1, gh*gw, in_channels]`` (and
+        with a VAE its pixels ``image f32[1, 16 gh, 16 gw, 3]``).
 
         ``cond_latents`` (``[1, gh*gw, in_channels]``, packed) runs Kontext
         conditioning; ``skip_override`` (``bool[steps, 1]`` from
@@ -182,8 +254,7 @@ class FluxPipeline(BasePipeline):
                                           skip_mask_override=skip_override,
                                           return_skips=True, **common)
             calibration = None
-        if latents.is_cuda:
-            torch.cuda.synchronize(latents.device)
-        return PipelineOutput(latents=latents, calibration=calibration,
-                              timings={"total_s": time.time() - t0},
-                              skips=skips)
+        image, timings = decode_pixels(self.vae, unpack_latents(latents, *self.grid))
+        timings["total_s"] = synced_clock(latents) - t0
+        return PipelineOutput(latents=latents, calibration=calibration, timings=timings,
+                              skips=skips, image=image)

@@ -13,8 +13,12 @@ flow is calibrate-then-install: a ``magcache_calibration`` request records
 the norm ratios (joint single lane, steps - 1 entries) and
 ``magcache_ratios`` installs them (padded and resampled as
 ``prepare_mag_ratios(lanes=1)`` does). The checkpoint-free path:
-``MockTextEncoder``, random Latte weights from a seeded ``torch.Generator``,
-no VAE (latents are the output). Pyramid Attention Broadcast
+``MockTextEncoder`` and random Latte weights from a seeded
+``torch.Generator``. With ``vae=`` (an ``SDVAE`` of 4 latent channels and
+stride 8, e.g. ``SD_VAE_FT``) ``from_latent`` undoes the VAE's scale and the
+latents decode frame by frame into ``video`` (the JAX pipeline hands the
+5-D latents to the 2-D decode unscaled); without one the latents are the
+output. Pyramid Attention Broadcast
 (``enable_pab``, ``pab_config``, default ``LATTE_PAB``) runs on the packed
 route over the DDIM timesteps, alone or under MagCache.
 """
@@ -35,7 +39,8 @@ from magcache_tpu_torch.models.latte import (LATTE_1, LatteConfig, LatteModel,
                                              make_latte_core)
 from magcache_tpu_torch.models.text import MockTextEncoder
 from magcache_tpu_torch.pipelines.base import (BasePipeline, PipelineOutput,
-                                               calibration_dict, cfg_combine)
+                                               calibration_dict, cfg_combine,
+                                               check_image_vae, decode_pixels, synced_clock)
 from magcache_tpu_torch.pipelines.open_sora_cond import clean_caption
 from magcache_tpu_torch.schedulers.ddim_eps import DDIMEpsSchedule
 from magcache_tpu_torch.utils.misc import set_seed
@@ -82,14 +87,17 @@ class LattePipeline(BasePipeline):
     """Latte T2V on ``device`` (the card unless told otherwise). Without
     ``model``, Latte gets random weights from a generator seeded with
     ``init_seed``; a given ``model`` brings its own configuration (widths,
-    caption dim)."""
+    caption dim). ``vae`` (an ``SDVAE``) must have the model's latent
+    channels and stride 8."""
 
     def __init__(self, config: LattePipelineConfig, device="cuda", text_encoder=None,
-                 model: Optional[LatteModel] = None, init_seed: int = 0):
+                 model: Optional[LatteModel] = None, init_seed: int = 0, vae=None):
         self.config = config
         c = config
         self.device = torch.device(device)
         self.model_cfg = model.cfg if model is not None else c.model_config()
+        check_image_vae(vae, self.model_cfg.in_channels, VAE_SPATIAL_STRIDE)
+        self.vae = vae
         p = self.model_cfg.patch
         lat_h, lat_w = c.height // VAE_SPATIAL_STRIDE, c.width // VAE_SPATIAL_STRIDE
         self.latent_shape = (c.num_frames, lat_h, lat_w, self.model_cfg.in_channels)
@@ -137,7 +145,8 @@ class LattePipeline(BasePipeline):
 
     def generate(self, prompt: str, negative_prompt: str = "", seed: int = 0,
                  skip_override: Optional[np.ndarray] = None) -> PipelineOutput:
-        """One video's latents ``f32[1, T, H, W, 4]``. ``skip_override``
+        """One video's latents ``f32[1, T, H, W, 4]`` (and with a VAE its
+        pixels ``video f32[1, T, 8H, 8W, 3]``). ``skip_override``
         (``bool[steps, 1]``, from ``skip_mask_for``) replaces the cache
         schedule; ``skips`` holds the realized skip bits (none in
         calibration mode, which fills ``calibration``)."""
@@ -166,7 +175,7 @@ class LattePipeline(BasePipeline):
             latents, skips = sample_euler(self.core, z, cond, cache_cfg=cache_cfg,
                                           skip_mask_override=skip_override,
                                           return_skips=True, **common)
-        if latents.is_cuda:
-            torch.cuda.synchronize(latents.device)
-        return PipelineOutput(latents=latents, calibration=calibration,
-                              timings={"total_s": time.time() - t0}, skips=skips)
+        video, timings = decode_pixels(self.vae, latents)
+        timings["total_s"] = synced_clock(latents) - t0
+        return PipelineOutput(latents=latents, calibration=calibration, timings=timings,
+                              skips=skips, video=video)

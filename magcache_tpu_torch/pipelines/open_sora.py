@@ -10,9 +10,13 @@ strategy, ``.npy`` latent references or ``loop > 1`` it runs the masked-frame
 sampler (``sample_rflow_masked``): references pasted into the noise, frames
 frozen or re-noised by their edit ratio, and each follow-on clip conditioned
 on the previous clip's last latents. The checkpoint-free path:
-``MockTextEncoder``, random STDiT3 weights from a seeded ``torch.Generator``,
-no VAE (latents are the output; image and video references, which the VAE
-would encode, raise).
+``MockTextEncoder`` and random STDiT3 weights from a seeded
+``torch.Generator``. With ``vae=`` (a ``models.vae.MicroFrameVAE`` of the
+SD spatial VAE and the temporal VAE, as ``open_sora_vae`` builds it) the
+latents, looped clips trimmed and joined, decode into ``video``, and image
+and video references encode through it; both apply the VAE's latent
+scales, which the JAX pipeline leaves out. Without a VAE the latents are
+the output and image and video references raise.
 
 ``route`` picks STDiT3's block composition (``models.stdit3``: "packed",
 "grouped" or "vpu"), for the masked-frame sampler too.
@@ -47,11 +51,13 @@ from magcache_tpu_torch.models.stdit3 import (STDIT3_XL_2, STDiT3Config,
 from magcache_tpu_torch.models.text import MockTextEncoder
 from magcache_tpu_torch.pipelines import open_sora_cond as oc
 from magcache_tpu_torch.pipelines.base import (BasePipeline, PipelineOutput,
-                                               calibration_dict, cfg_combine)
+                                               calibration_dict, cfg_combine, synced_clock)
 from magcache_tpu_torch.schedulers.rflow import RFlowSchedule
 from magcache_tpu_torch.utils.misc import set_seed
 
 VAE_SPATIAL_STRIDE = 8
+VAE_TEMPORAL_STRIDE = 4
+MICRO_FRAME_SIZE = 17      # get_latent_t's chunk: 17 frames -> 5 latents
 
 
 @dataclasses.dataclass
@@ -102,15 +108,27 @@ class OpenSoraPipeline(BasePipeline):
     """Open-Sora 1.2 on ``device`` (the card unless told otherwise).
     Without ``model``, STDiT3 gets random weights from a generator seeded
     with ``init_seed``; a given ``model`` brings its own configuration
-    (widths, caption dim)."""
+    (widths, caption dim). ``vae`` (a ``MicroFrameVAE``) must have the
+    latents' geometry: chunks of 17 frames, 4x in time, 8x in space, the
+    model's latent channels."""
 
     def __init__(self, config: OpenSoraPipelineConfig, device="cuda",
                  text_encoder=None, model: Optional[STDiT3Model] = None,
-                 init_seed: int = 0):
+                 init_seed: int = 0, vae=None):
         self.config = config
         c = config
         self.device = torch.device(device)
         self.model_cfg = model.cfg if model is not None else c.model_config()
+        if vae is not None:
+            got = (vae.micro_frame_size, vae.temporal.cfg.time_factor,
+                   vae.spatial.cfg.spatial_down, vae.temporal.cfg.embed_dim)
+            want = (MICRO_FRAME_SIZE, VAE_TEMPORAL_STRIDE, VAE_SPATIAL_STRIDE,
+                    self.model_cfg.in_channels)
+            if got != want:
+                raise ValueError(f"the VAE's (micro-frame size, time stride, space "
+                                 f"stride, latent channels) {got} are not the "
+                                 f"latents' {want}")
+        self.vae = vae
         lat_t = oc.get_latent_t(c.num_frames)
         lat_h, lat_w = c.height // VAE_SPATIAL_STRIDE, c.width // VAE_SPATIAL_STRIDE
         self.latent_shape = (lat_t, lat_h, lat_w, self.model_cfg.in_channels)
@@ -166,24 +184,38 @@ class OpenSoraPipeline(BasePipeline):
         return lambda step, shape: torch.randn(shape, generator=gen,
                                                dtype=torch.float32)
 
+    def encode_reference(self, frames: np.ndarray) -> np.ndarray:
+        """Reference frames ``[T, H, W, 3]`` in [-1, 1] -> latents ``f32 [T',
+        H/8, W/8, C]`` on the host, through the VAE's ``encode`` (its latent
+        scales included)."""
+        if self.vae is None:
+            raise ValueError("image and video references are encoded by the "
+                             "pipeline's VAE: pass vae=, or .npy latents [T, H, W, C]")
+        lat = self.vae.encode(torch.from_numpy(np.asarray(frames, np.float32))[None])
+        return lat[0].float().cpu().numpy()
+
     def _collect_references(self, reference_paths: List[str]) -> List[list]:
         """Per-batch lists of reference latents ``[T, H, W, C]``
-        (``pipeline_open_sora.py:736-751``) from ';'-separated ``.npy`` paths.
-        Image and video files need the Open-Sora VAE to encode them, which is
-        not ported yet: they raise."""
+        (``pipeline_open_sora.py:736-751``) from ';'-separated paths: ``.npy``
+        latents as they are, image and video files read with the
+        ``resize_crop`` transform and encoded by the VAE (``ValueError``
+        without one, before the file is read)."""
         refs_x = []
         for reference_path in reference_paths:
             ref = []
             for r_path in (reference_path or "").split(";") if reference_path else []:
-                if not r_path.endswith(".npy"):
-                    raise NotImplementedError(
-                        f"reference {r_path!r}: image and video references are "
-                        "encoded by the Open-Sora VAE, which is not ported yet; "
-                        "pass .npy latents [T, H, W, C]")
-                lat = np.asarray(np.load(r_path), np.float32)
-                if lat.ndim != 4:
-                    raise ValueError(f"reference {r_path!r}: latents must be "
-                                     f"[T, H, W, C], got {lat.shape}")
+                if r_path.endswith(".npy"):
+                    lat = np.asarray(np.load(r_path), np.float32)
+                    if lat.ndim != 4:
+                        raise ValueError(f"reference {r_path!r}: latents must be "
+                                         f"[T, H, W, C], got {lat.shape}")
+                elif self.vae is None:
+                    raise ValueError(f"reference {r_path!r}: image and video references "
+                                     "are encoded by the pipeline's VAE: pass vae=, or "
+                                     ".npy latents [T, H, W, C]")
+                else:
+                    c = self.config
+                    lat = self.encode_reference(oc.read_from_path(r_path, (c.height, c.width)))
                 ref.append(lat)
             refs_x.append(ref)
         return refs_x
@@ -206,7 +238,8 @@ class OpenSoraPipeline(BasePipeline):
                  condition_frame_length: int = 5, align: Optional[int] = 5,
                  condition_frame_edit: float = 0.0,
                  use_text_preprocessing: bool = True) -> PipelineOutput:
-        """One video's latents ``f32[1, T', H, W, 4]``.
+        """One video's latents ``f32[1, T', H, W, 4]`` (and with a VAE its
+        pixels ``video f32[1, F, 8H, 8W, 3]``, 17 frames for each 5 latents).
 
         ``ms`` (the mask strategy, ``loop,ref,ref_start,target_start,length,
         edit_ratio;...``) and ``refs`` (';'-separated ``.npy`` latent paths),
@@ -270,8 +303,12 @@ class OpenSoraPipeline(BasePipeline):
             clips.append(latents)
         latents = torch.cat([clips[0]] + [cl[:, condition_frame_length:]
                                           for cl in clips[1:]], dim=1)
-        if latents.is_cuda:
-            torch.cuda.synchronize(latents.device)
-        return PipelineOutput(latents=latents, calibration=calibration,
-                              timings={"total_s": time.time() - t0},
-                              skips=None if calibrate else np.concatenate(all_skips))
+        timings, video = {}, None
+        if self.vae is not None:
+            t1 = synced_clock(latents)
+            video = self.vae.decode(latents)
+            timings["decode_s"] = synced_clock(video) - t1
+        timings["total_s"] = synced_clock(latents) - t0
+        return PipelineOutput(latents=latents, calibration=calibration, timings=timings,
+                              skips=None if calibrate else np.concatenate(all_skips),
+                              video=video)

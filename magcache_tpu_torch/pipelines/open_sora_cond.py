@@ -8,8 +8,9 @@ Behavioral sources are those of the JAX module
 (``videosys/pipelines/open_sora/pipeline_open_sora.py:298-424, 532-605,
 705-797`` and ``data_process.py:474-530``). The trained bucket tables are
 shared data, read by path from ``magcache_tpu/data/opensora_buckets.json``.
-Reading image or video references (``read_from_path``) waits for the
-Open-Sora VAE, which would encode them.
+``read_from_path`` reads image and video references as normalized frames
+for the Open-Sora VAE to encode; PIL and imageio are imported inside it, so
+the rest of the module needs neither.
 """
 
 from __future__ import annotations
@@ -30,7 +31,8 @@ __all__ = ["IMG_FPS", "get_image_size", "get_num_frames", "get_latent_t",
            "clean_caption", "text_preprocessing", "append_score_to_prompts",
            "extract_json_from_prompts", "split_prompt", "merge_prompt",
            "extract_prompts_loop", "MASK_DEFAULT", "parse_mask_strategy",
-           "find_nearest_point", "apply_mask_strategy", "append_generated"]
+           "find_nearest_point", "apply_mask_strategy", "append_generated",
+           "VID_EXTENSIONS", "resize_crop_to_fill", "read_from_path"]
 
 IMG_FPS = 120          # data_process.py:25: single-frame clips condition on this
 
@@ -74,6 +76,60 @@ def get_latent_t(num_frames: int, micro: int = 17, down: int = 4) -> int:
         n += -(-rem // down)
     return max(1, n)
 
+
+
+# reference image and video reading (data_process.py:742-779)
+
+VID_EXTENSIONS = (".mp4", ".avi", ".mov", ".mkv", ".gif", ".webm")
+
+
+def resize_crop_to_fill(pil_image, image_size: Tuple[int, int]) -> np.ndarray:
+    """Scale a PIL image to cover the ``(th, tw)`` target, bicubic, and crop
+    the long axis at its centre (``data_process.py:742-758``, the pipeline's
+    ``resize_crop`` transform); returns ``uint8 [th, tw, 3]``."""
+    from PIL import Image
+
+    w, h = pil_image.size  # PIL size is (W, H)
+    th, tw = image_size
+    rh, rw = th / h, tw / w
+    if rh > rw:
+        sh, sw = th, round(w * rh)
+        image = pil_image.resize((sw, sh), Image.BICUBIC)
+        i, j = 0, int(round((sw - tw) / 2.0))
+    else:
+        sh, sw = round(h * rw), tw
+        image = pil_image.resize((sw, sh), Image.BICUBIC)
+        i, j = int(round((sh - th) / 2.0)), 0
+    arr = np.array(image)
+    if i + th > arr.shape[0] or j + tw > arr.shape[1]:
+        raise ValueError(f"crop {(th, tw)} at {(i, j)} exceeds the resized {arr.shape[:2]}")
+    return arr[i:i + th, j:j + tw]
+
+
+def read_from_path(path: str, image_size: Tuple[int, int]) -> np.ndarray:
+    """An image or video reference as frames ``f32 [T, H, W, 3]`` in [-1, 1]
+    after ``resize_crop_to_fill`` (``data_process.py:770-788``; ToTensorVideo
+    and Normalize(0.5, 0.5) are pixels / 127.5 - 1). Videos (by extension)
+    decode through imageio (mp4 needs an ffmpeg backend), images through
+    PIL."""
+    from PIL import Image
+
+    ext = os.path.splitext(path.lower())[1]
+    if ext in VID_EXTENSIONS:
+        import imageio
+
+        try:
+            raw = imageio.mimread(path, memtest=False)
+        except (OSError, ValueError, RuntimeError) as e:
+            raise RuntimeError(f"could not decode video reference {path!r}: {e}. "
+                               "mp4/avi need an imageio ffmpeg backend; GIF/WebP "
+                               "decode natively.") from e
+        arr = np.stack([resize_crop_to_fill(Image.fromarray(np.asarray(fr)).convert("RGB"),
+                                            image_size) for fr in raw])
+    else:
+        with Image.open(path) as img:
+            arr = resize_crop_to_fill(img.convert("RGB"), image_size)[None]
+    return np.asarray(arr, np.float32) / 127.5 - 1.0
 
 
 # prompt preprocessing

@@ -14,8 +14,11 @@ the JAX pipeline configures it.
 The checkpoint-free path: ``MockTextEncoder`` (77 x 4096) and
 ``MockPooledEncoder`` (2048), random weights from a seeded
 ``torch.Generator``, and the request's initial noise from its seeded CPU
-generator (the same draws on every device). Latents are the output: the
-pixels need the SD VAE, which is not ported.
+generator (the same draws on every device). With ``vae=`` (an ``SDVAE`` of
+16 latent channels and stride 8, e.g. ``SD3_VAE``) ``from_latent`` undoes the
+VAE's shift and scale and the latents decode frame by frame into ``video``
+(the JAX pipeline hands the 5-D latents to the 2-D decode unscaled);
+without one the latents are the output.
 """
 
 from __future__ import annotations
@@ -34,7 +37,8 @@ from magcache_tpu_torch.models.text import MockPooledEncoder, MockTextEncoder
 from magcache_tpu_torch.models.vchitect import (VchitectConfig, VchitectModel,
                                                 make_vchitect_core)
 from magcache_tpu_torch.pipelines.base import (BasePipeline, PipelineOutput,
-                                               calibration_dict, synced_clock)
+                                               calibration_dict, check_image_vae,
+                                               decode_pixels, synced_clock)
 from magcache_tpu_torch.schedulers.flow_match import FlowMatchSchedule
 from magcache_tpu_torch.utils.misc import set_seed
 
@@ -82,14 +86,17 @@ class VchitectPipeline(BasePipeline):
     """Vchitect-XL T2V on ``device`` (the card unless told otherwise).
     Without ``model``, the transformer gets random weights from a generator
     (on the device) seeded with ``init_seed``; a given ``model`` brings its
-    own configuration."""
+    own configuration. ``vae`` (an ``SDVAE``) must have the model's latent
+    channels and stride 8."""
 
     def __init__(self, config: VchitectPipelineConfig, device="cuda", text_encoder=None,
                  pooled_encoder=None, model: Optional[VchitectModel] = None,
-                 init_seed: int = 0):
+                 init_seed: int = 0, vae=None):
         c = self.config = config
         self.device = torch.device(device)
         self.model_cfg = model.cfg if model is not None else c.model_config()
+        check_image_vae(vae, self.model_cfg.in_channels, VAE_SPATIAL_STRIDE)
+        self.vae = vae
         p = self.model_cfg.patch
         lat_h, lat_w = c.height // VAE_SPATIAL_STRIDE, c.width // VAE_SPATIAL_STRIDE
         self.latent_shape = (c.num_frames, lat_h, lat_w, self.model_cfg.in_channels)
@@ -131,7 +138,8 @@ class VchitectPipeline(BasePipeline):
 
     def generate(self, prompt: str, negative_prompt: str = "", seed: int = 0
                  ) -> PipelineOutput:
-        """One video's latents ``f32[1, T, H/8, W/8, 16]``; ``skips`` holds
+        """One video's latents ``f32[1, T, H/8, W/8, 16]`` (and with a VAE its
+        pixels ``video f32[1, T, H, W, 3]``); ``skips`` holds
         the realized skip bits ``bool[steps, 2]`` (none in calibration mode,
         which fills ``calibration``)."""
         t0 = time.time()
@@ -150,5 +158,7 @@ class VchitectPipeline(BasePipeline):
         else:
             latents, skips = sample_euler(self.core, z, cond, cache_cfg=self._cache_cfg(),
                                           return_skips=True, **common)
-        return PipelineOutput(latents=latents, calibration=calibration,
-                              timings={"total_s": synced_clock(latents) - t0}, skips=skips)
+        video, timings = decode_pixels(self.vae, latents)
+        timings["total_s"] = synced_clock(latents) - t0
+        return PipelineOutput(latents=latents, calibration=calibration, timings=timings,
+                              skips=skips, video=video)

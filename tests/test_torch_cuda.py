@@ -924,3 +924,45 @@ def test_gains_or_rope_take_the_prepass_and_small_groups_stream(dev, norm, rope,
     _close(got, A.grouped_attention_fused_qkv_plain(
         qkv, 2, group=group, scale=72 ** -0.5, qk_gains=gains if norm else None,
         rope_tables=tables if rope else None))
+
+
+# the SD VAE presets and Open-Sora's composite at test widths (f32 cuDNN
+# convs without TF32, as the fixture sets it): the card against the CPU,
+# within 1e-4 of the largest pixel
+@pytest.mark.parametrize("preset", ["FLUX_VAE", "SD_VAE_FT", "SD3_VAE", "OPEN_SORA"])
+def test_vae_decode_on_the_card_matches_cpu(dev, preset):
+    import dataclasses
+
+    from magcache_tpu_torch.models import vae as TV
+    from magcache_tpu_torch.models import vae_sd as TS
+    from magcache_tpu_torch.models import vae_temporal as TT
+
+    torch.backends.cudnn.allow_tf32 = False
+    narrow = dict(base=8, ch_mult=(1, 1, 2, 2), blocks_per_level=1, groups=4)
+
+    def build(device):
+        if preset == "OPEN_SORA":
+            return TV.MicroFrameVAE(
+                TS.SDVAE(dataclasses.replace(TS.OPEN_SORA_SPATIAL_VAE, **narrow), device),
+                TT.VAETemporal(TT.VAETemporalConfig(filters=8, num_res_blocks=1, groups=4),
+                               device))
+        return TS.SDVAE(dataclasses.replace(getattr(TS, preset), **narrow), device)
+
+    card = build(dev).init(torch.Generator(device=dev).manual_seed(0))
+    cpu = build("cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    g = torch.Generator().manual_seed(1)
+    if preset == "OPEN_SORA":
+        z = torch.randn((1, 7, 6, 10, 4), generator=g)      # 17 + 8 frames
+        x = torch.rand((1, 9, 48, 80, 3), generator=g) * 2 - 1
+    else:
+        c = card.cfg.z_channels
+        z = card.to_latent(torch.randn((2, 3, 6, 10, c), generator=g))
+        x = torch.rand((2, 48, 80, 3), generator=g) * 2 - 1
+    want, got = cpu.decode(z), card.decode(z.to(dev))
+    assert got.device.type == dev.type and got.shape == want.shape
+    assert float((got.cpu() - want).abs().max() / want.abs().max()) < 1e-4
+    enc = (lambda m, v: m.encode(v)) if preset == "OPEN_SORA" else (
+        lambda m, v: m.encode(v)[0])
+    want, got = enc(cpu, x), enc(card, x.to(dev))
+    assert float((got.cpu() - want).abs().max() / want.abs().max()) < 1e-4

@@ -318,6 +318,16 @@ def test_cli_flux_tiny_routes(tmp_path, capsys):
     cli.main(["--task", "flux-kontext-dev", "--tiny", "--device", "cpu",
               "--use_magcache", "--save_file", str(tmp_path / "fk")])
     assert "skipped 14 of 28 forwards" in capsys.readouterr().out
-    with pytest.raises(SystemExit, match="VAE"):
-        cli.main(["--task", "flux-kontext-dev", "--tiny", "--device", "cpu",
-                  "--image", "in.png"])
+    # --image conditions Kontext as the JAX CLI does without --vae_ckpt (the
+    # image resized and channel-tiled onto the latent grid); FLUX.1-dev is t2i
+    img = str(tmp_path / "in.npy")
+    np.save(img, np.random.default_rng(3).uniform(size=(24, 40, 3)).astype(np.float32))
+    runs = {}
+    for name, extra in (("plain", []), ("image", ["--image", img])):
+        cli.main(["--task", "flux-kontext-dev", "--tiny", "--device", "cpu", "--sample_steps",
+                  "4", "--save_file", str(tmp_path / name)] + extra)
+        runs[name] = np.load(str(tmp_path / name) + "_latents.npy")
+    assert runs["image"].shape == (1, 16, 16) and np.isfinite(runs["image"]).all()
+    assert np.abs(runs["image"] - runs["plain"]).max() > 1e-4
+    with pytest.raises(SystemExit, match="only flux-kontext-dev"):
+        cli.main(["--task", "flux-dev", "--tiny", "--device", "cpu", "--image", img])

@@ -334,10 +334,11 @@ def test_pipeline_unported_paths_raise():
                                        num_sampling_steps=2, caption_len=6,
                                        resolution=None)
     pipe = tpipe.OpenSoraPipeline(cfg, "cpu")
-    # loops, mask strategies and .npy references are ported; image and video
-    # references wait for the Open-Sora VAE
+    # loops, mask strategies and .npy references run without a VAE; image
+    # and video references are encoded by the pipeline's VAE
+    # (test_torch_vae_temporal.py), and without one they raise
     for refs in ("x.png", "clip.mp4;x.npy"):
-        with pytest.raises(NotImplementedError, match="VAE"):
+        with pytest.raises(ValueError, match="VAE"):
             pipe.generate("a boat", ms="0,0,0,0,1", refs=refs)
     assert tpipe.OpenSoraPipelineConfig(resolution="480p", aspect_ratio="9:16",
                                         num_frames="2s").width == 854

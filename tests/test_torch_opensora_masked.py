@@ -292,7 +292,8 @@ def test_pipeline_json_prompt_references_match_jax(tmp_path, monkeypatch):
 
 def test_pipeline_refuses_what_needs_the_vae_or_the_plain_trajectory(tmp_path):
     _, tp = _pipeline_pair()
-    with pytest.raises(NotImplementedError, match="VAE"):
+    # a pipeline without vae= cannot encode an image reference
+    with pytest.raises(ValueError, match="VAE"):
         tp.generate("a boat", ms="0,0,0,0,1,0", refs=str(tmp_path / "frame.png"))
     _, cal = _pipeline_pair(magcache_calibration=True)
     ref = str(tmp_path / "ref.npy")
