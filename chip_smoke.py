@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives ``magcache_tpu_torch`` (never JAX) in fifty-four phases and exits
+Drives ``magcache_tpu_torch`` (never JAX) in fifty-seven phases and exits
 nonzero on the first failure:
 
 1. environment: a CUDA card is required; prints the card's name and power
@@ -240,8 +240,10 @@ Vchitect-XL-2B, and the Open-Sora-Plan and CogVideoX VAE decoders (no new
 kernel; K1 at head dim 64 over per-frame joint sequences of 1,517 tokens
 and from 121,360 queries to 77 keys; the VAEs are cuDNN convs in f32):
 46. K1 (running max, 64 padded to 128) at Vchitect's 40x480x768 spatial
-   shape 80x1,517x24x64 and cross shape 2x60,680x24x64 x 77 keys, each
-   against its plain version beside SDPA at 64;
+   shape 80x1,517x24x64 and cross shape 2x60,680x24x64 x 77 keys (the mock
+   context), and at the SD3 stack's 333 context tokens (phase 53's
+   request): spatial 80x1,773x24x64 and cross 2x70,920x24x64 x 333 keys,
+   each against its plain version beside SDPA at 64;
 47. two full-shape forwards of Vchitect-XL-2B (2.42 B parameters, bf16) at
    40x480x768 (40 frames of 30x48 patches + 77 context tokens, 2 CFG rows,
    24 blocks): time, peak memory, 24 spatial + 24 cross K1 launches a
@@ -261,10 +263,11 @@ and from 121,360 queries to 77 keys; the VAEs are cuDNN convs in f32):
    ([1, 13, 60, 90, 16] -> [1, 49, 480, 720, 3]): time, peak memory, shape,
    finite;
 50. phase 41's and 44's MagCache requests once more with ``vae=`` (phase
-   49's v1.2 and CogVideoX VAEs): pixels [1, 29, 480, 640, 3] and, at 17
-   frames (the CogVideoX VAE needs an odd latent count: 13 frames are 4
-   latent frames, which it decodes to 16), [1, 17, 480, 720, 3];
-   ``decode_s``;
+   49's v1.2 and CogVideoX VAEs): Open-Sora-Plan from the prompt through
+   phase 55's mT5-XXL, pixels [1, 29, 480, 640, 3], and CogVideoX (mock
+   text) at 17 frames (the CogVideoX VAE needs an odd latent count: 13
+   frames are 4 latent frames, which it decodes to 16), [1, 17, 480, 720,
+   3]; ``text_s`` and ``decode_s``;
 51. a narrow Vchitect (2 heads of 64, 2 blocks, non-zero ``ot``/``oc``/
    ``add_out_t``, frames of 144 + 20 tokens: K1) through its pipeline with
    skipped steps, bf16 on the card against f32 on the CPU within 5e-2 rel
@@ -282,15 +285,36 @@ f32 cuDNN convs, the mid attention plain PyTorch):
    ``MicroFrameVAE`` [1, 15, 60, 106, 4] -> [1, 51, 480, 848, 3] (the 480p
    9:16 request's 854 columns are 106 latent columns, 848 pixels): seconds,
    peak memory, parameters, pixel std; shape and finite checked;
-53. requests with MagCache ending in pixels through phase 52's VAEs:
-   flux-dev and Kontext (a seeded 1024x1024 image encoded by the FLUX.1 VAE)
-   at 1024x1024 x 28 steps, Latte 512x512 x 16 x 50 steps (flat ratios),
-   Vchitect 16x480x768 x 20 steps (flat ratios), Open-Sora 480p 9:16 x 51 x
-   30 steps with latent frame 0 pinned to an in-memory image encoded by
-   ``MicroFrameVAE.encode`` (no image file, no PIL); pixels, ``decode_s``,
-   skip bits against ``skip_mask_for``, launches against the trunk runs;
+53. requests with MagCache from the prompt through phase 56's encoders,
+   ending in pixels through phase 52's VAEs: flux-dev and Kontext (T5-XXL x
+   512 + CLIP-L pooled; a seeded 1024x1024 image encoded by the FLUX.1 VAE)
+   at 1024x1024 x 28 steps, Latte (T5-XXL x 120) 512x512 x 16 x 50 steps
+   (flat ratios), Vchitect (the SD3 stack: 333 context tokens) 16x480x768 x
+   20 steps (flat ratios), Open-Sora (T5-XXL x 300) 480p 9:16 x 51 x 30
+   steps with latent frame 0 pinned to an in-memory image encoded by
+   ``MicroFrameVAE.encode`` (no image file, no PIL); pixels, ``text_s``,
+   ``decode_s``, skip bits against ``skip_mask_for``, launches against the
+   trunk runs;
 54. the SD VAE, the temporal VAE and ``MicroFrameVAE`` at tiny widths, f32
    encode and decode on the card against the CPU within 1e-4 of the largest
+   value.
+
+The text encoders (no kernel: f32 cuBLAS GEMMs and ATen, TF32 off; random
+weights from a seeded generator on the card, the hash tokenizer; one XXL
+encoder resident at a time). Phase 55 runs before phase 50, phase 56
+before phase 53, phase 57 last:
+55. mT5-XXL (5.65 B parameters) encoding a prompt and the negative "" x 512
+   tokens: parameters, init seconds, the first and second encode's
+   seconds, peak memory, shape; fails on a non-finite output, a wrong shape
+   or a nonzero row past the prompt;
+56. T5-XXL (4.76 B) at 512, 300, 226 and 120 tokens, as phase 55; CLIP-L
+   (0.12 B, legacy EOS) pooled at 77, and CLIP-L and CLIP-bigG (0.69 B) with
+   projection and ``hidden_skip`` 1, each failing unless its pooled vector is
+   the (projected) normed state at the EOS; the SD3 stack at 77 + 256 tokens
+   (context [2, 333, 4096], pooled [2, 2048]);
+57. narrow T5 (relu and gated-gelu, block 0's bias), mT5 (its 250,112-token
+   vocabulary) and CLIP (quick-gelu pooled and gelu ``hidden_skip`` 1, both
+   projected), f32 on the card against the CPU within 1e-4 of the largest
    value.
 
 Kernel times are CUDA-event times of a loop of back-to-back launches
@@ -308,8 +332,9 @@ launches on each path (``wan-ulysses`` and ``wan-ring``: phase 25's requests
 ``wan-video``: phase 33's request; ``wan-solvers``, ``wan-teacache``:
 phases 34 and 35; ``open-sora-pab`` and ``open-sora-rolling``: phase 36's
 PAB requests and its rolling one; ``latte-pab``: phase 37;
-``open-sora-plan``: phases 40, 41 and 50; ``open-sora-plan-v110``: phase 42;
-``cogvideox``: phases 43, 44 and 50; ``vchitect``: phases 47 and 48;
+``open-sora-plan``: phases 40 and 41; ``open-sora-plan-v110``: phase 42;
+``cogvideox``: phases 43 and 44; ``vchitect``: phases 47 and 48;
+``open-sora-plan-pixels`` and ``cogvideox-pixels``: phase 50;
 ``flux-pixels``, ``latte-pixels``, ``vchitect-pixels``, ``open-sora-pixels``:
 phase 53), its
 worst error over every shape
@@ -3832,11 +3857,13 @@ VCH_TRUNK_LAUNCHES = dict(NO_LAUNCHES, flash_attention_bshd=48)
 VCH_TXT = 77
 VCH_FRAMES, VCH_GRID = 40, (40, 30, 48)      # 1,440 video + 77 text tokens a frame
 VCH_REQ_FRAMES, VCH_REQ_GRID, VCH_STEPS = 16, (16, 30, 48), 20
+SD3_T5_LEN = 256                             # the SD3 stack's T5 length
+VCH_SD3_TXT = 77 + SD3_T5_LEN                # its context: CLIP 77 + T5 256 tokens
 
 
 def phase_vchitect_kernels(dev, rec):
-    log("phase 46: K1 at Vchitect-XL's 40x480x768 shapes, running max, head dim 64 padded "
-        "to 128 (bf16)")
+    log("phase 46: K1 at Vchitect-XL's 40x480x768 shapes with the mock's 77 context tokens "
+        f"and the SD3 stack's {VCH_SD3_TXT}, running max, head dim 64 padded to 128 (bf16)")
     gen = torch.Generator(device=dev).manual_seed(4646)
     T, gh, gw = VCH_GRID
     j = gh * gw + VCH_TXT
@@ -3850,6 +3877,15 @@ def phase_vchitect_kernels(dev, rec):
     label = f"running max, Vchitect cross 2x{T * j}x24x64 x {VCH_TXT} keys -> 128"
     k1_check(rec, f"K1 [{label}]", label, rnd(2, T * j, 24, 64), rnd(2, VCH_TXT, 24, 64),
              rnd(2, VCH_TXT, 24, 64), None, big=True)
+    # the SD3 stack's context (phase 53's request): 77 + 256 tokens a frame
+    j = gh * gw + VCH_SD3_TXT
+    label = f"running max, Vchitect spatial at the SD3 context {2 * T}x{j}x24x64 -> 128"
+    k1_check(rec, f"K1 [{label}]", label, rnd(2 * T, j, 24, 64), rnd(2 * T, j, 24, 64),
+             rnd(2 * T, j, 24, 64), None, big=True)
+    label = (f"running max, Vchitect cross at the SD3 context 2x{T * j}x24x64 x "
+             f"{VCH_SD3_TXT} keys -> 128")
+    k1_check(rec, f"K1 [{label}]", label, rnd(2, T * j, 24, 64), rnd(2, VCH_SD3_TXT, 24, 64),
+             rnd(2, VCH_SD3_TXT, 24, 64), None, big=True)
 
 
 def make_vchitect_model(dev):
@@ -3990,30 +4026,33 @@ def phase_vae_decodes(dev):
     return vaes[0], vaes[2]
 
 
-def phase_pixel_requests(dev, osp_vae, cog_vae):
-    """Returns the Open-Sora-Plan and CogVideoX requests' launches."""
+def phase_pixel_requests(dev, osp_vae, cog_vae, osp_text):
+    """Returns the Open-Sora-Plan and CogVideoX requests' launches; the
+    Open-Sora-Plan request encodes its prompt with ``osp_text`` (phase 55's
+    mT5-XXL)."""
     from magcache_tpu_torch.core.magcache import compute_skip_schedule
     from magcache_tpu_torch.pipelines.cogvideox import CogVideoXPipeline, CogVideoXPipelineConfig
     from magcache_tpu_torch.pipelines.open_sora_plan import (OpenSoraPlanPipeline,
                                                              OpenSoraPlanPipelineConfig)
 
     log(f"phase 50: phase 41's and 44's MagCache requests once more, ending in pixels "
-        f"(f32 VAEs of phase 49); CogVideoX at {COG_PX_FRAMES} frames (an odd latent count)")
-    prompt = "A red sailboat glides across a calm bay at dawn."
+        f"(f32 VAEs of phase 49); Open-Sora-Plan from the prompt through phase 55's mT5-XXL, "
+        f"CogVideoX (mock text) at {COG_PX_FRAMES} frames (an odd latent count)")
+    prompt = TEXT_PROMPTS[0]
     out_counts = []
-    for label, make, pipe_cls, cfg_cls, kw, vae, lat, pixels, per_run, skip_mask in (
+    for label, make, pipe_cls, cfg_cls, kw, vae, text, lat, pixels, per_run, skip_mask in (
             ("OSP v1.2", make_osp_model, OpenSoraPlanPipeline, OpenSoraPlanPipelineConfig,
-             dict(num_frames=OSP_REQ_FRAMES, num_inference_steps=OSP_STEPS), osp_vae,
+             dict(num_frames=OSP_REQ_FRAMES, num_inference_steps=OSP_STEPS), osp_vae, osp_text,
              (1, OSP_REQ_GRID[0], 60, 80, 4), (1, OSP_REQ_FRAMES, 480, 640, 3),
              OSP_TRUNK_LAUNCHES["packed"],
              lambda p: compute_skip_schedule(p._cache_cfg()).reshape(OSP_STEPS, 2)),
             ("CogVideoX-5B", make_cogvideox_model, CogVideoXPipeline, CogVideoXPipelineConfig,
-             dict(num_frames=COG_PX_FRAMES, num_inference_steps=COG_STEPS), cog_vae,
+             dict(num_frames=COG_PX_FRAMES, num_inference_steps=COG_STEPS), cog_vae, None,
              (1, COG_PX_GRID[0], 60, 90, 16), (1, COG_PX_FRAMES, 480, 720, 3),
              COG_TRUNK_LAUNCHES, lambda p: p.skip_mask_for())):
         model = make(dev)                  # the seed of phases 40 and 43
         pipe = pipe_cls(cfg_cls(**kw, use_magcache=True, dtype="bfloat16"), dev, model=model,
-                        vae=vae)
+                        vae=vae, text_encoder=text)
         reset_counts()
         torch.cuda.reset_peak_memory_stats(dev)
         out = pipe.generate(prompt, seed=3)
@@ -4023,8 +4062,11 @@ def phase_pixel_requests(dev, osp_vae, cog_vae):
                 or not bool(torch.isfinite(video).all())):
             fail(f"{label}: video {None if video is None else tuple(video.shape)} missing, "
                  f"not {pixels} or not finite")
-        log(f"    video {tuple(video.shape)} finite, std {float(video.std()):.4f}; VAE decode "
-            f"{out.timings['decode_s']:.3f} s of {out.timings['total_s']:.3f} s; peak memory "
+        if not out.timings["text_s"] > 0:
+            fail(f"{label}: no text_s")
+        log(f"    video {tuple(video.shape)} finite, std {float(video.std()):.4f}; text encode "
+            f"{out.timings['text_s']:.3f} s and VAE decode {out.timings['decode_s']:.3f} s of "
+            f"{out.timings['total_s']:.3f} s; peak memory "
             f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
         out_counts.append(counts)
         del model, pipe, out, video
@@ -4174,15 +4216,15 @@ def phase_sd_vae_decodes(dev):
 
 def pixel_request(label, pipe, want_skips, lat_shape, px_shape, per_run, extra=None,
                   **kw):
-    """One request through ``pipe.generate`` ending in pixels: finite pixels
-    of ``px_shape``, ``decode_s``, the realized skip bits equal to
+    """One request through ``pipe.generate`` from ``TEXT_PROMPTS[0]`` ending
+    in pixels: finite pixels of ``px_shape``, ``text_s`` and ``decode_s``,
+    the realized skip bits equal to
     ``want_skips``, latents of ``lat_shape``, and the launches since the
     counts were set to 0 equal to ``per_run`` per trunk run (plus
     ``extra``); returns the launches."""
-    prompt = "A red sailboat glides across a calm bay at dawn."
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
-    out = pipe.generate(prompt, seed=3, **kw)
+    out = pipe.generate(TEXT_PROMPTS[0], seed=3, **kw)
     launched = read_counts()
     px = out.image if out.video is None else out.video
     if px is None or tuple(px.shape) != px_shape or not bool(torch.isfinite(px).all()):
@@ -4192,21 +4234,23 @@ def pixel_request(label, pipe, want_skips, lat_shape, px_shape, per_run, extra=N
         fail(f"{label}: latents {tuple(out.latents.shape)} not finite or not {lat_shape}")
     if not np.array_equal(out.skips, want_skips):
         fail(f"{label}: realized skips differ from skip_mask_for")
-    if not out.timings.get("decode_s", 0) > 0:
-        fail(f"{label}: no decode_s")
+    if not (out.timings.get("decode_s", 0) > 0 and out.timings.get("text_s", 0) > 0):
+        fail(f"{label}: no decode_s or text_s")
     runs = int((~out.skips.all(1)).sum())
     want = {k: n * runs + (extra or {}).get(k, 0) for k, n in per_run.items()}
     if launched != want:
         fail(f"{label}: launches {launched} != {want}")
-    log(f"  {label}: {out.timings['total_s']:.3f} s, VAE decode {out.timings['decode_s']:.3f} "
-        f"s; {runs} of {len(out.skips)} steps computed; pixels {tuple(px.shape)} finite, std "
+    log(f"  {label}: {out.timings['total_s']:.3f} s, text encode {out.timings['text_s']:.3f} s, "
+        f"VAE decode {out.timings['decode_s']:.3f} s; {runs} of {len(out.skips)} steps computed; pixels {tuple(px.shape)} finite, std "
         f"{float(px.std()):.4f}; peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     return launched
 
 
-def phase_pixel_families(dev, vaes):
+def phase_pixel_families(dev, vaes, t5s, clip_l, sd3):
     """Returns the launches by path: ``flux-pixels``, ``latte-pixels``,
-    ``vchitect-pixels``, ``open-sora-pixels``."""
+    ``vchitect-pixels``, ``open-sora-pixels``. Each request encodes its
+    prompt through phase 56's encoders: ``t5s`` (T5-XXL by length), ``clip_l``
+    (FLUX's pooled vector), ``sd3`` (Vchitect's stack)."""
     import os
 
     from magcache_tpu_torch.pipelines.flux import FluxPipeline, FluxPipelineConfig
@@ -4215,11 +4259,13 @@ def phase_pixel_families(dev, vaes):
                                                         OpenSoraPipelineConfig)
     from magcache_tpu_torch.pipelines.vchitect import VchitectPipeline, VchitectPipelineConfig
 
-    log("phase 53: requests ending in pixels through the phase-52 VAEs: flux-dev and "
-        "Kontext (a conditioning image encoded by the FLUX.1 VAE) at 1024x1024 x 28 steps, "
-        f"Latte 512x512 x 16 x {LATTE_STEPS} steps, Vchitect {VCH_REQ_FRAMES}x480x768 x "
-        f"{VCH_STEPS} steps, Open-Sora 480p 9:16 x 51 x {OS_STEPS} steps with an image "
-        "reference encoded by MicroFrameVAE.encode; all with MagCache")
+    log("phase 53: requests from the prompt through phase 56's encoders, ending in pixels "
+        "through the phase-52 VAEs: flux-dev and Kontext (T5-XXL x 512 + CLIP-L pooled; a "
+        "conditioning image encoded by the FLUX.1 VAE) at 1024x1024 x 28 steps, Latte (T5-XXL "
+        f"x 120) 512x512 x 16 x {LATTE_STEPS} steps, Vchitect (the SD3 stack, {VCH_SD3_TXT} "
+        f"context tokens) {VCH_REQ_FRAMES}x480x768 x {VCH_STEPS} steps, Open-Sora (T5-XXL x "
+        f"300) 480p 9:16 x 51 x {OS_STEPS} steps with an image reference encoded by "
+        "MicroFrameVAE.encode; all with MagCache")
     paths = {}
     model = make_flux_model(dev)
     head = {"layer_norm_mod": FLUX_STEPS}          # FLUX's head: one K3 a step
@@ -4227,7 +4273,8 @@ def phase_pixel_families(dev, vaes):
     for key, guidance in (("flux-dev", 3.5), ("flux-kontext-dev", 2.5)):
         pipe = FluxPipeline(FluxPipelineConfig(model=key, guidance=guidance, use_magcache=True,
                                                num_inference_steps=FLUX_STEPS), dev,
-                            model=model, vae=vaes["flux"])
+                            model=model, vae=vaes["flux"], text_encoder=t5s[512],
+                            pooled_encoder=clip_l)
         kw = {}
         if "kontext" in key:
             img = np.random.default_rng(53).uniform(size=(1024, 1024, 3)).astype(np.float32)
@@ -4245,7 +4292,7 @@ def phase_pixel_families(dev, vaes):
     model = make_latte_model(dev)
     pipe = LattePipeline(LattePipelineConfig(num_sampling_steps=LATTE_STEPS, dtype="bfloat16",
                                              use_magcache=True), dev, model=model,
-                         vae=vaes["latte"])
+                         vae=vaes["latte"], text_encoder=t5s[120])
     paths["latte-pixels"] = pixel_request(
         "Latte-1 (flat ratios) with pixels", pipe, pipe.skip_mask_for(), (1, 16, 64, 64, 4),
         (1, 16, 512, 512, 3), LATTE_TRUNK_LAUNCHES["packed"])
@@ -4255,8 +4302,10 @@ def phase_pixel_families(dev, vaes):
     model = make_vchitect_model(dev)
     pipe = VchitectPipeline(VchitectPipelineConfig(num_frames=VCH_REQ_FRAMES,
                                                    num_inference_steps=VCH_STEPS,
-                                                   dtype="bfloat16", use_magcache=True),
-                            dev, model=model, vae=vaes["vchitect"])
+                                                   txt_len=VCH_SD3_TXT, dtype="bfloat16",
+                                                   use_magcache=True),
+                            dev, model=model, vae=vaes["vchitect"], text_encoder=sd3.context,
+                            pooled_encoder=sd3.pooled)
     paths["vchitect-pixels"] = pixel_request(
         "Vchitect-XL (flat ratios) with pixels", pipe, pipe.skip_mask_for(),
         (1, VCH_REQ_FRAMES, 60, 96, 16), (1, VCH_REQ_FRAMES, 480, 768, 3),
@@ -4268,7 +4317,7 @@ def phase_pixel_families(dev, vaes):
     pipe = OpenSoraPipeline(OpenSoraPipelineConfig(
         resolution="480p", aspect_ratio="9:16", num_frames=OS_FRAMES,
         num_sampling_steps=OS_STEPS, dtype="bfloat16", use_magcache=True), dev, model=model,
-        vae=vaes["open-sora"])
+        vae=vaes["open-sora"], text_encoder=t5s[300])
     # an image reference built in memory (no file, no PIL): one frame at the
     # request's 480x854, in [-1, 1], encoded as references are (to 60x106)
     hw = (pipe.config.height, pipe.config.width)
@@ -4327,6 +4376,199 @@ def phase_vae_card_vs_cpu(dev):
                 f"max |diff| / max |CPU| {err:.3e}")
             if tuple(got.shape) != tuple(want.shape) or err > 1e-4:
                 fail(f"{name} {op}: card and CPU disagree")
+
+
+# ------------------------------------------- the text encoders from the prompt
+# A request's prompt and the families' negative one (every ported family
+# but Wan defaults to ""), as the requests of phases 50 and 53 encode them
+TEXT_PROMPTS = ["A red sailboat glides across a calm bay at dawn.", ""]
+
+
+def build_encoder(dev, label, build):
+    """``build()`` (an encoder with random weights on the card), logged:
+    parameters, init seconds, memory allocated."""
+    torch.cuda.synchronize(dev)
+    t0 = time.time()
+    enc = build()
+    torch.cuda.synchronize(dev)
+    n = sum(p.numel() for p in enc.model.parameters())
+    log(f"  {label}: {n / 1e9:.3f} B parameters ({enc.cfg.dtype}), random init "
+        f"{time.time() - t0:.2f} s, {torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated")
+    return enc
+
+
+def encode_twice(dev, fn):
+    """``(fn(), [first s, second s], peak GB)``: two calls, each ending in a
+    synchronise, under one peak-memory window."""
+    torch.cuda.reset_peak_memory_stats(dev)
+    secs = []
+    for _ in range(2):
+        torch.cuda.synchronize(dev)
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        secs.append(time.time() - t0)
+    return out, secs, torch.cuda.max_memory_allocated(dev) / 1e9
+
+
+def check_t5_encode(dev, label, enc):
+    """``TEXT_PROMPTS`` through a T5-family encoder at its length: fails on a
+    non-finite or misshapen output, a nonzero row past the prompt or a zero
+    row within it."""
+    out, secs, peak = encode_twice(dev, lambda: enc(TEXT_PROMPTS))
+    mask = torch.from_numpy(enc.tokenizer(TEXT_PROMPTS, max_length=enc.seq_len)[
+        "attention_mask"]).to(dev)
+    want = (2, enc.seq_len, enc.cfg.d_model)
+    if (tuple(out.shape) != want or not bool(torch.isfinite(out).all())
+            or bool(out[mask == 0].any()) or not bool(out[mask == 1].any(-1).all())):
+        fail(f"{label} x {enc.seq_len}: output {tuple(out.shape)} not {want}, not finite, "
+             f"nonzero past the prompt or zero within it")
+    log(f"  {label} x {enc.seq_len} tokens: encode {secs[0]:.3f} s (first call), "
+        f"{secs[1]:.3f} s (second); output {tuple(out.shape)} {out.dtype}, "
+        f"{int(mask.sum())} prompt tokens, std {float(out[mask == 1].std()):.4f}; peak "
+        f"{peak:.2f} GB")
+    return out
+
+
+def check_clip_encode(dev, label, enc):
+    """``TEXT_PROMPTS`` through a CLIP tower at 77 tokens: fails unless the
+    states (``hidden_skip``'s) are finite of ``[2, 77, dim]`` and the pooled
+    vector is the normed state at each prompt's EOS (the tokenizer's EOS id,
+    49,407), projected when the encoder projects."""
+    from magcache_tpu_torch.models.clip import clip_text_forward
+
+    tok = enc.tokenizer(TEXT_PROMPTS, max_length=enc.seq_len)
+    ids, mask = (torch.from_numpy(tok[k]).to(dev) for k in ("input_ids", "attention_mask"))
+    (h, pooled), secs, peak = encode_twice(dev, lambda: enc.encode_ids(ids, mask))
+    normed, _ = clip_text_forward(enc.model, ids, mask)
+    eos = (ids == enc.tokenizer.eos).int().argmax(1)
+    row = normed[torch.arange(2, device=dev), eos]
+    want = row @ enc.model.text_proj.float() if enc.project else row
+    cfg = enc.cfg
+    if (tuple(h.shape) != (2, enc.seq_len, cfg.dim)
+            or tuple(pooled.shape) != tuple(want.shape)
+            or not bool(torch.isfinite(h).all()) or not bool(torch.isfinite(pooled).all())
+            or float((pooled - want).abs().max()) > 1e-5 * float(want.abs().max())):
+        fail(f"{label}: states {tuple(h.shape)} / pooled {tuple(pooled.shape)} misshapen, "
+             f"not finite, or pooled away from the EOS row")
+    log(f"  {label}: encode {secs[0]:.4f} s (first call), {secs[1]:.4f} s (second); "
+        f"states {tuple(h.shape)} (hidden_skip {enc.hidden_skip}), pooled "
+        f"{tuple(pooled.shape)}{' projected' if enc.project else ''} at the EOS rows "
+        f"{eos.tolist()}, std {float(pooled.std()):.4f}; peak {peak:.2f} GB")
+
+
+def phase_mt5(dev):
+    """mT5-XXL at full width in f32; returns it (phase 50's Open-Sora-Plan
+    request encodes through it)."""
+    from magcache_tpu_torch.models.t5 import MT5_XXL
+    from magcache_tpu_torch.models.text import FallbackHashTokenizer, T5Encoder
+
+    log(f"phase 55: mT5-XXL (Open-Sora-Plan v1.2's encoder) at full width, {MT5_XXL.dtype}: "
+        f"a prompt and the negative \"\" x {OSP_CAP} tokens through the hash tokenizer")
+    tok = FallbackHashTokenizer(MT5_XXL.vocab_size)
+    enc = build_encoder(dev, "mT5-XXL", lambda: T5Encoder(
+        MT5_XXL, seq_len=OSP_CAP, tokenizer=tok, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(55)))
+    check_t5_encode(dev, "mT5-XXL", enc)
+    return enc
+
+
+def phase_text_encoders(dev):
+    """T5-XXL, CLIP-L and the SD3 stack at full width in f32. Returns the
+    T5-XXL encoders by length, CLIP-L and the stack (phase 53's requests
+    encode through them)."""
+    from magcache_tpu_torch.models.clip import CLIP_BIGG, CLIP_L, CLIP_L_SD3
+    from magcache_tpu_torch.models.t5 import T5_V1_1_XXL
+    from magcache_tpu_torch.models.text import (ClipTextEncoder, FallbackHashTokenizer,
+                                                Sd3TextStack, T5Encoder)
+
+    log(f"phase 56: T5-XXL at full width ({T5_V1_1_XXL.dtype}) at 512 (FLUX), 300 (Open-Sora), "
+        f"226 (CogVideoX) and 120 (Latte) tokens; CLIP-L pooled at 77 (FLUX: legacy EOS, no "
+        f"projection); CLIP-L and CLIP-bigG with projection and hidden_skip 1, and the SD3 "
+        f"stack at 77 + {SD3_T5_LEN} (Vchitect); each a prompt and the negative \"\"")
+    gen = torch.Generator(device=dev).manual_seed(56)
+    tok = FallbackHashTokenizer(T5_V1_1_XXL.vocab_size)
+    t5 = build_encoder(dev, "T5-XXL", lambda: T5Encoder(T5_V1_1_XXL, tokenizer=tok, device=dev,
+                                                      generator=gen))
+    t5s = {n: T5Encoder(T5_V1_1_XXL, seq_len=n, tokenizer=tok, model=t5.model)
+           for n in (512, 300, 226, 120, SD3_T5_LEN)}
+    for n in (512, 300, 226, 120):
+        check_t5_encode(dev, "T5-XXL", t5s[n])
+    clips = {}
+    for name, cfg, kw in (("CLIP-L", CLIP_L, {}),
+                          ("CLIP-L (SD3)", CLIP_L_SD3, dict(hidden_skip=1, project=True)),
+                          ("CLIP-bigG (SD3)", CLIP_BIGG, dict(hidden_skip=1, project=True))):
+        clips[name] = build_encoder(dev, name, lambda: ClipTextEncoder(
+            cfg, device=dev, generator=gen, **kw))
+        check_clip_encode(dev, name, clips[name])
+
+    def stack():
+        return Sd3TextStack(clips["CLIP-L (SD3)"], clips["CLIP-bigG (SD3)"], t5s[SD3_T5_LEN])
+
+    def encode_fresh():             # a new stack a call: no memo between the two
+        s = stack()
+        return s.context(TEXT_PROMPTS), s.pooled(TEXT_PROMPTS)
+
+    (ctx, pooled), secs, peak = encode_twice(dev, encode_fresh)
+    mask = torch.from_numpy(tok(TEXT_PROMPTS, max_length=SD3_T5_LEN)["attention_mask"]).to(dev)
+    if (tuple(ctx.shape) != (2, VCH_SD3_TXT, 4096) or tuple(pooled.shape) != (2, 2048)
+            or not bool(torch.isfinite(ctx).all()) or not bool(torch.isfinite(pooled).all())
+            or bool(ctx[:, :77, 768 + 1280:].any()) or bool(ctx[:, 77:][mask == 0].any())):
+        fail(f"SD3 stack: context {tuple(ctx.shape)} / pooled {tuple(pooled.shape)} "
+             f"misshapen, not finite, or nonzero in the CLIP channels' pad or past the T5 "
+             f"prompt")
+    log(f"  SD3 stack (CLIP-L + CLIP-bigG penultimate states zero-padded to 4096, T5-XXL x "
+        f"{SD3_T5_LEN}): encode {secs[0]:.3f} s (first call), {secs[1]:.3f} s (second); "
+        f"context {tuple(ctx.shape)}, pooled {tuple(pooled.shape)}; peak {peak:.2f} GB")
+    return t5s, clips["CLIP-L"], stack()
+
+
+def phase_text_card_vs_cpu(dev):
+    """Narrow T5 (relu and gated, block 0's bias), mT5 and CLIP (quick-gelu
+    and gelu, projected) on the card against the CPU in f32."""
+    from magcache_tpu_torch.models.clip import CLIPTextConfig, CLIPTextModel
+    from magcache_tpu_torch.models.t5 import MT5_XXL, T5Config, T5Model
+    from magcache_tpu_torch.models.text import ClipTextEncoder, T5Encoder
+
+    log("phase 57: narrow text encoders, f32, the card against the CPU (tol 1e-4 of the "
+        "largest value): T5 relu and gated-gelu (block 0's bias), mT5 (its 250,112-token "
+        "vocabulary), CLIP quick-gelu (pooled) and gelu (hidden_skip 1), both projected")
+    rng = np.random.default_rng(57)
+    gen = torch.Generator(device=dev).manual_seed(57)
+    narrow = dict(d_model=256, d_kv=64, d_ff=512, layers=3, heads=4)
+    mask = np.ones((2, 64), np.int64)
+    mask[1, 40:] = 0
+
+    def check(label, got, want):
+        got = [g.cpu() for g in got]
+        err = max(float((g - w).abs().max() / w.abs().max()) for g, w in zip(got, want))
+        # f32 without TF32 on both: summation order only
+        log(f"  {label}: max |diff| / max |CPU| {err:.3e} (tol 1e-4), rel L2 "
+            f"{max(rel_l2(g, w) for g, w in zip(got, want)):.3e}")
+        if err > 1e-4 or any(g.shape != w.shape for g, w in zip(got, want)):
+            fail(f"{label}: the card and the CPU disagree")
+
+    for label, cfg in (("T5 relu", T5Config(vocab_size=1000, feed_forward="relu", **narrow)),
+                       ("T5 gated-gelu", T5Config(vocab_size=1000, **narrow)),
+                       ("mT5", T5Config(vocab_size=MT5_XXL.vocab_size, **narrow))):
+        card = T5Encoder(cfg, device=dev, generator=gen)
+        cpu_model = T5Model(cfg, "cpu")
+        cpu_model.load_state_dict(card.model.state_dict())
+        ids = rng.integers(2, cfg.vocab_size, (2, 64))
+        check(f"{label} (d 256, 3 layers)", [card.encode_ids(ids, mask)],
+              [T5Encoder(cfg, model=cpu_model).encode_ids(ids, mask)])
+    for label, quick, skip in (("CLIP quick-gelu, pooled", True, 0),
+                               ("CLIP gelu, hidden_skip 1", False, 1)):
+        cfg = CLIPTextConfig(dim=256, heads=4, layers=3, quick_gelu=quick, projection_dim=128)
+        card = ClipTextEncoder(cfg, hidden_skip=skip, project=True, device=dev, generator=gen)
+        cpu_model = CLIPTextModel(cfg, "cpu")
+        cpu_model.load_state_dict(card.model.state_dict())
+        cpu = ClipTextEncoder(cfg, hidden_skip=skip, project=True, model=cpu_model)
+        tok = card.tokenizer(["a photo of a cat on a mat", "Two anthropomorphic cats fight "
+                              "on a stage while the crowd cheers"], max_length=77)
+        ids, attn = tok["input_ids"], tok["attention_mask"]
+        check(f"{label} (d 256, 3 layers, projection 128)", card.encode_ids(ids, attn),
+              cpu.encode_ids(ids, attn))
 
 
 def main():
@@ -4462,19 +4704,28 @@ def main():
     torch.cuda.empty_cache()
     osp_vae, cog_vae = phase_vae_decodes(dev)
     torch.cuda.empty_cache()
-    osp_px, cog_px = phase_pixel_requests(dev, osp_vae, cog_vae)
-    osp = {k: n + osp_px[k] for k, n in osp.items()}
-    cog = {k: n + cog_px[k] for k, n in cog.items()}
+    t0_text = time.time()
+    mt5 = phase_mt5(dev)
+    t_text = time.time() - t0_text
+    osp_px, cog_px = phase_pixel_requests(dev, osp_vae, cog_vae, mt5)
+    del mt5
+    torch.cuda.empty_cache()
     phase_vchitect_vae_card_vs_cpu(dev, osp_vae, cog_vae)
     del osp_vae, cog_vae
     torch.cuda.empty_cache()
     t_vch = time.time() - t0 - t_wan - t_os - t_flux - t_os720 - t_latte - t_sp \
         - t_unpacked - t_ends - t_pab - t_osp
     vaes = phase_sd_vae_decodes(dev)
-    pixel_paths = phase_pixel_families(dev, vaes)
-    del vaes
+    t0_text = time.time()
+    t5s, clip_l, sd3 = phase_text_encoders(dev)
+    t_text += time.time() - t0_text
+    pixel_paths = phase_pixel_families(dev, vaes, t5s, clip_l, sd3)
+    del vaes, t5s, clip_l, sd3
     torch.cuda.empty_cache()
     phase_vae_card_vs_cpu(dev)
+    t0_text = time.time()
+    phase_text_card_vs_cpu(dev)
+    t_text += time.time() - t0_text
     log(f"all phases passed in {time.time() - t0:.1f} s (Wan {t_wan:.1f} s, "
         f"Open-Sora {t_os:.1f} s, FLUX {t_flux:.1f} s, Open-Sora 720p "
         f"{t_os720:.1f} s, Latte {t_latte:.1f} s, Wan sequence-parallel {t_sp:.1f} s, "
@@ -4483,7 +4734,8 @@ def main():
         f"{t_pab:.1f} s, Open-Sora-Plan and CogVideoX {t_osp:.1f} s, Vchitect and the "
         f"Open-Sora-Plan and CogVideoX VAEs {t_vch:.1f} s, the SD and Open-Sora VAEs "
         f"and the requests ending in their pixels "
-        f"{time.time() - t0 - t_wan - t_os - t_flux - t_os720 - t_latte - t_sp - t_unpacked - t_ends - t_pab - t_osp - t_vch:.1f} s)")
+        f"{time.time() - t0 - t_wan - t_os - t_flux - t_os720 - t_latte - t_sp - t_unpacked - t_ends - t_pab - t_osp - t_vch:.1f} s; "
+        f"the text encoders' phases 55-57, within those, {t_text:.1f} s)")
 
     meta = {
         "flash_attention_bshd": ("cuda", "magcache_tpu_torch/csrc/hopper_attention.cuh",
@@ -4529,7 +4781,8 @@ def main():
              "wan-solvers": wan_solvers, "wan-teacache": wan_tea, "open-sora-pab": os_pab,
              "open-sora-rolling": os_rolling, "latte-pab": latte_pab,
              "open-sora-plan": osp, "open-sora-plan-v110": osp_v110, "cogvideox": cog,
-             "vchitect": vch, **pixel_paths}
+             "vchitect": vch, "open-sora-plan-pixels": osp_px, "cogvideox-pixels": cog_px,
+             **pixel_paths}
     kernels = []
     for name, (route, source, replaces) in meta.items():
         by_path = {p: c[name] for p, c in paths.items()}

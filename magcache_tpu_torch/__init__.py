@@ -8,7 +8,9 @@ and never ``jax`` or ``magcache_tpu``; it reads the shared calibration data
 
 Ported so far: Wan2.1 T2V-1.3B (UniPC, dual CFG cache lanes, MagCache
 E/K/R, sequence parallelism, the UMT5 encoder and the VAE decode), Open-Sora
-1.2 (STDiT3 on three routes), FLUX.1-dev / Kontext and Latte-1. Every TPU
+1.2 (STDiT3 on three routes), FLUX.1-dev / Kontext, Latte-1,
+Open-Sora-Plan, CogVideoX-5B and Vchitect-XL, their VAEs, and the T5, mT5,
+CLIP and SD3 text encoders (``models/{t5,clip,text}.py``). Every TPU
 kernel of the JAX package has a hand-written counterpart (``ops/``; sources
 under ``csrc/``).
 """

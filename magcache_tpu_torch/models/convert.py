@@ -12,10 +12,12 @@ same for Vchitect-XL, and ``umt5_params_from_numpy``,
 ``cogvideox_vae_params_from_numpy`` for the UMT5 encoder and the Wan,
 Open-Sora-Plan and CogVideoX VAEs' decoders, and
 ``sd_vae_params_from_numpy`` and ``vae_temporal_params_from_numpy`` for the
-SD VAE and Open-Sora's temporal VAE, encoder and decoder. Three layout
-rules: the JAX block weights are depth-stacked ``[L, ...]`` (one entry per
-block here), JAX's ``linear`` is ``x @ w`` with
-``w: [d_in, d_out]`` while ``nn.Linear`` keeps ``[d_out, d_in]``, and JAX's
+SD VAE and Open-Sora's temporal VAE, encoder and decoder;
+``t5_params_from_flax`` for a T5 or mT5 encoder from the HF Flax tree the
+JAX package's ``JaxT5Encoder`` runs, and ``clip_text_params_from_numpy`` for
+the CLIP text tower. Three layout rules: the JAX block weights are
+depth-stacked ``[L, ...]`` (one entry per block here), JAX's ``linear`` is
+``x @ w`` with ``w: [d_in, d_out]`` while ``nn.Linear`` keeps ``[d_out, d_in]``, and JAX's
 conv kernels are ``[kt, kh, kw, C_in, C_out]`` (``[kh, kw, C_in, C_out]``)
 where PyTorch's are ``[C_out, C_in, kt, kh, kw]``.
 """
@@ -27,12 +29,13 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from magcache_tpu_torch.models.clip import CLIPTextConfig
 from magcache_tpu_torch.models.cogvideox import CogVideoXConfig
 from magcache_tpu_torch.models.flux import FluxConfig
 from magcache_tpu_torch.models.latte import LatteConfig
 from magcache_tpu_torch.models.open_sora_plan import OpenSoraPlanConfig
 from magcache_tpu_torch.models.stdit3 import STDiT3Config
-from magcache_tpu_torch.models.umt5 import UMT5Config
+from magcache_tpu_torch.models.t5 import T5Config, UMT5Config
 from magcache_tpu_torch.models.vae_cogvideox import CogVideoXVAEConfig
 from magcache_tpu_torch.models.vae_osp import OSPVAEConfig
 from magcache_tpu_torch.models.vae_sd import SDVAEConfig
@@ -296,6 +299,69 @@ def umt5_params_from_numpy(tree: dict, cfg: UMT5Config, device=None
             sd[f"blocks.{i}.{name}"] = put(blocks[name][i])
         for name in _UMT5_LINEARS:
             sd[f"blocks.{i}.{name}.weight"] = put(np.asarray(blocks[name][i]).T)
+    return sd
+
+
+def t5_params_from_flax(tree: dict, cfg: T5Config, device=None
+                        ) -> Dict[str, torch.Tensor]:
+    """State dict for ``T5Model(cfg)`` from a Flax T5 / mT5 encoder's params
+    as numpy (``magcache_tpu.models.text.JaxT5Encoder(...).params``: HF
+    ``FlaxT5EncoderModel`` keys, ``Dense`` kernels ``[in, out]``, the
+    relative bias in block 0 only), every tensor in ``cfg.torch_dtype``."""
+    if cfg.per_layer_bias:
+        raise ValueError("a Flax T5 tree shares block 0's bias; a per-layer-bias (UMT5) "
+                         "config takes umt5_params_from_numpy")
+    dt = cfg.torch_dtype
+
+    def put(arr, transpose=False):
+        arr = np.asarray(arr, np.float32)
+        return torch.from_numpy(np.array(arr.T if transpose else arr)).to(
+            device=device, dtype=dt)
+
+    enc = tree["encoder"]
+    sd = {"embed": put(tree["shared"]["embedding"]),
+          "final_ln": put(enc["final_layer_norm"]["weight"])}
+    ff = (("wi", "wi"),) if cfg.feed_forward == "relu" else (("wi_0", "wi0"), ("wi_1", "wi1"))
+    for i in range(cfg.layers):
+        att, mlp = (enc["block"][str(i)]["layer"][j] for j in ("0", "1"))
+        sa, dense = att["SelfAttention"], mlp["DenseReluDense"]
+        pre = f"blocks.{i}."
+        sd[pre + "ln1"] = put(att["layer_norm"]["weight"])
+        sd[pre + "ln2"] = put(mlp["layer_norm"]["weight"])
+        for n in "qkvo":
+            sd[f"{pre}{n}.weight"] = put(sa[n]["kernel"], transpose=True)
+        if i == 0:
+            sd[pre + "rel"] = put(sa["relative_attention_bias"]["embedding"])
+        for flax_name, name in ff + (("wo", "wo"),):
+            sd[f"{pre}{name}.weight"] = put(dense[flax_name]["kernel"], transpose=True)
+    return sd
+
+
+def clip_text_params_from_numpy(tree: dict, cfg: CLIPTextConfig, device=None
+                                ) -> Dict[str, torch.Tensor]:
+    """State dict for ``CLIPTextModel(cfg)`` from a numpy CLIP text tree (the
+    layout of ``magcache_tpu.models.clip.init_clip_text_params``, blocks
+    depth-stacked, fused qkv; ``text_proj [dim, projection_dim]`` where the
+    config has a projection), every tensor in ``cfg.torch_dtype``."""
+    if ("text_proj" in tree) != (cfg.projection_dim is not None):
+        raise ValueError(f"the tree {'has' if 'text_proj' in tree else 'lacks'} text_proj, "
+                         f"the config's projection_dim is {cfg.projection_dim}")
+    sd: Dict[str, torch.Tensor] = {}
+    put, put_linear = _putters(sd, device)
+    dt = cfg.torch_dtype
+    put("tok", tree["tok"], dt)
+    put("pos", tree["pos"], dt)
+    put("final_norm.weight", tree["final_norm_w"], dt)
+    put("final_norm.bias", tree["final_norm_b"], dt)
+    if "text_proj" in tree:
+        put("text_proj", tree["text_proj"], dt)
+    g = tree["blocks"]
+    for i in range(cfg.layers):
+        for n in ("norm1", "norm2"):
+            put(f"blocks.{i}.{n}.weight", g[f"{n}_w"][i], dt)
+            put(f"blocks.{i}.{n}.bias", g[f"{n}_b"][i], dt)
+        for n in ("qkv", "proj", "mlp1", "mlp2"):
+            put_linear(f"blocks.{i}.{n}", {"w": g[n]["w"][i], "b": g[n]["b"][i]}, dt)
     return sd
 
 

@@ -1,6 +1,14 @@
-"""Text encoders' checkpoint-free stand-ins: the mock encoders, and the
-hash tokenizer that brings prompts to ``models.umt5.UMT5Encoder`` without a
-tokenizer file."""
+"""Text encoders, prompts to states: the T5-family encoder (T5, mT5, UMT5),
+the CLIP text tower, the SD3 triple stack, the mock encoders, and the hash
+tokenizer that brings prompts to them without a tokenizer file.
+
+The counterparts of ``magcache_tpu.models.text``'s ``JaxT5Encoder`` /
+``make_t5_encoder`` (configs only), ``ClipTextEncoder``, ``Sd3TextStack``,
+the mocks and ``FallbackHashTokenizer``. Each encoder runs on the card
+unless ``device`` says otherwise, with random weights from a seeded
+generator or a given model; its ``__call__(prompts, device=)`` fills a
+pipeline's ``text_encoder`` or ``pooled_encoder`` slot.
+"""
 
 from __future__ import annotations
 
@@ -10,6 +18,10 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+
+from magcache_tpu_torch.models.clip import CLIPTextConfig, CLIPTextModel, clip_text_forward
+from magcache_tpu_torch.models.t5 import T5Config, T5Model, t5_encode
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,3 +97,160 @@ class FallbackHashTokenizer:
             ids[i, :len(toks)] = toks
             ids[i, len(toks)] = self.eos
         return {"input_ids": ids, "attention_mask": (ids != self.pad).astype(np.int64)}
+
+
+def _as_tensor(a) -> torch.Tensor:
+    return a if torch.is_tensor(a) else torch.as_tensor(np.asarray(a))
+
+
+def _tokens(tokenizer, prompts: Sequence[str], seq_len: int, name: str):
+    """``(input_ids, attention_mask)`` of ``prompts`` padded to ``seq_len``."""
+    if tokenizer is None:
+        raise ValueError(f"{name}: raw prompts need a tokenizer; pass ids to encode_ids")
+    tok = tokenizer(list(prompts), padding="max_length", truncation=True,
+                    max_length=seq_len, return_tensors="np")
+    return tok["input_ids"], tok["attention_mask"]
+
+
+def _seeded(device, generator: Optional[torch.Generator]) -> torch.Generator:
+    return generator or torch.Generator(device=torch.device(device)).manual_seed(0)
+
+
+class T5Encoder:
+    """Prompts -> ``[B, seq_len, d_model]`` through a T5-family encoder
+    (``models.t5``: T5, mT5 or UMT5, as ``cfg`` says): the encoder on
+    ``device`` with random weights from ``generator`` (default: seed 0 on
+    ``device``), or the given ``model``. ``tokenizer`` (e.g.
+    ``FallbackHashTokenizer``) turns prompts into ids for ``__call__``;
+    ``encode_ids`` takes ids. Padded rows of the output are zero."""
+
+    def __init__(self, cfg: T5Config, seq_len: int = 512, tokenizer=None,
+                 device="cuda", generator: Optional[torch.Generator] = None,
+                 model: Optional[T5Model] = None):
+        self.cfg = cfg
+        self.seq_len = seq_len
+        self.tokenizer = tokenizer
+        if model is None:
+            model = T5Model(cfg, torch.device(device)).init(_seeded(device, generator))
+        self.model = model.requires_grad_(False).eval()
+
+    def encode_ids(self, input_ids, attention_mask=None) -> torch.Tensor:
+        """Ids ``[B, L]`` (numpy or tensor) -> ``[B, L, d_model]``."""
+        mask = None if attention_mask is None else _as_tensor(attention_mask)
+        return t5_encode(self.model, _as_tensor(input_ids), mask)
+
+    def __call__(self, prompts: Sequence[str], device=None) -> torch.Tensor:
+        """Tokenize ``prompts`` to ``seq_len`` and encode them; the result on
+        ``device`` (default: the encoder's)."""
+        out = self.encode_ids(*_tokens(self.tokenizer, prompts, self.seq_len,
+                                       type(self).__name__))
+        return out if device is None else out.to(device)
+
+
+def make_t5_encoder(cfg: T5Config, seq_len: int = 512, tokenizer=None, device="cuda",
+                    generator: Optional[torch.Generator] = None,
+                    model: Optional[T5Model] = None) -> T5Encoder:
+    """The T5-family encoder of a config (``magcache_tpu.models.text.
+    make_t5_encoder`` for configs): a UMT5 config (``per_layer_bias``) gives
+    every layer its own relative bias, a T5 or mT5 config block 0's shared
+    one. Checkpoint directories are not ported."""
+    return T5Encoder(cfg, seq_len=seq_len, tokenizer=tokenizer, device=device,
+                     generator=generator, model=model)
+
+
+class ClipTextEncoder:
+    """Prompts -> the CLIP text tower's pooled vector ``f32[B, d or
+    projection_dim]`` (or with ``states`` its token states ``f32[B, seq_len,
+    d]``): FLUX's pooled encoder and the SD3 stack's towers. The tower is on
+    ``device`` with random weights from ``generator`` (default: seed 0 on
+    ``device``), or the given ``model``; ``hidden_skip`` and ``project`` are
+    ``clip_text_forward``'s.
+
+    Without ``tokenizer`` it builds the hash tokenizer with the vocabulary's
+    EOS. A legacy config (``eos_token_id`` 2) gets ``vocab_size - 1`` (49,407
+    for CLIP), the largest id, as the real tokenizer writes it: its pooling
+    takes ``argmax(ids)``. The JAX wrapper writes id 2 there and pools at the
+    largest hashed word instead."""
+
+    def __init__(self, cfg: CLIPTextConfig, seq_len: Optional[int] = None, tokenizer=None,
+                 states: bool = False, hidden_skip: int = 0, project: bool = False,
+                 device="cuda", generator: Optional[torch.Generator] = None,
+                 model: Optional[CLIPTextModel] = None):
+        self.cfg = cfg
+        self.seq_len = seq_len or cfg.max_len
+        if tokenizer is None:
+            eos = cfg.vocab_size - 1 if cfg.legacy_eos else cfg.eos_token_id
+            tokenizer = FallbackHashTokenizer(cfg.vocab_size, eos_token_id=eos)
+        self.tokenizer = tokenizer
+        self.states, self.hidden_skip, self.project = states, hidden_skip, project
+        if model is None:
+            model = CLIPTextModel(cfg, torch.device(device)).init(_seeded(device, generator))
+        if project and model.text_proj is None:
+            raise ValueError("project=True (the SD3 text_embeds recipe) needs a model with "
+                             "text_proj; this one has none")
+        self.model = model.requires_grad_(False).eval()
+
+    def encode_ids(self, input_ids, attention_mask=None):
+        """Ids ``[B, S]`` -> ``(hidden, pooled)`` of ``clip_text_forward``."""
+        mask = None if attention_mask is None else _as_tensor(attention_mask)
+        return clip_text_forward(self.model, _as_tensor(input_ids), mask,
+                                 hidden_skip=self.hidden_skip, project=self.project)
+
+    def __call__(self, prompts: Sequence[str], device=None) -> torch.Tensor:
+        h, pooled = self.encode_ids(*_tokens(self.tokenizer, prompts, self.seq_len,
+                                             type(self).__name__))
+        out = h if self.states else pooled
+        return out if device is None else out.to(device)
+
+
+class Sd3TextStack:
+    """The SD3 triple encoder Vchitect conditions on (CLIP-L + CLIP-bigG with
+    projection, T5-XXL; ``magcache_tpu.models.text.Sd3TextStack``)::
+
+        context = concat_seq(pad_dim(concat_dim(clip_l.h, clip_g.h), t5_dim), t5)
+        pooled  = concat_dim(clip_l.pooled, clip_g.pooled)
+
+    with each CLIP's ``hidden_skip`` states (the SD3 recipe: 1, the
+    penultimate block's). ``.context`` and ``.pooled`` fill a pipeline's
+    ``(text_encoder, pooled_encoder)`` slots; a one-entry memo encodes each
+    prompt batch once. Both are f32."""
+
+    def __init__(self, clip_l: ClipTextEncoder, clip_g: ClipTextEncoder, t5,
+                 t5_dim: Optional[int] = None):
+        self.clip_l, self.clip_g, self.t5 = clip_l, clip_g, t5
+        self.t5_dim = t5_dim
+        self._memo: tuple = (None, None)
+
+    def _encode(self, prompts: Sequence[str]):
+        key = tuple(prompts)
+        if self._memo[0] == key:
+            return self._memo[1]
+        t5_h = self.t5(list(prompts))
+        t5_dim = self.t5_dim or t5_h.shape[-1]
+        if self.clip_l.seq_len != self.clip_g.seq_len:
+            raise ValueError(
+                f"SD3 stack concatenates the two CLIP towers' states on the channel "
+                f"axis, so their sequence lengths must match: clip_l="
+                f"{self.clip_l.seq_len} clip_g={self.clip_g.seq_len}")
+        parts, pooled = [], []
+        for enc in (self.clip_l, self.clip_g):
+            h, p = enc.encode_ids(*_tokens(enc.tokenizer, prompts, enc.seq_len,
+                                           "Sd3TextStack"))
+            parts.append(h.to(t5_h.device))
+            pooled.append(p.to(t5_h.device))
+        clip_h = torch.cat(parts, dim=-1)
+        if clip_h.shape[-1] > t5_dim:
+            raise ValueError(f"the CLIP states' {clip_h.shape[-1]} channels do not fit "
+                             f"t5_dim {t5_dim}")
+        clip_h = F.pad(clip_h, (0, t5_dim - clip_h.shape[-1]))
+        out = (torch.cat([clip_h, t5_h.float()], dim=1), torch.cat(pooled, dim=-1))
+        self._memo = (key, out)
+        return out
+
+    def context(self, prompts: Sequence[str], device=None) -> torch.Tensor:
+        out = self._encode(prompts)[0]
+        return out if device is None else out.to(device)
+
+    def pooled(self, prompts: Sequence[str], device=None) -> torch.Tensor:
+        out = self._encode(prompts)[1]
+        return out if device is None else out.to(device)

@@ -74,6 +74,15 @@ def synced_clock(t: torch.Tensor) -> float:
     return time.time()
 
 
+def timed_encode(encoder, prompts, device):
+    """``(states, seconds)``: ``encoder(prompts, device=device)`` (a text
+    encoder slot's call) and its host seconds, ending once the card is done
+    with it (``timings["text_s"]`` sums them)."""
+    t0 = time.time()
+    out = encoder(prompts, device=device)
+    return out, synced_clock(out) - t0
+
+
 def check_image_vae(vae, channels: int, stride: int) -> None:
     """Raise ``ValueError`` unless ``vae`` (an ``SDVAE``, or None) has a
     model's latent ``channels`` and spatial ``stride``."""

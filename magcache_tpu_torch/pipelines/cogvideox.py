@@ -40,7 +40,8 @@ from magcache_tpu_torch.models.cogvideox import (CogVideoXConfig, CogVideoXModel
                                                  make_cogvideox_core)
 from magcache_tpu_torch.models.text import MockTextEncoder
 from magcache_tpu_torch.pipelines.base import (BasePipeline, PipelineOutput,
-                                               calibration_dict, cfg_combine, synced_clock)
+                                               calibration_dict, cfg_combine, synced_clock,
+                                               timed_encode)
 from magcache_tpu_torch.schedulers.ddim_cogvideo import CogVideoDDIMSchedule
 from magcache_tpu_torch.utils.misc import set_seed
 
@@ -177,7 +178,9 @@ class CogVideoXPipeline(BasePipeline):
             raise ValueError("skip_override is a generation-path argument of the "
                              "static-CFG pipeline (not with use_dynamic_cfg or "
                              "magcache_calibration)")
-        cond = {"txt": self.text_encoder([prompt, negative_prompt], device=self.device)}
+        states, text_s = timed_encode(self.text_encoder, [prompt, negative_prompt],
+                                      self.device)
+        cond = {"txt": states}
         z = self._initial_noise(set_seed(seed)).to(self.device)
         c_x, c_v = self.schedule.step_arrays()
         common = dict(timesteps=self.schedule.timesteps.astype(np.float32), dts=c_v,
@@ -193,7 +196,7 @@ class CogVideoXPipeline(BasePipeline):
             latents, skips = sample_euler(self.core, z, cond, cache_cfg=cache_cfg,
                                           skip_mask_override=skip_override,
                                           return_skips=True, **common)
-        timings, video = {}, None
+        timings, video = {"text_s": text_s}, None
         if self.vae is not None:
             t1 = synced_clock(latents)
             video = self.vae.decode_tiled(latents / self.vae.cfg.scaling_factor)

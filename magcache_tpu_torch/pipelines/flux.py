@@ -37,7 +37,7 @@ from magcache_tpu_torch.models.flux import (FLUX_DEV, FluxConfig, FluxModel,
 from magcache_tpu_torch.models.text import MockPooledEncoder, MockTextEncoder
 from magcache_tpu_torch.pipelines.base import (BasePipeline, PipelineOutput,
                                                calibration_dict, check_image_vae,
-                                               decode_pixels, synced_clock)
+                                               decode_pixels, synced_clock, timed_encode)
 from magcache_tpu_torch.schedulers.flow_match import FlowMatchSchedule
 from magcache_tpu_torch.utils.misc import set_seed
 
@@ -234,8 +234,9 @@ class FluxPipeline(BasePipeline):
         calibrate = c.magcache_calibration
         if calibrate and skip_override is not None:
             raise ValueError("skip_override is a generation-path surface")
-        cond = {"txt": self.text_encoder([prompt], device=self.device),
-                "vec": self.pooled_encoder([prompt], device=self.device),
+        txt, txt_s = timed_encode(self.text_encoder, [prompt], self.device)
+        vec, vec_s = timed_encode(self.pooled_encoder, [prompt], self.device)
+        cond = {"txt": txt, "vec": vec,
                 "guidance": torch.full((1,), c.guidance, dtype=torch.float32,
                                        device=self.device)}
         if cond_latents is not None:
@@ -255,6 +256,7 @@ class FluxPipeline(BasePipeline):
                                           return_skips=True, **common)
             calibration = None
         image, timings = decode_pixels(self.vae, unpack_latents(latents, *self.grid))
+        timings["text_s"] = txt_s + vec_s
         timings["total_s"] = synced_clock(latents) - t0
         return PipelineOutput(latents=latents, calibration=calibration, timings=timings,
                               skips=skips, image=image)

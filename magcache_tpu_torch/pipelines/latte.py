@@ -40,7 +40,8 @@ from magcache_tpu_torch.models.latte import (LATTE_1, LatteConfig, LatteModel,
 from magcache_tpu_torch.models.text import MockTextEncoder
 from magcache_tpu_torch.pipelines.base import (BasePipeline, PipelineOutput,
                                                calibration_dict, cfg_combine,
-                                               check_image_vae, decode_pixels, synced_clock)
+                                               check_image_vae, decode_pixels, synced_clock,
+                                               timed_encode)
 from magcache_tpu_torch.pipelines.open_sora_cond import clean_caption
 from magcache_tpu_torch.schedulers.ddim_eps import DDIMEpsSchedule
 from magcache_tpu_torch.utils.misc import set_seed
@@ -156,7 +157,8 @@ class LattePipeline(BasePipeline):
             prompt = clean_caption(clean_caption(prompt))
             if negative_prompt:
                 negative_prompt = clean_caption(clean_caption(negative_prompt))
-        cond = {"y": self.text_encoder([prompt, negative_prompt], device=self.device)}
+        y, text_s = timed_encode(self.text_encoder, [prompt, negative_prompt], self.device)
+        cond = {"y": y}
         z = self._initial_noise(set_seed(seed)).to(self.device)
         c_x, c_eps = self.schedule.step_arrays()
         common = dict(timesteps=self.schedule.timesteps.astype(np.float32), dts=c_eps,
@@ -176,6 +178,7 @@ class LattePipeline(BasePipeline):
                                           skip_mask_override=skip_override,
                                           return_skips=True, **common)
         video, timings = decode_pixels(self.vae, latents)
+        timings["text_s"] = text_s
         timings["total_s"] = synced_clock(latents) - t0
         return PipelineOutput(latents=latents, calibration=calibration, timings=timings,
                               skips=skips, video=video)

@@ -51,7 +51,8 @@ from magcache_tpu_torch.models.stdit3 import (STDIT3_XL_2, STDiT3Config,
 from magcache_tpu_torch.models.text import MockTextEncoder
 from magcache_tpu_torch.pipelines import open_sora_cond as oc
 from magcache_tpu_torch.pipelines.base import (BasePipeline, PipelineOutput,
-                                               calibration_dict, cfg_combine, synced_clock)
+                                               calibration_dict, cfg_combine, synced_clock,
+                                               timed_encode)
 from magcache_tpu_torch.schedulers.rflow import RFlowSchedule
 from magcache_tpu_torch.utils.misc import set_seed
 
@@ -266,15 +267,16 @@ class OpenSoraPipeline(BasePipeline):
         common = dict(timesteps=sch.timesteps, dts=sch.dts(), lanes=2,
                       combine_fn=cfg_combine(c.cfg_scale, self.model_cfg.in_channels))
         gen = set_seed(seed)
-        clips, all_skips, calibration = [], [], None
+        clips, all_skips, calibration, text_s = [], [], None, 0.0
         for loop_i in range(loop):
             if loop_i > 0:
                 refs_x, ms_l = oc.append_generated(
                     None, [clips[-1][0].cpu().numpy()], refs_x, ms_l, loop_i,
                     condition_frame_length, condition_frame_edit)
             text = oc.extract_prompts_loop([merged], loop_i)[0]
-            cond = {"y": self.text_encoder([text, negative_prompt], device=self.device),
-                    "fps": torch.full((2,), fps, dtype=torch.float32, device=self.device)}
+            y, secs = timed_encode(self.text_encoder, [text, negative_prompt], self.device)
+            text_s += secs
+            cond = {"y": y, "fps": torch.full((2,), fps, dtype=torch.float32, device=self.device)}
             z = self._initial_noise(gen).numpy().copy()
             masks = oc.apply_mask_strategy(z, refs_x, ms_l, loop_i, align=align)
             if masks is not None and (masks >= 1.0).all():
@@ -303,7 +305,7 @@ class OpenSoraPipeline(BasePipeline):
             clips.append(latents)
         latents = torch.cat([clips[0]] + [cl[:, condition_frame_length:]
                                           for cl in clips[1:]], dim=1)
-        timings, video = {}, None
+        timings, video = {"text_s": text_s}, None
         if self.vae is not None:
             t1 = synced_clock(latents)
             video = self.vae.decode(latents)

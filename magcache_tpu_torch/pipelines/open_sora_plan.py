@@ -46,7 +46,8 @@ from magcache_tpu_torch.models.open_sora_plan import (OpenSoraPlanConfig, OSPMod
 from magcache_tpu_torch.models.text import MockTextEncoder
 from magcache_tpu_torch.models.vae_osp import OSP_V110_VAE, OSP_V120_VAE, OSPVAEConfig
 from magcache_tpu_torch.pipelines.base import (BasePipeline, PipelineOutput,
-                                               calibration_dict, cfg_combine, synced_clock)
+                                               calibration_dict, cfg_combine, synced_clock,
+                                               timed_encode)
 from magcache_tpu_torch.pipelines.open_sora_cond import clean_caption
 from magcache_tpu_torch.schedulers.euler_ancestral import EulerAncestralSchedule
 from magcache_tpu_torch.schedulers.pndm import PNDMSchedule
@@ -212,7 +213,9 @@ class OpenSoraPlanPipeline(BasePipeline):
             prompt = clean_caption(clean_caption(prompt))
             if negative_prompt:
                 negative_prompt = clean_caption(clean_caption(negative_prompt))
-        cond = {"y": self.text_encoder([prompt, negative_prompt], device=self.device)}
+        states, text_s = timed_encode(self.text_encoder, [prompt, negative_prompt],
+                                      self.device)
+        cond = {"y": states}
         gen = set_seed(seed)
         z = self._initial_noise(gen)
         common = dict(lanes=2, combine_fn=cfg_combine(c.guidance_scale,
@@ -237,7 +240,7 @@ class OpenSoraPlanPipeline(BasePipeline):
             else:
                 latents, skips = sample_euler(self.core, z, cond, cache_cfg=self._cache_cfg(),
                                               return_skips=True, **common)
-        timings, video = {}, None
+        timings, video = {"text_s": text_s}, None
         if self.vae is not None:
             t1 = synced_clock(latents)
             video = self.vae.decode(latents)

@@ -12,8 +12,9 @@ temporal (range 4) attentions inside (100, 800), and not the cross one, as
 the JAX pipeline configures it.
 
 The checkpoint-free path: ``MockTextEncoder`` (77 x 4096) and
-``MockPooledEncoder`` (2048), random weights from a seeded
-``torch.Generator``, and the request's initial noise from its seeded CPU
+``MockPooledEncoder`` (2048) by default, or ``models.text.Sd3TextStack``'s
+``context`` and ``pooled`` (with ``txt_len`` 77 + 256), random weights from
+a seeded ``torch.Generator``, and the request's initial noise from its seeded CPU
 generator (the same draws on every device). With ``vae=`` (an ``SDVAE`` of
 16 latent channels and stride 8, e.g. ``SD3_VAE``) ``from_latent`` undoes the
 VAE's shift and scale and the latents decode frame by frame into ``video``
@@ -38,7 +39,7 @@ from magcache_tpu_torch.models.vchitect import (VchitectConfig, VchitectModel,
                                                 make_vchitect_core)
 from magcache_tpu_torch.pipelines.base import (BasePipeline, PipelineOutput,
                                                calibration_dict, check_image_vae,
-                                               decode_pixels, synced_clock)
+                                               decode_pixels, synced_clock, timed_encode)
 from magcache_tpu_torch.schedulers.flow_match import FlowMatchSchedule
 from magcache_tpu_torch.utils.misc import set_seed
 
@@ -145,8 +146,9 @@ class VchitectPipeline(BasePipeline):
         t0 = time.time()
         c = self.config
         prompts = [prompt, negative_prompt]
-        cond = {"txt": self.text_encoder(prompts, device=self.device),
-                "vec": self.pooled_encoder(prompts, device=self.device)}
+        txt, txt_s = timed_encode(self.text_encoder, prompts, self.device)
+        vec, vec_s = timed_encode(self.pooled_encoder, prompts, self.device)
+        cond = {"txt": txt, "vec": vec}
         z = self._initial_noise(set_seed(seed)).to(self.device)
         sch = self.schedule
         common = dict(timesteps=sch.timesteps, dts=np.diff(sch.sigmas),
@@ -159,6 +161,7 @@ class VchitectPipeline(BasePipeline):
             latents, skips = sample_euler(self.core, z, cond, cache_cfg=self._cache_cfg(),
                                           return_skips=True, **common)
         video, timings = decode_pixels(self.vae, latents)
+        timings["text_s"] = txt_s + vec_s
         timings["total_s"] = synced_clock(latents) - t0
         return PipelineOutput(latents=latents, calibration=calibration, timings=timings,
                               skips=skips, video=video)

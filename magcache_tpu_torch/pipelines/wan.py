@@ -42,7 +42,7 @@ from magcache_tpu_torch.core.teacache import TeaCacheLanes, wan_teacache_setting
 from magcache_tpu_torch.models.text import MockTextEncoder
 from magcache_tpu_torch.models.wan import WAN_1_3B, WanConfig, WanModel, make_wan_core
 from magcache_tpu_torch.pipelines.base import (BasePipeline, PipelineOutput, calibration_dict,
-                                               synced_clock)
+                                               synced_clock, timed_encode)
 from magcache_tpu_torch.schedulers.dpm_flow import dpmpp_2m_flow_coeffs
 from magcache_tpu_torch.schedulers.flow_match import FlowMatchSchedule
 from magcache_tpu_torch.schedulers.unipc import UniPCSchedule
@@ -276,13 +276,14 @@ class WanPipeline(BasePipeline):
         t0 = time.time()
         calibrate = self.config.magcache_calibration
         fn = self._sample_fn(calibrate, skip_override)
-        cond = {"context": self.text_encoder([prompt, negative_prompt],
-                                             device=self.device)}
+        context, text_s = timed_encode(self.text_encoder, [prompt, negative_prompt],
+                                       self.device)
+        cond = {"context": context}
         x0 = self._initial_noise(set_seed(seed)).to(self.device)
         latents, aux = fn(x0, cond)
         calibration = calibration_dict(aux) if calibrate else None
         skips = None if calibrate else aux
-        timings, video = {}, None
+        timings, video = {"text_s": text_s}, None
         if self.vae is not None:
             t1 = synced_clock(latents)
             video = self.vae.decode(latents)

@@ -125,13 +125,15 @@ def test_cli_rejects_unknown_task_and_missing_card():
 
 
 def test_port_never_imports_jax_or_the_jax_package():
+    # nor transformers or flax: the machine with the card has neither
     code = (
         "import importlib, pkgutil, sys\n"
         "import magcache_tpu_torch as m\n"
         "for info in pkgutil.walk_packages(m.__path__, 'magcache_tpu_torch.'):\n"
         "    if not info.name.endswith('prologue_triton'):\n"
         "        importlib.import_module(info.name)\n"
-        "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'magcache_tpu')]\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in\n"
+        "       ('jax', 'magcache_tpu', 'transformers', 'flax')]\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     subprocess.run([sys.executable, "-c", code], check=True, env=env, cwd=REPO,
@@ -143,5 +145,25 @@ def test_port_never_imports_jax_or_the_jax_package():
                 assert "import jax" not in src and "from jax" not in src, f
                 assert "from magcache_tpu." not in src, f
                 assert "import magcache_tpu\n" not in src, f
+                for lib in ("transformers", "flax"):
+                    assert f"import {lib}" not in src and f"from {lib}" not in src, f
     smoke = open(os.path.join(REPO, "chip_smoke.py")).read()
     assert "jax" not in smoke and "magcache_tpu." not in smoke
+    assert "transformers" not in smoke and "flax" not in smoke
+
+
+def test_text_encoders_default_to_the_card(capsys):
+    """Built without ``device``, each ported encoder goes to CUDA: on a
+    CPU-only torch that raises instead of falling back to the CPU."""
+    from magcache_tpu_torch.models.clip import CLIPTextConfig
+    from magcache_tpu_torch.models.t5 import T5Config, UMT5Config
+    from magcache_tpu_torch.models.text import ClipTextEncoder, T5Encoder, make_t5_encoder
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default is taken, not refused")
+    builds = (lambda: T5Encoder(T5Config.tiny()), lambda: make_t5_encoder(UMT5Config.tiny()),
+              lambda: make_t5_encoder(T5Config.tiny(feed_forward="relu")),
+              lambda: ClipTextEncoder(CLIPTextConfig.tiny()))
+    for build in builds:
+        with pytest.raises((RuntimeError, AssertionError), match="CUDA|cuda"):
+            build()
