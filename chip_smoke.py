@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives ``magcache_tpu_torch`` (never JAX) in fifty-seven phases and exits
+Drives ``magcache_tpu_torch`` (never JAX) in sixty-two phases and exits
 nonzero on the first failure:
 
 1. environment: a CUDA card is required; prints the card's name and power
@@ -317,6 +317,43 @@ before phase 53, phase 57 last:
    projected), f32 on the card against the CPU within 1e-4 of the largest
    value.
 
+Wan2.1 I2V-14B and FLF2V-14B (K1, K2, K3, K3p at the 14B widths; the CLIP
+ViT-H/14 tower's K1; the Wan VAE's encoder on cuDNN):
+58. each kernel against its plain version at the 832x480x81 I2V-14B shapes
+   (bf16): K1 self 2x32,760x40x128 with the fixed max, and cross to 512
+   text, 257 image (i2v) and 514 image (flf2v) keys, ragged last key tiles,
+   q and k of std sqrt(3) so each softmax sits on a few keys (per element
+   within 2^-8 max|v| + 2e-2 |plain|: one flipped bf16 rounding of a
+   dominant weight; rel L2 within 1e-2);
+   K1 at the CLIP tower's 1x257x16x80 (running max, 80 padded to 128) on
+   bf16-rounded f32 operands, and that call against the f32 attention
+   within 5 x 2^-9 of the largest value; K2 at 40 heads; K3 mod, affine
+   and K3p at width 5,120; with SDPA or ``F.layer_norm`` where it computes
+   the same function;
+59. one full-shape forward of the I2V-14B trunk (16.4 B parameters, bf16,
+   drawn on the card) at 832x480x81: 32,760 tokens, 2 lanes, 257 + 512
+   context tokens; time, peak memory, launches per forward (K1 120, K2 80,
+   K3 120, K3p 1);
+60. i2v requests through ``WanPipeline.generate(image=)`` at 832x480x17
+   (frames cut from 81) and 40 UniPC steps, shift 3.0: UMT5-XXL text, a
+   seeded 720x1280 image through the CLIP ViT-H/14 tower (f32) and the Wan
+   VAE encode (f32), the f32 decode; full compute and MagCache
+   ``wan2.1-i2v-480p`` (46 of 80 lane-forwards elided); skip bits,
+   launches (the trunk's per run, K3p a step, the tower's 31 K1 an image),
+   ``text_s``, ``image_s``, ``decode_s``, peak memory; then the tower's
+   features of that image against the same tower with the plain f32
+   attention on the card, within 31 x 2^-9 rel L2;
+61. a flf2v request (first and last image, 514 CLIP tokens) at 832x480x17
+   and 50 steps, shift 16, MagCache (56 of 100 elided); then the
+   ``CausalVAE`` fallback encoder (base 96, f32) on [image; 16 zero frames]
+   at 832x480x17 in one pass;
+62. narrow i2v and flf2v pipelines (2 blocks of 2 heads of 128; a 2-block
+   CLIP tower of 2 heads of 80 at 257 tokens; a Wan-stride VAE of base 16)
+   from seeded images, skipped and lane-asymmetric steps, bf16 DiT on the
+   card against f32 on the CPU within 5e-2 rel L2; the tower's features
+   within 5 x 2^-9 and the conditioning latents within 1e-4 of the largest
+   value.
+
 Kernel times are CUDA-event times of a loop of back-to-back launches
 between one event pair, divided by the count (``cuda_ms``); each attention
 kernel's line adds its TFLOP/s and its share of the bound; phase 11 times
@@ -336,7 +373,7 @@ PAB requests and its rolling one; ``latte-pab``: phase 37;
 ``cogvideox``: phases 43 and 44; ``vchitect``: phases 47 and 48;
 ``open-sora-plan-pixels`` and ``cogvideox-pixels``: phase 50;
 ``flux-pixels``, ``latte-pixels``, ``vchitect-pixels``, ``open-sora-pixels``:
-phase 53), its
+phase 53; ``wan-i2v``: phases 59 and 60; ``wan-flf2v``: phase 61), its
 worst error over every shape
 compared, and the times of its first shape timed, named in ``timed_at``,
 with their method in ``timing`` (``loop`` or ``graph``); ``shapes`` lists
@@ -4571,6 +4608,486 @@ def phase_text_card_vs_cpu(dev):
               cpu.encode_ids(ids, attn))
 
 
+# ------------------------------------------ Wan2.1 I2V-14B and FLF2V-14B
+# Launches per trunk run of the 14B i2v trunk (40 blocks): K1 three times a
+# block (self, text cross, image cross), K2 twice (q, k), K3 three times (two
+# mod, one affine); the head adds K3p once a step. The CLIP tower adds one
+# K1 launch (running max) per block it runs, 31 an image.
+I2V_TRUNK_LAUNCHES = dict(NO_LAUNCHES, flash_attention_bshd=120, rms_norm_rope=80,
+                          layer_norm_mod=120)
+I2V_GRID, I2V_REQ_FRAMES = (21, 30, 52), 17
+I2V_STEPS, FLF_STEPS = 40, 50         # the JAX CLI's i2v and flf2v defaults
+CLIP_BLOCKS_RUN = 31                  # ViT-H/14's 32 blocks less the last
+# bf16 keeps 8 significant bits: a rounding moves a value by at most 2^-9 of
+# it. The tower's K1 call rounds q, k, v, p and its output: five roundings
+BF16_TOWER_TOL = 5 * 2 ** -9
+# the whole tower: each block's rounded attention adds its error to the
+# residual stream; at most one bf16 step (2^-9) of it a block, 31 blocks
+CLIP_TOWER_TOL = CLIP_BLOCKS_RUN * 2 ** -9
+
+
+def i2v_launches(runs: int, steps: int, images: int) -> dict:
+    """Launches of an i2v (``images`` 1) or flf2v (2) request: the trunk's
+    per run, K3p once a step, and the tower's K1 launches per image."""
+    out = {k: n * runs for k, n in I2V_TRUNK_LAUNCHES.items()}
+    out["layer_norm_mod_plain"] += steps
+    out["flash_attention_bshd"] += CLIP_BLOCKS_RUN * images
+    return out
+
+
+def phase_i2v_kernels(dev, rec):
+    """K1, K2, K3 and K3p against their plain versions at the I2V-14B shapes,
+    and K1 at the CLIP tower's."""
+    from magcache_tpu_torch.models.wan import WAN_14B, wan_rope_tables
+    from magcache_tpu_torch.ops import attention as A
+    from magcache_tpu_torch.ops import fused_prologue as P
+
+    log("phase 58: kernels vs plain at Wan2.1 I2V-14B 832x480x81 shapes (bf16): K1 self "
+        "2x32760x40x128 (fixed max), cross to 512 text, 257 image (i2v) and 514 image "
+        "(flf2v) keys, the CLIP tower's 1x257x16x80 (running max, q/k/v rounded to bf16, "
+        "80 padded to 128); K2 at 40 heads; K3 mod, affine and K3p at width 5,120")
+    gen = torch.Generator(device=dev).manual_seed(5858)
+    B, S, H, D = 2, math.prod(I2V_GRID), WAN_14B.heads, WAN_14B.head_dim
+    bf = torch.bfloat16
+
+    def rnd(*shape, dtype=bf, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    # q and k of std sqrt(3), as qk-normed rows with gains near sqrt(3): the
+    # logits have std 3 (their largest, about 7 std, stays near fixed_max 16),
+    # so each row's softmax sits on a few keys and a dropped or doubled key
+    # tile moves the output by about its own size, far past the tolerance
+    qk = 3 ** 0.5
+    q, k, v = rnd(B, S, H, D, scale=qk), rnd(B, S, H, D, scale=qk), rnd(B, S, H, D)
+    cases = [("self, fixed_max=16", k, v)]
+    for n, what in ((512, "text"), (257, "image, i2v"), (514, "image, flf2v")):
+        cases.append((f"cross {n} keys ({what}), fixed_max=16", rnd(B, n, H, D, scale=qk),
+                      rnd(B, n, H, D)))
+    for label, kk, vv in cases:
+        got = A.flash_attention_bshd(q, kk, vv, fixed_max=16.0)
+        want, pms = timed_once(lambda: A.flash_attention_bshd_plain(q, kk, vv, fixed_max=16.0))
+        # kernel and plain round at the same points, but the f32 logits differ
+        # in summation order, so a dominant weight's bf16 rounding may flip:
+        # one step (2^-8) of it moves an output by up to 2^-8 max|v|
+        atol = 2 ** -8 * float(vv.abs().max())
+        err = compare(f"K1 flash_attention_bshd [I2V-14B {label}]", got, want, atol=atol,
+                      rtol=2e-2)
+        rms = float(want.float().pow(2).mean().sqrt())
+        log(f"  the plain output's RMS {rms:.3e}: max_abs_err is {err / rms:.3e} of it")
+        del got, want
+        ms = cuda_ms(lambda: A.flash_attention_bshd(q, kk, vv, fixed_max=16.0), 3)
+        lms = sdpa_ms(q, kk, vv, 3)
+        flops = 4 * B * H * S * kk.shape[1] * D
+        moved = 2 * nbytes(q) + nbytes(kk, vv)
+        log(f"  K1 [I2V-14B {label}]: kernel {ms:.3f} ms ({rate(flops, moved, ms)}), plain "
+            f"{pms:.3f} ms (one call), SDPA {lms:.3f} ms")
+        keep(rec, "flash_attention_bshd", err, ms, pms, "loop",
+             f"2x{S}x40x128 I2V-14B {label}", (flops, moved),
+             ("F.scaled_dot_product_attention", lms))
+    del q, k, v, cases
+    torch.cuda.empty_cache()
+
+    # the CLIP tower's self-attention as the f32 tower calls it on the card
+    qf, kf, vf = (rnd(1, 257, 16, 80, dtype=torch.float32) for _ in range(3))
+    k1_check(rec, "K1 [CLIP ViT-H/14 tower 1x257x16x80]", "CLIP tower 1x257x16x80 running "
+             "max, bf16-rounded f32 operands", *(t.to(bf) for t in (qf, kf, vf)), None)
+    got = A.attention(*(t.to(bf) for t in (qf, kf, vf))).float()
+    want = A.flash_attention_bshd_plain(qf, kf, vf)
+    err = float((got - want).abs().max() / want.abs().max())
+    log(f"  the tower's rounding: K1 on bf16-rounded q/k/v against the plain f32 attention: "
+        f"max |diff| / max |f32| {err:.3e} (tol {BF16_TOWER_TOL:.3e}: five bf16 roundings), "
+        f"rel L2 {rel_l2(got, want):.3e}")
+    if err > BF16_TOWER_TOL:
+        fail("the CLIP tower's bf16 K1 call strays from the f32 attention")
+
+    x = rnd(B, S, H * D, scale=2.0)
+    gain = 1.0 + rnd(H * D, dtype=torch.float32, scale=0.1)
+    cos_np, sin_np = wan_rope_tables(WAN_14B, I2V_GRID)
+    cos, sin = torch.from_numpy(cos_np).to(dev), torch.from_numpy(sin_np).to(dev)
+    got = P.rms_norm_rope(x, gain, cos, sin, H, eps=1e-6)
+    want = P.rms_norm_rope_plain(x, gain, cos, sin, H, eps=1e-6)
+    # a flipped bf16 rounding of the normed value: one ulp at |y| < 8
+    err = compare("K2 rms_norm_rope [token scope, 40 heads]", got, want, atol=3e-2,
+                  rtol=1.6e-2)
+    del got, want
+    ms = cuda_ms(lambda: P.rms_norm_rope(x, gain, cos, sin, H, eps=1e-6))
+    pms = cuda_ms(lambda: P.rms_norm_rope_plain(x, gain, cos, sin, H, eps=1e-6), 3)
+    log(f"  K2 [40 heads]: kernel {ms:.3f} ms ({2 * nbytes(x) / ms / 1e6:.0f} GB/s), plain "
+        f"{pms:.3f} ms")
+    keep(rec, "rms_norm_rope", err, ms, pms, "loop", f"2x{S}x5120 (40 heads)",
+         elementwise_work(x, gain, cos, sin))
+    sc = rnd(B, 1, H * D, dtype=torch.float32, scale=0.1)
+    sh = rnd(B, 1, H * D, dtype=torch.float32, scale=0.1)
+    w = 1.0 + rnd(H * D, dtype=torch.float32, scale=0.1)
+    bias = rnd(H * D, dtype=torch.float32, scale=0.1)
+    for label, kw, name in (("mod", dict(scale=sc, shift=sh), "layer_norm_mod"),
+                            ("affine", dict(weight=w, bias=bias), "layer_norm_mod"),
+                            ("plain (K3p)", {}, "layer_norm_mod_plain")):
+        got = P.layer_norm_mod(x, eps=1e-6, **kw)
+        want = P.layer_norm_mod_plain(x, eps=1e-6, **kw)
+        err = compare(f"K3 layer_norm_mod [{label}, width 5120]", got, want, atol=3e-2,
+                      rtol=1.6e-2)
+        del got, want
+        ms = cuda_ms(lambda: P.layer_norm_mod(x, eps=1e-6, **kw))
+        pms = cuda_ms(lambda: P.layer_norm_mod_plain(x, eps=1e-6, **kw), 3)
+        lib = None
+        if label != "mod":          # one library call computes these two forms
+            wb, bb = ((w.to(bf), bias.to(bf)) if kw else (None, None))
+            lib = ("F.layer_norm" + ("" if kw else " (no affine)"), cuda_ms(
+                lambda: torch.nn.functional.layer_norm(x, (H * D,), wb, bb, eps=1e-6)))
+        log(f"  K3 [{label}, width 5120]: kernel {ms:.3f} ms "
+            f"({2 * nbytes(x) / ms / 1e6:.0f} GB/s), plain {pms:.3f} ms"
+            + (f", {lib[0]} {lib[1]:.3f} ms" if lib else ""))
+        keep(rec, name, err, ms, pms, "loop", f"2x{S}x5120 {label}",
+             elementwise_work(x, *kw.values()), lib)
+    log(f"  peak memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+
+
+def make_i2v_model(dev, task="i2v"):
+    """The I2V-14B trunk as ``WanPipelineConfig`` builds it (WAN_14B, 36
+    input channels, the CLIP branch; bf16), random weights drawn on the
+    card."""
+    from magcache_tpu_torch.models.wan import WanModel
+    from magcache_tpu_torch.pipelines.wan import WanPipelineConfig
+
+    cfg = WanPipelineConfig(model="wan2.1-i2v-480p", task=task).model_config()
+    torch.cuda.synchronize(dev)
+    t0 = time.time()
+    model = WanModel(cfg, dev).init(torch.Generator(device=dev).manual_seed(0))
+    model.requires_grad_(False)
+    torch.cuda.synchronize(dev)
+    log(f"  I2V-14B ({task}) bf16 random init on the card: {time.time() - t0:.1f} s, "
+        f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B params, "
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.1f} GB allocated")
+    return model
+
+
+def phase_i2v_forward(dev, model):
+    """Returns the launches of the two forwards."""
+    from magcache_tpu_torch.models.text import MockTextEncoder
+    from magcache_tpu_torch.models.wan import make_wan_core
+
+    cfg = model.cfg
+    f, h, w = I2V_GRID
+    log(f"phase 59: one full-shape I2V-14B forward (prepare -> trunk -> head), 832x480x81: "
+        f"{f * h * w} tokens, 2 lanes, {cfg.clip_tokens} + {cfg.text_len} context tokens")
+    core = make_wan_core(model, I2V_GRID)
+    gen = torch.Generator(device=dev).manual_seed(59)
+    x = torch.randn((2, f, 2 * h, 2 * w, 16), generator=gen, device=dev)
+    cond = {"context": MockTextEncoder(512, 4096, scale=0.5)(["a cat", ""], device=dev),
+            "y": torch.randn((2, f, 2 * h, 2 * w, 20), generator=gen, device=dev),
+            "clip_fea": torch.randn((2, cfg.clip_tokens, cfg.clip_dim), generator=gen,
+                                    device=dev)}
+    t = torch.full((2,), 900.0, device=dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    for run in ("first", "second"):
+        def forward():
+            hidden, c = core.prepare(x, t, cond)
+            return core.head(core.trunk(hidden, c), c), c
+        (out, c), ms = timed_once(forward)
+        log(f"  forward ({run} call): {ms / 1e3:.3f} s")
+    counts = read_counts()
+    if tuple(c["context"].shape) != (2, cfg.clip_tokens + 512, cfg.dim):
+        fail(f"I2V-14B joint context {tuple(c['context'].shape)}")
+    if tuple(out.shape) != tuple(x.shape) or not bool(torch.isfinite(out).all()):
+        fail(f"I2V-14B forward output {tuple(out.shape)} is not finite or misshapen")
+    want = i2v_launches(2, 2, 0)
+    if counts != want:
+        fail(f"I2V-14B forwards: launches {counts} != {want}")
+    log(f"  output {tuple(out.shape)} finite, std {float(out.std()):.4f}; peak memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB; launches per forward "
+        f"K1 {counts['flash_attention_bshd'] // 2}, K2 {counts['rms_norm_rope'] // 2}, "
+        f"K3 {counts['layer_norm_mod'] // 2}, K3p {counts['layer_norm_mod_plain'] // 2}")
+    return counts
+
+
+def i2v_images(n: int, seed: int = 60):
+    """``n`` seeded uint8 images of 720x1280 (resized to 480x832 and to the
+    tower's 224x224 by the pipeline)."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, (720, 1280, 3), dtype=np.uint8) for _ in range(n)]
+
+
+def i2v_encoders(dev):
+    """UMT5-XXL (f32, the hash tokenizer), the CLIP ViT-H/14 tower (f32) and
+    the Wan2.1 VAE (f32), random weights drawn on the card."""
+    from magcache_tpu_torch.models.clip import CLIP_VIT_H, CLIPVisionModel
+    from magcache_tpu_torch.models.text import FallbackHashTokenizer
+    from magcache_tpu_torch.models.umt5 import UMT5_XXL, UMT5Encoder
+    from magcache_tpu_torch.models.vae_wan import WAN21_VAE, WanVAE
+
+    gen = torch.Generator(device=dev).manual_seed(60)
+    t0 = time.time()
+    text = UMT5Encoder(UMT5_XXL, seq_len=512, tokenizer=FallbackHashTokenizer(
+        UMT5_XXL.vocab_size), device=dev, generator=gen)
+    clip = CLIPVisionModel(CLIP_VIT_H, dev).init(gen).requires_grad_(False)
+    vae = WanVAE(WAN21_VAE, dev).init(gen).requires_grad_(False)
+    torch.cuda.synchronize(dev)
+    log(f"  UMT5-XXL {sum(p.numel() for p in text.model.parameters()) / 1e9:.3f} B, CLIP "
+        f"ViT-H/14 {sum(p.numel() for p in clip.parameters()) / 1e9:.3f} B, Wan2.1 VAE "
+        f"{sum(p.numel() for p in vae.parameters()) / 1e6:.1f} M params (f32): random init "
+        f"{time.time() - t0:.1f} s, {torch.cuda.memory_allocated(dev) / 1e9:.1f} GB allocated")
+    return text, clip, vae
+
+
+def i2v_request(label, pipe, want_skips, images):
+    """One i2v (one image) or flf2v (two) request through ``pipe.generate``
+    ending in pixels [1, frames, 480, 832, 3]: fails unless pixels and
+    latents are finite and of their shapes, ``text_s``, ``image_s`` and
+    ``decode_s`` are there, the realized skip bits are ``want_skips`` and the
+    launches are ``i2v_launches`` of the trunk runs; returns the launches."""
+    n, steps = pipe.config.frame_num, pipe.config.sample_steps
+    kw = dict(image=images[0]) if len(images) == 1 else dict(image=images[0],
+                                                             last_image=images[1])
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    out = pipe.generate(TEXT_PROMPTS[0], seed=3, **kw)
+    launched = read_counts()
+    video, lat = out.video, out.latents
+    if video is None or tuple(video.shape) != (1, n, 480, 832, 3) or not bool(
+            torch.isfinite(video).all()):
+        fail(f"{label}: pixels {None if video is None else tuple(video.shape)} missing, "
+             f"misshapen or not finite")
+    if tuple(lat.shape) != (1, (n - 1) // 4 + 1, 60, 104, 16) or not bool(
+            torch.isfinite(lat).all()):
+        fail(f"{label}: latents {tuple(lat.shape)} not finite or misshapen")
+    if not np.array_equal(out.skips, want_skips):
+        fail(f"{label}: realized skips differ from compute_skip_schedule")
+    t = out.timings
+    if not all(t.get(k, 0) > 0 for k in ("text_s", "image_s", "decode_s")):
+        fail(f"{label}: timings {t} lack text_s, image_s or decode_s")
+    runs = int((~out.skips.all(1)).sum())
+    want = i2v_launches(runs, steps, len(images))
+    if launched != want:
+        fail(f"{label}: launches {launched} != {want} ({runs} trunk runs)")
+    log(f"  {label}: {t['total_s']:.3f} s/video (text {t['text_s']:.3f} s, image encode "
+        f"{t['image_s']:.3f} s, VAE decode {t['decode_s']:.3f} s); {int(out.skips.sum())} of "
+        f"{out.skips.size} lane-forwards skipped, {runs} of {steps} steps computed "
+        f"({int((out.skips.sum(1) == 1).sum())} half-batch); pixels {tuple(video.shape)} "
+        f"finite, std {float(video.std()):.4f}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return launched, lat
+
+
+def phase_i2v_requests(dev, model, text, clip, vae):
+    """Returns the launches of the two requests."""
+    from magcache_tpu_torch.core.magcache import compute_skip_schedule
+    from magcache_tpu_torch.pipelines.wan import WanPipeline, WanPipelineConfig
+
+    log(f"phase 60: i2v requests through WanPipeline.generate(image=) at full width, "
+        f"832x480x{I2V_REQ_FRAMES} (7,800 tokens), {I2V_STEPS} UniPC steps, shift 3.0, CFG "
+        f"5.0: UMT5-XXL text, a seeded 720x1280 image through the CLIP ViT-H/14 tower and "
+        f"the Wan2.1 VAE encode, the f32 VAE decode; full compute, then MagCache "
+        f"wan2.1-i2v-480p (E012K4R02)")
+    base = dict(model="wan2.1-i2v-480p", task="i2v", size=(832, 480),
+                frame_num=I2V_REQ_FRAMES, sample_steps=I2V_STEPS, sample_shift=3.0,
+                guide_scale=5.0)
+    kw = dict(model=model, text_encoder=text, clip=clip, vae=vae)
+    full = WanPipeline(WanPipelineConfig(**base), dev, **kw)
+    cached = WanPipeline(WanPipelineConfig(use_magcache=True, **base), dev, **kw)
+    sched = compute_skip_schedule(cached._cache_cfg()).reshape(I2V_STEPS, 2)
+    if int(sched.sum()) != 46:
+        fail(f"wan2.1-i2v-480p at {I2V_STEPS} steps elides {int(sched.sum())} of 80, not 46")
+    total = dict(NO_LAUNCHES)
+    lats = {}
+    image = i2v_images(1)
+    for label, pipe, want in (("i2v full compute", full, np.zeros((I2V_STEPS, 1), bool)),
+                              ("i2v MagCache wan2.1-i2v-480p", cached, sched)):
+        launched, lats[label] = i2v_request(label, pipe, want, image)
+        total = {k: n + launched[k] for k, n in total.items()}
+    log(f"  MagCache latents against full compute: rel L2 "
+        f"{rel_l2(*lats.values()):.3e}")
+    tower_rounding(dev, clip, image[0])
+    return total
+
+
+def tower_rounding(dev, clip, image):
+    """The ViT-H/14 tower's features of ``image`` as the pipeline makes them
+    (K1 on bf16-rounded q, k, v in each of the 31 blocks) against the same
+    tower with the plain attention in f32 on the card: fails past a rel L2
+    of ``CLIP_TOWER_TOL``."""
+    from unittest import mock
+
+    from magcache_tpu_torch.models import clip as C
+    from magcache_tpu_torch.ops import attention as A
+
+    px = C.preprocess_clip_image(image, clip.cfg)
+    got = C.clip_vision_forward(clip, px)
+    with mock.patch.object(C, "_tower_attention", A.flash_attention_bshd_plain):
+        want = C.clip_vision_forward(clip, px)
+    rel = rel_l2(got, want)
+    worst = float((got - want).abs().max() / want.abs().max())
+    log(f"  the CLIP ViT-H/14 tower ({CLIP_BLOCKS_RUN} blocks, f32) with K1 on bf16-rounded "
+        f"q/k/v against the plain f32 attention: features {tuple(got.shape)}, rel L2 "
+        f"{rel:.3e} (tol {CLIP_TOWER_TOL:.3e}), max |diff| / max |f32| {worst:.3e}")
+    if not bool(torch.isfinite(got).all()) or rel > CLIP_TOWER_TOL:
+        fail("the CLIP tower's features with the bf16 K1 call stray from the f32 tower's")
+
+
+def phase_flf2v_request(dev, text, clip, vae):
+    """Returns the request's launches."""
+    from magcache_tpu_torch.core.magcache import compute_skip_schedule
+    from magcache_tpu_torch.models.vae import CausalVAE, CausalVAEConfig
+    from magcache_tpu_torch.pipelines.wan import WanPipeline, WanPipelineConfig
+
+    log(f"phase 61: a flf2v request at 832x480x{I2V_REQ_FRAMES}, {FLF_STEPS} UniPC steps, "
+        f"shift 16, MagCache wan2.1-i2v-480p (514 CLIP tokens: two images through the "
+        f"tower); then the CausalVAE fallback encode of [image; 16 zero frames] at "
+        f"832x480x{I2V_REQ_FRAMES}")
+    log("phase 61 model:")
+    model = make_i2v_model(dev, "flf2v")
+    pipe = WanPipeline(WanPipelineConfig(
+        model="wan2.1-i2v-480p", task="flf2v", size=(832, 480), frame_num=I2V_REQ_FRAMES,
+        sample_steps=FLF_STEPS, sample_shift=16.0, guide_scale=5.0, use_magcache=True),
+        dev, model=model, text_encoder=text, clip=clip, vae=vae)
+    sched = compute_skip_schedule(pipe._cache_cfg()).reshape(FLF_STEPS, 2)
+    if int(sched.sum()) != 56:
+        fail(f"wan2.1-i2v-480p at {FLF_STEPS} steps elides {int(sched.sum())} of 100, not 56")
+    launched, _ = i2v_request("flf2v MagCache wan2.1-i2v-480p", pipe, sched, i2v_images(2))
+    del model, pipe
+    torch.cuda.empty_cache()
+
+    # the fallback encoder the pipeline builds without a VAE (the CLI's path)
+    fallback = CausalVAE(CausalVAEConfig(), dev).init(
+        torch.Generator(device=dev).manual_seed(11)).requires_grad_(False)
+    px = torch.zeros((1, I2V_REQ_FRAMES, 480, 832, 3), device=dev)
+    px[:, 0] = torch.rand((480, 832, 3), generator=torch.Generator(device=dev).manual_seed(61),
+                          device=dev) * 2 - 1
+    torch.cuda.reset_peak_memory_stats(dev)
+    (mean, logvar), ms = timed_once(lambda: fallback.encode(px))
+    want = (1, (I2V_REQ_FRAMES - 1) // 4 + 1, 60, 104, 16)
+    if tuple(mean.shape) != want or not bool(torch.isfinite(mean).all() & torch.isfinite(
+            logvar).all()):
+        fail(f"CausalVAE encode: latents {tuple(mean.shape)} not {want} or not finite")
+    log(f"  CausalVAE (base 96, {sum(p.numel() for p in fallback.parameters()) / 1e6:.1f} M "
+        f"params, f32) encode of {tuple(px.shape)} in one pass: {ms / 1e3:.3f} s, latents "
+        f"{tuple(mean.shape)} finite, peak memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    return launched
+
+
+def _numpy_wan_i2v_tree(cfg, rng):
+    """``_numpy_wan_tree`` with the i2v entries: ``img_emb`` and the image
+    cross-attention's k/v projections and k norm."""
+    d, L = cfg.dim, cfg.layers
+    tree = _numpy_wan_tree(cfg, rng)
+
+    def lin(d_in, d_out, depth=None):
+        shape = (d_in, d_out) if depth is None else (depth, d_in, d_out)
+        return {"w": rng.standard_normal(shape) / math.sqrt(d_in),
+                "b": rng.standard_normal(shape[:-2] + (d_out,)) * 0.02}
+
+    tree["img_emb"] = {"in": lin(cfg.clip_dim, cfg.clip_dim), "out": lin(cfg.clip_dim, d)}
+    tree["blocks"].update(cross_k_img=lin(d, d, L), cross_v_img=lin(d, d, L),
+                          cross_norm_k_img=1.0 + 0.1 * rng.standard_normal((L, d)))
+    return tree
+
+
+def _numpy_clip_vision_tree(cfg, rng):
+    """A random CLIP vision tree in the JAX package's layout."""
+    d, L = cfg.dim, cfg.layers
+
+    def lin(d_in, d_out):
+        return {"w": rng.standard_normal((L, d_in, d_out)) / math.sqrt(d_in),
+                "b": rng.standard_normal((L, d_out)) * 0.02}
+
+    def norm(*shape):
+        return 1.0 + 0.1 * rng.standard_normal(shape), 0.1 * rng.standard_normal(shape)
+
+    n1, n2, pre, post = norm(L, d), norm(L, d), norm(d), norm(d)
+    return {"patch_embed": {"w": rng.standard_normal((3 * cfg.patch ** 2, d)) / cfg.patch,
+                            "b": np.zeros(d)},
+            "cls": rng.standard_normal(d) * 0.02,
+            "pos": rng.standard_normal((cfg.tokens, d)) * 0.02,
+            "pre_norm_w": pre[0], "pre_norm_b": pre[1],
+            "post_norm_w": post[0], "post_norm_b": post[1],
+            "blocks": {"norm1_w": n1[0], "norm1_b": n1[1], "norm2_w": n2[0],
+                       "norm2_b": n2[1], "qkv": lin(d, 3 * d), "proj": lin(d, d),
+                       "mlp1": lin(d, 4 * d), "mlp2": lin(4 * d, d)}}
+
+
+NARROW_I2V = dict(dim=256, heads=2, ffn_dim=512, layers=NARROW_LAYERS, model_type="i2v",
+                  in_channels=36, clip_dim=160, clip_tokens=257)
+
+
+def narrow_i2v_pipeline(device, dtype, task):
+    """The narrow i2v / flf2v pipeline (2 blocks of 2 heads of 128, a
+    2-block CLIP tower of 2 heads of 80 at 224 px, a Wan-stride VAE of base
+    16) with numpy weights from one seed, at 192x128 x 9 frames (288
+    tokens: K1 in the DiT and, at 257 tokens, in the tower)."""
+    from magcache_tpu_torch.models.clip import CLIPVisionConfig, CLIPVisionModel
+    from magcache_tpu_torch.models.convert import (clip_vision_params_from_numpy,
+                                                   wan_params_from_numpy)
+    from magcache_tpu_torch.models.vae_wan import WanVAE, WanVAEConfig
+    from magcache_tpu_torch.models.wan import WanConfig, WanModel
+    from magcache_tpu_torch.pipelines.wan import WanPipeline, WanPipelineConfig
+
+    rng = np.random.default_rng(62)
+    kw = dict(NARROW_I2V, clip_tokens=257 * (2 if task == "flf2v" else 1))
+    cfg = WanConfig.tiny(dtype=str(dtype).split(".")[1], **kw)
+    model = WanModel(cfg, device)
+    model.load_state_dict(wan_params_from_numpy(_numpy_wan_i2v_tree(cfg, rng), cfg, device))
+    ccfg = CLIPVisionConfig(dim=160, layers=2, heads=2)
+    clip = CLIPVisionModel(ccfg, device)
+    clip.load_state_dict(clip_vision_params_from_numpy(_numpy_clip_vision_tree(ccfg, rng), ccfg,
+                                                       device))
+    vae = WanVAE(WanVAEConfig(base=16, num_res_blocks=1), "cpu").init(
+        torch.Generator().manual_seed(62)).to(device)
+    return WanPipeline(WanPipelineConfig(
+        model="wan2.1-i2v-480p", task=task, size=(192, 128), frame_num=9,
+        sample_steps=len(NARROW_MASK), sample_shift=3.0, guide_scale=5.0, use_magcache=True,
+        model_cfg_override=cfg), device, model=model.requires_grad_(False),
+        clip=clip.requires_grad_(False), vae=vae.requires_grad_(False))
+
+
+def phase_i2v_card_vs_cpu(dev):
+    """The narrow i2v and flf2v pipelines, tower and VAE encoder included,
+    bf16 DiT on the card against f32 on the CPU."""
+    from magcache_tpu_torch.models.clip import clip_vision_forward, preprocess_clip_image
+
+    log("phase 62: narrow i2v and flf2v pipelines (the CLIP tower and the Wan VAE encode "
+        "included) on the card (kernels, bf16 DiT, f32 tower and VAE) against the CPU "
+        "(plain ops, f32), over UniPC steps with skipped ones")
+    images = [np.random.default_rng(62 + i).integers(0, 256, (100, 180, 3), dtype=np.uint8)
+              for i in range(2)]
+    for task, imgs in (("i2v", images[:1]), ("flf2v", images)):
+        card = narrow_i2v_pipeline(dev, torch.bfloat16, task)
+        cpu = narrow_i2v_pipeline(torch.device("cpu"), torch.float32, task)
+        kw = dict(image=imgs[0], last_image=imgs[1] if task == "flf2v" else None)
+        reset_counts()
+        got = card.generate("a red boat at dawn", seed=2, skip_override=NARROW_MASK, **kw)
+        launched = read_counts()
+        want = cpu.generate("a red boat at dawn", seed=2, skip_override=NARROW_MASK, **kw)
+        runs = int((~NARROW_MASK.all(1)).sum())
+        per_run = {k: n * NARROW_LAYERS // 40 for k, n in I2V_TRUNK_LAUNCHES.items()}
+        expected = {k: n * runs for k, n in per_run.items()}
+        expected["layer_norm_mod_plain"] += len(NARROW_MASK)
+        expected["flash_attention_bshd"] += (card.clip.cfg.layers - 1) * len(imgs)
+        check_narrow(f"narrow {task}", got.latents.float().cpu(), want.latents, launched,
+                     expected)
+        # the f32 tower with its bf16 K1 call, and the f32 VAE encode
+        pre = preprocess_clip_image(imgs[0], card.clip.cfg)
+        fg = clip_vision_forward(card.clip, pre).cpu()
+        fw = clip_vision_forward(cpu.clip, pre)
+        err = float((fg - fw).abs().max() / fw.abs().max())
+        log(f"  {task} CLIP tower (2 heads of 80, 257 tokens) card vs CPU: max |diff| / max "
+            f"|CPU| {err:.3e} (tol {BF16_TOWER_TOL:.3e}: K1's five bf16 roundings), rel L2 "
+            f"{rel_l2(fg, fw):.3e}")
+        if err > BF16_TOWER_TOL:
+            fail(f"{task}: the CLIP tower on the card strays from the CPU's")
+        yg, _ = card.encode_flf(*imgs) if task == "flf2v" else card.encode_image(imgs[0])
+        yw, _ = cpu.encode_flf(*imgs) if task == "flf2v" else cpu.encode_image(imgs[0])
+        err = float((yg.cpu() - yw).abs().max() / yw.abs().max())
+        log(f"  {task} conditioning latents y (Wan VAE encode, f32) card vs CPU: max |diff| / "
+            f"max |CPU| {err:.3e} (tol 1e-4: f32 convs without TF32, summation order)")
+        if err > 1e-4 or not torch.equal(yg[..., :4].cpu(), yw[..., :4]):
+            fail(f"{task}: the conditioning latents on the card stray from the CPU's")
+        del card, cpu
+
+
 def main():
     phase_environment()
     dev = torch.device("cuda", 0)
@@ -4726,6 +5243,22 @@ def main():
     t0_text = time.time()
     phase_text_card_vs_cpu(dev)
     t_text += time.time() - t0_text
+    t0_i2v = time.time()
+    phase_i2v_kernels(dev, rec)
+    torch.cuda.empty_cache()
+    log("phase 59/60 model:")
+    model = make_i2v_model(dev)
+    i2v = phase_i2v_forward(dev, model)
+    text, clip, vae = i2v_encoders(dev)
+    reqs = phase_i2v_requests(dev, model, text, clip, vae)
+    i2v = {k: n + reqs[k] for k, n in i2v.items()}
+    del model
+    torch.cuda.empty_cache()
+    flf2v = phase_flf2v_request(dev, text, clip, vae)
+    del text, clip, vae
+    torch.cuda.empty_cache()
+    phase_i2v_card_vs_cpu(dev)
+    t_i2v = time.time() - t0_i2v
     log(f"all phases passed in {time.time() - t0:.1f} s (Wan {t_wan:.1f} s, "
         f"Open-Sora {t_os:.1f} s, FLUX {t_flux:.1f} s, Open-Sora 720p "
         f"{t_os720:.1f} s, Latte {t_latte:.1f} s, Wan sequence-parallel {t_sp:.1f} s, "
@@ -4734,8 +5267,9 @@ def main():
         f"{t_pab:.1f} s, Open-Sora-Plan and CogVideoX {t_osp:.1f} s, Vchitect and the "
         f"Open-Sora-Plan and CogVideoX VAEs {t_vch:.1f} s, the SD and Open-Sora VAEs "
         f"and the requests ending in their pixels "
-        f"{time.time() - t0 - t_wan - t_os - t_flux - t_os720 - t_latte - t_sp - t_unpacked - t_ends - t_pab - t_osp - t_vch:.1f} s; "
-        f"the text encoders' phases 55-57, within those, {t_text:.1f} s)")
+        f"{time.time() - t0 - t_wan - t_os - t_flux - t_os720 - t_latte - t_sp - t_unpacked - t_ends - t_pab - t_osp - t_vch - t_i2v:.1f} s; "
+        f"the text encoders' phases 55-57, within those, {t_text:.1f} s; Wan I2V-14B and "
+        f"FLF2V-14B, phases 58-62, {t_i2v:.1f} s)")
 
     meta = {
         "flash_attention_bshd": ("cuda", "magcache_tpu_torch/csrc/hopper_attention.cuh",
@@ -4782,7 +5316,7 @@ def main():
              "open-sora-rolling": os_rolling, "latte-pab": latte_pab,
              "open-sora-plan": osp, "open-sora-plan-v110": osp_v110, "cogvideox": cog,
              "vchitect": vch, "open-sora-plan-pixels": osp_px, "cogvideox-pixels": cog_px,
-             **pixel_paths}
+             **pixel_paths, "wan-i2v": i2v, "wan-flf2v": flf2v}
     kernels = []
     for name, (route, source, replaces) in meta.items():
         by_path = {p: c[name] for p, c in paths.items()}

@@ -1,5 +1,7 @@
 """Generation CLI, the ported subset of ``magcache_tpu.cli.generate``:
-Wan2.1 t2v (``--task t2v-1.3B``), Open-Sora 1.2 t2v (``--task open-sora``),
+Wan2.1 t2v (``--task t2v-1.3B``, ``t2v-14B``, and ``t2i-14B``: one frame),
+i2v (``--task i2v-14B --image``) and first-last-frame (``--task flf2v-14B
+--first_frame --last_frame``), Open-Sora 1.2 t2v (``--task open-sora``),
 FLUX.1 text-to-image (``--task flux-dev`` and ``flux-kontext-dev``), Latte-1
 t2v (``--task latte``), Open-Sora-Plan t2v (``--task open-sora-plan``: v1.2,
 or v1.1 with ``--osp_version v110``), CogVideoX-5B t2v (``--task
@@ -18,7 +20,10 @@ Flag names follow the reference adapters (``--task --size --frame_num
 CogVideoX ``--txt_len --use_dynamic_cfg --enable_pab``, Vchitect
 ``--txt_len --enable_pab``),
 and the output file name encodes the E/K/R triple. Unset flags take each
-family's reference defaults, as in the JAX CLI. Runs on a CUDA card by
+family's reference defaults, as in the JAX CLI (Wan: 50 steps, i2v 40;
+shift 5.0, i2v at 480p and below 3.0, flf2v 16.0; guidance 5.0; the i2v
+and flf2v preset by the height, ``wan2.1-i2v-480p`` up to 480 rows, else
+``-720p``). Runs on a CUDA card by
 default; ``--device cpu`` runs the plain PyTorch ops instead of the kernels
 (tests use it at ``--tiny`` size; the tiny models' head dims are not ones
 the kernels take, so ``--tiny`` on a card exits with a message).
@@ -39,6 +44,10 @@ Examples:
       --use_magcache --cache_policy rolling --magcache_thresh 0.12 --magcache_K 2
   python -m magcache_tpu_torch.cli.generate --task t2v-1.3B --enable_teacache \
       --teacache_thresh 0.2 --use_ret_steps
+  python -m magcache_tpu_torch.cli.generate --task i2v-14B --image x.png \
+      --use_magcache                  # 832x480x81, 40 UniPC steps, E012K4R02
+  python -m magcache_tpu_torch.cli.generate --task flf2v-14B --first_frame a.png \
+      --last_frame b.npy              # 50 steps, shift 16
   python -m magcache_tpu_torch.cli.generate --task open-sora --resolution 480p \
       --aspect_ratio 9:16 --frame_num 51 --enable_pab      # or --task latte
   python -m magcache_tpu_torch.cli.generate --task open-sora --resolution 720p \
@@ -66,10 +75,14 @@ Examples:
 Checkpoints are not loaded yet: the DiT has random weights and the text
 encoders are the hash-seeded mocks, so the output is latents, not a video or
 an image (the pipelines' ``vae=`` takes a VAE through the API; the CLI
-builds none). ``flux-kontext-dev --image`` (a ``.npy`` array ``[H, W, 3]`` in
-[0, 1], or an image file read with PIL) conditions on the image as the JAX
-CLI does without ``--vae_ckpt``: nearest-resized and channel-tiled to the
-latent grid, not encoded. Open-Sora references are ``.npy`` latents; image
+builds none). Input images are ``.npy`` arrays ``[H, W, 3]`` in [0, 1] or
+image files read with PIL. ``flux-kontext-dev --image`` conditions on the
+image as the JAX CLI does without ``--vae_ckpt``: nearest-resized and
+channel-tiled to the latent grid, not encoded. ``i2v-14B --image`` and
+``flf2v-14B --first_frame --last_frame`` (``--image`` also gives flf2v's
+first frame) encode their images through a random-weight CLIP vision tower
+and, as the JAX CLI without a VAE, a random-weight causal VAE with the Wan
+strides. Open-Sora references are ``.npy`` latents; image
 and video references need the pipeline's VAE, which the CLI does not build,
 and raise.
 """
@@ -89,28 +102,32 @@ import torch
 _KNOWN = ("flux", "qwen", "hunyuan", "framepack", "open-sora", "cogvideox",
           "latte", "vchitect", "omnigen2", "t2v", "t2i", "i2v", "flf2v",
           "ti2v", "vace")
-_PORTED = {"t2v-1.3B": "wan2.1-t2v-1.3B", "open-sora": "opensora-v1.2",
+_PORTED = {"t2v-1.3B": "wan2.1-t2v-1.3B", "t2v-14B": "wan2.1-t2v-14B",
+           "t2i-14B": "wan2.1-t2v-14B", "i2v-14B": "wan2.1-i2v-480p",
+           "flf2v-14B": "wan2.1-i2v-480p", "open-sora": "opensora-v1.2",
            "flux-dev": "flux-dev", "flux-kontext-dev": "flux-kontext-dev",
            # no published ratios: calibrate, then --mag_ratios_json
            "latte": None, "open-sora-plan": None, "cogvideox": None, "vchitect": None}
+_WAN = ("t2v-1.3B", "t2v-14B", "t2i-14B", "i2v-14B", "flf2v-14B")
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("magcache_tpu_torch generate")
     p.add_argument("--task", default="t2v-1.3B",
-                   help="t2v-1.3B | open-sora | flux-dev | flux-kontext-dev | "
-                        "latte | open-sora-plan | cogvideox | vchitect (the tasks ported "
-                        "so far)")
+                   help="t2v-1.3B | t2v-14B | t2i-14B | i2v-14B | flf2v-14B | open-sora | "
+                        "flux-dev | flux-kontext-dev | latte | open-sora-plan | cogvideox | "
+                        "vchitect (the tasks ported so far)")
     p.add_argument("--size", default=None,
                    help="W*H pixels (unset: 832*480 for Wan and Open-Sora, "
                         "1024*1024 for FLUX)")
     p.add_argument("--frame_num", type=int, default=None,
                    help="frames (unset: 81)")
     p.add_argument("--sample_steps", type=int, default=None,
-                   help="unset: 50 for Wan, Latte and CogVideoX, 30 for Open-Sora, "
+                   help="unset: 50 for Wan (i2v 40), Latte and CogVideoX, 30 for Open-Sora, "
                         "28 for FLUX, 150 for Open-Sora-Plan, 100 for Vchitect")
     p.add_argument("--sample_shift", type=float, default=None,
-                   help="Wan flow shift (unset: 5.0)")
+                   help="Wan flow shift (unset: 5.0; i2v at 480p and below 3.0, "
+                        "flf2v 16.0)")
     p.add_argument("--sample_solver", default="unipc",
                    choices=["unipc", "dpm++", "euler"],
                    help="Wan's solver (the reference's unipc and dpm++, and Euler)")
@@ -158,9 +175,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "or unpacked with temporal attention through K4 (grouped) "
                         "or K9 (vpu); open-sora-plan v120: packed or unpacked")
     p.add_argument("--image", default=None,
-                   help="flux-kontext-dev conditioning image (.npy [H, W, 3] in "
-                        "[0, 1], or an image file); resized and channel-tiled "
-                        "to the latent grid (no VAE weights)")
+                   help="input image (.npy [H, W, 3] in [0, 1], or an image file): "
+                        "i2v-14B's (flf2v-14B's first frame), or flux-kontext-dev's "
+                        "conditioning image, resized and channel-tiled to the latent grid "
+                        "(no VAE weights)")
+    p.add_argument("--first_frame", default=None,
+                   help="flf2v-14B: the first frame (.npy or an image file)")
+    p.add_argument("--last_frame", default=None,
+                   help="flf2v-14B: the last frame (.npy or an image file)")
     p.add_argument("--base_seed", type=int, default=0)
     p.add_argument("--prompt", default="Two anthropomorphic cats in comfy "
                    "boxing gear and bright gloves fight intensely on a "
@@ -240,13 +262,21 @@ def _wan_pipeline(args, device, ratios):
         plan, device = _sp_plan(args, device)
 
     w, h = _parse_size(args.size)
+    model = _PORTED[args.task]
+    if h > 480 and model == "wan2.1-i2v-480p":
+        model = "wan2.1-i2v-720p"
+    task = args.task.split("-")[0].replace("t2i", "t2v")
     frame_num = args.frame_num or 81
     if args.tiny:
         w, h, frame_num = 64, 32, 9
+    if args.task.startswith("t2i"):
+        frame_num = 1
+    shift = (3.0 if task == "i2v" and min(w, h) <= 480 else 16.0 if task == "flf2v"
+             else 5.0)
     cfg = WanPipelineConfig(
-        model=_PORTED[args.task], task="t2v", size=(w, h), frame_num=frame_num,
-        sample_steps=args.sample_steps or 50,
-        sample_shift=5.0 if args.sample_shift is None else args.sample_shift,
+        model=model, task=task, size=(w, h), frame_num=frame_num,
+        sample_steps=args.sample_steps or (40 if task == "i2v" else 50),
+        sample_shift=shift if args.sample_shift is None else args.sample_shift,
         sample_solver=args.sample_solver,
         guide_scale=(5.0 if args.sample_guide_scale is None
                      else args.sample_guide_scale),
@@ -289,8 +319,8 @@ def _flux_pipeline(args, device, ratios):
     from magcache_tpu_torch.pipelines.flux import FluxPipeline, FluxPipelineConfig
 
     if args.image and "kontext" not in args.task:
-        raise SystemExit("--image: only flux-kontext-dev conditions on an input "
-                         "image (FLUX.1-dev is t2i)")
+        raise SystemExit("--image: of the FLUX tasks only flux-kontext-dev conditions "
+                         "on an input image (FLUX.1-dev is t2i)")
     w, h = _parse_size(args.size, "1024*1024")
     if args.tiny:
         w = h = 64
@@ -422,8 +452,13 @@ def _pipeline(args):
     if args.sp > 1 and args.task != "t2v-1.3B":
         raise SystemExit(f"--sp: sequence parallelism is ported for t2v-1.3B "
                          f"only, not for {args.task!r}")
-    wan = args.task == "t2v-1.3B"
-    for flag, on, ok in (("--sample_solver", args.sample_solver != "unipc", wan),
+    wan = args.task in _WAN
+    for flag, on, ok in (("--image", args.image is not None,
+                          args.task in ("i2v-14B", "flf2v-14B") or args.task.startswith("flux")),
+                         ("--first_frame / --last_frame",
+                          args.first_frame is not None or args.last_frame is not None,
+                          args.task == "flf2v-14B"),
+                         ("--sample_solver", args.sample_solver != "unipc", wan),
                          ("--cache_policy", args.cache_policy != "adapter",
                           wan or args.task == "open-sora"),
                          ("--enable_teacache", args.enable_teacache, wan),
@@ -467,6 +502,12 @@ def main(argv=None):
         kw = dict(loop=args.loop, ms=args.ms, refs=args.refs,
                   condition_frame_length=args.condition_frame_length,
                   condition_frame_edit=args.condition_frame_edit, align=args.align)
+    elif args.task in _WAN:
+        from magcache_tpu_torch.pipelines.flux import load_image
+
+        first = args.first_frame or args.image
+        kw = {k: load_image(path) for k, path in (("image", first),
+                                                  ("last_image", args.last_frame)) if path}
     elif args.image:
         from magcache_tpu_torch.pipelines.flux import load_image
 

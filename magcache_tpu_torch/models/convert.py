@@ -8,14 +8,16 @@ parameter pytrees, with their leaves as numpy arrays, into ``WanModel``,
 ``STDiT3Model``, ``FluxModel``, ``LatteModel``, ``OSPModel`` and
 ``CogVideoXModel`` state dicts; ``vchitect_params_from_numpy`` does the
 same for Vchitect-XL, and ``umt5_params_from_numpy``,
-``wan_vae_params_from_numpy``, ``osp_vae_params_from_numpy`` and
-``cogvideox_vae_params_from_numpy`` for the UMT5 encoder and the Wan,
-Open-Sora-Plan and CogVideoX VAEs' decoders, and
-``sd_vae_params_from_numpy`` and ``vae_temporal_params_from_numpy`` for the
-SD VAE and Open-Sora's temporal VAE, encoder and decoder;
-``t5_params_from_flax`` for a T5 or mT5 encoder from the HF Flax tree the
-JAX package's ``JaxT5Encoder`` runs, and ``clip_text_params_from_numpy`` for
-the CLIP text tower. Three layout rules: the JAX block weights are
+``osp_vae_params_from_numpy`` and ``cogvideox_vae_params_from_numpy`` for
+the UMT5 encoder and the Open-Sora-Plan and CogVideoX VAEs' decoders, and
+``wan_vae_params_from_numpy``, ``sd_vae_params_from_numpy`` and
+``vae_temporal_params_from_numpy`` for the Wan VAE, the SD VAE and
+Open-Sora's temporal VAE, encoder and decoder, and
+``causal_vae_params_from_numpy`` for the causal VAE's encoder (Wan i2v's
+fallback); ``t5_params_from_flax`` for a T5 or mT5 encoder from the HF Flax
+tree the JAX package's ``JaxT5Encoder`` runs, and
+``clip_text_params_from_numpy`` and ``clip_vision_params_from_numpy`` for
+the CLIP text and vision towers. Three layout rules: the JAX block weights are
 depth-stacked ``[L, ...]`` (one entry per block here), JAX's ``linear`` is
 ``x @ w`` with ``w: [d_in, d_out]`` while ``nn.Linear`` keeps ``[d_out, d_in]``, and JAX's
 conv kernels are ``[kt, kh, kw, C_in, C_out]`` (``[kh, kw, C_in, C_out]``)
@@ -29,13 +31,14 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from magcache_tpu_torch.models.clip import CLIPTextConfig
+from magcache_tpu_torch.models.clip import CLIPTextConfig, CLIPVisionConfig
 from magcache_tpu_torch.models.cogvideox import CogVideoXConfig
 from magcache_tpu_torch.models.flux import FluxConfig
 from magcache_tpu_torch.models.latte import LatteConfig
 from magcache_tpu_torch.models.open_sora_plan import OpenSoraPlanConfig
 from magcache_tpu_torch.models.stdit3 import STDiT3Config
 from magcache_tpu_torch.models.t5 import T5Config, UMT5Config
+from magcache_tpu_torch.models.vae import CausalVAEConfig
 from magcache_tpu_torch.models.vae_cogvideox import CogVideoXVAEConfig
 from magcache_tpu_torch.models.vae_osp import OSPVAEConfig
 from magcache_tpu_torch.models.vae_sd import SDVAEConfig
@@ -75,8 +78,8 @@ def wan_params_from_numpy(tree: dict, cfg: WanConfig, device=None,
     Sequence parallelism shards tokens, never weights: every ``sp`` rank
     loads this same whole tree (local ranks share one model).
     """
-    if cfg.model_type != "t2v" or cfg.vace_layers:
-        raise NotImplementedError("only the t2v Wan parameters are ported")
+    if cfg.model_type not in ("t2v", "i2v") or cfg.vace_layers:
+        raise NotImplementedError("only the t2v and i2v Wan parameters are ported")
     dtype = cfg.torch_dtype if dtype is None else dtype
     sd: Dict[str, torch.Tensor] = {}
     put, put_linear = _putters(sd, device)
@@ -87,12 +90,18 @@ def wan_params_from_numpy(tree: dict, cfg: WanConfig, device=None,
             put_linear(f"{grp}.{io}", tree[grp][io])
     put_linear("time_projection", tree["time_projection"])
     blocks = tree["blocks"]
+    linears, vectors = _BLOCK_LINEARS, _BLOCK_VECTORS
+    if cfg.has_clip:
+        linears += ("cross_k_img", "cross_v_img")
+        vectors += ("cross_norm_k_img",)
+        for io in ("in", "out"):
+            put_linear(f"img_emb.{io}", tree["img_emb"][io])
     for i in range(cfg.layers):
-        for name in _BLOCK_LINEARS:
+        for name in linears:
             put_linear(f"blocks.{i}.{name}",
                        {"w": blocks[name]["w"][i], "b": blocks[name]["b"][i]},
                        dtype)
-        for name in _BLOCK_VECTORS:
+        for name in vectors:
             put(f"blocks.{i}.{name}", blocks[name][i])
     put("head.modulation", tree["head"]["modulation"])
     put_linear("head.out", tree["head"]["out"])
@@ -365,12 +374,38 @@ def clip_text_params_from_numpy(tree: dict, cfg: CLIPTextConfig, device=None
     return sd
 
 
+def clip_vision_params_from_numpy(tree: dict, cfg: CLIPVisionConfig, device=None
+                                  ) -> Dict[str, torch.Tensor]:
+    """State dict for ``CLIPVisionModel(cfg)`` from a numpy CLIP vision tree
+    (the layout of ``magcache_tpu.models.clip.init_clip_vision_params``,
+    blocks depth-stacked, fused qkv): the patch embedding and the block
+    linears in ``cfg.torch_dtype``, the class token, positions and norms
+    f32."""
+    sd: Dict[str, torch.Tensor] = {}
+    put, put_linear = _putters(sd, device)
+    dt = cfg.torch_dtype
+    put_linear("patch_embed", tree["patch_embed"], dt)
+    put("cls", tree["cls"])
+    put("pos", tree["pos"])
+    for n in ("pre_norm", "post_norm"):
+        put(f"{n}.weight", tree[f"{n}_w"])
+        put(f"{n}.bias", tree[f"{n}_b"])
+    g = tree["blocks"]
+    for i in range(cfg.layers):
+        for n in ("norm1", "norm2"):
+            put(f"blocks.{i}.{n}.weight", g[f"{n}_w"][i])
+            put(f"blocks.{i}.{n}.bias", g[f"{n}_b"][i])
+        for n in ("qkv", "proj", "mlp1", "mlp2"):
+            put_linear(f"blocks.{i}.{n}", {"w": g[n]["w"][i], "b": g[n]["b"][i]}, dt)
+    return sd
+
+
 def wan_vae_params_from_numpy(tree: dict, cfg: WanVAEConfig, device=None
                               ) -> Dict[str, torch.Tensor]:
-    """State dict for ``WanVAE(cfg)`` (the decoder and the post-quant conv)
-    from a numpy Wan VAE pytree (the layout of ``magcache_tpu.models.
-    vae_wan.init_wan_vae_params``; its encoder is not ported and is left
-    out). Conv weights and biases in ``cfg.torch_dtype``, norm gains f32."""
+    """State dict for ``WanVAE(cfg)`` (encoder, decoder and the quant and
+    post-quant convs) from a numpy Wan VAE pytree (the layout of
+    ``magcache_tpu.models.vae_wan.init_wan_vae_params``). Conv weights and
+    biases in ``cfg.torch_dtype``, norm gains f32."""
     dt = cfg.torch_dtype
     sd: Dict[str, torch.Tensor] = {}
     put, _ = _putters(sd, device)
@@ -388,22 +423,24 @@ def wan_vae_params_from_numpy(tree: dict, cfg: WanVAEConfig, device=None
             if c in p:
                 conv(f"{name}.{c}", p[c])
 
-    dec = tree["decoder"]
     conv("post_quant", tree["post_quant"])
-    conv("decoder.conv1", dec["conv1"])
-    for i, p in enumerate(dec["mid"]):
-        res(f"decoder.mid.{i}", p)
-    put("decoder.mid_attn.norm", dec["mid_attn"]["norm"])
-    conv("decoder.mid_attn.qkv", dec["mid_attn"]["qkv"])
-    conv("decoder.mid_attn.proj", dec["mid_attn"]["proj"])
-    for i, lv in enumerate(dec["levels"]):
-        for j, p in enumerate(lv["blocks"]):
-            res(f"decoder.levels.{i}.blocks.{j}", p)
-        for c in ("resample", "time_conv"):
-            if lv[c] is not None:
-                conv(f"decoder.levels.{i}.{c}", lv[c])
-    put("decoder.head_norm", dec["head_norm"])
-    conv("decoder.head", dec["head"])
+    conv("quant", tree["quant"])
+    for side in ("encoder", "decoder"):
+        t = tree[side]
+        conv(f"{side}.conv1", t["conv1"])
+        for i, p in enumerate(t["mid"]):
+            res(f"{side}.mid.{i}", p)
+        put(f"{side}.mid_attn.norm", t["mid_attn"]["norm"])
+        conv(f"{side}.mid_attn.qkv", t["mid_attn"]["qkv"])
+        conv(f"{side}.mid_attn.proj", t["mid_attn"]["proj"])
+        for i, lv in enumerate(t["levels"]):
+            for j, p in enumerate(lv["blocks"]):
+                res(f"{side}.levels.{i}.blocks.{j}", p)
+            for c in ("resample", "time_conv"):
+                if lv[c] is not None:
+                    conv(f"{side}.levels.{i}.{c}", lv[c])
+        put(f"{side}.head_norm", t["head_norm"])
+        conv(f"{side}.head", t["head"])
     return sd
 
 
@@ -457,6 +494,23 @@ def _put_vae_tree(put, prefix: str, node) -> None:
         return
     for key, sub in (node.items() if isinstance(node, dict) else enumerate(node)):
         _put_vae_tree(put, f"{prefix}.{key}", sub)
+
+
+def causal_vae_params_from_numpy(tree: dict, cfg: CausalVAEConfig, device=None
+                                 ) -> Dict[str, torch.Tensor]:
+    """State dict for ``CausalVAE(cfg)`` (its encoder, f32) from a numpy
+    causal-VAE pytree (the layout of ``magcache_tpu.models.vae.
+    init_causal_vae_params``: ``level{i}`` with ``blocks`` and ``down`` ``{conv,
+    tstride}``; the decoder is not ported and is left out)."""
+    sd: Dict[str, torch.Tensor] = {}
+    put, _ = _putters(sd, device)
+    enc = tree["encoder"]
+    levels = [{"blocks": enc[f"level{i}"]["blocks"],
+               "down": enc[f"level{i}"]["down"] and enc[f"level{i}"]["down"]["conv"]}
+              for i in range(len(cfg.ch_mult))]
+    _put_vae_tree(put, "encoder", {"stem": enc["stem"], "levels": levels, "mid": enc["mid"],
+                                   "out_norm": enc["out_norm"], "out": enc["out"]})
+    return sd
 
 
 def osp_vae_params_from_numpy(tree: dict, cfg: OSPVAEConfig, device=None

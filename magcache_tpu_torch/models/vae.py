@@ -1,6 +1,9 @@
 """Causal-VAE primitives that the Wan, Open-Sora-Plan, CogVideoX, SD and
-Open-Sora temporal VAEs are built from, and Open-Sora 1.2's micro-frame
-composite ``MicroFrameVAE`` (the ported part of ``magcache_tpu.models.vae``).
+Open-Sora temporal VAEs are built from, Open-Sora 1.2's micro-frame
+composite ``MicroFrameVAE``, and the encoder of the causal 3-D VAE
+``CausalVAE`` (the ported part of ``magcache_tpu.models.vae``; Wan i2v's
+random-weight fallback encoder when a pipeline has no VAE that encodes; its
+decoder is not ported).
 
 The JAX package keeps activations channel-last (NDHWC, XLA's TPU layout).
 Here they are NCDHW, cuDNN's layout, with weights in PyTorch's conv layout
@@ -11,6 +14,7 @@ reach no Pallas kernel.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import List, Optional, Tuple, Union
 
@@ -20,7 +24,7 @@ from torch import nn
 
 __all__ = ["channel_rms_norm", "causal_conv3d", "group_norm", "GroupNormAffine",
            "init_convs_", "blend_edge", "stitch_tiles", "MicroFrameVAE",
-           "OPEN_SORA_VAE_SCALE", "OPEN_SORA_VAE_SHIFT"]
+           "OPEN_SORA_VAE_SCALE", "OPEN_SORA_VAE_SHIFT", "CausalVAEConfig", "CausalVAE"]
 
 
 def channel_rms_norm(x: torch.Tensor, weight: torch.Tensor,
@@ -78,8 +82,8 @@ def causal_conv3d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Te
 
 
 class GroupNormAffine(nn.Module):
-    """A GroupNorm's f32 ``weight`` (ones) and ``bias`` (zeros) ``[C]``; the
-    norm itself is ``group_norm``."""
+    """A norm's f32 ``weight`` (ones) and ``bias`` (zeros) ``[C]``; the norm
+    itself is ``group_norm`` (or ``channel_rms_norm`` in ``CausalVAE``)."""
 
     def __init__(self, c: int, device=None):
         super().__init__()
@@ -215,3 +219,120 @@ class MicroFrameVAE(nn.Module):
                                                          zc.shape[1] * tf))
             outs.append(self._spatial_decode(y))
         return torch.cat(outs, dim=1)
+
+
+@dataclasses.dataclass(frozen=True)
+class CausalVAEConfig:
+    """The causal 3-D VAE (the JAX package's ``CausalVAEConfig``): stride
+    (4, 8, 8) at the defaults, ``ch_mult`` levels with ``blocks_per_level``
+    residual blocks each, a temporal stride 2 on each transition whose
+    ``temporal_downsample`` entry is set. The encoder's norms are channel
+    RMS norms."""
+
+    in_channels: int = 3
+    z_channels: int = 16
+    base: int = 96
+    ch_mult: Tuple[int, ...] = (1, 2, 4, 4)
+    blocks_per_level: int = 2
+    temporal_downsample: Tuple[bool, ...] = (False, True, True, False)
+
+    @staticmethod
+    def tiny(**kw) -> "CausalVAEConfig":
+        d = dict(base=8, ch_mult=(1, 2), blocks_per_level=1,
+                 temporal_downsample=(True, False), z_channels=4)
+        d.update(kw)
+        return CausalVAEConfig(**d)
+
+
+class CausalResBlock(nn.Module):
+    """RMS norm (affine) -> SiLU -> causal conv, twice, plus a 1x1x1 ``skip``
+    conv when the channels change."""
+
+    def __init__(self, cin: int, cout: int, device=None):
+        super().__init__()
+        self.norm1, self.norm2 = GroupNormAffine(cin, device), GroupNormAffine(cout, device)
+        self.conv1 = nn.Conv3d(cin, cout, 3, device=device)
+        self.conv2 = nn.Conv3d(cout, cout, 3, device=device)
+        self.skip = nn.Conv3d(cin, cout, 1, device=device) if cin != cout else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = F.silu(channel_rms_norm(x, self.norm1.weight, self.norm1.bias))
+        h, _ = causal_conv3d(h, self.conv1.weight, self.conv1.bias)
+        h = F.silu(channel_rms_norm(h, self.norm2.weight, self.norm2.bias))
+        h, _ = causal_conv3d(h, self.conv2.weight, self.conv2.bias)
+        if self.skip is not None:
+            x = self.skip(x)
+        return x + h
+
+
+class CausalDownLevel(nn.Module):
+    def __init__(self, blocks: List[nn.Module], down: Optional[nn.Conv3d]):
+        super().__init__()
+        self.blocks = nn.ModuleList(blocks)
+        self.down = down
+
+
+class CausalVAEEncoder(nn.Module):
+    def __init__(self, cfg: CausalVAEConfig, device=None):
+        super().__init__()
+        chs = [cfg.base * m for m in cfg.ch_mult]
+        self.stem = nn.Conv3d(cfg.in_channels, chs[0], 3, device=device)
+        levels, c = [], chs[0]
+        for li, ch in enumerate(chs):
+            blocks = []
+            for _ in range(cfg.blocks_per_level):
+                blocks.append(CausalResBlock(c, ch, device))
+                c = ch
+            down = None
+            if li < len(chs) - 1:
+                kt = 3 if cfg.temporal_downsample[li] else 1
+                down = nn.Conv3d(c, c, (kt, 3, 3), device=device)
+            levels.append(CausalDownLevel(blocks, down))
+        self.levels = nn.ModuleList(levels)
+        self.mid = CausalResBlock(c, c, device)
+        self.out_norm = GroupNormAffine(c, device)
+        self.out = nn.Conv3d(c, 2 * cfg.z_channels, 3, device=device)
+
+
+class CausalVAE(nn.Module):
+    """The causal 3-D VAE's encoder in f32 (JAX ``CausalVAE.encode``):
+    pixels ``[B, T, H, W, 3]`` -> ``(mean, logvar)``, each ``f32[B, 1 +
+    (T-1)/4, H/8, W/8, z]`` at the default strides, the whole clip in one
+    pass. Each downsample zero-pads one row and column on every side, pads
+    time with ``kt - 1`` copies of the first frame (a strided transition has
+    a time kernel of 3, else 1) and convolves at stride (ts, 2, 2). Build
+    on ``device``, then ``init(generator)`` or ``load_state_dict``
+    (``models.convert.causal_vae_params_from_numpy``)."""
+
+    def __init__(self, cfg: CausalVAEConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.encoder = CausalVAEEncoder(cfg, device)
+
+    def init(self, generator: torch.Generator) -> "CausalVAE":
+        """Random conv weights ``N(0, 1/fan_in)`` and zero biases from
+        ``generator``, unit norm gains (``init_causal_vae_params``'s
+        distributions; the draws differ)."""
+        init_convs_(self, generator)
+        return self
+
+    @torch.inference_mode()
+    def encode(self, x: torch.Tensor):
+        p = self.encoder
+        h = x.to(p.stem.weight.device).float().permute(0, 4, 1, 2, 3)
+        h, _ = causal_conv3d(h, p.stem.weight, p.stem.bias)
+        for li, lv in enumerate(p.levels):
+            for blk in lv.blocks:
+                h = blk(h)
+            if lv.down is not None:
+                kt = lv.down.weight.shape[2]
+                ts = 2 if self.cfg.temporal_downsample[li] else 1
+                h = F.pad(h, (1, 1, 1, 1))
+                if kt > 1:
+                    h = torch.cat([h[:, :, :1].expand(-1, -1, kt - 1, -1, -1), h], dim=2)
+                h = F.conv3d(h, lv.down.weight, lv.down.bias, stride=(ts, 2, 2))
+        h = p.mid(h)
+        h = F.silu(channel_rms_norm(h, p.out_norm.weight, p.out_norm.bias))
+        h, _ = causal_conv3d(h, p.out.weight, p.out.bias)
+        mean, logvar = h.permute(0, 2, 3, 4, 1).chunk(2, dim=-1)
+        return mean.contiguous(), logvar.contiguous()

@@ -1,8 +1,16 @@
-"""Wan2.1's video VAE decoder as PyTorch modules (the decode side of
-``magcache_tpu.models.vae_wan``).
+"""Wan2.1's video VAE as PyTorch modules (``magcache_tpu.models.vae_wan``):
+the decoder, and the encoder that Wan i2v and flf2v encode their
+conditioning frames with.
 
 Architecture (base 96, mults (1, 2, 4, 4), 2 residual blocks per level,
-z = 16; the decoder upsamples /8 in space and x4 in time):
+z = 16; the encoder downsamples /8 in space and /4 in time, the decoder
+upsamples back). The encoder: a causal 3x3x3 conv in; per level
+``num_res_blocks`` residual blocks, then (but after the last level) a 3x3
+conv of stride 2 over each frame after a zero pad of one row and column at
+the bottom and right, and on a temporal transition a causal (3,1,1) time
+conv of stride 2; the middle as the decoder's; an RMS norm -> SiLU ->
+causal conv to 2z channels, and the 1x1x1 quant conv, whose output is the
+(mean, logvar) pair. The decoder:
 - post-quant 1x1x1 conv; a causal 3x3x3 conv in; middle: a residual block,
   single-head per-frame spatial attention (RMS norm, 1x1 qkv and projection
   convs, an f32 softmax over the frame's H*W tokens), a residual block;
@@ -16,14 +24,17 @@ z = 16; the decoder upsamples /8 in space and x4 in time):
 
 ``WanVAE.decode(z, latent_chunk=1)`` streams one latent frame a call with
 the causal convs' carried time caches (equal to the whole-clip decode; the
-only way 480p x 81 frames fits a card), or decodes whole. Activations are
+only way 480p x 81 frames fits a card), or decodes whole.
+``WanVAE.encode(x, pixel_chunk=4)`` streams the pixels as the official wan
+VAE does: the first frame alone, then windows of 4 (a multiple of the time
+stride keeps every strided conv's window phase), or encodes whole; the mean
+is normalized with the configured latent statistics. Activations are
 NCDHW inside (cuDNN's layout; ``models.vae``); latents ``[B, F, H, W, C]``
 and pixels ``[B, F, H, W, 3]`` f32 at the API, as in JAX. In a bf16 config
 the convs' weights and activations are bf16 and the norm statistics stay
 f32 (JAX ``_cast_conv_params``); the attention's scores and softmax are f32
-in either. The encoder (``encode``, i2v) and checkpoint loading are not
-ported; ``models.convert.wan_vae_params_from_numpy`` carries the JAX tree's
-decoder over.
+in either. Checkpoint loading is not ported;
+``models.convert.wan_vae_params_from_numpy`` carries the JAX tree over.
 """
 
 from __future__ import annotations
@@ -76,6 +87,16 @@ class WanVAEConfig:
 WAN21_VAE = WanVAEConfig()
 
 
+def _patchify_pixels(x: torch.Tensor, p: int) -> torch.Tensor:
+    """``[B, T, H, W, 3]`` -> ``[B, T, H/p, W/p, 3*p*p]`` (pixel unshuffle,
+    channel order (c, dh, dw), JAX ``_patchify_pixels``)."""
+    if p == 1:
+        return x
+    b, t, h, w, c = x.shape
+    x = x.reshape(b, t, h // p, p, w // p, p, c)
+    return x.permute(0, 1, 2, 4, 6, 3, 5).reshape(b, t, h // p, w // p, c * p * p)
+
+
 def _unpatchify_pixels(x: torch.Tensor, p: int) -> torch.Tensor:
     """``[B, T, H, W, 3*p*p]`` -> ``[B, T, H*p, W*p, 3]`` (channel order
     (c, dh, dw), JAX ``_unpatchify_pixels``)."""
@@ -86,13 +107,18 @@ def _unpatchify_pixels(x: torch.Tensor, p: int) -> torch.Tensor:
     return x.permute(0, 1, 2, 5, 3, 6, 4).reshape(b, t, h * p, w * p, cpp // (p * p))
 
 
-def _conv2d_frames(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
-    """A 2-D conv applied to every frame of ``x [B, C, T, H, W]`` with zero
-    'same' padding (JAX ``_conv2d_frames``), as a 3-D conv with a one-frame
-    kernel."""
+def _conv2d_frames(x: torch.Tensor, conv: nn.Conv2d, stride: int = 1,
+                   asym_pad: bool = False) -> torch.Tensor:
+    """A 2-D conv applied to every frame of ``x [B, C, T, H, W]`` (JAX
+    ``_conv2d_frames``), as a 3-D conv with a one-frame kernel: zero 'same'
+    padding, or with ``asym_pad`` one zero row and column at the bottom and
+    right and no other padding (the encoder's stride-2 downsample)."""
     kh, kw = conv.weight.shape[2:]
-    return F.conv3d(x, conv.weight.unsqueeze(2), conv.bias,
-                    padding=(0, (kh - 1) // 2, (kw - 1) // 2))
+    pad = (0, (kh - 1) // 2, (kw - 1) // 2)
+    if asym_pad:
+        x, pad = F.pad(x, (0, 1, 0, 1)), 0
+    return F.conv3d(x, conv.weight.unsqueeze(2), conv.bias, stride=(1, stride, stride),
+                    padding=pad)
 
 
 def _conv3(cin, cout, k, dt, device) -> nn.Conv3d:
@@ -131,6 +157,36 @@ class UpLevel(nn.Module):
                           if time_conv else None)
 
 
+class DownLevel(nn.Module):
+    def __init__(self, cin, cout, blocks, resample, time_conv, dt, device):
+        super().__init__()
+        self.blocks = nn.ModuleList(ResBlock(cin if j == 0 else cout, cout, dt, device)
+                                    for j in range(blocks))
+        self.resample = (nn.Conv2d(cout, cout, 3, device=device, dtype=dt)
+                         if resample else None)
+        self.time_conv = (_conv3(cout, cout, (3, 1, 1), dt, device)
+                          if time_conv else None)
+
+
+class WanVAEEncoder(nn.Module):
+    def __init__(self, cfg: WanVAEConfig, device=None):
+        super().__init__()
+        dt = cfg.torch_dtype
+        dims = [cfg.base * m for m in cfg.dim_mult]
+        self.conv1 = _conv3(cfg.pixel_channels, dims[0], 3, dt, device)
+        levels, cin = [], dims[0]
+        for i, cout in enumerate(dims):
+            last = i == len(dims) - 1
+            levels.append(DownLevel(cin, cout, cfg.num_res_blocks, not last,
+                                    not last and cfg.temporal_down[i], dt, device))
+            cin = cout
+        self.levels = nn.ModuleList(levels)
+        self.mid = nn.ModuleList(ResBlock(dims[-1], dims[-1], dt, device) for _ in range(2))
+        self.mid_attn = AttnBlock(dims[-1], dt, device)
+        self.head_norm = _norm(dims[-1], device)
+        self.head = _conv3(dims[-1], 2 * cfg.z_channels, 3, dt, device)
+
+
 class WanVAEDecoder(nn.Module):
     def __init__(self, cfg: WanVAEConfig, device=None):
         super().__init__()
@@ -152,8 +208,9 @@ class WanVAEDecoder(nn.Module):
 
 
 class WanVAE(nn.Module):
-    """Latents ``[B, F, H, W, z]`` -> pixels ``[B, 4(F-1)+1, 8H, 8W, 3]`` f32.
-    Build on ``device``, then ``init(generator)`` for random weights or
+    """Latents ``[B, F, H, W, z]`` -> pixels ``[B, 4(F-1)+1, 8H, 8W, 3]`` f32
+    (``decode``), and pixels -> (mean, logvar) latents (``encode``). Build on
+    ``device``, then ``init(generator)`` for random weights or
     ``load_state_dict`` (``models/convert.py``)."""
 
     def __init__(self, cfg: WanVAEConfig, device=None):
@@ -161,6 +218,9 @@ class WanVAE(nn.Module):
         self.cfg = cfg
         self.post_quant = _conv3(cfg.z_channels, cfg.z_channels, 1, cfg.torch_dtype, device)
         self.decoder = WanVAEDecoder(cfg, device)
+        # after the decoder: init's draws for the decoder stay the same
+        self.quant = _conv3(2 * cfg.z_channels, 2 * cfg.z_channels, 1, cfg.torch_dtype, device)
+        self.encoder = WanVAEEncoder(cfg, device)
 
     def init(self, generator: torch.Generator) -> "WanVAE":
         """Random weights from ``generator`` (on its device), drawn as
@@ -200,14 +260,84 @@ class WanVAE(nn.Module):
         a = a.reshape(b, t, hh, ww, c).permute(0, 4, 1, 2, 3)
         return x + _conv2d_frames(a, blk.proj)
 
-    def _denormalize(self, z: torch.Tensor) -> torch.Tensor:
+    def _latent_stats(self, z: torch.Tensor):
+        """``(mean, std * scale)`` of the latent normalization on z's device,
+        None when it is the identity."""
         cfg = self.cfg
         if cfg.latent_mean is None and cfg.latent_std is None and cfg.latent_scale == 1.0:
-            return z
+            return None
         n = z.shape[-1]
         mean = torch.tensor(cfg.latent_mean or (0.0,) * n, device=z.device)
         std = torch.tensor(cfg.latent_std or (1.0,) * n, device=z.device)
-        return z * (std * cfg.latent_scale) + mean
+        return mean, std * cfg.latent_scale
+
+    def _normalize(self, z: torch.Tensor) -> torch.Tensor:
+        stats = self._latent_stats(z)
+        return z if stats is None else (z - stats[0]) / stats[1]
+
+    def _denormalize(self, z: torch.Tensor) -> torch.Tensor:
+        stats = self._latent_stats(z)
+        return z if stats is None else z * stats[1] + stats[0]
+
+    def _encode_core(self, x: torch.Tensor, caches: Optional[dict] = None):
+        """Pixels ``[B, C, T, H, W]`` -> ((mean, logvar) ``f32[B, z, T', h,
+        w]``, new caches). ``caches`` None encodes a whole clip; else the
+        carried causal caches of the previous window."""
+        cfg, p = self.cfg, self.encoder
+        tc = caches or {}
+        nc = {}
+
+        def cc(name, x, conv, stride=1):
+            y, nc[name] = causal_conv3d(x, conv.weight, conv.bias, stride=stride,
+                                        tcache=tc.get(name))
+            return y
+
+        def rb(name, blk, h):
+            nc[name] = {}
+            return self._res(blk, h, tc.get(name), nc[name])
+
+        h = cc("conv1", x.to(cfg.torch_dtype), p.conv1)
+        for li, lv in enumerate(p.levels):
+            for bi, blk in enumerate(lv.blocks):
+                h = rb(f"l{li}b{bi}", blk, h)
+            if lv.resample is not None:
+                h = _conv2d_frames(h, lv.resample, stride=2, asym_pad=True)
+                if lv.time_conv is not None:
+                    h = cc(f"l{li}t", h, lv.time_conv, stride=(2, 1, 1))
+        h = rb("mid0", p.mid[0], h)
+        h = self._attn(p.mid_attn, h)
+        h = rb("mid1", p.mid[1], h)
+        h = F.silu(channel_rms_norm(h, p.head_norm, eps=cfg.eps))
+        h = cc("head", h, p.head)
+        h, _ = causal_conv3d(h, self.quant.weight, self.quant.bias)
+        return h.float().chunk(2, dim=1), nc
+
+    @torch.inference_mode()
+    def encode(self, x: torch.Tensor, pixel_chunk: Optional[int] = 4):
+        """Pixels ``[B, F, H, W, 3]`` in [-1, 1] -> ``(mean, logvar)``, each
+        ``f32[B, 1 + (F-1)/4, H/8, W/8, z]``, the mean normalized. Streams the
+        first frame, then windows of ``pixel_chunk`` frames (a multiple of
+        the time stride) with the carried causal caches (equal to the whole
+        encode), or encodes the whole clip when ``pixel_chunk`` is None."""
+        dev = self.quant.weight.device
+        x = _patchify_pixels(x.to(dev).float(), self.cfg.patchify).permute(0, 4, 1, 2, 3)
+        n = x.shape[2]
+        if pixel_chunk is None or n <= 1:
+            (mean, logvar), _ = self._encode_core(x)
+        else:
+            t_stride = 2 ** sum(self.cfg.temporal_down)
+            if pixel_chunk % t_stride:
+                raise ValueError(f"pixel_chunk {pixel_chunk} is not a multiple of the "
+                                 f"time stride {t_stride}")
+            caches, means, logvars = None, [], []
+            for i in [0] + list(range(1, n, pixel_chunk)):
+                end = 1 if i == 0 else min(i + pixel_chunk, n)
+                (m, lv), caches = self._encode_core(x[:, :, i:end], caches)
+                means.append(m)
+                logvars.append(lv)
+            mean, logvar = torch.cat(means, dim=2), torch.cat(logvars, dim=2)
+        mean, logvar = (t.permute(0, 2, 3, 4, 1) for t in (mean, logvar))
+        return self._normalize(mean), logvar
 
     def _decode_core(self, z: torch.Tensor, caches: Optional[dict] = None):
         """Latents ``[B, z, T, H, W]`` -> (pixels ``[B, T', H', W', 3]`` f32,

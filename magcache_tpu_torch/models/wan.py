@@ -1,4 +1,4 @@
-"""Wan 2.1 video DiT (t2v), as PyTorch modules.
+"""Wan 2.1 video DiT (t2v, i2v and flf2v), as PyTorch modules.
 
 Same model as ``magcache_tpu.models.wan``:
 
@@ -10,7 +10,15 @@ Same model as ``magcache_tpu.models.wan``:
   self-attention and FFN), kept in f32;
 - self-attention with token-scope q/k RMSNorm and 3D RoPE (head dim split
   t/h/w = (d - 4*d6, 2*d6, 2*d6), d6 = d // 6), full attention;
-- cross-attention to the padded text context, no masking;
+- cross-attention to the padded text context, no masking; the i2v variant
+  (``model_type="i2v"``, also flf2v) adds a parallel cross-attention to the
+  CLIP image tokens, which sit in front of the text tokens in one context
+  (``clip_tokens`` of them), with its own k/v projections and k norm; its
+  output is added to the text output before ``cross_o``. Its ``prepare``
+  concatenates the conditioning latents ``y`` (4 mask + 16 latent channels)
+  to x on channels before the patchify, and embeds the CLIP features with
+  ``img_emb`` (f32 linear -> tanh-gelu -> linear, rounded to the activation
+  dtype);
 - head: LayerNorm + 2-way modulation from the unprojected e, linear to patch
   voxels, unpatchify.
 
@@ -20,7 +28,7 @@ gains and the head stay f32. PyTorch does not promote mixed-dtype products,
 so every point where JAX promotes bf16 to f32 upcasts explicitly.
 
 The MagCache boundary is the whole block stack: ``make_wan_core`` splits the
-model into ``prepare`` / ``trunk`` / ``head``. Only t2v is ported; i2v, VACE
+model into ``prepare`` / ``trunk`` / ``head``. t2v and i2v are ported; VACE
 and ti2v raise ``NotImplementedError``.
 
 Sequence parallelism: with a ``plan`` (``parallel.mesh.MeshPlan``) every rank
@@ -51,7 +59,7 @@ from magcache_tpu_torch.ops.norms import rms_norm
 from magcache_tpu_torch.ops.rope import rope_freqs_1d
 
 __all__ = ["WanConfig", "WanModel", "make_wan_core", "wan_rope_tables",
-           "patchify", "unpatchify", "WAN_1_3B"]
+           "patchify", "unpatchify", "WAN_1_3B", "WAN_14B"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,13 +75,21 @@ class WanConfig:
     out_channels: int = 16
     patch: Tuple[int, int, int] = (1, 2, 2)
     eps: float = 1e-6
-    model_type: str = "t2v"
+    model_type: str = "t2v"              # "t2v" | "i2v" (i2v and flf2v)
+    clip_dim: int = 1280                 # i2v: the CLIP features' width
+    clip_tokens: int = 257               # i2v: image tokens (flf2v: 514)
     vace_layers: Tuple[int, ...] = ()
     dtype: str = "float32"
 
     @property
     def head_dim(self) -> int:
         return self.dim // self.heads
+
+    @property
+    def has_clip(self) -> bool:
+        """The i2v image cross-attention branch (``clip_tokens`` 0: an i2v
+        model conditioned by the ``y`` concat alone)."""
+        return self.model_type == "i2v" and self.clip_tokens > 0
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -99,6 +115,7 @@ class WanConfig:
 
 # Published Wan2.1 sizes
 WAN_1_3B = WanConfig(dim=1536, ffn_dim=8960, heads=12, layers=30)
+WAN_14B = WanConfig(dim=5120, ffn_dim=13824, heads=40, layers=40)
 
 
 def wan_rope_tables(cfg: WanConfig, grid: Tuple[int, int, int]):
@@ -164,6 +181,9 @@ class WanBlock(nn.Module):
         self.norm3_w = _param((d,), device, 1.0)
         self.norm3_b = _param((d,), device, 0.0)
         self.ffn1, self.ffn2 = lin(d, cfg.ffn_dim), lin(cfg.ffn_dim, d)
+        if cfg.has_clip:
+            self.cross_k_img, self.cross_v_img = lin(d, d), lin(d, d)
+            self.cross_norm_k_img = _param((d,), device, 1.0)
 
     def forward(self, x: torch.Tensor, e0: torch.Tensor, context: torch.Tensor,
                 cos: torch.Tensor, sin: torch.Tensor, sp: Optional[dict] = None
@@ -191,14 +211,24 @@ class WanBlock(nn.Module):
                       **sp).reshape(x.shape)
         x = gate(x, self.o(a), 2)
 
-        # cross-attention to the text context (residual in the activation dtype)
+        # cross-attention to the text context, and with the CLIP branch to
+        # the image tokens in front of it; the two outputs are summed in the
+        # activation dtype (residual in the activation dtype)
         xc = layer_norm_mod(x, weight=self.norm3_w, bias=self.norm3_b, eps=eps)
-        sc = context.shape[1]
         cq = rms_norm(self.cross_q(xc), self.cross_norm_q, eps=eps).reshape(b, s, heads, -1)
-        ck = rms_norm(self.cross_k(context), self.cross_norm_k, eps=eps).reshape(b, sc, heads, -1)
-        cv = self.cross_v(context).reshape(b, sc, heads, -1)
-        ca = attention(cq, ck, cv, fixed_max=QKNORM_FIXED_MAX, kv_replicated=True,
-                       **sp).reshape(x.shape)
+
+        def cross(ctx, k_proj, v_proj, k_norm):
+            sc = ctx.shape[1]
+            ck = rms_norm(k_proj(ctx), k_norm, eps=eps).reshape(b, sc, heads, -1)
+            cv = v_proj(ctx).reshape(b, sc, heads, -1)
+            return attention(cq, ck, cv, fixed_max=QKNORM_FIXED_MAX, kv_replicated=True,
+                             **sp).reshape(x.shape)
+
+        n_img = cfg.clip_tokens if cfg.has_clip else 0
+        ca = cross(context[:, n_img:], self.cross_k, self.cross_v, self.cross_norm_k)
+        if n_img:
+            ca = ca + cross(context[:, :n_img], self.cross_k_img, self.cross_v_img,
+                            self.cross_norm_k_img)
         x = x + self.cross_o(ca)
 
         # FFN, tanh-gelu
@@ -216,15 +246,16 @@ class WanHead(nn.Module):
 
 
 class WanModel(nn.Module):
-    """Wan2.1 t2v DiT. Build on ``device``, then ``init(generator)`` for
-    random weights or ``load_state_dict`` (see ``models/convert.py``)."""
+    """Wan2.1 t2v or i2v DiT. Build on ``device``, then ``init(generator)``
+    for random weights or ``load_state_dict`` (see ``models/convert.py``).
+    The i2v model's ``img_emb`` linears are f32."""
 
     def __init__(self, cfg: WanConfig, device=None):
         super().__init__()
-        if cfg.model_type != "t2v" or cfg.vace_layers:
+        if cfg.model_type not in ("t2v", "i2v") or cfg.vace_layers:
             raise NotImplementedError(
                 f"Wan {cfg.model_type!r}{' + VACE' if cfg.vace_layers else ''}"
-                " is not ported yet; only t2v is")
+                " is not ported yet; t2v and i2v are")
         self.cfg = cfg
         d = cfg.dim
         f32 = torch.float32
@@ -240,6 +271,9 @@ class WanModel(nn.Module):
         self.time_projection = lin(d, 6 * d)
         self.blocks = nn.ModuleList(WanBlock(cfg, device) for _ in range(cfg.layers))
         self.head = WanHead(cfg, device)
+        if cfg.has_clip:
+            self.img_emb = nn.ModuleDict({"in": lin(cfg.clip_dim, cfg.clip_dim),
+                                          "out": lin(cfg.clip_dim, d)})
 
     def init(self, generator: torch.Generator) -> "WanModel":
         """Random weights from ``generator`` (on its device): LeCun-normal
@@ -263,7 +297,10 @@ def make_wan_core(model: WanModel, grid: Tuple[int, int, int], plan=None, *,
                   ring_threshold: int = RING_THRESHOLD) -> DiTCore:
     """(prepare, trunk, head) for a static latent patch grid (F, H, W).
 
-    cond = {"context": f[B, text_len, text_dim]}
+    cond = {"context": f[B, text_len, text_dim]; i2v adds "y": the
+            conditioning latents f[B, F*pt, H*ph, W*pw, C_y] (concatenated
+            to x on channels, C + C_y = in_channels) and, with the CLIP
+            branch, "clip_fea": f[B, clip_tokens, clip_dim]}
     x    = latent video f[B, F*pt, H*ph, W*pw, C] (channel-last)
 
     With ``plan`` the core is one rank's: hidden holds the rank's
@@ -294,6 +331,10 @@ def make_wan_core(model: WanModel, grid: Tuple[int, int, int], plan=None, *,
     @torch.inference_mode()
     def prepare(x, t, cond):
         dt = cfg.torch_dtype
+        if cfg.model_type == "i2v":
+            if "y" not in cond:
+                raise ValueError("the i2v model needs the conditioning latents cond['y']")
+            x = torch.cat([x, cond["y"].to(x.dtype)], dim=-1)
         tokens = patchify(cfg, x.to(dt))
         if plan is not None:        # embed this rank's token rows only
             tokens = split_sequence(tokens, plan, 1)
@@ -304,6 +345,12 @@ def make_wan_core(model: WanModel, grid: Tuple[int, int, int], plan=None, *,
         tx = model.text_embedding
         ctx = F.gelu(tx["in"](cond["context"].float()), approximate="tanh")
         ctx = tx["out"](ctx).to(dt)
+        if cfg.has_clip:
+            if "clip_fea" not in cond:
+                raise ValueError("the i2v model's CLIP branch needs cond['clip_fea']")
+            im = model.img_emb
+            img = F.gelu(im["in"](cond["clip_fea"].float()), approximate="tanh")
+            ctx = torch.cat([im["out"](img).to(dt), ctx], dim=1)
         return hidden, {"e": e, "e0": e0, "context": ctx}
 
     @torch.inference_mode()

@@ -1,16 +1,33 @@
-"""Seeding and save helpers (counterpart of ``magcache_tpu.utils.misc``)."""
+"""Seeding, image and save helpers (counterpart of
+``magcache_tpu.utils.misc``)."""
 
 from __future__ import annotations
 
 import os
+from typing import Tuple
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def set_seed(seed: int, device="cpu") -> torch.Generator:
     """Seed -> ``torch.Generator`` on ``device``. A CPU generator gives the
     same numbers whichever card the tensors then move to."""
     return torch.Generator(device=device).manual_seed(seed)
+
+
+def resize_bicubic(img: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """Channel-last images ``[B, H, W, C]`` -> ``[B, h, w, C]`` f32, as
+    ``jax.image.resize(method="bicubic")`` resizes them: the Keys cubic with
+    a = -0.5, stretched by the scale when shrinking (antialiased), taps
+    outside the image dropped and the weights renormalised. That is
+    PyTorch's antialiased bicubic (its plain bicubic uses a = -0.75 and
+    no antialiasing, up to 0.6 away on a natural downsample)."""
+    x = img.float().permute(0, 3, 1, 2)
+    x = F.interpolate(x, size=tuple(size), mode="bicubic", align_corners=False,
+                      antialias=True)
+    return x.permute(0, 2, 3, 1).contiguous()
 
 
 def to_uint8_video(x: np.ndarray) -> np.ndarray:

@@ -60,7 +60,7 @@ def test_generate_skip_override_and_full_compute():
 
 def test_unported_configs_raise():
     with pytest.raises(NotImplementedError):
-        WanPipelineConfig(task="i2v")
+        WanPipelineConfig(model="wan2.1-vace-1.3B", task="vace")
     # dpm++ and Euler are ported on one rank; under sp they raise
     with pytest.raises(NotImplementedError, match="sp > 1"):
         WanPipelineConfig(sample_solver="dpm++", sp=2)

@@ -127,7 +127,7 @@ def test_bf16_dtype_placement_matches_jax_init():
 
 def test_unported_wan_variants_raise():
     with pytest.raises(NotImplementedError):
-        twan.WanModel(twan.WanConfig.tiny(model_type="i2v"), "cpu")
+        twan.WanModel(twan.WanConfig.tiny(model_type="ti2v"), "cpu")
     with pytest.raises(NotImplementedError):
         twan.WanModel(twan.WanConfig.tiny(vace_layers=(0,)), "cpu")
     assert TMock(4, 8)(["x"]).shape == (1, 4, 8)
