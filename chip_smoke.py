@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives ``magcache_tpu_torch`` (never JAX) in sixty-two phases and exits
+Drives ``magcache_tpu_torch`` (never JAX) in sixty-nine phases and exits
 nonzero on the first failure:
 
 1. environment: a CUDA card is required; prints the card's name and power
@@ -354,6 +354,47 @@ ViT-H/14 tower's K1; the Wan VAE's encoder on cuDNN):
    within 5 x 2^-9 and the conditioning latents within 1e-4 of the largest
    value.
 
+Wan2.2 TI2V-5B, Wan2.1 VACE and the Wan2.2 A14B MoE (K1, K2, K3, K3p at new
+shapes and launch counts):
+63. each kernel against its plain version at the 1280x704x121 TI2V-5B
+   shapes (27,280 tokens, 24 heads of 128, width 3,072; bf16): K1 self
+   (fixed max) and cross to 512 text keys beside SDPA; K2 at 24 heads; K3
+   mod, affine and K3p, and K3 mod on the contiguous copy of the per-token
+   timestep's t = 0 prefix (2x880 rows), beside ``F.layer_norm`` where it
+   computes the same function; the call with the prefix (K3 over every
+   row, then K3 on the prefix's copy written over its rows) timed against
+   one whole K3;
+64. two full-shape forwards of WAN_5B (5.0 B parameters, bf16) at
+   1280x704x121 with an image's t = 0 prefix, 2 lanes: time, peak memory,
+   launches per forward (K1 60, K2 60, K3 150, K3p 1);
+65. a TI2V-5B request through ``WanPipeline.generate(image=)`` at
+   1280x704x17, 50 UniPC steps, MagCache ``wan2.2-ti2v-5B-i2v`` (48 of 100
+   elided), a seeded image through the Wan2.2 VAE encode (base 160, 48
+   channels, patchify 2; f32) and its decode; latent frame 0 against the
+   image's encode after sampling;
+66. one full-shape forward of VACE-14B (17.3 B parameters; 40 blocks and 8
+   VACE blocks) at 832x480x81: time, peak memory, launches (K1 96, K2 96,
+   K3 144, K3p 1);
+67. VACE-1.3B requests at 832x480x17, 50 steps, shift 16, MagCache
+   ``wan2.1-vace-1.3B`` (50 of 100 elided), from a seeded source video and
+   box mask through the Wan VAE encode and decode (f32), and an R2V request
+   with one reference image (6 latent frames sampled, 5 kept);
+68. the A14B MoE at 832x480x17, 40 steps, both WAN_14B experts resident:
+   t2v-A14B (shift 12, CFG (3.0, 4.0), 28 of 80 elided, boundary step 26)
+   and i2v-A14B from a seeded image (shift 5, CFG (3.5, 3.5), 21 of 80,
+   boundary 15); each expert's trunk runs counted against the computed
+   steps before and after the switch;
+69. narrow VACE, ti2v (an image through a Wan2.2-layout VAE) and t2v-A14B
+   (two experts, MagCache across the switch) pipelines, bf16 DiT on the
+   card against f32 on the CPU within 5e-2 rel L2, and the ti2v image
+   latents within 1e-4 of the largest value.
+
+Every request of phases 63-69 checks its skip bits against
+``compute_skip_schedule``, its launches against the trunk runs and its
+pixels and latents for shape and finiteness, and prints ``text_s``,
+``image_s`` (where it encodes), ``decode_s``, ``total_s`` and its peak
+memory.
+
 Kernel times are CUDA-event times of a loop of back-to-back launches
 between one event pair, divided by the count (``cuda_ms``); each attention
 kernel's line adds its TFLOP/s and its share of the bound; phase 11 times
@@ -373,7 +414,9 @@ PAB requests and its rolling one; ``latte-pab``: phase 37;
 ``cogvideox``: phases 43 and 44; ``vchitect``: phases 47 and 48;
 ``open-sora-plan-pixels`` and ``cogvideox-pixels``: phase 50;
 ``flux-pixels``, ``latte-pixels``, ``vchitect-pixels``, ``open-sora-pixels``:
-phase 53; ``wan-i2v``: phases 59 and 60; ``wan-flf2v``: phase 61), its
+phase 53; ``wan-i2v``: phases 59 and 60; ``wan-flf2v``: phase 61;
+``wan-ti2v``: phases 64 and 65; ``wan-vace``: phases 66 and 67;
+``wan-a14b``: phase 68), its
 worst error over every shape
 compared, and the times of its first shape timed, named in ``timed_at``,
 with their method in ``timing`` (``loop`` or ``graph``); ``shapes`` lists
@@ -5088,6 +5131,503 @@ def phase_i2v_card_vs_cpu(dev):
         del card, cpu
 
 
+
+# ---------------------------- Wan2.2 TI2V-5B, Wan2.1 VACE and the A14B MoE
+# Launches per trunk run of a Wan trunk of ``blocks`` blocks (the VACE
+# stack's blocks count as blocks): K1 twice a block (self, text cross), K2
+# twice (q, k), K3 twice with the modulation and once affine; with the
+# per-token timestep (ti2v with an image) each modulated call is two: every
+# row, then the t = 0 prefix. The head adds K3p once a step.
+TI2V_GRID = (31, 22, 40)        # 1280x704x121: latents (31, 44, 80), patch (1, 2, 2)
+TI2V_SIZE, TI2V_STEPS = (1280, 704), 50
+VACE_STEPS, A14B_STEPS = 50, 40  # the JAX CLI's defaults
+WAN22_FRAMES = 17                # the requests' frames, cut from 81 and 121
+
+
+def wan_trunk_launches(blocks: int, t0_prefix: bool = False) -> dict:
+    """A Wan trunk run's launches: with the per-token timestep's t = 0
+    prefix, each modulated LayerNorm is two K3 calls (every row, then the
+    prefix)."""
+    return dict(NO_LAUNCHES, flash_attention_bshd=2 * blocks, rms_norm_rope=2 * blocks,
+                layer_norm_mod=(4 if t0_prefix else 2) * blocks + blocks)
+
+
+def wan_run_launches(per_run: dict, runs: int, steps: int) -> dict:
+    """Launches of a Wan request or forwards: ``per_run`` a trunk run, K3p
+    once a step."""
+    out = {k: n * runs for k, n in per_run.items()}
+    out["layer_norm_mod_plain"] += steps
+    return out
+
+
+def peak(dev) -> str:
+    return f"peak memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB"
+
+
+def phase_wan22_kernels(dev, rec):
+    """K1, K2, K3 and K3p against their plain versions at the TI2V-5B
+    shapes (24 heads, width 3,072), K3 also on the t = 0 prefix's copy."""
+    from magcache_tpu_torch.models.wan import WAN_5B, wan_rope_tables
+    from magcache_tpu_torch.ops import attention as A
+    from magcache_tpu_torch.ops import fused_prologue as P
+
+    B, S, H, D = 2, math.prod(TI2V_GRID), WAN_5B.heads, WAN_5B.head_dim
+    n0 = TI2V_GRID[1] * TI2V_GRID[2]
+    log(f"phase 63: kernels vs plain at Wan2.2 TI2V-5B 1280x704x121 shapes (bf16): K1 self "
+        f"2x{S}x24x128 (fixed max) and cross to 512 text keys; K2 at 24 heads; K3 mod, "
+        f"affine and K3p at width 3,072, K3 mod on the t = 0 prefix's contiguous copy "
+        f"(2x{n0} rows)")
+    gen = torch.Generator(device=dev).manual_seed(6363)
+    bf = torch.bfloat16
+
+    def rnd(*shape, dtype=bf, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    qk = 3 ** 0.5                    # peaked softmax rows, as phase 58
+    q, k, v = rnd(B, S, H, D, scale=qk), rnd(B, S, H, D, scale=qk), rnd(B, S, H, D)
+    for label, kk, vv in (("self, fixed_max=16", k, v),
+                          ("cross 512 keys (text), fixed_max=16", rnd(B, 512, H, D, scale=qk),
+                           rnd(B, 512, H, D))):
+        got = A.flash_attention_bshd(q, kk, vv, fixed_max=16.0)
+        want, pms = timed_once(lambda: A.flash_attention_bshd_plain(q, kk, vv, fixed_max=16.0))
+        # one flipped bf16 rounding of a dominant weight (phase 58)
+        err = compare(f"K1 flash_attention_bshd [TI2V-5B {label}]", got, want,
+                      atol=2 ** -8 * float(vv.abs().max()), rtol=2e-2)
+        del got, want
+        ms = cuda_ms(lambda: A.flash_attention_bshd(q, kk, vv, fixed_max=16.0), 3)
+        lms = sdpa_ms(q, kk, vv, 3)
+        flops = 4 * B * H * S * kk.shape[1] * D
+        moved = 2 * nbytes(q) + nbytes(kk, vv)
+        log(f"  K1 [TI2V-5B {label}]: kernel {ms:.3f} ms ({rate(flops, moved, ms)}), plain "
+            f"{pms:.3f} ms (one call), SDPA {lms:.3f} ms")
+        keep(rec, "flash_attention_bshd", err, ms, pms, "loop",
+             f"2x{S}x24x128 TI2V-5B {label}", (flops, moved),
+             ("F.scaled_dot_product_attention", lms))
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    x = rnd(B, S, H * D, scale=2.0)
+    gain = 1.0 + rnd(H * D, dtype=torch.float32, scale=0.1)
+    cos_np, sin_np = wan_rope_tables(WAN_5B, TI2V_GRID)
+    cos, sin = torch.from_numpy(cos_np).to(dev), torch.from_numpy(sin_np).to(dev)
+    got = P.rms_norm_rope(x, gain, cos, sin, H, eps=1e-6)
+    want = P.rms_norm_rope_plain(x, gain, cos, sin, H, eps=1e-6)
+    # a flipped bf16 rounding of the normed value: one ulp at |y| < 8
+    err = compare("K2 rms_norm_rope [token scope, 24 heads: BLOCK_H 32]", got, want,
+                  atol=3e-2, rtol=1.6e-2)
+    del got, want
+    ms = cuda_ms(lambda: P.rms_norm_rope(x, gain, cos, sin, H, eps=1e-6))
+    pms = cuda_ms(lambda: P.rms_norm_rope_plain(x, gain, cos, sin, H, eps=1e-6), 3)
+    log(f"  K2 [24 heads]: kernel {ms:.3f} ms ({2 * nbytes(x) / ms / 1e6:.0f} GB/s), plain "
+        f"{pms:.3f} ms")
+    keep(rec, "rms_norm_rope", err, ms, pms, "loop", f"2x{S}x3072 (24 heads)",
+         elementwise_work(x, gain, cos, sin))
+    sc, sh, sc0, sh0 = (rnd(B, 1, H * D, dtype=torch.float32, scale=0.1) for _ in range(4))
+    w = 1.0 + rnd(H * D, dtype=torch.float32, scale=0.1)
+    bias = rnd(H * D, dtype=torch.float32, scale=0.1)
+    seg0 = x[:, :n0].contiguous()
+    for label, xx, kw, name in (
+            ("mod", x, dict(scale=sc, shift=sh), "layer_norm_mod"),
+            ("affine", x, dict(weight=w, bias=bias), "layer_norm_mod"),
+            ("plain (K3p)", x, {}, "layer_norm_mod_plain"),
+            (f"mod, t = 0 prefix 2x{n0}", seg0, dict(scale=sc0, shift=sh0), "layer_norm_mod")):
+        got = P.layer_norm_mod(xx, eps=1e-6, **kw)
+        want = P.layer_norm_mod_plain(xx, eps=1e-6, **kw)
+        err = compare(f"K3 layer_norm_mod [{label}, width 3072: BLOCK 4096]", got, want,
+                      atol=3e-2, rtol=1.6e-2)
+        del got, want
+        ms = cuda_ms(lambda: P.layer_norm_mod(xx, eps=1e-6, **kw))
+        pms = cuda_ms(lambda: P.layer_norm_mod_plain(xx, eps=1e-6, **kw), 3)
+        lib = None
+        if not label.startswith("mod"):     # one library call computes these forms
+            wb, bb = ((w.to(bf), bias.to(bf)) if kw else (None, None))
+            lib = ("F.layer_norm" + ("" if kw else " (no affine)"), cuda_ms(
+                lambda: torch.nn.functional.layer_norm(xx, (H * D,), wb, bb, eps=1e-6)))
+        log(f"  K3 [{label}]: kernel {ms:.3f} ms ({2 * nbytes(xx) / ms / 1e6:.0f} GB/s), "
+            f"plain {pms:.3f} ms" + (f", {lib[0]} {lib[1]:.3f} ms" if lib else ""))
+        keep(rec, name, err, ms, pms, "loop", f"2x{xx.shape[1]}x3072 {label}",
+             elementwise_work(xx, *kw.values()), lib)
+
+    # the block's call with the t = 0 prefix as a whole (K3 over every row,
+    # the prefix's copy, K3 on it, written over the first rows) against one
+    # K3 over every row: the prefix's cost
+    def with_prefix():
+        out = P.layer_norm_mod(x, scale=sc, shift=sh)
+        out[:, :n0] = P.layer_norm_mod(x[:, :n0].contiguous(), scale=sc0, shift=sh0)
+        return out
+
+    want = P.layer_norm_mod_plain(x, scale=sc, shift=sh)
+    want[:, :n0] = P.layer_norm_mod_plain(seg0, scale=sc0, shift=sh0)
+    compare("K3 call with the t = 0 prefix [whole K3 + prefix copy, K3, write]", with_prefix(),
+            want, atol=3e-2, rtol=1.6e-2)
+    seg_ms = cuda_ms(with_prefix)
+    whole_ms = cuda_ms(lambda: P.layer_norm_mod(x, scale=sc, shift=sh))
+    copy_ms = cuda_ms(lambda: x[:, :n0].contiguous())
+    log(f"  the K3 call with the t = 0 prefix: {seg_ms:.3f} ms against one whole K3 "
+        f"{whole_ms:.3f} ms (the prefix copy alone {copy_ms:.3f} ms); 60 such calls a "
+        f"forward cost {60 * (seg_ms - whole_ms):.1f} ms more than whole K3 calls")
+    log(f"  {peak(dev)}")
+
+
+def make_wan_model(dev, cfg, label, seed=0):
+    """``WanModel(cfg)`` with random weights drawn on the card."""
+    from magcache_tpu_torch.models.wan import WanModel
+
+    torch.cuda.synchronize(dev)
+    t0 = time.time()
+    model = WanModel(cfg, dev).init(torch.Generator(device=dev).manual_seed(seed))
+    model.requires_grad_(False)
+    torch.cuda.synchronize(dev)
+    log(f"  {label} bf16 random init on the card: {time.time() - t0:.1f} s, "
+        f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B params, "
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.1f} GB allocated")
+    return model
+
+
+def wan_forward(dev, label, model, grid, x, cond, runs, want):
+    """``runs`` forwards (prepare -> trunk -> head) on two lanes, timed;
+    fails unless the output is finite and of x's shape and the launches are
+    ``want``; returns them."""
+    from magcache_tpu_torch.models.wan import make_wan_core
+
+    core = make_wan_core(model, grid)
+    t = torch.full((2,), 900.0, device=dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    for run in range(runs):
+        def forward():
+            hidden, c = core.prepare(x, t, cond)
+            return core.head(core.trunk(hidden, c), c)
+        out, ms = timed_once(forward)
+        log(f"  {label} forward (call {run + 1}): {ms / 1e3:.3f} s")
+    counts = read_counts()
+    if tuple(out.shape) != tuple(x.shape) or not bool(torch.isfinite(out).all()):
+        fail(f"{label} forward output {tuple(out.shape)} is not finite or misshapen")
+    if counts != want:
+        fail(f"{label} forwards: launches {counts} != {want}")
+    log(f"  {label}: output {tuple(out.shape)} finite, std {float(out.std()):.4f}; {peak(dev)}; "
+        f"launches per forward K1 {counts['flash_attention_bshd'] // runs}, K2 "
+        f"{counts['rms_norm_rope'] // runs}, K3 {counts['layer_norm_mod'] // runs}, K3p "
+        f"{counts['layer_norm_mod_plain'] // runs}")
+    return counts
+
+
+def phase_ti2v_forward(dev, model):
+    """Returns the launches of the two forwards."""
+    from magcache_tpu_torch.models.text import MockTextEncoder
+
+    f, h, w = TI2V_GRID
+    log(f"phase 64: two full-shape TI2V-5B forwards (prepare -> trunk -> head) at "
+        f"1280x704x121 with an image's t = 0 prefix: {f * h * w} tokens ({h * w} at t = 0), "
+        f"2 lanes, 512 text tokens")
+    gen = torch.Generator(device=dev).manual_seed(64)
+    x = torch.randn((2, f, 2 * h, 2 * w, 48), generator=gen, device=dev)
+    cond = {"context": MockTextEncoder(512, 4096, scale=0.5)(["a cat", ""], device=dev),
+            "ti2v_img": x[:1, :1]}
+    return wan_forward(dev, "TI2V-5B", model, TI2V_GRID, x, cond, 2,
+                       wan_run_launches(wan_trunk_launches(30, True), 2, 2))
+
+
+def phase_vace14_forward(dev):
+    """Returns the forward's launches."""
+    from magcache_tpu_torch.models.text import MockTextEncoder
+    from magcache_tpu_torch.pipelines.wan import WanPipelineConfig
+
+    f, h, w = I2V_GRID
+    log(f"phase 66: one full-shape VACE-14B forward at 832x480x81: {f * h * w} "
+        f"tokens, 2 lanes, 40 blocks and 8 VACE blocks over the 96-channel context")
+    model = make_wan_model(dev, WanPipelineConfig(model="wan2.1-vace-14B",
+                                                  task="vace").model_config(), "VACE-14B")
+    gen = torch.Generator(device=dev).manual_seed(65)
+    x = torch.randn((2, f, 2 * h, 2 * w, 16), generator=gen, device=dev)
+    cond = {"context": MockTextEncoder(512, 4096, scale=0.5)(["a cat", ""], device=dev),
+            "vace_context": torch.randn((2, f, 2 * h, 2 * w, 96), generator=gen, device=dev)}
+    counts = wan_forward(dev, "VACE-14B", model, I2V_GRID, x, cond, 1,
+                         wan_run_launches(wan_trunk_launches(48), 1, 1))
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def wan22_request(label, pipe, want_skips, lat_shape, px_shape, per_run, **kw):
+    """One request through ``pipe.generate`` ending in pixels: fails unless
+    pixels and latents are finite and of their shapes, ``text_s``,
+    ``decode_s`` (and with an encode ``image_s``) are there, the realized
+    skip bits are ``want_skips`` and the launches are ``per_run`` a trunk run
+    plus K3p once a step; returns the output and launches."""
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    out = pipe.generate(TEXT_PROMPTS[0], seed=3, **kw)
+    launched = read_counts()
+    video, lat = out.video, out.latents
+    if video is None or tuple(video.shape) != px_shape or not bool(torch.isfinite(video).all()):
+        fail(f"{label}: pixels {None if video is None else tuple(video.shape)} missing, not "
+             f"{px_shape} or not finite")
+    if tuple(lat.shape) != lat_shape or not bool(torch.isfinite(lat).all()):
+        fail(f"{label}: latents {tuple(lat.shape)} not finite or not {lat_shape}")
+    if not np.array_equal(out.skips, want_skips):
+        fail(f"{label}: realized skips differ from compute_skip_schedule")
+    t = out.timings
+    need = ("text_s", "decode_s") + (("image_s",) if kw else ())
+    if not all(t.get(k, 0) > 0 for k in need):
+        fail(f"{label}: timings {t} lack one of {need}")
+    steps = len(out.skips)
+    runs = int((~out.skips.all(1)).sum())
+    want = wan_run_launches(per_run, runs, steps)
+    if launched != want:
+        fail(f"{label}: launches {launched} != {want} ({runs} trunk runs)")
+    encode = f"image or video encode {t['image_s']:.3f} s, " if "image_s" in t else ""
+    log(f"  {label}: {t['total_s']:.3f} s/video (text {t['text_s']:.3f} s, {encode}VAE "
+        f"decode {t['decode_s']:.3f} s); "
+        f"{int(out.skips.sum())} of {out.skips.size} lane-forwards skipped, {runs} of {steps} "
+        f"steps computed ({int((out.skips.sum(1) == 1).sum())} half-batch); pixels "
+        f"{tuple(video.shape)} finite, std {float(video.std()):.4f}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return out, launched
+
+
+def check_elided(pipe, steps, elided):
+    from magcache_tpu_torch.core.magcache import compute_skip_schedule
+
+    sched = compute_skip_schedule(pipe._cache_cfg()).reshape(steps, 2)
+    if int(sched.sum()) != elided:
+        fail(f"{pipe.config.model} at {steps} steps elides {int(sched.sum())} of "
+             f"{2 * steps}, not {elided}")
+    return sched
+
+
+def vace_sources(frames, h, w, seed=65):
+    """A seeded source video [F, H, W, 3] in [0, 1] and a mask [F, H, W]: 1
+    inside a box over the middle of each frame, 0 elsewhere."""
+    rng = np.random.default_rng(seed)
+    video = rng.random((frames, h, w, 3), dtype=np.float32)
+    mask = np.zeros((frames, h, w), np.float32)
+    mask[:, h // 4:3 * h // 4, w // 4:3 * w // 4] = 1.0
+    return video, mask
+
+
+def phase_vace_requests(dev, vae):
+    """VACE-1.3B requests; returns their launches."""
+    from magcache_tpu_torch.pipelines.wan import WanPipeline, WanPipelineConfig
+
+    log(f"phase 67: requests through WanPipeline.generate at full width, "
+        f"832x480x{WAN22_FRAMES}: VACE-1.3B (30 blocks, 6 VACE blocks) with MagCache "
+        f"wan2.1-vace-1.3B at {VACE_STEPS} steps, shift 16, from a seeded source video and "
+        f"box mask through the Wan VAE encode (f32) and decode; then an R2V request with one "
+        f"reference image (a prepended latent frame, trimmed)")
+    base = dict(model="wan2.1-vace-1.3B", task="vace", size=(832, 480),
+                frame_num=WAN22_FRAMES, sample_steps=VACE_STEPS, sample_shift=16.0,
+                guide_scale=5.0, use_magcache=True)
+    pipe = WanPipeline(WanPipelineConfig(**base), dev, vae=vae)
+    log(f"  VACE-1.3B: {sum(p.numel() for p in pipe.model.parameters()) / 1e9:.3f} B params")
+    sched = check_elided(pipe, VACE_STEPS, 50)
+    video, mask = vace_sources(WAN22_FRAMES, 480, 832)
+    lat, px = (1, 5, 60, 104, 16), (1, WAN22_FRAMES, 480, 832, 3)
+    per_run = wan_trunk_launches(36)
+    _, total = wan22_request("VACE-1.3B MagCache", pipe, sched, lat, px, per_run,
+                             src_video=video, src_mask=mask)
+    r2v = WanPipeline(WanPipelineConfig(vace_ref_images=1, **base), dev, model=pipe.model,
+                      vae=vae)
+    ref = np.random.default_rng(66).integers(0, 256, (720, 1280, 3), dtype=np.uint8)
+    _, launched = wan22_request("VACE-1.3B R2V MagCache (6 latent frames sampled, 5 kept)",
+                                r2v, sched, lat, px, per_run, src_video=video, src_mask=mask,
+                                src_ref_images=[ref])
+    del pipe, r2v
+    torch.cuda.empty_cache()
+    return {k: n + launched[k] for k, n in total.items()}
+
+
+def phase_ti2v_request(dev, model):
+    """Returns the request's launches."""
+    from magcache_tpu_torch.models.vae_wan import WAN22_VAE, WanVAE
+    from magcache_tpu_torch.pipelines.wan import WanPipeline, WanPipelineConfig
+
+    w, h = TI2V_SIZE
+    log(f"phase 65: a TI2V-5B request through WanPipeline.generate(image=) at "
+        f"{w}x{h}x{WAN22_FRAMES} (4,400 tokens), MagCache wan2.2-ti2v-5B-i2v at "
+        f"{TI2V_STEPS} steps, shift 5: the seeded image through the Wan2.2 VAE encode (f32, base 160, 48 channels, patchify 2) "
+        f"as latent frame 0 at t = 0, the Wan2.2 VAE decode")
+    vae = WanVAE(WAN22_VAE, dev).init(torch.Generator(device=dev).manual_seed(67))
+    vae.requires_grad_(False)
+    log(f"  Wan2.2 VAE: {sum(p.numel() for p in vae.parameters()) / 1e6:.1f} M params (f32)")
+    pipe = WanPipeline(WanPipelineConfig(
+        model="wan2.2-ti2v-5B-i2v", task="ti2v", size=TI2V_SIZE, frame_num=WAN22_FRAMES,
+        sample_steps=TI2V_STEPS, sample_shift=5.0, guide_scale=5.0, use_magcache=True),
+        dev, model=model, vae=vae)
+    sched = check_elided(pipe, TI2V_STEPS, 48)
+    image = np.random.default_rng(68).integers(0, 256, (720, 1280, 3), dtype=np.uint8)
+    out, launched = wan22_request(
+        "TI2V-5B MagCache, image", pipe, sched, (1, 5, h // 16, w // 16, 48),
+        (1, WAN22_FRAMES, h, w, 3), wan_trunk_launches(30, True), image=image)
+    frame0 = pipe.encode_ti2v(image)
+    err = float((out.latents[:, :1] - frame0).abs().max())
+    log(f"  latent frame 0 against the image's encode: max |diff| {err:.3e} (tol 1e-5 of "
+        f"its largest value {float(frame0.abs().max()):.3e})")
+    if err > 1e-5 * float(frame0.abs().max()):
+        fail("TI2V-5B: latent frame 0 is not the image latents after sampling")
+    del pipe, vae
+    torch.cuda.empty_cache()
+    return launched
+
+
+def phase_a14b_requests(dev, vae):
+    """t2v-A14B and i2v-A14B requests with both experts resident; returns
+    their launches."""
+    from magcache_tpu_torch.core.sampler import DiTCore
+    from magcache_tpu_torch.pipelines.wan import WanPipeline, WanPipelineConfig
+
+    log(f"phase 68: Wan2.2 A14B MoE requests through WanPipeline.generate at "
+        f"832x480x{WAN22_FRAMES}, {A14B_STEPS} UniPC steps, two WAN_14B experts resident "
+        f"(the mock text encoder: UMT5-XXL in f32 does not fit beside them); t2v-A14B shift 12, CFG (3.0, 4.0), "
+        f"MagCache wan2.2-t2v-A14B; i2v-A14B shift 5, CFG (3.5, 3.5), MagCache "
+        f"wan2.2-i2v-A14B, from a seeded image through the Wan VAE encode")
+    total = dict(NO_LAUNCHES)
+    for task, shift, guide, elided, boundary in (("t2v", 12.0, (3.0, 4.0), 28, 26),
+                                                 ("i2v", 5.0, (3.5, 3.5), 21, 15)):
+        model = f"wan2.2-{task}-A14B"
+        cfg = WanPipelineConfig(model=model, task=task, size=(832, 480),
+                                frame_num=WAN22_FRAMES, sample_steps=A14B_STEPS,
+                                sample_shift=shift, guide_scale=guide, use_magcache=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        high = make_wan_model(dev, cfg.model_config(), f"{model} high-noise expert")
+        low = make_wan_model(dev, cfg.model_config(), f"{model} low-noise expert", seed=1)
+        pipe = WanPipeline(cfg, dev, model=high, model_low=low, vae=vae)
+        b = pipe.boundary_step()
+        log(f"  {model}: boundary step {b} (the high-noise expert runs steps 0-{b - 1}), "
+            f"split_step {pipe._cache_cfg().split_step}")
+        if b != boundary:
+            fail(f"{model}: boundary step {b}, not {boundary}")
+        sched = check_elided(pipe, A14B_STEPS, elided)
+        calls = {"high": 0, "low": 0}
+
+        def spy(core, name):
+            def trunk(hidden, ctx):
+                calls[name] += 1
+                return core.trunk(hidden, ctx)
+            return DiTCore(core.prepare, trunk, core.head)
+
+        pipe.core, pipe.core_low = spy(pipe.core, "high"), spy(pipe.core_low, "low")
+        kw = {}
+        if task == "i2v":
+            kw["image"] = np.random.default_rng(69).integers(0, 256, (720, 1280, 3),
+                                                             dtype=np.uint8)
+        out, launched = wan22_request(
+            f"{model} MagCache", pipe, sched, (1, 5, 60, 104, 16),
+            (1, WAN22_FRAMES, 480, 832, 3), wan_trunk_launches(40), **kw)
+        runs = ~out.skips.all(1)
+        want = {"high": int(runs[:b].sum()), "low": int(runs[b:].sum())}
+        log(f"  {model}: trunk runs by expert {calls} (the computed steps before and after "
+            f"the switch: {want}); two experts resident, {peak(dev)}")
+        if calls != want:
+            fail(f"{model}: the experts ran {calls}, not {want}")
+        total = {k: n + launched[k] for k, n in total.items()}
+        del pipe, high, low, out
+        torch.cuda.empty_cache()
+    return total
+
+
+def _numpy_wan_vace_tree(cfg, rng):
+    """``_numpy_wan_tree`` with the VACE subtree (JAX layout)."""
+    from magcache_tpu_torch.models.wan import VACE_IN_CHANNELS
+
+    d, Lv = cfg.dim, len(cfg.vace_layers)
+    tree = _numpy_wan_tree(cfg, rng)
+    vblocks = _numpy_wan_tree(dataclasses.replace(cfg, layers=Lv), rng)["blocks"]
+
+    def lin(d_in, d_out, depth=None):
+        shape = (d_in, d_out) if depth is None else (depth, d_in, d_out)
+        return {"w": rng.standard_normal(shape) / math.sqrt(d_in),
+                "b": rng.standard_normal(shape[:-2] + (d_out,)) * 0.02}
+
+    tree["vace"] = {"patch_embedding": lin(VACE_IN_CHANNELS * 4, d),
+                    "before_proj": lin(d, d), "after_proj": lin(d, d, Lv), "blocks": vblocks}
+    return tree
+
+
+NARROW = dict(dim=256, heads=2, ffn_dim=512, layers=NARROW_LAYERS)
+
+
+def narrow_wan22_pipeline(device, dtype, kind):
+    """The narrow VACE (two VACE blocks), ti2v (48 channels, a Wan2.2-layout
+    VAE of base 16) or t2v-A14B (two experts) pipeline, numpy weights from
+    one seed, 288 tokens a lane."""
+    from magcache_tpu_torch.models.convert import wan_params_from_numpy
+    from magcache_tpu_torch.models.vae_wan import WanVAE, WanVAEConfig
+    from magcache_tpu_torch.models.wan import WanConfig, WanModel
+    from magcache_tpu_torch.pipelines.wan import WanPipeline, WanPipelineConfig
+
+    rng = np.random.default_rng(66)
+    dt = str(dtype).split(".")[1]
+    kw = dict(vace_layers=(0, 1)) if kind == "vace" else (
+        dict(in_channels=48, out_channels=48) if kind == "ti2v" else {})
+    cfg = WanConfig.tiny(dtype=dt, **NARROW, **kw)
+
+    def model(tree):
+        m = WanModel(cfg, device)
+        m.load_state_dict(wan_params_from_numpy(tree, cfg, device))
+        return m.requires_grad_(False)
+
+    vae_kw = dict(z_channels=48, patchify=2) if kind == "ti2v" else {}
+    vae = WanVAE(WanVAEConfig(base=16, num_res_blocks=1, **vae_kw), "cpu").init(
+        torch.Generator().manual_seed(66)).to(device).requires_grad_(False)
+    base = dict(frame_num=9, model_cfg_override=cfg, guide_scale=5.0)
+    if kind == "vace":
+        pc = WanPipelineConfig(model="wan2.1-vace-1.3B", task="vace", size=(192, 128),
+                               sample_steps=len(NARROW_MASK), sample_shift=16.0, **base)
+        return WanPipeline(pc, device, model=model(_numpy_wan_vace_tree(cfg, rng)), vae=vae)
+    if kind == "ti2v":
+        pc = WanPipelineConfig(model="wan2.2-ti2v-5B-i2v", task="ti2v", size=(384, 256),
+                               sample_steps=len(NARROW_MASK), sample_shift=5.0, **base)
+        return WanPipeline(pc, device, model=model(_numpy_wan_tree(cfg, rng)), vae=vae)
+    pc = WanPipelineConfig(model="wan2.2-t2v-A14B", size=(192, 128), sample_steps=8,
+                           sample_shift=5.0, use_magcache=True,
+                           **dict(base, guide_scale=(3.0, 4.0)))
+    return WanPipeline(pc, device, model=model(_numpy_wan_tree(cfg, rng)),
+                       model_low=model(_numpy_wan_tree(cfg, rng)), vae=vae)
+
+
+def phase_wan22_card_vs_cpu(dev):
+    """The narrow VACE, ti2v and A14B pipelines, bf16 DiT on the card against
+    f32 on the CPU."""
+    from magcache_tpu_torch.core.magcache import compute_skip_schedule
+
+    log("phase 69: narrow VACE (a source video and mask), ti2v (an image through a "
+        "Wan2.2-layout VAE) and A14B (two experts, MagCache across the switch) pipelines on "
+        "the card (kernels, bf16 DiT, f32 VAE) against the CPU (plain ops, f32)")
+    rng = np.random.default_rng(66)
+    video, mask = vace_sources(9, 128, 192, seed=66)
+    image = rng.integers(0, 256, (100, 180, 3), dtype=np.uint8)
+    cases = (("vace", dict(src_video=video, src_mask=mask, skip_override=NARROW_MASK), 4, False),
+             ("ti2v", dict(image=image, skip_override=NARROW_MASK), 2, True),
+             ("t2v-A14B", {}, 2, False))
+    for kind, kw, blocks, t0_prefix in cases:
+        card = narrow_wan22_pipeline(dev, torch.bfloat16, kind)
+        cpu = narrow_wan22_pipeline(torch.device("cpu"), torch.float32, kind)
+        reset_counts()
+        got = card.generate("a red boat at dawn", seed=2, **kw)
+        launched = read_counts()
+        want = cpu.generate("a red boat at dawn", seed=2, **kw)
+        if kind == "t2v-A14B":
+            sched = compute_skip_schedule(card._cache_cfg()).reshape(8, 2)
+            if not np.array_equal(got.skips, sched) or not sched.any():
+                fail(f"narrow {kind}: skips {got.skips.tolist()} not the schedule or none")
+        runs = int((~got.skips.all(1)).sum())
+        per_run = wan_trunk_launches(blocks, t0_prefix)
+        check_narrow(f"narrow {kind}", got.latents.float().cpu(), want.latents, launched,
+                     wan_run_launches(per_run, runs, len(got.skips)))
+        if kind == "ti2v":
+            enc_g, enc_w = card.encode_ti2v(image).cpu(), cpu.encode_ti2v(image)
+            err = float((enc_g - enc_w).abs().max() / enc_w.abs().max())
+            log(f"  ti2v image latents (Wan2.2-layout VAE encode, f32) card vs CPU: max |diff| "
+                f"/ max |CPU| {err:.3e} (tol 1e-4: f32 convs without TF32)")
+            if err > 1e-4 or not torch.equal(got.latents[:, :1].cpu(), enc_g):
+                fail("ti2v: the image latents on the card stray from the CPU's, or frame 0 "
+                     "is not them")
+        del card, cpu
+
 def main():
     phase_environment()
     dev = torch.device("cuda", 0)
@@ -5259,6 +5799,28 @@ def main():
     torch.cuda.empty_cache()
     phase_i2v_card_vs_cpu(dev)
     t_i2v = time.time() - t0_i2v
+    from magcache_tpu_torch.models.vae_wan import WAN21_VAE, WanVAE
+    from magcache_tpu_torch.models.wan import WAN_5B
+
+    t0_w22 = time.time()
+    phase_wan22_kernels(dev, rec)
+    torch.cuda.empty_cache()
+    log("phase 64/65 model:")
+    model = make_wan_model(dev, dataclasses.replace(WAN_5B, dtype="bfloat16"), "TI2V-5B")
+    ti2v = phase_ti2v_forward(dev, model)
+    reqs = phase_ti2v_request(dev, model)
+    ti2v = {k: n + reqs[k] for k, n in ti2v.items()}
+    del model
+    torch.cuda.empty_cache()
+    vace = phase_vace14_forward(dev)
+    vae = WanVAE(WAN21_VAE, dev).init(torch.Generator(device=dev).manual_seed(67))
+    reqs = phase_vace_requests(dev, vae.requires_grad_(False))
+    vace = {k: n + reqs[k] for k, n in vace.items()}
+    a14b = phase_a14b_requests(dev, vae)
+    del vae
+    torch.cuda.empty_cache()
+    phase_wan22_card_vs_cpu(dev)
+    t_w22 = time.time() - t0_w22
     log(f"all phases passed in {time.time() - t0:.1f} s (Wan {t_wan:.1f} s, "
         f"Open-Sora {t_os:.1f} s, FLUX {t_flux:.1f} s, Open-Sora 720p "
         f"{t_os720:.1f} s, Latte {t_latte:.1f} s, Wan sequence-parallel {t_sp:.1f} s, "
@@ -5267,9 +5829,10 @@ def main():
         f"{t_pab:.1f} s, Open-Sora-Plan and CogVideoX {t_osp:.1f} s, Vchitect and the "
         f"Open-Sora-Plan and CogVideoX VAEs {t_vch:.1f} s, the SD and Open-Sora VAEs "
         f"and the requests ending in their pixels "
-        f"{time.time() - t0 - t_wan - t_os - t_flux - t_os720 - t_latte - t_sp - t_unpacked - t_ends - t_pab - t_osp - t_vch - t_i2v:.1f} s; "
+        f"{time.time() - t0 - t_wan - t_os - t_flux - t_os720 - t_latte - t_sp - t_unpacked - t_ends - t_pab - t_osp - t_vch - t_i2v - t_w22:.1f} s; "
         f"the text encoders' phases 55-57, within those, {t_text:.1f} s; Wan I2V-14B and "
-        f"FLF2V-14B, phases 58-62, {t_i2v:.1f} s)")
+        f"FLF2V-14B, phases 58-62, {t_i2v:.1f} s; Wan2.2 TI2V-5B, VACE and the A14B MoE, "
+        f"phases 63-69, {t_w22:.1f} s)")
 
     meta = {
         "flash_attention_bshd": ("cuda", "magcache_tpu_torch/csrc/hopper_attention.cuh",
@@ -5316,7 +5879,8 @@ def main():
              "open-sora-rolling": os_rolling, "latte-pab": latte_pab,
              "open-sora-plan": osp, "open-sora-plan-v110": osp_v110, "cogvideox": cog,
              "vchitect": vch, "open-sora-plan-pixels": osp_px, "cogvideox-pixels": cog_px,
-             **pixel_paths, "wan-i2v": i2v, "wan-flf2v": flf2v}
+             **pixel_paths, "wan-i2v": i2v, "wan-flf2v": flf2v, "wan-ti2v": ti2v,
+             "wan-vace": vace, "wan-a14b": a14b}
     kernels = []
     for name, (route, source, replaces) in meta.items():
         by_path = {p: c[name] for p, c in paths.items()}

@@ -1,7 +1,11 @@
 """Generation CLI, the ported subset of ``magcache_tpu.cli.generate``:
 Wan2.1 t2v (``--task t2v-1.3B``, ``t2v-14B``, and ``t2i-14B``: one frame),
 i2v (``--task i2v-14B --image``) and first-last-frame (``--task flf2v-14B
---first_frame --last_frame``), Open-Sora 1.2 t2v (``--task open-sora``),
+--first_frame --last_frame``), Wan2.1 VACE video editing (``--task
+vace-1.3B``, ``vace-14B``, with ``--src_video --src_mask
+--src_ref_images``), Wan2.2 TI2V-5B (``--task ti2v-5B``, with or without
+``--image``) and the Wan2.2 A14B two-expert MoE (``--task t2v-A14B``,
+``i2v-A14B --image``), Open-Sora 1.2 t2v (``--task open-sora``),
 FLUX.1 text-to-image (``--task flux-dev`` and ``flux-kontext-dev``), Latte-1
 t2v (``--task latte``), Open-Sora-Plan t2v (``--task open-sora-plan``: v1.2,
 or v1.1 with ``--osp_version v110``), CogVideoX-5B t2v (``--task
@@ -21,9 +25,13 @@ CogVideoX ``--txt_len --use_dynamic_cfg --enable_pab``, Vchitect
 ``--txt_len --enable_pab``),
 and the output file name encodes the E/K/R triple. Unset flags take each
 family's reference defaults, as in the JAX CLI (Wan: 50 steps, i2v 40;
-shift 5.0, i2v at 480p and below 3.0, flf2v 16.0; guidance 5.0; the i2v
-and flf2v preset by the height, ``wan2.1-i2v-480p`` up to 480 rows, else
-``-720p``). Runs on a CUDA card by
+shift 5.0, i2v at 480p and below 3.0, flf2v and VACE 16.0; guidance 5.0;
+81 frames; the i2v and flf2v preset by the height, ``wan2.1-i2v-480p`` up
+to 480 rows, else ``-720p``; Wan2.2: t2v-A14B 40 steps, shift 12.0,
+guidance (low, high) (3.0, 4.0); i2v-A14B 40 steps, shift 5.0, (3.5, 3.5);
+``--sample_guide_scale`` gives both experts one scale; ti2v-5B 50 steps,
+shift 5.0, 121 frames, the preset ``wan2.2-ti2v-5B-i2v`` with ``--image``,
+else ``-t2v``; every Wan task at 832*480 unless ``--size``). Runs on a CUDA card by
 default; ``--device cpu`` runs the plain PyTorch ops instead of the kernels
 (tests use it at ``--tiny`` size; the tiny models' head dims are not ones
 the kernels take, so ``--tiny`` on a card exits with a message).
@@ -82,7 +90,13 @@ channel-tiled to the latent grid, not encoded. ``i2v-14B --image`` and
 ``flf2v-14B --first_frame --last_frame`` (``--image`` also gives flf2v's
 first frame) encode their images through a random-weight CLIP vision tower
 and, as the JAX CLI without a VAE, a random-weight causal VAE with the Wan
-strides. Open-Sora references are ``.npy`` latents; image
+strides; so do VACE's ``--src_video`` (``.npy`` ``[F, H, W, 3]`` in [0, 1],
+or a video or image file, resized and cropped to the canvas),
+``--src_mask`` (``.npy`` ``[F, H, W]`` in [0, 1], or a pixel file whose
+channels are averaged) and ``--src_ref_images`` (comma-separated images,
+R2V). ``ti2v-5B --image`` takes the checkpoint-free encode: the image
+nearest-resized to the latent grid times a fixed random projection.
+Open-Sora references are ``.npy`` latents; image
 and video references need the pipeline's VAE, which the CLI does not build,
 and raise.
 """
@@ -104,35 +118,45 @@ _KNOWN = ("flux", "qwen", "hunyuan", "framepack", "open-sora", "cogvideox",
           "ti2v", "vace")
 _PORTED = {"t2v-1.3B": "wan2.1-t2v-1.3B", "t2v-14B": "wan2.1-t2v-14B",
            "t2i-14B": "wan2.1-t2v-14B", "i2v-14B": "wan2.1-i2v-480p",
-           "flf2v-14B": "wan2.1-i2v-480p", "open-sora": "opensora-v1.2",
+           "flf2v-14B": "wan2.1-i2v-480p", "vace-1.3B": "wan2.1-vace-1.3B",
+           "vace-14B": "wan2.1-vace-14B", "ti2v-5B": "wan2.2-ti2v-5B-t2v",
+           "t2v-A14B": "wan2.2-t2v-A14B", "i2v-A14B": "wan2.2-i2v-A14B",
+           "open-sora": "opensora-v1.2",
            "flux-dev": "flux-dev", "flux-kontext-dev": "flux-kontext-dev",
            # no published ratios: calibrate, then --mag_ratios_json
            "latte": None, "open-sora-plan": None, "cogvideox": None, "vchitect": None}
-_WAN = ("t2v-1.3B", "t2v-14B", "t2i-14B", "i2v-14B", "flf2v-14B")
+_WAN = ("t2v-1.3B", "t2v-14B", "t2i-14B", "i2v-14B", "flf2v-14B", "vace-1.3B", "vace-14B",
+        "ti2v-5B", "t2v-A14B", "i2v-A14B")
+# the JAX CLI's Wan2.2 defaults: steps, shift, guidance, frames
+_WAN22 = {"t2v-A14B": (40, 12.0, (3.0, 4.0), 81), "i2v-A14B": (40, 5.0, (3.5, 3.5), 81),
+          "ti2v-5B": (50, 5.0, 5.0, 121)}
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("magcache_tpu_torch generate")
     p.add_argument("--task", default="t2v-1.3B",
-                   help="t2v-1.3B | t2v-14B | t2i-14B | i2v-14B | flf2v-14B | open-sora | "
-                        "flux-dev | flux-kontext-dev | latte | open-sora-plan | cogvideox | "
-                        "vchitect (the tasks ported so far)")
+                   help="t2v-1.3B | t2v-14B | t2i-14B | i2v-14B | flf2v-14B | vace-1.3B | "
+                        "vace-14B | ti2v-5B | t2v-A14B | i2v-A14B | open-sora | flux-dev | "
+                        "flux-kontext-dev | latte | open-sora-plan | cogvideox | vchitect "
+                        "(the tasks ported so far)")
     p.add_argument("--size", default=None,
                    help="W*H pixels (unset: 832*480 for Wan and Open-Sora, "
                         "1024*1024 for FLUX)")
     p.add_argument("--frame_num", type=int, default=None,
-                   help="frames (unset: 81)")
+                   help="frames (unset: 81; ti2v-5B 121)")
     p.add_argument("--sample_steps", type=int, default=None,
-                   help="unset: 50 for Wan (i2v 40), Latte and CogVideoX, 30 for Open-Sora, "
-                        "28 for FLUX, 150 for Open-Sora-Plan, 100 for Vchitect")
+                   help="unset: 50 for Wan (i2v and the A14B tasks 40), Latte and CogVideoX, "
+                        "30 for Open-Sora, 28 for FLUX, 150 for Open-Sora-Plan, 100 for "
+                        "Vchitect")
     p.add_argument("--sample_shift", type=float, default=None,
                    help="Wan flow shift (unset: 5.0; i2v at 480p and below 3.0, "
-                        "flf2v 16.0)")
+                        "flf2v and VACE 16.0, t2v-A14B 12.0)")
     p.add_argument("--sample_solver", default="unipc",
                    choices=["unipc", "dpm++", "euler"],
                    help="Wan's solver (the reference's unipc and dpm++, and Euler)")
     p.add_argument("--sample_guide_scale", type=float, default=None,
-                   help="unset: 5.0 for Wan, 7.0 for Open-Sora, 7.5 for Latte, "
+                   help="unset: 5.0 for Wan (the A14B tasks' expert pairs: t2v (3.0, "
+                        "4.0), i2v (3.5, 3.5)), 7.0 for Open-Sora, 7.5 for Latte, "
                         "Open-Sora-Plan and Vchitect, 6.0 for CogVideoX; FLUX's embedded "
                         "guidance 3.5 (2.5 for Kontext)")
     p.add_argument("--resolution", default=None,
@@ -176,13 +200,21 @@ def build_parser() -> argparse.ArgumentParser:
                         "or K9 (vpu); open-sora-plan v120: packed or unpacked")
     p.add_argument("--image", default=None,
                    help="input image (.npy [H, W, 3] in [0, 1], or an image file): "
-                        "i2v-14B's (flf2v-14B's first frame), or flux-kontext-dev's "
-                        "conditioning image, resized and channel-tiled to the latent grid "
-                        "(no VAE weights)")
+                        "i2v-14B's and i2v-A14B's (flf2v-14B's first frame), ti2v-5B's "
+                        "(latent frame 0), or flux-kontext-dev's conditioning image, "
+                        "resized and channel-tiled to the latent grid (no VAE weights)")
     p.add_argument("--first_frame", default=None,
                    help="flf2v-14B: the first frame (.npy or an image file)")
     p.add_argument("--last_frame", default=None,
                    help="flf2v-14B: the last frame (.npy or an image file)")
+    p.add_argument("--src_video", default=None,
+                   help="vace: the source video (.npy [F, H, W, 3] in [0, 1], or a video or "
+                        "image file)")
+    p.add_argument("--src_mask", default=None,
+                   help="vace: the edit mask (.npy [F, H, W] in [0, 1], or a pixel file)")
+    p.add_argument("--src_ref_images", default=None,
+                   help="vace R2V: comma-separated reference images (prepended latent "
+                        "frames, trimmed after sampling)")
     p.add_argument("--base_seed", type=int, default=0)
     p.add_argument("--prompt", default="Two anthropomorphic cats in comfy "
                    "boxing gear and bright gloves fight intensely on a "
@@ -265,21 +297,26 @@ def _wan_pipeline(args, device, ratios):
     model = _PORTED[args.task]
     if h > 480 and model == "wan2.1-i2v-480p":
         model = "wan2.1-i2v-720p"
+    if args.task == "ti2v-5B" and args.image:
+        model = "wan2.2-ti2v-5B-i2v"
     task = args.task.split("-")[0].replace("t2i", "t2v")
-    frame_num = args.frame_num or 81
+    steps, shift, guide, frames = _WAN22.get(args.task, (
+        40 if task == "i2v" else 50,
+        3.0 if task == "i2v" and min(w, h) <= 480 else 16.0 if task in ("flf2v", "vace")
+        else 5.0, 5.0, 81))
+    frame_num = args.frame_num or frames
     if args.tiny:
         w, h, frame_num = 64, 32, 9
     if args.task.startswith("t2i"):
         frame_num = 1
-    shift = (3.0 if task == "i2v" and min(w, h) <= 480 else 16.0 if task == "flf2v"
-             else 5.0)
+    refs = args.src_ref_images.split(",") if args.src_ref_images else []
     cfg = WanPipelineConfig(
         model=model, task=task, size=(w, h), frame_num=frame_num,
-        sample_steps=args.sample_steps or (40 if task == "i2v" else 50),
+        sample_steps=args.sample_steps or steps,
         sample_shift=shift if args.sample_shift is None else args.sample_shift,
         sample_solver=args.sample_solver,
-        guide_scale=(5.0 if args.sample_guide_scale is None
-                     else args.sample_guide_scale),
+        guide_scale=guide if args.sample_guide_scale is None else args.sample_guide_scale,
+        vace_ref_images=len(refs),
         use_magcache=args.use_magcache, magcache_thresh=args.magcache_thresh,
         magcache_K=args.magcache_K, retention_ratio=args.retention_ratio,
         cache_policy=args.cache_policy, magcache_calibration=args.magcache_calibration,
@@ -424,6 +461,18 @@ def _vchitect_pipeline(args, device, ratios):
     return VchitectPipeline(cfg, device), cfg.num_inference_steps, 2
 
 
+def _load_frames(path: str, pipe) -> np.ndarray:
+    """A VACE source video or mask: a ``.npy`` array as it is, any other file
+    (a video or an image) resized and cropped to the canvas, ``[F, H, W, 3]``
+    in [0, 1]."""
+    if path.endswith(".npy"):
+        return np.load(path)
+    from magcache_tpu_torch.pipelines.open_sora_cond import read_from_path
+
+    w, h = pipe.config.size
+    return (read_from_path(path, (h, w)) + 1.0) / 2.0
+
+
 def _parse_size(size, default: str = "832*480"):
     w, h = (int(v) for v in (size or default).split("*"))
     return w, h
@@ -453,8 +502,13 @@ def _pipeline(args):
         raise SystemExit(f"--sp: sequence parallelism is ported for t2v-1.3B "
                          f"only, not for {args.task!r}")
     wan = args.task in _WAN
+    vace = args.task.startswith("vace")
     for flag, on, ok in (("--image", args.image is not None,
-                          args.task in ("i2v-14B", "flf2v-14B") or args.task.startswith("flux")),
+                          args.task in ("i2v-14B", "flf2v-14B", "i2v-A14B", "ti2v-5B")
+                          or args.task.startswith("flux")),
+                         ("--src_video / --src_mask / --src_ref_images",
+                          any(a is not None for a in (args.src_video, args.src_mask,
+                                                      args.src_ref_images)), vace),
                          ("--first_frame / --last_frame",
                           args.first_frame is not None or args.last_frame is not None,
                           args.task == "flf2v-14B"),
@@ -508,6 +562,13 @@ def main(argv=None):
         first = args.first_frame or args.image
         kw = {k: load_image(path) for k, path in (("image", first),
                                                   ("last_image", args.last_frame)) if path}
+        if args.src_video:
+            kw["src_video"] = _load_frames(args.src_video, pipe)
+        if args.src_mask:
+            m = _load_frames(args.src_mask, pipe)
+            kw["src_mask"] = m.mean(axis=-1) if m.ndim == 4 else m
+        if args.src_ref_images:
+            kw["src_ref_images"] = [load_image(p) for p in args.src_ref_images.split(",")]
     elif args.image:
         from magcache_tpu_torch.pipelines.flux import load_image
 
@@ -553,6 +614,9 @@ def main(argv=None):
                 "forwards (cond + uncond as one joint batch per step)")
         print(f"skipped {int(out.skips.sum())} of {lanes * len(out.skips)} {what}; "
               f"skipped steps {np.flatnonzero(out.skips.any(1)).tolist()}")
+        if getattr(pipe, "core_low", None) is not None:
+            b = pipe.boundary_step()
+            print(f"experts: high-noise steps 0-{b - 1}, low-noise steps {b}-{steps - 1}")
     mode = ("teacache" if args.enable_teacache else "magcache" if args.use_magcache
             else "full")
     if args.enable_pab:

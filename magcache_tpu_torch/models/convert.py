@@ -75,11 +75,15 @@ def wan_params_from_numpy(tree: dict, cfg: WanConfig, device=None,
     ``dtype`` is the dtype of the patch embedding and the block linears
     (default ``cfg.torch_dtype``); every other parameter is f32.
 
+    The VACE subtree (``vace``: patch embedding, ``before_proj``, the
+    depth-stacked ``after_proj`` and blocks) takes the same split: its
+    linears in ``dtype``, its modulation tables and norm gains f32.
+
     Sequence parallelism shards tokens, never weights: every ``sp`` rank
     loads this same whole tree (local ranks share one model).
     """
-    if cfg.model_type not in ("t2v", "i2v") or cfg.vace_layers:
-        raise NotImplementedError("only the t2v and i2v Wan parameters are ported")
+    if cfg.model_type not in ("t2v", "i2v"):
+        raise NotImplementedError("the Wan model types are t2v and i2v")
     dtype = cfg.torch_dtype if dtype is None else dtype
     sd: Dict[str, torch.Tensor] = {}
     put, put_linear = _putters(sd, device)
@@ -96,13 +100,25 @@ def wan_params_from_numpy(tree: dict, cfg: WanConfig, device=None,
         vectors += ("cross_norm_k_img",)
         for io in ("in", "out"):
             put_linear(f"img_emb.{io}", tree["img_emb"][io])
-    for i in range(cfg.layers):
-        for name in linears:
-            put_linear(f"blocks.{i}.{name}",
-                       {"w": blocks[name]["w"][i], "b": blocks[name]["b"][i]},
-                       dtype)
-        for name in vectors:
-            put(f"blocks.{i}.{name}", blocks[name][i])
+
+    def put_blocks(prefix, blocks, depth, linears, vectors):
+        for i in range(depth):
+            for name in linears:
+                put_linear(f"{prefix}.{i}.{name}",
+                           {"w": blocks[name]["w"][i], "b": blocks[name]["b"][i]}, dtype)
+            for name in vectors:
+                put(f"{prefix}.{i}.{name}", blocks[name][i])
+
+    put_blocks("blocks", blocks, cfg.layers, linears, vectors)
+    if cfg.vace_layers:
+        vace = tree["vace"]
+        put_linear("vace.patch_embedding", vace["patch_embedding"], dtype)
+        put_linear("vace.before_proj", vace["before_proj"], dtype)
+        depth = len(cfg.vace_layers)
+        put_blocks("vace.blocks", vace["blocks"], depth, _BLOCK_LINEARS, _BLOCK_VECTORS)
+        for i in range(depth):
+            put_linear(f"vace.after_proj.{i}", {"w": vace["after_proj"]["w"][i],
+                                                "b": vace["after_proj"]["b"][i]}, dtype)
     put("head.modulation", tree["head"]["modulation"])
     put_linear("head.out", tree["head"]["out"])
     return sd

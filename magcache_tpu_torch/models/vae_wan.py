@@ -1,6 +1,7 @@
 """Wan2.1's video VAE as PyTorch modules (``magcache_tpu.models.vae_wan``):
-the decoder, and the encoder that Wan i2v and flf2v encode their
-conditioning frames with.
+the decoder, and the encoder that Wan i2v, flf2v and VACE encode their
+conditioning frames with; with ``patchify=2`` (``WAN22_VAE``) the Wan2.2 VAE
+of TI2V-5B.
 
 Architecture (base 96, mults (1, 2, 4, 4), 2 residual blocks per level,
 z = 16; the encoder downsamples /8 in space and /4 in time, the decoder
@@ -50,7 +51,7 @@ from torch import nn
 from magcache_tpu_torch.models.common import DTYPES
 from magcache_tpu_torch.models.vae import causal_conv3d, channel_rms_norm, init_convs_
 
-__all__ = ["WanVAEConfig", "WanVAE", "WAN21_VAE"]
+__all__ = ["WanVAEConfig", "WanVAE", "WAN21_VAE", "WAN22_VAE"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,6 +86,11 @@ class WanVAEConfig:
 
 
 WAN21_VAE = WanVAEConfig()
+# the Wan2.2 VAE (TI2V-5B's latent space): a 2x2 pixel shuffle in front of the
+# same backbone at base 160, 48 latent channels, stride (4, 16, 16). Its
+# published per-channel latent statistics are not in this repository: the
+# latents stay unnormalized, as in the JAX preset
+WAN22_VAE = WanVAEConfig(base=160, z_channels=48, patchify=2)
 
 
 def _patchify_pixels(x: torch.Tensor, p: int) -> torch.Tensor:

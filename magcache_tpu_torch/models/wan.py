@@ -1,4 +1,5 @@
-"""Wan 2.1 video DiT (t2v, i2v and flf2v), as PyTorch modules.
+"""Wan 2.1 / 2.2 video DiT (t2v, i2v, flf2v, VACE and ti2v), as PyTorch
+modules.
 
 Same model as ``magcache_tpu.models.wan``:
 
@@ -20,16 +21,32 @@ Same model as ``magcache_tpu.models.wan``:
   ``img_emb`` (f32 linear -> tanh-gelu -> linear, rounded to the activation
   dtype);
 - head: LayerNorm + 2-way modulation from the unprojected e, linear to patch
-  voxels, unpatchify.
+  voxels, unpatchify;
+- VACE (``vace_layers``): a parallel stack of ``len(vace_layers)`` Wan
+  blocks reads the conditioning context (``VACE_IN_CHANNELS`` = 96: the
+  latents of the inactive and reactive halves of a source video and an 8x8
+  space-to-depth mask), patch-embedded, projected by ``before_proj`` and
+  added to the hidden tokens; each VACE block's ``after_proj`` output is a
+  hint, added (times ``vace_scale``, rounded to the activation dtype) to the
+  output of main block ``vace_layers[j]``;
+- the Wan2.2 per-token timestep (ti2v with an image, ``cond["ti2v_img"]``):
+  ``prepare`` runs the time path a second time at t = 0, so ``e`` is
+  ``[B, 2, D]`` and ``e0`` ``[B, 2, 6, D]``; latent frame 0's H*W tokens
+  (a time patch of 1) take row 1's modulation and gates in every block and
+  in the head, the rest row 0's: each LayerNorm and gate runs over every
+  token at row 0, then again on a contiguous copy of the prefix at row 1,
+  written over the prefix's rows (both work row by row).
 
 Dtypes: in a bf16 config only ``patch_embedding`` and the block linears are
 bf16; the text/time embeddings, time projection, modulation tables, norm
 gains and the head stay f32. PyTorch does not promote mixed-dtype products,
 so every point where JAX promotes bf16 to f32 upcasts explicitly.
 
-The MagCache boundary is the whole block stack: ``make_wan_core`` splits the
-model into ``prepare`` / ``trunk`` / ``head``. t2v and i2v are ported; VACE
-and ti2v raise ``NotImplementedError``.
+The MagCache boundary is the whole block stack, the VACE stack included:
+``make_wan_core`` splits the model into ``prepare`` / ``trunk`` / ``head``.
+``WAN_1_3B``, ``WAN_14B`` (Wan2.1, and each expert of the Wan2.2 A14B MoE)
+and ``WAN_5B`` (Wan2.2 TI2V-5B, 48 latent channels) are the published
+widths.
 
 Sequence parallelism: with a ``plan`` (``parallel.mesh.MeshPlan``) every rank
 runs the same core on its ``1/sp`` of the tokens. ``prepare`` embeds only the
@@ -37,7 +54,8 @@ rank's token rows, the RoPE tables are cut to those rows, the text context
 stays whole on every rank, self-attention goes through Ulysses or the ring
 and cross-attention keeps q sharded against the whole context, and ``head``
 all-gathers the sequence before it unpatchifies, so every rank returns the
-whole output. Weights are replicated.
+whole output. Weights are replicated. VACE and the per-token timestep are
+not ported under a plan and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -59,7 +77,11 @@ from magcache_tpu_torch.ops.norms import rms_norm
 from magcache_tpu_torch.ops.rope import rope_freqs_1d
 
 __all__ = ["WanConfig", "WanModel", "make_wan_core", "wan_rope_tables",
-           "patchify", "unpatchify", "WAN_1_3B", "WAN_14B"]
+           "patchify", "unpatchify", "WAN_1_3B", "WAN_14B", "WAN_5B", "VACE_IN_CHANNELS"]
+
+# VACE's conditioning context: the inactive and reactive halves' latents
+# (16 + 16 channels) and the mask folded 8x8 (64)
+VACE_IN_CHANNELS = 96
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,7 +100,7 @@ class WanConfig:
     model_type: str = "t2v"              # "t2v" | "i2v" (i2v and flf2v)
     clip_dim: int = 1280                 # i2v: the CLIP features' width
     clip_tokens: int = 257               # i2v: image tokens (flf2v: 514)
-    vace_layers: Tuple[int, ...] = ()
+    vace_layers: Tuple[int, ...] = ()    # VACE: the main blocks that take hints
     dtype: str = "float32"
 
     @property
@@ -116,6 +138,10 @@ class WanConfig:
 # Published Wan2.1 sizes
 WAN_1_3B = WanConfig(dim=1536, ffn_dim=8960, heads=12, layers=30)
 WAN_14B = WanConfig(dim=5120, ffn_dim=13824, heads=40, layers=40)
+# Wan2.2 TI2V-5B: a dense trunk on the Wan2.2 VAE's 48-channel latents; its
+# image conditioning replaces latent frame 0, so in and out stay 48
+WAN_5B = WanConfig(dim=3072, ffn_dim=14336, heads=24, layers=30,
+                   in_channels=48, out_channels=48)
 
 
 def wan_rope_tables(cfg: WanConfig, grid: Tuple[int, int, int]):
@@ -186,24 +212,42 @@ class WanBlock(nn.Module):
             self.cross_norm_k_img = _param((d,), device, 1.0)
 
     def forward(self, x: torch.Tensor, e0: torch.Tensor, context: torch.Tensor,
-                cos: torch.Tensor, sin: torch.Tensor, sp: Optional[dict] = None
-                ) -> torch.Tensor:
+                cos: torch.Tensor, sin: torch.Tensor, sp: Optional[dict] = None,
+                n0: int = 0) -> torch.Tensor:
         """``sp``: the sequence-parallel arguments of ``attention()``
         (``plan``, ``sp_impl``, ``ring_threshold``) when x holds one rank's
-        tokens (cos/sin then hold those rows' tables); None on one rank."""
+        tokens (cos/sin then hold those rows' tables); None on one rank.
+
+        ``e0`` is ``[B, 6, D]``, or ``[B, 2, 6, D]`` for the per-token
+        timestep: the first ``n0`` tokens take row 1's modulation and gates,
+        the others row 0's."""
         cfg = self.cfg
         sp = sp or {}
         b, s, _ = x.shape
         heads, eps = cfg.heads, cfg.eps
-        # per-block modulation table added in f32: [B, 6, D]
+        # per-block modulation table added in f32: [B, 6, D] ([B, 2, 6, D])
         e = (self.modulation + e0).float()
-        mods = [e[:, i:i + 1] for i in range(6)]
+        seg = e.ndim == 4
+        mods = [(e[:, 0] if seg else e)[:, i:i + 1] for i in range(6)]
+        mods0 = [e[:, 1, i:i + 1] for i in range(6)] if seg else mods
+
+        # K3 and the gate work row by row: every token at row 0's modulation,
+        # then the t = 0 prefix overwritten at row 1's (a copy of n0 rows only)
+        def ln_mod(x, i_shift, i_scale):
+            out = layer_norm_mod(x, scale=mods[i_scale], shift=mods[i_shift], eps=eps)
+            if seg:
+                out[:, :n0] = layer_norm_mod(x[:, :n0].contiguous(), scale=mods0[i_scale],
+                                             shift=mods0[i_shift], eps=eps)
+            return out
 
         def gate(x, y, i):
-            return x + (y.float() * mods[i]).to(x.dtype)
+            g = y.float() * mods[i]
+            if seg:
+                g[:, :n0] = y[:, :n0].float() * mods0[i]
+            return x + g.to(x.dtype)
 
         # self-attention
-        xn = layer_norm_mod(x, scale=mods[1], shift=mods[0], eps=eps)
+        xn = ln_mod(x, 0, 1)
         q = rms_norm_rope(self.q(xn), self.norm_q, cos, sin, heads, eps=eps)
         k = rms_norm_rope(self.k(xn), self.norm_k, cos, sin, heads, eps=eps)
         v = self.v(xn).reshape(b, s, heads, -1)
@@ -232,7 +276,7 @@ class WanBlock(nn.Module):
         x = x + self.cross_o(ca)
 
         # FFN, tanh-gelu
-        xm = layer_norm_mod(x, scale=mods[4], shift=mods[3], eps=eps)
+        xm = ln_mod(x, 3, 4)
         y = self.ffn2(F.gelu(self.ffn1(xm), approximate="tanh"))
         return gate(x, y, 5)
 
@@ -245,17 +289,40 @@ class WanHead(nn.Module):
                              dtype=torch.float32)
 
 
-class WanModel(nn.Module):
-    """Wan2.1 t2v or i2v DiT. Build on ``device``, then ``init(generator)``
-    for random weights or ``load_state_dict`` (see ``models/convert.py``).
-    The i2v model's ``img_emb`` linears are f32."""
+class WanVace(nn.Module):
+    """The VACE stack: the context's patch embedding, ``before_proj``, one
+    ``WanBlock`` and one ``after_proj`` per hint (bf16 in a bf16 config)."""
 
     def __init__(self, cfg: WanConfig, device=None):
         super().__init__()
-        if cfg.model_type not in ("t2v", "i2v") or cfg.vace_layers:
+        d, dt = cfg.dim, cfg.torch_dtype
+        pt, ph, pw = cfg.patch
+
+        def lin(d_in, d_out):
+            return nn.Linear(d_in, d_out, device=device, dtype=dt)
+
+        self.patch_embedding = lin(VACE_IN_CHANNELS * pt * ph * pw, d)
+        self.before_proj = lin(d, d)
+        self.after_proj = nn.ModuleList(lin(d, d) for _ in cfg.vace_layers)
+        self.blocks = nn.ModuleList(WanBlock(cfg, device) for _ in cfg.vace_layers)
+
+
+class WanModel(nn.Module):
+    """Wan t2v or i2v DiT, with the VACE stack when ``cfg.vace_layers`` is
+    set. Build on ``device``, then ``init(generator)`` for random weights or
+    ``load_state_dict`` (see ``models/convert.py``). The i2v model's
+    ``img_emb`` linears are f32."""
+
+    def __init__(self, cfg: WanConfig, device=None):
+        super().__init__()
+        if cfg.model_type not in ("t2v", "i2v"):
             raise NotImplementedError(
-                f"Wan {cfg.model_type!r}{' + VACE' if cfg.vace_layers else ''}"
-                " is not ported yet; t2v and i2v are")
+                f"Wan model_type {cfg.model_type!r}: the model types are t2v and i2v")
+        if cfg.vace_layers and cfg.has_clip:
+            raise ValueError("VACE rides the t2v trunk, not one with the CLIP branch")
+        if not all(0 <= i < cfg.layers for i in cfg.vace_layers):
+            raise ValueError(f"vace_layers {cfg.vace_layers} name blocks outside "
+                             f"0..{cfg.layers - 1}")
         self.cfg = cfg
         d = cfg.dim
         f32 = torch.float32
@@ -274,6 +341,8 @@ class WanModel(nn.Module):
         if cfg.has_clip:
             self.img_emb = nn.ModuleDict({"in": lin(cfg.clip_dim, cfg.clip_dim),
                                           "out": lin(cfg.clip_dim, d)})
+        if cfg.vace_layers:
+            self.vace = WanVace(cfg, device)
 
     def init(self, generator: torch.Generator) -> "WanModel":
         """Random weights from ``generator`` (on its device): LeCun-normal
@@ -285,7 +354,8 @@ class WanModel(nn.Module):
             for m in self.modules():
                 if isinstance(m, nn.Linear):
                     init_linear_(m, generator)
-            for m in (*self.blocks, self.head):
+            vace = self.vace.blocks if self.cfg.vace_layers else ()
+            for m in (*self.blocks, self.head, *vace):
                 m.modulation.copy_(torch.randn(
                     m.modulation.shape, generator=generator,
                     device=generator.device) / math.sqrt(d))
@@ -300,7 +370,10 @@ def make_wan_core(model: WanModel, grid: Tuple[int, int, int], plan=None, *,
     cond = {"context": f[B, text_len, text_dim]; i2v adds "y": the
             conditioning latents f[B, F*pt, H*ph, W*pw, C_y] (concatenated
             to x on channels, C + C_y = in_channels) and, with the CLIP
-            branch, "clip_fea": f[B, clip_tokens, clip_dim]}
+            branch, "clip_fea": f[B, clip_tokens, clip_dim]; VACE adds
+            "vace_context": f[B, F*pt, H*ph, W*pw, VACE_IN_CHANNELS] and
+            optionally "vace_scale" (a float, default 1.0); the key
+            "ti2v_img" (any value) turns on the per-token timestep}
     x    = latent video f[B, F*pt, H*ph, W*pw, C] (channel-last)
 
     With ``plan`` the core is one rank's: hidden holds the rank's
@@ -310,7 +383,12 @@ def make_wan_core(model: WanModel, grid: Tuple[int, int, int], plan=None, *,
     ``ops.attention.attention``).
     """
     cfg = model.cfg
+    if plan is not None and cfg.vace_layers:
+        raise NotImplementedError("VACE under sequence parallelism is not ported yet")
     device = model.patch_embedding.weight.device
+    # latent frame 0's tokens: the per-token timestep's t = 0 prefix
+    n0 = grid[1] * grid[2]
+    hint_of_layer = {layer: j for j, layer in enumerate(cfg.vace_layers)}
     cos_np, sin_np = wan_rope_tables(cfg, grid)
     cos = torch.from_numpy(cos_np).to(device)
     sin = torch.from_numpy(sin_np).to(device)
@@ -340,8 +418,22 @@ def make_wan_core(model: WanModel, grid: Tuple[int, int, int], plan=None, *,
             tokens = split_sequence(tokens, plan, 1)
         hidden = model.patch_embedding(tokens)
         te = model.time_embedding
-        e = te["out"](F.silu(te["in"](timestep_embedding(t, cfg.freq_dim))))
-        e0 = model.time_projection(F.silu(e)).reshape(e.shape[0], 6, cfg.dim)
+
+        def time_path(tv):
+            e = te["out"](F.silu(te["in"](timestep_embedding(tv, cfg.freq_dim))))
+            return e, model.time_projection(F.silu(e)).reshape(e.shape[0], 6, cfg.dim)
+
+        e, e0 = time_path(t)
+        if "ti2v_img" in cond:
+            # the per-token timestep: latent frame 0's tokens run at t = 0
+            if plan is not None:
+                raise NotImplementedError("the per-token timestep under sequence "
+                                          "parallelism is not ported yet")
+            if cfg.patch[0] != 1:
+                raise ValueError(f"the per-token timestep needs a time patch of 1, "
+                                 f"got {cfg.patch}")
+            ez, e0z = time_path(torch.zeros_like(t))
+            e, e0 = torch.stack([e, ez], dim=1), torch.stack([e0, e0z], dim=1)
         tx = model.text_embedding
         ctx = F.gelu(tx["in"](cond["context"].float()), approximate="tanh")
         ctx = tx["out"](ctx).to(dt)
@@ -351,24 +443,56 @@ def make_wan_core(model: WanModel, grid: Tuple[int, int, int], plan=None, *,
             im = model.img_emb
             img = F.gelu(im["in"](cond["clip_fea"].float()), approximate="tanh")
             ctx = torch.cat([im["out"](img).to(dt), ctx], dim=1)
-        return hidden, {"e": e, "e0": e0, "context": ctx}
+        out = {"e": e, "e0": e0, "context": ctx}
+        if cfg.vace_layers:
+            if "vace_context" not in cond:
+                raise ValueError("the VACE model needs its conditioning context "
+                                 "cond['vace_context']")
+            out["vace_context"] = cond["vace_context"].to(dt)
+            out["vace_scale"] = cond.get("vace_scale", 1.0)
+        return hidden, out
+
+    def vace_hints(hidden, ctx):
+        """Each VACE block's hint: the stack runs from the patch-embedded
+        context, projected and added to the hidden tokens."""
+        vace = model.vace
+        c = vace.before_proj(vace.patch_embedding(patchify(cfg, ctx["vace_context"])))
+        c = c + hidden
+        hints = []
+        for blk, proj in zip(vace.blocks, vace.after_proj):
+            c = blk(c, ctx["e0"], ctx["context"], cos, sin, sp, n0)
+            hints.append(proj(c))
+        return hints
 
     @torch.inference_mode()
     def trunk(hidden, ctx):
+        hints = vace_hints(hidden, ctx) if cfg.vace_layers else None
         x = hidden
-        for blk in model.blocks:
-            x = blk(x, ctx["e0"], ctx["context"], cos, sin, sp)
+        for i, blk in enumerate(model.blocks):
+            x = blk(x, ctx["e0"], ctx["context"], cos, sin, sp, n0)
+            if i in hint_of_layer:
+                x = x + (hints[hint_of_layer[i]] * ctx["vace_scale"]).to(x.dtype)
         return x
 
     @torch.inference_mode()
     def head(hidden, ctx):
         hp = model.head
-        mod = hp.modulation[None] + ctx["e"][:, None, :]
-        shift, scale = mod[:, 0:1], mod[:, 1:2]
-        # bf16 LayerNorm output times f32 modulation promotes to f32 in JAX
+
+        def mod_head(xn, ev):
+            mod = hp.modulation[None] + ev[:, None, :]
+            shift, scale = mod[:, 0:1], mod[:, 1:2]
+            return xn * (1 + scale) + shift
+
+        # bf16 LayerNorm output times f32 modulation promotes to f32 in JAX;
         # the affine-free LayerNorm is K3p on the card (ops.norms.layer_norm's
         # arithmetic: f32 statistics, one rounding)
-        h = layer_norm_mod(hidden.contiguous(), eps=cfg.eps).float() * (1 + scale) + shift
+        xn = layer_norm_mod(hidden.contiguous(), eps=cfg.eps).float()
+        e = ctx["e"]
+        if e.ndim == 3:     # the per-token timestep: the t = 0 prefix at row 1
+            h = mod_head(xn, e[:, 0])
+            h[:, :n0] = mod_head(xn[:, :n0], e[:, 1])
+        else:
+            h = mod_head(xn, e)
         # round to the activation dtype, then the f32 head weight promotes
         out = hp.out(h.to(hidden.dtype).float())
         if plan is not None:        # every rank gets the whole sequence back

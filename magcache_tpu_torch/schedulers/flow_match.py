@@ -54,6 +54,11 @@ class FlowMatchSchedule:
         timesteps = (sigmas[:-1] * num_train_timesteps).astype(np.float32)
         return FlowMatchSchedule(sigmas, timesteps, num_train_timesteps)
 
+    def boundary_step(self, boundary: float) -> int:
+        """The Wan2.2 MoE's expert switch: the number of steps with ``t >=
+        boundary * T``, which the high-noise expert runs."""
+        return int((self.timesteps >= boundary * self.num_train_timesteps).sum())
+
     @staticmethod
     def flux_mu(seq_len: int, base_len: int = 256, max_len: int = 4096,
                 base_shift: float = 0.5, max_shift: float = 1.15) -> float:

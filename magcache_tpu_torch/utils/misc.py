@@ -30,6 +30,30 @@ def resize_bicubic(img: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     return x.permute(0, 2, 3, 1).contiguous()
 
 
+def resize_video_bicubic(video: torch.Tensor, size: Tuple[int, int, int]) -> torch.Tensor:
+    """Channel-last videos ``[B, F, H, W, C]`` -> ``[B, T, h, w, C]`` f32, as
+    ``jax.image.resize(method="bicubic")`` resizes them over time and space:
+    ``resize_bicubic`` over H and W, then over time with the H*W pixels as
+    the second axis (at an unchanged size the antialiased cubic is the
+    identity)."""
+    b, f, _, _, c = video.shape
+    t, h, w = size
+    x = resize_bicubic(video.reshape((b * f,) + tuple(video.shape[2:])), (h, w))
+    if t != f:
+        x = resize_bicubic(x.reshape(b, f, h * w, c), (t, h * w))
+    return x.reshape(b, t, h, w, c)
+
+
+def resize_nearest(x: torch.Tensor, size: Tuple[int, ...]) -> torch.Tensor:
+    """The last ``len(size)`` axes of ``x`` resized to ``size`` by nearest
+    neighbour at half-pixel centres (``jax.image.resize(method="nearest")``:
+    PyTorch's "nearest-exact"; its "nearest" picks other rows)."""
+    lead = x.shape[:x.ndim - len(size)]
+    y = F.interpolate(x.float().reshape((-1, 1) + tuple(x.shape[len(lead):])),
+                      size=tuple(size), mode="nearest-exact")
+    return y.reshape(tuple(lead) + tuple(size))
+
+
 def to_uint8_video(x: np.ndarray) -> np.ndarray:
     """[-1, 1] float frames -> uint8."""
     x = np.clip((np.asarray(x, np.float32) + 1.0) * 127.5, 0, 255)

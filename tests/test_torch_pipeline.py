@@ -59,8 +59,9 @@ def test_generate_skip_override_and_full_compute():
 
 
 def test_unported_configs_raise():
+    # VACE is ported on one rank, not under sequence parallelism
     with pytest.raises(NotImplementedError):
-        WanPipelineConfig(model="wan2.1-vace-1.3B", task="vace")
+        WanPipelineConfig(model="wan2.1-vace-1.3B", task="vace", sp=2)
     # dpm++ and Euler are ported on one rank; under sp they raise
     with pytest.raises(NotImplementedError, match="sp > 1"):
         WanPipelineConfig(sample_solver="dpm++", sp=2)

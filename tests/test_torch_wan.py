@@ -16,6 +16,7 @@ from magcache_tpu.models import wan as jwan
 from magcache_tpu_torch.models import wan as twan
 from magcache_tpu_torch.models.convert import wan_params_from_numpy
 from magcache_tpu_torch.models.text import MockTextEncoder as TMock
+from magcache_tpu_torch.parallel.mesh import run_local_ranks
 
 # f32 on both sides; only GEMM/reduction summation order differs (the
 # tolerance tests/test_parity_torch.py uses for the same block)
@@ -128,6 +129,9 @@ def test_bf16_dtype_placement_matches_jax_init():
 def test_unported_wan_variants_raise():
     with pytest.raises(NotImplementedError):
         twan.WanModel(twan.WanConfig.tiny(model_type="ti2v"), "cpu")
+    # VACE is ported on one rank, not under sequence parallelism
+    vace = twan.WanModel(twan.WanConfig.tiny(vace_layers=(0,)), "cpu")
     with pytest.raises(NotImplementedError):
-        twan.WanModel(twan.WanConfig.tiny(vace_layers=(0,)), "cpu")
+        run_local_ranks(2, lambda plan: twan.make_wan_core(vace, (2, 4, 4), plan),
+                        device="cpu")
     assert TMock(4, 8)(["x"]).shape == (1, 4, 8)
