@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives ``magcache_tpu_torch`` (never JAX) in sixty-nine phases and exits
+Drives ``magcache_tpu_torch`` (never JAX) in seventy-five phases and exits
 nonzero on the first failure:
 
 1. environment: a CUDA card is required; prints the card's name and power
@@ -389,6 +389,30 @@ shapes and launch counts):
    card against f32 on the CPU within 5e-2 rel L2, and the ti2v image
    latents within 1e-4 of the largest value.
 
+HunyuanVideo T2V and FramePack (K1, K2 in head scope, K3; one 12.8 B
+MMDiT with FramePack's clean-latent projections for every phase):
+70. K2h over the 3-D tables (720x1280x129: 118,800 video + 256 text
+   tokens) and a FramePack section's tables, K1 over the joint sequences
+   of 1x119,056 and of a FramePack section (1x17,920) with the fixed max
+   (the plain version timed by its one comparison call, SDPA beside), the
+   token refiner's K1 over 256 tokens with the running max, and K3 mod at
+   1x118,800x3,072, each against its plain version;
+71. one full-shape forward at 720x1280x129, its launches (K1 60 fixed + 2
+   running, K2h 160, K3 121) and peak memory;
+72. a HunyuanVideo request from the prompt at 720x1280x17 x 50 Euler
+   steps, MagCache hunyuanvideo-720p (31 of 50 elided): Llava-Llama-3-8B
+   (f32, no output head, the template's prefix cropped at its hash
+   tokenizer words) and CLIP-L pooled on the card beside the DiT;
+73. FramePack requests at 768x512, 2 sections of 9 latent frames x 25
+   steps, a start latent from a seeded image: the padded mode with
+   MagCache framepack and F1 with framepack-f1 (13 of 25 elided in every
+   section, ``on_section`` once a section);
+74. one TeaCache section (FRAMEPACK_TEA_COEFFS, the first and last step
+   forced), its launches from its realized bits;
+75. narrow HunyuanVideo and FramePack pipelines, bf16 MMDiT on the card
+   against f32 on the CPU within 5e-2 rel L2, and a narrow Llama in f32
+   within 1e-4 of the largest value.
+
 Every request of phases 63-69 checks its skip bits against
 ``compute_skip_schedule``, its launches against the trunk runs and its
 pixels and latents for shape and finiteness, and prints ``text_s``,
@@ -416,7 +440,8 @@ PAB requests and its rolling one; ``latte-pab``: phase 37;
 ``flux-pixels``, ``latte-pixels``, ``vchitect-pixels``, ``open-sora-pixels``:
 phase 53; ``wan-i2v``: phases 59 and 60; ``wan-flf2v``: phase 61;
 ``wan-ti2v``: phases 64 and 65; ``wan-vace``: phases 66 and 67;
-``wan-a14b``: phase 68), its
+``wan-a14b``: phase 68; ``hunyuan``: phases 71 and 72; ``framepack``:
+phases 73 (padded) and 74; ``framepack-f1``: phase 73), its
 worst error over every shape
 compared, and the times of its first shape timed, named in ``timed_at``,
 with their method in ``timing`` (``loop`` or ``graph``); ``shapes`` lists
@@ -5628,6 +5653,465 @@ def phase_wan22_card_vs_cpu(dev):
                      "is not them")
         del card, cpu
 
+# ------------------------------------------------ HunyuanVideo and FramePack
+# HunyuanVideo T2V at 720x1280x129: 33 latent frames of 45 x 80 tokens after
+# the (1, 2, 2) patch, 256 text tokens. Per trunk run of the MMDiT's 20
+# double and 40 single blocks: K1 (fixed max) once a block, K2 in head scope
+# four times a double block (q, k of each stream) and twice a single one, K3
+# four times a double block and once a single one. Every step's prepare adds
+# the token refiner's two K1 launches (running max over the 256 text
+# tokens) and its head one K3, skipped or not.
+HY_GRID, HY_TXT = (33, 45, 80), 256
+HY_TRUNK_LAUNCHES = dict(NO_LAUNCHES, flash_attention_bshd=60, rms_norm_rope_head=160,
+                         layer_norm_mod=120)
+HY_STEP_LAUNCHES = dict(NO_LAUNCHES, flash_attention_bshd=2, layer_norm_mod=1)
+HY_REQ_FRAMES, HY_STEPS = 17, 50     # 5 latent frames: 18,000 video tokens
+# FramePack at 768x512: sections of 9 latent frames of 32 x 48 tokens behind
+# 2 clean frames, one 2x frame (16 x 24) and four 4x frames (8 x 12): 17,664
+# image tokens, 17,920 with the text
+FP_SIZE, FP_WINDOW, FP_STEPS, FP_SECTIONS = (768, 512), 9, 25, 2
+# the refiner's f32 stream with K1 on bf16-rounded q, k, v: one bf16
+# rounding (2^-9) a block, as the CLIP tower's CLIP_TOWER_TOL
+REFINER_TOL = 2 * 2 ** -9
+
+
+def hy_launches(runs: int, steps: int) -> dict:
+    """Launches of HunyuanVideo / FramePack forwards: ``runs`` trunk runs,
+    ``steps`` prepares and heads."""
+    return {k: HY_TRUNK_LAUNCHES[k] * runs + HY_STEP_LAUNCHES[k] * steps for k in NO_LAUNCHES}
+
+
+def check_hy_launches(label: str, launched: dict, runs: int, steps: int) -> None:
+    """Fails unless the launches and K1's by softmax shift (fixed: the
+    MMDiT's, running: the refiner's) are those of ``runs`` trunk runs and
+    ``steps`` steps."""
+    want = hy_launches(runs, steps)
+    modes = k1_modes()
+    want_modes = {"fixed": 60 * runs, "running": 2 * steps}
+    if launched != want or modes != want_modes:
+        fail(f"{label}: launches {launched} (K1 {modes}) != {want} (K1 {want_modes}) for "
+             f"{runs} trunk runs and {steps} steps")
+
+
+def phase_hunyuan_kernels(dev, rec):
+    """K2h over the 3-D and FramePack tables, K1 at the joint sequences of
+    720x1280x129 and of a FramePack section and the refiner's 256 tokens, and
+    K3 mod at 118,800 rows, each against its plain version."""
+    from magcache_tpu_torch.models.hunyuan import (HUNYUAN_VIDEO, framepack_rope_tables,
+                                                   hunyuan_rope_tables)
+    from magcache_tpu_torch.ops import attention as A
+    from magcache_tpu_torch.ops import fused_prologue as P
+
+    H, D, d, L = 24, 128, 3072, HY_TXT
+    n_img = math.prod(HY_GRID)
+    fp_grid = (FP_WINDOW, FP_SIZE[1] // 16, FP_SIZE[0] // 16)
+    log(f"phase 70: kernels vs plain at HunyuanVideo 720x1280x129 shapes (bf16, {n_img} video "
+        f"+ {L} text tokens) and a FramePack section's: K2 head scope over the 3-D tables, K1 "
+        f"joint (fixed max), the refiner's K1 (running max over {L} tokens), K3 mod")
+    gen = torch.Generator(device=dev).manual_seed(70)
+    bf = torch.bfloat16
+
+    def rnd(*shape, dtype=bf, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def tables(np_pair):
+        return tuple(torch.from_numpy(a).to(dev) for a in np_pair)
+
+    cos, sin = tables(hunyuan_rope_tables(HUNYUAN_VIDEO, L, HY_GRID))
+    fcos, fsin = tables(framepack_rope_tables(HUNYUAN_VIDEO, L, fp_grid, 1))
+    n_fp = fcos.shape[0] - L
+    gain = 1.0 + rnd(D, dtype=torch.float32, scale=0.1)
+    # K2 head scope on column slices of the fused projections, read in place
+    # (phase 11's tolerance)
+    for label, rows, width, col, tabs in (
+            (f"image q, 1x{n_img} rows of 9216, 3-D tables", n_img, 3 * d, 0, (cos[L:], sin[L:])),
+            (f"text k, 1x{L} rows of 9216", L, 3 * d, d, (cos[:L], sin[:L])),
+            (f"single-block q, 1x{L + n_img} rows of 21504", L + n_img, 7 * d, 0, (cos, sin)),
+            (f"FramePack image q, 1x{n_fp} rows of 9216, pad 1 tables", n_fp, 3 * d, 0,
+             (fcos[L:], fsin[L:]))):
+        x = rnd(1, rows, width, scale=2.0)[..., col:col + d]
+        kw = dict(eps=1e-6, norm_scope="head")
+        got = P.rms_norm_rope(x, gain, *tabs, H, **kw)
+        want = P.rms_norm_rope_plain(x, gain, *tabs, H, **kw)
+        err = compare(f"K2 rms_norm_rope [head scope, {label}]", got, want,
+                      atol=3e-2, rtol=1.6e-2)
+        ms = cuda_graph_ms(lambda: P.rms_norm_rope(x, gain, *tabs, H, **kw))
+        pms = cuda_graph_ms(lambda: P.rms_norm_rope_plain(x, gain, *tabs, H, **kw))
+        log(f"  K2h [{label}]: kernel {ms:.4f} ms ({2 * rows * d * 2 / ms / 1e6:.0f} GB/s), "
+            f"plain {pms:.4f} ms")
+        keep(rec, "rms_norm_rope_head", err, ms, pms, "graph", label,
+             elementwise_work(got, gain, *tabs))
+        del x, got, want
+    torch.cuda.empty_cache()
+
+    # K1 over the joint [txt; img] sequences with the static shift
+    for label, S, reps in ((f"joint 1x{L + n_img}x24x128 (720x1280x129)", L + n_img, 3),
+                           (f"FramePack section 1x{L + n_fp}x24x128 (768x512)", L + n_fp, 10)):
+        q, k, v = rnd(1, S, H, D), rnd(1, S, H, D), rnd(1, S, H, D)
+        got = A.flash_attention_bshd(q, k, v, fixed_max=A.QKNORM_FIXED_MAX)
+        want, pms = timed_once(lambda: A.flash_attention_bshd_plain(
+            q, k, v, fixed_max=A.QKNORM_FIXED_MAX))
+        err = compare(f"K1 flash_attention_bshd [{label}, fixed_max=16]", got, want,
+                      atol=2e-3, rtol=2e-2)
+        del want
+        ms = cuda_ms(lambda: A.flash_attention_bshd(q, k, v, fixed_max=16.0), reps)
+        lms = sdpa_ms(q, k, v, reps)
+        flops = 4 * H * S * S * D
+        log(f"  K1 [{label}]: kernel {ms:.3f} ms ({rate(flops, 4 * nbytes(q), ms)}), plain "
+            f"{pms:.3f} ms (one call), SDPA {lms:.3f} ms")
+        keep(rec, "flash_attention_bshd", err, ms, pms, "loop", label,
+             (flops, 4 * nbytes(q)), ("F.scaled_dot_product_attention", lms))
+        del q, k, v, got
+        torch.cuda.empty_cache()
+
+    # the token refiner's self-attention: its f32 q, k, v rounded to bf16,
+    # the running max (its scores are not norm-bounded)
+    label = f"refiner 1x{L}x24x128, running max"
+    q, k, v = rnd(1, L, H, D), rnd(1, L, H, D), rnd(1, L, H, D)
+    got = A.flash_attention_bshd(q, k, v)
+    want = A.flash_attention_bshd_plain(q, k, v)
+    err = compare(f"K1 flash_attention_bshd [{label}]", got, want, atol=2e-3, rtol=2e-2)
+    # a loop, as the CLIP tower's call (phase 58): K1 launches on the
+    # library's own stream, which a CUDA graph capture does not record
+    ms = cuda_ms(lambda: A.flash_attention_bshd(q, k, v))
+    pms = cuda_ms(lambda: A.flash_attention_bshd_plain(q, k, v))
+    lms = sdpa_ms(q, k, v, 20)
+    flops = 4 * H * L * L * D
+    log(f"  K1 [{label}]: kernel {ms:.4f} ms ({rate(flops, 4 * nbytes(q), ms)}), plain "
+        f"{pms:.4f} ms, SDPA {lms:.4f} ms")
+    keep(rec, "flash_attention_bshd", err, ms, pms, "loop", label, (flops, 4 * nbytes(q)),
+         ("F.scaled_dot_product_attention", lms))
+
+    # K3 mod at the double block's image stream
+    x = rnd(1, n_img, d, scale=2.0)
+    sc, sh = rnd(1, 1, d, dtype=torch.float32, scale=0.3), rnd(1, 1, d, dtype=torch.float32,
+                                                                scale=0.3)
+    label = f"mod 1x{n_img}x3072"
+    got = P.layer_norm_mod(x, scale=sc, shift=sh, eps=1e-6)
+    want = P.layer_norm_mod_plain(x, scale=sc, shift=sh, eps=1e-6)
+    err = compare(f"K3 layer_norm_mod [{label}]", got, want, atol=3e-2, rtol=1.6e-2)
+    ms = cuda_ms(lambda: P.layer_norm_mod(x, scale=sc, shift=sh, eps=1e-6))
+    pms = cuda_ms(lambda: P.layer_norm_mod_plain(x, scale=sc, shift=sh, eps=1e-6), 5)
+    # at batch 1 the modulation is one row: F.layer_norm with weight 1 + scale
+    # and bias shift computes the same function
+    wb, bb = (1.0 + sc).view(-1).to(x.dtype), sh.view(-1).to(x.dtype)
+    lms = cuda_ms(lambda: torch.nn.functional.layer_norm(x, (d,), wb, bb, eps=1e-6))
+    log(f"  K3 [{label}]: kernel {ms:.4f} ms ({2 * x.numel() * 2 / ms / 1e6:.0f} GB/s), "
+        f"plain {pms:.4f} ms, F.layer_norm {lms:.4f} ms")
+    keep(rec, "layer_norm_mod", err, ms, pms, "loop", label, elementwise_work(x, sc, sh),
+         ("F.layer_norm", lms))
+    del x, got, want
+    torch.cuda.empty_cache()
+
+
+def make_hunyuan_model(dev):
+    """HunyuanVideo's 12.8 B MMDiT with FramePack's clean-latent projections,
+    bf16, random weights drawn on the card (one model for every phase)."""
+    from magcache_tpu_torch.models.hunyuan import HUNYUAN_VIDEO, HunyuanModel
+
+    cfg = dataclasses.replace(HUNYUAN_VIDEO, dtype="bfloat16", framepack=True)
+    torch.cuda.synchronize(dev)
+    t0 = time.time()
+    model = HunyuanModel(cfg, dev).init(torch.Generator(device=dev).manual_seed(71))
+    model.requires_grad_(False)
+    torch.cuda.synchronize(dev)
+    log(f"  HunyuanVideo bf16 random init on the card: {time.time() - t0:.1f} s, "
+        f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B params, "
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.1f} GB allocated")
+    return model
+
+
+def phase_hunyuan_forward(dev, model):
+    """Returns the forward's launches."""
+    from magcache_tpu_torch.models.hunyuan import make_hunyuan_core
+    from magcache_tpu_torch.models.text import MockPooledEncoder, MockTextEncoder
+
+    f, h, w = HY_GRID
+    log(f"phase 71: one full-shape HunyuanVideo forward (prepare -> trunk -> head) at "
+        f"720x1280x129: {f * h * w} video + {HY_TXT} text tokens in one joint attention, 20 "
+        f"double + 40 single blocks")
+    core = make_hunyuan_core(model, HY_TXT, HY_GRID)
+    gen = torch.Generator(device=dev).manual_seed(71)
+    x = torch.randn((1, f, 2 * h, 2 * w, 16), generator=gen, device=dev)
+    cond = {"txt": MockTextEncoder(HY_TXT, 4096, scale=0.5)([TEXT_PROMPTS[0]], device=dev),
+            "vec": MockPooledEncoder(768)([TEXT_PROMPTS[0]], device=dev),
+            "guidance": torch.full((1,), 6.0, device=dev)}
+    t = torch.full((1,), 900.0, device=dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+
+    def forward():
+        hidden, c = core.prepare(x, t, cond)
+        return core.head(core.trunk(hidden, c), c)
+
+    out, ms = timed_once(forward)
+    launched = read_counts()
+    if tuple(out.shape) != tuple(x.shape) or not bool(torch.isfinite(out).all()):
+        fail(f"HunyuanVideo forward output {tuple(out.shape)} is not finite or misshapen")
+    check_hy_launches("HunyuanVideo forward", launched, 1, 1)
+    log(f"  HunyuanVideo forward: {ms / 1e3:.3f} s; output {tuple(out.shape)} finite, std "
+        f"{float(out.std()):.4f}; {peak(dev)}; launches K1 {launched['flash_attention_bshd']} "
+        f"({k1_modes()}), K2h {launched['rms_norm_rope_head']}, K3 "
+        f"{launched['layer_norm_mod']}")
+    return launched
+
+
+def hy_request(label, pipe, sched, want_shape, **kw):
+    """One request through ``pipe.generate``: fails unless the latents are
+    finite of ``want_shape``, every section's skip bits are ``sched``,
+    ``on_section`` ran once a section, ``text_s`` is there and the launches
+    are those of the computed steps; returns the output and launches."""
+    seen = []
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    out = pipe.generate(TEXT_PROMPTS[0], seed=3, on_section=lambda i, lat: seen.append(i),
+                        **kw)
+    launched = read_counts()
+    lat, c = out.latents, pipe.config
+    if tuple(lat.shape) != want_shape or not bool(torch.isfinite(lat).all()):
+        fail(f"{label}: latents {tuple(lat.shape)} not finite or not {want_shape}")
+    if sched is not None and not all(np.array_equal(s[:, 0], sched) for s in out.skips):
+        fail(f"{label}: realized skips {out.skips[..., 0].tolist()} differ from the schedule")
+    if seen != list(range(c.total_sections)) or not out.timings.get("text_s", 0) > 0:
+        fail(f"{label}: on_section saw {seen}, timings {out.timings}")
+    runs = int((~out.skips).sum())
+    check_hy_launches(label, launched, runs, out.skips.size)
+    t = out.timings
+    log(f"  {label}: {t['total_s']:.3f} s ({t['total_s'] / c.total_sections:.3f} s a "
+        f"section; text {t['text_s']:.3f} s); {int(out.skips.sum())} of {out.skips.size} "
+        f"forwards elided, skipped steps by section "
+        f"{[np.flatnonzero(s[:, 0]).tolist() for s in out.skips]}; latents "
+        f"{tuple(lat.shape)} finite, std {float(lat.std()):.4f}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return out, launched
+
+
+def phase_hunyuan_request(dev, model):
+    """Returns the request's launches."""
+    from magcache_tpu_torch.core.magcache import compute_skip_schedule
+    from magcache_tpu_torch.models.clip import CLIP_L
+    from magcache_tpu_torch.models.llama import LLAVA_LLAMA3_8B
+    from magcache_tpu_torch.models.text import (HYVIDEO_PROMPT_TEMPLATE, ClipTextEncoder,
+                                                LlamaTextEncoder)
+    from magcache_tpu_torch.pipelines.framepack import (FramePackPipeline,
+                                                        FramePackPipelineConfig)
+
+    window = (HY_REQ_FRAMES - 1) // 4 + 1
+    log(f"phase 72: a HunyuanVideo request from the prompt through FramePackPipeline.generate "
+        f"at 720x1280x{HY_REQ_FRAMES} ({window * 45 * 80} video tokens), {HY_STEPS} Euler "
+        f"steps, MagCache hunyuanvideo-720p: Llava-Llama-3-8B (f32, hidden state 2 from the "
+        f"last) and CLIP-L pooled on the card, random weights, the hash tokenizer")
+    # the hash tokenizer splits the template's prefix into its words, not the
+    # 95 tokens of the real tokenizer: crop those words instead
+    crop = len(HYVIDEO_PROMPT_TEMPLATE.split("{}")[0].split())
+    text = build_encoder(dev, f"Llava-Llama-3-8B (no output head; the template's prefix "
+                              f"cropped at its {crop} hash-tokenizer words)",
+                         lambda: LlamaTextEncoder(
+                             LLAVA_LLAMA3_8B, out_len=HY_TXT, crop_start=crop, device=dev,
+                             generator=torch.Generator(device=dev).manual_seed(72)))
+    pooled = build_encoder(dev, "CLIP-L", lambda: ClipTextEncoder(
+        CLIP_L, device=dev, generator=torch.Generator(device=dev).manual_seed(73)))
+    states, secs, gb = encode_twice(dev, lambda: text(TEXT_PROMPTS[:1]))
+    # the prompt's words ("<|eot_id|>" rides on the last) and EOS
+    n_words = len(TEXT_PROMPTS[0].split()) + 1
+    if (tuple(states.shape) != (1, HY_TXT, 4096) or not bool(torch.isfinite(states).all())
+            or not bool(states[0, :n_words].any(-1).all()) or bool(states[0, n_words:].any())):
+        fail(f"Llama states {tuple(states.shape)}: not [1, {HY_TXT}, 4096], not finite, or "
+             f"not nonzero exactly on the prompt's {n_words} tokens")
+    log(f"  Llama encode {secs[0]:.3f} s (first call), {secs[1]:.3f} s (second): "
+        f"{tuple(states.shape)}, {n_words} prompt rows, std {float(states[0, :n_words].std()):.4f}"
+        f"; peak {gb:.2f} GB")
+    refiner_rounding(model, states)
+    cfg = FramePackPipelineConfig(
+        model="hunyuanvideo-720p", height=720, width=1280, pyramid=False, history_frames=0,
+        latent_window_size=window, total_sections=1, steps=HY_STEPS, guidance=6.0,
+        txt_len=HY_TXT, use_magcache=True, dtype="bfloat16")
+    pipe = FramePackPipeline(cfg, dev, text_encoder=text, pooled_encoder=pooled, model=model)
+    sched = compute_skip_schedule(pipe.cache_cfg())
+    if int(sched.sum()) != 31:
+        fail(f"hunyuanvideo-720p at {HY_STEPS} steps elides {int(sched.sum())}, not 31")
+    _, launched = hy_request("HunyuanVideo 720p MagCache", pipe, sched,
+                             (1, window, 90, 160, 16))
+    log(f"  schedule ceiling {HY_STEPS / (HY_STEPS - 31):.3f}x (31 of {HY_STEPS} elided)")
+    return launched
+
+
+def refiner_rounding(model, states):
+    """The token refiner at full width on ``states`` as the pipeline runs it
+    (K1 on bf16-rounded q, k, v in each of its blocks) against the same
+    refiner with the plain attention in f32 on the card: fails past a rel L2
+    of ``REFINER_TOL``."""
+    from unittest import mock
+
+    from magcache_tpu_torch.models import hunyuan as HY
+    from magcache_tpu_torch.ops import attention as A
+
+    t = torch.full((1,), 900.0, device=states.device)
+    got = HY.refine_text(model, states, t)
+    with mock.patch.object(HY, "_refiner_attention", A.flash_attention_bshd_plain):
+        want = HY.refine_text(model, states, t)
+    rel = rel_l2(got, want)
+    worst = float((got - want).abs().max() / want.abs().max())
+    log(f"  the token refiner ({model.cfg.refiner_depth} blocks, f32, {tuple(states.shape)} "
+        f"Llama states, t = 900) with K1 on bf16-rounded q/k/v against the plain f32 "
+        f"attention: rel L2 {rel:.3e} (tol {REFINER_TOL:.3e}), max |diff| / max |f32| "
+        f"{worst:.3e}")
+    if not bool(torch.isfinite(got).all()) or rel > REFINER_TOL:
+        fail("the token refiner with the bf16 K1 call strays from the f32 refiner")
+
+
+def phase_framepack_requests(dev, model):
+    """Returns the launches of the padded, F1 and TeaCache requests."""
+    from magcache_tpu_torch.core.magcache import compute_skip_schedule
+    from magcache_tpu_torch.pipelines.flux import image_to_grid_latent
+    from magcache_tpu_torch.pipelines.framepack import (FramePackPipeline,
+                                                        FramePackPipelineConfig)
+
+    w, h = FP_SIZE
+    log(f"phase 73: FramePack requests through FramePackPipeline.generate at {w}x{h}, "
+        f"{FP_SECTIONS} sections of {FP_WINDOW} latent frames, {FP_STEPS} Euler steps each, "
+        f"start latent from a seeded image (resized and channel-tiled, the CLI's path): the "
+        f"padded mode (back to front) with MagCache framepack and F1 (forward) with "
+        f"framepack-f1; then one TeaCache section (phase 74)")
+    img = np.random.default_rng(73).random((480, 720, 3)).astype(np.float32)
+    start = torch.from_numpy(np.ascontiguousarray(
+        image_to_grid_latent(None, img, h // 8, w // 8, 16)))[None]
+    launches = {}
+    for key in ("framepack", "framepack-f1"):
+        cfg = FramePackPipelineConfig(
+            model=key, height=h, width=w, latent_window_size=FP_WINDOW,
+            total_sections=FP_SECTIONS, steps=FP_STEPS, guidance=10.0, txt_len=HY_TXT,
+            use_magcache=True, dtype="bfloat16")
+        pipe = FramePackPipeline(cfg, dev, model=model)
+        sched = compute_skip_schedule(pipe.cache_cfg())
+        if int(sched.sum()) != 13:
+            fail(f"{key} at {FP_STEPS} steps elides {int(sched.sum())}, not 13")
+        frames = FP_SECTIONS * FP_WINDOW + (1 if key == "framepack" else 0)
+        out, launches[key] = hy_request(f"{key} MagCache", pipe, sched,
+                                        (1, frames, h // 8, w // 8, 16), start_latent=start)
+        if key == "framepack" and not torch.equal(out.latents[0, 0].cpu(), start[0]):
+            fail("framepack: the padded mode's video does not lead with the start latent")
+        log(f"  {key}: schedule ceiling {FP_STEPS / (FP_STEPS - 13):.3f}x a section")
+    log("phase 74: one FramePack TeaCache section (padded, pad 0) at the same shape, "
+        "FRAMEPACK_TEA_COEFFS, threshold 0.15, the first and last step forced")
+    cfg = FramePackPipelineConfig(
+        height=h, width=w, latent_window_size=FP_WINDOW, total_sections=1, steps=FP_STEPS,
+        guidance=10.0, txt_len=HY_TXT, use_teacache=True, dtype="bfloat16")
+    out, tea = hy_request("framepack TeaCache", FramePackPipeline(cfg, dev, model=model), None,
+                          (1, FP_WINDOW + 1, h // 8, w // 8, 16), start_latent=start)
+    if out.skips[0, [0, -1]].any():
+        fail("framepack TeaCache skipped a forced step")
+    launches["framepack"] = {k: n + tea[k] for k, n in launches["framepack"].items()}
+    return launches
+
+
+def _numpy_hunyuan_tree(cfg, rng):
+    """A random HunyuanVideo tree in the JAX package's layout: the FLUX tree
+    of ``cfg.to_flux()``, the refiner and the clean-latent projections."""
+    d, L = cfg.hidden, cfg.refiner_depth
+
+    def lin(d_in, d_out, depth=None):
+        shape = (d_in, d_out) if depth is None else (depth, d_in, d_out)
+        return {"w": rng.standard_normal(shape) / math.sqrt(d_in),
+                "b": rng.standard_normal(shape[:-2] + (d_out,)) * 0.02}
+
+    tree = _numpy_flux_tree(cfg.to_flux(), rng)
+    norms = {f"norm{i}_{p}": (1.0 if p == "w" else 0.0) + 0.1 * rng.standard_normal((L, d))
+             for i in (1, 2) for p in "wb"}
+    tree["refiner"] = {
+        "in": lin(cfg.text_dim, d),
+        "t_embed": {"in": lin(cfg.time_embed_dim, d), "out": lin(d, d)},
+        "c_embed": {"in": lin(cfg.text_dim, d), "out": lin(d, d)},
+        "blocks": dict(qkv=lin(d, 3 * d, L), proj=lin(d, d, L), mlp1=lin(d, 4 * d, L),
+                       mlp2=lin(4 * d, d, L), mod=lin(d, 2 * d, L), **norms)}
+    c = cfg.in_channels
+    for name, k in (("clean_proj", 4), ("clean_proj_2x", 32), ("clean_proj_4x", 256)):
+        tree[name] = lin(c * k, d)
+    return tree
+
+
+def _numpy_llama_tree(cfg, rng):
+    d, L, hd = cfg.hidden, cfg.layers, cfg.head_dim
+
+    def st(d_in, d_out):
+        return {"w": rng.standard_normal((L, d_in, d_out)) / math.sqrt(d_in)}
+
+    return {"embed": rng.standard_normal((cfg.vocab_size, d)) * 0.02,
+            "final_norm": 1.0 + 0.1 * rng.standard_normal(d),
+            "blocks": {"in_norm": 1.0 + 0.1 * rng.standard_normal((L, d)),
+                       "post_norm": 1.0 + 0.1 * rng.standard_normal((L, d)),
+                       "q": st(d, cfg.heads * hd), "k": st(d, cfg.kv_heads * hd),
+                       "v": st(d, cfg.kv_heads * hd), "o": st(cfg.heads * hd, d),
+                       "gate": st(d, cfg.intermediate), "up": st(d, cfg.intermediate),
+                       "down": st(cfg.intermediate, d)}}
+
+
+def phase_hunyuan_card_vs_cpu(dev):
+    from magcache_tpu_torch.models.convert import (hunyuan_params_from_numpy,
+                                                   llama_params_from_numpy)
+    from magcache_tpu_torch.models.hunyuan import HunyuanConfig, HunyuanModel
+    from magcache_tpu_torch.models.llama import LlamaConfig, LlamaModel, llama_hidden_states
+    from magcache_tpu_torch.models.text import FallbackHashTokenizer
+    from magcache_tpu_torch.pipelines.framepack import (FramePackPipeline,
+                                                        FramePackPipelineConfig)
+
+    log("phase 75: narrow HunyuanVideo (flat, no history) and FramePack (padded, 2 sections) "
+        "pipelines on the card (kernels, bf16 MMDiT) against the CPU (plain ops, f32), 136 "
+        "text tokens (the refiner's K1 runs); a narrow Llama, f32, card against CPU")
+    cfg = HunyuanConfig(hidden=256, heads=2, depth_double=2, depth_single=2, text_dim=64,
+                        vec_dim=32, time_embed_dim=64, framepack=True)
+    tree = _numpy_hunyuan_tree(cfg, np.random.default_rng(75))
+    steps, txt = 6, 136
+    # per trunk run of 2 double + 2 single blocks: K1 4, K2h 12, K3 10; each
+    # step's refiner K1 2 and head K3 1
+    per_run = dict(NO_LAUNCHES, flash_attention_bshd=4, rms_norm_rope_head=12, layer_norm_mod=10)
+    per_step = dict(NO_LAUNCHES, flash_attention_bshd=2, layer_norm_mod=1)
+    for kind, kw in (("HunyuanVideo", dict(model="hunyuanvideo-544p", pyramid=False,
+                                           history_frames=0, total_sections=1, height=32,
+                                           width=48)),
+                     ("FramePack", dict(model="framepack", total_sections=2, height=64,
+                                        width=64))):
+        outs = {}
+        for name, device, dtype in (("card", dev, "bfloat16"),
+                                    ("cpu", torch.device("cpu"), "float32")):
+            c = dataclasses.replace(cfg, dtype=dtype)
+            model = HunyuanModel(c, device)
+            model.load_state_dict(hunyuan_params_from_numpy(tree, c, device))
+            pcfg = FramePackPipelineConfig(latent_window_size=2, steps=steps, txt_len=txt,
+                                           use_magcache=True, dtype=dtype, **kw)
+            pipe = FramePackPipeline(pcfg, device, model=model)
+            rng = np.random.default_rng(76)
+            draws = [rng.standard_normal((1,) + pipe.lat_shape).astype(np.float32)
+                     for _ in range(pcfg.total_sections)]
+            reset_counts()
+            out = pipe.generate("a red boat at dawn", seed=2, start_latent=torch.full(
+                (1,) + pipe.lat_shape[1:], 0.1),
+                section_noise=lambda s, shape: torch.from_numpy(draws[s]))
+            outs[name] = (out.latents.float().cpu(), read_counts(), out.skips)
+        (got, launched, skips), (want, _, _) = outs["card"], outs["cpu"]
+        if not skips.any():
+            fail(f"narrow {kind}: no step skipped")
+        runs, n = int((~skips).sum()), skips.size
+        check_narrow(f"narrow {kind}", got, want, launched,
+                     {k: per_run[k] * runs + per_step[k] * n for k in NO_LAUNCHES})
+    lcfg = LlamaConfig(vocab_size=1000, hidden=256, layers=2, heads=2, kv_heads=1,
+                       intermediate=512)
+    ltree = _numpy_llama_tree(lcfg, np.random.default_rng(77))
+    tok = FallbackHashTokenizer(lcfg.vocab_size)(TEXT_PROMPTS, max_length=24)
+    outs = []
+    for device in (dev, torch.device("cpu")):
+        m = LlamaModel(lcfg, device)
+        m.load_state_dict(llama_params_from_numpy(ltree, lcfg, device))
+        outs.append(llama_hidden_states(m, tok["input_ids"], tok["attention_mask"],
+                                        skip_layers=1).cpu())
+    err = float((outs[0] - outs[1]).abs().max() / outs[1].abs().max())
+    log(f"  narrow Llama (f32, skip 1, a padded prompt) card vs CPU: max |diff| / max |CPU| "
+        f"{err:.3e} (tol 1e-4: f32 GEMMs without TF32)")
+    if err > 1e-4 or not bool(torch.isfinite(outs[0]).all()):
+        fail("narrow Llama: the card strays from the CPU")
+
+
 def main():
     phase_environment()
     dev = torch.device("cuda", 0)
@@ -5821,6 +6305,19 @@ def main():
     torch.cuda.empty_cache()
     phase_wan22_card_vs_cpu(dev)
     t_w22 = time.time() - t0_w22
+    t0_hy = time.time()
+    phase_hunyuan_kernels(dev, rec)
+    torch.cuda.empty_cache()
+    log("phase 71-74 model:")
+    model = make_hunyuan_model(dev)
+    hunyuan = phase_hunyuan_forward(dev, model)
+    reqs = phase_hunyuan_request(dev, model)
+    hunyuan = {k: n + reqs[k] for k, n in hunyuan.items()}
+    framepack = phase_framepack_requests(dev, model)
+    del model
+    torch.cuda.empty_cache()
+    phase_hunyuan_card_vs_cpu(dev)
+    t_hy = time.time() - t0_hy
     log(f"all phases passed in {time.time() - t0:.1f} s (Wan {t_wan:.1f} s, "
         f"Open-Sora {t_os:.1f} s, FLUX {t_flux:.1f} s, Open-Sora 720p "
         f"{t_os720:.1f} s, Latte {t_latte:.1f} s, Wan sequence-parallel {t_sp:.1f} s, "
@@ -5829,10 +6326,11 @@ def main():
         f"{t_pab:.1f} s, Open-Sora-Plan and CogVideoX {t_osp:.1f} s, Vchitect and the "
         f"Open-Sora-Plan and CogVideoX VAEs {t_vch:.1f} s, the SD and Open-Sora VAEs "
         f"and the requests ending in their pixels "
-        f"{time.time() - t0 - t_wan - t_os - t_flux - t_os720 - t_latte - t_sp - t_unpacked - t_ends - t_pab - t_osp - t_vch - t_i2v - t_w22:.1f} s; "
+        f"{time.time() - t0 - t_wan - t_os - t_flux - t_os720 - t_latte - t_sp - t_unpacked - t_ends - t_pab - t_osp - t_vch - t_i2v - t_w22 - t_hy:.1f} s; "
         f"the text encoders' phases 55-57, within those, {t_text:.1f} s; Wan I2V-14B and "
         f"FLF2V-14B, phases 58-62, {t_i2v:.1f} s; Wan2.2 TI2V-5B, VACE and the A14B MoE, "
-        f"phases 63-69, {t_w22:.1f} s)")
+        f"phases 63-69, {t_w22:.1f} s; HunyuanVideo and FramePack, phases 70-75, "
+        f"{t_hy:.1f} s)")
 
     meta = {
         "flash_attention_bshd": ("cuda", "magcache_tpu_torch/csrc/hopper_attention.cuh",
@@ -5880,7 +6378,8 @@ def main():
              "open-sora-plan": osp, "open-sora-plan-v110": osp_v110, "cogvideox": cog,
              "vchitect": vch, "open-sora-plan-pixels": osp_px, "cogvideox-pixels": cog_px,
              **pixel_paths, "wan-i2v": i2v, "wan-flf2v": flf2v, "wan-ti2v": ti2v,
-             "wan-vace": vace, "wan-a14b": a14b}
+             "wan-vace": vace, "wan-a14b": a14b, "hunyuan": hunyuan,
+             "framepack": framepack["framepack"], "framepack-f1": framepack["framepack-f1"]}
     kernels = []
     for name, (route, source, replaces) in meta.items():
         by_path = {p: c[name] for p, c in paths.items()}

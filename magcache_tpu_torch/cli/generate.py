@@ -9,7 +9,9 @@ vace-1.3B``, ``vace-14B``, with ``--src_video --src_mask
 FLUX.1 text-to-image (``--task flux-dev`` and ``flux-kontext-dev``), Latte-1
 t2v (``--task latte``), Open-Sora-Plan t2v (``--task open-sora-plan``: v1.2,
 or v1.1 with ``--osp_version v110``), CogVideoX-5B t2v (``--task
-cogvideox``) and Vchitect-XL-2B t2v (``--task vchitect``).
+cogvideox``), Vchitect-XL-2B t2v (``--task vchitect``), HunyuanVideo T2V
+(``--task hunyuan``, ``hunyuan-720p``, ``hunyuan-544p``: one section of the
+FramePack pipeline) and FramePack (``--task framepack``, ``framepack-f1``).
 
 Flag names follow the reference adapters (``--task --size --frame_num
 --sample_steps --sample_shift --sample_solver --sample_guide_scale
@@ -22,7 +24,11 @@ Flag names follow the reference adapters (``--task --size --frame_num
 ``--txt_len --clean_caption --route --enable_pab``, Open-Sora-Plan
 ``--txt_len --no_text_preprocessing --route --enable_pab --osp_version``,
 CogVideoX ``--txt_len --use_dynamic_cfg --enable_pab``, Vchitect
-``--txt_len --enable_pab``),
+``--txt_len --enable_pab``; HunyuanVideo and FramePack ``--txt_len --image
+--enable_teacache --teacache_thresh`` and the hyvideo scripts' aliases
+``--video_size H W --video_length --infer_steps --embedded_cfg_scale
+--flow_shift --neg_prompt --cfg_scale --save_path``, also in their dash
+spelling, e.g. ``--video-size``),
 and the output file name encodes the E/K/R triple. Unset flags take each
 family's reference defaults, as in the JAX CLI (Wan: 50 steps, i2v 40;
 shift 5.0, i2v at 480p and below 3.0, flf2v and VACE 16.0; guidance 5.0;
@@ -31,7 +37,11 @@ to 480 rows, else ``-720p``; Wan2.2: t2v-A14B 40 steps, shift 12.0,
 guidance (low, high) (3.0, 4.0); i2v-A14B 40 steps, shift 5.0, (3.5, 3.5);
 ``--sample_guide_scale`` gives both experts one scale; ti2v-5B 50 steps,
 shift 5.0, 121 frames, the preset ``wan2.2-ti2v-5B-i2v`` with ``--image``,
-else ``-t2v``; every Wan task at 832*480 unless ``--size``). Runs on a CUDA card by
+else ``-t2v``; every Wan task at 832*480 unless ``--size``; HunyuanVideo 50
+steps, embedded guidance 6.0, the preset ``hunyuanvideo-720p`` from 700 rows
+up, else ``-544p``; FramePack 25 steps, guidance 10.0, 5 sections of
+``(frames - 1) // 4 + 1`` latent frames, a canvas divisible by 64; both
+flow shift 7.0, 832*480, 81 frames, ``txt_len`` 256). Runs on a CUDA card by
 default; ``--device cpu`` runs the plain PyTorch ops instead of the kernels
 (tests use it at ``--tiny`` size; the tiny models' head dims are not ones
 the kernels take, so ``--tiny`` on a card exits with a message).
@@ -78,6 +88,10 @@ Examples:
       --save_file vch                  # 40x480x768, 100 FlowMatch-Euler steps
   python -m magcache_tpu_torch.cli.generate --task vchitect --use_magcache \
       --mag_ratios_json vch_mag_ratio.json [--enable_pab]
+  python -m magcache_tpu_torch.cli.generate --task hunyuan --video-size 720 1280 \
+      --video-length 129 --use_magcache         # 118,800 tokens, 31 of 50 elided
+  python -m magcache_tpu_torch.cli.generate --task framepack-f1 --size 768*512 \
+      --image x.png --use_magcache              # 13 of 25 elided a section
   torchrun --nproc_per_node 4 -m magcache_tpu_torch.cli.generate --task t2v-1.3B \
       --use_magcache --ulysses_size 4           # or --ring_size 4
 Checkpoints are not loaded yet: the DiT has random weights and the text
@@ -96,6 +110,10 @@ or a video or image file, resized and cropped to the canvas),
 channels are averaged) and ``--src_ref_images`` (comma-separated images,
 R2V). ``ti2v-5B --image`` takes the checkpoint-free encode: the image
 nearest-resized to the latent grid times a fixed random projection.
+HunyuanVideo's and FramePack's ``--image`` becomes the start latent as the
+JAX CLI makes it without a VAE: nearest-resized and channel-tiled.
+HunyuanVideo runs without history frames unless ``--image`` gives one (the
+JAX CLI prepends two zero latent frames; ROADMAP §3).
 Open-Sora references are ``.npy`` latents; image
 and video references need the pipeline's VAE, which the CLI does not build,
 and raise.
@@ -125,6 +143,9 @@ _PORTED = {"t2v-1.3B": "wan2.1-t2v-1.3B", "t2v-14B": "wan2.1-t2v-14B",
            "flux-dev": "flux-dev", "flux-kontext-dev": "flux-kontext-dev",
            # no published ratios: calibrate, then --mag_ratios_json
            "latte": None, "open-sora-plan": None, "cogvideox": None, "vchitect": None}
+# HunyuanVideo takes its preset by the canvas (hunyuanvideo-720p from 700
+# rows up), FramePack the task's own
+_HUNYUAN = ("hunyuan", "hunyuan-720p", "hunyuan-544p", "framepack", "framepack-f1")
 _WAN = ("t2v-1.3B", "t2v-14B", "t2i-14B", "i2v-14B", "flf2v-14B", "vace-1.3B", "vace-14B",
         "ti2v-5B", "t2v-A14B", "i2v-A14B")
 # the JAX CLI's Wan2.2 defaults: steps, shift, guidance, frames
@@ -137,11 +158,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--task", default="t2v-1.3B",
                    help="t2v-1.3B | t2v-14B | t2i-14B | i2v-14B | flf2v-14B | vace-1.3B | "
                         "vace-14B | ti2v-5B | t2v-A14B | i2v-A14B | open-sora | flux-dev | "
-                        "flux-kontext-dev | latte | open-sora-plan | cogvideox | vchitect "
+                        "flux-kontext-dev | latte | open-sora-plan | cogvideox | vchitect | "
+                        "hunyuan | hunyuan-720p | hunyuan-544p | framepack | framepack-f1 "
                         "(the tasks ported so far)")
     p.add_argument("--size", default=None,
-                   help="W*H pixels (unset: 832*480 for Wan and Open-Sora, "
-                        "1024*1024 for FLUX)")
+                   help="W*H pixels (unset: 832*480 for Wan, Open-Sora, HunyuanVideo and "
+                        "FramePack, 1024*1024 for FLUX)")
     p.add_argument("--frame_num", type=int, default=None,
                    help="frames (unset: 81; ti2v-5B 121)")
     p.add_argument("--sample_steps", type=int, default=None,
@@ -255,6 +277,24 @@ def build_parser() -> argparse.ArgumentParser:
                    help="alias: --sp with Ulysses attention")
     p.add_argument("--ring_size", type=int, default=None,
                    help="alias: --sp with ring attention")
+    # the hyvideo scripts' names (magcache_sample_video.py), HunyuanVideo and
+    # FramePack only, with the JAX CLI's precedence where both are given
+    p.add_argument("--video_size", type=int, nargs=2, default=None, metavar=("H", "W"),
+                   help="hunyuan alias: height width (--size W*H)")
+    p.add_argument("--video_length", type=int, default=None,
+                   help="hunyuan alias for --frame_num")
+    p.add_argument("--infer_steps", type=int, default=None,
+                   help="hunyuan alias for --sample_steps")
+    p.add_argument("--embedded_cfg_scale", type=float, default=None,
+                   help="hunyuan embedded (distilled) guidance (unset: 6.0, FramePack 10.0)")
+    p.add_argument("--flow_shift", type=float, default=None,
+                   help="hunyuan flow shift (alias of --sample_shift; unset: 7.0)")
+    p.add_argument("--negative_prompt", "--neg_prompt", dest="negative_prompt",
+                   default=None, help="hunyuan: ignored with a warning (the distilled "
+                                      "model runs one forward a step, no CFG)")
+    p.add_argument("--cfg_scale", type=float, default=None,
+                   help="hunyuan: ignored with a warning unless 1.0 (no CFG)")
+    p.add_argument("--save_path", default=None, help="alias for --save_file")
     p.add_argument("--dist_init_method", default=None,
                    help="process-group rendezvous (tcp://host:port or "
                         "file:///path) when not started by torchrun; RANK and "
@@ -461,6 +501,61 @@ def _vchitect_pipeline(args, device, ratios):
     return VchitectPipeline(cfg, device), cfg.num_inference_steps, 2
 
 
+def _hunyuan_pipeline(args, device, ratios):
+    """HunyuanVideo (one section of the FramePack pipeline, no clean-latent
+    pyramid) or FramePack, with the JAX CLI's ``_hunyuan_pipeline``
+    defaults."""
+    from magcache_tpu_torch.pipelines.framepack import (FramePackPipeline,
+                                                        FramePackPipelineConfig)
+
+    if args.video_size:
+        h, w = args.video_size          # hyvideo orders height, width
+    else:
+        w, h = _parse_size(args.size)
+    frame_num = args.video_length or args.frame_num or 81
+    fp = args.task.startswith("framepack")
+    if args.tiny:
+        w = h = 64 if fp else 32
+    if fp and (h % 64 or w % 64):
+        raise SystemExit(f"--task {args.task}: the clean-latent pyramid needs a canvas "
+                         f"whose height and width are divisible by 64, got {w}*{h}; pass "
+                         f"--size W*H (e.g. --size 768*512)")
+    guidance = next((g for g in (args.embedded_cfg_scale, args.sample_guide_scale)
+                     if g is not None), 10.0 if fp else 6.0)
+    shift = next((s for s in (args.sample_shift, args.flow_shift) if s is not None), 7.0)
+    cfg = FramePackPipelineConfig(
+        model=(args.task if fp else
+               "hunyuanvideo-720p" if h >= 700 else "hunyuanvideo-544p"),
+        height=h, width=w, pyramid=fp,
+        # plain HunyuanVideo conditions on no history, unless an image is given
+        history_frames=2 if args.image else 0,
+        latent_window_size=2 if args.tiny else (frame_num - 1) // 4 + 1,
+        total_sections=5 if fp else 1,
+        steps=args.sample_steps or args.infer_steps or (25 if fp else 50),
+        guidance=guidance, flow_shift=shift,
+        txt_len=8 if args.tiny else (args.txt_len or 256),
+        use_magcache=args.use_magcache, magcache_thresh=args.magcache_thresh,
+        magcache_K=args.magcache_K, retention_ratio=args.retention_ratio,
+        use_teacache=args.enable_teacache, teacache_thresh=args.teacache_thresh,
+        magcache_calibration=args.magcache_calibration, mag_ratios_override=ratios,
+        dtype=args.dtype, tiny=args.tiny)
+    return FramePackPipeline(cfg, device), cfg.steps, 1
+
+
+def _normalize_argv(argv, parser):
+    """The hyvideo scripts' dash spelling (``--video-size``, ``--infer-steps``,
+    ...) of every flag registered with underscores."""
+    known = {o for act in parser._actions for o in act.option_strings}
+    out = []
+    for tok in argv:
+        flag, eq, val = tok.partition("=")
+        cand = "--" + flag[2:].replace("-", "_")
+        if flag.startswith("--") and flag not in known and cand in known:
+            tok = cand + eq + val
+        out.append(tok)
+    return out
+
+
 def _load_frames(path: str, pipe) -> np.ndarray:
     """A VACE source video or mask: a ``.npy`` array as it is, any other file
     (a video or an image) resized and cropped to the canvas, ``[F, H, W, 3]``
@@ -484,9 +579,10 @@ def _pipeline(args):
         raise SystemExit(
             f"--task {args.task!r} matches no model family; known prefixes: "
             f"{', '.join(_KNOWN)} (e.g. t2v-1.3B)")
-    if args.task not in _PORTED:
+    hunyuan = args.task in _HUNYUAN
+    if args.task not in _PORTED and not hunyuan:
         raise SystemExit(f"--task {args.task!r} is not ported yet; ported: "
-                         f"{', '.join(_PORTED)}")
+                         f"{', '.join((*_PORTED, *_HUNYUAN))}")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available "
@@ -505,7 +601,7 @@ def _pipeline(args):
     vace = args.task.startswith("vace")
     for flag, on, ok in (("--image", args.image is not None,
                           args.task in ("i2v-14B", "flf2v-14B", "i2v-A14B", "ti2v-5B")
-                          or args.task.startswith("flux")),
+                          or args.task.startswith("flux") or hunyuan),
                          ("--src_video / --src_mask / --src_ref_images",
                           any(a is not None for a in (args.src_video, args.src_mask,
                                                       args.src_ref_images)), vace),
@@ -515,7 +611,13 @@ def _pipeline(args):
                          ("--sample_solver", args.sample_solver != "unipc", wan),
                          ("--cache_policy", args.cache_policy != "adapter",
                           wan or args.task == "open-sora"),
-                         ("--enable_teacache", args.enable_teacache, wan),
+                         ("--enable_teacache", args.enable_teacache, wan or hunyuan),
+                         ("--video_size / --video_length / --infer_steps / "
+                          "--embedded_cfg_scale / --flow_shift / --negative_prompt / "
+                          "--cfg_scale", any(a is not None for a in (
+                              args.video_size, args.video_length, args.infer_steps,
+                              args.embedded_cfg_scale, args.flow_shift,
+                              args.negative_prompt, args.cfg_scale)), hunyuan),
                          ("--enable_pab", args.enable_pab,
                           args.task in ("open-sora", "latte", "open-sora-plan",
                                         "cogvideox", "vchitect")),
@@ -544,11 +646,23 @@ def _pipeline(args):
         return _cogvideox_pipeline(args, device, ratios)
     if args.task == "vchitect":
         return _vchitect_pipeline(args, device, ratios)
+    if hunyuan:
+        if args.negative_prompt is not None:
+            print("WARNING: negative prompts need classifier-free guidance; the distilled "
+                  "HunyuanVideo / FramePack path runs one forward a step "
+                  "(magcache_sample_video.py:29-158): --neg_prompt is ignored.")
+        if args.cfg_scale not in (None, 1.0):
+            print("WARNING: --cfg_scale != 1.0 needs an undistilled HunyuanVideo; the "
+                  "MagCache adapter and this port run the distilled single-forward path. "
+                  "Use --embedded_cfg_scale to steer.")
+        return _hunyuan_pipeline(args, device, ratios)
     return _wan_pipeline(args, device, ratios)
 
 
 def main(argv=None):
-    args = build_parser().parse_args(sys.argv[1:] if argv is None else argv)
+    parser = build_parser()
+    args = parser.parse_args(_normalize_argv(sys.argv[1:] if argv is None else argv, parser))
+    args.save_file = args.save_file or args.save_path
     t0 = time.time()
     pipe, steps, lanes = _pipeline(args)
     kw = {}
@@ -569,6 +683,11 @@ def main(argv=None):
             kw["src_mask"] = m.mean(axis=-1) if m.ndim == 4 else m
         if args.src_ref_images:
             kw["src_ref_images"] = [load_image(p) for p in args.src_ref_images.split(",")]
+    elif args.task in _HUNYUAN and args.image:
+        from magcache_tpu_torch.pipelines.flux import image_to_grid_latent, load_image
+
+        lat = image_to_grid_latent(None, load_image(args.image), *pipe.lat_shape[1:])
+        kw = dict(start_latent=torch.from_numpy(np.ascontiguousarray(lat))[None])
     elif args.image:
         from magcache_tpu_torch.pipelines.flux import load_image
 
@@ -608,12 +727,18 @@ def main(argv=None):
         lat = out.latents.cpu().numpy()
         np.save(save_file + "_latents.npy", lat)
         print(f"latents {lat.shape} -> {save_file}_latents.npy")
-        what = ("lane-forwards (cond + uncond per step)" if lanes == 2 else
-                "forwards (one per step, embedded guidance)"
-                if args.task.startswith("flux") else
-                "forwards (cond + uncond as one joint batch per step)")
-        print(f"skipped {int(out.skips.sum())} of {lanes * len(out.skips)} {what}; "
-              f"skipped steps {np.flatnonzero(out.skips.any(1)).tolist()}")
+        if args.task in _HUNYUAN:
+            # bits [sections, steps, 1], one forward a step
+            print(f"skipped {int(out.skips.sum())} of {out.skips.size} forwards (one per "
+                  f"step and section, embedded guidance); skipped steps by section "
+                  f"{[np.flatnonzero(s[:, 0]).tolist() for s in out.skips]}")
+        else:
+            what = ("lane-forwards (cond + uncond per step)" if lanes == 2 else
+                    "forwards (one per step, embedded guidance)"
+                    if args.task.startswith("flux") else
+                    "forwards (cond + uncond as one joint batch per step)")
+            print(f"skipped {int(out.skips.sum())} of {lanes * len(out.skips)} {what}; "
+                  f"skipped steps {np.flatnonzero(out.skips.any(1)).tolist()}")
         if getattr(pipe, "core_low", None) is not None:
             b = pipe.boundary_step()
             print(f"experts: high-noise steps 0-{b - 1}, low-noise steps {b}-{steps - 1}")

@@ -451,6 +451,8 @@ def sample_euler(
     post_step: Optional[Callable] = None,
     calibrate: bool = False,
     calibrate_lanes: Optional[int] = None,
+    prev_residual: Optional[torch.Tensor] = None,
+    return_residual: bool = False,
 ):
     """Linear-update sampler ``x <- cx_i * x + dt_i * v [+ ns_i * z_i]`` with
     MagCache (the JAX ``magcache_tpu.core.sampler.sample_euler``).
@@ -475,7 +477,12 @@ def sample_euler(
     ``calibrate=True`` runs full compute and returns ``(x, stats f64
     [num_steps-1, calibrate_lanes, 3])``, each step's residual against the
     previous step's; ``calibrate_lanes`` (default: the stacked lanes) is the
-    cache's lane count, 1 for a joint CFG batch.
+    cache's lane count, 1 for a joint CFG batch. ``prev_residual`` seeds
+    step 0's predecessor residual (FramePack's sections carry the previous
+    section's last residual, so the calibration records one continuous run
+    of ratios across sections); stats then have ``num_steps`` rows.
+    ``return_residual`` also returns the run's last residual, ``(x, stats,
+    residual)``.
 
     Euler-Ancestral (``schedulers.euler_ancestral``): ``in_scales`` scales
     the model's input only (``x_model = in_i * x``), and ``noise_scales``
@@ -493,6 +500,8 @@ def sample_euler(
     if calibrate and (cache_cfg is not None or skip_mask_override is not None
                       or return_skips or dynamic_skip is not None):
         raise ValueError("calibrate is a full-compute recording mode")
+    if not calibrate and (prev_residual is not None or return_residual):
+        raise ValueError("prev_residual and return_residual belong to calibrate")
     if dpm_coeffs is not None and (x_coeffs is not None or in_scales is not None
                                    or noise_scales is not None):
         raise ValueError("dpm_coeffs replaces the linear-update coefficients "
@@ -519,7 +528,7 @@ def sample_euler(
 
     x = x_init
     x0_prev = torch.zeros_like(x_init) if dpm is not None else None
-    cache = state = dstate = None
+    cache, state, dstate = prev_residual, None, None
     skips, stats = [], []
     for i in range(num_steps):
         x2 = _stack_lanes(x if cins is None else float(cins[i]) * x, n_lanes)
@@ -558,7 +567,9 @@ def sample_euler(
                 for l in range(cal_lanes)]))
         skips.append(bits)
     if calibrate:
-        return x, torch.stack(stats[1:]).double().cpu().numpy()
+        kept = stats if prev_residual is not None else stats[1:]
+        stats = torch.stack(kept).double().cpu().numpy()
+        return (x, stats, cache) if return_residual else (x, stats)
     if return_skips:
         return x, np.stack(skips)
     return x

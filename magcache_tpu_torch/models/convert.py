@@ -17,7 +17,10 @@ Open-Sora's temporal VAE, encoder and decoder, and
 fallback); ``t5_params_from_flax`` for a T5 or mT5 encoder from the HF Flax
 tree the JAX package's ``JaxT5Encoder`` runs, and
 ``clip_text_params_from_numpy`` and ``clip_vision_params_from_numpy`` for
-the CLIP text and vision towers. Three layout rules: the JAX block weights are
+the CLIP text and vision towers; ``hunyuan_params_from_numpy`` for
+HunyuanVideo / FramePack (the FLUX tree plus the token refiner and the
+clean-latent projections) and ``llama_params_from_numpy`` for the Llama
+encoder. Three layout rules: the JAX block weights are
 depth-stacked ``[L, ...]`` (one entry per block here), JAX's ``linear`` is
 ``x @ w`` with ``w: [d_in, d_out]`` while ``nn.Linear`` keeps ``[d_out, d_in]``, and JAX's
 conv kernels are ``[kt, kh, kw, C_in, C_out]`` (``[kh, kw, C_in, C_out]``)
@@ -34,7 +37,9 @@ import torch
 from magcache_tpu_torch.models.clip import CLIPTextConfig, CLIPVisionConfig
 from magcache_tpu_torch.models.cogvideox import CogVideoXConfig
 from magcache_tpu_torch.models.flux import FluxConfig
+from magcache_tpu_torch.models.hunyuan import HunyuanConfig
 from magcache_tpu_torch.models.latte import LatteConfig
+from magcache_tpu_torch.models.llama import LlamaConfig
 from magcache_tpu_torch.models.open_sora_plan import OpenSoraPlanConfig
 from magcache_tpu_torch.models.stdit3 import STDiT3Config
 from magcache_tpu_torch.models.t5 import T5Config, UMT5Config
@@ -56,7 +61,8 @@ def _putters(sd: dict, device):
 
     def put_linear(name, p, dt=torch.float32):
         put(f"{name}.weight", np.asarray(p["w"]).T, dt)
-        put(f"{name}.bias", p["b"], dt)
+        if "b" in p:
+            put(f"{name}.bias", p["b"], dt)
 
     return put, put_linear
 
@@ -202,6 +208,59 @@ def flux_params_from_numpy(tree: dict, cfg: FluxConfig, device=None,
         put(f"single_blocks.{i}.qk_scale", sgl["qk_scale"][i])
     put_linear("final_mod", tree["final_mod"])
     put_linear("final_out", tree["final_out"])
+    return sd
+
+
+def hunyuan_params_from_numpy(tree: dict, cfg: HunyuanConfig, device=None
+                              ) -> Dict[str, torch.Tensor]:
+    """State dict for ``HunyuanModel(cfg)`` from a numpy HunyuanVideo tree
+    (the layout of ``magcache_tpu.models.hunyuan.init_hunyuan_params``: the
+    FLUX tree of ``cfg.to_flux()``, ``refiner`` with its blocks
+    depth-stacked, and with ``cfg.framepack`` ``clean_proj``,
+    ``clean_proj_2x`` and ``clean_proj_4x``). The MMDiT's tensors take
+    ``flux_params_from_numpy``'s dtypes (``cfg.torch_dtype`` for its block
+    linears); the refiner and the clean projections are f32."""
+    if ("clean_proj" in tree) != cfg.framepack:
+        raise ValueError(f"the tree {'has' if 'clean_proj' in tree else 'lacks'} the "
+                         f"clean-latent projections, the config's framepack is "
+                         f"{cfg.framepack}")
+    sd = {f"mmdit.{k}": v for k, v in
+          flux_params_from_numpy(tree, cfg.to_flux(), device).items()}
+    put, put_linear = _putters(sd, device)
+    r = tree["refiner"]
+    put_linear("refiner.proj_in", r["in"])
+    for grp in ("t_embed", "c_embed"):
+        for io in ("in", "out"):
+            put_linear(f"refiner.{grp}.{io}", r[grp][io])
+    g = r["blocks"]
+    for i in range(cfg.refiner_depth):
+        for n in ("qkv", "proj", "mlp1", "mlp2", "mod"):
+            put_linear(f"refiner.blocks.{i}.{n}", {"w": g[n]["w"][i], "b": g[n]["b"][i]})
+        for n in ("norm1_w", "norm1_b", "norm2_w", "norm2_b"):
+            put(f"refiner.blocks.{i}.{n}", g[n][i])
+    if cfg.framepack:
+        for n in ("clean_proj", "clean_proj_2x", "clean_proj_4x"):
+            put_linear(n, tree[n])
+    return sd
+
+
+def llama_params_from_numpy(tree: dict, cfg: LlamaConfig, device=None
+                            ) -> Dict[str, torch.Tensor]:
+    """State dict for ``LlamaModel(cfg)`` from a numpy Llama tree (the layout
+    of ``magcache_tpu.models.llama.init_llama_params``, blocks
+    depth-stacked, q/k/v biases where ``cfg.qkv_bias``): the embedding and
+    the linears in ``cfg.torch_dtype``, the norm gains f32."""
+    sd: Dict[str, torch.Tensor] = {}
+    put, put_linear = _putters(sd, device)
+    dt = cfg.torch_dtype
+    put("embed", tree["embed"], dt)
+    put("final_norm", tree["final_norm"])
+    g = tree["blocks"]
+    for i in range(cfg.layers):
+        for n in ("in_norm", "post_norm"):
+            put(f"blocks.{i}.{n}", g[n][i])
+        for n in ("q", "k", "v", "o", "gate", "up", "down"):
+            put_linear(f"blocks.{i}.{n}", {k: a[i] for k, a in g[n].items()}, dt)
     return sd
 
 

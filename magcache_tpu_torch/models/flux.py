@@ -30,10 +30,12 @@ diffusers transformer does (it is handed ``t / 1000`` and multiplies by
 Guidance is embedded as ``guidance * 1000``.
 
 The MagCache boundary is the image stream: ``trunk`` takes and returns the
-image tokens (with Kontext, the conditioning tokens after them); the text
-tokens ride through the double blocks inside it. Not ported (raise):
-FramePack's ``img_pre_tokens`` and Qwen-Image's conditioning without a
-pooled vector.
+image tokens (with Kontext, the conditioning tokens after them; with
+``img_pre_tokens``, FramePack's clean-latent tokens ahead of them); the text
+tokens ride through the double blocks inside it. A video MMDiT
+(``models/hunyuan.py``) passes its own 3-D ``[txt; img]`` rope tables and
+its grid's frame count. Not ported (raises): Qwen-Image's conditioning
+without a pooled vector.
 """
 
 from __future__ import annotations
@@ -51,10 +53,12 @@ from magcache_tpu_torch.models.common import (DTYPES, MLPEmbedder, init_linear_,
                                               timestep_embedding)
 from magcache_tpu_torch.ops.attention import QKNORM_FIXED_MAX, attention
 from magcache_tpu_torch.ops.fused_prologue import layer_norm_mod, rms_norm_rope
+from magcache_tpu_torch.ops.norms import layer_norm
 from magcache_tpu_torch.ops.rope import rope_freqs_1d
 
 __all__ = ["FluxConfig", "FluxModel", "make_flux_core", "flux_rope_tables",
-           "flux_img_rope_block", "pack_latents", "unpack_latents", "FLUX_DEV"]
+           "flux_img_rope_block", "first_block_modulated", "pack_latents",
+           "unpack_latents", "FLUX_DEV"]
 
 _EPS = 1e-6
 
@@ -268,29 +272,45 @@ class FluxModel(nn.Module):
         return self
 
 
+def first_block_modulated(model: FluxModel, img: torch.Tensor, ctx: dict) -> torch.Tensor:
+    """TeaCache's signal for a FLUX-family trunk (FLUX, HunyuanVideo,
+    FramePack): the first double block's AdaLN-modulated image-stream input,
+    ``layer_norm(img) * (1 + scale1) + shift1`` in f32, the signal the
+    published FramePack rescale polynomial was fitted to (the JAX
+    ``first_block_modulated``; plain ops there and here)."""
+    shift1, scale1 = _mod(ctx["vec"], model.double_blocks[0].img_mod, 6)[:2]
+    return layer_norm(img, eps=_EPS).float() * (1 + scale1) + shift1
+
+
 def make_flux_core(model: FluxModel, txt_len: int, grid_h: int, grid_w: int,
-                   kontext: bool = False) -> DiTCore:
+                   kontext: bool = False, rope_tables=None, grid_t: int = 1) -> DiTCore:
     """(prepare, trunk, head) for a static text length and packed grid.
 
     cond = {"txt": f[B, txt_len, text_dim], "vec": f[B, vec_dim],
             "guidance": f[B] (optional), "kontext": f[B, img_len, in_ch]
-            (with ``kontext``: the conditioning image's packed latents)}
-    x    = packed latent patches f[B, grid_h*grid_w, in_channels]
+            (with ``kontext``: the conditioning image's packed latents),
+            "img_pre_tokens": [f[B, n_i, hidden], ...] (optional: already
+            embedded tokens that join the image stream ahead of x's)}
+    x    = packed latent patches f[B, img_len, in_channels], ``img_len =
+           grid_t * grid_h * grid_w``
     t    = timesteps on the 0..1000 scale, f32[B]
+
+    ``rope_tables`` (numpy ``(cos, sin)`` over the whole ``[txt; img]``
+    sequence, pre tokens included) replaces FLUX's 2-D tables: a video
+    MMDiT passes its 3-D ones. The head keeps every image-stream token but
+    Kontext's conditioning ones; the pre tokens are its caller's to drop.
     """
     cfg = model.cfg
     device = model.img_in.weight.device
-    cos_np, sin_np = flux_rope_tables(cfg, txt_len, grid_h, grid_w, kontext=kontext)
+    cos_np, sin_np = (rope_tables if rope_tables is not None else
+                      flux_rope_tables(cfg, txt_len, grid_h, grid_w, kontext=kontext))
     cos, sin = torch.from_numpy(cos_np).to(device), torch.from_numpy(sin_np).to(device)
     rope_txt = (cos[:txt_len], sin[:txt_len])
     rope_img = (cos[txt_len:], sin[txt_len:])
-    img_len = grid_h * grid_w
+    img_len = grid_t * grid_h * grid_w
 
     @torch.inference_mode()
     def prepare(x, t, cond):
-        if "img_pre_tokens" in cond:
-            raise NotImplementedError("flux core: FramePack's img_pre_tokens "
-                                      "are not ported yet")
         if "vec" not in cond:
             raise NotImplementedError("flux core: conditioning without a "
                                       "pooled vector (Qwen-Image) is not "
@@ -301,6 +321,10 @@ def make_flux_core(model: FluxModel, txt_len: int, grid_h: int, grid_w: int,
             # the conditioning image's tokens follow the noise tokens, share
             # img_in and the trunk, and ride in the cached residual
             img = torch.cat([img, model.img_in(cond["kontext"].to(dt))], dim=1)
+        if "img_pre_tokens" in cond:
+            # FramePack's clean-latent tokens, embedded by the caller, join
+            # the image stream ahead of the noise window
+            img = torch.cat([p.to(dt) for p in cond["img_pre_tokens"]] + [img], dim=1)
         txt = model.txt_in(cond["txt"].to(dt))
         # f32 modulation vector: timestep (already x1000) + guidance + pooled
         vec = model.time_in(timestep_embedding(t, cfg.time_embed_dim))

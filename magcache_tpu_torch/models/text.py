@@ -1,10 +1,12 @@
 """Text encoders, prompts to states: the T5-family encoder (T5, mT5, UMT5),
-the CLIP text tower, the SD3 triple stack, the mock encoders, and the hash
-tokenizer that brings prompts to them without a tokenizer file.
+the CLIP text tower, the SD3 triple stack, the Llama encoder of
+HunyuanVideo and FramePack, the mock encoders, and the hash tokenizer that
+brings prompts to them without a tokenizer file.
 
 The counterparts of ``magcache_tpu.models.text``'s ``JaxT5Encoder`` /
 ``make_t5_encoder`` (configs only), ``ClipTextEncoder``, ``Sd3TextStack``,
-the mocks and ``FallbackHashTokenizer``. Each encoder runs on the card
+``LlamaTextEncoder`` (configs only), the mocks and
+``FallbackHashTokenizer``. Each encoder runs on the card
 unless ``device`` says otherwise, with random weights from a seeded
 generator or a given model; its ``__call__(prompts, device=)`` fills a
 pipeline's ``text_encoder`` or ``pooled_encoder`` slot.
@@ -21,7 +23,23 @@ import torch
 import torch.nn.functional as F
 
 from magcache_tpu_torch.models.clip import CLIPTextConfig, CLIPTextModel, clip_text_forward
+from magcache_tpu_torch.models.llama import LlamaConfig, LlamaModel, llama_hidden_states
 from magcache_tpu_torch.models.t5 import T5Config, T5Model, t5_encode
+
+# hyvideo's llava-llama prompt template for video description
+# (hyvideo/constants.py PROMPT_TEMPLATE_ENCODE_VIDEO); the first
+# HYVIDEO_CROP_START tokens, the template's prefix, are cropped from the
+# states before they reach the DiT
+HYVIDEO_PROMPT_TEMPLATE = (
+    "<|start_header_id|>system<|end_header_id|>\n\nDescribe the video by "
+    "detailing the following aspects: 1. The main content and theme of the "
+    "video.2. The color, shape, size, texture, quantity, text, and spatial "
+    "relationships of the objects.3. Actions, events, behaviors temporal "
+    "relationships, physical movement changes of the objects.4. background "
+    "environment, light, style and atmosphere.5. camera angles, movements, "
+    "and transitions used in the video.<|eot_id|>"
+    "<|start_header_id|>user<|end_header_id|>\n\n{}<|eot_id|>")
+HYVIDEO_CROP_START = 95
 
 
 @dataclasses.dataclass(frozen=True)
@@ -254,3 +272,49 @@ class Sd3TextStack:
     def pooled(self, prompts: Sequence[str], device=None) -> torch.Tensor:
         out = self._encode(prompts)[1]
         return out if device is None else out.to(device)
+
+
+class LlamaTextEncoder:
+    """Prompts -> ``f32[B, out_len, hidden]`` through a Llama-architecture LM
+    (hyvideo's llava-llama stack, the JAX ``LlamaTextEncoder`` built from a
+    config): each prompt rides ``template``, is tokenized to ``out_len +
+    crop_start`` tokens, the hidden state after ``layers - skip_layers``
+    blocks is taken (final-normed when ``final_norm``, by default when
+    ``skip_layers == 0``), padded positions are zeroed and the first
+    ``crop_start`` (template-prefix) tokens dropped. The LM is on ``device``
+    with random weights from ``generator`` (default: seed 0 on ``device``),
+    or the given ``model``; without ``tokenizer`` it builds the hash
+    tokenizer over the vocabulary."""
+
+    def __init__(self, cfg: LlamaConfig, out_len: int = 256, skip_layers: int = 2,
+                 template: Optional[str] = HYVIDEO_PROMPT_TEMPLATE,
+                 crop_start: int = HYVIDEO_CROP_START, final_norm: Optional[bool] = None,
+                 tokenizer=None, device="cuda", generator: Optional[torch.Generator] = None,
+                 model: Optional[LlamaModel] = None):
+        self.cfg = cfg
+        self.out_len, self.skip_layers = out_len, skip_layers
+        self.template = template
+        self.crop_start = crop_start if template else 0
+        self.final_norm = skip_layers == 0 if final_norm is None else final_norm
+        self.tokenizer = tokenizer or FallbackHashTokenizer(cfg.vocab_size)
+        if model is None:
+            model = LlamaModel(cfg, torch.device(device)).init(_seeded(device, generator))
+        self.model = model.requires_grad_(False).eval()
+
+    def encode_ids(self, input_ids, attention_mask=None) -> torch.Tensor:
+        """Ids ``[B, S]`` -> the taken hidden states ``f32[B, S, hidden]``
+        (no template, crop or zeroing)."""
+        mask = None if attention_mask is None else _as_tensor(attention_mask)
+        return llama_hidden_states(self.model, _as_tensor(input_ids), mask,
+                                   skip_layers=self.skip_layers, final_norm=self.final_norm)
+
+    def __call__(self, prompts: Sequence[str], device=None) -> torch.Tensor:
+        texts = ([self.template.format(p) for p in prompts] if self.template
+                 else list(prompts))
+        ids, mask = _tokens(self.tokenizer, texts, self.out_len + self.crop_start,
+                            type(self).__name__)
+        h = self.encode_ids(ids, mask)
+        h = (h * _as_tensor(mask).to(h)[..., None])[:, self.crop_start:self.crop_start
+                                                    + self.out_len]
+        h = F.pad(h, (0, 0, 0, self.out_len - h.shape[1]))
+        return h if device is None else h.to(device)

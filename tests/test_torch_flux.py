@@ -161,8 +161,10 @@ def test_random_init_and_unported_paths():
     core = T.make_flux_core(m, TXT, GH, GW)
     x, t = torch.zeros(1, GH * GW, cfg.in_channels), torch.ones(1)
     cond = {k: torch.from_numpy(v[:1]) for k, v in _cond().items()}
-    with pytest.raises(NotImplementedError, match="img_pre_tokens"):
-        core.prepare(x, t, dict(cond, img_pre_tokens=[x]))
+    # FramePack's embedded tokens now join the image stream ahead of x's
+    pre = torch.randn(1, 3, cfg.hidden)
+    h, _ = core.prepare(x, t, dict(cond, img_pre_tokens=[pre]))
+    assert h.shape == (1, 3 + GH * GW, cfg.hidden) and torch.equal(h[:, :3], pre)
     with pytest.raises(NotImplementedError, match="pooled"):
         core.prepare(x, t, {"txt": cond["txt"]})
     with pytest.raises(ValueError, match="axes_dims"):
