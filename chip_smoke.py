@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives ``magcache_tpu_torch`` (never JAX) in seventy-five phases and exits
+Drives ``magcache_tpu_torch`` (never JAX) in eighty phases and exits
 nonzero on the first failure:
 
 1. environment: a CUDA card is required; prints the card's name and power
@@ -413,6 +413,32 @@ MMDiT with FramePack's clean-latent projections for every phase):
    against f32 on the CPU within 5e-2 rel L2, and a narrow Llama in f32
    within 1e-4 of the largest value.
 
+Qwen-Image and Qwen-Image-Edit (K1, K2 in head scope, K3; one 20.4 B MMDiT
+of 60 double blocks for phases 77-79):
+76. K2h over the image and text rope tables of 1664x928 (2x6,032 image q
+   rows, 2x256 text k rows, Edit's 2x12,064 with the reference on index 1),
+   K1 over the joint sequences of two CFG lanes, 2x6,288x24x128 and Edit's
+   2x12,320 (fixed max; SDPA beside), and K3 mod on both streams
+   (``F.layer_norm`` beside: the lanes share one modulation), each against
+   its plain version;
+77. text-to-image and Edit forwards at 1664x928, twice each: seconds,
+   peak memory, launches per forward (K1 60, K2h 240, K3 241);
+78. requests from the prompt at 1664x928 x 50 Euler steps, true CFG 4.0:
+   the Qwen2.5-VL-7B text tower (7.07 B, f32, template prefix of 34
+   tokens cropped, a special-token tokenizer) beside the DiT; full compute
+   and MagCache qwen-image (26 of 100 lane-forwards elided), their time
+   ratio against the schedule's ceiling;
+79. an Edit request from a seeded 928x1664 image: the Wan VAE's one-frame
+   encode (f32) into the reference latents (its first part, run before
+   phase 78 builds the LM: the VAE's mid attention needs the room), the
+   Qwen2.5-VL vision tower (f32) spliced into phase 78's LM with M-RoPE
+   (the pads counted against the merged tokens), MagCache qwen-image-edit
+   x 50 steps;
+80. narrow text-to-image and Edit pipelines (2 blocks of 2 heads of 128)
+   with skipped and lane-asymmetric steps, bf16 on the card against f32 on
+   the CPU within 5e-2 rel L2; a narrow vision tower and the M-RoPE stack
+   through it, f32, within 1e-4 of the largest value.
+
 Every request of phases 63-69 checks its skip bits against
 ``compute_skip_schedule``, its launches against the trunk runs and its
 pixels and latents for shape and finiteness, and prints ``text_s``,
@@ -441,8 +467,9 @@ PAB requests and its rolling one; ``latte-pab``: phase 37;
 phase 53; ``wan-i2v``: phases 59 and 60; ``wan-flf2v``: phase 61;
 ``wan-ti2v``: phases 64 and 65; ``wan-vace``: phases 66 and 67;
 ``wan-a14b``: phase 68; ``hunyuan``: phases 71 and 72; ``framepack``:
-phases 73 (padded) and 74; ``framepack-f1``: phase 73), its
-worst error over every shape
+phases 73 (padded) and 74; ``framepack-f1``: phase 73; ``qwen-image``:
+phases 77 (two text-to-image forwards) and 78; ``qwen-image-edit``: phases
+77 (two Edit forwards) and 79), its worst error over every shape
 compared, and the times of its first shape timed, named in ``timed_at``,
 with their method in ``timing`` (``loop`` or ``graph``); ``shapes`` lists
 every shape compared with its own error, times and bound.
@@ -459,8 +486,10 @@ The last line is ``{"ok": true, "device": {...}}``. Weights are random
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import math
+import re
 import subprocess
 import time
 
@@ -6112,6 +6141,461 @@ def phase_hunyuan_card_vs_cpu(dev):
         fail("narrow Llama: the card strays from the CPU")
 
 
+# ------------------------------------------- Qwen-Image and Qwen-Image-Edit
+# Qwen-Image at 1664x928: 58 x 104 = 6,032 packed image tokens, 256 text
+# tokens, two CFG lanes a forward (true CFG). Per trunk run of its 60 double
+# blocks: K1 (fixed max) once a block, K2 in head scope four times (q, k of
+# each stream), K3 mod four times; every step's head adds one K3, skipped or
+# not. Edit adds one reference's 6,032 tokens to the image stream.
+QI_SIZE, QI_TXT, QI_STEPS = (1664, 928), 256, 50
+QI_GRID = (QI_SIZE[1] // 16, QI_SIZE[0] // 16)
+QI_TRUNK_LAUNCHES = dict(NO_LAUNCHES, flash_attention_bshd=60, rms_norm_rope_head=240,
+                         layer_norm_mod=240)
+QI_SUFFIX = ", Ultra HD, 4K, cinematic composition."
+# Qwen2's special tokens and their ids in its tokenizer
+QWEN_SPECIAL = {"<|im_start|>": 151644, "<|im_end|>": 151645, "<|vision_start|>": 151652,
+                "<|vision_end|>": 151653, "<|image_pad|>": 151655}
+
+
+class QwenPieceTokenizer:
+    """A stand-in for Qwen2's tokenizer without its files: the special tokens
+    get their ids, the other pieces of a byte-level BPE pre-tokenizer's split
+    (words with their leading space, "'s", punctuation runs, newlines) hash
+    into [2, the lowest special id). It splits the Qwen-Image templates'
+    prefixes into their published 34 and 64 tokens, so the pipelines' crops
+    hold. Pads with 0 to ``max_length``, no EOS."""
+
+    PIECES = re.compile(r"<\|[a-z_]+\|>| ?\w+|'s|[^\w\s]+\n?|\n")
+
+    def __init__(self, special: dict):
+        self.special = special
+        self.span = min(special.values()) - 2
+
+    def __call__(self, texts, padding=None, truncation=None, max_length=77,
+                 return_tensors=None) -> dict:
+        ids = np.zeros((len(texts), max_length), np.int64)
+        for i, t in enumerate(texts):
+            toks = [self.special.get(p) or 2 + int.from_bytes(
+                hashlib.sha256(p.encode()).digest()[:4], "little") % self.span
+                for p in self.PIECES.findall(t)][:max_length]
+            ids[i, :len(toks)] = toks
+        return {"input_ids": ids, "attention_mask": (ids != 0).astype(np.int64)}
+
+
+def qi_launches(runs: int, steps: int) -> dict:
+    """Launches of Qwen-Image forwards: ``runs`` trunk runs, ``steps`` heads."""
+    return {k: QI_TRUNK_LAUNCHES[k] * runs + (steps if k == "layer_norm_mod" else 0)
+            for k in NO_LAUNCHES}
+
+
+def check_qi_launches(label: str, launched: dict, runs: int, steps: int) -> None:
+    want = qi_launches(runs, steps)
+    modes = k1_modes()
+    if launched != want or modes != {"fixed": 60 * runs, "running": 0}:
+        fail(f"{label}: launches {launched} (K1 {modes}) != {want} for {runs} trunk runs and "
+             f"{steps} steps")
+
+
+def phase_qwen_kernels(dev, rec):
+    """K2h over the image and text rope tables (Edit's reference block
+    too), K1 over the joint sequences of text-to-image and Edit, and K3 mod
+    on both streams, each against its plain version."""
+    from magcache_tpu_torch.models.qwen_image import QWEN_IMAGE, qwen_image_rope_tables
+    from magcache_tpu_torch.ops import attention as A
+    from magcache_tpu_torch.ops import fused_prologue as P
+
+    H, D, d, L = 24, 128, 3072, QI_TXT
+    n_img = math.prod(QI_GRID)
+    log(f"phase 76: kernels vs plain at Qwen-Image 1664x928 shapes (bf16, 2 CFG lanes of "
+        f"{n_img} image + {L} text tokens; Edit {2 * n_img} image tokens): K2 head scope, K1 "
+        f"joint (fixed max), K3 mod")
+    gen = torch.Generator(device=dev).manual_seed(76)
+    bf = torch.bfloat16
+
+    def rnd(*shape, dtype=bf, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    fcfg = QWEN_IMAGE.to_flux()
+    cos, sin = (torch.from_numpy(a).to(dev)
+                for a in qwen_image_rope_tables(fcfg, L, *QI_GRID, 1))
+    gain = 1.0 + rnd(D, dtype=torch.float32, scale=0.1)
+    # K2 head scope on column slices of the fused projections, read in place
+    # (phase 11's tolerance)
+    for label, rows, col, tabs in (
+            (f"image q, 2x{n_img} rows of 9216", n_img, 0, (cos[L:L + n_img], sin[L:L + n_img])),
+            (f"text k, 2x{L} rows of 9216", L, d, (cos[:L], sin[:L])),
+            (f"Edit image q, 2x{2 * n_img} rows of 9216, reference on index 1", 2 * n_img, 0,
+             (cos[L:], sin[L:]))):
+        x = rnd(2, rows, 3 * d, scale=2.0)[..., col:col + d]
+        kw = dict(eps=1e-6, norm_scope="head")
+        got = P.rms_norm_rope(x, gain, *tabs, H, **kw)
+        want = P.rms_norm_rope_plain(x, gain, *tabs, H, **kw)
+        err = compare(f"K2 rms_norm_rope [head scope, {label}]", got, want,
+                      atol=3e-2, rtol=1.6e-2)
+        ms = cuda_graph_ms(lambda: P.rms_norm_rope(x, gain, *tabs, H, **kw))
+        pms = cuda_graph_ms(lambda: P.rms_norm_rope_plain(x, gain, *tabs, H, **kw))
+        log(f"  K2h [{label}]: kernel {ms:.4f} ms ({2 * got.numel() * 2 / ms / 1e6:.0f} GB/s), "
+            f"plain {pms:.4f} ms")
+        keep(rec, "rms_norm_rope_head", err, ms, pms, "graph", label,
+             elementwise_work(got, gain, *tabs))
+        del x, got, want
+    torch.cuda.empty_cache()
+
+    # K1 over the joint [txt; img(; ref)] sequences with the static shift
+    for label, S in ((f"joint 2x{L + n_img}x24x128 (1664x928)", L + n_img),
+                     (f"Edit joint 2x{L + 2 * n_img}x24x128 (one reference)", L + 2 * n_img)):
+        q, k, v = rnd(2, S, H, D), rnd(2, S, H, D), rnd(2, S, H, D)
+        got = A.flash_attention_bshd(q, k, v, fixed_max=A.QKNORM_FIXED_MAX)
+        want = A.flash_attention_bshd_plain(q, k, v, fixed_max=A.QKNORM_FIXED_MAX)
+        err = compare(f"K1 flash_attention_bshd [{label}, fixed_max=16]", got, want,
+                      atol=2e-3, rtol=2e-2)
+        del want
+        pms = cuda_ms(lambda: A.flash_attention_bshd_plain(
+            q, k, v, fixed_max=A.QKNORM_FIXED_MAX), 1)
+        ms = cuda_ms(lambda: A.flash_attention_bshd(q, k, v, fixed_max=16.0), 10)
+        lms = sdpa_ms(q, k, v, 10)
+        flops = 4 * 2 * H * S * S * D
+        log(f"  K1 [{label}]: kernel {ms:.3f} ms ({rate(flops, 4 * nbytes(q), ms)}), plain "
+            f"{pms:.3f} ms, SDPA {lms:.3f} ms")
+        keep(rec, "flash_attention_bshd", err, ms, pms, "loop", label,
+             (flops, 4 * nbytes(q)), ("F.scaled_dot_product_attention", lms))
+        del q, k, v, got
+        torch.cuda.empty_cache()
+
+    # K3 mod on each stream; the CFG lanes share one modulation (the time
+    # embedding alone: no pooled vector, no guidance), so F.layer_norm with
+    # weight 1 + scale and bias shift computes the same function
+    sc, sh = (rnd(1, 1, d, dtype=torch.float32, scale=0.3).expand(2, 1, d) for _ in "ab")
+    wb, bb = (1.0 + sc[0]).view(-1).to(bf), sh[0].view(-1).to(bf)
+    for label, rows in ((f"mod 2x{n_img}x3072 (image stream)", n_img),
+                        (f"mod 2x{L}x3072 (text stream)", L)):
+        x = rnd(2, rows, d, scale=2.0)
+        got = P.layer_norm_mod(x, scale=sc, shift=sh, eps=1e-6)
+        want = P.layer_norm_mod_plain(x, scale=sc, shift=sh, eps=1e-6)
+        err = compare(f"K3 layer_norm_mod [{label}]", got, want, atol=3e-2, rtol=1.6e-2)
+        # CUDA-graph replays: the wrapper's host dispatch outlasts these calls
+        ms = cuda_graph_ms(lambda: P.layer_norm_mod(x, scale=sc, shift=sh, eps=1e-6))
+        pms = cuda_graph_ms(lambda: P.layer_norm_mod_plain(x, scale=sc, shift=sh, eps=1e-6))
+        lms = cuda_graph_ms(lambda: torch.nn.functional.layer_norm(x, (d,), wb, bb, eps=1e-6))
+        log(f"  K3 [{label}]: kernel {ms:.4f} ms ({2 * x.numel() * 2 / ms / 1e6:.0f} GB/s), "
+            f"plain {pms:.4f} ms, F.layer_norm {lms:.4f} ms (graph)")
+        keep(rec, "layer_norm_mod", err, ms, pms, "graph", label,
+             elementwise_work(x, sc[:1], sh[:1]), ("F.layer_norm", lms))
+        del x, got, want
+    torch.cuda.empty_cache()
+
+
+def make_qwen_model(dev):
+    """Qwen-Image's 20.4 B MMDiT, bf16, random weights drawn on the card (one
+    model for phases 77-79)."""
+    from magcache_tpu_torch.models.qwen_image import QWEN_IMAGE, QwenImageModel
+
+    cfg = dataclasses.replace(QWEN_IMAGE, dtype="bfloat16")
+    torch.cuda.synchronize(dev)
+    t0 = time.time()
+    model = QwenImageModel(cfg, dev).init(torch.Generator(device=dev).manual_seed(77))
+    model.requires_grad_(False)
+    torch.cuda.synchronize(dev)
+    log(f"  Qwen-Image bf16 random init on the card: {time.time() - t0:.1f} s, "
+        f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B params, "
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.1f} GB allocated")
+    return model
+
+
+def phase_qwen_forward(dev, model):
+    """Returns each forward's launches: ``{"t2i": ..., "edit": ...}``."""
+    from magcache_tpu_torch.models.qwen_image import make_qwen_image_core
+    from magcache_tpu_torch.models.text import MockTextEncoder
+
+    gh, gw = QI_GRID
+    n = gh * gw
+    log(f"phase 77: full-shape Qwen-Image forwards (prepare -> trunk -> head), 60 double "
+        f"blocks, 2 CFG lanes: text-to-image at 1664x928 ({n} image + {QI_TXT} text tokens) "
+        f"and Edit with one reference ({2 * n} image tokens), twice each")
+    gen = torch.Generator(device=dev).manual_seed(77)
+    txt = MockTextEncoder(QI_TXT, 3584, scale=0.5)([TEXT_PROMPTS[0], " "], device=dev)
+    x = torch.randn((2, n, 64), generator=gen, device=dev)
+    ref = torch.randn((2, n, 64), generator=gen, device=dev)
+    t = torch.full((2,), 900.0, device=dev)
+    launches = {}
+    for key, refs, cond in (("t2i", 0, {"txt": txt}), ("edit", 1, {"txt": txt, "ref": ref})):
+        core = make_qwen_image_core(model, QI_TXT, gh, gw, ref_images=refs)
+
+        def forward():
+            hidden, c = core.prepare(x, t, cond)
+            return core.head(core.trunk(hidden, c), c)
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        secs = []
+        for _ in range(2):
+            reset_counts()
+            out, ms = timed_once(forward)
+            secs.append(ms / 1e3)
+        launched = read_counts()
+        if tuple(out.shape) != (2, n, 64) or not bool(torch.isfinite(out).all()):
+            fail(f"Qwen-Image {key} forward output {tuple(out.shape)} is not finite or "
+                 f"misshapen")
+        check_qi_launches(f"Qwen-Image {key} forward", launched, 1, 1)
+        log(f"  {key} forward: {secs[0]:.3f} s (first call), {secs[1]:.3f} s (second); "
+            f"output {tuple(out.shape)} finite, std {float(out.std()):.4f}; {peak(dev)}; "
+            f"launches K1 {launched['flash_attention_bshd']} ({k1_modes()}), K2h "
+            f"{launched['rms_norm_rope_head']}, K3 {launched['layer_norm_mod']}")
+        launches[key] = {k: 2 * c for k, c in launched.items()}    # both calls
+    return launches
+
+
+def qi_request(label, pipe, want_skips, **kw):
+    """One request through ``pipe.generate``: fails unless the latents are
+    finite of the packed shape, the skip bits are ``want_skips`` and the
+    launches are those of the computed steps; returns the output and
+    launches."""
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    prompt = TEXT_PROMPTS[0] + ("" if pipe.ref_images else QI_SUFFIX)
+    out = pipe.generate(prompt, seed=3, **kw)
+    launched = read_counts()
+    lat, n = out.latents, math.prod(QI_GRID)
+    if tuple(lat.shape) != (1, n, 64) or not bool(torch.isfinite(lat).all()):
+        fail(f"{label}: latents {tuple(lat.shape)} not finite or not (1, {n}, 64)")
+    if not np.array_equal(out.skips, want_skips):
+        fail(f"{label}: realized skips differ from skip_mask_for")
+    runs = int((~out.skips.all(1)).sum())
+    check_qi_launches(label, launched, runs, QI_STEPS)
+    t = out.timings
+    log(f"  {label}: {t['total_s']:.3f} s (text {t['text_s']:.3f} s); {int(out.skips.sum())} "
+        f"of {out.skips.size} lane-forwards elided, {runs} trunk runs "
+        f"({int((out.skips.sum(1) == 1).sum())} half-batch), skipped steps "
+        f"{np.flatnonzero(out.skips.any(1)).tolist()}; latents std {float(lat.std()):.4f}; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return out, launched
+
+
+def phase_qwen_request(dev, model):
+    """Returns the requests' launches and the text encoder (its LM serves
+    phase 79)."""
+    from magcache_tpu_torch.models.llama import QWEN25_VL_7B
+    from magcache_tpu_torch.models.text import (QWEN_IMAGE_CROP_START,
+                                                QWEN_IMAGE_PROMPT_TEMPLATE, LlamaTextEncoder)
+    from magcache_tpu_torch.pipelines.qwen_image import (QwenImagePipeline,
+                                                         QwenImagePipelineConfig)
+
+    w, h = QI_SIZE
+    log(f"phase 78: Qwen-Image requests from the prompt through QwenImagePipeline.generate "
+        f"at {w}x{h}, {QI_STEPS} Euler steps, true CFG 4.0: the Qwen2.5-VL-7B text tower "
+        f"(f32, final-normed last state, the template's 34 prefix tokens cropped, a "
+        f"special-token tokenizer) on the card beside the DiT; full compute, then MagCache "
+        f"qwen-image")
+    tok = QwenPieceTokenizer(QWEN_SPECIAL)
+    text = build_encoder(dev, "Qwen2.5-VL-7B text tower (no output head)",
+                         lambda: LlamaTextEncoder(
+                             QWEN25_VL_7B, out_len=QI_TXT, skip_layers=0,
+                             template=QWEN_IMAGE_PROMPT_TEMPLATE,
+                             crop_start=QWEN_IMAGE_CROP_START, tokenizer=tok, device=dev,
+                             generator=torch.Generator(device=dev).manual_seed(78)))
+    prompts = [TEXT_PROMPTS[0] + QI_SUFFIX, " "]
+    states, secs, gb = encode_twice(dev, lambda: text(prompts))
+    kept = tok([QWEN_IMAGE_PROMPT_TEMPLATE.format(p) for p in prompts],
+               max_length=QI_TXT + QWEN_IMAGE_CROP_START)["attention_mask"][:, 34:].sum(1)
+    rows = states.abs().sum(-1).gt(0).sum(1).tolist()
+    if (tuple(states.shape) != (2, QI_TXT, 3584) or not bool(torch.isfinite(states).all())
+            or rows != kept.tolist()):
+        fail(f"Qwen states {tuple(states.shape)}: not [2, {QI_TXT}, 3584], not finite, or "
+             f"nonzero rows {rows} != the tokens after the crop {kept.tolist()}")
+    log(f"  Qwen LM encode {secs[0]:.3f} s (first call), {secs[1]:.3f} s (second): "
+        f"{tuple(states.shape)}, {rows} rows after the crop (prompt, negative \" \"), std "
+        f"{float(states[0, :rows[0]].std()):.4f}; peak {gb:.2f} GB")
+    base = dict(height=h, width=w, sample_steps=QI_STEPS, txt_len=QI_TXT, dtype="bfloat16")
+    outs, launches = {}, dict(NO_LAUNCHES)
+    for label, use in (("full compute", False), ("MagCache qwen-image", True)):
+        pipe = QwenImagePipeline(QwenImagePipelineConfig(use_magcache=use, **base), dev,
+                                 text_encoder=text, model=model)
+        want = pipe.skip_mask_for(use_magcache=use)
+        outs[label], launched = qi_request(f"Qwen-Image {label}", pipe, want)
+        launches = {k: n + launched[k] for k, n in launches.items()}
+    full, cached = outs["full compute"], outs["MagCache qwen-image"]
+    ceiling = cached.skips.size / (cached.skips.size - int(cached.skips.sum()))
+    log(f"  MagCache against full compute: {full.timings['total_s'] / cached.timings['total_s']:.3f}x "
+        f"faster (schedule ceiling {ceiling:.3f}x: {int(cached.skips.sum())} of "
+        f"{cached.skips.size} lane-forwards elided); rel L2 of the latents "
+        f"{rel_l2(cached.latents, full.latents):.3e}")
+    return launches, text
+
+
+QI_EDIT_IMAGE_SEED = 79
+
+
+def qwen_edit_reference(dev, model):
+    """Phase 79's reference latents, encoded before phase 78 builds the LM:
+    the Wan VAE's mid attention over 116 x 208 latents takes room that the LM
+    would hold beside the DiT. Returns the packed latents."""
+    from magcache_tpu_torch.models.vae_wan import WAN21_VAE, WanVAE
+    from magcache_tpu_torch.pipelines.qwen_image import (QwenImagePipeline,
+                                                         QwenImagePipelineConfig)
+
+    w, h = QI_SIZE
+    log(f"phase 79, first part: the Edit reference, a seeded {h}x{w} image through the Wan "
+        f"VAE encode (f32, random weights, one frame), packed 2x2, with the DiT resident")
+    img = np.random.default_rng(QI_EDIT_IMAGE_SEED).random((h, w, 3)).astype(np.float32)
+    vae = WanVAE(WAN21_VAE, dev).init(torch.Generator(device=dev).manual_seed(79))
+    cfg = QwenImagePipelineConfig(model="qwen-image-edit", height=h, width=w, txt_len=QI_TXT,
+                                  dtype="bfloat16")
+    pipe = QwenImagePipeline(cfg, dev, model=model, vae=vae.requires_grad_(False))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ref, ms = timed_once(lambda: pipe.encode_image(img))
+    if tuple(ref.shape) != (1, math.prod(QI_GRID), 64) or not bool(torch.isfinite(ref).all()):
+        fail(f"Edit reference latents {tuple(ref.shape)} not finite or misshapen")
+    log(f"  Wan VAE encode of the reference: {ms / 1e3:.3f} s, packed {tuple(ref.shape)}, std "
+        f"{float(ref.std()):.4f}; {peak(dev)}")
+    del pipe, vae
+    torch.cuda.empty_cache()
+    return ref
+
+
+def phase_qwen_edit_request(dev, model, text, ref):
+    """Returns the request's launches."""
+    from magcache_tpu_torch.models.qwen_vl import (QWEN25_VL_VISION, QwenVLVisionTower,
+                                                   preprocess_qwen_vl_image)
+    from magcache_tpu_torch.models.text import QWEN_IMAGE_EDIT_PROMPT_TEMPLATE, QwenVLTextEncoder
+    from magcache_tpu_torch.pipelines.qwen_image import (QwenImagePipeline,
+                                                         QwenImagePipelineConfig)
+
+    w, h = QI_SIZE
+    # the image's merged tokens and the prompt fit txt_len: 96 tokens kept
+    # for the prompt and the specials, as the CLI bounds it
+    max_pixels = max(56 * 56, (QI_TXT - 96) * 28 * 28)
+    log(f"phase 79: a Qwen-Image-Edit request from that image through QwenImagePipeline."
+        f"generate at {w}x{h}, {QI_STEPS} Euler steps, MagCache qwen-image-edit: the image "
+        f"through the Qwen2.5-VL vision tower (f32, at most {max_pixels} pixels) spliced "
+        f"into phase 78's LM with M-RoPE, the reference latents from its first part")
+    img = np.random.default_rng(QI_EDIT_IMAGE_SEED).random((h, w, 3)).astype(np.float32)
+    tok = QwenPieceTokenizer(QWEN_SPECIAL)
+    vision = QwenVLVisionTower(QWEN25_VL_VISION, dev).init(
+        torch.Generator(device=dev).manual_seed(80))
+    enc = QwenVLTextEncoder(text.cfg, out_len=QI_TXT, tokenizer=tok, max_pixels=max_pixels,
+                            image_token_id=QWEN_SPECIAL["<|image_pad|>"], model=text.model,
+                            vision_model=vision, device=dev)
+    enc.set_image(img)
+    _, grid = preprocess_qwen_vl_image(img, QWEN25_VL_VISION, max_pixels=max_pixels)
+    n_merged = math.prod(grid) // 4
+    expanded = QWEN_IMAGE_EDIT_PROMPT_TEMPLATE.replace("<|image_pad|>",
+                                                       "<|image_pad|>" * n_merged)
+    ids = tok([expanded.format(TEXT_PROMPTS[0])], max_length=QI_TXT + 64)["input_ids"]
+    n_pads = int((ids == QWEN_SPECIAL["<|image_pad|>"]).sum())
+    states, secs, gb = encode_twice(dev, lambda: enc([TEXT_PROMPTS[0], " "]))
+    if n_pads != n_merged or not bool(torch.isfinite(states).all()):
+        fail(f"Edit encode: {n_pads} image pads for {n_merged} merged vision tokens, or "
+             f"non-finite states")
+    log(f"  vision tower {sum(p.numel() for p in vision.parameters()) / 1e9:.3f} B params; "
+        f"image grid {grid} -> {n_merged} merged tokens spliced at {n_pads} pads; Edit "
+        f"encode {secs[0]:.3f} s (first call), {secs[1]:.3f} s (second), states "
+        f"{tuple(states.shape)}; peak {gb:.2f} GB")
+    cfg = QwenImagePipelineConfig(model="qwen-image-edit", height=h, width=w,
+                                  sample_steps=QI_STEPS, txt_len=QI_TXT, use_magcache=True,
+                                  dtype="bfloat16")
+    pipe = QwenImagePipeline(cfg, dev, text_encoder=enc, model=model)
+    _, launched = qi_request("Qwen-Image-Edit MagCache", pipe, pipe.skip_mask_for(),
+                             ref_latents=ref)
+    return launched
+
+
+def _numpy_qwen_vl_tree(cfg, rng):
+    """A random Qwen2.5-VL vision tower tree in the JAX package's layout."""
+    d, it, hu, L = cfg.hidden, cfg.intermediate, cfg.hidden * cfg.merge_unit, cfg.depth
+
+    def lin(d_in, d_out, depth=None):
+        shape = (d_in, d_out) if depth is None else (depth, d_in, d_out)
+        return {"w": rng.standard_normal(shape) / math.sqrt(d_in),
+                "b": rng.standard_normal(shape[:-2] + (d_out,)) * 0.02}
+
+    return {"patch": rng.standard_normal((cfg.patch_dim, d)) / math.sqrt(cfg.patch_dim),
+            "blocks": {"norm1": 1.0 + 0.1 * rng.standard_normal((L, d)),
+                       "norm2": 1.0 + 0.1 * rng.standard_normal((L, d)),
+                       "qkv": lin(d, 3 * d, L), "proj": lin(d, d, L), "gate": lin(d, it, L),
+                       "up": lin(d, it, L), "down": lin(it, d, L)},
+            "merger": {"ln": 1.0 + 0.1 * rng.standard_normal(d), "fc1": lin(hu, hu),
+                       "fc2": lin(hu, cfg.out_hidden)}}
+
+
+def phase_qwen_card_vs_cpu(dev):
+    from magcache_tpu_torch.models.convert import (llama_params_from_numpy,
+                                                   qwen_image_params_from_numpy,
+                                                   qwen_vl_vision_params_from_numpy)
+    from magcache_tpu_torch.models.llama import LlamaConfig, LlamaModel
+    from magcache_tpu_torch.models.qwen_image import QwenImageConfig, QwenImageModel
+    from magcache_tpu_torch.models.qwen_vl import (QwenVLVisionConfig, QwenVLVisionTower,
+                                                   preprocess_qwen_vl_image)
+    from magcache_tpu_torch.models.text import QwenVLTextEncoder
+    from magcache_tpu_torch.pipelines.qwen_image import (QwenImagePipeline,
+                                                         QwenImagePipelineConfig)
+
+    log("phase 80: narrow Qwen-Image and Qwen-Image-Edit pipelines on the card (kernels, "
+        "bf16) against the CPU (plain ops, f32), 2 blocks of 2 heads of 128, 48 text + 96 "
+        "image tokens, steps skipped on both lanes and on one; a narrow vision tower and "
+        "M-RoPE LM, f32, card against CPU")
+    cfg = QwenImageConfig(hidden=256, heads=2, depth=2, text_dim=64, time_embed_dim=64)
+    rng = np.random.default_rng(80)
+    tree = _numpy_flux_tree(cfg.to_flux(), rng)
+    tree["txt_norm"] = 1.0 + 0.1 * rng.standard_normal(cfg.text_dim)
+    ref = torch.from_numpy(rng.standard_normal((1, 96, 64)).astype(np.float32))
+    mask = np.array([[0, 0], [0, 0], [1, 1], [0, 0], [1, 0], [1, 1]], bool)
+    # per trunk run of 2 double blocks: K1 2, K2h 8, K3 8; each step's head K3 1
+    per_run = dict(NO_LAUNCHES, flash_attention_bshd=2, rms_norm_rope_head=8, layer_norm_mod=8)
+    runs = int((~mask.all(1)).sum())
+    expected = {k: per_run[k] * runs + (len(mask) if k == "layer_norm_mod" else 0)
+                for k in NO_LAUNCHES}
+    for key in ("qwen-image", "qwen-image-edit"):
+        outs = {}
+        for name, device, dtype in (("card", dev, "bfloat16"),
+                                    ("cpu", torch.device("cpu"), "float32")):
+            c = dataclasses.replace(cfg, dtype=dtype)
+            model = QwenImageModel(c, device)
+            model.load_state_dict(qwen_image_params_from_numpy(tree, c, device))
+            pcfg = QwenImagePipelineConfig(model=key, height=128, width=192,
+                                           sample_steps=len(mask), txt_len=48, dtype=dtype)
+            pipe = QwenImagePipeline(pcfg, device, model=model)
+            reset_counts()
+            out = pipe.generate("a red boat at dawn", seed=2, skip_override=mask,
+                                ref_latents=ref if pipe.ref_images else None)
+            outs[name] = (out.latents.float().cpu(), read_counts())
+        (got, launched), (want, _) = outs["card"], outs["cpu"]
+        check_narrow(f"narrow {key}", got, want, launched, expected)
+
+    # the conditioning stack in f32: a 4-block tower of 2 heads of 128 (full
+    # attention in blocks 1 and 3) and a 2-block LM with M-RoPE (16, 24, 24)
+    vcfg = QwenVLVisionConfig(depth=4, hidden=256, heads=2, intermediate=512, out_hidden=256,
+                              fullatt_indexes=(1, 3))
+    lcfg = LlamaConfig(vocab_size=1000, hidden=256, layers=2, heads=2, kv_heads=1,
+                       intermediate=512, rope_theta=1e6, eps=1e-6, qkv_bias=True)
+    vtree = _numpy_qwen_vl_tree(vcfg, np.random.default_rng(81))
+    ltree = _numpy_llama_tree(lcfg, np.random.default_rng(82))
+    for n in ("q", "k", "v"):
+        ltree["blocks"][n]["b"] = np.random.default_rng(83).standard_normal(
+            ltree["blocks"][n]["w"].shape[::2]) * 0.1
+    special = {k: 990 + i for i, k in enumerate(QWEN_SPECIAL)}
+    img = np.random.default_rng(84).random((140, 196, 3)).astype(np.float32)
+    patches, grid = preprocess_qwen_vl_image(img, vcfg)
+    outs = {"tower": [], "stack": []}
+    for device in (dev, torch.device("cpu")):
+        tower = QwenVLVisionTower(vcfg, device)
+        tower.load_state_dict(qwen_vl_vision_params_from_numpy(vtree, vcfg, device))
+        lm = LlamaModel(lcfg, device)
+        lm.load_state_dict(llama_params_from_numpy(ltree, lcfg, device))
+        enc = QwenVLTextEncoder(lcfg, out_len=96, tokenizer=QwenPieceTokenizer(special),
+                                image_token_id=special["<|image_pad|>"], model=lm,
+                                vision_model=tower, device=device)
+        outs["tower"].append(tower(patches, (grid,)).cpu())
+        outs["stack"].append(enc.set_image(img)(TEXT_PROMPTS[:1]).cpu())
+    for name, (got, want) in outs.items():
+        err = float((got - want).abs().max() / want.abs().max())
+        log(f"  narrow {name} (f32; grid {grid}, the stack: the Edit template with the "
+            f"image's tokens spliced, M-RoPE) card vs CPU: max |diff| / max |CPU| {err:.3e} "
+            f"(tol 1e-4: f32 GEMMs without TF32)")
+        if err > 1e-4 or not bool(torch.isfinite(got).all()):
+            fail(f"narrow Qwen2.5-VL {name}: the card strays from the CPU")
+
+
 def main():
     phase_environment()
     dev = torch.device("cuda", 0)
@@ -6318,6 +6802,21 @@ def main():
     torch.cuda.empty_cache()
     phase_hunyuan_card_vs_cpu(dev)
     t_hy = time.time() - t0_hy
+    t0_qi = time.time()
+    phase_qwen_kernels(dev, rec)
+    torch.cuda.empty_cache()
+    log("phase 77-79 model:")
+    model = make_qwen_model(dev)
+    qi = phase_qwen_forward(dev, model)
+    ref = qwen_edit_reference(dev, model)
+    reqs, text = phase_qwen_request(dev, model)
+    qwen = {k: n + reqs[k] for k, n in qi["t2i"].items()}
+    reqs = phase_qwen_edit_request(dev, model, text, ref)
+    qwen_edit = {k: n + reqs[k] for k, n in qi["edit"].items()}
+    del model, text
+    torch.cuda.empty_cache()
+    phase_qwen_card_vs_cpu(dev)
+    t_qi = time.time() - t0_qi
     log(f"all phases passed in {time.time() - t0:.1f} s (Wan {t_wan:.1f} s, "
         f"Open-Sora {t_os:.1f} s, FLUX {t_flux:.1f} s, Open-Sora 720p "
         f"{t_os720:.1f} s, Latte {t_latte:.1f} s, Wan sequence-parallel {t_sp:.1f} s, "
@@ -6326,11 +6825,11 @@ def main():
         f"{t_pab:.1f} s, Open-Sora-Plan and CogVideoX {t_osp:.1f} s, Vchitect and the "
         f"Open-Sora-Plan and CogVideoX VAEs {t_vch:.1f} s, the SD and Open-Sora VAEs "
         f"and the requests ending in their pixels "
-        f"{time.time() - t0 - t_wan - t_os - t_flux - t_os720 - t_latte - t_sp - t_unpacked - t_ends - t_pab - t_osp - t_vch - t_i2v - t_w22 - t_hy:.1f} s; "
+        f"{time.time() - t0 - t_wan - t_os - t_flux - t_os720 - t_latte - t_sp - t_unpacked - t_ends - t_pab - t_osp - t_vch - t_i2v - t_w22 - t_hy - t_qi:.1f} s; "
         f"the text encoders' phases 55-57, within those, {t_text:.1f} s; Wan I2V-14B and "
         f"FLF2V-14B, phases 58-62, {t_i2v:.1f} s; Wan2.2 TI2V-5B, VACE and the A14B MoE, "
         f"phases 63-69, {t_w22:.1f} s; HunyuanVideo and FramePack, phases 70-75, "
-        f"{t_hy:.1f} s)")
+        f"{t_hy:.1f} s; Qwen-Image and Qwen-Image-Edit, phases 76-80, {t_qi:.1f} s)")
 
     meta = {
         "flash_attention_bshd": ("cuda", "magcache_tpu_torch/csrc/hopper_attention.cuh",
@@ -6379,7 +6878,8 @@ def main():
              "vchitect": vch, "open-sora-plan-pixels": osp_px, "cogvideox-pixels": cog_px,
              **pixel_paths, "wan-i2v": i2v, "wan-flf2v": flf2v, "wan-ti2v": ti2v,
              "wan-vace": vace, "wan-a14b": a14b, "hunyuan": hunyuan,
-             "framepack": framepack["framepack"], "framepack-f1": framepack["framepack-f1"]}
+             "framepack": framepack["framepack"], "framepack-f1": framepack["framepack-f1"],
+             "qwen-image": qwen, "qwen-image-edit": qwen_edit}
     kernels = []
     for name, (route, source, replaces) in meta.items():
         by_path = {p: c[name] for p, c in paths.items()}

@@ -11,7 +11,9 @@ t2v (``--task latte``), Open-Sora-Plan t2v (``--task open-sora-plan``: v1.2,
 or v1.1 with ``--osp_version v110``), CogVideoX-5B t2v (``--task
 cogvideox``), Vchitect-XL-2B t2v (``--task vchitect``), HunyuanVideo T2V
 (``--task hunyuan``, ``hunyuan-720p``, ``hunyuan-544p``: one section of the
-FramePack pipeline) and FramePack (``--task framepack``, ``framepack-f1``).
+FramePack pipeline), FramePack (``--task framepack``, ``framepack-f1``) and
+Qwen-Image (``--task qwen-image``; ``qwen-image-edit``, or ``qwen-image
+--image``: the Edit model).
 
 Flag names follow the reference adapters (``--task --size --frame_num
 --sample_steps --sample_shift --sample_solver --sample_guide_scale
@@ -28,7 +30,7 @@ CogVideoX ``--txt_len --use_dynamic_cfg --enable_pab``, Vchitect
 --enable_teacache --teacache_thresh`` and the hyvideo scripts' aliases
 ``--video_size H W --video_length --infer_steps --embedded_cfg_scale
 --flow_shift --neg_prompt --cfg_scale --save_path``, also in their dash
-spelling, e.g. ``--video-size``),
+spelling, e.g. ``--video-size``; Qwen-Image ``--txt_len --image``),
 and the output file name encodes the E/K/R triple. Unset flags take each
 family's reference defaults, as in the JAX CLI (Wan: 50 steps, i2v 40;
 shift 5.0, i2v at 480p and below 3.0, flf2v and VACE 16.0; guidance 5.0;
@@ -41,7 +43,9 @@ else ``-t2v``; every Wan task at 832*480 unless ``--size``; HunyuanVideo 50
 steps, embedded guidance 6.0, the preset ``hunyuanvideo-720p`` from 700 rows
 up, else ``-544p``; FramePack 25 steps, guidance 10.0, 5 sections of
 ``(frames - 1) // 4 + 1`` latent frames, a canvas divisible by 64; both
-flow shift 7.0, 832*480, 81 frames, ``txt_len`` 256). Runs on a CUDA card by
+flow shift 7.0, 832*480, 81 frames, ``txt_len`` 256; Qwen-Image 50 steps,
+true CFG 4.0, 1664*928, ``txt_len`` 256, text-to-image prompts with the
+reference's ", Ultra HD, 4K, cinematic composition." appended). Runs on a CUDA card by
 default; ``--device cpu`` runs the plain PyTorch ops instead of the kernels
 (tests use it at ``--tiny`` size; the tiny models' head dims are not ones
 the kernels take, so ``--tiny`` on a card exits with a message).
@@ -92,6 +96,9 @@ Examples:
       --video-length 129 --use_magcache         # 118,800 tokens, 31 of 50 elided
   python -m magcache_tpu_torch.cli.generate --task framepack-f1 --size 768*512 \
       --image x.png --use_magcache              # 13 of 25 elided a section
+  python -m magcache_tpu_torch.cli.generate --task qwen-image --use_magcache
+  python -m magcache_tpu_torch.cli.generate --task qwen-image-edit --image x.png \
+      --use_magcache                            # 1664x928, 2 lanes, 50 steps
   torchrun --nproc_per_node 4 -m magcache_tpu_torch.cli.generate --task t2v-1.3B \
       --use_magcache --ulysses_size 4           # or --ring_size 4
 Checkpoints are not loaded yet: the DiT has random weights and the text
@@ -113,7 +120,10 @@ nearest-resized to the latent grid times a fixed random projection.
 HunyuanVideo's and FramePack's ``--image`` becomes the start latent as the
 JAX CLI makes it without a VAE: nearest-resized and channel-tiled.
 HunyuanVideo runs without history frames unless ``--image`` gives one (the
-JAX CLI prepends two zero latent frames; ROADMAP §3).
+JAX CLI prepends two zero latent frames; ROADMAP §3). Qwen-Image-Edit's
+``--image`` becomes the packed reference latents the same way (no VAE) and
+its prompt goes to the mock encoder (no Qwen2.5-VL weights); without
+``--image`` the Edit model sees zero reference latents.
 Open-Sora references are ``.npy`` latents; image
 and video references need the pipeline's VAE, which the CLI does not build,
 and raise.
@@ -146,6 +156,7 @@ _PORTED = {"t2v-1.3B": "wan2.1-t2v-1.3B", "t2v-14B": "wan2.1-t2v-14B",
 # HunyuanVideo takes its preset by the canvas (hunyuanvideo-720p from 700
 # rows up), FramePack the task's own
 _HUNYUAN = ("hunyuan", "hunyuan-720p", "hunyuan-544p", "framepack", "framepack-f1")
+_QWEN = ("qwen-image", "qwen-image-edit")
 _WAN = ("t2v-1.3B", "t2v-14B", "t2i-14B", "i2v-14B", "flf2v-14B", "vace-1.3B", "vace-14B",
         "ti2v-5B", "t2v-A14B", "i2v-A14B")
 # the JAX CLI's Wan2.2 defaults: steps, shift, guidance, frames
@@ -159,17 +170,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="t2v-1.3B | t2v-14B | t2i-14B | i2v-14B | flf2v-14B | vace-1.3B | "
                         "vace-14B | ti2v-5B | t2v-A14B | i2v-A14B | open-sora | flux-dev | "
                         "flux-kontext-dev | latte | open-sora-plan | cogvideox | vchitect | "
-                        "hunyuan | hunyuan-720p | hunyuan-544p | framepack | framepack-f1 "
-                        "(the tasks ported so far)")
+                        "hunyuan | hunyuan-720p | hunyuan-544p | framepack | framepack-f1 | "
+                        "qwen-image | qwen-image-edit (the tasks ported so far)")
     p.add_argument("--size", default=None,
                    help="W*H pixels (unset: 832*480 for Wan, Open-Sora, HunyuanVideo and "
-                        "FramePack, 1024*1024 for FLUX)")
+                        "FramePack, 1024*1024 for FLUX, 1664*928 for Qwen-Image)")
     p.add_argument("--frame_num", type=int, default=None,
                    help="frames (unset: 81; ti2v-5B 121)")
     p.add_argument("--sample_steps", type=int, default=None,
                    help="unset: 50 for Wan (i2v and the A14B tasks 40), Latte and CogVideoX, "
                         "30 for Open-Sora, 28 for FLUX, 150 for Open-Sora-Plan, 100 for "
-                        "Vchitect")
+                        "Vchitect, 50 for Qwen-Image")
     p.add_argument("--sample_shift", type=float, default=None,
                    help="Wan flow shift (unset: 5.0; i2v at 480p and below 3.0, "
                         "flf2v and VACE 16.0, t2v-A14B 12.0)")
@@ -179,8 +190,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sample_guide_scale", type=float, default=None,
                    help="unset: 5.0 for Wan (the A14B tasks' expert pairs: t2v (3.0, "
                         "4.0), i2v (3.5, 3.5)), 7.0 for Open-Sora, 7.5 for Latte, "
-                        "Open-Sora-Plan and Vchitect, 6.0 for CogVideoX; FLUX's embedded "
-                        "guidance 3.5 (2.5 for Kontext)")
+                        "Open-Sora-Plan and Vchitect, 6.0 for CogVideoX, Qwen-Image's true "
+                        "CFG 4.0; FLUX's embedded guidance 3.5 (2.5 for Kontext)")
     p.add_argument("--resolution", default=None,
                    help="open-sora bucket resolution (480p, 720p, ...); "
                         "overrides --size via the training bucket tables")
@@ -205,7 +216,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--txt_len", type=int, default=None,
                    help="FLUX text tokens (unset: 512); Latte caption tokens "
                         "(unset: 120); Open-Sora-Plan (512), CogVideoX (226), "
-                        "Vchitect (77)")
+                        "Vchitect (77), Qwen-Image (256)")
     p.add_argument("--clean_caption", action="store_true",
                    help="latte: the T5 caption cleaning, applied twice")
     p.add_argument("--no_text_preprocessing", action="store_true",
@@ -223,8 +234,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--image", default=None,
                    help="input image (.npy [H, W, 3] in [0, 1], or an image file): "
                         "i2v-14B's and i2v-A14B's (flf2v-14B's first frame), ti2v-5B's "
-                        "(latent frame 0), or flux-kontext-dev's conditioning image, "
-                        "resized and channel-tiled to the latent grid (no VAE weights)")
+                        "(latent frame 0), or flux-kontext-dev's conditioning image and "
+                        "qwen-image's Edit reference (the Edit model), resized and "
+                        "channel-tiled to the latent grid (no VAE weights)")
     p.add_argument("--first_frame", default=None,
                    help="flf2v-14B: the first frame (.npy or an image file)")
     p.add_argument("--last_frame", default=None,
@@ -542,6 +554,28 @@ def _hunyuan_pipeline(args, device, ratios):
     return FramePackPipeline(cfg, device), cfg.steps, 1
 
 
+def _qwen_pipeline(args, device, ratios):
+    """Qwen-Image, or with ``--image`` (or ``--task qwen-image-edit``) the
+    Edit model, with the JAX CLI's ``_qwen_pipeline`` defaults."""
+    from magcache_tpu_torch.pipelines.qwen_image import (QwenImagePipeline,
+                                                         QwenImagePipelineConfig)
+
+    # unset --size: the reference's 16:9 canvas
+    w, h = _parse_size(args.size, "1664*928")
+    if args.tiny:
+        w = h = 64
+    model = "qwen-image-edit" if args.image else args.task
+    cfg = QwenImagePipelineConfig(
+        model=model, height=h, width=w, sample_steps=args.sample_steps or 50,
+        true_cfg_scale=4.0 if args.sample_guide_scale is None else args.sample_guide_scale,
+        txt_len=8 if args.tiny else (args.txt_len or 256),
+        use_magcache=args.use_magcache, magcache_thresh=args.magcache_thresh,
+        magcache_K=args.magcache_K, retention_ratio=args.retention_ratio,
+        magcache_calibration=args.magcache_calibration, mag_ratios_override=ratios,
+        dtype=args.dtype, tiny=args.tiny)
+    return QwenImagePipeline(cfg, device), cfg.sample_steps, 2
+
+
 def _normalize_argv(argv, parser):
     """The hyvideo scripts' dash spelling (``--video-size``, ``--infer-steps``,
     ...) of every flag registered with underscores."""
@@ -580,9 +614,9 @@ def _pipeline(args):
             f"--task {args.task!r} matches no model family; known prefixes: "
             f"{', '.join(_KNOWN)} (e.g. t2v-1.3B)")
     hunyuan = args.task in _HUNYUAN
-    if args.task not in _PORTED and not hunyuan:
+    if args.task not in _PORTED and not hunyuan and args.task not in _QWEN:
         raise SystemExit(f"--task {args.task!r} is not ported yet; ported: "
-                         f"{', '.join((*_PORTED, *_HUNYUAN))}")
+                         f"{', '.join((*_PORTED, *_HUNYUAN, *_QWEN))}")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available "
@@ -601,7 +635,8 @@ def _pipeline(args):
     vace = args.task.startswith("vace")
     for flag, on, ok in (("--image", args.image is not None,
                           args.task in ("i2v-14B", "flf2v-14B", "i2v-A14B", "ti2v-5B")
-                          or args.task.startswith("flux") or hunyuan),
+                          or args.task.startswith("flux") or hunyuan
+                          or args.task in _QWEN),
                          ("--src_video / --src_mask / --src_ref_images",
                           any(a is not None for a in (args.src_video, args.src_mask,
                                                       args.src_ref_images)), vace),
@@ -646,6 +681,8 @@ def _pipeline(args):
         return _cogvideox_pipeline(args, device, ratios)
     if args.task == "vchitect":
         return _vchitect_pipeline(args, device, ratios)
+    if args.task in _QWEN:
+        return _qwen_pipeline(args, device, ratios)
     if hunyuan:
         if args.negative_prompt is not None:
             print("WARNING: negative prompts need classifier-free guidance; the distilled "
@@ -688,6 +725,14 @@ def main(argv=None):
 
         lat = image_to_grid_latent(None, load_image(args.image), *pipe.lat_shape[1:])
         kw = dict(start_latent=torch.from_numpy(np.ascontiguousarray(lat))[None])
+    elif args.task in _QWEN:
+        from magcache_tpu_torch.pipelines.flux import load_image
+
+        if args.image:
+            kw = dict(ref_latents=pipe.encode_image(load_image(args.image)))
+        if pipe.ref_images == 0:
+            # the text-to-image script's "positive magic" (the Edit one adds none)
+            args.prompt += ", Ultra HD, 4K, cinematic composition."
     elif args.image:
         from magcache_tpu_torch.pipelines.flux import load_image
 

@@ -20,7 +20,10 @@ tree the JAX package's ``JaxT5Encoder`` runs, and
 the CLIP text and vision towers; ``hunyuan_params_from_numpy`` for
 HunyuanVideo / FramePack (the FLUX tree plus the token refiner and the
 clean-latent projections) and ``llama_params_from_numpy`` for the Llama
-encoder. Three layout rules: the JAX block weights are
+encoder (the Qwen2.5-VL text tower too); ``qwen_image_params_from_numpy``
+for Qwen-Image (the FLUX tree plus ``txt_norm``) and
+``qwen_vl_vision_params_from_numpy`` for the Qwen2.5-VL vision tower. Three
+layout rules: the JAX block weights are
 depth-stacked ``[L, ...]`` (one entry per block here), JAX's ``linear`` is
 ``x @ w`` with ``w: [d_in, d_out]`` while ``nn.Linear`` keeps ``[d_out, d_in]``, and JAX's
 conv kernels are ``[kt, kh, kw, C_in, C_out]`` (``[kh, kw, C_in, C_out]``)
@@ -41,6 +44,8 @@ from magcache_tpu_torch.models.hunyuan import HunyuanConfig
 from magcache_tpu_torch.models.latte import LatteConfig
 from magcache_tpu_torch.models.llama import LlamaConfig
 from magcache_tpu_torch.models.open_sora_plan import OpenSoraPlanConfig
+from magcache_tpu_torch.models.qwen_image import QwenImageConfig
+from magcache_tpu_torch.models.qwen_vl import QwenVLVisionConfig
 from magcache_tpu_torch.models.stdit3 import STDiT3Config
 from magcache_tpu_torch.models.t5 import T5Config, UMT5Config
 from magcache_tpu_torch.models.vae import CausalVAEConfig
@@ -261,6 +266,43 @@ def llama_params_from_numpy(tree: dict, cfg: LlamaConfig, device=None
             put(f"blocks.{i}.{n}", g[n][i])
         for n in ("q", "k", "v", "o", "gate", "up", "down"):
             put_linear(f"blocks.{i}.{n}", {k: a[i] for k, a in g[n].items()}, dt)
+    return sd
+
+
+def qwen_image_params_from_numpy(tree: dict, cfg: QwenImageConfig, device=None
+                                ) -> Dict[str, torch.Tensor]:
+    """State dict for ``QwenImageModel(cfg)`` from a numpy Qwen-Image tree
+    (the layout of ``magcache_tpu.models.qwen_image.init_qwen_image_params``:
+    the FLUX tree of ``cfg.to_flux()``, zero-length ``single`` stacks, and
+    ``txt_norm``), with ``flux_params_from_numpy``'s dtypes; the gain is f32."""
+    sd = {f"mmdit.{k}": v for k, v in
+          flux_params_from_numpy(tree, cfg.to_flux(), device).items()}
+    put, _ = _putters(sd, device)
+    put("txt_norm", tree["txt_norm"])
+    return sd
+
+
+def qwen_vl_vision_params_from_numpy(tree: dict, cfg: QwenVLVisionConfig, device=None
+                                     ) -> Dict[str, torch.Tensor]:
+    """State dict for ``QwenVLVisionTower(cfg)`` from a numpy tree in the
+    layout of ``magcache_tpu.models.qwen_vl.init_qwen_vl_vision_params``
+    (``patch`` ``[patch_dim, hidden]``, blocks depth-stacked, ``merger``
+    with ``ln``, ``fc1``, ``fc2``): linears in ``cfg.torch_dtype``, gains
+    f32."""
+    sd: Dict[str, torch.Tensor] = {}
+    put, put_linear = _putters(sd, device)
+    dt = cfg.torch_dtype
+    put_linear("patch", {"w": tree["patch"]}, dt)
+    g = tree["blocks"]
+    for i in range(cfg.depth):
+        for n in ("norm1", "norm2"):
+            put(f"blocks.{i}.{n}", g[n][i])
+        for n in ("qkv", "proj", "gate", "up", "down"):
+            put_linear(f"blocks.{i}.{n}", {k: a[i] for k, a in g[n].items()}, dt)
+    m = tree["merger"]
+    put("merger_ln", m["ln"])
+    put_linear("merger_fc1", m["fc1"], dt)
+    put_linear("merger_fc2", m["fc2"], dt)
     return sd
 
 

@@ -34,8 +34,9 @@ image tokens (with Kontext, the conditioning tokens after them; with
 ``img_pre_tokens``, FramePack's clean-latent tokens ahead of them); the text
 tokens ride through the double blocks inside it. A video MMDiT
 (``models/hunyuan.py``) passes its own 3-D ``[txt; img]`` rope tables and
-its grid's frame count. Not ported (raises): Qwen-Image's conditioning
-without a pooled vector.
+its grid's frame count. Qwen-Image (``models/qwen_image.py``) runs double
+blocks only (``depth_single = 0``) and conditions without a pooled vector:
+``vec`` is then the time embedding alone.
 """
 
 from __future__ import annotations
@@ -286,8 +287,8 @@ def make_flux_core(model: FluxModel, txt_len: int, grid_h: int, grid_w: int,
                    kontext: bool = False, rope_tables=None, grid_t: int = 1) -> DiTCore:
     """(prepare, trunk, head) for a static text length and packed grid.
 
-    cond = {"txt": f[B, txt_len, text_dim], "vec": f[B, vec_dim],
-            "guidance": f[B] (optional), "kontext": f[B, img_len, in_ch]
+    cond = {"txt": f[B, txt_len, text_dim], "vec": f[B, vec_dim] (optional:
+            Qwen-Image has none), "guidance": f[B] (optional), "kontext": f[B, img_len, in_ch]
             (with ``kontext``: the conditioning image's packed latents),
             "img_pre_tokens": [f[B, n_i, hidden], ...] (optional: already
             embedded tokens that join the image stream ahead of x's)}
@@ -311,10 +312,6 @@ def make_flux_core(model: FluxModel, txt_len: int, grid_h: int, grid_w: int,
 
     @torch.inference_mode()
     def prepare(x, t, cond):
-        if "vec" not in cond:
-            raise NotImplementedError("flux core: conditioning without a "
-                                      "pooled vector (Qwen-Image) is not "
-                                      "ported yet")
         dt = cfg.torch_dtype
         img = model.img_in(x.to(dt))
         if kontext:
@@ -331,7 +328,8 @@ def make_flux_core(model: FluxModel, txt_len: int, grid_h: int, grid_w: int,
         if cfg.guidance_embed and "guidance" in cond:
             vec = vec + model.guidance_in(timestep_embedding(
                 cond["guidance"].float() * 1000.0, cfg.time_embed_dim))
-        vec = vec + model.vector_in(cond["vec"].float())
+        if "vec" in cond:    # Qwen-Image has no pooled text vector
+            vec = vec + model.vector_in(cond["vec"].float())
         return img, {"txt": txt, "vec": vec}
 
     @torch.inference_mode()
@@ -339,6 +337,8 @@ def make_flux_core(model: FluxModel, txt_len: int, grid_h: int, grid_w: int,
         txt, vec = ctx["txt"], ctx["vec"]
         for blk in model.double_blocks:
             img, txt = blk(img, txt, vec, rope_txt, rope_img)
+        if not model.single_blocks:
+            return img       # double blocks only (Qwen-Image): no concat, no copy
         h = torch.cat([txt, img], dim=1)
         for blk in model.single_blocks:
             h = blk(h, vec, cos, sin)

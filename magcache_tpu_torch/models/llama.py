@@ -1,5 +1,6 @@
 """Llama-architecture text encoder (HunyuanVideo's and FramePack's
-llava-llama-3-8b conditioning stack), as PyTorch modules.
+llava-llama-3-8b conditioning stack, and the Qwen2.5-VL-7B text tower of
+Qwen-Image), as PyTorch modules.
 
 Same architecture as ``magcache_tpu.models.llama``: token embedding, pre-norm
 blocks (RMSNorm -> grouped-query attention with the half-split rotary
@@ -7,9 +8,12 @@ embedding -> RMSNorm -> SwiGLU MLP), final RMSNorm. The encoder takes an
 intermediate hidden state, ``hidden_states[-(skip + 1)]``: only the first
 ``layers - skip`` blocks run. The JAX attention here is an einsum with a
 causal and key-padding mask, not a Pallas kernel, so it is plain PyTorch
-here as well (f32 scores and softmax). Checkpoint conversion
-(``convert_llama_state_dict``) is not ported; ``models/convert.py::
-llama_params_from_numpy`` carries the JAX package's tree.
+here as well (f32 scores and softmax). The Qwen2.5-VL extensions: vision
+tokens spliced over chosen embeddings (``embeds_override``,
+``override_mask``) and 3-axis M-RoPE (``position_ids``, ``mrope_section``).
+Checkpoint conversion (``convert_llama_state_dict``) is not ported;
+``models/convert.py::llama_params_from_numpy`` carries the JAX package's
+tree.
 """
 
 from __future__ import annotations
@@ -25,8 +29,8 @@ from torch import nn
 from magcache_tpu_torch.models.common import DTYPES, init_linear_
 from magcache_tpu_torch.ops.norms import rms_norm
 
-__all__ = ["LlamaConfig", "LlamaModel", "LLAVA_LLAMA3_8B", "llama_hidden_states",
-           "rope_llama"]
+__all__ = ["LlamaConfig", "LlamaModel", "LLAVA_LLAMA3_8B", "QWEN25_VL_7B",
+           "QWEN25_VL_MROPE_SECTION", "llama_hidden_states", "rope_llama"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +66,14 @@ class LlamaConfig:
 # hyvideo's text encoder, llava-llama-3-8b without its output head (7.5 B
 # parameters, 30.0 GB in f32)
 LLAVA_LLAMA3_8B = LlamaConfig()
+
+# Qwen2.5-VL-7B-Instruct's text tower (its config.json ``text_config``),
+# Qwen-Image's conditioning LM: 7.07 B parameters without the output head,
+# 28.3 GB in f32; its M-RoPE splits the 64 frequency bands 16 / 24 / 24
+# over the (t, h, w) axes (``rope_scaling.mrope_section``)
+QWEN25_VL_7B = LlamaConfig(vocab_size=152064, hidden=3584, layers=28, heads=28, kv_heads=4,
+                           intermediate=18944, rope_theta=1e6, eps=1e-6, qkv_bias=True)
+QWEN25_VL_MROPE_SECTION = (16, 24, 24)
 
 
 class LlamaBlock(nn.Module):
@@ -113,31 +125,62 @@ class LlamaModel(nn.Module):
 
 def rope_llama(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """transformers-convention rotary on ``[B, S, H, D]``: rotate_half over
-    the half split (not pair-interleaved), ``[S, D/2]`` tables broadcast to
-    both halves."""
+    the half split (not pair-interleaved), ``[S, D/2]`` tables (or per-row
+    ``[B, S, D/2]`` ones, M-RoPE's) broadcast to both halves."""
     h = x.shape[-1] // 2
     x1, x2 = x[..., :h], x[..., h:]
-    c, s = cos[None, :, None, :], sin[None, :, None, :]
+    if cos.dim() == 2:
+        cos, sin = cos[None], sin[None]
+    c, s = cos[:, :, None, :], sin[:, :, None, :]
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+
+
+def _rope_tables(cfg: LlamaConfig, s: int, position_ids, mrope_section, dev):
+    """``(cos, sin)``: ``[S, D/2]`` over positions 0..S-1 (host f64 angles),
+    or with ``position_ids`` ``[3, B, S]`` M-RoPE's ``[B, S, D/2]``, band i
+    of the half dim at axis ``i % 3``'s position (f32 angles on the device,
+    as the JAX function computes them)."""
+    inv = cfg.rope_theta ** (-np.arange(0, cfg.head_dim, 2, dtype=np.float64) / cfg.head_dim)
+    if position_ids is None:
+        ang = np.arange(s)[:, None] * inv[None, :]
+        return tuple(torch.from_numpy(f(ang).astype(np.float32)).to(dev)
+                     for f in (np.cos, np.sin))
+    sec = list(mrope_section or (cfg.head_dim // 2,))
+    if sum(sec) != cfg.head_dim // 2:
+        raise ValueError(f"mrope_section {tuple(sec)} must cover head_dim / 2 = "
+                         f"{cfg.head_dim // 2}")
+    take = torch.from_numpy(np.repeat(np.arange(len(sec)) % 3, sec)).to(dev)
+    pos = torch.as_tensor(position_ids, device=dev).float()        # [3, B, S]
+    inv32 = torch.from_numpy(inv.astype(np.float32)).to(dev)
+    ang = pos[take].permute(1, 2, 0) * inv32                        # [B, S, D/2]
+    return torch.cos(ang), torch.sin(ang)
 
 
 @torch.inference_mode()
 def llama_hidden_states(model: LlamaModel, input_ids: torch.Tensor,
                         attention_mask: Optional[torch.Tensor] = None,
-                        skip_layers: int = 0, final_norm: bool = False) -> torch.Tensor:
+                        skip_layers: int = 0, final_norm: bool = False,
+                        embeds_override: Optional[torch.Tensor] = None,
+                        override_mask: Optional[torch.Tensor] = None,
+                        position_ids=None, mrope_section=None) -> torch.Tensor:
     """Causal forward returning the hidden state after block ``layers -
     skip_layers``, f32 ``[B, S, d]`` (hyvideo's ``hidden_states[-(skip+1)]``);
     ``final_norm`` applies the final RMSNorm (meant for ``skip_layers == 0``).
-    ``attention_mask`` (1 keep, 0 padding) masks keys."""
+    ``attention_mask`` (1 keep, 0 padding) masks keys.
+
+    Qwen2.5-VL: ``embeds_override`` ``[B, S, d]`` replaces the embeddings
+    where ``override_mask`` ``bool[B, S]`` is set (the vision tokens at the
+    ``<|image_pad|>`` positions); ``position_ids`` ``int[3, B, S]`` with
+    ``mrope_section`` applies 3-axis M-RoPE."""
     cfg = model.cfg
     dev = model.embed.device
     ids = torch.as_tensor(input_ids, device=dev).long()
     b, s = ids.shape
     h = model.embed[ids]
-    inv = cfg.rope_theta ** (-np.arange(0, cfg.head_dim, 2, dtype=np.float64) / cfg.head_dim)
-    ang = np.arange(s)[:, None] * inv[None, :]
-    cos = torch.from_numpy(np.cos(ang).astype(np.float32)).to(dev)
-    sin = torch.from_numpy(np.sin(ang).astype(np.float32)).to(dev)
+    if embeds_override is not None:
+        ov_mask = torch.as_tensor(override_mask, device=dev).bool()[..., None]
+        h = torch.where(ov_mask, torch.as_tensor(embeds_override, device=dev).to(h.dtype), h)
+    cos, sin = _rope_tables(cfg, s, position_ids, mrope_section, dev)
     keep = torch.ones((s, s), dtype=torch.bool, device=dev).tril()[None, None]
     if attention_mask is not None:
         mask = torch.as_tensor(attention_mask, device=dev).bool()

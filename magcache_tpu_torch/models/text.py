@@ -1,12 +1,13 @@
 """Text encoders, prompts to states: the T5-family encoder (T5, mT5, UMT5),
 the CLIP text tower, the SD3 triple stack, the Llama encoder of
-HunyuanVideo and FramePack, the mock encoders, and the hash tokenizer that
-brings prompts to them without a tokenizer file.
+HunyuanVideo and FramePack (and of Qwen-Image with the Qwen template), the
+Qwen2.5-VL stack of Qwen-Image-Edit, the mock encoders, and the hash
+tokenizer that brings prompts to them without a tokenizer file.
 
 The counterparts of ``magcache_tpu.models.text``'s ``JaxT5Encoder`` /
 ``make_t5_encoder`` (configs only), ``ClipTextEncoder``, ``Sd3TextStack``,
-``LlamaTextEncoder`` (configs only), the mocks and
-``FallbackHashTokenizer``. Each encoder runs on the card
+``LlamaTextEncoder`` and ``QwenVLTextEncoder`` (configs only), the mocks
+and ``FallbackHashTokenizer``. Each encoder runs on the card
 unless ``device`` says otherwise, with random weights from a seeded
 generator or a given model; its ``__call__(prompts, device=)`` fills a
 pipeline's ``text_encoder`` or ``pooled_encoder`` slot.
@@ -23,7 +24,10 @@ import torch
 import torch.nn.functional as F
 
 from magcache_tpu_torch.models.clip import CLIPTextConfig, CLIPTextModel, clip_text_forward
-from magcache_tpu_torch.models.llama import LlamaConfig, LlamaModel, llama_hidden_states
+from magcache_tpu_torch.models.llama import (QWEN25_VL_MROPE_SECTION, LlamaConfig, LlamaModel,
+                                             llama_hidden_states)
+from magcache_tpu_torch.models.qwen_vl import (QwenVLVisionConfig, QwenVLVisionTower,
+                                               mrope_position_ids, preprocess_qwen_vl_image)
 from magcache_tpu_torch.models.t5 import T5Config, T5Model, t5_encode
 
 # hyvideo's llava-llama prompt template for video description
@@ -40,6 +44,27 @@ HYVIDEO_PROMPT_TEMPLATE = (
     "and transitions used in the video.<|eot_id|>"
     "<|start_header_id|>user<|end_header_id|>\n\n{}<|eot_id|>")
 HYVIDEO_CROP_START = 95
+
+# Qwen-Image's template (diffusers QwenImagePipeline): the encoder drops the
+# first QWEN_IMAGE_CROP_START template tokens and takes the final-normed last
+# hidden state. The Edit template carries the reference image through the
+# vision tower (``QwenVLTextEncoder``) and drops 64.
+QWEN_IMAGE_PROMPT_TEMPLATE = (
+    "<|im_start|>system\nDescribe the image by detailing the color, shape, "
+    "size, texture, quantity, text, spatial relationships of the objects "
+    "and background:<|im_end|>\n<|im_start|>user\n{}<|im_end|>\n"
+    "<|im_start|>assistant\n")
+QWEN_IMAGE_CROP_START = 34
+QWEN_IMAGE_EDIT_PROMPT_TEMPLATE = (
+    "<|im_start|>system\nDescribe the key features of the input image "
+    "(color, shape, size, texture, objects, background), then explain how "
+    "the user's text instruction should alter or modify the image. Generate "
+    "a new image that meets the user's requirements while maintaining "
+    "consistency with the original input where appropriate.<|im_end|>\n"
+    "<|im_start|>user\n<|vision_start|><|image_pad|><|vision_end|>"
+    "{}<|im_end|>\n<|im_start|>assistant\n")
+QWEN_IMAGE_EDIT_CROP_START = 64
+IMAGE_PAD = "<|image_pad|>"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -313,8 +338,118 @@ class LlamaTextEncoder:
                  else list(prompts))
         ids, mask = _tokens(self.tokenizer, texts, self.out_len + self.crop_start,
                             type(self).__name__)
-        h = self.encode_ids(ids, mask)
-        h = (h * _as_tensor(mask).to(h)[..., None])[:, self.crop_start:self.crop_start
-                                                    + self.out_len]
-        h = F.pad(h, (0, 0, 0, self.out_len - h.shape[1]))
+        h = _crop_states(self.encode_ids(ids, mask), mask, self.crop_start, self.out_len)
         return h if device is None else h.to(device)
+
+
+def _crop_states(h: torch.Tensor, mask, crop: int, out_len: int) -> torch.Tensor:
+    """Padded positions zeroed, the first ``crop`` tokens dropped, the rest
+    cut or zero-padded to ``out_len``."""
+    h = (h * _as_tensor(mask).to(h)[..., None])[:, crop:crop + out_len]
+    return F.pad(h, (0, 0, 0, out_len - h.shape[1]))
+
+
+class QwenVLTextEncoder:
+    """Qwen-Image-Edit's conditioning stack (the JAX ``QwenVLTextEncoder``
+    built from a config; diffusers ``QwenImageEditPipeline``): with an image
+    set (``set_image``) it is preprocessed on the host and run through the
+    vision tower; the Edit template's ``<|image_pad|>`` is expanded to one
+    pad per merged vision token before the prompt is substituted; the
+    tokens are spliced over the pads' embeddings and the LM runs with 3-axis
+    M-RoPE ids, final-normed; padding is zeroed, the first 64 tokens
+    cropped and the rest padded to ``out_len``. Without an image it is the
+    text-only Qwen-Image recipe (template ``QWEN_IMAGE_PROMPT_TEMPLATE``,
+    crop 34, 1-D RoPE). Outputs ``f32[B, out_len, hidden]``.
+
+    The LM and the tower are on ``device`` with random weights from
+    ``generator`` (default: seed 0 on ``device``), or the given ``model``
+    and ``vision_model``; ``vision_cfg`` defaults to the JAX default, the
+    tiny tower projecting to the LM's width. Without ``tokenizer`` it builds
+    the hash tokenizer, whose whitespace words never are ``image_token_id``:
+    an image then raises ``ValueError``, where the JAX encoder drops the
+    vision tokens without a word. So does a tokenizer that writes more pads
+    than vision tokens, or fewer than fit in ``out_len``."""
+
+    def __init__(self, cfg: LlamaConfig, out_len: int = 256, tokenizer=None,
+                 vision_cfg: Optional[QwenVLVisionConfig] = None,
+                 mrope_section=QWEN25_VL_MROPE_SECTION, image_token_id: int = 151655,
+                 min_pixels: int = 56 * 56, max_pixels: int = 14 * 14 * 4 * 1280,
+                 device="cuda", generator: Optional[torch.Generator] = None,
+                 model: Optional[LlamaModel] = None,
+                 vision_model: Optional[QwenVLVisionTower] = None):
+        self.cfg = cfg
+        self.out_len = out_len
+        self.tokenizer = tokenizer or FallbackHashTokenizer(cfg.vocab_size)
+        self.mrope_section = tuple(mrope_section)
+        self.image_token_id = image_token_id
+        self.min_pixels, self.max_pixels = min_pixels, max_pixels
+        if model is None or vision_model is None:
+            gen = _seeded(device, generator)
+        if model is None:
+            model = LlamaModel(cfg, torch.device(device)).init(gen)
+        if vision_model is None:
+            vcfg = vision_cfg or QwenVLVisionConfig.tiny(out_hidden=cfg.hidden)
+            vision_model = QwenVLVisionTower(vcfg, torch.device(device)).init(gen)
+        self.model = model.requires_grad_(False).eval()
+        self.vision_model = vision_model.requires_grad_(False).eval()
+        self.vision_cfg = self.vision_model.cfg
+        self._image = None
+
+    def set_image(self, image) -> "QwenVLTextEncoder":
+        """Attach the Edit reference image (HWC uint8 or float RGB, numpy)
+        for the following calls; ``None`` reverts to text-only encoding."""
+        self._image = image
+        return self
+
+    def __call__(self, prompts: Sequence[str], device=None) -> torch.Tensor:
+        if self._image is None:
+            texts = [QWEN_IMAGE_PROMPT_TEMPLATE.format(p) for p in prompts]
+            crop = QWEN_IMAGE_CROP_START
+            ids, mask = _tokens(self.tokenizer, texts, self.out_len + crop,
+                                type(self).__name__)
+            h = llama_hidden_states(self.model, _as_tensor(ids), _as_tensor(mask),
+                                    final_norm=True)
+        else:
+            crop = QWEN_IMAGE_EDIT_CROP_START
+            h, mask = self._encode_with_image(prompts, crop)
+        h = _crop_states(h, mask, crop, self.out_len)
+        return h if device is None else h.to(device)
+
+    def _encode_with_image(self, prompts: Sequence[str], crop: int):
+        vcfg = self.vision_cfg
+        patches, grid = preprocess_qwen_vl_image(np.asarray(self._image), vcfg,
+                                                 min_pixels=self.min_pixels,
+                                                 max_pixels=self.max_pixels)
+        embeds = self.vision_model(patches, (grid,))
+        n_merged = embeds.shape[0]
+        # the placeholder is expanded in the template before the prompt goes
+        # in: a literal pad token inside a prompt is no splice position
+        template = QWEN_IMAGE_EDIT_PROMPT_TEMPLATE.replace(IMAGE_PAD, IMAGE_PAD * n_merged)
+        ids, mask = _tokens(self.tokenizer, [template.format(p) for p in prompts],
+                            self.out_len + crop, type(self).__name__)
+        ids, mask = np.asarray(ids), np.asarray(mask)
+        ov_mask = ids == self.image_token_id
+        n_pads = int(ov_mask[0].sum())
+        if n_pads == 0:
+            raise ValueError(
+                f"the tokenizer wrote no image token (id {self.image_token_id}) for the "
+                f"{n_merged} vision embeddings: it does not know {IMAGE_PAD} (the hash "
+                f"tokenizer does not), and the image would be dropped")
+        if n_pads > n_merged:
+            raise ValueError(f"prompt contains the reserved {IMAGE_PAD} token ({n_pads} "
+                             f"image positions for {n_merged} vision embeddings)")
+        if n_pads < n_merged:
+            raise ValueError(f"image occupies {n_merged} tokens but only {n_pads} fit in "
+                             f"txt_len={self.out_len}; raise txt_len or lower max_pixels")
+        dev = self.model.embed.device
+        ov = torch.zeros(ids.shape + (self.cfg.hidden,), dtype=torch.float32, device=dev)
+        for b in range(ids.shape[0]):
+            rows = torch.from_numpy(np.flatnonzero(ov_mask[b])).to(dev)
+            ov[b, rows] = embeds[:len(rows)].to(dev)
+        pos = mrope_position_ids(ids, (grid,) * ids.shape[0], vcfg.merge_size,
+                                 self.image_token_id, mask)
+        h = llama_hidden_states(self.model, torch.from_numpy(ids), torch.from_numpy(mask),
+                                final_norm=True, embeds_override=ov,
+                                override_mask=torch.from_numpy(ov_mask), position_ids=pos,
+                                mrope_section=self.mrope_section)
+        return h, mask

@@ -35,6 +35,7 @@ from magcache_tpu_torch.core.sampler import lane_skip_masks, sample_euler
 from magcache_tpu_torch.models.flux import (FLUX_DEV, FluxConfig, FluxModel,
                                             make_flux_core, pack_latents, unpack_latents)
 from magcache_tpu_torch.models.text import MockPooledEncoder, MockTextEncoder
+from magcache_tpu_torch.models.vae_wan import WanVAE
 from magcache_tpu_torch.pipelines.base import (BasePipeline, PipelineOutput,
                                                calibration_dict, check_image_vae,
                                                decode_pixels, synced_clock, timed_encode)
@@ -73,15 +74,20 @@ def image_to_grid_latent(vae, img: np.ndarray, h_lat: int, w_lat: int, c_lat: in
     """A pixel image ``[H, W, 3]`` in [0, 1] -> a conditioning latent ``f32
     [h_lat, w_lat, c_lat]`` (the JAX CLI's ``_image_to_grid_latent``).
 
-    With ``vae`` (an ``SDVAE``): pixels to [-1, 1], the encode's mean,
-    ``to_latent``, and a nearest resize where the grid differs; a VAE of
-    other latent channels raises ``ValueError``. Without one: a nearest
-    resize and the channels tiled to ``c_lat`` (shape-correct conditioning
-    for checkpoint-free runs only)."""
+    With ``vae``: pixels to [-1, 1], the encode's mean (an ``SDVAE``'s
+    through ``to_latent``; a ``WanVAE`` encodes the image as a one-frame
+    video, its mean already normalized), and a nearest resize where the grid
+    differs; a VAE of other latent channels raises ``ValueError``. Without
+    one: a nearest resize and the channels tiled to ``c_lat`` (shape-correct
+    conditioning for checkpoint-free runs only)."""
     if vae is not None:
         px = torch.from_numpy(np.asarray(img, np.float32) * 2.0 - 1.0)[None]
-        mean, _ = vae.encode(px)
-        lat = vae.to_latent(mean)[0].cpu().numpy()
+        if isinstance(vae, WanVAE):
+            mean, _ = vae.encode(px[:, None])
+            lat = mean[0, 0].cpu().numpy()
+        else:
+            mean, _ = vae.encode(px)
+            lat = vae.to_latent(mean)[0].cpu().numpy()
         if lat.shape[:2] != (h_lat, w_lat):
             lat = _nearest_resize(lat, h_lat, w_lat)
         if lat.shape[-1] != c_lat:

@@ -165,8 +165,11 @@ def test_random_init_and_unported_paths():
     pre = torch.randn(1, 3, cfg.hidden)
     h, _ = core.prepare(x, t, dict(cond, img_pre_tokens=[pre]))
     assert h.shape == (1, 3 + GH * GW, cfg.hidden) and torch.equal(h[:, :3], pre)
-    with pytest.raises(NotImplementedError, match="pooled"):
-        core.prepare(x, t, {"txt": cond["txt"]})
+    # without a pooled vector (Qwen-Image) vec is the time embedding alone
+    _, ctx = core.prepare(x, t, {"txt": cond["txt"]})
+    np.testing.assert_array_equal(
+        ctx["vec"].numpy(),
+        m.time_in(T.timestep_embedding(t, cfg.time_embed_dim)).detach().numpy())
     with pytest.raises(ValueError, match="axes_dims"):
         T.flux_rope_tables(T.FluxConfig.tiny(axes_dims=(8, 8, 8)), 4, 2, 2)
 

@@ -119,7 +119,7 @@ def test_cli_rejects_unknown_task_and_missing_card():
     with pytest.raises(SystemExit, match="matches no model family"):
         cli.main(["--task", "nonsense-1B", "--device", "cpu"])
     with pytest.raises(SystemExit, match="not ported"):
-        cli.main(["--task", "qwen-image", "--device", "cpu"])
+        cli.main(["--task", "omnigen2", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="no CUDA device"):
             cli.main(["--tiny"])
