@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives ``magcache_tpu_torch`` (never JAX) in eighty phases and exits
+Drives ``magcache_tpu_torch`` (never JAX) in eighty-five phases and exits
 nonzero on the first failure:
 
 1. environment: a CUDA card is required; prints the card's name and power
@@ -439,6 +439,33 @@ of 60 double blocks for phases 77-79):
    the CPU within 5e-2 rel L2; a narrow vision tower and the M-RoPE stack
    through it, f32, within 1e-4 of the largest value.
 
+OmniGen2 (K1 only, at head dim 120 zero-padded to 128; the q/k norm and RoPE
+stay plain at that head dim, as in JAX; one 3.012 B DiT for phases 82-84):
+81. K1 against its plain version at 1024x1024 shapes on q/k from the plain
+   RMS norm + RoPE (21 query heads over 7 repeated kv heads, fixed max):
+   edit's with-refs joint 2x8,320, text-to-image 2x4,224, the ref-free
+   1x4,224 and the noise / reference refiners' 2x4,096, each beside SDPA
+   at head dim 120 and checked bit-equal to ``attention()``'s own padded
+   call; the context refiner's 2x128 (``attention()``'s einsum path, no
+   launch); the plain q/k prologue's time at 2x8,320x(21 + 7)x120;
+82. forwards of the text-to-image program and of edit's two programs
+   (with-refs, ref-free), twice each: seconds, peak memory, K1 launches per
+   forward (32 trunk + 2 per image refiner); one profiled with-refs forward;
+83. requests at 1024x1024 x 50 Euler steps: text-to-image full compute and
+   MagCache (56 of 100 lane-forwards elided), edit with one seeded
+   reference latent full compute and MagCache (85 of 150: cond / uncond /
+   ref 29 / 28 / 28, steps where cond and ref disagree run the half-batch
+   trunk); skip bits per lane against ``compute_skip_schedule`` of
+   ``make_omnigen2_cache_config``, K1 launches against the trunk runs of
+   each program and the prepares, the speedups against the ceilings;
+84. edit at 1024x1024 x 20 steps: TaylorSeer (the 7 fresh steps of
+   ``taylorseer_schedule`` run the trunks) and DPM-Solver++(2M) with
+   MagCache; at 10 steps TeaCache (first and last steps forced) and
+   calibration ((steps - 1) x 3 finite ratios);
+85. narrow text-to-image and edit (2 references) pipelines at head dim 120
+   (hidden 480, 4 heads over 2), MagCache with skips, bf16 on the card
+   against f32 on the CPU within 5e-2 rel L2, K1 launches as counted.
+
 Every request of phases 63-69 checks its skip bits against
 ``compute_skip_schedule``, its launches against the trunk runs and its
 pixels and latents for shape and finiteness, and prints ``text_s``,
@@ -469,7 +496,9 @@ phase 53; ``wan-i2v``: phases 59 and 60; ``wan-flf2v``: phase 61;
 ``wan-a14b``: phase 68; ``hunyuan``: phases 71 and 72; ``framepack``:
 phases 73 (padded) and 74; ``framepack-f1``: phase 73; ``qwen-image``:
 phases 77 (two text-to-image forwards) and 78; ``qwen-image-edit``: phases
-77 (two Edit forwards) and 79), its worst error over every shape
+77 (two Edit forwards) and 79; ``omnigen2``: phases 82 (two text-to-image
+forwards) and 83; ``omnigen2-edit``: phases 82 (two forwards of each edit
+program), 83 and 84), its worst error over every shape
 compared, and the times of its first shape timed, named in ``timed_at``,
 with their method in ``timing`` (``loop`` or ``graph``); ``shapes`` lists
 every shape compared with its own error, times and bound.
@@ -6596,6 +6625,409 @@ def phase_qwen_card_vs_cpu(dev):
             fail(f"narrow Qwen2.5-VL {name}: the card strays from the CPU")
 
 
+# ------------------------------------------------------------------ OmniGen2
+# OmniGen2 at 1024x1024: a 64 x 64 grid of 4,096 image tokens and 128 text
+# tokens; head dim 120 (21 query heads over 7 kv heads, repeated),
+# zero-padded to 128 for K1 with the softmax scale of 120. K1 is the only
+# kernel on the path: the q/k norm and RoPE stay the plain composition at
+# head dim 120, as in JAX. Per program run K1 launches once in each of the
+# trunk's 32 blocks, and in every prepare (skipped steps too) once in each
+# of the noise refiner's 2 blocks and each reference's 2 ref-refiner
+# blocks; the context refiner's 128 text tokens take attention()'s einsum
+# path, as the JAX dispatcher does at that length (no launch).
+OG_SIZE, OG_TXT, OG_STEPS, OG_SHORT, OG_CAL = 1024, 128, 50, 20, 10
+OG_GRID = (OG_SIZE // 16, OG_SIZE // 16)
+OG_TRUNK, OG_REFINER = 32, 2
+OG_PROMPT = "A red sailboat glides across a calm bay at dawn."
+
+
+def og_k1(skips, steps: int, refs: int, trunk: int = OG_TRUNK,
+          refiner: int = OG_REFINER) -> int:
+    """K1 launches of an OmniGen2 request: ``skips`` its realized bits
+    ``[steps, lanes]`` (None: calibration, every lane computes), ``trunk``
+    and ``refiner`` the blocks of the trunk and of each refiner. Text to
+    image: one program, a trunk run wherever a lane computes. Edit: the
+    with-refs program (cond and ref rows; its noise and ``refs`` reference
+    refiners) and the ref-free one (uncond; its noise refiner)."""
+    if skips is None:
+        skips = np.zeros((steps, 3 if refs else 2), bool)
+    if not refs:
+        return trunk * int((~skips.all(1)).sum()) + refiner * steps
+    runs_a = int((~(skips[:, 0] & skips[:, 2])).sum())
+    runs_b = int((~skips[:, 1]).sum())
+    return trunk * (runs_a + runs_b) + refiner * (2 + refs) * steps
+
+
+def check_og_launches(label: str, launched: dict, k1: int) -> None:
+    want = dict(NO_LAUNCHES, flash_attention_bshd=k1)
+    if launched != want or k1_modes() != {"fixed": k1, "running": 0}:
+        fail(f"{label}: launches {launched} (K1 {k1_modes()}) != K1 {k1} fixed and nothing "
+             f"else")
+
+
+def phase_omnigen2_kernels(dev, rec):
+    """K1 at each OmniGen2 shape on q/k from the plain per-head RMS norm and
+    RoPE (gains 1 + 0.1 N), the kv heads repeated; the plain q/k prologue's
+    time at the with-refs shape."""
+    from magcache_tpu_torch.models.omnigen2 import OMNIGEN2, omnigen2_rope_tables, repeat_kv
+    from magcache_tpu_torch.ops import attention as A
+    from magcache_tpu_torch.ops.fused_prologue import rms_norm_rope_plain
+
+    H, HK, D, L = OMNIGEN2.heads, OMNIGEN2.kv_heads, OMNIGEN2.head_dim, OG_TXT
+    n = math.prod(OG_GRID)
+    log(f"phase 81: K1 vs plain at OmniGen2 1024x1024 shapes (bf16, head dim {D} zero-padded "
+        f"to 128, {H} query heads over {HK} kv heads, fixed max), q/k from the plain RMS "
+        f"norm + RoPE; SDPA at head dim {D} beside; the plain q/k prologue timed")
+    gen = torch.Generator(device=dev).manual_seed(81)
+    bf = torch.bfloat16
+
+    def rnd(*shape, dtype=bf, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    tabs = {refs: tuple(torch.from_numpy(a).to(dev) for a in
+                        omnigen2_rope_tables(OMNIGEN2, L, OG_GRID, refs)) for refs in (0, 1)}
+    gq, gk = (1.0 + rnd(D, dtype=torch.float32, scale=0.1) for _ in "qk")
+
+    def qkv(b, rows, cos, sin):
+        q = rms_norm_rope_plain(rnd(b, rows, H * D, scale=2.0), gq, cos, sin, H,
+                                eps=OMNIGEN2.eps, norm_scope="head")
+        k = rms_norm_rope_plain(rnd(b, rows, HK * D, scale=2.0), gk, cos, sin, HK,
+                                eps=OMNIGEN2.eps, norm_scope="head")
+        return q, repeat_kv(k, H // HK), repeat_kv(rnd(b, rows, HK, D), H // HK)
+
+    cos1, sin1 = tabs[1]
+    for label, b, rows, (cos, sin), launched in (
+            (f"edit with-refs joint 2x{L + 2 * n}x{H}x{D} (text, reference, noise)", 2,
+             L + 2 * n, tabs[1], "32 a with-refs trunk run"),
+            (f"t2i joint 2x{L + n}x{H}x{D}", 2, L + n, tabs[0], "32 a trunk run"),
+            (f"edit ref-free joint 1x{L + n}x{H}x{D} (uncond)", 1, L + n, tabs[0],
+             "32 a ref-free trunk run"),
+            (f"noise / ref refiner 2x{n}x{H}x{D}", 2, n, (cos1[L + n:], sin1[L + n:]),
+             "2 a refiner, every prepare")):
+        q, k, v = qkv(b, rows, cos, sin)
+        k1_check(rec, f"K1 [{label}; {launched}]", label, q, k, v, A.QKNORM_FIXED_MAX,
+                 big=rows > L + n)
+        # the path's own call: attention() pads 120 -> 128, scale 1/sqrt(120)
+        same = A.attention(q, k, v, fixed_max=A.QKNORM_FIXED_MAX)
+        qp, kp, vp = (torch.nn.functional.pad(t, (0, 128 - D)) for t in (q, k, v))
+        direct = A.flash_attention_bshd(qp, kp, vp, scale=D ** -0.5,
+                                        fixed_max=A.QKNORM_FIXED_MAX)[..., :D]
+        if not torch.equal(same, direct):
+            fail(f"K1 [{label}]: attention() differs from the padded call at scale 1/sqrt({D})")
+        del q, k, v, qp, kp, vp, same, direct
+        torch.cuda.empty_cache()
+    # the context refiner's 2x128 text tokens: attention()'s einsum path
+    q, k, v = qkv(2, L, tabs[0][0][:L], tabs[0][1][:L])
+    ems = cuda_ms(lambda: A.attention(q, k, v, fixed_max=A.QKNORM_FIXED_MAX), 10)
+    qp, kp, vp = (torch.nn.functional.pad(t, (0, 128 - D)) for t in (q, k, v))
+    kms = cuda_ms(lambda: A.flash_attention_bshd(qp, kp, vp, scale=D ** -0.5,
+                                                 fixed_max=A.QKNORM_FIXED_MAX), 10)
+    log(f"  context refiner 2x{L}x{H}x{D}: attention()'s einsum path {ems:.4f} ms (on the "
+        f"path, no K1 launch); K1 at that shape {kms:.4f} ms (not launched on the path)")
+    # the plain q/k prologue of one with-refs block: per-head RMS norm and RoPE
+    xq, xk = rnd(2, L + 2 * n, H * D), rnd(2, L + 2 * n, HK * D)
+
+    def prologue():
+        rms_norm_rope_plain(xq, gq, cos1, sin1, H, eps=OMNIGEN2.eps, norm_scope="head")
+        rms_norm_rope_plain(xk, gk, cos1, sin1, HK, eps=OMNIGEN2.eps, norm_scope="head")
+
+    pms = cuda_ms(prologue, 5)
+    moved = 2 * nbytes(xq, xk) + nbytes(cos1, sin1)
+    b_ms, by = bound(ELEMENTWISE_OPS * (xq.numel() + xk.numel()), moved, H100_F32_TFLOPS)
+    log(f"  plain q/k prologue (rms_norm_rope_plain, head scope, q and k) at 2x{L + 2 * n}x"
+        f"({H} + {HK})x{D}: {pms:.3f} ms a block ({OG_TRUNK * pms:.1f} ms a with-refs trunk "
+        f"run), bound {b_ms:.4f} ms by {by} ({b_ms / pms:.1%})")
+    del xq, xk, q, k, v, qp, kp, vp
+    torch.cuda.empty_cache()
+
+
+def make_omnigen2_model(dev):
+    """OmniGen2's 3.012 B DiT, bf16, random weights drawn on the card (one
+    model for phases 82-84)."""
+    from magcache_tpu_torch.models.omnigen2 import OMNIGEN2, OmniGen2Model
+
+    torch.cuda.synchronize(dev)
+    t0 = time.time()
+    model = OmniGen2Model(dataclasses.replace(OMNIGEN2, dtype="bfloat16"), dev).init(
+        torch.Generator(device=dev).manual_seed(82))
+    model.requires_grad_(False)
+    torch.cuda.synchronize(dev)
+    log(f"  OmniGen2 bf16 random init on the card: {time.time() - t0:.1f} s, "
+        f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B params, "
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated")
+    return model
+
+
+def phase_omnigen2_forward(dev, model):
+    """Returns each program's launches over its two forwards: ``{"t2i": ...,
+    "edit": ...}`` (edit: both programs)."""
+    from magcache_tpu_torch.models.omnigen2 import make_omnigen2_core
+    from magcache_tpu_torch.models.text import MockTextEncoder
+
+    n = math.prod(OG_GRID)
+    log(f"phase 82: full-shape OmniGen2 forwards (prepare with the refiners -> 32-block "
+        f"trunk -> head) at 1024x1024, twice each: text-to-image (2 rows of {OG_TXT} + {n} "
+        f"tokens), edit with-refs (2 rows of {OG_TXT + 2 * n}: cond and ref, one reference) "
+        f"and edit ref-free (1 row of {OG_TXT + n}: uncond); one profiled with-refs forward")
+    gen = torch.Generator(device=dev).manual_seed(82)
+    txt = MockTextEncoder(OG_TXT, model.cfg.text_dim, scale=0.5)(
+        [OG_PROMPT, "blurry", "<ref-image-only>"], device=dev)
+    x = torch.randn((2, 128, 128, 16), generator=gen, device=dev)
+    ref = torch.randn((2, 1, 128, 128, 16), generator=gen, device=dev)
+    t = torch.full((2,), 900.0, device=dev)
+    launches = {"t2i": dict(NO_LAUNCHES), "edit": dict(NO_LAUNCHES)}
+    for key, label, refs, rows, cond in (
+            ("t2i", "text-to-image", 0, 2, {"txt": txt[:2]}),
+            ("edit", "edit with-refs", 1, 2, {"txt": txt[[0, 2]], "ref": ref}),
+            ("edit", "edit ref-free", 0, 1, {"txt": txt[1:2]})):
+        core = make_omnigen2_core(model, OG_TXT, OG_GRID, refs)
+
+        def forward():
+            hidden, c = core.prepare(x[:rows], t[:rows], cond)
+            return core.head(core.trunk(hidden, c), c)
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        secs = []
+        reset_counts()
+        for _ in range(2):
+            out, ms = timed_once(forward)
+            secs.append(ms / 1e3)
+        launched = read_counts()
+        if tuple(out.shape) != (rows, 128, 128, 16) or not bool(torch.isfinite(out).all()):
+            fail(f"OmniGen2 {label} forward output {tuple(out.shape)} is not finite or "
+                 f"misshapen")
+        per = OG_TRUNK + OG_REFINER * (1 + refs)
+        check_og_launches(f"OmniGen2 {label} forwards", launched, 2 * per)
+        log(f"  {label} forward: {secs[0]:.3f} s (first call), {secs[1]:.3f} s (second); "
+            f"output {tuple(out.shape)} finite, std {float(out.std()):.4f}; {peak(dev)}; K1 "
+            f"{per} a forward ({OG_TRUNK} trunk + {OG_REFINER * (1 + refs)} refiner)")
+        launches[key] = {k: launches[key][k] + c for k, c in launched.items()}
+        if label == "edit with-refs":
+            profile_forward("edit with-refs forward", core, x, t, cond)
+    return launches
+
+
+def og_request(label, pipe, want_skips, **kw):
+    """One request through ``pipe.generate``: fails unless the latents are
+    finite and shaped, the skip bits are ``want_skips`` (None: calibration)
+    and K1's launches are those of the computed runs and the prepares;
+    returns the output and launches."""
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    out = pipe.generate(OG_PROMPT, seed=3, **kw)
+    launched = read_counts()
+    lat, steps = out.latents, pipe.config.num_inference_steps
+    if tuple(lat.shape) != (1, 128, 128, 16) or not bool(torch.isfinite(lat).all()):
+        fail(f"{label}: latents {tuple(lat.shape)} not finite or not (1, 128, 128, 16)")
+    if (out.skips is None) != (want_skips is None) or (
+            want_skips is not None and not np.array_equal(out.skips, want_skips)):
+        fail(f"{label}: realized skips differ from the schedule")
+    check_og_launches(label, launched, og_k1(out.skips, steps, pipe.n_refs))
+    t = out.timings
+    what = "calibration, full compute"
+    if out.skips is not None:
+        s = out.skips
+        what = (f"{int(s.sum())} of {s.size} lane-forwards elided, skipped steps "
+                f"{np.flatnonzero(s.any(1)).tolist()}")
+        if pipe.n_refs:
+            what += (f"; with-refs trunk runs {int((~(s[:, 0] & s[:, 2])).sum())} "
+                     f"({int((s[:, 0] != s[:, 2]).sum())} half-batch), ref-free "
+                     f"{int((~s[:, 1]).sum())}")
+    log(f"  {label}: {t['total_s']:.3f} s (text {t['text_s']:.3f} s); {what}; K1 "
+        f"{launched['flash_attention_bshd']}; latents std {float(lat.std()):.4f}; peak "
+        f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return out, launched
+
+
+def og_ref_latents(dev):
+    gen = torch.Generator(device=dev).manual_seed(83)
+    return torch.randn((1, 1, 128, 128, 16), generator=gen, device=dev)
+
+
+def og_pipeline(dev, model, **kw):
+    from magcache_tpu_torch.pipelines.omnigen2 import OmniGen2Pipeline, OmniGen2PipelineConfig
+
+    cfg = OmniGen2PipelineConfig(height=OG_SIZE, width=OG_SIZE, txt_len=OG_TXT,
+                                 dtype="bfloat16", **kw)
+    return OmniGen2Pipeline(cfg, dev, model=model)
+
+
+def og_token_ceiling(skips, n_refs):
+    """Edit's ceiling in token-forwards: the with-refs rows carry ``128 + (R
+    + 1) * 4,096`` tokens, the uncond row ``128 + 4,096``; the refiners run
+    every step either way and are not counted."""
+    n = math.prod(OG_GRID)
+    big, small = OG_TXT + (n_refs + 1) * n, OG_TXT + n
+    cost = np.array([big, small, big], float)
+    return float((cost * len(skips)).sum() / (cost * ~skips).sum())
+
+
+def phase_omnigen2_requests(dev, model):
+    """Returns the requests' launches: ``{"t2i": ..., "edit": ...}``."""
+    from magcache_tpu_torch.core.magcache import compute_skip_schedule
+    from magcache_tpu_torch.pipelines.omnigen2 import make_omnigen2_cache_config
+
+    log(f"phase 83: OmniGen2 requests through OmniGen2Pipeline.generate at "
+        f"{OG_SIZE}x{OG_SIZE}, {OG_STEPS} Euler steps (text guidance 5.0, image 2.0): "
+        f"text-to-image full compute and MagCache (omnigen2-t2i_*), then edit with one seeded "
+        f"reference latent, full compute and MagCache (omnigen2-edit_*: cond and ref on the "
+        f"with-refs program, uncond on the ref-free one)")
+    ref = og_ref_latents(dev)
+    launches = {"t2i": dict(NO_LAUNCHES), "edit": dict(NO_LAUNCHES)}
+    for mode in ("t2i", "edit"):
+        lanes = 2 if mode == "t2i" else 3
+        sched = compute_skip_schedule(make_omnigen2_cache_config(mode, OG_STEPS)).reshape(
+            OG_STEPS, lanes)
+        outs = {}
+        for use in (False, True):
+            pipe = og_pipeline(dev, model, mode=mode, num_inference_steps=OG_STEPS,
+                               use_magcache=use)
+            want = sched if use else np.zeros_like(sched)
+            name = f"OmniGen2 {mode} {'MagCache' if use else 'full compute'}"
+            outs[use], launched = og_request(name, pipe, want,
+                                             **(dict(ref_latents=ref) if mode == "edit"
+                                                else {}))
+            launches[mode] = {k: n + launched[k] for k, n in launches[mode].items()}
+        full, cached = outs[False], outs[True]
+        ceiling = sched.size / (sched.size - int(sched.sum()))
+        extra = (f"; in token-forwards of the trunks {og_token_ceiling(sched, 1):.3f}x (the "
+                 f"uncond row carries {OG_TXT + math.prod(OG_GRID)} tokens, the others "
+                 f"{OG_TXT + 2 * math.prod(OG_GRID)})" if mode == "edit" else "")
+        log(f"  {mode} MagCache against {mode} full compute (wall time of generate, the "
+            f"refiners and heads of every step included): "
+            f"{full.timings['total_s'] / cached.timings['total_s']:.3f}x faster; schedule "
+            f"ceiling {ceiling:.3f}x in lane-forwards ({int(sched.sum())} of {sched.size} "
+            f"elided){extra}; rel L2 of the latents {rel_l2(cached.latents, full.latents):.3e}")
+    return launches
+
+
+def phase_omnigen2_policies(dev, model):
+    """Returns the requests' launches (edit)."""
+    from magcache_tpu_torch.core.magcache import compute_skip_schedule
+    from magcache_tpu_torch.core.taylorseer import taylorseer_schedule
+    from magcache_tpu_torch.pipelines.omnigen2 import make_omnigen2_cache_config
+
+    n = OG_SHORT
+    log(f"phase 84: OmniGen2 edit requests at {OG_SIZE}x{OG_SIZE} (cut from 50 steps), one "
+        f"seeded reference: TaylorSeer (interval 4, order 2, warm-up 3) and DPM-Solver++(2M) "
+        f"with MagCache at {n} steps; TeaCache (relative L1, threshold 0.05, first and last "
+        f"steps forced) and a calibration run at {OG_CAL} steps")
+    ref = og_ref_latents(dev)
+    launches = dict(NO_LAUNCHES)
+    sched = compute_skip_schedule(make_omnigen2_cache_config("edit", n)).reshape(n, 3)
+    for label, kw in (("TaylorSeer", dict(enable_taylorseer=True)),
+                      ("TeaCache", dict(enable_teacache=True)),
+                      ("dpm++ MagCache", dict(scheduler="dpmsolver++", use_magcache=True)),
+                      ("calibration", dict(magcache_calibration=True))):
+        steps = OG_CAL if label in ("TeaCache", "calibration") else n
+        pipe = og_pipeline(dev, model, mode="edit", num_inference_steps=steps, **kw)
+        if label == "TaylorSeer":
+            fresh = taylorseer_schedule(pipe._ts_config())[0]
+            want = np.repeat(~fresh[:, None], 3, axis=1)
+        elif label == "dpm++ MagCache":
+            want = sched
+        else:
+            want = None
+        if label == "TeaCache":
+            reset_counts()
+            out = pipe.generate(OG_PROMPT, seed=3, ref_latents=ref)
+            if out.skips[[0, -1]].any():
+                fail("OmniGen2 TeaCache: a forced first or last step was skipped")
+            launched = read_counts()
+            check_og_launches("OmniGen2 TeaCache", launched, og_k1(out.skips, steps, 1))
+            log(f"  OmniGen2 edit TeaCache: {out.timings['total_s']:.3f} s; "
+                f"{int(out.skips.sum())} of {out.skips.size} lane-forwards elided "
+                f"(by lane {out.skips.sum(0).tolist()}), steps 0 and {steps - 1} computed; K1 "
+                f"{launched['flash_attention_bshd']}")
+        else:
+            out, launched = og_request(f"OmniGen2 edit {label}", pipe, want, ref_latents=ref)
+        if label == "TaylorSeer":
+            log(f"    TaylorSeer computed {int(fresh.sum())} of {n} steps "
+                f"({np.flatnonzero(fresh).tolist()}), as taylorseer_schedule gives")
+        if label == "calibration":
+            ratios = np.asarray(out.calibration["norm_ratio"])
+            if ratios.shape != ((steps - 1) * 3,) or not np.isfinite(ratios).all():
+                fail(f"OmniGen2 calibration: {ratios.shape} ratios, finite "
+                     f"{bool(np.isfinite(ratios).all())}")
+            log(f"    calibration: {ratios.size} finite ratios (cond, uncond, ref a step), "
+                f"steps 1-3: {ratios[:9].round(4).tolist()}")
+        launches = {k: c + launched[k] for k, c in launches.items()}
+    return launches
+
+
+def _numpy_omnigen2_tree(cfg, rng):
+    """A random OmniGen2 tree in the JAX package's layout (depth-stacked
+    blocks, ``w: [d_in, d_out]``)."""
+    d, dk, f = cfg.hidden, cfg.kv_heads * cfg.head_dim, cfg.ffn_dim
+
+    def lin(d_in, d_out, depth=None, bias=True):
+        shape = (d_in, d_out) if depth is None else (depth, d_in, d_out)
+        p = {"w": rng.standard_normal(shape) / math.sqrt(d_in)}
+        if bias:
+            p["b"] = rng.standard_normal(shape[:-2] + (d_out,)) * 0.02
+        return p
+
+    def blocks(depth, modulated):
+        g = {"q": lin(d, d, depth, False), "kv": lin(d, 2 * dk, depth, False),
+             "o": lin(d, d, depth, False), "w1": lin(d, f, depth, False),
+             "w3": lin(d, f, depth, False), "w2": lin(f, d, depth, False)}
+        for n, w in (("q_norm", cfg.head_dim), ("k_norm", cfg.head_dim), ("norm1", d),
+                     ("norm2", d), ("ffn_norm1", d), ("ffn_norm2", d)):
+            g[n] = 1.0 + 0.1 * rng.standard_normal((depth, w))
+        if modulated:
+            g["mod"] = lin(cfg.temb_dim, 4 * d, depth)
+        return g
+
+    pin = cfg.patch_in
+    return {"t_embed": {"in": lin(cfg.time_embed_dim, cfg.temb_dim),
+                        "out": lin(cfg.temb_dim, cfg.temb_dim)},
+            "cap_norm": 1.0 + 0.1 * rng.standard_normal(cfg.text_dim),
+            "cap_proj": lin(cfg.text_dim, d), "x_embed": lin(pin, d), "ref_embed": lin(pin, d),
+            "context_refiner": blocks(cfg.refiner_layers, False),
+            "noise_refiner": blocks(cfg.refiner_layers, True),
+            "ref_refiner": blocks(cfg.refiner_layers, True),
+            "layers": blocks(cfg.layers, True),
+            "norm_out_mod": lin(cfg.temb_dim, d), "final_out": lin(d, pin)}
+
+
+def phase_omnigen2_card_vs_cpu(dev):
+    from magcache_tpu_torch.models.convert import omnigen2_params_from_numpy
+    from magcache_tpu_torch.models.omnigen2 import OmniGen2Config, OmniGen2Model
+    from magcache_tpu_torch.pipelines.omnigen2 import OmniGen2Pipeline, OmniGen2PipelineConfig
+
+    cfg = OmniGen2Config(hidden=480, heads=4, kv_heads=2, layers=2, refiner_layers=1,
+                         text_dim=64, time_embed_dim=64, temb_dim=128)
+    log(f"phase 85: narrow OmniGen2 pipelines on the card (K1, bf16) against the CPU (plain "
+        f"ops, f32): hidden 480, {cfg.heads} heads over {cfg.kv_heads} of {cfg.head_dim} (the "
+        f"pad to 128), 2 + 1 refiner blocks, 16 text + 144 image tokens a picture, 8 Euler "
+        f"steps of MagCache at E 0.3: text-to-image, and edit with 2 references")
+    rng = np.random.default_rng(85)
+    tree = _numpy_omnigen2_tree(cfg, rng)
+    refs = torch.from_numpy(rng.standard_normal((1, 2, 24, 24, 16)).astype(np.float32))
+    for mode in ("t2i", "edit"):
+        outs = {}
+        for name, device, dtype in (("card", dev, "bfloat16"),
+                                    ("cpu", torch.device("cpu"), "float32")):
+            c = dataclasses.replace(cfg, dtype=dtype)
+            model = OmniGen2Model(c, device)
+            model.load_state_dict(omnigen2_params_from_numpy(tree, c, device))
+            pcfg = OmniGen2PipelineConfig(mode=mode, height=192, width=192,
+                                          num_inference_steps=8, txt_len=16, dtype=dtype,
+                                          use_magcache=True, magcache_thresh=0.3, ref_images=2)
+            pipe = OmniGen2Pipeline(pcfg, device, model=model)
+            reset_counts()
+            out = pipe.generate("a red boat at dawn", seed=2,
+                                ref_latents=refs if mode == "edit" else None)
+            outs[name] = (out.latents.float().cpu(), read_counts(), out.skips)
+        (got, launched, skips), (want, _, cpu_skips) = outs["card"], outs["cpu"]
+        if not np.array_equal(skips, cpu_skips) or not skips.any():
+            fail(f"narrow OmniGen2 {mode}: skips differ between card and CPU, or none")
+        k1 = og_k1(skips, 8, 2 if mode == "edit" else 0, cfg.layers, cfg.refiner_layers)
+        check_narrow(f"narrow OmniGen2 {mode} (skips by lane {skips.sum(0).tolist()})", got,
+                     want, launched, dict(NO_LAUNCHES, flash_attention_bshd=k1))
+
+
 def main():
     phase_environment()
     dev = torch.device("cuda", 0)
@@ -6817,6 +7249,20 @@ def main():
     torch.cuda.empty_cache()
     phase_qwen_card_vs_cpu(dev)
     t_qi = time.time() - t0_qi
+    t0_og = time.time()
+    phase_omnigen2_kernels(dev, rec)
+    torch.cuda.empty_cache()
+    log("phase 82-84 model:")
+    model = make_omnigen2_model(dev)
+    og = phase_omnigen2_forward(dev, model)
+    reqs = phase_omnigen2_requests(dev, model)
+    og = {mode: {k: n + reqs[mode][k] for k, n in og[mode].items()} for mode in og}
+    reqs = phase_omnigen2_policies(dev, model)
+    og["edit"] = {k: n + reqs[k] for k, n in og["edit"].items()}
+    del model
+    torch.cuda.empty_cache()
+    phase_omnigen2_card_vs_cpu(dev)
+    t_og = time.time() - t0_og
     log(f"all phases passed in {time.time() - t0:.1f} s (Wan {t_wan:.1f} s, "
         f"Open-Sora {t_os:.1f} s, FLUX {t_flux:.1f} s, Open-Sora 720p "
         f"{t_os720:.1f} s, Latte {t_latte:.1f} s, Wan sequence-parallel {t_sp:.1f} s, "
@@ -6825,11 +7271,12 @@ def main():
         f"{t_pab:.1f} s, Open-Sora-Plan and CogVideoX {t_osp:.1f} s, Vchitect and the "
         f"Open-Sora-Plan and CogVideoX VAEs {t_vch:.1f} s, the SD and Open-Sora VAEs "
         f"and the requests ending in their pixels "
-        f"{time.time() - t0 - t_wan - t_os - t_flux - t_os720 - t_latte - t_sp - t_unpacked - t_ends - t_pab - t_osp - t_vch - t_i2v - t_w22 - t_hy - t_qi:.1f} s; "
+        f"{time.time() - t0 - t_wan - t_os - t_flux - t_os720 - t_latte - t_sp - t_unpacked - t_ends - t_pab - t_osp - t_vch - t_i2v - t_w22 - t_hy - t_qi - t_og:.1f} s; "
         f"the text encoders' phases 55-57, within those, {t_text:.1f} s; Wan I2V-14B and "
         f"FLF2V-14B, phases 58-62, {t_i2v:.1f} s; Wan2.2 TI2V-5B, VACE and the A14B MoE, "
         f"phases 63-69, {t_w22:.1f} s; HunyuanVideo and FramePack, phases 70-75, "
-        f"{t_hy:.1f} s; Qwen-Image and Qwen-Image-Edit, phases 76-80, {t_qi:.1f} s)")
+        f"{t_hy:.1f} s; Qwen-Image and Qwen-Image-Edit, phases 76-80, {t_qi:.1f} s; "
+        f"OmniGen2, phases 81-85, {t_og:.1f} s)")
 
     meta = {
         "flash_attention_bshd": ("cuda", "magcache_tpu_torch/csrc/hopper_attention.cuh",
@@ -6879,7 +7326,8 @@ def main():
              **pixel_paths, "wan-i2v": i2v, "wan-flf2v": flf2v, "wan-ti2v": ti2v,
              "wan-vace": vace, "wan-a14b": a14b, "hunyuan": hunyuan,
              "framepack": framepack["framepack"], "framepack-f1": framepack["framepack-f1"],
-             "qwen-image": qwen, "qwen-image-edit": qwen_edit}
+             "qwen-image": qwen, "qwen-image-edit": qwen_edit, "omnigen2": og["t2i"],
+             "omnigen2-edit": og["edit"]}
     kernels = []
     for name, (route, source, replaces) in meta.items():
         by_path = {p: c[name] for p, c in paths.items()}

@@ -13,7 +13,8 @@ cogvideox``), Vchitect-XL-2B t2v (``--task vchitect``), HunyuanVideo T2V
 (``--task hunyuan``, ``hunyuan-720p``, ``hunyuan-544p``: one section of the
 FramePack pipeline), FramePack (``--task framepack``, ``framepack-f1``) and
 Qwen-Image (``--task qwen-image``; ``qwen-image-edit``, or ``qwen-image
---image``: the Edit model).
+--image``: the Edit model) and OmniGen2 (``--task omnigen2``: text-to-image,
+or edit on the reference images of ``--image`` / ``--input_image_path``).
 
 Flag names follow the reference adapters (``--task --size --frame_num
 --sample_steps --sample_shift --sample_solver --sample_guide_scale
@@ -30,7 +31,13 @@ CogVideoX ``--txt_len --use_dynamic_cfg --enable_pab``, Vchitect
 --enable_teacache --teacache_thresh`` and the hyvideo scripts' aliases
 ``--video_size H W --video_length --infer_steps --embedded_cfg_scale
 --flow_shift --neg_prompt --cfg_scale --save_path``, also in their dash
-spelling, e.g. ``--video-size``; Qwen-Image ``--txt_len --image``),
+spelling, e.g. ``--video-size``; Qwen-Image ``--txt_len --image``;
+OmniGen2 ``--txt_len --image --enable_teacache --teacache_thresh`` and the
+reference ``inference.py``'s names ``--instruction --input_image_path
+--output_image_path --height --width --num_inference_step
+--text_guidance_scale --image_guidance_scale --cfg_range_start
+--cfg_range_end --scheduler --enable_taylorseer --teacache_rel_l1_thresh
+--negative_prompt``),
 and the output file name encodes the E/K/R triple. Unset flags take each
 family's reference defaults, as in the JAX CLI (Wan: 50 steps, i2v 40;
 shift 5.0, i2v at 480p and below 3.0, flf2v and VACE 16.0; guidance 5.0;
@@ -45,7 +52,11 @@ up, else ``-544p``; FramePack 25 steps, guidance 10.0, 5 sections of
 ``(frames - 1) // 4 + 1`` latent frames, a canvas divisible by 64; both
 flow shift 7.0, 832*480, 81 frames, ``txt_len`` 256; Qwen-Image 50 steps,
 true CFG 4.0, 1664*928, ``txt_len`` 256, text-to-image prompts with the
-reference's ", Ultra HD, 4K, cinematic composition." appended). Runs on a CUDA card by
+reference's ", Ultra HD, 4K, cinematic composition." appended; OmniGen2 50
+steps, 1024*1024, ``txt_len`` 128, text guidance 5.0, image guidance 2.0,
+Euler, the reference's negative prompt; of ``--enable_taylorseer``,
+``--enable_teacache`` and ``--use_magcache`` the first given wins, with a
+warning, as in the JAX CLI). Runs on a CUDA card by
 default; ``--device cpu`` runs the plain PyTorch ops instead of the kernels
 (tests use it at ``--tiny`` size; the tiny models' head dims are not ones
 the kernels take, so ``--tiny`` on a card exits with a message).
@@ -99,6 +110,9 @@ Examples:
   python -m magcache_tpu_torch.cli.generate --task qwen-image --use_magcache
   python -m magcache_tpu_torch.cli.generate --task qwen-image-edit --image x.png \
       --use_magcache                            # 1664x928, 2 lanes, 50 steps
+  python -m magcache_tpu_torch.cli.generate --task omnigen2 --use_magcache
+  python -m magcache_tpu_torch.cli.generate --task omnigen2 --input_image_path a.png \
+      --instruction "make it snow" --use_magcache   # edit: 3 lanes on two programs
   torchrun --nproc_per_node 4 -m magcache_tpu_torch.cli.generate --task t2v-1.3B \
       --use_magcache --ulysses_size 4           # or --ring_size 4
 Checkpoints are not loaded yet: the DiT has random weights and the text
@@ -123,7 +137,10 @@ HunyuanVideo runs without history frames unless ``--image`` gives one (the
 JAX CLI prepends two zero latent frames; ROADMAP §3). Qwen-Image-Edit's
 ``--image`` becomes the packed reference latents the same way (no VAE) and
 its prompt goes to the mock encoder (no Qwen2.5-VL weights); without
-``--image`` the Edit model sees zero reference latents.
+``--image`` the Edit model sees zero reference latents. OmniGen2's
+references are resized and tiled the same way, one block of tokens each,
+and its three prompts (the prompt, the negative prompt and the reference
+branch's) go to the mock encoder.
 Open-Sora references are ``.npy`` latents; image
 and video references need the pipeline's VAE, which the CLI does not build,
 and raise.
@@ -157,6 +174,7 @@ _PORTED = {"t2v-1.3B": "wan2.1-t2v-1.3B", "t2v-14B": "wan2.1-t2v-14B",
 # rows up), FramePack the task's own
 _HUNYUAN = ("hunyuan", "hunyuan-720p", "hunyuan-544p", "framepack", "framepack-f1")
 _QWEN = ("qwen-image", "qwen-image-edit")
+_OMNIGEN2 = "omnigen2"
 _WAN = ("t2v-1.3B", "t2v-14B", "t2i-14B", "i2v-14B", "flf2v-14B", "vace-1.3B", "vace-14B",
         "ti2v-5B", "t2v-A14B", "i2v-A14B")
 # the JAX CLI's Wan2.2 defaults: steps, shift, guidance, frames
@@ -171,16 +189,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "vace-14B | ti2v-5B | t2v-A14B | i2v-A14B | open-sora | flux-dev | "
                         "flux-kontext-dev | latte | open-sora-plan | cogvideox | vchitect | "
                         "hunyuan | hunyuan-720p | hunyuan-544p | framepack | framepack-f1 | "
-                        "qwen-image | qwen-image-edit (the tasks ported so far)")
+                        "qwen-image | qwen-image-edit | omnigen2")
     p.add_argument("--size", default=None,
                    help="W*H pixels (unset: 832*480 for Wan, Open-Sora, HunyuanVideo and "
-                        "FramePack, 1024*1024 for FLUX, 1664*928 for Qwen-Image)")
+                        "FramePack, 1024*1024 for FLUX and OmniGen2, 1664*928 for Qwen-Image)")
     p.add_argument("--frame_num", type=int, default=None,
                    help="frames (unset: 81; ti2v-5B 121)")
     p.add_argument("--sample_steps", type=int, default=None,
                    help="unset: 50 for Wan (i2v and the A14B tasks 40), Latte and CogVideoX, "
                         "30 for Open-Sora, 28 for FLUX, 150 for Open-Sora-Plan, 100 for "
-                        "Vchitect, 50 for Qwen-Image")
+                        "Vchitect, 50 for Qwen-Image and OmniGen2")
     p.add_argument("--sample_shift", type=float, default=None,
                    help="Wan flow shift (unset: 5.0; i2v at 480p and below 3.0, "
                         "flf2v and VACE 16.0, t2v-A14B 12.0)")
@@ -216,7 +234,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--txt_len", type=int, default=None,
                    help="FLUX text tokens (unset: 512); Latte caption tokens "
                         "(unset: 120); Open-Sora-Plan (512), CogVideoX (226), "
-                        "Vchitect (77), Qwen-Image (256)")
+                        "Vchitect (77), Qwen-Image (256), OmniGen2 (128)")
     p.add_argument("--clean_caption", action="store_true",
                    help="latte: the T5 caption cleaning, applied twice")
     p.add_argument("--no_text_preprocessing", action="store_true",
@@ -235,8 +253,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="input image (.npy [H, W, 3] in [0, 1], or an image file): "
                         "i2v-14B's and i2v-A14B's (flf2v-14B's first frame), ti2v-5B's "
                         "(latent frame 0), or flux-kontext-dev's conditioning image and "
-                        "qwen-image's Edit reference (the Edit model), resized and "
-                        "channel-tiled to the latent grid (no VAE weights)")
+                        "qwen-image's Edit reference (the Edit model) and omnigen2's "
+                        "reference (edit mode), resized and channel-tiled to the latent "
+                        "grid (no VAE weights)")
     p.add_argument("--first_frame", default=None,
                    help="flf2v-14B: the first frame (.npy or an image file)")
     p.add_argument("--last_frame", default=None,
@@ -264,9 +283,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "(wan_magcache.py:683-817)")
     p.add_argument("--magcache_calibration", action="store_true")
     p.add_argument("--enable_teacache", action="store_true",
-                   help="t2v-1.3B: the TeaCache comparator (per-lane, UniPC only)")
+                   help="the TeaCache comparator: Wan (per lane), HunyuanVideo / "
+                        "FramePack, omnigen2 (a policy per guidance branch)")
     p.add_argument("--teacache_thresh", type=float, default=None,
-                   help="TeaCache threshold (unset: 0.2)")
+                   help="TeaCache threshold (unset: 0.2; omnigen2 0.05)")
     p.add_argument("--use_ret_steps", action="store_true",
                    help="TeaCache's retention-steps variant: the e0 signal and a "
                         "longer forced warm-up")
@@ -302,11 +322,39 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--flow_shift", type=float, default=None,
                    help="hunyuan flow shift (alias of --sample_shift; unset: 7.0)")
     p.add_argument("--negative_prompt", "--neg_prompt", dest="negative_prompt",
-                   default=None, help="hunyuan: ignored with a warning (the distilled "
-                                      "model runs one forward a step, no CFG)")
+                   default=None, help="omnigen2: the uncond branch's prompt (unset: the "
+                                      "reference's default); hunyuan: ignored with a "
+                                      "warning (the distilled model runs one forward a "
+                                      "step, no CFG)")
     p.add_argument("--cfg_scale", type=float, default=None,
                    help="hunyuan: ignored with a warning unless 1.0 (no CFG)")
     p.add_argument("--save_path", default=None, help="alias for --save_file")
+    # the OmniGen2 reference's inference.py names (omnigen2 only)
+    p.add_argument("--instruction", default=None, help="omnigen2 alias for --prompt")
+    p.add_argument("--input_image_path", default=None, nargs="+",
+                   help="omnigen2 edit: the reference images, one block of tokens each")
+    p.add_argument("--output_image_path", default=None,
+                   help="omnigen2 alias for --save_file")
+    p.add_argument("--height", type=int, default=None,
+                   help="omnigen2: output height (with --width; --size wins)")
+    p.add_argument("--width", type=int, default=None,
+                   help="omnigen2: output width (with --height)")
+    p.add_argument("--num_inference_step", type=int, default=None,
+                   help="omnigen2 alias for --sample_steps")
+    p.add_argument("--text_guidance_scale", type=float, default=None,
+                   help="omnigen2 text guidance (unset: 5.0)")
+    p.add_argument("--image_guidance_scale", type=float, default=None,
+                   help="omnigen2 image guidance, edit mode (unset: 2.0)")
+    p.add_argument("--cfg_range_start", type=float, default=None,
+                   help="omnigen2: guidance window start, a fraction of the steps (unset: 0)")
+    p.add_argument("--cfg_range_end", type=float, default=None,
+                   help="omnigen2: guidance window end (unset: 1)")
+    p.add_argument("--scheduler", default=None, choices=["euler", "dpmsolver++"],
+                   help="omnigen2 solver: euler (unset) or flow-match DPM-Solver++(2M)")
+    p.add_argument("--enable_taylorseer", action="store_true",
+                   help="omnigen2: the TaylorSeer forecasting comparator")
+    p.add_argument("--teacache_rel_l1_thresh", type=float, default=None,
+                   help="omnigen2 alias of --teacache_thresh (which wins when both are given)")
     p.add_argument("--dist_init_method", default=None,
                    help="process-group rendezvous (tcp://host:port or "
                         "file:///path) when not started by torchrun; RANK and "
@@ -576,6 +624,57 @@ def _qwen_pipeline(args, device, ratios):
     return QwenImagePipeline(cfg, device), cfg.sample_steps, 2
 
 
+def _omnigen2_pipeline(args, device):
+    """OmniGen2, text-to-image or, with reference images, edit, with the JAX
+    CLI's ``_omnigen2_pipeline`` defaults and priority warnings (the flags
+    a comparator overrides are cleared in ``args``)."""
+    from magcache_tpu_torch.pipelines.omnigen2 import (OmniGen2Pipeline,
+                                                       OmniGen2PipelineConfig)
+
+    refs = _omnigen2_refs(args)
+    taylor, tea, use_mag = args.enable_taylorseer, args.enable_teacache, args.use_magcache
+    if taylor and tea:
+        print("WARNING: enable_teacache and enable_taylorseer are mutually exclusive. "
+              "enable_teacache will be ignored.")
+        tea = False
+    if (taylor or tea) and use_mag:
+        print("WARNING: --use_magcache is ignored when a comparator cache is enabled "
+              "(reference if/elif priority).")
+        use_mag = False
+    args.enable_teacache, args.use_magcache = tea, use_mag
+    size = args.size or (f"{args.width}*{args.height}" if args.width and args.height else None)
+    w, h = _parse_size(size, "1024*1024")
+    kw = dict(mode="edit" if refs else "t2i", height=h, width=w,
+              num_inference_steps=args.sample_steps or args.num_inference_step or 50,
+              use_magcache=use_mag, enable_taylorseer=taylor, enable_teacache=tea,
+              magcache_calibration=args.magcache_calibration, dtype=args.dtype,
+              tiny=args.tiny, ref_images=max(len(refs), 1))
+    thresh = (args.teacache_thresh if args.teacache_thresh is not None
+              else args.teacache_rel_l1_thresh)
+    for key, val in (("magcache_thresh", args.magcache_thresh), ("magcache_K", args.magcache_K),
+                     ("retention_ratio", args.retention_ratio), ("teacache_thresh", thresh),
+                     ("text_guidance_scale", args.text_guidance_scale),
+                     ("image_guidance_scale", args.image_guidance_scale),
+                     ("scheduler", args.scheduler)):
+        if val is not None:
+            kw[key] = val
+    if args.cfg_range_start is not None or args.cfg_range_end is not None:
+        kw["cfg_range"] = (0.0 if args.cfg_range_start is None else args.cfg_range_start,
+                           1.0 if args.cfg_range_end is None else args.cfg_range_end)
+    if args.tiny:
+        kw.update(height=32, width=32, txt_len=6)
+    elif args.txt_len:
+        kw["txt_len"] = args.txt_len
+    pipe = OmniGen2Pipeline(OmniGen2PipelineConfig(**kw), device)
+    return pipe, kw["num_inference_steps"], pipe.lanes
+
+
+def _omnigen2_refs(args) -> list:
+    """OmniGen2's reference image paths: every ``--input_image_path``, else
+    ``--image``."""
+    return list(args.input_image_path or ([args.image] if args.image else []))
+
+
 def _normalize_argv(argv, parser):
     """The hyvideo scripts' dash spelling (``--video-size``, ``--infer-steps``,
     ...) of every flag registered with underscores."""
@@ -614,9 +713,11 @@ def _pipeline(args):
             f"--task {args.task!r} matches no model family; known prefixes: "
             f"{', '.join(_KNOWN)} (e.g. t2v-1.3B)")
     hunyuan = args.task in _HUNYUAN
-    if args.task not in _PORTED and not hunyuan and args.task not in _QWEN:
-        raise SystemExit(f"--task {args.task!r} is not ported yet; ported: "
-                         f"{', '.join((*_PORTED, *_HUNYUAN, *_QWEN))}")
+    omnigen2 = args.task == _OMNIGEN2
+    tasks = (*_PORTED, *_HUNYUAN, *_QWEN, _OMNIGEN2)
+    if args.task not in tasks:
+        raise SystemExit(f"--task {args.task!r} is no task of its family; tasks: "
+                         f"{', '.join(tasks)}")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available "
@@ -636,7 +737,7 @@ def _pipeline(args):
     for flag, on, ok in (("--image", args.image is not None,
                           args.task in ("i2v-14B", "flf2v-14B", "i2v-A14B", "ti2v-5B")
                           or args.task.startswith("flux") or hunyuan
-                          or args.task in _QWEN),
+                          or args.task in _QWEN or omnigen2),
                          ("--src_video / --src_mask / --src_ref_images",
                           any(a is not None for a in (args.src_video, args.src_mask,
                                                       args.src_ref_images)), vace),
@@ -646,13 +747,30 @@ def _pipeline(args):
                          ("--sample_solver", args.sample_solver != "unipc", wan),
                          ("--cache_policy", args.cache_policy != "adapter",
                           wan or args.task == "open-sora"),
-                         ("--enable_teacache", args.enable_teacache, wan or hunyuan),
+                         ("--enable_teacache", args.enable_teacache,
+                          wan or hunyuan or omnigen2),
                          ("--video_size / --video_length / --infer_steps / "
-                          "--embedded_cfg_scale / --flow_shift / --negative_prompt / "
-                          "--cfg_scale", any(a is not None for a in (
+                          "--embedded_cfg_scale / --flow_shift / --cfg_scale",
+                          any(a is not None for a in (
                               args.video_size, args.video_length, args.infer_steps,
                               args.embedded_cfg_scale, args.flow_shift,
-                              args.negative_prompt, args.cfg_scale)), hunyuan),
+                              args.cfg_scale)), hunyuan),
+                         ("--negative_prompt", args.negative_prompt is not None,
+                          hunyuan or omnigen2),
+                         ("--instruction / --input_image_path / --output_image_path / "
+                          "--height / --width / --num_inference_step / "
+                          "--text_guidance_scale / --image_guidance_scale / "
+                          "--cfg_range_start / --cfg_range_end / --scheduler / "
+                          "--enable_taylorseer / --teacache_rel_l1_thresh",
+                          args.enable_taylorseer or any(a is not None for a in (
+                              args.instruction, args.input_image_path,
+                              args.output_image_path, args.height, args.width,
+                              args.num_inference_step, args.text_guidance_scale,
+                              args.image_guidance_scale, args.cfg_range_start,
+                              args.cfg_range_end, args.scheduler,
+                              args.teacache_rel_l1_thresh)), omnigen2),
+                         ("--mag_ratios_json", args.mag_ratios_json is not None,
+                          not omnigen2),
                          ("--enable_pab", args.enable_pab,
                           args.task in ("open-sora", "latte", "open-sora-plan",
                                         "cogvideox", "vchitect")),
@@ -683,6 +801,8 @@ def _pipeline(args):
         return _vchitect_pipeline(args, device, ratios)
     if args.task in _QWEN:
         return _qwen_pipeline(args, device, ratios)
+    if omnigen2:
+        return _omnigen2_pipeline(args, device)
     if hunyuan:
         if args.negative_prompt is not None:
             print("WARNING: negative prompts need classifier-free guidance; the distilled "
@@ -699,7 +819,9 @@ def _pipeline(args):
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(_normalize_argv(sys.argv[1:] if argv is None else argv, parser))
-    args.save_file = args.save_file or args.save_path
+    args.save_file = args.save_file or args.save_path or args.output_image_path
+    if args.instruction is not None and args.prompt == parser.get_default("prompt"):
+        args.prompt = args.instruction
     t0 = time.time()
     pipe, steps, lanes = _pipeline(args)
     kw = {}
@@ -733,6 +855,14 @@ def main(argv=None):
         if pipe.ref_images == 0:
             # the text-to-image script's "positive magic" (the Edit one adds none)
             args.prompt += ", Ultra HD, 4K, cinematic composition."
+    elif args.task == _OMNIGEN2:
+        from magcache_tpu_torch.pipelines.flux import load_image
+
+        refs = _omnigen2_refs(args)
+        if refs:
+            kw["ref_latents"] = pipe.encode_images([load_image(p) for p in refs])
+        if args.negative_prompt is not None:
+            kw["negative_prompt"] = args.negative_prompt
     elif args.image:
         from magcache_tpu_torch.pipelines.flux import load_image
 
@@ -753,7 +883,9 @@ def main(argv=None):
     E = args.magcache_thresh if args.magcache_thresh is not None else "def"
     K = args.magcache_K if args.magcache_K is not None else "def"
     R = args.retention_ratio if args.retention_ratio is not None else "def"
-    if args.enable_teacache:
+    if args.enable_taylorseer:
+        tag = "taylorseer"
+    elif args.enable_teacache:
         T = args.teacache_thresh if args.teacache_thresh is not None else "def"
         tag = f"teacache_T{T}" + ("_ret" if args.use_ret_steps else "")
     elif args.use_magcache:
@@ -779,6 +911,7 @@ def main(argv=None):
                   f"{[np.flatnonzero(s[:, 0]).tolist() for s in out.skips]}")
         else:
             what = ("lane-forwards (cond + uncond per step)" if lanes == 2 else
+                    "lane-forwards (cond, uncond, ref per step)" if lanes == 3 else
                     "forwards (one per step, embedded guidance)"
                     if args.task.startswith("flux") else
                     "forwards (cond + uncond as one joint batch per step)")
@@ -787,8 +920,8 @@ def main(argv=None):
         if getattr(pipe, "core_low", None) is not None:
             b = pipe.boundary_step()
             print(f"experts: high-noise steps 0-{b - 1}, low-noise steps {b}-{steps - 1}")
-    mode = ("teacache" if args.enable_teacache else "magcache" if args.use_magcache
-            else "full")
+    mode = ("taylorseer" if tag == "taylorseer" else "teacache" if args.enable_teacache
+            else "magcache" if args.use_magcache else "full")
     if args.enable_pab:
         mode += "+pab"
     print(f"done: {steps} steps in {dt:.1f}s (sampling "

@@ -22,7 +22,8 @@ HunyuanVideo / FramePack (the FLUX tree plus the token refiner and the
 clean-latent projections) and ``llama_params_from_numpy`` for the Llama
 encoder (the Qwen2.5-VL text tower too); ``qwen_image_params_from_numpy``
 for Qwen-Image (the FLUX tree plus ``txt_norm``) and
-``qwen_vl_vision_params_from_numpy`` for the Qwen2.5-VL vision tower. Three
+``qwen_vl_vision_params_from_numpy`` for the Qwen2.5-VL vision tower;
+``omnigen2_params_from_numpy`` for OmniGen2 (its refiners and trunk). Three
 layout rules: the JAX block weights are
 depth-stacked ``[L, ...]`` (one entry per block here), JAX's ``linear`` is
 ``x @ w`` with ``w: [d_in, d_out]`` while ``nn.Linear`` keeps ``[d_out, d_in]``, and JAX's
@@ -43,6 +44,7 @@ from magcache_tpu_torch.models.flux import FluxConfig
 from magcache_tpu_torch.models.hunyuan import HunyuanConfig
 from magcache_tpu_torch.models.latte import LatteConfig
 from magcache_tpu_torch.models.llama import LlamaConfig
+from magcache_tpu_torch.models.omnigen2 import OmniGen2Config
 from magcache_tpu_torch.models.open_sora_plan import OpenSoraPlanConfig
 from magcache_tpu_torch.models.qwen_image import QwenImageConfig
 from magcache_tpu_torch.models.qwen_vl import QwenVLVisionConfig
@@ -279,6 +281,38 @@ def qwen_image_params_from_numpy(tree: dict, cfg: QwenImageConfig, device=None
           flux_params_from_numpy(tree, cfg.to_flux(), device).items()}
     put, _ = _putters(sd, device)
     put("txt_norm", tree["txt_norm"])
+    return sd
+
+
+def omnigen2_params_from_numpy(tree: dict, cfg: OmniGen2Config, device=None
+                               ) -> Dict[str, torch.Tensor]:
+    """State dict for ``OmniGen2Model(cfg)`` from a numpy OmniGen2 tree (the
+    layout of ``magcache_tpu.models.omnigen2.init_omnigen2_params``: the
+    block groups ``context_refiner``, ``noise_refiner``, ``ref_refiner`` and
+    ``layers`` depth-stacked). ``cap_proj``, ``x_embed``, ``ref_embed`` and
+    the block linears take ``cfg.torch_dtype``; ``t_embed``, the
+    modulations, ``norm_out_mod``, ``final_out`` and every gain are f32."""
+    sd: Dict[str, torch.Tensor] = {}
+    put, put_linear = _putters(sd, device)
+    dt = cfg.torch_dtype
+    for io in ("in", "out"):
+        put_linear(f"t_embed.{io}", tree["t_embed"][io])
+    put("cap_norm", tree["cap_norm"])
+    for n in ("cap_proj", "x_embed", "ref_embed"):
+        put_linear(n, tree[n], dt)
+    for n in ("norm_out_mod", "final_out"):
+        put_linear(n, tree[n])
+    for grp, depth in (("context_refiner", cfg.refiner_layers),
+                       ("noise_refiner", cfg.refiner_layers),
+                       ("ref_refiner", cfg.refiner_layers), ("layers", cfg.layers)):
+        g = tree[grp]
+        for i in range(depth):
+            for n in ("q", "kv", "o", "w1", "w3", "w2"):
+                put_linear(f"{grp}.{i}.{n}", {k: a[i] for k, a in g[n].items()}, dt)
+            for n in ("q_norm", "k_norm", "norm1", "norm2", "ffn_norm1", "ffn_norm2"):
+                put(f"{grp}.{i}.{n}", g[n][i])
+            if "mod" in g:
+                put_linear(f"{grp}.{i}.mod", {k: a[i] for k, a in g["mod"].items()})
     return sd
 
 

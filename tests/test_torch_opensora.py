@@ -358,5 +358,6 @@ def test_cli_open_sora_tiny_route(tmp_path, capsys):
     text = capsys.readouterr().out
     assert "skipped 18 of 30 forwards" in text
     assert "skipped steps [6, 7, 8, 10, 11, 12, 14, 15, 16, 18, 19, 20, 22, 23, 24, 26, 27, 28]" in text
-    with pytest.raises(SystemExit, match="not ported"):
-        cli.main(["--task", "omnigen2", "--device", "cpu"])
+    # every family is ported: a name outside them exits naming the prefixes
+    with pytest.raises(SystemExit, match="matches no model family"):
+        cli.main(["--task", "omnigen3", "--device", "cpu"])

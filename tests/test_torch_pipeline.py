@@ -118,8 +118,8 @@ def test_cli_tiny_on_a_card_exits_naming_the_cpu(task, monkeypatch):
 def test_cli_rejects_unknown_task_and_missing_card():
     with pytest.raises(SystemExit, match="matches no model family"):
         cli.main(["--task", "nonsense-1B", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="not ported"):
-        cli.main(["--task", "omnigen2", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="matches no model family"):
+        cli.main(["--task", "omnigen3", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="no CUDA device"):
             cli.main(["--tiny"])
