@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives ``magcache_tpu_torch`` (never JAX) in eighty-five phases and exits
+Drives ``magcache_tpu_torch`` (never JAX) in eighty-seven phases and exits
 nonzero on the first failure:
 
 1. environment: a CUDA card is required; prints the card's name and power
@@ -379,11 +379,12 @@ shapes and launch counts):
    ``wan2.1-vace-1.3B`` (50 of 100 elided), from a seeded source video and
    box mask through the Wan VAE encode and decode (f32), and an R2V request
    with one reference image (6 latent frames sampled, 5 kept);
-68. the A14B MoE at 832x480x17, 40 steps, both WAN_14B experts resident:
-   t2v-A14B (shift 12, CFG (3.0, 4.0), 28 of 80 elided, boundary step 26)
-   and i2v-A14B from a seeded image (shift 5, CFG (3.5, 3.5), 21 of 80,
-   boundary 15); each expert's trunk runs counted against the computed
-   steps before and after the switch;
+68. the A14B MoE at 832x480x17, 24 steps (cut from 40), both WAN_14B
+   experts resident: t2v-A14B (shift 12, CFG (3.0, 4.0), 17 of 48 elided,
+   boundary step 16) and i2v-A14B from a seeded image (shift 5, CFG (3.5,
+   3.5), 13 of 48, boundary 9; lane-asymmetric steps on both); each
+   expert's trunk runs counted against the computed steps before and after
+   the switch;
 69. narrow VACE, ti2v (an image through a Wan2.2-layout VAE) and t2v-A14B
    (two experts, MagCache across the switch) pipelines, bf16 DiT on the
    card against f32 on the CPU within 5e-2 rel L2, and the ti2v image
@@ -399,14 +400,14 @@ MMDiT with FramePack's clean-latent projections for every phase):
    1x118,800x3,072, each against its plain version;
 71. one full-shape forward at 720x1280x129, its launches (K1 60 fixed + 2
    running, K2h 160, K3 121) and peak memory;
-72. a HunyuanVideo request from the prompt at 720x1280x17 x 50 Euler
-   steps, MagCache hunyuanvideo-720p (31 of 50 elided): Llava-Llama-3-8B
+72. a HunyuanVideo request from the prompt at 720x1280x17 x 20 Euler
+   steps (cut from 50), MagCache hunyuanvideo-720p (13 of 20 elided): Llava-Llama-3-8B
    (f32, no output head, the template's prefix cropped at its hash
    tokenizer words) and CLIP-L pooled on the card beside the DiT;
-73. FramePack requests at 768x512, 2 sections of 9 latent frames x 25
-   steps, a start latent from a seeded image: the padded mode with
-   MagCache framepack and F1 with framepack-f1 (13 of 25 elided in every
-   section, ``on_section`` once a section);
+73. FramePack requests at 768x512, 2 sections of 9 latent frames x 10
+   steps (cut from 25), a start latent from a seeded image: the padded mode
+   with MagCache framepack and F1 with framepack-f1 (5 of 10 elided in
+   every section, ``on_section`` once a section);
 74. one TeaCache section (FRAMEPACK_TEA_COEFFS, the first and last step
    forced), its launches from its realized bits;
 75. narrow HunyuanVideo and FramePack pipelines, bf16 MMDiT on the card
@@ -423,17 +424,17 @@ of 60 double blocks for phases 77-79):
    its plain version;
 77. text-to-image and Edit forwards at 1664x928, twice each: seconds,
    peak memory, launches per forward (K1 60, K2h 240, K3 241);
-78. requests from the prompt at 1664x928 x 50 Euler steps, true CFG 4.0:
-   the Qwen2.5-VL-7B text tower (7.07 B, f32, template prefix of 34
-   tokens cropped, a special-token tokenizer) beside the DiT; full compute
-   and MagCache qwen-image (26 of 100 lane-forwards elided), their time
-   ratio against the schedule's ceiling;
+78. requests from the prompt at 1664x928 x 20 Euler steps (cut from 50),
+   true CFG 4.0: the Qwen2.5-VL-7B text tower (7.07 B, f32, template prefix
+   of 34 tokens cropped, a special-token tokenizer) beside the DiT; full
+   compute and MagCache qwen-image (8 of 40 lane-forwards elided), their
+   time ratio against the schedule's ceiling;
 79. an Edit request from a seeded 928x1664 image: the Wan VAE's one-frame
    encode (f32) into the reference latents (its first part, run before
    phase 78 builds the LM: the VAE's mid attention needs the room), the
    Qwen2.5-VL vision tower (f32) spliced into phase 78's LM with M-RoPE
    (the pads counted against the merged tokens), MagCache qwen-image-edit
-   x 50 steps;
+   x 20 steps;
 80. narrow text-to-image and Edit pipelines (2 blocks of 2 heads of 128)
    with skipped and lane-asymmetric steps, bf16 on the card against f32 on
    the CPU within 5e-2 rel L2; a narrow vision tower and the M-RoPE stack
@@ -465,6 +466,29 @@ stay plain at that head dim, as in JAX; one 3.012 B DiT for phases 82-84):
 85. narrow text-to-image and edit (2 references) pipelines at head dim 120
    (hidden 480, 4 heads over 2), MagCache with skips, bf16 on the card
    against f32 on the CPU within 5e-2 rel L2, K1 launches as counted.
+
+Serving and evaluation, Wan2.1 T2V-1.3B at 832x480x17 x 20 steps (K1, K2,
+K3, K3p; phase 5's seeded weights):
+86. ``serve.PipelineServer(max_batch=2)`` behind ``make_http_server`` on
+   127.0.0.1, over loopback HTTP: a warmup pair (the largest batch),
+   sync requests at E012K2R02,
+   full compute (``use_magcache: false``) and E024K6R02 with their
+   latents, an async request polled at ``/jobs/<id>``, two concurrent
+   requests micro-batched into one ``generate_batch`` (2 prompts x 2 CFG
+   lanes = 4 rows), ``/healthz`` (naming the card) and ``/info``; checks
+   status codes, skip counts against ``skip_mask_for``, launches against
+   the trunk runs (a batch one a step), the served latents bit-equal to
+   ``generate`` at the same seed, each batched element (the async request
+   alone, the concurrent pair) bit-equal to its single run, peak memory
+   flat (5%), and K1, K2 and K3 at the
+   batch-of-4 shape against their plain versions; then
+   ``python -m magcache_tpu_torch.cli.serve`` as a subprocess: its address,
+   one request against the in-process latents, SIGINT, exit 0;
+87. ``eval.sweep.run_sweep`` over two ``DEFAULT_PROMPTS``: full compute one
+   prompt at a time, MagCache with ``dp=2`` (one ``generate_batch``), their
+   manifests, launches against the realized schedules, both
+   ``sec_per_video_mean``; ``eval.compare.compare_dirs`` of the MagCache
+   latents against the full ones (finite PSNR and SSIM).
 
 Every request of phases 63-69 checks its skip bits against
 ``compute_skip_schedule``, its launches against the trunk runs and its
@@ -498,7 +522,8 @@ phases 73 (padded) and 74; ``framepack-f1``: phase 73; ``qwen-image``:
 phases 77 (two text-to-image forwards) and 78; ``qwen-image-edit``: phases
 77 (two Edit forwards) and 79; ``omnigen2``: phases 82 (two text-to-image
 forwards) and 83; ``omnigen2-edit``: phases 82 (two forwards of each edit
-program), 83 and 84), its worst error over every shape
+program), 83 and 84; ``wan-serve``: phase 86's in-process served requests;
+``wan-sweep``: phase 87's two sweeps), its worst error over every shape
 compared, and the times of its first shape timed, named in ``timed_at``,
 with their method in ``timing`` (``loop`` or ``graph``); ``shapes`` lists
 every shape compared with its own error, times and bound.
@@ -5223,7 +5248,8 @@ def phase_i2v_card_vs_cpu(dev):
 # row, then the t = 0 prefix. The head adds K3p once a step.
 TI2V_GRID = (31, 22, 40)        # 1280x704x121: latents (31, 44, 80), patch (1, 2, 2)
 TI2V_SIZE, TI2V_STEPS = (1280, 704), 50
-VACE_STEPS, A14B_STEPS = 50, 40  # the JAX CLI's defaults
+VACE_STEPS = 50                 # the JAX CLI's default
+A14B_STEPS = 24                 # cut from the JAX CLI's 40; lane-asymmetric steps remain
 WAN22_FRAMES = 17                # the requests' frames, cut from 81 and 121
 
 
@@ -5567,8 +5593,8 @@ def phase_a14b_requests(dev, vae):
         f"MagCache wan2.2-t2v-A14B; i2v-A14B shift 5, CFG (3.5, 3.5), MagCache "
         f"wan2.2-i2v-A14B, from a seeded image through the Wan VAE encode")
     total = dict(NO_LAUNCHES)
-    for task, shift, guide, elided, boundary in (("t2v", 12.0, (3.0, 4.0), 28, 26),
-                                                 ("i2v", 5.0, (3.5, 3.5), 21, 15)):
+    for task, shift, guide, elided, boundary in (("t2v", 12.0, (3.0, 4.0), 17, 16),
+                                                 ("i2v", 5.0, (3.5, 3.5), 13, 9)):
         model = f"wan2.2-{task}-A14B"
         cfg = WanPipelineConfig(model=model, task=task, size=(832, 480),
                                 frame_num=WAN22_FRAMES, sample_steps=A14B_STEPS,
@@ -5723,11 +5749,13 @@ HY_GRID, HY_TXT = (33, 45, 80), 256
 HY_TRUNK_LAUNCHES = dict(NO_LAUNCHES, flash_attention_bshd=60, rms_norm_rope_head=160,
                          layer_norm_mod=120)
 HY_STEP_LAUNCHES = dict(NO_LAUNCHES, flash_attention_bshd=2, layer_norm_mod=1)
-HY_REQ_FRAMES, HY_STEPS = 17, 50     # 5 latent frames: 18,000 video tokens
+HY_REQ_FRAMES, HY_STEPS = 17, 20     # 5 latent frames: 18,000 video tokens; steps cut from 50
+HY_ELIDED = 13                       # hunyuanvideo-720p's skips at HY_STEPS
 # FramePack at 768x512: sections of 9 latent frames of 32 x 48 tokens behind
 # 2 clean frames, one 2x frame (16 x 24) and four 4x frames (8 x 12): 17,664
 # image tokens, 17,920 with the text
-FP_SIZE, FP_WINDOW, FP_STEPS, FP_SECTIONS = (768, 512), 9, 25, 2
+FP_SIZE, FP_WINDOW, FP_STEPS, FP_SECTIONS = (768, 512), 9, 10, 2   # steps cut from 25
+FP_ELIDED = 5                        # framepack's and framepack-f1's skips at FP_STEPS
 # the refiner's f32 stream with K1 on bf16-rounded q, k, v: one bf16
 # rounding (2^-9) a block, as the CLIP tower's CLIP_TOWER_TOL
 REFINER_TOL = 2 * 2 ** -9
@@ -5987,11 +6015,12 @@ def phase_hunyuan_request(dev, model):
         txt_len=HY_TXT, use_magcache=True, dtype="bfloat16")
     pipe = FramePackPipeline(cfg, dev, text_encoder=text, pooled_encoder=pooled, model=model)
     sched = compute_skip_schedule(pipe.cache_cfg())
-    if int(sched.sum()) != 31:
-        fail(f"hunyuanvideo-720p at {HY_STEPS} steps elides {int(sched.sum())}, not 31")
+    if int(sched.sum()) != HY_ELIDED:
+        fail(f"hunyuanvideo-720p at {HY_STEPS} steps elides {int(sched.sum())}, not {HY_ELIDED}")
     _, launched = hy_request("HunyuanVideo 720p MagCache", pipe, sched,
                              (1, window, 90, 160, 16))
-    log(f"  schedule ceiling {HY_STEPS / (HY_STEPS - 31):.3f}x (31 of {HY_STEPS} elided)")
+    log(f"  schedule ceiling {HY_STEPS / (HY_STEPS - HY_ELIDED):.3f}x ({HY_ELIDED} of "
+        f"{HY_STEPS} elided)")
     return launched
 
 
@@ -6043,14 +6072,14 @@ def phase_framepack_requests(dev, model):
             use_magcache=True, dtype="bfloat16")
         pipe = FramePackPipeline(cfg, dev, model=model)
         sched = compute_skip_schedule(pipe.cache_cfg())
-        if int(sched.sum()) != 13:
-            fail(f"{key} at {FP_STEPS} steps elides {int(sched.sum())}, not 13")
+        if int(sched.sum()) != FP_ELIDED:
+            fail(f"{key} at {FP_STEPS} steps elides {int(sched.sum())}, not {FP_ELIDED}")
         frames = FP_SECTIONS * FP_WINDOW + (1 if key == "framepack" else 0)
         out, launches[key] = hy_request(f"{key} MagCache", pipe, sched,
                                         (1, frames, h // 8, w // 8, 16), start_latent=start)
         if key == "framepack" and not torch.equal(out.latents[0, 0].cpu(), start[0]):
             fail("framepack: the padded mode's video does not lead with the start latent")
-        log(f"  {key}: schedule ceiling {FP_STEPS / (FP_STEPS - 13):.3f}x a section")
+        log(f"  {key}: schedule ceiling {FP_STEPS / (FP_STEPS - FP_ELIDED):.3f}x a section")
     log("phase 74: one FramePack TeaCache section (padded, pad 0) at the same shape, "
         "FRAMEPACK_TEA_COEFFS, threshold 0.15, the first and last step forced")
     cfg = FramePackPipelineConfig(
@@ -6176,7 +6205,7 @@ def phase_hunyuan_card_vs_cpu(dev):
 # blocks: K1 (fixed max) once a block, K2 in head scope four times (q, k of
 # each stream), K3 mod four times; every step's head adds one K3, skipped or
 # not. Edit adds one reference's 6,032 tokens to the image stream.
-QI_SIZE, QI_TXT, QI_STEPS = (1664, 928), 256, 50
+QI_SIZE, QI_TXT, QI_STEPS = (1664, 928), 256, 20   # steps cut from 50
 QI_GRID = (QI_SIZE[1] // 16, QI_SIZE[0] // 16)
 QI_TRUNK_LAUNCHES = dict(NO_LAUNCHES, flash_attention_bshd=60, rms_norm_rope_head=240,
                          layer_norm_mod=240)
@@ -7028,6 +7057,414 @@ def phase_omnigen2_card_vs_cpu(dev):
                      want, launched, dict(NO_LAUNCHES, flash_attention_bshd=k1))
 
 
+# -------------------------------- serving and evaluation, Wan2.1 T2V-1.3B
+SERVE_PROMPTS = ("A red sailboat glides across a calm bay at dawn.",
+                 "A litter of golden retriever puppies playing in the snow.")
+SERVE_HTTP_S = 300          # the longest a loopback HTTP call may take
+SERVE_SUBPROCESS_S = 300    # the cli.serve subprocess: start to its first answer
+
+
+def http_json(method: str, url: str, payload=None, timeout: float = SERVE_HTTP_S):
+    """``(status, body)`` of one loopback HTTP call, error statuses included."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, method=method,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def served_latents(rec: dict) -> torch.Tensor:
+    import base64
+    import io
+
+    return torch.from_numpy(np.load(io.BytesIO(base64.b64decode(rec["result"]["latents_b64"]))))
+
+
+def trunk_runs(mask: np.ndarray) -> int:
+    """Steps on which some lane computes: one trunk run each."""
+    return int((~mask.all(1)).sum())
+
+
+def batch4_kernel_checks(dev, rec) -> None:
+    """K1 (self and cross), K2 token scope and K3 (mod, affine) at the
+    micro-batch's shape, 2 prompts x 2 CFG lanes of 7,800 tokens, against
+    their plain versions with phase 3's tolerances."""
+    from magcache_tpu_torch.models.wan import WAN_1_3B, wan_rope_tables
+    from magcache_tpu_torch.ops import attention as A
+    from magcache_tpu_torch.ops import fused_prologue as P
+
+    gen = torch.Generator(device=dev).manual_seed(86)
+    B, S, H, D, L, bf = 4, 5 * 30 * 52, 12, 128, 512, torch.bfloat16
+
+    def rnd(*shape, dtype=bf, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    q, k, v = rnd(B, S, H, D), rnd(B, S, H, D), rnd(B, S, H, D)
+    ck, cv = rnd(B, L, H, D), rnd(B, L, H, D)
+    for label, (kk, vv) in (("self", (k, v)), ("cross 512 keys", (ck, cv))):
+        got = A.flash_attention_bshd(q, kk, vv, fixed_max=16.0)
+        want = A.flash_attention_bshd_plain(q, kk, vv, fixed_max=16.0)
+        err = compare(f"K1 flash_attention_bshd [micro-batch 4x{S} {label}, fixed_max=16]",
+                      got, want, atol=2e-3, rtol=2e-2)
+        ms = cuda_ms(lambda: A.flash_attention_bshd(q, kk, vv, fixed_max=16.0), 5)
+        pms = cuda_ms(lambda: A.flash_attention_bshd_plain(q, kk, vv, fixed_max=16.0), 2)
+        lms = sdpa_ms(q, kk, vv, 5)
+        flops = 4 * B * H * S * kk.shape[1] * D
+        moved = 2 * nbytes(q) + nbytes(kk, vv)
+        log(f"  K1 [4x{S} {label}]: kernel {ms:.3f} ms ({rate(flops, moved, ms)}), plain "
+            f"{pms:.3f} ms, SDPA {lms:.3f} ms")
+        keep(rec, "flash_attention_bshd", err, ms, pms, "loop",
+             f"4x{S}x12x128 micro-batch {label}", (flops, moved),
+             ("F.scaled_dot_product_attention", lms))
+    del q, k, v, ck, cv
+    x = rnd(B, S, H * D, scale=2.0)
+    gain = 1.0 + rnd(H * D, dtype=torch.float32, scale=0.1)
+    cos_np, sin_np = wan_rope_tables(WAN_1_3B, (5, 30, 52))
+    cos, sin = torch.from_numpy(cos_np).to(dev), torch.from_numpy(sin_np).to(dev)
+    err = compare(f"K2 rms_norm_rope [micro-batch 4x{S}, token scope]",
+                  P.rms_norm_rope(x, gain, cos, sin, H, eps=1e-6),
+                  P.rms_norm_rope_plain(x, gain, cos, sin, H, eps=1e-6), atol=3e-2, rtol=1.6e-2)
+    ms = cuda_ms(lambda: P.rms_norm_rope(x, gain, cos, sin, H, eps=1e-6))
+    pms = cuda_ms(lambda: P.rms_norm_rope_plain(x, gain, cos, sin, H, eps=1e-6))
+    log(f"  K2 [4x{S}]: kernel {ms:.3f} ms, plain {pms:.3f} ms")
+    keep(rec, "rms_norm_rope", err, ms, pms, "loop", f"4x{S}x1536 micro-batch",
+         elementwise_work(x, gain, cos, sin))
+    sc = rnd(B, 1, H * D, dtype=torch.float32, scale=0.1)
+    sh = rnd(B, 1, H * D, dtype=torch.float32, scale=0.1)
+    w = 1.0 + rnd(H * D, dtype=torch.float32, scale=0.1)
+    bias = rnd(H * D, dtype=torch.float32, scale=0.1)
+    for label, kw in (("mod", dict(scale=sc, shift=sh)), ("affine", dict(weight=w, bias=bias))):
+        err = compare(f"K3 layer_norm_mod [micro-batch 4x{S} {label}]",
+                      P.layer_norm_mod(x, eps=1e-6, **kw),
+                      P.layer_norm_mod_plain(x, eps=1e-6, **kw), atol=3e-2, rtol=1.6e-2)
+        ms = cuda_ms(lambda: P.layer_norm_mod(x, eps=1e-6, **kw))
+        pms = cuda_ms(lambda: P.layer_norm_mod_plain(x, eps=1e-6, **kw))
+        lib = None
+        if label == "affine":
+            wb, bb = w.to(x.dtype), bias.to(x.dtype)
+            lib = ("F.layer_norm", cuda_ms(lambda: torch.nn.functional.layer_norm(
+                x, (H * D,), wb, bb, eps=1e-6)))
+        log(f"  K3 [4x{S} {label}]: kernel {ms:.3f} ms, plain {pms:.3f} ms"
+            + (f", F.layer_norm {lib[1]:.3f} ms" if lib else ""))
+        keep(rec, "layer_norm_mod", err, ms, pms, "loop", f"4x{S}x1536 micro-batch {label}",
+             elementwise_work(x, *kw.values()), lib)
+
+
+def serve_cli_subprocess(want_skips: np.ndarray, served: torch.Tensor) -> None:
+    """``python -m magcache_tpu_torch.cli.serve`` at the served config as a
+    process of its own: read its address, POST one request at its config's
+    schedule, check it against the in-process served latents (the same
+    seeded weights), stop it with SIGINT and require exit code 0."""
+    import os
+    import signal
+    import sys
+    import threading
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "magcache_tpu_torch.cli.serve", "--task", "t2v-1.3B",
+           "--frame_num", "17", "--sample_steps", str(STEPS), "--use_magcache", "--port", "0"]
+    log(f"  subprocess: {' '.join(cmd[1:])}")
+    t0 = time.time()
+    proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, env=dict(os.environ, PYTHONPATH=root))
+    lines = []
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line)
+
+    threading.Thread(target=read, daemon=True).start()
+    try:
+        while not any(l.startswith("serving ") for l in lines):
+            if proc.poll() is not None or time.time() - t0 > SERVE_SUBPROCESS_S:
+                fail(f"cli.serve did not start (exit {proc.poll()}): {''.join(lines)[-2000:]}")
+            time.sleep(0.1)
+        line = next(l for l in lines if l.startswith("serving "))
+        addr = line.split(" on ")[1].split()[0]
+        t_up = time.time() - t0
+        code, rec = http_json("POST", addr + "/generate",
+                              {"prompt": WAN_PROMPT, "seed": 3, "return_latents": True})
+        t_req = time.time() - t0 - t_up
+        if code != 200 or rec.get("status") != "done":
+            fail(f"cli.serve answered {code}: {rec}")
+        res = rec["result"]
+        if (res["skipped_forwards"], res["total_forwards"]) != (int(want_skips.sum()),
+                                                                want_skips.size):
+            fail(f"cli.serve skipped {res['skipped_forwards']} of {res['total_forwards']}, "
+                 f"not {int(want_skips.sum())} of {want_skips.size}")
+        lat = served_latents(rec)
+        if tuple(lat.shape) != (1, 5, 60, 104, 16) or not bool(torch.isfinite(lat).all()):
+            fail(f"cli.serve latents {tuple(lat.shape)} not finite or misshapen")
+        err = rel_l2(lat, served)
+        log(f"  {line.strip()}: up in {t_up:.1f} s (torch, the random 1.3 B model); one "
+            f"request {t_req:.3f} s round trip (wall_s {rec['wall_s']}, queue_wait_s "
+            f"{rec['queue_wait_s']}); {res['skipped_forwards']} of {res['total_forwards']} "
+            f"lane-forwards skipped; latents against the in-process served ones: "
+            f"{'bit-equal' if torch.equal(lat, served) else f'rel L2 {err:.3e}'}")
+        if err > 1e-2:
+            fail(f"cli.serve latents {err:.3e} rel L2 from the in-process ones")
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=60)
+        log(f"  SIGINT: cli.serve exited {rc} after {time.time() - t0:.1f} s in all")
+        if rc != 0:
+            fail(f"cli.serve exited {rc} on SIGINT: {''.join(lines)[-2000:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+
+
+def phase_serve(dev, model, rec):
+    """Returns the in-process served requests' launches."""
+    import threading
+
+    from magcache_tpu_torch.pipelines.wan import WanPipeline, WanPipelineConfig
+    from magcache_tpu_torch.serve import PipelineServer, make_http_server
+
+    log(f"phase 86: Wan2.1 T2V-1.3B served over loopback HTTP, 832x480x17, {STEPS} UniPC "
+        f"steps, MagCache E012K2R02: PipelineServer(max_batch=2) behind make_http_server; a "
+        f"warmup pair, per-request E/K/R overrides, an async job, two concurrent requests "
+        f"micro-batched (2 prompts x 2 CFG lanes), /healthz and /info; then cli.serve as a "
+        f"subprocess")
+    pipe = WanPipeline(WanPipelineConfig(use_magcache=True, size=(832, 480), frame_num=17,
+                                         sample_steps=STEPS, sample_shift=5.0,
+                                         guide_scale=5.0), dev, model=model)
+    batches = []
+    generate_batch = pipe.generate_batch
+
+    def recording_batch(prompts, **kw):         # keeps each batch's latents
+        out = generate_batch(prompts, **kw)
+        batches.append((list(prompts), list(kw["seeds"]), out.latents.float().cpu()))
+        return out
+
+    pipe.generate_batch = recording_batch
+    sched = pipe.skip_mask_for()
+    overrides = {"E012K2R02": dict(magcache_thresh=0.12, magcache_K=2, retention_ratio=0.2),
+                 "full compute": dict(use_magcache=False),
+                 "E024K6R02": dict(magcache_thresh=0.24, magcache_K=6, retention_ratio=0.2)}
+    masks = {name: pipe.skip_mask_for(
+        thresh=o.get("magcache_thresh"), K=o.get("magcache_K"),
+        retention_ratio=o.get("retention_ratio"), use_magcache=o.get("use_magcache", True))
+        for name, o in overrides.items()}
+    if not np.array_equal(masks["E012K2R02"], sched) or not (
+            0 < sched.sum() < masks["E024K6R02"].sum()):
+        fail("the override masks do not order as E012K2R02 = the config's < E024K6R02")
+    server = PipelineServer(pipe, steps=STEPS, max_batch=2, batch_window_s=1.0)
+    httpd = make_http_server(server, "127.0.0.1", 0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    base = "http://127.0.0.1:%d" % httpd.server_address[1]
+    done, runs, peaks = {}, 0, []
+
+    def post(label, payload, want_code=200):
+        code, body = http_json("POST", base + "/generate", payload)
+        if code != want_code:
+            fail(f"{label}: HTTP {code}, not {want_code}: {body}")
+        return body
+
+    def post_concurrent(label, payloads):
+        """Two POSTs at once: the executor batches them in its window."""
+        got = [None] * len(payloads)
+
+        def one(i):
+            got[i] = http_json("POST", base + "/generate", payloads[i])
+
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(len(payloads))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(SERVE_HTTP_S)
+        for i, res in enumerate(got):
+            if res is None or res[0] != 200:
+                fail(f"{label} {i}: {res}")
+            if res[1]["result"].get("batched") != len(payloads):
+                fail(f"{label} {i}: batched {res[1]['result'].get('batched')}, not "
+                     f"{len(payloads)}")
+        jobs = [server.get(body["job_id"]) for _, body in got]
+        if len({j.started_at for j in jobs}) != 1:
+            fail(f"{label}: the requests did not share one executor pass")
+        return [body for _, body in got]
+
+    def check(label, body, mask, batched=None, count=True):
+        nonlocal runs
+        if body.get("status") != "done":
+            fail(f"{label}: status {body.get('status')}: {body.get('error')}")
+        res = body["result"]
+        if res["latents_shape"] != [1, 5, 60, 104, 16]:
+            fail(f"{label}: latents_shape {res['latents_shape']}")
+        if batched is not None and res.get("batched") != batched:
+            fail(f"{label}: batched {res.get('batched')}, not {batched}")
+        if batched is None and (res["skipped_forwards"], res["total_forwards"]) != (
+                int(mask.sum()), mask.size):
+            fail(f"{label}: skipped {res['skipped_forwards']} of {res['total_forwards']}, "
+                 f"not skip_mask_for's {int(mask.sum())} of {mask.size}")
+        runs += trunk_runs(mask) if count else 0
+        done[label] = body
+        peaks.append(torch.cuda.max_memory_allocated(dev))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    try:
+        # the warmup runs the largest batch the server runs (2 prompts, 4
+        # rows), as PipelineServer.warmup does: the peak after it is the one
+        # every later request is held to
+        for i, body in enumerate(post_concurrent(
+                "warmup", [{"prompt": "warmup", "seed": i} for i in (0, 1)])):
+            check(f"warmup {i}", body, sched, batched=2, count=i == 0)
+        for name, o in overrides.items():
+            check(f"sync {name}", post(name, {"prompt": WAN_PROMPT, "seed": 3,
+                                              "return_latents": True, **o}), masks[name])
+        sub = post("async", {"prompt": SERVE_PROMPTS[0], "seed": 11, "async": True}, 202)
+        deadline = time.time() + SERVE_HTTP_S
+        while True:
+            code, body = http_json("GET", f"{base}/jobs/{sub['job_id']}")
+            if code != 200 or body["status"] not in ("queued", "running", "done"):
+                fail(f"async job: HTTP {code}, {body}")
+            if body["status"] == "done":
+                break
+            if time.time() > deadline:
+                fail("async job: not done in time")
+            time.sleep(0.05)
+        check("async", body, sched, batched=1)
+        for i, body in enumerate(post_concurrent(
+                "concurrent", [{"prompt": SERVE_PROMPTS[i], "seed": 21 + i} for i in (0, 1)])):
+            check(f"concurrent {i}", body, sched, batched=2, count=i == 0)
+        launched = read_counts()
+        code_h, health = http_json("GET", base + "/healthz")
+        code_i, info = http_json("GET", base + "/info")
+    finally:
+        httpd.shutdown()
+        server.shutdown()
+    card = torch.cuda.get_device_name(dev)
+    if code_h != 200 or not health["ok"] or health.get("backend") != "cuda" \
+            or health.get("device_name") != card:
+        fail(f"/healthz {code_h} {health} does not name the card {card!r}")
+    if code_i != 200 or info["steps"] != STEPS or not info["overrides_supported"] \
+            or info["config"]["size"] != [832, 480]:
+        fail(f"/info {code_i}: {info}")
+    log(f"  /healthz {health}; /info: {info['pipeline']}, {info['steps']} steps, "
+        f"overrides supported")
+    # 6 sampler runs: 3 single (the sync requests), 3 batched (the warmup
+    # pair and the concurrent pair, 4 rows each; the async job alone)
+    heads = 6 * STEPS
+    expected = wan_launches(TRUNK_LAUNCHES, runs, heads)
+    log(f"  launches of the served requests: {launched} ({runs} trunk runs, a batch one "
+        f"a step; K3p {heads})")
+    for k, got in launched.items():
+        if got != expected[k]:
+            fail(f"served requests: {k} launched {got} times, expected {expected[k]}")
+    if peaks[-1] > 1.05 * peaks[0]:
+        fail(f"peak memory grew from {peaks[0] / 1e9:.2f} GB after the first request to "
+             f"{peaks[-1] / 1e9:.2f} GB after the last")
+    log(f"  peak memory {peaks[0] / 1e9:.2f} GB after the first request, "
+        f"{peaks[-1] / 1e9:.2f} GB after the last")
+
+    # the same requests straight through generate (not counted above)
+    direct = {}
+    for name, mask in masks.items():
+        out = pipe.generate(WAN_PROMPT, seed=3, skip_override=mask)
+        served = served_latents(done[f"sync {name}"])
+        same = torch.equal(served, out.latents.float().cpu())
+        body = done[f"sync {name}"]
+        log(f"  sync {name}: wall_s {body['wall_s']} queue_wait_s {body['queue_wait_s']} "
+            f"(served generate {body['result']['timings']['total_s']} s; direct generate "
+            f"{out.timings['total_s']:.3f} s); {body['result']['skipped_forwards']} of "
+            f"{body['result']['total_forwards']} skipped; latents "
+            f"{'bit-equal to' if same else 'DIFFER from'} the direct generate's")
+        if not same:
+            fail(f"sync {name}: served latents differ from generate's at the same seed "
+                 f"(rel L2 {rel_l2(served, out.latents):.3e})")
+        direct[name] = out
+    # a micro-batched element is its single run, bit for bit: its rows take
+    # the same kernels and reductions whatever the batch (phase 86's readings
+    # on the card, and tests/test_torch_serve.py on the CPU)
+    body = done["warmup 0"]
+    log(f"  warmup (a micro-batch of 2): wall_s {body['wall_s']} queue_wait_s "
+        f"{body['queue_wait_s']} (generate_batch {body['result']['timings']['total_s']} s)")
+    lone = next(b for b in batches if b[1] == [11])
+    pairs = next(b for b in batches if sorted(b[1]) == [21, 22])
+    for label, (prompts, seeds, lat) in (("async", lone), ("concurrent", pairs)):
+        for j, (prompt, seed) in enumerate(zip(prompts, seeds)):
+            single = pipe.generate(prompt, seed=seed)
+            same = torch.equal(lat[j], single.latents[0].float().cpu())
+            name = label if len(prompts) == 1 else f"concurrent {seed - 21}"
+            body = done[name]
+            log(f"  {name} (element {j} of a micro-batch of {len(prompts)}): wall_s "
+                f"{body['wall_s']} queue_wait_s {body['queue_wait_s']} (generate_batch "
+                f"{body['result']['timings']['total_s']} s for the batch; its single run "
+                f"{single.timings['total_s']:.3f} s); "
+                f"{'bit-equal to' if same else 'DIFFERS from'} its single run")
+            if not bool(torch.isfinite(lat[j]).all()) or not same:
+                fail(f"micro-batched {name}: rel L2 {rel_l2(lat[j], single.latents[0]):.3e} "
+                     f"from its single run, not bit-equal")
+    batch4_kernel_checks(dev, rec)
+    serve_cli_subprocess(sched, served_latents(done["sync E012K2R02"]))
+    return launched
+
+
+def phase_sweep(dev, model):
+    """Returns the two sweeps' launches."""
+    import os
+    import shutil
+
+    from magcache_tpu_torch.eval.compare import compare_dirs
+    from magcache_tpu_torch.eval.sweep import (DEFAULT_PROMPTS, SweepConfig, run_sweep,
+                                               sweep_pipeline_config)
+    from magcache_tpu_torch.pipelines.wan import WanPipeline
+
+    log(f"phase 87: run_sweep over DEFAULT_PROMPTS[0:2] at 832x480x17, {STEPS} UniPC steps: "
+        f"full compute (one prompt at a time), then MagCache (dp=2: both prompts in one "
+        f"generate_batch), then compare_dirs of the MagCache latents against the full ones")
+    root = os.path.join(_scratch_dir(), "sweep")
+    shutil.rmtree(root, ignore_errors=True)
+    launches, dirs, summaries = dict(NO_LAUNCHES), {}, {}
+    for variant, dp in (("full", 1), ("magcache", 2)):
+        cfg = SweepConfig(variant=variant, dp=dp, end_index=2, size=(832, 480), frame_num=17,
+                          sample_steps=STEPS, out_dir=os.path.join(root, variant))
+        pipe = WanPipeline(sweep_pipeline_config(cfg), dev, model=model)
+        mask = pipe.skip_mask_for(use_magcache=variant == "magcache")
+        if variant == "magcache" and not mask.any():
+            fail("the sweep's MagCache schedule skips nothing")
+        reset_counts()
+        summary = run_sweep(cfg, pipeline=pipe)
+        launched = read_counts()
+        sampler_runs = 2 if dp == 1 else 1
+        expected = wan_launches(TRUNK_LAUNCHES, sampler_runs * trunk_runs(mask),
+                                sampler_runs * STEPS)
+        if launched != expected:
+            fail(f"sweep {variant}: launches {launched}, not {expected} (the realized "
+                 f"schedule: {trunk_runs(mask)} trunk runs a run)")
+        rows = [json.loads(line) for line in open(os.path.join(cfg.out_dir, "manifest.jsonl"))]
+        if ([(r["index"], r["seed"], r["variant"], r["prompt"]) for r in rows]
+                != [(i, i, variant, DEFAULT_PROMPTS[i]) for i in (0, 1)]):
+            fail(f"sweep {variant}: manifest {rows}")
+        for i in (0, 1):
+            arr = np.load(os.path.join(cfg.out_dir, f"{i:05d}.npy"))
+            if arr.shape != (5, 60, 104, 16) or not np.isfinite(arr).all():
+                fail(f"sweep {variant}: {i:05d}.npy {arr.shape} not finite or misshapen")
+        launches = {k: n + launched[k] for k, n in launches.items()}
+        dirs[variant], summaries[variant] = cfg.out_dir, summary
+        log(f"  {variant} (dp {dp}): sec_per_video_mean {summary['sec_per_video_mean']:.3f} s, "
+            f"sec_total {summary['sec_total']} s; {trunk_runs(mask)} of {STEPS} steps run the "
+            f"trunk ({int(mask.sum())} of {mask.size} lane-forwards skipped), launches as "
+            f"counted")
+    cmp = compare_dirs(dirs["magcache"], dirs["full"], metrics=("psnr", "ssim"))
+    mean = cmp["mean"]
+    if cmp["count"] != 2 or not all(np.isfinite(v) for v in mean.values()):
+        fail(f"compare_dirs: {cmp}")
+    log(f"  compare_dirs (MagCache latents against full compute, latent space, random "
+        f"weights): PSNR {mean['psnr']:.3f} dB, SSIM {mean['ssim']:.4f} over {cmp['count']} "
+        f"videos; sec_per_video_mean full {summaries['full']['sec_per_video_mean']:.3f} s, "
+        f"MagCache dp 2 {summaries['magcache']['sec_per_video_mean']:.3f} s")
+    return launches
+
+
 def main():
     phase_environment()
     dev = torch.device("cuda", 0)
@@ -7263,6 +7700,14 @@ def main():
     torch.cuda.empty_cache()
     phase_omnigen2_card_vs_cpu(dev)
     t_og = time.time() - t0_og
+    t0_serve = time.time()
+    log("phase 86/87 model:")
+    model = make_model(dev)          # the same seed: phase 5's weights
+    serve = phase_serve(dev, model, rec)
+    sweep = phase_sweep(dev, model)
+    del model
+    torch.cuda.empty_cache()
+    t_serve = time.time() - t0_serve
     log(f"all phases passed in {time.time() - t0:.1f} s (Wan {t_wan:.1f} s, "
         f"Open-Sora {t_os:.1f} s, FLUX {t_flux:.1f} s, Open-Sora 720p "
         f"{t_os720:.1f} s, Latte {t_latte:.1f} s, Wan sequence-parallel {t_sp:.1f} s, "
@@ -7271,12 +7716,13 @@ def main():
         f"{t_pab:.1f} s, Open-Sora-Plan and CogVideoX {t_osp:.1f} s, Vchitect and the "
         f"Open-Sora-Plan and CogVideoX VAEs {t_vch:.1f} s, the SD and Open-Sora VAEs "
         f"and the requests ending in their pixels "
-        f"{time.time() - t0 - t_wan - t_os - t_flux - t_os720 - t_latte - t_sp - t_unpacked - t_ends - t_pab - t_osp - t_vch - t_i2v - t_w22 - t_hy - t_qi - t_og:.1f} s; "
+        f"{time.time() - t0 - t_wan - t_os - t_flux - t_os720 - t_latte - t_sp - t_unpacked - t_ends - t_pab - t_osp - t_vch - t_i2v - t_w22 - t_hy - t_qi - t_og - t_serve:.1f} s; "
         f"the text encoders' phases 55-57, within those, {t_text:.1f} s; Wan I2V-14B and "
         f"FLF2V-14B, phases 58-62, {t_i2v:.1f} s; Wan2.2 TI2V-5B, VACE and the A14B MoE, "
         f"phases 63-69, {t_w22:.1f} s; HunyuanVideo and FramePack, phases 70-75, "
         f"{t_hy:.1f} s; Qwen-Image and Qwen-Image-Edit, phases 76-80, {t_qi:.1f} s; "
-        f"OmniGen2, phases 81-85, {t_og:.1f} s)")
+        f"OmniGen2, phases 81-85, {t_og:.1f} s; serving and the sweep, phases 86-87, "
+        f"{t_serve:.1f} s)")
 
     meta = {
         "flash_attention_bshd": ("cuda", "magcache_tpu_torch/csrc/hopper_attention.cuh",
@@ -7327,7 +7773,7 @@ def main():
              "wan-vace": vace, "wan-a14b": a14b, "hunyuan": hunyuan,
              "framepack": framepack["framepack"], "framepack-f1": framepack["framepack-f1"],
              "qwen-image": qwen, "qwen-image-edit": qwen_edit, "omnigen2": og["t2i"],
-             "omnigen2-edit": og["edit"]}
+             "omnigen2-edit": og["edit"], "wan-serve": serve, "wan-sweep": sweep}
     kernels = []
     for name, (route, source, replaces) in meta.items():
         by_path = {p: c[name] for p, c in paths.items()}

@@ -162,15 +162,32 @@ class OpenSoraPipeline(BasePipeline):
                 c.num_sampling_steps, thresh=0.12 if c.magcache_thresh is None
                 else c.magcache_thresh, K=3 if c.magcache_K is None else c.magcache_K,
                 skip_time=st)
+        return self._cache_cfg_force()
+
+    def _cache_cfg_force(self, thresh=None, K=None, retention=None):
+        """The adapter rule's single-lane config whatever ``use_magcache``
+        and ``cache_policy`` say, with ``thresh``/``K``/``retention``
+        replacing the config's E/K/R: the schedule of a per-request
+        override."""
+        c = self.config
         return make_config("opensora-v1.2", c.num_sampling_steps,
-                           thresh=c.magcache_thresh, K=c.magcache_K,
-                           retention_ratio=c.retention_ratio,
+                           thresh=c.magcache_thresh if thresh is None else thresh,
+                           K=c.magcache_K if K is None else K,
+                           retention_ratio=c.retention_ratio if retention is None else retention,
                            ratios=c.magcache_ratios)
 
-    def skip_mask_for(self) -> np.ndarray:
+    def skip_mask_for(self, thresh=None, K=None, retention_ratio=None,
+                      use_magcache: Optional[bool] = None) -> np.ndarray:
         """Host-precomputed ``bool[steps, 1]`` skip bits of one loop's steps
-        (one lane over the joint CFG batch); all-False when caching is off."""
-        return lane_skip_masks(self._cache_cfg(), self.config.num_sampling_steps)[0]
+        (one lane over the joint CFG batch). With no argument: the config's
+        own schedule (all False when caching is off). With any: the
+        opensora-v1.2 adapter rule at that E/K/R (the config's for those
+        left None), all False for ``use_magcache=False``, as JAX's
+        ``skip_mask_for``; feed it to ``generate(skip_override=...)``."""
+        if thresh is None and K is None and retention_ratio is None and use_magcache is None:
+            return lane_skip_masks(self._cache_cfg(), self.config.num_sampling_steps)[0]
+        return self._skip_mask_from_cfg(self._cache_cfg_force(thresh, K, retention_ratio),
+                                        use_magcache is not False)
 
     def _initial_noise(self, gen: torch.Generator) -> torch.Tensor:
         """A loop's noise latents ``f32[1, T, H, W, C]`` on the CPU, drawn
@@ -238,7 +255,8 @@ class OpenSoraPipeline(BasePipeline):
                  camera_motion: Optional[str] = None,
                  condition_frame_length: int = 5, align: Optional[int] = 5,
                  condition_frame_edit: float = 0.0,
-                 use_text_preprocessing: bool = True) -> PipelineOutput:
+                 use_text_preprocessing: bool = True,
+                 skip_override: Optional[np.ndarray] = None) -> PipelineOutput:
         """One video's latents ``f32[1, T', H, W, 4]`` (and with a VAE its
         pixels ``video f32[1, F, 8H, 8W, 3]``, 17 frames for each 5 latents).
 
@@ -253,11 +271,17 @@ class OpenSoraPipeline(BasePipeline):
         A mask of all ones is the plain t2v loop. ``skips`` holds the realized
         skip bits ``bool[loop * steps, 1]``, loop after loop (none in
         calibration mode, which fills ``calibration`` and takes no mask
-        strategy).
+        strategy). ``skip_override`` (``bool[steps, 1]`` from
+        ``skip_mask_for``) replaces the config's schedule on the plain t2v
+        path only.
         """
         t0 = time.time()
         c = self.config
         calibrate = c.magcache_calibration
+        if skip_override is not None and calibrate:
+            raise ValueError("skip_override is a generation-path argument; "
+                             "calibration runs full compute")
+        cache_cfg = self._cache_cfg() if skip_override is None else self._cache_cfg_force()
         prompts, refs_l, ms_l = oc.extract_json_from_prompts([prompt], [refs], [ms])
         refs_x = self._collect_references(refs_l)
         merged = self._prompt(prompts[0], aes, flow, camera_motion,
@@ -292,14 +316,17 @@ class OpenSoraPipeline(BasePipeline):
                                               calibrate_lanes=1, **common)
                 calibration = calibration_dict(stats)
             elif masks is None:
-                latents, skips = sample_euler(self.core, z, cond,
-                                              cache_cfg=self._cache_cfg(),
+                latents, skips = sample_euler(self.core, z, cond, cache_cfg=cache_cfg,
+                                              skip_mask_override=skip_override,
                                               return_skips=True, **common)
+            elif skip_override is not None:
+                raise ValueError("skip_override covers the plain t2v path, not a mask "
+                                 "strategy or a looped clip")
             else:
                 latents, skips = sample_rflow_masked(
                     self.core, z, cond, num_train_timesteps=sch.num_train_timesteps,
                     mask=masks, noise_fn=self._renoise_fn(gen),
-                    cache_cfg=self._cache_cfg(), return_skips=True, **common)
+                    cache_cfg=cache_cfg, return_skips=True, **common)
             if not calibrate:
                 all_skips.append(skips)
             clips.append(latents)

@@ -441,12 +441,12 @@ class WanPipeline(BasePipeline):
             skip_mask_override=skip_override, return_skips=True,
             post_step=_ti2v_post(cond))
 
-    def _sample_fn_moe(self):
-        """The A14B two-expert sampler: UniPC steps ``[0, boundary)`` on the
-        high-noise expert at the high scale, then ``[boundary, n)`` on the
-        low-noise expert at the low scale, one carry (samples, UniPC history,
-        MagCache residual) across the switch. Returns the realized skip bits
-        as aux."""
+    def _sample_fn_moe(self, batch: int = 1):
+        """The A14B two-expert sampler over ``batch`` videos: UniPC steps
+        ``[0, boundary)`` on the high-noise expert at the high scale, then
+        ``[boundary, n)`` on the low-noise expert at the low scale, one carry
+        (samples, UniPC history, MagCache residual) across the switch.
+        Returns the realized skip bits as aux."""
         c = self.config
         if c.enable_teacache:
             self._teacache_lanes()          # raises: no Wan2.2 coefficients
@@ -457,9 +457,9 @@ class WanPipeline(BasePipeline):
         cache_cfg = self._cache_cfg()
         g_low, g_high = c.guide_pair
         init_carry, step_high = unipc_executor(self.core, sch, cache_cfg=cache_cfg,
-                                               guidance_scale=g_high)
+                                               guidance_scale=g_high, batch=batch)
         _, step_low = unipc_executor(self.core_low, sch, cache_cfg=cache_cfg,
-                                     guidance_scale=g_low)
+                                     guidance_scale=g_low, batch=batch)
 
         @torch.inference_mode()
         def run(x0, cond):
@@ -713,3 +713,43 @@ class WanPipeline(BasePipeline):
         timings["total_s"] = synced_clock(latents) - t0
         return PipelineOutput(latents=latents, calibration=calibration,
                               timings=timings, skips=skips, video=video)
+
+    # ---- batched generation ----------------------------------------------
+    def generate_batch(self, prompts, negative_prompt: str = DEFAULT_NEGATIVE,
+                       seed: int = 0, seeds=None) -> PipelineOutput:
+        """Several text-only prompts through one batched denoise: latents
+        ``f32[B, F, H, W, C]`` and ``timings {"total_s", "prompts"}``, no
+        decode (as the JAX ``generate_batch``). The CFG rows are
+        ``[cond x B; uncond x B]``, so each cache lane holds one CFG branch of
+        every element and the static schedule skips all of a lane's rows
+        together, exactly as in a single run. Element ``j`` draws its noise
+        as ``generate(seed=seeds[j])`` does, so it reproduces that run;
+        without ``seeds`` it draws from ``seed + j``. ``total_s`` is the
+        sampling's, as in JAX (the text encode before it is left out).
+        TeaCache decides each lane from the mean over all its rows; Wan's
+        signal (``e`` or ``e0``) depends on the step alone, so that mean is
+        each element's own."""
+        c = self.config
+        if c.task not in ("t2v", "ti2v"):
+            raise ValueError(f"generate_batch takes text prompts only (t2v, ti2v "
+                             f"without an image), not {c.task}")
+        if c.magcache_calibration:
+            raise ValueError("generate_batch is a generation-path surface; "
+                             "calibrate with generate()")
+        b = len(prompts)
+        if seeds is not None and len(seeds) != b:
+            raise ValueError(f"{len(seeds)} seeds for {b} prompts")
+        gens = ([set_seed(s) for s in seeds] if seeds is not None
+                else [set_seed(seed, dp_rank=j) for j in range(b)])
+        cond_c = self.text_encoder(list(prompts), device=self.device)
+        cond_u = self.text_encoder([negative_prompt] * b, device=self.device)
+        cond = {"context": torch.cat([cond_c, cond_u])}
+        x0 = torch.cat([self._initial_noise(g) for g in gens]).to(self.device)
+        t0 = synced_clock(x0)
+        if c.moe_boundary is not None:
+            latents, _ = self._sample_fn_moe(batch=b)(x0, cond)
+        else:
+            latents, _ = self._sample_fn(False)(x0, cond)
+        return PipelineOutput(latents=latents,
+                              timings={"total_s": synced_clock(latents) - t0,
+                                       "prompts": b})

@@ -4,16 +4,20 @@
 from __future__ import annotations
 
 import os
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 
-def set_seed(seed: int, device="cpu") -> torch.Generator:
+def set_seed(seed: int, device="cpu", dp_rank: Optional[int] = None) -> torch.Generator:
     """Seed -> ``torch.Generator`` on ``device``. A CPU generator gives the
-    same numbers whichever card the tensors then move to."""
+    same numbers whichever card the tensors then move to. ``dp_rank``
+    offsets the seed (``seed + dp_rank``), so each data-parallel element of
+    a batch draws its own noise (``videosys/utils/utils.py:19-34``)."""
+    if dp_rank is not None:
+        seed = seed + dp_rank
     return torch.Generator(device=device).manual_seed(seed)
 
 
@@ -60,32 +64,55 @@ def to_uint8_video(x: np.ndarray) -> np.ndarray:
     return x.astype(np.uint8)
 
 
-def save_video(video: np.ndarray, path: str, fps: int = 16) -> str:
-    """Save [T, H, W, 3] frames with imageio when it is installed, else as
-    ``.npy`` beside ``path``. Returns the path written."""
+def _save_npy(arr: np.ndarray, path: str) -> str:
+    alt = os.path.splitext(path)[0] + ".npy"
+    np.save(alt, arr)
+    return alt
+
+
+def _imageio_write(write, arr: np.ndarray, path: str) -> str:
+    """``write(imageio)`` when imageio is installed and has a backend for
+    ``path``'s format (an mp4 needs its ffmpeg plugin), else ``arr`` as
+    ``.npy`` beside ``path``. Any other error of the write (malformed
+    frames) propagates. Returns the path written."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    if video.dtype != np.uint8:
-        video = to_uint8_video(video)
     try:
         import imageio
     except ImportError:
-        alt = os.path.splitext(path)[0] + ".npy"
-        np.save(alt, video)
-        return alt
-    imageio.mimwrite(path, list(video), fps=fps)
+        return _save_npy(arr, path)
+    try:
+        write(imageio)
+    except ValueError as exc:
+        if not str(exc).startswith("Could not find a backend"):
+            raise
+        return _save_npy(arr, path)
     return path
+
+
+def save_video(video: np.ndarray, path: str, fps: int = 16) -> str:
+    """Save [T, H, W, 3] frames with imageio, or as ``.npy`` beside ``path``
+    where it has no writer for the format (``_imageio_write``)."""
+    if video.dtype != np.uint8:
+        video = to_uint8_video(video)
+    return _imageio_write(lambda io: io.mimwrite(path, list(video), fps=fps), video, path)
 
 
 def save_image(img: np.ndarray, path: str) -> str:
     """Save one [H, W, 3] frame, like ``save_video``."""
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     if img.dtype != np.uint8:
         img = to_uint8_video(img[None])[0]
-    try:
-        import imageio
-    except ImportError:
-        alt = os.path.splitext(path)[0] + ".npy"
-        np.save(alt, img)
-        return alt
-    imageio.imwrite(path, img)
-    return path
+    return _imageio_write(lambda io: io.imwrite(path, img), img, path)
+
+
+# The reference CLIs' save rates, which the HTTP server (cli/serve.py) saves at
+# (Wan's sample_fps 16, ti2v 24; hyvideo 24; FramePack 30; videosys:
+# cogvideox, latte and vchitect 8, open-sora(-plan) 24). First prefix match
+# wins; anything else saves at 16.
+_TASK_FPS = (("ti2v", 24), ("hunyuan", 24), ("framepack", 30),
+             ("cogvideox", 8), ("latte", 8), ("vchitect", 8),
+             ("open-sora", 24))
+
+
+def task_fps(task: str) -> int:
+    """Frames per second the reference CLIs save ``task``'s videos at."""
+    return next((v for k, v in _TASK_FPS if task.startswith(k)), 16)

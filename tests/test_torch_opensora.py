@@ -8,6 +8,7 @@ Both sides get the same weights (``init_stdit3_params`` converted by
 ``stdit3_params_from_numpy``) and the same numpy inputs.
 """
 
+import dataclasses
 import json
 
 import jax
@@ -28,7 +29,7 @@ from magcache_tpu_torch.cli import generate as cli
 from magcache_tpu_torch.core.magcache import compute_skip_schedule
 from magcache_tpu_torch.core.presets import make_config
 from magcache_tpu_torch.core.pab import OPEN_SORA_PAB
-from magcache_tpu_torch.core.sampler import sample_euler
+from magcache_tpu_torch.core.sampler import lane_skip_masks, sample_euler
 from magcache_tpu_torch.models import stdit3 as T
 from magcache_tpu_torch.models.convert import stdit3_params_from_numpy
 from magcache_tpu_torch.pipelines import open_sora as tpipe
@@ -361,3 +362,44 @@ def test_cli_open_sora_tiny_route(tmp_path, capsys):
     # every family is ported: a name outside them exits naming the prefixes
     with pytest.raises(SystemExit, match="matches no model family"):
         cli.main(["--task", "omnigen3", "--device", "cpu"])
+
+
+@pytest.fixture(scope="module")
+def override_pair():
+    """The JAX and the port's tiny Open-Sora pipelines without caching, on
+    the same weights: a per-request schedule is all that caches."""
+    return _pipeline_pair()
+
+
+@pytest.mark.parametrize("ekr", [dict(thresh=0.24, K=4, retention_ratio=0.1),
+                                 dict(thresh=0.5, K=2),
+                                 dict(retention_ratio=0.5),
+                                 dict(use_magcache=False)])
+def test_skip_override_matches_jax(ekr, override_pair, monkeypatch):
+    jp, tp = override_pair
+    got_mask, want_mask = tp.skip_mask_for(**ekr), np.asarray(jp.skip_mask_for(**ekr))
+    np.testing.assert_array_equal(got_mask, want_mask)
+    assert got_mask.shape == (6, 1) and (got_mask.any() != ("use_magcache" in ekr))
+    key = j_set_seed(5)
+    _, zkey, _ = jax.random.split(key, 3)
+    z = _np(jax.random.normal(zkey, (1,) + jp.latent_shape, jnp.float32))
+    monkeypatch.setattr(tp, "_initial_noise", lambda gen: torch.from_numpy(z))
+    want = jp.generate("a red boat at dawn", seed=5, skip_override=want_mask)
+    got = tp.generate("a red boat at dawn", seed=5, skip_override=got_mask)
+    np.testing.assert_allclose(got.latents.numpy(), _np(want.latents), atol=1e-4, rtol=1e-4)
+    np.testing.assert_array_equal(got.skips, got_mask)
+
+
+def test_skip_mask_for_without_arguments_keeps_the_config_schedule(override_pair):
+    _, tp = override_pair
+    # caching off: the config's own schedule is all False, an explicit
+    # use_magcache=True the adapter rule (JAX's skip_mask_for)
+    assert not tp.skip_mask_for().any() and tp.skip_mask_for(use_magcache=True).sum() > 0
+    cached = tpipe.OpenSoraPipeline(dataclasses.replace(tp.config, use_magcache=True,
+                                                        cache_policy="rolling"),
+                                    "cpu", model=tp.model)
+    np.testing.assert_array_equal(cached.skip_mask_for(), lane_skip_masks(
+        cached._cache_cfg(), 6)[0])
+    with pytest.raises(ValueError, match="plain t2v"):
+        tp.generate("a boat", loop=2, condition_frame_length=1,
+                    skip_override=tp.skip_mask_for(use_magcache=True))
