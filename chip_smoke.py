@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives ``magcache_tpu_torch`` (never JAX) in eighty-seven phases and exits
+Drives ``magcache_tpu_torch`` (never JAX) in eighty-nine phases and exits
 nonzero on the first failure:
 
 1. environment: a CUDA card is required; prints the card's name and power
@@ -335,16 +335,16 @@ ViT-H/14 tower's K1; the Wan VAE's encoder on cuDNN):
    context tokens; time, peak memory, launches per forward (K1 120, K2 80,
    K3 120, K3p 1);
 60. i2v requests through ``WanPipeline.generate(image=)`` at 832x480x17
-   (frames cut from 81) and 40 UniPC steps, shift 3.0: UMT5-XXL text, a
+   (frames cut from 81) and 20 UniPC steps (cut from 40), shift 3.0: UMT5-XXL text, a
    seeded 720x1280 image through the CLIP ViT-H/14 tower (f32) and the Wan
    VAE encode (f32), the f32 decode; full compute and MagCache
-   ``wan2.1-i2v-480p`` (46 of 80 lane-forwards elided); skip bits,
+   ``wan2.1-i2v-480p`` (22 of 40 lane-forwards elided); skip bits,
    launches (the trunk's per run, K3p a step, the tower's 31 K1 an image),
    ``text_s``, ``image_s``, ``decode_s``, peak memory; then the tower's
    features of that image against the same tower with the plain f32
    attention on the card, within 31 x 2^-9 rel L2;
 61. a flf2v request (first and last image, 514 CLIP tokens) at 832x480x17
-   and 50 steps, shift 16, MagCache (56 of 100 elided); then the
+   and 20 steps (cut from 50), shift 16, MagCache (22 of 40 elided); then the
    ``CausalVAE`` fallback encoder (base 96, f32) on [image; 16 zero frames]
    at 832x480x17 in one pass;
 62. narrow i2v and flf2v pipelines (2 blocks of 2 heads of 128; a 2-block
@@ -452,10 +452,10 @@ stay plain at that head dim, as in JAX; one 3.012 B DiT for phases 82-84):
 82. forwards of the text-to-image program and of edit's two programs
    (with-refs, ref-free), twice each: seconds, peak memory, K1 launches per
    forward (32 trunk + 2 per image refiner); one profiled with-refs forward;
-83. requests at 1024x1024 x 50 Euler steps: text-to-image full compute and
-   MagCache (56 of 100 lane-forwards elided), edit with one seeded
-   reference latent full compute and MagCache (85 of 150: cond / uncond /
-   ref 29 / 28 / 28, steps where cond and ref disagree run the half-batch
+83. requests at 1024x1024 x 20 Euler steps (cut from 50): text-to-image
+   full compute and MagCache (24 of 40 lane-forwards elided), edit with one
+   seeded reference latent full compute and MagCache (33 of 60: cond /
+   uncond / ref 11 / 11 / 11, steps where cond and ref disagree run the half-batch
    trunk); skip bits per lane against ``compute_skip_schedule`` of
    ``make_omnigen2_cache_config``, K1 launches against the trunk runs of
    each program and the prepares, the speedups against the ceilings;
@@ -488,7 +488,27 @@ K3, K3p; phase 5's seeded weights):
    prompt at a time, MagCache with ``dp=2`` (one ``generate_batch``), their
    manifests, launches against the realized schedules, both
    ``sec_per_video_mean``; ``eval.compare.compare_dirs`` of the MagCache
-   latents against the full ones (finite PSNR and SSIM).
+   latents against the full ones (finite PSNR and SSIM);
+88. published checkpoints: the seeded Wan2.1 T2V-1.3B (phase 5's weights),
+   UMT5-XXL at full width (``CKPT_UMT5_LAYERS`` of 24 layers) and the f32 Wan
+   VAE written under the published names (``wan_published``,
+   ``umt5_published``, ``wan_vae_published``: maps kept here, apart from the
+   package's converters) to a temporary ``ckpt_dir``: the DiT as two BF16
+   safetensors shards, the encoder as ``models_t5_umt5-xxl-enc-bf16.pth``,
+   the VAE as ``Wan2.1_VAE.pth``; bytes, seconds and peak RSS printed. The
+   CLI's pipeline builder loads it (``--ckpt_dir``, ``--vae_ckpt``): the
+   DiT, encoder and VAE bit-equal to the seeded weights as written; a
+   request at 832x480x17 x 20 steps, E012K2R02, bit-equal in latents,
+   skips and pixels to the same request on the seeded in-process pipeline,
+   launches as counted (K1, K2, K3, K3p), pixels finite. The directory is
+   removed; a lack of disk space fails the phase;
+89. OmniGen2 (3.012 B, phase 82's seed) written with a ``config.json``: the
+   configuration sniffed from it equals the in-process one; a PEFT adapter
+   (rank 16, alpha, on every trunk and noise-refiner attention projection)
+   merged by ``OmniGen2Pipeline(ckpt_dir=, lora_path=)`` on the card equals
+   ``W + scale (alpha / r) B A`` computed here in f32 and rounded to bf16,
+   tensor for tensor; a text-to-image forward at 1024x1024 (K1 34 times)
+   equals that of the same merged weights built in-process.
 
 Every request of phases 63-69 checks its skip bits against
 ``compute_skip_schedule``, its launches against the trunk runs and its
@@ -523,7 +543,8 @@ phases 77 (two text-to-image forwards) and 78; ``qwen-image-edit``: phases
 77 (two Edit forwards) and 79; ``omnigen2``: phases 82 (two text-to-image
 forwards) and 83; ``omnigen2-edit``: phases 82 (two forwards of each edit
 program), 83 and 84; ``wan-serve``: phase 86's in-process served requests;
-``wan-sweep``: phase 87's two sweeps), its worst error over every shape
+``wan-sweep``: phase 87's two sweeps; ``wan-ckpt``: phase 88's loaded
+request; ``omnigen2-lora``: phase 89's loaded forward), its worst error over every shape
 compared, and the times of its first shape timed, named in ``timed_at``,
 with their method in ``timing`` (``loop`` or ``graph``); ``shapes`` lists
 every shape compared with its own error, times and bound.
@@ -534,7 +555,7 @@ TFLOP/s for the tensor-core products, 67 TFLOP/s for f32 elementwise work),
 with ``bound_by`` naming which. ``library_ms`` is one PyTorch call computing
 the same function at that shape (``library_call`` names it), else null.
 The last line is ``{"ok": true, "device": {...}}``. Weights are random
-(seeded); no checkpoint is read.
+(seeded); the checkpoints phases 88 and 89 read are those they write.
 """
 
 from __future__ import annotations
@@ -543,6 +564,7 @@ import dataclasses
 import hashlib
 import json
 import math
+import os
 import re
 import subprocess
 import time
@@ -4767,7 +4789,9 @@ def phase_text_card_vs_cpu(dev):
 I2V_TRUNK_LAUNCHES = dict(NO_LAUNCHES, flash_attention_bshd=120, rms_norm_rope=80,
                           layer_norm_mod=120)
 I2V_GRID, I2V_REQ_FRAMES = (21, 30, 52), 17
-I2V_STEPS, FLF_STEPS = 40, 50         # the JAX CLI's i2v and flf2v defaults
+# the JAX CLI's i2v and flf2v defaults are 40 and 50 steps; cut to 20 each
+# (PR 24) to keep the smoke inside its limit
+I2V_STEPS, FLF_STEPS = 20, 20
 CLIP_BLOCKS_RUN = 31                  # ViT-H/14's 32 blocks less the last
 # bf16 keeps 8 significant bits: a rounding moves a value by at most 2^-9 of
 # it. The tower's K1 call rounds q, k, v, p and its output: five roundings
@@ -5040,8 +5064,9 @@ def phase_i2v_requests(dev, model, text, clip, vae):
     full = WanPipeline(WanPipelineConfig(**base), dev, **kw)
     cached = WanPipeline(WanPipelineConfig(use_magcache=True, **base), dev, **kw)
     sched = compute_skip_schedule(cached._cache_cfg()).reshape(I2V_STEPS, 2)
-    if int(sched.sum()) != 46:
-        fail(f"wan2.1-i2v-480p at {I2V_STEPS} steps elides {int(sched.sum())} of 80, not 46")
+    if int(sched.sum()) != 22:
+        fail(f"wan2.1-i2v-480p at {I2V_STEPS} steps elides {int(sched.sum())} of "
+             f"{2 * I2V_STEPS}, not 22")
     total = dict(NO_LAUNCHES)
     lats = {}
     image = i2v_images(1)
@@ -5095,8 +5120,9 @@ def phase_flf2v_request(dev, text, clip, vae):
         sample_steps=FLF_STEPS, sample_shift=16.0, guide_scale=5.0, use_magcache=True),
         dev, model=model, text_encoder=text, clip=clip, vae=vae)
     sched = compute_skip_schedule(pipe._cache_cfg()).reshape(FLF_STEPS, 2)
-    if int(sched.sum()) != 56:
-        fail(f"wan2.1-i2v-480p at {FLF_STEPS} steps elides {int(sched.sum())} of 100, not 56")
+    if int(sched.sum()) != 22:
+        fail(f"wan2.1-i2v-480p at {FLF_STEPS} steps elides {int(sched.sum())} of "
+             f"{2 * FLF_STEPS}, not 22")
     launched, _ = i2v_request("flf2v MagCache wan2.1-i2v-480p", pipe, sched, i2v_images(2))
     del model, pipe
     torch.cuda.empty_cache()
@@ -6664,7 +6690,8 @@ def phase_qwen_card_vs_cpu(dev):
 # of the noise refiner's 2 blocks and each reference's 2 ref-refiner
 # blocks; the context refiner's 128 text tokens take attention()'s einsum
 # path, as the JAX dispatcher does at that length (no launch).
-OG_SIZE, OG_TXT, OG_STEPS, OG_SHORT, OG_CAL = 1024, 128, 50, 20, 10
+# phase 83's requests: 20 steps (cut from the reference's 50 in PR 24)
+OG_SIZE, OG_TXT, OG_STEPS, OG_SHORT, OG_CAL = 1024, 128, 20, 20, 10
 OG_GRID = (OG_SIZE // 16, OG_SIZE // 16)
 OG_TRUNK, OG_REFINER = 32, 2
 OG_PROMPT = "A red sailboat glides across a calm bay at dawn."
@@ -7465,6 +7492,424 @@ def phase_sweep(dev, model):
     return launches
 
 
+# ------------------------------------------------- published checkpoints (88, 89)
+# The port's seeded weights written under the published names (these maps
+# invert the package's converters here, so the loaders are checked against
+# an independent map), then loaded back through the entry points.
+CKPT_UMT5_LAYERS = 24          # UMT5-XXL's full depth
+OG_LORA_RANK, OG_LORA_ALPHA, OG_LORA_SCALE = 16, 8.0, 0.75
+
+
+def wan_published(sd: dict) -> dict:
+    """A ``WanModel`` (t2v) state dict under the published Wan2.1 names."""
+    out = {}
+    for k, v in sd.items():
+        parts = k.split(".")
+        if parts[0] == "patch_embedding" and parts[1] == "weight":
+            out[k] = v.reshape(v.shape[0], -1, 1, 2, 2)
+        elif parts[0] in ("text_embedding", "time_embedding"):
+            out[f"{parts[0]}.{'0' if parts[1] == 'in' else '2'}.{parts[2]}"] = v
+        elif parts[0] == "time_projection":
+            out[f"time_projection.1.{parts[1]}"] = v
+        elif parts[0] == "head":
+            out["head.modulation" if parts[1] == "modulation" else f"head.head.{parts[2]}"] = (
+                v[None] if parts[1] == "modulation" else v)
+        elif parts[0] == "blocks":
+            b, name = f"blocks.{parts[1]}", parts[2]
+            rest = ".".join(parts[3:])
+            if name == "modulation":
+                out[f"{b}.modulation"] = v[None]
+            elif name in ("q", "k", "v", "o"):
+                out[f"{b}.self_attn.{name}.{rest}"] = v
+            elif name.startswith("cross_") and name[6:] in ("q", "k", "v", "o"):
+                out[f"{b}.cross_attn.{name[6:]}.{rest}"] = v
+            elif name in ("norm_q", "norm_k"):
+                out[f"{b}.self_attn.{name}.weight"] = v
+            elif name in ("cross_norm_q", "cross_norm_k"):
+                out[f"{b}.cross_attn.{name[6:]}.weight"] = v
+            elif name in ("norm3_w", "norm3_b"):
+                out[f"{b}.norm3.{'weight' if name[-1] == 'w' else 'bias'}"] = v
+            elif name in ("ffn1", "ffn2"):
+                out[f"{b}.ffn.{'0' if name == 'ffn1' else '2'}.{rest}"] = v
+            else:
+                raise KeyError(k)
+        else:
+            out[k] = v
+    return out
+
+
+def umt5_published(sd: dict) -> dict:
+    """A per-layer-bias ``T5Model`` state dict under the wan package's UMT5
+    names (``models_t5_umt5-xxl-enc-bf16.pth``)."""
+    names = {"ln1": "norm1.weight", "ln2": "norm2.weight", "rel": "pos_embedding.embedding.weight",
+             "q.weight": "attn.q.weight", "k.weight": "attn.k.weight",
+             "v.weight": "attn.v.weight", "o.weight": "attn.o.weight",
+             "wi0.weight": "ffn.gate.0.weight", "wi1.weight": "ffn.fc1.weight",
+             "wo.weight": "ffn.fc2.weight"}
+    out = {"token_embedding.weight": sd["embed"], "norm.weight": sd["final_ln"]}
+    for k, v in sd.items():
+        if k.startswith("blocks."):
+            _, i, rest = k.split(".", 2)
+            out[f"blocks.{i}.{names[rest]}"] = v
+    return out
+
+
+def wan_vae_published(sd: dict, cfg) -> dict:
+    """A ``WanVAE`` state dict under ``wan/modules/vae.py``'s names: the
+    levels' residual blocks and resamples flattened into
+    ``{encoder.downsamples | decoder.upsamples}.N``, the norm gains
+    ``[C, 1, 1(, 1)]``."""
+    res = {"norm1": ("residual.0.gamma", (1, 1, 1)), "conv1": ("residual.2", None),
+           "norm2": ("residual.3.gamma", (1, 1, 1)), "conv2": ("residual.6", None),
+           "shortcut": ("shortcut", None)}
+
+    def put(dst, name, v):
+        leaf = name.rsplit(".", 1)
+        key, shape = res[leaf[0]] if leaf[0] in res else (leaf[0], None)
+        if shape is not None:
+            out[f"{dst}.{key}"] = v.reshape(-1, *shape)
+        else:
+            out[f"{dst}.{key}.{leaf[1]}"] = v
+
+    out = {}
+    for side, seq, blocks in (("encoder", "downsamples", cfg.num_res_blocks),
+                              ("decoder", "upsamples", cfg.num_res_blocks + 1)):
+        flat = 0
+        for i in range(len(cfg.dim_mult)):
+            for j in range(blocks):
+                pre = f"{side}.levels.{i}.blocks.{j}."
+                for k, v in sd.items():
+                    if k.startswith(pre):
+                        put(f"{side}.{seq}.{flat}", k[len(pre):], v)
+                flat += 1
+            if i < len(cfg.dim_mult) - 1:
+                for kind, key in (("resample", "resample.1"), ("time_conv", "time_conv")):
+                    for leaf in ("weight", "bias"):
+                        k = f"{side}.levels.{i}.{kind}.{leaf}"
+                        if k in sd:
+                            out[f"{side}.{seq}.{flat}.{key}.{leaf}"] = sd[k]
+                flat += 1
+        for m in (0, 1):
+            pre = f"{side}.mid.{m}."
+            for k, v in sd.items():
+                if k.startswith(pre):
+                    put(f"{side}.middle.{2 * m}", k[len(pre):], v)
+        out[f"{side}.middle.1.norm.gamma"] = sd[f"{side}.mid_attn.norm"].reshape(-1, 1, 1)
+        for ours, theirs in (("qkv", "to_qkv"), ("proj", "proj")):
+            for leaf in ("weight", "bias"):
+                out[f"{side}.middle.1.{theirs}.{leaf}"] = sd[f"{side}.mid_attn.{ours}.{leaf}"]
+        out[f"{side}.head.0.gamma"] = sd[f"{side}.head_norm"].reshape(-1, 1, 1, 1)
+        for leaf in ("weight", "bias"):
+            out[f"{side}.conv1.{leaf}"] = sd[f"{side}.conv1.{leaf}"]
+            out[f"{side}.head.2.{leaf}"] = sd[f"{side}.head.{leaf}"]
+            out[f"conv1.{leaf}"] = sd[f"quant.{leaf}"]
+            out[f"conv2.{leaf}"] = sd[f"post_quant.{leaf}"]
+    return out
+
+
+OG_GROUPS = {"context_refiner": "context_refiner", "noise_refiner": "noise_refiner",
+             "ref_refiner": "ref_image_refiner", "layers": "layers"}
+
+
+def omnigen2_published(sd: dict, cfg) -> dict:
+    """An ``OmniGen2Model`` state dict under the published (Lumina2 lineage)
+    names: the fused GQA ``kv`` split back into ``to_k`` / ``to_v``."""
+    dk = cfg.kv_heads * cfg.head_dim
+    top = {"t_embed.in": "time_caption_embed.timestep_embedder.linear_1",
+           "t_embed.out": "time_caption_embed.timestep_embedder.linear_2",
+           "cap_proj": "time_caption_embed.caption_embedder.1", "x_embed": "x_embedder",
+           "ref_embed": "ref_image_patch_embedder", "norm_out_mod": "norm_out.linear_1",
+           "final_out": "norm_out.linear_2"}
+    blk = {"q": "attn.to_q", "o": "attn.to_out.0", "w1": "feed_forward.linear_1",
+           "w2": "feed_forward.linear_2", "w3": "feed_forward.linear_3", "mod": "norm1.linear",
+           "q_norm": "attn.norm_q.weight", "k_norm": "attn.norm_k.weight",
+           "norm2": "norm2.weight", "ffn_norm1": "ffn_norm1.weight",
+           "ffn_norm2": "ffn_norm2.weight"}
+    out = {"time_caption_embed.caption_embedder.0.weight": sd["cap_norm"]}
+    for k, v in sd.items():
+        head, _, leaf = k.rpartition(".")
+        if head in top:
+            out[f"{top[head]}.{leaf}"] = v
+            continue
+        group = k.split(".")[0]
+        if group not in OG_GROUPS:
+            if k != "cap_norm":
+                raise KeyError(k)
+            continue
+        _, i, rest = k.split(".", 2)
+        b = f"{OG_GROUPS[group]}.{i}"
+        name, _, leaf = rest.partition(".")
+        if name == "kv":
+            out[f"{b}.attn.to_k.{leaf}"], out[f"{b}.attn.to_v.{leaf}"] = v[:dk], v[dk:]
+        elif name == "norm1":
+            modulated = f"{group}.{i}.mod.weight" in sd
+            out[f"{b}.norm1.norm.weight" if modulated else f"{b}.norm1.weight"] = v
+        elif leaf:
+            out[f"{b}.{blk[name]}.{leaf}"] = v
+        else:
+            out[f"{b}.{blk[name]}"] = v
+    return out
+
+
+def peak_rss_gb() -> float:
+    """This process's peak resident set so far, in GB (``ru_maxrss``)."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+
+
+def _disk_error(e: OSError, where: str):
+    fail(f"{where}: {e} (a lack of disk space fails this phase)")
+
+
+def phase_wan_checkpoint(dev):
+    """Phase 88: Wan2.1 T2V-1.3B from a published-layout directory through
+    the CLI's pipeline builder (``--ckpt_dir`` with the DiT in two BF16
+    safetensors shards and the UMT5-XXL ``.pth``; ``--vae_ckpt``), held bit
+    for bit to the seeded in-process pipeline. Returns the launches of the
+    loaded pipeline's request."""
+    import gc
+    import shutil
+    import tempfile
+
+    from magcache_tpu_torch.cli import generate as G
+    from magcache_tpu_torch.models.checkpoint import save_safetensors
+    from magcache_tpu_torch.models.text import FallbackHashTokenizer
+    from magcache_tpu_torch.models.umt5 import UMT5_XXL, UMT5Encoder
+    from magcache_tpu_torch.models.vae_wan import WAN21_VAE, WanVAE
+    from magcache_tpu_torch.pipelines.wan import WanPipeline, WanPipelineConfig
+
+    bf16 = torch.bfloat16
+    ucfg = dataclasses.replace(UMT5_XXL, layers=CKPT_UMT5_LAYERS)
+    log(f"phase 88: Wan2.1 T2V-1.3B from a published checkpoint directory (DiT in 2 BF16 "
+        f"safetensors shards, UMT5-XXL {ucfg.layers} of 24 layers as a BF16 .pth, the VAE "
+        f"as an f32 .pth) through the CLI's --ckpt_dir / --vae_ckpt; a request at "
+        f"832x480x17, {STEPS} steps, E012K2R02")
+    t_all = time.time()
+    model = make_model(dev)
+    with torch.no_grad():           # the seeded weights as BF16 files hold them
+        for p in model.parameters():
+            p.copy_(p.to(bf16))
+    enc = UMT5Encoder(ucfg, seq_len=512, device=dev,
+                      tokenizer=FallbackHashTokenizer(ucfg.vocab_size, eos_token_id=1,
+                                                      pad_token_id=0),
+                      generator=torch.Generator(device=dev).manual_seed(31))
+    with torch.no_grad():
+        for p in enc.model.parameters():
+            p.copy_(p.to(bf16))
+    vae = WanVAE(WAN21_VAE, dev).init(torch.Generator(device=dev).manual_seed(0))
+    vae.requires_grad_(False)
+    base = dict(size=(832, 480), frame_num=17, sample_steps=STEPS, sample_shift=5.0,
+                guide_scale=5.0, use_magcache=True)
+    pipe = WanPipeline(WanPipelineConfig(**base), dev, model=model, text_encoder=enc, vae=vae)
+    want = pipe.generate(WAN_PROMPT, seed=3)
+    want_lat, want_video = want.latents.cpu(), want.video.cpu()
+    log(f"  in-process request: {want.timings['total_s']:.3f} s, skips per lane "
+        f"{want.skips.sum(0).tolist()}")
+
+    tmp = tempfile.mkdtemp(prefix="wan_ckpt_")
+    try:
+        t0 = time.time()
+        try:
+            dit = {k: v.to(bf16) for k, v in wan_published(model.state_dict()).items()}
+            keys = sorted(dit)
+            for n, part in enumerate((keys[:len(keys) // 2], keys[len(keys) // 2:])):
+                save_safetensors(
+                    {k: dit[k] for k in part},
+                    f"{tmp}/diffusion_pytorch_model-0000{n + 1}-of-00002.safetensors")
+            t5 = {k: v.to(bf16).cpu() for k, v in umt5_published(enc.model.state_dict()).items()}
+            torch.save(t5, f"{tmp}/models_t5_umt5-xxl-enc-bf16.pth")
+            vsd = {k: v.cpu() for k, v in wan_vae_published(vae.state_dict(), WAN21_VAE).items()}
+            torch.save(vsd, f"{tmp}/Wan2.1_VAE.pth")
+        except OSError as e:
+            _disk_error(e, "phase 88, writing the checkpoint")
+        files = sorted(os.listdir(tmp))
+        written = sum(os.path.getsize(f"{tmp}/{f}") for f in files)
+        log(f"  wrote {len(files)} files, {written / 1e9:.3f} GB in {time.time() - t0:.1f} s "
+            f"({', '.join(files)}); peak RSS {peak_rss_gb():.1f} GB")
+        ref_sd = {k: v.clone() for k, v in model.state_dict().items()}
+        del pipe, enc, model, dit
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        args = G.build_parser().parse_args(
+            ["--task", "t2v-1.3B", "--ckpt_dir", tmp, "--vae_ckpt", f"{tmp}/Wan2.1_VAE.pth",
+             "--size", "832*480", "--frame_num", "17", "--sample_steps", str(STEPS),
+             "--use_magcache", "--device", "cuda"])
+        t0 = time.time()
+        loaded, _, _ = G._pipeline(args)
+        G._attach_vae(args, loaded)
+        torch.cuda.synchronize(dev)
+        log(f"  loaded through the CLI's pipeline builder in {time.time() - t0:.1f} s; peak "
+            f"RSS {peak_rss_gb():.1f} GB; {torch.cuda.memory_allocated(dev) / 1e9:.1f} GB "
+            f"on the card")
+        got_sd = loaded.model.state_dict()
+        bad = [k for k in ref_sd if got_sd[k].dtype != ref_sd[k].dtype
+               or not torch.equal(got_sd[k], ref_sd[k])]
+        if got_sd.keys() != ref_sd.keys() or bad:
+            fail(f"phase 88: the loaded DiT differs from the seeded one in {bad[:3]}")
+        t5_sd = umt5_published(loaded.text_encoder.model.state_dict())
+        bad = [k for k in t5 if not torch.equal(t5_sd[k].cpu(), t5[k].float())]
+        if t5_sd.keys() != t5.keys() or bad:
+            fail(f"phase 88: the loaded UMT5 differs from the written one in {bad[:3]}")
+        v_sd = wan_vae_published(loaded.vae.state_dict(), loaded.vae.cfg)
+        if loaded.vae.cfg != WAN21_VAE or any(not torch.equal(v_sd[k].cpu(), vsd[k])
+                                              for k in vsd):
+            fail(f"phase 88: the loaded VAE ({loaded.vae.cfg}) differs from the seeded one")
+        log(f"  DiT ({len(ref_sd)} tensors), UMT5 ({len(t5)}) and VAE ({len(vsd)}, sniffed "
+            f"config = WAN21_VAE) bit-equal to the seeded weights")
+        del t5, vsd
+        reset_counts()
+        got = loaded.generate(WAN_PROMPT, seed=3)
+        counts = read_counts()
+        runs = int((~got.skips.all(1)).sum())
+        expected = wan_launches(TRUNK_LAUNCHES, runs, STEPS)
+        if counts != expected:
+            fail(f"phase 88: launches {counts} != {expected} ({runs} trunk runs)")
+        if not np.array_equal(got.skips, want.skips):
+            fail("phase 88: the loaded pipeline skipped other forwards")
+        if not torch.equal(got.latents.cpu(), want_lat):
+            fail(f"phase 88: latents differ from the seeded pipeline's (max |diff| "
+                 f"{float((got.latents.cpu() - want_lat).abs().max()):.3e})")
+        video = got.video
+        if (tuple(video.shape) != (1, 17, 480, 832, 3) or not bool(torch.isfinite(video).all())
+                or not torch.equal(video.cpu(), want_video)):
+            fail(f"phase 88: pixels {tuple(video.shape)} not finite, misshapen or not the "
+                 f"seeded pipeline's")
+        log(f"  loaded request: {got.timings['total_s']:.3f} s (decode "
+            f"{got.timings['decode_s']:.3f} s), latents and pixels bit-equal to the seeded "
+            f"pipeline's, pixels finite; launches {counts} ({runs} trunk runs)")
+        del loaded, got
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase 88: {time.time() - t_all:.1f} s; peak RSS {peak_rss_gb():.1f} GB")
+    return counts
+
+
+def phase_omnigen2_lora(dev):
+    """Phase 89: OmniGen2 (3.012 B) from a checkpoint directory with a
+    ``config.json``: the sniffed configuration; a rank-16 PEFT adapter with
+    alpha on the attention projections merged by ``lora_path``, held to the
+    formula on the card; a t2i forward at 1024x1024 equal to one of the same
+    merged weights built in-process. Returns its launches."""
+    import gc
+    import shutil
+    import tempfile
+
+    from magcache_tpu_torch.models.checkpoint import save_safetensors
+    from magcache_tpu_torch.models.omnigen2 import OmniGen2Model, make_omnigen2_core
+    from magcache_tpu_torch.models.published import load_omnigen2_checkpoint
+    from magcache_tpu_torch.models.text import MockTextEncoder
+    from magcache_tpu_torch.pipelines.omnigen2 import OmniGen2Pipeline, OmniGen2PipelineConfig
+
+    log(f"phase 89: OmniGen2 from a checkpoint directory with config.json, a PEFT adapter "
+        f"(rank {OG_LORA_RANK}, alpha {OG_LORA_ALPHA}, scale {OG_LORA_SCALE}) on the "
+        f"attention projections, a t2i forward at 1024x1024")
+    t_all = time.time()
+    model = make_omnigen2_model(dev)
+    cfg = model.cfg
+    pub = omnigen2_published(model.state_dict(), cfg)
+    gen = torch.Generator(device=dev).manual_seed(89)
+    adapter, targets = {}, []
+    for group, depth in (("layers", cfg.layers), ("noise_refiner", cfg.refiner_layers)):
+        for i in range(depth):
+            for proj in ("to_q", "to_k", "to_v", "to_out.0"):
+                base = f"{group}.{i}.attn.{proj}"
+                out_dim, in_dim = pub[f"{base}.weight"].shape
+                adapter[f"transformer.{base}.lora_A.weight"] = torch.randn(
+                    (OG_LORA_RANK, in_dim), generator=gen, device=dev) * 0.02
+                adapter[f"transformer.{base}.lora_B.weight"] = torch.randn(
+                    (out_dim, OG_LORA_RANK), generator=gen, device=dev) * 0.02
+                adapter[f"transformer.{base}.alpha"] = torch.tensor(OG_LORA_ALPHA)
+                targets.append(base)
+    tmp = tempfile.mkdtemp(prefix="omnigen2_ckpt_")
+    try:
+        t0 = time.time()
+        try:
+            written = save_safetensors(pub, f"{tmp}/diffusion_pytorch_model.safetensors")
+            written += save_safetensors(adapter, f"{tmp}/adapter.safetensors")
+            with open(f"{tmp}/config.json", "w") as f:
+                json.dump({"hidden_size": cfg.hidden, "num_attention_heads": cfg.heads,
+                           "num_kv_heads": cfg.kv_heads, "num_layers": cfg.layers,
+                           "num_refiner_layers": cfg.refiner_layers,
+                           "in_channels": cfg.in_channels, "patch_size": cfg.patch,
+                           "text_feat_dim": cfg.text_dim, "axes_dim_rope": list(cfg.axes_dims),
+                           "norm_eps": cfg.eps}, f)
+        except OSError as e:
+            _disk_error(e, "phase 89, writing the checkpoint")
+        log(f"  wrote {written / 1e9:.3f} GB ({len(pub)} tensors, {len(targets)} adapted "
+            f"projections) in {time.time() - t0:.1f} s")
+        t0 = time.time()
+        _, sniffed = load_omnigen2_checkpoint(tmp, dtype=cfg.dtype)
+        if (sniffed.ffn_dim != cfg.ffn_dim
+                or dataclasses.replace(sniffed, ffn_dim_override=None) != cfg):
+            fail(f"phase 89: the sniffed config {sniffed} != the in-process {cfg}")
+        log(f"  sniffed config = the in-process one ({time.time() - t0:.1f} s)")
+
+        # the formula on the card, on the port's names (kv fuses to_k / to_v)
+        eff = OG_LORA_SCALE * OG_LORA_ALPHA / OG_LORA_RANK
+        merged = {k: v.clone() for k, v in model.state_dict().items()}
+        dk = cfg.kv_heads * cfg.head_dim
+        for base in targets:
+            group, i, _, proj = base.split(".", 3)
+            ours = {"noise_refiner": "noise_refiner", "layers": "layers"}[group]
+            w = pub[f"{base}.weight"]
+            a = adapter[f"transformer.{base}.lora_A.weight"]
+            b = adapter[f"transformer.{base}.lora_B.weight"]
+            new = (w.float() + eff * (b @ a)).to(w.dtype)
+            if proj in ("to_k", "to_v"):
+                rows = slice(0, dk) if proj == "to_k" else slice(dk, 2 * dk)
+                merged[f"{ours}.{i}.kv.weight"][rows] = new
+            else:
+                merged[f"{ours}.{i}.{'q' if proj == 'to_q' else 'o'}.weight"] = new
+        del model
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        pipe = OmniGen2Pipeline(OmniGen2PipelineConfig(
+            height=OG_SIZE, width=OG_SIZE, txt_len=OG_TXT, dtype=cfg.dtype, ckpt_dir=tmp,
+            lora_path=f"{tmp}/adapter.safetensors", lora_scale=OG_LORA_SCALE), dev)
+        torch.cuda.synchronize(dev)
+        log(f"  OmniGen2Pipeline(ckpt_dir, lora_path) built in {time.time() - t0:.1f} s; "
+            f"peak RSS {peak_rss_gb():.1f} GB")
+        got_sd = pipe.model.state_dict()
+        bad = [k for k in merged if got_sd[k].dtype != merged[k].dtype
+               or not torch.equal(got_sd[k], merged[k])]
+        if got_sd.keys() != merged.keys() or bad:
+            fail(f"phase 89: the merged weights differ from W + scale (alpha / r) B A in "
+                 f"{len(bad)} tensors, e.g. {bad[:3]}")
+        log(f"  every weight bit-equal to the formula's (f32 on the card, rounded to "
+            f"{cfg.dtype}): {len(targets)} adapted, {len(merged)} tensors")
+        ref = OmniGen2Model(cfg, dev)
+        ref.load_state_dict(merged)
+        ref.requires_grad_(False)
+        del merged
+        txt = MockTextEncoder(OG_TXT, cfg.text_dim, scale=0.5)([OG_PROMPT, "blurry"], device=dev)
+        x = torch.randn((2, 128, 128, 16), generator=gen, device=dev)
+        t = torch.full((2,), 900.0, device=dev)
+        outs = []
+        for m in (ref, pipe.model):
+            core = make_omnigen2_core(m, OG_TXT, OG_GRID, 0)
+            reset_counts()
+            hidden, c = core.prepare(x, t, {"txt": txt})
+            outs.append(core.head(core.trunk(hidden, c), c))
+            counts = read_counts()
+            check_og_launches("phase 89 t2i forward", counts, OG_TRUNK + OG_REFINER)
+        if not bool(torch.isfinite(outs[1]).all()) or not torch.equal(outs[0], outs[1]):
+            fail(f"phase 89: the loaded forward differs from the in-process one (max |diff| "
+                 f"{float((outs[0] - outs[1]).abs().max()):.3e})")
+        log(f"  t2i forward {tuple(outs[1].shape)} bit-equal to the in-process merged "
+            f"model's, finite; K1 {counts['flash_attention_bshd']} a forward")
+        del pipe, ref, outs
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase 89: {time.time() - t_all:.1f} s; peak RSS {peak_rss_gb():.1f} GB")
+    return counts
+
+
 def main():
     phase_environment()
     dev = torch.device("cuda", 0)
@@ -7708,6 +8153,10 @@ def main():
     del model
     torch.cuda.empty_cache()
     t_serve = time.time() - t0_serve
+    t0_ckpt = time.time()
+    wan_ckpt = phase_wan_checkpoint(dev)
+    og_lora = phase_omnigen2_lora(dev)
+    t_ckpt = time.time() - t0_ckpt
     log(f"all phases passed in {time.time() - t0:.1f} s (Wan {t_wan:.1f} s, "
         f"Open-Sora {t_os:.1f} s, FLUX {t_flux:.1f} s, Open-Sora 720p "
         f"{t_os720:.1f} s, Latte {t_latte:.1f} s, Wan sequence-parallel {t_sp:.1f} s, "
@@ -7716,13 +8165,13 @@ def main():
         f"{t_pab:.1f} s, Open-Sora-Plan and CogVideoX {t_osp:.1f} s, Vchitect and the "
         f"Open-Sora-Plan and CogVideoX VAEs {t_vch:.1f} s, the SD and Open-Sora VAEs "
         f"and the requests ending in their pixels "
-        f"{time.time() - t0 - t_wan - t_os - t_flux - t_os720 - t_latte - t_sp - t_unpacked - t_ends - t_pab - t_osp - t_vch - t_i2v - t_w22 - t_hy - t_qi - t_og - t_serve:.1f} s; "
+        f"{time.time() - t0 - t_wan - t_os - t_flux - t_os720 - t_latte - t_sp - t_unpacked - t_ends - t_pab - t_osp - t_vch - t_i2v - t_w22 - t_hy - t_qi - t_og - t_serve - t_ckpt:.1f} s; "
         f"the text encoders' phases 55-57, within those, {t_text:.1f} s; Wan I2V-14B and "
         f"FLF2V-14B, phases 58-62, {t_i2v:.1f} s; Wan2.2 TI2V-5B, VACE and the A14B MoE, "
         f"phases 63-69, {t_w22:.1f} s; HunyuanVideo and FramePack, phases 70-75, "
         f"{t_hy:.1f} s; Qwen-Image and Qwen-Image-Edit, phases 76-80, {t_qi:.1f} s; "
         f"OmniGen2, phases 81-85, {t_og:.1f} s; serving and the sweep, phases 86-87, "
-        f"{t_serve:.1f} s)")
+        f"{t_serve:.1f} s; published checkpoints and LoRA, phases 88-89, {t_ckpt:.1f} s)")
 
     meta = {
         "flash_attention_bshd": ("cuda", "magcache_tpu_torch/csrc/hopper_attention.cuh",
@@ -7773,7 +8222,8 @@ def main():
              "wan-vace": vace, "wan-a14b": a14b, "hunyuan": hunyuan,
              "framepack": framepack["framepack"], "framepack-f1": framepack["framepack-f1"],
              "qwen-image": qwen, "qwen-image-edit": qwen_edit, "omnigen2": og["t2i"],
-             "omnigen2-edit": og["edit"], "wan-serve": serve, "wan-sweep": sweep}
+             "omnigen2-edit": og["edit"], "wan-serve": serve, "wan-sweep": sweep,
+             "wan-ckpt": wan_ckpt, "omnigen2-lora": og_lora}
     kernels = []
     for name, (route, source, replaces) in meta.items():
         by_path = {p: c[name] for p, c in paths.items()}

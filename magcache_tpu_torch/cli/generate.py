@@ -115,10 +115,14 @@ Examples:
       --instruction "make it snow" --use_magcache   # edit: 3 lanes on two programs
   torchrun --nproc_per_node 4 -m magcache_tpu_torch.cli.generate --task t2v-1.3B \
       --use_magcache --ulysses_size 4           # or --ring_size 4
-Checkpoints are not loaded yet: the DiT has random weights and the text
-encoders are the hash-seeded mocks, so the output is latents, not a video or
-an image (the pipelines' ``vae=`` takes a VAE through the API; the CLI
-builds none). Input images are ``.npy`` arrays ``[H, W, 3]`` in [0, 1] or
+Without checkpoint flags the DiT has random weights and the text encoders
+are the hash-seeded mocks, and the output is latents. ``--ckpt_dir`` (or
+OmniGen2's ``--model_path``) loads a published DiT checkpoint, with
+``--transformer_lora_path`` an adapter merged in (FLUX, OmniGen2); a Wan
+directory's ``*umt5*.pth``, ``--t5_ckpt``, ``--llm_ckpt`` and
+``--clip_text_ckpt{,2}`` load encoders (always with the hash tokenizer: no
+tokenizer file is read); ``--vae_ckpt`` loads the family's VAE, and the
+decoded pixels are saved beside the latents (``<save_file>_pixels.npy``). Input images are ``.npy`` arrays ``[H, W, 3]`` in [0, 1] or
 image files read with PIL. ``flux-kontext-dev --image`` conditions on the
 image as the JAX CLI does without ``--vae_ckpt``: nearest-resized and
 channel-tiled to the latent grid, not encoded. ``i2v-14B --image`` and
@@ -149,6 +153,7 @@ and raise.
 from __future__ import annotations
 
 import argparse
+import glob
 import json
 import os
 import sys
@@ -355,6 +360,37 @@ def build_parser() -> argparse.ArgumentParser:
                    help="omnigen2: the TaylorSeer forecasting comparator")
     p.add_argument("--teacache_rel_l1_thresh", type=float, default=None,
                    help="omnigen2 alias of --teacache_thresh (which wins when both are given)")
+    # published checkpoints (models/published.py, models/checkpoint.py)
+    p.add_argument("--ckpt_dir", default=None,
+                   help="a published DiT checkpoint: a directory of *.safetensors "
+                        "(sharded or not) or torch files, or one file; a Wan "
+                        "directory's *umt5*.pth is its text encoder")
+    p.add_argument("--model_path", "--transformer_path", dest="model_path", default=None,
+                   help="omnigen2 aliases of --ckpt_dir (the transformer directory)")
+    p.add_argument("--transformer_lora_path", default=None,
+                   help="a LoRA adapter (PEFT or kohya keys) merged into the "
+                        "checkpoint's weights at load (omnigen2, flux)")
+    p.add_argument("--lora_scale", type=float, default=1.0,
+                   help="the scale of --transformer_lora_path (PEFT's lora_scale)")
+    p.add_argument("--vae_ckpt", default=None,
+                   help="a VAE checkpoint: the Wan VAE .pth for the Wan and Qwen "
+                        "tasks (shape-sniffed), else the family's VAE")
+    p.add_argument("--vae_dtype", default=None, choices=["float32", "bfloat16"],
+                   help="the Wan VAE's conv dtype (default float32)")
+    p.add_argument("--clip_ckpt", default=None,
+                   help="the CLIP vision tower's weights for Wan i2v / flf2v")
+    p.add_argument("--t5_ckpt", default=None,
+                   help="a T5-family encoder checkpoint (UMT5 routed by config.json, "
+                        "file name or key names; T5 / mT5 by HF names)")
+    p.add_argument("--llm_ckpt", default=None,
+                   help="the Llama (HunyuanVideo, FramePack) or Qwen2.5-VL "
+                        "(Qwen-Image, OmniGen2) text tower's weights")
+    p.add_argument("--clip_text_ckpt", default=None,
+                   help="a CLIP-L text tower's weights: FLUX's, HunyuanVideo's "
+                        "and FramePack's pooled vector; with --clip_text_ckpt2 and "
+                        "--t5_ckpt Vchitect's SD3 stack")
+    p.add_argument("--clip_text_ckpt2", default=None,
+                   help="the CLIP-bigG text tower's weights (Vchitect's SD3 stack)")
     p.add_argument("--dist_init_method", default=None,
                    help="process-group rendezvous (tcp://host:port or "
                         "file:///path) when not started by torchrun; RANK and "
@@ -424,8 +460,15 @@ def _wan_pipeline(args, device, ratios):
         teacache_thresh=0.2 if args.teacache_thresh is None else args.teacache_thresh,
         use_ret_steps=args.use_ret_steps,
         mag_ratios_override=ratios, dtype=args.dtype, tiny=args.tiny,
-        sp=args.sp, sp_impl="ring" if args.ring_size else "auto")
-    return WanPipeline(cfg, device, plan=plan), cfg.sample_steps, 2
+        sp=args.sp, sp_impl="ring" if args.ring_size else "auto",
+        ckpt_dir=args.ckpt_dir, clip_ckpt=args.clip_ckpt)
+    # the reference's one --ckpt_dir holds the encoder too
+    # (models_t5_umt5-xxl-enc-*.pth, magcache_generate.py:884-893)
+    t5_src = args.t5_ckpt
+    if not t5_src and args.ckpt_dir and glob.glob(os.path.join(args.ckpt_dir, "*umt5*.pth")):
+        t5_src = args.ckpt_dir
+    text = _t5(t5_src, cfg.model_config().text_len, device)
+    return WanPipeline(cfg, device, plan=plan, text_encoder=text), cfg.sample_steps, 2
 
 
 def _open_sora_pipeline(args, device, ratios):
@@ -448,8 +491,9 @@ def _open_sora_pipeline(args, device, ratios):
         magcache_K=args.magcache_K, retention_ratio=args.retention_ratio,
         magcache_calibration=args.magcache_calibration, magcache_ratios=ratios,
         cache_policy=args.cache_policy, enable_pab=args.enable_pab,
-        dtype=args.dtype, tiny=args.tiny, route=args.route)
-    return OpenSoraPipeline(cfg, device), cfg.num_sampling_steps, 1
+        dtype=args.dtype, tiny=args.tiny, route=args.route, ckpt_dir=args.ckpt_dir)
+    pipe = OpenSoraPipeline(cfg, device, text_encoder=_t5(args.t5_ckpt, cfg.caption_len, device))
+    return pipe, cfg.num_sampling_steps, 1
 
 
 def _flux_pipeline(args, device, ratios):
@@ -471,8 +515,12 @@ def _flux_pipeline(args, device, ratios):
         use_magcache=args.use_magcache, magcache_thresh=args.magcache_thresh,
         magcache_K=args.magcache_K, retention_ratio=args.retention_ratio,
         magcache_calibration=args.magcache_calibration,
-        mag_ratios_override=ratios, dtype=args.dtype, tiny=args.tiny)
-    return FluxPipeline(cfg, device), cfg.num_inference_steps, 1
+        mag_ratios_override=ratios, dtype=args.dtype, tiny=args.tiny,
+        ckpt_dir=args.ckpt_dir, lora_path=args.transformer_lora_path,
+        lora_scale=args.lora_scale)
+    pipe = FluxPipeline(cfg, device, text_encoder=_t5(args.t5_ckpt, cfg.txt_len, device),
+                        pooled_encoder=_clip_text(args.clip_text_ckpt, device))
+    return pipe, cfg.num_inference_steps, 1
 
 
 def _latte_pipeline(args, device, ratios):
@@ -492,15 +540,16 @@ def _latte_pipeline(args, device, ratios):
         kw.update(num_frames=4, height=64, width=64, caption_len=6)
     elif args.txt_len:
         kw["caption_len"] = args.txt_len
-    cfg = LattePipelineConfig(**kw)
-    return LattePipeline(cfg, device), cfg.num_sampling_steps, 1
+    cfg = LattePipelineConfig(**kw, ckpt_dir=args.ckpt_dir)
+    pipe = LattePipeline(cfg, device, text_encoder=_t5(args.t5_ckpt, cfg.caption_len, device))
+    return pipe, cfg.num_sampling_steps, 1
 
 
 def _common_kw(args, ratios) -> dict:
     """The MagCache and PAB settings every later family's config takes."""
     kw = dict(use_magcache=args.use_magcache, magcache_calibration=args.magcache_calibration,
               magcache_ratios=ratios, dtype=args.dtype, tiny=args.tiny,
-              enable_pab=args.enable_pab)
+              enable_pab=args.enable_pab, ckpt_dir=args.ckpt_dir)
     for name in ("magcache_thresh", "magcache_K", "retention_ratio"):
         if getattr(args, name) is not None:
             kw[name] = getattr(args, name)
@@ -526,7 +575,8 @@ def _open_sora_plan_pipeline(args, device, ratios):
     elif args.txt_len:
         kw["caption_len"] = args.txt_len
     cfg = OpenSoraPlanPipelineConfig(**kw)
-    pipe = OpenSoraPlanPipeline(cfg, device)
+    pipe = OpenSoraPlanPipeline(cfg, device,
+                                text_encoder=_t5(args.t5_ckpt, cfg.caption_len, device))
     return pipe, cfg.num_inference_steps, 2
 
 
@@ -543,7 +593,8 @@ def _cogvideox_pipeline(args, device, ratios):
     elif args.txt_len:
         kw["txt_len"] = args.txt_len
     cfg = CogVideoXPipelineConfig(**kw)
-    return CogVideoXPipeline(cfg, device), cfg.num_inference_steps, 1
+    pipe = CogVideoXPipeline(cfg, device, text_encoder=_t5(args.t5_ckpt, cfg.txt_len, device))
+    return pipe, cfg.num_inference_steps, 1
 
 
 def _vchitect_pipeline(args, device, ratios):
@@ -557,8 +608,23 @@ def _vchitect_pipeline(args, device, ratios):
         kw.update(num_frames=4, height=32, width=32, txt_len=6)
     elif args.txt_len:
         kw["txt_len"] = args.txt_len
+    text = pooled = None
+    if args.clip_text_ckpt and args.clip_text_ckpt2 and args.t5_ckpt:
+        # the SD3 triple stack (pipeline_vchitect.py: CLIP-L + CLIP-bigG
+        # penultimate states and projected pooled vectors, T5 at 256)
+        from magcache_tpu_torch.models.text import Sd3TextStack
+
+        clip_l, clip_g = (_clip_text(c, device, hidden_skip=1, project=True)
+                          for c in (args.clip_text_ckpt, args.clip_text_ckpt2))
+        stack = Sd3TextStack(clip_l, clip_g, _t5(args.t5_ckpt, 256, device))
+        kw["txt_len"] = clip_l.seq_len + 256
+        text, pooled = stack.context, stack.pooled
+    elif args.clip_text_ckpt or args.clip_text_ckpt2 or args.t5_ckpt:
+        raise SystemExit("--task vchitect: its SD3 text stack takes --clip_text_ckpt, "
+                         "--clip_text_ckpt2 and --t5_ckpt together")
     cfg = VchitectPipelineConfig(**kw)
-    return VchitectPipeline(cfg, device), cfg.num_inference_steps, 2
+    pipe = VchitectPipeline(cfg, device, text_encoder=text, pooled_encoder=pooled)
+    return pipe, cfg.num_inference_steps, 2
 
 
 def _hunyuan_pipeline(args, device, ratios):
@@ -598,8 +664,15 @@ def _hunyuan_pipeline(args, device, ratios):
         magcache_K=args.magcache_K, retention_ratio=args.retention_ratio,
         use_teacache=args.enable_teacache, teacache_thresh=args.teacache_thresh,
         magcache_calibration=args.magcache_calibration, mag_ratios_override=ratios,
-        dtype=args.dtype, tiny=args.tiny)
-    return FramePackPipeline(cfg, device), cfg.steps, 1
+        dtype=args.dtype, tiny=args.tiny, ckpt_dir=args.ckpt_dir)
+    text = None
+    if args.llm_ckpt:
+        from magcache_tpu_torch.models.text import LlamaTextEncoder
+
+        text = LlamaTextEncoder(args.llm_ckpt, out_len=cfg.txt_len, device=device)
+    pipe = FramePackPipeline(cfg, device, text_encoder=text,
+                             pooled_encoder=_clip_text(args.clip_text_ckpt, device))
+    return pipe, cfg.steps, 1
 
 
 def _qwen_pipeline(args, device, ratios):
@@ -620,8 +693,25 @@ def _qwen_pipeline(args, device, ratios):
         use_magcache=args.use_magcache, magcache_thresh=args.magcache_thresh,
         magcache_K=args.magcache_K, retention_ratio=args.retention_ratio,
         magcache_calibration=args.magcache_calibration, mag_ratios_override=ratios,
-        dtype=args.dtype, tiny=args.tiny)
-    return QwenImagePipeline(cfg, device), cfg.sample_steps, 2
+        dtype=args.dtype, tiny=args.tiny, ckpt_dir=args.ckpt_dir)
+    text = None
+    if args.llm_ckpt:
+        from magcache_tpu_torch.models import text as T
+
+        if "edit" in model and args.image:
+            # Edit's stack: the reference image rides the chat template through
+            # the Qwen2.5-VL vision tower; its merged tokens and the prompt fit
+            # txt_len (96 tokens kept for the prompt and the specials)
+            from magcache_tpu_torch.pipelines.flux import load_image
+
+            text = T.QwenVLTextEncoder(args.llm_ckpt, out_len=cfg.txt_len, device=device,
+                                       max_pixels=max(56 * 56, (cfg.txt_len - 96) * 28 * 28))
+            text.set_image(load_image(args.image))
+        else:
+            text = T.LlamaTextEncoder(args.llm_ckpt, out_len=cfg.txt_len, skip_layers=0,
+                                      template=T.QWEN_IMAGE_PROMPT_TEMPLATE,
+                                      crop_start=T.QWEN_IMAGE_CROP_START, device=device)
+    return QwenImagePipeline(cfg, device, text_encoder=text), cfg.sample_steps, 2
 
 
 def _omnigen2_pipeline(args, device):
@@ -665,8 +755,78 @@ def _omnigen2_pipeline(args, device):
         kw.update(height=32, width=32, txt_len=6)
     elif args.txt_len:
         kw["txt_len"] = args.txt_len
-    pipe = OmniGen2Pipeline(OmniGen2PipelineConfig(**kw), device)
+    kw.update(ckpt_dir=args.ckpt_dir or args.model_path, lora_path=args.transformer_lora_path,
+              lora_scale=args.lora_scale)
+    cfg = OmniGen2PipelineConfig(**kw)
+    text = None
+    if args.llm_ckpt:
+        # the reference's pipeline.mllm, a Qwen2.5-VL LM on the raw prompt
+        # (final-normed last hidden state), as the JAX CLI
+        from magcache_tpu_torch.models.text import LlamaTextEncoder
+
+        text = LlamaTextEncoder(args.llm_ckpt, out_len=cfg.txt_len, skip_layers=0,
+                                template=None, device=device)
+    pipe = OmniGen2Pipeline(cfg, device, text_encoder=text)
     return pipe, kw["num_inference_steps"], pipe.lanes
+
+
+def _t5(path, seq_len: int, device):
+    """A T5-family encoder of a checkpoint (``--t5_ckpt``, or Wan's
+    ``ckpt_dir``), or None for the pipeline's mock."""
+    if not path:
+        return None
+    from magcache_tpu_torch.models.text import make_t5_encoder
+
+    return make_t5_encoder(path, seq_len=seq_len, device=device)
+
+
+def _clip_text(path, device, **kw):
+    """A CLIP text encoder of a checkpoint, or None for the pipeline's mock."""
+    if not path:
+        return None
+    from magcache_tpu_torch.models.text import ClipTextEncoder
+
+    return ClipTextEncoder(path, device=device, **kw)
+
+
+def _attach_vae(args, pipe) -> None:
+    """``--vae_ckpt`` into the pipeline's VAE slot, routed by task as the JAX
+    CLI does: the Wan VAE for the Wan and Qwen tasks, the CogVideoX,
+    Open-Sora-Plan (its version's config) and Open-Sora composite VAEs for
+    theirs, the SD VAE for FLUX, Latte and Vchitect. A task with no slot
+    exits."""
+    if not args.vae_ckpt:
+        if args.vae_dtype:
+            print("WARNING: --vae_dtype applies to the Wan VAE of --vae_ckpt; the "
+                  "pipeline has none attached, flag ignored.")
+        return
+    if not hasattr(pipe, "vae"):
+        raise SystemExit(f"--vae_ckpt: task {args.task} has no VAE slot")
+    t0 = time.time()
+    if args.task in _WAN or args.task in _QWEN:
+        from magcache_tpu_torch.models.vae_wan import load_wan_vae_checkpoint
+
+        vae = load_wan_vae_checkpoint(args.vae_ckpt, dtype=args.vae_dtype, device=pipe.device)
+    elif args.vae_dtype:
+        raise SystemExit(f"--vae_dtype: the {args.task} VAE is f32 only")
+    elif args.task == "cogvideox":
+        from magcache_tpu_torch.models.vae_cogvideox import load_cogvideox_vae_checkpoint
+
+        vae = load_cogvideox_vae_checkpoint(args.vae_ckpt, device=pipe.device)
+    elif args.task == "open-sora-plan":
+        from magcache_tpu_torch.models.vae_osp import load_osp_vae_checkpoint
+
+        vae = load_osp_vae_checkpoint(args.vae_ckpt, pipe.config.vae_config(), pipe.device)
+    elif args.task == "open-sora":
+        from magcache_tpu_torch.models.vae_temporal import load_open_sora_vae
+
+        vae = load_open_sora_vae(args.vae_ckpt, device=pipe.device)
+    else:
+        from magcache_tpu_torch.models.vae_sd import load_sd_vae_checkpoint
+
+        vae = load_sd_vae_checkpoint(args.vae_ckpt, device=pipe.device)
+    pipe.vae = vae
+    print(f"loaded the VAE {args.vae_ckpt} in {time.time() - t0:.1f}s")
 
 
 def _omnigen2_refs(args) -> list:
@@ -780,7 +940,23 @@ def _pipeline(args):
                          ("--no_text_preprocessing", args.no_text_preprocessing,
                           args.task == "open-sora-plan"),
                          ("--route unpacked", args.route == "unpacked",
-                          args.task == "open-sora-plan")):
+                          args.task == "open-sora-plan"),
+                         ("--transformer_lora_path", args.transformer_lora_path is not None,
+                          omnigen2 or args.task.startswith("flux")),
+                         ("--model_path / --transformer_path", args.model_path is not None,
+                          omnigen2),
+                         ("--clip_ckpt", args.clip_ckpt is not None,
+                          args.task in ("i2v-14B", "flf2v-14B")),
+                         ("--t5_ckpt", args.t5_ckpt is not None,
+                          wan or args.task.startswith("flux") or args.task in (
+                              "open-sora", "latte", "open-sora-plan", "cogvideox",
+                              "vchitect")),
+                         ("--llm_ckpt", args.llm_ckpt is not None,
+                          hunyuan or args.task in _QWEN or omnigen2),
+                         ("--clip_text_ckpt", args.clip_text_ckpt is not None,
+                          hunyuan or args.task.startswith("flux") or args.task == "vchitect"),
+                         ("--clip_text_ckpt2", args.clip_text_ckpt2 is not None,
+                          args.task == "vchitect")):
         if on and not ok:
             raise SystemExit(f"{flag} does not apply to --task {args.task!r}")
     ratios = None
@@ -824,6 +1000,7 @@ def main(argv=None):
         args.prompt = args.instruction
     t0 = time.time()
     pipe, steps, lanes = _pipeline(args)
+    _attach_vae(args, pipe)
     kw = {}
     if args.task == "open-sora":
         kw = dict(loop=args.loop, ms=args.ms, refs=args.refs,
@@ -904,6 +1081,12 @@ def main(argv=None):
         lat = out.latents.cpu().numpy()
         np.save(save_file + "_latents.npy", lat)
         print(f"latents {lat.shape} -> {save_file}_latents.npy")
+        pixels = out.video if out.video is not None else out.image
+        if pixels is not None:
+            px = pixels.float().cpu().numpy()
+            np.save(save_file + "_pixels.npy", px)
+            print(f"pixels {px.shape} in [{px.min():.3f}, {px.max():.3f}], finite "
+                  f"{bool(np.isfinite(px).all())} -> {save_file}_pixels.npy")
         if args.task in _HUNYUAN:
             # bits [sections, steps, 1], one forward a step
             print(f"skipped {int(out.skips.sum())} of {out.skips.size} forwards (one per "

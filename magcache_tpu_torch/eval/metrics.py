@@ -174,9 +174,9 @@ def load_lpips_weights(path: str, device=None) -> LPIPSModel:
     as the process default, on ``device`` if given, and return the model."""
     global _DEFAULT_LPIPS
     if path.endswith(".safetensors"):
-        from safetensors.torch import load_file
+        from magcache_tpu_torch.models.checkpoint import read_safetensors
 
-        sd = load_file(path)
+        sd = read_safetensors(path)
     else:
         sd = torch.load(path, map_location="cpu", weights_only=True)
     _DEFAULT_LPIPS = LPIPSModel.from_torch_state_dict(sd)

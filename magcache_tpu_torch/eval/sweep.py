@@ -111,9 +111,6 @@ def sweep_pipeline_config(cfg: SweepConfig):
     if cfg.tp > 1:
         raise NotImplementedError("tp > 1: the tensor-parallel axis is not ported "
                                   "(ROADMAP section 1, item 7)")
-    if cfg.ckpt_dir is not None:
-        raise NotImplementedError("ckpt_dir: the port loads no checkpoints; its "
-                                  "weights are random")
     return WanPipelineConfig(
         model=cfg.model, size=tuple(cfg.size), frame_num=cfg.frame_num,
         sample_steps=cfg.sample_steps, sample_solver=cfg.sample_solver,
@@ -123,7 +120,7 @@ def sweep_pipeline_config(cfg: SweepConfig):
         teacache_thresh=cfg.teacache_thresh, use_ret_steps=cfg.use_ret_steps,
         magcache_thresh=cfg.magcache_thresh, magcache_K=cfg.magcache_K,
         retention_ratio=cfg.retention_ratio, dtype=cfg.dtype, sp=cfg.sp,
-        tiny=cfg.tiny)
+        ckpt_dir=cfg.ckpt_dir, tiny=cfg.tiny)
 
 
 def run_sweep(cfg: SweepConfig, pipeline=None, device="cuda") -> dict:

@@ -344,3 +344,139 @@ def preprocess_clip_image(image, cfg: CLIPVisionConfig) -> torch.Tensor:
     s = cfg.image_size
     img = resize_bicubic(img, (s, s)).clamp(0.0, 1.0)
     return (img - torch.tensor(CLIP_IMAGE_MEAN)) / torch.tensor(CLIP_IMAGE_STD)
+
+
+# ---- published checkpoints ------------------------------------------------------
+
+def _strip_prefix(sd: dict, prefix: str) -> dict:
+    if any(k.startswith(prefix) for k in sd):
+        return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+    return sd
+
+
+def convert_clip_vision_state_dict(sd: dict, cfg: CLIPVisionConfig) -> dict:
+    """The official Wan CLIP visual tower (``wan/modules/clip.py``, under
+    ``visual.``: ``patch_embedding``, ``cls_embedding``, ``pos_embedding``,
+    ``pre_norm``, ``transformer.N.{norm1, attn.to_qkv, attn.proj, norm2,
+    mlp.0, mlp.2}``, ``post_norm``) as the JAX CLIP vision tree."""
+    from magcache_tpu_torch.models.checkpoint import conv_as_linear, lin, stack, vec
+
+    sd = _strip_prefix(sd, "visual.")
+    dt, d = cfg.torch_dtype, cfg.dim
+    pe = conv_as_linear({**sd, "patch_embedding.bias": sd.get(
+        "patch_embedding.bias", torch.zeros(d))}, "patch_embedding", dt)
+    t = "transformer.{}."
+
+    def ln(name, part):
+        return [vec(sd, (t + name).format(i) + f".{part}") for i in range(cfg.layers)]
+
+    def group(name):
+        return stack([lin(sd, (t + name).format(i), dt) for i in range(cfg.layers)])
+
+    return {"patch_embed": pe, "cls": vec(sd, "cls_embedding").reshape(d),
+            "pos": vec(sd, "pos_embedding").reshape(-1, d),
+            "pre_norm_w": vec(sd, "pre_norm.weight"), "pre_norm_b": vec(sd, "pre_norm.bias"),
+            "blocks": {"norm1_w": ln("norm1", "weight"), "norm1_b": ln("norm1", "bias"),
+                       "qkv": group("attn.to_qkv"), "proj": group("attn.proj"),
+                       "norm2_w": ln("norm2", "weight"), "norm2_b": ln("norm2", "bias"),
+                       "mlp1": group("mlp.0"), "mlp2": group("mlp.2")},
+            "post_norm_w": vec(sd, "post_norm.weight"), "post_norm_b": vec(sd, "post_norm.bias")}
+
+
+def _hf_blocks(sd: dict, layers: int, dt) -> dict:
+    """An HF CLIP encoder's blocks (separate q/k/v fused) as JAX's tree."""
+    from magcache_tpu_torch.models.checkpoint import cat_lin, lin, stack, vec
+
+    e = "encoder.layers.{}."
+
+    def ln(name, part):
+        return [vec(sd, (e + name).format(i) + f".{part}") for i in range(layers)]
+
+    def group(name):
+        return stack([lin(sd, (e + name).format(i), dt) for i in range(layers)])
+
+    qkv = stack([cat_lin(sd, [f"encoder.layers.{i}.self_attn.{n}_proj" for n in "qkv"], dt)
+                 for i in range(layers)])
+    return {"norm1_w": ln("layer_norm1", "weight"), "norm1_b": ln("layer_norm1", "bias"),
+            "qkv": qkv, "proj": group("self_attn.out_proj"),
+            "norm2_w": ln("layer_norm2", "weight"), "norm2_b": ln("layer_norm2", "bias"),
+            "mlp1": group("mlp.fc1"), "mlp2": group("mlp.fc2")}
+
+
+def convert_hf_clip_vision_state_dict(sd: dict, cfg: CLIPVisionConfig) -> dict:
+    """A ``transformers.CLIPVisionModel`` state dict (``vision_model.``) as
+    the JAX CLIP vision tree, q/k/v fused."""
+    from magcache_tpu_torch.models.checkpoint import conv_as_linear, vec
+
+    sd = _strip_prefix(sd, "vision_model.")
+    dt, d = cfg.torch_dtype, cfg.dim
+    pe = conv_as_linear({**sd, "embeddings.patch_embedding.bias": sd.get(
+        "embeddings.patch_embedding.bias", torch.zeros(d))}, "embeddings.patch_embedding", dt)
+    return {"patch_embed": pe, "cls": vec(sd, "embeddings.class_embedding").reshape(d),
+            "pos": vec(sd, "embeddings.position_embedding.weight"),
+            "pre_norm_w": vec(sd, "pre_layrnorm.weight"),
+            "pre_norm_b": vec(sd, "pre_layrnorm.bias"),
+            "blocks": _hf_blocks(sd, cfg.layers, dt),
+            "post_norm_w": vec(sd, "post_layernorm.weight"),
+            "post_norm_b": vec(sd, "post_layernorm.bias")}
+
+
+def convert_clip_text_state_dict(sd: dict, cfg: CLIPTextConfig) -> dict:
+    """A ``transformers.CLIPTextModel`` / ``CLIPTextModelWithProjection``
+    state dict (``text_model.``) as the JAX CLIP text tree, q/k/v fused;
+    ``text_projection.weight`` becomes ``text_proj`` (SD3, Vchitect)."""
+    from magcache_tpu_torch.models.checkpoint import vec
+
+    proj = sd.get("text_projection.weight")
+    sd = _strip_prefix(sd, "text_model.")
+    dt = cfg.torch_dtype
+    tree = {"tok": vec(sd, "embeddings.token_embedding.weight", dt),
+            "pos": vec(sd, "embeddings.position_embedding.weight", dt),
+            "blocks": _hf_blocks(sd, cfg.layers, dt),
+            "final_norm_w": vec(sd, "final_layer_norm.weight"),
+            "final_norm_b": vec(sd, "final_layer_norm.bias")}
+    if proj is not None:
+        tree["text_proj"] = proj.T
+    return tree
+
+
+def load_clip_text(path: str, device="cuda") -> Tuple[CLIPTextConfig, "CLIPTextModel"]:
+    """``(config, model)`` of an HF CLIP text directory: the config from its
+    ``config.json`` (``text_config`` when nested) as the JAX encoder reads
+    it, ``projection_dim`` from ``text_projection.weight``."""
+    import json
+    import os
+
+    from magcache_tpu_torch.models.checkpoint import load_safetensors_dir
+    from magcache_tpu_torch.models.convert import clip_text_params_from_numpy
+
+    sd = load_safetensors_dir(path)
+    with open(os.path.join(path, "config.json")) as f:
+        hf = json.load(f)
+    hf = hf.get("text_config", hf)
+    proj = sd.get("text_projection.weight")
+    cfg = CLIPTextConfig(
+        vocab_size=hf["vocab_size"], dim=hf["hidden_size"], layers=hf["num_hidden_layers"],
+        heads=hf["num_attention_heads"], mlp_ratio=hf["intermediate_size"] // hf["hidden_size"],
+        max_len=hf["max_position_embeddings"], eos_token_id=hf.get("eos_token_id", 49407),
+        quick_gelu=hf.get("hidden_act", "quick_gelu") == "quick_gelu",
+        projection_dim=None if proj is None else int(proj.shape[0]))
+    model = CLIPTextModel(cfg, torch.device(device))
+    model.load_state_dict(clip_text_params_from_numpy(convert_clip_text_state_dict(sd, cfg),
+                                                      cfg, device))
+    return cfg, model
+
+
+def load_clip_vision(path: str, cfg: CLIPVisionConfig, device="cuda") -> "CLIPVisionModel":
+    """A ``CLIPVisionModel(cfg)`` from the Wan CLIP ``.pth`` (``visual.``
+    keys) or an HF ``CLIPVisionModel`` checkpoint (``vision_model.``)."""
+    from magcache_tpu_torch.models.checkpoint import load_safetensors_dir, torch_load_flat
+    from magcache_tpu_torch.models.convert import clip_vision_params_from_numpy
+
+    sd = (torch_load_flat(path) if path.endswith((".pth", ".pt", ".bin"))
+          else load_safetensors_dir(path))
+    hf = any(k.startswith(("vision_model.", "embeddings.")) for k in sd)
+    tree = (convert_hf_clip_vision_state_dict if hf else convert_clip_vision_state_dict)(sd, cfg)
+    model = CLIPVisionModel(cfg, torch.device(device))
+    model.load_state_dict(clip_vision_params_from_numpy(tree, cfg, device))
+    return model

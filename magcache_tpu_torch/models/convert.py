@@ -28,7 +28,11 @@ layout rules: the JAX block weights are
 depth-stacked ``[L, ...]`` (one entry per block here), JAX's ``linear`` is
 ``x @ w`` with ``w: [d_in, d_out]`` while ``nn.Linear`` keeps ``[d_out, d_in]``, and JAX's
 conv kernels are ``[kt, kh, kw, C_in, C_out]`` (``[kh, kw, C_in, C_out]``)
-where PyTorch's are ``[C_out, C_in, kt, kh, kw]``.
+where PyTorch's are ``[C_out, C_in, kt, kh, kw]``. A tree's leaves may also
+be torch tensors, as ``models/published.py``'s checkpoint converters build
+them (views in the JAX tree's dtypes, depth stacks as per-block lists):
+those are cast straight to each parameter's dtype, which rounds as the cast
+through f32 does.
 """
 
 from __future__ import annotations
@@ -60,14 +64,36 @@ from magcache_tpu_torch.models.vchitect import VchitectConfig
 from magcache_tpu_torch.models.wan import WanConfig
 
 
+def _tensor(arr, dt, device) -> torch.Tensor:
+    """A tree leaf in ``dt`` on ``device``: a numpy array through f32, a torch
+    tensor (a checkpoint's, already in the JAX tree's dtype) cast directly,
+    which rounds the same."""
+    if torch.is_tensor(arr):
+        if device is not None:
+            arr = arr.to(device)
+        return arr.to(dt).contiguous()
+    return torch.from_numpy(np.array(arr, np.float32)).to(device=device, dtype=dt)
+
+
+def _permute(arr, axes):
+    """``arr`` (numpy or torch) with its axes permuted."""
+    return arr.permute(*axes) if torch.is_tensor(arr) else np.asarray(arr).transpose(axes)
+
+
+def _transposed(arr):
+    """A 2-D leaf transposed (numpy or torch)."""
+    return arr.T if torch.is_tensor(arr) else np.asarray(arr).T
+
+
 def _putters(sd: dict, device):
-    """``(put, put_linear)``: a numpy array, or a JAX ``{"w": [d_in, d_out],
-    "b"}`` linear transposed to ``nn.Linear``'s layout, into ``sd``."""
+    """``(put, put_linear)``: a numpy array or torch tensor, or a JAX ``{"w":
+    [d_in, d_out], "b"}`` linear transposed to ``nn.Linear``'s layout, into
+    ``sd``."""
     def put(name, arr, dt=torch.float32):
-        sd[name] = torch.from_numpy(np.array(arr, np.float32)).to(device=device, dtype=dt)
+        sd[name] = _tensor(arr, dt, device)
 
     def put_linear(name, p, dt=torch.float32):
-        put(f"{name}.weight", np.asarray(p["w"]).T, dt)
+        put(f"{name}.weight", _transposed(p["w"]), dt)
         if "b" in p:
             put(f"{name}.bias", p["b"], dt)
 
@@ -450,7 +476,7 @@ def umt5_params_from_numpy(tree: dict, cfg: UMT5Config, device=None
     dt = cfg.torch_dtype
 
     def put(arr):
-        return torch.from_numpy(np.array(arr, np.float32)).to(device=device, dtype=dt)
+        return _tensor(arr, dt, device)
 
     blocks = tree["blocks"]
     sd = {"embed": put(tree["embed"]), "final_ln": put(tree["final_ln"])}
@@ -458,7 +484,7 @@ def umt5_params_from_numpy(tree: dict, cfg: UMT5Config, device=None
         for name in ("ln1", "ln2", "rel"):
             sd[f"blocks.{i}.{name}"] = put(blocks[name][i])
         for name in _UMT5_LINEARS:
-            sd[f"blocks.{i}.{name}.weight"] = put(np.asarray(blocks[name][i]).T)
+            sd[f"blocks.{i}.{name}.weight"] = put(_transposed(blocks[name][i]))
     return sd
 
 
@@ -474,9 +500,7 @@ def t5_params_from_flax(tree: dict, cfg: T5Config, device=None
     dt = cfg.torch_dtype
 
     def put(arr, transpose=False):
-        arr = np.asarray(arr, np.float32)
-        return torch.from_numpy(np.array(arr.T if transpose else arr)).to(
-            device=device, dtype=dt)
+        return _tensor(_transposed(arr) if transpose else arr, dt, device)
 
     enc = tree["encoder"]
     sd = {"embed": put(tree["shared"]["embedding"]),
@@ -562,9 +586,8 @@ def wan_vae_params_from_numpy(tree: dict, cfg: WanVAEConfig, device=None
     put, _ = _putters(sd, device)
 
     def conv(name, p):
-        w = np.asarray(p["w"])
-        put(f"{name}.weight", w.transpose((w.ndim - 1, w.ndim - 2) + tuple(range(w.ndim - 2))),
-            dt)
+        n = p["w"].ndim
+        put(f"{name}.weight", _permute(p["w"], (n - 1, n - 2) + tuple(range(n - 2))), dt)
         put(f"{name}.bias", p["b"], dt)
 
     def res(name, p):
@@ -637,9 +660,9 @@ def _put_vae_tree(put, prefix: str, node) -> None:
     if node is None:
         return
     if isinstance(node, dict) and "w" in node:
-        w = np.asarray(node["w"])
+        w = node["w"]
         if w.ndim > 1:
-            w = w.transpose((w.ndim - 1, w.ndim - 2) + tuple(range(w.ndim - 2)))
+            w = _permute(w, (w.ndim - 1, w.ndim - 2) + tuple(range(w.ndim - 2)))
         put(f"{prefix}.weight", w)
         put(f"{prefix}.bias", node["b"])
         return
@@ -742,8 +765,7 @@ def vae_temporal_params_from_numpy(tree: dict, cfg: VAETemporalConfig, device=No
     put, _ = _putters(sd, device)
 
     def conv(prefix, node):
-        w = np.asarray(node["w"])
-        put(f"{prefix}.conv.weight", w.transpose(4, 3, 0, 1, 2))
+        put(f"{prefix}.conv.weight", _permute(node["w"], (4, 3, 0, 1, 2)))
         if "b" in node:
             put(f"{prefix}.conv.bias", node["b"])
 

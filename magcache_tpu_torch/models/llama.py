@@ -203,3 +203,56 @@ def llama_hidden_states(model: LlamaModel, input_ids: torch.Tensor,
     if final_norm:
         h = rms_norm(h, model.final_norm, eps=cfg.eps)
     return h.float()
+
+
+# ---- published checkpoints ------------------------------------------------------
+
+def convert_llama_state_dict(sd: dict, cfg: LlamaConfig) -> dict:
+    """A ``transformers.LlamaModel`` state dict (``model.`` tolerated) as the
+    JAX Llama tree; Qwen2-lineage q/k/v biases where present."""
+    from magcache_tpu_torch.models.checkpoint import vec
+
+    if any(k.startswith("model.") for k in sd):
+        sd = {k[len("model."):]: v for k, v in sd.items() if k.startswith("model.")}
+    dt, L = cfg.torch_dtype, cfg.layers
+
+    def group(name):
+        p = {"w": [vec(sd, f"layers.{i}.{name}.weight", dt).T for i in range(L)]}
+        if f"layers.0.{name}.bias" in sd:
+            p["b"] = [vec(sd, f"layers.{i}.{name}.bias", dt) for i in range(L)]
+        return p
+
+    names = {"q": "self_attn.q_proj", "k": "self_attn.k_proj", "v": "self_attn.v_proj",
+             "o": "self_attn.o_proj", "gate": "mlp.gate_proj", "up": "mlp.up_proj",
+             "down": "mlp.down_proj"}
+    blocks = {ours: group(theirs) for ours, theirs in names.items()}
+    blocks["in_norm"] = [vec(sd, f"layers.{i}.input_layernorm.weight") for i in range(L)]
+    blocks["post_norm"] = [vec(sd, f"layers.{i}.post_attention_layernorm.weight")
+                           for i in range(L)]
+    return {"embed": vec(sd, "embed_tokens.weight", dt), "blocks": blocks,
+            "final_norm": vec(sd, "norm.weight")}
+
+
+def llama_config_from_json(hf: dict, qkv_bias: Optional[bool] = None,
+                           rope_theta: float = 10000.0, eps: float = 1e-5) -> LlamaConfig:
+    """A ``LlamaConfig`` from an HF ``config.json``'s text part, as the JAX
+    encoders read it; Qwen2-lineage model types carry q/k/v biases."""
+    if qkv_bias is None:
+        qkv_bias = bool(hf.get("attention_bias", False) or hf.get("model_type", "") in (
+            "qwen2", "qwen2_vl", "qwen2_5_vl", "qwen2_5_vl_text"))
+    return LlamaConfig(vocab_size=hf["vocab_size"], hidden=hf["hidden_size"],
+                       layers=hf["num_hidden_layers"], heads=hf["num_attention_heads"],
+                       kv_heads=hf.get("num_key_value_heads", hf["num_attention_heads"]),
+                       intermediate=hf["intermediate_size"],
+                       rope_theta=hf.get("rope_theta", rope_theta),
+                       eps=hf.get("rms_norm_eps", eps), qkv_bias=qkv_bias)
+
+
+def load_llama(sd: dict, cfg: LlamaConfig, device="cuda") -> "LlamaModel":
+    """A ``LlamaModel(cfg)`` on ``device`` from a published state dict."""
+    from magcache_tpu_torch.models.convert import llama_params_from_numpy
+
+    model = LlamaModel(cfg, torch.device(device))
+    model.load_state_dict(llama_params_from_numpy(convert_llama_state_dict(sd, cfg), cfg,
+                                                  device))
+    return model

@@ -342,3 +342,35 @@ class QwenVLVisionTower(nn.Module):
         m = self.merger_fc2(F.gelu(self.merger_fc1(m), approximate="none"))
         undo = torch.from_numpy(np.argsort(window_index)).to(dev)
         return m[undo].float()
+
+
+# ---- published checkpoints ------------------------------------------------------
+
+def convert_qwen_vl_vision_state_dict(sd: dict, cfg: QwenVLVisionConfig) -> dict:
+    """A ``Qwen2_5_VisionTransformerPretrainedModel`` state dict (``visual.``
+    or bare) as the JAX tree: the Conv3d patch kernel ``[E, C, T, P, P]``
+    flattened in the processor's ``(C, T, P, P)`` order; f32 as in JAX,
+    absent biases zero."""
+    from magcache_tpu_torch.models.checkpoint import lin, stack, vec
+
+    if any(k.startswith("visual.") for k in sd):
+        sd = {k[len("visual."):]: v for k, v in sd.items() if k.startswith("visual.")}
+    f32 = torch.float32
+
+    def linear(prefix):
+        p = lin(sd, prefix, f32)
+        p.setdefault("b", torch.zeros(p["w"].shape[1]))
+        return p
+
+    def block(i):
+        p = f"blocks.{i}"
+        return {"norm1": vec(sd, f"{p}.norm1.weight"), "norm2": vec(sd, f"{p}.norm2.weight"),
+                "qkv": linear(f"{p}.attn.qkv"), "proj": linear(f"{p}.attn.proj"),
+                "gate": linear(f"{p}.mlp.gate_proj"), "up": linear(f"{p}.mlp.up_proj"),
+                "down": linear(f"{p}.mlp.down_proj")}
+
+    pe = vec(sd, "patch_embed.proj.weight")
+    return {"patch": pe.reshape(pe.shape[0], -1).T,
+            "blocks": stack([block(i) for i in range(cfg.depth)]),
+            "merger": {"ln": vec(sd, "merger.ln_q.weight"), "fc1": linear("merger.mlp.0"),
+                       "fc2": linear("merger.mlp.2")}}

@@ -15,15 +15,22 @@ kernel.
 ``T5Model(cfg, device).init(generator)`` draws random weights;
 ``models.convert.t5_params_from_flax`` and ``umt5_params_from_numpy`` carry
 the JAX package's trees over. ``models.text.T5Encoder`` tokenizes prompts
-and encodes them. Checkpoint loading and real tokenizers are not ported (no
-checkpoint or tokenizer file in the repository).
+and encodes them. ``load_t5_encoder`` reads a checkpoint: a UMT5 one (by
+``config.json``'s ``model_type``, a ``*umt5*.pth`` name, or the wan
+package's key names) through ``models.umt5.load_umt5_encoder``, any other
+T5 / mT5 one (HF torch names) through ``convert_t5_encoder_state_dict`` and
+``t5_params_from_flax``. Real tokenizers are not ported (no tokenizer file
+in the repository).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import glob
+import json
 import math
-from typing import Optional
+import os
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,7 +41,8 @@ from magcache_tpu_torch.models.common import DTYPES, init_linear_
 from magcache_tpu_torch.ops.norms import rms_norm
 
 __all__ = ["T5Config", "UMT5Config", "T5Model", "t5_encode", "relative_position_buckets",
-           "T5_V1_1_XXL", "MT5_XXL", "UMT5_XXL"]
+           "T5_V1_1_XXL", "MT5_XXL", "UMT5_XXL", "convert_t5_encoder_state_dict",
+           "t5_config_from_checkpoint", "is_umt5_checkpoint", "load_t5_encoder"]
 
 FEED_FORWARDS = ("relu", "gated-gelu")
 
@@ -238,3 +246,125 @@ def t5_encode(model: T5Model, input_ids: torch.Tensor,
         h = h + blk.feed_forward(rms_norm(h, blk.ln2, eps=cfg.eps))
     h = rms_norm(h, model.final_ln, eps=cfg.eps)
     return h * attention_mask[..., None].to(h.dtype)
+
+
+# ---- checkpoints --------------------------------------------------------------
+
+def convert_t5_encoder_state_dict(sd: Dict[str, torch.Tensor]) -> dict:
+    """An HF torch T5 / mT5 encoder state dict as the Flax T5 encoder tree
+    (``magcache_tpu.models.convert.convert_t5_encoder_state_dict``): linear
+    weights as ``kernel [in, out]``, the embedding and norm gains as they
+    are; the decoder, ``lm_head`` and the tied ``encoder.embed_tokens`` are
+    left out."""
+    params: dict = {}
+
+    def put(path, value):
+        node = params
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = value
+
+    for key, v in sd.items():
+        if key.startswith(("decoder.", "lm_head")) or key == "encoder.embed_tokens.weight":
+            continue
+        if key == "shared.weight":
+            put(("shared", "embedding"), v)
+            continue
+        if key == "encoder.final_layer_norm.weight":
+            put(("encoder", "final_layer_norm", "weight"), v)
+            continue
+        parts = key.split(".")
+        if parts[0] != "encoder" or parts[1] != "block":
+            continue
+        base, rest = ("encoder", "block", parts[2], "layer", parts[4]), parts[5:]
+        if rest[0] == "layer_norm":
+            put(base + ("layer_norm", "weight"), v)
+        elif rest[0] == "SelfAttention":
+            if rest[1] == "relative_attention_bias":
+                put(base + ("SelfAttention", "relative_attention_bias", "embedding"), v)
+            else:
+                put(base + ("SelfAttention", rest[1], "kernel"), v.T)
+        elif rest[0] == "DenseReluDense":
+            put(base + ("DenseReluDense", rest[1], "kernel"), v.T)
+    return params
+
+
+def t5_config_from_checkpoint(sd: Dict[str, torch.Tensor], config_json: Optional[dict] = None,
+                              dtype: str = "float32") -> T5Config:
+    """A shared-bias ``T5Config`` from an HF T5 / mT5 ``config.json``, its
+    structural fields checked against (or, without one, read from) the
+    weights' shapes."""
+    cj = config_json or {}
+    pre = "encoder.block.{}.layer."
+    vocab, d_model = sd["shared.weight"].shape
+    rel = sd[pre.format(0) + "0.SelfAttention.relative_attention_bias.weight"]
+    gated = pre.format(0) + "1.DenseReluDense.wi_0.weight" in sd
+    layers = 0
+    while pre.format(layers) + "0.layer_norm.weight" in sd:
+        layers += 1
+    heads = int(rel.shape[1])
+    kw = dict(vocab_size=int(vocab), d_model=int(d_model), layers=layers, heads=heads,
+              d_kv=int(sd[pre.format(0) + "0.SelfAttention.q.weight"].shape[0]) // heads,
+              d_ff=int(sd[pre.format(0) + "1.DenseReluDense.wo.weight"].shape[1]),
+              rel_buckets=int(rel.shape[0]),
+              rel_max_distance=int(cj.get("relative_attention_max_distance", 128)),
+              eps=float(cj.get("layer_norm_epsilon", 1e-6)),
+              feed_forward="gated-gelu" if gated else "relu", dtype=dtype)
+    for src, dst in (("vocab_size", "vocab_size"), ("d_model", "d_model"),
+                     ("num_layers", "layers"), ("num_heads", "heads"), ("d_kv", "d_kv"),
+                     ("d_ff", "d_ff")):
+        if src in cj and int(cj[src]) != kw[dst]:
+            raise ValueError(f"config.json {src} = {cj[src]}, the weights say {kw[dst]}")
+    return T5Config(**kw)
+
+
+def _config_json(path: str) -> Optional[dict]:
+    base = path if os.path.isdir(path) else os.path.dirname(path)
+    cj = os.path.join(base, "config.json")
+    if not os.path.exists(cj):
+        return None
+    with open(cj) as f:
+        return json.load(f)
+
+
+def is_umt5_checkpoint(path: str) -> bool:
+    """``magcache_tpu.models.text.make_t5_encoder``'s routing: ``config.json``
+    ``model_type`` ``umt5``; for any other type than ``t5`` / ``mt5``, a
+    ``*umt5*`` ``.pth`` file name; without a type, the wan package's key
+    names in the first safetensors header."""
+    from magcache_tpu_torch.models.checkpoint import safetensors_keys
+
+    model_type = (_config_json(path) or {}).get("model_type")
+    if model_type == "umt5":
+        return True
+    if model_type in ("t5", "mt5"):
+        return False
+    cand = [path] if path.endswith(".pth") else glob.glob(os.path.join(path, "*.pth"))
+    if any("umt5" in os.path.basename(c) for c in cand):
+        return True
+    if model_type is None:
+        files = sorted(glob.glob(os.path.join(path, "*.safetensors")))
+        if not files and os.path.isfile(path) and path.endswith(".safetensors"):
+            files = [path]
+        for fname in files[:1]:
+            keys = set(safetensors_keys(fname))
+            return ("token_embedding.weight" in keys
+                    or "blocks.0.pos_embedding.embedding.weight" in keys)
+    return False
+
+
+def load_t5_encoder(path: str, device="cuda", dtype: str = "float32"
+                    ) -> Tuple[T5Config, "T5Model"]:
+    """``(config, model)`` of a T5-family checkpoint, routed as
+    ``is_umt5_checkpoint`` says; the weights in ``dtype`` on ``device``."""
+    from magcache_tpu_torch.models.checkpoint import load_safetensors_dir
+    from magcache_tpu_torch.models.convert import t5_params_from_flax
+    from magcache_tpu_torch.models.umt5 import load_umt5_encoder
+
+    if is_umt5_checkpoint(path):
+        return load_umt5_encoder(path, device=device, dtype=dtype)
+    sd = load_safetensors_dir(path)
+    cfg = t5_config_from_checkpoint(sd, _config_json(path), dtype=dtype)
+    model = T5Model(cfg, torch.device(device))
+    model.load_state_dict(t5_params_from_flax(convert_t5_encoder_state_dict(sd), cfg, device))
+    return cfg, model

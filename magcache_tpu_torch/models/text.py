@@ -5,30 +5,37 @@ Qwen2.5-VL stack of Qwen-Image-Edit, the mock encoders, and the hash
 tokenizer that brings prompts to them without a tokenizer file.
 
 The counterparts of ``magcache_tpu.models.text``'s ``JaxT5Encoder`` /
-``make_t5_encoder`` (configs only), ``ClipTextEncoder``, ``Sd3TextStack``,
-``LlamaTextEncoder`` and ``QwenVLTextEncoder`` (configs only), the mocks
-and ``FallbackHashTokenizer``. Each encoder runs on the card
-unless ``device`` says otherwise, with random weights from a seeded
-generator or a given model; its ``__call__(prompts, device=)`` fills a
-pipeline's ``text_encoder`` or ``pooled_encoder`` slot.
+``make_t5_encoder``, ``ClipTextEncoder``, ``Sd3TextStack``,
+``LlamaTextEncoder`` and ``QwenVLTextEncoder``, the mocks and
+``FallbackHashTokenizer``. Each encoder runs on the card unless ``device``
+says otherwise, with random weights from a seeded generator, a given model,
+or a checkpoint path in place of its config (an HF directory with
+``config.json``; T5-family files as ``models.t5.load_t5_encoder`` routes
+them), read as the JAX encoders read them but always tokenized by the hash
+tokenizer (no tokenizer files are read); its ``__call__(prompts, device=)``
+fills a pipeline's ``text_encoder`` or ``pooled_encoder`` slot.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import json
+import os
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from magcache_tpu_torch.models.clip import CLIPTextConfig, CLIPTextModel, clip_text_forward
+from magcache_tpu_torch.models.clip import (CLIPTextConfig, CLIPTextModel, clip_text_forward,
+                                            load_clip_text)
 from magcache_tpu_torch.models.llama import (QWEN25_VL_MROPE_SECTION, LlamaConfig, LlamaModel,
-                                             llama_hidden_states)
+                                             llama_config_from_json, llama_hidden_states,
+                                             load_llama)
 from magcache_tpu_torch.models.qwen_vl import (QwenVLVisionConfig, QwenVLVisionTower,
                                                mrope_position_ids, preprocess_qwen_vl_image)
-from magcache_tpu_torch.models.t5 import T5Config, T5Model, t5_encode
+from magcache_tpu_torch.models.t5 import T5Config, T5Model, load_t5_encoder, t5_encode
 
 # hyvideo's llava-llama prompt template for video description
 # (hyvideo/constants.py PROMPT_TEMPLATE_ENCODE_VIDEO); the first
@@ -155,6 +162,47 @@ def _tokens(tokenizer, prompts: Sequence[str], seq_len: int, name: str):
     return tok["input_ids"], tok["attention_mask"]
 
 
+def _checkpoint(path: str):
+    """``(state dict, config.json)`` of an HF checkpoint directory."""
+    from magcache_tpu_torch.models.checkpoint import load_safetensors_dir
+
+    with open(os.path.join(path, "config.json")) as f:
+        return load_safetensors_dir(path), json.load(f)
+
+
+def _load_qwen_vl(path: str, device, mrope_section, image_token_id):
+    """A Qwen2.5-VL checkpoint as the JAX ``QwenVLTextEncoder`` reads it:
+    ``(LM config, LM, vision tower, mrope_section, image_token_id)``."""
+    from magcache_tpu_torch.models.convert import qwen_vl_vision_params_from_numpy
+    from magcache_tpu_torch.models.qwen_vl import convert_qwen_vl_vision_state_dict
+
+    sd, hf = _checkpoint(path)
+    txt, vis = hf.get("text_config", hf), hf.get("vision_config", {})
+    rs = txt.get("rope_scaling") or {}
+    lm, visual = {}, {}
+    for k, v in sd.items():
+        k = k[len("model."):] if k.startswith("model.") else k
+        if k.startswith("visual."):
+            visual[k[len("visual."):]] = v
+        else:
+            lm[k[len("language_model."):] if k.startswith("language_model.") else k] = v
+    cfg = llama_config_from_json(txt, qkv_bias=True, rope_theta=1e6, eps=1e-6)
+    vcfg = QwenVLVisionConfig(
+        depth=vis.get("depth", 32), hidden=vis.get("hidden_size", 1280),
+        heads=vis.get("num_heads", 16), intermediate=vis.get("intermediate_size", 3420),
+        out_hidden=vis.get("out_hidden_size", txt["hidden_size"]),
+        patch_size=vis.get("patch_size", 14),
+        temporal_patch_size=vis.get("temporal_patch_size", 2),
+        merge_size=vis.get("spatial_merge_size", 2), window_size=vis.get("window_size", 112),
+        fullatt_indexes=tuple(vis.get("fullatt_block_indexes", (7, 15, 23, 31))))
+    tower = QwenVLVisionTower(vcfg, torch.device(device))
+    tower.load_state_dict(qwen_vl_vision_params_from_numpy(
+        convert_qwen_vl_vision_state_dict(visual, vcfg), vcfg, device))
+    return (cfg, load_llama(lm, cfg, device), tower,
+            tuple(rs.get("mrope_section", mrope_section)),
+            hf.get("image_token_id", image_token_id))
+
+
 def _seeded(device, generator: Optional[torch.Generator]) -> torch.Generator:
     return generator or torch.Generator(device=torch.device(device)).manual_seed(0)
 
@@ -165,11 +213,18 @@ class T5Encoder:
     ``device`` with random weights from ``generator`` (default: seed 0 on
     ``device``), or the given ``model``. ``tokenizer`` (e.g.
     ``FallbackHashTokenizer``) turns prompts into ids for ``__call__``;
-    ``encode_ids`` takes ids. Padded rows of the output are zero."""
+    ``encode_ids`` takes ids. Padded rows of the output are zero. A
+    checkpoint path in place of ``cfg`` loads it (``models.t5.
+    load_t5_encoder``, f32), with the hash tokenizer unless one is given."""
 
     def __init__(self, cfg: T5Config, seq_len: int = 512, tokenizer=None,
                  device="cuda", generator: Optional[torch.Generator] = None,
                  model: Optional[T5Model] = None):
+        if isinstance(cfg, str):
+            cfg, model = load_t5_encoder(cfg, device=device)
+            if tokenizer is None:
+                tokenizer = FallbackHashTokenizer(cfg.vocab_size, eos_token_id=1,
+                                                  pad_token_id=0)
         self.cfg = cfg
         self.seq_len = seq_len
         self.tokenizer = tokenizer
@@ -193,10 +248,11 @@ class T5Encoder:
 def make_t5_encoder(cfg: T5Config, seq_len: int = 512, tokenizer=None, device="cuda",
                     generator: Optional[torch.Generator] = None,
                     model: Optional[T5Model] = None) -> T5Encoder:
-    """The T5-family encoder of a config (``magcache_tpu.models.text.
-    make_t5_encoder`` for configs): a UMT5 config (``per_layer_bias``) gives
-    every layer its own relative bias, a T5 or mT5 config block 0's shared
-    one. Checkpoint directories are not ported."""
+    """The T5-family encoder of a config or a checkpoint path
+    (``magcache_tpu.models.text.make_t5_encoder``): a UMT5 config
+    (``per_layer_bias``) gives every layer its own relative bias, a T5 or
+    mT5 config block 0's shared one; a path is routed and loaded by
+    ``models.t5.load_t5_encoder``."""
     return T5Encoder(cfg, seq_len=seq_len, tokenizer=tokenizer, device=device,
                      generator=generator, model=model)
 
@@ -219,6 +275,8 @@ class ClipTextEncoder:
                  states: bool = False, hidden_skip: int = 0, project: bool = False,
                  device="cuda", generator: Optional[torch.Generator] = None,
                  model: Optional[CLIPTextModel] = None):
+        if isinstance(cfg, str):
+            cfg, model = load_clip_text(cfg, device)
         self.cfg = cfg
         self.seq_len = seq_len or cfg.max_len
         if tokenizer is None:
@@ -316,6 +374,10 @@ class LlamaTextEncoder:
                  crop_start: int = HYVIDEO_CROP_START, final_norm: Optional[bool] = None,
                  tokenizer=None, device="cuda", generator: Optional[torch.Generator] = None,
                  model: Optional[LlamaModel] = None):
+        if isinstance(cfg, str):
+            sd, hf = _checkpoint(cfg)
+            cfg = llama_config_from_json(hf.get("text_config", hf))
+            model = load_llama(sd, cfg, device)
         self.cfg = cfg
         self.out_len, self.skip_layers = out_len, skip_layers
         self.template = template
@@ -377,6 +439,9 @@ class QwenVLTextEncoder:
                  device="cuda", generator: Optional[torch.Generator] = None,
                  model: Optional[LlamaModel] = None,
                  vision_model: Optional[QwenVLVisionTower] = None):
+        if isinstance(cfg, str):
+            cfg, model, vision_model, mrope_section, image_token_id = _load_qwen_vl(
+                cfg, device, mrope_section, image_token_id)
         self.cfg = cfg
         self.out_len = out_len
         self.tokenizer = tokenizer or FallbackHashTokenizer(cfg.vocab_size)

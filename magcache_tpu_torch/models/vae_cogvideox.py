@@ -25,16 +25,18 @@ sliced decode is not the whole-clip ``decode``.
 
 NCDHW inside; latents ``[B, F, H, W, C]`` and pixels ``[B, F, H, W, 3]`` f32
 at the API; every weight and activation f32 (the JAX module's). Latents are
-unscaled: the pipeline divides by ``cfg.scaling_factor``. The encoder and
-checkpoint loading are not ported; ``models.convert.
-cogvideox_vae_params_from_numpy`` carries the JAX tree's decoder over.
+unscaled: the pipeline divides by ``cfg.scaling_factor``. The encoder is
+not ported; ``models.convert.cogvideox_vae_params_from_numpy`` carries the
+JAX tree's decoder over, and ``load_cogvideox_vae_checkpoint`` reads a
+diffusers ``AutoencoderKLCogVideoX`` checkpoint
+(``convert_cogvideox_vae_state_dict``; the decoder is kept).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -254,3 +256,67 @@ class CogVideoXVAE(nn.Module):
                 for i in range(0, h_lat, overlap)]
         out = stitch_tiles(rows, blend_px, limit)[:, :, :, :h_lat * sp, :w_lat * sp]
         return out.permute(0, 2, 3, 4, 1)
+
+
+# ---- diffusers AutoencoderKLCogVideoX checkpoints ----------------------------------
+
+def convert_cogvideox_vae_state_dict(sd: dict, cfg: CogVideoXVAEConfig) -> dict:
+    """A diffusers ``AutoencoderKLCogVideoX`` state dict as the JAX CogVideoX
+    VAE tree (a ``CausalConv3d`` under ``<name>.conv``, the 1x1 shortcut a
+    bare Conv3d; the decoder's spatial norms with ``conv_y`` / ``conv_b``)."""
+    from magcache_tpu_torch.models.checkpoint import vec
+
+    def c3(name):
+        return {"w": vec(sd, f"{name}.weight").permute(2, 3, 4, 1, 0), "b": vec(sd, f"{name}.bias")}
+
+    def c2(name):
+        return {"w": vec(sd, f"{name}.weight").permute(2, 3, 1, 0), "b": vec(sd, f"{name}.bias")}
+
+    def gn(name):
+        return {"w": vec(sd, f"{name}.weight"), "b": vec(sd, f"{name}.bias")}
+
+    def spatial_norm(name):
+        return {"norm": gn(f"{name}.norm_layer"), "conv_y": c3(f"{name}.conv_y.conv"),
+                "conv_b": c3(f"{name}.conv_b.conv")}
+
+    def resnet(name, spatial):
+        p = {"conv1": c3(f"{name}.conv1.conv"), "conv2": c3(f"{name}.conv2.conv")}
+        for nm in ("norm1", "norm2"):
+            p[nm] = spatial_norm(f"{name}.{nm}") if spatial else gn(f"{name}.{nm}")
+        if f"{name}.conv_shortcut.weight" in sd:
+            p["shortcut"] = c3(f"{name}.conv_shortcut")
+        return p
+
+    def sampler(base):
+        return c2(f"{base}.0.conv") if f"{base}.0.conv.weight" in sd else None
+
+    n = len(cfg.block_out_channels)
+    enc = {"conv_in": c3("encoder.conv_in.conv"),
+           "mid": [resnet(f"encoder.mid_block.resnets.{j}", False) for j in range(2)],
+           "norm_out": gn("encoder.norm_out"), "conv_out": c3("encoder.conv_out.conv")}
+    for i in range(n):
+        enc[f"down{i}"] = {"resnets": [resnet(f"encoder.down_blocks.{i}.resnets.{j}", False)
+                                       for j in range(cfg.layers_per_block)],
+                           "down": sampler(f"encoder.down_blocks.{i}.downsamplers")}
+    dec = {"conv_in": c3("decoder.conv_in.conv"),
+           "mid": [resnet(f"decoder.mid_block.resnets.{j}", True) for j in range(2)],
+           "norm_out": spatial_norm("decoder.norm_out"), "conv_out": c3("decoder.conv_out.conv")}
+    for i in range(n):
+        dec[f"up{i}"] = {"resnets": [resnet(f"decoder.up_blocks.{i}.resnets.{j}", True)
+                                     for j in range(cfg.layers_per_block + 1)],
+                         "up": sampler(f"decoder.up_blocks.{i}.upsamplers")}
+    return {"encoder": enc, "decoder": dec}
+
+
+def load_cogvideox_vae_checkpoint(path: str, cfg: Optional[CogVideoXVAEConfig] = None,
+                                  device="cuda") -> "CogVideoXVAE":
+    """A ``CogVideoXVAE`` (the decoder) from a diffusers ``vae/`` checkpoint;
+    ``cfg`` defaults to ``CogVideoXVAEConfig()``, as the JAX CLI builds it."""
+    from magcache_tpu_torch.models.checkpoint import load_safetensors_dir
+    from magcache_tpu_torch.models.convert import cogvideox_vae_params_from_numpy
+
+    cfg = cfg or CogVideoXVAEConfig()
+    vae = CogVideoXVAE(cfg, torch.device(device))
+    vae.load_state_dict(cogvideox_vae_params_from_numpy(
+        convert_cogvideox_vae_state_dict(load_safetensors_dir(path), cfg), cfg, device))
+    return vae.requires_grad_(False)

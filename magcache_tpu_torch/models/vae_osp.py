@@ -30,9 +30,11 @@ strides disagree with it.
 Activations are NCDHW inside (cuDNN's layout); latents ``[B, F, H, W, C]``
 and pixels ``[B, F, H, W, 3]`` f32 at the API, as in JAX. Everything runs in
 f32 (the JAX module has no other dtype); the mid attention is plain PyTorch
-(plain XLA in JAX, no Pallas kernel). The encoder and checkpoint loading
-are not ported; ``models.convert.osp_vae_params_from_numpy`` carries the
-JAX tree's decoder over.
+(plain XLA in JAX, no Pallas kernel). The encoder is not ported;
+``models.convert.osp_vae_params_from_numpy`` carries the JAX tree's decoder
+over, and ``load_osp_vae_checkpoint`` reads a ``CausalVAEModel`` checkpoint
+(``convert_osp_vae_state_dict``: the whole tree converts, so a missing
+encoder key raises as in JAX; the decoder is kept).
 """
 
 from __future__ import annotations
@@ -297,3 +299,73 @@ class OSPCausalVAE(nn.Module):
                 outs.append(d[:, :, 1:] if i else d)
             out = torch.cat(outs, dim=2)
         return out.permute(0, 2, 3, 4, 1)
+
+
+# ---- CausalVAEModel checkpoints --------------------------------------------------
+
+def convert_osp_vae_state_dict(sd: dict, cfg: OSPVAEConfig) -> dict:
+    """A ``CausalVAEModel`` state dict as the JAX OSP VAE tree: a
+    ``CausalConv3d``'s kernel under ``<name>.conv``, an old 2-D
+    ``Downsample``'s as a one-frame causal kernel."""
+    from magcache_tpu_torch.models.checkpoint import vec
+
+    def ccv(name):
+        p = {"w": vec(sd, f"{name}.conv.weight").permute(2, 3, 4, 1, 0)}
+        if f"{name}.conv.bias" in sd:
+            p["b"] = vec(sd, f"{name}.conv.bias")
+        return p
+
+    def nm(name):
+        return {"w": vec(sd, f"{name}.weight"), "b": vec(sd, f"{name}.bias")}
+
+    def res(base):
+        p = {"norm1": nm(f"{base}.norm1"), "conv1": ccv(f"{base}.conv1"),
+             "norm2": nm(f"{base}.norm2"), "conv2": ccv(f"{base}.conv2")}
+        if f"{base}.nin_shortcut.conv.weight" in sd:
+            p["nin_shortcut"] = ccv(f"{base}.nin_shortcut")
+        return p
+
+    def mid(side):
+        a = f"{side}.mid.attn_1"
+        return {"block_1": res(f"{side}.mid.block_1"), "block_2": res(f"{side}.mid.block_2"),
+                "attn_1": {"norm": nm(f"{a}.norm"), "q": ccv(f"{a}.q"), "k": ccv(f"{a}.k"),
+                           "v": ccv(f"{a}.v"), "proj_out": ccv(f"{a}.proj_out")}}
+
+    def updown(base):
+        if f"{base}.conv.conv.weight" in sd:        # a CausalConv3d wrapper
+            return ccv(f"{base}.conv")
+        return {"w": vec(sd, f"{base}.conv.weight").permute(2, 3, 1, 0)[None],
+                "b": vec(sd, f"{base}.conv.bias")}
+
+    nlv = len(cfg.ch_mult)
+    enc = {"conv_in": ccv("encoder.conv_in"), "mid": mid("encoder"),
+           "norm_out": nm("encoder.norm_out"), "conv_out": ccv("encoder.conv_out"),
+           "down": [{"block": [res(f"encoder.down.{i}.block.{j}")
+                               for j in range(cfg.num_res_blocks)],
+                     "downsample": (updown(f"encoder.down.{i}.downsample")
+                                    if cfg.down_types[i] else None)} for i in range(nlv)]}
+    dec = {"conv_in": ccv("decoder.conv_in"), "mid": mid("decoder"),
+           "norm_out": nm("decoder.norm_out"), "conv_out": ccv("decoder.conv_out"),
+           "up": [{"block": [res(f"decoder.up.{i}.block.{j}")
+                             for j in range(cfg.num_res_blocks + 1)],
+                   "upsample": (updown(f"decoder.up.{i}.upsample")
+                                if cfg.up_types[i] else None)} for i in range(nlv)]}
+    tree = {"encoder": enc, "decoder": dec}
+    if cfg.use_quant_layer:
+        tree["quant_conv"] = ccv("quant_conv")
+        tree["post_quant_conv"] = ccv("post_quant_conv")
+    return tree
+
+
+def load_osp_vae_checkpoint(path: str, cfg: Optional[OSPVAEConfig] = None, device="cuda"
+                            ) -> "OSPCausalVAE":
+    """An ``OSPCausalVAE`` (the decoder) from a ``CausalVAEModel`` checkpoint;
+    ``cfg`` defaults to ``OSPVAEConfig()``, as in JAX."""
+    from magcache_tpu_torch.models.checkpoint import load_safetensors_dir
+    from magcache_tpu_torch.models.convert import osp_vae_params_from_numpy
+
+    cfg = cfg or OSPVAEConfig()
+    vae = OSPCausalVAE(cfg, torch.device(device))
+    vae.load_state_dict(osp_vae_params_from_numpy(
+        convert_osp_vae_state_dict(load_safetensors_dir(path), cfg), cfg, device))
+    return vae.requires_grad_(False)

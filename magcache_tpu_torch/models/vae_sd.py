@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -347,3 +347,105 @@ class SDVAE(nn.Module):
                 out[..., rows, cols, :] += y * w
                 weight[rows, cols] += w
         return out / weight.clamp_min(1e-8)
+
+
+# ---- diffusers AutoencoderKL checkpoints ---------------------------------------
+
+def convert_sd_vae_state_dict(sd: dict, cfg: SDVAEConfig) -> dict:
+    """A diffusers ``AutoencoderKL`` state dict (``encoder.down_blocks.*``,
+    ``decoder.up_blocks.*``) as the JAX SD VAE tree (convs HWIO as permuted
+    views; the attention's linears, 1x1 convs in old exports, ``[out, in]``)."""
+    from magcache_tpu_torch.models.checkpoint import vec
+
+    def cv(name):
+        return {"w": vec(sd, f"{name}.weight").permute(2, 3, 1, 0), "b": vec(sd, f"{name}.bias")}
+
+    def nm(name):
+        return {"w": vec(sd, f"{name}.weight"), "b": vec(sd, f"{name}.bias")}
+
+    def res(base):
+        p = {"norm1": nm(f"{base}.norm1"), "conv1": cv(f"{base}.conv1"),
+             "norm2": nm(f"{base}.norm2"), "conv2": cv(f"{base}.conv2")}
+        if f"{base}.conv_shortcut.weight" in sd:
+            p["shortcut"] = cv(f"{base}.conv_shortcut")
+        return p
+
+    def attn_lin(name):
+        w = vec(sd, f"{name}.weight")
+        return {"w": w[:, :, 0, 0] if w.ndim == 4 else w, "b": vec(sd, f"{name}.bias")}
+
+    def mid(base):
+        a = f"{base}.attentions.0"
+        return {"res1": res(f"{base}.resnets.0"), "res2": res(f"{base}.resnets.1"),
+                "attn": {"norm": nm(f"{a}.group_norm"), "q": attn_lin(f"{a}.to_q"),
+                         "k": attn_lin(f"{a}.to_k"), "v": attn_lin(f"{a}.to_v"),
+                         "o": attn_lin(f"{a}.to_out.0")}}
+
+    tree = {}
+    for side, blocks, sampler, key, n in (
+            ("encoder", "down_blocks", "downsamplers", "down", cfg.blocks_per_level),
+            ("decoder", "up_blocks", "upsamplers", "up", cfg.blocks_per_level + 1)):
+        t = {"conv_in": cv(f"{side}.conv_in"), "mid": mid(f"{side}.mid_block"),
+             "norm_out": nm(f"{side}.conv_norm_out"), "conv_out": cv(f"{side}.conv_out")}
+        for li in range(len(cfg.ch_mult)):
+            b = f"{side}.{blocks}.{li}"
+            t[f"level{li}"] = {"res": [res(f"{b}.resnets.{j}") for j in range(n)],
+                               key: (cv(f"{b}.{sampler}.0.conv")
+                                     if f"{b}.{sampler}.0.conv.weight" in sd else None)}
+        tree[side] = t
+    if cfg.quant_conv:
+        tree["quant_conv"] = cv("quant_conv")
+        tree["post_quant_conv"] = cv("post_quant_conv")
+    return tree
+
+
+def sniff_sd_vae_config(sd: dict) -> SDVAEConfig:
+    """The ``SDVAEConfig`` of an ``AutoencoderKL`` state dict from its shapes
+    (the JAX ``load_sd_vae_checkpoint``'s rule; scaling and shift stay at
+    the defaults, as there)."""
+    nlv = 1 + max(int(k.split(".")[2]) for k in sd if k.startswith("encoder.down_blocks."))
+    base = int(sd["encoder.conv_in.weight"].shape[0])
+    return SDVAEConfig(
+        z_channels=int(sd["encoder.conv_out.weight"].shape[0]) // 2, base=base,
+        ch_mult=tuple(int(sd[f"encoder.down_blocks.{i}.resnets.0.conv2.weight"].shape[0])
+                      // base for i in range(nlv)),
+        blocks_per_level=1 + max(int(k.split(".")[4]) for k in sd
+                                 if k.startswith("encoder.down_blocks.0.resnets.")),
+        quant_conv="quant_conv.weight" in sd)
+
+
+def sd_vae_from_state_dict(sd: dict, cfg: Optional[SDVAEConfig] = None, device="cuda"
+                           ) -> "SDVAE":
+    """An ``SDVAE`` on ``device`` from an ``AutoencoderKL`` state dict
+    (``cfg=None`` sniffs it)."""
+    from magcache_tpu_torch.models.convert import sd_vae_params_from_numpy
+
+    cfg = cfg or sniff_sd_vae_config(sd)
+    vae = SDVAE(cfg, torch.device(device))
+    vae.load_state_dict(sd_vae_params_from_numpy(convert_sd_vae_state_dict(sd, cfg), cfg,
+                                                 device))
+    return vae.requires_grad_(False)
+
+
+def load_sd_vae_checkpoint(path: str, cfg: Optional[SDVAEConfig] = None, device="cuda"
+                           ) -> "SDVAE":
+    """An ``SDVAE`` from a diffusers ``vae/`` directory or file; with
+    ``cfg=None`` the geometry is sniffed and a ``config.json`` beside the
+    weights gives ``scaling_factor`` and ``shift_factor`` (FLUX's 0.3611
+    and 0.1159; the JAX loader keeps the defaults)."""
+    import json
+    import os
+
+    from magcache_tpu_torch.models.checkpoint import load_safetensors_dir
+
+    sd = load_safetensors_dir(path)
+    if cfg is None:
+        cfg = sniff_sd_vae_config(sd)
+        cj = os.path.join(path if os.path.isdir(path) else os.path.dirname(path), "config.json")
+        if os.path.exists(cj):
+            with open(cj) as f:
+                j = json.load(f)
+            cfg = dataclasses.replace(
+                cfg, scaling_factor=float(j.get("scaling_factor", cfg.scaling_factor)),
+                shift_factor=float(j.get("shift_factor") or 0.0))
+    return sd_vae_from_state_dict(sd, cfg, device)

@@ -19,7 +19,9 @@ each up level (frame ``2t + s`` from channel ``2c + s``) and slices frames
 off the front down to ``num_frames``.
 
 ``open_sora_vae`` builds Open-Sora 1.2's whole VAE: this stage behind the SD
-spatial VAE in ``models.vae.MicroFrameVAE``, with the published scales.
+spatial VAE in ``models.vae.MicroFrameVAE``, with the published scales;
+``load_open_sora_vae`` builds it from the published checkpoint
+(``convert_vae_temporal_state_dict`` and ``vae_sd.convert_sd_vae_state_dict``).
 
 NCDHW inside; ``[B, T, H, W, C]`` f32 at the API, as in JAX. The
 convolutions are ``F.conv3d`` (cuDNN on a card); the JAX module reaches no
@@ -244,3 +246,84 @@ def open_sora_vae(device=None) -> MicroFrameVAE:
     published latent scales. ``.init(generator)`` gives random weights."""
     return MicroFrameVAE(SDVAE(OPEN_SORA_SPATIAL_VAE, device),
                          VAETemporal(VAETemporalConfig(), device), micro_frame_size=17)
+
+
+# ---- checkpoints ----------------------------------------------------------------
+
+def convert_vae_temporal_state_dict(sd: dict, cfg: VAETemporalConfig, prefix: str = "") -> dict:
+    """A ``VAE_Temporal`` state dict (its keys after ``prefix``) as the JAX
+    tree. Levels without a time stride hold an identity ``conv_blocks``
+    entry with no weights, so its indices are the levels'."""
+    from magcache_tpu_torch.models.checkpoint import vec
+
+    def ccv(name):
+        p = {"w": vec(sd, f"{prefix}{name}.conv.weight").permute(2, 3, 4, 1, 0)}
+        if f"{prefix}{name}.conv.bias" in sd:
+            p["b"] = vec(sd, f"{prefix}{name}.conv.bias")
+        return p
+
+    def nm(name):
+        return {"w": vec(sd, f"{prefix}{name}.weight"), "b": vec(sd, f"{prefix}{name}.bias")}
+
+    def res(base):
+        p = {"norm1": nm(f"{base}.norm1"), "conv1": ccv(f"{base}.conv1"),
+             "norm2": nm(f"{base}.norm2"), "conv2": ccv(f"{base}.conv2")}
+        if f"{prefix}{base}.conv3.conv.weight" in sd:
+            p["conv3"] = ccv(f"{base}.conv3")
+        return p
+
+    def has(name):
+        return f"{prefix}{name}.conv.weight" in sd
+
+    n, r = len(cfg.channel_multipliers), cfg.num_res_blocks
+    enc = {"conv_in": ccv("encoder.conv_in"),
+           "blocks": [{"res": [res(f"encoder.block_res_blocks.{i}.{j}") for j in range(r)],
+                       "down": ccv(f"encoder.conv_blocks.{i}")
+                       if has(f"encoder.conv_blocks.{i}") else None} for i in range(n)],
+           "res_blocks": [res(f"encoder.res_blocks.{j}") for j in range(r)],
+           "norm1": nm("encoder.norm1"), "conv2": ccv("encoder.conv2")}
+    dec = {"conv1": ccv("decoder.conv1"),
+           "res_blocks": [res(f"decoder.res_blocks.{j}") for j in range(r)],
+           "blocks": [{"res": [res(f"decoder.block_res_blocks.{i}.{j}") for j in range(r)],
+                       "up": ccv(f"decoder.conv_blocks.{i - 1}")
+                       if i > 0 and has(f"decoder.conv_blocks.{i - 1}") else None}
+                      for i in range(n)],
+           "norm1": nm("decoder.norm1"), "conv_out": ccv("decoder.conv_out")}
+    return {"encoder": enc, "decoder": dec, "quant_conv": ccv("quant_conv"),
+            "post_quant_conv": ccv("post_quant_conv")}
+
+
+def _vae_temporal(sd: dict, cfg: VAETemporalConfig, prefix: str, device) -> "VAETemporal":
+    from magcache_tpu_torch.models.convert import vae_temporal_params_from_numpy
+
+    vae = VAETemporal(cfg, torch.device(device))
+    vae.load_state_dict(vae_temporal_params_from_numpy(
+        convert_vae_temporal_state_dict(sd, cfg, prefix), cfg, device))
+    return vae.requires_grad_(False)
+
+
+def load_vae_temporal_checkpoint(path: str, cfg: Optional[VAETemporalConfig] = None,
+                                 prefix: str = "temporal_vae.", device="cuda") -> "VAETemporal":
+    """A ``VAETemporal`` from a checkpoint (its keys under ``prefix`` when
+    any are, else bare); ``cfg`` defaults to ``VAETemporalConfig()``."""
+    from magcache_tpu_torch.models.checkpoint import load_safetensors_dir
+
+    sd = load_safetensors_dir(path)
+    if not any(k.startswith(prefix) for k in sd):
+        prefix = ""
+    return _vae_temporal(sd, cfg or VAETemporalConfig(), prefix, device)
+
+
+def load_open_sora_vae(path: str, micro_frame_size: int = 17, device="cuda") -> MicroFrameVAE:
+    """Open-Sora 1.2's composite VAE from the published OpenSora-VAE-v1.2
+    checkpoint: ``spatial_vae.module.*`` (an ``AutoencoderKL``, its config
+    sniffed) and ``temporal_vae.*``, in ``micro_frame_size`` chunks."""
+    from magcache_tpu_torch.models.checkpoint import load_safetensors_dir
+    from magcache_tpu_torch.models.vae_sd import sd_vae_from_state_dict
+
+    sd = load_safetensors_dir(path)
+    pre = "spatial_vae.module."
+    spatial = sd_vae_from_state_dict({k[len(pre):]: v for k, v in sd.items()
+                                      if k.startswith(pre)}, device=device)
+    temporal = _vae_temporal(sd, VAETemporalConfig(), "temporal_vae.", device)
+    return MicroFrameVAE(spatial, temporal, micro_frame_size=micro_frame_size)

@@ -34,15 +34,18 @@ NCDHW inside (cuDNN's layout; ``models.vae``); latents ``[B, F, H, W, C]``
 and pixels ``[B, F, H, W, 3]`` f32 at the API, as in JAX. In a bf16 config
 the convs' weights and activations are bf16 and the norm statistics stay
 f32 (JAX ``_cast_conv_params``); the attention's scores and softmax are f32
-in either. Checkpoint loading is not ported;
-``models.convert.wan_vae_params_from_numpy`` carries the JAX tree over.
+in either. ``models.convert.wan_vae_params_from_numpy`` carries the JAX
+tree over; ``load_wan_vae_checkpoint`` builds the VAE from a
+``Wan2.1_VAE.pth`` (or a ``.safetensors`` export), its geometry sniffed from
+the tensors (``sniff_wan_vae_config``) and its names mapped by
+``convert_wan_vae_state_dict``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -51,7 +54,8 @@ from torch import nn
 from magcache_tpu_torch.models.common import DTYPES
 from magcache_tpu_torch.models.vae import causal_conv3d, channel_rms_norm, init_convs_
 
-__all__ = ["WanVAEConfig", "WanVAE", "WAN21_VAE", "WAN22_VAE"]
+__all__ = ["WanVAEConfig", "WanVAE", "WAN21_VAE", "WAN22_VAE", "convert_wan_vae_state_dict",
+           "sniff_wan_vae_config", "load_wan_vae_checkpoint"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -404,3 +408,118 @@ class WanVAE(nn.Module):
             y, caches = self._decode_core(z[:, :, i:i + latent_chunk], caches)
             outs.append(y)
         return torch.cat(outs, dim=1)
+
+
+# ---- the official wan/modules/vae.py checkpoint --------------------------------
+
+def convert_wan_vae_state_dict(sd: Dict[str, torch.Tensor], cfg: WanVAEConfig) -> dict:
+    """A ``Wan2.1_VAE.pth`` state dict as the JAX Wan VAE tree (convs
+    ``[k..., C_in, C_out]`` as permuted views). ``{encoder.downsamples |
+    decoder.upsamples}.{k}`` entries are bucketed by their flat index and
+    told apart by their leaves (``residual.*`` a residual block,
+    ``resample.1`` / ``time_conv`` a resample)."""
+    from magcache_tpu_torch.models.checkpoint import vec
+
+    def c3(name):
+        return {"w": vec(sd, f"{name}.weight").permute(2, 3, 4, 1, 0),
+                "b": vec(sd, f"{name}.bias")}
+
+    def c2(name):
+        w = vec(sd, f"{name}.weight")
+        if w.ndim == 5:                 # a one-frame conv3d export
+            w = w[:, :, 0]
+        return {"w": w.permute(2, 3, 1, 0), "b": vec(sd, f"{name}.bias")}
+
+    def gamma(name):
+        return vec(sd, f"{name}.gamma").reshape(-1)
+
+    def res(prefix):
+        p = {"norm1": gamma(f"{prefix}.residual.0"), "conv1": c3(f"{prefix}.residual.2"),
+             "norm2": gamma(f"{prefix}.residual.3"), "conv2": c3(f"{prefix}.residual.6")}
+        if f"{prefix}.shortcut.weight" in sd:
+            p["shortcut"] = c3(f"{prefix}.shortcut")
+        return p
+
+    def stage(side, seq, nblocks, nlevels):
+        idxs = sorted({int(k.split(".")[2]) for k in sd if k.startswith(f"{side}.{seq}.")})
+        units = [("res" if f"{side}.{seq}.{i}.residual.2.weight" in sd else "resample",
+                  f"{side}.{seq}.{i}") for i in idxs]
+        levels, u = [], 0
+        for i in range(nlevels):
+            lv = {"blocks": [], "resample": None, "time_conv": None}
+            for _ in range(nblocks):
+                kind, pre = units[u]
+                u += 1
+                if kind != "res":
+                    raise ValueError(f"{pre}: a residual block expected")
+                lv["blocks"].append(res(pre))
+            if i < nlevels - 1:
+                kind, pre = units[u]
+                u += 1
+                if kind != "resample":
+                    raise ValueError(f"{pre}: a resample expected")
+                lv["resample"] = c2(f"{pre}.resample.1")
+                if f"{pre}.time_conv.weight" in sd:
+                    lv["time_conv"] = c3(f"{pre}.time_conv")
+            levels.append(lv)
+        if u != len(units):
+            raise ValueError(f"unconsumed {side}.{seq} units: {units[u:]}")
+        return levels
+
+    def side(name, seq, nblocks):
+        return {"conv1": c3(f"{name}.conv1"),
+                "levels": stage(name, seq, nblocks, len(cfg.dim_mult)),
+                "mid": [res(f"{name}.middle.0"), res(f"{name}.middle.2")],
+                "mid_attn": {"norm": gamma(f"{name}.middle.1.norm"),
+                             "qkv": c2(f"{name}.middle.1.to_qkv"),
+                             "proj": c2(f"{name}.middle.1.proj")},
+                "head_norm": gamma(f"{name}.head.0"), "head": c3(f"{name}.head.2")}
+
+    return {"encoder": side("encoder", "downsamples", cfg.num_res_blocks),
+            "decoder": side("decoder", "upsamples", cfg.num_res_blocks + 1),
+            "quant": c3("conv1"), "post_quant": c3("conv2")}
+
+
+def sniff_wan_vae_config(sd: Dict[str, torch.Tensor], dtype: str = "float32") -> WanVAEConfig:
+    """The ``WanVAEConfig`` of a checkpoint from its shapes: ``base`` the
+    encoder's first conv's outputs, ``z_channels`` the decoder's first
+    conv's inputs, ``dim_mult`` and ``num_res_blocks`` from the residual
+    units between resamples, ``temporal_down`` from each resample's
+    ``time_conv``, ``patchify`` from the first conv's 3 p^2 inputs (Wan2.2)."""
+    base, cin = (int(n) for n in sd["encoder.conv1.weight"].shape[:2])
+    patchify = int(round((cin // 3) ** 0.5))
+    if 3 * patchify * patchify != cin:
+        raise ValueError(f"encoder.conv1 has {cin} input channels, not 3 p^2")
+    idxs = sorted({int(k.split(".")[2]) for k in sd if k.startswith("encoder.downsamples.")})
+    levels, tdown = [[]], []
+    for i in idxs:
+        pre = f"encoder.downsamples.{i}"
+        if f"{pre}.residual.2.weight" in sd:
+            levels[-1].append(int(sd[f"{pre}.residual.2.weight"].shape[0]))
+        else:
+            tdown.append(f"{pre}.time_conv.weight" in sd)
+            levels.append([])
+    if any(len(lv) != len(levels[0]) for lv in levels):
+        raise ValueError(f"uneven residual levels: {[len(lv) for lv in levels]}")
+    return WanVAEConfig(base=base, z_channels=int(sd["decoder.conv1.weight"].shape[1]),
+                        dim_mult=tuple(lv[0] // base for lv in levels),
+                        num_res_blocks=len(levels[0]), temporal_down=tuple(tdown),
+                        patchify=patchify, dtype=dtype)
+
+
+def load_wan_vae_checkpoint(path: str, cfg: Optional[WanVAEConfig] = None,
+                            dtype: Optional[str] = None, device="cuda") -> WanVAE:
+    """A ``WanVAE`` on ``device`` from a ``Wan2.1_VAE.pth`` (or a
+    ``.safetensors`` export); ``cfg=None`` sniffs the geometry from the
+    file, ``dtype`` sets the convs' dtype (the default f32)."""
+    from magcache_tpu_torch.models.checkpoint import read_safetensors, torch_load_flat
+    from magcache_tpu_torch.models.convert import wan_vae_params_from_numpy
+
+    sd = read_safetensors(path) if path.endswith(".safetensors") else torch_load_flat(path)
+    cfg = cfg or sniff_wan_vae_config(sd)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    vae = WanVAE(cfg, torch.device(device))
+    vae.load_state_dict(wan_vae_params_from_numpy(convert_wan_vae_state_dict(sd, cfg), cfg,
+                                                  device))
+    return vae.requires_grad_(False)

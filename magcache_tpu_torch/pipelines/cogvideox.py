@@ -38,6 +38,7 @@ from magcache_tpu_torch.core.pab import COGVIDEOX_PAB, PABConfig
 from magcache_tpu_torch.core.sampler import sample_euler
 from magcache_tpu_torch.models.cogvideox import (CogVideoXConfig, CogVideoXModel,
                                                  make_cogvideox_core)
+from magcache_tpu_torch.models.published import load_cogvideox_checkpoint
 from magcache_tpu_torch.models.text import MockTextEncoder
 from magcache_tpu_torch.pipelines.base import (BasePipeline, PipelineOutput,
                                                calibration_dict, cfg_combine, synced_clock,
@@ -70,6 +71,7 @@ class CogVideoXPipelineConfig:
     pab_config: Optional[PABConfig] = None   # None: COGVIDEOX_PAB
     dtype: str = "float32"
     tiny: bool = False
+    ckpt_dir: Optional[str] = None     # a published transformer checkpoint
 
     def model_config(self) -> CogVideoXConfig:
         if self.tiny:
@@ -107,8 +109,11 @@ class CogVideoXPipeline(BasePipeline):
                              f"{1 + 4 * (lat_t - 1)}: take num_frames = 1 (mod 8)")
         self.schedule = CogVideoDDIMSchedule.create(c.num_inference_steps)
         if model is None:
-            model = CogVideoXModel(self.model_cfg, self.device).init(
-                set_seed(init_seed, device=self.device))
+            model = CogVideoXModel(self.model_cfg, self.device)
+            if c.ckpt_dir:
+                model.load_state_dict(load_cogvideox_checkpoint(c.ckpt_dir, self.model_cfg))
+            else:
+                model.init(set_seed(init_seed, device=self.device))
         self.model = model.requires_grad_(False).eval()
         self.core = make_cogvideox_core(
             self.model, c.txt_len, self.grid,

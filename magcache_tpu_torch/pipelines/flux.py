@@ -9,15 +9,17 @@ and MagCache keeps one cache lane. Kontext (``generate(cond_latents=...)``)
 appends the conditioning image's packed latents after the noise tokens,
 with index-1 rope ids; the head drops them.
 
-The DiT has random weights from a seeded ``torch.Generator``. With ``vae=``
+The DiT loads ``ckpt_dir`` (a black-forest-labs checkpoint; with
+``lora_path`` an adapter merged in first, scaled by ``lora_scale``) or takes
+random weights from a seeded ``torch.Generator``. With ``vae=``
 (an ``SDVAE`` of 16 latent channels and stride 8, e.g. ``FLUX_VAE``) the
 packed latents are unpacked, ``from_latent`` undoes the VAE's shift and
 scale, and the decode fills ``image``; without one the packed latents are the
 output. ``encode_image`` turns a conditioning image into Kontext's packed
 latents (the JAX CLI's ``_image_to_grid_latent``): through the VAE when the
 pipeline has one, else by the JAX package's checkpoint-free nearest resize
-and channel tile. Not ported yet (raise): checkpoints (``ckpt_dir``), LoRA
-(``lora_path``) and multi-device plans (``dp``/``sp``/``tp`` > 1).
+and channel tile. Not ported yet (raise): multi-device plans
+(``dp``/``sp``/``tp`` > 1).
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from magcache_tpu_torch.core.presets import make_config
 from magcache_tpu_torch.core.sampler import lane_skip_masks, sample_euler
 from magcache_tpu_torch.models.flux import (FLUX_DEV, FluxConfig, FluxModel,
                                             make_flux_core, pack_latents, unpack_latents)
+from magcache_tpu_torch.models.published import load_flux_checkpoint
 from magcache_tpu_torch.models.text import MockPooledEncoder, MockTextEncoder
 from magcache_tpu_torch.models.vae_wan import WanVAE
 from magcache_tpu_torch.pipelines.base import (BasePipeline, PipelineOutput,
@@ -120,15 +123,15 @@ class FluxPipelineConfig:
     sp: int = 1
     tp: int = 1
     ckpt_dir: Optional[str] = None
-    lora_path: Optional[str] = None
+    lora_path: Optional[str] = None      # a PEFT / kohya adapter, merged at load
+    lora_scale: float = 1.0
     tiny: bool = False
 
     def __post_init__(self):
         if self.model not in FLUX_MODELS:
             raise ValueError(f"FLUX model {self.model!r}: one of {FLUX_MODELS}")
-        if self.ckpt_dir or self.lora_path:
-            raise NotImplementedError("FLUX checkpoints and LoRA are not "
-                                      "ported yet; the DiT has random weights")
+        if self.lora_path and not self.ckpt_dir:
+            raise ValueError("lora_path merges into a checkpoint: it needs ckpt_dir")
         if self.dp * self.sp * self.tp > 1:
             raise NotImplementedError("multi-device FLUX (dp/sp/tp > 1) is "
                                       "not ported yet")
@@ -162,8 +165,13 @@ class FluxPipeline(BasePipeline):
         check_image_vae(vae, model_cfg.in_channels // 4, VAE_SPATIAL_STRIDE)
         self.vae = vae
         if model is None:
-            model = FluxModel(model_cfg, self.device).init(
-                set_seed(init_seed, device=self.device))
+            model = FluxModel(model_cfg, self.device)
+            if c.ckpt_dir:
+                # on the card: an adapter merges there, in f32
+                model.load_state_dict(load_flux_checkpoint(
+                    c.ckpt_dir, model_cfg, self.device, c.lora_path, c.lora_scale))
+            else:
+                model.init(set_seed(init_seed, device=self.device))
         self.model_cfg = model.cfg
         self.model = model.requires_grad_(False).eval()
         self.core = make_flux_core(self.model, c.txt_len, *self.grid)

@@ -48,6 +48,7 @@ from magcache_tpu_torch.core.teacache import (FRAMEPACK_TEA_COEFFS, FRAMEPACK_TE
 from magcache_tpu_torch.models.flux import first_block_modulated
 from magcache_tpu_torch.models.hunyuan import (HUNYUAN_VIDEO, HunyuanConfig,
                                                HunyuanModel, make_hunyuan_core)
+from magcache_tpu_torch.models.published import load_hunyuan_checkpoint
 from magcache_tpu_torch.models.text import MockPooledEncoder, MockTextEncoder
 from magcache_tpu_torch.pipelines.base import (BasePipeline, PipelineOutput,
                                                calibration_dict, synced_clock, timed_encode)
@@ -83,6 +84,7 @@ class FramePackPipelineConfig:
     mag_ratios_override: Optional[tuple] = None
     dtype: str = "bfloat16"
     tiny: bool = False
+    ckpt_dir: Optional[str] = None     # a published transformer checkpoint
 
     def __post_init__(self):
         if self.model not in FRAMEPACK_MODELS:
@@ -117,8 +119,11 @@ class FramePackPipeline(BasePipeline):
         self.config = c = config
         self.device = torch.device(device)
         if model is None:
-            model = HunyuanModel(c.model_config(), self.device).init(
-                set_seed(init_seed, device=self.device))
+            model = HunyuanModel(c.model_config(), self.device)
+            if c.ckpt_dir:
+                model.load_state_dict(load_hunyuan_checkpoint(c.ckpt_dir, model.cfg))
+            else:
+                model.init(set_seed(init_seed, device=self.device))
         if c.pyramid and not model.cfg.framepack:
             raise ValueError("pyramid mode needs a model with the clean-latent "
                              "projections (framepack=True)")

@@ -37,6 +37,7 @@ from magcache_tpu_torch.core.pab import LATTE_PAB, PABConfig
 from magcache_tpu_torch.core.sampler import lane_skip_masks, sample_euler
 from magcache_tpu_torch.models.latte import (LATTE_1, LatteConfig, LatteModel,
                                              make_latte_core)
+from magcache_tpu_torch.models.published import load_latte_checkpoint
 from magcache_tpu_torch.models.text import MockTextEncoder
 from magcache_tpu_torch.pipelines.base import (BasePipeline, PipelineOutput,
                                                calibration_dict, cfg_combine,
@@ -69,6 +70,7 @@ class LattePipelineConfig:
     pab_config: Optional[PABConfig] = None   # None: LATTE_PAB
     dtype: str = "float32"
     tiny: bool = False
+    ckpt_dir: Optional[str] = None     # a published transformer checkpoint
     # T5 caption cleaning, applied twice (pipeline_latte.py:296,342,519-526)
     clean_caption: bool = False
     # None -> 8 for the full model (eps + variance), the tiny default for tiny
@@ -105,8 +107,11 @@ class LattePipeline(BasePipeline):
         self.grid = (c.num_frames, lat_h // p, lat_w // p)
         self.schedule = DDIMEpsSchedule.create(c.num_sampling_steps)
         if model is None:
-            model = LatteModel(self.model_cfg, self.device).init(
-                set_seed(init_seed, device=self.device))
+            model = LatteModel(self.model_cfg, self.device)
+            if c.ckpt_dir:
+                model.load_state_dict(load_latte_checkpoint(c.ckpt_dir, self.model_cfg))
+            else:
+                model.init(set_seed(init_seed, device=self.device))
         self.model = model.requires_grad_(False).eval()
         self.core = make_latte_core(
             self.model, self.grid, c.caption_len, route=c.route,

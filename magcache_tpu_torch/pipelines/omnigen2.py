@@ -24,10 +24,12 @@ dropped); the TaylorSeer and TeaCache comparators (Euler only: under them
 TaylorSeer keeps its derivative stacks in f32 in both modes; the JAX edit
 route keeps them in the trunk's dtype (ROADMAP §3).
 
-The DiT has random weights from a seeded ``torch.Generator`` (or a given
-model); the text slot defaults to the prompt-hashed mock. The output is the
-latents, as in JAX, whose pipeline never decodes. Checkpoints and LoRA are
-not loaded (``ckpt_dir`` and ``lora_path`` raise).
+The DiT loads ``ckpt_dir`` (an OmniGen2 ``transformer/`` directory, under
+the config's model configuration as in JAX; with ``lora_path`` an adapter
+merged in first, scaled by ``lora_scale``), or takes random weights from a
+seeded ``torch.Generator`` (or is a given model); the text slot defaults to
+the prompt-hashed mock. The output is the latents, as in JAX, whose
+pipeline never decodes.
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ from magcache_tpu_torch.core.teacache import TeaCacheLanes
 from magcache_tpu_torch.data import get_calibrated_ratios
 from magcache_tpu_torch.models.omnigen2 import (OMNIGEN2, OmniGen2Config, OmniGen2Model,
                                                 make_omnigen2_core, make_teacache_signal)
+from magcache_tpu_torch.models.published import load_omnigen2_checkpoint
 from magcache_tpu_torch.models.text import MockTextEncoder
 from magcache_tpu_torch.pipelines.base import (BasePipeline, PipelineOutput,
                                                calibration_dict, synced_clock, timed_encode)
@@ -117,14 +120,15 @@ class OmniGen2PipelineConfig:
     dtype: str = "bfloat16"
     tiny: bool = False
     ckpt_dir: Optional[str] = None
-    lora_path: Optional[str] = None
+    lora_path: Optional[str] = None    # a PEFT / kohya adapter, merged at load
+    lora_scale: float = 1.0
     ref_images: int = 1                # edit: the number of reference images
 
     def validate(self) -> "OmniGen2PipelineConfig":
         """Refuse what the pipeline cannot run: an unknown mode or scheduler,
         the overlaps of the mutually exclusive switches (the reference
         resolves them by if/elif priority, ``inference.py:208-212``), edit
-        without a reference, and checkpoint or LoRA paths (no loader yet).
+        without a reference, and a LoRA path without a checkpoint.
         Calibration runs full compute whatever the cache switches say."""
         if self.mode not in BRANCHES:
             raise ValueError(f"OmniGen2 mode {self.mode!r}: one of {tuple(BRANCHES)}")
@@ -138,9 +142,8 @@ class OmniGen2PipelineConfig:
                              "enable_taylorseer")
         if self.mode == "edit" and self.ref_images < 1:
             raise ValueError("edit mode needs ref_images >= 1")
-        if self.ckpt_dir or self.lora_path:
-            raise NotImplementedError("OmniGen2 checkpoints and LoRA are not ported yet; "
-                                      "the DiT has random weights")
+        if self.lora_path and not self.ckpt_dir:
+            raise ValueError("lora_path merges into a checkpoint: it needs ckpt_dir")
         return self
 
     def model_config(self) -> OmniGen2Config:
@@ -160,8 +163,15 @@ class OmniGen2Pipeline(BasePipeline):
         self.config = c = config.validate()
         self.device = torch.device(device)
         if model is None:
-            model = OmniGen2Model(c.model_config(), self.device).init(
-                set_seed(init_seed, device=self.device))
+            model = OmniGen2Model(c.model_config(), self.device)
+            if c.ckpt_dir:
+                # on the card: an adapter merges there, in f32
+                sd, _ = load_omnigen2_checkpoint(
+                    c.ckpt_dir, model.cfg, device=self.device, lora_path=c.lora_path,
+                    lora_scale=c.lora_scale)
+                model.load_state_dict(sd)
+            else:
+                model.init(set_seed(init_seed, device=self.device))
         self.model_cfg = model.cfg
         self.model = model.requires_grad_(False).eval()
         p = self.model_cfg.patch

@@ -46,6 +46,7 @@ from magcache_tpu_torch.core.presets import make_config
 from magcache_tpu_torch.core.rolling import RollingCacheConfig
 from magcache_tpu_torch.core.sampler import (lane_skip_masks, sample_euler,
                                              sample_rflow_masked)
+from magcache_tpu_torch.models.published import load_stdit3_checkpoint
 from magcache_tpu_torch.models.stdit3 import (STDIT3_XL_2, STDiT3Config,
                                               STDiT3Model, make_stdit3_core)
 from magcache_tpu_torch.models.text import MockTextEncoder
@@ -88,6 +89,7 @@ class OpenSoraPipelineConfig:
     pab_config: PABConfig = OPEN_SORA_PAB
     dtype: str = "float32"
     tiny: bool = False
+    ckpt_dir: Optional[str] = None     # a published transformer checkpoint
     route: str = "packed"                     # STDiT3's block composition
 
     def __post_init__(self):
@@ -139,8 +141,11 @@ class OpenSoraPipeline(BasePipeline):
             c.num_sampling_steps, use_timestep_transform=True, height=c.height,
             width=c.width, num_frames=c.num_frames)
         if model is None:
-            model = STDiT3Model(self.model_cfg, self.device).init(
-                set_seed(init_seed, device=self.device))
+            model = STDiT3Model(self.model_cfg, self.device)
+            if c.ckpt_dir:
+                model.load_state_dict(load_stdit3_checkpoint(c.ckpt_dir, self.model_cfg))
+            else:
+                model.init(set_seed(init_seed, device=self.device))
         self.model = model.requires_grad_(False).eval()
         self.core = make_stdit3_core(self.model, self.grid, route=c.route,
                                      pab=c.pab_config if c.enable_pab else None,

@@ -43,6 +43,7 @@ from magcache_tpu_torch.core.sampler import sample_euler, sample_pndm
 from magcache_tpu_torch.models.latte import LatteConfig, LatteModel, make_latte_core
 from magcache_tpu_torch.models.open_sora_plan import (OpenSoraPlanConfig, OSPModel,
                                                       make_osp_core)
+from magcache_tpu_torch.models.published import load_latte_checkpoint, load_osp_checkpoint
 from magcache_tpu_torch.models.text import MockTextEncoder
 from magcache_tpu_torch.models.vae_osp import OSP_V110_VAE, OSP_V120_VAE, OSPVAEConfig
 from magcache_tpu_torch.pipelines.base import (BasePipeline, PipelineOutput,
@@ -85,6 +86,7 @@ class OpenSoraPlanPipelineConfig:
     pab_config: Optional[PABConfig] = None   # replaces the windows above
     dtype: str = "float32"
     tiny: bool = False
+    ckpt_dir: Optional[str] = None     # a published transformer checkpoint
     # None -> 8 for the full models (eps + variance), the tiny default for tiny
     out_channels: Optional[int] = None
     # mT5 caption cleaning, applied twice; the reference's generate() default
@@ -161,8 +163,12 @@ class OpenSoraPlanPipeline(BasePipeline):
             self.grid = (lat_t // pt, lat_h // ph, lat_w // pw)
             cls = OSPModel
         if model is None:
-            model = cls(self.model_cfg, self.device).init(
-                set_seed(init_seed, device=self.device))
+            model = cls(self.model_cfg, self.device)
+            if c.ckpt_dir:
+                load = load_latte_checkpoint if c.version == "v110" else load_osp_checkpoint
+                model.load_state_dict(load(c.ckpt_dir, self.model_cfg))
+            else:
+                model.init(set_seed(init_seed, device=self.device))
         self.model = model.requires_grad_(False).eval()
         pab = c.pab() if c.enable_pab else None
         ts = self.schedule.timesteps

@@ -10,13 +10,13 @@ R 0.2). The schedule is FLUX's: ``linspace(1, 1/n, n)`` shifted by the
 resolution-dependent ``mu``. Edit (a model key with "edit") appends one
 reference image's packed latents to the image tokens of both lanes.
 
-The DiT has random weights from a seeded ``torch.Generator`` (or a given
+The DiT loads ``ckpt_dir`` (a diffusers ``transformer/`` directory) or
+takes random weights from a seeded ``torch.Generator`` (or is a given
 model); the text encoder slot defaults to the prompt-hashed mock (a
 ``LlamaTextEncoder`` with the Qwen template or a ``QwenVLTextEncoder``
 fills it). The output is the packed latents, as in JAX, whose pipeline
 never decodes: its ``vae`` (a ``WanVAE``, or None) only encodes Edit's
-reference image (``encode_image``). Checkpoints are not loaded (no
-``ckpt_dir``).
+reference image (``encode_image``).
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ from magcache_tpu_torch.core.magcache import MagCacheConfig
 from magcache_tpu_torch.core.presets import make_config
 from magcache_tpu_torch.core.sampler import sample_euler
 from magcache_tpu_torch.models.flux import pack_latents
+from magcache_tpu_torch.models.published import load_qwen_image_checkpoint
 from magcache_tpu_torch.models.qwen_image import (QWEN_IMAGE, QwenImageConfig,
                                                   QwenImageModel, make_qwen_image_core)
 from magcache_tpu_torch.models.text import MockTextEncoder
@@ -62,6 +63,7 @@ class QwenImagePipelineConfig:
     mag_ratios_override: Optional[tuple] = None
     dtype: str = "bfloat16"
     tiny: bool = False
+    ckpt_dir: Optional[str] = None     # a published transformer checkpoint
 
     def __post_init__(self):
         if self.model not in QWEN_MODELS:
@@ -92,8 +94,11 @@ class QwenImagePipeline(BasePipeline):
         self.grid = c.packed_grid()
         self.ref_images = 1 if "edit" in c.model else 0
         if model is None:
-            model = QwenImageModel(c.model_config(), self.device).init(
-                set_seed(init_seed, device=self.device))
+            model = QwenImageModel(c.model_config(), self.device)
+            if c.ckpt_dir:
+                model.load_state_dict(load_qwen_image_checkpoint(c.ckpt_dir, model.cfg))
+            else:
+                model.init(set_seed(init_seed, device=self.device))
         self.model_cfg = model.cfg
         self.model = model.requires_grad_(False).eval()
         self.core = make_qwen_image_core(self.model, c.txt_len, *self.grid,

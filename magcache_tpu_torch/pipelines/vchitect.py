@@ -34,6 +34,7 @@ import torch
 from magcache_tpu_torch.core.magcache import MagCacheConfig, prepare_mag_ratios
 from magcache_tpu_torch.core.pab import PABConfig
 from magcache_tpu_torch.core.sampler import lane_skip_masks, sample_euler
+from magcache_tpu_torch.models.published import load_vchitect_checkpoint
 from magcache_tpu_torch.models.text import MockPooledEncoder, MockTextEncoder
 from magcache_tpu_torch.models.vchitect import (VchitectConfig, VchitectModel,
                                                 make_vchitect_core)
@@ -70,6 +71,7 @@ class VchitectPipelineConfig:
     pab_threshold: tuple = (100, 800)
     dtype: str = "float32"
     tiny: bool = False
+    ckpt_dir: Optional[str] = None     # a published transformer checkpoint
 
     def model_config(self) -> VchitectConfig:
         if self.tiny:
@@ -104,8 +106,11 @@ class VchitectPipeline(BasePipeline):
         self.grid = (c.num_frames, lat_h // p, lat_w // p)
         self.schedule = FlowMatchSchedule.create(c.num_inference_steps, shift=c.sample_shift)
         if model is None:
-            model = VchitectModel(self.model_cfg, self.device).init(
-                set_seed(init_seed, device=self.device))
+            model = VchitectModel(self.model_cfg, self.device)
+            if c.ckpt_dir:
+                model.load_state_dict(load_vchitect_checkpoint(c.ckpt_dir, self.model_cfg))
+            else:
+                model.init(set_seed(init_seed, device=self.device))
         self.model = model.requires_grad_(False).eval()
         self.core = make_vchitect_core(self.model, self.grid, c.txt_len,
                                        pab=c.pab() if c.enable_pab else None,

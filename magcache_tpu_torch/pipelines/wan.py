@@ -5,10 +5,11 @@ Text encode -> (i2v, flf2v, ti2v, VACE) image or video encode -> seeded
 noise latents -> cached denoise loop (UniPC, or DPM-Solver++(2M) or Euler on
 the same flow sigmas) -> VAE decode when the pipeline has a VAE
 (``models.vae_wan.WanVAE``, streamed one latent frame a call), as the JAX
-pipeline does. The checkpoint-free path: ``MockTextEncoder`` (or
-``models.umt5.UMT5Encoder`` with random weights and the hash tokenizer),
-random DiT weights from a seeded ``torch.Generator``, and latents as the
-output unless a VAE is given.
+pipeline does. The DiT loads a published checkpoint (``ckpt_dir``) or takes
+random weights from a seeded ``torch.Generator``; the text encoder is
+``MockTextEncoder`` unless one is given (``models.umt5.UMT5Encoder`` of a
+checkpoint or of random weights, with the hash tokenizer); the output is
+latents unless a VAE is given.
 
 Models and tasks (``MODEL_TASKS``):
 
@@ -82,7 +83,9 @@ from magcache_tpu_torch.core.sampler import (calibrate_unipc, lane_skip_masks, s
                                              sample_unipc, unipc_executor)
 from magcache_tpu_torch.core.teacache import TeaCacheLanes, wan_teacache_settings
 from magcache_tpu_torch.models.clip import (CLIPVisionConfig, CLIPVisionModel,
-                                            clip_vision_forward, preprocess_clip_image)
+                                            clip_vision_forward, load_clip_vision,
+                                            preprocess_clip_image)
+from magcache_tpu_torch.models.published import load_wan_checkpoint
 from magcache_tpu_torch.models.text import MockTextEncoder
 from magcache_tpu_torch.models.vae import CausalVAE, CausalVAEConfig
 from magcache_tpu_torch.models.wan import (VACE_IN_CHANNELS, WAN_1_3B, WAN_5B, WAN_14B,
@@ -161,6 +164,9 @@ class WanPipelineConfig:
     sp: int = 1                          # sequence-parallel ranks
     sp_impl: str = "auto"                # "auto" | "ulysses" | "ring"
     vace_ref_images: int = 0             # VACE R2V: the reference images
+    # a published DiT checkpoint (safetensors, sharded or not); random if None
+    ckpt_dir: Optional[str] = None
+    clip_ckpt: Optional[str] = None      # the CLIP vision tower's weights (i2v)
 
     def __post_init__(self):
         if self.model not in MODEL_TASKS:
@@ -248,9 +254,11 @@ class WanPipelineConfig:
 
 class WanPipeline(BasePipeline):
     """Wan pipeline on ``device`` (the card unless told otherwise). Without
-    ``model``, the DiT gets random weights from a generator seeded with
-    ``init_seed`` (the same on every rank); on an A14B model without
-    ``model_low``, the low-noise expert gets its own from ``init_seed + 1``.
+    ``model``, the DiT loads ``config.ckpt_dir`` (a published checkpoint,
+    ``models.published.load_wan_checkpoint``) or gets random weights from a
+    generator seeded with ``init_seed`` (the same on every rank); on an A14B
+    model without ``model_low``, the low-noise expert gets its own from
+    ``init_seed + 1`` (a checkpoint holds one expert, as in JAX).
     With ``config.sp > 1`` it is one rank's pipeline and needs that rank's
     ``plan``; local ranks may share one ``model``. ``text_encoder(prompts,
     device=)`` gives the context ``[2, text_len, text_dim]`` (default: the
@@ -283,12 +291,16 @@ class WanPipeline(BasePipeline):
         self.grid = (lf // pt, lh // ph, lw // pw)
         self.latent_shape = (lf, lh, lw, config.latent_channels)
 
-        def expert(m, seed):
+        def expert(m, seed, ckpt_dir=None):
             if m is None:
-                m = WanModel(self.model_cfg, self.device).init(set_seed(seed, device=self.device))
+                m = WanModel(self.model_cfg, self.device)
+                if ckpt_dir:
+                    m.load_state_dict(load_wan_checkpoint(ckpt_dir, self.model_cfg))
+                else:
+                    m.init(set_seed(seed, device=self.device))
             return m.requires_grad_(False).eval()
 
-        self.model = expert(model, init_seed)
+        self.model = expert(model, init_seed, config.ckpt_dir)
         self.core = make_wan_core(self.model, self.grid, plan,
                                   sp_impl=config.sp_impl)
         self.model_low = self.core_low = None
@@ -482,7 +494,8 @@ class WanPipeline(BasePipeline):
         """``(clip, image_vae)``, built at the first call when not given: the
         CLIP tower sized so its tokens are the model's per-image
         ``clip_tokens`` (257 -> 224 px at patch 14; 2 blocks when tiny, else
-        32) and, without a VAE that encodes, the causal VAE with the Wan
+        32), with ``config.clip_ckpt``'s weights or random ones, and, without
+        a VAE that encodes, the causal VAE with the Wan
         strides (as the JAX pipeline's ``_i2v_encoders``)."""
         cfg, tiny = self.model_cfg, self.config.tiny
         if self.clip is None and cfg.has_clip:
@@ -491,8 +504,11 @@ class WanPipeline(BasePipeline):
             ccfg = CLIPVisionConfig(dim=cfg.clip_dim, layers=2 if tiny else 32,
                                     heads=16 if cfg.clip_dim % 16 == 0 else 4,
                                     image_size=14 * side)
-            self.clip = CLIPVisionModel(ccfg, self.device).init(
-                set_seed(7, device=self.device)).requires_grad_(False)
+            if self.config.clip_ckpt:
+                self.clip = load_clip_vision(self.config.clip_ckpt, ccfg, self.device)
+            else:
+                self.clip = CLIPVisionModel(ccfg, self.device).init(set_seed(7, device=self.device))
+            self.clip.requires_grad_(False)
         if self.image_vae is None:
             if self.vae is not None:
                 self.image_vae = self.vae

@@ -291,12 +291,14 @@ def test_skip_mask_for_and_skip_override_match_jax(monkeypatch):
 
 
 def test_pipeline_unported_paths_raise():
-    for kw, exc in ((dict(ckpt_dir="/nonexistent"), NotImplementedError),
-                    (dict(lora_path="x.safetensors"), NotImplementedError),
+    for kw, exc in ((dict(lora_path="x.safetensors"), ValueError),
                     (dict(dp=2), NotImplementedError), (dict(tp=2), NotImplementedError),
                     (dict(model="flux-schnell"), ValueError)):
         with pytest.raises(exc):
             tpipe.FluxPipelineConfig(tiny=True, **kw)
+    # a checkpoint directory is loaded (tests/test_torch_lora.py loads real ones)
+    with pytest.raises(FileNotFoundError, match="/nonexistent"):
+        tpipe.FluxPipeline(tpipe.FluxPipelineConfig(tiny=True, ckpt_dir="/nonexistent"), "cpu")
     cfg = tpipe.FluxPipelineConfig(tiny=True, height=64, width=64,
                                    num_inference_steps=2, txt_len=TXT,
                                    magcache_calibration=True)

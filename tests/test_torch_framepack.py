@@ -205,7 +205,7 @@ def test_cli_aliases_dash_spelling_and_image(tmp_path, capsys, monkeypatch):
     assert "--neg_prompt is ignored" in text and "--cfg_scale != 1.0" in text
     assert np.load(out + "_latents.npy").shape == (1, 2, 4, 4, 8)
     # the full-size defaults, without building the 12.8 B model
-    def refuse(config, device):
+    def refuse(config, device, **kw):
         built["cfg"] = config
         raise SystemExit("built")
 

@@ -387,9 +387,13 @@ def test_config_refusals():
             tpipe.OmniGen2PipelineConfig(**base, **kw).validate()
         with pytest.raises(ValueError, match=match):
             tpipe.OmniGen2Pipeline(tpipe.OmniGen2PipelineConfig(**base, **kw), "cpu")
-    for kw in (dict(ckpt_dir="x"), dict(lora_path="y.safetensors")):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tpipe.OmniGen2PipelineConfig(**base, **kw).validate()
+    # a checkpoint directory is loaded (tests/test_torch_lora.py loads real
+    # ones); an adapter needs one
+    tpipe.OmniGen2PipelineConfig(**base, ckpt_dir="x").validate()
+    with pytest.raises(ValueError, match="needs ckpt_dir"):
+        tpipe.OmniGen2PipelineConfig(**base, lora_path="y.safetensors").validate()
+    with pytest.raises(FileNotFoundError, match="no safetensors"):
+        tpipe.OmniGen2Pipeline(tpipe.OmniGen2PipelineConfig(**base, ckpt_dir="x"), "cpu")
     # calibration runs full compute whatever the cache switches say (as JAX)
     tpipe.OmniGen2PipelineConfig(**base, magcache_calibration=True, use_magcache=True).validate()
 

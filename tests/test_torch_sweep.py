@@ -108,8 +108,10 @@ def test_sweep_axes_and_checkpoints():
 
     with pytest.raises(NotImplementedError, match="item 7"):
         run_sweep(_cfg(out_dir="unused", tp=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        sweep_pipeline_config(_cfg(ckpt_dir="/nowhere"))
+    # a checkpoint directory reaches the pipeline, which loads it
+    assert sweep_pipeline_config(_cfg(ckpt_dir="/nowhere")).ckpt_dir == "/nowhere"
+    with pytest.raises(FileNotFoundError, match="/nowhere"):
+        run_sweep(_cfg(out_dir="unused", ckpt_dir="/nowhere"), device="cpu")
     assert sweep_pipeline_config(_cfg(sp=2, sample_solver="unipc")).sp == 2
     for variant, kw in (("full", dict(use_magcache=False, enable_teacache=False)),
                         ("rolling", dict(use_magcache=True, cache_policy="rolling")),

@@ -447,7 +447,7 @@ def test_cli_ti2v_and_a14b_tiny(tmp_path, monkeypatch, capsys):
     assert np.load(out + "_latents.npy").shape == (1, 3, 4, 8, 16)
     # the JAX CLI's full-size defaults, without building the models
     made = []
-    monkeypatch.setattr(twp, "WanPipeline", lambda c, d, plan=None: made.append(c) or c)
+    monkeypatch.setattr(twp, "WanPipeline", lambda c, d, plan=None, **kw: made.append(c) or c)
     for task, want in (("t2v-A14B", (40, 12.0, 81, (3.0, 4.0))),
                        ("i2v-A14B", (40, 5.0, 81, (3.5, 3.5))),
                        ("ti2v-5B", (50, 5.0, 121, (5.0, 5.0)))):

@@ -496,7 +496,7 @@ def test_cli_flf2v_tiny_and_the_14B_t2v_tasks(tmp_path, monkeypatch):
     args = cli.build_parser().parse_args(["--task", "i2v-14B", "--size", "1280*720"])
     from magcache_tpu_torch.pipelines import wan as twp
     made = []
-    monkeypatch.setattr(twp, "WanPipeline", lambda c, d, plan=None: made.append(c) or c)
+    monkeypatch.setattr(twp, "WanPipeline", lambda c, d, plan=None, **kw: made.append(c) or c)
     cli._wan_pipeline(args, torch.device("cpu"), None)
     assert (made[0].model, made[0].sample_steps, made[0].sample_shift) == (
         "wan2.1-i2v-720p", 40, 5.0)
