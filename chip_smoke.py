@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives ``magcache_tpu_torch`` (never JAX) in eighty-nine phases and exits
+Drives ``magcache_tpu_torch`` (never JAX) in ninety-five phases and exits
 nonzero on the first failure:
 
 1. environment: a CUDA card is required; prints the card's name and power
@@ -510,6 +510,43 @@ K3, K3p; phase 5's seeded weights):
    tensor for tensor; a text-to-image forward at 1024x1024 (K1 34 times)
    equals that of the same merged weights built in-process.
 
+PAB on every route and with masked frames, Latte above 2,048 tokens a frame
+and the VAE halves (K1, K3-K7, K9 on new paths; no new kernel):
+90. K4 and K9 (the temporal groups of 5), K5 ("stream" and "prepass"), K1
+   (fixed-max spatial, running-max cross), K3, K7 (mlp1 + gelu) and K6
+   without the residual against their plain versions at Open-Sora's 480p
+   9:16 x 17 shapes (5 latent frames of 1,590 tokens, 2 rows); then
+   ``OPEN_SORA_PAB`` requests at that canvas, 30 RFLOW steps, on the packed,
+   grouped and vpu routes: each site's reuse against ``broadcast_masks``
+   (``pab_site_spy``), launches by kernel, grouped and K9 route and K1
+   shift against the masks (``os_pab_launches``), finite latents, and the
+   grouped and vpu latents within 5e-2 rel L2 of packed (phase 30's
+   tolerance);
+91. PAB with masked frames at the same canvas: latent frame 0 pinned to a
+   seeded ``.npy`` reference, through PAB packed, PAB + MagCache packed
+   with ``loop=2`` and PAB grouped: skips, reuse, launches clip by clip
+   (K5 and K6 without the residual on packed; no K3, K7 or K8), the pinned
+   frame unmoved, finite latents;
+92. ``LATTE_PAB`` on Latte-1 512x512 x 16 on the grouped and vpu routes, 20
+   DDIM steps (cut from 50): reuse per site, the block-granular MLP reuse
+   and saves, launches (``latte_pab_launches``);
+93. Latte-1 at 768x768 x 16 (frames of 2,304 tokens): K1 spatial and cross
+   and K5r temporal against their plain versions beside SDPA, one forward
+   a route (packed: K3, K1 spatial and cross, K5r "stream"; no K6, K7 or
+   K8), a 10-step ``LATTE_PAB`` request on packed;
+94. the VAE halves in f32: narrow card-vs-CPU checks (1e-4) of the OSP
+   encoder tiled at small thresholds, the CogVideoX encoder, the causal
+   VAE's decode and decode_chunked, ``ImageVAE`` and ``MicroFrameVAE`` over
+   the two; then at full size, seconds and peak GB each: the OSP v1.2
+   encode of 33x480x640 (tiled) and its decode to 33 frames, the
+   CogVideoX-5B encode of 13x480x720, the Wan i2v fallback's ``CausalVAE``
+   decode of 832x480x17 latents whole and chunked (equal within 1e-4), and
+   ``ImageVAE`` encode, decode and ``decode_tiled`` at 512x512;
+95. narrow STDiT3 and Latte on the card (bf16) against the CPU (f32) over
+   PAB steps with reuse (5e-2 rel L2): STDiT3 on grouped and vpu, STDiT3
+   with masked frames on all three routes, Latte on grouped and vpu and
+   at frames of 2,304 tokens on packed; launches against the masks.
+
 Every request of phases 63-69 checks its skip bits against
 ``compute_skip_schedule``, its launches against the trunk runs and its
 pixels and latents for shape and finiteness, and prints ``text_s``,
@@ -544,7 +581,11 @@ phases 77 (two text-to-image forwards) and 78; ``qwen-image-edit``: phases
 forwards) and 83; ``omnigen2-edit``: phases 82 (two forwards of each edit
 program), 83 and 84; ``wan-serve``: phase 86's in-process served requests;
 ``wan-sweep``: phase 87's two sweeps; ``wan-ckpt``: phase 88's loaded
-request; ``omnigen2-lora``: phase 89's loaded forward), its worst error over every shape
+request; ``omnigen2-lora``: phase 89's loaded forward; ``open-sora-pab-480p17``,
+``open-sora-pab-grouped``, ``open-sora-pab-vpu``: phase 90's requests;
+``open-sora-pab-masked``: phase 91; ``latte-pab-grouped``,
+``latte-pab-vpu``: phase 92; ``latte-768``: phase 93's forwards and
+request), its worst error over every shape
 compared, and the times of its first shape timed, named in ``timed_at``,
 with their method in ``timing`` (``loop`` or ``graph``); ``shapes`` lists
 every shape compared with its own error, times and bound.
@@ -3128,28 +3169,52 @@ def pab_site_spy(module, per_block: int):
     return counts, lambda: setattr(module, "_pab_site", real)
 
 
-def os_pab_launches(masks: dict, runs: np.ndarray, depth: int = 28):
-    """Launches and K5 routes of STDiT3's PAB trunk runs at the steps
-    ``runs``: spatial K7 + K5 (prepass), temporal K3 + K5 (stream), K6
-    without the residual twice a pair, K7 (mlp1) twice a pair, no K8."""
+def os_pab_launches(masks: dict, runs: np.ndarray, depth: int = 28, route: str = "packed",
+                    masked: bool = False):
+    """Launches, grouped routes, K9 routes and K1 shifts of STDiT3's PAB
+    trunk runs at the steps ``runs``. Packed: spatial K7 + K5 (prepass),
+    temporal K3 + K5 (stream), K6 without the residual twice a pair; grouped
+    and vpu: K3 + K1 (fixed max) spatial, K3 + K4 or K9 (stream) temporal,
+    K1 (running max) cross twice a pair; K7 (mlp1) twice a pair on every
+    route. Masked frames drop the K3s and K7s (the masked modulations, the
+    qkv as ``nn.Linear`` and the unfused MLP). No K8."""
     want, routes = dict(NO_LAUNCHES), dict(NO_ROUTES)
+    tiny, k1 = dict(NO_TINY_ROUTES), {"fixed": 0, "running": 0}
     for i in np.flatnonzero(runs):
-        sp, tp, cr, ml = (not masks[k][i] for k in ("spatial", "temporal", "cross", "mlp"))
-        want["lnmod_matmul"] += depth * (sp + 2 * ml)
-        want["grouped_attention_fused_qkv"] += depth * (sp + tp)
-        want["layer_norm_mod"] += depth * tp
-        want["fused_cross_attention_bias"] += 2 * depth * cr
-        routes["prepass"] += depth * sp
-        routes["stream"] += depth * tp
-    return want, routes
+        sp, tp, cr, ml = (depth * int(not masks[k][i])
+                          for k in ("spatial", "temporal", "cross", "mlp"))
+        if not masked:
+            want["lnmod_matmul"] += 2 * ml + (sp if route == "packed" else 0)
+            want["layer_norm_mod"] += tp + (0 if route == "packed" else sp)
+        if route == "packed":
+            want["grouped_attention_fused_qkv"] += sp + tp
+            want["fused_cross_attention_bias"] += 2 * cr
+            routes["prepass"] += sp
+            routes["stream"] += tp
+            continue
+        want["flash_attention_bshd"] += sp + 2 * cr
+        k1["fixed"] += sp
+        k1["running"] += 2 * cr
+        if route == "grouped":
+            want["grouped_flash_attention_bshd"] += tp
+            routes["stream"] += tp
+        else:
+            want["tiny_temporal_attention"] += tp
+            tiny["stream"] += tp
+    return want, routes, tiny, k1
 
 
-def check_launch_routes(label: str, launched: dict, want: dict, routes: dict) -> None:
+def check_pab_launches(label: str, launched: dict, expected) -> None:
+    """Fails unless a request's launches, the grouped kernels' routes, K9's
+    routes and K1's shifts since the last ``reset_counts`` are ``expected``
+    (``os_pab_launches`` / ``latte_pab_launches``)."""
     from magcache_tpu_torch.ops import attention as A
+    from magcache_tpu_torch.ops import tiny_attention as TA
 
-    got = dict(A._grouped_launch.routes)
-    if launched != want or got != routes:
-        fail(f"{label}: launches {launched} != {want}, or routes {got} != {routes}")
+    got = (launched, dict(A._grouped_launch.routes), dict(TA.tiny_temporal_attention.routes),
+           k1_modes())
+    if got != tuple(expected):
+        fail(f"{label}: launches, grouped routes, K9 routes, K1 shifts {got} != {expected}")
 
 
 def pab_trunk_ms(label: str, pipe, plain_core, signature: np.ndarray) -> None:
@@ -3247,7 +3312,7 @@ def phase_os_pab(dev, rec, model, full_latents):
             fail(f"{label}: realized skips differ from the schedule")
         if kind == "pab":
             masks = broadcast_masks(OPEN_SORA_PAB, pipe.schedule.timesteps)
-            want, routes = os_pab_launches(masks, runs)
+            expected = os_pab_launches(masks, runs)
             reused = {site: int(masks[m][runs].sum()) for site, m in (
                 ("spatial", "spatial"), ("temporal", "temporal"), ("cross", "cross"),
                 ("mlp", "mlp"))}
@@ -3265,9 +3330,10 @@ def phase_os_pab(dev, rec, model, full_latents):
             if launched["matmul_gated_residual"] or launched["fused_cross_attention"]:
                 fail(f"{label}: a K8 or residual K6 launch in a PAB request")
         else:
-            want = {k: n * int(runs.sum()) for k, n in OS_TRUNK_LAUNCHES.items()}
-            routes = {k: n * int(runs.sum()) for k, n in OS_ROUTES.items()}
-        check_launch_routes(label, launched, want, routes)
+            expected = ({k: n * int(runs.sum()) for k, n in OS_TRUNK_LAUNCHES.items()},
+                        {k: n * int(runs.sum()) for k, n in OS_ROUTES.items()},
+                        dict(NO_TINY_ROUTES), {"fixed": 0, "running": 0})
+        check_pab_launches(label, launched, expected)
         for k, n in launched.items():
             totals[kind][k] += n
         log(f"  {label}: {out.timings['total_s']:.3f} s/video, {int(runs.sum())} of "
@@ -3284,21 +3350,35 @@ def phase_os_pab(dev, rec, model, full_latents):
 
 
 # -------------------------------------------------------------- PAB, Latte
-def latte_pab_launches(masks: dict, runs: np.ndarray, depth: int = 28):
-    """Launches and K5r routes of Latte's PAB trunk runs at the steps
-    ``runs``: attention K3 + K5r (spatial "tma", temporal "stream"), cross
-    through ``attention()`` (K1), the MLP's K3 in each block that computes
-    it."""
+def latte_pab_launches(masks: dict, runs: np.ndarray, depth: int = 28, route: str = "packed",
+                       large: bool = False):
+    """Launches, grouped routes, K9 routes and K1 shifts of Latte's PAB trunk
+    runs at the steps ``runs``: K3 before each computed attention and in
+    each block that computes its MLP; spatial attention K5r ("tma") on the
+    packed route, K1 on the others and at frames of more than 2,048 tokens
+    (``large``); temporal K5r ("stream") packed, K4 or K9 ("stream")
+    grouped or vpu; cross through ``attention()`` (K1). Every K1 runs the
+    row max."""
     want, routes = dict(NO_LAUNCHES), dict(NO_ROUTES)
+    tiny, k1 = dict(NO_TINY_ROUTES), {"fixed": 0, "running": 0}
     for i in np.flatnonzero(runs):
-        sp, tp, cr = (not masks[k][i] for k in ("spatial", "temporal", "cross"))
+        sp, tp, cr = (depth * int(not masks[k][i]) for k in ("spatial", "temporal", "cross"))
         mlp = int((~masks["mlp_sp_reuse"][i]).sum() + (~masks["mlp_tp_reuse"][i]).sum())
-        want["layer_norm_mod"] += depth * (sp + tp) + mlp
-        want["grouped_attention_fused_qkv_rowmax"] += depth * (sp + tp)
-        want["flash_attention_bshd"] += depth * cr
-        routes["tma"] += depth * sp
-        routes["stream"] += depth * tp
-    return want, routes
+        want["layer_norm_mod"] += sp + tp + mlp
+        k1_spatial = sp if route != "packed" or large else 0
+        want["flash_attention_bshd"] += cr + k1_spatial
+        k1["running"] += cr + k1_spatial
+        if route == "packed":
+            want["grouped_attention_fused_qkv_rowmax"] += tp + sp - k1_spatial
+            routes["tma"] += sp - k1_spatial
+            routes["stream"] += tp
+        elif route == "grouped":
+            want["grouped_flash_attention_bshd"] += tp
+            routes["stream"] += tp
+        else:
+            want["tiny_temporal_attention"] += tp
+            tiny["stream"] += tp
+    return want, routes, tiny, k1
 
 
 def phase_latte_pab(dev, model, full_latents):
@@ -3327,8 +3407,7 @@ def phase_latte_pab(dev, model, full_latents):
     lat = out.latents
     if tuple(lat.shape) != (1, 16, 64, 64, 4) or not bool(torch.isfinite(lat).all()):
         fail(f"Latte PAB: latents {tuple(lat.shape)} not finite or misshapen")
-    want, routes = latte_pab_launches(masks, runs)
-    check_launch_routes("Latte PAB", launched, want, routes)
+    check_pab_launches("Latte PAB", launched, latte_pab_launches(masks, runs))
     got = {"spatial": sites[(0, "attn")][1] // 28, "temporal": sites[(3, "attn")][1] // 28,
            "cross": sites[(1, "cross")][1] // 28,
            "mlp spatial": sites[(2, "mlp")][1], "mlp temporal": sites[(4, "mlp")][1],
@@ -3431,7 +3510,7 @@ def phase_narrow_new_paths(dev):
         outs[name] = lat.float().cpu()
         if name == "card":
             launched = read_counts()
-    want, _ = os_pab_launches(masks, ~mask[:, 0], depth=2)
+    want = os_pab_launches(masks, ~mask[:, 0], depth=2)[0]
     log(f"  STDiT3 PAB reuse steps among the trunk runs: " + ", ".join(
         f"{k} {int(masks[k][~mask[:, 0]].sum())}" for k in ("spatial", "temporal", "cross")))
     check_narrow("STDiT3 PAB", outs["card"], outs["cpu"], launched, want)
@@ -3454,7 +3533,7 @@ def phase_narrow_new_paths(dev):
         if name == "card":
             launched = read_counts()
             masks = latte_pab_masks(pab, pipe.schedule.timesteps, 2)
-    want, _ = latte_pab_launches(masks, ~mask[:, 0], depth=2)
+    want = latte_pab_launches(masks, ~mask[:, 0], depth=2)[0]
     check_narrow("Latte PAB", outs["card"], outs["cpu"], launched, want)
 
 
@@ -3771,11 +3850,12 @@ def phase_osp_requests(dev, model):
 
 
 def v110_pab_launches(masks: dict, depth: int = 28):
-    """Launches and K5r routes of v1.1's PAB trunk runs (Latte's PAB block,
+    """Launches, routes and K1 shifts of v1.1's PAB trunk runs (Latte's PAB block,
     every step): ``latte_pab_launches`` with the temporal groups of 17 on
     the "tma" body."""
-    want, routes = latte_pab_launches(masks, np.ones(len(masks["spatial"]), bool), depth)
-    return want, dict(routes, tma=routes["tma"] + routes["stream"], stream=0)
+    want, routes, tiny, k1 = latte_pab_launches(masks, np.ones(len(masks["spatial"]), bool),
+                                                depth)
+    return want, dict(routes, tma=routes["tma"] + routes["stream"], stream=0), tiny, k1
 
 
 def phase_v110_requests(dev):
@@ -3830,8 +3910,7 @@ def phase_v110_requests(dev):
                           "mlp spatial": (2, "mlp", "mlp_sp", 1),
                           "mlp temporal": (4, "mlp", "mlp_tp", 1)})
     launched = read_counts()
-    want, routes = v110_pab_launches(masks)
-    check_launch_routes("OSP v1.1 PAB", launched, want, routes)
+    check_pab_launches("OSP v1.1 PAB", launched, v110_pab_launches(masks))
     for k, n in launched.items():
         total[k] += n
     log(f"  PAB: {out.timings['total_s']:.3f} s/video, rel L2 against full compute "
@@ -7910,6 +7989,630 @@ def phase_omnigen2_lora(dev):
     return counts
 
 
+# ------------------------------------- PAB on every route, masked frames
+# Open-Sora 1.2 at 480p 9:16 x 17 frames: 5 latent frames of 30 x 53 =
+# 1,590 tokens, 2 rows
+OS17_FRAMES, OS17_GRID = 17, (5, 30, 53)
+OS17_PROMPT = "A red sailboat glides across a calm bay at dawn."
+
+
+def os17_kernels(dev, rec):
+    """The kernels of phases 90-91 vs their plain versions at 480p x 17
+    shapes (bf16): K4 and K9 at the temporal groups of 5 (the grouped
+    route's q/k normed and rotated by plain ops, as ``_grouped`` hands them
+    over; K9 with the gains and RoPE inside), K1 at the unpacked spatial
+    (fixed max) and cross shapes, K5 spatial ("prepass") and temporal
+    ("stream"), K6 without the residual, K3 and K7 (mlp1 with gelu)."""
+    from magcache_tpu_torch.ops import attention as A
+    from magcache_tpu_torch.ops import fused_prologue as P
+    from magcache_tpu_torch.ops import tiny_attention as TA
+    from magcache_tpu_torch.ops.norms import rms_norm
+    from magcache_tpu_torch.ops.rope import grouped_rope_tables, rope_freqs_1d
+
+    gen = torch.Generator(device=dev).manual_seed(9090)
+    rows, (T, gh, gw), H, D, L = 2, OS17_GRID, 16, 72, 300
+    S, d = gh * gw, H * D
+    Rs = rows * S
+
+    def rnd(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    qkv = rnd(Rs, T, 3 * d)
+    gains = tuple(1.0 + 0.1 * torch.randn(D, generator=gen, device=dev) for _ in range(2))
+    cos, sin = (torch.from_numpy(a).to(dev) for a in rope_freqs_1d(np.arange(T), D))
+    q, k, v = A.split_qkv(qkv, H)
+    qn, kn = TA._norm_rope(q, k, *gains, cos, sin, 1e-6)
+    flat = [t.reshape(1, Rs * T, H, D) for t in (qn.to(v.dtype), kn.to(v.dtype), v)]
+    kw = dict(group=T, scale=D ** -0.5)
+    got = A.grouped_flash_attention_bshd(*flat, **kw)
+    want = A.grouped_flash_attention_bshd_plain(*flat, **kw)
+    flops, moved = 4 * Rs * H * T * T * D, nbytes(*flat, got)
+    record(rec, "grouped_flash_attention_bshd", f"STDiT3 480p x 17 temporal {Rs * T} rows, "
+           f"group {T}, q/k pre-normed and rotated (the grouped route's call)", got, want,
+           cuda_ms(lambda: A.grouped_flash_attention_bshd(*flat, **kw)),
+           cuda_ms(lambda: A.grouped_flash_attention_bshd_plain(*flat, **kw), 1),
+           flops, moved, library=("F.scaled_dot_product_attention",
+                                  sdpa_ms(*(t.reshape(Rs, T, H, D) for t in flat), 20)))
+    got = check_tiny_route("stream", lambda: TA.tiny_temporal_attention(
+        qkv, *gains, cos, sin, H, mode="vpu"))
+    want = TA.tiny_temporal_attention_plain(qkv, *gains, cos, sin, H)
+    record(rec, "tiny_temporal_attention", f"STDiT3 480p x 17 temporal {Rs}x{T}, qk-norm + "
+           f"RoPE, route stream", got, want,
+           cuda_ms(lambda: TA.tiny_temporal_attention(qkv, *gains, cos, sin, H, mode="vpu")),
+           cuda_ms(lambda: TA.tiny_temporal_attention_plain(qkv, *gains, cos, sin, H), 1),
+           flops, nbytes(qkv, got, *gains, cos, sin), atol=1e-2, tflops=H100_F32_TFLOPS)
+    # K5 "stream" at the packed temporal blocks' call (gains + RoPE fused)
+    tabs = tuple(torch.from_numpy(a).to(dev) for a in grouped_rope_tables(T, T, D))
+    kw5 = dict(group=T, scale=D ** -0.5, qk_gains=gains, eps=1e-6,
+               fixed_max=A.QKNORM_FIXED_MAX, true_d=D, rope_tables=tabs)
+    flat_qkv = qkv.reshape(1, Rs * T, 3 * d)
+    got = A.grouped_attention_fused_qkv(flat_qkv, H, **kw5)
+    want = A.grouped_attention_fused_qkv_plain(flat_qkv, H, **kw5)
+    record(rec, "grouped_attention_fused_qkv", f"STDiT3 480p x 17 temporal {Rs * T} rows, "
+           f"group {T}, gains + RoPE, route stream", got, want,
+           cuda_ms(lambda: A.grouped_attention_fused_qkv(flat_qkv, H, **kw5)),
+           cuda_ms(lambda: A.grouped_attention_fused_qkv_plain(flat_qkv, H, **kw5), 1),
+           flops, nbytes(qkv, got, *gains, *tabs))
+    del qkv, q, k, v, qn, kn, flat, flat_qkv, got, want
+
+    # K5 "prepass" at the spatial frames (gains, fixed max), on the qkv
+    # projection the masked PAB block feeds it
+    qkv = rnd(rows * T, S, 3 * d)
+    kw5 = dict(group=S, scale=D ** -0.5, qk_gains=gains, eps=1e-6,
+               fixed_max=A.QKNORM_FIXED_MAX, true_d=D)
+    got = A.grouped_attention_fused_qkv(qkv, H, **kw5)
+    want = A.grouped_attention_fused_qkv_plain(qkv, H, **kw5)
+    record(rec, "grouped_attention_fused_qkv", f"STDiT3 480p x 17 spatial {rows * T}x{S}, "
+           f"gains, route prepass", got, want,
+           cuda_ms(lambda: A.grouped_attention_fused_qkv(qkv, H, **kw5)),
+           cuda_ms(lambda: A.grouped_attention_fused_qkv_plain(qkv, H, **kw5), 1),
+           4 * rows * T * H * S * S * D, nbytes(qkv, got, *gains))
+    del qkv, got, want
+
+    # K1 as the unpacked routes call it: spatial over each frame (q/k
+    # RMS-normed, fixed max) and cross over the 300 caption keys
+    normed = [rms_norm(rnd(rows * T, S, H, D, scale=2.0), g, eps=1e-6) for g in gains]
+    label = f"fixed max, STDiT3 480p x 17 spatial {rows * T}x{S}x{H}x72 -> 128"
+    k1_check(rec, f"K1 [{label}]", label, *normed, rnd(rows * T, S, H, D), A.QKNORM_FIXED_MAX)
+    del normed
+    label = f"running max, STDiT3 480p x 17 cross {rows}x{T * S} x {L} keys, 72 -> 128"
+    k1_check(rec, f"K1 [{label}]", label, rnd(rows, T * S, H, D), rnd(rows, L, H, D),
+             rnd(rows, L, H, D), None)
+
+    # K3 (the unpacked routes' modulation), K7 (mlp1 + gelu), K6 without the
+    # residual (PAB's cached cross branch) at 2 x 7,950 tokens
+    h = rnd(rows, T * S, d)
+    sc, sh = rnd(rows, d, dtype=torch.float32, scale=0.1), rnd(rows, d, dtype=torch.float32, scale=0.1)
+    got = P.layer_norm_mod(h, scale=sc, shift=sh, eps=1e-6)
+    err = compare(f"layer_norm_mod [STDiT3 480p x 17 mod, {rows}x{T * S}x{d}]", got,
+                  P.layer_norm_mod_plain(h, scale=sc, shift=sh, eps=1e-6),
+                  atol=3e-2, rtol=1.6e-2)
+    ms = cuda_ms(lambda: P.layer_norm_mod(h, scale=sc, shift=sh, eps=1e-6))
+    pms = cuda_ms(lambda: P.layer_norm_mod_plain(h, scale=sc, shift=sh, eps=1e-6))
+    log(f"  K3 [STDiT3 480p x 17 mod]: kernel {ms:.3f} ms, plain {pms:.3f} ms")
+    keep(rec, "layer_norm_mod", err, ms, pms, "loop", f"STDiT3 480p x 17 mod {rows}x{T * S}x{d}",
+         elementwise_work(h, sc, sh))
+    w, b = rnd(4 * d, d, scale=d ** -0.5), rnd(4 * d, scale=0.1)
+    got = P.lnmod_matmul(h, sc, sh, w, b, act="gelu")
+    want = P.lnmod_matmul_plain(h, sc, sh, w, b, act="gelu")
+    record(rec, "lnmod_matmul", f"STDiT3 480p x 17 mlp1 {rows}x{T * S}x{d} -> {4 * d}, gelu",
+           got, want, cuda_ms(lambda: P.lnmod_matmul(h, sc, sh, w, b, act="gelu")),
+           cuda_ms(lambda: P.lnmod_matmul_plain(h, sc, sh, w, b, act="gelu"), 2),
+           2 * rows * T * S * d * 4 * d, nbytes(h, w, b, got))
+    del got, want, w, b
+    wq, wo = rnd(d, d, scale=d ** -0.5), rnd(d, d, scale=d ** -0.5)
+    bq, bo = rnd(d, scale=0.05), rnd(d, scale=0.05)
+    k, v = rnd(rows, L, d), rnd(rows, L, d)
+    kw = dict(scale=D ** -0.5, true_d=D, residual=False)
+    got = A.fused_cross_attention(h, wq, bq, k, v, wo, bo, H, **kw)
+    want = A.fused_cross_attention_plain(h, wq, bq, k, v, wo, bo, H, **kw)
+    record(rec, "fused_cross_attention_bias", f"STDiT3 480p x 17 {rows}x{T * S} x {L} keys, "
+           f"no residual", got, want,
+           cuda_ms(lambda: A.fused_cross_attention(h, wq, bq, k, v, wo, bo, H, **kw)),
+           cuda_ms(lambda: A.fused_cross_attention_plain(h, wq, bq, k, v, wo, bo, H, **kw), 2),
+           4 * rows * T * S * d * d + 4 * rows * T * S * L * d,
+           nbytes(h, wq, bq, k, v, wo, bo, got))
+    del h, got, want
+
+
+def os17_request(label, pipe, kw, masks, runs_want, route, masked, frames=OS17_GRID[0]):
+    """One Open-Sora request at 480p x 17 under PAB: finite latents of
+    ``frames`` latent frames, the realized skips, the reuse of each site
+    against the masks (``pab_site_spy``: the sites of the 28 block pairs
+    counted at the first block pair's positions) and every launch against
+    the masks, clip by clip. Returns ``(latents, launches)``."""
+    from magcache_tpu_torch.models import stdit3 as S
+
+    reset_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(pipe.device)
+    sites, uninstall = pab_site_spy(S, 6)
+    try:
+        out = pipe.generate(OS17_PROMPT, seed=3, **kw)
+    finally:
+        uninstall()
+    peak_gb = torch.cuda.max_memory_allocated(pipe.device) / 1e9
+    launched = read_counts()
+    lat = out.latents
+    want_shape = (1, frames) + pipe.latent_shape[1:]
+    if tuple(lat.shape) != want_shape or not bool(torch.isfinite(lat).all()):
+        fail(f"{label}: latents {tuple(lat.shape)} not finite or not {want_shape}")
+    if not np.array_equal(out.skips, runs_want):
+        fail(f"{label}: realized skips differ from the schedule")
+    runs = ~np.asarray(out.skips).all(1)
+    step_runs = runs.reshape(-1, len(masks["spatial"]))       # a row a clip (loops)
+    expected = None
+    for r in step_runs:
+        e = os_pab_launches(masks, r, route=route, masked=masked)
+        expected = e if expected is None else tuple(
+            {k: n + x[k] for k, n in y.items()} for x, y in zip(expected, e))
+    check_pab_launches(label, launched, expected)
+    reused = {k: int(sum(masks[k][r].sum() for r in step_runs))
+              for k in ("spatial", "temporal", "cross", "mlp")}
+    got = {"spatial": sites[(0, "attn")][1] // 28, "temporal": sites[(3, "attn")][1] // 28,
+           "cross": sites[(1, "cross")][1] // 28, "mlp": sites[(2, "mlp")][1] // 28}
+    if got != reused:
+        fail(f"{label}: reuse steps per site {got} != the masks' {reused}")
+    log(f"  {label}: {out.timings['total_s']:.3f} s/video, {int(runs.sum())} of {len(runs)} "
+        f"trunk runs, reuse steps per site {got}, peak memory {peak_gb:.2f} GB, launches "
+        f"{ {k: n for k, n in launched.items() if n} }")
+    return lat, launched
+
+
+def phase_os_pab_routes(dev, rec, model):
+    """Phase 90: PAB on the grouped and vpu routes at 480p x 17, held to
+    the packed PAB request of the same seed. Returns each route's
+    launches."""
+    from magcache_tpu_torch.core.pab import OPEN_SORA_PAB, broadcast_masks
+    from magcache_tpu_torch.pipelines.open_sora import (OpenSoraPipeline,
+                                                        OpenSoraPipelineConfig)
+
+    log(f"phase 90: Open-Sora PAB (OPEN_SORA_PAB) on the grouped and vpu routes, 480p 9:16 "
+        f"x {OS17_FRAMES}, {OS_STEPS} RFLOW steps, against packed PAB; kernels first")
+    os17_kernels(dev, rec)
+    base = dict(resolution="480p", aspect_ratio="9:16", num_frames=OS17_FRAMES,
+                num_sampling_steps=OS_STEPS, cfg_scale=7.0, dtype="bfloat16", enable_pab=True)
+    lats, paths = {}, {}
+    for route in ("packed", "grouped", "vpu"):
+        pipe = OpenSoraPipeline(OpenSoraPipelineConfig(route=route, **base), dev, model=model)
+        if pipe.grid != OS17_GRID:
+            fail(f"480p x {OS17_FRAMES}: grid {pipe.grid} != {OS17_GRID}")
+        masks = broadcast_masks(OPEN_SORA_PAB, pipe.schedule.timesteps)
+        lats[route], paths[route] = os17_request(
+            f"PAB, {route} route", pipe, {}, masks, np.zeros((OS_STEPS, 1), bool), route,
+            masked=False)
+    for route in ("grouped", "vpu"):
+        rel = rel_l2(lats[route], lats["packed"])
+        log(f"  rel L2 of the {route} PAB request's latents against the packed one's: "
+            f"{rel:.3e} (tol 5e-2, phase 30's)")
+        if rel > 5e-2:
+            fail(f"PAB on the {route} route disagrees with packed PAB")
+    return paths
+
+
+def phase_os_pab_masked(dev, model):
+    """Phase 91: PAB with masked frames: latent frame 0 pinned to a seeded
+    reference, and a looped request. Returns the path's launches."""
+    import os
+
+    from magcache_tpu_torch.core.pab import OPEN_SORA_PAB, broadcast_masks
+    from magcache_tpu_torch.core.sampler import lane_skip_masks
+    from magcache_tpu_torch.pipelines.open_sora import (OpenSoraPipeline,
+                                                        OpenSoraPipelineConfig)
+
+    log(f"phase 91: Open-Sora PAB with masked frames at 480p 9:16 x {OS17_FRAMES}, "
+        f"{OS_STEPS} RFLOW steps, latent frame 0 pinned to a seeded reference: PAB packed, "
+        f"PAB + MagCache packed with loop=2, PAB grouped")
+    base = dict(resolution="480p", aspect_ratio="9:16", num_frames=OS17_FRAMES,
+                num_sampling_steps=OS_STEPS, cfg_scale=7.0, dtype="bfloat16", enable_pab=True)
+    shape = (1, OS17_GRID[0], 60, 106, 4)
+    ref = torch.randn((1,) + shape[2:], generator=torch.Generator().manual_seed(91))
+    ref_path = os.path.join(_scratch_dir(), "ref_480p.npy")
+    np.save(ref_path, ref.numpy())
+    pinned = dict(ms="0,0,0,0,1,0", refs=ref_path, align=None)
+    total = dict(NO_LAUNCHES)
+    for label, route, kw, gen_kw in (
+            ("PAB, packed, pinned frame", "packed", {}, pinned),
+            ("PAB + MagCache opensora-v1.2, packed, pinned frame, loop=2", "packed",
+             dict(use_magcache=True), dict(pinned, loop=2, condition_frame_length=1)),
+            ("PAB, grouped, pinned frame", "grouped", {}, pinned)):
+        pipe = OpenSoraPipeline(OpenSoraPipelineConfig(route=route, **base, **kw), dev,
+                                model=model)
+        masks = broadcast_masks(OPEN_SORA_PAB, pipe.schedule.timesteps)
+        sched = lane_skip_masks(pipe._cache_cfg(), OS_STEPS)[0]
+        loops = gen_kw.get("loop", 1)
+        lat, launched = os17_request(label, pipe, gen_kw, masks, np.tile(sched, (loops, 1)),
+                                     route, masked=True, frames=loops * shape[1] - loops + 1)
+        if kw.get("use_magcache") and not sched.any():
+            fail(f"{label}: the schedule skips no step")
+        if not torch.equal(lat[0, 0].cpu(), ref[0]):
+            fail(f"{label}: the pinned frame moved off its reference")
+        for k, n in launched.items():
+            total[k] += n
+    log(f"  launches in phase 91: { {k: n for k, n in total.items() if n} }")
+    return total
+
+
+# ------------------------------------------------------ Latte PAB and 768
+# Latte-1 at 768x768 x 16: 16 frames of 48 x 48 = 2,304 tokens, 2 rows
+LATTE768_GRID, LATTE768_STEPS = (16, 48, 48), 10
+LATTE_PAB_STEPS = 20                 # phase 92, cut from the published 50
+# per trunk run of 28 block pairs above 2,048 tokens a frame, packed: K3
+# before each attention and MLP, K1 spatial and cross, K5r "stream" temporal
+LATTE768_LAUNCHES = {
+    "packed": dict(NO_LAUNCHES, layer_norm_mod=112, flash_attention_bshd=56,
+                   grouped_attention_fused_qkv_rowmax=28),
+    "grouped": LATTE_TRUNK_LAUNCHES["grouped"], "vpu": LATTE_TRUNK_LAUNCHES["vpu"]}
+LATTE768_ROUTES = {"packed": dict(NO_ROUTES, stream=28), "grouped": dict(NO_ROUTES, stream=28),
+                   "vpu": NO_ROUTES}
+
+
+def latte_pab_request(label, pipe, masks, route, large=False, depth=28):
+    """One Latte request under PAB: finite latents, every step computed,
+    each site's reuse and the MLP saves against the masks
+    (``pab_site_spy``), every launch against the masks. Returns its
+    launches."""
+    from magcache_tpu_torch.models import latte as LM
+
+    runs = np.ones(len(masks["spatial"]), bool)
+    reset_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(pipe.device)
+    sites, uninstall = pab_site_spy(LM, 5)
+    try:
+        out = pipe.generate(OS17_PROMPT, seed=3)
+    finally:
+        uninstall()
+    peak_gb = torch.cuda.max_memory_allocated(pipe.device) / 1e9
+    launched = read_counts()
+    lat = out.latents
+    if tuple(lat.shape) != (1,) + pipe.latent_shape or not bool(torch.isfinite(lat).all()):
+        fail(f"{label}: latents {tuple(lat.shape)} not finite or misshapen")
+    check_pab_launches(label, launched,
+                       latte_pab_launches(masks, runs, depth, route=route, large=large))
+    got = {"spatial": sites[(0, "attn")][1] // depth,
+           "temporal": sites[(3, "attn")][1] // depth,
+           "cross": sites[(1, "cross")][1] // depth,
+           "mlp spatial": sites[(2, "mlp")][1], "mlp temporal": sites[(4, "mlp")][1],
+           "mlp saves": sites[(2, "mlp")][2] + sites[(4, "mlp")][2]}
+    expect = {"spatial": int(masks["spatial"].sum()), "temporal": int(masks["temporal"].sum()),
+              "cross": int(masks["cross"].sum()),
+              "mlp spatial": int(masks["mlp_sp_reuse"].sum()),
+              "mlp temporal": int(masks["mlp_tp_reuse"].sum()),
+              "mlp saves": int(masks["mlp_sp_save"].sum() + masks["mlp_tp_save"].sum())}
+    if got != expect:
+        fail(f"{label}: site counts {got} != the masks' {expect}")
+    log(f"  {label}: {out.timings['total_s']:.3f} s/video, reuse steps per site (block-"
+        f"steps for the MLPs) and MLP saves {got}, peak memory {peak_gb:.2f} GB, launches "
+        f"{ {k: n for k, n in launched.items() if n} }")
+    return lat, launched
+
+
+def phase_latte_pab_routes(dev, model):
+    """Phase 92: LATTE_PAB on the grouped and vpu routes at 512x512 x 16.
+    Returns the two paths' launches."""
+    from magcache_tpu_torch.core.pab import LATTE_PAB
+    from magcache_tpu_torch.models import latte as LM
+    from magcache_tpu_torch.pipelines.latte import LattePipeline, LattePipelineConfig
+
+    log(f"phase 92: Latte PAB (LATTE_PAB) on the grouped and vpu routes, 512x512 x 16, "
+        f"{LATTE_PAB_STEPS} DDIM steps (cut from 50)")
+    paths = {}
+    for route in ("grouped", "vpu"):
+        pipe = LattePipeline(LattePipelineConfig(num_sampling_steps=LATTE_PAB_STEPS,
+                                                 dtype="bfloat16", enable_pab=True,
+                                                 route=route), dev, model=model)
+        masks = LM.latte_pab_masks(LATTE_PAB, pipe.schedule.timesteps, 28)
+        _, paths[route] = latte_pab_request(f"Latte PAB, {route} route", pipe, masks, route)
+    return paths["grouped"], paths["vpu"]
+
+
+def phase_latte_768(dev, rec, model):
+    """Phase 93: Latte-1 at 768x768 x 16 (frames of 2,304 tokens): K1 and
+    K5r at its shapes, one forward a route, a PAB request on packed.
+    Returns the path's launches."""
+    from magcache_tpu_torch.core.pab import LATTE_PAB
+    from magcache_tpu_torch.models import latte as LM
+    from magcache_tpu_torch.models.text import MockTextEncoder
+    from magcache_tpu_torch.ops import attention as A
+    from magcache_tpu_torch.pipelines.latte import LattePipeline, LattePipelineConfig
+
+    log(f"phase 93: Latte-1 at 768x768 x 16 (frames of 2,304 tokens): K1 and K5r at its "
+        f"shapes, forwards on every route, a {LATTE768_STEPS}-step LATTE_PAB request on "
+        f"packed")
+    gen = torch.Generator(device=dev).manual_seed(9393)
+    rows, (T, gh, gw), H, D = 2, LATTE768_GRID, 16, 72
+    S, d = gh * gw, H * D
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+
+    for label, sq, skv, b in ((f"running max, Latte 768 spatial {rows * T}x{S}x{H}x72 -> 128",
+                               S, S, rows * T),
+                              (f"running max, Latte 768 cross {rows}x{T * S} x {LATTE_CAP} "
+                               f"keys, 72 -> 128", T * S, LATTE_CAP, rows)):
+        k1_check(rec, f"K1 [{label}]", label, rnd(b, sq, H, D), rnd(b, skv, H, D),
+                 rnd(b, skv, H, D), None)
+    qkv = rnd(1, rows * S * T, 3 * d)
+    kw = dict(group=T, scale=D ** -0.5, true_d=D)
+    got = A.grouped_attention_fused_qkv(qkv, H, **kw)
+    want = A.grouped_attention_fused_qkv_plain(qkv, H, **kw)
+    q, k, v = (t.reshape(rows * S, T, H, D) for t in A.split_qkv(qkv, H))
+    record(rec, "grouped_attention_fused_qkv_rowmax", f"Latte 768 temporal {rows * S * T} "
+           f"rows, group {T}, route {A.grouped_kernel(T, None, None, None)}", got, want,
+           cuda_ms(lambda: A.grouped_attention_fused_qkv(qkv, H, **kw)),
+           cuda_ms(lambda: A.grouped_attention_fused_qkv_plain(qkv, H, **kw), 1),
+           4 * rows * S * H * T * T * D, nbytes(qkv, got),
+           library=("F.scaled_dot_product_attention", sdpa_ms(q, k, v, 20)))
+    del qkv, got, want, q, k, v
+
+    x = torch.randn((rows, T, 2 * gh, 2 * gw, 4), generator=gen, device=dev)
+    t = torch.full((rows,), 900.0, device=dev)
+    cond = {"y": MockTextEncoder(LATTE_CAP, 4096, scale=0.5)(["a boat", ""], device=dev)}
+    total, outs = dict(NO_LAUNCHES), {}
+    for route in ("packed", "grouped", "vpu"):
+        core = LM.make_latte_core(model, LATTE768_GRID, LATTE_CAP, route=route)
+
+        def forward():
+            hidden, c = core.prepare(x, t, cond)
+            return core.head(core.trunk(hidden, c), c)
+
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        out, ms = timed_once(forward)
+        if tuple(out.shape) != tuple(x.shape) or not bool(torch.isfinite(out).all()):
+            fail(f"Latte 768 {route} forward: output {tuple(out.shape)} not finite")
+        counts = check_forward_counts(f"Latte 768 {route} forward", 1, LATTE768_LAUNCHES[route],
+                                      LATTE768_ROUTES[route], LATTE_TINY_ROUTES[route])
+        log(f"  Latte 768 {route} forward: {ms / 1e3:.3f} s, peak memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+        total = {k: n + counts[k] for k, n in total.items()}
+        outs[route] = out.float()
+    for route in ("grouped", "vpu"):
+        log(f"  rel L2 of the {route} route's 768 output against the packed route's: "
+            f"{rel_l2(outs[route], outs['packed']):.3e}")
+    pipe = LattePipeline(LattePipelineConfig(num_sampling_steps=LATTE768_STEPS, height=768,
+                                             width=768, dtype="bfloat16", enable_pab=True),
+                         dev, model=model)
+    if pipe.grid != LATTE768_GRID:
+        fail(f"Latte 768: grid {pipe.grid} != {LATTE768_GRID}")
+    masks = LM.latte_pab_masks(LATTE_PAB, pipe.schedule.timesteps, 28)
+    _, launched = latte_pab_request("Latte 768 PAB, packed", pipe, masks, "packed", large=True)
+    return {k: n + launched[k] for k, n in total.items()}
+
+
+# ------------------------------------------------------------ the VAE halves
+def vae_card_vs_cpu(label, card, cpu, fn, *args):
+    """``fn(vae, *args)`` on the card against the CPU (the card's weights
+    copied): f32 convs without TF32 on both sides, summation order only
+    (tol 1e-4 of the largest value)."""
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    want = fn(cpu, *args)
+    got = fn(card, *(a.to(next(card.parameters()).device) for a in args))
+    want, got = (w[0] if isinstance(w, tuple) else w for w in (want, got))
+    err = float((got.cpu() - want).abs().max() / want.abs().max())
+    log(f"  {label} {tuple(want.shape)}: card vs CPU max |diff| / max |CPU| {err:.3e} "
+        f"(tol 1e-4), rel L2 {rel_l2(got, want):.3e}")
+    if tuple(got.shape) != tuple(want.shape) or err > 1e-4:
+        fail(f"{label}: card and CPU disagree")
+
+
+def timed_vae(label, dev, fn, shapes):
+    """``fn()`` once on the card: its seconds and peak GB logged, each output
+    finite and of its shape in ``shapes``. Returns the output."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out, ms = timed_once(fn)
+    outs = out if isinstance(out, tuple) else (out,)
+    for o, shape in zip(outs, shapes):
+        if tuple(o.shape) != shape or not bool(torch.isfinite(o).all()):
+            fail(f"{label}: output {tuple(o.shape)} not finite or not {shape}")
+    log(f"  {label}: {ms / 1e3:.3f} s, peak memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB -> {tuple(outs[0].shape)}")
+    return out
+
+
+def phase_vae_halves(dev):
+    """Phase 94: the VAE halves, f32: narrow card-vs-CPU checks, then each
+    at full size on the card."""
+    from magcache_tpu_torch.models.vae import (CausalVAE, CausalVAEConfig, ImageVAE,
+                                               ImageVAEConfig, MicroFrameVAE)
+    from magcache_tpu_torch.models.vae_cogvideox import CogVideoXVAE, CogVideoXVAEConfig
+    from magcache_tpu_torch.models.vae_osp import OSP_V120_VAE, OSPCausalVAE, OSPVAEConfig
+
+    log("phase 94: the VAE halves in f32: narrow card vs CPU, then at full size (the OSP "
+        "v1.2 encoder, the CogVideoX encoder, the causal VAE's decoder, ImageVAE)")
+    g = torch.Generator().manual_seed(94)
+    gen = torch.Generator(device=dev).manual_seed(94)
+
+    def px(*shape, generator=g, device="cpu"):
+        return torch.rand(shape, generator=generator, device=device) * 2 - 1
+
+    def pair(cls, cfg):
+        return cls(cfg, dev).init(gen).requires_grad_(False), cls(cfg, "cpu")
+
+    # narrow: the tiled OSP encode at small thresholds, both halves of the rest
+    osp_cfg = OSPVAEConfig(hidden=8, ch_mult=(1, 1, 2, 2), num_res_blocks=1, groups=4,
+                           down_types=OSP_V120_VAE.down_types, up_types=OSP_V120_VAE.up_types)
+    card, cpu = pair(OSPCausalVAE, osp_cfg)
+    for vae in (card, cpu):
+        vae.tile_sample_min_size, vae.tile_sample_min_size_t, vae.tile_latent_min_size = 64, 5, 8
+    vae_card_vs_cpu("OSP encode, tiled (5-frame windows, 64-pixel tiles)", card, cpu,
+                    lambda v, x: v.encode(x), px(1, 9, 80, 96, 3))
+    cog_cfg = CogVideoXVAEConfig(block_out_channels=(8, 8, 16, 16), layers_per_block=1,
+                                 groups=4)
+    card, cpu = pair(CogVideoXVAE, cog_cfg)
+    vae_card_vs_cpu("CogVideoX encode", card, cpu, lambda v, x: v.encode(x), px(1, 9, 48, 64, 3))
+    causal = CausalVAEConfig(base=8, ch_mult=(1, 1, 2, 2), blocks_per_level=1)
+    card, cpu = pair(CausalVAE, causal)
+    z = torch.randn((1, 5, 6, 8, 16), generator=g)
+    vae_card_vs_cpu("CausalVAE decode", card, cpu, lambda v, z_: v.decode(z_), z)
+    vae_card_vs_cpu("CausalVAE decode_chunked (2 latents a chunk)", card, cpu,
+                    lambda v, z_: v.decode_chunked(z_, 2), z)
+    card, cpu = pair(ImageVAE, ImageVAEConfig.tiny())
+    vae_card_vs_cpu("ImageVAE encode", card, cpu, lambda v, x: v.encode(x), px(2, 32, 48, 3))
+    vae_card_vs_cpu("ImageVAE decode_tiled (16-latent tiles)", card, cpu,
+                    lambda v, z_: v.decode_tiled(z_, 16, 4), torch.randn((1, 24, 20, 4),
+                                                                         generator=g))
+    card, cpu = (MicroFrameVAE(ImageVAE(ImageVAEConfig.tiny(), d),
+                               CausalVAE(CausalVAEConfig.tiny(in_channels=4), d),
+                               micro_frame_size=5, scale=(1.0,) * 4, shift=(0.0,) * 4)
+                 for d in (dev, "cpu"))
+    card.init(gen)
+    vae_card_vs_cpu("MicroFrameVAE(ImageVAE, CausalVAE) encode", card, cpu,
+                    lambda v, x: v.encode(x), px(1, 10, 16, 16, 3))
+    del card, cpu
+
+    # full size, one call each
+    osp = OSPCausalVAE(OSP_V120_VAE, dev).init(gen).requires_grad_(False)
+    x = px(1, 33, 480, 640, 3, generator=gen, device=dev)
+    mean, _ = timed_vae("OSP v1.2 encode 33x480x640 (tiled: 3 x 3 tiles of 256 pixels)", dev,
+                        lambda: osp.encode(x), [(1, 9, 60, 80, 4), (1, 9, 60, 80, 4)])
+    timed_vae("OSP v1.2 decode of those latents (tiled) to 33 frames", dev,
+              lambda: osp.decode(mean), [(1, 33, 480, 640, 3)])
+    del osp, x, mean
+    cog = CogVideoXVAE(CogVideoXVAEConfig(), dev).init(gen).requires_grad_(False)
+    x = px(1, 13, 480, 720, 3, generator=gen, device=dev)
+    timed_vae("CogVideoX-5B encode 13x480x720 (the whole clip)", dev, lambda: cog.encode(x),
+              [(1, 4, 60, 90, 16), (1, 4, 60, 90, 16)])
+    del cog, x
+    # the Wan i2v fallback's causal VAE (pipelines/wan.py) on 832x480x17 latents
+    fallback = CausalVAE(CausalVAEConfig(), dev).init(gen).requires_grad_(False)
+    z = torch.randn((1, 5, 60, 104, 16), generator=gen, device=dev)
+    whole = timed_vae("CausalVAE decode 5x60x104x16 (832x480x17)", dev,
+                      lambda: fallback.decode(z), [(1, 17, 480, 832, 3)])
+    chunked = timed_vae("CausalVAE decode_chunked (2 latents a chunk)", dev,
+                        lambda: fallback.decode_chunked(z, 2), [(1, 17, 480, 832, 3)])
+    err = float((chunked - whole).abs().max() / whole.abs().max())
+    log(f"    decode_chunked against decode: max |diff| / max |whole| {err:.3e} (tol 1e-4)")
+    if err > 1e-4:
+        fail("CausalVAE decode_chunked differs from decode")
+    del fallback, z, whole, chunked
+    img = ImageVAE(ImageVAEConfig(), dev).init(gen).requires_grad_(False)
+    x = px(1, 512, 512, 3, generator=gen, device=dev)
+    mean, _ = timed_vae("ImageVAE encode 512x512", dev, lambda: img.encode(x),
+                        [(1, 64, 64, 16), (1, 64, 64, 16)])
+    whole = timed_vae("ImageVAE decode 64x64x16", dev, lambda: img.decode(mean),
+                      [(1, 512, 512, 3)])
+    tiled = timed_vae("ImageVAE decode_tiled (32-latent tiles, overlap 4)", dev,
+                      lambda: img.decode_tiled(mean), [(1, 512, 512, 3)])
+    log(f"    decode_tiled against decode: rel L2 {rel_l2(tiled, whole):.3e} (the blended "
+        f"seams)")
+    del img, x, mean, whole, tiled
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------- narrow, card against CPU
+def phase_narrow_pab_routes(dev):
+    """Phase 95: narrow STDiT3 and Latte on the card (kernels, bf16)
+    against the CPU (plain, f32) over PAB steps with reuse: STDiT3 PAB on
+    grouped and vpu, STDiT3 PAB with masked frames on all three routes,
+    Latte PAB on grouped and vpu, and Latte PAB at frames of 2,304
+    tokens."""
+    from magcache_tpu_torch.core.pab import (LattePABConfig, OpenSoraPABConfig,
+                                             broadcast_masks)
+    from magcache_tpu_torch.core.presets import make_config
+    from magcache_tpu_torch.core.sampler import sample_euler, sample_rflow_masked
+    from magcache_tpu_torch.models.convert import (latte_params_from_numpy,
+                                                   stdit3_params_from_numpy)
+    from magcache_tpu_torch.models.latte import LatteConfig, LatteModel, latte_pab_masks
+    from magcache_tpu_torch.models.stdit3 import STDiT3Config, STDiT3Model, make_stdit3_core
+    from magcache_tpu_torch.models.text import MockTextEncoder
+    from magcache_tpu_torch.pipelines.latte import LattePipeline, LattePipelineConfig
+    from magcache_tpu_torch.schedulers.rflow import RFlowSchedule
+
+    log("phase 95: narrow slices of PAB on every route on the card (kernels, bf16) vs the "
+        "CPU (plain, f32): STDiT3 grouped / vpu, STDiT3 with masked frames on all three "
+        "routes, Latte grouped / vpu, Latte at 2,304 tokens a frame")
+    # STDiT3: phase 38's slice at frames of 10 x 16 = 160 tokens (above the
+    # 128 of attention()'s einsum path, so the unpacked routes run K1
+    # spatially) with every site's window opened
+    cfg = STDiT3Config(hidden=144, heads=2, depth=2, caption_dim=64, freq_dim=64,
+                       caption_max_len=20)
+    grid = (5, 10, 16)
+    rng = np.random.default_rng(95)
+    tree = _numpy_stdit3_tree(cfg, rng)
+    x0 = rng.standard_normal((1, 5, 20, 32, 4)).astype(np.float32)
+    y = MockTextEncoder(20, 64, scale=0.5)(["a red boat", ""])
+    mask = np.array([0, 0, 1, 0, 1, 1, 0, 0], bool)[:, None]
+    sch = RFlowSchedule.create(len(mask), use_timestep_transform=True, height=160,
+                               width=256, num_frames=17)
+    pab = OpenSoraPABConfig(spatial_threshold=(0, 1000), temporal_threshold=(0, 1000),
+                            cross_threshold=(0, 1000))
+    masks = broadcast_masks(pab, sch.timesteps)
+    frames = np.array([[0.0, 0.5, 1.0, 1.0, 1.0]], np.float32)   # pinned, edited, free
+
+    def combine(chunks):
+        return chunks[1][..., :4] + 7.0 * (chunks[0][..., :4] - chunks[1][..., :4])
+
+    def noise_fn(step, shape):
+        return torch.from_numpy(np.random.default_rng(950 + step).standard_normal(
+            shape).astype(np.float32))
+
+    cases = [(route, False) for route in ("grouped", "vpu")] + [
+        (route, True) for route in ("packed", "grouped", "vpu")]
+    for route, masked in cases:
+        outs = {}
+        reset_counts()
+        for name, device, dtype in (("card", dev, "bfloat16"),
+                                    ("cpu", torch.device("cpu"), "float32")):
+            c = dataclasses.replace(cfg, dtype=dtype)
+            model = STDiT3Model(c, device)
+            model.load_state_dict(stdit3_params_from_numpy(tree, c, device))
+            core = make_stdit3_core(model, grid, route=route, pab=pab, timesteps=sch.timesteps,
+                                    pixel_size=(160, 256))
+            cond = {"y": y.to(device), "fps": torch.full((2,), 24.0, device=device)}
+            kw = dict(timesteps=sch.timesteps, dts=sch.dts(), lanes=2, combine_fn=combine,
+                      cache_cfg=make_config("opensora-v1.2", len(mask)))
+            if masked:
+                lat, skips = sample_rflow_masked(
+                    core, torch.from_numpy(x0).to(device), cond, mask=frames,
+                    num_train_timesteps=sch.num_train_timesteps, noise_fn=noise_fn,
+                    return_skips=True, **kw)
+            else:
+                lat, skips = sample_euler(core, torch.from_numpy(x0).to(device), cond,
+                                          skip_mask_override=mask, return_skips=True, **kw)
+            outs[name] = lat.float().cpu()
+            if name == "card":
+                launched, runs = read_counts(), ~skips.all(1)
+        if not masked and not np.array_equal(runs, ~mask[:, 0]):
+            fail(f"narrow STDiT3 PAB, {route}: realized skips differ from the override")
+        want = os_pab_launches(masks, runs, depth=2, route=route, masked=masked)[0]
+        log(f"  STDiT3 PAB, {route}{', masked frames' if masked else ''}: "
+            f"{int(runs.sum())} of {len(runs)} trunk runs")
+        check_narrow(f"STDiT3 PAB, {route}{', masked frames' if masked else ''}",
+                     outs["card"], outs["cpu"], launched, want)
+
+    # Latte: phase 38's slice on grouped and vpu, then the packed route at
+    # frames of 48 x 48 = 2,304 tokens (2 frames)
+    cfg = LatteConfig(hidden=144, heads=2, depth=2, caption_dim=64, time_embed_dim=64,
+                      out_channels=8)
+    tree = _numpy_latte_tree(cfg, np.random.default_rng(96))
+    anchors = ((750, (0, 1), 2),)
+    pab = LattePABConfig(mlp_spatial_config=anchors, mlp_temporal_config=anchors)
+    for route, size, frames_n in (("grouped", 256, 16), ("vpu", 256, 16),
+                                  ("packed", 768, 2)):
+        base = dict(num_frames=frames_n, height=size, width=size, num_sampling_steps=8,
+                    caption_len=20, enable_pab=True, pab_config=pab, route=route)
+        outs = {}
+        reset_counts()
+        for name, device, dtype in (("card", dev, "bfloat16"),
+                                    ("cpu", torch.device("cpu"), "float32")):
+            c = dataclasses.replace(cfg, dtype=dtype)
+            model = LatteModel(c, device)
+            model.load_state_dict(latte_params_from_numpy(tree, c, device))
+            pipe = LattePipeline(LattePipelineConfig(dtype=dtype, **base), device, model=model)
+            outs[name] = pipe.generate("a red boat", seed=4,
+                                       skip_override=mask).latents.float().cpu()
+            if name == "card":
+                launched = read_counts()
+                lmasks = latte_pab_masks(pab, pipe.schedule.timesteps, 2)
+        want = latte_pab_launches(lmasks, ~mask[:, 0], depth=2, route=route,
+                                  large=size > 512)[0]
+        check_narrow(f"Latte PAB, {route}, {size}x{size} x {frames_n}", outs["card"],
+                     outs["cpu"], launched, want)
+
+
 def main():
     phase_environment()
     dev = torch.device("cuda", 0)
@@ -8157,6 +8860,22 @@ def main():
     wan_ckpt = phase_wan_checkpoint(dev)
     og_lora = phase_omnigen2_lora(dev)
     t_ckpt = time.time() - t0_ckpt
+    t0_new = time.time()
+    log("phase 90/91 model:")
+    model = make_os_model(dev)       # the same seed: phase 9's weights
+    os17 = phase_os_pab_routes(dev, rec, model)
+    os_pab_masked = phase_os_pab_masked(dev, model)
+    del model
+    torch.cuda.empty_cache()
+    log("phase 92/93 model:")
+    model = make_latte_model(dev)    # the same seed: phase 21's weights
+    latte_pab_grouped, latte_pab_vpu = phase_latte_pab_routes(dev, model)
+    latte_768 = phase_latte_768(dev, rec, model)
+    del model
+    torch.cuda.empty_cache()
+    phase_vae_halves(dev)
+    phase_narrow_pab_routes(dev)
+    t_new = time.time() - t0_new
     log(f"all phases passed in {time.time() - t0:.1f} s (Wan {t_wan:.1f} s, "
         f"Open-Sora {t_os:.1f} s, FLUX {t_flux:.1f} s, Open-Sora 720p "
         f"{t_os720:.1f} s, Latte {t_latte:.1f} s, Wan sequence-parallel {t_sp:.1f} s, "
@@ -8165,13 +8884,15 @@ def main():
         f"{t_pab:.1f} s, Open-Sora-Plan and CogVideoX {t_osp:.1f} s, Vchitect and the "
         f"Open-Sora-Plan and CogVideoX VAEs {t_vch:.1f} s, the SD and Open-Sora VAEs "
         f"and the requests ending in their pixels "
-        f"{time.time() - t0 - t_wan - t_os - t_flux - t_os720 - t_latte - t_sp - t_unpacked - t_ends - t_pab - t_osp - t_vch - t_i2v - t_w22 - t_hy - t_qi - t_og - t_serve - t_ckpt:.1f} s; "
+        f"{time.time() - t0 - t_wan - t_os - t_flux - t_os720 - t_latte - t_sp - t_unpacked - t_ends - t_pab - t_osp - t_vch - t_i2v - t_w22 - t_hy - t_qi - t_og - t_serve - t_ckpt - t_new:.1f} s; "
         f"the text encoders' phases 55-57, within those, {t_text:.1f} s; Wan I2V-14B and "
         f"FLF2V-14B, phases 58-62, {t_i2v:.1f} s; Wan2.2 TI2V-5B, VACE and the A14B MoE, "
         f"phases 63-69, {t_w22:.1f} s; HunyuanVideo and FramePack, phases 70-75, "
         f"{t_hy:.1f} s; Qwen-Image and Qwen-Image-Edit, phases 76-80, {t_qi:.1f} s; "
         f"OmniGen2, phases 81-85, {t_og:.1f} s; serving and the sweep, phases 86-87, "
-        f"{t_serve:.1f} s; published checkpoints and LoRA, phases 88-89, {t_ckpt:.1f} s)")
+        f"{t_serve:.1f} s; published checkpoints and LoRA, phases 88-89, {t_ckpt:.1f} s; "
+        f"PAB on every route and with masked frames, Latte at 768x768 and the VAE halves, "
+        f"phases 90-95, {t_new:.1f} s)")
 
     meta = {
         "flash_attention_bshd": ("cuda", "magcache_tpu_torch/csrc/hopper_attention.cuh",
@@ -8223,7 +8944,11 @@ def main():
              "framepack": framepack["framepack"], "framepack-f1": framepack["framepack-f1"],
              "qwen-image": qwen, "qwen-image-edit": qwen_edit, "omnigen2": og["t2i"],
              "omnigen2-edit": og["edit"], "wan-serve": serve, "wan-sweep": sweep,
-             "wan-ckpt": wan_ckpt, "omnigen2-lora": og_lora}
+             "wan-ckpt": wan_ckpt, "omnigen2-lora": og_lora,
+             "open-sora-pab-480p17": os17["packed"], "open-sora-pab-grouped": os17["grouped"],
+             "open-sora-pab-vpu": os17["vpu"], "open-sora-pab-masked": os_pab_masked,
+             "latte-pab-grouped": latte_pab_grouped, "latte-pab-vpu": latte_pab_vpu,
+             "latte-768": latte_768}
     kernels = []
     for name, (route, source, replaces) in meta.items():
         by_path = {p: c[name] for p, c in paths.items()}

@@ -7,14 +7,14 @@ package's Wan, STDiT3, FLUX, Latte, Open-Sora-Plan v1.2 and CogVideoX
 parameter pytrees, with their leaves as numpy arrays, into ``WanModel``,
 ``STDiT3Model``, ``FluxModel``, ``LatteModel``, ``OSPModel`` and
 ``CogVideoXModel`` state dicts; ``vchitect_params_from_numpy`` does the
-same for Vchitect-XL, and ``umt5_params_from_numpy``,
-``osp_vae_params_from_numpy`` and ``cogvideox_vae_params_from_numpy`` for
-the UMT5 encoder and the Open-Sora-Plan and CogVideoX VAEs' decoders, and
-``wan_vae_params_from_numpy``, ``sd_vae_params_from_numpy`` and
-``vae_temporal_params_from_numpy`` for the Wan VAE, the SD VAE and
-Open-Sora's temporal VAE, encoder and decoder, and
-``causal_vae_params_from_numpy`` for the causal VAE's encoder (Wan i2v's
-fallback); ``t5_params_from_flax`` for a T5 or mT5 encoder from the HF Flax
+same for Vchitect-XL, and ``umt5_params_from_numpy`` for the UMT5
+encoder, and ``osp_vae_params_from_numpy``,
+``cogvideox_vae_params_from_numpy``, ``wan_vae_params_from_numpy``,
+``sd_vae_params_from_numpy``, ``vae_temporal_params_from_numpy``,
+``causal_vae_params_from_numpy`` and ``image_vae_params_from_numpy`` for
+the Open-Sora-Plan, CogVideoX, Wan and SD VAEs, Open-Sora's temporal VAE,
+the causal 3-D VAE (Wan i2v's fallback) and the compact image VAE, encoder
+and decoder; ``t5_params_from_flax`` for a T5 or mT5 encoder from the HF Flax
 tree the JAX package's ``JaxT5Encoder`` runs, and
 ``clip_text_params_from_numpy`` and ``clip_vision_params_from_numpy`` for
 the CLIP text and vision towers; ``hunyuan_params_from_numpy`` for
@@ -54,7 +54,7 @@ from magcache_tpu_torch.models.qwen_image import QwenImageConfig
 from magcache_tpu_torch.models.qwen_vl import QwenVLVisionConfig
 from magcache_tpu_torch.models.stdit3 import STDiT3Config
 from magcache_tpu_torch.models.t5 import T5Config, UMT5Config
-from magcache_tpu_torch.models.vae import CausalVAEConfig
+from magcache_tpu_torch.models.vae import CausalVAEConfig, ImageVAEConfig
 from magcache_tpu_torch.models.vae_cogvideox import CogVideoXVAEConfig
 from magcache_tpu_torch.models.vae_osp import OSPVAEConfig
 from magcache_tpu_torch.models.vae_sd import SDVAEConfig
@@ -672,44 +672,61 @@ def _put_vae_tree(put, prefix: str, node) -> None:
 
 def causal_vae_params_from_numpy(tree: dict, cfg: CausalVAEConfig, device=None
                                  ) -> Dict[str, torch.Tensor]:
-    """State dict for ``CausalVAE(cfg)`` (its encoder, f32) from a numpy
-    causal-VAE pytree (the layout of ``magcache_tpu.models.vae.
-    init_causal_vae_params``: ``level{i}`` with ``blocks`` and ``down`` ``{conv,
-    tstride}``; the decoder is not ported and is left out)."""
+    """State dict for ``CausalVAE(cfg)`` (f32) from a numpy causal-VAE pytree
+    (the layout of ``magcache_tpu.models.vae.init_causal_vae_params``:
+    ``level{i}`` with ``blocks`` and the encoder's ``down`` or the decoder's
+    ``up`` ``{conv, tstride}``)."""
     sd: Dict[str, torch.Tensor] = {}
     put, _ = _putters(sd, device)
-    enc = tree["encoder"]
-    levels = [{"blocks": enc[f"level{i}"]["blocks"],
-               "down": enc[f"level{i}"]["down"] and enc[f"level{i}"]["down"]["conv"]}
-              for i in range(len(cfg.ch_mult))]
-    _put_vae_tree(put, "encoder", {"stem": enc["stem"], "levels": levels, "mid": enc["mid"],
-                                   "out_norm": enc["out_norm"], "out": enc["out"]})
+    for side, conv in (("encoder", "down"), ("decoder", "up")):
+        t = tree[side]
+        levels = [{"blocks": t[f"level{i}"]["blocks"],
+                   conv: t[f"level{i}"][conv] and t[f"level{i}"][conv]["conv"]}
+                  for i in range(len(cfg.ch_mult))]
+        _put_vae_tree(put, side, dict({k: v for k, v in t.items()
+                                       if not k.startswith("level")}, levels=levels))
+    return sd
+
+
+def image_vae_params_from_numpy(tree: dict, cfg: ImageVAEConfig, device=None
+                                ) -> Dict[str, torch.Tensor]:
+    """State dict for ``ImageVAE(cfg)`` (f32) from a numpy image-VAE pytree
+    (the layout of ``magcache_tpu.models.vae.init_image_vae_params``:
+    ``level{i}`` with ``blocks`` and ``down`` or ``up``)."""
+    sd: Dict[str, torch.Tensor] = {}
+    put, _ = _putters(sd, device)
+    for side in ("encoder", "decoder"):
+        t = tree[side]
+        levels = [t[f"level{i}"] for i in range(len(cfg.ch_mult))]
+        _put_vae_tree(put, side, dict({k: v for k, v in t.items()
+                                       if not k.startswith("level")}, levels=levels))
     return sd
 
 
 def osp_vae_params_from_numpy(tree: dict, cfg: OSPVAEConfig, device=None
                               ) -> Dict[str, torch.Tensor]:
-    """State dict for ``OSPCausalVAE(cfg)`` (the decoder and the post-quant
-    conv, f32) from a numpy Open-Sora-Plan CausalVAE pytree (the layout of
-    ``magcache_tpu.models.vae_osp.init_osp_vae_params``; its encoder is not
-    ported and is left out)."""
+    """State dict for ``OSPCausalVAE(cfg)`` (encoder, decoder and, with the
+    quant layer, both quant convs; f32) from a numpy Open-Sora-Plan
+    CausalVAE pytree (the layout of
+    ``magcache_tpu.models.vae_osp.init_osp_vae_params``)."""
     sd: Dict[str, torch.Tensor] = {}
     put, _ = _putters(sd, device)
-    if cfg.use_quant_layer:
-        _put_vae_tree(put, "post_quant_conv", tree["post_quant_conv"])
-    _put_vae_tree(put, "decoder", tree["decoder"])
+    names = ("encoder", "decoder") + (("quant_conv", "post_quant_conv")
+                                      if cfg.use_quant_layer else ())
+    for name in names:
+        _put_vae_tree(put, name, tree[name])
     return sd
 
 
 def cogvideox_vae_params_from_numpy(tree: dict, cfg: CogVideoXVAEConfig, device=None
                                     ) -> Dict[str, torch.Tensor]:
-    """State dict for ``CogVideoXVAE(cfg)`` (the decoder, f32) from a numpy
-    CogVideoX VAE pytree (the layout of ``magcache_tpu.models.vae_cogvideox.
-    init_cogvideox_vae_params``; its encoder is not ported and is left
-    out)."""
+    """State dict for ``CogVideoXVAE(cfg)`` (encoder and decoder, f32) from a
+    numpy CogVideoX VAE pytree (the layout of ``magcache_tpu.models.
+    vae_cogvideox.init_cogvideox_vae_params``)."""
     sd: Dict[str, torch.Tensor] = {}
     put, _ = _putters(sd, device)
-    _put_vae_tree(put, "decoder", tree["decoder"])
+    for side in ("encoder", "decoder"):
+        _put_vae_tree(put, side, tree[side])
     return sd
 
 

@@ -29,21 +29,27 @@ nor the device):
   dim 72 zero-padded to 128, running max); temporal attention through
   ``tiny_temporal_attention`` in that mode (K4 or K9); f32 gates.
 
+Frames of more than 2,048 tokens (768x768: 2,304) take the JAX unfused
+block on the packed route: K3, ``qkv``, ``attention()`` (K1) and ``proj``
+in the spatial blocks, K3, ``qkv``, K5r over groups of T and ``proj`` in the
+temporal ones, cross-attention through ``attention()``, the MLP K3 ->
+``ff1`` -> gelu -> ``ff2``, f32 gates; no K6, K7 or K8.
+
 The TPU's 128-lane head padding and its frame padding (``Tp``, ``Sg``) are
 not carried over: groups are T and S, and heads stay 72 wide. Dtypes: in a
 bf16 config the patch embedding and the block linears are bf16; the
 embedders, the modulation tables and the final layer stay f32, as the JAX
 parameters are.
 
-PAB (``make_latte_core(pab=, timesteps=)``, packed route, the JAX
-``_block(cached=...)``) runs every step unfused: spatial attention K3 ->
-qkv -> K5r -> ``proj``, temporal the same over groups of T, cross-attention
-``cross_q`` -> ``attention()`` (K1) -> ``cross_o``, the MLP K3 -> ``ff1`` ->
-gelu -> ``ff2``, f32 gates; each site replays its slot by the step's host
-mask, and the MLP slots follow the block-granular masks (refreshed only on
-save steps). Temporal blocks have no cross slot. Not ported (raise
-``NotImplementedError``): PAB on the "grouped" and "vpu" routes, and frames
-of more than 2,048 tokens (no published Latte configuration has them).
+PAB (``make_latte_core(pab=, timesteps=)``, the JAX ``_block(cached=...)``,
+on every route) runs every step on that composed block: spatial attention
+K3 -> qkv -> K5r (packed, up to 2,048 tokens) or ``attention()`` ->
+``proj``, temporal K3 -> qkv -> K5r (packed) or ``tiny_temporal_attention``
+(K4 / K9) -> ``proj``, cross-attention ``cross_q`` -> ``attention()`` (K1)
+-> ``cross_o``, the MLP K3 -> ``ff1`` -> gelu -> ``ff2``, f32 gates; each
+site replays its slot by the step's host mask, and the MLP slots follow the
+block-granular masks (refreshed only on save steps). Temporal blocks have
+no cross slot.
 """
 
 from __future__ import annotations
@@ -61,7 +67,8 @@ from magcache_tpu_torch.core.pab import broadcast_masks, mlp_skip_masks
 from magcache_tpu_torch.core.sampler import DiTCore
 from magcache_tpu_torch.models.common import (DTYPES, embedder_linears, init_linear_,
                                               timestep_embedding)
-from magcache_tpu_torch.models.stdit3 import ROUTES, _pab_site, pab_slots, pos_embed_2d
+from magcache_tpu_torch.models.stdit3 import (MAX_GROUP_TOKENS, ROUTES, _pab_site, pab_slots,
+                                              pos_embed_2d)
 from magcache_tpu_torch.ops.attention import (attention, fused_cross_attention,
                                               grouped_attention_fused_qkv)
 from magcache_tpu_torch.ops.fused_prologue import (layer_norm_mod, lnmod_matmul,
@@ -72,8 +79,6 @@ from magcache_tpu_torch.ops.tiny_attention import tiny_temporal_attention
 
 __all__ = ["LatteConfig", "LatteModel", "LATTE_1", "ROUTES", "latte_pab_masks",
            "make_latte_core"]
-
-MAX_FRAME_TOKENS = 2048
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,13 +144,11 @@ class LatteBlock(nn.Module):
         """One block on ``h`` ``[rows, T*S, d]``. ``pab``: ``(slots, reuse,
         save_mlp)``, the block's PAB slots (``"attn"``, ``"cross"``,
         ``"mlp"`` -> ``[rows, T*S, d]`` or absent), this step's reuse bits
-        per site and whether the MLP slot refreshes (packed route)."""
+        per site and whether the MLP slot refreshes."""
         e = (self.scale_shift[None] + t6).float()          # [rows, 6, d]
-        if pab is not None:
-            return self._pab(h, e, y, grid, *pab)
-        if route == "packed":
+        if pab is None and route == "packed" and grid[1] * grid[2] <= MAX_GROUP_TOKENS:
             return self._packed(h, e, y, grid)
-        return self._unpacked(h, e, y, grid, route)
+        return self._composed(h, e, y, grid, route, pab)
 
     def _packed(self, h, e, y, grid):
         cfg = self.cfg
@@ -179,10 +182,18 @@ class LatteBlock(nn.Module):
                           act="gelu", eps=cfg.eps)
         return matmul_gated_residual(y1, self.ff2.weight, self.ff2.bias, g_m, h)
 
-    def _pab(self, h, e, y, grid, slots: dict, reuse: dict, save_mlp: bool):
-        """The PAB block (JAX ``_block(cached=...)`` on the packed route):
-        outputs cached before their gates, gates in f32, the MLP slot
-        written only on save steps."""
+    def _composed(self, h, e, y, grid, route, pab=None):
+        """The block as its sites and f32 gates (JAX ``_block`` off its fused
+        packed path): the unpacked routes, packed frames above 2,048 tokens
+        and PAB on every route. Each branch starts with K3; spatial
+        attention runs K5r with one group per frame on the packed route up
+        to 2,048 tokens, else ``attention()`` (K1); temporal attention K5r
+        over groups of T on the packed route, else ``tiny_temporal_attention``
+        in the route's mode (K4 or K9); cross-attention ``cross_q`` ->
+        ``attention()`` -> ``cross_o``; the MLP ``ff1`` -> gelu -> ``ff2``.
+        Under ``pab`` each site replays its slot where the step's reuse bit
+        says so, else computes; outputs are cached before their gates and
+        the MLP slot is written only on save steps."""
         cfg = self.cfg
         rows, n, d = h.shape
         t, s = grid[0], grid[1] * grid[2]
@@ -192,59 +203,42 @@ class LatteBlock(nn.Module):
         def heads(x):
             return x.unflatten(-1, (cfg.heads, cfg.head_dim))
 
-        def attn():
-            xn = layer_norm_mod(h, scale=sc_a, shift=sh_a, eps=cfg.eps)
+        def attn(x):
+            xn = layer_norm_mod(x, scale=sc_a, shift=sh_a, eps=cfg.eps)
             if self.cross:
                 qkv = self.qkv(xn.reshape(rows * t, s, d))
-                o = grouped_attention_fused_qkv(qkv, cfg.heads, group=s, **attn_kw)
+                if route == "packed" and s <= MAX_GROUP_TOKENS:
+                    o = grouped_attention_fused_qkv(qkv, cfg.heads, group=s, **attn_kw)
+                else:
+                    o = attention(*(heads(p) for p in qkv.chunk(3, -1))).reshape(rows * t, s, d)
                 return self.proj(o).reshape(rows, n, d)
-            xr = xn.reshape(rows, t, s, d).transpose(1, 2).reshape(rows * s, t, d)
-            o = grouped_attention_fused_qkv(self.qkv(xr).reshape(1, rows * s * t, 3 * d),
-                                            cfg.heads, group=t, **attn_kw)
-            a = self.proj(o.reshape(rows * s, t, d))
-            return a.reshape(rows, s, t, d).transpose(1, 2).reshape(rows, n, d)
+            qkv = self.qkv(xn.reshape(rows, t, s, d).transpose(1, 2).reshape(rows * s, t, d))
+            if route == "packed":
+                o = grouped_attention_fused_qkv(qkv.reshape(1, rows * s * t, 3 * d),
+                                                cfg.heads, group=t, **attn_kw)
+                o = o.reshape(rows * s, t, d)
+            else:
+                o = tiny_temporal_attention(qkv, None, None, None, None, cfg.heads,
+                                            mode=route)
+            return self.proj(o).reshape(rows, s, t, d).transpose(1, 2).reshape(rows, n, d)
 
-        def cross():
+        def cross(x):
             k, v = (heads(p) for p in self.cross_kv(y).chunk(2, -1))
-            return self.cross_o(attention(heads(self.cross_q(h)), k, v).reshape(rows, n, d))
+            return self.cross_o(attention(heads(self.cross_q(x)), k, v).reshape(rows, n, d))
 
-        def mlp():
-            xm = layer_norm_mod(h, scale=sc_m, shift=sh_m, eps=cfg.eps)
+        def mlp(x):
+            xm = layer_norm_mod(x, scale=sc_m, shift=sh_m, eps=cfg.eps)
             return self.ff2(F.gelu(self.ff1(xm), approximate="tanh"))
 
-        a = _pab_site(slots, reuse, "attn", attn)
+        def site(kind, compute, save=True):
+            return compute() if pab is None else _pab_site(pab[0], pab[1], kind, compute, save)
+
+        a = site("attn", lambda: attn(h))
         h = h + (g_a[:, None] * a.float()).to(h.dtype)
         if self.cross:
-            h = h + _pab_site(slots, reuse, "cross", cross)
-        mo = _pab_site(slots, reuse, "mlp", mlp, save=save_mlp)
+            h = h + site("cross", lambda: cross(h))
+        mo = site("mlp", lambda: mlp(h), save=pab is not None and pab[2])
         return h + (g_m[:, None] * mo.float()).to(h.dtype)
-
-    def _unpacked(self, h, e, y, grid, mode):
-        cfg = self.cfg
-        rows, n, d = h.shape
-        t, s = grid[0], grid[1] * grid[2]
-        sh_a, sc_a, g_a, sh_m, sc_m, g_m = e[:, :, None].unbind(1)   # [rows, 1, d]
-
-        def heads(x):
-            return x.unflatten(-1, (cfg.heads, cfg.head_dim))
-
-        xn = layer_norm_mod(h, scale=sc_a, shift=sh_a, eps=cfg.eps)
-        if self.cross:
-            q, k, v = (heads(p) for p in self.qkv(xn.reshape(rows * t, s, d)).chunk(3, -1))
-            a = self.proj(attention(q, k, v).reshape(rows * t, s, d)).reshape(rows, n, d)
-        else:
-            xr = xn.reshape(rows, t, s, d).transpose(1, 2).reshape(rows * s, t, d)
-            o = tiny_temporal_attention(self.qkv(xr), None, None, None, None,
-                                        cfg.heads, mode=mode)
-            a = self.proj(o).reshape(rows, s, t, d).transpose(1, 2).reshape(rows, n, d)
-        h = h + (g_a * a.float()).to(h.dtype)
-        if self.cross:
-            k, v = (heads(p) for p in self.cross_kv(y).chunk(2, -1))
-            c = attention(heads(self.cross_q(h)), k, v).reshape(rows, n, d)
-            h = h + self.cross_o(c)
-        xm = layer_norm_mod(h, scale=sc_m, shift=sh_m, eps=cfg.eps)
-        mo = self.ff2(F.gelu(self.ff1(xm), approximate="tanh"))
-        return h + (g_m * mo.float()).to(h.dtype)
 
 
 class LatteModel(nn.Module):
@@ -314,7 +308,7 @@ def make_latte_core(model: LatteModel, grid: Tuple[int, int, int],
     C channels (the variance half of an 8-channel head is dropped).
     ``route``: "packed", "grouped" or "vpu" (module docstring).
 
-    ``pab`` (``core.pab.PABConfig``, packed route) with the sampler's
+    ``pab`` (``core.pab.PABConfig``, any route) with the sampler's
     ``timesteps`` makes a stateful core: ``trunk(hidden, ctx, state,
     step_idx)`` reuses by ``broadcast_masks`` and, for the MLPs,
     ``mlp_skip_masks`` per block at ``step_idx`` (-1: full compute);
@@ -328,16 +322,9 @@ def make_latte_core(model: LatteModel, grid: Tuple[int, int, int],
         raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
     masks = None
     if pab is not None:
-        if route != "packed":
-            raise NotImplementedError(
-                f"PAB on the {route!r} route is not ported yet (packed only)")
         if timesteps is None:
             raise ValueError("PAB needs the sampling timesteps")
         masks = latte_pab_masks(pab, timesteps, cfg.depth)
-    if s > MAX_FRAME_TOKENS:
-        raise NotImplementedError(
-            f"Latte frames of {s} tokens (> {MAX_FRAME_TOKENS}) are not ported: no "
-            "published Latte configuration has them")
     device = model.patch_embed.weight.device
     dt = cfg.torch_dtype
     pos2d = torch.from_numpy(pos_embed_2d(d, gh, gw)).to(device)

@@ -35,8 +35,8 @@ the environment nor the device):
 
 Masked-frame conditioning (``cond["x_mask"]``, bool ``[rows, T]``: True
 frames take the step's modulation, False ones the t = 0 modulation) runs the
-unfused composition of its route instead: plain LayerNorm, both modulations
-and a per-frame select; the qkv projection as ``nn.Linear``; the route's
+composed block of its route instead: plain LayerNorm, both modulations and
+a per-frame select; the qkv projection as ``nn.Linear``; the route's
 attention (packed: K5 or K1q, and K6 with the residual; unpacked as above);
 the projection; per-frame gates; an unfused MLP (linear, tanh-gelu,
 linear); and the head's per-frame select between the two final modulations.
@@ -47,16 +47,20 @@ p to 0; the port does not carry that over): packed K5r ("tma" route) for
 frames of at most 2,048 tokens, K1 through ``attention()`` above that, K5r's
 "stream" route with RoPE and no norm in the temporal blocks.
 
-PAB (``make_stdit3_core(pab=, timesteps=)``, packed route, the JAX
-``_block(cached=...)``): every step runs the unfused-epilogue block, whose
-three sites each either compute or replay the block's slot of the trunk
-state by the step's host mask: spatial attention K7 -> K5 (K1q above 2,048
-tokens) -> ``proj``, temporal K3 -> qkv -> K5 -> ``proj``, cross-attention
-K6 without the residual, the MLP K7 with gelu -> ``mlp2``; each site's
-output is cached before its gate, and the gates and residuals run in f32
-(no K8: its fused epilogue rounds elsewhere). The state holds one
-``[depth, rows, N, d]`` tensor per slot that some mask can read. PAB on the
-"grouped" and "vpu" routes and with masked frames raises.
+PAB (``make_stdit3_core(pab=, timesteps=)``, the JAX ``_block(cached=...)``,
+on every route and with masked frames): every step runs the composed block,
+whose three sites each either compute or replay the block's slot of the
+trunk state by the step's host mask. On the packed route: spatial attention
+K7 -> K5 (K1q above 2,048 tokens) -> ``proj``, temporal K3 -> qkv -> K5 ->
+``proj``, cross-attention K6 without the residual, the MLP K7 with gelu ->
+``mlp2``; on "grouped" and "vpu" the sites of their composition (K3 ->
+``attention()`` or ``tiny_temporal_attention`` -> ``proj``; ``cross_q`` ->
+``attention()`` -> ``cross_o``; K7 -> ``mlp2``); with masked frames the
+masked modulations, K6 without the residual on the packed route and the
+unfused MLP. Each site's output is cached before its gate, and the gates
+and residuals run in f32 (no K8: its fused epilogue rounds elsewhere). The
+state holds one ``[depth, rows, N, d]`` tensor per slot that some mask can
+read.
 
 Dtypes: in a bf16 config the block linears are bf16; the embedders, the
 modulation tables, the qk-norm gains and the final layer stay f32, as the
@@ -204,19 +208,19 @@ class STDiT3Block(nn.Module):
         ``rope``: the frame tables ``[T, D/2]`` (temporal blocks). ``pab``:
         ``(slots, reuse)``, the block's PAB slots (``"attn"``, ``"cross"``,
         ``"mlp"`` -> ``[rows, T*S, d]`` or absent) and this step's reuse
-        bits per site (packed route)."""
+        bits per site."""
+        e = (self.scale_shift[None] + t6).float()          # [rows, 6, d]
+        if pab is None and x_mask is None and route == "packed":
+            return self._packed(h, e, y, grid, temporal, rope)
+        e0 = None if x_mask is None else (self.scale_shift[None] + t6_zero).float()
+        return self._composed(h, e, e0, y, x_mask, grid, temporal, rope, route, pab)
+
+    def _packed(self, h, e, y, grid, temporal, rope) -> torch.Tensor:
+        """The fused packed block: K7/K3, K5 (K1q), K8, K6 with the residual,
+        K7 with gelu, K8."""
         cfg = self.cfg
         rows, n, d = h.shape
-        t, hh, ww = grid
-        s = hh * ww
-        e = (self.scale_shift[None] + t6).float()          # [rows, 6, d]
-        if pab is not None:
-            return self._pab(h, e, y, grid, temporal, rope, *pab)
-        if x_mask is not None:
-            e0 = (self.scale_shift[None] + t6_zero).float()
-            return self._masked(h, e, e0, y, x_mask, grid, temporal, rope, route)
-        if route != "packed":
-            return self._unpacked(h, e, y, grid, temporal, rope, route)
+        t, s = grid[0], grid[1] * grid[2]
         sh_a, sc_a, g_a, sh_m, sc_m, g_m = e.unbind(1)
         if temporal:
             xn = layer_norm_mod(h, scale=sc_a, shift=sh_a, eps=cfg.eps)
@@ -290,48 +294,87 @@ class STDiT3Block(nn.Module):
             self.cfg.heads, scale=1.0 / math.sqrt(self.cfg.head_dim),
             true_d=self.cfg.head_dim, residual=residual)
 
-    def _pab(self, h, e, y, grid, temporal, rope, slots: dict, reuse: dict):
-        """The PAB block (JAX ``_block(cached=...)`` on the packed route): each
-        site replays its slot where ``reuse`` says so, else computes (and
-        refreshes the slot); outputs are cached before their gates, which
-        run in f32."""
+    def _composed(self, h, e, e0, y, x_mask, grid, temporal, rope, route,
+                  pab: Optional[Tuple[dict, dict]]) -> torch.Tensor:
+        """The block as three sites and two f32 gates (JAX ``_block`` off
+        its fused packed path): the unpacked routes, masked frames and PAB,
+        on every route. Under ``pab`` each site replays its slot where the
+        step's ``reuse`` bit says so, else computes (and refreshes the
+        slot); outputs are cached before their gates.
+
+        - attention: the unpacked routes K3 (or the masked modulation) and
+          ``_unpacked_attn``; packed temporal the same into K5 over groups
+          of T; packed spatial K7 (masked: the modulation and ``qkv``) into
+          K5 (K1q above 2,048 tokens); then ``proj``;
+        - cross-attention: packed K6 (without the residual under PAB), the
+          unpacked routes ``_unpacked_cross``;
+        - the MLP: K7 with gelu, then ``mlp2``; with masked frames the
+          modulation, ``mlp1``, tanh-gelu, ``mlp2``.
+
+        With ``x_mask`` each modulation and gate takes the step's values
+        (``e``) on frames where it is True and the t = 0 values (``e0``)
+        elsewhere."""
         cfg = self.cfg
         rows, n, d = h.shape
         t, s = grid[0], grid[1] * grid[2]
-        sh_a, sc_a, g_a, sh_m, sc_m, g_m = e.unbind(1)
+        packed = route == "packed"
+        mods = e.unbind(1)                          # sh_a, sc_a, g_a, sh_m, sc_m, g_m
+        zero = None if x_mask is None else e0.unbind(1)
 
-        def attn():
+        def modulate(x, i):
+            """The modulation at ``(shift, scale) = mods[i], mods[i + 1]``."""
+            sh, sc = mods[i], mods[i + 1]
+            if x_mask is None:
+                return layer_norm_mod(x, scale=sc, shift=sh, eps=cfg.eps)
+            # bf16 LayerNorm times f32 modulations is f32, as in JAX
+            nx = layer_norm(x, eps=cfg.eps)
+            z_sh, z_sc = zero[i][:, None], zero[i + 1][:, None]
+            return _tmask_select(x_mask, nx * (1 + sc[:, None]) + sh[:, None],
+                                 nx * (1 + z_sc) + z_sh, t).to(x.dtype)
+
+        def gated(x, res, i):
+            """``x`` plus ``res`` under the gate ``mods[i]``, in f32."""
+            r = res.float()
+            g = mods[i][:, None] * r
+            if x_mask is not None:
+                g = _tmask_select(x_mask, g, zero[i][:, None] * r, t)
+            return x + g.to(x.dtype)
+
+        def attn(x):
+            if not packed:
+                return self._unpacked_attn(modulate(x, 0), grid, temporal, rope, route)
             if temporal:
-                xn = layer_norm_mod(h, scale=sc_a, shift=sh_a, eps=cfg.eps)
-                a = self.proj(self._temporal_attn(xn, grid, rope))
+                a = self.proj(self._temporal_attn(modulate(x, 0), grid, rope))
                 return a.reshape(rows, s, t, d).transpose(1, 2).reshape(rows, n, d)
-            qkv = lnmod_matmul(h.reshape(rows * t, s, d), sc_a, sh_a, self.qkv.weight,
-                               self.qkv.bias, eps=cfg.eps, batch_repeat=t)
+            if x_mask is None:
+                qkv = lnmod_matmul(x.reshape(rows * t, s, d), mods[1], mods[0],
+                                   self.qkv.weight, self.qkv.bias, eps=cfg.eps,
+                                   batch_repeat=t)
+            else:
+                qkv = self.qkv(modulate(x, 0).reshape(rows * t, s, d))
             return self.proj(self._spatial_attn(qkv)).reshape(rows, n, d)
 
-        def mlp():
-            return self.mlp2(lnmod_matmul(h, sc_m, sh_m, self.mlp1.weight,
-                                          self.mlp1.bias, act="gelu", eps=cfg.eps))
+        def cross(x, residual):
+            if packed:
+                return self._cross(x, y, residual=residual)
+            c = self._unpacked_cross(x, y)
+            return x + c if residual else c
 
-        a = _pab_site(slots, reuse, "attn", attn)
-        h = h + (g_a[:, None] * a.float()).to(h.dtype)
-        h = h + _pab_site(slots, reuse, "cross", lambda: self._cross(h, y, residual=False))
-        mo = _pab_site(slots, reuse, "mlp", mlp)
-        return h + (g_m[:, None] * mo.float()).to(h.dtype)
+        def mlp(x):
+            if x_mask is None:
+                return self.mlp2(lnmod_matmul(x, mods[4], mods[3], self.mlp1.weight,
+                                              self.mlp1.bias, act="gelu", eps=cfg.eps))
+            return self.mlp2(F.gelu(self.mlp1(modulate(x, 3)), approximate="tanh"))
 
-    def _unpacked(self, h, e, y, grid, temporal, rope, route) -> torch.Tensor:
-        """The unpacked block (JAX ``_block`` with ``packed=False``): K3,
-        the route's attention, the f32 gate; cross-attention through
-        ``attention()``; K7 with gelu, ``mlp2`` and the f32 gate."""
-        cfg = self.cfg
-        sh_a, sc_a, g_a, sh_m, sc_m, g_m = e.unbind(1)       # [rows, d]
-        xn = layer_norm_mod(h, scale=sc_a, shift=sh_a, eps=cfg.eps)
-        a = self._unpacked_attn(xn, grid, temporal, rope, route)
-        h = h + (g_a[:, None] * a.float()).to(h.dtype)
-        h = self._unpacked_cross(h, y)
-        mo = self.mlp2(lnmod_matmul(h, sc_m, sh_m, self.mlp1.weight, self.mlp1.bias,
-                                    act="gelu", eps=cfg.eps))
-        return h + (g_m[:, None] * mo.float()).to(h.dtype)
+        def site(kind, compute):
+            return compute() if pab is None else _pab_site(*pab, kind, compute)
+
+        h = gated(h, site("attn", lambda: attn(h)), 2)
+        if pab is None:
+            h = cross(h, True)
+        else:
+            h = h + site("cross", lambda: cross(h, False))
+        return gated(h, site("mlp", lambda: mlp(h)), 5)
 
     def _unpacked_attn(self, xn, grid, temporal, rope, route) -> torch.Tensor:
         """The unpacked self-attention branch on the modulated ``xn``
@@ -355,8 +398,8 @@ class STDiT3Block(nn.Module):
         return self.proj(o.reshape(rows * t, s, d)).reshape(rows, n, d)
 
     def _unpacked_cross(self, h: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        """Cross-attention to the caption through ``attention()`` (running
-        max), with the residual."""
+        """The cross-attention branch to the caption through ``attention()``
+        (running max), without the residual."""
         cfg = self.cfg
         rows, n, d = h.shape
 
@@ -364,47 +407,7 @@ class STDiT3Block(nn.Module):
             return x.unflatten(-1, (cfg.heads, cfg.head_dim))
 
         k, v = (heads(p) for p in self.cross_kv(y).chunk(2, -1))
-        c = attention(heads(self.cross_q(h)), k, v).reshape(rows, n, d)
-        return h + self.cross_o(c)
-
-    def _masked(self, h, e, e0, y, x_mask, grid, temporal, rope, route) -> torch.Tensor:
-        """The masked-frame block (JAX ``_block`` with ``x_mask``): each
-        modulation and gate takes the step's values on frames where
-        ``x_mask`` is True and the t = 0 values elsewhere; attention and
-        cross-attention as ``route`` runs them."""
-        cfg = self.cfg
-        rows, n, d = h.shape
-        t, hh, ww = grid
-        s = hh * ww
-        sh_a, sc_a, g_a, sh_m, sc_m, g_m = e[:, :, None].unbind(1)  # [rows, 1, d]
-        z = e0[:, :, None].unbind(1)
-
-        def select(a, b):
-            return _tmask_select(x_mask, a, b, t)
-
-        def modulate(x, sh, sc, z_sh, z_sc):
-            # bf16 LayerNorm times f32 modulations is f32, as in JAX
-            nx = layer_norm(x, eps=cfg.eps)
-            return select(nx * (1 + sc) + sh, nx * (1 + z_sc) + z_sh).to(x.dtype)
-
-        def gated(x, res, g, z_g):
-            r = res.float()
-            return x + select(g * r, z_g * r).to(x.dtype)
-
-        xn = modulate(h, sh_a, sc_a, z[0], z[1])
-        if route != "packed":
-            a = self._unpacked_attn(xn, grid, temporal, rope, route)
-        elif temporal:
-            a = self.proj(self._temporal_attn(xn, grid, rope))
-            a = a.reshape(rows, s, t, d).transpose(1, 2).reshape(rows, n, d)
-        else:
-            a = self.proj(self._spatial_attn(self.qkv(xn.reshape(rows * t, s, d))))
-            a = a.reshape(rows, n, d)
-        h = gated(h, a, g_a, z[2])
-        h = self._cross(h, y) if route == "packed" else self._unpacked_cross(h, y)
-        xm = modulate(h, sh_m, sc_m, z[3], z[4])
-        mo = self.mlp2(F.gelu(self.mlp1(xm), approximate="tanh"))
-        return gated(h, mo, g_m, z[5])
+        return self.cross_o(attention(heads(self.cross_q(h)), k, v).reshape(rows, n, d))
 
 
 def _pab_site(slots: dict, reuse: dict, kind: str, compute,
@@ -504,7 +507,7 @@ def make_stdit3_core(model: STDiT3Model, grid: Tuple[int, int, int], *,
     round(sqrt(S)). ``route``: "packed", "grouped" or "vpu" (module
     docstring).
 
-    ``pab`` (``core.pab.PABConfig``, packed route) with the sampler's
+    ``pab`` (``core.pab.PABConfig``, any route) with the sampler's
     ``timesteps`` makes a stateful core: ``trunk(hidden, ctx, state,
     step_idx)`` reuses each site by ``broadcast_masks(pab, timesteps)`` at
     ``step_idx`` (-1: full compute) and ``init_state`` allocates the slots
@@ -517,9 +520,6 @@ def make_stdit3_core(model: STDiT3Model, grid: Tuple[int, int, int], *,
         raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
     masks = None
     if pab is not None:
-        if route != "packed":
-            raise NotImplementedError(
-                f"PAB on the {route!r} route is not ported yet (packed only)")
         if timesteps is None:
             raise ValueError("PAB needs the sampling timesteps")
         masks = broadcast_masks(pab, timesteps)
@@ -582,19 +582,18 @@ def make_stdit3_core(model: STDiT3Model, grid: Tuple[int, int, int], *,
 
     @torch.inference_mode()
     def trunk_pab(hidden, ctx, state, step_idx):
-        if "x_mask" in ctx:
-            raise NotImplementedError("PAB with masked frames (x_mask: references, "
-                                      "loops) is not ported yet")
         full = not 0 <= step_idx < len(masks["spatial"])
         bit = {k: (not full) and bool(m[step_idx]) for k, m in masks.items()}
+        kw = dict(grid=grid, route=route, x_mask=ctx.get("x_mask"),
+                  t6_zero=ctx.get("t6_zero"))
         h = hidden
         for i, (sp, tp) in enumerate(zip(model.spatial, model.temporal)):
             for blk, br, kind in ((sp, "sp", "spatial"), (tp, "tp", "temporal")):
                 slots = {site: state[f"{br}_{site}"][i] for site in ("attn", "cross", "mlp")
                          if f"{br}_{site}" in state}
                 reuse = {"attn": bit[kind], "cross": bit["cross"], "mlp": bit["mlp"]}
-                h = blk(h, ctx["t6"], ctx["y"], grid=grid, temporal=br == "tp",
-                        rope=rope if br == "tp" else None, pab=(slots, reuse))
+                h = blk(h, ctx["t6"], ctx["y"], temporal=br == "tp",
+                        rope=rope if br == "tp" else None, pab=(slots, reuse), **kw)
         return h, state
 
     @torch.inference_mode()

@@ -1,8 +1,16 @@
-"""CogVideoX's causal 3-D VAE decoder as PyTorch modules (the decode side of
-``magcache_tpu.models.vae_cogvideox``; reference ``videosys/models/
-autoencoders/autoencoder_kl_cogvideox.py``).
+"""CogVideoX's causal 3-D VAE as PyTorch modules (``magcache_tpu.models.
+vae_cogvideox``; reference ``videosys/models/autoencoders/
+autoencoder_kl_cogvideox.py``).
 
-``conv_in``, two mid resnets, then per up block (deepest first)
+The encoder: ``conv_in``, per down block ``layers_per_block`` resnets on
+plain GroupNorm and, on every block but the last, a downsample (on the
+first ``log2(temporal_compression)`` blocks a mean over pairs of frames, an
+odd frame count keeping frame 0 apart; then a per-frame 3x3 conv at stride
+2 after a zero row and column at the bottom and right), two mid resnets,
+GroupNorm -> SiLU -> ``conv_out`` to the moments (mean, logvar); the whole
+clip in one pass, as JAX encodes it.
+
+The decoder: ``conv_in``, two mid resnets, then per up block (deepest first)
 ``layers_per_block + 1`` resnets and, on every block but the last, an
 upsample: nearest 2x in (t, h, w) on the first ``log2(temporal_compression)``
 blocks (an odd frame count keeps frame 0 at one frame, resized in space
@@ -25,11 +33,10 @@ sliced decode is not the whole-clip ``decode``.
 
 NCDHW inside; latents ``[B, F, H, W, C]`` and pixels ``[B, F, H, W, 3]`` f32
 at the API; every weight and activation f32 (the JAX module's). Latents are
-unscaled: the pipeline divides by ``cfg.scaling_factor``. The encoder is
-not ported; ``models.convert.cogvideox_vae_params_from_numpy`` carries the
-JAX tree's decoder over, and ``load_cogvideox_vae_checkpoint`` reads a
-diffusers ``AutoencoderKLCogVideoX`` checkpoint
-(``convert_cogvideox_vae_state_dict``; the decoder is kept).
+unscaled: the pipeline divides by ``cfg.scaling_factor``.
+``models.convert.cogvideox_vae_params_from_numpy`` carries the JAX tree
+over, and ``load_cogvideox_vae_checkpoint`` reads a diffusers
+``AutoencoderKLCogVideoX`` checkpoint (``convert_cogvideox_vae_state_dict``).
 """
 
 from __future__ import annotations
@@ -83,10 +90,25 @@ def _conv(x: torch.Tensor, conv: nn.Conv3d, cache=None):
     return causal_conv3d(x, conv.weight, conv.bias, tcache=cache)
 
 
-def _conv2d_frames(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
-    """A 'same' Conv2d on every frame of ``x [B, C, T, H, W]``."""
+def _conv2d_frames(x: torch.Tensor, conv: nn.Conv2d, down: bool = False) -> torch.Tensor:
+    """A 'same' Conv2d on every frame of ``x [B, C, T, H, W]``; ``down``: at
+    stride 2 after one zero row and column at the bottom and right."""
     kh, kw = conv.weight.shape[2:]
+    if down:
+        return F.conv3d(F.pad(x, (0, 1, 0, 1)), conv.weight.unsqueeze(2), conv.bias,
+                        stride=(1, 2, 2))
     return F.conv3d(x, conv.weight.unsqueeze(2), conv.bias, padding=(0, kh // 2, kw // 2))
+
+
+def _time_avgpool2(x: torch.Tensor) -> torch.Tensor:
+    """compress_time downsample: the mean of each pair of frames; an odd frame
+    count keeps frame 0 as it is."""
+    if x.shape[2] % 2 == 1:
+        rest = x[:, :, 1:]
+        if rest.shape[2]:
+            rest = (rest[:, :, 0::2] + rest[:, :, 1::2]) / 2.0
+        return torch.cat([x[:, :, :1], rest], dim=2)
+    return (x[:, :, 0::2] + x[:, :, 1::2]) / 2.0
 
 
 def _nearest_x2(x: torch.Tensor, dims) -> torch.Tensor:
@@ -125,12 +147,42 @@ class SpatialNorm(nn.Module):
 
 
 class ResNet(nn.Module):
+    """Two causal convs behind norms: the decoder's spatial norms on ``zc``
+    latent channels, the encoder's plain GroupNorm (``zc`` None)."""
+
     def __init__(self, cin, cout, zc, device):
         super().__init__()
         self.conv1 = nn.Conv3d(cin, cout, 3, device=device)
         self.conv2 = nn.Conv3d(cout, cout, 3, device=device)
-        self.norm1, self.norm2 = SpatialNorm(cin, zc, device), SpatialNorm(cout, zc, device)
+        if zc is None:
+            self.norm1, self.norm2 = GroupNormAffine(cin, device), GroupNormAffine(cout, device)
+        else:
+            self.norm1 = SpatialNorm(cin, zc, device)
+            self.norm2 = SpatialNorm(cout, zc, device)
         self.shortcut = nn.Conv3d(cin, cout, 1, device=device) if cin != cout else None
+
+
+class DownBlock(nn.Module):
+    def __init__(self, cin, cout, n, last, device):
+        super().__init__()
+        self.resnets = nn.ModuleList(ResNet(cin if j == 0 else cout, cout, None, device)
+                                     for j in range(n))
+        self.down = None if last else nn.Conv2d(cout, cout, 3, device=device)
+
+
+class Encoder(nn.Module):
+    def __init__(self, cfg: CogVideoXVAEConfig, device):
+        super().__init__()
+        chs = cfg.block_out_channels
+        self.conv_in = nn.Conv3d(cfg.in_channels, chs[0], 3, device=device)
+        cin = chs[0]
+        for i, cout in enumerate(chs):
+            self.add_module(f"down{i}", DownBlock(cin, cout, cfg.layers_per_block,
+                                                  i == len(chs) - 1, device))
+            cin = cout
+        self.mid = nn.ModuleList(ResNet(chs[-1], chs[-1], None, device) for _ in range(2))
+        self.norm_out = GroupNormAffine(chs[-1], device)
+        self.conv_out = nn.Conv3d(chs[-1], 2 * cfg.z_channels, 3, device=device)
 
 
 class UpBlock(nn.Module):
@@ -157,14 +209,17 @@ class Decoder(nn.Module):
 
 
 class CogVideoXVAE(nn.Module):
-    """Latents ``[B, F, H, W, z]`` -> pixels ``[B, F', 8H, 8W, 3]`` f32. Build
-    on ``device``, then ``init(generator)`` for random weights or
-    ``load_state_dict`` (``models/convert.py``)."""
+    """Pixels ``[B, F, H, W, 3]`` -> (mean, logvar) ``[B, F_lat, H/8, W/8,
+    z]`` -> pixels ``[B, F', H, W, 3]``, f32. Build on ``device``, then
+    ``init(generator)`` for random weights or ``load_state_dict``
+    (``models/convert.py``)."""
 
     def __init__(self, cfg: CogVideoXVAEConfig, device=None):
         super().__init__()
         self.cfg = cfg
         self.decoder = Decoder(cfg, device)
+        # after the decoder: the decoder's random draws do not depend on it
+        self.encoder = Encoder(cfg, device)
 
     def init(self, generator: torch.Generator) -> "CogVideoXVAE":
         """Random weights from ``generator`` (on its device), drawn as
@@ -173,6 +228,12 @@ class CogVideoXVAE(nn.Module):
         norms."""
         init_convs_(self, generator)
         return self
+
+    def _norm(self, f, zq, m, caches: dict, name: str):
+        """The decoder's spatial norm on ``zq``, or (``zq`` None) GroupNorm."""
+        if zq is None:
+            return group_norm(f, m.weight, m.bias, self.cfg.groups, self.cfg.eps)
+        return self._spatial_norm(f, zq, m, caches, name)
 
     def _spatial_norm(self, f, zq, m: SpatialNorm, caches: dict, name: str):
         ft, fh, fw = f.shape[2:]
@@ -187,13 +248,35 @@ class CogVideoXVAE(nn.Module):
         return group_norm(f, m.norm.weight, m.norm.bias, cfg.groups, cfg.eps) * y + b
 
     def _resnet(self, r: ResNet, x, zq, caches: dict, name: str):
-        h = F.silu(self._spatial_norm(x, zq, r.norm1, caches, name + "/n1"))
+        h = F.silu(self._norm(x, zq, r.norm1, caches, name + "/n1"))
         h, caches[name + "/c1"] = _conv(h, r.conv1, caches.get(name + "/c1"))
-        h = F.silu(self._spatial_norm(h, zq, r.norm2, caches, name + "/n2"))
+        h = F.silu(self._norm(h, zq, r.norm2, caches, name + "/n2"))
         h, caches[name + "/c2"] = _conv(h, r.conv2, caches.get(name + "/c2"))
         if r.shortcut is not None:
             x, _ = _conv(x, r.shortcut)
         return x + h
+
+    @torch.inference_mode()
+    def encode(self, x: torch.Tensor):
+        """Pixels ``[B, F, H, W, 3]`` -> ``(mean, logvar)``, each ``[B, F_lat,
+        H/8, W/8, z]`` f32 (JAX ``_encode_core``), the whole clip in one
+        pass."""
+        cfg, p = self.cfg, self.encoder
+        h, _ = _conv(self._to_ncdhw(x), p.conv_in)
+        for i in range(len(cfg.block_out_channels)):
+            blk = getattr(p, f"down{i}")
+            for r in blk.resnets:
+                h = self._resnet(r, h, None, {}, "")
+            if blk.down is not None:
+                if i < cfg.temporal_levels:
+                    h = _time_avgpool2(h)
+                h = _conv2d_frames(h, blk.down, down=True)
+        for r in p.mid:
+            h = self._resnet(r, h, None, {}, "")
+        h = F.silu(group_norm(h, p.norm_out.weight, p.norm_out.bias, cfg.groups, cfg.eps))
+        h, _ = _conv(h, p.conv_out)
+        mean, logvar = h.permute(0, 2, 3, 4, 1).chunk(2, dim=-1)
+        return mean.contiguous(), logvar.contiguous()
 
     def _decode_core(self, z: torch.Tensor, caches: Dict[str, torch.Tensor]):
         """Latents ``[B, z, T, H, W]`` -> (pixels ``[B, 3, T', H', W']``,
@@ -310,7 +393,7 @@ def convert_cogvideox_vae_state_dict(sd: dict, cfg: CogVideoXVAEConfig) -> dict:
 
 def load_cogvideox_vae_checkpoint(path: str, cfg: Optional[CogVideoXVAEConfig] = None,
                                   device="cuda") -> "CogVideoXVAE":
-    """A ``CogVideoXVAE`` (the decoder) from a diffusers ``vae/`` checkpoint;
+    """A ``CogVideoXVAE`` (encoder and decoder) from a diffusers ``vae/`` checkpoint;
     ``cfg`` defaults to ``CogVideoXVAEConfig()``, as the JAX CLI builds it."""
     from magcache_tpu_torch.models.checkpoint import load_safetensors_dir
     from magcache_tpu_torch.models.convert import cogvideox_vae_params_from_numpy

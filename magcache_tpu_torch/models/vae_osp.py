@@ -1,8 +1,21 @@
-"""Open-Sora-Plan's CausalVAE decoder as PyTorch modules (the decode side of
-``magcache_tpu.models.vae_osp``; reference ``videosys/models/autoencoders/
+"""Open-Sora-Plan's CausalVAE as PyTorch modules (``magcache_tpu.models.
+vae_osp``; reference ``videosys/models/autoencoders/
 autoencoder_kl_open_sora_plan_v120.py``).
 
-SD-VAE topology from causal 3-D blocks: a 1x1x1 post-quant conv, ``conv_in``,
+The encoder: ``conv_in``, per level ``num_res_blocks`` residual blocks and
+the level's downsample (``"s2t2"``: a bottom/right zero pad and a 3x3x3
+causal conv at stride 2 in (t, h, w), T' = 1 + (T - 1) / 2; ``"spatial"``:
+the same pad and a 1x3x3 conv at stride 2 in space), then the parameter-free
+``"time"`` slot (two copies of frame 0 in front, a mean over 3 frames at
+stride 2); the mid block; GroupNorm -> SiLU -> ``conv_out`` to ``2
+z_channels`` and the 1x1x1 quant conv to the moments (mean, logvar).
+``encode`` tiles past 256 pixels or 33 frames: windows of 33 frames with
+one frame of overlap (later windows drop their first latent frame), each
+encoded in 256x256 pixel tiles overlapping by 1/8 and blended over 1/8 of
+a latent tile.
+
+The decoder is the SD-VAE topology from causal 3-D blocks: a 1x1x1
+post-quant conv, ``conv_in``,
 a mid block (residual block, single-head per-frame spatial attention,
 residual block), then per level (deepest first) ``num_res_blocks + 1``
 residual blocks (GroupNorm -> SiLU -> causal conv, twice, and a 1x1x1
@@ -30,11 +43,10 @@ strides disagree with it.
 Activations are NCDHW inside (cuDNN's layout); latents ``[B, F, H, W, C]``
 and pixels ``[B, F, H, W, 3]`` f32 at the API, as in JAX. Everything runs in
 f32 (the JAX module has no other dtype); the mid attention is plain PyTorch
-(plain XLA in JAX, no Pallas kernel). The encoder is not ported;
-``models.convert.osp_vae_params_from_numpy`` carries the JAX tree's decoder
-over, and ``load_osp_vae_checkpoint`` reads a ``CausalVAEModel`` checkpoint
-(``convert_osp_vae_state_dict``: the whole tree converts, so a missing
-encoder key raises as in JAX; the decoder is kept).
+(plain XLA in JAX, no Pallas kernel). ``models.convert.
+osp_vae_params_from_numpy`` carries the JAX tree over, and
+``load_osp_vae_checkpoint`` reads a ``CausalVAEModel`` checkpoint
+(``convert_osp_vae_state_dict``; a missing key raises, as in JAX).
 """
 
 from __future__ import annotations
@@ -61,9 +73,8 @@ class OSPVAEConfig:
     num_res_blocks: int = 2
     groups: int = 32
     use_quant_layer: bool = True
-    # per-level block types; "" = none (the encoder's ``down_types`` and
-    # ``time_down_types`` are kept for the JAX fields; the decoder reads the
-    # ``up`` ones)
+    # per-level block types; "" = none (the encoder reads the ``down`` ones,
+    # the decoder the ``up`` ones)
     down_types: Tuple[str, ...] = ("s2t2", "s2t2", "s2t2", "")
     up_types: Tuple[str, ...] = ("", "s2t2", "s2t2", "s2t2")
     time_down_types: Tuple[str, ...] = ("", "", "", "")
@@ -104,7 +115,7 @@ OSP_V110_VAE = OSPVAEConfig(down_types=("spatial", "spatial", "spatial", ""),
 
 def t_chunks(t: int, size: int):
     """``[start, end)`` windows stepping ``size - 1`` with one frame of
-    overlap (JAX ``_t_chunks``, the reference's tiled decode)."""
+    overlap (JAX ``_t_chunks``, the reference's tiled decode and encode)."""
     idx = list(range(0, t, size - 1))
     if len(idx) == 1:
         return [(0, t)]
@@ -135,6 +146,35 @@ class AttnBlock(nn.Module):
         self.q, self.k, self.v, self.proj_out = (_conv(c, c, 1, device) for _ in range(4))
 
 
+def _mid(c, device) -> nn.ModuleDict:
+    return nn.ModuleDict({"block_1": ResBlock(c, c, device), "attn_1": AttnBlock(c, device),
+                          "block_2": ResBlock(c, c, device)})
+
+
+class DownLevel(nn.Module):
+    def __init__(self, cin, cout, blocks, kind, device):
+        super().__init__()
+        self.block = nn.ModuleList(ResBlock(cin if j == 0 else cout, cout, device)
+                                   for j in range(blocks))
+        k = {"s2t2": 3, "spatial": (1, 3, 3)}.get(kind)
+        self.downsample = _conv(cout, cout, k, device) if k else None
+
+
+class Encoder(nn.Module):
+    def __init__(self, cfg: OSPVAEConfig, device):
+        super().__init__()
+        chs = cfg.chs
+        self.conv_in = _conv(3, chs[0], 3, device)
+        levels, c = [], chs[0]
+        for i, ch in enumerate(chs):
+            levels.append(DownLevel(c, ch, cfg.num_res_blocks, cfg.down_types[i], device))
+            c = ch
+        self.down = nn.ModuleList(levels)
+        self.mid = _mid(c, device)
+        self.norm_out = GroupNormAffine(c, device)
+        self.conv_out = _conv(c, 2 * cfg.z_channels, 3, device)
+
+
 class UpLevel(nn.Module):
     def __init__(self, cin, cout, blocks, kind, device):
         super().__init__()
@@ -149,9 +189,7 @@ class Decoder(nn.Module):
         super().__init__()
         chs = cfg.chs
         self.conv_in = _conv(cfg.z_channels, chs[-1], 3, device)
-        self.mid = nn.ModuleDict({"block_1": ResBlock(chs[-1], chs[-1], device),
-                                  "attn_1": AttnBlock(chs[-1], device),
-                                  "block_2": ResBlock(chs[-1], chs[-1], device)})
+        self.mid = _mid(chs[-1], device)
         levels, c = {}, chs[-1]
         for i in reversed(range(len(chs))):
             levels[i] = UpLevel(c, chs[i], cfg.num_res_blocks + 1, cfg.up_types[i], device)
@@ -169,6 +207,23 @@ def _cconv(x: torch.Tensor, conv: nn.Conv3d) -> torch.Tensor:
 
 def _trilinear(x: torch.Tensor, size) -> torch.Tensor:
     return F.interpolate(x, size=size, mode="trilinear", align_corners=False)
+
+
+def _down(conv, x, stride):
+    """OSP's downsamples: the first frame replicated ``kt - 1`` times in
+    front, one zero row and column at the bottom and right, the conv at
+    ``stride`` (ref ``Spatial2xTime2x3DDownsample`` / ``Downsample``)."""
+    kt = conv.weight.shape[2]
+    if kt > 1:
+        x = torch.cat([x[:, :, :1].expand(-1, -1, kt - 1, -1, -1), x], dim=2)
+    return F.conv3d(F.pad(x, (0, 1, 0, 1)), conv.weight, conv.bias, stride=stride)
+
+
+def _time_down2x(x, k: int = 3):
+    """Two copies of frame 0 in front, then the mean of ``k`` frames at
+    stride 2 over time (ref ``TimeDownsample2x``)."""
+    x = torch.cat([x[:, :, :1].expand(-1, -1, k - 1, -1, -1), x], dim=2)
+    return F.avg_pool3d(x, (k, 1, 1), stride=(2, 1, 1))
 
 
 def _up_s2t2(conv, x):
@@ -198,12 +253,13 @@ def _time_up2x(x):
 
 
 class OSPCausalVAE(nn.Module):
-    """Latents ``[B, F, H, W, embed_dim]`` -> pixels ``[B, F', 8H, 8W, 3]``
-    f32 (F' = 1 + time_stride (F - 1)). Build on ``device``, then
-    ``init(generator)`` for random weights or ``load_state_dict``
-    (``models/convert.py``). The tiling constants are the reference's
-    (``autoencoder_kl_open_sora_plan_v120.py:798-805``), attributes as in
-    JAX."""
+    """Pixels ``[B, F, H, W, 3]`` -> moments (mean, logvar) ``[B, F', H/8,
+    W/8, embed_dim]`` -> pixels, f32 (at the 4x-time layouts F' = 1 + (F -
+    1) / 4, and a decode gives 1 + time_stride (F' - 1) frames). Build on
+    ``device``, then ``init(generator)`` for random weights or
+    ``load_state_dict`` (``models/convert.py``). The tiling constants are
+    the reference's (``autoencoder_kl_open_sora_plan_v120.py:798-805``),
+    attributes as in JAX."""
 
     def __init__(self, cfg: OSPVAEConfig, device=None):
         super().__init__()
@@ -211,7 +267,12 @@ class OSPCausalVAE(nn.Module):
         self.post_quant_conv = (_conv(cfg.embed_dim, cfg.z_channels, 1, device)
                                 if cfg.use_quant_layer else None)
         self.decoder = Decoder(cfg, device)
+        # after the decoder: the decoder's random draws do not depend on them
+        self.encoder = Encoder(cfg, device)
+        self.quant_conv = (_conv(2 * cfg.z_channels, 2 * cfg.embed_dim, 1, device)
+                           if cfg.use_quant_layer else None)
         self.tile_sample_min_size = 256
+        self.tile_sample_min_size_t = 33
         self.tile_latent_min_size = 256 // (2 ** (len(cfg.chs) - 1))
         self.tile_latent_min_size_t = 16
         self.tile_overlap_factor = 0.125
@@ -245,6 +306,61 @@ class OSPCausalVAE(nn.Module):
         a = torch.softmax(torch.bmm(q, k.transpose(1, 2)) * c ** -0.5, dim=-1)
         o = proj(blk.proj_out, torch.bmm(a, v))
         return x + o.reshape(b, t, hh, ww, c).permute(0, 4, 1, 2, 3)
+
+    def _encode_one(self, x: torch.Tensor) -> torch.Tensor:
+        """Pixels ``[B, 3, T, H, W]`` -> moments ``[B, 2 embed_dim, T', H',
+        W']`` (JAX ``_encode_one``)."""
+        cfg, p = self.cfg, self.encoder
+        h = _cconv(x, p.conv_in)
+        for i, lv in enumerate(p.down):
+            for blk in lv.block:
+                h = self._res(blk, h)
+            if lv.downsample is not None:
+                h = _down(lv.downsample, h, (2, 2, 2) if cfg.down_types[i] == "s2t2"
+                          else (1, 2, 2))
+            if cfg.time_down_types[i] == "time":
+                h = _time_down2x(h)
+        h = self._res(p.mid["block_1"], h)
+        h = self._attn(p.mid["attn_1"], h)
+        h = self._res(p.mid["block_2"], h)
+        h = F.silu(group_norm(h, p.norm_out.weight, p.norm_out.bias, cfg.groups))
+        h = _cconv(h, p.conv_out)
+        return h if self.quant_conv is None else _cconv(h, self.quant_conv)
+
+    def _tiled_encode2d(self, x: torch.Tensor) -> torch.Tensor:
+        """Overlapping ``tile_sample_min_size`` pixel tiles of ``[B, 3, T, H,
+        W]``, their moments blended over ``ext`` latents and cropped at
+        ``lim``."""
+        tile = self.tile_sample_min_size
+        ov = int(tile * (1 - self.tile_overlap_factor))
+        ext = int(self.tile_latent_min_size * self.tile_overlap_factor)
+        lim = self.tile_latent_min_size - ext
+        rows = [[self._encode_one(x[:, :, :, i:i + tile, j:j + tile])
+                 for j in range(0, x.shape[4], ov)]
+                for i in range(0, x.shape[3], ov)]
+        return stitch_tiles(rows, ext, lim)
+
+    @torch.inference_mode()
+    def encode(self, x: torch.Tensor, use_tiling: Optional[bool] = None):
+        """Pixels ``[B, F, H, W, 3]`` -> ``(mean, logvar)``, each ``[B, F',
+        H', W', embed_dim]`` f32; tiled (time windows, then 2-D tiles) past
+        the reference's thresholds unless ``use_tiling`` says otherwise."""
+        x = x.to(device=self.decoder.conv_in.weight.device,
+                 dtype=torch.float32).permute(0, 4, 1, 2, 3)
+        if use_tiling is None:
+            use_tiling = (x.shape[3] > self.tile_sample_min_size
+                          or x.shape[4] > self.tile_sample_min_size
+                          or x.shape[2] > self.tile_sample_min_size_t)
+        if not use_tiling:
+            m = self._encode_one(x)
+        else:
+            outs = []
+            for i, (s, e) in enumerate(t_chunks(x.shape[2], self.tile_sample_min_size_t)):
+                d = self._tiled_encode2d(x[:, :, s:e])
+                outs.append(d[:, :, 1:] if i else d)
+            m = torch.cat(outs, dim=2)
+        mean, logvar = m.permute(0, 2, 3, 4, 1).chunk(2, dim=-1)
+        return mean.contiguous(), logvar.contiguous()
 
     def _decode_one(self, z: torch.Tensor) -> torch.Tensor:
         """Latents ``[B, C, T, H, W]`` -> pixels ``[B, 3, T', H', W']``."""
@@ -359,7 +475,7 @@ def convert_osp_vae_state_dict(sd: dict, cfg: OSPVAEConfig) -> dict:
 
 def load_osp_vae_checkpoint(path: str, cfg: Optional[OSPVAEConfig] = None, device="cuda"
                             ) -> "OSPCausalVAE":
-    """An ``OSPCausalVAE`` (the decoder) from a ``CausalVAEModel`` checkpoint;
+    """An ``OSPCausalVAE`` (encoder and decoder) from a ``CausalVAEModel`` checkpoint;
     ``cfg`` defaults to ``OSPVAEConfig()``, as in JAX."""
     from magcache_tpu_torch.models.checkpoint import load_safetensors_dir
     from magcache_tpu_torch.models.convert import osp_vae_params_from_numpy

@@ -36,12 +36,12 @@ import dataclasses
 import math
 from typing import Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from magcache_tpu_torch.models.vae import GroupNormAffine, group_norm, init_convs_
+from magcache_tpu_torch.models.vae import (GroupNormAffine, chunked_images, group_norm,
+                                           init_convs_, tiled_decode)
 
 __all__ = ["SDVAEConfig", "SDVAE", "FLUX_VAE", "SD_VAE_FT", "SD3_VAE",
            "OPEN_SORA_SPATIAL_VAE"]
@@ -272,16 +272,7 @@ class SDVAE(nn.Module):
         return self.decoder.conv_in.weight.device
 
     def _chunked(self, fn, x: torch.Tensor) -> torch.Tensor:
-        """``fn`` over channel-last ``x [..., H, W, C]`` as NCHW images, in
-        chunks of ``micro_batch`` images; returns channel-last with x's
-        leading dims."""
-        lead = x.shape[:-3]
-        flat = x.to(device=self.device, dtype=torch.float32).reshape(-1, *x.shape[-3:])
-        flat = flat.permute(0, 3, 1, 2)
-        mb = self.micro_batch or flat.shape[0]
-        out = torch.cat([fn(flat[i:i + mb]) for i in range(0, flat.shape[0], mb)])
-        out = out.permute(0, 2, 3, 1)
-        return out.reshape(*lead, *out.shape[1:])
+        return chunked_images(fn, x, self.device, self.micro_batch)
 
     def _encode_nchw(self, x):
         h = self.encoder(x)
@@ -321,32 +312,7 @@ class SDVAE(nn.Module):
         neighbour, summed and divided by the summed weights (JAX
         ``SDVAE.decode_tiled``); a latent of at most one tile decodes
         whole."""
-        zh, zw = z.shape[-3], z.shape[-2]
-        if zh <= tile and zw <= tile:
-            return self.decode(z)
-        s = self.cfg.spatial_down
-        step, ov = tile - overlap, overlap * s
-        ramp = torch.from_numpy(np.linspace(0, 1, ov, endpoint=False).astype(np.float32))
-        ramp = ramp.to(self.device)
-        out = weight = None
-        for i0 in range(0, zh, step):
-            for j0 in range(0, zw, step):
-                y = self.decode(z[..., i0:i0 + tile, j0:j0 + tile, :])
-                ph, pw = y.shape[-3], y.shape[-2]
-                if out is None:
-                    out = torch.zeros(*y.shape[:-3], zh * s, zw * s, y.shape[-1],
-                                      device=y.device)
-                    weight = torch.zeros(zh * s, zw * s, 1, device=y.device)
-                w = torch.ones(ph, pw, device=y.device)
-                if ov > 0 and i0 > 0:
-                    w[:ov] *= ramp[:ph, None]
-                if ov > 0 and j0 > 0:
-                    w[:, :ov] *= ramp[None, :pw]
-                w = w[:, :, None]
-                rows, cols = slice(i0 * s, i0 * s + ph), slice(j0 * s, j0 * s + pw)
-                out[..., rows, cols, :] += y * w
-                weight[rows, cols] += w
-        return out / weight.clamp_min(1e-8)
+        return tiled_decode(self.decode, z, tile, overlap, self.cfg.spatial_down)
 
 
 # ---- diffusers AutoencoderKL checkpoints ---------------------------------------

@@ -19,7 +19,7 @@ stride 8, e.g. ``SD_VAE_FT``) ``from_latent`` undoes the VAE's scale and the
 latents decode frame by frame into ``video`` (the JAX pipeline hands the
 5-D latents to the 2-D decode unscaled); without one the latents are the
 output. Pyramid Attention Broadcast
-(``enable_pab``, ``pab_config``, default ``LATTE_PAB``) runs on the packed
+(``enable_pab``, ``pab_config``, default ``LATTE_PAB``) runs on every
 route over the DDIM timesteps, alone or under MagCache.
 """
 

@@ -25,8 +25,9 @@ Cache policies: the published opensora-v1.2 MagCache rule
 (``cache_policy="adapter"``) or the eval scripts' rolling rule
 (``"rolling"``, ``core.rolling.RollingCacheConfig.opensora``); Pyramid
 Attention Broadcast (``enable_pab``, ``pab_config``, default
-``OPEN_SORA_PAB``) on the packed route, over the schedule's own timesteps,
-alone or under MagCache.
+``OPEN_SORA_PAB``) on every route, over the schedule's own timesteps, alone
+or under MagCache, with references and loops too (the masked sampler
+carries the PAB state).
 
 Latent geometry: VAE stride 8 in space and ``get_latent_t`` in time (51
 frames -> 15 latents), 4 channels; DiT patch (1, 2, 2).

@@ -207,20 +207,31 @@ def test_random_init_follows_jax():
 
 def test_unported_latte_paths_raise():
     _, _, model = _models("float32")
-    # PAB is ported on the packed route; the unpacked routes raise under it
+    x, y, t = _inputs()
+    # PAB runs on every route (tests/test_torch_pab_routes.py holds it to JAX)
     for route in ("grouped", "vpu"):
-        with pytest.raises(NotImplementedError, match="PAB"):
-            T.make_latte_core(model, GRID, CAP, route=route, pab=LATTE_PAB,
-                              timesteps=np.ones(2))
-    with pytest.raises(NotImplementedError, match="2048"):
-        T.make_latte_core(model, (2, 48, 48), CAP)
+        core = T.make_latte_core(model, GRID, CAP, route=route, pab=LATTE_PAB,
+                                 timesteps=np.ones(2))
+        h, ctx = core.prepare(torch.from_numpy(x), torch.from_numpy(t),
+                              {"y": torch.from_numpy(y)})
+        out, _ = core.trunk(h, ctx, core.init_state(h, ctx), 0)
+        assert out.shape == h.shape and torch.isfinite(out).all()
+    with pytest.raises(ValueError, match="timesteps"):
+        T.make_latte_core(model, GRID, CAP, pab=LATTE_PAB)
     with pytest.raises(ValueError, match="route"):
         T.make_latte_core(model, GRID, CAP, route="0")
-    with pytest.raises(NotImplementedError, match="PAB"):
-        tpipe.LattePipeline(tpipe.LattePipelineConfig(
-            tiny=True, num_frames=4, height=64, width=64, num_sampling_steps=2,
-            caption_len=6, enable_pab=True, route="vpu"), "cpu")
-    T.make_latte_core(model, (2, 32, 64), CAP)           # 2,048 tokens: ported
+    out = tpipe.LattePipeline(tpipe.LattePipelineConfig(
+        tiny=True, num_frames=4, height=64, width=64, num_sampling_steps=2,
+        caption_len=6, enable_pab=True, route="vpu"), "cpu").generate("a cat", seed=1)
+    assert out.latents.shape == (1, 4, 8, 8, 4) and torch.isfinite(out.latents).all()
+    # frames of 2,304 tokens (> 2,048) run the unfused packed block
+    # (tests/test_torch_latte_large.py holds it to JAX)
+    core = T.make_latte_core(model, (2, 48, 48), CAP)
+    xl = np.random.default_rng(2).standard_normal((2, 2, 96, 96, 4)).astype(np.float32)
+    h, ctx = core.prepare(torch.from_numpy(xl), torch.from_numpy(t), {"y": torch.from_numpy(y)})
+    out = core.head(core.trunk(h, ctx), ctx)
+    assert out.shape == xl.shape and torch.isfinite(out).all()
+    T.make_latte_core(model, (2, 32, 64), CAP)           # 2,048 tokens: the fused block
 
 
 # ---------------------------------------------------------------- pipeline

@@ -193,14 +193,20 @@ def test_pos_embed_and_random_init_follow_jax():
 
 def test_unported_stdit3_paths_raise():
     _, _, model = _models("float32")
-    # PAB is ported on the packed route; the unpacked routes raise under it
-    for route in ("grouped", "vpu"):
-        with pytest.raises(NotImplementedError, match="PAB"):
-            T.make_stdit3_core(model, GRID, route=route, pab=OPEN_SORA_PAB,
-                               timesteps=np.ones(2))
-    assert T.make_stdit3_core(model, GRID, pab=OPEN_SORA_PAB,
-                              timesteps=np.ones(2)).init_state is not None
     x, y, t = _inputs()
+    # PAB runs on every route (tests/test_torch_pab_routes.py holds it to
+    # JAX); it needs the timesteps, and the route is checked
+    with pytest.raises(ValueError, match="timesteps"):
+        T.make_stdit3_core(model, GRID, route="grouped", pab=OPEN_SORA_PAB)
+    with pytest.raises(ValueError, match="route"):
+        T.make_stdit3_core(model, GRID, route="0", pab=OPEN_SORA_PAB, timesteps=np.ones(2))
+    for route in ("packed", "grouped", "vpu"):
+        core = T.make_stdit3_core(model, GRID, route=route, pab=OPEN_SORA_PAB,
+                                  timesteps=np.ones(2))
+        h, ctx = core.prepare(torch.from_numpy(x), torch.from_numpy(t),
+                              {"y": torch.from_numpy(y)})
+        out, _ = core.trunk(h, ctx, core.init_state(h, ctx), 0)
+        assert out.shape == h.shape and torch.isfinite(out).all()
     # qk_norm=False is ported (the row max, not the JAX packed path's fixed
     # shift): the packed route against the JAX core's unpacked composition
     # (its default off the TPU)
@@ -323,14 +329,16 @@ def test_pipeline_latents_match_jax(kw, monkeypatch):
 
 
 def test_pipeline_unported_paths_raise():
-    # the rolling policy and PAB are ported (PAB on the packed route only)
+    # the rolling policy and PAB are ported, PAB on every route
     with pytest.raises(ValueError, match="cache_policy"):
         tpipe.OpenSoraPipelineConfig(cache_policy="lru")
     for route in ("grouped", "vpu"):
-        with pytest.raises(NotImplementedError, match="PAB"):
-            tpipe.OpenSoraPipeline(tpipe.OpenSoraPipelineConfig(
-                tiny=True, num_frames=8, height=32, width=32, num_sampling_steps=2,
-                caption_len=6, enable_pab=True, route=route), "cpu")
+        pipe = tpipe.OpenSoraPipeline(tpipe.OpenSoraPipelineConfig(
+            tiny=True, num_frames=8, height=32, width=32, num_sampling_steps=2,
+            caption_len=6, enable_pab=True, route=route), "cpu")
+        out = pipe.generate("a boat", seed=1)
+        assert out.latents.shape == (1,) + pipe.latent_shape
+        assert torch.isfinite(out.latents).all()
     cfg = tpipe.OpenSoraPipelineConfig(tiny=True, num_frames=8, height=32, width=32,
                                        num_sampling_steps=2, caption_len=6,
                                        resolution=None)

@@ -181,8 +181,15 @@ def test_stdit3_pab_sites_by_step(monkeypatch):
         calls.update(cross=0, mlp=0)
         core.trunk(hidden, ctx, state, i)
         assert calls == {"cross": 0 if masks["cross"][i] else 2, "mlp": 2}
-    with pytest.raises(NotImplementedError, match="x_mask"):
-        core.trunk(hidden, dict(ctx, x_mask=torch.ones(2, 3, dtype=torch.bool)), state, 0)
+    # masked frames: K6 without the residual where cross computes, and the
+    # unfused MLP (no K7 with gelu)
+    hidden, ctx = core.prepare(x, torch.full((2,), 900.0),
+                               {"y": y, "x_mask": torch.tensor([[True, False, True]] * 2)})
+    for i in (0, 1):
+        calls.update(cross=0, mlp=0)
+        out, _ = core.trunk(hidden, ctx, state, i)
+        assert calls == {"cross": 0 if masks["cross"][i] else 2, "mlp": 0}
+        assert out.shape == hidden.shape and torch.isfinite(out).all()
 
 
 @pytest.mark.parametrize("kw", [dict(enable_pab=True, pab_config=SMALL_PAB),
@@ -215,14 +222,22 @@ def test_opensora_pipeline_pab_and_rolling_match_jax(kw, monkeypatch):
 
 
 def test_pab_refuses_the_unpacked_routes_and_masked_frames(tmp_path):
+    """PAB on the unpacked routes of both models, and an Open-Sora request
+    with a reference under PAB (the masked sampler), run to finite outputs;
+    PAB without the timesteps raises."""
     _, _, model = _models()
     ts = RFlowSchedule.create(4).timesteps
+    latte = TL.LatteModel(TL.LatteConfig.tiny(), "cpu")
     for route in ("grouped", "vpu"):
-        with pytest.raises(NotImplementedError, match=route):
-            TS.make_stdit3_core(model, (3, 3, 5), route=route, pab=SMALL_PAB, timesteps=ts)
-        with pytest.raises(NotImplementedError, match=route):
-            TL.make_latte_core(TL.LatteModel(TL.LatteConfig.tiny(), "cpu"), (2, 2, 2), 4,
-                               route=route, pab=tpab.LATTE_PAB, timesteps=ts)
+        for core, shape in ((TS.make_stdit3_core(model, (3, 3, 5), route=route,
+                                                 pab=SMALL_PAB, timesteps=ts), (2, 3, 6, 10, 4)),
+                            (TL.make_latte_core(latte, (2, 2, 2), 4, route=route,
+                                                pab=tpab.LATTE_PAB, timesteps=ts),
+                             (2, 2, 4, 4, 4))):
+            h, ctx = core.prepare(torch.zeros(shape), torch.full((2,), 900.0),
+                                  {"y": torch.zeros(2, 4, 24)})
+            out, _ = core.trunk(h, ctx, core.init_state(h, ctx), 0)
+            assert torch.isfinite(core.head(out, ctx)).all()
     with pytest.raises(ValueError, match="timesteps"):
         TS.make_stdit3_core(model, (3, 3, 5), pab=SMALL_PAB)
     pipe = tos.OpenSoraPipeline(tos.OpenSoraPipelineConfig(
@@ -230,8 +245,10 @@ def test_pab_refuses_the_unpacked_routes_and_masked_frames(tmp_path):
         caption_len=6, enable_pab=True), "cpu")
     ref = str(tmp_path / "ref.npy")
     np.save(ref, np.zeros((1, 4, 4, 4), np.float32))
-    with pytest.raises(NotImplementedError, match="x_mask"):
-        pipe.generate("a cat", ms="0,0,0,0,1,0", refs=ref)
+    out = pipe.generate("a cat", ms="0,0,0,0,1,0", refs=ref)
+    assert out.latents.shape == (1,) + pipe.latent_shape
+    assert torch.isfinite(out.latents).all()
+    np.testing.assert_array_equal(out.latents[0, 0].numpy(), 0.0)   # the pinned reference
 
 
 # ------------------------------------------------------------------- Latte
@@ -246,9 +263,9 @@ def test_latte_pipeline_latte_pab_matches_jax(kw, monkeypatch):
     z = np.array(jax.random.normal(j_set_seed(5), (1,) + jp.latent_shape, jnp.float32))
     monkeypatch.setattr(tp, "_initial_noise", lambda gen: torch.from_numpy(z))
     calls = []
-    real = TL.LatteBlock._pab
-    monkeypatch.setattr(TL.LatteBlock, "_pab",
-                        lambda self, *a: calls.append(a[-2]["mlp"]) or real(self, *a))
+    real = TL.LatteBlock._composed
+    monkeypatch.setattr(TL.LatteBlock, "_composed",
+                        lambda self, *a: calls.append(a[-1][1]["mlp"]) or real(self, *a))
     want = jp.generate("a red boat at dawn", seed=5)
     got = tp.generate("a red boat at dawn", seed=5)
     _latents_close(got.latents.numpy(), np.asarray(want.latents, np.float32))

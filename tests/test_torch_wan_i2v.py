@@ -242,7 +242,7 @@ def test_causal_vae_encode_matches_jax(cfg_kw):
     assert tuple(tm.shape) == jm.shape
     for got, want in ((tm, jm), (tl, jl)):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=VAE_TOL, rtol=VAE_TOL)
-    assert sum(p.numel() for p in vae.parameters()) == sum(
+    assert sum(p.numel() for p in vae.encoder.parameters()) == sum(
         a.size for a in jax.tree.leaves(params["encoder"]) if isinstance(a, np.ndarray))
 
 
