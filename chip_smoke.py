@@ -8,7 +8,8 @@ nonzero on the first failure:
 1. environment: a CUDA card is required; prints the card's name and power
    limit (nvidia-smi) and turns TF32 off for f32 matmuls and convolutions;
 2. build: compiles the CUDA library (nvcc, sm_90a, one process per source)
-   and the Triton kernels from the sources in this checkout;
+   from the sources in this checkout, and the yardstick kernel that K7's
+   operand pass is held to bit for bit (``tools/ln_modulate_parent.cu``);
 
 Wan2.1 T2V-1.3B (K1, K2, K3, and K3p in the head):
 3. each kernel against its plain PyTorch version at the path's shapes
@@ -67,8 +68,10 @@ Open-Sora 1.2 at 720p and its mask-strategy conditioning (K1q, K3, K5-K8):
    [30, 3600, 3456] bf16 projection, bit-equal to contiguous copies, its
    two launches also timed apart; then K5
    (the "stream" route, with its TB/s and SDPA without the norm) and K3 at
-   the temporal block's 720p shapes and K6, K7 and K8 at the 720p blocks'
-   shapes;
+   the temporal block's 720p shapes; K7's operand pass (on K3's body,
+   ``csrc/prologue.cu``) bit for bit against the kernel it replaced
+   (``tools/ln_modulate_parent.cu``) at the qkv and mlp1 shapes, both timed;
+   and K6, K7 and K8 at the 720p blocks' shapes;
 16. one full-shape forward at 720p 9:16 x 51 frames (15 frames of 3,600
    tokens, 2 rows: 108,000 tokens), 28 layers, twice; grouped launches by
    route per forward: stream 28;
@@ -831,35 +834,81 @@ def phase_environment():
         f"{torch.backends.cudnn.allow_tf32}")
 
 
+def parent_operand_library():
+    """The kernel that wrote K7's operand before it moved onto
+    ``csrc/prologue.cu`` (``tools/ln_modulate_parent.cu``), built on its own:
+    the bit-for-bit yardstick of phase 15."""
+    import ctypes
+
+    from magcache_tpu_torch.ops.build import load_standalone_library
+
+    lib = load_standalone_library(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                               "tools", "ln_modulate_parent.cu"))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.mc_ln_modulate_parent.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ctypes.c_float, vp]
+    lib.mc_ln_modulate_parent.restype = ci
+    return lib
+
+
+def check_operand_bit_equal(label: str, x, sc, sh, rep: int, eps: float = 1e-6) -> None:
+    """K7's operand pass (``mc_ln_modulate`` on prologue.cu's row-resident
+    body) against the kernel it replaced on the same inputs: fails unless
+    the two outputs are equal bit for bit; logs both times and the bound."""
+    from magcache_tpu_torch.ops.build import check_launch, load_cuda_library
+
+    lib, parent = load_cuda_library(), parent_operand_library()
+    a, c = (1.0 + sc).contiguous(), sh.contiguous()
+    b, s, k = x.shape
+    y = torch.empty_like(x)
+
+    def run(fn):
+        code = fn(x.data_ptr(), a.data_ptr(), c.data_ptr(), y.data_ptr(), b, s, k, rep, eps,
+                  torch.cuda.current_stream().cuda_stream)
+        check_launch(lib, code, f"K7 operand [{label}]")
+        return y
+
+    new = run(lib.mc_ln_modulate).clone()
+    old = run(parent.mc_ln_modulate_parent)
+    torch.cuda.synchronize()
+    differ = int((new != old).sum())
+    log(f"  K7 operand [{label}]: {differ} of {new.numel()} values differ from the "
+        f"replaced kernel's")
+    if differ:
+        fail(f"K7 operand [{label}]: not bit-equal to the kernel it replaced")
+    ms = cuda_ms(lambda: run(lib.mc_ln_modulate))
+    pms = cuda_ms(lambda: run(parent.mc_ln_modulate_parent))
+    bound_ms, by = bound(*elementwise_work(x, a, c))
+    log(f"    K7 operand [{label}]: prologue.cu {ms:.4f} ms, replaced kernel {pms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms by {by}")
+
+
 def phase_build(dev):
+    import threading
+
     from magcache_tpu_torch.ops import attention as A
-    from magcache_tpu_torch.ops import fused_prologue as P
     from magcache_tpu_torch.ops.build import load_cuda_library
 
     log("phase 2: build")
     t0 = time.time()
+    yardstick = {}
+    side = threading.Thread(target=lambda: yardstick.update(lib=parent_operand_library()))
+    side.start()
     load_cuda_library()
+    side.join()
+    if "lib" not in yardstick:
+        fail("tools/ln_modulate_parent.cu did not build")
     t_nvcc = time.time() - t0
-    # first launches compile the Triton kernels at the main path's widths
-    x = torch.randn(1, 256, 1536, device=dev, dtype=torch.bfloat16)
-    g = torch.ones(1536, device=dev)
-    tab = torch.zeros(256, 64, device=dev)
-    P.rms_norm_rope(x, g, tab, tab, 12, eps=1e-6)
-    P.rms_norm_rope(x[..., :768], g[:128], tab, tab, 6, eps=1e-6, norm_scope="head")
-    P.layer_norm_mod(x, scale=g[None, None], shift=g[None, None], eps=1e-6)
-    P.layer_norm_mod(x, weight=g, bias=g, eps=1e-6)
+    # first launches of the attention bodies, the sequence-parallel path's
+    # too, from one thread before any rank runs
     q = torch.randn(1, 256, 12, 128, device=dev, dtype=torch.bfloat16)
     A.flash_attention_bshd(q, q, q, fixed_max=16.0)
     A.flash_attention_bshd(q, q, q)
-    # the sequence-parallel path's kernels, from one thread before any rank runs
-    P.layer_norm_mod(x, eps=1e-6)
     qh = q.transpose(1, 2)
     A.flash_attention_bhsd(qh, qh, qh, fixed_max=16.0)
     A.flash_attention_bhsd(qh, qh, qh)
     A.flash_attention_bhsd_aux(qh, qh, qh)
     torch.cuda.synchronize()
-    log(f"  build: nvcc {t_nvcc:.1f} s, Triton compile + first launches "
-        f"{time.time() - t0 - t_nvcc:.1f} s")
+    log(f"  build: nvcc {t_nvcc:.1f} s, first launches {time.time() - t0 - t_nvcc:.1f} s")
 
 
 def phase_kernels(dev, rec):
@@ -1714,11 +1763,15 @@ def phase_flux_kernels(dev, rec):
     ms = cuda_graph_ms(lambda: P.layer_norm_mod(x, scale=sc, shift=sh, eps=1e-6))
     pms = cuda_graph_ms(lambda: P.layer_norm_mod_plain(x, scale=sc, shift=sh, eps=1e-6))
     call_ms = cuda_ms(lambda: P.layer_norm_mod(x, scale=sc, shift=sh, eps=1e-6))
+    # at batch 1 the modulation is one row: F.layer_norm with weight 1 + scale
+    # and bias shift computes the same function
+    wb, bb = (1.0 + sc).view(-1).to(x.dtype), sh.view(-1).to(x.dtype)
+    lms = cuda_graph_ms(lambda: torch.nn.functional.layer_norm(x, (d,), wb, bb, eps=1e-6))
     log(f"  K3 [mod 4096x3072]: kernel {ms:.4f} ms "
-        f"({2 * x.numel() * 2 / ms / 1e6:.0f} GB/s), plain {pms:.4f} ms; "
-        f"{call_ms:.4f} ms per back-to-back wrapper call")
+        f"({2 * x.numel() * 2 / ms / 1e6:.0f} GB/s), plain {pms:.4f} ms, F.layer_norm "
+        f"{lms:.4f} ms (graph); {call_ms:.4f} ms per back-to-back wrapper call")
     keep(rec, "layer_norm_mod", err, ms, pms, "graph", "mod 1x4096x3072",
-         elementwise_work(x, sc, sh))
+         elementwise_work(x, sc, sh), ("F.layer_norm", lms))
 
 
 def make_flux_model(dev):
@@ -1995,6 +2048,13 @@ def phase_os720_kernels(dev, rec):
         f"({2 * h.numel() * 2 / ms / 1e6:.0f} GB/s), plain {pms:.3f} ms")
     keep(rec, "layer_norm_mod", err, ms, pms, "loop", "temporal mod 2x54000x1152",
          elementwise_work(h, sc, sh))
+    # K7's operand pass, now on K3's row-resident body, bit for bit against
+    # the kernel it replaced: the spatial qkv view (frames as the batch,
+    # batch_repeat 15) and mlp1
+    for label, xx, rep in ((f"qkv {2 * T}x{S}x{d}, batch_repeat {T}",
+                            h.reshape(2 * T, S, d), T),
+                           (f"mlp1 2x{T * S}x{d}", h, 1)):
+        check_operand_bit_equal(label, xx, sc, sh, rep)
     del h, got
     check_stdit3_linear_kernels(dev, rec, gen, S)
 
@@ -5428,7 +5488,7 @@ def phase_wan22_kernels(dev, rec):
     got = P.rms_norm_rope(x, gain, cos, sin, H, eps=1e-6)
     want = P.rms_norm_rope_plain(x, gain, cos, sin, H, eps=1e-6)
     # a flipped bf16 rounding of the normed value: one ulp at |y| < 8
-    err = compare("K2 rms_norm_rope [token scope, 24 heads: BLOCK_H 32]", got, want,
+    err = compare("K2 rms_norm_rope [token scope, 24 heads]", got, want,
                   atol=3e-2, rtol=1.6e-2)
     del got, want
     ms = cuda_ms(lambda: P.rms_norm_rope(x, gain, cos, sin, H, eps=1e-6))
@@ -5448,7 +5508,7 @@ def phase_wan22_kernels(dev, rec):
             (f"mod, t = 0 prefix 2x{n0}", seg0, dict(scale=sc0, shift=sh0), "layer_norm_mod")):
         got = P.layer_norm_mod(xx, eps=1e-6, **kw)
         want = P.layer_norm_mod_plain(xx, eps=1e-6, **kw)
-        err = compare(f"K3 layer_norm_mod [{label}, width 3072: BLOCK 4096]", got, want,
+        err = compare(f"K3 layer_norm_mod [{label}, width 3072]", got, want,
                       atol=3e-2, rtol=1.6e-2)
         del got, want
         ms = cuda_ms(lambda: P.layer_norm_mod(xx, eps=1e-6, **kw))
@@ -8903,13 +8963,13 @@ def main():
                                  "magcache_tpu/ops/attention.py:193"),
         "flash_attention_bhsd_aux": ("cuda", "magcache_tpu_torch/csrc/hopper_attention.cuh",
                                      "magcache_tpu/ops/attention.py:1059"),
-        "rms_norm_rope": ("triton", "magcache_tpu_torch/csrc/prologue_triton.py",
+        "rms_norm_rope": ("cuda", "magcache_tpu_torch/csrc/prologue.cu",
                           "magcache_tpu/ops/fused_prologue.py:342"),
-        "rms_norm_rope_head": ("triton", "magcache_tpu_torch/csrc/prologue_triton.py",
+        "rms_norm_rope_head": ("cuda", "magcache_tpu_torch/csrc/prologue.cu",
                                "magcache_tpu/ops/fused_prologue.py:342"),
-        "layer_norm_mod": ("triton", "magcache_tpu_torch/csrc/prologue_triton.py",
+        "layer_norm_mod": ("cuda", "magcache_tpu_torch/csrc/prologue.cu",
                            "magcache_tpu/ops/fused_prologue.py:440"),
-        "layer_norm_mod_plain": ("triton", "magcache_tpu_torch/csrc/prologue_triton.py",
+        "layer_norm_mod_plain": ("cuda", "magcache_tpu_torch/csrc/prologue.cu",
                                  "magcache_tpu/ops/fused_prologue.py:440"),
         "grouped_attention_fused_qkv": ("cuda", "magcache_tpu_torch/csrc/grouped_attention.cu",
                                         "magcache_tpu/ops/attention.py:755"),

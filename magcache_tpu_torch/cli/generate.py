@@ -38,7 +38,18 @@ reference ``inference.py``'s names ``--instruction --input_image_path
 --text_guidance_scale --image_guidance_scale --cfg_range_start
 --cfg_range_end --scheduler --enable_taylorseer --teacache_rel_l1_thresh
 --negative_prompt``),
-and the output file name encodes the E/K/R triple. Unset flags take each
+and the output file name encodes the E/K/R triple. Every other flag of the
+JAX CLI parses too, with its meaning there: ``--seed`` (``--base_seed``
+wins), ``--enable_magcache``, Open-Sora's prompt scores ``--aes
+--flow_score --camera_motion``, the hyvideo ``--ulysses_degree
+--ring_degree``, ``--use_prompt_extend`` and its options (the raw prompt
+stays, with the JAX CLI's fallback messages: the port runs no
+``transformers`` model), ``--cpu`` (``--device cpu``), and the parity
+no-ops (``--num_images_per_prompt --max_input_image_pixels
+--convert_model_dtype --flow_reverse --use_cpu_offload
+--enable_model_cpu_offload --enable_sequential_cpu_offload
+--enable_group_offload --t5_fsdp --dit_fsdp --offload_model --t5_cpu``);
+``--dp`` and ``--tp`` take 1 only. Unset flags take each
 family's reference defaults, as in the JAX CLI (Wan: 50 steps, i2v 40;
 shift 5.0, i2v at 480p and below 3.0, flf2v and VACE 16.0; guidance 5.0;
 81 frames; the i2v and flf2v preset by the height, ``wan2.1-i2v-480p`` up
@@ -395,7 +406,84 @@ def build_parser() -> argparse.ArgumentParser:
                    help="process-group rendezvous (tcp://host:port or "
                         "file:///path) when not started by torchrun; RANK and "
                         "WORLD_SIZE are read from the environment")
+    # the JAX CLI's remaining names, with its meanings (resolve_aliases)
+    p.add_argument("--seed", type=int, default=None,
+                   help="alias for --base_seed (which wins when both are given)")
+    p.add_argument("--enable_magcache", action="store_true",
+                   help="omnigen2 alias for --use_magcache")
+    p.add_argument("--aes", type=float, default=6.5,
+                   help="open-sora: aesthetic score appended to the prompt")
+    p.add_argument("--flow_score", type=float, default=None,
+                   help="open-sora: motion score appended to the prompt")
+    p.add_argument("--camera_motion", default=None,
+                   help="open-sora: camera motion tag appended to the prompt")
+    p.add_argument("--ulysses_degree", type=int, default=None,
+                   help="hyvideo alias for --ulysses_size")
+    p.add_argument("--ring_degree", type=int, default=None,
+                   help="hyvideo alias for --ring_size (above 1 selects the ring)")
+    p.add_argument("--use_prompt_extend", action="store_true",
+                   help="accepted for parity: keeps the raw prompt with the JAX "
+                        "CLI's fallback message (no transformers model runs here)")
+    p.add_argument("--prompt_extend_model", default=None,
+                   help="accepted for parity: the JAX CLI's local HF expander LM")
+    p.add_argument("--prompt_extend_method", default="local_qwen",
+                   help="accepted for parity")
+    p.add_argument("--prompt_extend_target_lang", default="en",
+                   help="accepted for parity")
+    for flag in ("--convert_model_dtype", "--flow_reverse", "--use_cpu_offload",
+                 "--enable_model_cpu_offload", "--enable_sequential_cpu_offload",
+                 "--enable_group_offload", "--t5_fsdp", "--dit_fsdp", "--t5_cpu"):
+        p.add_argument(flag, action="store_true", help="accepted for parity; no-op")
+    for flag, kind in (("--num_images_per_prompt", int), ("--max_input_image_pixels", int),
+                       ("--offload_model", str)):
+        p.add_argument(flag, type=kind, default=None, help="accepted for parity; no-op")
+    p.add_argument("--dp", type=int, default=1,
+                   help="data-parallel replicas: 1 only (ROADMAP section 1 item 2)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ranks: 1 only (ROADMAP section 1 item 2)")
+    p.add_argument("--cpu", action="store_true", help="alias for --device cpu")
     return p
+
+
+def resolve_aliases(args, parser) -> None:
+    """The JAX CLI's aliases onto the port's flags, in its order
+    (``magcache_tpu/cli/generate.py::main``): ``--seed`` sets ``--base_seed``
+    unless that was given, ``--enable_magcache`` sets ``--use_magcache``, the
+    hyvideo ``*_degree`` names fill ``--ulysses_size`` / ``--ring_size`` (a
+    ring degree of 1 selects nothing), ``--cpu`` is ``--device cpu``. Exits
+    on ``--dp`` or ``--tp`` above 1, which the port has not got."""
+    for flag in ("dp", "tp"):
+        if getattr(args, flag) > 1:
+            raise SystemExit(
+                f"--{flag} {getattr(args, flag)}: the {flag} mesh axis is not ported "
+                f"(ROADMAP section 1 item 2, the multi-device axes); run with --{flag} 1")
+    if args.seed is not None and args.base_seed == parser.get_default("base_seed"):
+        args.base_seed = args.seed
+    if args.enable_magcache:
+        args.use_magcache = True
+    if args.ulysses_degree and not args.ulysses_size:
+        args.ulysses_size = args.ulysses_degree
+    if args.ring_degree and args.ring_degree > 1 and not args.ring_size:
+        args.ring_size = args.ring_degree
+    if args.cpu:
+        args.device = "cpu"
+
+
+def extend_prompt(args) -> None:
+    """``--use_prompt_extend``: keeps the raw prompt, with the JAX CLI's
+    messages. Without ``--prompt_extend_model`` it warns; with one, the JAX
+    CLI loads a ``transformers`` causal LM and falls back when that fails
+    (``magcache_tpu/cli/generate.py::_extend_prompt``). The port takes no
+    ``transformers`` dependency (the card has none), so it falls back
+    there, as JAX does on the card."""
+    if not args.use_prompt_extend:
+        return
+    if not args.prompt_extend_model:
+        print("WARNING: --use_prompt_extend needs --prompt_extend_model "
+              "(local HF dir); keeping the original prompt.")
+        return
+    print(f"Extending prompt failed: no causal LM runs in the port (loading "
+          f"{args.prompt_extend_model!r} needs transformers). Falling back to original.")
 
 
 def _sp_plan(args, device):
@@ -998,12 +1086,15 @@ def main(argv=None):
     args.save_file = args.save_file or args.save_path or args.output_image_path
     if args.instruction is not None and args.prompt == parser.get_default("prompt"):
         args.prompt = args.instruction
+    resolve_aliases(args, parser)
+    extend_prompt(args)
     t0 = time.time()
     pipe, steps, lanes = _pipeline(args)
     _attach_vae(args, pipe)
     kw = {}
     if args.task == "open-sora":
-        kw = dict(loop=args.loop, ms=args.ms, refs=args.refs,
+        kw = dict(loop=args.loop, ms=args.ms, refs=args.refs, aes=args.aes,
+                  flow=args.flow_score, camera_motion=args.camera_motion,
                   condition_frame_length=args.condition_frame_length,
                   condition_frame_edit=args.condition_frame_edit, align=args.align)
     elif args.task in _WAN:

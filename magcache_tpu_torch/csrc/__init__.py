@@ -1,2 +1,2 @@
-"""Kernel sources: CUDA C++ (``*.cu``, built by ``ops/build.py``) and Triton
-(``prologue_triton.py``, imported only by the launching wrappers)."""
+"""Kernel sources: CUDA C++ (``*.cu`` and their ``*.cuh`` headers), built
+by ``ops/build.py``."""

@@ -34,8 +34,8 @@
 // zeros in A and W, so a ragged last k-tile adds nothing. The output map's
 // extents (rows_out, N) clip the stores of a ragged last tile.
 //
-// K7 runs this body on its modulated operand, which ln_modulate_kernel
-// (stdit3_kernels.cu) writes in one pass over x. Modulating the A tiles
+// K7 runs this body on its modulated operand, which layer_norm_kernel's
+// operand epilogue (prologue.cu) writes in one pass over x. Modulating the A tiles
 // inside the GEMM would redo the work for each of the N / 192 column tiles
 // that read a row tile (18 to 24 at STDiT3's widths): about 10 instructions
 // and 1.5 bf16 conversions an element, as much issue time as the tile's

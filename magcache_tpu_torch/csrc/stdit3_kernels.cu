@@ -39,11 +39,13 @@
 // bound all of them.
 //
 // What the design does about it (the bodies' own notes say how):
-//   K7: ln_modulate_kernel writes the normalised and modulated bf16
-//       operand in one pass over x, then the GEMM body of hopper_gemm.cuh
-//       (TMA ring, two wgmma consumer warpgroups, 128 x 192 tiles, TMA
-//       stores) multiplies it with the bias or bias + gelu epilogue. Why the
-//       modulation is not done inside the GEMM: hopper_gemm.cuh.
+//   K7: the row-resident body of prologue.cu (layer_norm_kernel, the
+//       operand epilogue; entry mc_ln_modulate) writes the normalised and
+//       modulated bf16 operand in one pass over x, then the GEMM body of
+//       hopper_gemm.cuh (TMA ring, two wgmma consumer warpgroups, 128 x 192
+//       tiles, TMA stores) multiplies it with the bias or bias + gelu
+//       epilogue. Why the modulation is not done inside the GEMM:
+//       hopper_gemm.cuh.
 //   K6: three launches. (a) q = bf16(x @ wq^T + bq) on the GEMM body; (b)
 //       the attention on hopper_cross_kernel (hopper_attention.cuh: K and V
 //       of one (batch, head) resident, query tiles of 128 rows walked
@@ -59,79 +61,7 @@
 
 #include "hopper_gemm.cuh"
 
-namespace {
-
 using hopper::bf16;
-
-// K7's operand: y = bf16(bf16((x - mean) * rsqrt(var + eps)) * (1 + scale)
-// + shift) for each row of x [B*S, K], the statistics two-pass in f32 (the
-// mean, then the mean of the squared centred values), modulation row
-// (row / S) / rep. One warp a row, 8 rows a block, K a multiple of 8; the
-// row is read three times, the second and third from L1.
-__global__ void __launch_bounds__(256)
-ln_modulate_kernel(const bf16* x, const float* mod_a, const float* mod_b, bf16* y,
-                   int rows, int S, int K, int rep, float eps) {
-  const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  const bf16* xr = x + (size_t)row * K;
-  float sum = 0.f;
-  for (int k = lane * 8; k < K; k += 256) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(xr + k);
-    const uint32_t* w = reinterpret_cast<const uint32_t*>(&raw);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 v = mc::unpack_bf16(w[j]);
-      sum += v.x + v.y;
-    }
-  }
-  for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-  const float mean = sum / K;
-  float var = 0.f;
-  for (int k = lane * 8; k < K; k += 256) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(xr + k);
-    const uint32_t* w = reinterpret_cast<const uint32_t*>(&raw);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 v = mc::unpack_bf16(w[j]);
-      const float c0 = v.x - mean, c1 = v.y - mean;
-      var += c0 * c0 + c1 * c1;
-    }
-  }
-  for (int o = 16; o > 0; o >>= 1) var += __shfl_xor_sync(0xffffffffu, var, o);
-  const float rstd = rsqrtf(var / K + eps);
-  const size_t mrow = (size_t)(row / S / rep) * K;
-  bf16* yr = y + (size_t)row * K;
-  for (int k = lane * 8; k < K; k += 256) {
-    uint4 raw = *reinterpret_cast<const uint4*>(xr + k);
-    uint32_t* w = reinterpret_cast<uint32_t*>(&raw);
-    const float4* pa = reinterpret_cast<const float4*>(mod_a + mrow + k);
-    const float4* pb = reinterpret_cast<const float4*>(mod_b + mrow + k);
-    const float4 a4[2] = {pa[0], pa[1]}, b4[2] = {pb[0], pb[1]};
-    const float* ma = reinterpret_cast<const float*>(a4);
-    const float* mb = reinterpret_cast<const float*>(b4);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 v = mc::unpack_bf16(w[j]);
-      const float y0 = mc::round_bf16((v.x - mean) * rstd);
-      const float y1 = mc::round_bf16((v.y - mean) * rstd);
-      w[j] = mc::pack_bf16(y0 * ma[2 * j] + mb[2 * j], y1 * ma[2 * j + 1] + mb[2 * j + 1]);
-    }
-    *reinterpret_cast<uint4*>(yr + k) = raw;
-  }
-}
-
-}  // namespace
-
-// K7's operand: y [B, S, K] from x (ln_modulate_kernel); scale1p is
-// 1 + scale and shift, f32 [B / rep, K].
-extern "C" int mc_ln_modulate(const void* x, const void* scale1p, const void* shift, void* y,
-                              int B, int S, int K, int rep, float eps, void* stream) {
-  const int rows = B * S;
-  ln_modulate_kernel<<<(rows + 7) / 8, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(scale1p),
-      static_cast<const float*>(shift), static_cast<bf16*>(y), rows, S, K, rep, eps);
-  return (int)cudaGetLastError();
-}
 
 // The GEMM body: out [B, rows_out, N] = epilogue(A [B, S, K] @ w^T) with the
 // tensor maps of A, w, out (and resid) in `words` (3 or 4 x 16); epi: 0

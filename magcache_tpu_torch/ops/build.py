@@ -4,10 +4,9 @@ CUDA C++ (``csrc/*.cu``, headers ``csrc/*.cuh``) is compiled by ``nvcc``
 for ``sm_90a``, one process per source, all started together, and linked
 into one shared library with a plain C interface, loaded with ``ctypes``.
 The library's file name carries a hash of the sources and flags, so an
-edited source rebuilds and an unchanged one is reused. Triton kernels
-(``csrc/prologue_triton.py``) compile at their first launch; their cache is
-kept beside the library. Everything goes under ``build/torch_kernels/`` at
-the repository root, which ``.gitignore`` lists. Nothing here runs at import.
+edited source rebuilds and an unchanged one is reused. Everything goes
+under ``build/torch_kernels/`` at the repository root, which ``.gitignore``
+lists. Nothing here runs at import.
 
 Also here: the checks the wrappers share, and the TMA tensor-map geometry
 (``tma_map``, ``map_words``) that the wgmma/TMA kernels' C side encodes.
@@ -72,6 +71,7 @@ def _compile_and_link(sources, lib_path: str) -> None:
 
 
 _BUILD_LOCK = threading.Lock()
+_STANDALONE_LOCK = threading.Lock()
 
 
 def load_cuda_library() -> ctypes.CDLL:
@@ -113,6 +113,10 @@ def _load_cuda_library() -> ctypes.CDLL:
     lib.mc_flash_attention_qknorm_tma.restype = ci
     lib.mc_ln_modulate.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, cf, vp]
     lib.mc_ln_modulate.restype = ci
+    lib.mc_layer_norm_mod.argtypes = [vp, vp, vp, cl, cl, vp, ci, ci, ci, ci, cf, vp]
+    lib.mc_layer_norm_mod.restype = ci
+    lib.mc_rms_norm_rope.argtypes = [vp, cl, cl, vp, ci, vp, vp, vp, ci, ci, ci, ci, cf, vp]
+    lib.mc_rms_norm_rope.restype = ci
     lib.mc_hopper_gemm.argtypes = [vp, vp, pl, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
     lib.mc_hopper_gemm.restype = ci
     lib.mc_cross_attention_tma.argtypes = [vp, vp, vp, pl, vp, ci, ci, ci, ci, ci, cf, vp]
@@ -136,6 +140,21 @@ def _load_cuda_library() -> ctypes.CDLL:
     return lib
 
 
+def load_standalone_library(source: str) -> ctypes.CDLL:
+    """Compiles one CUDA source outside ``csrc/`` (a yardstick kernel kept
+    for a check, e.g. ``tools/ln_modulate_parent.cu``) into its own shared
+    library under the build directory and loads it; the caller declares its
+    C signatures. Raises with the compiler's output when nvcc fails."""
+    with open(source, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    lib_path = os.path.join(BUILD_DIR, f"{os.path.basename(source)}_{digest}.so")
+    with _STANDALONE_LOCK:       # apart from the library's: both may build at once
+        if not os.path.exists(lib_path):
+            _compile_and_link([os.path.abspath(source)], lib_path)
+    return ctypes.CDLL(lib_path)
+
+
 def check_bf16(name: str, t: torch.Tensor, shape, device) -> None:
     """Raises unless ``t`` is what a kernel takes: a contiguous, 16-byte
     aligned bf16 CUDA tensor of ``shape`` on ``device``."""
@@ -156,9 +175,6 @@ def check_launch(lib: ctypes.CDLL, code: int, name: str) -> None:
 
 
 _COUNT_LOCK = threading.Lock()
-# Triton compiles at a kernel's first launch per specialisation; local ranks
-# launch from several threads, so the launches take turns
-TRITON_LOCK = threading.Lock()
 
 
 def count_launch(fn, attr: str = "launches", key=None) -> None:
@@ -170,13 +186,6 @@ def count_launch(fn, attr: str = "launches", key=None) -> None:
             setattr(fn, attr, getattr(fn, attr) + 1)
         else:
             getattr(fn, attr)[key] += 1
-
-
-def triton_prologue():
-    """The Triton kernel module, imported on first use (needs ``triton``)."""
-    os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(BUILD_DIR, "triton"))
-    from magcache_tpu_torch.csrc import prologue_triton
-    return prologue_triton
 
 
 @dataclasses.dataclass(frozen=True)

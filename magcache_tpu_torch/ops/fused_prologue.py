@@ -2,8 +2,8 @@
 and K8, each beside its plain version.
 
 ``rms_norm_rope`` (K2) and ``layer_norm_mod`` (K3, K3p) take a CUDA tensor to the
-Triton kernels in ``csrc/prologue_triton.py``; ``lnmod_matmul`` (K7) to a
-LayerNorm-modulate kernel and the wgmma/TMA GEMM body
+row-resident kernels of ``csrc/prologue.cu``; ``lnmod_matmul`` (K7) to the
+same body's operand pass and the wgmma/TMA GEMM body
 (``csrc/stdit3_kernels.cu``, ``csrc/hopper_gemm.cuh``; ``ops/gemm.py``) and
 ``matmul_gated_residual`` (K8) to the same GEMM body with its gate
 epilogue (``csrc/stdit3_kernels.cu``; rows flattened where ``rows_out ==
@@ -36,7 +36,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from magcache_tpu_torch.ops.build import check_bf16, check_launch, count_launch
+from magcache_tpu_torch.ops.build import (check_bf16, check_launch, count_launch,
+                                          load_cuda_library)
 from magcache_tpu_torch.ops.gemm import gate_geometry, gemm_launch
 from magcache_tpu_torch.ops.norms import layer_norm, rms_norm
 from magcache_tpu_torch.ops.rope import apply_rope
@@ -47,17 +48,39 @@ __all__ = ["rms_norm_rope", "rms_norm_rope_plain", "layer_norm_mod",
            "matmul_gated_residual", "matmul_gated_residual_plain"]
 
 
-def _next_pow2(n: int) -> int:
-    return 1 << (n - 1).bit_length()
-
-
-def _require(cond: bool, msg: str) -> None:
+def _require(cond: bool, msg) -> None:
+    """Raises ``ValueError(msg)`` unless ``cond``; ``msg`` may be a callable
+    that builds the message, so a launch-bound wrapper formats none on the
+    path that passes."""
     if not cond:
-        raise ValueError(msg)
+        raise ValueError(msg() if callable(msg) else msg)
+
+
+def _f32_row(name: str, t: torch.Tensor, n: int, device) -> torch.Tensor:
+    """An affine weight or bias as the kernel reads it: f32 ``[n]`` with a
+    unit stride on ``device``; raises otherwise."""
+    _require(t.device == device and t.dtype == torch.float32 and t.numel() == n,
+             lambda: f"layer_norm_mod: {name} must be f32 [{n}] on {device}, got "
+             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    return t.reshape(n).contiguous()
+
+
+def _sample_rows(name: str, t: torch.Tensor, b: int, n: int, device):
+    """``(rows, row_stride)``: a modulation table ``[B, 1, n]`` or ``[B, n]``
+    as ``B`` f32 rows of ``n`` with a unit inner stride, read in place where
+    it is a view of a wider table (stride 0: one row for every sample)."""
+    _require(t.device == device and t.dtype == torch.float32 and t.numel() == b * n,
+             lambda: f"layer_norm_mod: {name} rows must be f32 [{b}, {n}] on {device}, got "
+             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    rows = t.reshape(b, n)
+    if rows.stride(1) != 1:
+        rows = rows.contiguous()
+    return rows, rows.stride(0) if b > 1 else 0
 
 
 NORM_SCOPES = ("token", "head")
 ROPE_HEAD_DIM = 128          # the head dim K2's kernel takes
+MAX_ROW_WIDTH = 5120         # the widest row K2, K3 and K7's operand pass hold
 
 
 def rms_norm_rope_plain(x: torch.Tensor, gain: torch.Tensor, cos: torch.Tensor,
@@ -86,9 +109,11 @@ def rms_norm_rope(x: torch.Tensor, gain: torch.Tensor, cos: torch.Tensor,
     column slice of a fused projection is read in place); gain: f32
     ``[H*D]``, or ``[D]`` shared by every head in head scope; cos/sin: f32
     ``[S, D/2]``. Returns a contiguous ``[B, S, H, D]`` in x's dtype. The
-    kernel takes bf16 and head dim 128.
+    kernel (``csrc/prologue.cu``) takes bf16, head dim 128, rows of at most
+    ``MAX_ROW_WIDTH`` values each starting 16-byte aligned (strides and
+    offset multiples of 8 values), and 16-byte aligned f32 tables.
     """
-    _require(norm_scope in NORM_SCOPES, f"rms_norm_rope: norm_scope must be "
+    _require(norm_scope in NORM_SCOPES, lambda: f"rms_norm_rope: norm_scope must be "
              f"one of {NORM_SCOPES}, got {norm_scope!r}")
     if x.device.type == "cpu":
         return rms_norm_rope_plain(x, gain, cos, sin, heads, eps=eps,
@@ -97,29 +122,34 @@ def rms_norm_rope(x: torch.Tensor, gain: torch.Tensor, cos: torch.Tensor,
     d = hd // heads
     _require(x.is_cuda and x.dtype == torch.bfloat16 and x.stride(2) == 1
              and x.stride(1) >= hd,
-             f"rms_norm_rope: x must be a bf16 CUDA tensor with unit channel "
+             lambda: f"rms_norm_rope: x must be a bf16 CUDA tensor with unit channel "
              f"stride, got {x.dtype} strides {x.stride()} on {x.device}")
-    _require(hd == heads * d and d == ROPE_HEAD_DIM, f"rms_norm_rope: the "
-             f"kernel takes head dim {ROPE_HEAD_DIM}, got {heads} heads over "
-             f"width {hd}")
+    _require(hd == heads * d and d == ROPE_HEAD_DIM and hd <= MAX_ROW_WIDTH,
+             lambda: f"rms_norm_rope: the kernel takes head dim {ROPE_HEAD_DIM} and rows "
+             f"of at most {MAX_ROW_WIDTH}, got {heads} heads over width {hd}")
+    _require(x.data_ptr() % 16 == 0 and (b == 1 or x.stride(0) % 8 == 0)
+             and (s == 1 or x.stride(1) % 8 == 0),
+             lambda: f"rms_norm_rope: every row of x must start 16-byte aligned, got "
+             f"strides {x.stride()} at offset {x.storage_offset()}")
     shared_gain = norm_scope == "head" and gain.numel() == d
     for name, t, shape in (("gain", gain, (d,) if shared_gain else (hd,)),
                            ("cos", cos, (s, d // 2)), ("sin", sin, (s, d // 2))):
         _require(t.device == x.device and t.dtype == torch.float32
-                 and t.is_contiguous() and tuple(t.shape) == shape,
-                 f"rms_norm_rope: {name} must be contiguous f32 {shape} on "
-                 f"{x.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-    from magcache_tpu_torch.ops.build import TRITON_LOCK, triton_prologue
-
+                 and t.is_contiguous() and tuple(t.shape) == shape
+                 and t.data_ptr() % 16 == 0,
+                 lambda: f"rms_norm_rope: {name} must be contiguous 16-byte aligned f32 "
+                 f"{shape} on {x.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
     out = torch.empty((b, s, heads, d), dtype=x.dtype, device=x.device)
-    with TRITON_LOCK:
-        triton_prologue().rms_norm_rope_kernel[(b * s,)](
-            x, gain, cos, sin, out, s, x.stride(0), x.stride(1),
-            0 if shared_gain else d, eps, H=heads, D=d,
-            BLOCK_H=_next_pow2(heads), HEAD_SCOPE=norm_scope == "head",
-            num_warps=4)
-    count_launch(rms_norm_rope)
-    count_launch(rms_norm_rope, "scope_launches", norm_scope)
+    if out.numel():
+        lib = load_cuda_library()
+        code = lib.mc_rms_norm_rope(
+            x.data_ptr(), x.stride(0), x.stride(1), gain.data_ptr(), int(shared_gain),
+            cos.data_ptr(), sin.data_ptr(), out.data_ptr(), b, s, heads,
+            int(norm_scope == "head"), float(eps),
+            torch.cuda.current_stream(x.device).cuda_stream)
+        check_launch(lib, code, "rms_norm_rope")
+        count_launch(rms_norm_rope)
+        count_launch(rms_norm_rope, "scope_launches", norm_scope)
     return out
 
 
@@ -151,8 +181,10 @@ def layer_norm_mod(x: torch.Tensor, *, weight: Optional[torch.Tensor] = None,
     ``[B, D]`` f32 rows) or affine LayerNorm (``weight``/``bias``, ``[D]``);
     with neither, K3p: the two-pass f32 LayerNorm alone, rounded once.
 
-    x: ``[B, S, D]``; returns x's dtype. The kernel takes contiguous bf16.
-    Launches count in ``layer_norm_mod.launches``, K3p's in
+    x: ``[B, S, D]``; returns x's dtype. The kernel (``csrc/prologue.cu``)
+    takes contiguous 16-byte aligned bf16 rows of a multiple of 8 values, at
+    most ``MAX_ROW_WIDTH``; the scale/shift rows may be views of a wider
+    table (a unit inner stride, any row stride). Launches count in ``layer_norm_mod.launches``, K3p's in
     ``layer_norm_mod.plain_launches``.
     """
     if scale is not None and weight is not None:
@@ -163,35 +195,34 @@ def layer_norm_mod(x: torch.Tensor, *, weight: Optional[torch.Tensor] = None,
         return layer_norm_mod_plain(x, weight=weight, bias=bias, scale=scale,
                                     shift=shift, eps=eps)
     b, s, hd = x.shape
-    _require(x.is_cuda and x.is_contiguous() and x.dtype == torch.bfloat16,
-             f"layer_norm_mod: x must be a contiguous bf16 CUDA tensor, got "
-             f"{x.dtype} on {x.device}")
+    _require(x.is_cuda and x.is_contiguous() and x.dtype == torch.bfloat16
+             and x.data_ptr() % 16 == 0,
+             lambda: f"layer_norm_mod: x must be a contiguous 16-byte aligned bf16 CUDA "
+             f"tensor, got {x.dtype} on {x.device}")
+    _require(hd % 8 == 0 and 0 < hd <= MAX_ROW_WIDTH,
+             lambda: f"layer_norm_mod: the kernel takes widths that are multiples of 8 "
+             f"up to {MAX_ROW_WIDTH}, got {hd}")
+    a = c = None
+    sa = sc = 0
     if scale is not None:   # per-sample rows, often strided slices of the modulation table
         mode = 1
-        a = scale.reshape(b, hd).contiguous()
-        c = shift.reshape(b, hd).contiguous()
-        shape = (b, hd)
+        (a, sa), (c, sc) = (_sample_rows("scale", scale, b, hd, x.device),
+                            _sample_rows("shift", shift, b, hd, x.device))
     elif weight is not None:
         mode = 0
-        a = weight.contiguous()
-        c = bias.contiguous() if bias is not None else torch.zeros_like(a)
-        shape = (hd,)
+        a = _f32_row("weight", weight, hd, x.device)
+        c = None if bias is None else _f32_row("bias", bias, hd, x.device)
     else:                   # K3p: the kernel reads neither row
         mode = 2
-        a = c = x
-    if mode != 2:
-        for name, t in (("a", a), ("b", c)):
-            _require(t.device == x.device and t.dtype == torch.float32
-                     and tuple(t.shape) == shape,
-                     f"layer_norm_mod: {name} row must be f32 {shape} on "
-                     f"{x.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-    from magcache_tpu_torch.ops.build import TRITON_LOCK, triton_prologue
-
     out = torch.empty_like(x)
-    with TRITON_LOCK:
-        triton_prologue().layer_norm_mod_kernel[(b * s,)](
-            x, a, c, out, s, eps, D=hd, MODE=mode, BLOCK=_next_pow2(hd), num_warps=4)
-    count_launch(layer_norm_mod, "plain_launches" if mode == 2 else "launches")
+    if out.numel():
+        lib = load_cuda_library()
+        code = lib.mc_layer_norm_mod(
+            x.data_ptr(), None if a is None else a.data_ptr(),
+            None if c is None else c.data_ptr(), sa, sc, out.data_ptr(), b, s, hd, mode,
+            float(eps), torch.cuda.current_stream(x.device).cuda_stream)
+        check_launch(lib, code, "layer_norm_mod")
+        count_launch(layer_norm_mod, "plain_launches" if mode == 2 else "launches")
     return out
 
 
@@ -304,16 +335,15 @@ def lnmod_matmul(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
     nb = b // batch_repeat
     check_bf16("lnmod_matmul: x", x, (b, s, d_in), x.device)
     check_bf16("lnmod_matmul: w", w, (d_out, d_in), x.device)
-    _require(d_in % 8 == 0 and d_out % 8 == 0,
-             f"lnmod_matmul: widths {d_in} -> {d_out} must be multiples of 8")
+    _require(d_in % 8 == 0 and d_out % 8 == 0 and d_in <= MAX_ROW_WIDTH,
+             f"lnmod_matmul: widths {d_in} -> {d_out} must be multiples of 8, d_in "
+             f"at most {MAX_ROW_WIDTH}")
     _require(scale.numel() == nb * d_in and shift.numel() == nb * d_in
              and scale.device == x.device and shift.device == x.device,
              f"lnmod_matmul: scale/shift must hold [{nb}, {d_in}] on {x.device}")
     a = (1.0 + _per_row(scale, nb, d_in)).contiguous()   # f32, as the plain form
     c = _per_row(shift, nb, d_in)
     bias32 = _f32_vector(bias, d_out, x)
-    from magcache_tpu_torch.ops.build import load_cuda_library
-
     lib = load_cuda_library()
     y = torch.empty_like(x)
     code = lib.mc_ln_modulate(x.data_ptr(), a.data_ptr(), c.data_ptr(), y.data_ptr(), b, s,

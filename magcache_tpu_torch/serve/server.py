@@ -551,10 +551,10 @@ def make_http_server(server: PipelineServer, host: str = "127.0.0.1",
         def _send_job(self, job: Job) -> None:
             """Deliver a finished job; its latent payload is released from
             the kept record after this first delivery."""
-            self._send(200 if job.status == "done" else 500,
-                       job.record(include_latents=True))
-            if job.result is not None:
+            rec = job.record(include_latents=True)
+            if job.result is not None:       # before the reply: the client may ask again at once
                 job.result.pop("latents_b64", None)
+            self._send(200 if job.status == "done" else 500, rec)
 
         def do_GET(self):  # noqa: N802 - http.server API
             if self.path == "/healthz":

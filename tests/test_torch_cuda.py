@@ -1,6 +1,6 @@
 """The port's kernels on an NVIDIA card, against their plain versions.
 
-Marked ``cuda``: without a card (and nvcc and triton) these tests skip. On a
+Marked ``cuda``: without a card (and nvcc) these tests skip. On a
 card, from the repository root::
 
     python -m pytest tests/test_torch_cuda.py -q -p no:cacheprovider
@@ -60,7 +60,8 @@ def test_k1_refuses_what_it_does_not_take(dev):
 
 # a flipped bf16 rounding of the normed value -> one ulp of the pair's
 # largest element
-@pytest.mark.parametrize("b,s,heads", [(2, 300, 12), (1, 129, 2)])
+@pytest.mark.parametrize("b,s,heads", [(2, 300, 12), (1, 129, 2), (2, 77, 24), (1, 50, 40),
+                                       (3, 9, 9)])
 def test_k2_matches_plain(dev, b, s, heads):
     x = _rand(dev, b, s, heads * 128, scale=2.0)
     gain = 1.0 + _rand(dev, heads * 128, dtype=torch.float32, scale=0.1, seed=4)
@@ -77,7 +78,11 @@ def test_k2_matches_plain(dev, b, s, heads):
     (512, 24, 9216, 3072, True),     # text k slice
     (4608, 24, 21504, 3072, True),   # single block, k slice of lin1
     (333, 24, 3072, 0, False),       # contiguous rows, [H*D] gain
-    (77, 3, 1000, 128, True)])       # narrow and ragged
+    (77, 3, 1000, 128, True),        # narrow and ragged
+    (65, 12, 1536, 0, False),        # 12 heads, [H*D] gain
+    (65, 12, 4608, 1536, True),      # 12 heads, a k slice, shared gain
+    (40, 40, 5120, 0, True),         # 40 heads (20 vectors a lane), shared gain
+    (33, 40, 15360, 5120, False)])   # 40 heads, a k slice, [H*D] gain
 def test_k2_head_scope_matches_plain(dev, s, heads, row, offset, shared_gain):
     hd = heads * 128
     fused = _rand(dev, 1, s, row, scale=2.0, seed=7)
@@ -113,6 +118,16 @@ def test_k2_refuses_what_it_does_not_take(dev):
                         tab, tab, 2, norm_scope="head")
     with pytest.raises(ValueError):                          # [D] gain, token scope
         P.rms_norm_rope(x, torch.ones(128, device=dev), tab, tab, 2)
+    g = torch.ones(128, device=dev)
+    for scope in ("token", "head"):
+        with pytest.raises(ValueError, match="16-byte aligned"):  # slice at 4 values
+            P.rms_norm_rope(_rand(dev, 1, 10, 1024)[..., 4:4 + 256], g.repeat(2), tab,
+                            tab, 2, norm_scope=scope)
+        with pytest.raises(ValueError, match="16-byte aligned"):  # row stride 1,028
+            P.rms_norm_rope(_rand(dev, 1, 10, 1028)[..., :256], g.repeat(2), tab, tab,
+                            2, norm_scope=scope)
+    with pytest.raises(ValueError, match="at most"):         # 48 heads: 6,144 a row
+        P.rms_norm_rope(_rand(dev, 1, 10, 48 * 128), g, tab, tab, 48, norm_scope="head")
 
 
 def test_tiny_flux_pipeline_runs_through_the_kernels(dev):
@@ -140,7 +155,7 @@ def test_tiny_flux_pipeline_runs_through_the_kernels(dev):
 
 
 @pytest.mark.parametrize("mode", ["mod", "affine"])
-@pytest.mark.parametrize("width", [1536, 256, 200])
+@pytest.mark.parametrize("width", [1152, 1536, 3072, 5120, 256, 200])
 def test_k3_matches_plain(dev, mode, width):
     b = 2
     x = _rand(dev, b, 300, width, scale=2.0)
@@ -153,6 +168,72 @@ def test_k3_matches_plain(dev, mode, width):
     got = P.layer_norm_mod(x, eps=1e-6, **kw)
     want = P.layer_norm_mod_plain(x, eps=1e-6, **kw)
     torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=1.6e-2)
+
+
+@pytest.mark.parametrize("row", [3072, 6144])
+def test_k3_reads_modulation_rows_in_place(dev, row):
+    """scale/shift as views of a wider f32 table (row stride 6D, as Wan's
+    and FLUX's modulation chunks), and one row expanded over the batch."""
+    x = _rand(dev, 2, 130, 1536, scale=2.0)
+    table = _rand(dev, 2, 1, row, dtype=torch.float32, scale=0.1, seed=5)
+    sc, sh = table[..., :1536], table[..., row - 1536:]
+    got = P.layer_norm_mod(x, scale=sc, shift=sh, eps=1e-6)
+    want = P.layer_norm_mod_plain(x, scale=sc, shift=sh, eps=1e-6)
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=1.6e-2)
+    one = table[:1, :, :1536].expand(2, 1, 1536)
+    torch.testing.assert_close(P.layer_norm_mod(x, scale=one, shift=one).float(),
+                               P.layer_norm_mod_plain(x, scale=one, shift=one).float(),
+                               atol=3e-2, rtol=1.6e-2)
+
+
+def test_k3_refuses_what_it_does_not_take(dev):
+    g = torch.zeros(2, 1, 104, device=dev)
+    with pytest.raises(ValueError, match="multiples of 8"):  # width 100
+        P.layer_norm_mod(_rand(dev, 2, 7, 100), eps=1e-6)
+    with pytest.raises(ValueError, match="multiples of 8"):  # width 6,144
+        P.layer_norm_mod(_rand(dev, 1, 7, 6144), eps=1e-6)
+    with pytest.raises(ValueError, match="contiguous"):      # strided rows
+        P.layer_norm_mod(_rand(dev, 2, 7, 208)[..., :104], scale=g, shift=g)
+    with pytest.raises(ValueError, match="rows must be f32"):  # bf16 table
+        P.layer_norm_mod(_rand(dev, 2, 7, 104), scale=g.bfloat16(), shift=g)
+
+
+def _parent_operand(dev, x, a, c, rep, eps=1e-6):
+    """The operand pass K7 ran before it moved onto ``csrc/prologue.cu``:
+    ``tools/ln_modulate_parent.cu``, built on its own."""
+    import ctypes
+    import os
+
+    from magcache_tpu_torch.ops.build import load_standalone_library
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    lib = load_standalone_library(os.path.join(root, "tools", "ln_modulate_parent.cu"))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.mc_ln_modulate_parent.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ctypes.c_float, vp]
+    y = torch.empty_like(x)
+    b, s, k = x.shape
+    assert lib.mc_ln_modulate_parent(x.data_ptr(), a.data_ptr(), c.data_ptr(), y.data_ptr(),
+                                     b, s, k, rep, eps,
+                                     torch.cuda.current_stream().cuda_stream) == 0
+    return y
+
+
+@pytest.mark.parametrize("b,s,k,rep", [(30, 159, 1152, 15), (2, 333, 1152, 1),
+                                       (6, 27, 144, 2), (2, 65, 4608, 1), (2, 40, 1536, 2)])
+def test_k7_operand_is_bit_equal_to_the_parent_kernel(dev, b, s, k, rep):
+    from magcache_tpu_torch.ops.build import check_launch, load_cuda_library
+
+    x = _rand(dev, b, s, k, scale=2.0, seed=1)
+    a = 1.0 + _rand(dev, b // rep, k, dtype=torch.float32, scale=0.1, seed=2)
+    c = _rand(dev, b // rep, k, dtype=torch.float32, scale=0.1, seed=3)
+    lib = load_cuda_library()
+    y = torch.empty_like(x)
+    check_launch(lib, lib.mc_ln_modulate(x.data_ptr(), a.data_ptr(), c.data_ptr(),
+                                         y.data_ptr(), b, s, k, rep, 1e-6,
+                                         torch.cuda.current_stream().cuda_stream), "K7")
+    want = _parent_operand(dev, x, a, c, rep)
+    torch.cuda.synchronize()
+    assert torch.equal(y, want)
 
 
 def test_tiny_pipeline_runs_through_the_kernels(dev):
@@ -819,7 +900,8 @@ def test_ring_merge_of_k1c_matches_k1(dev):
 
 # K3p rounds once, at the store, as its plain version: a tie may flip after
 # a differently ordered f32 sum -> one bf16 ulp at |y| < 8
-@pytest.mark.parametrize("b,s,d", [(2, 300, 1536), (1, 129, 1152), (3, 7, 100)])
+@pytest.mark.parametrize("b,s,d", [(2, 300, 1536), (1, 129, 1152), (3, 7, 104),
+                                   (2, 65, 3072), (1, 33, 5120)])
 def test_k3p_matches_plain(dev, b, s, d):
     x = _rand(dev, b, s, d, scale=2.0)
     before = (P.layer_norm_mod.launches, P.layer_norm_mod.plain_launches)

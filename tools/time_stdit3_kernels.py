@@ -9,8 +9,9 @@ another checkout's kernels in turns.
 Builds the kernel library from this checkout and prints ptxas's report on
 the Hopper bodies these kernels run on (``hopper_gemm_kernel`` with every
 epilogue, ``hopper_attention_kernel`` with every instantiation,
-``hopper_cross_kernel``, ``ln_modulate_kernel``, ``qk_norm_kernel``,
-``grouped_stream_kernel``, ``tiny_stream_kernel``, ``tiny_attention_kernel``:
+``hopper_cross_kernel``, ``layer_norm_kernel`` (K7's operand pass, in
+``prologue.cu``), ``qk_norm_kernel``, ``grouped_stream_kernel``,
+``tiny_stream_kernel``, ``tiny_attention_kernel``:
 registers, spills, any "wgmma ... serialized" line) and the HGMMA count of
 each (``cuobjdump -sass``). Then, at
 STDiT3-XL/2's 480p and 720p shapes and Latte-1's, the CUDA-event time of one
@@ -68,7 +69,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from tools.time_attention_kernels import build_report, cuda_ms  # noqa: E402
 
 BODIES = ("hopper_gemm_kernel", "hopper_attention_kernel", "hopper_cross_kernel",
-          "ln_modulate_kernel", "qk_norm_kernel", "grouped_stream_kernel",
+          "layer_norm_kernel", "qk_norm_kernel", "grouped_stream_kernel",
           "tiny_stream_kernel", "tiny_attention_kernel")
 # the parent's mma.sync small-group kernel with its grid transposed (heads
 # in blockIdx.x): the diagnostic that splits its loss between locality and
