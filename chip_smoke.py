@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives ``magcache_tpu_torch`` (never JAX) in ninety-five phases and exits
+Drives ``magcache_tpu_torch`` (never JAX) in 103 phases and exits
 nonzero on the first failure:
 
 1. environment: a CUDA card is required; prints the card's name and power
@@ -124,11 +124,12 @@ wall time here is no time of a four-GPU run:
    step shape [2, 12, 8190, 128]; the ring merge of 4 shards against K1 on
    the whole sequence; K3p (the affine-free LayerNorm) at 2 x 32,760 x 1536;
 24. one full-shape forward of WAN_1_3B under 4 local ranks, Ulysses and then
-   ring, each against phase 4's single-rank output; checks the launches per
-   forward;
+   ring (one call each, cut from two), each against phase 4's
+   single-rank output; checks the launches per forward;
 25. requests through ``WanPipeline.generate`` at 832x480x17 and 20 steps
-   under 4 local ranks (1,950 tokens a rank): full compute and MagCache
-   E012K2R02 with Ulysses, MagCache once with the ring; skip bits on every
+   under 4 local ranks (1,950 tokens a rank): MagCache E012K2R02 with
+   Ulysses and with the ring (a full-compute request cut: phase
+   103's calibration runs full compute under sp); skip bits on every
    rank, launch counts, identical latents on every rank, and their distance
    from phase 5's single-rank latents;
 26. the narrow Wan slice of phase 6 on the card (bf16) under 2 local ranks,
@@ -171,13 +172,15 @@ Wan2.1 T2V-1.3B's ends (cuBLAS and cuDNN; TF32 off, as phase 1 sets it):
 
 Wan's other solvers and policies, and PAB (no new kernel; K6 without the
 residual for the first time; the reuse decisions are host masks):
-34. requests through ``WanPipeline.generate`` at 832x480x17 and 20 steps,
-   phase 5's weights: dpm++ and Euler at full compute, dpm++ with MagCache
-   E012K2R02, a dpm++ calibration whose recorded ratios a second request
-   installs (``mag_ratios_override``), and the rolling policy at 50 steps
+34. requests through ``WanPipeline.generate`` at 832x480x17 and 12 steps (cut
+   from 20),
+   phase 5's weights: dpm++ and Euler at full compute, dpm++ and Euler with
+   MagCache E012K2R02, a dpm++ calibration whose recorded ratios a second request
+   installs (``mag_ratios_override``), and the rolling policy at 25 steps
+   (cut from 50; the published table resampled)
    with 0.12 / K 2 (unipc); skip bits against the schedule, launches against
-   the trunk runs, and dpm++'s and Euler's rel L2 against phase 5's unipc;
-35. TeaCache requests at 832x480x17, 20 UniPC steps, threshold 0.2, without
+   the trunk runs, and Euler's rel L2 against dpm++;
+35. TeaCache requests at 832x480x17, 12 UniPC steps, threshold 0.2, without
    and with ``use_ret_steps``: every forced-window forward computed, launches
    against the realized per-lane bits (a half-batch step is one trunk run),
    the skips per lane printed (bf16 may move a near-threshold decision, so
@@ -217,9 +220,10 @@ over groups of 17 on its "tma" body):
    tokens, 2 CFG rows, 28 blocks, packed route): time, peak memory,
    launches per forward;
 41. requests through ``OpenSoraPlanPipeline.generate`` (v120) at 29x480x640
-   (9,600 tokens) and 30 Euler-Ancestral steps (cut from 150): full compute,
-   MagCache (0.12 / K 3 / R 0.2, flat ratios, 2 lanes), a calibration whose
-   ratios a second MagCache request installs, and PAB (spatial + cross);
+   (9,600 tokens) and 30 Euler-Ancestral steps (cut from 150): MagCache
+   (0.12 / K 3 / R 0.2, flat ratios, 2 lanes), a calibration (the
+   full-compute trajectory; the separate full-compute request was cut) whose ratios a second MagCache request installs, and PAB (spatial
+   + cross, against the calibration's latents);
    skip bits against ``compute_skip_schedule``, launches against the trunk
    runs, PAB's reuse per site against ``broadcast_masks``, peak memory;
 42. requests through the same pipeline (v110: the Latte-1 trunk, 8 output
@@ -230,11 +234,12 @@ over groups of 17 on its "tma" body):
    run) checked;
 43. CogVideoX-5B (9.5 B parameters, bf16, initialised on the card): K1 at
    the 49x480x720 joint shape 2x17,776x48x64 (padded to 128) against its
-   plain version beside SDPA at 64, then two full-shape forwards (17,550
-   video + 226 text tokens, 42 blocks);
+   plain version beside SDPA at 64, then one full-shape forward (17,550
+   video + 226 text tokens, 42 blocks; cut from two);
 44. requests through ``CogVideoXPipeline.generate`` at 13x480x720 (frames
-   cut from 49: 5,400 video tokens) and 20 DDIM steps (cut from 50): full
-   compute, MagCache, dynamic CFG with MagCache, PAB (``COGVIDEOX_PAB``);
+   cut from 49: 5,400 video tokens) and 10 DDIM steps (cut from 50, and
+   from 20): full compute, MagCache, dynamic CFG with MagCache,
+   PAB (``COGVIDEOX_PAB``);
 45. narrow Open-Sora-Plan v1.2 (both routes), v1.1 (17 latent frames) and
    CogVideoX through their pipelines with skipped steps, bf16 on the card
    against f32 on the CPU, within 5e-2 rel L2.
@@ -247,24 +252,24 @@ and from 121,360 queries to 77 keys; the VAEs are cuDNN convs in f32):
    context), and at the SD3 stack's 333 context tokens (phase 53's
    request): spatial 80x1,773x24x64 and cross 2x70,920x24x64 x 333 keys,
    each against its plain version beside SDPA at 64;
-47. two full-shape forwards of Vchitect-XL-2B (2.42 B parameters, bf16) at
+47. one full-shape forward (cut from two) of Vchitect-XL-2B (2.42 B parameters, bf16) at
    40x480x768 (40 frames of 30x48 patches + 77 context tokens, 2 CFG rows,
    24 blocks): time, peak memory, 24 spatial + 24 cross K1 launches a
    forward and nothing else of the kernel table (the temporal attention
    over 40 frames takes the einsum path), and a profile;
 48. requests through ``VchitectPipeline.generate`` at 16x480x768 (frames
    cut from 40) and 20 FlowMatch-Euler steps (cut from 100), guidance 7.5:
-   full compute, MagCache (0.12 / K 3 / R 0.2, flat ratios, 2 lanes), a
-   calibration whose ratios a second MagCache request installs, and PAB
+   MagCache (0.12 / K 3 / R 0.2, flat ratios, 2 lanes), a calibration (the
+   full-compute trajectory; the separate full-compute request was cut) whose ratios a second MagCache request installs, and PAB
    (spatial range 2, temporal range 4 in (100, 800)); skip bits against
    ``skip_mask_for``, launches against the trunk runs, reuse per site
    against ``broadcast_masks``, peak memory;
-49. f32 decodes with random weights: the Open-Sora-Plan CausalVAE in the
-   v1.2 layout (latents [1, 24, 60, 80, 4] -> pixels [1, 93, 480, 640, 3]:
-   two time windows, 3 x 3 tiles) and the v1.1 layout ([1, 17, 64, 64, 4]
-   -> [1, 65, 512, 512, 3]), and the CogVideoX VAE's ``decode_tiled``
-   ([1, 13, 60, 90, 16] -> [1, 49, 480, 720, 3]): time, peak memory, shape,
-   finite;
+49. f32 decodes with random weights (frames cut): the
+   Open-Sora-Plan CausalVAE in the v1.2 layout (latents [1, 17, 60, 80, 4]
+   -> pixels [1, 65, 480, 640, 3]: two time windows, 3 x 3 tiles) and the
+   v1.1 layout ([1, 9, 64, 64, 4] -> [1, 33, 512, 512, 3]), and the
+   CogVideoX VAE's ``decode_tiled`` ([1, 5, 60, 90, 16] -> [1, 17, 480,
+   720, 3]): time, peak memory, shape, finite;
 50. phase 41's and 44's MagCache requests once more with ``vae=`` (phase
    49's v1.2 and CogVideoX VAEs): Open-Sora-Plan from the prompt through
    phase 55's mT5-XXL, pixels [1, 29, 480, 640, 3], and CogVideoX (mock
@@ -338,7 +343,8 @@ ViT-H/14 tower's K1; the Wan VAE's encoder on cuDNN):
    context tokens; time, peak memory, launches per forward (K1 120, K2 80,
    K3 120, K3p 1);
 60. i2v requests through ``WanPipeline.generate(image=)`` at 832x480x17
-   (frames cut from 81) and 20 UniPC steps (cut from 40), shift 3.0: UMT5-XXL text, a
+   (frames cut from 81) and 14 UniPC steps (cut from 40, and from 20), shift 3.0:
+   UMT5-XXL text, a
    seeded 720x1280 image through the CLIP ViT-H/14 tower (f32) and the Wan
    VAE encode (f32), the f32 decode; full compute and MagCache
    ``wan2.1-i2v-480p`` (22 of 40 lane-forwards elided); skip bits,
@@ -367,19 +373,19 @@ shapes and launch counts):
    computes the same function; the call with the prefix (K3 over every
    row, then K3 on the prefix's copy written over its rows) timed against
    one whole K3;
-64. two full-shape forwards of WAN_5B (5.0 B parameters, bf16) at
+64. one full-shape forward (cut from two) of WAN_5B (5.0 B parameters, bf16) at
    1280x704x121 with an image's t = 0 prefix, 2 lanes: time, peak memory,
    launches per forward (K1 60, K2 60, K3 150, K3p 1);
 65. a TI2V-5B request through ``WanPipeline.generate(image=)`` at
-   1280x704x17, 50 UniPC steps, MagCache ``wan2.2-ti2v-5B-i2v`` (48 of 100
-   elided), a seeded image through the Wan2.2 VAE encode (base 160, 48
+   1280x704x17, 15 UniPC steps (cut from 50), MagCache
+   ``wan2.2-ti2v-5B-i2v`` (16 of 30 elided), a seeded image through the Wan2.2 VAE encode (base 160, 48
    channels, patchify 2; f32) and its decode; latent frame 0 against the
    image's encode after sampling;
 66. one full-shape forward of VACE-14B (17.3 B parameters; 40 blocks and 8
    VACE blocks) at 832x480x81: time, peak memory, launches (K1 96, K2 96,
    K3 144, K3p 1);
-67. VACE-1.3B requests at 832x480x17, 50 steps, shift 16, MagCache
-   ``wan2.1-vace-1.3B`` (50 of 100 elided), from a seeded source video and
+67. VACE-1.3B requests at 832x480x17, 25 steps (cut from 50),
+   shift 16, MagCache ``wan2.1-vace-1.3B`` (26 of 50 elided), from a seeded source video and
    box mask through the Wan VAE encode and decode (f32), and an R2V request
    with one reference image (6 latent frames sampled, 5 kept);
 68. the A14B MoE at 832x480x17, 24 steps (cut from 40), both WAN_14B
@@ -550,6 +556,40 @@ and the VAE halves (K1, K3-K7, K9 on new paths; no new kernel):
    with masked frames on all three routes, Latte on grouped and vpu and
    at frames of 2,304 tokens on packed; launches against the masks.
 
+Wan's other tasks, solvers and cache policies under sp (no new kernel; K1b,
+K1c, K2, K3 and K3p at new shapes). Each phase runs right after the
+single-rank phase whose model, inputs and output it reuses, under local
+ranks on the one card (threads taking turns: their work is serialised, so
+no wall time here is a multi-GPU time). Each checks that every rank
+returns the same bits, that every rank's own launches
+(``ops.build.thread_launches``) equal ``sp_rank_launches`` for it, and
+that every rank realized the schedule's skip bits:
+96. (after 59) K1b at the Ulysses self shape [2, 10, 32760, 128] and at
+   the cross shape q [2, 40, 8190, 128] x 512 text and 257 image keys, K1c
+   at the ring step [2, 40, 8190, 128], K2, K3 mod / affine and K3p at
+   2x8190x5120, and K3 mod on TI2V-5B's prefix rows under sp = 8 (2x550
+   and 2x330 of width 3,072), each against its plain version;
+97. (after 96) I2V-14B forwards at 832x480x81 under 4 ranks, Ulysses and
+   ring, against phase 59's output within 3e-2 rel L2;
+98. (after 60) phase 60's MagCache i2v request under 4 ranks (Ulysses)
+   from its UMT5-XXL context and image encodings, against its latents
+   within 1e-1;
+99. (after 64) the TI2V-5B forward with an image at 1280x704x121 under 4
+   ranks (6,820 tokens a rank; the 880-token prefix on rank 0 alone)
+   against phase 64's output within 3e-2;
+100. (after 65) phase 65's request under 8 ranks (550 tokens a rank; the
+   prefix fills rank 0 and 330 rows of rank 1) from its image latents,
+   against its latents within 1e-1, latent frame 0 kept;
+101. (after 66) the VACE-14B forward under 4 ranks against phase 66's
+   output within 3e-2;
+102. (inside 68, after its t2v request) the t2v-A14B MoE request under 4
+   ranks on the same two experts, trunk runs by expert on every rank,
+   against phase 68's latents within 1e-1;
+103. (after 35) phases 34's and 35's dpm++ and Euler MagCache, rolling
+   (25 steps), TeaCache (ret steps) and dpm++ calibration requests under 4
+   ranks (Ulysses) against their single-rank latents within 1e-1, and the
+   calibration's ratios within 1e-3 of phase 34's.
+
 Every request of phases 63-69 checks its skip bits against
 ``compute_skip_schedule``, its launches against the trunk runs and its
 pixels and latents for shape and finiteness, and prints ``text_s``,
@@ -588,7 +628,10 @@ request; ``omnigen2-lora``: phase 89's loaded forward; ``open-sora-pab-480p17``,
 ``open-sora-pab-grouped``, ``open-sora-pab-vpu``: phase 90's requests;
 ``open-sora-pab-masked``: phase 91; ``latte-pab-grouped``,
 ``latte-pab-vpu``: phase 92; ``latte-768``: phase 93's forwards and
-request), its worst error over every shape
+request; ``wan-i2v-sp``: phase 97; ``wan-i2v-sp-request``: phase 98;
+``wan-ti2v-sp``: phase 99; ``wan-ti2v-sp-request``: phase 100;
+``wan-vace-sp``: phase 101; ``wan-a14b-sp``: phase 102;
+``wan-sp-policies``: phase 103), its worst error over every shape
 compared, and the times of its first shape timed, named in ``timed_at``,
 with their method in ``timing`` (``loop`` or ``graph``); ``shapes`` lists
 every shape compared with its own error, times and bound.
@@ -633,16 +676,29 @@ TRUNK_LAUNCHES = dict(NO_LAUNCHES, flash_attention_bshd=60, rms_norm_rope=60,
 SP = 4                # local ranks of the sequence-parallel phases
 
 
-def sp_trunk_launches(layers: int, sp: int, impl: str) -> dict:
-    """Launches of one sequence-parallel Wan trunk run, summed over the
-    ``sp`` ranks: per block and rank, Ulysses runs K1b twice (self, cross);
-    the ring runs K1c ``sp`` times (one per key shard) and K1b once (cross)."""
-    per_rank = dict(NO_LAUNCHES, rms_norm_rope=2 * layers, layer_norm_mod=3 * layers)
+def sp_rank_launches(blocks: int, sp: int, impl: str, cross: int = 1,
+                     prefix: bool = False) -> dict:
+    """One rank's launches per sequence-parallel Wan trunk run of ``blocks``
+    blocks: per block, Ulysses runs K1b for self-attention and for each of
+    ``cross`` cross-attentions (the rank's rows against the whole context;
+    2 with I2V's image branch); the ring runs K1c ``sp`` times (one per key
+    shard) and K1b for each cross-attention. K2 twice and K3 three times a
+    block, and two more K3 a block on a rank whose rows hold some of the
+    per-token timestep's t = 0 prefix."""
+    per_rank = dict(NO_LAUNCHES, rms_norm_rope=2 * blocks,
+                    layer_norm_mod=(5 if prefix else 3) * blocks)
     if impl == "ring":
-        per_rank.update(flash_attention_bhsd_aux=sp * layers, flash_attention_bhsd=layers)
+        per_rank.update(flash_attention_bhsd_aux=sp * blocks,
+                        flash_attention_bhsd=cross * blocks)
     else:
-        per_rank.update(flash_attention_bhsd=2 * layers)
-    return {k: n * sp for k, n in per_rank.items()}
+        per_rank.update(flash_attention_bhsd=(1 + cross) * blocks)
+    return per_rank
+
+
+def sp_trunk_launches(layers: int, sp: int, impl: str) -> dict:
+    """Launches of one sequence-parallel Wan t2v trunk run, summed over the
+    ``sp`` ranks."""
+    return {k: n * sp for k, n in sp_rank_launches(layers, sp, impl).items()}
 
 
 def wan_launches(trunk: dict, runs: int, head_calls: int) -> dict:
@@ -2667,15 +2723,15 @@ def phase_sp_forward(dev, model, single):
                 fail(f"rank {plan.rank} holds {hidden.shape[1]} tokens")
             return core.head(core.trunk(hidden, c), c)
 
+        # one call (cut from two: phase 97 runs K1b and K1c at wider shapes)
         reset_counts()
-        for run in ("first", "second"):
-            torch.cuda.synchronize()
-            t0 = time.time()
-            outs = run_local_ranks(SP, rank, device=dev, timeout=600.0)
-            torch.cuda.synchronize()
-            log(f"  {impl} forward ({run} call): {time.time() - t0:.3f} s wall, "
-                f"{SP} ranks x {21 * 30 * 52 // SP} tokens, serialised on one card")
-        per_run = {k: n // 2 for k, n in read_counts().items()}
+        torch.cuda.synchronize()
+        t0 = time.time()
+        outs = run_local_ranks(SP, rank, device=dev, timeout=600.0)
+        torch.cuda.synchronize()
+        log(f"  {impl} forward: {time.time() - t0:.3f} s wall, {SP} ranks x "
+            f"{21 * 30 * 52 // SP} tokens, serialised on one card")
+        per_run = read_counts()
         expected = wan_launches(sp_trunk_launches(30, SP, impl), 1, SP)
         log(f"  {impl}: launches per forward, all ranks: "
             f"{ {k: n for k, n in per_run.items() if n} }")
@@ -2706,8 +2762,9 @@ def phase_sp_requests(dev, model, single, sched):
         f"832x480x17 (7,800 tokens, {7800 // SP} a rank), {STEPS} UniPC steps, CFG 5.0")
     base = dict(size=(832, 480), frame_num=17, sample_steps=STEPS,
                 sample_shift=5.0, guide_scale=5.0, sp=SP)
-    requests = [("full compute", "ulysses", False, np.zeros((STEPS, 1), bool)),
-                ("MagCache E012K2R02", "ulysses", True, sched),
+    # no full-compute request (cut): phase 103's calibration runs
+    # full compute under the same plan
+    requests = [("MagCache E012K2R02", "ulysses", True, sched),
                 ("MagCache E012K2R02", "ring", True, sched)]
     totals = {"ulysses": dict(NO_LAUNCHES), "ring": dict(NO_LAUNCHES)}
     for label, impl, cached, want in requests:
@@ -3036,12 +3093,12 @@ def phase_vae_decode(dev):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
         base = torch.cuda.memory_allocated(dev)
-        for run in ("first", "second"):
-            torch.cuda.synchronize()
-            t0 = time.time()
-            video = vaes[dtype].decode(z)
-            torch.cuda.synchronize()
-            log(f"  {dtype} decode ({run} call): {time.time() - t0:.3f} s")
+        # one call (cut from two; the first and second were within 3%)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        video = vaes[dtype].decode(z)
+        torch.cuda.synchronize()
+        log(f"  {dtype} decode: {time.time() - t0:.3f} s")
         if tuple(video.shape) != (1, 81, 480, 832, 3) or not bool(torch.isfinite(video).all()):
             fail(f"{dtype} decode: pixels {tuple(video.shape)} not finite or misshapen")
         log(f"  {dtype}: pixels {tuple(video.shape)} finite, std {float(video.std()):.4f}; "
@@ -3107,7 +3164,10 @@ def phase_wan_video(dev, text_encoder, vae):
 
 
 # ------------------------------------------- Wan's other solvers and policies
-ROLLING_STEPS = 50    # the published rolling table's length: 100 forwards
+# phases 34, 35 and 103: 12 steps and, for the rolling policy, 25 (the
+# published table of 100 forwards resampled to 50); cut from 20 and 50 to
+# keep the smoke inside its limit with phase 103
+SOLVER_STEPS, ROLLING_STEPS = 12, 25
 
 
 def wan_request(pipe, label, want, total, steps=STEPS):
@@ -3137,76 +3197,86 @@ def wan_request(pipe, label, want, total, steps=STEPS):
     return out
 
 
-def phase_wan_solvers(dev, model, unipc_full):
-    """Returns the phase's launches."""
+def phase_wan_solvers(dev, model):
+    """Returns the phase's launches, and for phase 103 the outputs of its
+    MagCache and calibration requests by label (with their configs)."""
     from magcache_tpu_torch.core.magcache import compute_skip_schedule
     from magcache_tpu_torch.core.rolling import compute_rolling_schedule, load_eval_ratios
     from magcache_tpu_torch.pipelines.wan import WanPipeline, WanPipelineConfig
 
     log(f"phase 34: Wan's dpm++ and Euler solvers and the rolling policy through "
-        f"WanPipeline.generate, 832x480x17, {STEPS} steps (rolling: {ROLLING_STEPS}), CFG 5.0")
+        f"WanPipeline.generate, 832x480x17, {SOLVER_STEPS} steps (rolling: {ROLLING_STEPS}), "
+        f"CFG 5.0")
 
     def pipe(**kw):
-        base = dict(size=(832, 480), frame_num=17, sample_steps=STEPS, sample_shift=5.0,
-                    guide_scale=5.0)
+        base = dict(size=(832, 480), frame_num=17, sample_steps=SOLVER_STEPS,
+                    sample_shift=5.0, guide_scale=5.0)
         return WanPipeline(WanPipelineConfig(**dict(base, **kw)), dev, model=model)
 
     reset_counts()
     total = dict(NO_LAUNCHES)
-    none = np.zeros((STEPS, 1), bool)
+    none = np.zeros((SOLVER_STEPS, 1), bool)
     lats = {}
     for solver in ("dpm++", "euler"):
-        out = wan_request(pipe(sample_solver=solver), f"{solver}, full compute", none, total)
+        out = wan_request(pipe(sample_solver=solver), f"{solver}, full compute", none, total,
+                          steps=SOLVER_STEPS)
         lats[solver] = out.latents.float().cpu()
-    cached = pipe(sample_solver="dpm++", use_magcache=True)
-    sched = compute_skip_schedule(cached._cache_cfg()).reshape(STEPS, 2)
-    wan_request(cached, "dpm++, MagCache E012K2R02", sched, total)
-    cal = wan_request(pipe(sample_solver="dpm++", magcache_calibration=True),
-                      "dpm++, calibration", None, total)
+    kept = {}
+    for solver in ("dpm++", "euler"):
+        kw = dict(sample_solver=solver, use_magcache=True)
+        cached = pipe(**kw)
+        sched = compute_skip_schedule(cached._cache_cfg()).reshape(SOLVER_STEPS, 2)
+        label = f"{solver}, MagCache E012K2R02"
+        kept[label] = (kw, wan_request(cached, label, sched, total, steps=SOLVER_STEPS))
+    kw = dict(sample_solver="dpm++", magcache_calibration=True)
+    cal = wan_request(pipe(**kw), "dpm++, calibration", None, total, steps=SOLVER_STEPS)
+    kept["dpm++, calibration"] = (kw, cal)
     ratios = tuple(cal.calibration["norm_ratio"])
-    if len(ratios) != 2 * (STEPS - 1) or not np.all(np.isfinite(ratios)):
+    if len(ratios) != 2 * (SOLVER_STEPS - 1) or not np.all(np.isfinite(ratios)):
         fail(f"dpm++ calibration recorded {len(ratios)} ratios, or non-finite ones")
     installed = pipe(sample_solver="dpm++", use_magcache=True, mag_ratios_override=ratios)
     if tuple(installed._cache_cfg().mag_ratios[2:]) != ratios:
         fail("the recorded ratios were not installed")
     wan_request(installed, "dpm++, MagCache with the recorded ratios",
-                installed.skip_mask_for(), total)
+                installed.skip_mask_for(), total, steps=SOLVER_STEPS)
     rolling = compute_rolling_schedule(2 * ROLLING_STEPS, load_eval_ratios(), 0.12, 2)
     if not rolling.any():
         fail("the rolling schedule at 0.12 / K 2 elides no forward")
-    wan_request(pipe(sample_steps=ROLLING_STEPS, use_magcache=True, cache_policy="rolling",
-                     magcache_thresh=0.12, magcache_K=2),
-                f"unipc, rolling 0.12 / K 2 ({int(rolling.sum())} of {2 * ROLLING_STEPS} "
-                f"forwards elided)", rolling.reshape(ROLLING_STEPS, 2), total,
-                steps=ROLLING_STEPS)
-    for solver, lat in lats.items():
-        log(f"  rel L2 of {solver}'s full-compute latents against unipc's (phase 5): "
-            f"{rel_l2(lat, unipc_full):.3e}")
+    kw = dict(sample_steps=ROLLING_STEPS, use_magcache=True, cache_policy="rolling",
+              magcache_thresh=0.12, magcache_K=2)
+    kept["unipc, rolling 0.12 / K 2"] = (kw, wan_request(
+        pipe(**kw), f"unipc, rolling 0.12 / K 2 ({int(rolling.sum())} of "
+        f"{2 * ROLLING_STEPS} forwards elided)", rolling.reshape(ROLLING_STEPS, 2), total,
+        steps=ROLLING_STEPS))
+    log(f"  rel L2 of Euler's full-compute latents against dpm++'s: "
+        f"{rel_l2(lats['euler'], lats['dpm++']):.3e}")
     log(f"  launches in phase 34: {total}")
-    return total
+    return total, kept
 
 
 def phase_wan_teacache(dev, model):
-    """Returns the phase's launches."""
+    """Returns the phase's launches, and for phase 103 the use_ret_steps
+    request's config and output."""
     from magcache_tpu_torch.pipelines.wan import WanPipeline, WanPipelineConfig
 
-    log(f"phase 35: Wan TeaCache through WanPipeline.generate, 832x480x17, {STEPS} "
+    log(f"phase 35: Wan TeaCache through WanPipeline.generate, 832x480x17, {SOLVER_STEPS} "
         f"UniPC steps, threshold 0.2, use_ret_steps off and on")
     reset_counts()
     total = dict(NO_LAUNCHES)
     for ret in (False, True):
+        kw = dict(enable_teacache=True, teacache_thresh=0.2, use_ret_steps=ret)
         pipe = WanPipeline(WanPipelineConfig(
-            size=(832, 480), frame_num=17, sample_steps=STEPS, sample_shift=5.0,
-            guide_scale=5.0, enable_teacache=True, teacache_thresh=0.2,
-            use_ret_steps=ret), dev, model=model)
-        forced = pipe._teacache_lanes().forced_mask(STEPS)
-        out = wan_request(pipe, f"TeaCache, use_ret_steps={ret}", None, total)
+            size=(832, 480), frame_num=17, sample_steps=SOLVER_STEPS, sample_shift=5.0,
+            guide_scale=5.0, **kw), dev, model=model)
+        forced = pipe._teacache_lanes().forced_mask(SOLVER_STEPS)
+        out = wan_request(pipe, f"TeaCache, use_ret_steps={ret}", None, total,
+                          steps=SOLVER_STEPS)
         if (out.skips & forced).any():
             fail(f"use_ret_steps={ret}: a forward of the forced window skipped")
         log(f"    forced window {int(forced.sum())} lane-forwards, all computed; skipped "
             f"steps by lane {[np.flatnonzero(out.skips[:, l]).tolist() for l in (0, 1)]}")
     log(f"  launches in phase 35: {total}")
-    return total
+    return total, {"TeaCache, use_ret_steps=True": (kw, out)}
 
 
 # ------------------------------------------------------------ PAB, STDiT3
@@ -3617,7 +3687,8 @@ V110_ROUTES = dict(NO_ROUTES, tma=56)
 COG_TRUNK_LAUNCHES = dict(NO_LAUNCHES, flash_attention_bshd=42)
 COG_TXT = 226
 COG_FRAMES, COG_GRID = 49, (13, 30, 45)          # 17,550 video + 226 text tokens
-COG_REQ_FRAMES, COG_REQ_GRID, COG_STEPS = 13, (4, 30, 45), 20  # 5,400 video tokens
+# 5,400 video tokens; 10 DDIM steps (cut from 50, and from 20)
+COG_REQ_FRAMES, COG_REQ_GRID, COG_STEPS = 13, (4, 30, 45), 10
 # the CogVideoX VAE needs an odd latent frame count (13 frames would decode to
 # 16): the request that ends in pixels takes 17 frames, 5 latent frames
 COG_PX_FRAMES, COG_PX_GRID = 17, (5, 30, 45)
@@ -3860,8 +3931,9 @@ def phase_osp_requests(dev, model):
 
     log(f"phase 41: requests through OpenSoraPlanPipeline.generate (v120), "
         f"{OSP_REQ_FRAMES}x480x640 ({math.prod(OSP_REQ_GRID)} tokens), {OSP_STEPS} "
-        f"Euler-Ancestral steps (cut from 150), guidance 7.5: full compute, MagCache "
-        f"(0.12 / K 3 / R 0.2, flat ratios), calibration and its ratios installed, PAB")
+        f"Euler-Ancestral steps (cut from 150), guidance 7.5: MagCache (0.12 / K 3 / R 0.2, "
+        f"flat ratios), calibration (the full-compute trajectory) and its ratios "
+        f"installed, PAB")
     base = dict(num_frames=OSP_REQ_FRAMES, num_inference_steps=OSP_STEPS, dtype="bfloat16")
     prompt = "A red sailboat glides across a calm bay at dawn."
     shape = (1, OSP_REQ_GRID[0], 60, 80, 4)
@@ -3883,9 +3955,10 @@ def phase_osp_requests(dev, model):
             total[k] += n
         return out
 
-    full = run("full compute")
+    # no separate full-compute request (cut): calibration runs full compute
+    # on the generation trajectory, so its latents are full compute's
     run("MagCache E012K3R02, flat ratios", use_magcache=True)
-    cal = run("calibration (full compute)", magcache_calibration=True)
+    full = cal = run("calibration (full compute)", magcache_calibration=True)
     ratios = tuple(cal.calibration["norm_ratio"])
     if len(ratios) != 2 * (OSP_STEPS - 1) or not np.all(np.isfinite(ratios)):
         fail(f"calibration recorded {len(ratios)} ratios, or non-finite ones")
@@ -4020,11 +4093,11 @@ def phase_cogvideox_forward(dev, rec, model):
     reset_counts()
     torch.cuda.reset_peak_memory_stats(dev)
     core = make_cogvideox_core(model, COG_TXT, COG_GRID)
-    out = timed_forwards(core, x, t, cond, "CogVideoX-5B")
+    out = timed_forwards(core, x, t, cond, "CogVideoX-5B", runs=1)
     log(f"  output std {float(out.float().std()):.4f}, peak memory "
         f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
-    counts = check_forward_counts("CogVideoX-5B", 2, COG_TRUNK_LAUNCHES, NO_ROUTES)
-    if k1_modes() != {"fixed": 0, "running": 84}:
+    counts = check_forward_counts("CogVideoX-5B", 1, COG_TRUNK_LAUNCHES, NO_ROUTES)
+    if k1_modes() != {"fixed": 0, "running": 42}:
         fail(f"CogVideoX: K1 by shift {k1_modes()}, not 42 running a forward")
     profile_forward("CogVideoX-5B forward", core, x, t, cond)
     return counts
@@ -4273,11 +4346,11 @@ def phase_vchitect_forward(dev, model):
     reset_counts()
     torch.cuda.reset_peak_memory_stats(dev)
     core = make_vchitect_core(model, VCH_GRID, VCH_TXT)
-    out = timed_forwards(core, x, t, cond, "Vchitect-XL")
+    out = timed_forwards(core, x, t, cond, "Vchitect-XL", runs=1)
     log(f"  output std {float(out.float().std()):.4f}, peak memory "
         f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
-    counts = check_forward_counts("Vchitect-XL", 2, VCH_TRUNK_LAUNCHES, NO_ROUTES)
-    if k1_modes() != {"fixed": 0, "running": 96}:
+    counts = check_forward_counts("Vchitect-XL", 1, VCH_TRUNK_LAUNCHES, NO_ROUTES)
+    if k1_modes() != {"fixed": 0, "running": 48}:
         fail(f"Vchitect: K1 by shift {k1_modes()}, not 48 running a forward")
     profile_forward("Vchitect-XL forward", core, x, t, cond)
     return counts
@@ -4291,8 +4364,9 @@ def phase_vchitect_requests(dev, model):
 
     log(f"phase 48: requests through VchitectPipeline.generate, {VCH_REQ_FRAMES}x480x768 "
         f"(frames cut from 40: {math.prod(VCH_REQ_GRID)} video tokens), {VCH_STEPS} "
-        f"FlowMatch-Euler steps (cut from 100), guidance 7.5: full compute, MagCache (0.12 / "
-        f"K 3 / R 0.2, flat ratios), calibration and its ratios installed, PAB")
+        f"FlowMatch-Euler steps (cut from 100), guidance 7.5: MagCache (0.12 / K 3 / R 0.2, "
+        f"flat ratios), calibration (the full-compute trajectory) and its ratios installed, "
+        f"PAB")
     base = dict(num_frames=VCH_REQ_FRAMES, num_inference_steps=VCH_STEPS, dtype="bfloat16")
     prompt = "A red sailboat glides across a calm bay at dawn."
     shape = (1, VCH_REQ_FRAMES, 60, 96, 16)
@@ -4309,9 +4383,9 @@ def phase_vchitect_requests(dev, model):
             total[k] += n
         return out
 
-    full = run("full compute")
+    # no separate full-compute request (cut): calibration's latents are it
     run("MagCache E012K3R02, flat ratios", use_magcache=True)
-    cal = run("calibration (full compute)", magcache_calibration=True)
+    full = cal = run("calibration (full compute)", magcache_calibration=True)
     ratios = tuple(cal.calibration["norm_ratio"])
     if len(ratios) != 2 * (VCH_STEPS - 1) or not np.all(np.isfinite(ratios)):
         fail(f"calibration recorded {len(ratios)} ratios, or non-finite ones")
@@ -4345,14 +4419,16 @@ def phase_vae_decodes(dev):
     from magcache_tpu_torch.models.vae_osp import OSP_V110_VAE, OSP_V120_VAE, OSPCausalVAE
 
     log("phase 49: f32 VAE decodes with random weights: Open-Sora-Plan CausalVAE v1.2 and "
-        "v1.1 layouts (tiled), CogVideoX decode_tiled; one call each")
+        "v1.1 layouts (tiled; v1.2 17 latent frames: two windows of 16 with one frame of "
+        "overlap, v1.1 9), CogVideoX decode_tiled (5 latent frames); one call each (frames "
+        "cut from 24, 17 and 13)")
     gen = torch.Generator(device=dev).manual_seed(49)
     cases = (("OSP CausalVAE, v1.2 layout", OSPCausalVAE(OSP_V120_VAE, dev), "decode",
-              (1, 24, 60, 80, 4), (1, 93, 480, 640, 3)),
+              (1, 17, 60, 80, 4), (1, 65, 480, 640, 3)),
              ("OSP CausalVAE, v1.1 layout", OSPCausalVAE(OSP_V110_VAE, dev), "decode",
-              (1, 17, 64, 64, 4), (1, 65, 512, 512, 3)),
+              (1, 9, 64, 64, 4), (1, 33, 512, 512, 3)),
              ("CogVideoX VAE", CogVideoXVAE(CogVideoXVAEConfig(), dev), "decode_tiled",
-              (1, 13, 60, 90, 16), (1, 49, 480, 720, 3)))
+              (1, 5, 60, 90, 16), (1, 17, 480, 720, 3)))
     vaes = []
     for label, vae, method, zshape, pshape in cases:
         vae.init(gen).requires_grad_(False)
@@ -4930,7 +5006,7 @@ I2V_TRUNK_LAUNCHES = dict(NO_LAUNCHES, flash_attention_bshd=120, rms_norm_rope=8
 I2V_GRID, I2V_REQ_FRAMES = (21, 30, 52), 17
 # the JAX CLI's i2v and flf2v defaults are 40 and 50 steps; cut to 20 each
 # (PR 24) to keep the smoke inside its limit
-I2V_STEPS, FLF_STEPS = 20, 20
+I2V_STEPS, FLF_STEPS = 14, 20
 CLIP_BLOCKS_RUN = 31                  # ViT-H/14's 32 blocks less the last
 # bf16 keeps 8 significant bits: a rounding moves a value by at most 2^-9 of
 # it. The tower's K1 call rounds q, k, v, p and its output: five roundings
@@ -5078,7 +5154,8 @@ def make_i2v_model(dev, task="i2v"):
 
 
 def phase_i2v_forward(dev, model):
-    """Returns the launches of the two forwards."""
+    """Returns the launches of the forward, and the inputs and output
+    (phase 97 holds the sharded forward to them)."""
     from magcache_tpu_torch.models.text import MockTextEncoder
     from magcache_tpu_torch.models.wan import make_wan_core
 
@@ -5097,25 +5174,27 @@ def phase_i2v_forward(dev, model):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
-    for run in ("first", "second"):
-        def forward():
-            hidden, c = core.prepare(x, t, cond)
-            return core.head(core.trunk(hidden, c), c), c
-        (out, c), ms = timed_once(forward)
-        log(f"  forward ({run} call): {ms / 1e3:.3f} s")
+
+    def forward():
+        hidden, c = core.prepare(x, t, cond)
+        return core.head(core.trunk(hidden, c), c), c
+
+    # one call (cut from two: the two were within 0.3%)
+    (out, c), ms = timed_once(forward)
+    log(f"  forward: {ms / 1e3:.3f} s")
     counts = read_counts()
     if tuple(c["context"].shape) != (2, cfg.clip_tokens + 512, cfg.dim):
         fail(f"I2V-14B joint context {tuple(c['context'].shape)}")
     if tuple(out.shape) != tuple(x.shape) or not bool(torch.isfinite(out).all()):
         fail(f"I2V-14B forward output {tuple(out.shape)} is not finite or misshapen")
-    want = i2v_launches(2, 2, 0)
+    want = i2v_launches(1, 1, 0)
     if counts != want:
-        fail(f"I2V-14B forwards: launches {counts} != {want}")
+        fail(f"I2V-14B forward: launches {counts} != {want}")
     log(f"  output {tuple(out.shape)} finite, std {float(out.std()):.4f}; peak memory "
         f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB; launches per forward "
-        f"K1 {counts['flash_attention_bshd'] // 2}, K2 {counts['rms_norm_rope'] // 2}, "
-        f"K3 {counts['layer_norm_mod'] // 2}, K3p {counts['layer_norm_mod_plain'] // 2}")
-    return counts
+        f"K1 {counts['flash_attention_bshd']}, K2 {counts['rms_norm_rope']}, "
+        f"K3 {counts['layer_norm_mod']}, K3p {counts['layer_norm_mod_plain']}")
+    return counts, (x, t, cond, out)
 
 
 def i2v_images(n: int, seed: int = 60):
@@ -5187,7 +5266,9 @@ def i2v_request(label, pipe, want_skips, images):
 
 
 def phase_i2v_requests(dev, model, text, clip, vae):
-    """Returns the launches of the two requests."""
+    """Returns the launches of the two requests, and for phase 98 the
+    MagCache request's text context, image encodings ``(y, clip_fea)``,
+    skip schedule and latents."""
     from magcache_tpu_torch.core.magcache import compute_skip_schedule
     from magcache_tpu_torch.pipelines.wan import WanPipeline, WanPipelineConfig
 
@@ -5203,12 +5284,22 @@ def phase_i2v_requests(dev, model, text, clip, vae):
     full = WanPipeline(WanPipelineConfig(**base), dev, **kw)
     cached = WanPipeline(WanPipelineConfig(use_magcache=True, **base), dev, **kw)
     sched = compute_skip_schedule(cached._cache_cfg()).reshape(I2V_STEPS, 2)
-    if int(sched.sum()) != 22:
+    if int(sched.sum()) != 17:
         fail(f"wan2.1-i2v-480p at {I2V_STEPS} steps elides {int(sched.sum())} of "
-             f"{2 * I2V_STEPS}, not 22")
+             f"{2 * I2V_STEPS}, not 17")
     total = dict(NO_LAUNCHES)
     lats = {}
     image = i2v_images(1)
+    seen = {}
+
+    def recorded(name, fn):
+        def call(*a, **k):
+            seen[name] = fn(*a, **k)
+            return seen[name]
+        return call
+
+    cached.text_encoder = recorded("context", text)
+    cached.encode_image = recorded("image", cached.encode_image)
     for label, pipe, want in (("i2v full compute", full, np.zeros((I2V_STEPS, 1), bool)),
                               ("i2v MagCache wan2.1-i2v-480p", cached, sched)):
         launched, lats[label] = i2v_request(label, pipe, want, image)
@@ -5216,7 +5307,7 @@ def phase_i2v_requests(dev, model, text, clip, vae):
     log(f"  MagCache latents against full compute: rel L2 "
         f"{rel_l2(*lats.values()):.3e}")
     tower_rounding(dev, clip, image[0])
-    return total
+    return total, (seen["context"], seen["image"], sched, lats["i2v MagCache wan2.1-i2v-480p"])
 
 
 def tower_rounding(dev, clip, image):
@@ -5412,8 +5503,10 @@ def phase_i2v_card_vs_cpu(dev):
 # per-token timestep (ti2v with an image) each modulated call is two: every
 # row, then the t = 0 prefix. The head adds K3p once a step.
 TI2V_GRID = (31, 22, 40)        # 1280x704x121: latents (31, 44, 80), patch (1, 2, 2)
-TI2V_SIZE, TI2V_STEPS = (1280, 704), 50
-VACE_STEPS = 50                 # the JAX CLI's default
+# the JAX CLI's defaults are 50 steps each; cut to 15 and 25 to
+# keep the smoke inside its limit with phases 99-102
+TI2V_SIZE, TI2V_STEPS = (1280, 704), 15
+VACE_STEPS = 25
 A14B_STEPS = 24                 # cut from the JAX CLI's 40; lane-asymmetric steps remain
 WAN22_FRAMES = 17                # the requests' frames, cut from 81 and 121
 
@@ -5562,7 +5655,7 @@ def make_wan_model(dev, cfg, label, seed=0):
 def wan_forward(dev, label, model, grid, x, cond, runs, want):
     """``runs`` forwards (prepare -> trunk -> head) on two lanes, timed;
     fails unless the output is finite and of x's shape and the launches are
-    ``want``; returns them."""
+    ``want``; returns them and the last output."""
     from magcache_tpu_torch.models.wan import make_wan_core
 
     core = make_wan_core(model, grid)
@@ -5585,27 +5678,30 @@ def wan_forward(dev, label, model, grid, x, cond, runs, want):
         f"launches per forward K1 {counts['flash_attention_bshd'] // runs}, K2 "
         f"{counts['rms_norm_rope'] // runs}, K3 {counts['layer_norm_mod'] // runs}, K3p "
         f"{counts['layer_norm_mod_plain'] // runs}")
-    return counts
+    return counts, out
 
 
 def phase_ti2v_forward(dev, model):
-    """Returns the launches of the two forwards."""
+    """Returns the launches of the forward, and the inputs and output
+    (phase 99 holds the sharded forward to them)."""
     from magcache_tpu_torch.models.text import MockTextEncoder
 
     f, h, w = TI2V_GRID
-    log(f"phase 64: two full-shape TI2V-5B forwards (prepare -> trunk -> head) at "
+    log(f"phase 64: one full-shape TI2V-5B forward (prepare -> trunk -> head) at "
         f"1280x704x121 with an image's t = 0 prefix: {f * h * w} tokens ({h * w} at t = 0), "
         f"2 lanes, 512 text tokens")
     gen = torch.Generator(device=dev).manual_seed(64)
     x = torch.randn((2, f, 2 * h, 2 * w, 48), generator=gen, device=dev)
     cond = {"context": MockTextEncoder(512, 4096, scale=0.5)(["a cat", ""], device=dev),
             "ti2v_img": x[:1, :1]}
-    return wan_forward(dev, "TI2V-5B", model, TI2V_GRID, x, cond, 2,
-                       wan_run_launches(wan_trunk_launches(30, True), 2, 2))
+    counts, out = wan_forward(dev, "TI2V-5B", model, TI2V_GRID, x, cond, 1,
+                              wan_run_launches(wan_trunk_launches(30, True), 1, 1))
+    return counts, (x, cond, out)
 
 
 def phase_vace14_forward(dev):
-    """Returns the forward's launches."""
+    """Returns the forward's launches, the model, and the inputs and output
+    (phase 101 holds the sharded forward to them)."""
     from magcache_tpu_torch.models.text import MockTextEncoder
     from magcache_tpu_torch.pipelines.wan import WanPipelineConfig
 
@@ -5618,11 +5714,9 @@ def phase_vace14_forward(dev):
     x = torch.randn((2, f, 2 * h, 2 * w, 16), generator=gen, device=dev)
     cond = {"context": MockTextEncoder(512, 4096, scale=0.5)(["a cat", ""], device=dev),
             "vace_context": torch.randn((2, f, 2 * h, 2 * w, 96), generator=gen, device=dev)}
-    counts = wan_forward(dev, "VACE-14B", model, I2V_GRID, x, cond, 1,
-                         wan_run_launches(wan_trunk_launches(48), 1, 1))
-    del model
-    torch.cuda.empty_cache()
-    return counts
+    counts, out = wan_forward(dev, "VACE-14B", model, I2V_GRID, x, cond, 1,
+                              wan_run_launches(wan_trunk_launches(48), 1, 1))
+    return counts, model, (x, cond, out)
 
 
 def wan22_request(label, pipe, want_skips, lat_shape, px_shape, per_run, **kw):
@@ -5696,7 +5790,7 @@ def phase_vace_requests(dev, vae):
                 guide_scale=5.0, use_magcache=True)
     pipe = WanPipeline(WanPipelineConfig(**base), dev, vae=vae)
     log(f"  VACE-1.3B: {sum(p.numel() for p in pipe.model.parameters()) / 1e9:.3f} B params")
-    sched = check_elided(pipe, VACE_STEPS, 50)
+    sched = check_elided(pipe, VACE_STEPS, 26)
     video, mask = vace_sources(WAN22_FRAMES, 480, 832)
     lat, px = (1, 5, 60, 104, 16), (1, WAN22_FRAMES, 480, 832, 3)
     per_run = wan_trunk_launches(36)
@@ -5714,7 +5808,8 @@ def phase_vace_requests(dev, vae):
 
 
 def phase_ti2v_request(dev, model):
-    """Returns the request's launches."""
+    """Returns the request's launches, and for phase 100 the image's
+    latents, the skip schedule and the request's latents."""
     from magcache_tpu_torch.models.vae_wan import WAN22_VAE, WanVAE
     from magcache_tpu_torch.pipelines.wan import WanPipeline, WanPipelineConfig
 
@@ -5730,7 +5825,7 @@ def phase_ti2v_request(dev, model):
         model="wan2.2-ti2v-5B-i2v", task="ti2v", size=TI2V_SIZE, frame_num=WAN22_FRAMES,
         sample_steps=TI2V_STEPS, sample_shift=5.0, guide_scale=5.0, use_magcache=True),
         dev, model=model, vae=vae)
-    sched = check_elided(pipe, TI2V_STEPS, 48)
+    sched = check_elided(pipe, TI2V_STEPS, 16)
     image = np.random.default_rng(68).integers(0, 256, (720, 1280, 3), dtype=np.uint8)
     out, launched = wan22_request(
         "TI2V-5B MagCache, image", pipe, sched, (1, 5, h // 16, w // 16, 48),
@@ -5743,12 +5838,13 @@ def phase_ti2v_request(dev, model):
         fail("TI2V-5B: latent frame 0 is not the image latents after sampling")
     del pipe, vae
     torch.cuda.empty_cache()
-    return launched
+    return launched, (frame0, sched, out.latents)
 
 
-def phase_a14b_requests(dev, vae):
+def phase_a14b_requests(dev, vae, then=None):
     """t2v-A14B and i2v-A14B requests with both experts resident; returns
-    their launches."""
+    their launches. ``then(cfg, high, low, sched, latents)`` runs after the
+    t2v request, on its experts (phase 102), and returns its launches."""
     from magcache_tpu_torch.core.sampler import DiTCore
     from magcache_tpu_torch.pipelines.wan import WanPipeline, WanPipelineConfig
 
@@ -5757,7 +5853,7 @@ def phase_a14b_requests(dev, vae):
         f"(the mock text encoder: UMT5-XXL in f32 does not fit beside them); t2v-A14B shift 12, CFG (3.0, 4.0), "
         f"MagCache wan2.2-t2v-A14B; i2v-A14B shift 5, CFG (3.5, 3.5), MagCache "
         f"wan2.2-i2v-A14B, from a seeded image through the Wan VAE encode")
-    total = dict(NO_LAUNCHES)
+    total, then_launches = dict(NO_LAUNCHES), None
     for task, shift, guide, elided, boundary in (("t2v", 12.0, (3.0, 4.0), 17, 16),
                                                  ("i2v", 5.0, (3.5, 3.5), 13, 9)):
         model = f"wan2.2-{task}-A14B"
@@ -5798,9 +5894,11 @@ def phase_a14b_requests(dev, vae):
         if calls != want:
             fail(f"{model}: the experts ran {calls}, not {want}")
         total = {k: n + launched[k] for k, n in total.items()}
+        if task == "t2v" and then is not None:
+            then_launches = then(cfg, high, low, sched, out.latents)
         del pipe, high, low, out
         torch.cuda.empty_cache()
-    return total
+    return total, then_launches
 
 
 def _numpy_wan_vace_tree(cfg, rng):
@@ -5901,6 +5999,501 @@ def phase_wan22_card_vs_cpu(dev):
                 fail("ti2v: the image latents on the card stray from the CPU's, or frame 0 "
                      "is not them")
         del card, cpu
+
+# ------------- Wan's other tasks, solvers and policies under sp (96-103)
+# The phases after phase 95 run Wan's image, VACE, TI2V and MoE models and
+# the 1.3B model's other solvers and policies under local ranks, each right
+# after the single-rank phase whose model, inputs and output it reuses.
+# Every rank counts its own launches (``ops.build.thread_launches``); the
+# wall times are those of ranks serialised on one card, no multi-GPU time.
+SP8 = 8               # the TI2V request's ranks: its prefix spans two
+
+
+def tally_counts(tally: dict) -> dict:
+    """One rank's launch tally (keys ``(wrapper, count, key)``) as the
+    kernel records of ``read_counts``."""
+    records = {("rms_norm_rope", "scope_launches", "token"): "rms_norm_rope",
+               ("rms_norm_rope", "scope_launches", "head"): "rms_norm_rope_head",
+               ("flash_attention_bshd", "qknorm_launches", None): "flash_attention_bshd_qknorm",
+               ("layer_norm_mod", "plain_launches", None): "layer_norm_mod_plain",
+               ("fused_cross_attention", "epilogues", "resid"): "fused_cross_attention",
+               ("fused_cross_attention", "epilogues", "bias"): "fused_cross_attention_bias"}
+    counts = dict(NO_LAUNCHES)
+    for (fn, attr, key), n in tally.items():
+        name = records.get((fn, attr, key))
+        if name is None and attr == "launches" and fn not in (
+                "rms_norm_rope", "fused_cross_attention"):
+            name = fn
+        if name in counts:
+            counts[name] += n
+    return counts
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: n for k, n in counts.items() if n}
+
+
+def run_ranks(sp: int, fn, dev):
+    """``fn(plan)`` on ``sp`` local ranks, each inside its own launch tally:
+    ``(outputs, launches by rank, wall s)``; fails unless the ranks'
+    launches add up to the wrappers' counts since the call began."""
+    from magcache_tpu_torch.ops.build import thread_launches
+    from magcache_tpu_torch.parallel.mesh import run_local_ranks
+
+    def rank(plan):
+        with thread_launches() as tally:
+            out = fn(plan)
+        return out, tally_counts(tally)
+
+    before = read_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    res = run_local_ranks(sp, rank, device=dev, timeout=600.0)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    by_rank = [c for _, c in res]
+    launched = count_launches(before)
+    summed = {k: sum(c[k] for c in by_rank) for k in launched}
+    if summed != launched:
+        fail(f"the ranks' own launches {nonzero(summed)} do not add up to the "
+             f"wrappers' counts {nonzero(launched)}")
+    return [o for o, _ in res], by_rank, wall
+
+
+def check_rank_launches(label: str, by_rank, want_by_rank) -> dict:
+    """Fails unless each rank launched what its formula says; returns the
+    launches summed over the ranks."""
+    for r, (got, want) in enumerate(zip(by_rank, want_by_rank)):
+        if got != want:
+            fail(f"{label}, rank {r}: launches {nonzero(got)} != {nonzero(want)}")
+    rows = sorted({tuple(sorted(nonzero(c).items())) for c in by_rank})
+    log(f"  {label}: each rank's launches equal its formula ("
+        + "; ".join(str(dict(r)) for r in rows) + ")")
+    return {k: sum(c[k] for c in by_rank) for k in NO_LAUNCHES}
+
+
+def prefix_ranks(tokens: int, n0: int, sp: int) -> list:
+    """Whether each rank's contiguous ``tokens / sp`` rows hold some of the
+    first ``n0`` (the per-token timestep's t = 0 prefix)."""
+    rows = tokens // sp
+    return [n0 - r * rows > 0 for r in range(sp)]
+
+
+def check_sp_forward(label: str, outs, want, tol: float = 3e-2) -> None:
+    out = outs[0]
+    if tuple(out.shape) != tuple(want.shape) or not bool(torch.isfinite(out).all()):
+        fail(f"{label}: output {tuple(out.shape)} is not finite or misshapen")
+    check_ranks_agree(label, outs)
+    # bf16 through the blocks: the GEMMs run on a rank's rows instead of all
+    # of them (other cuBLAS tiles), the ring shifts by the running max and
+    # rounds o at each merge -> within 3e-2 of the single-rank output (as
+    # phase 24)
+    rel = rel_l2(out, want)
+    log(f"  {label}: all ranks return the same output; rel L2 against the single-rank "
+        f"output {rel:.3e} (tol {tol})")
+    if rel > tol:
+        fail(f"{label}: the sharded forward disagrees with the single-rank one")
+
+
+def check_sp_request(label: str, outs, want_lat, want_skips, wall: float,
+                     tol: float = 1e-1) -> None:
+    """Every rank's latents finite, of ``want_lat``'s shape and identical;
+    every rank's realized skip bits ``want_skips``; rank 0's latents within
+    ``tol`` rel L2 of the single-rank request's."""
+    for r, out in enumerate(outs):
+        lat = out.latents
+        if tuple(lat.shape) != tuple(want_lat.shape) or not bool(torch.isfinite(lat).all()):
+            fail(f"{label}, rank {r}: latents {tuple(lat.shape)} not finite or misshapen")
+        if out.skips is not None and not np.array_equal(out.skips, want_skips):
+            fail(f"{label}, rank {r}: realized skips differ from the schedule")
+    check_ranks_agree(label, [o.latents for o in outs])
+    if outs[0].skips is not None:
+        check_ranks_agree(f"{label} skip bits",
+                          [torch.from_numpy(np.asarray(o.skips)) for o in outs])
+    # the forward's bf16 differences (phase 24) carried through the solver's
+    # steps at guidance 5 -> within 1e-1 (phase 25's bound)
+    rel = rel_l2(outs[0].latents, want_lat)
+    bits = outs[0].skips
+    runs = "full compute" if bits is None else (
+        f"{int((~bits.all(1)).sum())} trunk runs of {len(bits)} steps")
+    log(f"  {label}: {wall:.3f} s wall ({len(outs)} ranks serialised on one card), {runs}; "
+        f"skip bits equal on every rank and to the schedule, latents identical on every "
+        f"rank, rel L2 against the single-rank request {rel:.3e} (tol {tol})")
+    if rel > tol:
+        fail(f"{label}: latents disagree with the single-rank request")
+
+
+def phase_sp_task_kernels(dev, rec):
+    """K1b, K1c, K2, K3 and K3p against their plain versions at the shapes
+    the I2V-14B forward gives them under sp = 4, and K3 on the TI2V-5B
+    prefix rows that sp = 8 leaves on ranks 0 and 1."""
+    import torch.nn.functional as F
+
+    from magcache_tpu_torch.models.wan import WAN_5B, WAN_14B, wan_rope_tables
+    from magcache_tpu_torch.ops import attention as A
+    from magcache_tpu_torch.ops import fused_prologue as P
+
+    B, S, H, D = 2, math.prod(I2V_GRID), WAN_14B.heads, WAN_14B.head_dim
+    Sr, Hr = S // SP, H // SP
+    log(f"phase 96: kernels vs plain at I2V-14B 832x480x81's sp = {SP} shapes (bf16, "
+        f"{Sr} rows a rank, {H} heads): K1b Ulysses self [2, {Hr}, {S}, 128] and cross "
+        f"q [2, {H}, {Sr}, 128] x 512 text / 257 image keys, K1c ring step "
+        f"[2, {H}, {Sr}, 128]; K2, K3 mod / affine and K3p at 2x{Sr}x5120; K3 on TI2V-5B's "
+        f"t = 0 prefix under sp = {SP8}: rank 0's 2x550 and rank 1's 2x330 rows of 3,072")
+    gen = torch.Generator(device=dev).manual_seed(9696)
+    bf = torch.bfloat16
+
+    def rnd(*shape, dtype=bf, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def heads_first(*shape, scale=1.0):
+        # the head-major view of a [B, S, H, D] activation, as the
+        # sequence-parallel path hands it to the kernels
+        return rnd(*shape, scale=scale).transpose(1, 2)
+
+    # q and k of std sqrt(3), as phase 58's: the logits sit near fixed_max
+    qk = 3 ** 0.5
+    q, k, v = (heads_first(B, S, Hr, D, scale=s) for s in (qk, qk, 1.0))
+    cq = heads_first(B, Sr, H, D, scale=qk)
+    cases = [(f"Ulysses self 2x{Hr}x{S}x128, fixed_max=16", q, k, v)]
+    for n, what in ((512, "text"), (257, "image")):
+        cases.append((f"cross 2x{H}x{Sr}x128 x {n} keys ({what}), fixed_max=16", cq,
+                      heads_first(B, n, H, D, scale=qk), heads_first(B, n, H, D)))
+    for label, qq, kk, vv in cases:
+        got = A.flash_attention_bhsd(qq, kk, vv, fixed_max=16.0)
+        want, pms = timed_once(lambda: A.flash_attention_bhsd_plain(qq, kk, vv,
+                                                                    fixed_max=16.0))
+        # phase 58's bound: a dominant weight's bf16 rounding may flip
+        atol = 2 ** -8 * float(vv.abs().max())
+        err = compare(f"K1b flash_attention_bhsd [I2V-14B sp {SP} {label}]", got, want,
+                      atol=atol, rtol=2e-2)
+        del got, want
+        ms = cuda_ms(lambda: A.flash_attention_bhsd(qq, kk, vv, fixed_max=16.0), 3)
+        lms = cuda_ms(lambda: F.scaled_dot_product_attention(qq, kk, vv), 3)
+        flops = 4 * B * qq.shape[1] * qq.shape[2] * kk.shape[2] * D
+        moved = 2 * nbytes(qq) + nbytes(kk, vv)
+        log(f"  K1b [I2V-14B sp {SP} {label}]: kernel {ms:.3f} ms "
+            f"({rate(flops, moved, ms)}), plain {pms:.3f} ms (one call), SDPA {lms:.3f} ms")
+        keep(rec, "flash_attention_bhsd", err, ms, pms, "loop", f"I2V-14B sp {SP} {label}",
+             (flops, moved), ("F.scaled_dot_product_attention", lms))
+    del q, k, v, cq, cases
+
+    # K1c: o as K1b; m and l as phase 23's (f32 scores summed in another order)
+    q, k, v = (heads_first(B, Sr, H, D, scale=s) for s in (qk, qk, 1.0))
+    label = f"ring step 2x{H}x{Sr}x128"
+    o, m, l = A.flash_attention_bhsd_aux(q, k, v)
+    (ow, mw, lw), pms = timed_once(lambda: A.flash_attention_bhsd_aux_plain(q, k, v))
+    err = compare(f"K1c flash_attention_bhsd_aux [I2V-14B {label}] o", o, ow,
+                  atol=2 ** -8 * float(v.abs().max()), rtol=2e-2)
+    compare(f"K1c [I2V-14B {label}] m (natural base)", m, mw, atol=1e-4 * float(mw.abs().max()),
+            rtol=0.0)
+    compare(f"K1c [I2V-14B {label}] l", l, lw, atol=0.0, rtol=1e-4)
+    ms = cuda_ms(lambda: A.flash_attention_bhsd_aux(q, k, v), 3)
+    lms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 3)
+    flops = 4 * B * H * Sr * Sr * D
+    moved = 2 * nbytes(q) + nbytes(k, v, m, l)
+    log(f"  K1c [I2V-14B {label}]: kernel {ms:.3f} ms ({rate(flops, moved, ms)}), plain "
+        f"{pms:.3f} ms (one call), SDPA {lms:.3f} ms (o only: not the same function)")
+    keep(rec, "flash_attention_bhsd_aux", err, ms, pms, "loop", f"I2V-14B {label}",
+         (flops, moved), ("F.scaled_dot_product_attention (no m, l: not the same function)",
+                          lms))
+    del q, k, v, o, ow, m, mw, l, lw
+    torch.cuda.empty_cache()
+
+    # K2 on rank 0's rows and RoPE rows; K3 mod / affine and K3p (the head
+    # under a plan) on the same rows
+    x = rnd(B, Sr, H * D, scale=2.0)
+    gain = 1.0 + rnd(H * D, dtype=torch.float32, scale=0.1)
+    cos_np, sin_np = wan_rope_tables(WAN_14B, I2V_GRID)
+    cos, sin = (torch.from_numpy(t[:Sr].copy()).to(dev) for t in (cos_np, sin_np))
+    got = P.rms_norm_rope(x, gain, cos, sin, H, eps=1e-6)
+    want = P.rms_norm_rope_plain(x, gain, cos, sin, H, eps=1e-6)
+    # a flipped bf16 rounding of the normed value: one ulp at |y| < 8
+    err = compare(f"K2 rms_norm_rope [token scope, 2x{Sr}x5120, 40 heads]", got, want,
+                  atol=3e-2, rtol=1.6e-2)
+    ms = cuda_ms(lambda: P.rms_norm_rope(x, gain, cos, sin, H, eps=1e-6))
+    pms = cuda_ms(lambda: P.rms_norm_rope_plain(x, gain, cos, sin, H, eps=1e-6), 3)
+    log(f"  K2 [2x{Sr}x5120]: kernel {ms:.4f} ms ({2 * nbytes(x) / ms / 1e6:.0f} GB/s), "
+        f"plain {pms:.3f} ms")
+    keep(rec, "rms_norm_rope", err, ms, pms, "loop", f"2x{Sr}x5120 (40 heads, I2V-14B sp {SP})",
+         elementwise_work(x, gain, cos, sin))
+    sc, sh = (rnd(B, 1, H * D, dtype=torch.float32, scale=0.1) for _ in range(2))
+    w = 1.0 + rnd(H * D, dtype=torch.float32, scale=0.1)
+    bias = rnd(H * D, dtype=torch.float32, scale=0.1)
+    for label, kw, name in (("mod", dict(scale=sc, shift=sh), "layer_norm_mod"),
+                            ("affine", dict(weight=w, bias=bias), "layer_norm_mod"),
+                            ("plain (K3p)", {}, "layer_norm_mod_plain")):
+        got = P.layer_norm_mod(x, eps=1e-6, **kw)
+        want = P.layer_norm_mod_plain(x, eps=1e-6, **kw)
+        err = compare(f"K3 layer_norm_mod [{label}, 2x{Sr}x5120]", got, want, atol=3e-2,
+                      rtol=1.6e-2)
+        ms = cuda_ms(lambda: P.layer_norm_mod(x, eps=1e-6, **kw))
+        pms = cuda_ms(lambda: P.layer_norm_mod_plain(x, eps=1e-6, **kw), 3)
+        lib = None
+        if label != "mod":          # one library call computes these two forms
+            wb, bb = ((w.to(bf), bias.to(bf)) if kw else (None, None))
+            lib = ("F.layer_norm" + ("" if kw else " (no affine)"), cuda_ms(
+                lambda: F.layer_norm(x, (H * D,), wb, bb, eps=1e-6)))
+        log(f"  K3 [{label}, 2x{Sr}x5120]: kernel {ms:.4f} ms "
+            f"({2 * nbytes(x) / ms / 1e6:.0f} GB/s), plain {pms:.3f} ms"
+            + (f", {lib[0]} {lib[1]:.4f} ms" if lib else ""))
+        keep(rec, name, err, ms, pms, "loop", f"2x{Sr}x5120 {label} (I2V-14B sp {SP})",
+             elementwise_work(x, *kw.values()), lib)
+    del x, got, want
+
+    # K3 mod on the contiguous copy of a rank's prefix rows, TI2V-5B sp 8
+    d = WAN_5B.dim
+    sc, sh = (rnd(B, 1, d, dtype=torch.float32, scale=0.1) for _ in range(2))
+    for rows, who in ((550, "rank 0: all its rows"), (330, "rank 1: its first 330 rows")):
+        x = rnd(B, rows, d, scale=2.0)
+        got = P.layer_norm_mod(x, scale=sc, shift=sh, eps=1e-6)
+        want = P.layer_norm_mod_plain(x, scale=sc, shift=sh, eps=1e-6)
+        err = compare(f"K3 layer_norm_mod [mod, TI2V-5B sp {SP8} prefix, 2x{rows}x{d}]", got,
+                      want, atol=3e-2, rtol=1.6e-2)
+        ms = cuda_ms(lambda: P.layer_norm_mod(x, scale=sc, shift=sh, eps=1e-6))
+        pms = cuda_ms(lambda: P.layer_norm_mod_plain(x, scale=sc, shift=sh, eps=1e-6), 3)
+        log(f"  K3 [TI2V-5B prefix, {who}, 2x{rows}x{d}]: kernel {ms:.4f} ms (launch-bound), "
+            f"plain {pms:.3f} ms")
+        keep(rec, "layer_norm_mod", err, ms, pms, "loop",
+             f"2x{rows}x{d} mod (TI2V-5B sp {SP8} t = 0 prefix, {who})",
+             elementwise_work(x, sc, sh))
+
+
+def phase_i2v_sp_forward(dev, model, single):
+    """I2V-14B forwards under ``SP`` local ranks against phase 59's output;
+    returns their launches."""
+    from magcache_tpu_torch.models.wan import make_wan_core
+
+    x, t, cond, want = single
+    f, h, w = I2V_GRID
+    log(f"phase 97: full-shape I2V-14B forwards at 832x480x81 under {SP} local ranks, "
+        f"Ulysses and ring: {f * h * w} tokens, {f * h * w // SP} a rank, 40 heads, the "
+        f"[257 image; 512 text] context whole on every rank; against phase 59's output")
+    total = dict(NO_LAUNCHES)
+    for impl in ("ulysses", "ring"):
+        def rank(plan):
+            core = make_wan_core(model, I2V_GRID, plan, sp_impl=impl)
+            hidden, c = core.prepare(x, t, cond)
+            return core.head(core.trunk(hidden, c), c)
+
+        reset_counts()
+        outs, by_rank, wall = run_ranks(SP, rank, dev)
+        log(f"  {impl} forward: {wall:.3f} s wall, {SP} ranks serialised on one card")
+        per = wan_run_launches(sp_rank_launches(40, SP, impl, cross=2), 1, 1)
+        launched = check_rank_launches(f"I2V-14B {impl} forward", by_rank, [per] * SP)
+        check_sp_forward(f"I2V-14B {impl} forward", outs, want)
+        total = {k: n + launched[k] for k, n in total.items()}
+        del outs
+    return total
+
+
+def phase_i2v_sp_request(dev, model, enc):
+    """Phase 60's MagCache i2v request under ``SP`` local ranks (Ulysses),
+    from its text context and image encodings; returns its launches."""
+    from magcache_tpu_torch.pipelines.wan import WanPipeline, WanPipelineConfig
+
+    context, (y, clip_fea), sched, want = enc
+    log(f"phase 98: phase 60's i2v MagCache request (wan2.1-i2v-480p) under {SP} local "
+        f"ranks, Ulysses, 832x480x{I2V_REQ_FRAMES} ({7800 // SP} tokens a rank), "
+        f"{I2V_STEPS} UniPC steps, from phase 60's UMT5-XXL context and image encodings "
+        f"(y and the CLIP features); against phase 60's latents")
+    cfg = WanPipelineConfig(model="wan2.1-i2v-480p", task="i2v", size=(832, 480),
+                            frame_num=I2V_REQ_FRAMES, sample_steps=I2V_STEPS,
+                            sample_shift=3.0, guide_scale=5.0, use_magcache=True, sp=SP,
+                            sp_impl="ulysses")
+
+    def rank(plan):
+        pipe = WanPipeline(cfg, dev, model=model, plan=plan,
+                           text_encoder=lambda prompts, device=None: context)
+        return pipe.generate(TEXT_PROMPTS[0], seed=3, image_latents=y, clip_features=clip_fea)
+
+    reset_counts()
+    outs, by_rank, wall = run_ranks(SP, rank, dev)
+    runs = int((~sched.all(1)).sum())
+    per = wan_run_launches(sp_rank_launches(40, SP, "ulysses", cross=2), runs, I2V_STEPS)
+    launched = check_rank_launches("i2v MagCache, Ulysses", by_rank, [per] * SP)
+    check_sp_request("i2v MagCache, Ulysses", outs, want, sched, wall)
+    return launched
+
+
+def phase_ti2v_sp_forward(dev, model, single):
+    """The TI2V-5B forward with an image under ``SP`` local ranks against
+    phase 64's output; returns its launches."""
+    from magcache_tpu_torch.models.wan import make_wan_core
+
+    x, cond, want = single
+    f, h, w = TI2V_GRID
+    tokens, n0 = f * h * w, h * w
+    has = prefix_ranks(tokens, n0, SP)
+    log(f"phase 99: the full-shape TI2V-5B forward at 1280x704x121 with an image under "
+        f"{SP} local ranks, Ulysses: {tokens} tokens, {tokens // SP} a rank; the {n0}-token "
+        f"t = 0 prefix on rank 0 alone; against phase 64's output")
+    t = torch.full((2,), 900.0, device=dev)
+
+    def rank(plan):
+        core = make_wan_core(model, TI2V_GRID, plan, sp_impl="ulysses")
+        hidden, c = core.prepare(x, t, cond)
+        return core.head(core.trunk(hidden, c), c)
+
+    reset_counts()
+    outs, by_rank, wall = run_ranks(SP, rank, dev)
+    log(f"  forward: {wall:.3f} s wall, {SP} ranks serialised on one card")
+    want_by_rank = [wan_run_launches(sp_rank_launches(30, SP, "ulysses", prefix=p), 1, 1)
+                    for p in has]
+    launched = check_rank_launches("TI2V-5B forward", by_rank, want_by_rank)
+    check_sp_forward("TI2V-5B forward", outs, want)
+    return launched
+
+
+def phase_ti2v_sp_request(dev, model, enc):
+    """Phase 65's TI2V request under ``SP8`` local ranks from its image
+    latents; returns its launches."""
+    from magcache_tpu_torch.pipelines.wan import WanPipeline, WanPipelineConfig
+
+    frame0, sched, want = enc
+    w, h = TI2V_SIZE
+    tokens, n0 = 5 * (h // 32) * (w // 32), (h // 32) * (w // 32)
+    has = prefix_ranks(tokens, n0, SP8)
+    log(f"phase 100: phase 65's TI2V-5B MagCache request under {SP8} local ranks, Ulysses "
+        f"(3 heads a rank), {w}x{h}x{WAN22_FRAMES}: {tokens} tokens, {tokens // SP8} a rank; "
+        f"the {n0}-token t = 0 prefix fills rank 0 and spans into rank 1; from phase 65's "
+        f"image latents, against its latents")
+    cfg = WanPipelineConfig(model="wan2.2-ti2v-5B-i2v", task="ti2v", size=TI2V_SIZE,
+                            frame_num=WAN22_FRAMES, sample_steps=TI2V_STEPS, sample_shift=5.0,
+                            guide_scale=5.0, use_magcache=True, sp=SP8, sp_impl="ulysses")
+
+    def rank(plan):
+        pipe = WanPipeline(cfg, dev, model=model, plan=plan)
+        return pipe.generate(TEXT_PROMPTS[0], seed=3, image_latents=frame0)
+
+    reset_counts()
+    outs, by_rank, wall = run_ranks(SP8, rank, dev)
+    runs = int((~sched.all(1)).sum())
+    want_by_rank = [wan_run_launches(sp_rank_launches(30, SP8, "ulysses", prefix=p), runs,
+                                     TI2V_STEPS) for p in has]
+    launched = check_rank_launches("TI2V-5B MagCache, image", by_rank, want_by_rank)
+    check_sp_request("TI2V-5B MagCache, image", outs, want, sched, wall)
+    err = float((outs[0].latents[:, :1] - frame0).abs().max())
+    if err > 1e-5 * float(frame0.abs().max()):
+        fail("TI2V-5B under sp: latent frame 0 is not the image latents after sampling")
+    return launched
+
+
+def phase_vace14_sp_forward(dev, model, single):
+    """The VACE-14B forward under ``SP`` local ranks against phase 66's
+    output; returns its launches."""
+    from magcache_tpu_torch.models.wan import make_wan_core
+
+    x, cond, want = single
+    f, h, w = I2V_GRID
+    log(f"phase 101: the full-shape VACE-14B forward at 832x480x81 under {SP} local ranks, "
+        f"Ulysses: {f * h * w // SP} tokens a rank, the VACE context embedded on the rank's "
+        f"rows, 40 blocks and 8 VACE blocks; against phase 66's output")
+    t = torch.full((2,), 900.0, device=dev)
+
+    def rank(plan):
+        core = make_wan_core(model, I2V_GRID, plan, sp_impl="ulysses")
+        hidden, c = core.prepare(x, t, cond)
+        return core.head(core.trunk(hidden, c), c)
+
+    reset_counts()
+    outs, by_rank, wall = run_ranks(SP, rank, dev)
+    log(f"  forward: {wall:.3f} s wall, {SP} ranks serialised on one card")
+    per = wan_run_launches(sp_rank_launches(48, SP, "ulysses"), 1, 1)
+    launched = check_rank_launches("VACE-14B forward", by_rank, [per] * SP)
+    check_sp_forward("VACE-14B forward", outs, want)
+    return launched
+
+
+def phase_a14b_sp_request(dev, cfg, high, low, sched, want):
+    """Phase 68's t2v-A14B MoE request under ``SP`` local ranks on its two
+    experts; returns its launches."""
+    from magcache_tpu_torch.core.sampler import DiTCore
+    from magcache_tpu_torch.pipelines.wan import WanPipeline
+
+    log(f"phase 102: phase 68's t2v-A14B MoE request under {SP} local ranks, Ulysses, "
+        f"832x480x{WAN22_FRAMES} ({7800 // SP} tokens a rank), {A14B_STEPS} UniPC steps: "
+        f"both experts' cores on the plan, one carry across the switch; against phase 68's "
+        f"latents")
+    cfg = dataclasses.replace(cfg, sp=SP, sp_impl="ulysses")
+    calls = [{"high": 0, "low": 0} for _ in range(SP)]
+
+    def rank(plan):
+        pipe = WanPipeline(cfg, dev, model=high, model_low=low, plan=plan)
+
+        def spy(core, name):
+            def trunk(hidden, ctx):
+                calls[plan.rank][name] += 1
+                return core.trunk(hidden, ctx)
+            return DiTCore(core.prepare, trunk, core.head)
+
+        pipe.core, pipe.core_low = spy(pipe.core, "high"), spy(pipe.core_low, "low")
+        b = pipe.boundary_step()
+        return pipe.generate(TEXT_PROMPTS[0], seed=3), b
+
+    reset_counts()
+    res, by_rank, wall = run_ranks(SP, rank, dev)
+    outs, b = [o for o, _ in res], res[0][1]
+    runs = ~sched.all(1)
+    experts = {"high": int(runs[:b].sum()), "low": int(runs[b:].sum())}
+    if any(c != experts for c in calls):
+        fail(f"t2v-A14B under sp: the experts ran {calls}, not {experts} on every rank")
+    log(f"  trunk runs by expert on every rank {experts}")
+    per = wan_run_launches(sp_rank_launches(40, SP, "ulysses"), int(runs.sum()), A14B_STEPS)
+    launched = check_rank_launches("t2v-A14B MagCache", by_rank, [per] * SP)
+    check_sp_request("t2v-A14B MagCache", outs, want, sched, wall)
+    return launched
+
+
+def phase_wan_sp_policies(dev, model, kept):
+    """Phases 34's and 35's dpm++ / Euler MagCache, rolling, TeaCache and
+    dpm++ calibration requests under ``SP`` local ranks (Ulysses); returns
+    their launches."""
+    from magcache_tpu_torch.pipelines.wan import WanPipeline, WanPipelineConfig
+
+    log(f"phase 103: Wan2.1 T2V-1.3B requests of phases 34 and 35 under {SP} local ranks, "
+        f"Ulysses, 832x480x17 ({7800 // SP} tokens a rank): dpm++ and Euler with MagCache "
+        f"E012K2R02, rolling 0.12 / K 2 ({ROLLING_STEPS} steps), TeaCache with ret steps, "
+        f"dpm++ calibration (ratios against phase 34's); each against its single-rank "
+        f"latents")
+    total = dict(NO_LAUNCHES)
+    for label, (kw, single) in kept.items():
+        cfg = WanPipelineConfig(**dict(dict(size=(832, 480), frame_num=17,
+                                            sample_steps=SOLVER_STEPS, sample_shift=5.0,
+                                            guide_scale=5.0), **kw),
+                                sp=SP, sp_impl="ulysses")
+
+        def rank(plan):
+            return WanPipeline(cfg, dev, model=model, plan=plan).generate(WAN_PROMPT, seed=3)
+
+        reset_counts()
+        outs, by_rank, wall = run_ranks(SP, rank, dev)
+        steps = cfg.sample_steps
+        bits = single.skips if single.skips is not None else np.zeros((steps, 1), bool)
+        per = wan_run_launches(sp_rank_launches(30, SP, "ulysses"), int((~bits.all(1)).sum()),
+                               steps)
+        launched = check_rank_launches(label, by_rank, [per] * SP)
+        check_sp_request(label, outs, single.latents, bits, wall)
+        if single.calibration is not None:
+            # the ratios' token means all-reduce over the ranks in f32: the
+            # sums run in another order (1e-6 of a ratio near 1), and each
+            # residual carries the forward's bf16 differences -> within 1e-3
+            for r, out in enumerate(outs):
+                for name, vals in single.calibration.items():
+                    got = np.asarray(out.calibration[name])
+                    if not np.array_equal(got, np.asarray(outs[0].calibration[name])):
+                        fail(f"{label}: rank {r}'s {name} differ from rank 0's")
+                    dev_max = float(np.abs(got - np.asarray(vals)).max())
+                    if dev_max > 1e-3 * max(1.0, float(np.abs(vals).max())):
+                        fail(f"{label}: {name} under sp differ from the single rank's by "
+                             f"{dev_max:.3e}")
+            diffs = {n: float(np.abs(np.asarray(outs[0].calibration[n]) - np.asarray(v)).max())
+                     for n, v in single.calibration.items()}
+            log(f"  {label}: ratios equal on every rank; max |diff| against phase 34's "
+                f"{ {n: f'{d:.2e}' for n, d in diffs.items()} } (tol 1e-3)")
+        total = {k: n + launched[k] for k, n in total.items()}
+    return total
+
 
 # ------------------------------------------------ HunyuanVideo and FramePack
 # HunyuanVideo T2V at 720x1280x129: 33 latent frames of 45 x 80 tokens after
@@ -8677,6 +9270,14 @@ def main():
     phase_environment()
     dev = torch.device("cuda", 0)
     t0 = time.time()
+    sp_times = {}            # phases 96-103, each placed after the phase it reuses
+
+    def sp_phase(n, fn, *args):
+        t = time.time()
+        out = fn(*args)
+        sp_times[n] = time.time() - t
+        return out
+
     phase_build(dev)
     rec = {}                 # kernel name -> its result for the JSON line
     phase_kernels(dev, rec)
@@ -8756,9 +9357,10 @@ def main():
     t_ends = time.time() - t0 - t_wan - t_os - t_flux - t_os720 - t_latte - t_sp - t_unpacked
     log("phase 34/35 model:")
     model = make_model(dev)          # the same seed: phase 5's weights
-    wan_solvers = phase_wan_solvers(dev, model, single_latents["full compute"])
-    wan_tea = phase_wan_teacache(dev, model)
-    del model
+    wan_solvers, kept = phase_wan_solvers(dev, model)
+    wan_tea, kept_tea = phase_wan_teacache(dev, model)
+    wan_sp_policies = sp_phase(103, phase_wan_sp_policies, dev, model, {**kept, **kept_tea})
+    del model, kept, kept_tea
     torch.cuda.empty_cache()
     log("phase 36 model:")
     model = make_os_model(dev)       # the same seed: phase 9's weights
@@ -8833,11 +9435,16 @@ def main():
     torch.cuda.empty_cache()
     log("phase 59/60 model:")
     model = make_i2v_model(dev)
-    i2v = phase_i2v_forward(dev, model)
+    i2v, i2v_single = phase_i2v_forward(dev, model)
+    sp_phase(96, phase_sp_task_kernels, dev, rec)
+    i2v_sp = sp_phase(97, phase_i2v_sp_forward, dev, model, i2v_single)
+    del i2v_single
+    torch.cuda.empty_cache()
     text, clip, vae = i2v_encoders(dev)
-    reqs = phase_i2v_requests(dev, model, text, clip, vae)
+    reqs, i2v_enc = phase_i2v_requests(dev, model, text, clip, vae)
     i2v = {k: n + reqs[k] for k, n in i2v.items()}
-    del model
+    i2v_sp_req = sp_phase(98, phase_i2v_sp_request, dev, model, i2v_enc)
+    del model, i2v_enc
     torch.cuda.empty_cache()
     flf2v = phase_flf2v_request(dev, text, clip, vae)
     del text, clip, vae
@@ -8852,16 +9459,24 @@ def main():
     torch.cuda.empty_cache()
     log("phase 64/65 model:")
     model = make_wan_model(dev, dataclasses.replace(WAN_5B, dtype="bfloat16"), "TI2V-5B")
-    ti2v = phase_ti2v_forward(dev, model)
-    reqs = phase_ti2v_request(dev, model)
+    ti2v, ti2v_single = phase_ti2v_forward(dev, model)
+    ti2v_sp = sp_phase(99, phase_ti2v_sp_forward, dev, model, ti2v_single)
+    del ti2v_single
+    reqs, ti2v_enc = phase_ti2v_request(dev, model)
     ti2v = {k: n + reqs[k] for k, n in ti2v.items()}
-    del model
+    ti2v_sp_req = sp_phase(100, phase_ti2v_sp_request, dev, model, ti2v_enc)
+    del model, ti2v_enc
     torch.cuda.empty_cache()
-    vace = phase_vace14_forward(dev)
+    vace, model, vace_single = phase_vace14_forward(dev)
+    vace_sp = sp_phase(101, phase_vace14_sp_forward, dev, model, vace_single)
+    del model, vace_single
+    torch.cuda.empty_cache()
     vae = WanVAE(WAN21_VAE, dev).init(torch.Generator(device=dev).manual_seed(67))
     reqs = phase_vace_requests(dev, vae.requires_grad_(False))
     vace = {k: n + reqs[k] for k, n in vace.items()}
-    a14b = phase_a14b_requests(dev, vae)
+    a14b, a14b_sp = phase_a14b_requests(
+        dev, vae, then=lambda cfg, high, low, sched, lat: sp_phase(
+            102, phase_a14b_sp_request, dev, cfg, high, low, sched, lat))
     del vae
     torch.cuda.empty_cache()
     phase_wan22_card_vs_cpu(dev)
@@ -8952,7 +9567,9 @@ def main():
         f"OmniGen2, phases 81-85, {t_og:.1f} s; serving and the sweep, phases 86-87, "
         f"{t_serve:.1f} s; published checkpoints and LoRA, phases 88-89, {t_ckpt:.1f} s; "
         f"PAB on every route and with masked frames, Latte at 768x768 and the VAE halves, "
-        f"phases 90-95, {t_new:.1f} s)")
+        f"phases 90-95, {t_new:.1f} s; within those, Wan's tasks, solvers and policies "
+        f"under sp, phases 96-103, {sum(sp_times.values()):.1f} s: "
+        f"{ {n: round(v, 1) for n, v in sorted(sp_times.items())} })")
 
     meta = {
         "flash_attention_bshd": ("cuda", "magcache_tpu_torch/csrc/hopper_attention.cuh",
@@ -9008,7 +9625,10 @@ def main():
              "open-sora-pab-480p17": os17["packed"], "open-sora-pab-grouped": os17["grouped"],
              "open-sora-pab-vpu": os17["vpu"], "open-sora-pab-masked": os_pab_masked,
              "latte-pab-grouped": latte_pab_grouped, "latte-pab-vpu": latte_pab_vpu,
-             "latte-768": latte_768}
+             "latte-768": latte_768, "wan-sp-policies": wan_sp_policies,
+             "wan-i2v-sp": i2v_sp, "wan-i2v-sp-request": i2v_sp_req, "wan-ti2v-sp": ti2v_sp,
+             "wan-ti2v-sp-request": ti2v_sp_req, "wan-vace-sp": vace_sp,
+             "wan-a14b-sp": a14b_sp}
     kernels = []
     for name, (route, source, replaces) in meta.items():
         by_path = {p: c[name] for p, c in paths.items()}

@@ -72,13 +72,15 @@ default; ``--device cpu`` runs the plain PyTorch ops instead of the kernels
 (tests use it at ``--tiny`` size; the tiny models' head dims are not ones
 the kernels take, so ``--tiny`` on a card exits with a message).
 
-Sequence parallelism (Wan only): ``--sp N``, or the reference's aliases
-``--ulysses_size N`` and ``--ring_size N`` (ring attention), run N ranks,
-one process each, every rank on ``1/N`` of the tokens. Start them with
-``torchrun`` (it sets ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK`` and the
-rendezvous address), or set ``RANK`` and ``WORLD_SIZE`` yourself and pass
-``--dist_init_method``. Rank r runs on ``cuda:LOCAL_RANK`` over NCCL, or with
-``--device cpu`` over gloo. Rank 0 saves the output.
+Sequence parallelism (every Wan task, solver and cache policy): ``--sp N``,
+or the reference's aliases ``--ulysses_size N`` and ``--ring_size N`` (ring
+attention), run N ranks, one process each, every rank on ``1/N`` of the
+tokens. Start them with ``torchrun`` (it sets ``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK`` and the rendezvous address), or set ``RANK`` and
+``WORLD_SIZE`` yourself and pass ``--dist_init_method``. Rank r runs on
+``cuda:LOCAL_RANK`` over NCCL, or with ``--device cpu`` over gloo. Every
+rank encodes the text, the images and the source video alike (the same
+seeded encoders); rank 0 saves the output.
 
 Examples:
   python -m magcache_tpu_torch.cli.generate --task t2v-1.3B --size 832*480 \
@@ -92,6 +94,8 @@ Examples:
       --use_magcache                  # 832x480x81, 40 UniPC steps, E012K4R02
   python -m magcache_tpu_torch.cli.generate --task flf2v-14B --first_frame a.png \
       --last_frame b.npy              # 50 steps, shift 16
+  torchrun --nproc_per_node 4 -m magcache_tpu_torch.cli.generate --task i2v-14B \
+      --image x.png --use_magcache --ulysses_size 4    # 4 GPUs, 8,190 tokens each
   python -m magcache_tpu_torch.cli.generate --task open-sora --resolution 480p \
       --aspect_ratio 9:16 --frame_num 51 --enable_pab      # or --task latte
   python -m magcache_tpu_torch.cli.generate --task open-sora --resolution 720p \
@@ -977,10 +981,11 @@ def _pipeline(args):
         args.sp = args.ulysses_size
     if args.ring_size:
         args.sp = args.ring_size
-    if args.sp > 1 and args.task != "t2v-1.3B":
-        raise SystemExit(f"--sp: sequence parallelism is ported for t2v-1.3B "
-                         f"only, not for {args.task!r}")
     wan = args.task in _WAN
+    if args.sp > 1 and not wan:
+        raise SystemExit(f"--sp: sequence parallelism is ported for the Wan tasks "
+                         f"({', '.join(_WAN)}), not for {args.task!r} (ROADMAP "
+                         f"section 1 item 2, the multi-device axes)")
     vace = args.task.startswith("vace")
     for flag, on, ok in (("--image", args.image is not None,
                           args.task in ("i2v-14B", "flf2v-14B", "i2v-A14B", "ti2v-5B")

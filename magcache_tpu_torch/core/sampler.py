@@ -22,8 +22,10 @@ Same design as ``magcache_tpu.core.sampler``, in PyTorch's eager idiom:
 - Sequence parallelism needs nothing of the loop: under a ``plan`` a core's
   ``prepare`` returns the rank's token shard, so the residual cache holds
   that shard only, and its ``head`` returns the whole output on every rank.
-  The skip bits come from the static schedule and are the same on every
-  rank. Only calibration takes the plan, to all-reduce its token means.
+  The skip bits come from the static schedule, or from TeaCache's signal
+  (the time embedding, whole on every rank), and are the same on every
+  rank. Only calibration uses the plan (``plan=``), to all-reduce its token
+  means.
 - ``sample_euler`` is the linear-update loop ``x <- cx_i * x + dt_i * v``
   (RFLOW's Euler step, and DDIM-eps with ``x_coeffs``); Open-Sora and Latte
   run it with a joint CFG batch of 2 rows under one cache lane and an
@@ -401,6 +403,7 @@ def sample_unipc(
     dynamic_skip=None,
     return_skips: bool = False,
     post_step: Optional[Callable] = None,
+    plan=None,
 ):
     """UniPC predictor-corrector flow sampler with MagCache (or the dynamic
     policy ``dynamic_skip``).
@@ -408,12 +411,15 @@ def sample_unipc(
     ``cond`` is lane-stacked ([cond; uncond] on axis 0) when
     ``guidance_scale`` is set. ``return_skips=True`` also returns the
     realized skip bits ``bool[num_steps, lanes]``. After the final step the
-    predictor's output for sigma = 0 is the sample.
+    predictor's output for sigma = 0 is the sample. ``plan``: the
+    sequence-parallel plan the core was made with (the loop itself needs
+    nothing of it).
     """
     init_carry, step = unipc_executor(
         core, schedule, cache_cfg=cache_cfg, guidance_scale=guidance_scale,
         lanes=lanes, skip_mask_override=skip_mask_override,
-        batch=x_init.shape[0], dynamic_skip=dynamic_skip, post_step=post_step)
+        batch=x_init.shape[0], dynamic_skip=dynamic_skip, post_step=post_step,
+        plan=plan)
     carry = init_carry(x_init)
     skips = []
     for i in range(schedule.num_steps):
@@ -453,6 +459,7 @@ def sample_euler(
     calibrate_lanes: Optional[int] = None,
     prev_residual: Optional[torch.Tensor] = None,
     return_residual: bool = False,
+    plan=None,
 ):
     """Linear-update sampler ``x <- cx_i * x + dt_i * v [+ ns_i * z_i]`` with
     MagCache (the JAX ``magcache_tpu.core.sampler.sample_euler``).
@@ -482,7 +489,8 @@ def sample_euler(
     section's last residual, so the calibration records one continuous run
     of ratios across sections); stats then have ``num_steps`` rows.
     ``return_residual`` also returns the run's last residual, ``(x, stats,
-    residual)``.
+    residual)``. Pass the ``plan`` a sequence-parallel core was made with:
+    the statistics' token means then run over every rank's tokens.
 
     Euler-Ancestral (``schedulers.euler_ancestral``): ``in_scales`` scales
     the model's input only (``x_model = in_i * x``), and ``noise_scales``
@@ -563,7 +571,7 @@ def sample_euler(
             rpl = x2.shape[0] // cal_lanes
             stats.append(torch.stack([
                 calibration_stats(cache[l * rpl:(l + 1) * rpl],
-                                  cache_prev[l * rpl:(l + 1) * rpl])
+                                  cache_prev[l * rpl:(l + 1) * rpl], plan)
                 for l in range(cal_lanes)]))
         skips.append(bits)
     if calibrate:

@@ -54,8 +54,12 @@ rank's token rows, the RoPE tables are cut to those rows, the text context
 stays whole on every rank, self-attention goes through Ulysses or the ring
 and cross-attention keeps q sharded against the whole context, and ``head``
 all-gathers the sequence before it unpatchifies, so every rank returns the
-whole output. Weights are replicated. VACE and the per-token timestep are
-not ported under a plan and raise ``NotImplementedError``.
+whole output. Weights are replicated. VACE's context is patch-embedded on
+the rank's rows only and its blocks run on the same plan as the trunk's. The
+per-token timestep's t = 0 prefix is global: rank r holds rows ``[r*L,
+(r+1)*L)``, so its own prefix is ``clamp(n0 - r*L, 0, L)`` rows (all, some or
+none of its shard), in the blocks and in the head, which modulates before it
+gathers.
 """
 
 from __future__ import annotations
@@ -219,8 +223,9 @@ class WanBlock(nn.Module):
         tokens (cos/sin then hold those rows' tables); None on one rank.
 
         ``e0`` is ``[B, 6, D]``, or ``[B, 2, 6, D]`` for the per-token
-        timestep: the first ``n0`` tokens take row 1's modulation and gates,
-        the others row 0's."""
+        timestep: the first ``n0`` tokens of x take row 1's modulation and
+        gates, the others row 0's (under a plan, ``n0`` counts the prefix
+        rows of this rank's shard)."""
         cfg = self.cfg
         sp = sp or {}
         b, s, _ = x.shape
@@ -232,17 +237,20 @@ class WanBlock(nn.Module):
         mods0 = [e[:, 1, i:i + 1] for i in range(6)] if seg else mods
 
         # K3 and the gate work row by row: every token at row 0's modulation,
-        # then the t = 0 prefix overwritten at row 1's (a copy of n0 rows only)
+        # then the t = 0 prefix overwritten at row 1's (a copy of n0 rows
+        # only; a rank whose shard holds none of the prefix launches nothing)
+        prefix = seg and n0 > 0
+
         def ln_mod(x, i_shift, i_scale):
             out = layer_norm_mod(x, scale=mods[i_scale], shift=mods[i_shift], eps=eps)
-            if seg:
+            if prefix:
                 out[:, :n0] = layer_norm_mod(x[:, :n0].contiguous(), scale=mods0[i_scale],
                                              shift=mods0[i_shift], eps=eps)
             return out
 
         def gate(x, y, i):
             g = y.float() * mods[i]
-            if seg:
+            if prefix:
                 g[:, :n0] = y[:, :n0].float() * mods0[i]
             return x + g.to(x.dtype)
 
@@ -383,10 +391,9 @@ def make_wan_core(model: WanModel, grid: Tuple[int, int, int], plan=None, *,
     ``ops.attention.attention``).
     """
     cfg = model.cfg
-    if plan is not None and cfg.vace_layers:
-        raise NotImplementedError("VACE under sequence parallelism is not ported yet")
     device = model.patch_embedding.weight.device
-    # latent frame 0's tokens: the per-token timestep's t = 0 prefix
+    # latent frame 0's tokens: the per-token timestep's t = 0 prefix (this
+    # rank's share of it under a plan, below)
     n0 = grid[1] * grid[2]
     hint_of_layer = {layer: j for j, layer in enumerate(cfg.vace_layers)}
     cos_np, sin_np = wan_rope_tables(cfg, grid)
@@ -396,7 +403,11 @@ def make_wan_core(model: WanModel, grid: Tuple[int, int, int], plan=None, *,
     if plan is not None:
         from magcache_tpu_torch.parallel.collectives import (gather_sequence,
                                                              split_sequence)
-        plan.shard_len(cos.shape[0], "make_wan_core: the token")
+        what = f"make_wan_core: the token sequence of grid {tuple(grid)}"
+        if cfg.vace_layers:
+            what += " (VACE's R2V reference frames included)"
+        rows = plan.shard_len(cos.shape[0], what)
+        n0 = min(max(n0 - plan.rank * rows, 0), rows)
         ring = sp_impl == "ring" or (sp_impl == "auto"
                                      and cos.shape[0] >= ring_threshold)
         if not ring and cfg.heads % plan.sp:
@@ -426,9 +437,6 @@ def make_wan_core(model: WanModel, grid: Tuple[int, int, int], plan=None, *,
         e, e0 = time_path(t)
         if "ti2v_img" in cond:
             # the per-token timestep: latent frame 0's tokens run at t = 0
-            if plan is not None:
-                raise NotImplementedError("the per-token timestep under sequence "
-                                          "parallelism is not ported yet")
             if cfg.patch[0] != 1:
                 raise ValueError(f"the per-token timestep needs a time patch of 1, "
                                  f"got {cfg.patch}")
@@ -454,10 +462,13 @@ def make_wan_core(model: WanModel, grid: Tuple[int, int, int], plan=None, *,
 
     def vace_hints(hidden, ctx):
         """Each VACE block's hint: the stack runs from the patch-embedded
-        context, projected and added to the hidden tokens."""
+        context (under a plan, the rank's rows of it), projected and added to
+        the hidden tokens."""
         vace = model.vace
-        c = vace.before_proj(vace.patch_embedding(patchify(cfg, ctx["vace_context"])))
-        c = c + hidden
+        tokens = patchify(cfg, ctx["vace_context"])
+        if plan is not None:
+            tokens = split_sequence(tokens, plan, 1)
+        c = vace.before_proj(vace.patch_embedding(tokens)) + hidden
         hints = []
         for blk, proj in zip(vace.blocks, vace.after_proj):
             c = blk(c, ctx["e0"], ctx["context"], cos, sin, sp, n0)
@@ -490,7 +501,8 @@ def make_wan_core(model: WanModel, grid: Tuple[int, int, int], plan=None, *,
         e = ctx["e"]
         if e.ndim == 3:     # the per-token timestep: the t = 0 prefix at row 1
             h = mod_head(xn, e[:, 0])
-            h[:, :n0] = mod_head(xn[:, :n0], e[:, 1])
+            if n0:
+                h[:, :n0] = mod_head(xn[:, :n0], e[:, 1])
         else:
             h = mod_head(xn, e)
         # round to the activation dtype, then the f32 head weight promotes

@@ -14,6 +14,7 @@ Also here: the checks the wrappers share, and the TMA tensor-map geometry
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -175,17 +176,37 @@ def check_launch(lib: ctypes.CDLL, code: int, name: str) -> None:
 
 
 _COUNT_LOCK = threading.Lock()
+_THREAD_TALLY = threading.local()
 
 
 def count_launch(fn, attr: str = "launches", key=None) -> None:
     """Adds one to a wrapper's launch count ``fn.<attr>`` (or to its entry
     ``key`` when the count is a dict). Under a lock: the local ranks of a
-    sequence-parallel run launch from several threads."""
+    sequence-parallel run launch from several threads. Inside
+    ``thread_launches`` the calling thread's tally counts it too."""
     with _COUNT_LOCK:
         if key is None:
             setattr(fn, attr, getattr(fn, attr) + 1)
         else:
             getattr(fn, attr)[key] += 1
+    tally = getattr(_THREAD_TALLY, "counts", None)
+    if tally is not None:
+        name = (fn.__name__, attr, key)
+        tally[name] = tally.get(name, 0) + 1
+
+
+@contextlib.contextmanager
+def thread_launches():
+    """Yields a dict that tallies the launches this thread makes inside the
+    block, by ``(wrapper name, count attribute, key)`` as ``count_launch``
+    names them: one local rank's own launches, where the wrappers' counts
+    sum over every rank."""
+    outer = getattr(_THREAD_TALLY, "counts", None)
+    _THREAD_TALLY.counts = tally = {}
+    try:
+        yield tally
+    finally:
+        _THREAD_TALLY.counts = outer
 
 
 @dataclasses.dataclass(frozen=True)

@@ -20,15 +20,20 @@ Two implementations run the same rank program:
 - ``TorchDistGroup``: a ``torch.distributed`` process group, one process per
   rank (NCCL for CUDA tensors, gloo for CPU tensors), as ``torchrun`` starts
   them; ``init_distributed`` is the rendezvous;
-- ``LocalGroup``: ``size`` ranks as threads of one process on one device,
-  exchanging tensors at a barrier; ``run_local_ranks`` starts them. It is
-  the counterpart of the virtual CPU devices the JAX tests use, and how
-  several ranks run on a single card. All ranks stay on the device's default
-  stream, so what one rank enqueued before a collective is ordered before
-  what another enqueues after it. The model's weights are shared, not
-  copied. A rank that raises aborts the barrier, every wait has a timeout,
-  and the caller gets the first exception: a fault ends the run, it never
-  hangs it.
+- ``LocalGroup``: ``size`` ranks as threads of one process on one device;
+  ``run_local_ranks`` starts them. It is the counterpart of the virtual CPU
+  devices the JAX tests use, and how several ranks run on a single card.
+  The ranks take turns: one runs at a time, from one collective to the
+  next, and hands the turn to the next rank when it has put its tensor in
+  its slot. The card runs their work one kernel after another anyway, and
+  host threads that ran at once would trade the GIL at every op (each
+  PyTorch call drops and retakes it); taking turns, a rank queues its
+  kernels while the card still runs the previous rank's. All ranks stay on
+  the device's default stream, so what one rank enqueued before a
+  collective is ordered before what another enqueues after it. The model's
+  weights are shared, not copied. A rank that raises ends the turns, every
+  wait has a timeout, and the caller gets the first exception: a fault ends
+  the run, it never hangs it.
 
 ``MeshPlan`` holds a rank's group; models, samplers and ``attention()`` take
 it as an explicit argument (``plan=None`` is the single-rank path).
@@ -45,7 +50,7 @@ import torch
 __all__ = ["Group", "LocalGroup", "TorchDistGroup", "MeshPlan",
            "run_local_ranks", "init_distributed", "LOCAL_TIMEOUT_S"]
 
-LOCAL_TIMEOUT_S = 120.0     # a local rank waits this long at a barrier
+LOCAL_TIMEOUT_S = 120.0     # a local rank waits this long for its turn
 
 
 class Group:
@@ -82,19 +87,59 @@ def _split_even(x: torch.Tensor, n: int, dim: int, what: str) -> Sequence[torch.
 
 
 class _LocalShared:
-    """What the ranks of one ``LocalGroup`` share: a barrier and one slot
-    per rank."""
+    """What the ranks of one ``LocalGroup`` share: whose turn it is, two
+    rounds of slots (a round's slots stay until every rank has read them:
+    a rank writes round k + 2 only after all have read round k), the
+    exchanges each rank has entered, and which ranks are done."""
 
     def __init__(self, size: int, timeout: float):
-        self.barrier = threading.Barrier(size)
-        self.slots: list = [None] * size
+        self.cond = threading.Condition()
+        self.size = size
         self.timeout = timeout
+        self.turn = 0
+        self.slots = ([None] * size, [None] * size)
+        self.rounds = [0] * size
+        self.done = [False] * size
+        self.broken = False
+
+    def wait(self, ready: Callable[[], bool]) -> None:
+        """Under ``cond``: waits until ``ready()``; raises
+        ``BrokenBarrierError`` if the run was ended or the wait timed out
+        (which ends it for the others too)."""
+        if not self.cond.wait_for(lambda: self.broken or ready(), self.timeout):
+            self.broken = True
+            self.cond.notify_all()
+        if self.broken:
+            raise threading.BrokenBarrierError
+
+    def pass_turn(self, rank: int) -> None:
+        """Under ``cond``: the turn goes to the next rank that is not done."""
+        nxt = (rank + 1) % self.size
+        while self.done[nxt] and nxt != rank:
+            nxt = (nxt + 1) % self.size
+        self.turn = nxt
+        self.cond.notify_all()
+
+    def start(self, rank: int) -> None:
+        with self.cond:
+            self.wait(lambda: self.turn == rank)
+
+    def finish(self, rank: int) -> None:
+        with self.cond:
+            self.done[rank] = True
+            self.pass_turn(rank)
+
+    def abort(self) -> None:
+        with self.cond:
+            self.broken = True
+            self.cond.notify_all()
 
 
 class LocalGroup(Group):
     """Rank ``rank`` of ``size`` ranks that are threads of this process.
-    A collective writes this rank's value into its slot, waits for all, reads
-    every slot, and waits again before any slot is overwritten."""
+    A collective writes this rank's value into its slot of the round, hands
+    the turn on, and when the turn comes back (every rank has written the
+    round by then) reads every slot."""
 
     def __init__(self, shared: _LocalShared, rank: int, size: int):
         self._shared = shared
@@ -103,11 +148,14 @@ class LocalGroup(Group):
 
     def _exchange(self, x):
         sh = self._shared
-        sh.slots[self.rank] = x
-        sh.barrier.wait(sh.timeout)
-        got = list(sh.slots)
-        sh.barrier.wait(sh.timeout)
-        return got
+        with sh.cond:
+            k = sh.rounds[self.rank]
+            slots = sh.slots[k % 2]
+            slots[self.rank] = x
+            sh.rounds[self.rank] = k + 1
+            sh.pass_turn(self.rank)
+            sh.wait(lambda: sh.turn == self.rank and min(sh.rounds) > k)
+            return list(slots)
 
 
 class TorchDistGroup(Group):
@@ -193,11 +241,12 @@ class MeshPlan:
 
 def run_local_ranks(sp: int, fn: Callable[[MeshPlan], object], *,
                     timeout: float = LOCAL_TIMEOUT_S, device=None) -> list:
-    """Runs ``fn(plan)`` on ``sp`` local ranks, one thread each, and returns
-    their results in rank order. ``device`` (a CUDA device) becomes every
-    thread's current device. If a rank raises, the barrier is aborted, the
-    other ranks end, and the first exception is raised here; a rank stuck
-    for longer than ``timeout`` at a collective ends the run the same way."""
+    """Runs ``fn(plan)`` on ``sp`` local ranks, one thread each, taking
+    turns in rank order between collectives, and returns their results in
+    rank order. ``device`` (a CUDA device) becomes every thread's current
+    device. If a rank raises, the turns end, the other ranks end, and the
+    first exception is raised here; a rank that waits longer than
+    ``timeout`` for its turn ends the run the same way."""
     shared = _LocalShared(sp, timeout)
     results: list = [None] * sp
     errors: list = [None] * sp
@@ -206,10 +255,13 @@ def run_local_ranks(sp: int, fn: Callable[[MeshPlan], object], *,
         try:
             if device is not None and torch.device(device).type == "cuda":
                 torch.cuda.set_device(device)
+            shared.start(rank)
             results[rank] = fn(MeshPlan(LocalGroup(shared, rank, sp)))
         except BaseException as e:          # noqa: BLE001 - handed to the caller
             errors[rank] = e
-            shared.barrier.abort()
+            shared.abort()
+        else:
+            shared.finish(rank)
 
     threads = [threading.Thread(target=worker, args=(r,), name=f"sp-rank-{r}",
                                 daemon=True) for r in range(sp)]

@@ -54,17 +54,19 @@ The VAE that encodes is the pipeline's ``vae``, else a random-weight
 Sequence parallelism (``sp > 1``): the pipeline object is one rank's. It is
 built with the rank's ``plan`` (``parallel.mesh.MeshPlan``: a process group
 under ``torchrun``, or a local rank of ``run_local_ranks``). Every rank
-encodes the same text and draws the same noise from the seeded CPU
-generator, runs the sampler on its ``1/sp`` of the tokens, and returns the
-whole latents.
+encodes the same text, images and source video and draws the same noise
+from the seeded CPU generator, runs the sampler on its ``1/sp`` of the
+tokens, and returns the whole latents. Every model, task, solver and cache
+policy runs so (the MoE's two cores are both built on the plan); only
+``generate_batch`` refuses a plan (the ``dp`` axis, ROADMAP section 1 item
+2.3).
 
 Cache policies: MagCache's release adapter rule (``cache_policy="adapter"``,
 the presets) or the eval scripts' rolling rule (``"rolling"``,
 ``core.rolling``; not on the MoE), and the TeaCache comparator
 (``enable_teacache``, per CFG lane, UniPC only, exclusive with MagCache;
 published coefficients for Wan2.1 t2v and i2v only, the other tasks and
-Wan2.2 raise). Under ``sp > 1`` only t2v with UniPC and the adapter rule is
-ported, and not the MoE; the others raise.
+Wan2.2 raise).
 """
 
 from __future__ import annotations
@@ -176,10 +178,6 @@ class WanPipelineConfig:
         if self.task not in MODEL_TASKS[self.model]:
             raise ValueError(f"Wan {self.model!r} takes task "
                              f"{' or '.join(MODEL_TASKS[self.model])}, not {self.task!r}")
-        if self.sp > 1 and (self.task != "t2v" or self.moe_boundary is not None):
-            raise NotImplementedError(
-                f"under sp > 1 only dense t2v is ported yet, not {self.task}"
-                f"{' on the MoE' if self.moe_boundary is not None else ''}")
         if self.vace_ref_images and self.task != "vace":
             raise ValueError("vace_ref_images is for the vace task")
         if self.sample_solver not in ("unipc", "dpm++", "euler"):
@@ -188,11 +186,6 @@ class WanPipelineConfig:
         if self.cache_policy not in ("adapter", "rolling"):
             raise ValueError(f"cache_policy must be adapter or rolling, got "
                              f"{self.cache_policy!r}")
-        if self.sp > 1 and (self.sample_solver != "unipc" or self.enable_teacache
-                            or self.cache_policy != "adapter"):
-            raise NotImplementedError(
-                "under sp > 1 only the unipc solver with the adapter cache policy "
-                "is ported yet (not dpm++, euler, rolling or TeaCache)")
 
     @property
     def moe_boundary(self) -> Optional[float]:
@@ -428,7 +421,7 @@ class WanPipeline(BasePipeline):
             # calibration rides the trajectory generation uses
             return lambda x0, cond: sample_euler(
                 self.core, x0, cond, timesteps=sch.timesteps, dts=np.diff(sch.sigmas),
-                guidance_scale=g, dpm_coeffs=dpm, calibrate=True)
+                guidance_scale=g, dpm_coeffs=dpm, calibrate=True, plan=self.plan)
         tea = None
         if c.enable_teacache:
             if c.use_magcache:
@@ -446,12 +439,12 @@ class WanPipeline(BasePipeline):
             return lambda x0, cond: sample_unipc(
                 self.core, x0, cond, sch, cache_cfg=cache_cfg, guidance_scale=g,
                 skip_mask_override=skip_override, dynamic_skip=tea, return_skips=True,
-                post_step=_ti2v_post(cond))
+                post_step=_ti2v_post(cond), plan=self.plan)
         return lambda x0, cond: sample_euler(
             self.core, x0, cond, timesteps=sch.timesteps, dts=np.diff(sch.sigmas),
             cache_cfg=cache_cfg, guidance_scale=g, dpm_coeffs=dpm,
             skip_mask_override=skip_override, return_skips=True,
-            post_step=_ti2v_post(cond))
+            post_step=_ti2v_post(cond), plan=self.plan)
 
     def _sample_fn_moe(self, batch: int = 1):
         """The A14B two-expert sampler over ``batch`` videos: UniPC steps
@@ -746,6 +739,11 @@ class WanPipeline(BasePipeline):
         signal (``e`` or ``e0``) depends on the step alone, so that mean is
         each element's own."""
         c = self.config
+        if self.plan is not None:
+            raise NotImplementedError(
+                "generate_batch under sp > 1: batching prompts across ranks is the "
+                "dp axis, not ported yet (ROADMAP section 1 item 2.3); call "
+                "generate() once a prompt")
         if c.task not in ("t2v", "ti2v"):
             raise ValueError(f"generate_batch takes text prompts only (t2v, ti2v "
                              f"without an image), not {c.task}")

@@ -59,12 +59,10 @@ def test_generate_skip_override_and_full_compute():
 
 
 def test_unported_configs_raise():
-    # VACE is ported on one rank, not under sequence parallelism
-    with pytest.raises(NotImplementedError):
-        WanPipelineConfig(model="wan2.1-vace-1.3B", task="vace", sp=2)
-    # dpm++ and Euler are ported on one rank; under sp they raise
-    with pytest.raises(NotImplementedError, match="sp > 1"):
-        WanPipelineConfig(sample_solver="dpm++", sp=2)
+    # VACE, dpm++ and Euler run under sequence parallelism too
+    # (tests/test_torch_sp_wan_tasks.py)
+    assert WanPipelineConfig(model="wan2.1-vace-1.3B", task="vace", sp=2).sp == 2
+    assert WanPipelineConfig(sample_solver="dpm++", sp=2).sample_solver == "dpm++"
     with pytest.raises(ValueError, match="sample_solver"):
         WanPipelineConfig(sample_solver="ddim")
 

@@ -200,10 +200,9 @@ def test_wan_refusals():
         tpipe.WanPipelineConfig(sample_solver="heun")
     with pytest.raises(ValueError, match="cache_policy"):
         tpipe.WanPipelineConfig(cache_policy="lru")
-    with pytest.raises(NotImplementedError, match="sp > 1"):
-        tpipe.WanPipelineConfig(sample_solver="dpm++", sp=2)
-    with pytest.raises(NotImplementedError, match="sp > 1"):
-        tpipe.WanPipelineConfig(cache_policy="rolling", sp=2)
+    # both run under sequence parallelism (tests/test_torch_sp_wan_tasks.py)
+    assert tpipe.WanPipelineConfig(sample_solver="dpm++", sp=2).sp == 2
+    assert tpipe.WanPipelineConfig(cache_policy="rolling", sp=2).sp == 2
 
 
 @pytest.mark.parametrize("flags,want_skips", [

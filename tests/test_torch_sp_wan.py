@@ -227,15 +227,18 @@ def test_cli_sp_without_ranks_names_torchrun(monkeypatch):
     monkeypatch.delenv("WORLD_SIZE", raising=False)
     with pytest.raises(SystemExit, match="torchrun"):
         cli.main(["--tiny", "--device", "cpu", "--sp", "2"])
-    with pytest.raises(SystemExit, match="t2v-1.3B only"):
+    # every Wan task takes --sp; the other families name the roadmap item
+    with pytest.raises(SystemExit, match="ROADMAP section 1 item 2"):
         cli.main(["--task", "open-sora", "--tiny", "--device", "cpu", "--ulysses_size", "2"])
+    with pytest.raises(SystemExit, match="torchrun"):
+        cli.main(["--task", "i2v-14B", "--tiny", "--device", "cpu", "--ulysses_size", "2"])
 
 
-def _cli(args, env_extra=None):
+def _cli(args, env_extra=None, task=("--task", "t2v-1.3B")):
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
     env.update(env_extra or {})
     return subprocess.Popen(
-        [sys.executable, "-m", "magcache_tpu_torch.cli.generate", "--task", "t2v-1.3B",
+        [sys.executable, "-m", "magcache_tpu_torch.cli.generate", *task,
          "--tiny", "--device", "cpu", "--dtype", "float32", "--sample_steps", "6",
          "--use_magcache", *args],
         env=env, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -260,18 +263,29 @@ def _wait(procs, timeout):
     return outs
 
 
-@pytest.mark.parametrize("flag", ["--ulysses_size", "--ring_size"])
-def test_cli_two_gloo_processes_match_one_process(flag, tmp_path):
+@pytest.mark.parametrize("flag,task", [("--ulysses_size", "t2v-1.3B"),
+                                       ("--ring_size", "t2v-1.3B"),
+                                       ("--ulysses_size", "ti2v-5B")])
+def test_cli_two_gloo_processes_match_one_process(flag, task, tmp_path):
+    """ti2v with an image: every process encodes it alike, and the t = 0
+    prefix (latent frame 0's 8 tokens) lies on rank 0's 12."""
+    task_args = ("--task", task)
+    if task == "ti2v-5B":
+        image = str(tmp_path / "img.npy")
+        np.save(image, np.random.default_rng(4).random((24, 40, 3)).astype(np.float32))
+        task_args += ("--image", image)
     one = str(tmp_path / "one")
-    _wait([_cli(["--save_file", one])], 180)
+    _wait([_cli(["--save_file", one], task=task_args)], 180)
     rdv = "file://" + str(tmp_path / "rendezvous")
     two = str(tmp_path / "two")
     # the children import the port only (torch, never jax: held by
     # test_torch_pipeline.py's import-boundary test, which walks parallel/ too)
     procs = [_cli([flag, "2", "--dist_init_method", rdv, "--save_file", two],
-                  dict(RANK=str(r), WORLD_SIZE="2")) for r in range(2)]
+                  dict(RANK=str(r), WORLD_SIZE="2"), task_args) for r in range(2)]
     outs = _wait(procs, 180)
-    assert "skipped 6 of 12" in outs[0] and "latents" in outs[0]
+    if task == "t2v-1.3B":
+        assert "skipped 6 of 12" in outs[0]
+    assert "latents" in outs[0]
     assert "latents" not in outs[1]                  # rank 0 saves, rank 1 is silent
     got, want = np.load(two + "_latents.npy"), np.load(one + "_latents.npy")
     assert got.shape == want.shape == (1, 3, 4, 8, 16)

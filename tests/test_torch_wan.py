@@ -129,9 +129,9 @@ def test_bf16_dtype_placement_matches_jax_init():
 def test_unported_wan_variants_raise():
     with pytest.raises(NotImplementedError):
         twan.WanModel(twan.WanConfig.tiny(model_type="ti2v"), "cpu")
-    # VACE is ported on one rank, not under sequence parallelism
+    # VACE runs under sequence parallelism too (tests/test_torch_sp_wan_tasks.py)
     vace = twan.WanModel(twan.WanConfig.tiny(vace_layers=(0,)), "cpu")
-    with pytest.raises(NotImplementedError):
-        run_local_ranks(2, lambda plan: twan.make_wan_core(vace, (2, 4, 4), plan),
-                        device="cpu")
+    cores = run_local_ranks(2, lambda plan: twan.make_wan_core(vace, (2, 4, 4), plan),
+                            device="cpu")
+    assert len(cores) == 2
     assert TMock(4, 8)(["x"]).shape == (1, 4, 8)

@@ -130,18 +130,24 @@ def test_ti2v_forward_matches_jax(grid):
 
 
 def test_per_token_timestep_refused_under_sequence_parallelism():
+    """No longer refused: under 2 ranks each rank runs its share of the
+    t = 0 prefix (here all of rank 0's 16 rows, none of rank 1's), and the
+    forward is the single rank's (tests/test_torch_sp_wan_tasks.py covers
+    every split and the JAX mesh)."""
     model = twan.WanModel(twan.WanConfig.tiny(), "cpu")
     x, ctx = _inputs(model.cfg, (2, 4, 4), 1, seed=5)
+    cond = {"context": torch.from_numpy(ctx), "ti2v_img": None}
 
-    def rank(plan):
+    def forward(plan=None):
         core = twan.make_wan_core(model, (2, 4, 4), plan)
-        return core.prepare(torch.from_numpy(x), torch.full((1,), 5.0),
-                            {"context": torch.from_numpy(ctx), "ti2v_img": None})
+        hidden, c = core.prepare(torch.from_numpy(x), torch.full((1,), 5.0), cond)
+        assert tuple(c["e0"].shape) == (1, 2, 6, 96)
+        return core.head(core.trunk(hidden, c), c)
 
-    with pytest.raises(NotImplementedError, match="per-token timestep"):
-        run_local_ranks(2, rank, device="cpu")
-    with pytest.raises(NotImplementedError, match="sp > 1"):
-        WanPipelineConfig(model="wan2.2-ti2v-5B-i2v", task="ti2v", sp=2)
+    want = forward()
+    for got in run_local_ranks(2, forward, device="cpu"):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=TOL, rtol=TOL)
+    assert WanPipelineConfig(model="wan2.2-ti2v-5B-i2v", task="ti2v", sp=2).sp == 2
 
 
 # ------------------------------------------------------ the Wan2.2 VAE layout
@@ -346,8 +352,8 @@ def test_moe_refusals():
     with pytest.raises(ValueError, match="UniPC"):
         WanPipeline(WanPipelineConfig(sample_solver="euler", **base), "cpu",
                     model=pipe.model, model_low=pipe.model_low).generate("a")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        WanPipelineConfig(model="wan2.2-t2v-A14B", sp=2)
+    # the MoE runs under sp (tests/test_torch_sp_wan_tasks.py)
+    assert WanPipelineConfig(model="wan2.2-t2v-A14B", sp=2).moe_boundary == 0.875
     with pytest.raises(ValueError, match="dense"):
         WanPipeline(WanPipelineConfig(tiny=True), "cpu", model_low=pipe.model)
     # calibration runs the high-noise expert alone at the high scale

@@ -40,7 +40,7 @@ from magcache_tpu_torch.models.convert import (causal_vae_params_from_numpy,
                                                clip_vision_params_from_numpy,
                                                wan_params_from_numpy,
                                                wan_vae_params_from_numpy)
-from magcache_tpu_torch.pipelines.wan import WanPipeline, WanPipelineConfig
+from magcache_tpu_torch.pipelines.wan import MODEL_TASKS, WanPipeline, WanPipelineConfig
 
 # f32 on both sides; only GEMM/reduction summation order differs (the
 # tolerance of tests/test_torch_wan.py for the t2v block)
@@ -437,13 +437,11 @@ def test_configs_refuse_mismatched_and_unported_tasks():
         WanPipelineConfig(task="i2v")                       # a t2v model
     with pytest.raises(ValueError, match="takes task"):
         WanPipelineConfig(model="wan2.1-i2v-720p", task="t2v")
-    with pytest.raises(NotImplementedError, match="sp > 1"):
-        WanPipelineConfig(model="wan2.1-i2v-480p", task="i2v", sp=2)
-    # VACE and ti2v are ported on one rank, not under sequence parallelism
-    with pytest.raises(NotImplementedError):
-        WanPipelineConfig(model="wan2.1-vace-14B", task="vace", sp=2)
-    with pytest.raises(NotImplementedError):
-        WanPipelineConfig(model="wan2.2-ti2v-5B-i2v", task="ti2v", sp=2)
+    # every model and task runs under sequence parallelism
+    # (tests/test_torch_sp_wan_tasks.py)
+    for model, tasks in MODEL_TASKS.items():
+        for task in tasks:
+            assert WanPipelineConfig(model=model, task=task, sp=2).sp == 2
 
 
 def _save_image(tmp_path, name, seed):

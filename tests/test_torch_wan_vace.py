@@ -150,12 +150,26 @@ def test_vace_converter_layout_and_dtypes():
 
 
 def test_vace_refused_under_sequence_parallelism():
+    """No longer refused: the VACE stack runs on the rank's rows and matches
+    the single rank (tests/test_torch_sp_wan_tasks.py covers the plans, R2V
+    and the JAX mesh); a grid whose tokens do not divide still raises."""
     model = twan.WanModel(twan.WanConfig.tiny(**VACE), "cpu")
-    with pytest.raises(NotImplementedError, match="VACE under sequence parallelism"):
-        run_local_ranks(2, lambda plan: twan.make_wan_core(model, (2, 4, 4), plan),
-                        device="cpu")
-    with pytest.raises(NotImplementedError, match="sp > 1"):
-        WanPipelineConfig(model="wan2.1-vace-1.3B", task="vace", sp=2)
+    x, cond = _inputs(model.cfg, (2, 4, 4), 2, seed=4)
+    t = torch.tensor([900.0, 250.0])
+    cond = {k: torch.from_numpy(v) for k, v in cond.items()}
+
+    def forward(plan=None):
+        core = twan.make_wan_core(model, (2, 4, 4), plan)
+        hidden, c = core.prepare(torch.from_numpy(x), t, cond)
+        return core.head(core.trunk(hidden, c), c)
+
+    want = forward()
+    for got in run_local_ranks(2, forward, device="cpu"):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=TOL, rtol=TOL)
+    with pytest.raises(ValueError, match="R2V reference frames included"):
+        run_local_ranks(3, lambda plan: twan.make_wan_core(model, (2, 4, 4), plan,
+                                                           sp_impl="ring"), device="cpu")
+    assert WanPipelineConfig(model="wan2.1-vace-1.3B", task="vace", sp=2).sp == 2
     with pytest.raises(ValueError, match="outside"):
         twan.WanModel(twan.WanConfig.tiny(vace_layers=(2,)), "cpu")
 
