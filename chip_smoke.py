@@ -388,10 +388,10 @@ shapes and launch counts):
    shift 16, MagCache ``wan2.1-vace-1.3B`` (26 of 50 elided), from a seeded source video and
    box mask through the Wan VAE encode and decode (f32), and an R2V request
    with one reference image (6 latent frames sampled, 5 kept);
-68. the A14B MoE at 832x480x17, 24 steps (cut from 40), both WAN_14B
-   experts resident: t2v-A14B (shift 12, CFG (3.0, 4.0), 17 of 48 elided,
-   boundary step 16) and i2v-A14B from a seeded image (shift 5, CFG (3.5,
-   3.5), 13 of 48, boundary 9; lane-asymmetric steps on both); each
+68. the A14B MoE at 832x480x17, 14 steps (cut from 40, and 24), both WAN_14B
+   experts resident: t2v-A14B (shift 12, CFG (3.0, 4.0), 9 of 28 elided,
+   boundary step 9) and i2v-A14B from a seeded image (shift 5, CFG (3.5,
+   3.5), 7 of 28, boundary 6; lane-asymmetric steps on both); each
    expert's trunk runs counted against the computed steps before and after
    the switch;
 69. narrow VACE, ti2v (an image through a Wan2.2-layout VAE) and t2v-A14B
@@ -499,7 +499,7 @@ K3, K3p; phase 5's seeded weights):
    ``sec_per_video_mean``; ``eval.compare.compare_dirs`` of the MagCache
    latents against the full ones (finite PSNR and SSIM);
 88. published checkpoints: the seeded Wan2.1 T2V-1.3B (phase 5's weights),
-   UMT5-XXL at full width (``CKPT_UMT5_LAYERS`` of 24 layers) and the f32 Wan
+   UMT5-XXL at full width (``CKPT_UMT5_LAYERS``, 4 of its 24 layers) and the f32 Wan
    VAE written under the published names (``wan_published``,
    ``umt5_published``, ``wan_vae_published``: maps kept here, apart from the
    package's converters) to a temporary ``ckpt_dir``: the DiT as two BF16
@@ -589,6 +589,20 @@ that every rank realized the schedule's skip bits:
    (25 steps), TeaCache (ret steps) and dpm++ calibration requests under 4
    ranks (Ulysses) against their single-rank latents within 1e-1, and the
    calibration's ratios within 1e-3 of phase 34's.
+104. (after 25) K2's two tensor-parallel passes against their plain
+   versions at every Wan's tp 2 and tp 4 widths (1.3B 768 / 384, TI2V-5B
+   1,536 / 768, 14B 2,560 / 1,280) at its main path's tokens: the
+   statistics pass ``row_sumsq`` (f32 sums of squares, rtol 1e-5) and the
+   apply pass ``rms_norm_rope(row_sumsq=, width=)`` (K2's bound).
+105. (after 104) phase 4's 1.3B forward at tp 2, tp 4, dp 2 and sp 2 x tp 2
+   local ranks (views of the one model; a dp rank runs one lane), each
+   rank's launches against ``grid_rank_launches``, within 3e-2 of phase 4.
+107. (after 105) phase 5's MagCache request at dp 2 x tp 2: each lane's
+   skip bits on its dp ranks equal to the schedule, within 1e-1 of phase 5.
+106. (after 97) phase 59's I2V-14B forward at sp 2 x tp 4 (8 ranks, 5
+   heads each after Ulysses' all-to-all: the JAX package's 14B runtime
+   mesh) within 3e-2 of phase 59; the peak memory, with the growth over
+   the weights held once.
 
 Every request of phases 63-69 checks its skip bits against
 ``compute_skip_schedule``, its launches against the trunk runs and its
@@ -631,7 +645,8 @@ request; ``omnigen2-lora``: phase 89's loaded forward; ``open-sora-pab-480p17``,
 request; ``wan-i2v-sp``: phase 97; ``wan-i2v-sp-request``: phase 98;
 ``wan-ti2v-sp``: phase 99; ``wan-ti2v-sp-request``: phase 100;
 ``wan-vace-sp``: phase 101; ``wan-a14b-sp``: phase 102;
-``wan-sp-policies``: phase 103), its worst error over every shape
+``wan-sp-policies``: phase 103; ``wan-tp``: phase 105; ``wan-tp-request``:
+phase 107; ``wan-i2v-tp``: phase 106), its worst error over every shape
 compared, and the times of its first shape timed, named in ``timed_at``,
 with their method in ``timing`` (``loop`` or ``graph``); ``shapes`` lists
 every shape compared with its own error, times and bound.
@@ -670,7 +685,7 @@ NO_LAUNCHES = dict.fromkeys(
      "flash_attention_bhsd", "flash_attention_bhsd_aux", "grouped_attention_fused_qkv",
      "grouped_attention_fused_qkv_rowmax", "grouped_flash_attention_bshd",
      "tiny_temporal_attention", "fused_cross_attention", "fused_cross_attention_bias",
-     "lnmod_matmul", "matmul_gated_residual"), 0)
+     "lnmod_matmul", "matmul_gated_residual", "row_sumsq", "rms_norm_rope_tp"), 0)
 TRUNK_LAUNCHES = dict(NO_LAUNCHES, flash_attention_bshd=60, rms_norm_rope=60,
                       layer_norm_mod=90)
 SP = 4                # local ranks of the sequence-parallel phases
@@ -1095,7 +1110,8 @@ def _wrappers():
     from magcache_tpu_torch.ops import tiny_attention as TA
 
     return (A.flash_attention_bshd, A.flash_attention_bhsd, A.flash_attention_bhsd_aux,
-            P.rms_norm_rope, P.layer_norm_mod, A.grouped_attention_fused_qkv, A.grouped_flash_attention_bshd,
+            P.rms_norm_rope, P.row_sumsq, P.layer_norm_mod, A.grouped_attention_fused_qkv,
+            A.grouped_flash_attention_bshd,
             TA.tiny_temporal_attention, A.fused_cross_attention,
             P.lnmod_matmul, P.matmul_gated_residual)
 
@@ -1115,6 +1131,7 @@ def reset_counts():
     A.grouped_attention_fused_qkv.rowmax_launches = 0
     A._grouped_launch.routes.update(NO_ROUTES)
     P.rms_norm_rope.scope_launches.update(token=0, head=0)
+    P.rms_norm_rope.tp_launches = 0
     A.fused_cross_attention.epilogues.update(resid=0, bias=0)
 
 
@@ -1128,6 +1145,7 @@ def read_counts() -> dict:
     counts = {fn.__name__: fn.launches for fn in _wrappers()}
     scopes = P.rms_norm_rope.scope_launches
     counts.update(rms_norm_rope=scopes["token"], rms_norm_rope_head=scopes["head"],
+                  rms_norm_rope_tp=P.rms_norm_rope.tp_launches,
                   flash_attention_bshd_qknorm=A.flash_attention_bshd.qknorm_launches,
                   layer_norm_mod_plain=P.layer_norm_mod.plain_launches,
                   grouped_attention_fused_qkv_rowmax=(
@@ -5275,13 +5293,13 @@ def phase_i2v_requests(dev, model, text, clip, vae):
     log(f"phase 60: i2v requests through WanPipeline.generate(image=) at full width, "
         f"832x480x{I2V_REQ_FRAMES} (7,800 tokens), {I2V_STEPS} UniPC steps, shift 3.0, CFG "
         f"5.0: UMT5-XXL text, a seeded 720x1280 image through the CLIP ViT-H/14 tower and "
-        f"the Wan2.1 VAE encode, the f32 VAE decode; full compute, then MagCache "
-        f"wan2.1-i2v-480p (E012K4R02)")
+        f"the Wan2.1 VAE encode, the f32 VAE decode; MagCache wan2.1-i2v-480p "
+        f"(E012K4R02; the full-compute request is cut: phase 61's flf2v runs full "
+        f"compute through the same tower, encode and decode)")
     base = dict(model="wan2.1-i2v-480p", task="i2v", size=(832, 480),
                 frame_num=I2V_REQ_FRAMES, sample_steps=I2V_STEPS, sample_shift=3.0,
                 guide_scale=5.0)
     kw = dict(model=model, text_encoder=text, clip=clip, vae=vae)
-    full = WanPipeline(WanPipelineConfig(**base), dev, **kw)
     cached = WanPipeline(WanPipelineConfig(use_magcache=True, **base), dev, **kw)
     sched = compute_skip_schedule(cached._cache_cfg()).reshape(I2V_STEPS, 2)
     if int(sched.sum()) != 17:
@@ -5300,12 +5318,9 @@ def phase_i2v_requests(dev, model, text, clip, vae):
 
     cached.text_encoder = recorded("context", text)
     cached.encode_image = recorded("image", cached.encode_image)
-    for label, pipe, want in (("i2v full compute", full, np.zeros((I2V_STEPS, 1), bool)),
-                              ("i2v MagCache wan2.1-i2v-480p", cached, sched)):
+    for label, pipe, want in (("i2v MagCache wan2.1-i2v-480p", cached, sched),):
         launched, lats[label] = i2v_request(label, pipe, want, image)
         total = {k: n + launched[k] for k, n in total.items()}
-    log(f"  MagCache latents against full compute: rel L2 "
-        f"{rel_l2(*lats.values()):.3e}")
     tower_rounding(dev, clip, image[0])
     return total, (seen["context"], seen["image"], sched, lats["i2v MagCache wan2.1-i2v-480p"])
 
@@ -5507,7 +5522,7 @@ TI2V_GRID = (31, 22, 40)        # 1280x704x121: latents (31, 44, 80), patch (1, 
 # keep the smoke inside its limit with phases 99-102
 TI2V_SIZE, TI2V_STEPS = (1280, 704), 15
 VACE_STEPS = 25
-A14B_STEPS = 24                 # cut from the JAX CLI's 40; lane-asymmetric steps remain
+A14B_STEPS = 14                 # cut from the JAX CLI's 40 (and 24); lane-asymmetric steps remain
 WAN22_FRAMES = 17                # the requests' frames, cut from 81 and 121
 
 
@@ -5854,8 +5869,8 @@ def phase_a14b_requests(dev, vae, then=None):
         f"MagCache wan2.2-t2v-A14B; i2v-A14B shift 5, CFG (3.5, 3.5), MagCache "
         f"wan2.2-i2v-A14B, from a seeded image through the Wan VAE encode")
     total, then_launches = dict(NO_LAUNCHES), None
-    for task, shift, guide, elided, boundary in (("t2v", 12.0, (3.0, 4.0), 17, 16),
-                                                 ("i2v", 5.0, (3.5, 3.5), 13, 9)):
+    for task, shift, guide, elided, boundary in (("t2v", 12.0, (3.0, 4.0), 9, 9),
+                                                 ("i2v", 5.0, (3.5, 3.5), 7, 6)):
         model = f"wan2.2-{task}-A14B"
         cfg = WanPipelineConfig(model=model, task=task, size=(832, 480),
                                 frame_num=WAN22_FRAMES, sample_steps=A14B_STEPS,
@@ -6014,6 +6029,7 @@ def tally_counts(tally: dict) -> dict:
     kernel records of ``read_counts``."""
     records = {("rms_norm_rope", "scope_launches", "token"): "rms_norm_rope",
                ("rms_norm_rope", "scope_launches", "head"): "rms_norm_rope_head",
+               ("rms_norm_rope", "tp_launches", None): "rms_norm_rope_tp",
                ("flash_attention_bshd", "qknorm_launches", None): "flash_attention_bshd_qknorm",
                ("layer_norm_mod", "plain_launches", None): "layer_norm_mod_plain",
                ("fused_cross_attention", "epilogues", "resid"): "fused_cross_attention",
@@ -6033,10 +6049,11 @@ def nonzero(counts: dict) -> dict:
     return {k: n for k, n in counts.items() if n}
 
 
-def run_ranks(sp: int, fn, dev):
-    """``fn(plan)`` on ``sp`` local ranks, each inside its own launch tally:
-    ``(outputs, launches by rank, wall s)``; fails unless the ranks'
-    launches add up to the wrappers' counts since the call began."""
+def run_ranks(sp: int, fn, dev, dp: int = 1, tp: int = 1):
+    """``fn(plan)`` on the ``dp * sp * tp`` local ranks of a grid (world
+    order), each inside its own launch tally: ``(outputs, launches by rank,
+    wall s)``; fails unless the ranks' launches add up to the wrappers'
+    counts since the call began."""
     from magcache_tpu_torch.ops.build import thread_launches
     from magcache_tpu_torch.parallel.mesh import run_local_ranks
 
@@ -6048,7 +6065,7 @@ def run_ranks(sp: int, fn, dev):
     before = read_counts()
     torch.cuda.synchronize()
     t0 = time.time()
-    res = run_local_ranks(sp, rank, device=dev, timeout=600.0)
+    res = run_local_ranks(sp, rank, dp=dp, tp=tp, device=dev, timeout=600.0)
     torch.cuda.synchronize()
     wall = time.time() - t0
     by_rank = [c for _, c in res]
@@ -6085,9 +6102,9 @@ def check_sp_forward(label: str, outs, want, tol: float = 3e-2) -> None:
         fail(f"{label}: output {tuple(out.shape)} is not finite or misshapen")
     check_ranks_agree(label, outs)
     # bf16 through the blocks: the GEMMs run on a rank's rows instead of all
-    # of them (other cuBLAS tiles), the ring shifts by the running max and
-    # rounds o at each merge -> within 3e-2 of the single-rank output (as
-    # phase 24)
+    # of them, or on its tp slice with f32 partials summed (other cuBLAS
+    # tiles), the ring shifts by the running max and rounds o at each merge
+    # -> within 3e-2 of the single-rank output (as phase 24)
     rel = rel_l2(out, want)
     log(f"  {label}: all ranks return the same output; rel L2 against the single-rank "
         f"output {rel:.3e} (tol {tol})")
@@ -6493,6 +6510,205 @@ def phase_wan_sp_policies(dev, model, kept):
                 f"{ {n: f'{d:.2e}' for n, d in diffs.items()} } (tol 1e-3)")
         total = {k: n + launched[k] for k, n in total.items()}
     return total
+
+
+# ------------------------------------------------- Wan's dp and tp axes (104-107)
+# Wan under the (dp, sp, tp) grid, on local ranks of one card: each phase
+# right after the phase whose model, inputs and output it reuses, each rank's
+# own launches checked against its formula. A tp rank holds heads / tp heads
+# of every block (views of the one model: the weights sit on the card once);
+# K2 runs as its two tp passes, the statistics (row_sumsq) and the apply
+# (rms_norm_rope_tp). Wall times are those of ranks serialised on one card.
+# K2's tp widths: a rank's slice of each Wan's q / k row at tp 2 and 4, with
+# the token count of the model's main path (1.3B and 14B at 832x480x81,
+# TI2V-5B at 1280x704x121)
+TP_WIDTHS = (("1.3B", 1536, 12, (2, 4), 21 * 30 * 52),
+             ("TI2V-5B", 3072, 24, (2, 4), 31 * 22 * 40),
+             ("14B", 5120, 40, (2, 4), 21 * 30 * 52))
+TP_REQ_GRID = (2, 1, 2)     # phase 107: dp 2 x sp 1 x tp 2
+
+
+def grid_rank_launches(blocks: int, sp: int, tp: int, cross: int = 1) -> dict:
+    """One rank's launches per Wan trunk run of ``blocks`` blocks under sp x
+    tp (Ulysses where sp > 1), on whatever rows it holds: per block K1 (K1b
+    under sp) for self-attention and each of ``cross`` cross-attentions, K3
+    three times; under tp the K2 apply pass for q and k and the statistics
+    pass for q, k, the cross q and each cross k, else K2 twice."""
+    attn = "flash_attention_bhsd" if sp > 1 else "flash_attention_bshd"
+    per = dict(NO_LAUNCHES, layer_norm_mod=3 * blocks)
+    per[attn] = (1 + cross) * blocks
+    if tp > 1:
+        per.update(rms_norm_rope_tp=2 * blocks, row_sumsq=(3 + cross) * blocks)
+    else:
+        per.update(rms_norm_rope=2 * blocks)
+    return per
+
+
+def phase_tp_kernels(dev, rec):
+    """K2's two tp passes against their plain versions at every Wan's tp 2
+    and tp 4 widths."""
+    from magcache_tpu_torch.ops import fused_prologue as P
+
+    log("phase 104: K2's tensor-parallel passes vs plain (bf16 rows of a tp rank's "
+        "heads, 2 lanes): the statistics pass row_sumsq and the apply pass "
+        "rms_norm_rope(row_sumsq=, width=) at 1.3B's 768 / 384, TI2V-5B's 1,536 / 768 "
+        "and 14B's 2,560 / 1,280, each at its model's main-path tokens")
+    gen = torch.Generator(device=dev).manual_seed(10404)
+    B = 2
+    for model, width, heads, tps, S in TP_WIDTHS:
+        for tp in tps:
+            w, h = width // tp, heads // tp
+            x = (torch.randn((B, S, w), generator=gen, device=dev) * 2.0).to(torch.bfloat16)
+            gain = 1.0 + 0.1 * torch.randn(w, generator=gen, device=dev)
+            cos = torch.randn((S, 64), generator=gen, device=dev)
+            sin = torch.randn((S, 64), generator=gen, device=dev)
+            shape = f"{model} tp {tp}: 2x{S}x{w}"
+            # statistics: f32 sums of the same squares in another order
+            ss = P.row_sumsq(x)
+            ss_want = P.row_sumsq_plain(x)
+            err = compare(f"K2 tp statistics row_sumsq [{shape}]", ss, ss_want, atol=0.0,
+                          rtol=1e-5, rel_tol=1e-6)
+            ms = cuda_ms(lambda: P.row_sumsq(x))
+            pms = cuda_ms(lambda: P.row_sumsq_plain(x), 3)
+            log(f"  row_sumsq [{shape}]: kernel {ms:.4f} ms ({nbytes(x) / ms / 1e6:.0f} GB/s "
+                f"read), plain {pms:.3f} ms")
+            keep(rec, "row_sumsq", err, ms, pms, "loop", shape,
+                 (2 * x.numel(), nbytes(x, ss), H100_F32_TFLOPS))
+            # apply: the whole row's statistic, as the all-reduce over tp
+            # ranks of equal slices gives it
+            tot = ss_want * tp
+            got = P.rms_norm_rope(x, gain, cos, sin, h, eps=1e-6, row_sumsq=tot, width=width)
+            want = P.rms_norm_rope_plain(x, gain, cos, sin, h, eps=1e-6, row_sumsq=tot,
+                                         width=width)
+            # a flipped bf16 rounding of the normed value, as K2's own bound
+            err = compare(f"K2 tp apply rms_norm_rope(row_sumsq=) [{shape}, {h} heads]", got,
+                          want, atol=3e-2, rtol=1.6e-2)
+            ms = cuda_ms(lambda: P.rms_norm_rope(x, gain, cos, sin, h, eps=1e-6,
+                                                 row_sumsq=tot, width=width))
+            pms = cuda_ms(lambda: P.rms_norm_rope_plain(x, gain, cos, sin, h, eps=1e-6,
+                                                        row_sumsq=tot, width=width), 3)
+            log(f"  K2 tp apply [{shape}]: kernel {ms:.4f} ms "
+                f"({2 * nbytes(x) / ms / 1e6:.0f} GB/s), plain {pms:.3f} ms")
+            keep(rec, "rms_norm_rope_tp", err, ms, pms, "loop", f"{shape} ({h} heads)",
+                 elementwise_work(x, gain, cos, sin, tot))
+            del x, ss, ss_want, tot, got, want
+    torch.cuda.empty_cache()
+
+
+def phase_tp_forwards(dev, model, single):
+    """Phase 4's 1.3B forward on four grids against phase 4's output;
+    returns their launches."""
+    from magcache_tpu_torch.models.wan import make_wan_core
+
+    x, t, ctx, want = single
+    grid = (21, 30, 52)
+    log("phase 105: phase 4's WAN_1_3B forward at 832x480x81 (2 lanes of 32,760 tokens, "
+        "full width) at tp 2, tp 4, dp 2 and sp 2 x tp 2 local ranks: a tp rank holds "
+        "12 / tp heads (views of the one model), a dp rank one lane; against phase 4's "
+        "output")
+    total = dict(NO_LAUNCHES)
+    for dp, sp, tp in ((1, 1, 2), (1, 1, 4), (2, 1, 1), (1, 2, 2)):
+        label = f"1.3B forward, dp {dp} x sp {sp} x tp {tp}"
+
+        def rank(plan):
+            core = make_wan_core(model, grid, plan, sp_impl="ulysses")
+            d, rows = plan.dp_rank, 2 // plan.dp   # a dp rank's lanes
+            hidden, c = core.prepare(x[d * rows:(d + 1) * rows], t[d * rows:(d + 1) * rows],
+                                     {"context": ctx[d * rows:(d + 1) * rows]})
+            out = core.head(core.trunk(hidden, c), c)
+            return plan.dp_group.all_gather(out, 0) if plan.dp > 1 else out
+
+        reset_counts()
+        outs, by_rank, wall = run_ranks(sp, rank, dev, dp=dp, tp=tp)
+        log(f"  {label}: {wall:.3f} s wall ({dp * sp * tp} ranks serialised on one card)")
+        per = wan_run_launches(grid_rank_launches(30, sp, tp), 1, 1)
+        launched = check_rank_launches(label, by_rank, [per] * (dp * sp * tp))
+        check_sp_forward(label, outs, want)
+        total = {k: n + launched[k] for k, n in total.items()}
+        del outs
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_tp_request(dev, model, single, sched):
+    """Phase 5's MagCache request at dp 2 x tp 2 against phase 5's latents;
+    returns its launches."""
+    from magcache_tpu_torch.pipelines.wan import WanPipeline, WanPipelineConfig
+
+    dp, sp, tp = TP_REQ_GRID
+    log(f"phase 107: phase 5's MagCache E012K2R02 request (WAN_1_3B 832x480x17, {STEPS} "
+        f"UniPC steps, CFG 5.0) at dp {dp} x tp {tp} local ranks: dp rank d runs CFG lane "
+        f"d's rows with that lane's skip bits, the head's output gathered over dp every "
+        f"step; against phase 5's latents")
+    cfg = WanPipelineConfig(size=(832, 480), frame_num=17, sample_steps=STEPS,
+                            sample_shift=5.0, guide_scale=5.0, use_magcache=True, dp=dp,
+                            sp=sp, tp=tp)
+
+    def rank(plan):
+        return WanPipeline(cfg, dev, model=model, plan=plan).generate(WAN_PROMPT, seed=3)
+
+    reset_counts()
+    outs, by_rank, wall = run_ranks(sp, rank, dev, dp=dp, tp=tp)
+    want = []
+    for d in range(dp):             # lane d's trunk runs on its dp ranks
+        runs = int((~sched[:, d]).sum())
+        want += [wan_run_launches(grid_rank_launches(30, sp, tp), runs, STEPS)] * (sp * tp)
+    launched = check_rank_launches("MagCache at dp 2 x tp 2", by_rank, want)
+    for d in range(dp):
+        log(f"  lane {d}: realized skip bits {outs[d * sp * tp].skips[:, d].astype(int).tolist()}"
+            f" (the schedule's: {sched[:, d].astype(int).tolist()})")
+    check_sp_request("MagCache at dp 2 x tp 2", outs, single["MagCache E012K2R02"], sched,
+                     wall)
+    return launched
+
+
+def phase_i2v_tp_forward(dev, model, single):
+    """Phase 59's I2V-14B forward at sp 2 x tp 4 (the JAX package's own mesh of
+    its 14B runtime test) against phase 59's output; returns its launches."""
+    from magcache_tpu_torch.models.wan import make_wan_core
+    from magcache_tpu_torch.parallel.shard import slice_wan
+
+    x, t, cond, want = single
+    sp, tp = 2, 4
+    f, h, w = I2V_GRID
+    log(f"phase 106: phase 59's I2V-14B forward at 832x480x81 at sp {sp} x tp {tp} local "
+        f"ranks (8): {f * h * w // sp} tokens and {40 // tp} heads a rank, "
+        f"{40 // (sp * tp)} after Ulysses' all-to-all; views of the one model; against "
+        f"phase 59's output")
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+
+    whole = {p.untyped_storage().data_ptr() for p in model.parameters()}
+
+    def rank(plan):
+        part = slice_wan(model, plan.tp_rank, plan.tp)
+        core = make_wan_core(part, I2V_GRID, plan, sp_impl="ulysses")
+        hidden, c = core.prepare(x, t, cond)
+        held = {p.untyped_storage().data_ptr() for p in part.parameters()}
+        return core.head(core.trunk(hidden, c), c), held
+
+    reset_counts()
+    res, by_rank, wall = run_ranks(sp, rank, dev, tp=tp)
+    outs = [o for o, _ in res]
+    log(f"  I2V-14B sp {sp} x tp {tp} forward: {wall:.3f} s wall ({sp * tp} ranks "
+        f"serialised on one card)")
+    grown = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+    per = wan_run_launches(grid_rank_launches(40, sp, tp, cross=2), 1, 1)
+    launched = check_rank_launches(f"I2V-14B sp {sp} x tp {tp} forward", by_rank,
+                                   [per] * (sp * tp))
+    check_sp_forward(f"I2V-14B sp {sp} x tp {tp} forward", outs, want)
+    # every rank's slices are views into the one model's storages
+    if not all(held <= whole for _, held in res):
+        fail("a tp rank holds weights outside the one model's storages")
+    log(f"  {peak(dev)}; every rank's slices are views of the one model's "
+        f"{weights / 1e9:.2f} GB of weights; the 8 ranks' activations (whole-width "
+        f"rows on each tp rank, f32 partials of the row-parallel GEMMs) grew the card's "
+        f"memory by {grown:.2f} GB")
+    del outs, res
+    torch.cuda.empty_cache()
+    return launched
 
 
 # ------------------------------------------------ HunyuanVideo and FramePack
@@ -8228,7 +8444,8 @@ def phase_sweep(dev, model):
 # The port's seeded weights written under the published names (these maps
 # invert the package's converters here, so the loaders are checked against
 # an independent map), then loaded back through the entry points.
-CKPT_UMT5_LAYERS = 24          # UMT5-XXL's full depth
+CKPT_UMT5_LAYERS = 4           # UMT5-XXL's full width, depth cut from 24: the
+                               # loader counts the layers it finds
 OG_LORA_RANK, OG_LORA_ALPHA, OG_LORA_SCALE = 16, 8.0, 0.75
 
 
@@ -9335,6 +9552,9 @@ def main():
     model = make_model(dev)          # the same seed: phase 4's and 5's weights
     phase_sp_forward(dev, model, single_forward)
     sp_ulysses, sp_ring = phase_sp_requests(dev, model, single_latents, sched)
+    sp_phase(104, phase_tp_kernels, dev, rec)
+    tp_fwd = sp_phase(105, phase_tp_forwards, dev, model, single_forward)
+    tp_req = sp_phase(107, phase_tp_request, dev, model, single_latents, sched)
     del model, single_forward
     torch.cuda.empty_cache()
     phase_sp_card_vs_cpu(dev, narrow_cpu)
@@ -9438,6 +9658,7 @@ def main():
     i2v, i2v_single = phase_i2v_forward(dev, model)
     sp_phase(96, phase_sp_task_kernels, dev, rec)
     i2v_sp = sp_phase(97, phase_i2v_sp_forward, dev, model, i2v_single)
+    i2v_tp = sp_phase(106, phase_i2v_tp_forward, dev, model, i2v_single)
     del i2v_single
     torch.cuda.empty_cache()
     text, clip, vae = i2v_encoders(dev)
@@ -9568,7 +9789,7 @@ def main():
         f"{t_serve:.1f} s; published checkpoints and LoRA, phases 88-89, {t_ckpt:.1f} s; "
         f"PAB on every route and with masked frames, Latte at 768x768 and the VAE halves, "
         f"phases 90-95, {t_new:.1f} s; within those, Wan's tasks, solvers and policies "
-        f"under sp, phases 96-103, {sum(sp_times.values()):.1f} s: "
+        f"under sp, dp and tp, phases 96-107, {sum(sp_times.values()):.1f} s: "
         f"{ {n: round(v, 1) for n, v in sorted(sp_times.items())} })")
 
     meta = {
@@ -9584,6 +9805,10 @@ def main():
                           "magcache_tpu/ops/fused_prologue.py:342"),
         "rms_norm_rope_head": ("cuda", "magcache_tpu_torch/csrc/prologue.cu",
                                "magcache_tpu/ops/fused_prologue.py:342"),
+        "row_sumsq": ("cuda", "magcache_tpu_torch/csrc/prologue.cu",
+                      "magcache_tpu/ops/fused_prologue.py:342"),
+        "rms_norm_rope_tp": ("cuda", "magcache_tpu_torch/csrc/prologue.cu",
+                             "magcache_tpu/ops/fused_prologue.py:342"),
         "layer_norm_mod": ("cuda", "magcache_tpu_torch/csrc/prologue.cu",
                            "magcache_tpu/ops/fused_prologue.py:440"),
         "layer_norm_mod_plain": ("cuda", "magcache_tpu_torch/csrc/prologue.cu",
@@ -9628,10 +9853,11 @@ def main():
              "latte-768": latte_768, "wan-sp-policies": wan_sp_policies,
              "wan-i2v-sp": i2v_sp, "wan-i2v-sp-request": i2v_sp_req, "wan-ti2v-sp": ti2v_sp,
              "wan-ti2v-sp-request": ti2v_sp_req, "wan-vace-sp": vace_sp,
-             "wan-a14b-sp": a14b_sp}
+             "wan-a14b-sp": a14b_sp, "wan-tp": tp_fwd, "wan-tp-request": tp_req,
+             "wan-i2v-tp": i2v_tp}
     kernels = []
     for name, (route, source, replaces) in meta.items():
-        by_path = {p: c[name] for p, c in paths.items()}
+        by_path = {p: c.get(name, 0) for p, c in paths.items()}
         kernels.append({"name": name, "route": route, "source": source,
                         "replaces": replaces, "launches": sum(by_path.values()),
                         "launches_by_path": by_path, **rec[name]})

@@ -80,7 +80,10 @@ tokens. Start them with ``torchrun`` (it sets ``RANK``, ``WORLD_SIZE``,
 ``WORLD_SIZE`` yourself and pass ``--dist_init_method``. Rank r runs on
 ``cuda:LOCAL_RANK`` over NCCL, or with ``--device cpu`` over gloo. Every
 rank encodes the text, the images and the source video alike (the same
-seeded encoders); rank 0 saves the output.
+seeded encoders); rank 0 saves the output. ``--tp N`` splits every block's
+heads over N ranks (Megatron slices; each process keeps only its own) and
+``--dp 2`` runs the cond and uncond CFG lanes on two ranks; the world is
+``dp * sp * tp`` processes, in the JAX mesh's order (tp innermost).
 
 Examples:
   python -m magcache_tpu_torch.cli.generate --task t2v-1.3B --size 832*480 \
@@ -442,9 +445,11 @@ def build_parser() -> argparse.ArgumentParser:
                        ("--offload_model", str)):
         p.add_argument(flag, type=kind, default=None, help="accepted for parity; no-op")
     p.add_argument("--dp", type=int, default=1,
-                   help="data-parallel replicas: 1 only (ROADMAP section 1 item 2)")
+                   help="data-parallel ranks (Wan): 2 runs the two CFG lanes on two "
+                        "ranks; one process each")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel ranks: 1 only (ROADMAP section 1 item 2)")
+                   help="tensor-parallel ranks (Wan): each holds heads / tp of every "
+                        "block; one process each")
     p.add_argument("--cpu", action="store_true", help="alias for --device cpu")
     return p
 
@@ -454,13 +459,7 @@ def resolve_aliases(args, parser) -> None:
     (``magcache_tpu/cli/generate.py::main``): ``--seed`` sets ``--base_seed``
     unless that was given, ``--enable_magcache`` sets ``--use_magcache``, the
     hyvideo ``*_degree`` names fill ``--ulysses_size`` / ``--ring_size`` (a
-    ring degree of 1 selects nothing), ``--cpu`` is ``--device cpu``. Exits
-    on ``--dp`` or ``--tp`` above 1, which the port has not got."""
-    for flag in ("dp", "tp"):
-        if getattr(args, flag) > 1:
-            raise SystemExit(
-                f"--{flag} {getattr(args, flag)}: the {flag} mesh axis is not ported "
-                f"(ROADMAP section 1 item 2, the multi-device axes); run with --{flag} 1")
+    ring degree of 1 selects nothing), ``--cpu`` is ``--device cpu``."""
     if args.seed is not None and args.base_seed == parser.get_default("base_seed"):
         args.base_seed = args.seed
     if args.enable_magcache:
@@ -490,20 +489,24 @@ def extend_prompt(args) -> None:
           f"{args.prompt_extend_model!r} needs transformers). Falling back to original.")
 
 
-def _sp_plan(args, device):
-    """``(plan, device)`` of this process's rank for ``--sp`` > 1: joins the
-    process group (NCCL on ``cuda:LOCAL_RANK``, gloo for ``--device cpu``)."""
-    from magcache_tpu_torch.parallel.mesh import MeshPlan, TorchDistGroup, init_distributed
+def mesh_plan(args, device, module: str = "magcache_tpu_torch.cli.generate"):
+    """``(plan, device)`` of this process's rank of the ``--dp`` x ``--sp`` x
+    ``--tp`` grid: joins the process group (NCCL on ``cuda:LOCAL_RANK``,
+    gloo for ``--device cpu``) and builds the rank's dp, sp and tp groups
+    (``parallel.mesh.torch_dist_plan``)."""
+    from magcache_tpu_torch.parallel.mesh import init_distributed, torch_dist_plan
 
     env = os.environ
+    n = args.dp * args.sp * args.tp
+    grid = f"--dp {args.dp} x --sp {args.sp} x --tp {args.tp}"
     if "RANK" not in env or "WORLD_SIZE" not in env:
         raise SystemExit(
-            f"--sp {args.sp} runs one process per rank: start them with torchrun "
-            f"(torchrun --nproc_per_node {args.sp} -m magcache_tpu_torch.cli.generate "
-            f"...), which sets RANK and WORLD_SIZE")
+            f"{grid} runs one process per rank ({n}): start them with torchrun "
+            f"(torchrun --nproc_per_node {n} -m {module} ...), which sets RANK and "
+            f"WORLD_SIZE")
     world, rank = int(env["WORLD_SIZE"]), int(env["RANK"])
-    if world != args.sp:
-        raise SystemExit(f"--sp {args.sp} but WORLD_SIZE is {world}")
+    if world != n:
+        raise SystemExit(f"{grid} needs {n} processes but WORLD_SIZE is {world}")
     if device.type == "cuda":
         device = torch.device("cuda", int(env.get("LOCAL_RANK", rank)))
         torch.cuda.set_device(device)
@@ -511,15 +514,15 @@ def _sp_plan(args, device):
     if args.dist_init_method:
         kw = dict(init_method=args.dist_init_method, world_size=world, rank=rank)
     init_distributed(backend="nccl" if device.type == "cuda" else "gloo", **kw)
-    return MeshPlan(TorchDistGroup()), device
+    return torch_dist_plan(args.dp, args.sp, args.tp), device
 
 
 def _wan_pipeline(args, device, ratios):
     from magcache_tpu_torch.pipelines.wan import WanPipeline, WanPipelineConfig
 
     plan = None
-    if args.sp > 1:
-        plan, device = _sp_plan(args, device)
+    if args.dp * args.sp * args.tp > 1:
+        plan, device = mesh_plan(args, device)
 
     w, h = _parse_size(args.size)
     model = _PORTED[args.task]
@@ -552,7 +555,7 @@ def _wan_pipeline(args, device, ratios):
         teacache_thresh=0.2 if args.teacache_thresh is None else args.teacache_thresh,
         use_ret_steps=args.use_ret_steps,
         mag_ratios_override=ratios, dtype=args.dtype, tiny=args.tiny,
-        sp=args.sp, sp_impl="ring" if args.ring_size else "auto",
+        dp=args.dp, sp=args.sp, tp=args.tp, sp_impl="ring" if args.ring_size else "auto",
         ckpt_dir=args.ckpt_dir, clip_ckpt=args.clip_ckpt)
     # the reference's one --ckpt_dir holds the encoder too
     # (models_t5_umt5-xxl-enc-*.pth, magcache_generate.py:884-893)
@@ -982,10 +985,11 @@ def _pipeline(args):
     if args.ring_size:
         args.sp = args.ring_size
     wan = args.task in _WAN
-    if args.sp > 1 and not wan:
-        raise SystemExit(f"--sp: sequence parallelism is ported for the Wan tasks "
-                         f"({', '.join(_WAN)}), not for {args.task!r} (ROADMAP "
-                         f"section 1 item 2, the multi-device axes)")
+    for flag in ("sp", "dp", "tp"):
+        if getattr(args, flag) > 1 and not wan:
+            raise SystemExit(f"--{flag}: the {flag} axis is ported for the Wan tasks "
+                             f"({', '.join(_WAN)}), not for {args.task!r} (ROADMAP "
+                             f"section 1 item 2, the multi-device axes)")
     vace = args.task.startswith("vace")
     for flag, on, ok in (("--image", args.image is not None,
                           args.task in ("i2v-14B", "flf2v-14B", "i2v-A14B", "ti2v-5B")
@@ -1150,7 +1154,7 @@ def main(argv=None):
         import torch.distributed as dist
 
         dist.destroy_process_group()
-        if plan.rank != 0:
+        if plan.world_rank != 0:
             return             # every rank holds the whole output; rank 0 saves
 
     E = args.magcache_thresh if args.magcache_thresh is not None else "def"

@@ -13,6 +13,7 @@ card at full width (random weights).
 from __future__ import annotations
 
 import argparse
+import os
 import json
 
 
@@ -41,9 +42,16 @@ def build_parser():
     p.add_argument("--magcache_K", type=int, default=None)
     p.add_argument("--retention_ratio", type=float, default=None)
     p.add_argument("--dp", type=int, default=1,
-                   help="prompts batched through generate_batch on the one device")
-    p.add_argument("--sp", type=int, default=1)
-    p.add_argument("--tp", type=int, default=1, help="not ported: > 1 raises")
+                   help="prompts batched through generate_batch: on the one device, or "
+                        "one a dp rank under torchrun")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel ranks (one process each, under torchrun)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ranks (one process each, under torchrun)")
+    p.add_argument("--dist_init_method", default=None,
+                   help="process-group rendezvous (tcp://host:port or file:///path) "
+                        "when not started by torchrun; RANK and WORLD_SIZE are read "
+                        "from the environment")
     p.add_argument("--dtype", default="bfloat16")
     p.add_argument("--ckpt_dir", default=None)
     p.add_argument("--tiny", action="store_true")
@@ -81,7 +89,20 @@ def main(argv=None):
         teacache_thresh=args.teacache_thresh, use_ret_steps=args.use_ret_steps,
         dp=args.dp, sp=args.sp, tp=args.tp, dtype=args.dtype,
         ckpt_dir=args.ckpt_dir, tiny=args.tiny, loop=args.loop)
-    summary = run_sweep(cfg, device=args.device)
+    # sp and tp need one process a rank; dp rides the ranks when torchrun
+    # started them, else it is the batch on the one device
+    plan, device = None, torch.device(args.device)
+    if args.sp * args.tp > 1 or (args.dp > 1 and "RANK" in os.environ):
+        from magcache_tpu_torch.cli.generate import mesh_plan
+
+        plan, device = mesh_plan(args, device, "magcache_tpu_torch.cli.sweep")
+    summary = run_sweep(cfg, device=device, plan=plan)
+    if plan is not None:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+        if plan.world_rank != 0:
+            return summary
 
     if args.compare_to:
         from magcache_tpu_torch.eval.compare import compare_dirs, write_report

@@ -19,13 +19,23 @@ Same design as ``magcache_tpu.core.sampler``, in PyTorch's eager idiom:
   device-to-host copy at the end.
 - UniPC coefficients are computed on the host in f64 and cast to f32 for
   the device update, as the JAX sampler does.
-- Sequence parallelism needs nothing of the loop: under a ``plan`` a core's
-  ``prepare`` returns the rank's token shard, so the residual cache holds
-  that shard only, and its ``head`` returns the whole output on every rank.
+- Sequence and tensor parallelism need nothing of the loop: under a
+  ``plan`` a core's ``prepare`` returns the rank's token shard (whole over
+  tp), so the residual cache holds that shard only, and its ``head``
+  returns the whole output on every rank.
   The skip bits come from the static schedule, or from TeaCache's signal
   (the time embedding, whole on every rank), and are the same on every
   rank. Only calibration uses the plan (``plan=``), to all-reduce its token
   means.
+- Under a plan with ``dp = 2`` (``plan=``) the two CFG lanes ride dp, as
+  the JAX package's lane-stacked batch rides its ``dp`` axis: dp rank d
+  runs only lane d's rows (its rows of ``cond``, its skip bit, its own
+  cache; the lane's TeaCache decision from its own signal), the head's
+  output is all-gathered over dp before the guidance combine, and the
+  realized skip bits and calibration statistics are gathered likewise, so
+  every rank returns what one rank would. Other dp sizes raise: the batch
+  has two CFG rows. A caller whose dp ranks each hold whole batch rows
+  (``generate_batch``) passes ``plan.without_dp()``.
 - ``sample_euler`` is the linear-update loop ``x <- cx_i * x + dt_i * v``
   (RFLOW's Euler step, and DDIM-eps with ``x_coeffs``); Open-Sora and Latte
   run it with a joint CFG batch of 2 rows under one cache lane and an
@@ -129,6 +139,58 @@ def _cfg_combine(out: torch.Tensor, guidance_scale: Optional[float],
         return out
     cond, uncond = out[:batch], out[batch:]
     return uncond + guidance_scale * (cond - uncond)
+
+
+class _DpLanes:
+    """The CFG lanes over dp: this rank's ``lane`` of ``n_lanes`` (one a dp
+    rank), each of ``batch`` rows."""
+
+    def __init__(self, plan, n_lanes: int, batch: int):
+        if n_lanes != plan.dp:
+            raise ValueError(
+                f"dp = {plan.dp}: the sampler puts one CFG lane on each dp rank and this "
+                f"batch has {n_lanes} (the cond and the uncond rows); run it at dp "
+                f"{n_lanes} or 1")
+        self.plan, self.lane, self.batch, self.n_lanes = plan, plan.dp_rank, batch, n_lanes
+
+    def cond(self, cond: dict) -> dict:
+        """This lane's rows of every lane-stacked leaf of ``cond``."""
+        rows = self.batch * self.n_lanes
+        return {k: (v.narrow(0, self.lane * self.batch, self.batch)
+                    if torch.is_tensor(v) and v.ndim >= 1 and v.shape[0] == rows else v)
+                for k, v in cond.items()}
+
+    def bits(self, bits: np.ndarray) -> np.ndarray:
+        return np.asarray(bits, bool)[self.lane:self.lane + 1]
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every lane's ``t``, stacked on axis 0 in lane order."""
+        return self.plan.dp_group.all_gather(t, 0)
+
+    def gather_bits(self, bits: np.ndarray, device) -> np.ndarray:
+        t = torch.as_tensor(np.asarray(bits, np.int32), device=device)
+        return self.gather(t).cpu().numpy().astype(bool)
+
+
+def _dp_lanes(plan, n_lanes: int, batch: int) -> Optional[_DpLanes]:
+    if plan is None or plan.dp == 1:
+        return None
+    return _DpLanes(plan, n_lanes, batch)
+
+
+def _decide_lanes(dpl: Optional[_DpLanes], dynamic_skip, hidden, ctx, dstate,
+                  bits: np.ndarray):
+    """``(emitted, local, dstate)``: the step's skip bits over every lane,
+    those of the lanes this rank runs, and the dynamic policy's new state
+    (``_decide``; under dp lanes the rank decides its own lane and the bits
+    are gathered)."""
+    if dpl is None:
+        bits, dstate = _decide(dynamic_skip, hidden, ctx, dstate, bits)
+        return bits, bits, dstate
+    local, dstate = _decide(dynamic_skip, hidden, ctx, dstate, dpl.bits(bits))
+    if dynamic_skip is None:
+        return np.asarray(bits, bool), local, dstate
+    return dpl.gather_bits(local, hidden.device), local, dstate
 
 
 def _gather_rows(ctx: dict, idx: torch.Tensor, rows: int) -> dict:
@@ -270,8 +332,9 @@ def unipc_executor(
 
     ``skip_mask_override`` (``bool[num_steps, lanes]``) replaces the schedule
     that ``cache_cfg`` would give; ``calibrate=True`` disables the cache.
-    ``plan``: the sequence-parallel plan the core was made with, for the
-    calibration statistics (means over all ranks' tokens).
+    ``plan``: the plan the core was made with, for the calibration
+    statistics (means over all sp ranks' tokens) and, at ``dp = 2``, the
+    CFG lanes over dp (one a rank; see the module docstring).
 
     ``dynamic_skip`` (``core.teacache.TeaCacheLanes``): an activation-gated
     per-lane policy in place of ``cache_cfg``; the step then decides its
@@ -294,6 +357,11 @@ def unipc_executor(
             raise ValueError("dynamic_skip replaces cache_cfg and skip_mask_override")
         skip_mask, lane_of_row, partial_lanes = _dynamic_setup(
             dynamic_skip, core, n_lanes, batch, n)
+    dpl = _dp_lanes(plan, n_lanes, batch)
+    if dpl is not None:         # this rank's lane: its own rows, one cache lane
+        lane_of_row, partial_lanes = np.zeros(batch, int), None
+        if dynamic_skip is not None:
+            dynamic_skip = dataclasses.replace(dynamic_skip, lanes=1)
 
     # host-precomputed per-step coefficient tables, padded to fixed width
     p_cx, p_cm0, p_w = np.zeros(n), np.zeros(n), np.zeros((n, hist))
@@ -322,10 +390,10 @@ def unipc_executor(
 
     def step(carry, i, cond):
         x_pred, x_prev, m_hist, cache, state, dstate = carry
-        x2 = _stack_lanes(x_pred, n_lanes)
+        x2 = x_pred if dpl is not None else _stack_lanes(x_pred, n_lanes)
         tvec = torch.full((x2.shape[0],), float(ts[i]), dtype=torch.float32,
                           device=x2.device)
-        hidden, ctx = core.prepare(x2, tvec, cond)
+        hidden, ctx = core.prepare(x2, tvec, cond if dpl is None else dpl.cond(cond))
         if cache is None:
             cache = torch.zeros_like(hidden)
         if state is None and core.init_state is not None:
@@ -333,17 +401,23 @@ def unipc_executor(
         if calibrate:
             h_out = core.trunk(hidden, ctx)
             resid = h_out - hidden
-            rpl = hidden.shape[0] // n_lanes
-            emitted = torch.stack([
-                calibration_stats(resid[l * rpl:(l + 1) * rpl],
-                                  cache[l * rpl:(l + 1) * rpl], plan)
-                for l in range(n_lanes)])
+            if dpl is not None:
+                emitted = dpl.gather(calibration_stats(resid, cache, plan)[None])
+            else:
+                rpl = hidden.shape[0] // n_lanes
+                emitted = torch.stack([
+                    calibration_stats(resid[l * rpl:(l + 1) * rpl],
+                                      cache[l * rpl:(l + 1) * rpl], plan)
+                    for l in range(n_lanes)])
             cache = resid
         else:
-            emitted, dstate = _decide(dynamic_skip, hidden, ctx, dstate, skip_mask[i])
-            h_out, cache, state = _cached_trunk(core, hidden, ctx, cache, emitted,
+            emitted, local, dstate = _decide_lanes(dpl, dynamic_skip, hidden, ctx, dstate,
+                                                   skip_mask[i])
+            h_out, cache, state = _cached_trunk(core, hidden, ctx, cache, local,
                                                 lane_of_row, partial_lanes, state, i)
         out = core.head(h_out, ctx)
+        if dpl is not None:
+            out = dpl.gather(out)
         v = _cfg_combine(out, guidance_scale, batch)
         m = x_pred - float(sig[i]) * v.to(x_pred.dtype)
 
@@ -411,9 +485,8 @@ def sample_unipc(
     ``cond`` is lane-stacked ([cond; uncond] on axis 0) when
     ``guidance_scale`` is set. ``return_skips=True`` also returns the
     realized skip bits ``bool[num_steps, lanes]``. After the final step the
-    predictor's output for sigma = 0 is the sample. ``plan``: the
-    sequence-parallel plan the core was made with (the loop itself needs
-    nothing of it).
+    predictor's output for sigma = 0 is the sample. ``plan``: the plan the
+    core was made with (the loop needs it for the CFG lanes over dp).
     """
     init_carry, step = unipc_executor(
         core, schedule, cache_cfg=cache_cfg, guidance_scale=guidance_scale,
@@ -489,8 +562,9 @@ def sample_euler(
     section's last residual, so the calibration records one continuous run
     of ratios across sections); stats then have ``num_steps`` rows.
     ``return_residual`` also returns the run's last residual, ``(x, stats,
-    residual)``. Pass the ``plan`` a sequence-parallel core was made with:
-    the statistics' token means then run over every rank's tokens.
+    residual)``. Pass the ``plan`` a parallel core was made with: the
+    statistics' token means then run over every sp rank's tokens, and at
+    ``dp = 2`` the CFG lanes ride dp (see the module docstring).
 
     Euler-Ancestral (``schedulers.euler_ancestral``): ``in_scales`` scales
     the model's input only (``x_model = in_i * x``), and ``noise_scales``
@@ -525,6 +599,13 @@ def sample_euler(
             raise ValueError("dynamic_skip replaces cache_cfg and skip_mask_override")
         skip_mask, lane_of_row, partial_lanes = _dynamic_setup(
             dynamic_skip, core, n_lanes, batch, num_steps)
+    dpl = _dp_lanes(plan, n_lanes, batch)
+    if dpl is not None:         # this rank's lane: its own rows, one cache lane
+        if combine_fn is not None or calibrate_lanes not in (None, n_lanes):
+            raise ValueError("the CFG lanes over dp take the two-lane guidance combine")
+        lane_of_row, partial_lanes = np.zeros(batch, int), None
+        if dynamic_skip is not None:
+            dynamic_skip = dataclasses.replace(dynamic_skip, lanes=1)
     ts = np.asarray(timesteps, np.float32)
     dts = np.asarray(dts, np.float32)
     cxs = None if x_coeffs is None else np.asarray(x_coeffs, np.float32)
@@ -539,19 +620,23 @@ def sample_euler(
     cache, state, dstate = prev_residual, None, None
     skips, stats = [], []
     for i in range(num_steps):
-        x2 = _stack_lanes(x if cins is None else float(cins[i]) * x, n_lanes)
+        xi = x if cins is None else float(cins[i]) * x
+        x2 = xi if dpl is not None else _stack_lanes(xi, n_lanes)
         tvec = torch.full((x2.shape[0],), float(ts[i]), dtype=torch.float32,
                           device=x2.device)
-        hidden, ctx = core.prepare(x2, tvec, cond)
+        hidden, ctx = core.prepare(x2, tvec, cond if dpl is None else dpl.cond(cond))
         if cache is None:
             cache = torch.zeros_like(hidden)
         if state is None and core.init_state is not None:
             state = core.init_state(hidden, ctx)
         cache_prev = cache
-        bits, dstate = _decide(dynamic_skip, hidden, ctx, dstate, skip_mask[i])
-        h_out, cache, state = _cached_trunk(core, hidden, ctx, cache, bits,
+        bits, local, dstate = _decide_lanes(dpl, dynamic_skip, hidden, ctx, dstate,
+                                            skip_mask[i])
+        h_out, cache, state = _cached_trunk(core, hidden, ctx, cache, local,
                                             lane_of_row, partial_lanes, state, i)
         out = core.head(h_out, ctx)
+        if dpl is not None:
+            out = dpl.gather(out)
         v = _cfg_combine(out, guidance_scale, batch, combine_fn, n_lanes, i)
         if dpm is not None:
             sg, av, bv, cxd, cdd = (float(dpm[k][i]) for k in _DPM_KEYS)
@@ -567,7 +652,9 @@ def sample_euler(
             x = x + float(nss[i]) * z
         if post_step is not None:
             x = post_step(x)
-        if calibrate:
+        if calibrate and dpl is not None:
+            stats.append(dpl.gather(calibration_stats(cache, cache_prev, plan)[None]))
+        elif calibrate:
             rpl = x2.shape[0] // cal_lanes
             stats.append(torch.stack([
                 calibration_stats(cache[l * rpl:(l + 1) * rpl],

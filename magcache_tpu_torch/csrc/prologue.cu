@@ -32,6 +32,19 @@
 // rows of 9,216, HunyuanVideo's single-block rows of 21,504) is read in
 // place.
 //
+// Under tensor parallelism a rank holds H/tp heads of Wan's token-scope row,
+// and the norm runs over the whole H*128. K2 then runs in two passes (the
+// JAX package lets XLA reduce the sum of squares across the sharded axis,
+// magcache_tpu/ops/fused_prologue.py:370-377):
+//   stats (row_sumsq_kernel): the f32 sum of squares of the rank's slice of
+//          each row, [B, S] (summed as K2's token scope sums: four partial
+//          sums a lane, one a word, then across the warp);
+//   apply (rms_norm_rope_kernel with EXT): after the caller's all-reduce of
+//          those sums over tp, K2 reads the row's total in place of its own
+//          reduction and divides it by the whole row's width.
+// The tp widths (MC_TP_ROW_WIDTHS: 384 to 2,560) are compile-time instances of
+// both passes.
+//
 // What bounds them on the H100: each reads a row of 1,152 to 5,120 bf16
 // values once and writes it once, with about 8 f32 operations a value, so
 // HBM bandwidth (3.35 TB/s) is the limit at the main path's shapes: Wan's
@@ -82,6 +95,9 @@
 // configs that reaches K2, K3 or K7 (tests/test_torch_prologue_widths.py
 // holds the configs to this list)
 #define MC_ROW_WIDTHS(X) X(1152) X(1536) X(3072) X(5120)
+// a tp rank's slice of Wan's rows: 1.3B at tp 4 / 2 (384, 768), 5B at tp 4 / 2
+// (768, 1,536), 14B at tp 4 / 2 (1,280, 2,560); K2's two tp passes take these
+#define MC_TP_ROW_WIDTHS(X) X(384) X(768) X(1280) X(1536) X(2560)
 
 namespace {
 
@@ -351,12 +367,16 @@ __device__ __forceinline__ uint4 rope_vector(const uint4& v, float rs, const flo
 // SHARED), then a row slot a warp, as in K3. The head scope finishes each
 // round (two heads) before the next; the token scope sums the whole row
 // first.
-template <int W, bool HEAD, bool SHARED>
+// EXT (token scope only): the row's sum of squares is row_ss[b * S + s],
+// summed over every tp rank's slice, and the mean divides it by full_width.
+template <int W, bool HEAD, bool SHARED, bool EXT>
 __global__ void __launch_bounds__(kThreads, kRopeMinBlocks)
 rms_norm_rope_kernel(const bf16* __restrict__ x, long long stride_b, long long stride_s,
                      const float* __restrict__ gain, const float* __restrict__ cos_t,
                      const float* __restrict__ sin_t, bf16* __restrict__ y, int S,
-                     int width_rt, int rows_per_block, int chunks, float eps) {
+                     int width_rt, int rows_per_block, int chunks, float eps,
+                     const float* __restrict__ row_ss, float full_width) {
+  static_assert(!(EXT && HEAD), "the external statistic is the token scope's");
   constexpr int R = Rounds<W>::value;
   const int width = W ? W : width_rt;
   const int nvec = width / 8;
@@ -390,7 +410,7 @@ rms_norm_rope_kernel(const bf16* __restrict__ x, long long stride_b, long long s
     for (int k = 0; k < (HEAD && R > 4 ? R : 4); ++k) part[k] = 0.f;
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      if (!held(r, lane, nvec)) continue;
+      if (EXT || !held(r, lane, nvec)) continue;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float2 f = unpack(word(v[r], j));
@@ -403,7 +423,9 @@ rms_norm_rope_kernel(const bf16* __restrict__ x, long long stride_b, long long s
     if (s + kWarps < rc.s1) prefetch_row<R>(slot, xb + (s + kWarps) * stride_s, lane, nvec);
     bf16* yr = y + ((size_t)rc.b * S + s) * width;
     float rs = 0.f;
-    if (!HEAD)
+    if (EXT)
+      rs = __frcp_rn(__fsqrt_rn(row_ss[(size_t)rc.b * S + s] / full_width + eps));
+    else if (!HEAD)
       rs = __frcp_rn(__fsqrt_rn(warp_sum((part[0] + part[1]) + (part[2] + part[3])) / width +
                                 eps));
 #pragma unroll
@@ -418,6 +440,39 @@ rms_norm_rope_kernel(const bf16* __restrict__ x, long long stride_b, long long s
       }
       *reinterpret_cast<uint4*>(yr + 8 * i) = rope_vector(v[r], rs, g0, g1, c, n);
     }
+  }
+}
+
+// K2's tp statistics pass: ss[b * S + s] = the f32 sum of squares of the
+// row of `width` bf16 at x + b * stride_b + s * stride_s. A warp a row, the
+// lane's vectors all loaded before it sums them; blocks walk the rows with a
+// grid stride.
+template <int W>
+__global__ void __launch_bounds__(kThreads)
+row_sumsq_kernel(const bf16* __restrict__ x, long long stride_b, long long stride_s,
+                 float* __restrict__ ss, int B, int S, int width_rt) {
+  constexpr int R = Rounds<W>::value;
+  const int nvec = (W ? W : width_rt) / 8;
+  const int lane = threadIdx.x % 32;
+  const long long rows = (long long)B * S;
+  for (long long row = (long long)blockIdx.x * kWarps + threadIdx.x / 32; row < rows;
+       row += (long long)gridDim.x * kWarps) {
+    const long long b = row / S, s = row % S;
+    uint4 v[R];
+    load_row(v, x + b * stride_b + s * stride_s, lane, nvec);
+    float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (!held(r, lane, nvec)) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 f = unpack(word(v[r], j));
+        part[j] = __fmaf_rn(f.x, f.x, part[j]);
+        part[j] = __fmaf_rn(f.y, f.y, part[j]);
+      }
+    }
+    const float tot = warp_sum((part[0] + part[1]) + (part[2] + part[3]));
+    if (lane == 0) ss[row] = tot;
   }
 }
 
@@ -502,18 +557,28 @@ int launch_layer_norm(const void* x, const void* ta, const void* tb, long long t
   return (int)cudaGetLastError();
 }
 
-template <int W, bool HEAD, bool SHARED>
+template <int W, bool HEAD, bool SHARED, bool EXT = false>
 void launch_rms_norm_rope_w(const bf16* x, long long stride_b, long long stride_s,
                             const float* gain, const float* cos_t, const float* sin_t, bf16* y,
-                            int B, int S, int width, float eps, cudaStream_t st) {
+                            int B, int S, int width, float eps, cudaStream_t st,
+                            const float* row_ss = nullptr, int full_width = 0) {
   static std::atomic<long long> cache{-1};
   const size_t smem = (SHARED ? 0 : (size_t)width * sizeof(float)) + kSlotBytes * width;
   const int rpb = rows_per_block(
-      B, S, resident_blocks(rms_norm_rope_kernel<W, HEAD, SHARED>, smem, cache));
+      B, S, resident_blocks(rms_norm_rope_kernel<W, HEAD, SHARED, EXT>, smem, cache));
   const int chunks = (S + rpb - 1) / rpb;
-  rms_norm_rope_kernel<W, HEAD, SHARED>
+  rms_norm_rope_kernel<W, HEAD, SHARED, EXT>
       <<<(unsigned)((long long)B * chunks), kThreads, smem, st>>>(
-          x, stride_b, stride_s, gain, cos_t, sin_t, y, S, width, rpb, chunks, eps);
+          x, stride_b, stride_s, gain, cos_t, sin_t, y, S, width, rpb, chunks, eps, row_ss,
+          (float)full_width);
+}
+
+template <int W>
+void launch_row_sumsq_w(const bf16* x, long long stride_b, long long stride_s, float* ss,
+                        int B, int S, int width, cudaStream_t st) {
+  const long long blocks = ((long long)B * S + kWarps - 1) / kWarps;
+  const unsigned grid = (unsigned)std::min<long long>(blocks, (long long)sm_count() * 16);
+  row_sumsq_kernel<W><<<grid, kThreads, 0, st>>>(x, stride_b, stride_s, ss, B, S, width);
 }
 
 template <bool HEAD, bool SHARED>
@@ -588,4 +653,57 @@ extern "C" int mc_rms_norm_rope(const void* x, long long stride_b, long long str
                                                         sin_t, y, B, S, width, eps, stream)
                      : launch_rms_norm_rope<true, false>(x, stride_b, stride_s, gain, cos_t,
                                                          sin_t, y, B, S, width, eps, stream);
+}
+
+// K2's tp statistics pass: ss [B, S] f32 contiguous, the sum of squares of
+// each row of `width` bf16 at x + b * stride_b + s * stride_s (elements;
+// rows 16-byte aligned).
+extern "C" int mc_row_sumsq(const void* x, long long stride_b, long long stride_s, void* ss,
+                            int B, int S, int width, void* stream) {
+  if (!width_ok(width) || B < 1 || S < 1) return (int)cudaErrorInvalidValue;
+  const bf16* xp = static_cast<const bf16*>(x);
+  float* sp = static_cast<float*>(ss);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define MC_SS_CASE(Wd)                                           \
+  case Wd:                                                       \
+    launch_row_sumsq_w<Wd>(xp, stride_b, stride_s, sp, B, S, width, st); \
+    break;
+  switch (width) {
+    MC_TP_ROW_WIDTHS(MC_SS_CASE)
+    default:
+      launch_row_sumsq_w<0>(xp, stride_b, stride_s, sp, B, S, width, st);
+  }
+#undef MC_SS_CASE
+  return (int)cudaGetLastError();
+}
+
+// K2's tp apply pass (token scope): as mc_rms_norm_rope over this rank's H
+// heads, with each row's sum of squares read from row_ss [B, S] f32 (every
+// tp rank's slice summed) and its mean taken over full_width values.
+extern "C" int mc_rms_norm_rope_ext(const void* x, long long stride_b, long long stride_s,
+                                    const void* gain, const void* cos_t, const void* sin_t,
+                                    const void* row_ss, int full_width, void* y, int B, int S,
+                                    int heads, float eps, void* stream) {
+  const int width = heads * kHeadDim;
+  if (!width_ok(width) || B < 1 || S < 1 || full_width < width)
+    return (int)cudaErrorInvalidValue;
+  const bf16* xp = static_cast<const bf16*>(x);
+  const float* gp = static_cast<const float*>(gain);
+  const float *cp = static_cast<const float*>(cos_t), *snp = static_cast<const float*>(sin_t);
+  const float* ssp = static_cast<const float*>(row_ss);
+  bf16* yp = static_cast<bf16*>(y);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define MC_EXT_CASE(Wd)                                                                    \
+  case Wd:                                                                                 \
+    launch_rms_norm_rope_w<Wd, false, false, true>(xp, stride_b, stride_s, gp, cp, snp, yp, \
+                                                   B, S, width, eps, st, ssp, full_width); \
+    break;
+  switch (width) {
+    MC_TP_ROW_WIDTHS(MC_EXT_CASE)
+    default:
+      launch_rms_norm_rope_w<0, false, false, true>(xp, stride_b, stride_s, gp, cp, snp, yp,
+                                                    B, S, width, eps, st, ssp, full_width);
+  }
+#undef MC_EXT_CASE
+  return (int)cudaGetLastError();
 }

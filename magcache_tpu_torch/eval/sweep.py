@@ -9,10 +9,12 @@ the golden PSNR / SSIM / LPIPS comparison (``eval.compare.compare_dirs``).
 Outputs: ``<idx>[-loop].npy`` latents, ``manifest.jsonl`` and
 ``summary.json``.
 
-``dp > 1`` runs ``dp`` prompts at a time through ``generate_batch`` on the
-pipeline's one device, each element at the seed the manifest records;
-``sp > 1`` goes to ``WanPipelineConfig(sp=)`` (one process per rank);
-``tp > 1`` is not ported.
+``dp > 1`` runs ``dp`` prompts at a time through ``generate_batch``, each
+element at the seed the manifest records: on the pipeline's one device
+without a plan, or one prompt a dp rank under a plan of that ``dp``.
+``sp`` and ``tp`` go to ``WanPipelineConfig`` and need a plan (one process,
+or one local rank, per rank of the grid); every rank runs the sweep and
+rank 0 writes its files.
 """
 
 from __future__ import annotations
@@ -103,14 +105,12 @@ class SweepConfig:
     decode: bool = False                 # save decoded video when a VAE exists
 
 
-def sweep_pipeline_config(cfg: SweepConfig):
+def sweep_pipeline_config(cfg: SweepConfig, plan=None):
     """The ``WanPipelineConfig`` of a sweep (``run_sweep`` builds its
-    pipeline from it when given none)."""
+    pipeline from it when given none): its ``dp`` rides the plan when one is
+    given (without one, ``dp`` is the batch on one device)."""
     from magcache_tpu_torch.pipelines.wan import WanPipelineConfig
 
-    if cfg.tp > 1:
-        raise NotImplementedError("tp > 1: the tensor-parallel axis is not ported "
-                                  "(ROADMAP section 1, item 7)")
     return WanPipelineConfig(
         model=cfg.model, size=tuple(cfg.size), frame_num=cfg.frame_num,
         sample_steps=cfg.sample_steps, sample_solver=cfg.sample_solver,
@@ -119,15 +119,18 @@ def sweep_pipeline_config(cfg: SweepConfig):
         enable_teacache=cfg.variant == "teacache",
         teacache_thresh=cfg.teacache_thresh, use_ret_steps=cfg.use_ret_steps,
         magcache_thresh=cfg.magcache_thresh, magcache_K=cfg.magcache_K,
-        retention_ratio=cfg.retention_ratio, dtype=cfg.dtype, sp=cfg.sp,
+        retention_ratio=cfg.retention_ratio, dtype=cfg.dtype,
+        dp=cfg.dp if plan is not None else 1, sp=cfg.sp, tp=cfg.tp,
         ckpt_dir=cfg.ckpt_dir, tiny=cfg.tiny)
 
 
-def run_sweep(cfg: SweepConfig, pipeline=None, device="cuda") -> dict:
+def run_sweep(cfg: SweepConfig, pipeline=None, device="cuda", plan=None) -> dict:
     """Run the prompt slice and write ``<out>/<idx>[-loop].npy`` and
     ``manifest.jsonl``; returns the summary (also ``summary.json``).
     Without ``pipeline`` it builds the ``WanPipeline`` ``cfg`` names on
-    ``device`` (under ``sp > 1`` pass each rank's pipeline)."""
+    ``device`` with ``plan`` (this rank's, when ``dp``, ``sp`` or ``tp``
+    rides one). Under a plan every rank runs the sweep and only world rank
+    0 writes files."""
     prompts = load_prompts(cfg.prompts_file)
     end = len(prompts) if cfg.end_index is None else min(cfg.end_index, len(prompts))
     sl = list(range(cfg.start_index, end))
@@ -136,13 +139,17 @@ def run_sweep(cfg: SweepConfig, pipeline=None, device="cuda") -> dict:
     if pipeline is None:
         from magcache_tpu_torch.pipelines.wan import WanPipeline
 
-        pipeline = WanPipeline(sweep_pipeline_config(cfg), device)
+        pipeline = WanPipeline(sweep_pipeline_config(cfg, plan), device, plan=plan)
+    plan = getattr(pipeline, "plan", None)
+    writer = plan is None or plan.world_rank == 0
 
-    os.makedirs(cfg.out_dir, exist_ok=True)
+    if writer:
+        os.makedirs(cfg.out_dir, exist_ok=True)
     times: List[float] = []
     t_all = time.time()
     batch = max(1, cfg.dp)
-    with open(os.path.join(cfg.out_dir, "manifest.jsonl"), "w") as mf:
+    with open(os.path.join(cfg.out_dir, "manifest.jsonl") if writer else os.devnull,
+              "w") as mf:
         for lp in range(max(1, cfg.loop)):
             for b0 in range(0, len(sl), batch):
                 ids = sl[b0:b0 + batch]
@@ -166,7 +173,8 @@ def run_sweep(cfg: SweepConfig, pipeline=None, device="cuda") -> dict:
 
                         lat = torch.from_numpy(arr[None]).to(pipeline.device)
                         arr = pipeline.vae.decode(lat)[0].float().cpu().numpy()
-                    np.save(os.path.join(cfg.out_dir, f"{i:05d}{tag}.npy"), arr)
+                    if writer:
+                        np.save(os.path.join(cfg.out_dir, f"{i:05d}{tag}.npy"), arr)
                     times.append(dt)
                     mf.write(json.dumps({
                         "index": i, "prompt": prompts[i], "loop": lp,
@@ -183,6 +191,7 @@ def run_sweep(cfg: SweepConfig, pipeline=None, device="cuda") -> dict:
         "config": {k: (list(v) if isinstance(v, tuple) else v)
                    for k, v in dataclasses.asdict(cfg).items()},
     }
-    with open(os.path.join(cfg.out_dir, "summary.json"), "w") as f:
-        json.dump(summary, f, indent=1)
+    if writer:
+        with open(os.path.join(cfg.out_dir, "summary.json"), "w") as f:
+            json.dump(summary, f, indent=1)
     return summary

@@ -48,13 +48,25 @@ The MagCache boundary is the whole block stack, the VACE stack included:
 and ``WAN_5B`` (Wan2.2 TI2V-5B, 48 latent channels) are the published
 widths.
 
+Tensor parallelism: under a plan with ``tp > 1`` a rank holds ``heads / tp``
+heads of every block (the Megatron slices of ``parallel.shard``: q, k, v,
+the cross projections and ffn1 by output features, o, cross_o and ffn2 by
+input features). The q/k norms run over the whole ``dim``-wide rows: each
+rank's f32 sums of squares of its slice (K2's statistics pass) are summed
+over tp, and K2's apply pass and the cross-attention's ``rms_norm`` read the
+total. o, cross_o and ffn2 end in an f32 all-reduce over tp, the bias added
+once and the sum rounded once. Everything between blocks (the activations,
+the modulation, K3 / K3p, the gates, the embeddings, the head, VACE's
+``before_proj`` / ``after_proj`` and its hint adds) is whole on every tp
+rank.
+
 Sequence parallelism: with a ``plan`` (``parallel.mesh.MeshPlan``) every rank
 runs the same core on its ``1/sp`` of the tokens. ``prepare`` embeds only the
 rank's token rows, the RoPE tables are cut to those rows, the text context
 stays whole on every rank, self-attention goes through Ulysses or the ring
 and cross-attention keeps q sharded against the whole context, and ``head``
 all-gathers the sequence before it unpatchifies, so every rank returns the
-whole output. Weights are replicated. VACE's context is patch-embedded on
+whole output. Weights are replicated over sp. VACE's context is patch-embedded on
 the rank's rows only and its blocks run on the same plan as the trunk's. The
 per-token timestep's t = 0 prefix is global: rank r holds rows ``[r*L,
 (r+1)*L)``, so its own prefix is ``clamp(n0 - r*L, 0, L)`` rows (all, some or
@@ -79,6 +91,8 @@ from magcache_tpu_torch.ops.attention import QKNORM_FIXED_MAX, RING_THRESHOLD, a
 from magcache_tpu_torch.ops.fused_prologue import layer_norm_mod, rms_norm_rope
 from magcache_tpu_torch.ops.norms import rms_norm
 from magcache_tpu_torch.ops.rope import rope_freqs_1d
+from magcache_tpu_torch.parallel.shard import (check_tp_split, row_parallel, slice_wan,
+                                               tp_row_sums)
 
 __all__ = ["WanConfig", "WanModel", "make_wan_core", "wan_rope_tables",
            "patchify", "unpatchify", "WAN_1_3B", "WAN_14B", "WAN_5B", "VACE_IN_CHANNELS"]
@@ -217,10 +231,16 @@ class WanBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, e0: torch.Tensor, context: torch.Tensor,
                 cos: torch.Tensor, sin: torch.Tensor, sp: Optional[dict] = None,
-                n0: int = 0) -> torch.Tensor:
+                n0: int = 0, tp=None) -> torch.Tensor:
         """``sp``: the sequence-parallel arguments of ``attention()``
         (``plan``, ``sp_impl``, ``ring_threshold``) when x holds one rank's
         tokens (cos/sin then hold those rows' tables); None on one rank.
+
+        ``tp``: the rank's tp ``Group`` when this block holds a tensor-parallel
+        rank's slices (``parallel.shard.slice_wan``): ``heads / tp`` heads,
+        the q/k norms over the whole rows from statistics summed over the
+        group, and o, cross_o and ffn2 each ending in an all-reduce; x, the
+        modulation and the gates stay whole.
 
         ``e0`` is ``[B, 6, D]``, or ``[B, 2, 6, D]`` for the per-token
         timestep: the first ``n0`` tokens of x take row 1's modulation and
@@ -229,7 +249,20 @@ class WanBlock(nn.Module):
         cfg = self.cfg
         sp = sp or {}
         b, s, _ = x.shape
-        heads, eps = cfg.heads, cfg.eps
+        eps = cfg.eps
+        ntp = tp.size if tp is not None else 1
+        heads = cfg.heads // ntp
+
+        def gain(g):
+            """The rank's slice of a whole-row norm gain."""
+            n = g.shape[0] // ntp
+            return g if tp is None else g.narrow(0, tp.rank * n, n)
+
+        def row_sums(*ts):
+            return tp_row_sums(tp, ts) if tp is not None else [None] * len(ts)
+
+        def out_proj(lin, a):
+            return lin(a) if tp is None else row_parallel(lin, a, tp)
         # per-block modulation table added in f32: [B, 6, D] ([B, 2, 6, D])
         e = (self.modulation + e0).float()
         seg = e.ndim == 4
@@ -256,36 +289,45 @@ class WanBlock(nn.Module):
 
         # self-attention
         xn = ln_mod(x, 0, 1)
-        q = rms_norm_rope(self.q(xn), self.norm_q, cos, sin, heads, eps=eps)
-        k = rms_norm_rope(self.k(xn), self.norm_k, cos, sin, heads, eps=eps)
+        q, k = self.q(xn), self.k(xn)
+        ss_q, ss_k = row_sums(q, k)
+        q = rms_norm_rope(q, gain(self.norm_q), cos, sin, heads, eps=eps, row_sumsq=ss_q,
+                          width=cfg.dim)
+        k = rms_norm_rope(k, gain(self.norm_k), cos, sin, heads, eps=eps, row_sumsq=ss_k,
+                          width=cfg.dim)
         v = self.v(xn).reshape(b, s, heads, -1)
         a = attention(q, k, v, fixed_max=QKNORM_FIXED_MAX, kv_replicated=False,
-                      **sp).reshape(x.shape)
-        x = gate(x, self.o(a), 2)
+                      **sp).reshape(b, s, -1)
+        x = gate(x, out_proj(self.o, a), 2)
 
         # cross-attention to the text context, and with the CLIP branch to
         # the image tokens in front of it; the two outputs are summed in the
         # activation dtype (residual in the activation dtype)
         xc = layer_norm_mod(x, weight=self.norm3_w, bias=self.norm3_b, eps=eps)
-        cq = rms_norm(self.cross_q(xc), self.cross_norm_q, eps=eps).reshape(b, s, heads, -1)
-
-        def cross(ctx, k_proj, v_proj, k_norm):
-            sc = ctx.shape[1]
-            ck = rms_norm(k_proj(ctx), k_norm, eps=eps).reshape(b, sc, heads, -1)
-            cv = v_proj(ctx).reshape(b, sc, heads, -1)
-            return attention(cq, ck, cv, fixed_max=QKNORM_FIXED_MAX, kv_replicated=True,
-                             **sp).reshape(x.shape)
-
         n_img = cfg.clip_tokens if cfg.has_clip else 0
-        ca = cross(context[:, n_img:], self.cross_k, self.cross_v, self.cross_norm_k)
+        srcs = [(context[:, n_img:], self.cross_k, self.cross_v, self.cross_norm_k)]
         if n_img:
-            ca = ca + cross(context[:, :n_img], self.cross_k_img, self.cross_v_img,
-                            self.cross_norm_k_img)
-        x = x + self.cross_o(ca)
+            srcs.append((context[:, :n_img], self.cross_k_img, self.cross_v_img,
+                         self.cross_norm_k_img))
+        cq = self.cross_q(xc)
+        cks = [k_proj(ctx) for ctx, k_proj, _, _ in srcs]
+        sums = row_sums(cq, *cks)
+        cq = rms_norm(cq, gain(self.cross_norm_q), eps=eps, row_sumsq=sums[0],
+                      width=cfg.dim).reshape(b, s, heads, -1)
+        ca = None
+        for (ctx, _, v_proj, k_norm), ck, ss in zip(srcs, cks, sums[1:]):
+            sc = ctx.shape[1]
+            ck = rms_norm(ck, gain(k_norm), eps=eps, row_sumsq=ss,
+                          width=cfg.dim).reshape(b, sc, heads, -1)
+            cv = v_proj(ctx).reshape(b, sc, heads, -1)
+            o = attention(cq, ck, cv, fixed_max=QKNORM_FIXED_MAX, kv_replicated=True,
+                          **sp).reshape(b, s, -1)
+            ca = o if ca is None else ca + o
+        x = x + out_proj(self.cross_o, ca)
 
         # FFN, tanh-gelu
         xm = ln_mod(x, 3, 4)
-        y = self.ffn2(F.gelu(self.ffn1(xm), approximate="tanh"))
+        y = out_proj(self.ffn2, F.gelu(self.ffn1(xm), approximate="tanh"))
         return gate(x, y, 5)
 
 
@@ -388,7 +430,12 @@ def make_wan_core(model: WanModel, grid: Tuple[int, int, int], plan=None, *,
     ``F*H*W / sp`` token rows (the count must divide by ``sp``), x and the
     head's output are whole on every rank. ``sp_impl`` ("auto", "ulysses",
     "ring") and ``ring_threshold`` pick self-attention's strategy (see
-    ``ops.attention.attention``).
+    ``ops.attention.attention``). Under ``tp > 1`` the blocks run on the
+    rank's slices (``parallel.shard.slice_wan``; views of ``model`` unless
+    ``model`` is already that rank's slice): ``heads / tp`` heads a rank,
+    and under Ulysses ``heads / (sp * tp)`` after its all-to-all, else the
+    split raises naming the counts. ``dp`` is the sampler's: the core runs
+    whatever rows it is given.
     """
     cfg = model.cfg
     device = model.patch_embedding.weight.device
@@ -399,8 +446,23 @@ def make_wan_core(model: WanModel, grid: Tuple[int, int, int], plan=None, *,
     cos_np, sin_np = wan_rope_tables(cfg, grid)
     cos = torch.from_numpy(cos_np).to(device)
     sin = torch.from_numpy(sin_np).to(device)
-    sp = None
-    if plan is not None:
+    sp = tp = None
+    seq = plan if plan is not None and plan.sp > 1 else None
+    ring = sp_impl == "ring" or (sp_impl == "auto" and cos.shape[0] >= ring_threshold)
+    sliced = getattr(model, "tp_slice", None)
+    if plan is not None and plan.tp > 1:
+        check_tp_split(cfg, plan.tp, plan.sp, ring)
+        if sliced is None:          # local ranks: views of the one whole model
+            model = slice_wan(model, plan.tp_rank, plan.tp)
+        elif sliced != (plan.tp_rank, plan.tp):
+            raise ValueError(f"make_wan_core: the model holds tp slice {sliced}, the plan "
+                             f"is tp rank {plan.tp_rank} of {plan.tp}")
+        tp = plan.tp_group
+    elif sliced is not None and sliced[1] > 1:
+        raise ValueError(f"make_wan_core: the model is tp slice {sliced}; pass the plan "
+                         f"of that tp rank")
+    tp_arg = () if tp is None else (tp,)    # the blocks' signature without tp, on one rank
+    if seq is not None:
         from magcache_tpu_torch.parallel.collectives import (gather_sequence,
                                                              split_sequence)
         what = f"make_wan_core: the token sequence of grid {tuple(grid)}"
@@ -408,9 +470,7 @@ def make_wan_core(model: WanModel, grid: Tuple[int, int, int], plan=None, *,
             what += " (VACE's R2V reference frames included)"
         rows = plan.shard_len(cos.shape[0], what)
         n0 = min(max(n0 - plan.rank * rows, 0), rows)
-        ring = sp_impl == "ring" or (sp_impl == "auto"
-                                     and cos.shape[0] >= ring_threshold)
-        if not ring and cfg.heads % plan.sp:
+        if plan.tp == 1 and not ring and cfg.heads % plan.sp:
             raise ValueError(f"make_wan_core: {cfg.heads} heads do not divide by "
                              f"sp = {plan.sp} (Ulysses attention)")
         cos = split_sequence(cos, plan, 0).contiguous()
@@ -425,7 +485,7 @@ def make_wan_core(model: WanModel, grid: Tuple[int, int, int], plan=None, *,
                 raise ValueError("the i2v model needs the conditioning latents cond['y']")
             x = torch.cat([x, cond["y"].to(x.dtype)], dim=-1)
         tokens = patchify(cfg, x.to(dt))
-        if plan is not None:        # embed this rank's token rows only
+        if seq is not None:         # embed this rank's token rows only
             tokens = split_sequence(tokens, plan, 1)
         hidden = model.patch_embedding(tokens)
         te = model.time_embedding
@@ -466,12 +526,12 @@ def make_wan_core(model: WanModel, grid: Tuple[int, int, int], plan=None, *,
         the hidden tokens."""
         vace = model.vace
         tokens = patchify(cfg, ctx["vace_context"])
-        if plan is not None:
+        if seq is not None:
             tokens = split_sequence(tokens, plan, 1)
         c = vace.before_proj(vace.patch_embedding(tokens)) + hidden
         hints = []
         for blk, proj in zip(vace.blocks, vace.after_proj):
-            c = blk(c, ctx["e0"], ctx["context"], cos, sin, sp, n0)
+            c = blk(c, ctx["e0"], ctx["context"], cos, sin, sp, n0, *tp_arg)
             hints.append(proj(c))
         return hints
 
@@ -480,7 +540,7 @@ def make_wan_core(model: WanModel, grid: Tuple[int, int, int], plan=None, *,
         hints = vace_hints(hidden, ctx) if cfg.vace_layers else None
         x = hidden
         for i, blk in enumerate(model.blocks):
-            x = blk(x, ctx["e0"], ctx["context"], cos, sin, sp, n0)
+            x = blk(x, ctx["e0"], ctx["context"], cos, sin, sp, n0, *tp_arg)
             if i in hint_of_layer:
                 x = x + (hints[hint_of_layer[i]] * ctx["vace_scale"]).to(x.dtype)
         return x
@@ -507,7 +567,7 @@ def make_wan_core(model: WanModel, grid: Tuple[int, int, int], plan=None, *,
             h = mod_head(xn, e)
         # round to the activation dtype, then the f32 head weight promotes
         out = hp.out(h.to(hidden.dtype).float())
-        if plan is not None:        # every rank gets the whole sequence back
+        if seq is not None:         # every rank gets the whole sequence back
             out = gather_sequence(out, plan, 1)
         return unpatchify(cfg, out, grid)
 

@@ -118,6 +118,11 @@ def _load_cuda_library() -> ctypes.CDLL:
     lib.mc_layer_norm_mod.restype = ci
     lib.mc_rms_norm_rope.argtypes = [vp, cl, cl, vp, ci, vp, vp, vp, ci, ci, ci, ci, cf, vp]
     lib.mc_rms_norm_rope.restype = ci
+    lib.mc_rms_norm_rope_ext.argtypes = [vp, cl, cl, vp, vp, vp, vp, ci, vp, ci, ci, ci, cf,
+                                         vp]
+    lib.mc_rms_norm_rope_ext.restype = ci
+    lib.mc_row_sumsq.argtypes = [vp, cl, cl, vp, ci, ci, ci, vp]
+    lib.mc_row_sumsq.restype = ci
     lib.mc_hopper_gemm.argtypes = [vp, vp, pl, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
     lib.mc_hopper_gemm.restype = ci
     lib.mc_cross_attention_tma.argtypes = [vp, vp, vp, pl, vp, ci, ci, ci, ci, ci, cf, vp]

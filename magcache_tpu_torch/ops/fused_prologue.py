@@ -12,6 +12,13 @@ S_in``, ``ops.gemm.gate_geometry``). A CPU tensor goes to the plain PyTorch vers
 falls back. Each wrapper counts its kernel launches in ``<wrapper>.launches``;
 ``rms_norm_rope`` also counts them by norm scope in ``.scope_launches``.
 
+Under tensor parallelism K2 runs in two passes over a rank's slice of the
+token-scope row: ``row_sumsq`` (the statistics pass, f32 sums of squares
+``[B, S]``, all-reduced over tp by the caller) and ``rms_norm_rope(...,
+row_sumsq=, width=)`` (the apply pass, which reads the total in place of its
+own reduction and divides it by the whole row's width); the apply pass
+counts in ``rms_norm_rope.tp_launches`` (and ``.launches``), not by scope.
+
 Rounding points, as the TPU kernels have them:
 - K2 rounds the normed, gain-multiplied value to the activation dtype before
   the f32 rotation (``rms_norm`` returns the input dtype, ``apply_rope``
@@ -42,7 +49,8 @@ from magcache_tpu_torch.ops.gemm import gate_geometry, gemm_launch
 from magcache_tpu_torch.ops.norms import layer_norm, rms_norm
 from magcache_tpu_torch.ops.rope import apply_rope
 
-__all__ = ["rms_norm_rope", "rms_norm_rope_plain", "layer_norm_mod",
+__all__ = ["rms_norm_rope", "rms_norm_rope_plain", "row_sumsq", "row_sumsq_plain",
+           "layer_norm_mod",
            "layer_norm_mod_plain", "lnmod_matmul", "lnmod_matmul_plain",
            "ln_stats_plain", "lnmod_operand_plain",
            "matmul_gated_residual", "matmul_gated_residual_plain"]
@@ -83,16 +91,70 @@ ROPE_HEAD_DIM = 128          # the head dim K2's kernel takes
 MAX_ROW_WIDTH = 5120         # the widest row K2, K3 and K7's operand pass hold
 
 
+def row_sumsq_plain(x: torch.Tensor) -> torch.Tensor:
+    """Each row's f32 sum of squares: ``[B, S, W] -> [B, S]``."""
+    x32 = x.float()
+    return (x32 * x32).sum(-1)
+
+
+def row_sumsq(x: torch.Tensor) -> torch.Tensor:
+    """K2's tp statistics pass: the f32 sum of squares of each row of x
+    (``[B, S, W]``, rows read in place through their batch and token
+    strides, as K2 reads them), ``[B, S]`` f32. The kernel
+    (``csrc/prologue.cu``, ``row_sumsq_kernel``) takes bf16 rows of a
+    multiple of 8 values up to ``MAX_ROW_WIDTH``, each starting 16-byte
+    aligned; launches count in ``row_sumsq.launches``."""
+    if x.device.type == "cpu":
+        return row_sumsq_plain(x)
+    b, s, w = x.shape
+    _check_k2_rows("row_sumsq", x, w)
+    out = torch.empty((b, s), dtype=torch.float32, device=x.device)
+    if out.numel():
+        lib = load_cuda_library()
+        code = lib.mc_row_sumsq(x.data_ptr(), x.stride(0), x.stride(1), out.data_ptr(), b, s,
+                                w, torch.cuda.current_stream(x.device).cuda_stream)
+        check_launch(lib, code, "row_sumsq")
+        count_launch(row_sumsq)
+    return out
+
+
+row_sumsq.launches = 0
+
+
+def _check_k2_rows(name: str, x: torch.Tensor, width: int) -> None:
+    """Raises unless x is a bf16 CUDA ``[B, S, width]`` tensor or view whose
+    rows K2's body reads in place: unit channel stride, rows of a multiple
+    of 8 values up to ``MAX_ROW_WIDTH``, each starting 16-byte aligned."""
+    b, s, _ = x.shape
+    _require(x.is_cuda and x.dtype == torch.bfloat16 and x.stride(2) == 1
+             and x.stride(1) >= width,
+             lambda: f"{name}: x must be a bf16 CUDA tensor with unit channel "
+             f"stride, got {x.dtype} strides {x.stride()} on {x.device}")
+    _require(width % 8 == 0 and 0 < width <= MAX_ROW_WIDTH,
+             lambda: f"{name}: the kernel takes rows of a multiple of 8 values, at most "
+             f"{MAX_ROW_WIDTH}, got {width}")
+    _require(x.data_ptr() % 16 == 0 and (b == 1 or x.stride(0) % 8 == 0)
+             and (s == 1 or x.stride(1) % 8 == 0),
+             lambda: f"{name}: every row of x must start 16-byte aligned, got "
+             f"strides {x.stride()} at offset {x.storage_offset()}")
+
+
 def rms_norm_rope_plain(x: torch.Tensor, gain: torch.Tensor, cos: torch.Tensor,
                         sin: torch.Tensor, heads: int, *, eps: float = 1e-5,
-                        norm_scope: str = "token") -> torch.Tensor:
+                        norm_scope: str = "token",
+                        row_sumsq: Optional[torch.Tensor] = None,
+                        width: Optional[int] = None) -> torch.Tensor:
     """``rms_norm`` over H*D (token scope) or over each head's D channels
     with a ``[D]`` or ``[H*D]`` gain (head scope), split heads,
-    ``apply_rope``: ``[B, S, H*D] -> [B, S, H, D]``."""
+    ``apply_rope``: ``[B, S, H*D] -> [B, S, H, D]``. With ``row_sumsq``
+    (token scope: x is a tp rank's slice of wider rows) the mean square is
+    ``row_sumsq / width``, the rows' f32 sums of squares over every rank's
+    slice, in place of x's own."""
     b, s, hd = x.shape
     d = hd // heads
     if norm_scope == "token":
-        yh = rms_norm(x, gain, eps=eps).reshape(b, s, heads, d)
+        yh = rms_norm(x, gain, eps=eps, row_sumsq=row_sumsq,
+                      width=width).reshape(b, s, heads, d)
     else:
         g = gain if gain.numel() == d else gain.reshape(heads, d)
         yh = rms_norm(x.reshape(b, s, heads, d), g, eps=eps)
@@ -101,7 +163,8 @@ def rms_norm_rope_plain(x: torch.Tensor, gain: torch.Tensor, cos: torch.Tensor,
 
 def rms_norm_rope(x: torch.Tensor, gain: torch.Tensor, cos: torch.Tensor,
                   sin: torch.Tensor, heads: int, *, eps: float = 1e-5,
-                  norm_scope: str = "token") -> torch.Tensor:
+                  norm_scope: str = "token", row_sumsq: Optional[torch.Tensor] = None,
+                  width: Optional[int] = None) -> torch.Tensor:
     """K2: RMSNorm + interleaved-pair RoPE in one pass, in token scope (over
     H*D, Wan) or head scope (per head over D, FLUX).
 
@@ -112,25 +175,35 @@ def rms_norm_rope(x: torch.Tensor, gain: torch.Tensor, cos: torch.Tensor,
     kernel (``csrc/prologue.cu``) takes bf16, head dim 128, rows of at most
     ``MAX_ROW_WIDTH`` values each starting 16-byte aligned (strides and
     offset multiples of 8 values), and 16-byte aligned f32 tables.
+
+    ``row_sumsq`` (f32 ``[B, S]``, contiguous) and ``width`` make it K2's
+    tp apply pass (token scope only): x holds a tp rank's heads of rows
+    ``width`` wide, and each row's sum of squares over every rank's slice
+    (``row_sumsq`` of each slice, all-reduced) replaces x's own; the gain is
+    the rank's ``[H*D]`` slice.
     """
     _require(norm_scope in NORM_SCOPES, lambda: f"rms_norm_rope: norm_scope must be "
              f"one of {NORM_SCOPES}, got {norm_scope!r}")
+    b, s, hd = x.shape
+    ext = row_sumsq is not None
+    _require(not ext or (norm_scope == "token" and width is not None and width >= hd
+                         and tuple(row_sumsq.shape) == (b, s)
+                         and row_sumsq.dtype == torch.float32
+                         and row_sumsq.device == x.device),
+             lambda: f"rms_norm_rope: row_sumsq must be f32 [{b}, {s}] on {x.device} with "
+             f"a width of at least {hd}, in token scope; got "
+             f"{row_sumsq.dtype} {tuple(row_sumsq.shape)} on {row_sumsq.device}, width "
+             f"{width}, scope {norm_scope!r}")
     if x.device.type == "cpu":
         return rms_norm_rope_plain(x, gain, cos, sin, heads, eps=eps,
-                                   norm_scope=norm_scope)
-    b, s, hd = x.shape
+                                   norm_scope=norm_scope, row_sumsq=row_sumsq, width=width)
     d = hd // heads
-    _require(x.is_cuda and x.dtype == torch.bfloat16 and x.stride(2) == 1
-             and x.stride(1) >= hd,
-             lambda: f"rms_norm_rope: x must be a bf16 CUDA tensor with unit channel "
-             f"stride, got {x.dtype} strides {x.stride()} on {x.device}")
-    _require(hd == heads * d and d == ROPE_HEAD_DIM and hd <= MAX_ROW_WIDTH,
-             lambda: f"rms_norm_rope: the kernel takes head dim {ROPE_HEAD_DIM} and rows "
-             f"of at most {MAX_ROW_WIDTH}, got {heads} heads over width {hd}")
-    _require(x.data_ptr() % 16 == 0 and (b == 1 or x.stride(0) % 8 == 0)
-             and (s == 1 or x.stride(1) % 8 == 0),
-             lambda: f"rms_norm_rope: every row of x must start 16-byte aligned, got "
-             f"strides {x.stride()} at offset {x.storage_offset()}")
+    _check_k2_rows("rms_norm_rope", x, hd)
+    _require(hd == heads * d and d == ROPE_HEAD_DIM,
+             lambda: f"rms_norm_rope: the kernel takes head dim {ROPE_HEAD_DIM}, got "
+             f"{heads} heads over width {hd}")
+    _require(not ext or row_sumsq.is_contiguous(),
+             "rms_norm_rope: row_sumsq must be contiguous")
     shared_gain = norm_scope == "head" and gain.numel() == d
     for name, t, shape in (("gain", gain, (d,) if shared_gain else (hd,)),
                            ("cos", cos, (s, d // 2)), ("sin", sin, (s, d // 2))):
@@ -142,19 +215,29 @@ def rms_norm_rope(x: torch.Tensor, gain: torch.Tensor, cos: torch.Tensor,
     out = torch.empty((b, s, heads, d), dtype=x.dtype, device=x.device)
     if out.numel():
         lib = load_cuda_library()
-        code = lib.mc_rms_norm_rope(
-            x.data_ptr(), x.stride(0), x.stride(1), gain.data_ptr(), int(shared_gain),
-            cos.data_ptr(), sin.data_ptr(), out.data_ptr(), b, s, heads,
-            int(norm_scope == "head"), float(eps),
-            torch.cuda.current_stream(x.device).cuda_stream)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if ext:
+            code = lib.mc_rms_norm_rope_ext(
+                x.data_ptr(), x.stride(0), x.stride(1), gain.data_ptr(), cos.data_ptr(),
+                sin.data_ptr(), row_sumsq.data_ptr(), int(width), out.data_ptr(), b, s, heads,
+                float(eps), stream)
+        else:
+            code = lib.mc_rms_norm_rope(
+                x.data_ptr(), x.stride(0), x.stride(1), gain.data_ptr(), int(shared_gain),
+                cos.data_ptr(), sin.data_ptr(), out.data_ptr(), b, s, heads,
+                int(norm_scope == "head"), float(eps), stream)
         check_launch(lib, code, "rms_norm_rope")
         count_launch(rms_norm_rope)
-        count_launch(rms_norm_rope, "scope_launches", norm_scope)
+        if ext:
+            count_launch(rms_norm_rope, "tp_launches")
+        else:
+            count_launch(rms_norm_rope, "scope_launches", norm_scope)
     return out
 
 
 rms_norm_rope.launches = 0
 rms_norm_rope.scope_launches = dict.fromkeys(NORM_SCOPES, 0)   # the same, by scope
+rms_norm_rope.tp_launches = 0       # the tp apply pass (an external row statistic)
 
 
 def layer_norm_mod_plain(x: torch.Tensor, *, weight: Optional[torch.Tensor] = None,

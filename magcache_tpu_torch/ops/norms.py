@@ -11,11 +11,17 @@ __all__ = ["rms_norm", "layer_norm"]
 
 
 def rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
-             eps: float = 1e-5) -> torch.Tensor:
+             eps: float = 1e-5, *, row_sumsq: Optional[torch.Tensor] = None,
+             width: Optional[int] = None) -> torch.Tensor:
     """RMSNorm over the last dim: f32 statistics, optional f32 gain, output
-    rounded to the input dtype."""
+    rounded to the input dtype. With ``row_sumsq`` (x is a tensor-parallel
+    rank's slice of rows ``width`` wide) the mean square is ``row_sumsq /
+    width``, each row's f32 sum of squares over every rank's slice."""
     x32 = x.float()
-    var = (x32 * x32).mean(-1, keepdim=True)
+    if row_sumsq is not None:
+        var = (row_sumsq.float() / float(width))[..., None]
+    else:
+        var = (x32 * x32).mean(-1, keepdim=True)
     out = x32 * torch.reciprocal(torch.sqrt(var + eps))
     if weight is not None:
         out = out * weight.float()

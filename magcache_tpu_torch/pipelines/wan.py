@@ -51,15 +51,19 @@ Models and tasks (``MODEL_TASKS``):
 The VAE that encodes is the pipeline's ``vae``, else a random-weight
 ``models.vae.CausalVAE`` with the Wan strides, as in JAX.
 
-Sequence parallelism (``sp > 1``): the pipeline object is one rank's. It is
-built with the rank's ``plan`` (``parallel.mesh.MeshPlan``: a process group
-under ``torchrun``, or a local rank of ``run_local_ranks``). Every rank
-encodes the same text, images and source video and draws the same noise
-from the seeded CPU generator, runs the sampler on its ``1/sp`` of the
-tokens, and returns the whole latents. Every model, task, solver and cache
-policy runs so (the MoE's two cores are both built on the plan); only
-``generate_batch`` refuses a plan (the ``dp`` axis, ROADMAP section 1 item
-2.3).
+Parallel ranks (``dp * sp * tp > 1``): the pipeline object is one rank's
+of the (dp, sp, tp) grid. It is built with the rank's ``plan``
+(``parallel.mesh.MeshPlan``: process groups under ``torchrun``, or a local
+rank of ``run_local_ranks``). Every rank encodes the same text, images and
+source video and draws the same noise from the seeded CPU generator, runs
+the sampler on its ``1/sp`` of the tokens with its ``1/tp`` of the heads
+(``parallel.shard``: views of a shared ``model`` on local ranks, its own
+slices otherwise, of both MoE experts), and returns the whole latents.
+``generate`` at dp 2 runs one CFG lane a dp rank (``core.sampler``); larger
+dp refuses it. ``generate_batch`` at dp d gives each dp rank ``B / d``
+whole prompts with both lanes, no collective per step, and gathers the
+latents over dp at the end. Every model, task, solver and cache policy runs
+so.
 
 Cache policies: MagCache's release adapter rule (``cache_policy="adapter"``,
 the presets) or the eval scripts' rolling rule (``"rolling"``,
@@ -92,6 +96,7 @@ from magcache_tpu_torch.models.text import MockTextEncoder
 from magcache_tpu_torch.models.vae import CausalVAE, CausalVAEConfig
 from magcache_tpu_torch.models.wan import (VACE_IN_CHANNELS, WAN_1_3B, WAN_5B, WAN_14B,
                                            WanConfig, WanModel, make_wan_core)
+from magcache_tpu_torch.parallel.shard import slice_wan, wan_from_state_dict
 from magcache_tpu_torch.pipelines.base import (BasePipeline, PipelineOutput, calibration_dict,
                                                synced_clock, timed_encode)
 from magcache_tpu_torch.schedulers.dpm_flow import dpmpp_2m_flow_coeffs
@@ -163,7 +168,10 @@ class WanPipelineConfig:
     dtype: str = "bfloat16"
     tiny: bool = False                   # toy-size model for smoke runs
     model_cfg_override: Optional[WanConfig] = None
+    # the (dp, sp, tp) grid of the rank's plan
+    dp: int = 1                          # data-parallel ranks (CFG lanes, prompts)
     sp: int = 1                          # sequence-parallel ranks
+    tp: int = 1                          # tensor-parallel ranks (heads)
     sp_impl: str = "auto"                # "auto" | "ulysses" | "ring"
     vace_ref_images: int = 0             # VACE R2V: the reference images
     # a published DiT checkpoint (safetensors, sharded or not); random if None
@@ -186,6 +194,9 @@ class WanPipelineConfig:
         if self.cache_policy not in ("adapter", "rolling"):
             raise ValueError(f"cache_policy must be adapter or rolling, got "
                              f"{self.cache_policy!r}")
+        if min(self.dp, self.sp, self.tp) < 1:
+            raise ValueError(f"dp, sp and tp must be at least 1, got {self.dp}, {self.sp}, "
+                             f"{self.tp}")
 
     @property
     def moe_boundary(self) -> Optional[float]:
@@ -252,8 +263,11 @@ class WanPipeline(BasePipeline):
     generator seeded with ``init_seed`` (the same on every rank); on an A14B
     model without ``model_low``, the low-noise expert gets its own from
     ``init_seed + 1`` (a checkpoint holds one expert, as in JAX).
-    With ``config.sp > 1`` it is one rank's pipeline and needs that rank's
-    ``plan``; local ranks may share one ``model``. ``text_encoder(prompts,
+    With ``config.dp * sp * tp > 1`` it is one rank's pipeline and needs
+    that rank's ``plan`` (of the same grid); local ranks may share one whole
+    ``model``, which tp ranks slice as views. Without ``model`` a tp rank
+    keeps only its own slices (of the checkpoint, or of the seeded random
+    weights, which it draws whole first). ``text_encoder(prompts,
     device=)`` gives the context ``[2, text_len, text_dim]`` (default: the
     mock); with ``vae`` (``WanVAE``) ``generate`` also decodes the latents to
     ``video``. i2v, flf2v and VACE: ``clip`` (a ``CLIPVisionModel``) and
@@ -267,11 +281,14 @@ class WanPipeline(BasePipeline):
                  init_seed: int = 0, plan=None, vae=None,
                  clip: Optional[CLIPVisionModel] = None,
                  model_low: Optional[WanModel] = None):
-        if (plan.sp if plan is not None else 1) != config.sp:
+        want = (config.dp, config.sp, config.tp)
+        got = (plan.dp, plan.sp, plan.tp) if plan is not None else (1, 1, 1)
+        if got != want:
             raise ValueError(
-                f"WanPipeline: config.sp = {config.sp} needs a plan of that many "
-                f"ranks, got {'none' if plan is None else plan.sp} (start the "
-                f"ranks with torchrun, or with parallel.mesh.run_local_ranks)")
+                f"WanPipeline: config dp {config.dp} x sp {config.sp} x tp {config.tp} needs "
+                f"a plan of that grid, got "
+                f"{'none' if plan is None else plan.describe()} (start the ranks with "
+                f"torchrun, or with parallel.mesh.run_local_ranks)")
         if model_low is not None and config.moe_boundary is None:
             raise ValueError(f"model_low is the A14B MoE's low-noise expert; "
                              f"{config.model} is dense")
@@ -284,14 +301,23 @@ class WanPipeline(BasePipeline):
         self.grid = (lf // pt, lh // ph, lw // pw)
         self.latent_shape = (lf, lh, lw, config.latent_channels)
 
+        tp = plan.tp if plan is not None else 1
+
         def expert(m, seed, ckpt_dir=None):
-            if m is None:
-                m = WanModel(self.model_cfg, self.device)
-                if ckpt_dir:
-                    m.load_state_dict(load_wan_checkpoint(ckpt_dir, self.model_cfg))
-                else:
-                    m.init(set_seed(seed, device=self.device))
-            return m.requires_grad_(False).eval()
+            if m is not None:
+                return m.requires_grad_(False).eval()
+            if ckpt_dir and tp > 1:     # only this rank's slices reach the device
+                sd = load_wan_checkpoint(ckpt_dir, self.model_cfg, device="cpu")
+                return wan_from_state_dict(self.model_cfg, sd, plan.tp_rank, tp, self.device)
+            m = WanModel(self.model_cfg, self.device)
+            if ckpt_dir:
+                m.load_state_dict(load_wan_checkpoint(ckpt_dir, self.model_cfg))
+            else:
+                m.init(set_seed(seed, device=self.device))
+            m = m.requires_grad_(False).eval()
+            if tp > 1:                  # the seeded weights drawn whole, then sliced
+                m = slice_wan(m, plan.tp_rank, tp, copy=True)
+            return m
 
         self.model = expert(model, init_seed, config.ckpt_dir)
         self.core = make_wan_core(self.model, self.grid, plan,
@@ -397,18 +423,21 @@ class WanPipeline(BasePipeline):
                              signal_fn=lambda hidden, ctx: ctx[key])
 
     def _sample_fn(self, calibrate: bool,
-                   skip_override: Optional[np.ndarray] = None):
+                   skip_override: Optional[np.ndarray] = None, plan=None):
         """``(x0, cond) -> (latents, aux)``: the calibration run (aux = stats
         ``[steps-1, 2, 3]``) or the sampler (aux = realized skip bits) of the
         config's solver and policy; ``skip_override`` replaces the config's
         schedule. The MoE samples through ``_sample_fn_moe``; its
-        calibration runs the high-noise expert alone at its scale."""
+        calibration runs the high-noise expert alone at its scale. ``plan``:
+        the sampler's (default the pipeline's; ``generate_batch`` passes it
+        without its dp axis)."""
         c = self.config
+        plan = self.plan if plan is None else plan
         if c.moe_boundary is not None and not calibrate:
             if skip_override is not None:
                 raise ValueError("per-request cache overrides do not cover the Wan2.2 "
                                  "MoE two-expert path")
-            return self._sample_fn_moe()
+            return self._sample_fn_moe(plan=plan)
         sch = self._schedule()
         g = c.guide_pair[1]
         dpm = dpmpp_2m_flow_coeffs(sch.sigmas) if c.sample_solver == "dpm++" else None
@@ -416,12 +445,12 @@ class WanPipeline(BasePipeline):
             raise ValueError("skip_override is a generation-path surface")
         if calibrate and c.sample_solver == "unipc":
             return lambda x0, cond: calibrate_unipc(
-                self.core, x0, cond, sch, lanes=2, guidance_scale=g, plan=self.plan)
+                self.core, x0, cond, sch, lanes=2, guidance_scale=g, plan=plan)
         if calibrate:
             # calibration rides the trajectory generation uses
             return lambda x0, cond: sample_euler(
                 self.core, x0, cond, timesteps=sch.timesteps, dts=np.diff(sch.sigmas),
-                guidance_scale=g, dpm_coeffs=dpm, calibrate=True, plan=self.plan)
+                guidance_scale=g, dpm_coeffs=dpm, calibrate=True, plan=plan)
         tea = None
         if c.enable_teacache:
             if c.use_magcache:
@@ -439,14 +468,14 @@ class WanPipeline(BasePipeline):
             return lambda x0, cond: sample_unipc(
                 self.core, x0, cond, sch, cache_cfg=cache_cfg, guidance_scale=g,
                 skip_mask_override=skip_override, dynamic_skip=tea, return_skips=True,
-                post_step=_ti2v_post(cond), plan=self.plan)
+                post_step=_ti2v_post(cond), plan=plan)
         return lambda x0, cond: sample_euler(
             self.core, x0, cond, timesteps=sch.timesteps, dts=np.diff(sch.sigmas),
             cache_cfg=cache_cfg, guidance_scale=g, dpm_coeffs=dpm,
             skip_mask_override=skip_override, return_skips=True,
-            post_step=_ti2v_post(cond), plan=self.plan)
+            post_step=_ti2v_post(cond), plan=plan)
 
-    def _sample_fn_moe(self, batch: int = 1):
+    def _sample_fn_moe(self, batch: int = 1, plan=None):
         """The A14B two-expert sampler over ``batch`` videos: UniPC steps
         ``[0, boundary)`` on the high-noise expert at the high scale, then
         ``[boundary, n)`` on the low-noise expert at the low scale, one carry
@@ -462,9 +491,9 @@ class WanPipeline(BasePipeline):
         cache_cfg = self._cache_cfg()
         g_low, g_high = c.guide_pair
         init_carry, step_high = unipc_executor(self.core, sch, cache_cfg=cache_cfg,
-                                               guidance_scale=g_high, batch=batch)
+                                               guidance_scale=g_high, batch=batch, plan=plan)
         _, step_low = unipc_executor(self.core_low, sch, cache_cfg=cache_cfg,
-                                     guidance_scale=g_low, batch=batch)
+                                     guidance_scale=g_low, batch=batch, plan=plan)
 
         @torch.inference_mode()
         def run(x0, cond):
@@ -685,6 +714,11 @@ class WanPipeline(BasePipeline):
                                                             src_ref_images, vace_context)):
             raise ValueError(f"src_video, src_mask, src_ref_images and vace_context are "
                              f"for the vace task, not {c.task}")
+        if self.plan is not None and self.plan.dp > 2:
+            raise ValueError(
+                f"generate() at dp = {self.plan.dp}: the CFG batch holds two rows (the "
+                f"cond and the uncond lane), one a dp rank, so generate() runs at dp 1 "
+                f"or 2; generate_batch takes dp prompts at a time")
         fn = self._sample_fn(calibrate, skip_override)
         context, text_s = timed_encode(self.text_encoder, [prompt, negative_prompt],
                                        self.device)
@@ -737,13 +771,18 @@ class WanPipeline(BasePipeline):
         sampling's, as in JAX (the text encode before it is left out).
         TeaCache decides each lane from the mean over all its rows; Wan's
         signal (``e`` or ``e0``) depends on the step alone, so that mean is
-        each element's own."""
+        each element's own.
+
+        Under a plan of dp d, dp rank r takes elements ``[r B/d, (r+1) B/d)``
+        with both their CFG lanes (its sp and tp axes split each as in
+        ``generate``), no collective runs across dp per step, and the
+        latents are all-gathered over dp at the end, so every rank returns
+        all ``B`` (the JAX package splits its rows over dp in the layout of
+        its lane-stacked batch; the elements are independent, so the numbers
+        are the same)."""
         c = self.config
-        if self.plan is not None:
-            raise NotImplementedError(
-                "generate_batch under sp > 1: batching prompts across ranks is the "
-                "dp axis, not ported yet (ROADMAP section 1 item 2.3); call "
-                "generate() once a prompt")
+        plan = self.plan
+        dp, rank = (plan.dp, plan.dp_rank) if plan is not None else (1, 0)
         if c.task not in ("t2v", "ti2v"):
             raise ValueError(f"generate_batch takes text prompts only (t2v, ti2v "
                              f"without an image), not {c.task}")
@@ -753,17 +792,24 @@ class WanPipeline(BasePipeline):
         b = len(prompts)
         if seeds is not None and len(seeds) != b:
             raise ValueError(f"{len(seeds)} seeds for {b} prompts")
-        gens = ([set_seed(s) for s in seeds] if seeds is not None
-                else [set_seed(seed, dp_rank=j) for j in range(b)])
-        cond_c = self.text_encoder(list(prompts), device=self.device)
-        cond_u = self.text_encoder([negative_prompt] * b, device=self.device)
+        if b % dp:
+            raise ValueError(f"generate_batch at dp = {dp}: {b} prompts do not divide "
+                             f"over the dp ranks")
+        mine = range(rank * (b // dp), (rank + 1) * (b // dp))
+        gens = [set_seed(seeds[j]) if seeds is not None else set_seed(seed, dp_rank=j)
+                for j in mine]
+        cond_c = self.text_encoder([prompts[j] for j in mine], device=self.device)
+        cond_u = self.text_encoder([negative_prompt] * len(mine), device=self.device)
         cond = {"context": torch.cat([cond_c, cond_u])}
         x0 = torch.cat([self._initial_noise(g) for g in gens]).to(self.device)
         t0 = synced_clock(x0)
+        inner = plan.without_dp() if plan is not None else None
         if c.moe_boundary is not None:
-            latents, _ = self._sample_fn_moe(batch=b)(x0, cond)
+            latents, _ = self._sample_fn_moe(batch=len(mine), plan=inner)(x0, cond)
         else:
-            latents, _ = self._sample_fn(False)(x0, cond)
+            latents, _ = self._sample_fn(False, plan=inner)(x0, cond)
+        if dp > 1:
+            latents = plan.dp_group.all_gather(latents, 0)
         return PipelineOutput(latents=latents,
                               timings={"total_s": synced_clock(latents) - t0,
                                        "prompts": b})

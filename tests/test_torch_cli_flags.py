@@ -110,8 +110,16 @@ def test_cpu_is_device_cpu(argv, want):
 
 
 @pytest.mark.parametrize("flag", ["--dp", "--tp"])
-def test_dp_tp_above_one_exit_naming_the_roadmap(flag):
+def test_dp_tp_above_one_exit_naming_the_roadmap(flag, monkeypatch):
+    """``--dp`` and ``--tp`` run on Wan (one process a rank, under torchrun;
+    the two-process run is tests/test_torch_tp_wan.py's); the refusals that
+    stay: another family names the roadmap item, and no launcher names
+    torchrun."""
+    assert getattr(_resolved([flag, "2"]), flag[2:]) == 2
     with pytest.raises(SystemExit, match=r"ROADMAP section 1 item 2"):
-        _resolved([flag, "2"])
-    with pytest.raises(SystemExit, match=r"ROADMAP section 1 item 2"):
+        G.main(["--task", "open-sora", "--tiny", "--device", "cpu", flag, "4"])
+    monkeypatch.delenv("RANK", raising=False)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(SystemExit, match=r"one process per rank \(4\): start them with "
+                                         r"torchrun"):
         G.main(["--task", "t2v-1.3B", "--tiny", "--device", "cpu", flag, "4"])

@@ -101,6 +101,37 @@ def test_k2_head_scope_matches_plain(dev, s, heads, row, offset, shared_gain):
     torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=1.6e-2)
 
 
+# K2's tp passes: the statistics are f32 sums of the same squares in
+# another order; the apply pass rounds as K2 does
+@pytest.mark.parametrize("b,s,heads,tp", [(2, 300, 6, 2), (1, 129, 3, 4), (2, 77, 10, 4),
+                                          (1, 50, 20, 2), (3, 9, 12, 2), (2, 65, 7, 3)])
+def test_k2_tp_passes_match_plain(dev, b, s, heads, tp):
+    x = _rand(dev, b, s, heads * 128, scale=2.0)
+    gain = 1.0 + _rand(dev, heads * 128, dtype=torch.float32, scale=0.1, seed=4)
+    ang = torch.rand(s, 64, device=dev) * 6.28
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    before = (P.row_sumsq.launches, P.rms_norm_rope.tp_launches,
+              dict(P.rms_norm_rope.scope_launches))
+    ss = P.row_sumsq(x)
+    torch.testing.assert_close(ss, P.row_sumsq_plain(x), atol=0.0, rtol=1e-5)
+    total = ss * tp                              # tp ranks' equal slices, summed
+    got = P.rms_norm_rope(x, gain, cos, sin, heads, eps=1e-6, row_sumsq=total,
+                          width=tp * heads * 128)
+    want = P.rms_norm_rope_plain(x, gain, cos, sin, heads, eps=1e-6, row_sumsq=total,
+                                 width=tp * heads * 128)
+    torch.cuda.synchronize()
+    assert (P.row_sumsq.launches, P.rms_norm_rope.tp_launches) == (before[0] + 1,
+                                                                   before[1] + 1)
+    assert P.rms_norm_rope.scope_launches == before[2]        # not a scope's launch
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=1.6e-2)
+    with pytest.raises(ValueError, match="row_sumsq must be f32"):
+        P.rms_norm_rope(x, gain, cos, sin, heads, row_sumsq=total.double(),
+                        width=tp * heads * 128)
+    with pytest.raises(ValueError, match="token scope"):
+        P.rms_norm_rope(x, gain, cos, sin, heads, row_sumsq=total, width=heads * 128,
+                        norm_scope="head")
+
+
 def test_k2_refuses_what_it_does_not_take(dev):
     tab = torch.zeros(10, 32, device=dev)
     x = _rand(dev, 1, 10, 4 * 64)                           # head dim 64

@@ -81,6 +81,23 @@ def test_every_instantiated_width_has_a_config():
     assert all(w % 8 == 0 and w <= MAX_ROW_WIDTH for w in _instantiated())
 
 
+def _instantiated_tp():
+    with open(os.path.join(PKG, "csrc", "prologue.cu")) as f:
+        m = re.search(r"#define MC_TP_ROW_WIDTHS\(X\)((?: X\(\d+\))+)", f.read())
+    assert m, "csrc/prologue.cu lost its MC_TP_ROW_WIDTHS list"
+    return tuple(int(w) for w in re.findall(r"\d+", m.group(1)))
+
+
+def test_every_wan_tp_slice_width_is_an_instantiated_tp_width():
+    """K2's two tp passes run on a tp rank's slice of Wan's q / k rows: at
+    tp 2 and 4 every published Wan width's slice is a compile-time instance
+    of both, and every instance is such a slice."""
+    want = {cfg.dim // tp for name, (cfg, attr, k2) in CONFIGS.items()
+            if isinstance(cfg, wan.WanConfig) for tp in (2, 4)}
+    assert set(_instantiated_tp()) == want
+    assert all(w % ROPE_HEAD_DIM == 0 for w in want)
+
+
 def test_no_module_of_the_port_imports_triton():
     found = []
     for dirpath, _, files in os.walk(PKG):

@@ -9,8 +9,8 @@ Ulysses and ring, each held against the port's single-rank run.
 - the A14B two-expert MoE request;
 - dpm++, Euler, rolling and TeaCache requests, dpm++ and Euler calibration,
   and the per-request overrides;
-- the refusals that stay: ``generate_batch`` (the ``dp`` axis) and a token
-  count with R2V frames that does not divide by ``sp``.
+- ``generate_batch`` under sp, and the refusal that stays: a token count
+  with R2V frames that does not divide by ``sp``.
 
 One case per model construct (i2v, VACE, the prefix, the MoE, TeaCache) is
 also held against the JAX package under ``use_mesh`` with the same ``sp``,
@@ -409,9 +409,12 @@ def test_refusals_that_stay_under_sp():
     with pytest.raises(ValueError, match="R2V reference frames included.*does not divide "
                                          "by sp = 3"):
         run_local_ranks(3, lambda plan: make(plan, "ring"), timeout=60.0)
+    # generate_batch runs under sp (the dp axis batches prompts over ranks:
+    # tests/test_torch_tp_wan.py); its prompts must divide over dp
     plain = _port_pipes({}, _models({}, seed=9)[2], **_pipe_kw())
-    with pytest.raises(NotImplementedError, match="ROADMAP section 1 item 2.3"):
-        run_local_ranks(2, lambda plan: plain(plan).generate_batch(["a", "b"]), timeout=60.0)
+    want = plain().generate_batch(["a", "b"], seeds=[1, 2]).latents
+    got = _ranks(2, lambda plan: plain(plan).generate_batch(["a", "b"], seeds=[1, 2]).latents)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=TOL, rtol=TOL)
 
 
 def test_thread_launch_tally_counts_each_rank_apart():

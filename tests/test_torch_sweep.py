@@ -106,7 +106,12 @@ def test_manifest_and_summary_keys_equal_jax(tmp_path):
 def test_sweep_axes_and_checkpoints():
     from magcache_tpu_torch.eval.sweep import sweep_pipeline_config
 
-    with pytest.raises(NotImplementedError, match="item 7"):
+    # tp reaches the pipeline, which needs the plan of its grid (the sweep
+    # on local ranks at dp 2 x tp 2: tests/test_torch_tp_wan.py); dp rides
+    # the plan only when one is given
+    assert sweep_pipeline_config(_cfg(tp=2)).tp == 2
+    assert sweep_pipeline_config(_cfg(dp=2)).dp == 1
+    with pytest.raises(ValueError, match="needs a plan of that grid"):
         run_sweep(_cfg(out_dir="unused", tp=2), device="cpu")
     # a checkpoint directory reaches the pipeline, which loads it
     assert sweep_pipeline_config(_cfg(ckpt_dir="/nowhere")).ckpt_dir == "/nowhere"
