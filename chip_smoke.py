@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives ``magcache_tpu_torch`` (never JAX) in 103 phases and exits
+Drives ``magcache_tpu_torch`` (never JAX) in 114 phases and exits
 nonzero on the first failure:
 
 1. environment: a CUDA card is required; prints the card's name and power
@@ -604,6 +604,35 @@ that every rank realized the schedule's skip bits:
    mesh) within 3e-2 of phase 59; the peak memory, with the growth over
    the weights held once.
 
+FLUX and the VideoSys trunks under a plan, local ranks (each after the
+phase whose model it reuses), every rank's launches against its formula:
+108. (after 12) the kernels at FLUX.1-dev 1024x1024's per-rank shapes: K1b
+   over the joint 4,608 tokens at 6 heads (sp 2 x tp 2, Ulysses) and K1 at
+   6 heads (tp 4), each beside SDPA; K1c's two ring steps at sp 2 (2,304
+   queries against 2,560 and 2,048 keys); K2h on a rank's 6 heads and on
+   the ring's 2,048 image rows; K3 on a rank's 2,048 image and 2,560
+   single-block rows (K2h and K3 timed in a CUDA graph that cycles through
+   8 sets of buffers, more bytes than the L2 holds, so each call reads HBM);
+109. (after 108) phase 12's forward at sp 2 x tp 2, tp 4 and ring sp 2,
+   each within 2e-2 rel L2 of the one-rank forward;
+110. (after 13) phase 13's flux-dev MagCache request at sp 2 x tp 2: the
+   skip bits the schedule's on every rank, within 1e-1 of phase 13's;
+111. (after 9) Open-Sora 1.2 480p x 51 at dp 2 x sp 2 x tp 2 (8 ranks): K7,
+   K5 (spatial and temporal), K1b (cross, 8 heads), K7 / K8 (the whole
+   MLP) and K3 at a rank's shapes, then the forward within 3e-2 of one
+   rank;
+112. (after 21) Latte-1 512x512 x 16 at dp 2 x sp 2 x tp 2: K7, K5r, K1b and
+   K3 at a rank's shapes, then the forward within 3e-2 of one rank;
+113. (after 41) Open-Sora-Plan v1.2 93x480x640 at sp 2 x tp 2 (the unpacked
+   blocks): K1b over the 28,800 tokens at 4 heads and the cross at 8, K3,
+   then the forward within 3e-2 of one rank;
+114. (after 111) Open-Sora 1.2 480p x 51 under PAB (``OPEN_SORA_PAB``) at
+   dp 2 x sp 2 x tp 2: K1b at a rank's shapes (Ulysses over each frame,
+   the cross-attention), then the unpacked composition on the tokens
+   layout (K3, K1b, K5 over groups of T, K7), a full-compute step and a
+   step that replays slots, each within 3e-2 of one rank's packed PAB
+   step.
+
 Every request of phases 63-69 checks its skip bits against
 ``compute_skip_schedule``, its launches against the trunk runs and its
 pixels and latents for shape and finiteness, and prints ``text_s``,
@@ -646,7 +675,10 @@ request; ``wan-i2v-sp``: phase 97; ``wan-i2v-sp-request``: phase 98;
 ``wan-ti2v-sp``: phase 99; ``wan-ti2v-sp-request``: phase 100;
 ``wan-vace-sp``: phase 101; ``wan-a14b-sp``: phase 102;
 ``wan-sp-policies``: phase 103; ``wan-tp``: phase 105; ``wan-tp-request``:
-phase 107; ``wan-i2v-tp``: phase 106), its worst error over every shape
+phase 107; ``wan-i2v-tp``: phase 106; ``flux-grid``: phase 109;
+``flux-grid-request``: phase 110; ``open-sora-grid``, ``latte-grid``,
+``open-sora-plan-grid``: phases 111-113; ``open-sora-pab-grid``: phase
+114), its worst error over every shape
 compared, and the times of its first shape timed, named in ``timed_at``,
 with their method in ``timing`` (``loop`` or ``graph``); ``shapes`` lists
 every shape compared with its own error, times and bound.
@@ -663,7 +695,9 @@ The last line is ``{"ok": true, "device": {...}}``. Weights are random
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
+import itertools
 import json
 import math
 import os
@@ -1917,6 +1951,7 @@ def phase_flux_requests(dev, model):
         f"{FLUX_STEPS} Euler steps (flux-dev guidance 3.5, Kontext 2.5)")
     reset_counts()
     total = dict(NO_LAUNCHES)
+    kept = None           # the flux-dev MagCache latents, for phase 110
     cond_lat = _cond_latents(dev)
     for key, guidance, skipped in (("flux-dev", 3.5, 19), ("flux-kontext-dev", 2.5, 14)):
         base = dict(model=key, num_inference_steps=FLUX_STEPS, guidance=guidance)
@@ -1947,6 +1982,8 @@ def phase_flux_requests(dev, model):
                          f"K3 per step)")
                 total[k] += got
             secs[label] = out.timings["total_s"]
+            if key == "flux-dev" and pipe is cached:
+                kept = lat
             log(f"  {key} {label}: {secs[label]:.3f} s/image, {runs} of {FLUX_STEPS} "
                 f"forwards computed, skipped steps "
                 f"{np.flatnonzero(out.skips.any(1)).tolist()}, latents std "
@@ -1955,7 +1992,7 @@ def phase_flux_requests(dev, model):
         log(f"  {key}: speedup {secs['full compute'] / secs[f'MagCache {key}']:.3f}x "
             f"against a schedule ceiling of {ceiling:.3f}x")
     log(f"  launches in phase 13: {total}")
-    return total
+    return total, kept
 
 
 def _numpy_flux_tree(cfg, rng):
@@ -6033,7 +6070,9 @@ def tally_counts(tally: dict) -> dict:
                ("flash_attention_bshd", "qknorm_launches", None): "flash_attention_bshd_qknorm",
                ("layer_norm_mod", "plain_launches", None): "layer_norm_mod_plain",
                ("fused_cross_attention", "epilogues", "resid"): "fused_cross_attention",
-               ("fused_cross_attention", "epilogues", "bias"): "fused_cross_attention_bias"}
+               ("fused_cross_attention", "epilogues", "bias"): "fused_cross_attention_bias",
+               ("grouped_attention_fused_qkv", "rowmax_launches", None):
+                   "grouped_attention_fused_qkv_rowmax"}
     counts = dict(NO_LAUNCHES)
     for (fn, attr, key), n in tally.items():
         name = records.get((fn, attr, key))
@@ -9482,12 +9521,554 @@ def phase_narrow_pab_routes(dev):
         check_narrow(f"Latte PAB, {route}, {size}x{size} x {frames_n}", outs["card"],
                      outs["cpu"], launched, want)
 
+# ---------------------------------------------------------------------------
+# FLUX and the VideoSys trunks under a plan (phases 108-114)
+FLUX_GRIDS = ((1, 2, 2, "ulysses"), (1, 1, 4, "auto"), (1, 2, 1, "ring"))
+FRESH = 8                     # buffer sets a short kernel's graph cycles through
+VIDEO_AXES = (2, 2, 2)        # Open-Sora 1.2 and Latte-1: dp 2 x sp 2 x tp 2
+OSP_AXES = (1, 2, 2)          # Open-Sora-Plan v1.2: sp 2 x tp 2
+# one rank's launches per forward at dp 2 x sp 2 x tp 2: STDiT3's spatial K7
+# (qkv slice), K5 and, per block, the MLP's K7 / K8 on whole weights (mlp1 /
+# mlp2 match no JAX pattern); the temporal K3 and K5; the cross K1b over
+# the rank's 8 heads (K6 takes no tp slice); proj and cross_o row-parallel
+OS_GRID_LAUNCHES = dict(NO_LAUNCHES, lnmod_matmul=84, grouped_attention_fused_qkv=56,
+                        matmul_gated_residual=56, flash_attention_bhsd=56,
+                        layer_norm_mod=28)
+# Latte: K7 (qkv slice, ff1 slice), K5r, the spatial cross K1b, temporal K3;
+# proj, cross_o and ff2 row-parallel (no K8)
+LATTE_GRID_LAUNCHES = dict(NO_LAUNCHES, lnmod_matmul=84,
+                           grouped_attention_fused_qkv_rowmax=56, flash_attention_bhsd=28,
+                           layer_norm_mod=28)
+# OSP's unpacked blocks: K3 twice, K1b for self- and cross-attention
+OSP_GRID_LAUNCHES = dict(NO_LAUNCHES, layer_norm_mod=56, flash_attention_bhsd=56)
+
+
+def flux_rank_launches(sp: int, tp: int, impl: str) -> dict:
+    """One rank's launches per FLUX.1-dev trunk run on a grid: K2h and K3 as
+    one rank's (each rank runs them on its heads and its rows), the joint
+    attention as K1b (Ulysses), K1c once per key shard (ring) or K1 (tp
+    only)."""
+    k1 = FLUX_TRUNK_LAUNCHES["flash_attention_bshd"]
+    per = dict(FLUX_TRUNK_LAUNCHES, flash_attention_bshd=k1 if sp == 1 else 0)
+    if sp > 1:
+        per["flash_attention_bhsd_aux" if impl == "ring" else "flash_attention_bhsd"] = \
+            k1 * (sp if impl == "ring" else 1)
+    return per
+
+
+def head_launches(per_run: dict, runs: int, head_calls: int) -> dict:
+    """``per_run`` over ``runs`` trunk runs plus the head's K3 per call."""
+    return {k: n * runs + (head_calls if k == "layer_norm_mod" else 0)
+            for k, n in per_run.items()}
+
+
+def rotating(fns):
+    """One callable that calls ``fns`` in turn."""
+    it = itertools.cycle(fns)
+    return lambda: next(it)()
+
+
+def grid_kernel(rec, name, label, call, plain, work, *, atol, rtol, library=None,
+                graph=False, reps=10, outs=lambda r: r, fresh=None):
+    """A kernel call at a rank's shape against its plain version (``outs``
+    picks the compared tensor), timed (``graph``: ``cuda_graph_ms``, for
+    calls shorter than their host dispatch) beside its plain version (one
+    call) and ``library`` (``(call name, fn)``), and kept. ``fresh``: ``(call,
+    library fn)`` pairs on other buffers of the same shapes, timed in turn
+    in place of ``call`` and the library's, so that a working set smaller
+    than the L2 is read from HBM as on the main path."""
+    got, (want, pms) = call(), timed_once(plain)
+    err = compare(f"{name} [{label}]", outs(got), outs(want), atol=atol, rtol=rtol)
+    del got, want
+    timer = cuda_graph_ms if graph else (lambda fn: cuda_ms(fn, reps))
+    calls = (call, None if library is None else library[1])
+    if fresh is not None:
+        calls = tuple(rotating(fns) for fns in zip(*fresh))
+    ms = timer(calls[0])
+    lib = None if library is None else (library[0], timer(calls[1]))
+    log(f"  {name} [{label}]: kernel {ms:.4f} ms ({rate(work[0], work[1], ms, *work[2:])}), "
+        f"plain {pms:.3f} ms" + (f", {lib[0]} {lib[1]:.4f} ms" if lib else ""))
+    timing = "graph" if graph else "loop"
+    if fresh is not None:
+        timing += f" over {len(fresh)} buffer sets"
+    keep(rec, name, err, ms, pms, timing, label, work, lib)
+
+
+def attention_work(q, k, d: int = None):
+    """Attention's bound at head dim ``d`` (the function, not a pad): 4 B H
+    Sq Skv d operations, q, k, v read and o written once, for head-major
+    ``[B, H, S, D]`` q and k."""
+    b, h, sq, dk = q.shape
+    d = d or dk
+    e = q.element_size()
+    return (4 * b * h * sq * k.shape[2] * d, e * b * h * d * (2 * sq + 2 * k.shape[2]))
+
+
+def sdpa_call(q, k, v):
+    import torch.nn.functional as F
+
+    d = q.shape[-1]
+    return ("F.scaled_dot_product_attention", lambda: F.scaled_dot_product_attention(q, k, v))
+
+
+def phase_flux_grid_kernels(dev, rec):
+    from magcache_tpu_torch.models.flux import FLUX_DEV, flux_rope_tables
+    from magcache_tpu_torch.ops import attention as A
+    from magcache_tpu_torch.ops import fused_prologue as P
+
+    log("phase 108: kernels vs plain at FLUX.1-dev 1024x1024's per-rank shapes under sp 2 "
+        "x tp 2, tp 4 and ring sp 2 (bf16)")
+    gen = torch.Generator(device=dev).manual_seed(10808)
+    D, d, L, n_img = 128, 3072, FLUX_TXT, FLUX_GRID[0] * FLUX_GRID[1]
+    S = L + n_img
+
+    def rnd(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def heads_first(b, s, h):
+        return rnd(b, s, h, D).transpose(1, 2)
+
+    # the joint attention: Ulysses' K1b over 6 heads of every token (sp 2 x
+    # tp 2), K1 over 6 heads at tp 4 (its q/k/v the rank's [B, S, H, D])
+    q, k, v = heads_first(1, S, 6), heads_first(1, S, 6), heads_first(1, S, 6)
+    fm = A.QKNORM_FIXED_MAX
+    grid_kernel(rec, "flash_attention_bhsd", f"FLUX sp 2 x tp 2 joint 1x6x{S}x128, fixed_max=16",
+                lambda: A.flash_attention_bhsd(q, k, v, fixed_max=fm),
+                lambda: A.flash_attention_bhsd_plain(q, k, v, fixed_max=fm),
+                attention_work(q, k), atol=2e-3, rtol=2e-2, library=sdpa_call(q, k, v))
+    qb, kb, vb = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    grid_kernel(rec, "flash_attention_bshd", f"FLUX tp 4 joint 1x{S}x6x128, fixed_max=16",
+                lambda: A.flash_attention_bshd(qb, kb, vb, fixed_max=fm),
+                lambda: A.flash_attention_bshd_plain(qb, kb, vb, fixed_max=fm),
+                attention_work(q, k), atol=2e-3, rtol=2e-2, library=sdpa_call(q, k, v))
+    del q, k, v, qb, kb, vb
+    # the ring at sp 2: a rank's 256 text + 2,048 image queries against its
+    # step-0 keys (512 text + 2,048 image) and the other rank's 2,048
+    q = heads_first(1, L // 2 + n_img // 2, 24)
+    for label, kv_len in (("step 0", L + n_img // 2), ("step 1", n_img // 2)):
+        k, v = heads_first(1, kv_len, 24), heads_first(1, kv_len, 24)
+        grid_kernel(rec, "flash_attention_bhsd_aux",
+                    f"FLUX ring sp 2 {label}: 1x24x{q.shape[2]}x128 x {kv_len} keys",
+                    lambda: A.flash_attention_bhsd_aux(q, k, v),
+                    lambda: A.flash_attention_bhsd_aux_plain(q, k, v),
+                    attention_work(q, k), atol=2e-3, rtol=2e-2, outs=lambda r: r[0],
+                    library=("F.scaled_dot_product_attention (no m, l: not the same "
+                             "function)", sdpa_call(q, k, v)[1]))
+        del k, v
+    del q
+    # K2h on a rank's heads, read in place from its fused projection: sp 2 x
+    # tp 2's image q (6 heads of a [q|k|v] 2,304 wide) and single-block q (of
+    # [q|k|v|mlp] 5,376 wide), tp 4's image q, the ring's 24 heads. K2h and
+    # K3 move 3-26 MB a call, which a replay of one buffer would read from
+    # the 50 MB L2: each is timed in turn over FRESH sets of buffers instead
+    cos_np, sin_np = flux_rope_tables(FLUX_DEV, L, *FLUX_GRID)
+    cos, sin = torch.from_numpy(cos_np).to(dev), torch.from_numpy(sin_np).to(dev)
+    gain = 1.0 + rnd(D, dtype=torch.float32, scale=0.1)
+    kw = dict(eps=1e-6, norm_scope="head")
+    for label, rows, width, heads, tabs in (
+            ("sp 2 x tp 2 image q, 1x2048 rows of 2304", 2048, 2304, 6,
+             (cos[L:L + 2048], sin[L:L + 2048])),
+            ("sp 2 x tp 2 single-block q, 1x2560 rows of 5376", L + 2048, 5376, 6,
+             (torch.cat([cos[:L], cos[L:L + 2048]]), torch.cat([sin[:L], sin[L:L + 2048]]))),
+            ("tp 4 image q, 1x4096 rows of 2304", n_img, 2304, 6, (cos[L:], sin[L:])),
+            ("ring sp 2 image q, 1x2048 rows of 9216", 2048, 9216, 24,
+             (cos[L:L + 2048], sin[L:L + 2048]))):
+        xs = [rnd(1, rows, width, scale=2.0)[..., :heads * D] for _ in range(FRESH)]
+
+        def k2h(x=xs[0]):
+            return P.rms_norm_rope(x, gain, *tabs, heads, **kw)
+
+        x = xs[0]
+        grid_kernel(rec, "rms_norm_rope_head", label, k2h,
+                    lambda: P.rms_norm_rope_plain(x, gain, *tabs, heads, **kw),
+                    elementwise_work(x, gain, *tabs), atol=3e-2, rtol=1.6e-2, graph=True,
+                    fresh=[(functools.partial(k2h, xi), None) for xi in xs])
+        del x, xs
+    # K3 on a rank's rows: sp 2's 2,048 image tokens, its single blocks' 2,560
+    sc, sh = rnd(1, 1, d, dtype=torch.float32, scale=0.3), rnd(1, 1, d, dtype=torch.float32,
+                                                               scale=0.3)
+    wb, bb = (1.0 + sc).view(-1).to(torch.bfloat16), sh.view(-1).to(torch.bfloat16)
+    def k3(x):
+        return P.layer_norm_mod(x, scale=sc, shift=sh, eps=1e-6)
+
+    def ln(x):
+        return torch.nn.functional.layer_norm(x, (d,), wb, bb, eps=1e-6)
+
+    for rows in (n_img // 2, L + n_img // 2):
+        xs = [rnd(1, rows, d, scale=2.0) for _ in range(FRESH)]
+        x = xs[0]
+        grid_kernel(rec, "layer_norm_mod", f"FLUX sp 2 mod 1x{rows}x3072",
+                    lambda: k3(x),
+                    lambda: P.layer_norm_mod_plain(x, scale=sc, shift=sh, eps=1e-6),
+                    elementwise_work(x, sc, sh), atol=3e-2, rtol=1.6e-2, graph=True,
+                    library=("F.layer_norm", lambda: ln(x)),
+                    fresh=[(functools.partial(k3, xi), functools.partial(ln, xi))
+                           for xi in xs])
+        del x, xs
+    torch.cuda.empty_cache()
+
+
+def phase_flux_grid_forwards(dev, model):
+    """Phase 12's t2i forward on three grids against the one-rank forward;
+    returns their launches."""
+    from magcache_tpu_torch.models.flux import make_flux_core
+
+    log("phase 109: phase 12's FLUX.1-dev 1024x1024 forward at sp 2 x tp 2 (Ulysses: 6 "
+        "heads of the joint 4,608 tokens a rank), tp 4 and ring sp 2 local ranks (their "
+        "work serialised on one card), against the one-rank forward")
+    gen = torch.Generator(device=dev).manual_seed(10)
+    x = torch.randn((1, 4096, 64), generator=gen, device=dev)
+    t = torch.full((1,), 900.0, device=dev)
+    cond = _flux_cond(dev, "a red fox in fresh snow")
+    core = make_flux_core(model, FLUX_TXT, *FLUX_GRID)
+    hidden, c = core.prepare(x, t, cond)
+    want = core.head(core.trunk(hidden, c), c).float()
+    del hidden, c
+    total = dict(NO_LAUNCHES)
+    for dp, sp, tp, impl in FLUX_GRIDS:
+        label = f"FLUX forward, sp {sp} x tp {tp} ({impl})"
+
+        def rank(plan):
+            core = make_flux_core(model, FLUX_TXT, *FLUX_GRID, plan=plan, sp_impl=impl)
+            hidden, c = core.prepare(x, t, cond)
+            return core.head(core.trunk(hidden, c), c).float()
+
+        reset_counts()
+        outs, by_rank, wall = run_ranks(sp, rank, dev, dp=dp, tp=tp)
+        log(f"  {label}: {wall:.3f} s wall ({sp * tp} ranks serialised on one card)")
+        per = head_launches(flux_rank_launches(sp, tp, impl), 1, 1)
+        launched = check_rank_launches(label, by_rank, [per] * (dp * sp * tp))
+        check_sp_forward(label, outs, want, tol=2e-2)
+        total = {k: n + launched[k] for k, n in total.items()}
+        del outs
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_flux_grid_request(dev, model, want_lat):
+    """Phase 13's flux-dev MagCache request at sp 2 x tp 2 against phase
+    13's latents; returns its launches."""
+    from magcache_tpu_torch.core.magcache import compute_skip_schedule
+    from magcache_tpu_torch.pipelines.flux import FluxPipeline, FluxPipelineConfig
+
+    sp, tp = 2, 2
+    log(f"phase 110: phase 13's flux-dev MagCache request (1024x1024, {FLUX_STEPS} Euler "
+        f"steps) at sp {sp} x tp {tp} local ranks: every rank's skip bits the schedule's, "
+        f"against phase 13's latents")
+    cfg = FluxPipelineConfig(model="flux-dev", num_inference_steps=FLUX_STEPS, guidance=3.5,
+                             use_magcache=True, sp=sp, tp=tp)
+
+    def rank(plan):
+        pipe = FluxPipeline(cfg, dev, model=model, plan=plan)
+        return pipe.generate("A red fox sits in fresh snow at dawn.", seed=3)
+
+    from magcache_tpu_torch.core.presets import make_config
+
+    sched = compute_skip_schedule(make_config("flux-dev", FLUX_STEPS)).reshape(FLUX_STEPS, 1)
+    reset_counts()
+    outs, by_rank, wall = run_ranks(sp, rank, dev, tp=tp)
+    runs = int((~sched.all(1)).sum())
+    per = head_launches(flux_rank_launches(sp, tp, "ulysses"), runs, FLUX_STEPS)
+    launched = check_rank_launches("flux-dev MagCache at sp 2 x tp 2", by_rank,
+                                   [per] * (sp * tp))
+    log(f"  realized skip bits {outs[0].skips[:, 0].astype(int).tolist()} (the schedule's "
+        f"{sched[:, 0].astype(int).tolist()})")
+    check_sp_request("flux-dev MagCache at sp 2 x tp 2", outs, want_lat, sched, wall)
+    return launched
+
+
+def video_grid_forward(dev, label, make_core, inputs, axes, per_rank, routes, tol=3e-2):
+    """A spatial-temporal trunk's forward on the grid ``axes`` against the
+    one-rank forward: every rank's launches ``per_rank``, the grouped
+    kernels' routes ``routes`` a rank; returns the launches."""
+    x, t, cond = inputs
+    core = make_core(None)
+    hidden, c = core.prepare(x, t, cond)
+    want = core.head(core.trunk(hidden, c), c).float()
+    del hidden, c
+
+    def rank(plan):
+        core = make_core(plan)
+        hidden, c = core.prepare(x, t, cond)
+        return core.head(core.trunk(hidden, c), c).float()
+
+    dp, sp, tp = axes
+    n = dp * sp * tp
+    reset_counts()
+    outs, by_rank, wall = run_ranks(sp, rank, dev, dp=dp, tp=tp)
+    log(f"  {label}: {wall:.3f} s wall ({n} ranks serialised on one card)")
+    launched = check_rank_launches(label, by_rank, [per_rank] * n)
+    check_routes(label, n, routes)
+    check_sp_forward(label, outs, want, tol=tol)
+    del outs
+    torch.cuda.empty_cache()
+    return launched
+
+
+def video_grid_kernels(dev, rec, label, rows, tl, S, T, sl, L, heads, d=1152, *,
+                       qk_norm, mlp_slice):
+    """K7 (the rank's qkv slice), K5 or K5r (spatial over its frames,
+    temporal over its tokens' groups of T), the cross-attention's K1b over
+    its heads, the MLP's K7 (whole or sliced) and K3 at the shapes a rank of
+    a dp 2 x sp 2 x tp 2 grid gives them: ``rows`` rows, ``tl`` frames of
+    ``S`` tokens (frames layout), ``T`` frames of ``sl`` tokens (tokens
+    layout), ``L`` caption keys, ``heads`` of 72."""
+    from magcache_tpu_torch.ops import attention as A
+    from magcache_tpu_torch.ops import fused_prologue as P
+    from magcache_tpu_torch.ops.rope import grouped_rope_tables
+
+    gen = torch.Generator(device=dev).manual_seed(11111 + S)
+
+    def rnd(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    hd = heads * 72
+    sc, sh = rnd(rows, d, dtype=torch.float32, scale=0.1), rnd(rows, d, dtype=torch.float32,
+                                                               scale=0.1)
+    hf = rnd(rows * tl, S, d)
+    w, b = rnd(3 * hd, d, scale=d ** -0.5), rnd(3 * hd, scale=0.1)
+    grid_kernel(rec, "lnmod_matmul", f"{label} qkv slice {rows * tl}x{S}x{d} -> {3 * hd}, "
+                f"batch_repeat {tl}",
+                lambda: P.lnmod_matmul(hf, sc, sh, w, b, batch_repeat=tl),
+                lambda: P.lnmod_matmul_plain(hf, sc, sh, w, b, batch_repeat=tl),
+                (2 * rows * tl * S * d * 3 * hd, nbytes(hf, w, b) + 2 * rows * tl * S * 3 * hd),
+                atol=4e-2, rtol=2e-2)
+    attn = dict(scale=72 ** -0.5, true_d=72)
+    if qk_norm:
+        gains = (1.0 + rnd(72, dtype=torch.float32, scale=0.1),
+                 1.0 + rnd(72, dtype=torch.float32, scale=0.1))
+        attn.update(qk_gains=gains, eps=1e-6, fixed_max=A.QKNORM_FIXED_MAX)
+    name = "grouped_attention_fused_qkv" if qk_norm else "grouped_attention_fused_qkv_rowmax"
+    tabs = tuple(torch.from_numpy(a).to(dev) for a in grouped_rope_tables(T, T, 72))
+    for what, qkv, kw in (("spatial", rnd(rows * tl, S, 3 * hd), dict(group=S)),
+                          ("temporal", rnd(1, rows * sl * T, 3 * hd),
+                           dict(group=T, **(dict(rope_tables=tabs) if qk_norm else {})))):
+        g = kw["group"]
+        groups = qkv.numel() // (3 * hd * g)
+        heads_v = [t.reshape(-1, g, heads, 72).transpose(1, 2) for t in A.split_qkv(qkv, heads)]
+        grid_kernel(rec, name, f"{label} {what} {qkv.shape[0]}x{qkv.shape[1]}, group {g}, "
+                    f"{heads} heads",
+                    lambda: A.grouped_attention_fused_qkv(qkv, heads, **kw, **attn),
+                    lambda: A.grouped_attention_fused_qkv_plain(qkv, heads, **kw, **attn),
+                    (4 * groups * heads * g * g * 72, nbytes(qkv) * 4 // 3),
+                    atol=1e-2, rtol=2e-2,
+                    library=("F.scaled_dot_product_attention (same q/k/v"
+                             + (", without the qk-norm)" if qk_norm else ")"),
+                             sdpa_call(*heads_v)[1]))
+        del qkv, heads_v
+    # the cross-attention at tp 2: K1b over the rank's heads, head dim 72
+    # zero-padded to 128 (parallel.collectives' _kernel_heads)
+    q = rnd(rows, tl * S, heads, 72).transpose(1, 2)
+    k, v = rnd(rows, L, heads, 72).transpose(1, 2), rnd(rows, L, heads, 72).transpose(1, 2)
+    qp, kp, vp = (torch.nn.functional.pad(t, (0, 56)) for t in (q, k, v))
+    grid_kernel(rec, "flash_attention_bhsd", f"{label} cross {rows}x{heads}x{tl * S}x72 (pad "
+                f"128) x {L} keys",
+                lambda: A.flash_attention_bhsd(qp, kp, vp, scale=72 ** -0.5),
+                lambda: A.flash_attention_bhsd_plain(qp, kp, vp, scale=72 ** -0.5),
+                attention_work(q, k), atol=2e-3, rtol=2e-2, library=sdpa_call(q, k, v))
+    del q, k, v, qp, kp, vp
+    # the MLP in: mlp1 whole (STDiT3) or the rank's ff1 slice (Latte), gelu
+    x = rnd(rows, T * sl, d)
+    m = 4 * d // (2 if mlp_slice else 1)
+    w1, b1 = rnd(m, d, scale=d ** -0.5), rnd(m, scale=0.1)
+    grid_kernel(rec, "lnmod_matmul", f"{label} mlp1 {rows}x{T * sl}x{d} -> {m}, gelu",
+                lambda: P.lnmod_matmul(x, sc, sh, w1, b1, act="gelu"),
+                lambda: P.lnmod_matmul_plain(x, sc, sh, w1, b1, act="gelu"),
+                (2 * rows * T * sl * d * m, nbytes(x, w1, b1) + 2 * rows * T * sl * m),
+                atol=4e-2, rtol=2e-2)
+    if not mlp_slice:     # STDiT3's mlp2, whole: K8 with the residual
+        y = rnd(rows, T * sl, m)
+        w2, b2 = rnd(d, m, scale=m ** -0.5), rnd(d, scale=0.1)
+        gate = rnd(rows, d, dtype=torch.float32, scale=0.5)
+        grid_kernel(rec, "matmul_gated_residual", f"{label} mlp2 {rows}x{T * sl}x{m} + resid",
+                    lambda: P.matmul_gated_residual(y, w2, b2, gate, x),
+                    lambda: P.matmul_gated_residual_plain(y, w2, b2, gate, x),
+                    (2 * rows * T * sl * m * d, nbytes(y, w2, b2, x) + nbytes(x)),
+                    atol=4e-2, rtol=2e-2)
+        del y
+    # K3: the temporal block's modulation on the rank's tokens
+    grid_kernel(rec, "layer_norm_mod", f"{label} temporal mod {rows}x{T * sl}x{d}",
+                lambda: P.layer_norm_mod(x, scale=sc, shift=sh, eps=1e-6),
+                lambda: P.layer_norm_mod_plain(x, scale=sc, shift=sh, eps=1e-6),
+                elementwise_work(x, sc, sh), atol=3e-2, rtol=1.6e-2)
+    del x, hf
+    torch.cuda.empty_cache()
+
+
+def phase_os_grid(dev, rec, model):
+    from magcache_tpu_torch.models.stdit3 import make_stdit3_core
+
+    grid, pixels = (15, 30, 53), (480, 854)
+    log("phase 111: Open-Sora 1.2 STDiT3-XL/2 480p 9:16 x 51 (15 frames of 1,590 tokens, 2 "
+        "rows) at dp 2 x sp 2 x tp 2: a rank holds 1 row, 8 of the 16 frames (the 16th "
+        "padded) in the spatial blocks and 795 of each frame's tokens in the temporal "
+        "ones, 8 heads; the kernels at a rank's shapes, then the forward")
+    video_grid_kernels(dev, rec, "STDiT3 480p rank", 1, 8, 1590, 15, 795, 300, 8,
+                       qk_norm=True, mlp_slice=False)
+    return video_grid_forward(
+        dev, "Open-Sora 480p forward, dp 2 x sp 2 x tp 2",
+        lambda plan: make_stdit3_core(model, grid, pixel_size=pixels, plan=plan),
+        os_inputs(dev, grid, 8), VIDEO_AXES, OS_GRID_LAUNCHES, OS_ROUTES)
+
+
+def os_pab_grid_launches(bits: dict) -> dict:
+    """One rank's launches per STDiT3 trunk run of the unpacked composition
+    on a dp 2 x sp 2 x tp 2 tokens shard under PAB, by the step's reuse
+    bits, over the 28 block pairs: a spatial attention site K3 and K1b
+    (Ulysses over each frame), a temporal one K3 and K5 (groups of T on the
+    rank's heads), each cross site K1b on the rank's heads, each MLP site
+    K7 (mlp1 whole)."""
+    sa, ta, cr, ml = (0 if bits[k] else 28 for k in ("spatial", "temporal", "cross", "mlp"))
+    return dict(NO_LAUNCHES, layer_norm_mod=sa + ta, flash_attention_bhsd=sa + 2 * cr,
+                grouped_attention_fused_qkv=ta, lnmod_matmul=2 * ml)
+
+
+def phase_os_pab_grid(dev, rec, model):
+    """Phase 114: PAB under a plan, where the JAX package takes its
+    composed block: Open-Sora 1.2 480p at dp 2 x sp 2 x tp 2 on the unpacked
+    composition, K1b at its per-rank shapes, then a full-compute step and a
+    step that replays slots, each against one rank's packed PAB step.
+    Returns the launches."""
+    from magcache_tpu_torch.core.pab import OPEN_SORA_PAB, broadcast_masks
+    from magcache_tpu_torch.models.stdit3 import make_stdit3_core
+    from magcache_tpu_torch.ops import attention as A
+    from magcache_tpu_torch.schedulers.rflow import RFlowSchedule
+
+    grid, pixels = (15, 30, 53), (480, 854)
+    sch = RFlowSchedule.create(OS_STEPS, use_timestep_transform=True, height=480, width=854,
+                               num_frames=OS_FRAMES)
+    masks = broadcast_masks(OPEN_SORA_PAB, sch.timesteps)
+    step = next(i for i in range(OS_STEPS)
+                if masks["spatial"][i] and masks["temporal"][i] and masks["cross"][i])
+    bits = {k: bool(m[step]) for k, m in masks.items()}
+    log(f"phase 114: Open-Sora 1.2 480p x {OS_FRAMES} under PAB (OPEN_SORA_PAB, "
+        f"{OS_STEPS} RFLOW steps) at dp 2 x sp 2 x tp 2: the unpacked composition on a "
+        f"rank's 795 tokens of each of 15 frames (K3, K1b over 4 heads of each frame and "
+        f"for the cross-attention, K5 over groups of 15 on 8 heads, K7), a full-compute "
+        f"step and step {step} (reuse {bits}), against one rank's packed PAB steps")
+    gen = torch.Generator(device=dev).manual_seed(11414)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    # K1b with head dim 72 zero-padded to 128: Ulysses over each of a rank's
+    # 15 frames (4 heads of 1,590 tokens, the fixed max of the qk-norm) and
+    # the cross-attention of its 11,925 tokens over the 300 caption keys
+    for label, b, sq, skv, heads, fm in (
+            ("spatial 15x4x1590x72 (pad 128), fixed_max=16", 15, 1590, 1590, 4,
+             A.QKNORM_FIXED_MAX),
+            ("cross 1x8x11925x72 (pad 128) x 300 keys", 1, 11925, 300, 8, None)):
+        q, k, v = rnd(b, heads, sq, 72), rnd(b, heads, skv, 72), rnd(b, heads, skv, 72)
+        qp, kp, vp = (torch.nn.functional.pad(t, (0, 56)) for t in (q, k, v))
+        kw = dict(scale=72 ** -0.5, fixed_max=fm)
+        grid_kernel(rec, "flash_attention_bhsd", f"STDiT3 480p PAB rank {label}",
+                    lambda: A.flash_attention_bhsd(qp, kp, vp, **kw),
+                    lambda: A.flash_attention_bhsd_plain(qp, kp, vp, **kw),
+                    attention_work(q, k), atol=2e-3, rtol=2e-2, library=sdpa_call(q, k, v))
+        del q, k, v, qp, kp, vp
+    x, t, cond = os_inputs(dev, grid, 8)
+
+    def steps(plan):
+        core = make_stdit3_core(model, grid, pixel_size=pixels, pab=OPEN_SORA_PAB,
+                                timesteps=sch.timesteps, plan=plan)
+        hidden, c = core.prepare(x, t, cond)
+        state = core.init_state(hidden, c)
+        outs = []
+        for i in (-1, step):
+            out, state = core.trunk(hidden, c, state, i)
+            outs.append(core.head(out, c).float())
+        return torch.stack(outs)
+
+    want = steps(None)
+    torch.cuda.empty_cache()
+    label = "Open-Sora 480p PAB steps, dp 2 x sp 2 x tp 2"
+    reset_counts()
+    outs, by_rank, wall = run_ranks(2, steps, dev, dp=2, tp=2)
+    log(f"  {label}: {wall:.3f} s wall (8 ranks serialised on one card), 2 trunk runs")
+    full, replay = os_pab_grid_launches(dict.fromkeys(bits, False)), os_pab_grid_launches(bits)
+    launched = check_rank_launches(label, by_rank, [{k: n + replay[k] for k, n in
+                                                     full.items()}] * 8)
+    # K5's groups of 15 frames take the stream route; the replay step
+    # reuses the temporal site
+    check_routes(label, 8, dict(NO_ROUTES, stream=28))
+    for i, name in enumerate(("full compute", f"step {step}")):
+        check_sp_forward(f"{label}, {name}", [o[i] for o in outs], want[i])
+    del outs, want
+    torch.cuda.empty_cache()
+    return launched
+
+
+def phase_latte_grid(dev, rec, model):
+    from magcache_tpu_torch.models.latte import make_latte_core
+    from magcache_tpu_torch.models.text import MockTextEncoder
+
+    T, gh, gw = LATTE_GRID
+    log("phase 112: Latte-1 512x512 x 16 (2 rows) at dp 2 x sp 2 x tp 2: a rank holds 1 "
+        "row, 8 frames of 1,024 tokens (spatial) or 512 tokens of each of 16 frames "
+        "(temporal), 8 heads; the kernels at a rank's shapes, then the forward")
+    video_grid_kernels(dev, rec, "Latte rank", 1, 8, gh * gw, T, gh * gw // 2, LATTE_CAP, 8,
+                       qk_norm=False, mlp_slice=True)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    x = torch.randn((2, T, 2 * gh, 2 * gw, 4), generator=gen, device=dev)
+    cond = {"y": MockTextEncoder(LATTE_CAP, 4096, scale=0.5)(["a boat", ""], device=dev)}
+    return video_grid_forward(
+        dev, "Latte forward, dp 2 x sp 2 x tp 2",
+        lambda plan: make_latte_core(model, LATTE_GRID, LATTE_CAP, plan=plan),
+        (x, torch.full((2,), 900.0, device=dev), cond), VIDEO_AXES, LATTE_GRID_LAUNCHES,
+        LATTE_ROUTES["packed"])
+
+
+def phase_osp_grid(dev, rec, model):
+    from magcache_tpu_torch.models.open_sora_plan import make_osp_core
+    from magcache_tpu_torch.models.text import MockTextEncoder
+    from magcache_tpu_torch.ops import attention as A
+    from magcache_tpu_torch.ops import fused_prologue as P
+
+    N = math.prod(OSP_GRID)
+    log(f"phase 113: Open-Sora-Plan v1.2 {OSP_FRAMES}x480x640 ({N} tokens, 2 rows) at sp 2 "
+        f"x tp 2: the unpacked blocks on a rank's {N // 2} tokens, Ulysses over 4 heads of "
+        f"every token; the kernels at a rank's shapes, then the forward")
+    gen = torch.Generator(device=dev).manual_seed(11313)
+
+    def rnd(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    for label, sq, skv, heads in ((f"OSP sp 2 x tp 2 self 2x4x{N}x72 (pad 128)", N, N, 4),
+                                  (f"OSP sp 2 x tp 2 cross 2x8x{N // 2}x72 (pad 128) x "
+                                   f"{OSP_CAP} keys", N // 2, OSP_CAP, 8)):
+        q = rnd(2, sq, heads, 72).transpose(1, 2)
+        k, v = rnd(2, skv, heads, 72).transpose(1, 2), rnd(2, skv, heads, 72).transpose(1, 2)
+        qp, kp, vp = (torch.nn.functional.pad(t, (0, 56)) for t in (q, k, v))
+        grid_kernel(rec, "flash_attention_bhsd", label,
+                    lambda: A.flash_attention_bhsd(qp, kp, vp, scale=72 ** -0.5),
+                    lambda: A.flash_attention_bhsd_plain(qp, kp, vp, scale=72 ** -0.5),
+                    attention_work(q, k), atol=2e-3, rtol=2e-2, library=sdpa_call(q, k, v),
+                    reps=3)
+        del q, k, v, qp, kp, vp
+    x = rnd(2, N // 2, 1152)
+    sc, sh = rnd(2, 1152, dtype=torch.float32, scale=0.1), rnd(2, 1152, dtype=torch.float32,
+                                                               scale=0.1)
+    grid_kernel(rec, "layer_norm_mod", f"OSP sp 2 mod 2x{N // 2}x1152",
+                lambda: P.layer_norm_mod(x, scale=sc, shift=sh, eps=1e-6),
+                lambda: P.layer_norm_mod_plain(x, scale=sc, shift=sh, eps=1e-6),
+                elementwise_work(x, sc, sh), atol=3e-2, rtol=1.6e-2)
+    del x
+    gen = torch.Generator(device=dev).manual_seed(40)
+    T, gh, gw = OSP_GRID
+    xin = torch.randn((2, T, 2 * gh, 2 * gw, 4), generator=gen, device=dev)
+    cond = {"y": MockTextEncoder(OSP_CAP, 4096, scale=0.5)(["a boat", ""], device=dev)}
+    return video_grid_forward(
+        dev, "OSP v1.2 forward, sp 2 x tp 2",
+        lambda plan: make_osp_core(model, OSP_GRID, OSP_CAP, plan=plan),
+        (xin, torch.full((2,), 900.0, device=dev), cond), OSP_AXES, OSP_GRID_LAUNCHES,
+        NO_ROUTES)
+
 
 def main():
     phase_environment()
     dev = torch.device("cuda", 0)
     t0 = time.time()
-    sp_times = {}            # phases 96-103, each placed after the phase it reuses
+    sp_times = {}            # phases 96-114, each placed after the phase it reuses
 
     def sp_phase(n, fn, *args):
         t = time.time()
@@ -9512,6 +10093,8 @@ def main():
     model = make_os_model(dev)
     phase_os_forward(dev, model)
     os_launches, os_full = phase_os_requests(dev, model)
+    os_grid = sp_phase(111, phase_os_grid, dev, rec, model)
+    os_pab_grid = sp_phase(114, phase_os_pab_grid, dev, rec, model)
     del model
     torch.cuda.empty_cache()
     phase_os_card_vs_cpu(dev)
@@ -9521,8 +10104,11 @@ def main():
     log("phase 12/13 model:")
     model = make_flux_model(dev)
     phase_flux_forward(dev, model)
-    flux_launches = phase_flux_requests(dev, model)
-    del model
+    sp_phase(108, phase_flux_grid_kernels, dev, rec)
+    flux_grid = sp_phase(109, phase_flux_grid_forwards, dev, model)
+    flux_launches, flux_kept = phase_flux_requests(dev, model)
+    flux_grid_req = sp_phase(110, phase_flux_grid_request, dev, model, flux_kept)
+    del model, flux_kept
     torch.cuda.empty_cache()
     phase_flux_card_vs_cpu(dev)
     t_flux = time.time() - t0 - t_wan - t_os
@@ -9542,6 +10128,7 @@ def main():
     model = make_latte_model(dev)
     latte_vpu = phase_latte_forward(dev, model)
     latte, latte_grouped, latte_full = phase_latte_requests(dev, model)
+    latte_grid = sp_phase(112, phase_latte_grid, dev, rec, model)
     del model
     torch.cuda.empty_cache()
     phase_latte_card_vs_cpu(dev)
@@ -9602,6 +10189,7 @@ def main():
     osp = phase_osp_forward(dev, model)
     reqs = phase_osp_requests(dev, model)
     osp = {k: n + reqs[k] for k, n in osp.items()}
+    osp_grid = sp_phase(113, phase_osp_grid, dev, rec, model)
     del model
     torch.cuda.empty_cache()
     log("phase 42 model:")
@@ -9789,7 +10377,8 @@ def main():
         f"{t_serve:.1f} s; published checkpoints and LoRA, phases 88-89, {t_ckpt:.1f} s; "
         f"PAB on every route and with masked frames, Latte at 768x768 and the VAE halves, "
         f"phases 90-95, {t_new:.1f} s; within those, Wan's tasks, solvers and policies "
-        f"under sp, dp and tp, phases 96-107, {sum(sp_times.values()):.1f} s: "
+        f"under sp, dp and tp and FLUX and the VideoSys trunks under a plan, phases "
+        f"96-114, {sum(sp_times.values()):.1f} s: "
         f"{ {n: round(v, 1) for n, v in sorted(sp_times.items())} })")
 
     meta = {
@@ -9854,7 +10443,10 @@ def main():
              "wan-i2v-sp": i2v_sp, "wan-i2v-sp-request": i2v_sp_req, "wan-ti2v-sp": ti2v_sp,
              "wan-ti2v-sp-request": ti2v_sp_req, "wan-vace-sp": vace_sp,
              "wan-a14b-sp": a14b_sp, "wan-tp": tp_fwd, "wan-tp-request": tp_req,
-             "wan-i2v-tp": i2v_tp}
+             "wan-i2v-tp": i2v_tp, "flux-grid": flux_grid,
+             "flux-grid-request": flux_grid_req, "open-sora-grid": os_grid,
+             "latte-grid": latte_grid, "open-sora-plan-grid": osp_grid,
+             "open-sora-pab-grid": os_pab_grid}
     kernels = []
     for name, (route, source, replaces) in meta.items():
         by_path = {p: c.get(name, 0) for p, c in paths.items()}

@@ -83,7 +83,10 @@ rank encodes the text, the images and the source video alike (the same
 seeded encoders); rank 0 saves the output. ``--tp N`` splits every block's
 heads over N ranks (Megatron slices; each process keeps only its own) and
 ``--dp 2`` runs the cond and uncond CFG lanes on two ranks; the world is
-``dp * sp * tp`` processes, in the JAX mesh's order (tp innermost).
+``dp * sp * tp`` processes, in the JAX mesh's order (tp innermost). FLUX
+(``flux-dev``, ``flux-kontext-dev``) takes ``--sp`` (its image tokens; the
+text tokens stay whole on every rank), ``--ulysses_size`` / ``--ring_size``
+and ``--tp``; its batch is one image, so ``--dp`` above 1 exits.
 
 Examples:
   python -m magcache_tpu_torch.cli.generate --task t2v-1.3B --size 832*480 \
@@ -133,6 +136,8 @@ Examples:
       --instruction "make it snow" --use_magcache   # edit: 3 lanes on two programs
   torchrun --nproc_per_node 4 -m magcache_tpu_torch.cli.generate --task t2v-1.3B \
       --use_magcache --ulysses_size 4           # or --ring_size 4
+  torchrun --nproc_per_node 4 -m magcache_tpu_torch.cli.generate --task flux-dev \
+      --sp 2 --tp 2 --use_magcache              # 2,048 image tokens, 6 heads a rank
 Without checkpoint flags the DiT has random weights and the text encoders
 are the hash-seeded mocks, and the output is latents. ``--ckpt_dir`` (or
 OmniGen2's ``--model_path``) loads a published DiT checkpoint, with
@@ -327,7 +332,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device; 'cuda' (default) needs a card")
     # sequence parallelism (the reference's xfuser flags map onto sp)
     p.add_argument("--sp", type=int, default=1,
-                   help="sequence-parallel ranks (t2v-1.3B; one process each)")
+                   help="sequence-parallel ranks (Wan, FLUX; one process each)")
     p.add_argument("--ulysses_size", type=int, default=None,
                    help="alias: --sp with Ulysses attention")
     p.add_argument("--ring_size", type=int, default=None,
@@ -448,8 +453,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="data-parallel ranks (Wan): 2 runs the two CFG lanes on two "
                         "ranks; one process each")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel ranks (Wan): each holds heads / tp of every "
-                        "block; one process each")
+                   help="tensor-parallel ranks (Wan, FLUX): each holds heads / tp of "
+                        "every block; one process each")
     p.add_argument("--cpu", action="store_true", help="alias for --device cpu")
     return p
 
@@ -597,6 +602,9 @@ def _flux_pipeline(args, device, ratios):
     if args.image and "kontext" not in args.task:
         raise SystemExit("--image: of the FLUX tasks only flux-kontext-dev conditions "
                          "on an input image (FLUX.1-dev is t2i)")
+    plan = None
+    if args.sp * args.tp > 1:
+        plan, device = mesh_plan(args, device)
     w, h = _parse_size(args.size, "1024*1024")
     if args.tiny:
         w = h = 64
@@ -612,9 +620,10 @@ def _flux_pipeline(args, device, ratios):
         magcache_calibration=args.magcache_calibration,
         mag_ratios_override=ratios, dtype=args.dtype, tiny=args.tiny,
         ckpt_dir=args.ckpt_dir, lora_path=args.transformer_lora_path,
-        lora_scale=args.lora_scale)
+        lora_scale=args.lora_scale, sp=args.sp, tp=args.tp,
+        sp_impl="ring" if args.ring_size else "auto")
     pipe = FluxPipeline(cfg, device, text_encoder=_t5(args.t5_ckpt, cfg.txt_len, device),
-                        pooled_encoder=_clip_text(args.clip_text_ckpt, device))
+                        pooled_encoder=_clip_text(args.clip_text_ckpt, device), plan=plan)
     return pipe, cfg.num_inference_steps, 1
 
 
@@ -985,11 +994,16 @@ def _pipeline(args):
     if args.ring_size:
         args.sp = args.ring_size
     wan = args.task in _WAN
+    flux = args.task.startswith("flux")
+    if flux and args.dp > 1:
+        raise SystemExit(f"--dp {args.dp}: FLUX's batch is 1 (one image, embedded guidance, "
+                         f"no CFG lanes), which does not split over dp; use --sp and --tp")
     for flag in ("sp", "dp", "tp"):
-        if getattr(args, flag) > 1 and not wan:
+        if getattr(args, flag) > 1 and not (wan or flux):
             raise SystemExit(f"--{flag}: the {flag} axis is ported for the Wan tasks "
-                             f"({', '.join(_WAN)}), not for {args.task!r} (ROADMAP "
-                             f"section 1 item 2, the multi-device axes)")
+                             f"({', '.join(_WAN)}) and FLUX's (flux-dev, flux-kontext-dev), "
+                             f"not for {args.task!r} (ROADMAP section 1 item 2, the "
+                             f"multi-device axes)")
     vace = args.task.startswith("vace")
     for flag, on, ok in (("--image", args.image is not None,
                           args.task in ("i2v-14B", "flf2v-14B", "i2v-A14B", "ti2v-5B")

@@ -37,6 +37,20 @@ tokens ride through the double blocks inside it. A video MMDiT
 its grid's frame count. Qwen-Image (``models/qwen_image.py``) runs double
 blocks only (``depth_single = 0``) and conditions without a pooled vector:
 ``vec`` is then the time embedding alone.
+
+Under a plan (``make_flux_core(plan=)``, the JAX model's ``maybe_shard``
+hooks): the image tokens split over ``sp`` (each rank holds a contiguous
+``1/sp`` of the image stream, Kontext's conditioning tokens included), the
+text tokens stay whole on every rank, and the heads and the MLP split over
+``tp`` (``parallel.shard.slice_flux``). The joint ``[txt; img]`` attention
+goes through ``attention(plan=, whole_prefix=txt_len)``, so the text tokens
+enter it once: Ulysses runs K1b over ``heads / (sp * tp)`` heads of the whole
+joint sequence, the ring runs K1c with the text rows split over sp. K2 in
+head scope normalizes each head alone, so a tp rank runs it on its own heads
+with no statistics pass; K3 runs on whole rows; every row-parallel
+projection (``img_proj``, ``txt_proj``, ``img_mlp2``, ``txt_mlp2``, ``lin2``)
+ends in ``row_parallel``'s f32 all-reduce over tp before its gate. The head
+gathers the image tokens over sp, so every rank returns the whole output.
 """
 
 from __future__ import annotations
@@ -52,10 +66,12 @@ from torch import nn
 from magcache_tpu_torch.core.sampler import DiTCore
 from magcache_tpu_torch.models.common import (DTYPES, MLPEmbedder, init_linear_,
                                               timestep_embedding)
-from magcache_tpu_torch.ops.attention import QKNORM_FIXED_MAX, attention
+from magcache_tpu_torch.ops.attention import QKNORM_FIXED_MAX, RING_THRESHOLD, attention
 from magcache_tpu_torch.ops.fused_prologue import layer_norm_mod, rms_norm_rope
 from magcache_tpu_torch.ops.norms import layer_norm
 from magcache_tpu_torch.ops.rope import rope_freqs_1d
+from magcache_tpu_torch.parallel.collectives import tp_out
+from magcache_tpu_torch.parallel.shard import check_flux_split, row_parallel, slice_flux
 
 __all__ = ["FluxConfig", "FluxModel", "make_flux_core", "flux_rope_tables",
            "flux_img_rope_block", "first_block_modulated", "pack_latents",
@@ -163,6 +179,36 @@ def _ones(shape, device) -> nn.Parameter:
     return nn.Parameter(torch.ones(shape, dtype=torch.float32, device=device))
 
 
+@dataclasses.dataclass(frozen=True)
+class _Par:
+    """A block's share of the grid: ``plan`` the rank's ``MeshPlan`` (None
+    on one rank), ``sp`` the sequence-parallel arguments of ``attention()``
+    (empty on one sp rank)."""
+
+    plan: object = None
+    sp: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def tp(self) -> int:
+        return 1 if self.plan is None else self.plan.tp
+
+    def widths(self, cfg: FluxConfig) -> Tuple[int, int, int]:
+        """(heads, attention width, MLP width) of this rank's slices."""
+        return cfg.heads // self.tp, cfg.hidden // self.tp, cfg.mlp_dim // self.tp
+
+
+_ONE = _Par()
+
+
+def _joint_attention(q, k, v, txt_len: int, par: _Par) -> torch.Tensor:
+    """The joint attention over ``[txt; img]``; under sp the text rows are
+    whole on every rank and enter it once (``whole_prefix``)."""
+    if not par.sp:
+        return attention(q, k, v, fixed_max=QKNORM_FIXED_MAX)
+    return attention(q, k, v, fixed_max=QKNORM_FIXED_MAX, kv_replicated=False,
+                     whole_prefix=txt_len, **par.sp)
+
+
 class FluxDoubleBlock(nn.Module):
     """A joint text/image block; parameter names follow the JAX pytree."""
 
@@ -183,9 +229,11 @@ class FluxDoubleBlock(nn.Module):
             setattr(self, f"{s}_mlp2", lin(cfg.mlp_dim, d))
 
     def forward(self, img: torch.Tensor, txt: torch.Tensor, vec: torch.Tensor,
-                rope_txt, rope_img) -> Tuple[torch.Tensor, torch.Tensor]:
+                rope_txt, rope_img, par: _Par = _ONE) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``par``: this rank's share of the grid (``make_flux_core``); img
+        then holds the rank's image tokens and the block its tp slices."""
         cfg = self.cfg
-        heads, d = cfg.heads, cfg.hidden
+        heads, w, _ = par.widths(cfg)
         b, txt_len = txt.shape[:2]
         i_sh1, i_sc1, i_g1, i_sh2, i_sc2, i_g2 = _mod(vec, self.img_mod, 6)
         t_sh1, t_sc1, t_g1, t_sh2, t_sc2, t_g2 = _mod(vec, self.txt_mod, 6)
@@ -194,22 +242,24 @@ class FluxDoubleBlock(nn.Module):
         # with its slice of the rope table
         iqkv = self.img_qkv(layer_norm_mod(img, scale=i_sc1, shift=i_sh1, eps=_EPS))
         tqkv = self.txt_qkv(layer_norm_mod(txt, scale=t_sc1, shift=t_sh1, eps=_EPS))
-        iq, ik = _qk_norm_rope(iqkv, self.img_qk_scale, *rope_img, heads, d)
-        tq, tk = _qk_norm_rope(tqkv, self.txt_qk_scale, *rope_txt, heads, d)
+        iq, ik = _qk_norm_rope(iqkv, self.img_qk_scale, *rope_img, heads, w)
+        tq, tk = _qk_norm_rope(tqkv, self.txt_qk_scale, *rope_txt, heads, w)
         q = torch.cat([tq, iq], dim=1)
         k = torch.cat([tk, ik], dim=1)
-        v = torch.cat([tqkv[..., 2 * d:], iqkv[..., 2 * d:]], dim=1)
-        o = attention(q, k, v.reshape(q.shape), fixed_max=QKNORM_FIXED_MAX)
-        o = o.reshape(b, -1, d)
-        img = _gated(img, i_g1, self.img_proj(o[:, txt_len:]))
-        txt = _gated(txt, t_g1, self.txt_proj(o[:, :txt_len]))
+        v = torch.cat([tqkv[..., 2 * w:], iqkv[..., 2 * w:]], dim=1)
+        o = _joint_attention(q, k, v.reshape(q.shape), txt_len, par)
+        o = o.reshape(b, -1, w)
+        img = _gated(img, i_g1, tp_out(self.img_proj, o[:, txt_len:], par.plan))
+        txt = _gated(txt, t_g1, tp_out(self.txt_proj, o[:, :txt_len], par.plan))
 
         img_m = layer_norm_mod(img, scale=i_sc2, shift=i_sh2, eps=_EPS)
-        img = _gated(img, i_g2, self.img_mlp2(
-            F.gelu(self.img_mlp1(img_m), approximate="tanh")))
+        img = _gated(img, i_g2, tp_out(self.img_mlp2,
+                                       F.gelu(self.img_mlp1(img_m), approximate="tanh"),
+                                       par.plan))
         txt_m = layer_norm_mod(txt, scale=t_sc2, shift=t_sh2, eps=_EPS)
-        txt = _gated(txt, t_g2, self.txt_mlp2(
-            F.gelu(self.txt_mlp1(txt_m), approximate="tanh")))
+        txt = _gated(txt, t_g2, tp_out(self.txt_mlp2,
+                                       F.gelu(self.txt_mlp1(txt_m), approximate="tanh"),
+                                       par.plan))
         return img, txt
 
 
@@ -227,16 +277,20 @@ class FluxSingleBlock(nn.Module):
         self.lin2 = nn.Linear(d + cfg.mlp_dim, d, device=device, dtype=dt)
 
     def forward(self, h: torch.Tensor, vec: torch.Tensor, cos: torch.Tensor,
-                sin: torch.Tensor) -> torch.Tensor:
+                sin: torch.Tensor, par: _Par = _ONE, txt_len: int = 0) -> torch.Tensor:
+        """``par`` as the double block's; h then holds the whole ``txt_len``
+        text rows and the rank's image tokens."""
         cfg = self.cfg
-        heads, d = cfg.heads, cfg.hidden
+        heads, w, _ = par.widths(cfg)
         b, s, _ = h.shape
         shift, scale, gate = _mod(vec, self.mod, 3)
         proj = self.lin1(layer_norm_mod(h, scale=scale, shift=shift, eps=_EPS))
-        q, k = _qk_norm_rope(proj, self.qk_scale, cos, sin, heads, d)
-        v = proj[..., 2 * d:3 * d].reshape(b, s, heads, -1).contiguous()
-        o = attention(q, k, v, fixed_max=QKNORM_FIXED_MAX).reshape(b, s, d)
-        mlp = F.gelu(proj[..., 3 * d:], approximate="tanh")
+        q, k = _qk_norm_rope(proj, self.qk_scale, cos, sin, heads, w)
+        v = proj[..., 2 * w:3 * w].reshape(b, s, heads, -1).contiguous()
+        o = _joint_attention(q, k, v, txt_len, par).reshape(b, s, w)
+        mlp = F.gelu(proj[..., 3 * w:], approximate="tanh")
+        if par.tp > 1:      # lin2 reads [o | mlp] slices: two segments
+            return _gated(h, gate, row_parallel(self.lin2, [o, mlp], par.plan.tp_group))
         return _gated(h, gate, self.lin2(torch.cat([o, mlp], dim=-1)))
 
 
@@ -284,7 +338,9 @@ def first_block_modulated(model: FluxModel, img: torch.Tensor, ctx: dict) -> tor
 
 
 def make_flux_core(model: FluxModel, txt_len: int, grid_h: int, grid_w: int,
-                   kontext: bool = False, rope_tables=None, grid_t: int = 1) -> DiTCore:
+                   kontext: bool = False, rope_tables=None, grid_t: int = 1,
+                   plan=None, *, sp_impl: str = "auto",
+                   ring_threshold: int = RING_THRESHOLD) -> DiTCore:
     """(prepare, trunk, head) for a static text length and packed grid.
 
     cond = {"txt": f[B, txt_len, text_dim], "vec": f[B, vec_dim] (optional:
@@ -300,15 +356,58 @@ def make_flux_core(model: FluxModel, txt_len: int, grid_h: int, grid_w: int,
     sequence, pre tokens included) replaces FLUX's 2-D tables: a video
     MMDiT passes its 3-D ones. The head keeps every image-stream token but
     Kontext's conditioning ones; the pre tokens are its caller's to drop.
+
+    With ``plan`` the core is one rank's (module docstring): ``prepare``
+    embeds the rank's contiguous ``1/sp`` of the image stream, the trunk
+    takes and returns those tokens (the MagCache residual is the rank's
+    share), and the head returns the whole output on every rank. Under
+    ``tp > 1`` the blocks run on the rank's slices (views of ``model``
+    unless it already is that rank's slice). ``sp_impl`` ("auto",
+    "ulysses", "ring") and ``ring_threshold`` pick the joint attention's
+    strategy as ``attention()`` does, on the global joint sequence. Raises
+    ``ValueError`` naming the counts when the heads do not split over tp (or
+    over ``sp * tp`` under Ulysses), the image tokens over sp, or (ring) the
+    text tokens over sp. ``dp`` is the caller's: the core runs the rows it
+    is given.
     """
     cfg = model.cfg
     device = model.img_in.weight.device
     cos_np, sin_np = (rope_tables if rope_tables is not None else
                       flux_rope_tables(cfg, txt_len, grid_h, grid_w, kontext=kontext))
     cos, sin = torch.from_numpy(cos_np).to(device), torch.from_numpy(sin_np).to(device)
+    img_len = grid_t * grid_h * grid_w
+    par, seq = _ONE, None
+    sliced = getattr(model, "tp_slice", None)
+    if plan is not None and (plan.sp > 1 or plan.tp > 1):
+        stream = cos.shape[0] - txt_len        # the image stream, Kontext's tokens too
+        ring = sp_impl == "ring" or (sp_impl == "auto"
+                                     and cos.shape[0] >= ring_threshold)
+        check_flux_split(cfg, plan.tp, plan.sp, ring)
+        if plan.tp > 1:
+            if sliced is None:      # local ranks: views of the one whole model
+                model = slice_flux(model, plan.tp_rank, plan.tp)
+            elif sliced != (plan.tp_rank, plan.tp):
+                raise ValueError(f"make_flux_core: the model holds tp slice {sliced}, "
+                                 f"the plan is tp rank {plan.tp_rank} of {plan.tp}")
+        sp = {}
+        if plan.sp > 1:
+            rows = plan.shard_len(stream, f"make_flux_core: the image stream of "
+                                          f"{stream} tokens")
+            if ring and txt_len % plan.sp:
+                raise ValueError(f"make_flux_core: ring attention splits the {txt_len} "
+                                 f"text tokens over sp = {plan.sp}; they do not divide")
+            seq = (plan, rows)
+            # the rank's rows of the image tables; the text rows stay whole
+            img_rows = slice(txt_len + plan.rank * rows, txt_len + (plan.rank + 1) * rows)
+            cos = torch.cat([cos[:txt_len], cos[img_rows]]).contiguous()
+            sin = torch.cat([sin[:txt_len], sin[img_rows]]).contiguous()
+            sp = dict(plan=plan, sp_impl=sp_impl, ring_threshold=ring_threshold)
+        par = _Par(plan=plan, sp=sp)
+    elif sliced is not None and sliced[1] > 1:
+        raise ValueError(f"make_flux_core: the model is tp slice {sliced}; pass the plan "
+                         f"of that tp rank")
     rope_txt = (cos[:txt_len], sin[:txt_len])
     rope_img = (cos[txt_len:], sin[txt_len:])
-    img_len = grid_t * grid_h * grid_w
 
     @torch.inference_mode()
     def prepare(x, t, cond):
@@ -322,6 +421,9 @@ def make_flux_core(model: FluxModel, txt_len: int, grid_h: int, grid_w: int,
             # FramePack's clean-latent tokens, embedded by the caller, join
             # the image stream ahead of the noise window
             img = torch.cat([p.to(dt) for p in cond["img_pre_tokens"]] + [img], dim=1)
+        if seq is not None:         # this rank's rows of the image stream
+            plan_, rows = seq
+            img = img.narrow(1, plan_.rank * rows, rows)
         txt = model.txt_in(cond["txt"].to(dt))
         # f32 modulation vector: timestep (already x1000) + guidance + pooled
         vec = model.time_in(timestep_embedding(t, cfg.time_embed_dim))
@@ -336,22 +438,25 @@ def make_flux_core(model: FluxModel, txt_len: int, grid_h: int, grid_w: int,
     def trunk(img, ctx):
         txt, vec = ctx["txt"], ctx["vec"]
         for blk in model.double_blocks:
-            img, txt = blk(img, txt, vec, rope_txt, rope_img)
+            img, txt = blk(img, txt, vec, rope_txt, rope_img, par)
         if not model.single_blocks:
             return img       # double blocks only (Qwen-Image): no concat, no copy
         h = torch.cat([txt, img], dim=1)
         for blk in model.single_blocks:
-            h = blk(h, vec, cos, sin)
+            h = blk(h, vec, cos, sin, par, txt_len)
         return h[:, txt.shape[1]:]   # image tokens only: the cacheable stream
 
     @torch.inference_mode()
     def head(img, ctx):
-        if kontext:
+        if kontext and seq is None:
             img = img[:, :img_len]   # drop the conditioning tokens
         shift, scale = _mod(ctx["vec"], model.final_mod, 2)
         h = layer_norm_mod(img.contiguous(), scale=scale, shift=shift, eps=_EPS)
         # the f32 head weight promotes the bf16 activations in JAX
-        return model.final_out(h.float())
+        out = model.final_out(h.float())
+        if seq is not None:         # every rank gets the whole image back
+            out = seq[0].group.all_gather(out, 1)[:, :img_len]
+        return out
 
     return DiTCore(prepare, trunk, head)
 

@@ -50,6 +50,22 @@ K3 -> qkv -> K5r (packed, up to 2,048 tokens) or ``attention()`` ->
 site replays its slot by the step's host mask, and the MLP slots follow the
 block-granular masks (refreshed only on save steps). Temporal blocks have
 no cross slot.
+
+Under a plan (``make_latte_core(plan=)``; the JAX package's gates at
+``models/latte.py:131-150, 225-240, 255-268, 339-372``) the trunk keeps its
+activations sharded as STDiT3's does (``models/stdit3.py``'s docstring,
+``parallel.collectives.VideoShards``): on the packed route the spatial
+blocks over frames (K7, K5r on the rank's heads, K8, K6) and the temporal
+blocks over each frame's tokens (K3, ``qkv``, K5r over groups of T, K8),
+the MLP K7 / K8 token-parallel, one all-to-all over sp between the two
+layouts; at ``tp > 1`` Megatron slices of the JAX patterns (``qkv``, the
+cross projections and ``ff1`` / ``ff2``), each row-parallel projection
+ending in the f32 all-reduce over tp. Frames above 2,048 tokens, PAB and
+``route="unpacked"`` run the unpacked composition on the tokens layout
+(spatial and cross attention through ``attention(plan=)``, K1b; the
+temporal attention K5r over groups of T on the rank's heads). The temporal
+position table joins the stream on the tokens layout. "grouped" and "vpu"
+under a plan raise.
 """
 
 from __future__ import annotations
@@ -67,15 +83,18 @@ from magcache_tpu_torch.core.pab import broadcast_masks, mlp_skip_masks
 from magcache_tpu_torch.core.sampler import DiTCore
 from magcache_tpu_torch.models.common import (DTYPES, embedder_linears, init_linear_,
                                               timestep_embedding)
-from magcache_tpu_torch.models.stdit3 import (MAX_GROUP_TOKENS, ROUTES, _pab_site, pab_slots,
-                                              pos_embed_2d)
-from magcache_tpu_torch.ops.attention import (attention, fused_cross_attention,
-                                              grouped_attention_fused_qkv)
-from magcache_tpu_torch.ops.fused_prologue import (layer_norm_mod, lnmod_matmul,
-                                                   matmul_gated_residual)
+from magcache_tpu_torch.models.stdit3 import (MAX_GROUP_TOKENS, PLAN_ROUTES, ROUTES,
+                                              _pab_site, check_ulysses, pab_slots,
+                                              plan_setup, pos_embed_2d)
+from magcache_tpu_torch.ops.attention import attention, grouped_attention_fused_qkv
+from magcache_tpu_torch.ops.fused_prologue import layer_norm_mod
 from magcache_tpu_torch.ops.norms import layer_norm
 from magcache_tpu_torch.ops.rope import rope_freqs_1d
 from magcache_tpu_torch.ops.tiny_attention import tiny_temporal_attention
+from magcache_tpu_torch.parallel.collectives import (VideoShards, sharded_fused_cross_attention,
+                                                     sharded_grouped_attention_fused_qkv,
+                                                     sharded_lnmod_matmul,
+                                                     sharded_matmul_gated_residual, tp_out)
 
 __all__ = ["LatteConfig", "LatteModel", "LATTE_1", "ROUTES", "latte_pab_masks",
            "make_latte_core"]
@@ -140,17 +159,23 @@ class LatteBlock(nn.Module):
             self.cross_q, self.cross_kv, self.cross_o = lin(d, d), lin(d, 2 * d), lin(d, d)
 
     def forward(self, h: torch.Tensor, t6: torch.Tensor, y: torch.Tensor, *,
-                grid: Tuple[int, int, int], route: str, pab=None) -> torch.Tensor:
+                grid: Tuple[int, int, int], route: str, pab=None, plan=None,
+                frame_tokens=None) -> torch.Tensor:
         """One block on ``h`` ``[rows, T*S, d]``. ``pab``: ``(slots, reuse,
         save_mlp)``, the block's PAB slots (``"attn"``, ``"cross"``,
         ``"mlp"`` -> ``[rows, T*S, d]`` or absent), this step's reuse bits
-        per site and whether the MLP slot refreshes."""
+        per site and whether the MLP slot refreshes. ``plan`` and
+        ``frame_tokens`` as STDiT3's block takes them."""
         e = (self.scale_shift[None] + t6).float()          # [rows, 6, d]
         if pab is None and route == "packed" and grid[1] * grid[2] <= MAX_GROUP_TOKENS:
-            return self._packed(h, e, y, grid)
-        return self._composed(h, e, y, grid, route, pab)
+            return self._packed(h, e, y, grid, plan)
+        return self._composed(h, e, y, grid, route, plan, frame_tokens, pab)
 
-    def _packed(self, h, e, y, grid):
+    def _packed(self, h, e, y, grid, plan=None):
+        """The packed block through the ``sharded_*`` wrappers: under
+        ``plan`` on a rank's shard (a spatial block's frames, a temporal
+        one's tokens), K5r on the rank's heads and, at ``tp > 1``, the
+        row-parallel all-reduces in place of K8's GEMM and K6."""
         cfg = self.cfg
         rows, n, d = h.shape
         t, s = grid[0], grid[1] * grid[2]
@@ -158,50 +183,51 @@ class LatteBlock(nn.Module):
         attn = dict(scale=1.0 / math.sqrt(cfg.head_dim), true_d=cfg.head_dim)
         if self.cross:
             hf = h.reshape(rows * t, s, d)
-            qkv = lnmod_matmul(hf, sc_a, sh_a, self.qkv.weight, self.qkv.bias,
-                               eps=cfg.eps, batch_repeat=t)
-            o = grouped_attention_fused_qkv(qkv, cfg.heads, group=s, **attn)
-            h = matmul_gated_residual(o, self.proj.weight, self.proj.bias, g_a, hf,
-                                      batch_repeat=t).reshape(rows, n, d)
-            kv = self.cross_kv(y)
-            h = fused_cross_attention(
-                h, self.cross_q.weight, self.cross_q.bias, kv[..., :d].contiguous(),
-                kv[..., d:].contiguous(), self.cross_o.weight, self.cross_o.bias,
-                cfg.heads, residual=True, **attn)
+            qkv = sharded_lnmod_matmul(hf, sc_a, sh_a, self.qkv, plan, eps=cfg.eps,
+                                       batch_repeat=t)
+            o = sharded_grouped_attention_fused_qkv(qkv, cfg.heads, plan, group=s, **attn)
+            h = sharded_matmul_gated_residual(o, self.proj, g_a, hf, plan,
+                                              batch_repeat=t).reshape(rows, n, d)
+            k, v = (c.contiguous() for c in self.cross_kv(y).chunk(2, -1))
+            h = sharded_fused_cross_attention(h, self.cross_q, k, v, self.cross_o, cfg.heads,
+                                              plan, residual=True, **attn)
         else:
             xn = layer_norm_mod(h, scale=sc_a, shift=sh_a, eps=cfg.eps)
             xr = xn.reshape(rows, t, s, d).transpose(1, 2).reshape(rows * s, t, d)
             qkv = self.qkv(xr)
-            o = grouped_attention_fused_qkv(qkv.reshape(1, rows * s * t, 3 * d),
-                                            cfg.heads, group=t, **attn)
-            a = matmul_gated_residual(o.reshape(rows * s, t, d), self.proj.weight,
-                                      self.proj.bias, g_a, None, rows_out=t,
-                                      batch_repeat=s)
+            o = sharded_grouped_attention_fused_qkv(qkv.reshape(1, rows * s * t, -1),
+                                                    cfg.heads, plan, group=t, **attn)
+            a = sharded_matmul_gated_residual(o.reshape(rows * s, t, -1), self.proj, g_a,
+                                              None, plan, rows_out=t, batch_repeat=s)
             h = h + a.reshape(rows, s, t, d).transpose(1, 2).reshape(rows, n, d)
-        y1 = lnmod_matmul(h, sc_m, sh_m, self.ff1.weight, self.ff1.bias,
-                          act="gelu", eps=cfg.eps)
-        return matmul_gated_residual(y1, self.ff2.weight, self.ff2.bias, g_m, h)
+        y1 = sharded_lnmod_matmul(h, sc_m, sh_m, self.ff1, plan, act="gelu", eps=cfg.eps)
+        return sharded_matmul_gated_residual(y1, self.ff2, g_m, h, plan)
 
-    def _composed(self, h, e, y, grid, route, pab=None):
+    def _composed(self, h, e, y, grid, route, plan=None, frame_tokens=None, pab=None):
         """The block as its sites and f32 gates (JAX ``_block`` off its fused
         packed path): the unpacked routes, packed frames above 2,048 tokens
         and PAB on every route. Each branch starts with K3; spatial
         attention runs K5r with one group per frame on the packed route up
         to 2,048 tokens, else ``attention()`` (K1); temporal attention K5r
-        over groups of T on the packed route, else ``tiny_temporal_attention``
-        in the route's mode (K4 or K9); cross-attention ``cross_q`` ->
+        over groups of T on the packed and unpacked routes (under ``plan``
+        on the rank's heads), else ``tiny_temporal_attention`` in the
+        route's mode (K4 or K9); cross-attention ``cross_q`` ->
         ``attention()`` -> ``cross_o``; the MLP ``ff1`` -> gelu -> ``ff2``.
         Under ``pab`` each site replays its slot where the step's reuse bit
         says so, else computes; outputs are cached before their gates and
-        the MLP slot is written only on save steps."""
+        the MLP slot is written only on save steps. Under ``plan`` (the
+        unpacked route on a tokens shard) the rank's heads: spatial and
+        cross attention through ``attention(plan=)``, the row-parallel
+        projections through ``tp_out``."""
         cfg = self.cfg
         rows, n, d = h.shape
         t, s = grid[0], grid[1] * grid[2]
+        nh = cfg.heads // (plan.tp if plan is not None else 1)
         sh_a, sc_a, g_a, sh_m, sc_m, g_m = e.unbind(1)
         attn_kw = dict(scale=1.0 / math.sqrt(cfg.head_dim), true_d=cfg.head_dim)
 
         def heads(x):
-            return x.unflatten(-1, (cfg.heads, cfg.head_dim))
+            return x.unflatten(-1, (nh, cfg.head_dim))
 
         def attn(x):
             xn = layer_norm_mod(x, scale=sc_a, shift=sh_a, eps=cfg.eps)
@@ -210,25 +236,27 @@ class LatteBlock(nn.Module):
                 if route == "packed" and s <= MAX_GROUP_TOKENS:
                     o = grouped_attention_fused_qkv(qkv, cfg.heads, group=s, **attn_kw)
                 else:
-                    o = attention(*(heads(p) for p in qkv.chunk(3, -1))).reshape(rows * t, s, d)
-                return self.proj(o).reshape(rows, n, d)
+                    o = attention(*(heads(p) for p in qkv.chunk(3, -1)), plan=plan,
+                                  kv_len=frame_tokens, kv_replicated=False).flatten(-2)
+                return tp_out(self.proj, o, plan).reshape(rows, n, d)
             qkv = self.qkv(xn.reshape(rows, t, s, d).transpose(1, 2).reshape(rows * s, t, d))
-            if route == "packed":
-                o = grouped_attention_fused_qkv(qkv.reshape(1, rows * s * t, 3 * d),
-                                                cfg.heads, group=t, **attn_kw)
-                o = o.reshape(rows * s, t, d)
+            if route in PLAN_ROUTES:
+                o = sharded_grouped_attention_fused_qkv(qkv.reshape(1, rows * s * t, -1),
+                                                        cfg.heads, plan, group=t, **attn_kw)
+                o = o.reshape(rows * s, t, -1)
             else:
-                o = tiny_temporal_attention(qkv, None, None, None, None, cfg.heads,
-                                            mode=route)
-            return self.proj(o).reshape(rows, s, t, d).transpose(1, 2).reshape(rows, n, d)
+                o = tiny_temporal_attention(qkv, None, None, None, None, nh, mode=route)
+            return tp_out(self.proj, o, plan).reshape(rows, s, t, d).transpose(1, 2).reshape(
+                rows, n, d)
 
         def cross(x):
             k, v = (heads(p) for p in self.cross_kv(y).chunk(2, -1))
-            return self.cross_o(attention(heads(self.cross_q(x)), k, v).reshape(rows, n, d))
+            o = attention(heads(self.cross_q(x)), k, v, plan=plan, kv_replicated=True)
+            return tp_out(self.cross_o, o.flatten(-2), plan).reshape(rows, n, d)
 
         def mlp(x):
             xm = layer_norm_mod(x, scale=sc_m, shift=sh_m, eps=cfg.eps)
-            return self.ff2(F.gelu(self.ff1(xm), approximate="tanh"))
+            return tp_out(self.ff2, F.gelu(self.ff1(xm), approximate="tanh"), plan)
 
         def site(kind, compute, save=True):
             return compute() if pab is None else _pab_site(pab[0], pab[1], kind, compute, save)
@@ -300,7 +328,7 @@ def latte_pab_masks(pab, timesteps, depth: int) -> dict:
 
 def make_latte_core(model: LatteModel, grid: Tuple[int, int, int],
                     caption_len: int, *, route: str = "packed", pab=None,
-                    timesteps=None) -> DiTCore:
+                    timesteps=None, plan=None) -> DiTCore:
     """(prepare, trunk, head) for a static patch grid (T, H, W).
 
     cond = {"y": f[rows, caption_len, caption_dim]}; x = latent video
@@ -313,13 +341,21 @@ def make_latte_core(model: LatteModel, grid: Tuple[int, int, int],
     step_idx)`` reuses by ``broadcast_masks`` and, for the MLPs,
     ``mlp_skip_masks`` per block at ``step_idx`` (-1: full compute);
     ``init_state`` allocates the slots some mask can read.
+
+    ``route="unpacked"`` and ``plan`` as ``make_stdit3_core`` takes them
+    (module docstring).
     """
     cfg = model.cfg
     t_len, gh, gw = grid
     s = gh * gw
     d = cfg.hidden
-    if route not in ROUTES:
-        raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
+    if route not in ROUTES + ("unpacked",):
+        raise ValueError(f"route must be one of {ROUTES + ('unpacked',)}, got {route!r}")
+    packed = False
+    if plan is not None:
+        model, packed = plan_setup(model, plan, route, s, pab is not None)
+        if not packed:
+            check_ulysses(model, plan)
     masks = None
     if pab is not None:
         if timesteps is None:
@@ -352,20 +388,67 @@ def make_latte_core(model: LatteModel, grid: Tuple[int, int, int],
                   lambda v: F.gelu(v, approximate="tanh")).to(dt)
         return h, {"t6": t6, "te": te, "y": y}
 
+    def sharded(ctx, hidden):
+        """Under a plan: the shards' layout, the ctx cut to the rank's rows,
+        the blocks' keywords of the unpacked composition on the tokens
+        layout, and the temporal table's add on that layout."""
+        lay = VideoShards(plan, hidden.shape[0], t_len, s)
+        rows = {k: lay.rows_of(v) for k, v in ctx.items()}
+        kw = dict(grid=(t_len, 1, lay.sl), route="unpacked", plan=plan,
+                  frame_tokens=s if lay.sl * plan.sp != s else None)
+
+        def add_temp(h):
+            h4 = h.reshape(lay.rl, t_len, lay.sl, d)
+            return (h4.float() + temp_pos[:, None]).to(h.dtype).reshape(h.shape)
+
+        return lay, rows, kw, add_temp
+
     @torch.inference_mode()
     def trunk(hidden, ctx):
         h = hidden
+        kw = dict(grid=grid, route=route)
+
+        def add_temp(h):
+            return (h.float() + tp_tok).to(h.dtype)
+
+        if plan is not None:
+            lay, ctx, kw, add_temp = sharded(ctx, hidden)
+            if packed:
+                return trunk_frames(lay, hidden, ctx, add_temp)
+            h = lay.tokens(hidden).reshape(lay.rl, -1, d)
         for i, (sp, tp) in enumerate(zip(model.spatial, model.temporal)):
-            h = sp(h, ctx["t6"], ctx["y"], grid=grid, route=route)
+            h = sp(h, ctx["t6"], ctx["y"], **kw)
             if i == 0:
-                h = (h.float() + tp_tok).to(h.dtype)
-            h = tp(h, ctx["t6"], ctx["y"], grid=grid, route=route)
+                h = add_temp(h)
+            h = tp(h, ctx["t6"], ctx["y"], **kw)
+        if plan is not None:
+            return lay.gather_tokens(h.reshape(lay.rl, t_len, lay.sl, d))
         return h
+
+    def trunk_frames(lay, hidden, ctx, add_temp):
+        """The packed plan path: spatial blocks on the frames layout,
+        temporal ones on the tokens layout, one all-to-all between."""
+        rl = lay.rl
+        h = lay.frames(hidden)
+        for i, (sp, tp) in enumerate(zip(model.spatial, model.temporal)):
+            h = sp(h.reshape(rl, -1, d), ctx["t6"], ctx["y"], grid=(lay.tl, 1, s),
+                   route=route, plan=plan)
+            h = lay.frames_to_tokens(h.reshape(rl, lay.tl, s, d)).reshape(rl, -1, d)
+            if i == 0:
+                h = add_temp(h)
+            h = tp(h, ctx["t6"], ctx["y"], grid=(t_len, 1, lay.sl), route=route, plan=plan)
+            h = lay.tokens_to_frames(h.reshape(rl, t_len, lay.sl, d))
+        return lay.gather_frames(h)
 
     def init_state(hidden, ctx):
         """One zeroed ``[depth, rows, T*S, d]`` slot per site kind and branch
-        that some mask can read (temporal blocks have no cross slot)."""
-        return {slot: torch.zeros((cfg.depth,) + tuple(hidden.shape), dtype=hidden.dtype,
+        that some mask can read (temporal blocks have no cross slot; under a
+        plan the rank's tokens shard)."""
+        shape = tuple(hidden.shape)
+        if plan is not None:
+            lay = VideoShards(plan, shape[0], t_len, s)
+            shape = (lay.rl, t_len * lay.sl, shape[-1])
+        return {slot: torch.zeros((cfg.depth,) + shape, dtype=hidden.dtype,
                                   device=hidden.device)
                 for slot in pab_slots(masks, PAB_SLOTS)}
 
@@ -374,16 +457,26 @@ def make_latte_core(model: LatteModel, grid: Tuple[int, int, int],
         full = not 0 <= step_idx < len(masks["spatial"])
         bit = {k: np.zeros_like(m[0]) if full else m[step_idx] for k, m in masks.items()}
         h = hidden
+        kw = dict(grid=grid, route=route)
+
+        def add_temp(h):
+            return (h.float() + tp_tok).to(h.dtype)
+
+        if plan is not None:
+            lay, ctx, kw, add_temp = sharded(ctx, hidden)
+            h = lay.tokens(hidden).reshape(lay.rl, -1, d)
         for i, (sp, tp) in enumerate(zip(model.spatial, model.temporal)):
             for blk, br, kind in ((sp, "sp", "spatial"), (tp, "tp", "temporal")):
                 slots = {site: state[f"{br}_{site}"][i] for site in ("attn", "cross", "mlp")
                          if f"{br}_{site}" in state}
                 reuse = {"attn": bool(bit[kind]), "cross": bool(bit["cross"]),
                          "mlp": bool(bit[f"mlp_{br}_reuse"][i])}
-                h = blk(h, ctx["t6"], ctx["y"], grid=grid, route=route,
-                        pab=(slots, reuse, bool(bit[f"mlp_{br}_save"][i])))
+                h = blk(h, ctx["t6"], ctx["y"], pab=(slots, reuse,
+                                                     bool(bit[f"mlp_{br}_save"][i])), **kw)
                 if i == 0 and br == "sp":
-                    h = (h.float() + tp_tok).to(h.dtype)
+                    h = add_temp(h)
+        if plan is not None:
+            h = lay.gather_tokens(h.reshape(lay.rl, t_len, lay.sl, d))
         return h, state
 
     @torch.inference_mode()

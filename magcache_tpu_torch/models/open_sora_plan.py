@@ -36,10 +36,20 @@ MLP "mlp") each replay the block's slot of the trunk state or compute and
 refresh it by the step's host mask; ``init_state`` allocates only the slots
 that some mask can read (v1.2's spatial and cross windows: 2 of 3).
 
+Under a plan (``make_osp_core(plan=)``) the trunk runs the unpacked
+blocks, as the JAX package turns its packed path off under a mesh
+(``models/open_sora_plan.py:326``), on the rank's shard: rows over dp, the
+T*H*W tokens over sp (``parallel.collectives.VideoShards`` of one "frame";
+zero tokens pad an uneven count and are masked as keys), the heads and the
+MLP over tp (``parallel.shard.slice_videosys``). The full 3-D attention
+goes through ``attention(plan=)`` (Ulysses: K1b over ``heads / (sp * tp)``
+heads of every token), cross-attention through it on the rank's heads
+(K1b), and every row-parallel projection ends in the f32 all-reduce over
+tp. PAB runs on the same shards.
+
 Dtypes: in a bf16 config the patch embedding and the block linears are
 bf16; the embedders, the modulation tables and the final layer stay f32, as
-the JAX parameters are. Not ported (raises ``NotImplementedError``): the
-model under a sequence-parallel plan.
+the JAX parameters are.
 """
 
 from __future__ import annotations
@@ -57,12 +67,13 @@ from magcache_tpu_torch.core.pab import broadcast_masks
 from magcache_tpu_torch.core.sampler import DiTCore
 from magcache_tpu_torch.models.common import (DTYPES, embedder_linears, init_linear_,
                                               timestep_embedding)
-from magcache_tpu_torch.models.stdit3 import _pab_site, pab_slots
+from magcache_tpu_torch.models.stdit3 import _pab_site, check_ulysses, pab_slots, plan_setup
 from magcache_tpu_torch.models.wan import patchify
 from magcache_tpu_torch.ops.attention import attention, fused_cross_attention
 from magcache_tpu_torch.ops.fused_prologue import (layer_norm_mod, lnmod_matmul,
                                                    matmul_gated_residual)
 from magcache_tpu_torch.ops.norms import layer_norm
+from magcache_tpu_torch.parallel.collectives import VideoShards, tp_out
 
 __all__ = ["OpenSoraPlanConfig", "OSPModel", "OSP_V120", "ROUTES", "make_osp_core",
            "osp_rope_tables", "rope_half"]
@@ -165,25 +176,30 @@ class OSPBlock(nn.Module):
         self.ff1, self.ff2 = lin(d, cfg.mlp_ratio * d), lin(cfg.mlp_ratio * d, d)
 
     def _heads(self, x: torch.Tensor) -> torch.Tensor:
-        return x.unflatten(-1, (self.cfg.heads, self.cfg.head_dim))
+        return x.unflatten(-1, (-1, self.cfg.head_dim))
 
     def forward(self, h: torch.Tensor, t6: torch.Tensor, y: torch.Tensor,
                 rope: Tuple[torch.Tensor, torch.Tensor], *, route: str,
-                pab: Optional[Tuple[dict, dict]] = None) -> torch.Tensor:
+                pab: Optional[Tuple[dict, dict]] = None, plan=None,
+                kv_len: Optional[int] = None) -> torch.Tensor:
         """One block on ``h`` ``[rows, N, d]`` on ``route``. ``pab``:
         ``(slots, reuse)``, the block's PAB slots (``"attn"``, ``"cross"``,
         ``"mlp"`` -> ``[rows, N, d]`` or absent) and this step's reuse bits
-        per site; PAB runs the unpacked sites."""
+        per site; PAB runs the unpacked sites. ``plan``: h is a rank's
+        token shard and the block holds the rank's tp slices (the unpacked
+        sites, module docstring); ``kv_len``: the real tokens where the
+        shards pad them."""
         e = (self.scale_shift[None] + t6).float()          # [rows, 6, d]
-        if pab is None and route == "packed":
+        if pab is None and route == "packed" and plan is None:
             return self._packed(h, e, y, rope)
         slots, reuse = pab if pab is not None else ({}, dict.fromkeys(
             ("attn", "cross", "mlp"), False))
         sh_a, sc_a, g_a, sh_m, sc_m, g_m = e.unbind(1)    # [rows, d]
-        a = _pab_site(slots, reuse, "attn", lambda: self._attn(h, sc_a, sh_a, rope))
+        a = _pab_site(slots, reuse, "attn",
+                      lambda: self._attn(h, sc_a, sh_a, rope, plan, kv_len))
         h = h + (g_a[:, None] * a.float()).to(h.dtype)
-        h = h + _pab_site(slots, reuse, "cross", lambda: self._cross(h, y))
-        mo = _pab_site(slots, reuse, "mlp", lambda: self._mlp(h, sc_m, sh_m))
+        h = h + _pab_site(slots, reuse, "cross", lambda: self._cross(h, y, plan))
+        mo = _pab_site(slots, reuse, "mlp", lambda: self._mlp(h, sc_m, sh_m, plan))
         return h + (g_m[:, None] * mo.float()).to(h.dtype)
 
     def _packed(self, h, e, y, rope):
@@ -205,23 +221,26 @@ class OSPBlock(nn.Module):
                           eps=cfg.eps)
         return matmul_gated_residual(y1, self.ff2.weight, self.ff2.bias, g_m, h)
 
-    def _attn(self, h, sc, sh, rope) -> torch.Tensor:
-        """Full 3-D self-attention with RoPE3D, projections included."""
+    def _attn(self, h, sc, sh, rope, plan=None, kv_len=None) -> torch.Tensor:
+        """Full 3-D self-attention with RoPE3D, projections included (under
+        ``plan`` Ulysses over every rank's tokens)."""
         rows, n, d = h.shape
         xn = layer_norm_mod(h, scale=sc, shift=sh, eps=self.cfg.eps)
         q, k, v = (self._heads(t) for t in self.qkv(xn).chunk(3, -1))
-        o = attention(rope_half(q, *rope), rope_half(k, *rope), v)
-        return self.proj(o.reshape(rows, n, d))
+        o = attention(rope_half(q, *rope), rope_half(k, *rope), v, plan=plan,
+                      kv_len=kv_len, kv_replicated=False)
+        return tp_out(self.proj, o.flatten(-2), plan)
 
-    def _cross(self, h, y) -> torch.Tensor:
+    def _cross(self, h, y, plan=None) -> torch.Tensor:
         """Cross-attention to the caption on the un-normed stream."""
         rows, n, d = h.shape
         k, v = (self._heads(t) for t in self.cross_kv(y).chunk(2, -1))
-        return self.cross_o(attention(self._heads(self.cross_q(h)), k, v).reshape(rows, n, d))
+        o = attention(self._heads(self.cross_q(h)), k, v, plan=plan, kv_replicated=True)
+        return tp_out(self.cross_o, o.flatten(-2), plan)
 
-    def _mlp(self, h, sc, sh) -> torch.Tensor:
+    def _mlp(self, h, sc, sh, plan=None) -> torch.Tensor:
         xm = layer_norm_mod(h, scale=sc, shift=sh, eps=self.cfg.eps)
-        return self.ff2(F.gelu(self.ff1(xm), approximate="tanh"))
+        return tp_out(self.ff2, F.gelu(self.ff1(xm), approximate="tanh"), plan)
 
 
 class OSPModel(nn.Module):
@@ -273,15 +292,19 @@ def make_osp_core(model: OSPModel, grid: Tuple[int, int, int], caption_len: int,
     ``pab`` (``core.pab.PABConfig``) with the sampler's ``timesteps`` makes
     a stateful core: ``trunk(hidden, ctx, state, step_idx)`` reuses each
     site by ``broadcast_masks`` at ``step_idx`` (-1: full compute) and
-    ``init_state`` allocates the slots some mask can read. A
-    sequence-parallel ``plan`` raises ``NotImplementedError``.
+    ``init_state`` allocates the slots some mask can read. With ``plan``
+    the core is one rank's (module docstring): prepare and head run whole
+    on every rank, the trunk takes and returns the whole hidden, a PAB
+    state holds the rank's shard; the unpacked blocks run on either route.
+    Raises ``ValueError`` naming the counts when the heads do not split
+    over tp, or over ``sp * tp`` for Ulysses.
     """
     cfg = model.cfg
     if route not in ROUTES:
         raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
     if plan is not None:
-        raise NotImplementedError("Open-Sora-Plan under a sequence-parallel plan is "
-                                  "not ported yet")
+        model, _ = plan_setup(model, plan, "unpacked", 0, True)
+        check_ulysses(model, plan)
     masks = None
     if pab is not None:
         if timesteps is None:
@@ -306,17 +329,39 @@ def make_osp_core(model: OSPModel, grid: Tuple[int, int, int], caption_len: int,
                   lambda v: F.gelu(v, approximate="tanh")).to(dt)
         return h, {"t6": t6, "te": te, "y": y}
 
+    n_tok = t_len * gh * gw
+
+    def shards(hidden):
+        """Under a plan: the tokens' layout (all of them one "frame"), the
+        rank's rope rows and the blocks' keywords."""
+        lay = VideoShards(plan, hidden.shape[0], 1, n_tok)
+        mine = tuple(lay.mine(a[None, None], 2, lay.sl)[0, 0] for a in rope)
+        kv_len = n_tok if lay.sl * plan.sp != n_tok else None
+        return lay, dict(rope=mine, plan=plan, kv_len=kv_len)
+
+    def local(lay, hidden, ctx):
+        return (lay.tokens(hidden)[:, 0].contiguous(),
+                {k: lay.rows_of(v) for k, v in ctx.items()})
+
     @torch.inference_mode()
     def trunk(hidden, ctx):
-        h = hidden
+        h, kw = hidden, dict(rope=rope, route=route)
+        if plan is not None:
+            lay, kw = shards(hidden)
+            h, ctx = local(lay, hidden, ctx)
+            kw["route"] = "unpacked"
         for blk in model.blocks:
-            h = blk(h, ctx["t6"], ctx["y"], rope, route=route)
-        return h
+            h = blk(h, ctx["t6"], ctx["y"], **kw)
+        return h if plan is None else lay.gather_tokens(h[:, None])
 
     def init_state(hidden, ctx):
         """One zeroed ``[depth, rows, N, d]`` slot per site that some mask
-        can read."""
-        return {slot: torch.zeros((cfg.depth,) + tuple(hidden.shape), dtype=hidden.dtype,
+        can read (under a plan the rank's shard)."""
+        shape = tuple(hidden.shape)
+        if plan is not None:
+            lay = VideoShards(plan, shape[0], 1, n_tok)
+            shape = (lay.rl, lay.sl, shape[-1])
+        return {slot: torch.zeros((cfg.depth,) + shape, dtype=hidden.dtype,
                                   device=hidden.device)
                 for slot in pab_slots(masks, PAB_SLOTS)}
 
@@ -324,11 +369,14 @@ def make_osp_core(model: OSPModel, grid: Tuple[int, int, int], caption_len: int,
     def trunk_pab(hidden, ctx, state, step_idx):
         full = not 0 <= step_idx < len(masks["spatial"])
         reuse = {slot: (not full) and bool(masks[key][step_idx]) for slot, key in PAB_SLOTS}
-        h = hidden
+        h, kw = hidden, dict(rope=rope)
+        if plan is not None:
+            lay, kw = shards(hidden)
+            h, ctx = local(lay, hidden, ctx)
         for i, blk in enumerate(model.blocks):
             slots = {slot: state[slot][i] for slot in state}
-            h = blk(h, ctx["t6"], ctx["y"], rope, route="unpacked", pab=(slots, reuse))
-        return h, state
+            h = blk(h, ctx["t6"], ctx["y"], route="unpacked", pab=(slots, reuse), **kw)
+        return (h if plan is None else lay.gather_tokens(h[:, None])), state
 
     @torch.inference_mode()
     def head(hidden, ctx):

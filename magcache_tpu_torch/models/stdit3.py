@@ -62,6 +62,30 @@ and residuals run in f32 (no K8: its fused epilogue rounds elsewhere). The
 state holds one ``[depth, rows, N, d]`` tensor per slot that some mask can
 read.
 
+Under a plan (``make_stdit3_core(plan=)``; the JAX package's gates at
+``models/stdit3.py:216-238, 376-392, 436-452, 573-610``): the trunk takes
+and returns the whole hidden, and between the two it keeps the activations
+sharded (``parallel.collectives.VideoShards``): rows over dp, the spatial
+blocks over frames and the temporal blocks over each frame's tokens on sp,
+with one ``all_to_all`` over sp (the reference's DSP switch) between them.
+On the packed route each block runs the ``sharded_*`` wrappers: K7, K5 on
+the rank's ``heads / tp`` heads, K8, K6 and the MLP's K7 / K8 token-parallel
+on whole weights at tp 1; at ``tp > 1`` the Megatron slices of the JAX
+patterns (``parallel.shard.slice_videosys``: q, k, v and the cross
+projections by heads; ``mlp1`` / ``mlp2`` match no pattern and stay whole),
+each row-parallel projection ending in the f32 all-reduce over tp. Where JAX
+takes its composed block under a plan (frames above 2,048 tokens, masked
+frames, PAB, and ``route="unpacked"``) every block runs the unpacked
+composition on the tokens layout: spatial attention through
+``attention(plan=)`` (Ulysses, K1b over ``heads / (sp * tp)`` heads of each
+frame), temporal attention through K5 over groups of T on the rank's
+heads (the JAX ``tiny_temporal_attention`` runs its unfused composition
+under a mesh; a tokens shard holds whole groups of T, so the packed
+path's kernel takes the same work), cross-attention through
+``attention(plan=)`` on the rank's heads (K1b). The "grouped" (K4) and "vpu"
+(K9) routes take no plan: they raise, naming ``route="unpacked"`` (JAX
+quietly runs its composition there).
+
 Dtypes: in a bf16 config the block linears are bf16; the embedders, the
 modulation tables, the qk-norm gains and the final layer stay f32, as the
 JAX parameters are.
@@ -84,19 +108,25 @@ from magcache_tpu_torch.models.common import (DTYPES, embedder_linears, init_lin
                                               timestep_embedding)
 from magcache_tpu_torch.models.wan import patchify, unpatchify
 from magcache_tpu_torch.ops.attention import (QKNORM_FIXED_MAX, attention,
-                                              flash_attention_bshd,
-                                              fused_cross_attention,
-                                              grouped_attention_fused_qkv, split_qkv)
+                                              flash_attention_bshd, fused_cross_attention,
+                                              split_qkv)
 from magcache_tpu_torch.ops.fused_prologue import (layer_norm_mod, lnmod_matmul,
                                                    matmul_gated_residual)
 from magcache_tpu_torch.ops.norms import layer_norm, rms_norm
 from magcache_tpu_torch.ops.rope import rope_freqs_1d
 from magcache_tpu_torch.ops.tiny_attention import tiny_temporal_attention
+from magcache_tpu_torch.parallel.collectives import (VideoShards, sharded_fused_cross_attention,
+                                                     sharded_grouped_attention_fused_qkv,
+                                                     sharded_lnmod_matmul,
+                                                     sharded_matmul_gated_residual, tp_out)
+from magcache_tpu_torch.parallel.shard import slice_videosys
 
-__all__ = ["STDiT3Config", "STDiT3Model", "STDIT3_XL_2", "ROUTES", "make_stdit3_core",
-           "pos_embed_2d"]
+__all__ = ["STDiT3Config", "STDiT3Model", "STDIT3_XL_2", "ROUTES", "PLAN_ROUTES",
+           "make_stdit3_core", "pos_embed_2d", "plan_setup"]
 
 ROUTES = ("packed", "grouped", "vpu")
+# under a plan: the packed route, or the JAX package's composition there
+PLAN_ROUTES = ("packed", "unpacked")
 
 # frames up to this many tokens run K5 with one group per frame; larger ones
 # run K1q (the JAX package's route, chosen by shape only)
@@ -202,40 +232,49 @@ class STDiT3Block(nn.Module):
                 rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                 x_mask: Optional[torch.Tensor] = None,
                 t6_zero: Optional[torch.Tensor] = None,
-                pab: Optional[Tuple[dict, dict]] = None) -> torch.Tensor:
+                pab: Optional[Tuple[dict, dict]] = None, plan=None,
+                frame_tokens: Optional[int] = None) -> torch.Tensor:
         """One block on ``h`` ``[rows, T*S, d]`` on ``route``; with ``x_mask``
         (bool ``[rows, T]``) and ``t6_zero`` the masked-frame composition.
         ``rope``: the frame tables ``[T, D/2]`` (temporal blocks). ``pab``:
         ``(slots, reuse)``, the block's PAB slots (``"attn"``, ``"cross"``,
         ``"mlp"`` -> ``[rows, T*S, d]`` or absent) and this step's reuse
-        bits per site."""
+        bits per site. ``plan``: h is a rank's shard (module docstring) of
+        ``grid``'s local counts and the block holds the rank's tp slices;
+        ``frame_tokens``: a frame's real tokens where the tokens layout pads
+        them (the Ulysses keys past it are masked)."""
         e = (self.scale_shift[None] + t6).float()          # [rows, 6, d]
         if pab is None and x_mask is None and route == "packed":
-            return self._packed(h, e, y, grid, temporal, rope)
+            return self._packed(h, e, y, grid, temporal, rope, plan)
         e0 = None if x_mask is None else (self.scale_shift[None] + t6_zero).float()
-        return self._composed(h, e, e0, y, x_mask, grid, temporal, rope, route, pab)
+        return self._composed(h, e, e0, y, x_mask, grid, temporal, rope, route, pab,
+                              plan, frame_tokens)
 
-    def _packed(self, h, e, y, grid, temporal, rope) -> torch.Tensor:
+    def _packed(self, h, e, y, grid, temporal, rope, plan=None) -> torch.Tensor:
         """The fused packed block: K7/K3, K5 (K1q), K8, K6 with the residual,
-        K7 with gelu, K8."""
+        K7 with gelu, K8, through the ``sharded_*`` wrappers: under ``plan``
+        on a rank's shard (a spatial block's frames, a temporal block's
+        tokens), K5 on the rank's heads and, at ``tp > 1``, the row-parallel
+        all-reduces in place of K8's GEMM and K6."""
         cfg = self.cfg
         rows, n, d = h.shape
         t, s = grid[0], grid[1] * grid[2]
         sh_a, sc_a, g_a, sh_m, sc_m, g_m = e.unbind(1)
         if temporal:
             xn = layer_norm_mod(h, scale=sc_a, shift=sh_a, eps=cfg.eps)
-            a = self._temporal_attn(xn, grid, rope)
-            a = matmul_gated_residual(a, self.proj.weight, self.proj.bias, g_a, None,
-                                      rows_out=t, batch_repeat=s)
+            a = self._temporal_attn(xn, grid, rope, plan)
+            a = sharded_matmul_gated_residual(a, self.proj, g_a, None, plan, rows_out=t,
+                                              batch_repeat=s)
             h = h + a.reshape(rows, s, t, d).transpose(1, 2).reshape(rows, n, d)
         else:
             hf = h.reshape(rows * t, s, d)
-            qkv = lnmod_matmul(hf, sc_a, sh_a, self.qkv.weight, self.qkv.bias,
-                               eps=cfg.eps, batch_repeat=t)
-            o = self._spatial_attn(qkv)
-            h = matmul_gated_residual(o, self.proj.weight, self.proj.bias, g_a,
-                                      hf, batch_repeat=t).reshape(rows, n, d)
-        h = self._cross(h, y)
+            qkv = sharded_lnmod_matmul(hf, sc_a, sh_a, self.qkv, plan, eps=cfg.eps,
+                                       batch_repeat=t)
+            o = self._spatial_attn(qkv, plan)
+            h = sharded_matmul_gated_residual(o, self.proj, g_a, hf, plan,
+                                              batch_repeat=t).reshape(rows, n, d)
+        h = self._cross(h, y, plan=plan)
+        # the JAX patterns leave mlp1 / mlp2 whole: token-parallel K7 and K8
         y1 = lnmod_matmul(h, sc_m, sh_m, self.mlp1.weight, self.mlp1.bias,
                           act="gelu", eps=cfg.eps)
         return matmul_gated_residual(y1, self.mlp2.weight, self.mlp2.bias, g_m, h)
@@ -253,15 +292,17 @@ class STDiT3Block(nn.Module):
             kw.update(qk_gains=self._gains(), eps=1e-6, fixed_max=QKNORM_FIXED_MAX)
         return kw
 
-    def _spatial_attn(self, qkv: torch.Tensor) -> torch.Tensor:
+    def _spatial_attn(self, qkv: torch.Tensor, plan=None) -> torch.Tensor:
         """Attention within each frame of ``qkv`` ``[frames, S, 3*d]``: K5
-        (K5r without qk-norm) with one group per frame up to 2,048 tokens,
-        else K1q on q/k/v views of the projection (without qk-norm K1 through
-        ``attention()``, running max). Returns ``[frames, S, d]``."""
+        (K5r without qk-norm) with one group per frame up to 2,048 tokens
+        (under ``plan`` on the rank's heads), else K1q on q/k/v views of the
+        projection (without qk-norm K1 through ``attention()``, running max).
+        Returns ``[frames, S, d]``."""
         frames, s, three_d = qkv.shape
         heads = self.cfg.heads
         if s <= MAX_GROUP_TOKENS:
-            return grouped_attention_fused_qkv(qkv, heads, group=s, **self._attn_kw())
+            return sharded_grouped_attention_fused_qkv(qkv, heads, plan, group=s,
+                                                       **self._attn_kw())
         q, k, v = split_qkv(qkv, heads)
         if self.cfg.qk_norm:
             o = flash_attention_bshd(q, k, v, **self._attn_kw())
@@ -269,33 +310,38 @@ class STDiT3Block(nn.Module):
             o = attention(q, k, v, scale=1.0 / math.sqrt(self.cfg.head_dim))
         return o.reshape(frames, s, three_d // 3)
 
-    def _temporal_attn(self, xn: torch.Tensor, grid, rope) -> torch.Tensor:
+    def _temporal_attn(self, xn: torch.Tensor, grid, rope, plan=None) -> torch.Tensor:
         """qkv projection of the [S, T] view of ``xn`` and K5 over groups of
-        T with RoPE. Returns the attention ``[rows*S, T, d]``."""
+        T with RoPE (under ``plan`` on the rank's heads). Returns the
+        attention ``[rows*S, T, heads*D]``."""
         t, hh, ww = grid
         rows, _, d = xn.shape
         s = hh * ww
         xr = xn.reshape(rows, t, s, d).transpose(1, 2).reshape(rows * s, t, d)
         qkv = self.qkv(xr)
-        o = grouped_attention_fused_qkv(qkv.reshape(1, rows * s * t, 3 * d),
-                                        self.cfg.heads, group=t, rope_tables=rope,
-                                        **self._attn_kw())
-        return o.reshape(rows * s, t, d)
+        o = sharded_grouped_attention_fused_qkv(qkv.reshape(1, rows * s * t, -1),
+                                                self.cfg.heads, plan, group=t,
+                                                rope_tables=rope, **self._attn_kw())
+        return o.reshape(rows * s, t, -1)
 
-    def _cross(self, h: torch.Tensor, y: torch.Tensor,
-               residual: bool = True) -> torch.Tensor:
+    def _cross(self, h: torch.Tensor, y: torch.Tensor, residual: bool = True,
+               plan=None) -> torch.Tensor:
         """K6: cross-attention to the caption, with the residual or without
-        it (PAB caches the branch alone)."""
-        d = self.cfg.hidden
-        kv = self.cross_kv(y)
-        return fused_cross_attention(
-            h, self.cross_q.weight, self.cross_q.bias, kv[..., :d].contiguous(),
-            kv[..., d:].contiguous(), self.cross_o.weight, self.cross_o.bias,
-            self.cfg.heads, scale=1.0 / math.sqrt(self.cfg.head_dim),
-            true_d=self.cfg.head_dim, residual=residual)
+        it (PAB caches the branch alone); under ``plan`` at ``tp > 1`` its
+        composition on the rank's heads."""
+        k, v = (c.contiguous() for c in self.cross_kv(y).chunk(2, -1))
+        kw = dict(scale=1.0 / math.sqrt(self.cfg.head_dim), true_d=self.cfg.head_dim,
+                  residual=residual)
+        if plan is None:
+            return fused_cross_attention(h, self.cross_q.weight, self.cross_q.bias, k, v,
+                                         self.cross_o.weight, self.cross_o.bias,
+                                         self.cfg.heads, **kw)
+        return sharded_fused_cross_attention(h, self.cross_q, k, v, self.cross_o,
+                                             self.cfg.heads, plan, **kw)
 
     def _composed(self, h, e, e0, y, x_mask, grid, temporal, rope, route,
-                  pab: Optional[Tuple[dict, dict]]) -> torch.Tensor:
+                  pab: Optional[Tuple[dict, dict]], plan=None,
+                  frame_tokens: Optional[int] = None) -> torch.Tensor:
         """The block as three sites and two f32 gates (JAX ``_block`` off
         its fused packed path): the unpacked routes, masked frames and PAB,
         on every route. Under ``pab`` each site replays its slot where the
@@ -313,7 +359,9 @@ class STDiT3Block(nn.Module):
 
         With ``x_mask`` each modulation and gate takes the step's values
         (``e``) on frames where it is True and the t = 0 values (``e0``)
-        elsewhere."""
+        elsewhere. Under ``plan`` (the unpacked route on a tokens shard) the
+        attention and cross sites run on the rank's heads through
+        ``attention(plan=)`` and their projections end in ``tp_out``."""
         cfg = self.cfg
         rows, n, d = h.shape
         t, s = grid[0], grid[1] * grid[2]
@@ -342,7 +390,8 @@ class STDiT3Block(nn.Module):
 
         def attn(x):
             if not packed:
-                return self._unpacked_attn(modulate(x, 0), grid, temporal, rope, route)
+                return self._unpacked_attn(modulate(x, 0), grid, temporal, rope, route,
+                                           plan, frame_tokens)
             if temporal:
                 a = self.proj(self._temporal_attn(modulate(x, 0), grid, rope))
                 return a.reshape(rows, s, t, d).transpose(1, 2).reshape(rows, n, d)
@@ -357,7 +406,7 @@ class STDiT3Block(nn.Module):
         def cross(x, residual):
             if packed:
                 return self._cross(x, y, residual=residual)
-            c = self._unpacked_cross(x, y)
+            c = self._unpacked_cross(x, y, plan)
             return x + c if residual else c
 
         def mlp(x):
@@ -376,38 +425,50 @@ class STDiT3Block(nn.Module):
             h = h + site("cross", lambda: cross(h, False))
         return gated(h, site("mlp", lambda: mlp(h)), 5)
 
-    def _unpacked_attn(self, xn, grid, temporal, rope, route) -> torch.Tensor:
+    def _unpacked_attn(self, xn, grid, temporal, rope, route, plan=None,
+                       frame_tokens=None) -> torch.Tensor:
         """The unpacked self-attention branch on the modulated ``xn``
         ``[rows, T*S, d]``, projections included: temporal through
         ``tiny_temporal_attention`` in mode ``route`` (the gains and the
-        frame RoPE inside), spatial as the per-head RMS norm and
-        ``attention()`` (JAX ``_attn``). Returns ``[rows, T*S, d]``."""
+        frame RoPE inside), on the "unpacked" route through K5 over groups
+        of T on the rank's heads (``_temporal_attn``, the packed plan
+        path's kernel: a tokens shard holds whole groups); spatial as the
+        per-head RMS norm and ``attention()`` (JAX ``_attn``; under ``plan``
+        Ulysses over the frame's tokens). Returns ``[rows, T*S, d]``."""
         cfg = self.cfg
         rows, n, d = xn.shape
         t, s = grid[0], grid[1] * grid[2]
+        heads = cfg.heads // (plan.tp if plan is not None else 1)
         if temporal:
-            xr = xn.reshape(rows, t, s, d).transpose(1, 2).reshape(rows * s, t, d)
-            o = tiny_temporal_attention(self.qkv(xr), *self._gains(), *rope, cfg.heads,
-                                        eps=1e-6, mode=route)
-            return self.proj(o).reshape(rows, s, t, d).transpose(1, 2).reshape(rows, n, d)
-        q, k, v = split_qkv(self.qkv(xn.reshape(rows * t, s, d)), cfg.heads)
+            if route == "unpacked":
+                o = self._temporal_attn(xn, grid, rope, plan)
+            else:
+                xr = xn.reshape(rows, t, s, d).transpose(1, 2).reshape(rows * s, t, d)
+                o = tiny_temporal_attention(self.qkv(xr), *self._gains(), *rope, heads,
+                                            eps=1e-6, mode=route)
+            return tp_out(self.proj, o, plan).reshape(rows, s, t, d).transpose(1, 2).reshape(
+                rows, n, d)
+        q, k, v = split_qkv(self.qkv(xn.reshape(rows * t, s, d)), heads)
         if cfg.qk_norm:
             # per-head RMS qk-norm bounds the scores: the fixed shift is exact
             q, k = rms_norm(q, self.q_norm, eps=1e-6), rms_norm(k, self.k_norm, eps=1e-6)
-        o = attention(q, k, v, fixed_max=QKNORM_FIXED_MAX if cfg.qk_norm else None)
-        return self.proj(o.reshape(rows * t, s, d)).reshape(rows, n, d)
+        o = attention(q, k, v, fixed_max=QKNORM_FIXED_MAX if cfg.qk_norm else None,
+                      plan=plan, kv_len=frame_tokens, kv_replicated=False)
+        return tp_out(self.proj, o.flatten(-2), plan).reshape(rows, n, d)
 
-    def _unpacked_cross(self, h: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    def _unpacked_cross(self, h: torch.Tensor, y: torch.Tensor, plan=None) -> torch.Tensor:
         """The cross-attention branch to the caption through ``attention()``
-        (running max), without the residual."""
+        (running max; under ``plan`` the rank's heads), without the
+        residual."""
         cfg = self.cfg
         rows, n, d = h.shape
 
         def heads(x):
-            return x.unflatten(-1, (cfg.heads, cfg.head_dim))
+            return x.unflatten(-1, (-1, cfg.head_dim))
 
         k, v = (heads(p) for p in self.cross_kv(y).chunk(2, -1))
-        return self.cross_o(attention(heads(self.cross_q(h)), k, v).reshape(rows, n, d))
+        o = attention(heads(self.cross_q(h)), k, v, plan=plan, kv_replicated=True)
+        return tp_out(self.cross_o, o.flatten(-2), plan).reshape(rows, n, d)
 
 
 def _pab_site(slots: dict, reuse: dict, kind: str, compute,
@@ -491,10 +552,44 @@ class STDiT3Model(nn.Module):
         return self
 
 
+def plan_setup(model: nn.Module, plan, route: str, s: int, composed: bool):
+    """``(model, packed)`` of a spatial-temporal trunk under ``plan``: the
+    model as the rank's tp slice (views, ``slice_videosys``) and whether
+    the blocks run the packed plan path (the packed route, frames of at most
+    2,048 tokens and not ``composed``: PAB) or the unpacked composition.
+    Raises for the "grouped" and "vpu" routes and for heads that do not
+    divide by tp."""
+    kind = type(model).__name__
+    if route not in PLAN_ROUTES:
+        raise ValueError(f"{kind} route {route!r} under a plan: its kernel ("
+                         f"{'K4' if route == 'grouped' else 'K9'}) takes no plan; take "
+                         f"route=\"unpacked\", the composition the JAX package runs there")
+    heads, tp = model.cfg.heads, plan.tp
+    if heads % tp:
+        raise ValueError(f"tp = {tp}: {kind}'s {heads} heads do not divide by tp")
+    sliced = getattr(model, "tp_slice", None)
+    if tp > 1 and sliced is None:       # local ranks: views of the one whole model
+        model = slice_videosys(model, plan.tp_rank, tp)
+    elif (sliced or (0, 1)) != (plan.tp_rank, tp):
+        raise ValueError(f"{kind}: the model holds tp slice {sliced}, the plan is tp rank "
+                         f"{plan.tp_rank} of {tp}")
+    return model, route == "packed" and s <= MAX_GROUP_TOKENS and not composed
+
+
+def check_ulysses(model: nn.Module, plan) -> None:
+    """Raises unless the unpacked composition's Ulysses attention can split
+    the heads: ``heads / (sp * tp)`` a rank."""
+    heads, sp, tp = model.cfg.heads, plan.sp, plan.tp
+    if (heads // tp) % sp:
+        raise ValueError(f"sp {sp} x tp {tp}: {type(model).__name__}'s {heads} heads over "
+                         f"{sp * tp} ranks leave {heads / (sp * tp):g} a rank; the unpacked "
+                         f"composition's Ulysses attention needs heads / (sp * tp) whole")
+
+
 def make_stdit3_core(model: STDiT3Model, grid: Tuple[int, int, int], *,
                      route: str = "packed", pab=None,
                      timesteps: Optional[np.ndarray] = None,
-                     pixel_size: Optional[Tuple[int, int]] = None) -> DiTCore:
+                     pixel_size: Optional[Tuple[int, int]] = None, plan=None) -> DiTCore:
     """(prepare, trunk, head) for a static latent patch grid (T, H, W).
 
     cond = {"y": f[rows, caption_len, caption_dim], "fps": f[rows]
@@ -512,12 +607,26 @@ def make_stdit3_core(model: STDiT3Model, grid: Tuple[int, int, int], *,
     step_idx)`` reuses each site by ``broadcast_masks(pab, timesteps)`` at
     ``step_idx`` (-1: full compute) and ``init_state`` allocates the slots
     some mask can read.
+
+    ``route="unpacked"`` is the JAX package's composition under a mesh,
+    with the temporal attention through K5 over groups of T. With ``plan``
+    the core is one rank's (module docstring): prepare and head run whole
+    on every rank, the trunk takes and returns the whole hidden and keeps
+    its shards between them, and a PAB state holds the rank's shard. Raises ``ValueError`` for the
+    "grouped" and "vpu" routes, for heads that do not divide by tp, and
+    (where the unpacked composition runs) for ``heads / tp`` that does not
+    divide by sp, naming the counts.
     """
     cfg = model.cfg
     t_len, gh, gw = grid
     s = gh * gw
-    if route not in ROUTES:
-        raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
+    if route not in ROUTES + ("unpacked",):
+        raise ValueError(f"route must be one of {ROUTES + ('unpacked',)}, got {route!r}")
+    packed = False
+    if plan is not None:
+        model, packed = plan_setup(model, plan, route, s, pab is not None)
+        if not packed:
+            check_ulysses(model, plan)
     masks = None
     if pab is not None:
         if timesteps is None:
@@ -563,20 +672,56 @@ def make_stdit3_core(model: STDiT3Model, grid: Tuple[int, int, int], *,
                        te_zero=te0, x_mask=cond["x_mask"])
         return h, ctx
 
+    def sharded(ctx, hidden):
+        """Under a plan: the shards' layout, the ctx's per-row tensors cut to
+        the rank's rows, and the blocks' keywords of the unpacked
+        composition on the tokens layout."""
+        lay = VideoShards(plan, hidden.shape[0], t_len, s)
+        rows = {k: lay.rows_of(v) if torch.is_tensor(v) else v for k, v in ctx.items()}
+        kw = dict(grid=(t_len, 1, lay.sl), route="unpacked", x_mask=rows.get("x_mask"),
+                  t6_zero=rows.get("t6_zero"), plan=plan,
+                  frame_tokens=s if lay.sl * plan.sp != s else None)
+        return lay, rows, kw
+
     @torch.inference_mode()
     def trunk(hidden, ctx):
         h = hidden
         kw = dict(grid=grid, route=route, x_mask=ctx.get("x_mask"),
                   t6_zero=ctx.get("t6_zero"))
+        if plan is not None:
+            lay, ctx, kw = sharded(ctx, hidden)
+            if packed and "x_mask" not in ctx:
+                return trunk_frames(lay, hidden, ctx)
+            h = lay.tokens(hidden).reshape(lay.rl, -1, cfg.hidden)
         for sp, tp in zip(model.spatial, model.temporal):
             h = sp(h, ctx["t6"], ctx["y"], temporal=False, **kw)
             h = tp(h, ctx["t6"], ctx["y"], temporal=True, rope=rope, **kw)
+        if plan is not None:
+            return lay.gather_tokens(h.reshape(lay.rl, t_len, lay.sl, -1))
         return h
+
+    def trunk_frames(lay, hidden, ctx):
+        """The packed plan path: spatial blocks on the frames layout,
+        temporal ones on the tokens layout, one all-to-all between."""
+        d, rl = cfg.hidden, lay.rl
+        h = lay.frames(hidden)
+        for sp, tp in zip(model.spatial, model.temporal):
+            h = sp(h.reshape(rl, -1, d), ctx["t6"], ctx["y"], grid=(lay.tl, 1, s),
+                   temporal=False, plan=plan)
+            h = lay.frames_to_tokens(h.reshape(rl, lay.tl, s, d))
+            h = tp(h.reshape(rl, -1, d), ctx["t6"], ctx["y"], grid=(t_len, 1, lay.sl),
+                   temporal=True, rope=rope, plan=plan)
+            h = lay.tokens_to_frames(h.reshape(rl, t_len, lay.sl, d))
+        return lay.gather_frames(h)
 
     def init_state(hidden, ctx):
         """One zeroed ``[depth, rows, T*S, d]`` slot per site kind and branch
-        that some mask can read."""
-        return {slot: torch.zeros((cfg.depth,) + tuple(hidden.shape), dtype=hidden.dtype,
+        that some mask can read (under a plan the rank's tokens shard)."""
+        shape = tuple(hidden.shape)
+        if plan is not None:
+            lay = VideoShards(plan, shape[0], t_len, s)
+            shape = (lay.rl, t_len * lay.sl, shape[-1])
+        return {slot: torch.zeros((cfg.depth,) + shape, dtype=hidden.dtype,
                                   device=hidden.device)
                 for slot in pab_slots(masks, PAB_SLOTS)}
 
@@ -587,6 +732,9 @@ def make_stdit3_core(model: STDiT3Model, grid: Tuple[int, int, int], *,
         kw = dict(grid=grid, route=route, x_mask=ctx.get("x_mask"),
                   t6_zero=ctx.get("t6_zero"))
         h = hidden
+        if plan is not None:
+            lay, ctx, kw = sharded(ctx, hidden)
+            h = lay.tokens(hidden).reshape(lay.rl, -1, cfg.hidden)
         for i, (sp, tp) in enumerate(zip(model.spatial, model.temporal)):
             for blk, br, kind in ((sp, "sp", "spatial"), (tp, "tp", "temporal")):
                 slots = {site: state[f"{br}_{site}"][i] for site in ("attn", "cross", "mlp")
@@ -594,6 +742,8 @@ def make_stdit3_core(model: STDiT3Model, grid: Tuple[int, int, int], *,
                 reuse = {"attn": bit[kind], "cross": bit["cross"], "mlp": bit["mlp"]}
                 h = blk(h, ctx["t6"], ctx["y"], temporal=br == "tp",
                         rope=rope if br == "tp" else None, pab=(slots, reuse), **kw)
+        if plan is not None:
+            h = lay.gather_tokens(h.reshape(lay.rl, t_len, lay.sl, -1))
         return h, state
 
     @torch.inference_mode()

@@ -551,7 +551,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               scale: Optional[float] = None, kv_len: Optional[int] = None,
               fixed_max: Optional[float] = None, plan=None,
               sp_impl: str = "auto", ring_threshold: int = RING_THRESHOLD,
-              kv_replicated: Optional[bool] = None) -> torch.Tensor:
+              kv_replicated: Optional[bool] = None,
+              whole_prefix: int = 0) -> torch.Tensor:
     """Full attention over ``[B, S, H, D]`` activations.
 
     Without a ``plan``, routed on shape only: when ``max(Sq, Skv) <= 128`` the
@@ -568,6 +569,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``kv_len``, ``kv_replicated`` and ``fixed_max`` passed on.
     ``kv_replicated`` (k/v whole on every rank, cross-attention) defaults to
     ``Skv != Sq``. ``"ring"`` or ``"ulysses"`` without a plan raises.
+    ``whole_prefix`` (FLUX's joint text tokens): the first ``whole_prefix``
+    rows of q, k and v are the same whole rows on every rank and the rest
+    is the rank's shard; they enter the attention once (the global sequence
+    is ``whole_prefix + (Sq - whole_prefix) * sp``).
     """
     if sp_impl not in SP_IMPLS:
         raise ValueError(f"attention: sp_impl must be one of {SP_IMPLS}, got "
@@ -578,12 +583,13 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         from magcache_tpu_torch.parallel.collectives import (ring_attention,
                                                              ulysses_attention)
         kv_rep = (k.shape[1] != q.shape[1]) if kv_replicated is None else kv_replicated
-        want_ring = sp_impl == "ring" or (
-            sp_impl == "auto" and q.shape[1] * plan.sp >= ring_threshold)
+        seq = whole_prefix + (q.shape[1] - whole_prefix) * plan.sp
+        want_ring = sp_impl == "ring" or (sp_impl == "auto" and seq >= ring_threshold)
         if want_ring and not kv_rep:
-            return ring_attention(q, k, v, plan, scale=scale)
+            return ring_attention(q, k, v, plan, scale=scale, whole_prefix=whole_prefix)
         return ulysses_attention(q, k, v, plan, scale=scale, kv_len=kv_len,
-                                 kv_replicated=kv_rep, fixed_max=fixed_max)
+                                 kv_replicated=kv_rep, fixed_max=fixed_max,
+                                 whole_prefix=whole_prefix)
     if sp_impl in ("ring", "ulysses"):
         raise ValueError(f"attention sp_impl {sp_impl!r} needs a mesh plan "
                          f"(pass plan=)")
@@ -908,7 +914,7 @@ def grouped_flash_attention_bshd(
                           gvalid=gvalid, scale=scale, qk_gains=qk_gains,
                           rope_tables=rope_tables, true_d=true_d, eps=eps,
                           fixed_max=fixed_max)
-    grouped_flash_attention_bshd.launches += 1
+    count_launch(grouped_flash_attention_bshd)
     return out.reshape(b, s_len, heads, d)
 
 
@@ -981,10 +987,8 @@ def grouped_attention_fused_qkv(
                           gvalid=gvalid, scale=scale, qk_gains=qk_gains,
                           rope_tables=rope_tables, true_d=true_d, eps=eps,
                           fixed_max=fixed_max)
-    if fixed_max is None:
-        grouped_attention_fused_qkv.rowmax_launches += 1
-    else:
-        grouped_attention_fused_qkv.launches += 1
+    count_launch(grouped_attention_fused_qkv,
+                 "rowmax_launches" if fixed_max is None else "launches")
     return out
 
 

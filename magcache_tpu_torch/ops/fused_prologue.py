@@ -435,7 +435,7 @@ def lnmod_matmul(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
     check_launch(lib, code, "lnmod_matmul (modulate)")
     out = gemm_launch("lnmod_matmul", y, w, bias32,
                       epilogue="gelu" if act == "gelu" else "bias", rows_out=rows_out)
-    lnmod_matmul.launches += 1
+    count_launch(lnmod_matmul)
     return out
 
 
@@ -508,7 +508,7 @@ def matmul_gated_residual(x: torch.Tensor, w: torch.Tensor,
         "matmul_gated_residual", x.reshape(geom.batches, geom.rows, d_in), w, bias32,
         resid=resid.reshape(geom.batches, geom.rows_out, d_out) if resid is not None else None,
         rows_out=geom.rows_out, gate=g, rep=geom.rep, span=geom.span)
-    matmul_gated_residual.launches += 1
+    count_launch(matmul_gated_residual)
     return out.reshape(b, rows_out, d_out)
 
 

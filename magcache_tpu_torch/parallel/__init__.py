@@ -1,3 +1,4 @@
-"""Sequence parallelism over the ``sp`` axis: the group interface and its two
-implementations (``mesh``), and the explicit collectives built on it
+"""The (dp, sp, tp) rank grid: the group interface and its two
+implementations (``mesh``), the tensor-parallel weight slices (``shard``)
+and the explicit collectives and sharded kernel wrappers built on them
 (``collectives``)."""

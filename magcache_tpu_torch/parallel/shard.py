@@ -29,19 +29,32 @@ ranks take views of one model (the weights sit on the card once); a
 ``torchrun`` process copies its own slices and keeps nothing else
 (``copy=True``), and ``wan_from_state_dict`` cuts a checkpoint's state
 dict on the host so that only a rank's slices reach its device.
+
+FLUX (``slice_flux``, ``flux_from_state_dict``) takes the same patterns, but
+four of its projections are fused: ``img_qkv`` / ``txt_qkv`` write
+``[q | k | v]``, ``lin1`` ``[q | k | v | mlp]``, and ``lin2`` reads ``[o |
+gelu(mlp)]``. The JAX package shards them declaratively, so a contiguous
+``1/tp`` of the fused features is right there; here a rank computes with its
+slice, so it must take its heads of each of q, k and v and its ``1/tp`` of
+the MLP segment (``flux_segments``). A fused projection becomes a
+``SegmentedLinear``: one view per segment on local ranks, one contiguous
+copy of the rank's segments with ``copy``.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping, Optional
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 __all__ = ["COL", "ROW", "jax_path", "param_kind", "tp_dim", "tp_sliced",
            "slice_tensor", "slice_wan", "wan_from_state_dict", "check_tp_split",
-           "f32_product", "row_parallel", "tp_row_sums"]
+           "f32_product", "row_parallel", "tp_row_sums", "SegmentedLinear",
+           "slice_segments", "flux_segments", "flux_tp_sliced", "check_flux_split",
+           "slice_flux", "flux_from_state_dict", "slice_videosys"]
 
 COL, ROW = "col", "row"
 
@@ -196,15 +209,21 @@ def f32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.reshape(*lead, w.shape[0])
 
 
-def row_parallel(lin: nn.Linear, x: torch.Tensor, group) -> torch.Tensor:
+def row_parallel(lin: nn.Module, x, group) -> torch.Tensor:
     """A row-parallel projection over a tp ``group``: this rank's f32
     partial product of its input slice ``x`` with its weight slice, summed
     over the group in f32, the whole bias added once, rounded to x's dtype
-    once, as the single-rank GEMM rounds."""
-    out = group.all_reduce_sum(f32_product(x, lin.weight))
+    once, as the single-rank GEMM rounds. ``lin`` is an ``nn.Linear`` or a
+    row ``SegmentedLinear``, whose ``x`` is the list of its segments'
+    inputs."""
+    if isinstance(lin, SegmentedLinear):
+        part, dtype = lin.partial(x), x[0].dtype
+    else:
+        part, dtype = f32_product(x, lin.weight), x.dtype
+    out = group.all_reduce_sum(part)
     if lin.bias is not None:
         out = out + lin.bias.float()
-    return out.to(x.dtype)
+    return out.to(dtype)
 
 
 def tp_row_sums(group, tensors) -> list:
@@ -218,3 +237,196 @@ def tp_row_sums(group, tensors) -> list:
     tot = group.all_reduce_sum(torch.cat([v.reshape(-1) for v in sums]))
     return [part.reshape(v.shape) for part, v in
             zip(tot.split([v.numel() for v in sums]), sums)]
+
+
+class SegmentedLinear(nn.Module):
+    """A tp rank's slices of a fused projection, whose output features
+    (``dim`` 0, column-parallel) or input features (``dim`` 1, row-parallel)
+    are a concatenation of segments each split over tp.
+
+    ``weights``: the rank's slice of each segment (views of the whole
+    weight), or one contiguous tensor of them all; a column projection's
+    ``biases`` likewise, a row projection's ``bias`` is whole (added once,
+    after the all-reduce). A column projection's ``forward`` returns the
+    segments' outputs side by side, in the whole projection's order; a row
+    projection's ``partial`` takes its segments' inputs and returns this
+    rank's f32 share of the product."""
+
+    def __init__(self, weights: Sequence[torch.Tensor], dim: int,
+                 biases: Optional[Sequence[torch.Tensor]] = None,
+                 bias: Optional[torch.Tensor] = None):
+        super().__init__()
+        self.dim = dim
+        self.weights = nn.ParameterList(nn.Parameter(w, requires_grad=False)
+                                        for w in weights)
+        self.biases = (None if biases is None else
+                       nn.ParameterList(nn.Parameter(b, requires_grad=False) for b in biases))
+        self.bias = None if bias is None else nn.Parameter(bias, requires_grad=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bs = [None] * len(self.weights) if self.biases is None else list(self.biases)
+        outs = [F.linear(x, w, b) for w, b in zip(self.weights, bs)]
+        return outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
+
+    def partial(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
+        if len(self.weights) == 1 and len(xs) > 1:
+            xs = [torch.cat(list(xs), dim=-1)]
+        if len(xs) != len(self.weights):
+            raise ValueError(f"SegmentedLinear: {len(xs)} inputs for "
+                             f"{len(self.weights)} segments")
+        out = f32_product(xs[0], self.weights[0])
+        for x, w in zip(xs[1:], self.weights[1:]):
+            out = out + f32_product(x, w)
+        return out
+
+
+def slice_segments(t: torch.Tensor, dim: int, sizes: Sequence[int], rank: int,
+                   tp: int, what: str = "tensor") -> List[torch.Tensor]:
+    """Rank ``rank``'s ``1/tp`` of each segment of ``t`` along ``dim``,
+    where ``sizes`` are the segments' lengths in order (views)."""
+    if sum(sizes) != t.shape[dim]:
+        raise ValueError(f"{what}: segments {tuple(sizes)} do not cover dim {dim} of "
+                         f"{tuple(t.shape)}")
+    out, off = [], 0
+    for n in sizes:
+        out.append(slice_tensor(t.narrow(dim, off, n), dim, rank, tp, what))
+        off += n
+    return out
+
+
+# FLUX's fused projections and the segments of their split features
+_FLUX_FUSED = ("img_qkv", "txt_qkv", "lin1", "lin2")
+
+
+def flux_segments(name: str, cfg) -> Tuple[int, ...]:
+    """The segment lengths of a FLUX parameter's split features: ``[q | k |
+    v]`` for ``img_qkv`` / ``txt_qkv``, ``[q | k | v | mlp]`` for ``lin1``'s
+    outputs, ``[o | mlp]`` for ``lin2``'s inputs; one segment otherwise."""
+    module = name.split(".")[-2] if "." in name else ""
+    d, m = cfg.hidden, cfg.mlp_ratio * cfg.hidden
+    return {"img_qkv": (d, d, d), "txt_qkv": (d, d, d), "lin1": (d, d, d, m),
+            "lin2": (d, m)}.get(module, ())
+
+
+def check_flux_split(cfg, tp: int, sp: int = 1, ring: bool = False) -> None:
+    """Raises unless FLUX's heads and MLP split over the grid: ``heads / tp``
+    heads a tp rank, and under Ulysses ``heads / (sp * tp)`` a rank after the
+    all-to-all (the ring needs ``heads / tp`` only)."""
+    mlp = cfg.mlp_ratio * cfg.hidden
+    if cfg.heads % tp or mlp % tp:
+        raise ValueError(f"tp = {tp}: FLUX's {cfg.heads} heads and MLP of {mlp} must "
+                         f"divide by tp")
+    if not ring and (cfg.heads // tp) % sp:
+        raise ValueError(f"sp {sp} x tp {tp}: FLUX's {cfg.heads} heads over {sp * tp} "
+                         f"ranks leave {cfg.heads / (sp * tp):g} a rank; Ulysses needs "
+                         f"heads / (sp * tp) whole (the ring needs heads / tp)")
+
+
+def _sliced(model_cls, cfg, params: Mapping[str, torch.Tensor], rank: int, tp: int,
+            copy: bool, device, sliced, segments, fused_names, join_fused: bool) -> nn.Module:
+    """A ``model_cls(cfg)`` built on the meta device holding rank ``rank``'s
+    slices of ``params``: ``sliced(name, ndim)`` gives a parameter's split
+    dim (None: whole), ``segments(name)`` the segment lengths of a fused
+    projection's split features, whose modules (named in ``fused_names``)
+    become ``SegmentedLinear``s: one view a segment, or one contiguous
+    tensor of the rank's segments with ``copy`` or ``join_fused``."""
+    out = model_cls(cfg, device="meta")
+
+    def own(v: torch.Tensor) -> torch.Tensor:
+        return v.to(device, copy=True).contiguous() if copy else v
+
+    fused: Dict[str, dict] = {}
+    for name, p in params.items():
+        p = p.detach()
+        dim = sliced(name, p.ndim)
+        module, _, leaf = name.rpartition(".")
+        if not (name.startswith(sliced.prefixes) and module.split(".")[-1] in fused_names):
+            _set_param(out, name, own(slice_tensor(p, dim, rank, tp, name)))
+        elif dim is None:           # a fused row projection's whole bias
+            fused.setdefault(module, {})["bias"] = own(p)
+        else:
+            parts = slice_segments(p, dim, segments(name), rank, tp, name)
+            if copy or join_fused:  # the rank's segments, one contiguous tensor
+                parts = [torch.cat(parts, dim=dim).to(device, copy=True).contiguous()]
+            fused.setdefault(module, {})[leaf] = (dim, parts)
+    for module, got in fused.items():
+        dim, weights = got["weight"]
+        seg = SegmentedLinear(weights, dim, biases=got["bias"][1] if dim == 0 else None,
+                              bias=got.get("bias") if dim == 1 else None)
+        parent, attr = module.rsplit(".", 1)
+        setattr(out.get_submodule(parent), attr, seg)
+    left = [n for n, p in out.named_parameters() if p.is_meta]
+    if left:
+        raise ValueError(f"the {model_cls.__name__} weights lack {left[:4]}")
+    out.tp_slice = (rank, tp)
+    return out.eval()
+
+
+class _BlockParams:
+    """``tp_dim`` for the parameters under ``prefixes`` (a model's blocks),
+    None elsewhere."""
+
+    def __init__(self, *prefixes: str):
+        self.prefixes = prefixes
+
+    def __call__(self, name: str, ndim: int) -> Optional[int]:
+        return tp_dim(name, ndim) if name.startswith(self.prefixes) else None
+
+
+flux_tp_sliced = _BlockParams("double_blocks.", "single_blocks.")
+
+
+def _sliced_flux(cfg, params, rank, tp, copy, device) -> nn.Module:
+    from magcache_tpu_torch.models.flux import FluxModel
+
+    check_flux_split(cfg, tp)
+    return _sliced(FluxModel, cfg, params, rank, tp, copy, device, flux_tp_sliced,
+                   lambda name: flux_segments(name, cfg), _FLUX_FUSED, False)
+
+
+def slice_flux(model: nn.Module, rank: int, tp: int, *, copy: bool = False,
+               device=None) -> nn.Module:
+    """Rank ``rank``'s ``FluxModel`` of ``tp`` (``slice_wan``'s contract):
+    its blocks' linears sliced by ``flux_tp_sliced``, the fused ones into
+    ``SegmentedLinear`` modules (``flux_segments``); views of ``model``, or
+    with ``copy`` contiguous copies on ``device``. Carries ``tp_slice``."""
+    params = dict(model.named_parameters())
+    if device is None:
+        device = next(iter(params.values())).device
+    return _sliced_flux(model.cfg, params, rank, tp, copy, device)
+
+
+def flux_from_state_dict(cfg, sd: Mapping[str, torch.Tensor], rank: int, tp: int,
+                         device) -> nn.Module:
+    """Rank ``rank``'s ``FluxModel`` of ``tp`` from a whole state dict on the
+    host: only the rank's slices and the replicated tensors reach
+    ``device``."""
+    return _sliced_flux(cfg, sd, rank, tp, True, device)
+
+
+# the VideoSys trunks' blocks and their fused projections ([q | k | v] and
+# cross-attention's [k | v])
+_VIDEOSYS_BLOCKS = {"STDiT3Model": ("spatial.", "temporal."),
+                    "LatteModel": ("spatial.", "temporal."), "OSPModel": ("blocks.",)}
+
+
+def slice_videosys(model: nn.Module, rank: int, tp: int) -> nn.Module:
+    """Rank ``rank``'s STDiT3, Latte or Open-Sora-Plan v1.2 model of ``tp``
+    by the JAX package's patterns (STDiT3's ``mlp1`` / ``mlp2`` match none,
+    so its MLP stays whole, as in JAX): views of ``model``, but the fused
+    ``qkv`` and ``cross_kv`` as one contiguous copy of the rank's heads of
+    each of q, k, v (k, v), the weight a fused kernel (K7) reads. The heads
+    must divide by tp."""
+    kind = type(model).__name__
+    cfg = model.cfg
+    if cfg.heads % tp:
+        raise ValueError(f"tp = {tp}: {kind}'s {cfg.heads} heads do not divide by tp")
+    d = cfg.hidden
+
+    def segments(name):
+        return (d, d, d) if name.split(".")[-2] == "qkv" else (d, d)
+
+    params = dict(model.named_parameters())
+    device = next(iter(params.values())).device
+    return _sliced(type(model), cfg, params, rank, tp, False, device,
+                   _BlockParams(*_VIDEOSYS_BLOCKS[kind]), segments, ("qkv", "cross_kv"), True)

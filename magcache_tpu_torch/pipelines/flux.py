@@ -18,8 +18,17 @@ scale, and the decode fills ``image``; without one the packed latents are the
 output. ``encode_image`` turns a conditioning image into Kontext's packed
 latents (the JAX CLI's ``_image_to_grid_latent``): through the VAE when the
 pipeline has one, else by the JAX package's checkpoint-free nearest resize
-and channel tile. Not ported yet (raise): multi-device plans
-(``dp``/``sp``/``tp`` > 1).
+and channel tile.
+
+Parallel ranks (``sp * tp > 1``; the JAX pipeline's mesh): the pipeline
+object is one rank's of the (dp, sp, tp) grid, built with the rank's
+``plan`` as ``WanPipeline`` is. Every rank encodes the same prompt and draws
+the same noise, runs the sampler on its ``1/sp`` of the image tokens with
+its ``1/tp`` of the heads (``models.flux.make_flux_core(plan=)``; views of a
+shared ``model`` on local ranks, its own slices otherwise), and returns the
+whole latents, skip bits and calibration ratios. FLUX's batch is one image
+with embedded guidance, so ``dp > 1`` raises, as the JAX ``device_put`` of
+that batch over ``dp`` does.
 """
 
 from __future__ import annotations
@@ -38,6 +47,8 @@ from magcache_tpu_torch.models.flux import (FLUX_DEV, FluxConfig, FluxModel,
                                             make_flux_core, pack_latents, unpack_latents)
 from magcache_tpu_torch.models.published import load_flux_checkpoint
 from magcache_tpu_torch.models.text import MockPooledEncoder, MockTextEncoder
+from magcache_tpu_torch.ops.attention import SP_IMPLS
+from magcache_tpu_torch.parallel.shard import flux_from_state_dict, slice_flux
 from magcache_tpu_torch.models.vae_wan import WanVAE
 from magcache_tpu_torch.pipelines.base import (BasePipeline, PipelineOutput,
                                                calibration_dict, check_image_vae,
@@ -119,9 +130,11 @@ class FluxPipelineConfig:
     # published table through the same pad and resample path
     mag_ratios_override: Optional[tuple] = None
     dtype: str = "bfloat16"
+    # the (dp, sp, tp) grid of the rank's plan; dp must stay 1 (a batch of 1)
     dp: int = 1
-    sp: int = 1
-    tp: int = 1
+    sp: int = 1                          # sequence-parallel ranks (image tokens)
+    tp: int = 1                          # tensor-parallel ranks (heads, MLP)
+    sp_impl: str = "auto"                # "auto" | "ulysses" | "ring"
     ckpt_dir: Optional[str] = None
     lora_path: Optional[str] = None      # a PEFT / kohya adapter, merged at load
     lora_scale: float = 1.0
@@ -132,9 +145,15 @@ class FluxPipelineConfig:
             raise ValueError(f"FLUX model {self.model!r}: one of {FLUX_MODELS}")
         if self.lora_path and not self.ckpt_dir:
             raise ValueError("lora_path merges into a checkpoint: it needs ckpt_dir")
-        if self.dp * self.sp * self.tp > 1:
-            raise NotImplementedError("multi-device FLUX (dp/sp/tp > 1) is "
-                                      "not ported yet")
+        if min(self.dp, self.sp, self.tp) < 1:
+            raise ValueError(f"dp, sp and tp must be at least 1, got {self.dp}, {self.sp}, "
+                             f"{self.tp}")
+        if self.sp_impl not in SP_IMPLS:
+            raise ValueError(f"sp_impl must be one of {SP_IMPLS}, got {self.sp_impl!r}")
+        if self.dp > 1:
+            raise ValueError(f"dp = {self.dp}: FLUX's batch is 1 (one image, embedded "
+                             f"guidance, no CFG lanes), which does not split over dp; "
+                             f"use sp and tp")
 
     def model_config(self) -> FluxConfig:
         if self.tiny:
@@ -151,12 +170,26 @@ class FluxPipeline(BasePipeline):
     Without ``model``, the DiT of ``config.model_config()`` gets random
     weights from a generator seeded with ``init_seed``; a given ``model``
     brings its own config. ``vae`` (an ``SDVAE``) must have the packed
-    latents' channels (``in_channels / 4``) and stride 8."""
+    latents' channels (``in_channels / 4``) and stride 8. With
+    ``config.sp * tp > 1`` it is one rank's pipeline and needs that rank's
+    ``plan`` (of the same grid); local ranks may share one whole ``model``,
+    which tp ranks slice as views. Without ``model`` a tp rank keeps only
+    its own slices (of the checkpoint, or of the seeded random weights,
+    which it draws whole first)."""
 
     def __init__(self, config: FluxPipelineConfig, device="cuda", text_encoder=None,
                  pooled_encoder=None, model: Optional[FluxModel] = None,
-                 init_seed: int = 0, vae=None):
+                 init_seed: int = 0, vae=None, plan=None):
+        want = (config.dp, config.sp, config.tp)
+        got = (plan.dp, plan.sp, plan.tp) if plan is not None else (1, 1, 1)
+        if got != want:
+            raise ValueError(
+                f"FluxPipeline: config dp {config.dp} x sp {config.sp} x tp {config.tp} "
+                f"needs a plan of that grid, got "
+                f"{'none' if plan is None else plan.describe()} (start the ranks with "
+                f"torchrun, or with parallel.mesh.run_local_ranks)")
         self.config = config
+        self.plan = plan
         c = config
         self.device = torch.device(device)
         self.grid = c.packed_grid()
@@ -164,7 +197,13 @@ class FluxPipeline(BasePipeline):
         # the model's tokens pack 2x2 latent positions
         check_image_vae(vae, model_cfg.in_channels // 4, VAE_SPATIAL_STRIDE)
         self.vae = vae
-        if model is None:
+        tp = c.tp
+        if model is None and c.ckpt_dir and tp > 1:
+            # only this rank's slices reach the device
+            model = flux_from_state_dict(model_cfg, load_flux_checkpoint(
+                c.ckpt_dir, model_cfg, "cpu", c.lora_path, c.lora_scale),
+                plan.tp_rank, tp, self.device)
+        elif model is None:
             model = FluxModel(model_cfg, self.device)
             if c.ckpt_dir:
                 # on the card: an adapter merges there, in f32
@@ -172,9 +211,11 @@ class FluxPipeline(BasePipeline):
                     c.ckpt_dir, model_cfg, self.device, c.lora_path, c.lora_scale))
             else:
                 model.init(set_seed(init_seed, device=self.device))
+            if tp > 1:              # the seeded weights drawn whole, then sliced
+                model = slice_flux(model, plan.tp_rank, tp, copy=True)
         self.model_cfg = model.cfg
         self.model = model.requires_grad_(False).eval()
-        self.core = make_flux_core(self.model, c.txt_len, *self.grid)
+        self.core = self._make_core(False)
         self._core_kontext = None    # built on the first conditioned call
         self.text_encoder = text_encoder or MockTextEncoder(
             c.txt_len, self.model_cfg.text_dim, scale=0.5)
@@ -216,12 +257,15 @@ class FluxPipeline(BasePipeline):
                                    self.model_cfg.in_channels // 4)
         return pack_latents(torch.from_numpy(np.ascontiguousarray(lat))[None]).to(self.device)
 
+    def _make_core(self, kontext: bool):
+        return make_flux_core(self.model, self.config.txt_len, *self.grid, kontext=kontext,
+                              plan=self.plan, sp_impl=self.config.sp_impl)
+
     def _core(self, kontext: bool):
         if not kontext:
             return self.core
         if self._core_kontext is None:
-            self._core_kontext = make_flux_core(
-                self.model, self.config.txt_len, *self.grid, kontext=True)
+            self._core_kontext = self._make_core(True)
         return self._core_kontext
 
     def _initial_noise(self, seed: int) -> torch.Tensor:
@@ -260,7 +304,8 @@ class FluxPipeline(BasePipeline):
         sch = self.schedule
         common = dict(timesteps=sch.timesteps, dts=np.diff(sch.sigmas))
         if calibrate:
-            latents, stats = sample_euler(core, x0, cond, calibrate=True, **common)
+            latents, stats = sample_euler(core, x0, cond, calibrate=True, plan=self.plan,
+                                          **common)
             calibration, skips = calibration_dict(stats), None
         else:
             cache_cfg = (self._cache_cfg()

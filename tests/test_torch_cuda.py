@@ -929,6 +929,25 @@ def test_ring_merge_of_k1c_matches_k1(dev):
                                atol=2e-3 + 3 * 2 ** -11, rtol=2e-2)
 
 
+# Ulysses and the ring at head dim 72 with no scale given: on the card q, k
+# and v are zero-padded to K1b's / K1c's 128 lanes, and the softmax scale
+# stays 1/sqrt(72) of the unpadded heads. Tolerances as above: the ring's
+# one merge rounds o to bf16 once more (half an ulp of |o| < 0.25)
+@pytest.mark.parametrize("impl", ["ulysses", "ring"])
+def test_sp_attention_at_head_dim_72_scales_by_the_unpadded_dim(dev, impl):
+    from magcache_tpu_torch.parallel import collectives as C
+    from magcache_tpu_torch.parallel.mesh import run_local_ranks
+
+    q, k, v = (_rand(dev, 2, 2 * 300, 4, 72, seed=80 + i) for i in range(3))
+    want = A.flash_attention_bshd_plain(q, k, v)
+    fn = C.ulysses_attention if impl == "ulysses" else C.ring_attention
+    outs = run_local_ranks(2, lambda plan: fn(
+        *(C.split_sequence(t, plan) for t in (q, k, v)), plan), device=dev)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(torch.cat(outs, 1).float(), want.float(),
+                               atol=2e-3 + 2 ** -11, rtol=2e-2)
+
+
 # K3p rounds once, at the store, as its plain version: a tie may flip after
 # a differently ordered f32 sum -> one bf16 ulp at |y| < 8
 @pytest.mark.parametrize("b,s,d", [(2, 300, 1536), (1, 129, 1152), (3, 7, 104),

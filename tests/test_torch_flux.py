@@ -292,10 +292,15 @@ def test_skip_mask_for_and_skip_override_match_jax(monkeypatch):
 
 def test_pipeline_unported_paths_raise():
     for kw, exc in ((dict(lora_path="x.safetensors"), ValueError),
-                    (dict(dp=2), NotImplementedError), (dict(tp=2), NotImplementedError),
+                    (dict(dp=2), ValueError), (dict(tp=0), ValueError),
                     (dict(model="flux-schnell"), ValueError)):
         with pytest.raises(exc):
             tpipe.FluxPipelineConfig(tiny=True, **kw)
+    with pytest.raises(ValueError, match="batch is 1"):
+        tpipe.FluxPipelineConfig(tiny=True, dp=2)
+    # sp and tp run on a plan of their grid (tests/test_torch_tp_flux.py)
+    with pytest.raises(ValueError, match="needs a plan of that grid"):
+        tpipe.FluxPipeline(tpipe.FluxPipelineConfig(tiny=True, tp=2), "cpu")
     # a checkpoint directory is loaded (tests/test_torch_lora.py loads real ones)
     with pytest.raises(FileNotFoundError, match="/nonexistent"):
         tpipe.FluxPipeline(tpipe.FluxPipelineConfig(tiny=True, ckpt_dir="/nonexistent"), "cpu")

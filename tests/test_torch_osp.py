@@ -357,8 +357,10 @@ def test_osp_routes_and_plan_raise():
     _, _, model = _models("float32")
     with pytest.raises(ValueError, match="route"):
         T.make_osp_core(model, GRID, CAP, route="grouped")
-    with pytest.raises(NotImplementedError, match="sequence-parallel"):
-        T.make_osp_core(model, GRID, CAP, plan=object())
+    # a plan runs the unpacked blocks on the rank's shards
+    # (tests/test_torch_mesh_videosys.py); the grouped route takes none
+    with pytest.raises(ValueError, match="route"):
+        T.make_osp_core(model, GRID, CAP, route="grouped", plan=object())
     with pytest.raises(ValueError, match="timesteps"):
         T.make_osp_core(model, GRID, CAP, pab=tpab.OSP_V120_PAB)
 
